@@ -1,0 +1,110 @@
+"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+
+At first use, every ``csrc/*.cu`` file is compiled for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
+plain C interface under ``_build/``, named by a hash of the sources and
+flags, and loaded with ``ctypes``. No PyTorch header is compiled, so a build
+takes seconds. Each C entry point launches on the stream it is given and
+returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C entry points and their argument types (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits).
+SIGNATURES = {
+    "vrvg_attention": [_P, _P, _P, _P, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _L, _L, _P],
+    "vrvg_warp_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _P],
+    "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = os.path.join(cand, "bin", "nvcc") if cand else ""
+        if path and os.path.exists(path):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libvrvg_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the CUDA sources unless this exact build exists; returns the
+    library path. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory,
+    spills) and prints nvcc's output."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vrvg_error_string.argtypes = [ctypes.c_int]
+    lib.vrvg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        text = library().vrvg_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({text})")

@@ -7,14 +7,20 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from csrc/ with nvcc and compile the Triton
-     LayerNorm;
-  3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (1080p, vits, batch 8), with CUDA-event timings of both;
-  4. the main path: 3 batches of 8 random 1080x1920 frames through
-     ``runtime.segment.process_segment`` with vits, bf16 and seeded random
-     weights, with the kernels' launch counts, the frame rate, and checks of
-     the output against the input and against the plain versions.
+  2. build the CUDA kernels from csrc/ with nvcc (one process per source,
+     all started together) and compile the Triton LayerNorm;
+  3. each of the eight kernels against its plain PyTorch version on the
+     card at the main path's shapes (1080p, vits, batch 8), with CUDA-event
+     timings of both, of one PyTorch library call where one computes the
+     same function, and the least time the card could take (bound);
+  4. the main paths through ``runtime.segment.process_segment`` with vits,
+     bf16 and seeded random weights, each with the launch counts reset just
+     before it and read just after: the fused path (``--mlp_fused fused
+     --tail fused``, 3 batches of 8 random 1080x1920 frames, every kernel
+     required, no host sync in a step, the output held against the input,
+     the plain warp and the plain versions' depth), slice 1's unfused path
+     (``xla``/``xla``, 1 batch, rows 1-4 required) and one batch of the
+     default ``auto`` path (the kernels ``auto`` picks on the card).
 
 It prints the per-kernel JSON line before the last line, and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -32,8 +38,14 @@ import time
 
 import numpy as np
 
-H, W, B, N_BATCHES = 1080, 1920, 8, 3
+H, W, B = 1080, 1920, 8
+N_TOK, DIM, HEADS = 2443, 384, 6  # 37 x 66 patches + cls at 1080p, vits
+FEATURES, H0, W0 = 64, 148, 264   # refinenet1's pre-upsample grid, vits
 SEED = 0
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s and
+# bf16 tensor-core FLOP/s, for each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 # bf16 LayerNorm bound of the JAX package's tests (tests/test_layernorm.py).
 LN_ATOL, LN_RTOL = 2e-2, 1e-2
 # Online rescaling and the bf16 probabilities reorder the rounding. The
@@ -42,6 +54,30 @@ LN_ATOL, LN_RTOL = 2e-2, 1e-2
 # mean against mean |o|).
 ATTN_MAX_ABS, ATTN_MEAN_ABS = 2e-2, 1e-3
 ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
+# The dense kernels (rows 5, 6, 8) against their plain versions, both bf16
+# at the same rounding points: their f32 sums (the LayerNorm's and the
+# GEMM's) run in another order, so an output differs only where an f32 value
+# sits at a bf16 rounding boundary. Bounds: the fraction of outputs that
+# differ at all, and the largest difference in bf16 ulps of the output's
+# scale: the larger of the output, the operands of its final sums (bias,
+# residual, the product they were added to) and the RMS of its output
+# feature. The feature's RMS stands for the dot product's terms: one ulp of
+# a LayerNorm output moves a product by ~1e-3 whatever the product's own
+# size, so a product near zero would count that as many of its own ulps.
+# Measured at these shapes (NVIDIA H100 80GB HBM3, 700.00 W): ln_qkv 1.5e-4
+# of outputs differ, by at most 2 ulps; proj_ls_residual none; mlp_residual
+# 3.4e-4, 2 ulps. The bounds leave 15x (fraction) and 2x (ulps) of margin.
+# A copy of ln_qkv that
+# adds the bias before the cast moved 0.306 of its outputs and was refused
+# (python3 -m vr_video_generator_tpu_torch.bias_order_check).
+GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
+                 "mlp_residual": 0.005}
+GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4}
+# The DPT tail's f32 depth against its plain version, relative to the
+# output's range: a one-ulp flip of a bf16 intermediate moves single pixels
+# (measured on an NVIDIA H100 80GB HBM3, 700.00 W: max 1.7e-3, mean 1.5e-6 of
+# the range).
+TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # Depth through the kernels against the plain versions. A random-weight
 # 12-block ViT amplifies any one-ulp bf16 difference: on the H100 the plain
 # bf16 path itself is up to ~3.8% of the depth range off the same weights in
@@ -50,17 +86,30 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # DEPTH_FLOOR times the plain bf16 path's, in max and in mean.
 DEPTH_REL = 0.02
 DEPTH_FLOOR = 1.25
+PKG = "vr_video_generator_tpu_torch"
+JAX_PKG = "vr_video_generator_tpu"
 KERNELS = {
-    "layernorm": ("triton", "vr_video_generator_tpu_torch/ops/layernorm.py",
-                  "vr_video_generator_tpu/ops/layernorm.py:33"),
-    "attention": ("cuda", "vr_video_generator_tpu_torch/csrc/attention.cu",
-                  "vr_video_generator_tpu/ops/attention_pallas.py:43"),
-    "warp_composite": ("cuda", "vr_video_generator_tpu_torch/csrc/warp.cu",
-                       "vr_video_generator_tpu/ops/warp_pallas.py:45"),
-    "blur_select_sbs": ("cuda",
-                        "vr_video_generator_tpu_torch/csrc/blur_select.cu",
-                        "vr_video_generator_tpu/ops/warp_pallas.py:301"),
+    "layernorm": ("triton", f"{PKG}/ops/layernorm.py",
+                  f"{JAX_PKG}/ops/layernorm.py:33"),
+    "attention": ("cuda", f"{PKG}/csrc/attention.cu",
+                  f"{JAX_PKG}/ops/attention_pallas.py:43"),
+    "warp_composite": ("cuda", f"{PKG}/csrc/warp.cu",
+                       f"{JAX_PKG}/ops/warp_pallas.py:45"),
+    "blur_select_sbs": ("cuda", f"{PKG}/csrc/blur_select.cu",
+                        f"{JAX_PKG}/ops/warp_pallas.py:301"),
+    "ln_qkv": ("cuda", f"{PKG}/csrc/qkv.cu",
+               f"{JAX_PKG}/ops/qkv_pallas.py:59"),
+    "proj_ls_residual": ("cuda", f"{PKG}/csrc/qkv.cu",
+                         f"{JAX_PKG}/ops/qkv_pallas.py:137"),
+    "mlp_residual": ("cuda", f"{PKG}/csrc/mlp.cu",
+                     f"{JAX_PKG}/ops/mlp_pallas.py:66"),
+    "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail.cu",
+                      f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
 }
+# The kernels each main path must launch. ``auto`` on the card at vits fuses
+# the attention half and the tail, and keeps the MLP half unfused (D < 512).
+SLICE1 = ("layernorm", "attention", "warp_composite", "blur_select_sbs")
+AUTO_VITS = SLICE1 + ("ln_qkv", "proj_ls_residual", "head_tail_ext")
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +125,68 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the tensor-core FLOPs over the bf16 peak."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def operand_ulps(got, want, feature_dims, *addends):
+    """|got - want| in bf16 ulps of the output's scale: the largest of
+    |want|, the RMS of its feature (over all but the last ``feature_dims``
+    axes), each addend's magnitude (broadcast against the output) and what
+    is left of want when the addends are taken off (the product the bias or
+    the residual was added to)."""
+    import torch
+
+    w = want.float()
+    lead = tuple(range(w.ndim - feature_dims))
+    size = torch.maximum(w.abs(), w.square().mean(dim=lead).sqrt())
+    rest = w
+    for t in addends:
+        size = torch.maximum(size, t.float().abs())
+        rest = rest - t.float()
+        size = torch.maximum(size, rest.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(size.clamp_min(2.0 ** -126))) - 7)
+    return (got.float() - w).abs() / ulp
+
+
+def gemm_addends(name: str, want, args):
+    """What each dense kernel adds to its product, as operand_ulps takes
+    them: the bias (scaled like q on q's columns) for ln_qkv; the residual x
+    and gamma * bias for proj_ls_residual and mlp_residual."""
+    if name == "ln_qkv":
+        b, heads, scale = args[4], args[5], args[6]
+        bias = b.float().reshape(3, heads, -1).clone()
+        bias[0] *= scale
+        return (bias,)
+    x, gamma, b = (args[1], args[4], args[3]) if name == "proj_ls_residual" \
+        else (args[0], args[7], args[6])
+    return x, gamma.float() * b.float()
+
+
+def gemm_check(name: str, got, want, args) -> dict:
+    """Rows 5, 6, 8: the share of bf16 outputs that differ and the largest
+    difference in ulps of the largest operand, each against its bound."""
+    ulps = operand_ulps(got, want, 3 if name == "ln_qkv" else 1,
+                        *gemm_addends(name, want, args))
+    stats = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                 max_ulps=ulps.max().item(),
+                 frac_differ=(got != want).float().mean().item())
+    require(stats["frac_differ"] <= GEMM_MAX_FRAC[name]
+            and stats["max_ulps"] <= GEMM_MAX_ULPS[name],
+            f"{name}: {json.dumps(stats)} over bounds: fraction "
+            f"{GEMM_MAX_FRAC[name]}, ulps {GEMM_MAX_ULPS[name]}")
+    return stats
+
+
 def synthetic_depth(rng, device):
     """(B, H, W) depth: a left-to-right ramp over [0, 14] plus noise, so
     many shifts are live and the warp leaves holes."""
@@ -86,15 +197,54 @@ def synthetic_depth(rng, device):
     return torch.from_numpy(np.clip(ramp + noise, 0.0, None)).to(device)
 
 
+def randn(gen, shape, scale=1.0, shift=0.0, dtype=None):
+    import torch
+
+    t = torch.randn(shape, generator=gen, device=gen.device) * scale + shift
+    return t.to(dtype) if dtype is not None else t
+
+
+def check_ln_qkv(device) -> dict:
+    """Row 5 at main-path shapes. Module-level so a deliberately broken
+    copy of the kernel can be held against the same check."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, ln_qkv_plain
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    bf = torch.bfloat16
+    x = randn(gen, (B, N_TOK, DIM), dtype=bf)
+    lnw, lnb = randn(gen, (DIM,), 0.1, 1.0), randn(gen, (DIM,), 0.1)
+    w = randn(gen, (3 * DIM, DIM), DIM ** -0.5, dtype=bf)
+    b = randn(gen, (3 * DIM,), 0.5, dtype=bf)
+    args = (x, lnw, lnb, w, b, HEADS, 64 ** -0.5)
+    got, want = ln_qkv(*args), ln_qkv_plain(*args)
+    torch.cuda.synchronize()
+    stats = gemm_check("ln_qkv", got, want, args)
+    m = B * N_TOK
+    return dict(**stats, ms=event_ms(lambda: ln_qkv(*args)),
+                plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
+                library_ms=None,
+                **bound(nbytes(x, lnw, lnb, w, b, got), 2 * m * DIM * 3 * DIM))
+
+
 def kernel_parity(device, rng, results):
     """Phase 3: each kernel against its plain version at main-path shapes."""
     import torch
+    import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch import StereoConfig
     from vr_video_generator_tpu_torch.ops.attention import (attention,
                                                              attention_plain)
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_ext, head_tail_ext_plain)
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
                                                              layernorm_plain)
+    from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
+                                                       mlp_residual_plain)
+    from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual,
+                                                       proj_ls_residual_plain)
     from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                             temporal_scan)
     from vr_video_generator_tpu_torch.ops.warp import (
@@ -102,34 +252,39 @@ def kernel_parity(device, rng, results):
         warp_composite_plain)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    n_tok, dim, heads = 2443, 384, 6  # 37 x 66 patches + cls at 1080p
     gen = torch.Generator(device=device).manual_seed(SEED)
+    bf = torch.bfloat16
+    m = B * N_TOK
 
-    x = torch.randn(B * n_tok, dim, generator=gen, device=device).to(torch.bfloat16)
-    w = torch.randn(dim, generator=gen, device=device)
-    b = torch.randn(dim, generator=gen, device=device)
+    x = torch.randn(m, DIM, generator=gen, device=device).to(bf)
+    w = torch.randn(DIM, generator=gen, device=device)
+    b = torch.randn(DIM, generator=gen, device=device)
     got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     require(bool((err <= LN_ATOL + LN_RTOL * want.float().abs()).all()),
             f"layernorm: max abs err {err.max().item()} over "
             f"atol {LN_ATOL} + rtol {LN_RTOL}")
+    # The library call takes its affine in the input's dtype.
+    wb, bb = w.to(bf), b.to(bf)
     results["layernorm"] = dict(
         max_abs_err=err.max().item(),
         ms=event_ms(lambda: layernorm(x, w, b)),
-        plain_ms=event_ms(lambda: layernorm_plain(x, w, b)))
+        plain_ms=event_ms(lambda: layernorm_plain(x, w, b)),
+        library_ms=event_ms(lambda: F.layer_norm(x, (DIM,), wb, bb, 1e-6)),
+        **bound(nbytes(x, w, b, got), 0))
 
     # q pre-scaled as mha does; k and v strided views into a fused qkv.
     # The other logits have std ~1.5 (a peaked softmax), and head dim 0 adds
     # the same -4 to every logit: the softmax over the real keys is
     # unchanged, but a key at or past N that the kernel failed to mask
     # (logit 0) would weigh as much as e^4 real keys.
-    qkv = torch.randn(B, n_tok, 3, heads, 64, generator=gen, device=device)
+    qkv = torch.randn(B, N_TOK, 3, HEADS, 64, generator=gen, device=device)
     qkv[:, :, 1] *= 1.5
     qkv[:, :, 0, :, 0] = 4.0
     qkv[:, :, 1, :, 0] = -8.0
-    qkv = qkv.to(torch.bfloat16)
-    q = (qkv[:, :, 0].float() * 64 ** -0.5).to(torch.bfloat16)
+    qkv = qkv.to(bf)
+    q = (qkv[:, :, 0].float() * 64 ** -0.5).to(bf)
     k, v = qkv[:, :, 1], qkv[:, :, 2]
     got, want = attention(q, k, v), attention_plain(q, k, v)
     torch.cuda.synchronize()
@@ -145,11 +300,81 @@ def kernel_parity(device, rng, results):
             f"attention: {json.dumps(stats)} over bounds max abs "
             f"{ATTN_MAX_ABS}, mean abs {ATTN_MEAN_ABS}, max rel "
             f"{ATTN_MAX_REL}, mean rel {ATTN_MEAN_REL}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     results["attention"] = dict(
         **stats,
         ms=event_ms(lambda: attention(q, k, v)),
-        plain_ms=event_ms(lambda: attention_plain(q, k, v)))
-    del qkv, q, k, v, got, want
+        plain_ms=event_ms(lambda: attention_plain(q, k, v)),
+        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=1.0)),
+        **bound(nbytes(q, k, v, got), 4 * B * HEADS * N_TOK ** 2 * 64))
+    del qkv, q, k, v, qt, kt, vt, got, want
+
+    results["ln_qkv"] = check_ln_qkv(device)
+
+    o = randn(gen, (B, N_TOK, HEADS, 64), dtype=bf)
+    xr = randn(gen, (B, N_TOK, DIM), dtype=bf)
+    wp = randn(gen, (DIM, DIM), DIM ** -0.5, dtype=bf)
+    bp = randn(gen, (DIM,), 0.5, dtype=bf)
+    gp = randn(gen, (DIM,), 0.1, 1.0, dtype=bf)
+    args = (o, xr, wp, bp, gp)
+    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
+    torch.cuda.synchronize()
+    results["proj_ls_residual"] = dict(
+        **gemm_check("proj_ls_residual", got, want, args),
+        ms=event_ms(lambda: proj_ls_residual(*args)),
+        plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
+        library_ms=None, **bound(nbytes(*args, got), 2 * m * DIM * DIM))
+
+    hid = 4 * DIM
+    args = (xr, randn(gen, (DIM,), 0.1, 1.0), randn(gen, (DIM,), 0.1),
+            randn(gen, (hid, DIM), DIM ** -0.5, dtype=bf),
+            randn(gen, (hid,), 0.5, dtype=bf),
+            randn(gen, (DIM, hid), hid ** -0.5, dtype=bf),
+            randn(gen, (DIM,), 0.5, dtype=bf), gp)
+    got, want = mlp_residual(*args), mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    results["mlp_residual"] = dict(
+        **gemm_check("mlp_residual", got, want, args),
+        ms=event_ms(lambda: mlp_residual(*args)),
+        plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
+        library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * DIM * hid))
+    del o, xr, args, got, want
+
+    # Row 7 on refinenet1's pre-upsample activation as the model hands it
+    # over: an NCHW tensor seen as (B, H0, W0, C).
+    c, c2, c3 = FEATURES, FEATURES // 2, 32
+    h1, w1 = 518, 924
+    xt = randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
+    wts = (randn(gen, (c, c, 1, 1), c ** -0.5, dtype=bf),
+           randn(gen, (c,), 0.1, dtype=bf),
+           randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=bf),
+           randn(gen, (c2,), 0.1, dtype=bf),
+           randn(gen, (c3, c2, 3, 3), (9 * c2) ** -0.5, dtype=bf),
+           randn(gen, (c3,), 0.1, dtype=bf),
+           randn(gen, (1, c3, 1, 1), c3 ** -0.5, dtype=bf),
+           randn(gen, (1,), 0.1, 0.5, dtype=bf))
+    got = head_tail_ext(xt, *wts, (h1, w1))
+    want = head_tail_ext_plain(xt, *wts, (h1, w1))
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    span = (want.max() - want.min()).item()
+    stats = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                 max_rel_err=err.max().item() / span,
+                 mean_rel_err=err.mean().item() / span, range=span,
+                 frac_nonzero=(want > 0).float().mean().item())
+    require(span > 0 and stats["max_rel_err"] <= TAIL_MAX_REL
+            and stats["mean_rel_err"] <= TAIL_MEAN_REL,
+            f"head_tail_ext: {json.dumps(stats)} over bounds max rel "
+            f"{TAIL_MAX_REL}, mean rel {TAIL_MEAN_REL} of the range")
+    hm, w2 = 2 * H0, 2 * W0
+    flops = 2 * B * (H0 * W0 * c * c + hm * w2 * c2 * 9 * c
+                     + h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)
+    results["head_tail_ext"] = dict(
+        **stats, ms=event_ms(lambda: head_tail_ext(xt, *wts, (h1, w1))),
+        plain_ms=event_ms(lambda: head_tail_ext_plain(xt, *wts, (h1, w1))),
+        library_ms=None, **bound(nbytes(xt, *wts, got), flops))
+    del xt, wts, got, want
 
     spec = WarpSpec.create(H, W, StereoConfig())
     imgs = torch.from_numpy(
@@ -173,7 +398,9 @@ def kernel_parity(device, rng, results):
         ms=event_ms(lambda: warp_composite(imgs, blended, st, spec.s_neg,
                                           spec.s_pos)),
         plain_ms=event_ms(lambda: warp_composite_plain(imgs, blended, st,
-                                                      spec.s_neg, spec.s_pos)))
+                                                      spec.s_neg, spec.s_pos)),
+        library_ms=None,
+        **bound(nbytes(imgs, blended, *st, comp, cov), 0))
 
     args = (comp_p, cov_p, imgs, st.edge_width, spec.kernel_size,
             spec.cfg.sigma)
@@ -183,7 +410,9 @@ def kernel_parity(device, rng, results):
     require(sbs_err == 0, f"blur_select_sbs differs from plain by {sbs_err}")
     results["blur_select_sbs"] = dict(
         max_abs_err=sbs_err, ms=event_ms(lambda: blur_select_sbs(*args)),
-        plain_ms=event_ms(lambda: blur_select_sbs_plain(*args)))
+        plain_ms=event_ms(lambda: blur_select_sbs_plain(*args)),
+        library_ms=None,
+        **bound(nbytes(comp_p, cov_p, imgs, st.edge_width, sbs), 0))
     for name, r in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
 
@@ -192,46 +421,91 @@ class PlainKernels:
     """Swap the model's kernel wrappers for their plain versions (to hold
     the kernel path against the plain path on the same card)."""
 
-    def __enter__(self):
-        from vr_video_generator_tpu_torch.models import dinov2
-        from vr_video_generator_tpu_torch.ops import attention, layernorm
+    SWAPS = (("models.dinov2", "layernorm", "ops.layernorm", "layernorm_plain"),
+             ("ops.attention", "attention", "ops.attention", "attention_plain"),
+             ("models.dinov2", "attention", "ops.attention", "attention_plain"),
+             ("models.dinov2", "ln_qkv", "ops.qkv", "ln_qkv_plain"),
+             ("models.dinov2", "proj_ls_residual", "ops.qkv",
+              "proj_ls_residual_plain"),
+             ("models.dinov2", "mlp_residual", "ops.mlp", "mlp_residual_plain"),
+             ("models.dpt", "head_tail_ext", "ops.head_tail",
+              "head_tail_ext_plain"))
 
-        self._saved = (dinov2.layernorm, attention.attention)
-        dinov2.layernorm = layernorm.layernorm_plain
-        attention.attention = attention.attention_plain
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for mod, name, src, plain in self.SWAPS:
+            target = importlib.import_module(f"{PKG}.{mod}")
+            self._saved.append((target, name, getattr(target, name)))
+            setattr(target, name,
+                    getattr(importlib.import_module(f"{PKG}.{src}"), plain))
         return self
 
     def __exit__(self, *exc):
-        from vr_video_generator_tpu_torch.models import dinov2
-        from vr_video_generator_tpu_torch.ops import attention
-
-        dinov2.layernorm, attention.attention = self._saved
+        for target, name, fn in reversed(self._saved):
+            setattr(target, name, fn)
         return False
 
 
-def main_path(device, rng, card):
-    """Phase 4: the port's main path through process_segment."""
+def drive(pipe, frames, batch):
+    """One process_segment over ``frames`` with the launch counts reset just
+    before it and read just after: (counts, writer, frames written, s)."""
     import torch
 
-    from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.kernels import (launch_counts,
                                                        reset_launch_counts)
-    from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
-    from vr_video_generator_tpu_torch.ops.warp import warp_composite_plain
-    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
     from vr_video_generator_tpu_torch.runtime.segment import process_segment
-    from vr_video_generator_tpu_torch.stage_bench import (
-        CollectingWriter, MemoryReader, calibrate_random_scaler)
+    from vr_video_generator_tpu_torch.stage_bench import (CollectingWriter,
+                                                          MemoryReader)
+
+    writer = CollectingWriter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n = process_segment(pipe, MemoryReader(frames), writer, 0, len(frames),
+                        max_frame_count=15, batch_size=batch)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return launch_counts(), writer, n, elapsed
+
+
+def check_output(writer, n, frames) -> None:
+    out = np.stack(writer.frames)
+    require(n == len(frames) and out.shape == (len(frames), H, 2 * W, 3)
+            and out.dtype == np.uint8,
+            f"output {out.shape} {out.dtype}, {n} frames written")
+    require(np.array_equal(out[:, :, W:], frames),
+            "right half of the SBS differs from the input")
+
+
+def make_pipe(device, mlp_fused, tail):
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
     cfg = RunConfig(encoder="vits", batch_size=B, compute_dtype="bfloat16",
-                    mlp_fused="xla", tail="xla", max_frame_count=15)
+                    mlp_fused=mlp_fused, tail=tail, max_frame_count=15)
     t0 = time.perf_counter()
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device=device,
                               seed=SEED)
-    log(f"model: vits, bf16, random weights (numpy seed {SEED}), "
-        f"{time.perf_counter() - t0:.2f} s to build")
-    frames = rng.integers(0, 256, (N_BATCHES * B, H, W, 3), dtype=np.uint8)
+    log(f"model: vits, bf16, mlp_fused={mlp_fused}, tail={tail}, random "
+        f"weights (numpy seed {SEED}), {time.perf_counter() - t0:.2f} s to "
+        f"build")
+    return cfg, pipe
 
+
+def main_path(device, rng, card):
+    """Phase 4: the port's main paths through process_segment."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
+    from vr_video_generator_tpu_torch.ops.warp import warp_composite_plain
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    frames = rng.integers(0, 256, (3 * B, H, W, 3), dtype=np.uint8)
+
+    # The fused path: every kernel of the slice.
+    cfg, pipe = make_pipe(device, "fused", "fused")
     scaler = calibrate_random_scaler(pipe, frames[:B])
     log(f"depth scaler calibrated to {scaler:.6g} on the first batch")
     _, state = pipe.step(frames[:B], pipe.initial_state())  # warm-up
@@ -245,31 +519,17 @@ def main_path(device, rng, card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("main path step: no host sync (torch.cuda sync debug mode 'error')")
+    log("fused path step: no host sync (torch.cuda sync debug mode 'error')")
 
-    writer = CollectingWriter()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    n = process_segment(pipe, MemoryReader(frames), writer, 0, len(frames),
-                        max_frame_count=cfg.max_frame_count, batch_size=B)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = launch_counts()
+    counts, writer, n, elapsed = drive(pipe, frames, B)
     fps = len(frames) / elapsed
-    log(f"main path: {n} frames in {elapsed:.4f} s = {fps:.3f} frames/s "
+    log(f"fused path: {n} frames in {elapsed:.4f} s = {fps:.3f} frames/s "
         f"on {card}")
-    log(f"launch counts: {json.dumps(counts)}")
+    log(f"fused path launch counts: {json.dumps(counts)}")
     for name in KERNELS:
         require(counts.get(name, 0) > 0,
-                f"kernel {name} was not launched on the main path")
-
-    out = np.stack(writer.frames)
-    require(n == len(frames) and out.shape == (len(frames), H, 2 * W, 3)
-            and out.dtype == np.uint8,
-            f"output {out.shape} {out.dtype}, {n} frames written")
-    require(np.array_equal(out[:, :, W:], frames),
-            "right half of the SBS differs from the input")
-    require(bool(np.isfinite(out).all()), "non-finite output")
+                f"kernel {name} was not launched on the fused path")
+    check_output(writer, n, frames)
 
     # The step's SBS against the plain warp of its own blended depth.
     batch = pipe.frames_to_device(frames[:B])
@@ -286,13 +546,36 @@ def main_path(device, rng, card):
     require(n_bad == 0, f"step SBS differs from the plain warp in {n_bad} values")
     live = st.valid.sum(dim=1).tolist()
     holes = 1.0 - cov.float().mean().item()
-    log(f"main path warp: live shifts per frame {live} of "
+    log(f"fused path warp: live shifts per frame {live} of "
         f"{pipe.spec.s_neg + pipe.spec.s_pos + 1}, hole fraction {holes:.4f}, "
         f"depth range [{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
-
     depth_stats = depth_agreement(pipe, cfg, batch, depth)
+    model_cfg = pipe.model.cfg
+    del pipe, batch, sbs, plain_sbs, depth, blended
+    torch.cuda.empty_cache()
+
+    # Slice 1's unfused path, cut to one batch, and one batch of auto.
+    paths = {}
+    for mlp_fused, tail, need in (("xla", "xla", SLICE1),
+                                  ("auto", "auto", AUTO_VITS)):
+        _, p = make_pipe(device, mlp_fused, tail)
+        p.model.cfg = model_cfg  # the calibrated scaler
+        p.step(frames[:B], p.initial_state())  # warm-up
+        got, w_, n_, secs = drive(p, frames[:B], B)
+        log(f"{mlp_fused}/{tail} path: {n_} frames in {secs:.4f} s; launch "
+            f"counts {json.dumps(got)}")
+        launched = {k for k, v in got.items() if v > 0}
+        require(launched == set(need),
+                f"{mlp_fused}/{tail} path launched {sorted(launched)}, "
+                f"expected {sorted(need)}")
+        check_output(w_, n_, frames[:B])
+        paths[f"{mlp_fused}/{tail}"] = dict(frames=n_, seconds=secs,
+                                            launches=got)
+        del p
+        torch.cuda.empty_cache()
     return counts, dict(frames=n, seconds=elapsed, fps=fps,
-                        live_shifts=live, hole_fraction=holes, **depth_stats)
+                        live_shifts=live, hole_fraction=holes,
+                        other_paths=paths, **depth_stats)
 
 
 def depth_agreement(pipe, cfg, batch, depth):
@@ -332,6 +615,39 @@ def depth_agreement(pipe, cfg, batch, depth):
     return stats
 
 
+def setup(verbose_build: bool = False):
+    """The card, the numeric settings of every reference, and the built
+    kernels; returns (device, the nvidia-smi card line)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS may otherwise reduce bf16 products in reduced precision; the
+    # plain versions accumulate in f32, as the kernels do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device("cuda", 0)
+
+    from vr_video_generator_tpu_torch.kernels import build
+    from vr_video_generator_tpu_torch.ops.layernorm import layernorm
+    from vr_video_generator_tpu_torch.stage_bench import card_line
+
+    card = card_line()
+    log(card)  # nvidia-smi's own "name, power.limit" line
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    if verbose_build:
+        build.build(verbose=True)
+    build.library()
+    t_nvcc = time.perf_counter() - t0
+    x = torch.zeros(4, DIM, dtype=torch.bfloat16, device=device)
+    layernorm(x, torch.ones(DIM, device=device), torch.zeros(DIM, device=device))
+    torch.cuda.synchronize()
+    log(f"build: nvcc {t_nvcc:.2f} s, with the Triton LayerNorm "
+        f"{time.perf_counter() - t0:.2f} s")
+    return device, card
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--verbose-build", action="store_true",
@@ -344,36 +660,13 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     repo = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(repo, "vr_video_generator_tpu_torch")):
-        print(f"chip_smoke: the package vr_video_generator_tpu_torch is not "
-              f"beside {__file__}", file=sys.stderr)
+    if not os.path.isdir(os.path.join(repo, PKG)):
+        print(f"chip_smoke: the package {PKG} is not beside {__file__}",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
+    device, card = setup(opts.verbose_build)
     rng = np.random.default_rng(SEED)
-
-    from vr_video_generator_tpu_torch.stage_bench import card_line
-
-    card = card_line()
-    log(card)  # nvidia-smi's own "name, power.limit" line
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
-
-    from vr_video_generator_tpu_torch.kernels import build
-    from vr_video_generator_tpu_torch.ops.layernorm import layernorm
-
-    t0 = time.perf_counter()
-    if opts.verbose_build:
-        build.build(verbose=True)
-    build.library()
-    t_nvcc = time.perf_counter() - t0
-    x = torch.zeros(4, 384, dtype=torch.bfloat16, device=device)
-    layernorm(x, torch.ones(384, device=device), torch.zeros(384, device=device))
-    torch.cuda.synchronize()
-    log(f"build: nvcc {t_nvcc:.2f} s, with the Triton LayerNorm "
-        f"{time.perf_counter() - t0:.2f} s")
 
     results = {}
     kernel_parity(device, rng, results)
@@ -386,7 +679,9 @@ def main() -> int:
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces, launches=counts[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,15 @@ import numpy as np
 import pytest
 import torch
 
-from vr_video_generator_tpu.utils.config import StereoConfig
 from vr_video_generator_tpu_torch.kernels import launch_counts
+from vr_video_generator_tpu_torch.ops.head_tail import (head_tail_ext,
+                                                        head_tail_ext_plain)
+from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
+                                                  mlp_residual_plain)
+from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
+                                                  proj_ls_residual,
+                                                  proj_ls_residual_plain)
+from vr_video_generator_tpu_torch.utils.config import StereoConfig
 from vr_video_generator_tpu_torch.ops.attention import attention, attention_plain
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm, layernorm_plain
 from vr_video_generator_tpu_torch.ops.warp import (WarpSpec, blur_select_sbs,
@@ -27,7 +34,90 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have "
                     "no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
+
+
+def _assert_rounding_boundaries_only(name, got, want, args):
+    """bf16 outputs of a kernel and its plain version (the same rounding
+    points, f32 sums in another order) differ only at rounding boundaries:
+    a small share of outputs, each by a few ulps of the largest operand
+    (chip_smoke.py's check and bounds)."""
+    from chip_smoke import gemm_check
+
+    gemm_check(name, got, want, args)
+
+
+def _randn(gen, shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            + shift).to(dtype)
+
+
+# N not a multiple of the 64-row tile; D at each width the kernel is built for.
+@pytest.mark.parametrize("b,n,d", [(2, 70, 128), (1, 321, 384),
+                                   (2, 2443, 384), (1, 67, 768),
+                                   (1, 33, 1024)])
+def test_ln_qkv_and_proj_kernels_match_plain(cuda, b, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    heads = d // 64
+    x = _randn(gen, (b, n, d))
+    args = (x, _randn(gen, (d,), 0.1, 1.0, torch.float32),
+            _randn(gen, (d,), 0.1, 0.0, torch.float32),
+            _randn(gen, (3 * d, d), d ** -0.5), _randn(gen, (3 * d,), 0.5),
+            heads, 64 ** -0.5)
+    before = launch_counts().get("ln_qkv", 0)
+    qkv = ln_qkv(*args)
+    assert launch_counts()["ln_qkv"] == before + 1
+    assert qkv.shape == (b, n, 3, heads, 64)
+    _assert_rounding_boundaries_only("ln_qkv", qkv, ln_qkv_plain(*args), args)
+    pargs = (_randn(gen, (b, n, heads, 64)), x, _randn(gen, (d, d), d ** -0.5),
+             _randn(gen, (d,), 0.5), _randn(gen, (d,), 0.1, 1.0))
+    _assert_rounding_boundaries_only("proj_ls_residual",
+                                     proj_ls_residual(*pargs),
+                                     proj_ls_residual_plain(*pargs), pargs)
+
+
+@pytest.mark.parametrize("m,d", [(140, 128), (321, 384), (19544, 384),
+                                 (100, 768)])
+def test_mlp_kernel_matches_plain(cuda, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    f32 = torch.float32
+    args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
+            _randn(gen, (d,), 0.1, 0.0, f32),
+            _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
+            _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
+            _randn(gen, (d,), 0.1, 1.0))
+    before = launch_counts().get("mlp_residual", 0)
+    got = mlp_residual(*args)
+    assert launch_counts()["mlp_residual"] == before + 1
+    _assert_rounding_boundaries_only("mlp_residual", got,
+                                     mlp_residual_plain(*args), args)
+
+
+# An odd grid (37 x 45: no multiple of the 64-pixel segment anywhere), the
+# 1080p vits grid, and each channel width the kernel is built for.
+@pytest.mark.parametrize("b,h0,w0,c", [(2, 37, 45, 64), (1, 148, 264, 64),
+                                       (1, 12, 20, 32), (1, 20, 36, 128)])
+def test_head_tail_kernel_matches_plain(cuda, b, h0, w0, c):
+    gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c)
+    c2 = c // 2
+    out_hw = (h0 * 14 // 4, w0 * 14 // 4)
+    x = _randn(gen, (b, c, h0, w0)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
+    wts = (_randn(gen, (c, c, 1, 1), c ** -0.5), _randn(gen, (c,), 0.1),
+           _randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5), _randn(gen, (c2,), 0.1),
+           _randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5), _randn(gen, (32,), 0.1),
+           _randn(gen, (1, 32, 1, 1), 32 ** -0.5), _randn(gen, (1,), 0.1, 0.5))
+    got = head_tail_ext(x, *wts, out_hw)
+    want = head_tail_ext_plain(x, *wts, out_hw)
+    assert got.shape == want.shape == (b, *out_hw) and got.dtype == torch.float32
+    err = (got - want).abs()
+    span = (want.max() - want.min()).item()
+    # chip_smoke.py's bounds, relative to the depth range
+    from chip_smoke import TAIL_MAX_REL, TAIL_MEAN_REL
+
+    assert err.max().item() <= TAIL_MAX_REL * span
+    assert err.mean().item() <= TAIL_MEAN_REL * span
 
 
 @pytest.mark.parametrize("rows,d", [(19544, 384), (130, 128), (7, 384)])
@@ -77,14 +167,16 @@ def test_warp_kernels_bit_exact(cuda, h, w):
     assert torch.equal(blur_select_sbs(*args), blur_select_sbs_plain(*args))
 
 
-def test_step_enqueues_without_host_sync(cuda):
+@pytest.mark.parametrize("fused", ["xla", "fused"])
+def test_step_enqueues_without_host_sync(cuda, fused):
     """A step only enqueues device work: no host-to-device copy of host data
-    and no readback inside it, so the segment loop's overlap is real."""
+    and no readback inside it, so the segment loop's overlap is real; on the
+    unfused and on the fused path."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
     cfg = RunConfig(encoder="vits", batch_size=2, compute_dtype="bfloat16",
-                    mlp_fused="xla", tail="xla", input_size=56)
+                    mlp_fused=fused, tail=fused, input_size=56)
     pipe = SbsPipeline.create(cfg, 48, 64, allow_random=True, device=cuda)
     frames = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (2, 48, 64, 3), dtype=np.uint8)).to(cuda)
@@ -96,3 +188,7 @@ def test_step_enqueues_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert sbs.shape == (2, 48, 128, 3)
+    if fused == "fused":
+        counts = launch_counts()
+        assert all(counts.get(k, 0) > 0 for k in (
+            "ln_qkv", "proj_ls_residual", "mlp_residual", "head_tail_ext"))

@@ -279,7 +279,6 @@ def test_cuda_device_without_gpu_raises():
 @pytest.mark.parametrize("field,value,item", [
     ("depth_stride", 2, "depth_stride"), ("chunk_batches", 2, "step_many"),
     ("sbs_output", "packed", "packed SBS"), ("preprocess", "folded", "folded"),
-    ("mlp_fused", "fused", "fused ViT"), ("tail", "fused", "fused DPT tail"),
     ("gelu", "tanh", "UI impl switches"),
 ])
 def test_unported_run_options_raise(field, value, item):
@@ -287,6 +286,22 @@ def test_unported_run_options_raise(field, value, item):
 
     with pytest.raises(NotImplementedError, match=item):
         check_supported(dataclasses.replace(CFG, **{field: value}))
+
+
+@pytest.mark.parametrize("overrides,item", [
+    (dict(encoder="vitl", tail="fused"), r"big-C DPT tail kernels \(rows 11, 12\)"),
+    (dict(encoder="vitl", mlp_fused="fused"), r"hidden-blocked MLP kernel \(row 9\)"),
+])
+def test_unported_fused_combinations_raise(overrides, item):
+    """vits and vitb run fused; vitl's big-C tail and its MLP width are the
+    next slice's kernels, and asking for them fused raises."""
+    import dataclasses
+
+    for encoder in ("vits", "vitb"):
+        check_supported(dataclasses.replace(CFG, encoder=encoder,
+                                            mlp_fused="fused", tail="fused"))
+    with pytest.raises(NotImplementedError, match=item):
+        check_supported(dataclasses.replace(CFG, **overrides))
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -319,12 +334,44 @@ def test_unported_entry_points_raise(pipe, frames):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import vr_video_generator_tpu_torch.cli, "
+    """Importing the port's entry points and loading chip_smoke.py pulls in
+    neither JAX, flax, cv2 nor any module of the JAX package."""
+    code = ("import sys, importlib.util; import vr_video_generator_tpu_torch.cli, "
             "vr_video_generator_tpu_torch.pipeline, "
             "vr_video_generator_tpu_torch.runtime.segment, "
-            "vr_video_generator_tpu_torch.runtime.orchestrator; "
-            "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]; "
+            "vr_video_generator_tpu_torch.runtime.orchestrator, "
+            "vr_video_generator_tpu_torch.stage_bench; "
+            "spec = importlib.util.spec_from_file_location('chip_smoke', "
+            "'chip_smoke.py'); spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec)); "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
+            "'vr_video_generator_tpu') "
+            "or m.startswith('vr_video_generator_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_jax_package():
+    """An ast scan: no module of the port, and not chip_smoke.py, names the
+    JAX package, JAX or flax in an import."""
+    import ast
+    import pathlib
+
+    files = sorted(pathlib.Path(REPO, "vr_video_generator_tpu_torch").rglob(
+        "*.py")) + [pathlib.Path(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    banned = ("vr_video_generator_tpu", "jax", "flax")
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.name}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in banned]
+    assert not found, found

@@ -2,18 +2,18 @@
 
 The 2D -> side-by-side 3D video converter (Depth-Anything-V2 depth, temporal
 smoothing, depth-plane stereo warp) on one NVIDIA H100. The JAX package
-``vr_video_generator_tpu`` stays the reference; this package imports its
-jax-free host modules (configuration, logging, video I/O) and reimplements
-the device path in PyTorch, with hand-written Hopper kernels under
-``csrc/`` (CUDA C++) and ``ops/layernorm.py`` (Triton).
+``vr_video_generator_tpu`` stays the reference; this package imports
+nothing of it. It keeps its own copies of the JAX package's jax-free host
+modules (``utils/``, ``video/``, ``native/``, the CLI parser) and
+reimplements the device path in PyTorch, with hand-written Hopper kernels
+under ``csrc/`` (CUDA C++) and ``ops/layernorm.py`` (Triton).
 """
 
 from __future__ import annotations
 
 from typing import NoReturn
 
-# The run and stereo configuration is the JAX package's (jax-free) module.
-from vr_video_generator_tpu.utils.config import RunConfig, StereoConfig
+from vr_video_generator_tpu_torch.utils.config import RunConfig, StereoConfig
 
 __all__ = ["RunConfig", "StereoConfig", "not_ported"]
 

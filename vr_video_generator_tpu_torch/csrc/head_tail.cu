@@ -1,0 +1,377 @@
+// The DPT head's tail from refinenet1's pre-upsample activation to depth,
+// for Hopper (sm_90a), as a chain of three kernels:
+//
+//   1. mix_wresize: out_conv's 1x1 channel mix per input pixel (tensor-core
+//      GEMM) -> bf16, then the x2 align-corners W-resize -> bf16   (H0, W2)
+//   2. conv1:       the x2 H-resize + out_conv bias, zero outside the image
+//      -> bf16, then output_conv1 3x3 (C -> C/2) as an implicit GEMM,
+//      + f32 bias -> bf16                                           (HM, W2)
+//   3. conv2:       the W-resize to the net width -> bf16, the H-resize
+//      -> bf16, zero outside, output_conv2 3x3 (C/2 -> 32) as an implicit
+//      GEMM + f32 bias, ReLU, the 1x1 (32 -> 1) summed in f32 + bias, ReLU
+//      -> f32 depth                                                 (H1, W1)
+//
+// Replaces: vr_video_generator_tpu/ops/head_tail_pallas.py
+// `_tail_ext_kernel` (head_tail_ext_pallas), the same order and rounding
+// points (:287-354): the out_conv mix before the W-resize, the resize
+// weights in bf16 (ops/resize.linear_weights), the H-resizes as exact
+// integer taps r * (n_in - 1) // (n_out - 1) with an f32 fraction and an f32
+// lerp, conv1's f32 bias added BEFORE its cast to bf16 (unlike the dense
+// layers), conv2's f32 bias and ReLU, the f32 1x1 and its bias. Every
+// product and sum outside the tensor cores is an explicit __fmul_rn /
+// __fadd_rn. A W-resize has two non-zero taps per output, so the kernels
+// compute fl(wa * x0 + wb * x1) from per-column tap tables; that is what the
+// TPU's dense resize GEMM gives (bf16 x bf16 products are exact in f32).
+//
+// What bounds it on the H100: at 1080p/vits (B = 8, 148 x 264 x 64 in,
+// 518 x 924 out) the two 3x3 convolutions are ~117 GFLOP per call (118 us
+// at the 989 TFLOP/s bf16 peak) against ~55 MB of input and output (17 us at
+// 3.35 TB/s): compute-bound. The TPU kernel keeps every intermediate of a
+// row band in VMEM; here the two row-local stages (mix + W-resize, conv1)
+// write bf16 intermediates to device memory (~40 and ~80 MB), and the
+// resizes feeding each convolution are computed while its input tile is
+// loaded into shared memory, so the 64- and 32-channel full-resolution
+// tensors between them never exist. The convolutions are implicit GEMMs on
+// the tensor cores (nvcuda::wmma, bf16 in, f32 accumulate): one block of 4
+// warps per 64-pixel segment of one output row, the 3 input rows of the
+// segment (+1 halo column each side) and all 9 taps' weights in shared
+// memory, each warp owning 16 pixels x all output channels. Simple first:
+// no pipelining, weights re-read from L2 by every block.
+
+#include "gemm.cuh"
+
+namespace {
+
+using namespace vrvg;
+
+constexpr int THREADS = 128;
+constexpr int SEG = 64;           // output pixels per conv block
+constexpr int C3 = 32;            // output_conv2's width (reference head)
+
+// Exact bilinear align-corners taps of output row r of an n_in -> n_out
+// resize (head_tail_pallas._lerp_taps): rows i0, i1 and the f32 fraction.
+struct Taps {
+  int i0, i1;
+  float t, omt;
+};
+
+__device__ __forceinline__ Taps lerp_taps(int r, int n_in, int n_out) {
+  Taps k;
+  if (n_out == 1) {
+    k.i0 = k.i1 = 0;
+    k.t = 0.f;
+  } else {
+    const long long num = (long long)r * (n_in - 1);
+    const long long h0 = num / (n_out - 1);
+    k.i0 = (int)h0;
+    k.i1 = min((int)h0 + 1, n_in - 1);
+    k.t = __fdiv_rn((float)(num - h0 * (n_out - 1)), (float)(n_out - 1));
+  }
+  k.omt = __fsub_rn(1.f, k.t);
+  return k;
+}
+
+__device__ __forceinline__ float lerp(const Taps& k, float a, float b) {
+  return __fadd_rn(__fmul_rn(k.omt, a), __fmul_rn(k.t, b));
+}
+
+// W-resize of 8 channels: fl(wa * a + wb * b) per channel, cast to bf16.
+__device__ __forceinline__ void wlerp8(bf16* dst, const bf16* a, const bf16* b,
+                                       float wa, float wb) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    dst[e] = rbf(__fadd_rn(__fmul_rn(wa, bf(a[e])), __fmul_rn(wb, bf(b[e]))));
+}
+
+// ---------------------------------------------------------------------------
+// 1. out_conv mix + W-resize. One block per (row, frame).
+
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+mix_wresize_kernel(const bf16* __restrict__ x, long long sb, long long sh,
+                   long long sw, long long sc, int w0,
+                   const bf16* __restrict__ koc,   // (C out, C in)
+                   const int* __restrict__ taps,   // (2, W2) j0, j1
+                   const float* __restrict__ tapw, // (2, W2) wa, wb
+                   bf16* __restrict__ rw, int h0n, int w2) {
+  constexpr int LD = C + 16;
+  const int w0p = (w0 + 15) / 16 * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + align128((size_t)w0p * LD * 2));
+  bf16* Xo = reinterpret_cast<bf16*>(smem + align128((size_t)w0p * LD * 2) +
+                                     align128((size_t)C * LD * 2));
+  float* St = reinterpret_cast<float*>(
+      smem + align128((size_t)w0p * LD * 2) + align128((size_t)C * LD * 2) +
+      align128((size_t)w0p * C * 2));
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
+
+  const bf16* src = x + b * sb + h * sh;
+  for (int i = tid; i < C * w0p; i += THREADS) {
+    const int c = i / w0p, w = i % w0p;
+    Xs[w * LD + c] = w < w0 ? src[w * sw + c * sc] : rbf(0.f);
+  }
+  load_rows(Ks, LD, koc, C, C, C, C, tid, THREADS);
+  __syncthreads();
+
+  // Xo = bf16(Xs @ koc^T): (w0p x C) x (C x C), one 16 x 16 tile per step.
+  float* st = St + warp * 256;
+  constexpr int TN = C / 16;
+  const int tiles = (w0p / 16) * TN;
+  for (int t = warp; t < tiles; t += THREADS / WARP) {
+    const int tm = t / TN, tn = t % TN;
+    FragC acc[1][1];
+    zero(acc);
+    mma_block<1, 1, C>(acc, Xs + tm * 16 * LD, LD, Ks + tn * 16 * LD, LD);
+    wmma::store_matrix_sync(st, acc[0][0], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += WARP)
+      Xo[(tm * 16 + e / 16) * C + tn * 16 + e % 16] = rbf(st[e]);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  bf16* dst = rw + ((long long)b * h0n + h) * w2 * C;
+  for (int i = tid; i < w2 * (C / 8); i += THREADS) {
+    const int w = i / (C / 8), c = (i % (C / 8)) * 8;
+    __align__(16) bf16 v[8];
+    wlerp8(v, Xo + taps[w] * C + c, Xo + taps[w2 + w] * C + c, tapw[w],
+           tapw[w2 + w]);
+    *reinterpret_cast<uint4*>(dst + (long long)w * C + c) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+template <int C>
+size_t mix_smem(int w0) {
+  const size_t w0p = (w0 + 15) / 16 * 16;
+  return align128(w0p * (C + 16) * 2) + align128((size_t)C * (C + 16) * 2) +
+         align128(w0p * C * 2) + (THREADS / WARP) * 256 * 4;
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 convolution of one 64-pixel output segment as an implicit GEMM. `In`
+// holds 3 input rows x (SEG + 2) pixels x CIN channels (pitch CIN + 16), `Wt`
+// the weights as (tap, CIN, COUT). Each warp computes 16 pixels x COUT.
+
+template <int CIN, int COUT>
+__device__ __forceinline__ void conv3x3_segment(
+    FragC (&acc)[1][COUT / 16], const bf16* In, const bf16* Wt, int warp) {
+  constexpr int LDI = CIN + 16;
+  zero(acc);
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dh = tap / 3, dw = tap % 3;
+    const bf16* a = In + (dh * (SEG + 2) + warp * 16 + dw) * LDI;
+    const bf16* wt = Wt + tap * CIN * COUT;
+#pragma unroll
+    for (int k = 0; k < CIN; k += 16) {
+      FragA fa;
+      wmma::load_matrix_sync(fa, a + k, LDI);
+#pragma unroll
+      for (int j = 0; j < COUT / 16; ++j) {
+        FragBr fb;
+        wmma::load_matrix_sync(fb, wt + k * COUT + j * 16, COUT);
+        wmma::mma_sync(acc[0][j], fa, fb, acc[0][j]);
+      }
+    }
+  }
+}
+
+template <int CIN, int COUT>
+constexpr size_t conv_smem() {
+  return align128((size_t)3 * (SEG + 2) * (CIN + 16) * 2) +
+         align128((size_t)9 * CIN * COUT * 2) +
+         (size_t)(THREADS / WARP) * 16 * COUT * 4;
+}
+
+// ---------------------------------------------------------------------------
+// 2. H-resize (+ out_conv bias) + conv1 (+ f32 bias) -> bf16 c1.
+// Grid (segments, HM rows, frames).
+
+template <int C, int C2>
+__global__ void __launch_bounds__(THREADS)
+conv1_kernel(const bf16* __restrict__ rw, const float* __restrict__ boc,
+             const bf16* __restrict__ wt1, const float* __restrict__ b1,
+             bf16* __restrict__ c1, int h0n, int hm, int w2) {
+  constexpr int LDI = C + 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* In = reinterpret_cast<bf16*>(smem);
+  bf16* Wt = reinterpret_cast<bf16*>(
+      smem + align128((size_t)3 * (SEG + 2) * LDI * 2));
+  float* St = reinterpret_cast<float*>(
+      smem + align128((size_t)3 * (SEG + 2) * LDI * 2) +
+      align128((size_t)9 * C * C2 * 2));
+  const int x0 = blockIdx.x * SEG, g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
+
+  for (int dh = 0; dh < 3; ++dh) {
+    const int gr = g - 1 + dh;
+    const bool row_ok = gr >= 0 && gr < hm;
+    const Taps k = lerp_taps(row_ok ? gr : 0, h0n, hm);
+    const bf16* r0 = rw + ((long long)b * h0n + k.i0) * w2 * C;
+    const bf16* r1 = rw + ((long long)b * h0n + k.i1) * w2 * C;
+    for (int i = tid; i < (SEG + 2) * (C / 8); i += THREADS) {
+      const int p = i / (C / 8), c = (i % (C / 8)) * 8;
+      const int col = x0 - 1 + p;
+      __align__(16) bf16 v[8];
+      if (row_ok && col >= 0 && col < w2) {
+        const uint4 ua = *reinterpret_cast<const uint4*>(r0 + (long long)col * C + c);
+        const uint4 ub = *reinterpret_cast<const uint4*>(r1 + (long long)col * C + c);
+        const bf16* a = reinterpret_cast<const bf16*>(&ua);
+        const bf16* bb = reinterpret_cast<const bf16*>(&ub);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = rbf(__fadd_rn(lerp(k, bf(a[e]), bf(bb[e])), boc[c + e]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+      }
+      *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  }
+  load_rows(Wt, C2, wt1, C2, 9 * C, C2, 9 * C, tid, THREADS);
+  __syncthreads();
+
+  FragC acc[1][C2 / 16];
+  conv3x3_segment<C, C2>(acc, In, Wt, warp);
+  float* st = St + warp * 16 * C2;
+#pragma unroll
+  for (int j = 0; j < C2 / 16; ++j)
+    wmma::store_matrix_sync(st + j * 16, acc[0][j], C2, wmma::mem_row_major);
+  __syncwarp();
+  bf16* dst = c1 + ((long long)b * hm + g) * w2 * C2;
+  for (int e = lane; e < 16 * C2; e += WARP) {
+    const int r = e / C2, c = e % C2;
+    const int px = x0 + warp * 16 + r;
+    if (px < w2) dst[(long long)px * C2 + c] = rbf(__fadd_rn(st[e], b1[c]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. W-resize + H-resize + conv2 + ReLU + 1x1 + ReLU -> f32 depth.
+// Grid (segments, H1 rows, frames).
+
+template <int C2>
+__global__ void __launch_bounds__(THREADS)
+conv2_kernel(const bf16* __restrict__ c1, const int* __restrict__ taps,
+             const float* __restrict__ tapw, const bf16* __restrict__ wt2,
+             const float* __restrict__ b2, const float* __restrict__ w3,
+             const float* __restrict__ b3, float* __restrict__ out, int hm,
+             int w2, int h1, int w1) {
+  constexpr int LDI = C2 + 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* In = reinterpret_cast<bf16*>(smem);
+  bf16* Wt = reinterpret_cast<bf16*>(
+      smem + align128((size_t)3 * (SEG + 2) * LDI * 2));
+  float* St = reinterpret_cast<float*>(
+      smem + align128((size_t)3 * (SEG + 2) * LDI * 2) +
+      align128((size_t)9 * C2 * C3 * 2));
+  const int x0 = blockIdx.x * SEG, r = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
+
+  for (int dh = 0; dh < 3; ++dh) {
+    const int rr = r - 1 + dh;
+    const bool row_ok = rr >= 0 && rr < h1;
+    const Taps k = lerp_taps(row_ok ? rr : 0, hm, h1);
+    const bf16* r0 = c1 + ((long long)b * hm + k.i0) * w2 * C2;
+    const bf16* r1 = c1 + ((long long)b * hm + k.i1) * w2 * C2;
+    for (int i = tid; i < (SEG + 2) * (C2 / 8); i += THREADS) {
+      const int p = i / (C2 / 8), c = (i % (C2 / 8)) * 8;
+      const int col = x0 - 1 + p;
+      __align__(16) bf16 v[8];
+      if (row_ok && col >= 0 && col < w1) {
+        const int ja = taps[col], jb = taps[w1 + col];
+        const float wa = tapw[col], wb = tapw[w1 + col];
+        __align__(16) bf16 z0[8], z1[8];
+        const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C2 + c);
+        const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C2 + c);
+        const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C2 + c);
+        const uint4 b1v = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C2 + c);
+        wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
+               reinterpret_cast<const bf16*>(&b0), wa, wb);
+        wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
+               reinterpret_cast<const bf16*>(&b1v), wa, wb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+      }
+      *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  }
+  load_rows(Wt, C3, wt2, C3, 9 * C2, C3, 9 * C2, tid, THREADS);
+  __syncthreads();
+
+  FragC acc[1][C3 / 16];
+  conv3x3_segment<C2, C3>(acc, In, Wt, warp);
+  float* st = St + warp * 16 * C3;
+#pragma unroll
+  for (int j = 0; j < C3 / 16; ++j)
+    wmma::store_matrix_sync(st + j * 16, acc[0][j], C3, wmma::mem_row_major);
+  __syncwarp();
+  const int px = x0 + warp * 16 + lane;
+  if (lane < 16 && px < w1) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < C3; ++c) {
+      const float y = fmaxf(__fadd_rn(st[lane * C3 + c], b2[c]), 0.f);
+      s = __fadd_rn(s, __fmul_rn(y, w3[c]));
+    }
+    out[((long long)b * h1 + r) * w1 + px] = fmaxf(__fadd_rn(s, b3[0]), 0.f);
+  }
+}
+
+template <int C>
+int run(const void* x, long long sb, long long sh, long long sw, long long sc,
+        int batch, int h0, int w0, const void* koc, const void* boc,
+        const void* wt1, const void* b1, const void* wt2, const void* b2,
+        const void* w3, const void* b3, const void* taps_a,
+        const void* tapw_a, const void* taps_b, const void* tapw_b, void* rw,
+        void* c1, void* out, int h1, int w1, void* stream) {
+  constexpr int C2 = C / 2;
+  const int hm = 2 * h0, w2 = 2 * w0;
+  int err = launch(mix_wresize_kernel<C>, dim3(h0, batch), THREADS,
+                   mix_smem<C>(w0), stream, (const bf16*)x, sb, sh, sw, sc,
+                   w0, (const bf16*)koc, (const int*)taps_a,
+                   (const float*)tapw_a, (bf16*)rw, h0, w2);
+  if (err) return err;
+  err = launch(conv1_kernel<C, C2>, dim3((w2 + SEG - 1) / SEG, hm, batch),
+               THREADS, conv_smem<C, C2>(), stream, (const bf16*)rw,
+               (const float*)boc, (const bf16*)wt1, (const float*)b1,
+               (bf16*)c1, h0, hm, w2);
+  if (err) return err;
+  return launch(conv2_kernel<C2>, dim3((w1 + SEG - 1) / SEG, h1, batch),
+                THREADS, conv_smem<C2, C3>(), stream, (const bf16*)c1,
+                (const int*)taps_b, (const float*)tapw_b, (const bf16*)wt2,
+                (const float*)b2, (const float*)w3, (const float*)b3,
+                (float*)out, hm, w2, h1, w1);
+}
+
+}  // namespace
+
+// x (B, H0, W0, C) bf16 with element strides (sb, sh, sw, sc); out_conv
+// (C out, C in) bf16 + (C,) f32 bias; conv1 (9, C, C/2) bf16 + (C/2,) f32;
+// conv2 (9, C/2, 32) bf16 + (32,) f32; the 1x1 (32,) f32 + (1,) f32;
+// W-resize tap tables (2, 2*W0) / (2, W1) int32 indices and f32 weights;
+// scratch rw (B, H0, 2*W0, C) and c1 (B, 2*H0, 2*W0, C/2) bf16 ->
+// out (B, H1, W1) f32. C in {32, 64, 128}. The first kernel holds a whole
+// input row in shared memory: an input too wide for it fails to launch.
+extern "C" int vrvg_head_tail_ext(
+    const void* x, long long sb, long long sh, long long sw, long long sc,
+    int batch, int h0, int w0, int c, const void* koc, const void* boc,
+    const void* wt1, const void* b1, const void* wt2, const void* b2,
+    const void* w3, const void* b3, const void* taps_a, const void* tapw_a,
+    const void* taps_b, const void* tapw_b, void* rw, void* c1, void* out,
+    int h1, int w1, void* stream) {
+  switch (c) {
+    case 32: return run<32>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    case 64: return run<64>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    case 128: return run<128>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

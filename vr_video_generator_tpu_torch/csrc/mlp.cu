@@ -1,0 +1,193 @@
+// The MLP half-block of the DINOv2 blocks in one kernel, for Hopper
+// (sm_90a): out = x + gamma * (fc2(GELU(fc1(LN2(x))))).
+//
+// Replaces: vr_video_generator_tpu/ops/mlp_pallas.py `_kernel_resident`
+// (mlp_residual_pallas with the weights resident, the vits/vitb variant).
+// Rounding points as there and as flax's nn.Dense: LN with f32 statistics
+// and the f32 affine, cast to bf16; fc1 accumulates in f32, is cast to bf16,
+// then + b1 in bf16; the GELU is the A&S erf of ops/gelu.py evaluated in f32
+// (the same constants and order of operations, each one rounded: no FMA, no
+// erff, no fast math) and cast to bf16; fc2 accumulates its partial products
+// over the hidden chunks in f32, is cast to bf16, + b2, gamma * . and x + .
+// each round to bf16.
+//
+// What bounds it on the H100: at 1080p/vits (M = 8 * 2443 rows, D = 384,
+// hidden 1536) the two GEMMs are 46 GFLOP (47 us at the 989 TFLOP/s bf16
+// peak) while the kernel must move only x in and the output out (~30 MB,
+// 9 us at 3.35 TB/s): compute-bound, once the (M, 1536) hidden activations
+// stay on the chip. The unfused path writes and re-reads them in f32 and
+// bf16 several times (the A&S GELU alone is ~10 elementwise passes).
+//
+// Design: one block of 8 warps per BM rows. The block LNs its rows into
+// shared memory, then walks the hidden dimension in HC-wide chunks: the fc1
+// chunk (BM x HC, f32 in shared memory) -> bias, GELU -> a bf16 chunk in
+// shared memory -> its fc2 partial product, accumulated in registers (each
+// warp owns D / 8 output columns). The (BM x D) accumulator is what sets BM:
+// 64 rows at D <= 384, 32 rows at D = 768, 96 f32 per thread either way.
+// Simple first: each chunk's weights are loaded whole into shared memory
+// before use (no pipelining), wmma instead of wgmma/TMA.
+
+#include "gemm.cuh"
+
+namespace {
+
+using namespace vrvg;
+
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / WARP;
+
+// A&S 7.1.26 constants of ops/gelu.py, as float32.
+constexpr float INV_SQRT2 = 0.70710678118654752440f;
+constexpr float P = 0.3275911f;
+constexpr float A0 = 0.254829592f, A1 = -0.284496736f, A2 = 1.421413741f,
+                A3 = -1.453152027f, A4 = 1.061405429f;
+
+// 0.5 * x * (1 + erf(x / sqrt(2))) with the A&S erf, in the order of
+// ops/gelu.py, every operation rounded on its own.
+__device__ __forceinline__ float gelu_as(float x) {
+  const float z = __fmul_rn(x, INV_SQRT2);
+  const float a = fabsf(z);
+  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(P, a)));
+  float poly = __fadd_rn(A3, __fmul_rn(t, A4));
+  poly = __fadd_rn(A2, __fmul_rn(t, poly));
+  poly = __fadd_rn(A1, __fmul_rn(t, poly));
+  poly = __fadd_rn(A0, __fmul_rn(t, poly));
+  poly = __fmul_rn(t, poly);
+  const float e = expf(__fmul_rn(-a, a));
+  const float sign = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+  const float erf = __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(poly, e)));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, erf));
+}
+
+template <int D>
+struct Plan {
+  static constexpr int BM = D <= 384 ? 64 : 32;
+  static constexpr int HC = D <= 384 ? 64 : 32;
+  static constexpr int H = 4 * D;
+  static constexpr int LDA = D + 16;   // LN rows, and the fc1 weight chunk
+  static constexpr int LDW2 = HC + 16; // fc2 weight chunk (D rows of HC)
+  static constexpr int LDG = HC + 16;  // GELU chunk
+  static constexpr int LDS = HC + 8;   // f32 fc1 chunk
+  static constexpr int MI2 = BM / 16, NJ2 = D / NWARPS / 16;
+  static constexpr size_t A = align128((size_t)BM * LDA * 2);
+  static constexpr size_t W1 = align128((size_t)HC * LDA * 2);
+  static constexpr size_t W2 = align128((size_t)D * LDW2 * 2);
+  static constexpr size_t G = align128((size_t)BM * LDG * 2);
+  static constexpr size_t S = align128((size_t)BM * LDS * 4);
+  static constexpr size_t SMEM = A + W1 + W2 + G + S;
+  static_assert(D % (NWARPS * 16) == 0, "D must be a multiple of 128");
+  static_assert(W1 >= (size_t)NWARPS * 256 * 4, "epilogue staging");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
+           const float* __restrict__ lnb, const bf16* __restrict__ w1,
+           const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+           const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
+           bf16* __restrict__ out, int m, float eps) {
+  typedef Plan<D> P_;
+  constexpr int BM = P_::BM, HC = P_::HC, H = P_::H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* W1s = reinterpret_cast<bf16*>(smem + P_::A);
+  bf16* W2s = reinterpret_cast<bf16*>(smem + P_::A + P_::W1);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + P_::A + P_::W1 + P_::W2);
+  float* Ss = reinterpret_cast<float*>(smem + P_::A + P_::W1 + P_::W2 + P_::G);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / WARP, lane = tid % WARP;
+  const long long row0 = (long long)blockIdx.x * BM;
+  const int valid = (int)min((long long)BM, (long long)m - row0);
+  const int col0 = warp * (D / NWARPS);  // this warp's fc2 output columns
+
+  layernorm_rows<D>(As, P_::LDA, x + row0 * D, BM, valid, lnw, lnb, eps);
+
+  FragC acc[P_::MI2][P_::NJ2];
+  zero(acc);
+  for (int h0 = 0; h0 < H; h0 += HC) {
+    __syncthreads();  // LN rows ready; the previous chunk fully consumed
+    load_rows(W1s, P_::LDA, w1 + (long long)h0 * D, D, HC, D, HC, tid,
+              THREADS);
+    load_rows(W2s, P_::LDW2, w2 + h0, H, D, HC, D, tid, THREADS);
+    __syncthreads();
+
+    // fc1 chunk: (BM x D) x (D x HC) -> f32 in shared memory.
+    constexpr int TN = HC / 16, TILES = (BM / 16) * TN;
+    for (int t = warp; t < TILES; t += NWARPS) {
+      const int tm = t / TN, tn = t % TN;
+      FragC c[1][1];
+      zero(c);
+      mma_block<1, 1, D>(c, As + tm * 16 * P_::LDA, P_::LDA,
+                         W1s + tn * 16 * P_::LDA, P_::LDA);
+      store(Ss + tm * 16 * P_::LDS + tn * 16, P_::LDS, c);
+    }
+    __syncthreads();
+
+    // bf16(fc1) + b1 -> GELU -> bf16.
+    for (int i = tid; i < BM * HC; i += THREADS) {
+      const int r = i / HC, c = i % HC;
+      const bf16 t = add_bf(rbf(Ss[r * P_::LDS + c]), b1[h0 + c]);
+      Gs[r * P_::LDG + c] = rbf(gelu_as(bf(t)));
+    }
+    __syncthreads();
+
+    // fc2 partial: (BM x HC) x (HC x D), f32 accumulation in registers.
+    mma_block<P_::MI2, P_::NJ2, HC>(acc, Gs, P_::LDG,
+                                    W2s + col0 * P_::LDW2, P_::LDW2);
+  }
+
+  // Epilogue through a per-warp 16 x 16 f32 staging tile (in W1s, free now).
+  __syncthreads();
+  float* st = reinterpret_cast<float*>(W1s) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < P_::MI2; ++i) {
+#pragma unroll
+    for (int j = 0; j < P_::NJ2; ++j) {
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r = lane / 2, c = (lane % 2) * 8;
+      const int row = i * 16 + r;
+      if (row < valid) {
+        const int col = col0 + j * 16 + c;
+        const long long off = (row0 + row) * D + col;
+        __align__(16) bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bf16 y = add_bf(rbf(st[r * 16 + c + e]), b2[col + e]);
+          v[e] = add_bf(x[off + e], mul_bf(gamma[col + e], y));
+        }
+        *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<const uint4*>(v);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int D>
+int run(const void* x, const void* lnw, const void* lnb, const void* w1,
+        const void* b1, const void* w2, const void* b2, const void* gamma,
+        void* out, int m, float eps, void* stream) {
+  dim3 grid((m + Plan<D>::BM - 1) / Plan<D>::BM);
+  return launch(mlp_kernel<D>, grid, THREADS, Plan<D>::SMEM, stream,
+                (const bf16*)x, (const float*)lnw, (const float*)lnb,
+                (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
+                (const bf16*)b2, (const bf16*)gamma, (bf16*)out, m, eps);
+}
+
+}  // namespace
+
+// x (M, D) bf16, LN affine (D,) f32, w1 (4D, D), b1 (4D,), w2 (D, 4D),
+// b2 (D,), gamma (D,) bf16 -> out (M, D) bf16. D in {128, 384, 768}.
+extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
+                                 const void* lnb, const void* w1,
+                                 const void* b1, const void* w2,
+                                 const void* b2, const void* gamma, void* out,
+                                 int m, int d, float eps, void* stream) {
+  switch (d) {
+    case 128: return run<128>(x, lnw, lnb, w1, b1, w2, b2, gamma, out, m, eps, stream);
+    case 384: return run<384>(x, lnw, lnb, w1, b1, w2, b2, gamma, out, m, eps, stream);
+    case 768: return run<768>(x, lnw, lnb, w1, b1, w2, b2, gamma, out, m, eps, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

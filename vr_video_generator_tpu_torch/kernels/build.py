@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 At first use, every ``csrc/*.cu`` file is compiled for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
+started together, and the objects are linked into one shared library with a
 plain C interface under ``_build/``, named by a hash of the sources and
 flags, and loaded with ``ctypes``. No PyTorch header is compiled, so a build
 takes seconds. Each C entry point launches on the stream it is given and
@@ -25,11 +26,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
@@ -40,6 +42,12 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _P],
     "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -75,18 +83,33 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            text = proc.communicate()[0]
+            logs.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                               *(obj for _, obj, _ in procs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        if verbose:
+            print("\n".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent build never sees half a file
     return out
 
 

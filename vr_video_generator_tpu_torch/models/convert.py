@@ -14,7 +14,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-from vr_video_generator_tpu.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.utils.config import ModelConfig
 
 
 def _np(x) -> np.ndarray:

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vr_video_generator_tpu.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.utils.config import ModelConfig
 from vr_video_generator_tpu_torch.models.dinov2 import DinoVisionTransformer
 from vr_video_generator_tpu_torch.models.dpt import DPTHead
 from vr_video_generator_tpu_torch.ops.preprocess import (network_input_size,
@@ -22,14 +22,18 @@ class DepthAnythingV2(nn.Module):
 
     ``dtype`` is the compute dtype of the activations; the factory casts
     the weights to it (LayerNorm parameters and the pos-embed stay f32).
+    ``cfg.mlp_fused`` and ``tail`` pick the encoder's and the head's fused
+    paths (models/dinov2.resolve_block_fusion, models/dpt.resolve_tail), as
+    in the JAX package (its ``DepthAnythingV2(tail=...)``).
     """
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 tail: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.pretrained = DinoVisionTransformer(cfg)
-        self.depth_head = DPTHead(cfg)
+        self.depth_head = DPTHead(cfg, tail=tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.cfg.patch_size

@@ -1,17 +1,21 @@
-"""DINOv2 vision transformer encoder (PyTorch), unfused block path.
+"""DINOv2 vision transformer encoder (PyTorch).
 
-Mirrors vr_video_generator_tpu/models/dinov2.py with ``mlp_fused="xla"``:
-patch embed as one GEMM in the (py, px, c) flatten order, cls token,
-bicubic pos-embed resample with the +0.1 offset, pre-norm blocks
-(LayerNorm -> qkv -> attention -> proj -> LayerScale, LayerNorm -> MLP with
-the A&S GELU -> LayerScale), and final-norm taps. Module and parameter names
-are the upstream state_dict names (``pretrained.blocks.{i}.attn.qkv.weight``,
-...), so an official checkpoint loads with ``load_state_dict``.
+Mirrors vr_video_generator_tpu/models/dinov2.py: patch embed as one GEMM in
+the (py, px, c) flatten order, cls token, bicubic pos-embed resample with
+the +0.1 offset, pre-norm blocks (LayerNorm -> qkv -> attention -> proj ->
+LayerScale, LayerNorm -> MLP with the A&S GELU -> LayerScale), and
+final-norm taps. Module and parameter names are the upstream state_dict
+names (``pretrained.blocks.{i}.attn.qkv.weight``, ...), so an official
+checkpoint loads with ``load_state_dict``.
 
-The LayerNorms go through ops/layernorm.py (Triton kernel on CUDA) and the
-attention through ops/attention.py (CUDA kernel). Activations are in the
-compute dtype; LayerNorm statistics, the pos-embed resample and the softmax
-are f32.
+``mlp_fused`` picks each half-block's path as the JAX package does, with
+CUDA in the TPU's place (:func:`resolve_block_fusion`). Unfused, the
+LayerNorms go through ops/layernorm.py (Triton kernel on CUDA) and the
+attention through ops/attention.py (CUDA kernel). Fused, the attention half
+is ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual and the MLP half
+is ops/mlp.mlp_residual, reading the same parameters. Activations are in
+the compute dtype; LayerNorm statistics, the pos-embed resample and the
+softmax are f32; dense layers round as flax's (models/layers.py).
 """
 
 from __future__ import annotations
@@ -22,11 +26,50 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vr_video_generator_tpu.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.utils.config import ModelConfig
 from vr_video_generator_tpu_torch import not_ported
-from vr_video_generator_tpu_torch.ops.attention import mha
+from vr_video_generator_tpu_torch.models.layers import Conv2d, Linear
+from vr_video_generator_tpu_torch.ops import mlp as mlp_ops
+from vr_video_generator_tpu_torch.ops import qkv as qkv_ops
+from vr_video_generator_tpu_torch.ops.attention import attention, mha
 from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm
+from vr_video_generator_tpu_torch.ops.mlp import mlp_residual
+from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, proj_ls_residual
+
+
+def kernel_device(x: torch.Tensor) -> str:
+    """The device type ``auto`` resolves for: "cuda" for bf16 activations on
+    the card (the fused kernels are bf16), else "cpu"."""
+    return "cuda" if x.is_cuda and x.dtype == torch.bfloat16 else "cpu"
+
+
+def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
+                         device_type: str) -> Tuple[bool, bool]:
+    """(fuse the attention half, fuse the MLP half) of a block, as the JAX
+    package resolves ``mlp_fused`` (its models/dinov2.py Block) with CUDA in
+    the TPU's place. ``auto`` fuses the attention half at every width the
+    kernels take (D % 128 == 0, head dim 64) and the MLP half at D >= 512,
+    on CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 on the
+    card); off the card it fuses nothing, as the JAX package's ``auto``
+    does off the TPU. ``fused`` fuses both wherever the JAX package
+    would (off the card through the plain versions) and raises for an MLP
+    width whose kernel is not ported; ``xla`` fuses nothing."""
+    if mlp_fused not in ("auto", "fused", "xla"):
+        raise ValueError(f"mlp_fused must be auto, fused or xla, got "
+                         f"{mlp_fused!r}")
+    on_card = device_type == "cuda"
+    want = mlp_fused == "fused" or (mlp_fused == "auto" and on_card)
+    attn = want and dim in qkv_ops.WIDTHS \
+        and dim == num_heads * qkv_ops.HEAD_DIM
+    mlp = dim % 128 == 0 and (mlp_fused == "fused" or (
+        mlp_fused == "auto" and on_card and dim >= 512))
+    if mlp and not mlp_ops.takes_width(dim):
+        if mlp_fused == "fused":
+            not_ported(f"mlp_fused='fused' at D={dim}",
+                       "the vitl slice, hidden-blocked MLP kernel (row 9)")
+        mlp = False  # auto at vitl: the unfused MLP until row 9 lands
+    return attn, mlp
 from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
 
@@ -45,8 +88,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -60,8 +103,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_exact(self.fc1(x)))
@@ -77,10 +120,14 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    """x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x))."""
+    """x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x)), each half unfused or
+    through its fused kernels (:func:`resolve_block_fusion`), with the same
+    parameters either way."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 mlp_fused: str = "auto"):
         super().__init__()
+        self.dim, self.num_heads, self.mlp_fused = dim, num_heads, mlp_fused
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
@@ -89,7 +136,23 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+        fuse_attn, fuse_mlp = resolve_block_fusion(
+            self.mlp_fused, self.dim, self.num_heads, kernel_device(x))
+        if fuse_attn:
+            qkv = ln_qkv(x, self.norm1.weight, self.norm1.bias,
+                         self.attn.qkv.weight, self.attn.qkv.bias,
+                         self.num_heads, (self.dim // self.num_heads) ** -0.5,
+                         eps=self.norm1.eps)
+            o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+            x = proj_ls_residual(o, x, self.attn.proj.weight,
+                                 self.attn.proj.bias, self.ls1.gamma)
+        else:
+            x = x + self.ls1(self.attn(self.norm1(x)))
+        if fuse_mlp:
+            return mlp_residual(x, self.norm2.weight, self.norm2.bias,
+                                self.mlp.fc1.weight, self.mlp.fc1.bias,
+                                self.mlp.fc2.weight, self.mlp.fc2.bias,
+                                self.ls2.gamma, eps=self.norm2.eps)
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -99,7 +162,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch: int, dim: int):
         super().__init__()
         self.patch = patch
-        self.proj = nn.Conv2d(3, dim, patch, stride=patch)
+        self.proj = Conv2d(3, dim, patch, stride=patch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, ph*pw, D)."""
@@ -109,7 +172,8 @@ class PatchEmbed(nn.Module):
         patches = x.reshape(b, ph, p, pw, p, 3).permute(0, 1, 3, 2, 4, 5)
         patches = patches.reshape(b, ph * pw, p * p * 3)
         weight = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * 3)
-        return F.linear(patches, weight, self.proj.bias)
+        y = F.linear(patches, weight)
+        return y + self.proj.bias.to(y.dtype)
 
 
 class DinoVisionTransformer(nn.Module):
@@ -128,7 +192,8 @@ class DinoVisionTransformer(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, d))
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio) for _ in range(cfg.depth))
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused)
+            for _ in range(cfg.depth))
         self.norm = LayerNorm(d)
 
     def interpolate_pos_encoding(self, ph: int, pw: int) -> torch.Tensor:

@@ -1,13 +1,19 @@
-"""DPT decoder head (PyTorch, NCHW inside), plain-tail path.
+"""DPT decoder head (PyTorch, NCHW inside).
 
-Mirrors vr_video_generator_tpu/models/dpt.py with ``tail="xla"``: per-tap
-1x1 projections, the resize ladder (k=s ConvTranspose x4 / x2, identity,
-3x3 stride-2 conv), bias-free 3x3 ``layerN_rn`` convs, refinenets 4..1 with
-bilinear align_corners upsampling through the resize matrices, and the
-output convs ending in ReLU. Module names are the upstream state_dict names
+Mirrors vr_video_generator_tpu/models/dpt.py: per-tap 1x1 projections, the
+resize ladder (k=s ConvTranspose x4 / x2, identity, 3x3 stride-2 conv),
+bias-free 3x3 ``layerN_rn`` convs, refinenets 4..1 with bilinear
+align_corners upsampling through the resize matrices, and the output convs
+ending in ReLU. Module names are the upstream state_dict names
 (``depth_head.scratch.refinenet1.resConfUnit1.conv1.weight``, ...). The
-convolutions are cuDNN's, as XLA computes them outside any Pallas kernel in
-this configuration.
+convolutions outside the tail are cuDNN's, as XLA computes them outside any
+Pallas kernel, and round as flax's (models/layers.py).
+
+``tail`` picks the path after refinenet1's residual units
+(:func:`resolve_tail`): "xla" runs refinenet1's upsample and out_conv and
+the output convs here; "fused" hands refinenet1's pre-upsample activation
+and the weights to ops/head_tail.head_tail_ext (the CUDA kernel chain on the
+card), as the JAX package hands them to its Pallas tail.
 """
 
 from __future__ import annotations
@@ -18,8 +24,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vr_video_generator_tpu.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.utils.config import ModelConfig
+from vr_video_generator_tpu_torch import not_ported
+from vr_video_generator_tpu_torch.models.dinov2 import kernel_device
+from vr_video_generator_tpu_torch.models.layers import Conv2d, ConvTranspose2d
+from vr_video_generator_tpu_torch.ops import head_tail as head_tail_ops
+from vr_video_generator_tpu_torch.ops.head_tail import head_tail_ext
 from vr_video_generator_tpu_torch.ops.resize import resize_bilinear
+
+
+def resolve_tail(tail: str, features: int, device_type: str) -> bool:
+    """Whether the head runs the fused tail, as the JAX package resolves
+    ``tail`` (its models/dpt.py DPTHead) with CUDA in the TPU's place:
+    ``auto`` fuses on CUDA where the kernel takes the geometry (vits, vitb),
+    ``fused`` fuses everywhere (off the card through the plain version) and
+    raises for vitl's big-C tail, which is not ported."""
+    if tail not in ("auto", "fused", "xla"):
+        raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
+    if tail == "fused" and not head_tail_ops.takes(features):
+        not_ported(f"tail='fused' at features={features} (vitl)",
+                   "the vitl slice, big-C DPT tail kernels (rows 11, 12)")
+    return tail == "fused" or (tail == "auto" and device_type == "cuda"
+                               and head_tail_ops.takes(features))
 
 
 def _upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -33,8 +59,8 @@ class ResidualConvUnit(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(F.relu(self.conv1(F.relu(x))))
@@ -46,13 +72,18 @@ class FeatureFusionBlock(nn.Module):
         super().__init__()
         self.resConfUnit1 = ResidualConvUnit(features)
         self.resConfUnit2 = ResidualConvUnit(features)
-        self.out_conv = nn.Conv2d(features, features, 1)
+        self.out_conv = Conv2d(features, features, 1)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None,
-                out_hw: Tuple[int, int] | None = None) -> torch.Tensor:
+                out_hw: Tuple[int, int] | None = None,
+                pre_upsample: bool = False) -> torch.Tensor:
+        """With ``pre_upsample``, the residual units' output, before the
+        upsample and out_conv (the fused tail's input)."""
         if skip is not None:
             x = x + self.resConfUnit1(skip)
         x = self.resConfUnit2(x)
+        if pre_upsample:
+            return x
         if out_hw is None:
             out_hw = (x.shape[2] * 2, x.shape[3] * 2)
         return self.out_conv(_upsample(x, out_hw))
@@ -64,27 +95,27 @@ class Scratch(nn.Module):
         feats = cfg.features
         for i, ch in enumerate(cfg.out_channels):
             setattr(self, f"layer{i + 1}_rn",
-                    nn.Conv2d(ch, feats, 3, padding=1, bias=False))
+                    Conv2d(ch, feats, 3, padding=1, bias=False))
         for i in range(1, 5):
             setattr(self, f"refinenet{i}", FeatureFusionBlock(feats))
-        self.output_conv1 = nn.Conv2d(feats, feats // 2, 3, padding=1)
+        self.output_conv1 = Conv2d(feats, feats // 2, 3, padding=1)
         self.output_conv2 = nn.Sequential(
-            nn.Conv2d(feats // 2, 32, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(32, 1, 1), nn.ReLU())
+            Conv2d(feats // 2, 32, 3, padding=1), nn.ReLU(),
+            Conv2d(32, 1, 1), nn.ReLU())
 
 
 class DPTHead(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tail: str = "auto"):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tail = cfg, tail
         oc = cfg.out_channels
         self.projects = nn.ModuleList(
-            nn.Conv2d(cfg.embed_dim, ch, 1) for ch in oc)
+            Conv2d(cfg.embed_dim, ch, 1) for ch in oc)
         self.resize_layers = nn.ModuleList([
-            nn.ConvTranspose2d(oc[0], oc[0], 4, stride=4),
-            nn.ConvTranspose2d(oc[1], oc[1], 2, stride=2),
+            ConvTranspose2d(oc[0], oc[0], 4, stride=4),
+            ConvTranspose2d(oc[1], oc[1], 2, stride=2),
             nn.Identity(),
-            nn.Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
+            Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
         self.scratch = Scratch(cfg)
 
@@ -102,7 +133,14 @@ class DPTHead(nn.Module):
         path4 = s.refinenet4(rn[3], out_hw=tuple(rn[2].shape[2:]))
         path3 = s.refinenet3(path4, rn[2], out_hw=tuple(rn[1].shape[2:]))
         path2 = s.refinenet2(path3, rn[1], out_hw=tuple(rn[0].shape[2:]))
+        out_hw = (ph * self.cfg.patch_size, pw * self.cfg.patch_size)
+        if resolve_tail(self.tail, self.cfg.features, kernel_device(path2)):
+            pre = s.refinenet1(path2, rn[0], pre_upsample=True)
+            oc, c2 = s.refinenet1.out_conv, s.output_conv2
+            return head_tail_ext(pre.permute(0, 2, 3, 1), oc.weight, oc.bias,
+                                 s.output_conv1.weight, s.output_conv1.bias,
+                                 c2[0].weight, c2[0].bias, c2[2].weight,
+                                 c2[2].bias, out_hw)
         path1 = s.refinenet1(path2, rn[0])
-        x = s.output_conv1(path1)
-        x = _upsample(x, (ph * self.cfg.patch_size, pw * self.cfg.patch_size))
+        x = _upsample(s.output_conv1(path1), out_hw)
         return s.output_conv2(x)[:, 0]

@@ -8,7 +8,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from vr_video_generator_tpu.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.utils.config import ModelConfig
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 
 # Parameters that stay f32 whatever the compute dtype: LayerNorm affine
@@ -46,10 +46,11 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
 
 
 def build_model(cfg: ModelConfig, state_dict: Mapping, dtype: torch.dtype,
-                device: torch.device | str) -> DepthAnythingV2:
+                device: torch.device | str, tail: str = "auto"
+                ) -> DepthAnythingV2:
     """DepthAnythingV2 with ``state_dict`` loaded strictly, moved to
     ``device`` and cast to the compute dtype (f32 kept where noted)."""
-    model = DepthAnythingV2(cfg, dtype=dtype)
+    model = DepthAnythingV2(cfg, dtype=dtype, tail=tail)
     model.load_state_dict({k: v if isinstance(v, torch.Tensor)
                            else torch.from_numpy(np.array(v, np.float32))
                            for k, v in state_dict.items()})
@@ -64,10 +65,12 @@ def load_model(encoder: str, encoder_path: Optional[str] = None,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda",
                allow_random: bool = False, seed: int = 0,
-               cfg: Optional[ModelConfig] = None) -> DepthAnythingV2:
+               cfg: Optional[ModelConfig] = None,
+               tail: str = "auto") -> DepthAnythingV2:
     """Load an official Depth-Anything-V2 ``.pth`` or, with
     ``allow_random``, seeded random weights. ``cfg`` overrides the
-    encoder's ModelConfig (e.g. RunConfig.model())."""
+    encoder's ModelConfig (e.g. RunConfig.model()); ``tail`` is the DPT
+    head's tail path."""
     cfg = cfg or ModelConfig.for_encoder(encoder)
     if encoder_path and os.path.isfile(encoder_path):
         state_dict = torch.load(encoder_path, map_location="cpu",
@@ -78,4 +81,4 @@ def load_model(encoder: str, encoder_path: Optional[str] = None,
         raise FileNotFoundError(
             f"checkpoint not found: {encoder_path!r}; pass allow_random=True "
             "to run with seeded random weights")
-    return build_model(cfg, state_dict, dtype, device)
+    return build_model(cfg, state_dict, dtype, device, tail=tail)

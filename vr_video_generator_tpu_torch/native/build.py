@@ -1,0 +1,69 @@
+"""Build + load the native framepack library (g++ -O3, cached .so).
+
+The port's own copy of vr_video_generator_tpu/native/build.py, kept in step
+with it (the port imports nothing of the JAX package).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "framepack.cpp")
+_SO = os.path.join(_HERE, "libframepack.so")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build(force: bool = False) -> str:
+    """Compile the shared library if missing or stale; returns its path."""
+    with _lock:
+        if (not force and os.path.exists(_SO)
+                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
+            return _SO
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+               _SRC, "-o", _SO]
+        subprocess.run(cmd, check=True, capture_output=True)
+        return _SO
+
+
+def load() -> ctypes.CDLL:
+    """Load (building on demand) and declare signatures."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+    path = build()
+    lib = ctypes.CDLL(path)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.read_full.restype = ctypes.c_long
+    lib.read_full.argtypes = [ctypes.c_int, u8p, ctypes.c_long]
+    lib.write_full.restype = ctypes.c_long
+    lib.write_full.argtypes = [ctypes.c_int, u8p, ctypes.c_long]
+    lib.bgr_to_rgb.restype = None
+    lib.bgr_to_rgb.argtypes = [u8p, u8p, ctypes.c_long]
+    lib.pack_batch.restype = None
+    lib.pack_batch.argtypes = [ctypes.POINTER(u8p), u8p, ctypes.c_long,
+                               ctypes.c_long]
+    lib.u32_to_rgb24.restype = None
+    lib.u32_to_rgb24.argtypes = [u8p, u8p, ctypes.c_long]
+    lib.ring_create.restype = ctypes.c_void_p
+    lib.ring_create.argtypes = [ctypes.c_long, ctypes.c_long]
+    lib.ring_destroy.argtypes = [ctypes.c_void_p]
+    for name in ("ring_acquire_write", "ring_acquire_read"):
+        fn = getattr(lib, name)
+        fn.restype = u8p
+        fn.argtypes = [ctypes.c_void_p]
+    for name in ("ring_commit_write", "ring_commit_read"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p]
+    lib.ring_size.restype = ctypes.c_long
+    lib.ring_size.argtypes = [ctypes.c_void_p]
+    with _lock:
+        _lib = lib
+    return lib

@@ -1,0 +1,119 @@
+"""The fused attention half-block's two ends: the CUDA kernels and their plain
+versions.
+
+Replaces vr_video_generator_tpu/ops/qkv_pallas.py:
+
+* ``ln_qkv`` (``ln_qkv_pallas``, body ``_ln_qkv_kernel``): LN1 with f32
+  statistics -> qkv GEMM -> cast to the compute dtype -> + bias in the
+  compute dtype -> q = dtype(f32(q) * scale);
+* ``proj_ls_residual`` (``proj_ls_residual_pallas``, body ``_proj_kernel``):
+  the attention output -> proj GEMM -> cast -> + bias -> x + gamma * y, both
+  rounded in the compute dtype.
+
+The port's layout differs from the TPU's on purpose: ``ln_qkv`` returns
+(B, N, 3, H, 64), whose q, k and v slices are the strided views the
+attention kernel reads, with no pad rows (the port's attention masks keys
+>= N itself). The kernels are ``csrc/qkv.cu``; see its header for the design.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
+from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+
+LN_QKV_LAUNCHES = counter("ln_qkv")
+PROJ_LAUNCHES = counter("proj_ls_residual")
+HEAD_DIM = 64
+WIDTHS = (128, 384, 768, 1024)  # the widths csrc/qkv.cu is built for
+
+
+def ln_qkv_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """(B, N, D) -> (B, N, 3, heads, D / heads): LN1, the qkv projection with
+    the bias added after the cast, q pre-scaled in f32 and cast back."""
+    bsz, n, d = x.shape
+    h = layernorm_plain(x, ln_w, ln_b, eps)
+    t = F.linear(h, w.to(x.dtype))
+    t = (t + b.to(t.dtype)).reshape(bsz, n, 3, heads, d // heads)
+    q = (t[:, :, 0].float() * scale).to(t.dtype)
+    return torch.stack([q, t[:, :, 1], t[:, :, 2]], dim=2)
+
+
+def proj_ls_residual_plain(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """attention output (B, N, H, Dh) and residual x (B, N, D) ->
+    x + gamma * (proj(o) + b), each step rounded in x's dtype."""
+    bsz, n, d = x.shape
+    y = F.linear(o.reshape(bsz, n, d), w.to(x.dtype))
+    y = y + b.to(y.dtype)
+    return x + gamma.to(x.dtype) * y
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype} {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _check_width(kernel: str, d: int, heads: int) -> None:
+    if d not in WIDTHS or d != heads * HEAD_DIM:
+        raise ValueError(f"{kernel} kernel takes D in {WIDTHS} with head dim "
+                         f"{HEAD_DIM}, got D={d}, heads={heads}")
+
+
+def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+           w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
+           eps: float = 1e-6) -> torch.Tensor:
+    """(B, N, D) -> (B, N, 3, heads, 64): the plain version for CPU tensors,
+    the kernel for CUDA tensors (bf16)."""
+    if not on_cuda(x, ln_w, ln_b, w, b):
+        return ln_qkv_plain(x, ln_w, ln_b, w, b, heads, scale, eps)
+    bsz, n, d = x.shape
+    _check_width("ln_qkv", d, heads)
+    _check("ln_qkv x", x, (bsz, n, d), torch.bfloat16)
+    _check("ln_qkv LN weight", ln_w, (d,), torch.float32)
+    _check("ln_qkv LN bias", ln_b, (d,), torch.float32)
+    _check("ln_qkv weight", w, (3 * d, d), torch.bfloat16)
+    _check("ln_qkv bias", b, (3 * d,), torch.bfloat16)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty((bsz, n, 3, heads, HEAD_DIM), dtype=x.dtype,
+                      device=x.device)
+    err = library().vrvg_ln_qkv(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+        b.data_ptr(), out.data_ptr(), bsz * n, d, scale, eps,
+        stream_handle(x.device))
+    check(err, "vrvg_ln_qkv")
+    LN_QKV_LAUNCHES.count += 1
+    return out
+
+
+def proj_ls_residual(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """o (B, N, H, 64), x (B, N, D) -> x + gamma * (proj(o) + b): the plain
+    version for CPU tensors, the kernel for CUDA tensors (bf16)."""
+    if not on_cuda(o, x, w, b, gamma):
+        return proj_ls_residual_plain(o, x, w, b, gamma)
+    bsz, n, d = x.shape
+    _check_width("proj_ls_residual", d, o.shape[2])
+    _check("proj_ls_residual o", o, (bsz, n, d // HEAD_DIM, HEAD_DIM),
+           torch.bfloat16)
+    _check("proj_ls_residual x", x, (bsz, n, d), torch.bfloat16)
+    _check("proj_ls_residual weight", w, (d, d), torch.bfloat16)
+    _check("proj_ls_residual bias", b, (d,), torch.bfloat16)
+    _check("proj_ls_residual gamma", gamma, (d,), torch.bfloat16)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty_like(x)
+    err = library().vrvg_proj_ls_residual(
+        o.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        gamma.data_ptr(), out.data_ptr(), bsz * n, d, stream_handle(x.device))
+    check(err, "vrvg_proj_ls_residual")
+    PROJ_LAUNCHES.count += 1
+    return out

@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from vr_video_generator_tpu.utils.config import StereoConfig
+from vr_video_generator_tpu_torch.utils.config import StereoConfig
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.gaussian import (gaussian_blur,
                                                         gaussian_kernel1d)

@@ -4,8 +4,8 @@ Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
 
     uint8 RGB frames (B, H, W, 3)
       -> exact preprocess (/255, INTER_AREA resize, ImageNet normalize)
-      -> DINOv2 + DPT depth forward (compute dtype; LayerNorm and attention
-         kernels)
+      -> DINOv2 + DPT depth forward (compute dtype; LayerNorm, attention,
+         fused half-block and DPT tail kernels as mlp_fused / tail pick)
       -> bicubic upsample to the source size x encoder scaler
       -> temporal EWMA (depth dampening + offset-range smoothing)
       -> plane/shift tables, forward-warp compositor kernel, hole-fill +
@@ -24,10 +24,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vr_video_generator_tpu.utils.config import RunConfig
+from vr_video_generator_tpu_torch.utils.config import RunConfig
 from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2, infer_depth)
+from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
+from vr_video_generator_tpu_torch.models.dpt import resolve_tail
 from vr_video_generator_tpu_torch.models.factory import load_model
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         temporal_scan)
@@ -63,10 +65,11 @@ def check_supported(run_cfg: RunConfig) -> None:
         not_ported("sbs_output='packed'", "packed SBS output")
     if run_cfg.preprocess == "folded":
         not_ported("preprocess='folded'", "folded preprocess")
-    if run_cfg.mlp_fused == "fused":
-        not_ported("mlp_fused='fused'", "fused ViT half-block kernels")
-    if run_cfg.tail == "fused":
-        not_ported("tail='fused'", "fused DPT tail kernels")
+    # An explicit 'fused' at a width whose kernel is not ported raises here,
+    # before any weight is built (the device does not change that answer).
+    cfg = run_cfg.model()
+    resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, "cpu")
+    resolve_tail(run_cfg.tail, cfg.features, "cpu")
     if run_cfg.gelu != "exact":
         not_ported(f"gelu={run_cfg.gelu!r}", "UI impl switches")
 
@@ -95,7 +98,7 @@ class SbsPipeline:
                      else torch.float32)
         model = load_model(run_cfg.encoder, run_cfg.encoder_path, dtype=dtype,
                            device=device, allow_random=allow_random,
-                           seed=seed, cfg=run_cfg.model())
+                           seed=seed, cfg=run_cfg.model(), tail=run_cfg.tail)
         return cls(model, height, width, run_cfg=run_cfg)
 
     def initial_state(self) -> TemporalState:

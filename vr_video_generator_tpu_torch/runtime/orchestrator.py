@@ -6,8 +6,8 @@ Mirrors vr_video_generator_tpu/runtime/orchestrator.py `convert_range` and
   repair_mode 0: clear the debug and subclip dirs, convert, combine
   repair_mode 2: clear the debug dir, combine existing subclips with audio
 
-Video I/O comes from the JAX package's jax-free ``video`` modules, imported
-here lazily (the reader needs cv2 or ffmpeg; the pipeline does not).
+Video I/O comes from the port's ``video`` modules, imported here lazily
+(the reader needs cv2 or ffmpeg; the pipeline does not).
 """
 
 from __future__ import annotations
@@ -17,10 +17,10 @@ from typing import Optional
 
 import numpy as np
 
-from vr_video_generator_tpu.utils.config import RunConfig
-from vr_video_generator_tpu.utils.fsutil import (create_folder_if_not_exist,
+from vr_video_generator_tpu_torch.utils.config import RunConfig
+from vr_video_generator_tpu_torch.utils.fsutil import (create_folder_if_not_exist,
                                                  remove_all_files)
-from vr_video_generator_tpu.utils.logging import (WorkerLog, overflow_message,
+from vr_video_generator_tpu_torch.utils.logging import (WorkerLog, overflow_message,
                                                   overflow_path, print_flush,
                                                   summarize_overflow)
 from vr_video_generator_tpu_torch import not_ported
@@ -36,8 +36,8 @@ def convert_range(cfg: RunConfig, begin: int, end: int,
     """Convert frames [begin, end) of cfg.video_dir into subclips; the
     temporal state is primed on the ``warmup_frames`` frames before
     ``begin`` so the range continues the full-video sequence."""
-    from vr_video_generator_tpu.video.reader import VideoReader, probe_video
-    from vr_video_generator_tpu.video.writer import (SubclipWriter,
+    from vr_video_generator_tpu_torch.video.reader import VideoReader, probe_video
+    from vr_video_generator_tpu_torch.video.writer import (SubclipWriter,
                                                      get_ffmpeg_config)
 
     if cfg.mesh_shape is not None:
@@ -88,7 +88,7 @@ def run(cfg: RunConfig, allow_random: bool = False,
     """Full run with repair_mode dispatch (modes 0 and 2)."""
     if cfg.repair_mode not in (0, 2):
         not_ported(f"repair_mode={cfg.repair_mode}", "repair modes 1 and 3")
-    from vr_video_generator_tpu.video.combine import (combine_clips,
+    from vr_video_generator_tpu_torch.video.combine import (combine_clips,
                                                       verify_frame_count)
 
     create_folder_if_not_exist(cfg.debug_dir)

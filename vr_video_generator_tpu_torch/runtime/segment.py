@@ -31,7 +31,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from vr_video_generator_tpu.utils.logging import (ProgressMeter, WorkerLog,
+from vr_video_generator_tpu_torch.utils.logging import (ProgressMeter, WorkerLog,
                                                   record_overflow)
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 

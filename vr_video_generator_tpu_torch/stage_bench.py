@@ -3,9 +3,11 @@
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 -m vr_video_generator_tpu_torch.stage_bench [--out DIR]
+        [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
 
-The configuration is ``bench.py`` config 2's geometry with the unfused
-kernels: 1080p, vits, bf16, batch 8, ``--mlp_fused xla --tail xla``, with
+The configuration is ``bench.py`` config 2's geometry: 1080p, vits, bf16,
+batch 8, with the kernel paths the two flags pick as the CLI's do (default
+``auto``: on the card the fused attention half-block and DPT tail), and
 numpy-seeded random weights whose depth scaler is calibrated on the first
 batch (see :func:`calibrate_random_scaler`). It measures, in this order:
 
@@ -286,6 +288,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace and the op table")
+    ap.add_argument("--mlp_fused", default="auto",
+                    choices=["auto", "fused", "xla"],
+                    help="ViT half-block kernel fusion policy (as the CLI)")
+    ap.add_argument("--tail", default="auto", choices=["auto", "fused", "xla"],
+                    help="DPT head tail implementation (as the CLI)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_bench: no CUDA device", file=sys.stderr)
@@ -293,20 +300,30 @@ def main(argv=None) -> int:
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(card, flush=True)
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
     cfg = RunConfig(encoder="vits", batch_size=B, compute_dtype="bfloat16",
-                    mlp_fused="xla", tail="xla")
+                    mlp_fused=opts.mlp_fused, tail=opts.tail)
+    label = (f"1080p vits bf16 B={B} mlp_fused={opts.mlp_fused} "
+             f"tail={opts.tail}")
+    print(label, flush=True)
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
                               seed=SEED)
     rng = np.random.default_rng(SEED)
     frames = rng.integers(0, 256, (FRAMES, H, W, 3), dtype=np.uint8)
     scaler = calibrate_random_scaler(pipe, frames[:B])
+    reset_launch_counts()
     run_segment(pipe, frames[:2 * B])  # warm-up: kernels built, buffers pinned
+    launches = {k: v // 2 for k, v in launch_counts().items() if v}
+    print(f"launches per step: {json.dumps(launches)}", flush=True)
 
     step_ms = [step_rate(pipe, frames[:B]) for _ in range(REPEATS)]
     print(f"step: {step_ms} ms per {B}-frame step", flush=True)
@@ -323,7 +340,7 @@ def main(argv=None) -> int:
         print(f"  {r['device_ms']:10.3f} ms  n={r['calls']:5d}  "
               f"{r['op'][:100]}", flush=True)
     print(json.dumps(dict(
-        card=card, config="1080p vits bf16 B=8 mlp_fused=xla tail=xla",
+        card=card, config=label, launches_per_step=launches,
         depth_scaler=scaler,
         step_ms=step_ms, step_fps=[B * 1e3 / ms for ms in step_ms],
         stages_ms=stages, stages_sum_ms=sum(stages.values()),

@@ -9,18 +9,22 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      all started together) and compile the Triton LayerNorm;
-  3. each of the eight kernels against its plain PyTorch version on the
-     card at the main path's shapes (1080p, vits, batch 8), with CUDA-event
-     timings of both, of one PyTorch library call where one computes the
-     same function, and the least time the card could take (bound);
-  4. the main paths through ``runtime.segment.process_segment`` with vits,
-     bf16 and seeded random weights, each with the launch counts reset just
-     before it and read just after: the fused path (``--mlp_fused fused
-     --tail fused``, 3 batches of 8 random 1080x1920 frames, every kernel
-     required, no host sync in a step, the output held against the input,
-     the plain warp and the plain versions' depth), slice 1's unfused path
-     (``xla``/``xla``, 1 batch, rows 1-4 required) and one batch of the
-     default ``auto`` path (the kernels ``auto`` picks on the card).
+  3. each of the twelve kernels against its plain PyTorch version on the
+     card at its path's shapes (1080p; vits, batch 8; vitl, batch 8 at
+     --input_size 518 and batch 2 at 728), with CUDA-event timings of both,
+     of one PyTorch library call where one computes the same function, and
+     the least time the card could take (bound);
+  4. the main paths through ``runtime.segment.process_segment`` with bf16
+     and seeded random weights, each with the launch counts reset just
+     before it and read just after, each required to launch exactly its
+     kernels: vits fused (``--mlp_fused fused --tail fused``, 3 batches of 8
+     random 1080x1920 frames, no host sync in a step, the output held
+     against the input, the plain warp and the plain versions' depth),
+     slice 1's unfused path (``xla``/``xla``, 1 batch) and one batch of the
+     default ``auto`` path; then Depth-Anything-V2-Large (vitl) fused at
+     --input_size 518 (2 batches of 8, the same checks) and ``auto`` at 728
+     (1 batch of 2: the attention half unfused past 4096 tokens, through
+     the flash kernel).
 
 It prints the per-kernel JSON line before the last line, and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -41,6 +45,12 @@ import numpy as np
 H, W, B = 1080, 1920, 8
 N_TOK, DIM, HEADS = 2443, 384, 6  # 37 x 66 patches + cls at 1080p, vits
 FEATURES, H0, W0 = 64, 148, 264   # refinenet1's pre-upsample grid, vits
+DIM_L, HEADS_L, FEATURES_L = 1024, 16, 256  # vitl, same grids at 518
+N_L728 = 4785  # 52 x 92 patches + cls at 1080p, vitl --input_size 728
+# vitl-728 runs 2 frames a batch (a cut from 8): the plain attention the
+# kernels are held against materialises f32 logits per 512-key block, and
+# the depth check runs the whole model three times.
+B_L728 = 2
 SEED = 0
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s and
 # bf16 tensor-core FLOP/s, for each kernel's bound.
@@ -51,7 +61,9 @@ LN_ATOL, LN_RTOL = 2e-2, 1e-2
 # Online rescaling and the bf16 probabilities reorder the rounding. The
 # absolute bounds are those of the port's design; the relative ones hold the
 # error to a small share of the output's own size (max against max |o|,
-# mean against mean |o|).
+# mean against mean |o|). Rows 2 and 17 both; row 17 (the flash kernel,
+# 64-key tiles, against the library's 512-key order at vitl-728) measured
+# max 1.9e-3 and mean 5.8e-4 of |o| on an NVIDIA H100 80GB HBM3, 700.00 W.
 ATTN_MAX_ABS, ATTN_MEAN_ABS = 2e-2, 1e-3
 ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # The dense kernels (rows 5, 6, 8) against their plain versions, both bf16
@@ -70,13 +82,21 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # A copy of ln_qkv that
 # adds the bias before the cast moved 0.306 of its outputs and was refused
 # (python3 -m vr_video_generator_tpu_torch.bias_order_check).
+# Row 9 at vitl-518 sums 4096 hidden products per output (4x row 8's
+# reach): 3.1e-3 of outputs differ, by at most 4 ulps; row 11's bf16
+# conv1 products: 1.3e-3, 1 ulp (same card). Their bounds leave ~3x
+# (fraction) and 2x (ulps) of margin.
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
-                 "mlp_residual": 0.005}
-GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4}
+                 "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
+                 "head_tail_big_front": 0.005}
+GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
+                 "mlp_residual_hblocked": 8, "head_tail_big_front": 4}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
-# (measured on an NVIDIA H100 80GB HBM3, 700.00 W: max 1.7e-3, mean 1.5e-6 of
-# the range).
+# (measured on an NVIDIA H100 80GB HBM3, 700.00 W: row 7 max 1.7e-3, mean
+# 1.5e-6 of the range; row 12 on the plain front's output max 1.4e-6, mean
+# 1.5e-7; rows 11 + 12 chained max 6.2e-4, mean 5.0e-6). Row 11 alone is
+# held as the dense kernels are (GEMM_MAX_FRAC, GEMM_MAX_ULPS).
 TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # Depth through the kernels against the plain versions. A random-weight
 # 12-block ViT amplifies any one-ulp bf16 difference: on the H100 the plain
@@ -84,6 +104,11 @@ TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # f32 at single pixels, while its mean error is ~0.4%. So the 2% bound holds
 # the mean error, and the kernel path's error against f32 may be at most
 # DEPTH_FLOOR times the plain bf16 path's, in max and in mean.
+# vitl's 24 blocks hold to the same bounds (NVIDIA H100 80GB HBM3, 700.00
+# W): at 518 the kernel path's error against f32 is max 0.745 against the
+# plain bf16 path's 0.707 and mean 0.0523 against 0.0530; at 728, 0.612
+# against 0.602 and 0.0494 against 0.0496; kernel against plain mean 0.39%
+# and 0.30% of the range.
 DEPTH_REL = 0.02
 DEPTH_FLOOR = 1.25
 PKG = "vr_video_generator_tpu_torch"
@@ -105,11 +130,30 @@ KERNELS = {
                      f"{JAX_PKG}/ops/mlp_pallas.py:66"),
     "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail.cu",
                       f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
+    "mlp_residual_hblocked": ("cuda", f"{PKG}/csrc/mlp.cu",
+                              f"{JAX_PKG}/ops/mlp_pallas.py:38"),
+    "head_tail_big_front": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
+                            f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
+    "head_tail_big_back": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
+                           f"{JAX_PKG}/ops/head_tail_pallas.py:570"),
+    "flash_attention": ("cuda", f"{PKG}/csrc/attention.cu",
+                        f"{JAX_PKG}/ops/attention.py:53"),
 }
-# The kernels each main path must launch. ``auto`` on the card at vits fuses
-# the attention half and the tail, and keeps the MLP half unfused (D < 512).
+# The kernels each main path must launch, exactly. ``auto`` on the card at
+# vits fuses the attention half and the tail, and keeps the MLP half unfused
+# (D < 512). vitl-518 (``fused``; ``auto`` on the card resolves the same)
+# runs LayerNorm only at the four final-norm taps, the fused attention half,
+# the hidden-blocked MLP and the big-C tail; vitl-728 (``auto``, N = 4785 >
+# 4096) runs the attention half unfused: LayerNorm, cuBLAS qkv and proj, and
+# the flash kernel.
 SLICE1 = ("layernorm", "attention", "warp_composite", "blur_select_sbs")
 AUTO_VITS = SLICE1 + ("ln_qkv", "proj_ls_residual", "head_tail_ext")
+FUSED_VITS = AUTO_VITS + ("mlp_residual",)
+BIG_TAIL = ("head_tail_big_front", "head_tail_big_back")
+VITL_518 = SLICE1 + ("ln_qkv", "proj_ls_residual",
+                     "mlp_residual_hblocked") + BIG_TAIL
+VITL_728 = ("layernorm", "flash_attention", "mlp_residual_hblocked",
+            "warp_composite", "blur_select_sbs") + BIG_TAIL
 
 
 class SmokeFailure(RuntimeError):
@@ -162,6 +206,8 @@ def gemm_addends(name: str, want, args):
     """What each dense kernel adds to its product, as operand_ulps takes
     them: the bias (scaled like q on q's columns) for ln_qkv; the residual x
     and gamma * bias for proj_ls_residual and mlp_residual."""
+    if name == "head_tail_big_front":
+        return ()  # a bare conv sum, cast
     if name == "ln_qkv":
         b, heads, scale = args[4], args[5], args[6]
         bias = b.float().reshape(3, heads, -1).clone()
@@ -229,6 +275,153 @@ def check_ln_qkv(device) -> dict:
                 **bound(nbytes(x, lnw, lnb, w, b, got), 2 * m * DIM * 3 * DIM))
 
 
+def attention_stats(name: str, got, want) -> dict:
+    """Rows 2 and 17 against their plain versions: max and mean error,
+    absolute and against max / mean |o|, each against its bound."""
+    err = (got.float() - want.float()).abs()
+    size = want.float().abs()
+    stats = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                 max_rel_err=(err.max() / size.max()).item(),
+                 mean_rel_err=(err.mean() / size.mean()).item())
+    require(stats["max_abs_err"] <= ATTN_MAX_ABS
+            and stats["mean_abs_err"] <= ATTN_MEAN_ABS
+            and stats["max_rel_err"] <= ATTN_MAX_REL
+            and stats["mean_rel_err"] <= ATTN_MEAN_REL,
+            f"{name}: {json.dumps(stats)} over bounds max abs "
+            f"{ATTN_MAX_ABS}, mean abs {ATTN_MEAN_ABS}, max rel "
+            f"{ATTN_MAX_REL}, mean rel {ATTN_MEAN_REL}")
+    return stats
+
+
+def peaked_qkv(gen, b, n, heads):
+    """(B, N, 3, H, 64) bf16 q/k/v with a peaked softmax: the other logits
+    have std ~1.5, and head dim 0 adds the same -4 (after the 1/8 scale) to
+    every logit, so the softmax over the real keys is unchanged but a key at
+    or past N that a kernel failed to mask (logit 0) would weigh as much as
+    e^4 real keys."""
+    import torch
+
+    qkv = torch.randn(b, n, 3, heads, 64, generator=gen, device=gen.device)
+    qkv[:, :, 1] *= 1.5
+    qkv[:, :, 0, :, 0] = 4.0
+    qkv[:, :, 1, :, 0] = -8.0
+    return qkv.to(torch.bfloat16)
+
+
+def tail_stats(name: str, got, want) -> dict:
+    """f32 depth against its plain version, relative to the output's range."""
+    err = (got - want).abs()
+    span = (want.max() - want.min()).item()
+    stats = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                 max_rel_err=err.max().item() / span,
+                 mean_rel_err=err.mean().item() / span, range=span,
+                 frac_nonzero=(want > 0).float().mean().item())
+    require(span > 0 and stats["max_rel_err"] <= TAIL_MAX_REL
+            and stats["mean_rel_err"] <= TAIL_MEAN_REL,
+            f"{name}: {json.dumps(stats)} over bounds max rel "
+            f"{TAIL_MAX_REL}, mean rel {TAIL_MEAN_REL} of the range")
+    return stats
+
+
+def tail_weights(gen, c):
+    """Seeded DPT tail weights in PyTorch layout, bf16: out_conv, conv1,
+    conv2, the 1x1, each with its bias."""
+    import torch
+
+    bf = torch.bfloat16
+    c2, c3 = c // 2, 32
+    return (randn(gen, (c, c, 1, 1), c ** -0.5, dtype=bf),
+            randn(gen, (c,), 0.1, dtype=bf),
+            randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=bf),
+            randn(gen, (c2,), 0.1, dtype=bf),
+            randn(gen, (c3, c2, 3, 3), (9 * c2) ** -0.5, dtype=bf),
+            randn(gen, (c3,), 0.1, dtype=bf),
+            randn(gen, (1, c3, 1, 1), c3 ** -0.5, dtype=bf),
+            randn(gen, (1,), 0.1, 0.5, dtype=bf))
+
+
+def check_vitl_kernels(device, results) -> None:
+    """Rows 9, 11, 12 at vitl-518's shapes and row 17 at vitl-728's."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_plain)
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_big, head_tail_big_back, head_tail_big_back_plain,
+        head_tail_big_front, head_tail_big_front_plain, head_tail_big_plain)
+    from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual_hblocked,
+                                                       mlp_residual_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    d, hid, m = DIM_L, 4 * DIM_L, B * N_TOK
+    args = (randn(gen, (m, d), dtype=bf), randn(gen, (d,), 0.1, 1.0),
+            randn(gen, (d,), 0.1), randn(gen, (hid, d), d ** -0.5, dtype=bf),
+            randn(gen, (hid,), 0.5, dtype=bf),
+            randn(gen, (d, hid), hid ** -0.5, dtype=bf),
+            randn(gen, (d,), 0.5, dtype=bf), randn(gen, (d,), 0.1, 1.0, dtype=bf))
+    got, want = mlp_residual_hblocked(*args), mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    results["mlp_residual_hblocked"] = dict(
+        **gemm_check("mlp_residual_hblocked", got, want, args),
+        ms=event_ms(lambda: mlp_residual_hblocked(*args)),
+        plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
+        library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * d * hid))
+    del args, got, want
+
+    # Row 17 at vitl-728: q, k and v unscaled strided views into one qkv.
+    qkv = peaked_qkv(gen, B_L728, N_L728, HEADS_L)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 64 ** -0.5
+    got, want = flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    results["flash_attention"] = dict(
+        **attention_stats("flash_attention", got, want),
+        ms=event_ms(lambda: flash_attention(q, k, v, scale)),
+        plain_ms=event_ms(lambda: flash_attention_plain(q, k, v, scale)),
+        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale)),
+        **bound(nbytes(q, k, v, got), 4 * B_L728 * HEADS_L * N_L728 ** 2 * 64))
+    del qkv, q, k, v, qt, kt, vt, got, want
+
+    # Rows 11 and 12 on refinenet1's pre-upsample activation as the model
+    # hands it over (NCHW seen as (B, H0, W0, C)). The back is held on the
+    # plain front's output, so each kernel is checked alone; the chain is
+    # held too.
+    c, c2, c3 = FEATURES_L, FEATURES_L // 2, 32
+    h1, w1 = 518, 924
+    hm, w2 = 2 * H0, 2 * W0
+    xt = randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    mid, mid_p = head_tail_big_front(xt, k_oc, k1), head_tail_big_front_plain(xt, k_oc, k1)
+    torch.cuda.synchronize()
+    results["head_tail_big_front"] = dict(
+        **gemm_check("head_tail_big_front", mid, mid_p, ()),
+        ms=event_ms(lambda: head_tail_big_front(xt, k_oc, k1)),
+        plain_ms=event_ms(lambda: head_tail_big_front_plain(xt, k_oc, k1)),
+        library_ms=None,
+        **bound(nbytes(xt, k_oc, k1, mid), 2 * B * hm * w2 * 9 * c * c2))
+    back = (k1, b_oc, b1, k2, b2, k3, b3, (h1, w1))
+    got = head_tail_big_back(mid_p, *back)
+    want = head_tail_big_back_plain(mid_p, *back)
+    torch.cuda.synchronize()
+    results["head_tail_big_back"] = dict(
+        **tail_stats("head_tail_big_back", got, want),
+        ms=event_ms(lambda: head_tail_big_back(mid_p, *back)),
+        plain_ms=event_ms(lambda: head_tail_big_back_plain(mid_p, *back)),
+        library_ms=None,
+        **bound(nbytes(mid_p, k1, b_oc, b1, k2, b2, k3, b3, got),
+                2 * B * (h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)))
+    chain = tail_stats("head_tail_big (front + back)",
+                       head_tail_big(xt, *wts, (h1, w1)),
+                       head_tail_big_plain(xt, *wts, (h1, w1)))
+    log(f"big-C tail chain against its plain version: {json.dumps(chain)}")
+
+
 def kernel_parity(device, rng, results):
     """Phase 3: each kernel against its plain version at main-path shapes."""
     import torch
@@ -275,31 +468,12 @@ def kernel_parity(device, rng, results):
         **bound(nbytes(x, w, b, got), 0))
 
     # q pre-scaled as mha does; k and v strided views into a fused qkv.
-    # The other logits have std ~1.5 (a peaked softmax), and head dim 0 adds
-    # the same -4 to every logit: the softmax over the real keys is
-    # unchanged, but a key at or past N that the kernel failed to mask
-    # (logit 0) would weigh as much as e^4 real keys.
-    qkv = torch.randn(B, N_TOK, 3, HEADS, 64, generator=gen, device=device)
-    qkv[:, :, 1] *= 1.5
-    qkv[:, :, 0, :, 0] = 4.0
-    qkv[:, :, 1, :, 0] = -8.0
-    qkv = qkv.to(bf)
+    qkv = peaked_qkv(gen, B, N_TOK, HEADS)
     q = (qkv[:, :, 0].float() * 64 ** -0.5).to(bf)
     k, v = qkv[:, :, 1], qkv[:, :, 2]
     got, want = attention(q, k, v), attention_plain(q, k, v)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    size = want.float().abs()
-    stats = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
-                 max_rel_err=(err.max() / size.max()).item(),
-                 mean_rel_err=(err.mean() / size.mean()).item())
-    require(stats["max_abs_err"] <= ATTN_MAX_ABS
-            and stats["mean_abs_err"] <= ATTN_MEAN_ABS
-            and stats["max_rel_err"] <= ATTN_MAX_REL
-            and stats["mean_rel_err"] <= ATTN_MEAN_REL,
-            f"attention: {json.dumps(stats)} over bounds max abs "
-            f"{ATTN_MAX_ABS}, mean abs {ATTN_MEAN_ABS}, max rel "
-            f"{ATTN_MAX_REL}, mean rel {ATTN_MEAN_REL}")
+    stats = attention_stats("attention", got, want)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     results["attention"] = dict(
         **stats,
@@ -346,27 +520,11 @@ def kernel_parity(device, rng, results):
     c, c2, c3 = FEATURES, FEATURES // 2, 32
     h1, w1 = 518, 924
     xt = randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
-    wts = (randn(gen, (c, c, 1, 1), c ** -0.5, dtype=bf),
-           randn(gen, (c,), 0.1, dtype=bf),
-           randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=bf),
-           randn(gen, (c2,), 0.1, dtype=bf),
-           randn(gen, (c3, c2, 3, 3), (9 * c2) ** -0.5, dtype=bf),
-           randn(gen, (c3,), 0.1, dtype=bf),
-           randn(gen, (1, c3, 1, 1), c3 ** -0.5, dtype=bf),
-           randn(gen, (1,), 0.1, 0.5, dtype=bf))
+    wts = tail_weights(gen, c)
     got = head_tail_ext(xt, *wts, (h1, w1))
     want = head_tail_ext_plain(xt, *wts, (h1, w1))
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    span = (want.max() - want.min()).item()
-    stats = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
-                 max_rel_err=err.max().item() / span,
-                 mean_rel_err=err.mean().item() / span, range=span,
-                 frac_nonzero=(want > 0).float().mean().item())
-    require(span > 0 and stats["max_rel_err"] <= TAIL_MAX_REL
-            and stats["mean_rel_err"] <= TAIL_MEAN_REL,
-            f"head_tail_ext: {json.dumps(stats)} over bounds max rel "
-            f"{TAIL_MAX_REL}, mean rel {TAIL_MEAN_REL} of the range")
+    stats = tail_stats("head_tail_ext", got, want)
     hm, w2 = 2 * H0, 2 * W0
     flops = 2 * B * (H0 * W0 * c * c + hm * w2 * c2 * 9 * c
                      + h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)
@@ -413,6 +571,8 @@ def kernel_parity(device, rng, results):
         plain_ms=event_ms(lambda: blur_select_sbs_plain(*args)),
         library_ms=None,
         **bound(nbytes(comp_p, cov_p, imgs, st.edge_width, sbs), 0))
+    del imgs, depth, blended, comp, cov, comp_p, cov_p, sbs, sbs_p
+    check_vitl_kernels(device, results)
     for name, r in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
 
@@ -423,13 +583,19 @@ class PlainKernels:
 
     SWAPS = (("models.dinov2", "layernorm", "ops.layernorm", "layernorm_plain"),
              ("ops.attention", "attention", "ops.attention", "attention_plain"),
+             ("ops.attention", "flash_attention", "ops.attention",
+              "flash_attention_plain"),
              ("models.dinov2", "attention", "ops.attention", "attention_plain"),
              ("models.dinov2", "ln_qkv", "ops.qkv", "ln_qkv_plain"),
              ("models.dinov2", "proj_ls_residual", "ops.qkv",
               "proj_ls_residual_plain"),
              ("models.dinov2", "mlp_residual", "ops.mlp", "mlp_residual_plain"),
+             ("models.dinov2", "mlp_residual_hblocked", "ops.mlp",
+              "mlp_residual_plain"),
              ("models.dpt", "head_tail_ext", "ops.head_tail",
-              "head_tail_ext_plain"))
+              "head_tail_ext_plain"),
+             ("models.dpt", "head_tail_big", "ops.head_tail",
+              "head_tail_big_plain"))
 
     def __enter__(self):
         import importlib
@@ -479,39 +645,60 @@ def check_output(writer, n, frames) -> None:
             "right half of the SBS differs from the input")
 
 
-def make_pipe(device, mlp_fused, tail):
+def run_config(encoder, mlp_fused, tail, batch=B, input_size=518,
+               dtype="bfloat16"):
     from vr_video_generator_tpu_torch import RunConfig
+
+    return RunConfig(encoder=encoder, batch_size=batch, compute_dtype=dtype,
+                     mlp_fused=mlp_fused, tail=tail, max_frame_count=15,
+                     input_size=input_size)
+
+
+def make_pipe(device, cfg, state_dict=None):
+    """The pipeline of RunConfig ``cfg`` with numpy-seeded random weights
+    (``state_dict``, drawn once per encoder, or drawn here)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
-    cfg = RunConfig(encoder="vits", batch_size=B, compute_dtype="bfloat16",
-                    mlp_fused=mlp_fused, tail=tail, max_frame_count=15)
     t0 = time.perf_counter()
-    pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device=device,
-                              seed=SEED)
-    log(f"model: vits, bf16, mlp_fused={mlp_fused}, tail={tail}, random "
-        f"weights (numpy seed {SEED}), {time.perf_counter() - t0:.2f} s to "
-        f"build")
-    return cfg, pipe
+    if state_dict is None:
+        state_dict = random_state_dict(cfg.model(), SEED)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = build_model(cfg.model(), state_dict, dtype, device, tail=cfg.tail)
+    pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+    log(f"model: {cfg.encoder}, {cfg.compute_dtype}, --input_size "
+        f"{cfg.input_size}, mlp_fused={cfg.mlp_fused}, tail={cfg.tail}, "
+        f"random weights (numpy seed {SEED}), "
+        f"{time.perf_counter() - t0:.2f} s to build")
+    return pipe
 
 
-def main_path(device, rng, card):
-    """Phase 4: the port's main paths through process_segment."""
+def launched_exactly(label, counts, need) -> None:
+    launched = {k for k, v in counts.items() if v > 0}
+    require(launched == set(need),
+            f"{label} launched {sorted(launched)}, expected {sorted(need)}")
+
+
+def checked_path(label, pipe, frames, need, pipe32=None) -> dict:
+    """A main path with every output check: a step with no host sync, the
+    launch counts of one process_segment over ``frames`` (exactly ``need``),
+    the right half equal to the input, the SBS equal to the plain warp of
+    its own depth, and, with ``pipe32``, depth held against the plain
+    versions and f32."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
     from vr_video_generator_tpu_torch.ops.warp import warp_composite_plain
-    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
 
-    frames = rng.integers(0, 256, (3 * B, H, W, 3), dtype=np.uint8)
-
-    # The fused path: every kernel of the slice.
-    cfg, pipe = make_pipe(device, "fused", "fused")
-    scaler = calibrate_random_scaler(pipe, frames[:B])
-    log(f"depth scaler calibrated to {scaler:.6g} on the first batch")
-    _, state = pipe.step(frames[:B], pipe.initial_state())  # warm-up
+    bsz = pipe.run_cfg.batch_size
+    _, state = pipe.step(frames[:bsz], pipe.initial_state())  # warm-up
     # A step must only enqueue work: a host sync inside it would serialise
     # the segment loop's upload, compute and readback.
-    on_device = pipe.frames_to_device(frames[B:2 * B])
+    on_device = pipe.frames_to_device(frames[bsz:2 * bsz] if len(frames) > bsz
+                                      else frames[:bsz])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -519,20 +706,17 @@ def main_path(device, rng, card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("fused path step: no host sync (torch.cuda sync debug mode 'error')")
+    log(f"{label} step: no host sync (torch.cuda sync debug mode 'error')")
 
-    counts, writer, n, elapsed = drive(pipe, frames, B)
+    counts, writer, n, elapsed = drive(pipe, frames, bsz)
     fps = len(frames) / elapsed
-    log(f"fused path: {n} frames in {elapsed:.4f} s = {fps:.3f} frames/s "
-        f"on {card}")
-    log(f"fused path launch counts: {json.dumps(counts)}")
-    for name in KERNELS:
-        require(counts.get(name, 0) > 0,
-                f"kernel {name} was not launched on the fused path")
+    log(f"{label}: {n} frames in {elapsed:.4f} s = {fps:.3f} frames/s")
+    log(f"{label} launch counts: {json.dumps(counts)}")
+    launched_exactly(label, counts, need)
     check_output(writer, n, frames)
 
     # The step's SBS against the plain warp of its own blended depth.
-    batch = pipe.frames_to_device(frames[:B])
+    batch = pipe.frames_to_device(frames[:bsz])
     state0 = pipe.initial_state()
     sbs, _ = pipe.step(batch, state0)
     with torch.inference_mode():
@@ -543,54 +727,110 @@ def main_path(device, rng, card):
         _, cov = warp_composite_plain(batch, blended, st, pipe.spec.s_neg,
                                       pipe.spec.s_pos)
     n_bad = int((sbs != plain_sbs).sum())
-    require(n_bad == 0, f"step SBS differs from the plain warp in {n_bad} values")
+    require(n_bad == 0, f"{label}: step SBS differs from the plain warp in "
+            f"{n_bad} values")
     live = st.valid.sum(dim=1).tolist()
     holes = 1.0 - cov.float().mean().item()
-    log(f"fused path warp: live shifts per frame {live} of "
+    log(f"{label} warp: live shifts per frame {live} of "
         f"{pipe.spec.s_neg + pipe.spec.s_pos + 1}, hole fraction {holes:.4f}, "
         f"depth range [{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
-    depth_stats = depth_agreement(pipe, cfg, batch, depth)
+    stats = dict(frames=n, seconds=elapsed, fps=fps, launches=counts,
+                 live_shifts=live, hole_fraction=holes)
+    if pipe32 is not None:
+        stats.update(depth_agreement(label, pipe, pipe32, batch, depth))
+    return stats
+
+
+def main_path(device, rng):
+    """Phase 4: the port's main paths through process_segment; returns the
+    launch counts of each kernel's path and the paths' statistics."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import random_state_dict
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    frames = rng.integers(0, 256, (3 * B, H, W, 3), dtype=np.uint8)
+    paths, launches = {}, {}
+
+    def keep(label, stats):
+        # A kernel's count is that of the first path, in this order, that
+        # launches it: vits fused, then vitl-518, then vitl-728.
+        paths[label] = stats
+        for k, v in stats["launches"].items():
+            if v > 0 and k not in launches:
+                launches[k] = v
+        log(f"phase 4 {label}: {time.perf_counter() - t0:.1f} s")
+
+    # vits fused: every vits kernel of slice 2.
+    t0 = time.perf_counter()
+    cfg = run_config("vits", "fused", "fused")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    log(f"depth scaler calibrated to {scaler:.6g} on the first batch")
+    pipe32 = make_pipe(device, run_config("vits", "fused", "fused",
+                                          dtype="float32"), sd)
+    pipe32.model.cfg = pipe.model.cfg  # the calibrated scaler
+    keep("vits fused/fused", checked_path("vits fused/fused", pipe, frames,
+                                          FUSED_VITS, pipe32))
     model_cfg = pipe.model.cfg
-    del pipe, batch, sbs, plain_sbs, depth, blended
+    del pipe, pipe32
     torch.cuda.empty_cache()
 
     # Slice 1's unfused path, cut to one batch, and one batch of auto.
-    paths = {}
     for mlp_fused, tail, need in (("xla", "xla", SLICE1),
                                   ("auto", "auto", AUTO_VITS)):
-        _, p = make_pipe(device, mlp_fused, tail)
+        t0 = time.perf_counter()
+        p = make_pipe(device, run_config("vits", mlp_fused, tail), sd)
         p.model.cfg = model_cfg  # the calibrated scaler
         p.step(frames[:B], p.initial_state())  # warm-up
         got, w_, n_, secs = drive(p, frames[:B], B)
-        log(f"{mlp_fused}/{tail} path: {n_} frames in {secs:.4f} s; launch "
-            f"counts {json.dumps(got)}")
-        launched = {k for k, v in got.items() if v > 0}
-        require(launched == set(need),
-                f"{mlp_fused}/{tail} path launched {sorted(launched)}, "
-                f"expected {sorted(need)}")
+        label = f"vits {mlp_fused}/{tail}"
+        log(f"{label}: {n_} frames in {secs:.4f} s; launch counts "
+            f"{json.dumps(got)}")
+        launched_exactly(label, got, need)
         check_output(w_, n_, frames[:B])
-        paths[f"{mlp_fused}/{tail}"] = dict(frames=n_, seconds=secs,
-                                            launches=got)
+        keep(label, dict(frames=n_, seconds=secs, launches=got))
         del p
         torch.cuda.empty_cache()
-    return counts, dict(frames=n, seconds=elapsed, fps=fps,
-                        live_shifts=live, hole_fraction=holes,
-                        other_paths=paths, **depth_stats)
+
+    # vitl, one set of weights for both geometries and the f32 reference.
+    t0 = time.perf_counter()
+    cfg = run_config("vitl", "fused", "fused")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    log(f"vitl depth scaler calibrated to {scaler:.6g} on the first batch")
+    pipe32 = make_pipe(device, run_config("vitl", "fused", "fused",
+                                          dtype="float32"), sd)
+    pipe32.model.cfg = pipe.model.cfg
+    keep("vitl-518 fused/fused", checked_path(
+        "vitl-518 fused/fused", pipe, frames[:2 * B], VITL_518, pipe32))
+    del pipe
+    torch.cuda.empty_cache()
+
+    # vitl-728 through the CLI's default (auto), on the same weights; the
+    # f32 reference is the same f32 model (plain versions throughout).
+    t0 = time.perf_counter()
+    cfg = run_config("vitl", "auto", "auto", batch=B_L728, input_size=728)
+    pipe = make_pipe(device, cfg, sd)
+    del sd
+    pipe.model.cfg = dataclasses.replace(pipe.model.cfg, depth_scaler=scaler)
+    pipe32 = type(pipe32)(pipe32.model, H, W, run_cfg=dataclasses.replace(
+        cfg, compute_dtype="float32"))
+    keep("vitl-728 auto/auto", checked_path(
+        "vitl-728 auto/auto", pipe, frames[:B_L728], VITL_728, pipe32))
+    del pipe, pipe32
+    torch.cuda.empty_cache()
+    return launches, paths
 
 
-def depth_agreement(pipe, cfg, batch, depth):
+def depth_agreement(label, pipe, pipe32, batch, depth):
     """Depth through the kernels (bf16) against the plain versions in bf16
     and in f32, on the same weights and frames."""
-    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
-
     with PlainKernels():
         plain = pipe.depth_only(batch)
-        pipe32 = SbsPipeline.create(
-            dataclasses.replace(cfg, compute_dtype="float32"), H, W,
-            allow_random=True, device=batch.device, seed=SEED)
-        pipe32.model.cfg = pipe.model.cfg  # the calibrated scaler
         ref32 = pipe32.depth_only(batch)
-        del pipe32
     span = float(plain.max() - plain.min())
     d_kp = (depth - plain).abs()
     d_k32 = (depth - ref32).abs()
@@ -602,16 +842,17 @@ def depth_agreement(pipe, cfg, batch, depth):
                  depth_kernel_vs_f32_mean=float(d_k32.mean()),
                  depth_plain_bf16_vs_f32_max=float(d_p32.max()),
                  depth_plain_bf16_vs_f32_mean=float(d_p32.mean()))
-    log(f"depth agreement: {json.dumps(stats)}")
+    log(f"{label} depth agreement: {json.dumps(stats)}")
     require(stats["depth_kernel_vs_plain_mean"] <= DEPTH_REL * span,
-            f"depth through the kernels is off the plain path by "
+            f"{label}: depth through the kernels is off the plain path by "
             f"{stats['depth_kernel_vs_plain_mean']} on average (limit "
             f"{DEPTH_REL} x range {span})")
     for kind in ("max", "mean"):
         require(stats[f"depth_kernel_vs_f32_{kind}"]
                 <= DEPTH_FLOOR * stats[f"depth_plain_bf16_vs_f32_{kind}"],
-                f"kernel depth error vs f32 ({kind}) exceeds {DEPTH_FLOOR} x "
-                f"the plain bf16 path's: {json.dumps(stats)}")
+                f"{label}: kernel depth error vs f32 ({kind}) exceeds "
+                f"{DEPTH_FLOOR} "
+                f"x the plain bf16 path's: {json.dumps(stats)}")
     return stats
 
 
@@ -665,13 +906,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    t0 = time.perf_counter()
     device, card = setup(opts.verbose_build)
+    log(f"phases 1-2 (card, build): {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
 
+    t0 = time.perf_counter()
     results = {}
     kernel_parity(device, rng, results)
-    counts, slice_stats = main_path(device, rng, card)
-    log(f"slice: {json.dumps(dict(slice_stats, card=card))}")
+    log(f"phase 3 (kernel parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, paths = main_path(device, rng)
+    log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
+    log(f"slice: {json.dumps(dict(paths=paths, card=card))}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -10,9 +10,13 @@ import pytest
 import torch
 
 from vr_video_generator_tpu_torch.kernels import launch_counts
-from vr_video_generator_tpu_torch.ops.head_tail import (head_tail_ext,
-                                                        head_tail_ext_plain)
+from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
+                                                        flash_attention_plain)
+from vr_video_generator_tpu_torch.ops.head_tail import (
+    head_tail_big_back, head_tail_big_back_plain, head_tail_big_front,
+    head_tail_big_front_plain, head_tail_ext, head_tail_ext_plain)
 from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
+                                                  mlp_residual_hblocked,
                                                   mlp_residual_plain)
 from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
                                                   proj_ls_residual,
@@ -93,6 +97,53 @@ def test_mlp_kernel_matches_plain(cuda, m, d):
     assert launch_counts()["mlp_residual"] == before + 1
     _assert_rounding_boundaries_only("mlp_residual", got,
                                      mlp_residual_plain(*args), args)
+
+
+@pytest.mark.parametrize("m", [100, 19544])
+def test_mlp_hblocked_kernel_matches_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    d, f32 = 1024, torch.float32
+    args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
+            _randn(gen, (d,), 0.1, 0.0, f32),
+            _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
+            _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
+            _randn(gen, (d,), 0.1, 1.0))
+    before = launch_counts().get("mlp_residual_hblocked", 0)
+    got = mlp_residual_hblocked(*args)
+    assert launch_counts()["mlp_residual_hblocked"] == before + 1
+    _assert_rounding_boundaries_only("mlp_residual_hblocked", got,
+                                     mlp_residual_plain(*args), args)
+
+
+@pytest.mark.parametrize("b,n,h", [(1, 4097, 2), (2, 4785, 16)])
+def test_flash_attention_kernel_matches_plain(cuda, b, n, h):
+    from chip_smoke import attention_stats, peaked_qkv
+
+    qkv = peaked_qkv(torch.Generator(device=cuda).manual_seed(n), b, n, h)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    attention_stats("flash_attention", flash_attention(q, k, v, 0.125),
+                    flash_attention_plain(q, k, v, 0.125))
+
+
+# Odd grids (37 x 45 and 20 x 36: no multiple of the 128-pixel segment) at
+# each channel width the big-C kernels are built for.
+@pytest.mark.parametrize("b,h0,w0,c", [(1, 37, 45, 256), (2, 20, 36, 128),
+                                       (1, 12, 20, 64)])
+def test_head_tail_big_kernels_match_plain(cuda, b, h0, w0, c):
+    from chip_smoke import gemm_check, tail_stats, tail_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c)
+    out_hw = (h0 * 14 // 4, w0 * 14 // 4)
+    x = _randn(gen, (b, c, h0, w0)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = tail_weights(gen, c)
+    mid = head_tail_big_front(x, k_oc, k1)
+    mid_p = head_tail_big_front_plain(x, k_oc, k1)
+    assert mid.shape == mid_p.shape == (b, 2 * h0, 2 * w0, c // 2)
+    gemm_check("head_tail_big_front", mid, mid_p, ())
+    back = (k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+    got = head_tail_big_back(mid_p, *back)
+    assert got.shape == (b, *out_hw) and got.dtype == torch.float32
+    tail_stats("head_tail_big_back", got, head_tail_big_back_plain(mid_p, *back))
 
 
 # An odd grid (37 x 45: no multiple of the 64-pixel segment anywhere), the

@@ -233,7 +233,7 @@ def test_fused_block_matches_jax_fused_block():
     ref = np.asarray(jblk.apply({"params": _block_params(sd)}, jnp.asarray(x)))
     blk = model.pretrained.blocks[0]
     assert blk.mlp_fused == "fused"
-    assert resolve_block_fusion("fused", 128, 2, "cpu") == (True, True)
+    assert resolve_block_fusion("fused", 128, 2, 41, "cpu") == (True, True)
     ours = blk(_t(x)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=0, atol=3e-5)
 
@@ -408,24 +408,27 @@ def test_converted_weights_load_into_both_paths():
 # --- auto resolution -------------------------------------------------------
 
 @pytest.mark.parametrize("encoder,device,want", [
-    ("vits", "cpu", (False, False, False)),
-    ("vitb", "cpu", (False, False, False)),
-    ("vitl", "cpu", (False, False, False)),
-    ("vits", "cuda", (True, False, True)),   # the MLP half fuses at D >= 512
-    ("vitb", "cuda", (True, True, True)),
-    ("vitl", "cuda", (True, False, False)),  # rows 9, 11, 12: next slice
+    ("vits", "cpu", (False, False, None)),
+    ("vitb", "cpu", (False, False, None)),
+    ("vitl", "cpu", (False, False, None)),
+    ("vits", "cuda", (True, False, "ext")),  # the MLP half fuses at D >= 512
+    ("vitb", "cuda", (True, True, "ext")),
+    ("vitl", "cuda", (True, True, "big")),   # rows 9, 11, 12
 ])
 def test_auto_resolution(encoder, device, want):
     """auto resolves as the JAX package's auto on its accelerator, with CUDA
-    in the TPU's place, and to the unfused paths off the card; no GPU is
-    needed to check it."""
+    in the TPU's place, and to the unfused paths off the card, at 1080p with
+    --input_size 518 (N = 2443 tokens, refinenet1 at 148 x 264), bf16; no
+    GPU is needed to check it."""
     cfg = config.ModelConfig.for_encoder(encoder)
+    pre, out_hw = (8, 148, 264, cfg.features), (518, 924)
     attn, mlp = resolve_block_fusion("auto", cfg.embed_dim, cfg.num_heads,
-                                     device)
-    assert (attn, mlp, resolve_tail("auto", cfg.features, device)) == want
-    assert resolve_block_fusion("xla", cfg.embed_dim, cfg.num_heads,
+                                     2443, device)
+    tail = resolve_tail("auto", pre, torch.bfloat16, out_hw, device)
+    assert (attn, mlp, tail) == want
+    assert resolve_block_fusion("xla", cfg.embed_dim, cfg.num_heads, 2443,
                                 device) == (False, False)
-    assert not resolve_tail("xla", cfg.features, device)
+    assert resolve_tail("xla", pre, torch.bfloat16, out_hw, device) is None
 
 
 # --- the port's own copies of the configuration and the CLI parser -------

@@ -289,19 +289,30 @@ def test_unported_run_options_raise(field, value, item):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(encoder="vitl", tail="fused"), r"big-C DPT tail kernels \(rows 11, 12\)"),
-    (dict(encoder="vitl", mlp_fused="fused"), r"hidden-blocked MLP kernel \(row 9\)"),
+    pytest.param(dict(encoder="vitl", tail="fused"), "ext DPT tail at C=256",
+                 id=r"overrides0-big-C DPT tail kernels \(rows 11, 12\)"),
+    pytest.param(dict(encoder="vitg", mlp_fused="fused"),
+                 r"SwiGLU encoder \(vitg\)",
+                 id=r"overrides1-hidden-blocked MLP kernel \(row 9\)"),
 ])
 def test_unported_fused_combinations_raise(overrides, item):
-    """vits and vitb run fused; vitl's big-C tail and its MLP width are the
-    next slice's kernels, and asking for them fused raises."""
+    """vits, vitb and vitl run fused (vitl's big-C tail and hidden-blocked
+    MLP are ported). What stays unported raises: the ext tail at C=256,
+    which the JAX planners pick for vitl at small inputs only, on the card;
+    and a fused MLP at a width no kernel takes (vitg's D=1536)."""
     import dataclasses
 
-    for encoder in ("vits", "vitb"):
+    from vr_video_generator_tpu_torch.models.dpt import resolve_tail
+
+    for encoder in ("vits", "vitb", "vitl"):
         check_supported(dataclasses.replace(CFG, encoder=encoder,
                                             mlp_fused="fused", tail="fused"))
+    cfg = dataclasses.replace(CFG, **overrides)
     with pytest.raises(NotImplementedError, match=item):
-        check_supported(dataclasses.replace(CFG, **overrides))
+        check_supported(cfg)
+        # refinenet1's grid at 1080p with --input_size 56: the ext tail
+        resolve_tail(cfg.tail, (1, 16, 28, cfg.model().features),
+                     torch.bfloat16, (56, 98), "cuda")
 
 
 @pytest.mark.parametrize("argv,item", [

@@ -1,10 +1,24 @@
-// One-shot softmax attention of the DINOv2 blocks, for Hopper (sm_90a).
+// Softmax attention of the DINOv2 blocks, for Hopper (sm_90a): one streaming
+// kernel, built twice.
 //
-// Replaces: vr_video_generator_tpu/ops/attention_pallas.py `oneshot_mha_heads`
-// (kernel body `_kernel`). Same arithmetic contract: q arrives pre-scaled in
-// bf16, logits and softmax statistics are f32, the probabilities are cast to
-// bf16 before the PV product, PV accumulates in f32, and the output is
-// o / l cast to bf16.
+// attention_kernel<false> replaces vr_video_generator_tpu/ops/
+// attention_pallas.py `oneshot_mha_heads` (kernel body `_kernel`, up to 4096
+// tokens). Same arithmetic contract: q arrives pre-scaled in bf16, logits and
+// softmax statistics are f32, the probabilities are cast to bf16 before the
+// PV product, PV accumulates in f32, and the output is o / l cast to bf16.
+//
+// attention_kernel<true> replaces the JAX library flash kernel that
+// vr_video_generator_tpu/ops/attention.py `_flash_mha` calls past 4096 tokens
+// (jax.experimental.pallas.ops.tpu.flash_attention,
+// `_flash_attention_kernel_single_batch`): q is unscaled and the f32 logits
+// are multiplied by sm_scale in f32 before the softmax. The library walks K
+// in 512-key blocks and renormalises the output after each; this kernel walks
+// 64-key tiles and divides once at the end. Both are exact online softmaxes
+// in f32; they differ only in f32 rounding and in which running max the bf16
+// probabilities are taken against, which chip_smoke.py bounds against the
+// plain version (ops/attention.flash_attention_plain, the library's order).
+// At vitl-728 (B = 2, H = 16, N = 4785) the two GEMMs are 188 GFLOP against
+// ~40 MB of q/k/v/o: compute-bound, as row 2.
 //
 // What bounds it on the H100: at 1080p/vits (B=8, H=6, N=2443, Dh=64) the
 // two GEMMs are 2 * 2 * 8*6*2443^2*64 = 73 GFLOP per call, while q/k/v/o
@@ -65,12 +79,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+template <bool SCALED>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int n,
                  long long q_sb, long long q_sn, long long k_sb,
                  long long k_sn, long long v_sb, long long v_sn,
-                 long long o_sb, long long o_sn) {
+                 long long o_sb, long long o_sn, float scale) {
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -135,7 +150,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float tmax = -INFINITY;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      s[i] = (kv0 + c0 + i < n) ? wS[r * LDS + c0 + i] : -INFINITY;
+      const float logit = SCALED ? __fmul_rn(wS[r * LDS + c0 + i], scale)
+                                 : wS[r * LDS + c0 + i];
+      s[i] = (kv0 + c0 + i < n) ? logit : -INFINITY;
       tmax = fmaxf(tmax, s[i]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -181,22 +198,45 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool SCALED>
+int run(const void* q, const void* k, const void* v, void* o, int batch,
+        int n, int heads, long long q_sb, long long q_sn, long long k_sb,
+        long long k_sn, long long v_sb, long long v_sn, long long o_sb,
+        long long o_sn, float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<SCALED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + TQ - 1) / TQ, heads, batch);
+  attention_kernel<SCALED><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, n, q_sb, q_sn,
+      k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q/k/v/o: bf16 (B, N, H, 64) with the (H, 64) pair contiguous; the batch and
 // token strides are given in elements. Returns cudaGetLastError().
+// vrvg_attention takes q pre-scaled and ignores `scale` (row 2);
+// vrvg_flash_attention multiplies the f32 logits by `scale` (row 17).
 extern "C" int vrvg_attention(const void* q, const void* k, const void* v,
                               void* o, int batch, int n, int heads,
                               long long q_sb, long long q_sn, long long k_sb,
                               long long k_sn, long long v_sb, long long v_sn,
-                              long long o_sb, long long o_sn, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, n, q_sb, q_sn,
-      k_sb, k_sn, v_sb, v_sn, o_sb, o_sn);
-  return (int)cudaGetLastError();
+                              long long o_sb, long long o_sn, float scale,
+                              void* stream) {
+  return run<false>(q, k, v, o, batch, n, heads, q_sb, q_sn, k_sb, k_sn, v_sb,
+                    v_sn, o_sb, o_sn, scale, stream);
+}
+
+extern "C" int vrvg_flash_attention(const void* q, const void* k,
+                                    const void* v, void* o, int batch, int n,
+                                    int heads, long long q_sb, long long q_sn,
+                                    long long k_sb, long long k_sn,
+                                    long long v_sb, long long v_sn,
+                                    long long o_sb, long long o_sn,
+                                    float scale, void* stream) {
+  return run<true>(q, k, v, o, batch, n, heads, q_sb, q_sn, k_sb, k_sn, v_sb,
+                   v_sn, o_sb, o_sn, scale, stream);
 }

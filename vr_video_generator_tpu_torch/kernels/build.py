@@ -37,7 +37,9 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "vrvg_attention": [_P, _P, _P, _P, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _P],
+                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vrvg_flash_attention": [_P, _P, _P, _P, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vrvg_warp_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
     "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
@@ -45,9 +47,14 @@ SIGNATURES = {
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _F, _P],
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "vrvg_head_tail_big_front": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -11,9 +11,12 @@ checkpoint loads with ``load_state_dict``.
 ``mlp_fused`` picks each half-block's path as the JAX package does, with
 CUDA in the TPU's place (:func:`resolve_block_fusion`). Unfused, the
 LayerNorms go through ops/layernorm.py (Triton kernel on CUDA) and the
-attention through ops/attention.py (CUDA kernel). Fused, the attention half
-is ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual and the MLP half
-is ops/mlp.mlp_residual, reading the same parameters. Activations are in
+attention through ops/attention.mha (the one-shot CUDA kernel up to 4096
+tokens, the flash kernel above). Fused, the attention half is
+ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual (up to 4096 tokens)
+and the MLP half is ops/mlp.mlp_residual (vits, vitb) or
+ops/mlp.mlp_residual_hblocked (vitl), as the JAX package picks its resident
+or hidden-blocked kernel, reading the same parameters. Activations are in
 the compute dtype; LayerNorm statistics, the pos-embed resample and the
 softmax are f32; dense layers round as flax's (models/layers.py).
 """
@@ -31,11 +34,14 @@ from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.layers import Conv2d, Linear
 from vr_video_generator_tpu_torch.ops import mlp as mlp_ops
 from vr_video_generator_tpu_torch.ops import qkv as qkv_ops
-from vr_video_generator_tpu_torch.ops.attention import attention, mha
+from vr_video_generator_tpu_torch.ops.attention import (attention, mha,
+                                                        oneshot_supported)
 from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm
-from vr_video_generator_tpu_torch.ops.mlp import mlp_residual
+from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
+                                                  mlp_residual_hblocked)
 from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, proj_ls_residual
+from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
 
 def kernel_device(x: torch.Tensor) -> str:
@@ -45,32 +51,34 @@ def kernel_device(x: torch.Tensor) -> str:
 
 
 def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
-                         device_type: str) -> Tuple[bool, bool]:
-    """(fuse the attention half, fuse the MLP half) of a block, as the JAX
-    package resolves ``mlp_fused`` (its models/dinov2.py Block) with CUDA in
-    the TPU's place. ``auto`` fuses the attention half at every width the
-    kernels take (D % 128 == 0, head dim 64) and the MLP half at D >= 512,
-    on CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 on the
-    card); off the card it fuses nothing, as the JAX package's ``auto``
-    does off the TPU. ``fused`` fuses both wherever the JAX package
-    would (off the card through the plain versions) and raises for an MLP
-    width whose kernel is not ported; ``xla`` fuses nothing."""
+                         n_tokens: int, device_type: str
+                         ) -> Tuple[bool, bool]:
+    """(fuse the attention half, fuse the MLP half) of a block over
+    ``n_tokens`` tokens, as the JAX package resolves ``mlp_fused`` (its
+    models/dinov2.py Block) with CUDA in the TPU's place. The attention half
+    fuses at the widths the qkv kernels take (head dim 64) and only up to
+    4096 tokens, where the one-shot attention serves (attention_pallas.
+    supported; the JAX condition attn_fusable holds at every such width);
+    above, it runs LayerNorm -> qkv -> flash attention -> proj. ``auto``
+    fuses the attention half there and the MLP half at D >= 512, on CUDA
+    only (``device_type`` is :func:`kernel_device`'s: bf16 on the card); off
+    the card it fuses nothing, as the JAX package's ``auto`` does off the
+    TPU. ``fused`` fuses both wherever the JAX package would (off the card
+    through the plain versions); where either would fuse the MLP half at a
+    width no kernel takes (vitg's), it raises; ``xla`` fuses nothing."""
     if mlp_fused not in ("auto", "fused", "xla"):
         raise ValueError(f"mlp_fused must be auto, fused or xla, got "
                          f"{mlp_fused!r}")
     on_card = device_type == "cuda"
     want = mlp_fused == "fused" or (mlp_fused == "auto" and on_card)
     attn = want and dim in qkv_ops.WIDTHS \
-        and dim == num_heads * qkv_ops.HEAD_DIM
+        and dim == num_heads * qkv_ops.HEAD_DIM and oneshot_supported(n_tokens)
     mlp = dim % 128 == 0 and (mlp_fused == "fused" or (
         mlp_fused == "auto" and on_card and dim >= 512))
     if mlp and not mlp_ops.takes_width(dim):
-        if mlp_fused == "fused":
-            not_ported(f"mlp_fused='fused' at D={dim}",
-                       "the vitl slice, hidden-blocked MLP kernel (row 9)")
-        mlp = False  # auto at vitl: the unfused MLP until row 9 lands
+        not_ported(f"mlp_fused={mlp_fused!r} at D={dim}",
+                   "SwiGLU encoder (vitg)")
     return attn, mlp
-from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
 
 class LayerNorm(nn.LayerNorm):
@@ -137,7 +145,8 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fuse_attn, fuse_mlp = resolve_block_fusion(
-            self.mlp_fused, self.dim, self.num_heads, kernel_device(x))
+            self.mlp_fused, self.dim, self.num_heads, x.shape[1],
+            kernel_device(x))
         if fuse_attn:
             qkv = ln_qkv(x, self.norm1.weight, self.norm1.bias,
                          self.attn.qkv.weight, self.attn.qkv.bias,
@@ -149,10 +158,13 @@ class Block(nn.Module):
         else:
             x = x + self.ls1(self.attn(self.norm1(x)))
         if fuse_mlp:
-            return mlp_residual(x, self.norm2.weight, self.norm2.bias,
-                                self.mlp.fc1.weight, self.mlp.fc1.bias,
-                                self.mlp.fc2.weight, self.mlp.fc2.bias,
-                                self.ls2.gamma, eps=self.norm2.eps)
+            half = mlp_residual if mlp_ops.resident(
+                self.dim, self.mlp.fc1.weight.shape[0], x.dtype) \
+                else mlp_residual_hblocked
+            return half(x, self.norm2.weight, self.norm2.bias,
+                        self.mlp.fc1.weight, self.mlp.fc1.bias,
+                        self.mlp.fc2.weight, self.mlp.fc2.bias,
+                        self.ls2.gamma, eps=self.norm2.eps)
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 

@@ -12,13 +12,14 @@ Pallas kernel, and round as flax's (models/layers.py).
 ``tail`` picks the path after refinenet1's residual units
 (:func:`resolve_tail`): "xla" runs refinenet1's upsample and out_conv and
 the output convs here; "fused" hands refinenet1's pre-upsample activation
-and the weights to ops/head_tail.head_tail_ext (the CUDA kernel chain on the
-card), as the JAX package hands them to its Pallas tail.
+and the weights to ops/head_tail.head_tail_ext or, where the JAX package's
+planners pick the big-C tail (vitl), ops/head_tail.head_tail_big (the CUDA
+kernels on the card), as the JAX package hands them to its Pallas tails.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,23 +30,37 @@ from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.dinov2 import kernel_device
 from vr_video_generator_tpu_torch.models.layers import Conv2d, ConvTranspose2d
 from vr_video_generator_tpu_torch.ops import head_tail as head_tail_ops
-from vr_video_generator_tpu_torch.ops.head_tail import head_tail_ext
+from vr_video_generator_tpu_torch.ops.head_tail import (head_tail_big,
+                                                        head_tail_ext)
 from vr_video_generator_tpu_torch.ops.resize import resize_bilinear
 
 
-def resolve_tail(tail: str, features: int, device_type: str) -> bool:
-    """Whether the head runs the fused tail, as the JAX package resolves
-    ``tail`` (its models/dpt.py DPTHead) with CUDA in the TPU's place:
-    ``auto`` fuses on CUDA where the kernel takes the geometry (vits, vitb),
-    ``fused`` fuses everywhere (off the card through the plain version) and
-    raises for vitl's big-C tail, which is not ported."""
-    if tail not in ("auto", "fused", "xla"):
+TAILS = ("auto", "fused", "xla")
+
+
+def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
+                 dtype: torch.dtype, out_hw: Tuple[int, int],
+                 device_type: str) -> Optional[str]:
+    """Which fused tail the head runs for refinenet1's pre-upsample shape
+    (B, H0, W0, C) in ``dtype``: "ext", "big" or None (unfused), as the JAX
+    package resolves ``tail`` (its models/dpt.py DPTHead) with CUDA in the
+    TPU's place. ``fused``, and ``auto`` on the card (``device_type`` is
+    models.dinov2.kernel_device's), take the tail the JAX package's planners
+    pick (ops/head_tail.plan_tail); ``xla``, and ``auto`` off the card, fuse
+    nothing. Off the card the fused tails run their plain versions. The ext
+    tail at a width its kernel chain does not take (C = 256, at small inputs
+    only) raises on the card: that kernel is not ported."""
+    if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
-    if tail == "fused" and not head_tail_ops.takes(features):
-        not_ported(f"tail='fused' at features={features} (vitl)",
-                   "the vitl slice, big-C DPT tail kernels (rows 11, 12)")
-    return tail == "fused" or (tail == "auto" and device_type == "cuda"
-                               and head_tail_ops.takes(features))
+    if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):
+        return None
+    choice = head_tail_ops.plan_tail(pre_shape, dtype, out_hw)
+    c = pre_shape[-1]
+    if choice == "ext" and device_type == "cuda" and not head_tail_ops.takes(c):
+        not_ported(f"the ext DPT tail at C={c} on the card (tail={tail!r}, "
+                   f"refinenet1 grid {pre_shape[1]}x{pre_shape[2]})",
+                   "the ext DPT tail at C=256")
+    return choice
 
 
 def _upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -134,13 +149,18 @@ class DPTHead(nn.Module):
         path3 = s.refinenet3(path4, rn[2], out_hw=tuple(rn[1].shape[2:]))
         path2 = s.refinenet2(path3, rn[1], out_hw=tuple(rn[0].shape[2:]))
         out_hw = (ph * self.cfg.patch_size, pw * self.cfg.patch_size)
-        if resolve_tail(self.tail, self.cfg.features, kernel_device(path2)):
+        pre_shape = (rn[0].shape[0], rn[0].shape[2], rn[0].shape[3],
+                     self.cfg.features)
+        fused = resolve_tail(self.tail, pre_shape, path2.dtype, out_hw,
+                             kernel_device(path2))
+        if fused:
             pre = s.refinenet1(path2, rn[0], pre_upsample=True)
             oc, c2 = s.refinenet1.out_conv, s.output_conv2
-            return head_tail_ext(pre.permute(0, 2, 3, 1), oc.weight, oc.bias,
-                                 s.output_conv1.weight, s.output_conv1.bias,
-                                 c2[0].weight, c2[0].bias, c2[2].weight,
-                                 c2[2].bias, out_hw)
+            tail = head_tail_big if fused == "big" else head_tail_ext
+            return tail(pre.permute(0, 2, 3, 1), oc.weight, oc.bias,
+                        s.output_conv1.weight, s.output_conv1.bias,
+                        c2[0].weight, c2[0].bias, c2[2].weight, c2[2].bias,
+                        out_hw)
         path1 = s.refinenet1(path2, rn[0])
         x = _upsample(s.output_conv1(path1), out_hw)
         return s.output_conv2(x)[:, 0]

@@ -1,8 +1,11 @@
 """The DPT head's tail from refinenet1's pre-upsample activation to depth: the
-CUDA kernel chain and its plain version.
+CUDA kernels, their plain versions, and the JAX package's choice between them.
 
-Replaces vr_video_generator_tpu/ops/head_tail_pallas.py
-`head_tail_ext_pallas` (body `_tail_ext_kernel`):
+Two tails, as in vr_video_generator_tpu/ops/head_tail_pallas.py, picked by
+its planners (:func:`plan_tail`: ``ext_pick_block_rows``, then
+``big_pick_plan``, copied here as pure integer arithmetic).
+
+The ext tail replaces `head_tail_ext_pallas` (body `_tail_ext_kernel`, row 7):
 
     bilinear x2 (align corners) -> out_conv 1x1 -> output_conv1 3x3 ->
     bilinear to out_hw -> output_conv2 3x3 -> ReLU -> 1x1 -> ReLU
@@ -13,12 +16,25 @@ with bf16 weights, the H-resizes as exact integer taps with an f32 lerp
 (the out_conv bias added there, zero outside the image), conv1's f32 bias
 added before its cast, conv2's f32 bias and ReLU, and the 1x1 in f32. The
 kernels are ``csrc/head_tail.cu``; see its header for the design.
+
+The big-C tail (vitl) replaces `head_tail_big_pallas`, front (body
+`_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
+own rounding points, which are not the ext tail's: x is W- and H-upsampled
+first (bf16 after each), out_conv's 1x1 mix is folded into conv1's weights in
+f32 and cast, conv1's f32 sum is cast to bf16 before the W-resize, and
+out_conv's bias and conv1's bias ride ``cw``, conv1's response to the bias
+image per row case (interior, top, bottom), W-resized in f32 and added before
+the intermediate's cast. The back H-resizes (f32 lerp, bf16), runs conv2 with
+its f32 bias, ReLU, the f32 1x1 and ReLU. The kernels are
+``csrc/head_tail_big.cu``; their intermediate is the bf16 post-conv1 product
+(B, 2 H0, 2 W0, C/2), and the back applies the W-resize and ``cw`` as it
+loads it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,14 +44,113 @@ from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.resize import linear_weights
 
 LAUNCHES = counter("head_tail_ext")
-CHANNELS = (32, 64, 128)  # the feature widths csrc/head_tail.cu is built for
-C3 = 32                   # output_conv2's width in the reference head
+BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
+BIG_BACK_LAUNCHES = counter("head_tail_big_back")
+CHANNELS = (32, 64, 128)       # the feature widths csrc/head_tail.cu takes
+BIG_CHANNELS = (64, 128, 256)  # the feature widths csrc/head_tail_big.cu takes
+C3 = 32                        # output_conv2's width in the reference head
 
 
 def takes(features: int) -> bool:
-    """Whether the kernel chain is built for a head of ``features`` channels
-    (vits 64, vitb 128; vitl's 256 is the big-C tail, not ported)."""
+    """Whether the ext kernel chain is built for a head of ``features``
+    channels (vits 64, vitb 128; not vitl's 256)."""
     return features in CHANNELS
+
+
+# --- the JAX package's tail planners (head_tail_pallas.py:45, 223-251,
+# 613-660): which tail fits the TPU's VMEM at a geometry. The port runs the
+# tail they pick, so both packages compute the same function everywhere.
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _lane(n: int) -> int:
+    return n + (-n) % 128
+
+
+def c3_est(c2: int) -> int:
+    """conv2 output width used for planning (reference head: always 32)."""
+    return min(32, c2)
+
+
+def _ext_plan(r, h0, hm, h1, w0, w2, w1, c, c2, isz):
+    span1 = int(np.ceil((r + 1) * (hm - 1) / (h1 - 1))) + 3
+    a1 = min(_pad4(span1), hm - hm % 4)
+    span0 = int(np.ceil((a1 + 1) * (h0 - 1) / (hm - 1))) + 3
+    a0 = min(_pad4(span0), h0 - h0 % 4)
+    if a1 < span1 or a0 < span0:
+        return None
+    est = isz * (a0 * c * _lane(w0 + (-w0) % 128) + a0 * c * _lane(w2)
+                 + (a1 + 2) * c * _lane(w2 + 2) + a1 * c2 * _lane(w2)
+                 + a1 * c2 * _lane(w1) + (r + 2) * c2 * _lane(w1 + 2))
+    est += 2 * 4 * r * _lane(w1)
+    return (a0, a1, est)
+
+
+def ext_pick_block_rows(x_shape, c2: int, dtype: torch.dtype,
+                        out_hw) -> Optional[int]:
+    """The ext tail's row block, or None where it does not fit."""
+    _, h0, w0, c = x_shape
+    h1, w1 = out_hw
+    for cand in (32, 24, 16, 8):
+        p = _ext_plan(cand, h0, h0 * 2, h1, w0, w0 * 2, w1, c, c2,
+                      dtype.itemsize)
+        if p and p[2] <= 10.5 * 2 ** 20:
+            return cand
+    return None
+
+
+def big_pick_plan(x_shape, c2: int, dtype: torch.dtype, out_hw):
+    """The big-C tail's (RM, A0, R, A) row plan, or None where it does not
+    fit."""
+    _, h0, w0, c = x_shape
+    hm, w2 = 2 * h0, 2 * w0
+    h1, w1 = out_hw
+    isz = dtype.itemsize
+    w0p, w2p2, w1p = _lane(w0), _lane(w2 + 2), _lane(w1 + 2)
+    front = None
+    cpr = c if c <= 128 else 128
+    for rm in (16, 8, 4):
+        a0 = _pad4(int(np.ceil((rm + 1) * (h0 - 1) / (hm - 1))) + 3)
+        if a0 > h0 - h0 % 4:
+            continue
+        est = isz * (a0 * cpr * (w0p + w2) + (rm + 2) * c * w2p2
+                     + 2 * rm * c2 * w1p
+                     + w0p * w2 + 9 * c2 * c + w2p2 * w1p)
+        est += 4 * c2 * w2p2 + 4 * 3 * c2 * w1p
+        if est <= 14 * 2 ** 20:
+            front = (rm, a0)
+            break
+    if front is None:
+        return None
+    back = None
+    for r in (32, 24, 16, 8):
+        a = _pad4(int(np.ceil((r + 1) * (hm - 1) / (h1 - 1))) + 3)
+        if a > hm - hm % 4:
+            continue
+        est = isz * (a * c2 * w1p + (r + 2) * c2 * w1p
+                     + 3 * 4 * c3_est(c2) * 6 * c2)
+        est += 2 * 4 * r * w1p
+        if est <= 12.5 * 2 ** 20:
+            back = (r, a)
+            break
+    if back is None:
+        return None
+    return (*front, *back)
+
+
+def plan_tail(x_shape, dtype: torch.dtype, out_hw) -> Optional[str]:
+    """The fused tail the JAX package runs for refinenet1's pre-upsample
+    shape (B, H0, W0, C) in ``dtype`` (its models/dpt.py DPTHead): "ext" if
+    the ext plan fits, else "big" if the big-C plan fits, else None (the
+    unfused tail)."""
+    c2 = x_shape[-1] // 2
+    if ext_pick_block_rows(x_shape, c2, dtype, out_hw) is not None:
+        return "ext"
+    if big_pick_plan(x_shape, c2, dtype, out_hw) is not None:
+        return "big"
+    return None
 
 
 def lerp_taps(n_in: int, n_out: int) -> Tuple[torch.Tensor, torch.Tensor,
@@ -63,6 +178,14 @@ def _hlerp(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
     return (1 - t) * a + t * b
 
 
+def _resize_matrix(n_in: int, n_out: int, dt: torch.dtype,
+                   device) -> torch.Tensor:
+    """The (n_out, n_in) align-corners resize matrix rounded to ``dt``, as
+    f32 (the TPU's resize GEMM operand)."""
+    return torch.as_tensor(linear_weights(n_in, n_out, align_corners=True),
+                           dtype=dt, device=device).float()
+
+
 def head_tail_ext_plain(x: torch.Tensor, k_oc: torch.Tensor,
                         b_oc: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
                         k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
@@ -75,14 +198,12 @@ def head_tail_ext_plain(x: torch.Tensor, k_oc: torch.Tensor,
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
     xoc = (x.float() @ k_oc[:, :, 0, 0].to(dt).float().T).to(dt)
-    wta = torch.as_tensor(linear_weights(w0, 2 * w0, align_corners=True),
-                          dtype=dt, device=x.device).float()
+    wta = _resize_matrix(w0, 2 * w0, dt, x.device)
     rw = torch.einsum("bhwc,vw->bhvc", xoc.float(), wta).to(dt)
     z = (_hlerp(rw.float(), 2 * h0, 1) + b_oc.to(f32)).to(dt)
     c1 = F.conv2d(z.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
                   b1.to(f32), padding=1).to(dt)
-    wtb = torch.as_tensor(linear_weights(2 * w0, w1, align_corners=True),
-                          dtype=dt, device=x.device).float()
+    wtb = _resize_matrix(2 * w0, w1, dt, x.device)
     c1w = torch.einsum("bchw,vw->bchv", c1.float(), wtb).to(dt)
     zz = _hlerp(c1w.float(), h1, 2).to(dt)
     y = F.relu(F.conv2d(zz.float(), k2.to(dt).float(), b2.to(f32), padding=1))
@@ -109,18 +230,21 @@ def _host_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wts
 
 
-_DEVICE_TAPS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_ON_DEVICE: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _on_device(tables, n_in: int, n_out: int, device: torch.device):
+    """The host tables ``tables(n_in, n_out)`` on ``device``, copied once (a
+    copy inside a step would synchronise the stream)."""
+    key = (tables, n_in, n_out, device)
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = tuple(torch.as_tensor(t, device=device)
+                                for t in tables(n_in, n_out))
+    return _ON_DEVICE[key]
 
 
 def _device_taps(n_in: int, n_out: int, device: torch.device):
-    """The tap tables on ``device``, copied once (a copy inside a step would
-    synchronise the stream)."""
-    key = (n_in, n_out, device)
-    if key not in _DEVICE_TAPS:
-        idx, wts = _host_taps(n_in, n_out)
-        _DEVICE_TAPS[key] = (torch.as_tensor(idx, device=device),
-                             torch.as_tensor(wts, device=device))
-    return _DEVICE_TAPS[key]
+    return _on_device(_host_taps, n_in, n_out, device)
 
 
 def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
@@ -168,3 +292,179 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
     check(err, "vrvg_head_tail_ext")
     LAUNCHES.count += 1
     return out
+
+
+# --- the big-C tail (rows 11, 12) ---------------------------------------------
+
+def fold_conv1(k_oc: torch.Tensor, k1: torch.Tensor,
+               dt: torch.dtype) -> torch.Tensor:
+    """out_conv's 1x1 mix folded into conv1's weights in f32, cast to ``dt``:
+    (C2, C, 3, 3), K1'[o, i] = sum_j OC[j, i] K1[o, j]."""
+    return torch.einsum("ji,ojhw->oihw", k_oc[:, :, 0, 0].float(),
+                        k1.float()).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_bias_tables(w2: int, w1: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(3, W2) masks of the image columns where conv1's width taps dw = 0,
+    1, 2 fall inside the image, and the f32 (W2, W1) W-resize matrix."""
+    cm = np.zeros((3, w2), np.float32)
+    cm[0, 1:] = 1.0
+    cm[1, :] = 1.0
+    cm[2, :w2 - 1] = 1.0
+    return cm, linear_weights(w2, w1, align_corners=True).T.astype(np.float32)
+
+
+def big_tail_bias(k1: torch.Tensor, b_oc: torch.Tensor, b1: torch.Tensor,
+                  w2: int, w1: int) -> torch.Tensor:
+    """``cw`` of head_tail_big_pallas (:716-735), in f32: for the interior,
+    top and bottom rows, conv1's response to the out_conv-bias image with
+    zero padding, plus b1, through the f32 W-resize. Returned as (3, W1, C2):
+    cw0, cw1 - cw0 and cw2 - cw0, the three terms the intermediate adds."""
+    cm, wtb = _on_device(_host_bias_tables, w2, w1, k1.device)
+    base = torch.einsum("ojhw,j->hwo", k1.float(), b_oc.float())  # (3, 3, C2)
+    b1pat = b1.float()[:, None] * cm[1][None, :]
+
+    def case(dhs):
+        corr = sum(base[dh, dw][:, None] * cm[dw][None, :]
+                   for dh in dhs for dw in range(3))
+        return ((corr + b1pat) @ wtb).T  # (W1, C2)
+
+    cw0, cw1, cw2 = case((0, 1, 2)), case((1, 2)), case((0, 1))
+    return torch.stack([cw0, cw1 - cw0, cw2 - cw0])
+
+
+def head_tail_big_front_plain(x: torch.Tensor, k_oc: torch.Tensor,
+                              k1: torch.Tensor) -> torch.Tensor:
+    """x (B, H0, W0, C) -> the post-conv1 product (B, 2 H0, 2 W0, C2) in x's
+    dtype: W-upsample (bf16 resize weights, f32 sums) -> dtype, H-upsample
+    (exact taps, f32 lerp, no bias) -> dtype, the folded 3x3 conv1 in f32
+    with zero padding and no bias -> dtype."""
+    dt = x.dtype
+    _, h0, w0, _ = x.shape
+    wta = _resize_matrix(w0, 2 * w0, dt, x.device)
+    rw = torch.einsum("bhwc,vw->bhvc", x.float(), wta).to(dt)
+    z = _hlerp(rw.float(), 2 * h0, 1).to(dt)
+    c1 = F.conv2d(z.permute(0, 3, 1, 2).float(),
+                  fold_conv1(k_oc, k1, dt).float(), padding=1)
+    return c1.to(dt).permute(0, 2, 3, 1).contiguous()
+
+
+def head_tail_big_back_plain(mid: torch.Tensor, k1: torch.Tensor,
+                             b_oc: torch.Tensor, b1: torch.Tensor,
+                             k2: torch.Tensor, b2: torch.Tensor,
+                             k3: torch.Tensor, b3: torch.Tensor,
+                             out_hw: Tuple[int, int]) -> torch.Tensor:
+    """mid (B, HM, W2, C2) -> depth (B, H1, W1) f32: the W-resize (f32) +
+    (cw0 + top * dtop + bot * dbot) -> dtype (the TPU's intermediate), the
+    H-resize (f32 lerp) -> dtype, b2 + conv2 in f32, ReLU, the f32 1x1 + b3,
+    ReLU."""
+    dt = mid.dtype
+    _, hm, w2, _ = mid.shape
+    h1, w1 = out_hw
+    zw = torch.einsum("bhwc,vw->bhvc", mid.float(),
+                      _resize_matrix(w2, w1, dt, mid.device))
+    cw = big_tail_bias(k1, b_oc, b1, w2, w1)
+    t = zw + cw[0]
+    t[:, 0] = t[:, 0] + cw[1]
+    t[:, hm - 1] = t[:, hm - 1] + cw[2]
+    zz = _hlerp(t.to(dt).float(), h1, 1).to(dt)
+    y = F.conv2d(zz.permute(0, 3, 1, 2).float(), k2.to(dt).float(), padding=1)
+    y = F.relu(b2.float()[None, :, None, None] + y)
+    res = (y * k3[0, :, 0, 0].float()[:, None, None]).sum(dim=1) + b3.float()
+    return F.relu(res)
+
+
+def head_tail_big_plain(x: torch.Tensor, k_oc: torch.Tensor,
+                        b_oc: torch.Tensor, k1: torch.Tensor,
+                        b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                        k3: torch.Tensor, b3: torch.Tensor,
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    """x (B, H0, W0, C) -> depth (B, H1, W1) f32, head_tail_big_pallas's
+    function. Weights in PyTorch layout, as head_tail_ext_plain's."""
+    mid = head_tail_big_front_plain(x, k_oc, k1)
+    return head_tail_big_back_plain(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+
+
+def head_tail_big_front(x: torch.Tensor, k_oc: torch.Tensor,
+                        k1: torch.Tensor) -> torch.Tensor:
+    """x (B, H0, W0, C), any strides -> (B, 2 H0, 2 W0, C2): the plain
+    version for CPU tensors, the row-11 kernel for CUDA tensors (bf16, C in
+    ``BIG_CHANNELS``)."""
+    if not on_cuda(x, k_oc, k1):
+        return head_tail_big_front_plain(x, k_oc, k1)
+    b, h0, w0, c = x.shape
+    c2 = c // 2
+    if x.dtype != torch.bfloat16 or c not in BIG_CHANNELS:
+        raise ValueError(f"head_tail_big_front kernel takes bf16 input with "
+                         f"C in {BIG_CHANNELS}, got {x.dtype} C={c}")
+    for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
+                           ("output_conv1", k1, (c2, c, 3, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"head_tail_big_front {name} weight must be "
+                             f"{shape}, got {tuple(t.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    xc = x.contiguous()  # channel rows of 16-byte loads
+    wt1 = fold_conv1(k_oc, k1, torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+    taps, tapw = _device_taps(w0, 2 * w0, x.device)
+    mid = torch.empty((b, 2 * h0, 2 * w0, c2), dtype=torch.bfloat16,
+                      device=x.device)
+    err = library().vrvg_head_tail_big_front(
+        xc.data_ptr(), wt1.data_ptr(), taps.data_ptr(), tapw.data_ptr(),
+        mid.data_ptr(), b, h0, w0, c, stream_handle(x.device))
+    check(err, "vrvg_head_tail_big_front")
+    BIG_FRONT_LAUNCHES.count += 1
+    return mid
+
+
+def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
+                       b_oc: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+                       b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+    """mid (B, HM, W2, C2) contiguous -> depth (B, H1, W1) f32: the plain
+    version for CPU tensors, the row-12 kernel for CUDA tensors (bf16, C2 in
+    ``BIG_CHANNELS`` / 2)."""
+    args = (k1, b_oc, b1, k2, b2, k3, b3)
+    if not on_cuda(mid, *args):
+        return head_tail_big_back_plain(mid, *args, out_hw)
+    b, hm, w2, c2 = mid.shape
+    h1, w1 = out_hw
+    if (mid.dtype != torch.bfloat16 or 2 * c2 not in BIG_CHANNELS
+            or not mid.is_contiguous()):
+        raise ValueError(f"head_tail_big_back kernel takes contiguous bf16 "
+                         f"input with C2 in {[c // 2 for c in BIG_CHANNELS]}, "
+                         f"got {mid.dtype} C2={c2} "
+                         f"contiguous={mid.is_contiguous()}")
+    for name, t, shape in (("output_conv1", k1, (c2, 2 * c2, 3, 3)),
+                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
+                           ("output_conv2.2", k3, (1, C3, 1, 1))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"head_tail_big_back {name} weight must be "
+                             f"{shape}, got {tuple(t.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    f32 = torch.float32
+    cw = big_tail_bias(k1, b_oc, b1, w2, w1).contiguous()
+    wt2 = k2.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (3,3,C2,C3)
+    vecs = [t.to(f32).contiguous() for t in (b2, k3.reshape(-1), b3)]
+    taps, tapw = _device_taps(w2, w1, mid.device)
+    out = torch.empty((b, h1, w1), dtype=f32, device=mid.device)
+    err = library().vrvg_head_tail_big_back(
+        mid.data_ptr(), taps.data_ptr(), tapw.data_ptr(), cw.data_ptr(),
+        wt2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        vecs[2].data_ptr(), out.data_ptr(), b, hm, w2, c2, h1, w1,
+        stream_handle(mid.device))
+    check(err, "vrvg_head_tail_big_back")
+    BIG_BACK_LAUNCHES.count += 1
+    return out
+
+
+def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
+                  k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+                  b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
+                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """x (B, H0, W0, C) -> depth (B, H1, W1) f32 through the front and the
+    back (each its kernel on the card, its plain version on the CPU)."""
+    mid = head_tail_big_front(x, k_oc, k1)
+    return head_tail_big_back(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)

@@ -1,11 +1,15 @@
 """The MLP half-block in one CUDA kernel, and its plain version.
 
-Replaces vr_video_generator_tpu/ops/mlp_pallas.py `mlp_residual_pallas` with
-the weights resident (body `_kernel_resident`, taken at vits and vitb):
+Replaces vr_video_generator_tpu/ops/mlp_pallas.py `mlp_residual_pallas`:
 x + gamma * fc2(GELU(fc1(LN2(x)))) with LN in f32, each dense layer's
 product cast to the compute dtype before its bias add, the A&S GELU in f32
 (ops/gelu.py), and gamma * y and the residual add rounded in the compute
-dtype. The kernel is ``csrc/mlp.cu``; see its header for the design.
+dtype. The JAX package runs it with the weights resident (body
+`_kernel_resident`, row 8) where they fit in 10 MiB, at vits and vitb, and
+hidden-blocked (body `_kernel`, row 9) above, at vitl; :func:`resident` is
+its rule. Both compute the same function, so both wrappers share the plain
+version; the kernels are ``csrc/mlp.cu``'s, one per width, each with its own
+launch counter. See its header for the design.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
 
 LAUNCHES = counter("mlp_residual")
-WIDTHS = (128, 384, 768)  # the widths csrc/mlp.cu is built for (hidden 4D)
+HBLOCKED_LAUNCHES = counter("mlp_residual_hblocked")
+WIDTHS = (128, 384, 768)  # row 8's widths in csrc/mlp.cu (hidden 4D)
+HBLOCKED_WIDTHS = (1024,)  # row 9's
 
 
 def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -36,21 +42,54 @@ def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 
 def takes_width(d: int) -> bool:
-    """Whether the kernel is built for model width ``d``."""
-    return d in WIDTHS
+    """Whether a kernel is built for model width ``d``."""
+    return d in WIDTHS + HBLOCKED_WIDTHS
+
+
+def resident(d: int, hidden: int, dtype: torch.dtype) -> bool:
+    """Whether the JAX package runs the weights-resident kernel (row 8)
+    rather than the hidden-blocked one (row 9): both weight matrices within
+    10 MiB and the hidden width a multiple of 512 (mlp_pallas.py:273-274)."""
+    return 2 * d * hidden * dtype.itemsize <= 10 * 2 ** 20 and hidden % 512 == 0
 
 
 def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """(..., D) -> (..., D): the plain version for CPU tensors, the kernel
-    for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
+    """(..., D) -> (..., D): the plain version for CPU tensors, row 8's
+    kernel for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+    out = _launch("mlp_residual", WIDTHS, x, ln_w, ln_b, w1, b1, w2, b2,
+                  gamma, eps)
+    LAUNCHES.count += 1
+    return out
+
+
+def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
+                          ln_b: torch.Tensor, w1: torch.Tensor,
+                          b1: torch.Tensor, w2: torch.Tensor,
+                          b2: torch.Tensor, gamma: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """(..., D) -> (..., D): the plain version for CPU tensors, row 9's
+    kernel for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, hidden 4D)."""
+    if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
+        return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+    out = _launch("mlp_residual_hblocked", HBLOCKED_WIDTHS, x, ln_w, ln_b, w1,
+                  b1, w2, b2, gamma, eps)
+    HBLOCKED_LAUNCHES.count += 1
+    return out
+
+
+def _launch(kernel: str, widths, x: torch.Tensor, ln_w: torch.Tensor,
+            ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+            w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """Check the operands and launch ``csrc/mlp.cu``'s ``vrvg_<kernel>``."""
     d = x.shape[-1]
-    if not takes_width(d):
-        raise ValueError(f"mlp_residual kernel takes D in {WIDTHS}, got {d}")
+    if d not in widths:
+        raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
     bf16, f32 = torch.bfloat16, torch.float32
     for name, t, shape, dtype in (
             ("x", x, tuple(x.shape), bf16), ("LN weight", ln_w, (d,), f32),
@@ -58,16 +97,15 @@ def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
             ("fc1 bias", b1, (4 * d,), bf16), ("fc2 weight", w2, (d, 4 * d), bf16),
             ("fc2 bias", b2, (d,), bf16), ("gamma", gamma, (d,), bf16)):
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"mlp_residual {name} must be contiguous {dtype} "
+            raise ValueError(f"{kernel} {name} must be contiguous {dtype} "
                              f"{shape}, got {t.dtype} {tuple(t.shape)} "
                              f"contiguous={t.is_contiguous()}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     out = torch.empty_like(x)
-    err = library().vrvg_mlp_residual(
+    err = getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
         out.data_ptr(), x.numel() // d, d, eps, stream_handle(x.device))
-    check(err, "vrvg_mlp_residual")
-    LAUNCHES.count += 1
+    check(err, f"vrvg_{kernel}")
     return out

@@ -29,7 +29,7 @@ from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2, infer_depth)
 from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
-from vr_video_generator_tpu_torch.models.dpt import resolve_tail
+from vr_video_generator_tpu_torch.models.dpt import TAILS
 from vr_video_generator_tpu_torch.models.factory import load_model
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         temporal_scan)
@@ -66,10 +66,13 @@ def check_supported(run_cfg: RunConfig) -> None:
     if run_cfg.preprocess == "folded":
         not_ported("preprocess='folded'", "folded preprocess")
     # An explicit 'fused' at a width whose kernel is not ported raises here,
-    # before any weight is built (the device does not change that answer).
+    # before any weight is built (the device and the token count do not
+    # change that answer). The tail's choice depends on the geometry; the
+    # head resolves it.
     cfg = run_cfg.model()
-    resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, "cpu")
-    resolve_tail(run_cfg.tail, cfg.features, "cpu")
+    resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, 1, "cpu")
+    if run_cfg.tail not in TAILS:
+        raise ValueError(f"tail must be one of {TAILS}, got {run_cfg.tail!r}")
     if run_cfg.gelu != "exact":
         not_ported(f"gelu={run_cfg.gelu!r}", "UI impl switches")
 

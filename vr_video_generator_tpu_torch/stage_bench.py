@@ -3,10 +3,12 @@
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 -m vr_video_generator_tpu_torch.stage_bench [--out DIR]
+        [--encoder vits|vitb|vitl] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
 
-The configuration is ``bench.py`` config 2's geometry: 1080p, vits, bf16,
-batch 8, with the kernel paths the two flags pick as the CLI's do (default
+The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
+vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
+otherwise, with the kernel paths the two flags pick as the CLI's do (default
 ``auto``: on the card the fused attention half-block and DPT tail), and
 numpy-seeded random weights whose depth scaler is calibrated on the first
 batch (see :func:`calibrate_random_scaler`). It measures, in this order:
@@ -288,6 +290,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace and the op table")
+    ap.add_argument("--encoder", default="vits",
+                    choices=["vits", "vitb", "vitl"],
+                    help="Depth-Anything-V2 encoder (as the CLI)")
+    ap.add_argument("--input_size", type=int, default=518,
+                    help="depth net input size (as the CLI)")
     ap.add_argument("--mlp_fused", default="auto",
                     choices=["auto", "fused", "xla"],
                     help="ViT half-block kernel fusion policy (as the CLI)")
@@ -310,10 +317,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
-    cfg = RunConfig(encoder="vits", batch_size=B, compute_dtype="bfloat16",
+    cfg = RunConfig(encoder=opts.encoder, batch_size=B,
+                    compute_dtype="bfloat16", input_size=opts.input_size,
                     mlp_fused=opts.mlp_fused, tail=opts.tail)
-    label = (f"1080p vits bf16 B={B} mlp_fused={opts.mlp_fused} "
-             f"tail={opts.tail}")
+    label = (f"1080p {opts.encoder} --input_size {opts.input_size} bf16 B={B} "
+             f"mlp_fused={opts.mlp_fused} tail={opts.tail}")
     print(label, flush=True)
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
                               seed=SEED)

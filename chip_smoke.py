@@ -9,11 +9,13 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      all started together) and compile the Triton LayerNorm;
-  3. each of the twelve kernels against its plain PyTorch version on the
+  3. each of the thirteen kernels against its plain PyTorch version on the
      card at its path's shapes (1080p; vits, batch 8; vitl, batch 8 at
-     --input_size 518 and batch 2 at 728), with CUDA-event timings of both,
-     of one PyTorch library call where one computes the same function, and
-     the least time the card could take (bound);
+     --input_size 518 and batch 2 at 728; vitg, batch 8 at 518), with
+     CUDA-event timings of both, of one PyTorch library call where one
+     computes the same function, and the least time the card could take
+     (bound); and the DPT tail kernels at the widths vitg and vitl add (the
+     big-C tail at C=384, the ext tail at C=256 and 384);
   4. the main paths through ``runtime.segment.process_segment`` with bf16
      and seeded random weights, each with the launch counts reset just
      before it and read just after, each required to launch exactly its
@@ -24,7 +26,10 @@ Phases, each fatal on failure:
      default ``auto`` path; then Depth-Anything-V2-Large (vitl) fused at
      --input_size 518 (2 batches of 8, the same checks) and ``auto`` at 728
      (1 batch of 2: the attention half unfused past 4096 tokens, through
-     the flash kernel).
+     the flash kernel), and ``auto`` at 252 (1 batch of 8: the ext tail at
+     C=256); then DINOv2-giant (vitg, SwiGLU) ``auto`` at 518 (1 batch of 8,
+     the same checks as vits fused) and at 126 (1 batch of 8: the ext tail
+     at C=384).
 
 It prints the per-kernel JSON line before the last line, and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -46,6 +51,10 @@ H, W, B = 1080, 1920, 8
 N_TOK, DIM, HEADS = 2443, 384, 6  # 37 x 66 patches + cls at 1080p, vits
 FEATURES, H0, W0 = 64, 148, 264   # refinenet1's pre-upsample grid, vits
 DIM_L, HEADS_L, FEATURES_L = 1024, 16, 256  # vitl, same grids at 518
+DIM_G, HID_G, FEATURES_G = 1536, 4096, 384  # vitg (SwiGLU hidden), at 518
+# refinenet1's grid and the net's size at 1080p with --input_size 126 (vitg,
+# ext tail at C=384) and 252 (vitl, ext tail at C=256)
+EXT_WIDE = {384: ((36, 64), (126, 224)), 256: ((72, 128), (252, 448))}
 N_L728 = 4785  # 52 x 92 patches + cls at 1080p, vitl --input_size 728
 # vitl-728 runs 2 frames a batch (a cut from 8): the plain attention the
 # kernels are held against materialises f32 logits per 512-key block, and
@@ -85,18 +94,24 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # Row 9 at vitl-518 sums 4096 hidden products per output (4x row 8's
 # reach): 3.1e-3 of outputs differ, by at most 4 ulps; row 11's bf16
 # conv1 products: 1.3e-3, 1 ulp (same card). Their bounds leave ~3x
-# (fraction) and 2x (ulps) of margin.
+# (fraction) and 2x (ulps) of margin. Row 10 at vitg-518 (two products over
+# K = 1536 and 4096 around the bf16 silu chain): 1.2e-3 of outputs differ,
+# by at most 3 ulps, under row 9's bounds (8x and 2.7x of margin); row 11 at
+# vitg's C=384: 2.0e-3, 1 ulp (same card; 2.5x and 4x).
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
-                 "head_tail_big_front": 0.005}
+                 "swiglu_residual": 0.01, "head_tail_big_front": 0.005}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
-                 "mlp_residual_hblocked": 8, "head_tail_big_front": 4}
+                 "mlp_residual_hblocked": 8, "swiglu_residual": 8,
+                 "head_tail_big_front": 4}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
 # (measured on an NVIDIA H100 80GB HBM3, 700.00 W: row 7 max 1.7e-3, mean
 # 1.5e-6 of the range; row 12 on the plain front's output max 1.4e-6, mean
-# 1.5e-7; rows 11 + 12 chained max 6.2e-4, mean 5.0e-6). Row 11 alone is
-# held as the dense kernels are (GEMM_MAX_FRAC, GEMM_MAX_ULPS).
+# 1.5e-7; rows 11 + 12 chained max 6.2e-4, mean 5.0e-6; at vitg's C=384
+# row 12 max 1.9e-6, mean 2.4e-7, chained max 7.3e-4, mean 9.8e-6; row 7 at
+# C=256 and 384 max 9.8e-4 and 1.1e-3, mean 1.1e-5 and 2.1e-5). Row 11
+# alone is held as the dense kernels are (GEMM_MAX_FRAC, GEMM_MAX_ULPS).
 TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # Depth through the kernels against the plain versions. A random-weight
 # 12-block ViT amplifies any one-ulp bf16 difference: on the H100 the plain
@@ -108,7 +123,9 @@ TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # W): at 518 the kernel path's error against f32 is max 0.745 against the
 # plain bf16 path's 0.707 and mean 0.0523 against 0.0530; at 728, 0.612
 # against 0.602 and 0.0494 against 0.0496; kernel against plain mean 0.39%
-# and 0.30% of the range.
+# and 0.30% of the range. So do vitg's 40 SwiGLU blocks at 518 (same card):
+# max 0.444 against 0.497, mean 1.42e-4 against 1.51e-4; kernel against
+# plain mean 0.001% of the range.
 DEPTH_REL = 0.02
 DEPTH_FLOOR = 1.25
 PKG = "vr_video_generator_tpu_torch"
@@ -138,6 +155,8 @@ KERNELS = {
                            f"{JAX_PKG}/ops/head_tail_pallas.py:570"),
     "flash_attention": ("cuda", f"{PKG}/csrc/attention.cu",
                         f"{JAX_PKG}/ops/attention.py:53"),
+    "swiglu_residual": ("cuda", f"{PKG}/csrc/swiglu.cu",
+                        f"{JAX_PKG}/ops/mlp_pallas.py:101"),
 }
 # The kernels each main path must launch, exactly. ``auto`` on the card at
 # vits fuses the attention half and the tail, and keeps the MLP half unfused
@@ -154,6 +173,16 @@ VITL_518 = SLICE1 + ("ln_qkv", "proj_ls_residual",
                      "mlp_residual_hblocked") + BIG_TAIL
 VITL_728 = ("layernorm", "flash_attention", "mlp_residual_hblocked",
             "warp_composite", "blur_select_sbs") + BIG_TAIL
+# vitl-252 (``auto``) is vitl-518 with the ext tail at C=256. vitg (``auto``)
+# runs its attention half unfused at every size (its qkv weights exceed the
+# JAX package's plan: LayerNorm, cuBLAS qkv and proj, the one-shot
+# attention), the SwiGLU half-block kernel, and the big-C tail at 518 or the
+# ext tail at 126.
+VITL_252 = SLICE1 + ("ln_qkv", "proj_ls_residual", "mlp_residual_hblocked",
+                     "head_tail_ext")
+VITG = SLICE1 + ("swiglu_residual",)
+VITG_518 = VITG + BIG_TAIL
+VITG_126 = VITG + ("head_tail_ext",)
 
 
 class SmokeFailure(RuntimeError):
@@ -205,8 +234,8 @@ def operand_ulps(got, want, feature_dims, *addends):
 def gemm_addends(name: str, want, args):
     """What each dense kernel adds to its product, as operand_ulps takes
     them: the bias (scaled like q on q's columns) for ln_qkv; the residual x
-    and gamma * bias for proj_ls_residual and mlp_residual."""
-    if name == "head_tail_big_front":
+    and gamma * bias for proj_ls_residual and the MLP and SwiGLU halves."""
+    if name.startswith("head_tail_big_front"):
         return ()  # a bare conv sum, cast
     if name == "ln_qkv":
         b, heads, scale = args[4], args[5], args[6]
@@ -219,17 +248,19 @@ def gemm_addends(name: str, want, args):
 
 
 def gemm_check(name: str, got, want, args) -> dict:
-    """Rows 5, 6, 8: the share of bf16 outputs that differ and the largest
-    difference in ulps of the largest operand, each against its bound."""
-    ulps = operand_ulps(got, want, 3 if name == "ln_qkv" else 1,
-                        *gemm_addends(name, want, args))
+    """Rows 5, 6, 8-11: the share of bf16 outputs that differ and the
+    largest difference in ulps of the largest operand, each against its
+    bound (``name`` may carry a width after a space)."""
+    kernel = name.split()[0]
+    ulps = operand_ulps(got, want, 3 if kernel == "ln_qkv" else 1,
+                        *gemm_addends(kernel, want, args))
     stats = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                  max_ulps=ulps.max().item(),
                  frac_differ=(got != want).float().mean().item())
-    require(stats["frac_differ"] <= GEMM_MAX_FRAC[name]
-            and stats["max_ulps"] <= GEMM_MAX_ULPS[name],
+    require(stats["frac_differ"] <= GEMM_MAX_FRAC[kernel]
+            and stats["max_ulps"] <= GEMM_MAX_ULPS[kernel],
             f"{name}: {json.dumps(stats)} over bounds: fraction "
-            f"{GEMM_MAX_FRAC[name]}, ulps {GEMM_MAX_ULPS[name]}")
+            f"{GEMM_MAX_FRAC[kernel]}, ulps {GEMM_MAX_ULPS[kernel]}")
     return stats
 
 
@@ -347,9 +378,6 @@ def check_vitl_kernels(device, results) -> None:
 
     from vr_video_generator_tpu_torch.ops.attention import (
         flash_attention, flash_attention_plain)
-    from vr_video_generator_tpu_torch.ops.head_tail import (
-        head_tail_big, head_tail_big_back, head_tail_big_back_plain,
-        head_tail_big_front, head_tail_big_front_plain, head_tail_big_plain)
     from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual_hblocked,
                                                        mlp_residual_plain)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
@@ -387,51 +415,125 @@ def check_vitl_kernels(device, results) -> None:
         **bound(nbytes(q, k, v, got), 4 * B_L728 * HEADS_L * N_L728 ** 2 * 64))
     del qkv, q, k, v, qt, kt, vt, got, want
 
-    # Rows 11 and 12 on refinenet1's pre-upsample activation as the model
-    # hands it over (NCHW seen as (B, H0, W0, C)). The back is held on the
-    # plain front's output, so each kernel is checked alone; the chain is
-    # held too.
-    c, c2, c3 = FEATURES_L, FEATURES_L // 2, 32
+    results.update(check_big_tail(gen, FEATURES_L))
+
+
+def check_big_tail(gen, c) -> dict:
+    """Rows 11 and 12 at ``c`` channels on refinenet1's pre-upsample
+    activation at 1080p, --input_size 518, as the model hands it over (NCHW
+    seen as (B, H0, W0, C)). The back is held on the plain front's output,
+    so each kernel is checked alone; the chain is held too. Returns each
+    kernel's statistics, times and bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_big, head_tail_big_back, head_tail_big_back_plain,
+        head_tail_big_front, head_tail_big_front_plain, head_tail_big_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    c2, c3 = c // 2, 32
     h1, w1 = 518, 924
     hm, w2 = 2 * H0, 2 * W0
-    xt = randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
+    xt = randn(gen, (B, c, H0, W0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
     wts = tail_weights(gen, c)
     k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
     mid, mid_p = head_tail_big_front(xt, k_oc, k1), head_tail_big_front_plain(xt, k_oc, k1)
     torch.cuda.synchronize()
-    results["head_tail_big_front"] = dict(
-        **gemm_check("head_tail_big_front", mid, mid_p, ()),
+    out = {"head_tail_big_front": dict(
+        **gemm_check(f"head_tail_big_front C={c}", mid, mid_p, ()),
         ms=event_ms(lambda: head_tail_big_front(xt, k_oc, k1)),
         plain_ms=event_ms(lambda: head_tail_big_front_plain(xt, k_oc, k1)),
         library_ms=None,
-        **bound(nbytes(xt, k_oc, k1, mid), 2 * B * hm * w2 * 9 * c * c2))
+        **bound(nbytes(xt, k_oc, k1, mid), 2 * B * hm * w2 * 9 * c * c2))}
     back = (k1, b_oc, b1, k2, b2, k3, b3, (h1, w1))
     got = head_tail_big_back(mid_p, *back)
     want = head_tail_big_back_plain(mid_p, *back)
     torch.cuda.synchronize()
-    results["head_tail_big_back"] = dict(
-        **tail_stats("head_tail_big_back", got, want),
+    out["head_tail_big_back"] = dict(
+        **tail_stats(f"head_tail_big_back C={c}", got, want),
         ms=event_ms(lambda: head_tail_big_back(mid_p, *back)),
         plain_ms=event_ms(lambda: head_tail_big_back_plain(mid_p, *back)),
         library_ms=None,
         **bound(nbytes(mid_p, k1, b_oc, b1, k2, b2, k3, b3, got),
                 2 * B * (h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)))
-    chain = tail_stats("head_tail_big (front + back)",
+    chain = tail_stats(f"head_tail_big C={c} (front + back)",
                        head_tail_big(xt, *wts, (h1, w1)),
                        head_tail_big_plain(xt, *wts, (h1, w1)))
-    log(f"big-C tail chain against its plain version: {json.dumps(chain)}")
+    log(f"big-C tail chain at C={c} against its plain version: "
+        f"{json.dumps(chain)}")
+    return out
 
 
-def kernel_parity(device, rng, results):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
+def check_ext_tail(gen, c, grid, out_hw) -> dict:
+    """Row 7 at ``c`` channels on refinenet1's pre-upsample activation on
+    ``grid`` (H0, W0) as the model hands it over (an NCHW tensor seen as
+    (B, H0, W0, C)), depth at ``out_hw``: statistics, times and bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_ext, head_tail_ext_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    (h0, w0), (h1, w1) = grid, out_hw
+    c2, c3 = c // 2, 32
+    xt = randn(gen, (B, c, h0, w0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    got = head_tail_ext(xt, *wts, (h1, w1))
+    want = head_tail_ext_plain(xt, *wts, (h1, w1))
+    torch.cuda.synchronize()
+    stats = tail_stats(f"head_tail_ext C={c}", got, want)
+    hm, w2 = 2 * h0, 2 * w0
+    flops = 2 * B * (h0 * w0 * c * c + hm * w2 * c2 * 9 * c
+                     + h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)
+    return dict(**stats, ms=event_ms(lambda: head_tail_ext(xt, *wts, (h1, w1))),
+                plain_ms=event_ms(lambda: head_tail_ext_plain(xt, *wts, (h1, w1))),
+                library_ms=None, **bound(nbytes(xt, *wts, got), flops))
+
+
+def check_vitg_kernels(device, results, widths) -> None:
+    """Row 10 at vitg-518's shapes into ``results``; rows 11 and 12 at
+    vitg's C=384 and row 7 at C=384 (vitg-126's grid) and C=256 (vitl-252's)
+    into ``widths``."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
+                                                       swiglu_residual_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    d, hid, m = DIM_G, HID_G, B * N_TOK
+    args = (randn(gen, (m, d), dtype=bf), randn(gen, (d,), 0.1, 1.0),
+            randn(gen, (d,), 0.1),
+            randn(gen, (2 * hid, d), d ** -0.5, dtype=bf),
+            randn(gen, (2 * hid,), 0.5, dtype=bf),
+            randn(gen, (d, hid), hid ** -0.5, dtype=bf),
+            randn(gen, (d,), 0.5, dtype=bf), randn(gen, (d,), 0.1, 1.0, dtype=bf))
+    got, want = swiglu_residual(*args), swiglu_residual_plain(*args)
+    torch.cuda.synchronize()
+    results["swiglu_residual"] = dict(
+        **gemm_check("swiglu_residual", got, want, args),
+        ms=event_ms(lambda: swiglu_residual(*args)),
+        plain_ms=event_ms(lambda: swiglu_residual_plain(*args)),
+        library_ms=None,
+        **bound(nbytes(*args, got), 2 * m * d * 2 * hid + 2 * m * hid * d))
+    del args, got, want
+    for name, r in check_big_tail(gen, FEATURES_G).items():
+        widths[f"{name} C={FEATURES_G}"] = r
+    for c, (grid, out_hw) in EXT_WIDE.items():
+        widths[f"head_tail_ext C={c}"] = check_ext_tail(gen, c, grid, out_hw)
+
+
+def kernel_parity(device, rng, results, widths):
+    """Phase 3: each kernel against its plain version at main-path shapes
+    (``results``), and the DPT tails at the widths vitg and vitl add
+    (``widths``)."""
     import torch
     import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch import StereoConfig
     from vr_video_generator_tpu_torch.ops.attention import (attention,
                                                              attention_plain)
-    from vr_video_generator_tpu_torch.ops.head_tail import (
-        head_tail_ext, head_tail_ext_plain)
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
                                                              layernorm_plain)
     from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
@@ -515,24 +617,8 @@ def kernel_parity(device, rng, results):
         library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * DIM * hid))
     del o, xr, args, got, want
 
-    # Row 7 on refinenet1's pre-upsample activation as the model hands it
-    # over: an NCHW tensor seen as (B, H0, W0, C).
-    c, c2, c3 = FEATURES, FEATURES // 2, 32
-    h1, w1 = 518, 924
-    xt = randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
-    wts = tail_weights(gen, c)
-    got = head_tail_ext(xt, *wts, (h1, w1))
-    want = head_tail_ext_plain(xt, *wts, (h1, w1))
-    torch.cuda.synchronize()
-    stats = tail_stats("head_tail_ext", got, want)
-    hm, w2 = 2 * H0, 2 * W0
-    flops = 2 * B * (H0 * W0 * c * c + hm * w2 * c2 * 9 * c
-                     + h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)
-    results["head_tail_ext"] = dict(
-        **stats, ms=event_ms(lambda: head_tail_ext(xt, *wts, (h1, w1))),
-        plain_ms=event_ms(lambda: head_tail_ext_plain(xt, *wts, (h1, w1))),
-        library_ms=None, **bound(nbytes(xt, *wts, got), flops))
-    del xt, wts, got, want
+    results["head_tail_ext"] = check_ext_tail(gen, FEATURES, (H0, W0),
+                                              (518, 924))
 
     spec = WarpSpec.create(H, W, StereoConfig())
     imgs = torch.from_numpy(
@@ -573,7 +659,8 @@ def kernel_parity(device, rng, results):
         **bound(nbytes(comp_p, cov_p, imgs, st.edge_width, sbs), 0))
     del imgs, depth, blended, comp, cov, comp_p, cov_p, sbs, sbs_p
     check_vitl_kernels(device, results)
-    for name, r in results.items():
+    check_vitg_kernels(device, results, widths)
+    for name, r in {**results, **widths}.items():
         log(f"kernel {name}: {json.dumps(r)}")
 
 
@@ -592,6 +679,8 @@ class PlainKernels:
              ("models.dinov2", "mlp_residual", "ops.mlp", "mlp_residual_plain"),
              ("models.dinov2", "mlp_residual_hblocked", "ops.mlp",
               "mlp_residual_plain"),
+             ("models.dinov2", "swiglu_residual", "ops.mlp",
+              "swiglu_residual_plain"),
              ("models.dpt", "head_tail_ext", "ops.head_tail",
               "head_tail_ext_plain"),
              ("models.dpt", "head_tail_big", "ops.head_tail",
@@ -669,11 +758,25 @@ def make_pipe(device, cfg, state_dict=None):
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     model = build_model(cfg.model(), state_dict, dtype, device, tail=cfg.tail)
     pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"model: {cfg.encoder}, {cfg.compute_dtype}, --input_size "
         f"{cfg.input_size}, mlp_fused={cfg.mlp_fused}, tail={cfg.tail}, "
-        f"random weights (numpy seed {SEED}), "
-        f"{time.perf_counter() - t0:.2f} s to build")
+        f"random weights (numpy seed {SEED}), {weights / 1e9:.3f} GB of "
+        f"parameters on {device}, {time.perf_counter() - t0:.2f} s to build")
     return pipe
+
+
+def one_batch(label, pipe, frames, need) -> dict:
+    """One batch of ``frames`` through process_segment after a warm-up
+    step: exactly the kernels ``need``, the right half equal to the input."""
+    p_batch = pipe.run_cfg.batch_size
+    pipe.step(frames[:p_batch], pipe.initial_state())  # warm-up
+    got, writer, n, secs = drive(pipe, frames[:p_batch], p_batch)
+    log(f"{label}: {n} frames in {secs:.4f} s; launch counts "
+        f"{json.dumps(got)}")
+    launched_exactly(label, got, need)
+    check_output(writer, n, frames[:p_batch])
+    return dict(frames=n, seconds=secs, launches=got)
 
 
 def launched_exactly(label, counts, need) -> None:
@@ -754,7 +857,7 @@ def main_path(device, rng):
 
     def keep(label, stats):
         # A kernel's count is that of the first path, in this order, that
-        # launches it: vits fused, then vitl-518, then vitl-728.
+        # launches it: vits fused, vitl-518, vitl-728, then vitg-518.
         paths[label] = stats
         for k, v in stats["launches"].items():
             if v > 0 and k not in launches:
@@ -783,14 +886,8 @@ def main_path(device, rng):
         t0 = time.perf_counter()
         p = make_pipe(device, run_config("vits", mlp_fused, tail), sd)
         p.model.cfg = model_cfg  # the calibrated scaler
-        p.step(frames[:B], p.initial_state())  # warm-up
-        got, w_, n_, secs = drive(p, frames[:B], B)
         label = f"vits {mlp_fused}/{tail}"
-        log(f"{label}: {n_} frames in {secs:.4f} s; launch counts "
-            f"{json.dumps(got)}")
-        launched_exactly(label, got, need)
-        check_output(w_, n_, frames[:B])
-        keep(label, dict(frames=n_, seconds=secs, launches=got))
+        keep(label, one_batch(label, p, frames, need))
         del p
         torch.cuda.empty_cache()
 
@@ -820,7 +917,43 @@ def main_path(device, rng):
         cfg, compute_dtype="float32"))
     keep("vitl-728 auto/auto", checked_path(
         "vitl-728 auto/auto", pipe, frames[:B_L728], VITL_728, pipe32))
-    del pipe, pipe32
+    del pipe32
+
+    # vitl-252 (auto, one batch of 8) on the same model: the ext tail at
+    # C=256.
+    t0 = time.perf_counter()
+    pipe = type(pipe)(pipe.model, H, W, run_cfg=run_config(
+        "vitl", "auto", "auto", input_size=252))
+    keep("vitl-252 auto/auto", one_batch("vitl-252 auto/auto", pipe, frames,
+                                         VITL_252))
+    del pipe
+    torch.cuda.empty_cache()
+
+    # vitg (DINOv2-giant, SwiGLU) through the CLI's default (auto), one set
+    # of weights for both geometries and the f32 reference.
+    t0 = time.perf_counter()
+    cfg = run_config("vitg", "auto", "auto")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    log(f"vitg depth scaler calibrated to {scaler:.6g} on the first batch")
+    pipe32 = make_pipe(device, run_config("vitg", "auto", "auto",
+                                          dtype="float32"), sd)
+    del sd
+    pipe32.model.cfg = pipe.model.cfg
+    keep("vitg-518 auto/auto", checked_path(
+        "vitg-518 auto/auto", pipe, frames[:B], VITG_518, pipe32))
+    del pipe32
+    torch.cuda.empty_cache()
+
+    # vitg-126 (auto, one batch of 8) on the same model: the ext tail at
+    # C=384.
+    t0 = time.perf_counter()
+    pipe = type(pipe)(pipe.model, H, W, run_cfg=run_config(
+        "vitg", "auto", "auto", input_size=126))
+    keep("vitg-126 auto/auto", one_batch("vitg-126 auto/auto", pipe, frames,
+                                         VITG_126))
+    del pipe
     torch.cuda.empty_cache()
     return launches, paths
 
@@ -912,13 +1045,13 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     t0 = time.perf_counter()
-    results = {}
-    kernel_parity(device, rng, results)
+    results, widths = {}, {}
+    kernel_parity(device, rng, results, widths)
     log(f"phase 3 (kernel parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, paths = main_path(device, rng)
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
-    log(f"slice: {json.dumps(dict(paths=paths, card=card))}")
+    log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

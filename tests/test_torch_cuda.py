@@ -17,7 +17,9 @@ from vr_video_generator_tpu_torch.ops.head_tail import (
     head_tail_big_front_plain, head_tail_ext, head_tail_ext_plain)
 from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
                                                   mlp_residual_hblocked,
-                                                  mlp_residual_plain)
+                                                  mlp_residual_plain,
+                                                  swiglu_residual,
+                                                  swiglu_residual_plain)
 from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
                                                   proj_ls_residual,
                                                   proj_ls_residual_plain)
@@ -115,6 +117,23 @@ def test_mlp_hblocked_kernel_matches_plain(cuda, m):
                                      mlp_residual_plain(*args), args)
 
 
+# m = 100: one ragged row tile; 19544: vitg-518's rows at batch 8.
+@pytest.mark.parametrize("m", [100, 19544])
+def test_swiglu_kernel_matches_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    d, hid, f32 = 1536, 4096, torch.float32
+    args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
+            _randn(gen, (d,), 0.1, 0.0, f32),
+            _randn(gen, (2 * hid, d), d ** -0.5), _randn(gen, (2 * hid,), 0.5),
+            _randn(gen, (d, hid), hid ** -0.5), _randn(gen, (d,), 0.5),
+            _randn(gen, (d,), 0.1, 1.0))
+    before = launch_counts().get("swiglu_residual", 0)
+    got = swiglu_residual(*args)
+    assert launch_counts()["swiglu_residual"] == before + 1
+    _assert_rounding_boundaries_only("swiglu_residual", got,
+                                     swiglu_residual_plain(*args), args)
+
+
 @pytest.mark.parametrize("b,n,h", [(1, 4097, 2), (2, 4785, 16)])
 def test_flash_attention_kernel_matches_plain(cuda, b, n, h):
     from chip_smoke import attention_stats, peaked_qkv
@@ -128,7 +147,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, n, h):
 # Odd grids (37 x 45 and 20 x 36: no multiple of the 128-pixel segment) at
 # each channel width the big-C kernels are built for.
 @pytest.mark.parametrize("b,h0,w0,c", [(1, 37, 45, 256), (2, 20, 36, 128),
-                                       (1, 12, 20, 64)])
+                                       (1, 12, 20, 64), (1, 37, 45, 384)])
 def test_head_tail_big_kernels_match_plain(cuda, b, h0, w0, c):
     from chip_smoke import gemm_check, tail_stats, tail_weights
 
@@ -147,9 +166,13 @@ def test_head_tail_big_kernels_match_plain(cuda, b, h0, w0, c):
 
 
 # An odd grid (37 x 45: no multiple of the 64-pixel segment anywhere), the
-# 1080p vits grid, and each channel width the kernel is built for.
+# 1080p vits grid, each channel width the kernel is built for, and the
+# largest rows the planners give the ext tail at C=256 and 384 (16:9 frames
+# up to 2160p).
 @pytest.mark.parametrize("b,h0,w0,c", [(2, 37, 45, 64), (1, 148, 264, 64),
-                                       (1, 12, 20, 32), (1, 20, 36, 128)])
+                                       (1, 12, 20, 32), (1, 20, 36, 128),
+                                       (2, 37, 45, 256), (1, 80, 144, 256),
+                                       (2, 37, 45, 384), (1, 60, 108, 384)])
 def test_head_tail_kernel_matches_plain(cuda, b, h0, w0, c):
     gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c)
     c2 = c // 2

@@ -233,7 +233,8 @@ def test_fused_block_matches_jax_fused_block():
     ref = np.asarray(jblk.apply({"params": _block_params(sd)}, jnp.asarray(x)))
     blk = model.pretrained.blocks[0]
     assert blk.mlp_fused == "fused"
-    assert resolve_block_fusion("fused", 128, 2, 41, "cpu") == (True, True)
+    assert resolve_block_fusion("fused", 128, 2, 41, "cpu",
+                                torch.float32) == (True, True)
     ours = blk(_t(x)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=0, atol=3e-5)
 
@@ -414,6 +415,8 @@ def test_converted_weights_load_into_both_paths():
     ("vits", "cuda", (True, False, "ext")),  # the MLP half fuses at D >= 512
     ("vitb", "cuda", (True, True, "ext")),
     ("vitl", "cuda", (True, True, "big")),   # rows 9, 11, 12
+    ("vitg", "cpu", (False, False, None)),
+    ("vitg", "cuda", (False, True, "big")),  # rows 1, 2 unfused; 10, 11, 12
 ])
 def test_auto_resolution(encoder, device, want):
     """auto resolves as the JAX package's auto on its accelerator, with CUDA
@@ -423,11 +426,13 @@ def test_auto_resolution(encoder, device, want):
     cfg = config.ModelConfig.for_encoder(encoder)
     pre, out_hw = (8, 148, 264, cfg.features), (518, 924)
     attn, mlp = resolve_block_fusion("auto", cfg.embed_dim, cfg.num_heads,
-                                     2443, device)
+                                     2443, device, torch.bfloat16,
+                                     cfg.ffn_layer)
     tail = resolve_tail("auto", pre, torch.bfloat16, out_hw, device)
     assert (attn, mlp, tail) == want
     assert resolve_block_fusion("xla", cfg.embed_dim, cfg.num_heads, 2443,
-                                device) == (False, False)
+                                device, torch.bfloat16,
+                                cfg.ffn_layer) == (False, False)
     assert resolve_tail("xla", pre, torch.bfloat16, out_hw, device) is None
 
 

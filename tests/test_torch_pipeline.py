@@ -288,31 +288,42 @@ def test_unported_run_options_raise(field, value, item):
         check_supported(dataclasses.replace(CFG, **{field: value}))
 
 
-@pytest.mark.parametrize("overrides,item", [
-    pytest.param(dict(encoder="vitl", tail="fused"), "ext DPT tail at C=256",
+@pytest.mark.parametrize("overrides,kernel", [
+    pytest.param(dict(encoder="vitl", tail="fused"), "head_tail_ext",
                  id=r"overrides0-big-C DPT tail kernels \(rows 11, 12\)"),
-    pytest.param(dict(encoder="vitg", mlp_fused="fused"),
-                 r"SwiGLU encoder \(vitg\)",
+    pytest.param(dict(encoder="vitg", mlp_fused="fused"), "swiglu_residual",
                  id=r"overrides1-hidden-blocked MLP kernel \(row 9\)"),
 ])
-def test_unported_fused_combinations_raise(overrides, item):
-    """vits, vitb and vitl run fused (vitl's big-C tail and hidden-blocked
-    MLP are ported). What stays unported raises: the ext tail at C=256,
-    which the JAX planners pick for vitl at small inputs only, on the card;
-    and a fused MLP at a width no kernel takes (vitg's D=1536)."""
+def test_unported_fused_combinations_raise(overrides, kernel):
+    """Every encoder runs fused now, and the two combinations that raised
+    here run on the card: vitl's ext tail at C=256 (the JAX planners pick
+    it at small inputs) and vitg's fused MLP half (the SwiGLU kernel). A
+    fused MLP half at a width no kernel takes still raises."""
     import dataclasses
 
+    from vr_video_generator_tpu_torch.models.dinov2 import \
+        resolve_block_fusion
     from vr_video_generator_tpu_torch.models.dpt import resolve_tail
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
 
-    for encoder in ("vits", "vitb", "vitl"):
+    for encoder in ("vits", "vitb", "vitl", "vitg"):
         check_supported(dataclasses.replace(CFG, encoder=encoder,
                                             mlp_fused="fused", tail="fused"))
     cfg = dataclasses.replace(CFG, **overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(cfg)
+    check_supported(cfg)
+    m = cfg.model()
+    if kernel == "head_tail_ext":
         # refinenet1's grid at 1080p with --input_size 56: the ext tail
-        resolve_tail(cfg.tail, (1, 16, 28, cfg.model().features),
-                     torch.bfloat16, (56, 98), "cuda")
+        assert resolve_tail(cfg.tail, (1, 16, 28, m.features), torch.bfloat16,
+                            (56, 98), "cuda") == "ext"
+        assert ht.takes(m.features, 28)
+    else:
+        assert resolve_block_fusion(cfg.mlp_fused, m.embed_dim, m.num_heads,
+                                    2443, "cuda", torch.bfloat16,
+                                    m.ffn_layer) == (False, True)
+    with pytest.raises(NotImplementedError, match="D=512"):
+        resolve_block_fusion("fused", 512, 8, 41, "cpu", torch.float32,
+                             m.ffn_layer)
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -340,8 +351,11 @@ def test_unported_entry_points_raise(pipe, frames):
     with pytest.raises(NotImplementedError, match="folded"):
         preprocess_frames(torch.zeros(1, H, W, 3, dtype=torch.uint8),
                           (56, 70), impl="folded")
-    with pytest.raises(NotImplementedError, match="vitg"):
-        DinoVisionTransformer(ModelConfig.for_encoder("vitg"))
+    # vitg builds now (on the meta device: no storage for its 1.1 B
+    # encoder parameters), with its SwiGLU blocks.
+    with torch.device("meta"):
+        vitg = DinoVisionTransformer(ModelConfig.for_encoder("vitg"))
+    assert vitg.blocks[39].mlp.w12.weight.shape == (8192, 1536)
 
 
 def test_port_imports_no_jax():

@@ -207,9 +207,10 @@ def test_block_above_4096_tokens_runs_attention_unfused(monkeypatch):
         raise AssertionError("ln_qkv reached above 4096 tokens")
 
     monkeypatch.setattr(port_dinov2, "ln_qkv", refuse)
-    assert resolve_block_fusion("fused", 128, 2, 4097, "cpu") == (False, True)
-    assert resolve_block_fusion("fused", 128, 2, 4096, "cpu") == (True, True)
-    assert resolve_block_fusion("auto", 1024, 16, 4785, "cuda") == (False, True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert resolve_block_fusion("fused", 128, 2, 4097, "cpu", f32) == (False, True)
+    assert resolve_block_fusion("fused", 128, 2, 4096, "cpu", f32) == (True, True)
+    assert resolve_block_fusion("auto", 1024, 16, 4785, "cuda", bf16) == (False, True)
     sd = _biased(random_state_dict(BLOCK_CFG, seed=3), 3)
     model = build_model(BLOCK_CFG, sd, torch.float32, "cpu")
     x = np.random.default_rng(5).standard_normal((1, 4097, 128)).astype(np.float32)
@@ -236,8 +237,7 @@ def _jax_choice(shape, dtype, out_hw):
 def test_tail_choice_matches_jax_planners(encoder, dtype):
     """At 720p, 1080p and 2160p and every --input_size of the grid, the
     port's tail is the JAX planners' (its DPTHead: ext, else big, else
-    unfused), for ``fused`` off and on the card and ``auto`` on the card;
-    where that is the ext tail at C=256, the card raises (not ported)."""
+    unfused), for ``fused`` off and on the card and ``auto`` on the card."""
     feats = config.ModelConfig.for_encoder(encoder).features
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     seen = set()
@@ -252,12 +252,7 @@ def test_tail_choice_matches_jax_planners(encoder, dtype):
             assert resolve_tail("fused", shape, tdt, (nh, nw), "cpu") == want
             assert resolve_tail("auto", shape, tdt, (nh, nw), "cpu") is None
             for tail in ("fused", "auto"):
-                if want == "ext" and feats not in ht.CHANNELS:
-                    with pytest.raises(NotImplementedError, match="C=256"):
-                        resolve_tail(tail, shape, tdt, (nh, nw), "cuda")
-                else:
-                    assert resolve_tail(tail, shape, tdt, (nh, nw),
-                                        "cuda") == want
+                assert resolve_tail(tail, shape, tdt, (nh, nw), "cuda") == want
     if encoder in ("vitb", "vitl") and dtype == "bfloat16":
         assert seen == {"ext", "big", None}  # the grid reaches all three
 

@@ -35,8 +35,17 @@
 // the tensor cores (nvcuda::wmma, bf16 in, f32 accumulate): one block of 4
 // warps per 64-pixel segment of one output row, the 3 input rows of the
 // segment (+1 halo column each side) and all 9 taps' weights in shared
-// memory, each warp owning 16 pixels x all output channels. Simple first:
-// no pipelining, weights re-read from L2 by every block.
+// memory, each warp owning 16 pixels x all output channels. Where the 9
+// taps' weights do not fit beside the input rows (conv1 at C = 256 and 384:
+// 590 KB and 1.3 MB), the block walks the input channels in chunks of 32,
+// staging each chunk's rows and weights in turn (111 KB of weights at C =
+// 384), as csrc/head_tail_big.cu does. The first kernel holds a whole input
+// row, and computes the out_conv mix and the W-resize 64 output channels at
+// a time, so only the mix weights of those channels (51 KB at C = 384) sit
+// beside the row. Those widths serve vitl (C = 256) and vitg (C = 384) at
+// the small inputs where the JAX planners pick this tail (refinenet1 grids
+// up to 36 x 64 at vitg, 72 x 128 at vitl, at 1080p). Simple first: no
+// pipelining, weights re-read from L2 by every block.
 
 #include "gemm.cuh"
 #include "taps.cuh"
@@ -48,6 +57,9 @@ using namespace vrvg;
 constexpr int THREADS = 128;
 constexpr int SEG = 64;           // output pixels per conv block
 constexpr int C3 = 32;            // output_conv2's width (reference head)
+// Output channels of the out_conv mix per pass of the first kernel.
+template <int C>
+constexpr int MIX_NC = C < 64 ? C : 64;
 
 // ---------------------------------------------------------------------------
 // 1. out_conv mix + W-resize. One block per (row, frame).
@@ -61,15 +73,16 @@ mix_wresize_kernel(const bf16* __restrict__ x, long long sb, long long sh,
                    const float* __restrict__ tapw, // (2, W2) wa, wb
                    bf16* __restrict__ rw, int h0n, int w2) {
   constexpr int LD = C + 16;
+  constexpr int NC = MIX_NC<C>;
   const int w0p = (w0 + 15) / 16 * 16;
   extern __shared__ __align__(128) unsigned char smem[];
+  const size_t xs_bytes = align128((size_t)w0p * LD * 2);
+  constexpr size_t ks_bytes = align128((size_t)NC * LD * 2);
   bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + align128((size_t)w0p * LD * 2));
-  bf16* Xo = reinterpret_cast<bf16*>(smem + align128((size_t)w0p * LD * 2) +
-                                     align128((size_t)C * LD * 2));
+  bf16* Ks = reinterpret_cast<bf16*>(smem + xs_bytes);
+  bf16* Xo = reinterpret_cast<bf16*>(smem + xs_bytes + ks_bytes);
   float* St = reinterpret_cast<float*>(
-      smem + align128((size_t)w0p * LD * 2) + align128((size_t)C * LD * 2) +
-      align128((size_t)w0p * C * 2));
+      smem + xs_bytes + ks_bytes + align128((size_t)w0p * NC * 2));
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
 
@@ -78,61 +91,67 @@ mix_wresize_kernel(const bf16* __restrict__ x, long long sb, long long sh,
     const int c = i / w0p, w = i % w0p;
     Xs[w * LD + c] = w < w0 ? src[w * sw + c * sc] : rbf(0.f);
   }
-  load_rows(Ks, LD, koc, C, C, C, C, tid, THREADS);
-  __syncthreads();
-
-  // Xo = bf16(Xs @ koc^T): (w0p x C) x (C x C), one 16 x 16 tile per step.
-  float* st = St + warp * 256;
-  constexpr int TN = C / 16;
-  const int tiles = (w0p / 16) * TN;
-  for (int t = warp; t < tiles; t += THREADS / WARP) {
-    const int tm = t / TN, tn = t % TN;
-    FragC acc[1][1];
-    zero(acc);
-    mma_block<1, 1, C>(acc, Xs + tm * 16 * LD, LD, Ks + tn * 16 * LD, LD);
-    wmma::store_matrix_sync(st, acc[0][0], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += WARP)
-      Xo[(tm * 16 + e / 16) * C + tn * 16 + e % 16] = rbf(st[e]);
-    __syncwarp();
-  }
-  __syncthreads();
-
   bf16* dst = rw + ((long long)b * h0n + h) * w2 * C;
-  for (int i = tid; i < w2 * (C / 8); i += THREADS) {
-    const int w = i / (C / 8), c = (i % (C / 8)) * 8;
-    __align__(16) bf16 v[8];
-    wlerp8(v, Xo + taps[w] * C + c, Xo + taps[w2 + w] * C + c, tapw[w],
-           tapw[w2 + w]);
-    *reinterpret_cast<uint4*>(dst + (long long)w * C + c) =
-        *reinterpret_cast<const uint4*>(v);
+  float* st = St + warp * 256;
+  constexpr int TN = NC / 16;
+  const int tiles = (w0p / 16) * TN;
+#pragma unroll 1
+  for (int n0 = 0; n0 < C; n0 += NC) {
+    __syncthreads();  // Xs staged; the previous pass's Xo fully read
+    load_rows(Ks, LD, koc + (long long)n0 * C, C, NC, C, NC, tid, THREADS);
+    __syncthreads();
+
+    // Xo = bf16(Xs @ koc[n0 : n0 + NC]^T): (w0p x C) x (C x NC), one 16 x 16
+    // tile per step, each over the whole of C.
+    for (int t = warp; t < tiles; t += THREADS / WARP) {
+      const int tm = t / TN, tn = t % TN;
+      FragC acc[1][1];
+      zero(acc);
+      mma_block<1, 1, C>(acc, Xs + tm * 16 * LD, LD, Ks + tn * 16 * LD, LD);
+      wmma::store_matrix_sync(st, acc[0][0], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += WARP)
+        Xo[(tm * 16 + e / 16) * NC + tn * 16 + e % 16] = rbf(st[e]);
+      __syncwarp();
+    }
+    __syncthreads();
+
+    for (int i = tid; i < w2 * (NC / 8); i += THREADS) {
+      const int w = i / (NC / 8), c = (i % (NC / 8)) * 8;
+      __align__(16) bf16 v[8];
+      wlerp8(v, Xo + taps[w] * NC + c, Xo + taps[w2 + w] * NC + c, tapw[w],
+             tapw[w2 + w]);
+      *reinterpret_cast<uint4*>(dst + (long long)w * C + n0 + c) =
+          *reinterpret_cast<const uint4*>(v);
+    }
   }
 }
 
 template <int C>
 size_t mix_smem(int w0) {
   const size_t w0p = (w0 + 15) / 16 * 16;
-  return align128(w0p * (C + 16) * 2) + align128((size_t)C * (C + 16) * 2) +
-         align128(w0p * C * 2) + (THREADS / WARP) * 256 * 4;
+  constexpr size_t NC = MIX_NC<C>;
+  return align128(w0p * (C + 16) * 2) + align128(NC * (C + 16) * 2) +
+         align128(w0p * NC * 2) + (THREADS / WARP) * 256 * 4;
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 convolution of one 64-pixel output segment as an implicit GEMM. `In`
-// holds 3 input rows x (SEG + 2) pixels x CIN channels (pitch CIN + 16), `Wt`
-// the weights as (tap, CIN, COUT). Each warp computes 16 pixels x COUT.
+// 3x3 convolution of one 64-pixel output segment as an implicit GEMM, over
+// KC input channels at a time. `In` holds 3 input rows x (SEG + 2) pixels x
+// KC channels (pitch KC + 16), `Wt` the chunk's weights as (tap, KC, COUT).
+// Each warp adds its 16 pixels x COUT into acc.
 
-template <int CIN, int COUT>
+template <int KC, int COUT>
 __device__ __forceinline__ void conv3x3_segment(
     FragC (&acc)[1][COUT / 16], const bf16* In, const bf16* Wt, int warp) {
-  constexpr int LDI = CIN + 16;
-  zero(acc);
+  constexpr int LDI = KC + 16;
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int dh = tap / 3, dw = tap % 3;
     const bf16* a = In + (dh * (SEG + 2) + warp * 16 + dw) * LDI;
-    const bf16* wt = Wt + tap * CIN * COUT;
+    const bf16* wt = Wt + tap * KC * COUT;
 #pragma unroll
-    for (int k = 0; k < CIN; k += 16) {
+    for (int k = 0; k < KC; k += 16) {
       FragA fa;
       wmma::load_matrix_sync(fa, a + k, LDI);
 #pragma unroll
@@ -145,11 +164,19 @@ __device__ __forceinline__ void conv3x3_segment(
   }
 }
 
-template <int CIN, int COUT>
-constexpr size_t conv_smem() {
-  return align128((size_t)3 * (SEG + 2) * (CIN + 16) * 2) +
-         align128((size_t)9 * CIN * COUT * 2) +
+template <int KC, int COUT>
+__host__ __device__ constexpr size_t conv_smem() {
+  return align128((size_t)3 * (SEG + 2) * (KC + 16) * 2) +
+         align128((size_t)9 * KC * COUT * 2) +
          (size_t)(THREADS / WARP) * 16 * COUT * 4;
+}
+
+// Input channels per chunk: all of them where the nine taps' weights fit in
+// shared memory beside the input rows (C <= 128 for conv1, every conv2),
+// else 32 (conv1 at C = 256 and 384, whose weights are 590 KB and 1.3 MB).
+template <int CIN, int COUT>
+__host__ __device__ constexpr int conv_kc() {
+  return conv_smem<CIN, COUT>() <= 232448 ? CIN : 32;
 }
 
 // ---------------------------------------------------------------------------
@@ -161,48 +188,54 @@ __global__ void __launch_bounds__(THREADS)
 conv1_kernel(const bf16* __restrict__ rw, const float* __restrict__ boc,
              const bf16* __restrict__ wt1, const float* __restrict__ b1,
              bf16* __restrict__ c1, int h0n, int hm, int w2) {
-  constexpr int LDI = C + 16;
+  constexpr int KC = conv_kc<C, C2>();
+  constexpr int LDI = KC + 16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* In = reinterpret_cast<bf16*>(smem);
   bf16* Wt = reinterpret_cast<bf16*>(
       smem + align128((size_t)3 * (SEG + 2) * LDI * 2));
   float* St = reinterpret_cast<float*>(
       smem + align128((size_t)3 * (SEG + 2) * LDI * 2) +
-      align128((size_t)9 * C * C2 * 2));
+      align128((size_t)9 * KC * C2 * 2));
   const int x0 = blockIdx.x * SEG, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
 
-  for (int dh = 0; dh < 3; ++dh) {
-    const int gr = g - 1 + dh;
-    const bool row_ok = gr >= 0 && gr < hm;
-    const Taps k = lerp_taps(row_ok ? gr : 0, h0n, hm);
-    const bf16* r0 = rw + ((long long)b * h0n + k.i0) * w2 * C;
-    const bf16* r1 = rw + ((long long)b * h0n + k.i1) * w2 * C;
-    for (int i = tid; i < (SEG + 2) * (C / 8); i += THREADS) {
-      const int p = i / (C / 8), c = (i % (C / 8)) * 8;
-      const int col = x0 - 1 + p;
-      __align__(16) bf16 v[8];
-      if (row_ok && col >= 0 && col < w2) {
-        const uint4 ua = *reinterpret_cast<const uint4*>(r0 + (long long)col * C + c);
-        const uint4 ub = *reinterpret_cast<const uint4*>(r1 + (long long)col * C + c);
-        const bf16* a = reinterpret_cast<const bf16*>(&ua);
-        const bf16* bb = reinterpret_cast<const bf16*>(&ub);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = rbf(__fadd_rn(lerp(k, bf(a[e]), bf(bb[e])), boc[c + e]));
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
-      }
-      *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
-  load_rows(Wt, C2, wt1, C2, 9 * C, C2, 9 * C, tid, THREADS);
-  __syncthreads();
-
   FragC acc[1][C2 / 16];
-  conv3x3_segment<C, C2>(acc, In, Wt, warp);
+  zero(acc);
+#pragma unroll 1
+  for (int kc = 0; kc < C; kc += KC) {
+    __syncthreads();  // the previous chunk fully consumed
+    for (int dh = 0; dh < 3; ++dh) {
+      const int gr = g - 1 + dh;
+      const bool row_ok = gr >= 0 && gr < hm;
+      const Taps k = lerp_taps(row_ok ? gr : 0, h0n, hm);
+      const bf16* r0 = rw + ((long long)b * h0n + k.i0) * w2 * C + kc;
+      const bf16* r1 = rw + ((long long)b * h0n + k.i1) * w2 * C + kc;
+      for (int i = tid; i < (SEG + 2) * (KC / 8); i += THREADS) {
+        const int p = i / (KC / 8), c = (i % (KC / 8)) * 8;
+        const int col = x0 - 1 + p;
+        __align__(16) bf16 v[8];
+        if (row_ok && col >= 0 && col < w2) {
+          const uint4 ua = *reinterpret_cast<const uint4*>(r0 + (long long)col * C + c);
+          const uint4 ub = *reinterpret_cast<const uint4*>(r1 + (long long)col * C + c);
+          const bf16* a = reinterpret_cast<const bf16*>(&ua);
+          const bf16* bb = reinterpret_cast<const bf16*>(&ub);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = rbf(__fadd_rn(lerp(k, bf(a[e]), bf(bb[e])), boc[kc + c + e]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+        }
+        *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    load_taps(Wt, wt1, C2, C, kc, KC, C2);
+    __syncthreads();
+    conv3x3_segment<KC, C2>(acc, In, Wt, warp);
+  }
+
   float* st = St + warp * 16 * C2;
 #pragma unroll
   for (int j = 0; j < C2 / 16; ++j)
@@ -227,54 +260,60 @@ conv2_kernel(const bf16* __restrict__ c1, const int* __restrict__ taps,
              const float* __restrict__ b2, const float* __restrict__ w3,
              const float* __restrict__ b3, float* __restrict__ out, int hm,
              int w2, int h1, int w1) {
-  constexpr int LDI = C2 + 16;
+  constexpr int KC = conv_kc<C2, C3>();
+  constexpr int LDI = KC + 16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* In = reinterpret_cast<bf16*>(smem);
   bf16* Wt = reinterpret_cast<bf16*>(
       smem + align128((size_t)3 * (SEG + 2) * LDI * 2));
   float* St = reinterpret_cast<float*>(
       smem + align128((size_t)3 * (SEG + 2) * LDI * 2) +
-      align128((size_t)9 * C2 * C3 * 2));
+      align128((size_t)9 * KC * C3 * 2));
   const int x0 = blockIdx.x * SEG, r = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
 
-  for (int dh = 0; dh < 3; ++dh) {
-    const int rr = r - 1 + dh;
-    const bool row_ok = rr >= 0 && rr < h1;
-    const Taps k = lerp_taps(row_ok ? rr : 0, hm, h1);
-    const bf16* r0 = c1 + ((long long)b * hm + k.i0) * w2 * C2;
-    const bf16* r1 = c1 + ((long long)b * hm + k.i1) * w2 * C2;
-    for (int i = tid; i < (SEG + 2) * (C2 / 8); i += THREADS) {
-      const int p = i / (C2 / 8), c = (i % (C2 / 8)) * 8;
-      const int col = x0 - 1 + p;
-      __align__(16) bf16 v[8];
-      if (row_ok && col >= 0 && col < w1) {
-        const int ja = taps[col], jb = taps[w1 + col];
-        const float wa = tapw[col], wb = tapw[w1 + col];
-        __align__(16) bf16 z0[8], z1[8];
-        const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C2 + c);
-        const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C2 + c);
-        const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C2 + c);
-        const uint4 b1v = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C2 + c);
-        wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
-               reinterpret_cast<const bf16*>(&b0), wa, wb);
-        wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
-               reinterpret_cast<const bf16*>(&b1v), wa, wb);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
-      }
-      *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
-  load_rows(Wt, C3, wt2, C3, 9 * C2, C3, 9 * C2, tid, THREADS);
-  __syncthreads();
-
   FragC acc[1][C3 / 16];
-  conv3x3_segment<C2, C3>(acc, In, Wt, warp);
+  zero(acc);
+#pragma unroll 1
+  for (int kc = 0; kc < C2; kc += KC) {
+    __syncthreads();  // the previous chunk fully consumed
+    for (int dh = 0; dh < 3; ++dh) {
+      const int rr = r - 1 + dh;
+      const bool row_ok = rr >= 0 && rr < h1;
+      const Taps k = lerp_taps(row_ok ? rr : 0, hm, h1);
+      const bf16* r0 = c1 + ((long long)b * hm + k.i0) * w2 * C2 + kc;
+      const bf16* r1 = c1 + ((long long)b * hm + k.i1) * w2 * C2 + kc;
+      for (int i = tid; i < (SEG + 2) * (KC / 8); i += THREADS) {
+        const int p = i / (KC / 8), c = (i % (KC / 8)) * 8;
+        const int col = x0 - 1 + p;
+        __align__(16) bf16 v[8];
+        if (row_ok && col >= 0 && col < w1) {
+          const int ja = taps[col], jb = taps[w1 + col];
+          const float wa = tapw[col], wb = tapw[w1 + col];
+          __align__(16) bf16 z0[8], z1[8];
+          const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C2 + c);
+          const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C2 + c);
+          const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C2 + c);
+          const uint4 b1v = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C2 + c);
+          wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
+                 reinterpret_cast<const bf16*>(&b0), wa, wb);
+          wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
+                 reinterpret_cast<const bf16*>(&b1v), wa, wb);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+        }
+        *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    load_taps(Wt, wt2, C3, C2, kc, KC, C3);
+    __syncthreads();
+    conv3x3_segment<KC, C3>(acc, In, Wt, warp);
+  }
+
   float* st = St + warp * 16 * C3;
 #pragma unroll
   for (int j = 0; j < C3 / 16; ++j)
@@ -307,12 +346,12 @@ int run(const void* x, long long sb, long long sh, long long sw, long long sc,
                    (const float*)tapw_a, (bf16*)rw, h0, w2);
   if (err) return err;
   err = launch(conv1_kernel<C, C2>, dim3((w2 + SEG - 1) / SEG, hm, batch),
-               THREADS, conv_smem<C, C2>(), stream, (const bf16*)rw,
+               THREADS, conv_smem<conv_kc<C, C2>(), C2>(), stream, (const bf16*)rw,
                (const float*)boc, (const bf16*)wt1, (const float*)b1,
                (bf16*)c1, h0, hm, w2);
   if (err) return err;
   return launch(conv2_kernel<C2>, dim3((w1 + SEG - 1) / SEG, h1, batch),
-                THREADS, conv_smem<C2, C3>(), stream, (const bf16*)c1,
+                THREADS, conv_smem<conv_kc<C2, C3>(), C3>(), stream, (const bf16*)c1,
                 (const int*)taps_b, (const float*)tapw_b, (const bf16*)wt2,
                 (const float*)b2, (const float*)w3, (const float*)b3,
                 (float*)out, hm, w2, h1, w1);
@@ -325,7 +364,7 @@ int run(const void* x, long long sb, long long sh, long long sw, long long sc,
 // conv2 (9, C/2, 32) bf16 + (32,) f32; the 1x1 (32,) f32 + (1,) f32;
 // W-resize tap tables (2, 2*W0) / (2, W1) int32 indices and f32 weights;
 // scratch rw (B, H0, 2*W0, C) and c1 (B, 2*H0, 2*W0, C/2) bf16 ->
-// out (B, H1, W1) f32. C in {32, 64, 128}. The first kernel holds a whole
+// out (B, H1, W1) f32. C in {32, 64, 128, 256, 384}. The first kernel holds a whole
 // input row in shared memory: an input too wide for it fails to launch.
 extern "C" int vrvg_head_tail_ext(
     const void* x, long long sb, long long sh, long long sw, long long sc,
@@ -338,6 +377,8 @@ extern "C" int vrvg_head_tail_ext(
     case 32: return run<32>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
     case 64: return run<64>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
     case 128: return run<128>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    case 256: return run<256>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    case 384: return run<384>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

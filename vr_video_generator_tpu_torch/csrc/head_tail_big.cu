@@ -1,5 +1,5 @@
-// The big-C DPT tail (vitl, C = 256) from refinenet1's pre-upsample
-// activation to depth, for Hopper (sm_90a), as two kernels:
+// The big-C DPT tail (vitl C = 256, vitg C = 384) from refinenet1's
+// pre-upsample activation to depth, for Hopper (sm_90a), as two kernels:
 //
 //   front: the x2 align-corners W-upsample of x -> bf16, the x2 H-upsample
 //          (f32 lerp) -> bf16, zero outside the image, then output_conv1
@@ -35,8 +35,11 @@
 // 590 KB, do not fit in shared memory; a chunk is 74 KB), then each warp
 // accumulates its 16 pixels x COUT on the tensor cores (nvcuda::wmma, bf16
 // in, f32 accumulate). 111 KB of shared memory for the front, so two blocks
-// share an SM. Simple first: no pipelining, the weights re-read from L2 by
-// every block, wmma and not wgmma.
+// share an SM. At vitg (C = 384, conv1 384 -> 192: 1.66 TFLOP at 1080p, B =
+// 8, bound 1.68 ms; conv2 192 -> 32: 0.42 TFLOP, 0.43 ms) the front makes two
+// passes of 96 output channels (FRONT_CP): 128 registers with a 4-byte
+// spill, 93 KB of shared memory. Simple first: no pipelining, the weights
+// re-read from L2 by every block, wmma and not wgmma.
 
 #include "gemm.cuh"
 #include "taps.cuh"
@@ -73,17 +76,6 @@ __device__ __forceinline__ Item item(int i) {
   it.p = rem / (KC / 8);
   it.c = (rem % (KC / 8)) * 8;
   return it;
-}
-
-// Copy the chunk's weights, (9, C, COUT) rows [kc, kc + KC) of each tap, into
-// shared memory as (9, KC, COUT).
-template <int COUT>
-__device__ __forceinline__ void load_weights(bf16* Wt, const bf16* wt, int c,
-                                             int kc) {
-#pragma unroll 1
-  for (int t = 0; t < 9; ++t)
-    load_rows(Wt + t * KC * COUT, COUT, wt + ((long long)t * c + kc) * COUT,
-              COUT, KC, COUT, KC, threadIdx.x, THREADS);
 }
 
 // acc += the 3x3 convolution of the staged chunk: warp w's 16 pixels x COUT.
@@ -128,7 +120,14 @@ __device__ __forceinline__ float* stage(unsigned char* smem,
 
 // ---------------------------------------------------------------------------
 // Row 11, front: W/H x2 upsample + folded conv1 -> bf16 mid. Grid (segments
-// of W2, HM rows, frames).
+// of W2, HM rows, frames). The output channels are computed CP at a time,
+// each pass walking all input chunks: at C2 = 192 a warp's 16 x 192 f32
+// accumulator would be 96 registers a lane and a chunk's weights 111 KB, so
+// two passes of 96 (48 registers, 55 KB) restage the upsampled input once
+// more instead.
+
+template <int C2>
+constexpr int FRONT_CP = C2 <= 128 ? C2 : C2 / 2;
 
 template <int C, int C2>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -145,55 +144,59 @@ big_front_kernel(const bf16* __restrict__ x,     // (B, H0, W0, C)
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
   const bf16* xb = x + (long long)b * h0n * w0n * C;
 
-  FragC acc[1][C2 / 16];
-  zero(acc);
+  constexpr int CP = FRONT_CP<C2>;
+  FragC acc[1][CP / 16];
 #pragma unroll 1
-  for (int kc = 0; kc < C; kc += KC) {
-    __syncthreads();  // the previous chunk fully consumed
-    for (int i = tid; i < ITEMS; i += THREADS) {
-      const Item it = item(i);
-      const int zr = g - 1 + it.dh, col = x0 - 1 + it.p;
-      __align__(16) bf16 v[8];
-      if (zr >= 0 && zr < hm && col >= 0 && col < w2) {
-        const Taps k = lerp_taps(zr, h0n, hm);
-        const int ja = taps[col], jb = taps[w2 + col];
-        const float wa = tapw[col], wb = tapw[w2 + col];
-        const bf16* r0 = xb + (long long)k.i0 * w0n * C + kc + it.c;
-        const bf16* r1 = xb + (long long)k.i1 * w0n * C + kc + it.c;
-        const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C);
-        const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C);
-        const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C);
-        const uint4 b1 = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C);
-        __align__(16) bf16 z0[8], z1[8];
-        wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
-               reinterpret_cast<const bf16*>(&b0), wa, wb);
-        wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
-               reinterpret_cast<const bf16*>(&b1), wa, wb);
+  for (int p0 = 0; p0 < C2; p0 += CP) {
+    zero(acc);
+#pragma unroll 1
+    for (int kc = 0; kc < C; kc += KC) {
+      __syncthreads();  // the previous chunk (or pass) fully consumed
+      for (int i = tid; i < ITEMS; i += THREADS) {
+        const Item it = item(i);
+        const int zr = g - 1 + it.dh, col = x0 - 1 + it.p;
+        __align__(16) bf16 v[8];
+        if (zr >= 0 && zr < hm && col >= 0 && col < w2) {
+          const Taps k = lerp_taps(zr, h0n, hm);
+          const int ja = taps[col], jb = taps[w2 + col];
+          const float wa = tapw[col], wb = tapw[w2 + col];
+          const bf16* r0 = xb + (long long)k.i0 * w0n * C + kc + it.c;
+          const bf16* r1 = xb + (long long)k.i1 * w0n * C + kc + it.c;
+          const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C);
+          const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C);
+          const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C);
+          const uint4 b1 = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C);
+          __align__(16) bf16 z0[8], z1[8];
+          wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
+                 reinterpret_cast<const bf16*>(&b0), wa, wb);
+          wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
+                 reinterpret_cast<const bf16*>(&b1), wa, wb);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
-      } else {
+          for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
+        } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+          for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+        }
+        *reinterpret_cast<uint4*>(In + (it.dh * (SEG + 2) + it.p) * LDI + it.c) =
+            *reinterpret_cast<const uint4*>(v);
       }
-      *reinterpret_cast<uint4*>(In + (it.dh * (SEG + 2) + it.p) * LDI + it.c) =
+      load_taps(Wt, wt1 + p0, C2, C, kc, KC, CP);
+      __syncthreads();
+      conv_chunk<CP>(acc, In, Wt, warp);
+    }
+
+    const float* st = stage<CP>(smem, acc, warp);
+    bf16* dst = mid + ((long long)b * hm + g) * w2 * C2 + p0;
+    for (int e = lane * 8; e < 16 * CP; e += WARP * 8) {
+      const int r = e / CP, c = e % CP;
+      const int px = x0 + warp * 16 + r;
+      if (px >= w2) continue;
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = rbf(st[e + q]);
+      *reinterpret_cast<uint4*>(dst + (long long)px * C2 + c) =
           *reinterpret_cast<const uint4*>(v);
     }
-    load_weights<C2>(Wt, wt1, C, kc);
-    __syncthreads();
-    conv_chunk<C2>(acc, In, Wt, warp);
-  }
-
-  const float* st = stage<C2>(smem, acc, warp);
-  bf16* dst = mid + ((long long)b * hm + g) * w2 * C2;
-  for (int e = lane * 8; e < 16 * C2; e += WARP * 8) {
-    const int r = e / C2, c = e % C2;
-    const int px = x0 + warp * 16 + r;
-    if (px >= w2) continue;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = rbf(st[e + q]);
-    *reinterpret_cast<uint4*>(dst + (long long)px * C2 + c) =
-        *reinterpret_cast<const uint4*>(v);
   }
 }
 
@@ -270,7 +273,7 @@ big_back_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
       *reinterpret_cast<uint4*>(In + (it.dh * (SEG + 2) + it.p) * LDI + it.c) =
           *reinterpret_cast<const uint4*>(v);
     }
-    load_weights<C3>(Wt, wt2, C2, kc);
+    load_taps(Wt, wt2, C3, C2, kc, KC, C3);
     __syncthreads();
     conv_chunk<C3>(acc, In, Wt, warp);
   }
@@ -294,7 +297,7 @@ int run_front(const void* x, const void* wt1, const void* taps,
               void* stream) {
   const int hm = 2 * h0, w2 = 2 * w0;
   return launch(big_front_kernel<C, C / 2>, dim3((w2 + SEG - 1) / SEG, hm, batch),
-                THREADS, conv_smem<C / 2>(), stream, (const bf16*)x,
+                THREADS, conv_smem<FRONT_CP<C / 2>>(), stream, (const bf16*)x,
                 (const bf16*)wt1, (const int*)taps, (const float*)tapw,
                 (bf16*)mid, h0, w0, hm, w2);
 }
@@ -315,7 +318,7 @@ int run_back(const void* mid, const void* taps, const void* tapw,
 
 // Row 11. x (B, H0, W0, C) bf16 contiguous; conv1 with out_conv's mix folded
 // in, (9, C, C/2) bf16; W-upsample tap tables (2, 2*W0) int32 / f32 -> mid
-// (B, 2*H0, 2*W0, C/2) bf16. C in {64, 128, 256}.
+// (B, 2*H0, 2*W0, C/2) bf16. C in {64, 128, 256, 384}.
 extern "C" int vrvg_head_tail_big_front(const void* x, const void* wt1,
                                         const void* taps, const void* tapw,
                                         void* mid, int batch, int h0, int w0,
@@ -324,13 +327,14 @@ extern "C" int vrvg_head_tail_big_front(const void* x, const void* wt1,
     case 64: return run_front<64>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
     case 128: return run_front<128>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
     case 256: return run_front<256>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
+    case 384: return run_front<384>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Row 12. mid (B, HM, W2, C2) bf16; W-resize tap tables (2, W1); cw (3, W1,
 // C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2 (9, C2, 32) bf16 + (32,) f32;
-// the 1x1 (32,) f32 + (1,) f32 -> out (B, H1, W1) f32. C2 in {32, 64, 128}.
+// the 1x1 (32,) f32 + (1,) f32 -> out (B, H1, W1) f32. C2 in {32, 64, 128, 192}.
 extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
                                        const void* tapw, const void* cw,
                                        const void* wt2, const void* b2,
@@ -341,6 +345,7 @@ extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
     case 32: return run_back<32>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
     case 64: return run_back<64>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
     case 128: return run_back<128>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
+    case 192: return run_back<192>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
-// Resize taps shared by the DPT tail kernels (csrc/head_tail.cu,
-// csrc/head_tail_big.cu): the H-resizes as exact integer align-corners taps
-// with an f32 fraction and an f32 lerp, and the two-tap W-resize, with every
-// product and sum rounded on its own (no FMA), as the TPU kernels compute
-// them (vr_video_generator_tpu/ops/head_tail_pallas.py `_lerp_taps`).
+// Resize taps and conv-weight staging shared by the DPT tail kernels
+// (csrc/head_tail.cu, csrc/head_tail_big.cu): the H-resizes as exact integer
+// align-corners taps with an f32 fraction and an f32 lerp, and the two-tap
+// W-resize, with every product and sum rounded on its own (no FMA), as the
+// TPU kernels compute them (vr_video_generator_tpu/ops/head_tail_pallas.py
+// `_lerp_taps`).
 
 #pragma once
 
@@ -43,6 +44,18 @@ __device__ __forceinline__ void wlerp8(bf16* dst, const bf16* a, const bf16* b,
 #pragma unroll
   for (int e = 0; e < 8; ++e)
     dst[e] = rbf(__fadd_rn(__fmul_rn(wa, bf(a[e])), __fmul_rn(wb, bf(b[e]))));
+}
+
+// Rows [kc, kc + kcn) of each tap of (9, cin, ld) 3x3 conv weights, columns
+// [0, cols) of `wt` (pre-offset to the first column), into shared memory as
+// (9, kcn, cols).
+__device__ __forceinline__ void load_taps(bf16* Wt, const bf16* wt,
+                                          long long ld, int cin, int kc,
+                                          int kcn, int cols) {
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t)
+    load_rows(Wt + t * kcn * cols, cols, wt + ((long long)t * cin + kc) * ld,
+              ld, kcn, cols, kcn, threadIdx.x, blockDim.x);
 }
 
 }  // namespace vrvg

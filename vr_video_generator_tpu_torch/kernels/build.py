@@ -49,6 +49,8 @@ SIGNATURES = {
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _I, _F, _P],
+    "vrvg_swiglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _F, _P],
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -68,8 +68,10 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, np.ndarr
         _dense(sd, p + ".attn.proj", blk["attn"]["proj"])
         sd[p + ".ls1.gamma"] = _np(blk["ls1"]["gamma"])
         _norm(sd, p + ".norm2", blk["norm2"])
-        _dense(sd, p + ".mlp.fc1", blk["mlp"]["fc1"])
-        _dense(sd, p + ".mlp.fc2", blk["mlp"]["fc2"])
+        dense = ("w12", "w3") if cfg.ffn_layer == "swiglufused" \
+            else ("fc1", "fc2")
+        for name in dense:
+            _dense(sd, f"{p}.mlp.{name}", blk["mlp"][name])
         sd[p + ".ls2.gamma"] = _np(blk["ls2"]["gamma"])
 
     head = params["depth_head"]

@@ -3,22 +3,24 @@
 Mirrors vr_video_generator_tpu/models/dinov2.py: patch embed as one GEMM in
 the (py, px, c) flatten order, cls token, bicubic pos-embed resample with
 the +0.1 offset, pre-norm blocks (LayerNorm -> qkv -> attention -> proj ->
-LayerScale, LayerNorm -> MLP with the A&S GELU -> LayerScale), and
-final-norm taps. Module and parameter names are the upstream state_dict
-names (``pretrained.blocks.{i}.attn.qkv.weight``, ...), so an official
-checkpoint loads with ``load_state_dict``.
+LayerScale, LayerNorm -> MLP with the A&S GELU, or vitg's SwiGLU ->
+LayerScale), and final-norm taps. Module and parameter names are the
+upstream state_dict names (``pretrained.blocks.{i}.attn.qkv.weight``,
+``...mlp.w12.weight``), so an official checkpoint loads with
+``load_state_dict``.
 
 ``mlp_fused`` picks each half-block's path as the JAX package does, with
 CUDA in the TPU's place (:func:`resolve_block_fusion`). Unfused, the
 LayerNorms go through ops/layernorm.py (Triton kernel on CUDA) and the
 attention through ops/attention.mha (the one-shot CUDA kernel up to 4096
 tokens, the flash kernel above). Fused, the attention half is
-ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual (up to 4096 tokens)
-and the MLP half is ops/mlp.mlp_residual (vits, vitb) or
-ops/mlp.mlp_residual_hblocked (vitl), as the JAX package picks its resident
-or hidden-blocked kernel, reading the same parameters. Activations are in
-the compute dtype; LayerNorm statistics, the pos-embed resample and the
-softmax are f32; dense layers round as flax's (models/layers.py).
+ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual (up to 4096 tokens,
+where the JAX package plans it) and the MLP half is ops/mlp.mlp_residual
+(vits, vitb), ops/mlp.mlp_residual_hblocked (vitl), as the JAX package picks
+its resident or hidden-blocked kernel, or ops/mlp.swiglu_residual (vitg),
+reading the same parameters. Activations are in the compute dtype;
+LayerNorm statistics, the pos-embed resample and the softmax are f32; dense
+layers round as flax's (models/layers.py).
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from vr_video_generator_tpu_torch.ops.attention import (attention, mha,
 from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm
 from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
-                                                  mlp_residual_hblocked)
+                                                  mlp_residual_hblocked,
+                                                  silu_mul, swiglu_hidden,
+                                                  swiglu_residual)
 from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, proj_ls_residual
 from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
@@ -51,33 +55,36 @@ def kernel_device(x: torch.Tensor) -> str:
 
 
 def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
-                         n_tokens: int, device_type: str
-                         ) -> Tuple[bool, bool]:
+                         n_tokens: int, device_type: str, dtype: torch.dtype,
+                         ffn_layer: str = "mlp") -> Tuple[bool, bool]:
     """(fuse the attention half, fuse the MLP half) of a block over
-    ``n_tokens`` tokens, as the JAX package resolves ``mlp_fused`` (its
-    models/dinov2.py Block) with CUDA in the TPU's place. The attention half
-    fuses at the widths the qkv kernels take (head dim 64) and only up to
-    4096 tokens, where the one-shot attention serves (attention_pallas.
-    supported; the JAX condition attn_fusable holds at every such width);
-    above, it runs LayerNorm -> qkv -> flash attention -> proj. ``auto``
-    fuses the attention half there and the MLP half at D >= 512, on CUDA
-    only (``device_type`` is :func:`kernel_device`'s: bf16 on the card); off
-    the card it fuses nothing, as the JAX package's ``auto`` does off the
-    TPU. ``fused`` fuses both wherever the JAX package would (off the card
-    through the plain versions); where either would fuse the MLP half at a
-    width no kernel takes (vitg's), it raises; ``xla`` fuses nothing."""
+    ``n_tokens`` tokens in ``dtype``, as the JAX package resolves
+    ``mlp_fused`` (its models/dinov2.py Block) with CUDA in the TPU's place.
+    The attention half fuses where the JAX Block fuses it: head dim 64, at
+    most 4096 tokens (attention_pallas.supported; above, LayerNorm -> qkv ->
+    flash attention -> proj) and where qkv_pallas.attn_fusable plans its
+    resident weights (:func:`ops.qkv.attn_fusable`: not at D=1024 in f32,
+    nor at vitg's D=1536), and only at a width the qkv kernels take.
+    ``auto`` fuses the attention half there and the MLP half at D >= 512, on
+    CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 on the
+    card); off the card it fuses nothing, as the JAX package's ``auto`` does
+    off the TPU. ``fused`` fuses both wherever the JAX package would (off the
+    card through the plain versions); where either would fuse the MLP half
+    (``ffn_layer`` "mlp" or vitg's "swiglufused") at a width no kernel takes,
+    it raises; ``xla`` fuses nothing."""
     if mlp_fused not in ("auto", "fused", "xla"):
         raise ValueError(f"mlp_fused must be auto, fused or xla, got "
                          f"{mlp_fused!r}")
     on_card = device_type == "cuda"
     want = mlp_fused == "fused" or (mlp_fused == "auto" and on_card)
     attn = want and dim in qkv_ops.WIDTHS \
-        and dim == num_heads * qkv_ops.HEAD_DIM and oneshot_supported(n_tokens)
+        and dim == num_heads * qkv_ops.HEAD_DIM and oneshot_supported(n_tokens) \
+        and qkv_ops.attn_fusable(dim, n_tokens, dtype)
     mlp = dim % 128 == 0 and (mlp_fused == "fused" or (
         mlp_fused == "auto" and on_card and dim >= 512))
-    if mlp and not mlp_ops.takes_width(dim):
-        not_ported(f"mlp_fused={mlp_fused!r} at D={dim}",
-                   "SwiGLU encoder (vitg)")
+    if mlp and not mlp_ops.takes_width(dim, ffn_layer):
+        not_ported(f"mlp_fused={mlp_fused!r} at D={dim} ({ffn_layer})",
+                   "fused MLP kernels at other widths")
     return attn, mlp
 
 
@@ -118,6 +125,20 @@ class Mlp(nn.Module):
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
+class SwiGLUFFN(nn.Module):
+    """vitg's SwiGLUFFNFused: one Linear gives [x1 | x2], then
+    w3(silu(x1) * x2), hidden :func:`ops.mlp.swiglu_hidden`."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(silu_mul(x1, x2))
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -133,20 +154,27 @@ class Block(nn.Module):
     parameters either way."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 mlp_fused: str = "auto"):
+                 mlp_fused: str = "auto", ffn_layer: str = "mlp"):
         super().__init__()
         self.dim, self.num_heads, self.mlp_fused = dim, num_heads, mlp_fused
+        self.ffn_layer = ffn_layer
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if ffn_layer == "swiglufused":
+            self.mlp = SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio))
+        elif ffn_layer == "mlp":
+            self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        else:
+            raise ValueError(f"ffn_layer must be mlp or swiglufused, got "
+                             f"{ffn_layer!r}")
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fuse_attn, fuse_mlp = resolve_block_fusion(
             self.mlp_fused, self.dim, self.num_heads, x.shape[1],
-            kernel_device(x))
+            kernel_device(x), x.dtype, self.ffn_layer)
         if fuse_attn:
             qkv = ln_qkv(x, self.norm1.weight, self.norm1.bias,
                          self.attn.qkv.weight, self.attn.qkv.bias,
@@ -157,6 +185,11 @@ class Block(nn.Module):
                                  self.attn.proj.bias, self.ls1.gamma)
         else:
             x = x + self.ls1(self.attn(self.norm1(x)))
+        if fuse_mlp and self.ffn_layer == "swiglufused":
+            return swiglu_residual(x, self.norm2.weight, self.norm2.bias,
+                                   self.mlp.w12.weight, self.mlp.w12.bias,
+                                   self.mlp.w3.weight, self.mlp.w3.bias,
+                                   self.ls2.gamma, eps=self.norm2.eps)
         if fuse_mlp:
             half = mlp_residual if mlp_ops.resident(
                 self.dim, self.mlp.fc1.weight.shape[0], x.dtype) \
@@ -191,9 +224,6 @@ class PatchEmbed(nn.Module):
 class DinoVisionTransformer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.ffn_layer != "mlp":
-            not_ported(f"ffn_layer={cfg.ffn_layer!r} (vitg)",
-                       "SwiGLU encoder (vitg)")
         self.cfg = cfg
         d = cfg.embed_dim
         grid = cfg.pretrain_img_size // cfg.patch_size
@@ -204,7 +234,8 @@ class DinoVisionTransformer(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, d))
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused,
+                  cfg.ffn_layer)
             for _ in range(cfg.depth))
         self.norm = LayerNorm(d)
 

@@ -47,19 +47,24 @@ def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
     TPU's place. ``fused``, and ``auto`` on the card (``device_type`` is
     models.dinov2.kernel_device's), take the tail the JAX package's planners
     pick (ops/head_tail.plan_tail); ``xla``, and ``auto`` off the card, fuse
-    nothing. Off the card the fused tails run their plain versions. The ext
-    tail at a width its kernel chain does not take (C = 256, at small inputs
-    only) raises on the card: that kernel is not ported."""
+    nothing. Off the card the fused tails run their plain versions. On the
+    card a planned tail whose kernels do not take its shape raises here, not
+    in a kernel wrapper: the ext chain takes C in ops/head_tail.CHANNELS and
+    a row that fits one block's shared memory, the big-C kernels C in
+    BIG_CHANNELS (every encoder's width, and every row of a 16:9 frame up to
+    2160p that the planners send to the ext tail)."""
     if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
     if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):
         return None
     choice = head_tail_ops.plan_tail(pre_shape, dtype, out_hw)
-    c = pre_shape[-1]
-    if choice == "ext" and device_type == "cuda" and not head_tail_ops.takes(c):
-        not_ported(f"the ext DPT tail at C={c} on the card (tail={tail!r}, "
-                   f"refinenet1 grid {pre_shape[1]}x{pre_shape[2]})",
-                   "the ext DPT tail at C=256")
+    c, w0 = pre_shape[-1], pre_shape[2]
+    if device_type == "cuda" and (
+            (choice == "ext" and not head_tail_ops.takes(c, w0))
+            or (choice == "big" and not head_tail_ops.big_takes(c))):
+        not_ported(f"the {choice} DPT tail at C={c} on the card (tail="
+                   f"{tail!r}, refinenet1 grid {pre_shape[1]}x{w0})",
+                   "DPT tail kernels at other widths")
     return choice
 
 

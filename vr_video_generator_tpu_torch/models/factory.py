@@ -23,10 +23,14 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     """Seeded random upstream state_dict, drawn with numpy: LeCun-normal
     weights (std 1/sqrt(fan_in)), zero biases, cls and mask tokens, unit
     LayerNorm scales and LayerScale gammas, N(0, 0.02) pos-embed, matching
-    the JAX package's initialisers in distribution."""
+    the JAX package's initialisers in distribution. The shapes come from a
+    model on the meta device (no storage), and each tensor is drawn alone,
+    so the host holds the f32 state_dict and one f64 draw (vitg: ~1.3 B
+    parameters, ~5 GB)."""
     rng = np.random.default_rng(seed)
-    shapes = {k: tuple(v.shape)
-              for k, v in DepthAnythingV2(cfg).state_dict().items()}
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape)
+                  for k, v in DepthAnythingV2(cfg).state_dict().items()}
     sd = {}
     for name, shape in shapes.items():
         if name.endswith("pos_embed"):
@@ -49,11 +53,16 @@ def build_model(cfg: ModelConfig, state_dict: Mapping, dtype: torch.dtype,
                 device: torch.device | str, tail: str = "auto"
                 ) -> DepthAnythingV2:
     """DepthAnythingV2 with ``state_dict`` loaded strictly, moved to
-    ``device`` and cast to the compute dtype (f32 kept where noted)."""
-    model = DepthAnythingV2(cfg, dtype=dtype, tail=tail)
-    model.load_state_dict({k: v if isinstance(v, torch.Tensor)
-                           else torch.from_numpy(np.array(v, np.float32))
-                           for k, v in state_dict.items()})
+    ``device`` and cast to the compute dtype (f32 kept where noted). The
+    model is built on the meta device and takes copies of the state_dict's
+    tensors as its parameters, so no initial weights are drawn."""
+    with torch.device("meta"):
+        model = DepthAnythingV2(cfg, dtype=dtype, tail=tail)
+    model.load_state_dict(
+        {k: v.detach().to("cpu", torch.float32, copy=True)
+         if isinstance(v, torch.Tensor)
+         else torch.from_numpy(np.array(v, np.float32))
+         for k, v in state_dict.items()}, assign=True)
     model.to(device)
     for name, param in model.named_parameters():
         if not name.endswith(_F32_SUFFIXES):

@@ -17,7 +17,7 @@ with bf16 weights, the H-resizes as exact integer taps with an f32 lerp
 added before its cast, conv2's f32 bias and ReLU, and the 1x1 in f32. The
 kernels are ``csrc/head_tail.cu``; see its header for the design.
 
-The big-C tail (vitl) replaces `head_tail_big_pallas`, front (body
+The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
 own rounding points, which are not the ext tail's: x is W- and H-upsampled
 first (bf16 after each), out_conv's 1x1 mix is folded into conv1's weights in
@@ -46,15 +46,33 @@ from vr_video_generator_tpu_torch.ops.resize import linear_weights
 LAUNCHES = counter("head_tail_ext")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
-CHANNELS = (32, 64, 128)       # the feature widths csrc/head_tail.cu takes
-BIG_CHANNELS = (64, 128, 256)  # the feature widths csrc/head_tail_big.cu takes
-C3 = 32                        # output_conv2's width in the reference head
+CHANNELS = (32, 64, 128, 256, 384)  # the feature widths csrc/head_tail.cu takes
+BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
+C3 = 32                             # output_conv2's width in the reference head
+SMEM_PER_BLOCK = 232448             # shared memory one block may have (H100)
 
 
-def takes(features: int) -> bool:
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def ext_mix_smem(w0: int, c: int) -> int:
+    """Shared memory of the ext chain's first kernel (``mix_smem`` in
+    csrc/head_tail.cu), which holds a whole input row of W0 pixels."""
+    w0p, nc = -(-w0 // 16) * 16, min(c, 64)
+    return (_align128(w0p * (c + 16) * 2) + _align128(nc * (c + 16) * 2)
+            + _align128(w0p * nc * 2) + 4 * 256 * 4)
+
+
+def takes(features: int, w0: int) -> bool:
     """Whether the ext kernel chain is built for a head of ``features``
-    channels (vits 64, vitb 128; not vitl's 256)."""
-    return features in CHANNELS
+    channels and its first kernel holds a row of ``w0`` pixels."""
+    return features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK
+
+
+def big_takes(features: int) -> bool:
+    """Whether the big-C kernels are built for ``features`` channels."""
+    return features in BIG_CHANNELS
 
 
 # --- the JAX package's tail planners (head_tail_pallas.py:45, 223-251,
@@ -260,9 +278,10 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
     c2 = c // 2
-    if x.dtype != torch.bfloat16 or not takes(c):
+    if x.dtype != torch.bfloat16 or not takes(c, w0):
         raise ValueError(f"head_tail_ext kernel takes bf16 input with C in "
-                         f"{CHANNELS}, got {x.dtype} C={c}")
+                         f"{CHANNELS} and rows within {SMEM_PER_BLOCK} bytes "
+                         f"of shared memory, got {x.dtype} C={c} W0={w0}")
     for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
                            ("output_conv1", k1, (c2, c, 3, 3)),
                            ("output_conv2.0", k2, (C3, c2, 3, 3)),
@@ -395,7 +414,7 @@ def head_tail_big_front(x: torch.Tensor, k_oc: torch.Tensor,
         return head_tail_big_front_plain(x, k_oc, k1)
     b, h0, w0, c = x.shape
     c2 = c // 2
-    if x.dtype != torch.bfloat16 or c not in BIG_CHANNELS:
+    if x.dtype != torch.bfloat16 or not big_takes(c):
         raise ValueError(f"head_tail_big_front kernel takes bf16 input with "
                          f"C in {BIG_CHANNELS}, got {x.dtype} C={c}")
     for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
@@ -430,7 +449,7 @@ def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
         return head_tail_big_back_plain(mid, *args, out_hw)
     b, hm, w2, c2 = mid.shape
     h1, w1 = out_hw
-    if (mid.dtype != torch.bfloat16 or 2 * c2 not in BIG_CHANNELS
+    if (mid.dtype != torch.bfloat16 or not big_takes(2 * c2)
             or not mid.is_contiguous()):
         raise ValueError(f"head_tail_big_back kernel takes contiguous bf16 "
                          f"input with C2 in {[c // 2 for c in BIG_CHANNELS]}, "

@@ -10,6 +10,12 @@ hidden-blocked (body `_kernel`, row 9) above, at vitl; :func:`resident` is
 its rule. Both compute the same function, so both wrappers share the plain
 version; the kernels are ``csrc/mlp.cu``'s, one per width, each with its own
 launch counter. See its header for the design.
+
+The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
+`_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
+w12(LN2(x)), at the same rounding points, and with silu rounded as XLA rounds
+``jax.nn.silu`` on bf16 (:func:`silu_mul`). Its kernel chain is
+``csrc/swiglu.cu``.
 """
 
 from __future__ import annotations
@@ -23,8 +29,41 @@ from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
 
 LAUNCHES = counter("mlp_residual")
 HBLOCKED_LAUNCHES = counter("mlp_residual_hblocked")
+SWIGLU_LAUNCHES = counter("swiglu_residual")
 WIDTHS = (128, 384, 768)  # row 8's widths in csrc/mlp.cu (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
+SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
+
+
+def swiglu_hidden(d: int, mlp_ratio: float = 4.0) -> int:
+    """SwiGLUFFNFused's hidden width: 2/3 of the nominal, rounded up to 8."""
+    return (int(int(d * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+def silu_mul(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """silu(x1) * x2 in x1's dtype, each operation rounded to it: XLA
+    evaluates ``jax.nn.silu`` (x * logistic(x)) on bf16 as
+    1 / (1 + exp(-x)) with a bf16 rounding after the exp, the add and the
+    divide, then rounds x * s and the product with x2."""
+    return x1 * (1 / (1 + torch.exp(-x1))) * x2
+
+
+def swiglu_residual_plain(x: torch.Tensor, ln_w: torch.Tensor,
+                          ln_b: torch.Tensor, w12: torch.Tensor,
+                          b12: torch.Tensor, w3: torch.Tensor,
+                          b3: torch.Tensor, gamma: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """(..., D) -> x + gamma * (w3(silu(x1) * x2) + b3), [x1 | x2] =
+    w12(LN(x)) + b12 split in halves; weights in PyTorch layout, w12
+    (2H, D), w3 (D, H)."""
+    dt = x.dtype
+    h = layernorm_plain(x, ln_w, ln_b, eps)
+    t = F.linear(h, w12.to(dt))
+    t = t + b12.to(dt)
+    x1, x2 = t.chunk(2, dim=-1)
+    y = F.linear(silu_mul(x1, x2), w3.to(dt))
+    y = y + b3.to(dt)
+    return x + gamma.to(dt) * y
 
 
 def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -41,8 +80,11 @@ def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     return x + gamma.to(dt) * y
 
 
-def takes_width(d: int) -> bool:
-    """Whether a kernel is built for model width ``d``."""
+def takes_width(d: int, ffn_layer: str = "mlp") -> bool:
+    """Whether a kernel of the ``ffn_layer`` half-block is built for model
+    width ``d``."""
+    if ffn_layer == "swiglufused":
+        return d in SWIGLU_WIDTHS
     return d in WIDTHS + HBLOCKED_WIDTHS
 
 
@@ -82,6 +124,57 @@ def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
     return out
 
 
+def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                    w12: torch.Tensor, b12: torch.Tensor, w3: torch.Tensor,
+                    b3: torch.Tensor, gamma: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """(..., D) -> (..., D): the plain version for CPU tensors, row 10's
+    kernel chain for CUDA tensors (bf16, D in ``SWIGLU_WIDTHS``, hidden
+    :func:`swiglu_hidden`)."""
+    if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
+        return swiglu_residual_plain(x, ln_w, ln_b, w12, b12, w3, b3, gamma,
+                                     eps)
+    d = x.shape[-1]
+    if d not in SWIGLU_WIDTHS:
+        raise ValueError(f"swiglu_residual kernel takes D in {SWIGLU_WIDTHS}, "
+                         f"got {d}")
+    hid = swiglu_hidden(d)
+    _check_operands("swiglu_residual", x, (
+        ("LN weight", ln_w, (d,), torch.float32),
+        ("LN bias", ln_b, (d,), torch.float32),
+        ("w12 weight", w12, (2 * hid, d), torch.bfloat16),
+        ("w12 bias", b12, (2 * hid,), torch.bfloat16),
+        ("w3 weight", w3, (d, hid), torch.bfloat16),
+        ("w3 bias", b3, (d,), torch.bfloat16),
+        ("gamma", gamma, (d,), torch.bfloat16)))
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    m = x.numel() // d
+    # Scratch of the chain: the LayerNorm'd rows and silu(x1) * x2.
+    h = torch.empty_like(x)
+    g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    err = library().vrvg_swiglu_residual(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
+        b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
+        h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, eps,
+        stream_handle(x.device))
+    check(err, "vrvg_swiglu_residual")
+    SWIGLU_LAUNCHES.count += 1
+    return out
+
+
+def _check_operands(kernel: str, x: torch.Tensor, operands) -> None:
+    """Raise unless x and each (name, tensor, shape, dtype) of ``operands``
+    is contiguous with that shape and dtype (x: bf16, any leading shape)."""
+    for name, t, shape, dtype in (("x", x, tuple(x.shape), torch.bfloat16),
+                                  *operands):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{kernel} {name} must be contiguous {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)} "
+                             f"contiguous={t.is_contiguous()}")
+
+
 def _launch(kernel: str, widths, x: torch.Tensor, ln_w: torch.Tensor,
             ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
@@ -91,15 +184,11 @@ def _launch(kernel: str, widths, x: torch.Tensor, ln_w: torch.Tensor,
     if d not in widths:
         raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
     bf16, f32 = torch.bfloat16, torch.float32
-    for name, t, shape, dtype in (
-            ("x", x, tuple(x.shape), bf16), ("LN weight", ln_w, (d,), f32),
-            ("LN bias", ln_b, (d,), f32), ("fc1 weight", w1, (4 * d, d), bf16),
-            ("fc1 bias", b1, (4 * d,), bf16), ("fc2 weight", w2, (d, 4 * d), bf16),
-            ("fc2 bias", b2, (d,), bf16), ("gamma", gamma, (d,), bf16)):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{kernel} {name} must be contiguous {dtype} "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)} "
-                             f"contiguous={t.is_contiguous()}")
+    _check_operands(kernel, x, (
+        ("LN weight", ln_w, (d,), f32), ("LN bias", ln_b, (d,), f32),
+        ("fc1 weight", w1, (4 * d, d), bf16), ("fc1 bias", b1, (4 * d,), bf16),
+        ("fc2 weight", w2, (d, 4 * d), bf16), ("fc2 bias", b2, (d,), bf16),
+        ("gamma", gamma, (d,), bf16)))
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     out = torch.empty_like(x)

@@ -30,6 +30,26 @@ HEAD_DIM = 64
 WIDTHS = (128, 384, 768, 1024)  # the widths csrc/qkv.cu is built for
 
 
+def qkv_block_n(d: int, dtype: torch.dtype) -> int | None:
+    """The JAX package's token block for its LN + qkv kernel
+    (qkv_pallas._qkv_block_n): the largest of 512, 256, 128 whose VMEM plan
+    (resident (D, 3D) weights, the x and h blocks, the f32 qkv product and
+    its cast, three double-buffered outputs) fits 13 MiB, else None."""
+    isz = dtype.itemsize
+    for bn in (512, 256, 128):
+        est = (3 * d * d * isz + bn * d * 2 * isz + bn * 3 * d * (4 + isz)
+               + 3 * 2 * bn * d * isz)
+        if est <= 13 * 2 ** 20:
+            return bn
+    return None
+
+
+def attn_fusable(d: int, n: int, dtype: torch.dtype) -> bool:
+    """qkv_pallas.attn_fusable: the JAX package fuses the attention half only
+    where that plan exists (not at D=1024 in f32, nor at D=1536)."""
+    return d % 128 == 0 and n >= 1 and qkv_block_n(d, dtype) is not None
+
+
 def ln_qkv_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
                  eps: float = 1e-6) -> torch.Tensor:

@@ -70,7 +70,8 @@ def check_supported(run_cfg: RunConfig) -> None:
     # change that answer). The tail's choice depends on the geometry; the
     # head resolves it.
     cfg = run_cfg.model()
-    resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, 1, "cpu")
+    resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, 1, "cpu",
+                         torch.float32, cfg.ffn_layer)
     if run_cfg.tail not in TAILS:
         raise ValueError(f"tail must be one of {TAILS}, got {run_cfg.tail!r}")
     if run_cfg.gelu != "exact":

@@ -3,7 +3,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 -m vr_video_generator_tpu_torch.stage_bench [--out DIR]
-        [--encoder vits|vitb|vitl] [--input_size N]
+        [--encoder vits|vitb|vitl|vitg] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
 
 The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
@@ -291,7 +291,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace and the op table")
     ap.add_argument("--encoder", default="vits",
-                    choices=["vits", "vitb", "vitl"],
+                    choices=["vits", "vitb", "vitl", "vitg"],
                     help="Depth-Anything-V2 encoder (as the CLI)")
     ap.add_argument("--input_size", type=int, default=518,
                     help="depth net input size (as the CLI)")

@@ -9,13 +9,17 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      all started together) and compile the Triton LayerNorm;
-  3. each of the thirteen kernels against its plain PyTorch version on the
+  3. each of the seventeen kernels against its plain PyTorch version on the
      card at its path's shapes (1080p; vits, batch 8; vitl, batch 8 at
      --input_size 518 and batch 2 at 728; vitg, batch 8 at 518), with
      CUDA-event timings of both, of one PyTorch library call where one
      computes the same function, and the least time the card could take
-     (bound); and the DPT tail kernels at the widths vitg and vitl add (the
-     big-C tail at C=384, the ext tail at C=256 and 384);
+     (bound); the DPT tail kernels at the widths vitg and vitl add (the
+     big-C tail at C=384, the ext tail at C=256 and 384); the packed
+     blur/select and the banded compositor bit-exact (the banded one also
+     against the classic kernel, and a 4K frame, past its 126 shifts,
+     through the classic kernel); the single-kernel tail and the RCU pair at
+     vits' and vitb's widths, and the chain RCU pair -> ext tail;
   4. the main paths through ``runtime.segment.process_segment`` with bf16
      and seeded random weights, each with the launch counts reset just
      before it and read just after, each required to launch exactly its
@@ -29,7 +33,13 @@ Phases, each fatal on failure:
      the flash kernel), and ``auto`` at 252 (1 batch of 8: the ext tail at
      C=256); then DINOv2-giant (vitg, SwiGLU) ``auto`` at 518 (1 batch of 8,
      the same checks as vits fused) and at 126 (1 batch of 8: the ext tail
-     at C=384).
+     at C=384); vits ``auto`` with ``--sbs_output packed --warp_impl
+     pallas`` (1 batch of 8: the packed blur/select kernel in the u8 one's
+     place, its unpacked frames equal to the u8 path's bit for bit); and
+     the entry points no CLI path calls, as a user would call them (the
+     banded compositor at 1080p, batch 8; the single-kernel tail and the
+     RCU pair -> ext tail at vits' shapes), each launching exactly its
+     kernels.
 
 It prints the per-kernel JSON line before the last line, and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -50,6 +60,7 @@ import numpy as np
 H, W, B = 1080, 1920, 8
 N_TOK, DIM, HEADS = 2443, 384, 6  # 37 x 66 patches + cls at 1080p, vits
 FEATURES, H0, W0 = 64, 148, 264   # refinenet1's pre-upsample grid, vits
+OUT_HW = (518, 924)               # the depth net's size at --input_size 518
 DIM_L, HEADS_L, FEATURES_L = 1024, 16, 256  # vitl, same grids at 518
 DIM_G, HID_G, FEATURES_G = 1536, 4096, 384  # vitg (SwiGLU hidden), at 518
 # refinenet1's grid and the net's size at 1080p with --input_size 126 (vitg,
@@ -98,12 +109,21 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # K = 1536 and 4096 around the bf16 silu chain): 1.2e-3 of outputs differ,
 # by at most 3 ulps, under row 9's bounds (8x and 2.7x of margin); row 11 at
 # vitg's C=384: 2.0e-3, 1 ulp (same card; 2.5x and 4x).
+# Row 16, the RCU pair, is four launches of one 3x3 conv (576 or 1152
+# products an output) with bf16 between them: each launch is held alone to
+# row 9's bounds. Chained, a one-ulp flip of an intermediate moves the next
+# conv's sums, so 1.1% (C=64, vits 1080p) to 4.6% (C=128) of the chain's
+# outputs differ from the plain chain's, by at most 3 ulps (NVIDIA H100 80GB
+# HBM3, 700.00 W); the chain is held instead by its error against the same
+# chain in f32, at most RCU_F32_FLOOR times the plain bf16 chain's, as the
+# depth is (DEPTH_FLOOR).
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
-                 "swiglu_residual": 0.01, "head_tail_big_front": 0.005}
+                 "swiglu_residual": 0.01, "head_tail_big_front": 0.005,
+                 "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
                  "mlp_residual_hblocked": 8, "swiglu_residual": 8,
-                 "head_tail_big_front": 4}
+                 "head_tail_big_front": 4, "rcu_pair": 8}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
 # (measured on an NVIDIA H100 80GB HBM3, 700.00 W: row 7 max 1.7e-3, mean
@@ -128,6 +148,7 @@ TAIL_MAX_REL, TAIL_MEAN_REL = 1e-2, 1e-4
 # plain mean 0.001% of the range.
 DEPTH_REL = 0.02
 DEPTH_FLOOR = 1.25
+RCU_F32_FLOOR = DEPTH_FLOOR
 PKG = "vr_video_generator_tpu_torch"
 JAX_PKG = "vr_video_generator_tpu"
 KERNELS = {
@@ -157,6 +178,14 @@ KERNELS = {
                         f"{JAX_PKG}/ops/attention.py:53"),
     "swiglu_residual": ("cuda", f"{PKG}/csrc/swiglu.cu",
                         f"{JAX_PKG}/ops/mlp_pallas.py:101"),
+    "blur_select_sbs_packed": ("cuda", f"{PKG}/csrc/blur_select.cu",
+                               f"{JAX_PKG}/ops/warp_pallas.py:389"),
+    "warp_composite_banded": ("cuda", f"{PKG}/csrc/warp.cu",
+                              f"{JAX_PKG}/ops/warp_pallas.py:89"),
+    "head_tail": ("cuda", f"{PKG}/csrc/head_tail.cu",
+                  f"{JAX_PKG}/ops/head_tail_pallas.py:90"),
+    "rcu_pair": ("cuda", f"{PKG}/csrc/rcu_pair.cu",
+                 f"{JAX_PKG}/attic/refinenet_pre.py:47"),
 }
 # The kernels each main path must launch, exactly. ``auto`` on the card at
 # vits fuses the attention half and the tail, and keeps the MLP half unfused
@@ -183,6 +212,12 @@ VITL_252 = SLICE1 + ("ln_qkv", "proj_ls_residual", "mlp_residual_hblocked",
 VITG = SLICE1 + ("swiglu_residual",)
 VITG_518 = VITG + BIG_TAIL
 VITG_126 = VITG + ("head_tail_ext",)
+# vits auto with --sbs_output packed: the packed emit in the u8 one's place.
+AUTO_VITS_PACKED = tuple(k for k in AUTO_VITS if k != "blur_select_sbs") \
+    + ("blur_select_sbs_packed",)
+# The entry points no CLI path calls (as in the JAX package): the banded
+# compositor, the single-kernel tail, and the RCU pair feeding the ext tail.
+OFF_CLI = ("warp_composite_banded", "head_tail", "rcu_pair", "head_tail_ext")
 
 
 class SmokeFailure(RuntimeError):
@@ -237,6 +272,8 @@ def gemm_addends(name: str, want, args):
     and gamma * bias for proj_ls_residual and the MLP and SwiGLU halves."""
     if name.startswith("head_tail_big_front"):
         return ()  # a bare conv sum, cast
+    if name.startswith("rcu_pair"):
+        return tuple(args)  # the conv's residuals
     if name == "ln_qkv":
         b, heads, scale = args[4], args[5], args[6]
         bias = b.float().reshape(3, heads, -1).clone()
@@ -432,7 +469,7 @@ def check_big_tail(gen, c) -> dict:
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
     c2, c3 = c // 2, 32
-    h1, w1 = 518, 924
+    h1, w1 = OUT_HW
     hm, w2 = 2 * H0, 2 * W0
     xt = randn(gen, (B, c, H0, W0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
     wts = tail_weights(gen, c)
@@ -524,6 +561,170 @@ def check_vitg_kernels(device, results, widths) -> None:
         widths[f"head_tail_ext C={c}"] = check_ext_tail(gen, c, grid, out_hw)
 
 
+def check_base_tail(gen, c) -> dict:
+    """Row 15 at ``c`` channels on path1 at vits' 1080p/518 grid (2 H0 x 2
+    W0, NCHW seen as (B, H2, W2, C)), depth at 518 x 924: statistics, times
+    and bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                             head_tail_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    c2, c3 = c // 2, 32
+    h2, w2, out_hw = 2 * H0, 2 * W0, OUT_HW
+    x = randn(gen, (B, c, h2, w2), dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)[2:]
+    got, want = head_tail(x, *wts, out_hw), head_tail_plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    stats = tail_stats(f"head_tail C={c}", got, want)
+    h1, w1 = out_hw
+    flops = 2 * B * (h2 * w2 * c2 * 9 * c + h1 * w1 * c3 * 9 * c2
+                     + h1 * w1 * c3)
+    return dict(**stats, ms=event_ms(lambda: head_tail(x, *wts, out_hw)),
+                plain_ms=event_ms(lambda: head_tail_plain(x, *wts, out_hw)),
+                library_ms=None, **bound(nbytes(x, *wts, got), flops))
+
+
+def rcu_inputs(gen, c):
+    """rn0 and path2 on refinenet1's 1080p/518 grid (NCHW seen as NHWC)
+    and the four convs' seeded bf16 weights and biases."""
+    import torch
+
+    bf = torch.bfloat16
+    rn0, path2 = (randn(gen, (B, c, H0, W0), dtype=bf).permute(0, 2, 3, 1)
+                  for _ in range(2))
+    ws = []
+    for _ in range(4):
+        ws += [randn(gen, (c, c, 3, 3), (9 * c) ** -0.5, dtype=bf),
+               randn(gen, (c,), 0.1, dtype=bf)]
+    return rn0, path2, ws
+
+
+def rcu_pair_stats(label, rn0, path2, ws):
+    """Row 16 against its plain version: each of its four conv launches
+    alone, on the plain chain's own input and residuals, as the dense
+    kernels are held (GEMM_MAX_FRAC, GEMM_MAX_ULPS); and the chain by its
+    error against the same chain in f32, at most RCU_F32_FLOOR times the
+    plain bf16 chain's, in max and in mean. Returns (statistics, the
+    kernel's output, the plain output)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        rcu_chain, rcu_conv, rcu_conv_plain, refinenet_pre,
+        refinenet_pre_plain)
+
+    steps = []
+
+    def record(x, k, b, relu, residuals=()):
+        steps.append((x, k, b, relu, residuals))
+        return rcu_conv_plain(x, k, b, relu, residuals)
+
+    want = rcu_chain(record, rn0, path2, *ws)
+    convs = []
+    for i, (x, k, b, relu, res) in enumerate(steps):
+        got_i = rcu_conv(x, k, b, relu, res)
+        torch.cuda.synchronize()
+        convs.append(gemm_check(f"{label} conv {i}", got_i,
+                                rcu_conv_plain(x, k, b, relu, res), res))
+    got = refinenet_pre(rn0, path2, *ws)
+    ref32 = refinenet_pre_plain(*(t.float() for t in (rn0, path2, *ws)))
+    torch.cuda.synchronize()
+    require(got.shape == want.shape == rn0.shape, f"{label} shape {got.shape}")
+    d_k32, d_p32 = (got.float() - ref32).abs(), (want.float() - ref32).abs()
+    stats = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                 frac_differ=(got != want).float().mean().item(),
+                 conv_max_ulps=max(c["max_ulps"] for c in convs),
+                 conv_frac_differ=max(c["frac_differ"] for c in convs),
+                 kernel_vs_f32_max=d_k32.max().item(),
+                 kernel_vs_f32_mean=d_k32.mean().item(),
+                 plain_vs_f32_max=d_p32.max().item(),
+                 plain_vs_f32_mean=d_p32.mean().item())
+    for kind in ("max", "mean"):
+        require(stats[f"kernel_vs_f32_{kind}"]
+                <= RCU_F32_FLOOR * stats[f"plain_vs_f32_{kind}"],
+                f"{label}: the chain's error against f32 ({kind}) exceeds "
+                f"{RCU_F32_FLOOR} x the plain bf16 chain's: "
+                f"{json.dumps(stats)}")
+    return stats, got, want
+
+
+def check_rcu_pair(gen, c) -> dict:
+    """Row 16 at ``c`` channels on refinenet1's 1080p/518 grid
+    (:func:`rcu_pair_stats`), times and bound; at vits' C=64 also the chain
+    RCU pair -> ext tail against the plain chain (TAIL_MAX_REL,
+    TAIL_MEAN_REL)."""
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        refinenet_pre, refinenet_pre_plain)
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_ext, head_tail_ext_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    rn0, path2, ws = rcu_inputs(gen, c)
+    stats, got, want = rcu_pair_stats(f"rcu_pair C={c}", rn0, path2, ws)
+    out = dict(**stats, ms=event_ms(lambda: refinenet_pre(rn0, path2, *ws)),
+               plain_ms=event_ms(lambda: refinenet_pre_plain(rn0, path2, *ws)),
+               library_ms=None,
+               **bound(nbytes(rn0, path2, *ws, got),
+                       4 * 2 * B * H0 * W0 * 9 * c * c))
+    if c == FEATURES:
+        tail = tail_weights(gen, c)
+        chain = tail_stats(
+            f"rcu_pair -> head_tail_ext C={c}",
+            head_tail_ext(got, *tail, OUT_HW),
+            head_tail_ext_plain(want, *tail, OUT_HW))
+        log(f"rcu_pair -> head_tail_ext chain at C={c} against the plain "
+            f"chain: {json.dumps(chain)}")
+    return out
+
+
+def check_warp_4k_banded(device, rng) -> None:
+    """A 4K frame with banded=True: 134 shifts exceed the banded kernel's
+    126, so the classic kernel (row 3) must run, equal to its plain
+    version."""
+    import torch
+
+    from vr_video_generator_tpu_torch import StereoConfig
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops.warp import (WarpSpec,
+                                                       resolve_banded,
+                                                       warp_composite,
+                                                       warp_composite_plain)
+
+    h, w = 2160, 3840
+    spec = WarpSpec.create(h, w, StereoConfig())
+    n_shift = spec.s_neg + spec.s_pos + 1
+    require(not resolve_banded(True, spec.s_neg, spec.s_pos),
+            f"4K: {n_shift} shifts resolved to the banded kernel")
+    img = torch.from_numpy(rng.integers(0, 256, (1, h, w, 3),
+                                        dtype=np.uint8)).to(device)
+    ramp = np.linspace(0.0, 14.0, w, dtype=np.float32)[None, None, :]
+    depth = torch.from_numpy(np.clip(
+        ramp + rng.normal(0.0, 0.4, (1, h, w)).astype(np.float32),
+        0.0, None)).to(device)
+    ls = torch.ceil(depth.amax(dim=(1, 2)))
+    ranges = torch.stack([spec.cfg.offset_bg * h * ls / 14.0,
+                          spec.cfg.offset_fg * h * ls / 14.0], dim=1)
+    _, st = spec.tables(depth, ranges)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    comp, cov = warp_composite(img, depth, st, spec.s_neg, spec.s_pos,
+                               banded=True)
+    after = launch_counts()
+    comp_p, cov_p = warp_composite_plain(img, depth, st, spec.s_neg,
+                                         spec.s_pos)
+    torch.cuda.synchronize()
+    require(after["warp_composite"] == before["warp_composite"] + 1
+            and after["warp_composite_banded"]
+            == before["warp_composite_banded"],
+            f"4K banded=True did not run the classic kernel: {before} -> "
+            f"{after}")
+    require(torch.equal(comp, comp_p) and torch.equal(cov, cov_p),
+            "4K: the classic kernel differs from its plain version")
+    log(f"4K frame, banded=True: {n_shift} shifts > 126, the classic kernel "
+        f"ran, bit-exact against its plain version")
+
+
 def kernel_parity(device, rng, results, widths):
     """Phase 3: each kernel against its plain version at main-path shapes
     (``results``), and the DPT tails at the widths vitg and vitl add
@@ -543,8 +744,9 @@ def kernel_parity(device, rng, results, widths):
     from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                             temporal_scan)
     from vr_video_generator_tpu_torch.ops.warp import (
-        WarpSpec, blur_select_sbs, blur_select_sbs_plain, warp_composite,
-        warp_composite_plain)
+        WarpSpec, blur_select_sbs, blur_select_sbs_packed_plain,
+        blur_select_sbs_plain, pack_rgb, warp_composite,
+        warp_composite_banded_plain, warp_composite_plain)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -618,7 +820,7 @@ def kernel_parity(device, rng, results, widths):
     del o, xr, args, got, want
 
     results["head_tail_ext"] = check_ext_tail(gen, FEATURES, (H0, W0),
-                                              (518, 924))
+                                              OUT_HW)
 
     spec = WarpSpec.create(H, W, StereoConfig())
     imgs = torch.from_numpy(
@@ -657,7 +859,56 @@ def kernel_parity(device, rng, results, widths):
         plain_ms=event_ms(lambda: blur_select_sbs_plain(*args)),
         library_ms=None,
         **bound(nbytes(comp_p, cov_p, imgs, st.edge_width, sbs), 0))
-    del imgs, depth, blended, comp, cov, comp_p, cov_p, sbs, sbs_p
+
+    # Row 13: the packed emit of the same pass, compared as int32 words.
+    pk = blur_select_sbs(*args, emit="packed")
+    pk_p = blur_select_sbs_packed_plain(*args)
+    torch.cuda.synchronize()
+    require(pk.dtype == torch.uint32 and tuple(pk.shape) == (B, H, 2 * W),
+            f"blur_select_sbs packed: {pk.dtype} {tuple(pk.shape)}")
+    pk_i, pk_pi = pk.view(torch.int32), pk_p.view(torch.int32)
+    pk_err = float((pk_i.long() - pk_pi.long()).abs().max())
+    require(pk_err == 0, f"blur_select_sbs packed differs from plain by {pk_err}")
+    require(torch.equal(pk_i, pack_rgb(sbs).view(torch.int32)),
+            "blur_select_sbs: the packed emit differs from the u8 emit")
+    results["blur_select_sbs_packed"] = dict(
+        max_abs_err=pk_err,
+        ms=event_ms(lambda: blur_select_sbs(*args, emit="packed")),
+        plain_ms=event_ms(lambda: blur_select_sbs_packed_plain(*args)),
+        library_ms=None,
+        **bound(nbytes(comp_p, cov_p, imgs, st.edge_width, pk), 0))
+
+    # Row 14: the banded compositor against its plain version and row 3.
+    bd, bd_cov = warp_composite(imgs, blended, st, spec.s_neg, spec.s_pos,
+                                banded=True)
+    bd_p, bd_cov_p = warp_composite_banded_plain(imgs, blended, st,
+                                                 spec.s_neg, spec.s_pos)
+    torch.cuda.synchronize()
+    bd_err = max(float((bd.int() - bd_p.int()).abs().max()),
+                 float((bd_cov.int() - bd_cov_p.int()).abs().max()))
+    require(bd_err == 0, f"warp_composite banded differs from plain by {bd_err}")
+    require(torch.equal(bd, comp) and torch.equal(bd_cov, cov),
+            "warp_composite banded differs from the classic kernel (row 3)")
+    results["warp_composite_banded"] = dict(
+        max_abs_err=bd_err,
+        ms=event_ms(lambda: warp_composite(imgs, blended, st, spec.s_neg,
+                                          spec.s_pos, banded=True)),
+        plain_ms=event_ms(lambda: warp_composite_banded_plain(
+            imgs, blended, st, spec.s_neg, spec.s_pos)),
+        library_ms=None,
+        **bound(nbytes(imgs, blended, *st, bd, bd_cov), 0))
+    del imgs, depth, blended, comp, cov, comp_p, cov_p, sbs, sbs_p, pk, pk_p
+    del bd, bd_cov, bd_p, bd_cov_p
+    check_warp_4k_banded(device, rng)
+
+    # Rows 15 and 16 at vits' C=64 and vitb's C=128.
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    for c in (FEATURES, 2 * FEATURES):
+        base, rcu = check_base_tail(gen, c), check_rcu_pair(gen, c)
+        if c == FEATURES:
+            results["head_tail"], results["rcu_pair"] = base, rcu
+        else:
+            widths[f"head_tail C={c}"], widths[f"rcu_pair C={c}"] = base, rcu
     check_vitl_kernels(device, results)
     check_vitg_kernels(device, results, widths)
     for name, r in {**results, **widths}.items():
@@ -779,6 +1030,84 @@ def one_batch(label, pipe, frames, need) -> dict:
     return dict(frames=n, seconds=secs, launches=got)
 
 
+def packed_path(p_u8, frames) -> dict:
+    """vits auto with --sbs_output packed --warp_impl pallas, on the model of
+    ``p_u8`` (the u8 auto path): one batch through process_segment, exactly
+    its kernels, and the written uint32 (H, 2W) frames, unpacked by
+    native.unpack_sbs, equal bit for bit to the u8 path's frames on the
+    same batch and state, the right half to the input."""
+    from vr_video_generator_tpu_torch import native
+
+    label = "vits auto/auto --sbs_output packed"
+    bsz = p_u8.run_cfg.batch_size
+    pk = type(p_u8)(p_u8.model, H, W, run_cfg=dataclasses.replace(
+        p_u8.run_cfg, sbs_output="packed", warp_impl="pallas"))
+    pk.step(frames[:bsz], pk.initial_state())  # warm-up
+    counts, writer, n, secs = drive(pk, frames[:bsz], bsz)
+    log(f"{label}: {n} frames in {secs:.4f} s; launch counts "
+        f"{json.dumps(counts)}")
+    launched_exactly(label, counts, AUTO_VITS_PACKED)
+    out = np.stack(writer.frames)
+    require(n == bsz and out.dtype == np.uint32
+            and out.shape == (bsz, H, 2 * W),
+            f"{label}: output {out.shape} {out.dtype}, {n} frames written")
+    require(not np.any(out >> 24), f"{label}: a word's top byte is set")
+    _, w_u8, _, _ = drive(p_u8, frames[:bsz], bsz)
+    rgb = native.unpack_sbs(out)
+    require(np.array_equal(rgb, np.stack(w_u8.frames)),
+            f"{label}: unpacked frames differ from the u8 path's")
+    require(np.array_equal(rgb[:, :, W:], frames[:bsz]),
+            f"{label}: right half of the SBS differs from the input")
+    log(f"{label}: {n} frames unpacked by native.unpack_sbs equal the u8 "
+        f"path's bit for bit")
+    return dict(frames=n, seconds=secs, launches=counts)
+
+
+def off_cli_entry_points(device, rng) -> dict:
+    """The entry points no CLI path calls, called once each as a user
+    would, with the launch counts reset just before and read just after:
+    the banded compositor on the main path's 1080p geometry (batch 8), the
+    single-kernel tail on vits' path1, and the RCU pair feeding the ext
+    tail on vits' refinenet1 grid. Exactly their kernels must launch."""
+    import torch
+
+    from vr_video_generator_tpu_torch import StereoConfig
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                             head_tail_ext)
+    from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
+                                                            temporal_scan)
+    from vr_video_generator_tpu_torch.ops.warp import WarpSpec, warp_composite
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    spec = WarpSpec.create(H, W, StereoConfig(), impl="pallas", device=device)
+    imgs = torch.from_numpy(
+        rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(device)
+    blended, ranges, _ = temporal_scan(synthetic_depth(rng, device),
+                                       TemporalState.initial(H, W, device),
+                                       spec)
+    _, st = spec.tables(blended, ranges)
+    path1 = randn(gen, (B, FEATURES, 2 * H0, 2 * W0),
+                  dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    tail = tail_weights(gen, FEATURES)
+    rn0, path2, ws = rcu_inputs(gen, FEATURES)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    warp_composite(imgs, blended, st, spec.s_neg, spec.s_pos, banded=True)
+    head_tail(path1, *tail[2:], OUT_HW)
+    head_tail_ext(refinenet_pre(rn0, path2, *ws), *tail, OUT_HW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"off-CLI entry points: {secs:.4f} s; launch counts "
+        f"{json.dumps(counts)}")
+    launched_exactly("off-CLI entry points", counts, OFF_CLI)
+    return dict(seconds=secs, launches=counts)
+
+
 def launched_exactly(label, counts, need) -> None:
     launched = {k for k, v in counts.items() if v > 0}
     require(launched == set(need),
@@ -857,7 +1186,8 @@ def main_path(device, rng):
 
     def keep(label, stats):
         # A kernel's count is that of the first path, in this order, that
-        # launches it: vits fused, vitl-518, vitl-728, then vitg-518.
+        # launches it: vits fused, vits auto packed, vitl-518, vitl-728,
+        # vitg-518, then the off-CLI entry points.
         paths[label] = stats
         for k, v in stats["launches"].items():
             if v > 0 and k not in launches:
@@ -888,6 +1218,9 @@ def main_path(device, rng):
         p.model.cfg = model_cfg  # the calibrated scaler
         label = f"vits {mlp_fused}/{tail}"
         keep(label, one_batch(label, p, frames, need))
+        if mlp_fused == "auto":
+            t0 = time.perf_counter()
+            keep(f"{label} packed", packed_path(p, frames))
         del p
         torch.cuda.empty_cache()
 
@@ -955,6 +1288,9 @@ def main_path(device, rng):
                                          VITG_126))
     del pipe
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    keep("off-CLI entry points", off_cli_entry_points(device, rng))
     return launches, paths
 
 

@@ -26,10 +26,10 @@ from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
 from vr_video_generator_tpu_torch.utils.config import StereoConfig
 from vr_video_generator_tpu_torch.ops.attention import attention, attention_plain
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm, layernorm_plain
-from vr_video_generator_tpu_torch.ops.warp import (WarpSpec, blur_select_sbs,
-                                                   blur_select_sbs_plain,
-                                                   warp_composite,
-                                                   warp_composite_plain)
+from vr_video_generator_tpu_torch.ops.warp import (
+    WarpSpec, blur_select_sbs, blur_select_sbs_packed_plain,
+    blur_select_sbs_plain, pack_rgb, warp_composite,
+    warp_composite_banded_plain, warp_composite_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,14 +217,14 @@ def test_attention_kernel_matches_plain(cuda, b, n, h):
     assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize("h,w", [(150, 96), (61, 97), (1080, 1920)])
-def test_warp_kernels_bit_exact(cuda, h, w):
+def _warp_case(cuda, h, w, b=3):
+    """Frames, ramped depth (up to 5, 14 and 30: past the cap) and its shift
+    tables on the card."""
     rng = np.random.default_rng(h)
-    b = 3
     imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
                                          dtype=np.uint8)).to(cuda)
     ramp = np.linspace(0, 1, w, dtype=np.float32)[None, None, :]
-    tmax = np.array([5.0, 14.0, 30.0], np.float32)[:, None, None]
+    tmax = np.array([5.0, 14.0, 30.0], np.float32)[:b, None, None]
     depth = ramp * tmax + rng.normal(0, 0.3, (b, h, w)).astype(np.float32)
     depth = torch.from_numpy(np.clip(depth, 0, None)).to(cuda)
     spec = WarpSpec.create(h, w, StereoConfig())
@@ -232,6 +232,12 @@ def test_warp_kernels_bit_exact(cuda, h, w):
     ranges = torch.stack([spec.cfg.offset_bg * h * ls / 14.0,
                           spec.cfg.offset_fg * h * ls / 14.0], dim=1)
     _, st = spec.tables(depth, ranges)
+    return spec, imgs, depth, st
+
+
+@pytest.mark.parametrize("h,w", [(150, 96), (61, 97), (1080, 1920)])
+def test_warp_kernels_bit_exact(cuda, h, w):
+    spec, imgs, depth, st = _warp_case(cuda, h, w)
     comp, cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos)
     comp_p, cov_p = warp_composite_plain(imgs, depth, st, spec.s_neg,
                                          spec.s_pos)
@@ -239,6 +245,137 @@ def test_warp_kernels_bit_exact(cuda, h, w):
     args = (comp_p, cov_p, imgs, st.edge_width, spec.kernel_size,
             spec.cfg.sigma)
     assert torch.equal(blur_select_sbs(*args), blur_select_sbs_plain(*args))
+
+
+@pytest.mark.parametrize("h,w", [(150, 96), (61, 97), (1080, 1920)])
+def test_packed_and_banded_kernels_bit_exact(cuda, h, w):
+    """Row 13 (the packed emit) against its plain version and the u8 emit;
+    row 14 (the banded compositor) against its plain version and row 3,
+    with depths above every band in two rows (code 254)."""
+    spec, imgs, depth, st = _warp_case(cuda, h, w)
+    depth[1, 3, 5:9] = 1e6
+    depth[2, h // 2, :7] = 1e6
+    counts = launch_counts()
+    comp, cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos)
+    bd, bd_cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos,
+                                banded=True)
+    assert launch_counts()["warp_composite_banded"] \
+        == counts.get("warp_composite_banded", 0) + 1
+    bd_p, bd_cov_p = warp_composite_banded_plain(imgs, depth, st, spec.s_neg,
+                                                 spec.s_pos)
+    assert torch.equal(bd, bd_p) and torch.equal(bd_cov, bd_cov_p)
+    assert torch.equal(bd, comp) and torch.equal(bd_cov, cov)
+    args = (comp, cov, imgs, st.edge_width, spec.kernel_size, spec.cfg.sigma)
+    pk = blur_select_sbs(*args, emit="packed")
+    assert pk.dtype == torch.uint32 and tuple(pk.shape) == (3, h, 2 * w)
+    pk_i = pk.view(torch.int32)
+    assert torch.equal(pk_i, blur_select_sbs_packed_plain(*args).view(torch.int32))
+    assert torch.equal(pk_i, pack_rgb(blur_select_sbs(*args)).view(torch.int32))
+
+
+def test_banded_past_126_shifts_runs_classic_kernel(cuda):
+    """2160 rows give 134 shifts: banded=True launches row 3."""
+    spec, imgs, depth, st = _warp_case(cuda, 2160, 64, b=1)
+    before = launch_counts()
+    comp, cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos,
+                               banded=True)
+    after = launch_counts()
+    assert after["warp_composite"] == before["warp_composite"] + 1
+    assert after["warp_composite_banded"] == before["warp_composite_banded"]
+    comp_p, cov_p = warp_composite_plain(imgs, depth, st, spec.s_neg,
+                                         spec.s_pos)
+    assert torch.equal(comp, comp_p) and torch.equal(cov, cov_p)
+
+
+# path1 on an odd grid (37 x 45: no multiple of the 64-pixel segment), at
+# vits' 1080p/518 grid, and at each width the single-kernel tail takes.
+@pytest.mark.parametrize("b,h2,w2,c", [(2, 37, 45, 32), (1, 296, 528, 64),
+                                       (2, 41, 70, 128), (2, 37, 45, 64)])
+def test_head_tail_base_kernel_matches_plain(cuda, b, h2, w2, c):
+    from chip_smoke import tail_stats, tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                            head_tail_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(h2 * w2 + c)
+    out_hw = (h2 * 7 // 4, w2 * 7 // 4)
+    x = _randn(gen, (b, c, h2, w2)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
+    wts = tail_weights(gen, c)[2:]
+    before = launch_counts().get("head_tail", 0)
+    got = head_tail(x, *wts, out_hw)
+    assert launch_counts()["head_tail"] == before + 1
+    assert got.shape == (b, *out_hw) and got.dtype == torch.float32
+    tail_stats("head_tail", got, head_tail_plain(x, *wts, out_hw))
+
+
+@pytest.mark.parametrize("b,h0,w0,c", [(2, 37, 45, 64), (1, 148, 264, 64),
+                                       (2, 20, 36, 128), (1, 148, 264, 128)])
+def test_rcu_pair_kernel_matches_plain(cuda, b, h0, w0, c):
+    """Each of the four conv launches alone, and the chain by its error
+    against f32 (chip_smoke.py's check and bounds)."""
+    from chip_smoke import rcu_pair_stats
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
+
+    gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c)
+    rn0, path2 = (_randn(gen, (b, c, h0, w0)).permute(0, 2, 3, 1)
+                  for _ in range(2))
+    ws = []
+    for _ in range(4):
+        ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5), _randn(gen, (c,), 0.1)]
+    before = launch_counts().get("rcu_pair", 0)
+    got = refinenet_pre(rn0, path2, *ws)
+    assert launch_counts()["rcu_pair"] == before + 4
+    assert got.shape == rn0.shape and got.dtype == torch.bfloat16
+    rcu_pair_stats("rcu_pair", rn0, path2, ws)
+
+
+def test_host_staging_reads_back_uint32(cuda):
+    """A packed (uint32) SBS batch survives the pinned readback word for
+    word, and a u8 batch of the same shape after it gets a u8 buffer."""
+    from vr_video_generator_tpu_torch.runtime.segment import HostStaging
+
+    staging = HostStaging(cuda)
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 1 << 24, (2, 48, 128), dtype=np.int64)
+    u8 = rng.integers(0, 256, (2, 48, 128), dtype=np.uint8)
+    for _ in range(2):
+        dev = torch.from_numpy(words.astype(np.int32)).to(cuda).view(torch.uint32)
+        back = staging.finish_readback(staging.start_readback(dev))
+        assert back.dtype == np.uint32
+        np.testing.assert_array_equal(back, words.astype(np.uint32))
+        back = staging.finish_readback(staging.start_readback(
+            torch.from_numpy(u8).to(cuda)))
+        assert back.dtype == np.uint8
+        np.testing.assert_array_equal(back, u8)
+
+
+@pytest.mark.parametrize("impl,sbs_output", [("xla", "u8"),
+                                             ("pallas", "packed")])
+def test_warp_impl_routes_on_the_card(cuda, impl, sbs_output):
+    """--warp_impl xla runs the plain composite and blur/select on the card
+    (no warp kernel launches); pallas with packed output launches the
+    compositor and the packed blur/select, not the u8 one."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vits", batch_size=2, compute_dtype="bfloat16",
+                    input_size=56, warp_impl=impl, sbs_output=sbs_output)
+    pipe = SbsPipeline.create(cfg, 48, 64, allow_random=True, device=cuda)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 48, 64, 3),
+                                               dtype=np.uint8)
+    reset_launch_counts()
+    sbs, _ = pipe.step(frames, pipe.initial_state())
+    counts = launch_counts()
+    warp = {k: counts.get(k, 0) for k in ("warp_composite", "blur_select_sbs",
+                                          "blur_select_sbs_packed")}
+    if impl == "xla":
+        assert warp == {"warp_composite": 0, "blur_select_sbs": 0,
+                        "blur_select_sbs_packed": 0}
+        assert sbs.dtype == torch.uint8
+    else:
+        assert warp == {"warp_composite": 1, "blur_select_sbs": 0,
+                        "blur_select_sbs_packed": 1}
+        assert sbs.dtype == torch.uint32 and tuple(sbs.shape) == (2, 48, 128)
 
 
 @pytest.mark.parametrize("fused", ["xla", "fused"])

@@ -232,6 +232,42 @@ def test_cli_drive_recipe_on_cpu(tmp_path):
     assert ok and frame.shape == (48, 128, 3)
 
 
+def test_packed_sbs_output_runs_on_cpu(tmp_path):
+    """--sbs_output packed --warp_impl pallas through the port's CLI on the
+    CPU (the kernels' plain versions): the same subclips and output as the
+    u8 recipe; with --warp_impl xla it raises the JAX package's
+    ValueError."""
+    cv2 = pytest.importorskip("cv2")
+    from vr_video_generator_tpu_torch.cli import main
+
+    src = str(tmp_path / "in.mp4")
+    w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    rng = np.random.default_rng(7)
+    for _ in range(10):
+        w.write(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    w.release()
+
+    def run(tag, impl):
+        return main(["--device", "cpu", "--sbs_output", "packed",
+                     "--warp_impl", impl, "--VideoDir", src,
+                     "--OutputDir", str(tmp_path / f"{tag}.mkv"),
+                     "--DebugDir", str(tmp_path / f"D{tag}") + "/",
+                     "--SubClipDir", str(tmp_path / f"S{tag}") + "/",
+                     "--Max_Frame_Count", "6", "--batch_size", "4",
+                     "--input_size", "56", "--compute_dtype", "float32",
+                     "--allow_random_weights"])
+
+    assert run("packed", "pallas") == 0
+    assert sorted(os.listdir(tmp_path / "Spacked")) == ["0_5.mp4", "6_9.mp4"]
+    cap = cv2.VideoCapture(str(tmp_path / "packed.mkv"))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 10
+    ok, frame = cap.read()
+    cap.release()
+    assert ok and frame.shape == (48, 128, 3)
+    with pytest.raises(ValueError, match="requires the pallas warp"):
+        run("xla", "xla")
+
+
 def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
     """convert_range from frame 6 with a 6-frame halo warm-up writes the same
     SBS frames as a run from frame 0 (the primed state removes the segment
@@ -278,7 +314,7 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("field,value,item", [
     ("depth_stride", 2, "depth_stride"), ("chunk_batches", 2, "step_many"),
-    ("sbs_output", "packed", "packed SBS"), ("preprocess", "folded", "folded"),
+    ("preprocess", "folded", "folded"),
     ("gelu", "tanh", "UI impl switches"),
 ])
 def test_unported_run_options_raise(field, value, item):

@@ -7,6 +7,13 @@
 // copy and the [synth | original] concat), as the TPU's packed kernel
 // `_blur_select_sbs_kernel` already does.
 //
+// The packed emit replaces warp_pallas.py `_blur_select_sbs_kernel`
+// (blur_select_sbs_pallas, the `emit="packed"` path of warp_batch_pallas):
+// the same pixels written as uint32 words r | g<<8 | b<<16 with the top byte
+// zero, (B, H, 2W). The kernel is templated on the emit: only its last
+// stores differ, and the packed output moves 8 bytes a pixel pair where the
+// u8 one moves 6.
+//
 // Semantics (torchvision gaussian_blur on the composite, ops/gaussian.py):
 // reflect padding, the horizontal pass (kx = 2k+3 taps) then the vertical
 // pass (ky = 2k+1 taps), each an f32 sum with the taps in ascending order
@@ -47,6 +54,7 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
+template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 blur_select_sbs_kernel(const uint8_t* __restrict__ comp,
                        const uint8_t* __restrict__ covered,
@@ -54,7 +62,7 @@ blur_select_sbs_kernel(const uint8_t* __restrict__ comp,
                        const int* __restrict__ edge,
                        const float* __restrict__ kxw,
                        const float* __restrict__ kyw,
-                       uint8_t* __restrict__ out, int h, int w, int kx,
+                       void* __restrict__ out, int h, int w, int kx,
                        int ky) {
   const int px = kx / 2;
   const int py = ky / 2;
@@ -108,7 +116,6 @@ blur_select_sbs_kernel(const uint8_t* __restrict__ comp,
     if (y >= h || x >= w) continue;
     const long long pix = (frame + y) * w + x;
     const uint8_t* o = orig + pix * 3;
-    uint8_t* dst = out + ((frame + y) * 2 * w + x) * 3;
     uint8_t left[3];
     if (x < e) {
       left[0] = o[0];
@@ -127,38 +134,57 @@ blur_select_sbs_kernel(const uint8_t* __restrict__ comp,
         left[ch] = (uint8_t)fminf(fmaxf(rintf(acc), 0.f), 255.f);
       }
     }
-    dst[0] = left[0];
-    dst[1] = left[1];
-    dst[2] = left[2];
-    dst[3 * w + 0] = o[0];
-    dst[3 * w + 1] = o[1];
-    dst[3 * w + 2] = o[2];
+    const long long opix = (frame + y) * 2 * w + x;
+    if (PACKED) {
+      uint32_t* dst = static_cast<uint32_t*>(out) + opix;
+      dst[0] = (uint32_t)left[0] | ((uint32_t)left[1] << 8) |
+               ((uint32_t)left[2] << 16);
+      dst[w] = (uint32_t)o[0] | ((uint32_t)o[1] << 8) | ((uint32_t)o[2] << 16);
+    } else {
+      uint8_t* dst = static_cast<uint8_t*>(out) + opix * 3;
+      dst[0] = left[0];
+      dst[1] = left[1];
+      dst[2] = left[2];
+      dst[3 * w + 0] = o[0];
+      dst[3 * w + 1] = o[1];
+      dst[3 * w + 2] = o[2];
+    }
   }
 }
 
-}  // namespace
-
-// comp/orig (B, H, W, 3) u8, covered (B, H, W) u8, edge (B,) i32, kxw (kx,)
-// and kyw (ky,) f32 -> out (B, H, 2W, 3) u8. All contiguous. Returns
-// cudaGetLastError().
-extern "C" int vrvg_blur_select_sbs(const void* comp, const void* covered,
-                                    const void* orig, const void* edge,
-                                    const void* kxw, const void* kyw,
-                                    void* out, int batch, int h, int w,
-                                    int kx, int ky, void* stream) {
+template <bool PACKED>
+int run(const void* comp, const void* covered, const void* orig,
+        const void* edge, const void* kxw, const void* kyw, void* out,
+        int batch, int h, int w, int kx, int ky, void* stream) {
   const int px = kx / 2;
   const int py = ky / 2;
   const size_t smem =
       sizeof(float) * ((size_t)kx + ky + (size_t)(TH + 2 * py) * (TW + 2 * px) * 3 +
                        (size_t)(TH + 2 * py) * TW * 3);
   cudaError_t err = cudaFuncSetAttribute(
-      blur_select_sbs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      blur_select_sbs_kernel<PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, batch);
-  blur_select_sbs_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  blur_select_sbs_kernel<PACKED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)comp, (const uint8_t*)covered, (const uint8_t*)orig,
-      (const int*)edge, (const float*)kxw, (const float*)kyw, (uint8_t*)out, h,
-      w, kx, ky);
+      (const int*)edge, (const float*)kxw, (const float*)kyw, out, h, w, kx,
+      ky);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// comp/orig (B, H, W, 3) u8, covered (B, H, W) u8, edge (B,) i32, kxw (kx,)
+// and kyw (ky,) f32 -> out (B, H, 2W, 3) u8, or with `packed` (B, H, 2W)
+// uint32 words. All contiguous. Returns cudaGetLastError().
+extern "C" int vrvg_blur_select_sbs(const void* comp, const void* covered,
+                                    const void* orig, const void* edge,
+                                    const void* kxw, const void* kyw,
+                                    void* out, int batch, int h, int w,
+                                    int kx, int ky, int packed, void* stream) {
+  return packed ? run<true>(comp, covered, orig, edge, kxw, kyw, out, batch,
+                            h, w, kx, ky, stream)
+                : run<false>(comp, covered, orig, edge, kxw, kyw, out, batch,
+                             h, w, kx, ky, stream);
 }

@@ -11,6 +11,13 @@
 //      GEMM + f32 bias, ReLU, the 1x1 (32 -> 1) summed in f32 + bias, ReLU
 //      -> f32 depth                                                 (H1, W1)
 //
+// The same file holds the older single-kernel tail (vrvg_head_tail), which
+// replaces head_tail_pallas.py `_tail_kernel` (head_tail_pallas): path1
+// (B, H2, W2, C) -> conv1 read straight from path1 with zero padding, its f32
+// sum, then + b1, then the cast (:113-121), and then stage 3 below, which is
+// that kernel's back half (:123-153) at the same rounding points. C in {32,
+// 64, 128}, C2 = C / 2, C3 = 32 (vits and vitb).
+//
 // Replaces: vr_video_generator_tpu/ops/head_tail_pallas.py
 // `_tail_ext_kernel` (head_tail_ext_pallas), the same order and rounding
 // points (:287-354): the out_conv mix before the W-resize, the resize
@@ -47,15 +54,14 @@
 // up to 36 x 64 at vitg, 72 x 128 at vitl, at 1080p). Simple first: no
 // pipelining, weights re-read from L2 by every block.
 
-#include "gemm.cuh"
-#include "taps.cuh"
+#include "conv3x3.cuh"
 
 namespace {
 
 using namespace vrvg;
 
-constexpr int THREADS = 128;
-constexpr int SEG = 64;           // output pixels per conv block
+constexpr int THREADS = CONV_THREADS;
+constexpr int SEG = CONV_SEG;     // output pixels per conv block
 constexpr int C3 = 32;            // output_conv2's width (reference head)
 // Output channels of the out_conv mix per pass of the first kernel.
 template <int C>
@@ -136,54 +142,12 @@ size_t mix_smem(int w0) {
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 convolution of one 64-pixel output segment as an implicit GEMM, over
-// KC input channels at a time. `In` holds 3 input rows x (SEG + 2) pixels x
-// KC channels (pitch KC + 16), `Wt` the chunk's weights as (tap, KC, COUT).
-// Each warp adds its 16 pixels x COUT into acc.
-
-template <int KC, int COUT>
-__device__ __forceinline__ void conv3x3_segment(
-    FragC (&acc)[1][COUT / 16], const bf16* In, const bf16* Wt, int warp) {
-  constexpr int LDI = KC + 16;
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dh = tap / 3, dw = tap % 3;
-    const bf16* a = In + (dh * (SEG + 2) + warp * 16 + dw) * LDI;
-    const bf16* wt = Wt + tap * KC * COUT;
-#pragma unroll
-    for (int k = 0; k < KC; k += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + k, LDI);
-#pragma unroll
-      for (int j = 0; j < COUT / 16; ++j) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, wt + k * COUT + j * 16, COUT);
-        wmma::mma_sync(acc[0][j], fa, fb, acc[0][j]);
-      }
-    }
-  }
-}
-
-template <int KC, int COUT>
-__host__ __device__ constexpr size_t conv_smem() {
-  return align128((size_t)3 * (SEG + 2) * (KC + 16) * 2) +
-         align128((size_t)9 * KC * COUT * 2) +
-         (size_t)(THREADS / WARP) * 16 * COUT * 4;
-}
-
-// Input channels per chunk: all of them where the nine taps' weights fit in
-// shared memory beside the input rows (C <= 128 for conv1, every conv2),
-// else 32 (conv1 at C = 256 and 384, whose weights are 590 KB and 1.3 MB).
-template <int CIN, int COUT>
-__host__ __device__ constexpr int conv_kc() {
-  return conv_smem<CIN, COUT>() <= 232448 ? CIN : 32;
-}
-
-// ---------------------------------------------------------------------------
 // 2. H-resize (+ out_conv bias) + conv1 (+ f32 bias) -> bf16 c1.
-// Grid (segments, HM rows, frames).
+// Grid (segments, HM rows, frames). Without RESIZE (the single-kernel tail,
+// vrvg_head_tail) `rw` is path1 itself, (B, HM, W2, C), read as it is with
+// zero padding, and `boc` and `h0n` are not read.
 
-template <int C, int C2>
+template <int C, int C2, bool RESIZE>
 __global__ void __launch_bounds__(THREADS)
 conv1_kernel(const bf16* __restrict__ rw, const float* __restrict__ boc,
              const bf16* __restrict__ wt1, const float* __restrict__ b1,
@@ -208,6 +172,18 @@ conv1_kernel(const bf16* __restrict__ rw, const float* __restrict__ boc,
     for (int dh = 0; dh < 3; ++dh) {
       const int gr = g - 1 + dh;
       const bool row_ok = gr >= 0 && gr < hm;
+      if constexpr (!RESIZE) {
+        const bf16* r = rw + ((long long)b * hm + (row_ok ? gr : 0)) * w2 * C + kc;
+        for (int i = tid; i < (SEG + 2) * (KC / 8); i += THREADS) {
+          const int p = i / (KC / 8), c = (i % (KC / 8)) * 8;
+          const int col = x0 - 1 + p;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (row_ok && col >= 0 && col < w2)
+            v = *reinterpret_cast<const uint4*>(r + (long long)col * C + c);
+          *reinterpret_cast<uint4*>(In + (dh * (SEG + 2) + p) * LDI + c) = v;
+        }
+        continue;
+      }
       const Taps k = lerp_taps(row_ok ? gr : 0, h0n, hm);
       const bf16* r0 = rw + ((long long)b * h0n + k.i0) * w2 * C + kc;
       const bf16* r1 = rw + ((long long)b * h0n + k.i1) * w2 * C + kc;
@@ -345,7 +321,7 @@ int run(const void* x, long long sb, long long sh, long long sw, long long sc,
                    w0, (const bf16*)koc, (const int*)taps_a,
                    (const float*)tapw_a, (bf16*)rw, h0, w2);
   if (err) return err;
-  err = launch(conv1_kernel<C, C2>, dim3((w2 + SEG - 1) / SEG, hm, batch),
+  err = launch(conv1_kernel<C, C2, true>, dim3((w2 + SEG - 1) / SEG, hm, batch),
                THREADS, conv_smem<conv_kc<C, C2>(), C2>(), stream, (const bf16*)rw,
                (const float*)boc, (const bf16*)wt1, (const float*)b1,
                (bf16*)c1, h0, hm, w2);
@@ -355,6 +331,26 @@ int run(const void* x, long long sb, long long sh, long long sw, long long sc,
                 (const int*)taps_b, (const float*)tapw_b, (const bf16*)wt2,
                 (const float*)b2, (const float*)w3, (const float*)b3,
                 (float*)out, hm, w2, h1, w1);
+}
+
+// The single-kernel tail: conv1 straight from path1, then conv2 as above.
+template <int C>
+int run_tail(const void* x, int batch, int h2, int w2, const void* wt1,
+             const void* b1, const void* wt2, const void* b2, const void* w3,
+             const void* b3, const void* taps, const void* tapw, void* c1,
+             void* out, int h1, int w1, void* stream) {
+  constexpr int C2 = C / 2;
+  int err = launch(conv1_kernel<C, C2, false>,
+                   dim3((w2 + SEG - 1) / SEG, h2, batch), THREADS,
+                   conv_smem<conv_kc<C, C2>(), C2>(), stream, (const bf16*)x,
+                   (const float*)nullptr, (const bf16*)wt1, (const float*)b1,
+                   (bf16*)c1, h2, h2, w2);
+  if (err) return err;
+  return launch(conv2_kernel<C2>, dim3((w1 + SEG - 1) / SEG, h1, batch),
+                THREADS, conv_smem<conv_kc<C2, C3>(), C3>(), stream,
+                (const bf16*)c1, (const int*)taps, (const float*)tapw,
+                (const bf16*)wt2, (const float*)b2, (const float*)w3,
+                (const float*)b3, (float*)out, h2, w2, h1, w1);
 }
 
 }  // namespace
@@ -379,6 +375,24 @@ extern "C" int vrvg_head_tail_ext(
     case 128: return run<128>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
     case 256: return run<256>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
     case 384: return run<384>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The single-kernel DPT tail (head_tail_pallas.py `_tail_kernel`): path1
+// (B, H2, W2, C) bf16 contiguous; conv1 (9, C, C/2) bf16 + (C/2,) f32;
+// conv2 (9, C/2, 32) bf16 + (32,) f32; the 1x1 (32,) f32 + (1,) f32; the
+// W-resize tap table (2, W1) int32 indices and f32 weights; scratch c1
+// (B, H2, W2, C/2) bf16 -> out (B, H1, W1) f32. C in {32, 64, 128}.
+extern "C" int vrvg_head_tail(const void* x, int batch, int h2, int w2, int c,
+                              const void* wt1, const void* b1, const void* wt2,
+                              const void* b2, const void* w3, const void* b3,
+                              const void* taps, const void* tapw, void* c1,
+                              void* out, int h1, int w1, void* stream) {
+  switch (c) {
+    case 32: return run_tail<32>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
+    case 64: return run_tail<64>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
+    case 128: return run_tail<128>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

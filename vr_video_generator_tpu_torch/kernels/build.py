@@ -42,8 +42,10 @@ SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vrvg_warp_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
+    "vrvg_warp_composite_banded": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _P],
     "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _P],
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
@@ -54,6 +56,9 @@ SIGNATURES = {
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "vrvg_head_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _I, _I, _P],
+    "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vrvg_head_tail_big_front": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P],

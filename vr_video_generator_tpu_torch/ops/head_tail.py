@@ -1,5 +1,6 @@
 """The DPT head's tail from refinenet1's pre-upsample activation to depth: the
-CUDA kernels, their plain versions, and the JAX package's choice between them.
+CUDA kernels, their plain versions, and the JAX package's choice between them;
+and the older single-kernel tail from path1.
 
 Two tails, as in vr_video_generator_tpu/ops/head_tail_pallas.py, picked by
 its planners (:func:`plan_tail`: ``ext_pick_block_rows``, then
@@ -16,6 +17,15 @@ with bf16 weights, the H-resizes as exact integer taps with an f32 lerp
 (the out_conv bias added there, zero outside the image), conv1's f32 bias
 added before its cast, conv2's f32 bias and ReLU, and the 1x1 in f32. The
 kernels are ``csrc/head_tail.cu``; see its header for the design.
+
+The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
+15), which no CLI path of the JAX package runs (its DPT head takes the ext or
+the big-C tail): path1 (B, H2, W2, C) -> output_conv1 3x3 (its f32 sum, then
++ b1, then the cast) -> the W-resize with bf16 weights -> the H-resize (exact
+taps, f32 lerp) -> output_conv2 3x3 + b2, ReLU -> the f32 1x1 + b3, ReLU. Its
+back half is the ext tail's from conv1's output on, so both plain versions
+share it and the kernel (``vrvg_head_tail`` in csrc/head_tail.cu) runs the
+ext chain's last kernel after a conv1 that reads path1 directly.
 
 The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
@@ -40,14 +50,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.resize import linear_weights
 
 LAUNCHES = counter("head_tail_ext")
+BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths csrc/head_tail.cu takes
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
+BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
 C3 = 32                             # output_conv2's width in the reference head
 SMEM_PER_BLOCK = 232448             # shared memory one block may have (H100)
 
@@ -68,6 +81,12 @@ def takes(features: int, w0: int) -> bool:
     """Whether the ext kernel chain is built for a head of ``features``
     channels and its first kernel holds a row of ``w0`` pixels."""
     return features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK
+
+
+def base_takes(features: int) -> bool:
+    """Whether the single-kernel tail is built for path1 of ``features``
+    channels (vits and vitb: C2 = C / 2, C3 = 32)."""
+    return features in BASE_CHANNELS
 
 
 def big_takes(features: int) -> bool:
@@ -221,12 +240,82 @@ def head_tail_ext_plain(x: torch.Tensor, k_oc: torch.Tensor,
     z = (_hlerp(rw.float(), 2 * h0, 1) + b_oc.to(f32)).to(dt)
     c1 = F.conv2d(z.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
                   b1.to(f32), padding=1).to(dt)
-    wtb = _resize_matrix(2 * w0, w1, dt, x.device)
+    return _tail_back_plain(c1, k2, b2, k3, b3, out_hw)
+
+
+def _tail_back_plain(c1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                     k3: torch.Tensor, b3: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """conv1's output (B, C2, HM, W2) in the working dtype -> depth (B, H1,
+    W1) f32: the W-resize (bf16-rounded weights, f32 sums) -> dtype, the
+    H-resize (f32 lerp) -> dtype, output_conv2's f32 sum + b2, ReLU, the f32
+    1x1 + b3, ReLU (head_tail_pallas.py:123-153 and :327-354)."""
+    dt, f32 = c1.dtype, torch.float32
+    h1, w1 = out_hw
+    wtb = _resize_matrix(c1.shape[3], w1, dt, c1.device)
     c1w = torch.einsum("bchw,vw->bchv", c1.float(), wtb).to(dt)
     zz = _hlerp(c1w.float(), h1, 2).to(dt)
-    y = F.relu(F.conv2d(zz.float(), k2.to(dt).float(), b2.to(f32), padding=1))
+    y = F.conv2d(zz.float(), k2.to(dt).float(), padding=1)
+    y = F.relu(y + b2.to(f32)[:, None, None])
     res = (y * k3[0, :, 0, 0].to(f32)[:, None, None]).sum(dim=1) + b3.to(f32)
     return F.relu(res)
+
+
+def head_tail_plain(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
+                    k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
+                    b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """path1 (B, H2, W2, C) -> depth (B, H1, W1) f32, head_tail_pallas's
+    function: conv1's f32 sum, then + b1, then the cast, and the shared back
+    half. Weights in PyTorch layout: k1 (C2, C, 3, 3), k2 (C3, C2, 3, 3),
+    k3 (1, C3, 1, 1); biases (out,)."""
+    dt, f32 = path1.dtype, torch.float32
+    c1 = F.conv2d(path1.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
+                  padding=1)
+    c1 = (c1 + b1.to(f32)[:, None, None]).to(dt)
+    return _tail_back_plain(c1, k2, b2, k3, b3, out_hw)
+
+
+def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
+              k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
+              b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
+    version for CPU tensors, the row-15 kernels for CUDA tensors (bf16, C in
+    ``BASE_CHANNELS``; another width raises naming the roadmap item)."""
+    args = (k1, b1, k2, b2, k3, b3)
+    if not on_cuda(path1, *args):
+        return head_tail_plain(path1, *args, out_hw)
+    b, h2, w2, c = path1.shape
+    h1, w1 = out_hw
+    c2 = c // 2
+    if not base_takes(c):
+        not_ported(f"the single-kernel DPT tail at C={c} on the card",
+                   "DPT tail kernels at other widths")
+    if path1.dtype != torch.bfloat16:
+        raise ValueError(f"head_tail kernel takes bf16 input, got {path1.dtype}")
+    for name, t, shape in (("output_conv1", k1, (c2, c, 3, 3)),
+                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
+                           ("output_conv2.2", k3, (1, C3, 1, 1))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"head_tail {name} weight must be {shape}, "
+                             f"got {tuple(t.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = path1.contiguous()  # channel rows of 16-byte loads
+    wt1 = k1.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C, C2)
+    wt2 = k2.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C2, C3)
+    vecs = [t.to(f32).contiguous() for t in (b1, b2, k3.reshape(-1), b3)]
+    taps, tapw = _device_taps(w2, w1, x.device)
+    c1 = torch.empty((b, h2, w2, c2), dtype=bf16, device=x.device)
+    out = torch.empty((b, h1, w1), dtype=f32, device=x.device)
+    err = library().vrvg_head_tail(
+        x.data_ptr(), b, h2, w2, c, wt1.data_ptr(), vecs[0].data_ptr(),
+        wt2.data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
+        vecs[3].data_ptr(), taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
+        out.data_ptr(), h1, w1, stream_handle(x.device))
+    check(err, "vrvg_head_tail")
+    BASE_LAUNCHES.count += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,18 +1,27 @@
 """Stereo synthesis: cutoff planes, forward warp, hole fill, SBS (batched).
 
-Mirrors vr_video_generator_tpu/ops/warp.py and the u8 path of
-ops/warp_pallas.py `warp_batch_pallas`, with every table batched over the
-frames (B). The plane and shift tables are plain tensor code on the device
-(no host sync); the two per-pixel passes are the kernels:
+Mirrors vr_video_generator_tpu/ops/warp.py and ops/warp_pallas.py
+`warp_batch_pallas` (both emits), with every table batched over the frames
+(B). The plane and shift tables are plain tensor code on the device (no host
+sync); the two per-pixel passes are the kernels:
 
-  * ``warp_composite``: the forward-warp compositor (csrc/warp.cu);
+  * ``warp_composite``: the forward-warp compositor (csrc/warp.cu), the
+    classic kernel or, with ``banded=True``, the banded one (one code byte
+    per source pixel, one gather per shift);
   * ``blur_select_sbs``: Gaussian hole fill, hole select, left-edge copy and
-    the [synth | original] concat (csrc/blur_select.cu).
+    the [synth | original] concat (csrc/blur_select.cu), emitting u8 HWC
+    frames or packed uint32 words r | g<<8 | b<<16 (``emit="packed"``).
 
 Each has a plain version beside it, taken only for CPU tensors. The traps
 the reference relies on are kept: circular wrap (torch.roll), round half to
 even (torch.round), the zip truncation (the last cutoff never becomes a
-plane), the 3/5 fill index and the 2/3 edge width.
+plane), the 3/5 fill index, the 2/3 edge width and the banded compositor's
+unmatched sentinel (254, not 127).
+
+``WarpSpec.impl`` follows the JAX package's ``warp_impl``: "pallas" takes
+the kernel routes (their plain versions for CPU tensors), "xla" the plain
+composite and blur/select on any device; "auto" is "pallas" on CUDA and
+"xla" elsewhere.
 """
 
 from __future__ import annotations
@@ -30,7 +39,17 @@ from vr_video_generator_tpu_torch.ops.gaussian import (gaussian_blur,
                                                         gaussian_kernel1d)
 
 COMPOSITE_LAUNCHES = counter("warp_composite")
+BANDED_LAUNCHES = counter("warp_composite_banded")
 BLUR_SELECT_LAUNCHES = counter("blur_select_sbs")
+PACKED_LAUNCHES = counter("blur_select_sbs_packed")
+WARP_IMPLS = ("auto", "xla", "pallas")
+EMITS = ("u8", "packed")
+# The banded compositor's code byte: bits 0-6 the rank (among valid shifts)
+# of the first band a source pixel's depth falls in, bit 7 set when it also
+# falls in the next one; UNMATCHED for none. Ranks occupy [0, 125] and the
+# compares bj + 127 / bj + 128 [127, 253], so 254 is the first value a
+# pixel in no band can hold without the rank-0 shift claiming it.
+UNMATCHED = 254
 
 
 class PlaneTables(NamedTuple):
@@ -141,6 +160,72 @@ def warp_composite_plain(img: torch.Tensor, depth: torch.Tensor,
     return composite, covered
 
 
+def banded_compositor_fits(s_neg: int, s_pos: int) -> bool:
+    """The banded compositor's 7-bit rank covers at most 126 shifts
+    (warp_pallas.banded_compositor_fits): 480p-1440p cap-sized tables fit,
+    4K's (S = 134) does not."""
+    return s_neg + s_pos + 1 <= 126
+
+
+def resolve_banded(banded: bool | None, s_neg: int, s_pos: int) -> bool:
+    """The JAX wrapper's choice (warp_pallas._composite_prepacked): None is
+    the classic kernel, and True beyond 126 shifts falls back to it."""
+    return bool(banded) and banded_compositor_fits(s_neg, s_pos)
+
+
+def band_ranks(valid: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 rank of each valid shift among the valid shifts,
+    cumsum(valid) - valid (invalid shifts: not read)."""
+    v = valid.to(torch.int32)
+    return torch.cumsum(v, dim=1, dtype=torch.int32) - v
+
+
+def band_codes(depth: torch.Tensor, st: ShiftTables) -> torch.Tensor:
+    """(B, H, W) int32 code of each SOURCE pixel: the rank of the first
+    valid band (ascending shifts) its depth falls in, | 128 when a second
+    one matches too, UNMATCHED when none does."""
+    bid = band_ranks(st.valid)
+    code = torch.full(depth.shape, UNMATCHED, dtype=torch.int32,
+                      device=depth.device)
+    for j in range(st.lo.shape[1]):
+        m = (st.valid[:, j, None, None] & (st.lo[:, j, None, None] <= depth)
+             & (depth < st.hi[:, j, None, None]))
+        code = torch.where(m, torch.where(code == UNMATCHED,
+                                          bid[:, j, None, None], code | 128),
+                           code)
+    return code
+
+
+def warp_composite_banded_plain(img: torch.Tensor, depth: torch.Tensor,
+                                st: ShiftTables, s_neg: int, s_pos: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The banded compositor's algorithm (warp_pallas `_warp_kernel_banded`,
+    :117-158): the code of each source pixel, then per shift, ascending
+    (last write wins), the rolled code compared three ways with the
+    shift's rank: iv == bj (its first band), iv == bj + 128 (its first of
+    two) or iv == bj + 127 (the second of two). The depth is never rolled.
+    Holes take the roll by the fill offset, as the classic version's."""
+    if not banded_compositor_fits(s_neg, s_pos):
+        raise ValueError(f"the banded compositor takes at most 126 shifts, "
+                         f"got {s_neg + s_pos + 1}")
+    b, h, w, _ = img.shape
+    code = band_codes(depth, st)
+    bid = band_ranks(st.valid)
+    cols = torch.arange(w, device=img.device)
+    src = (cols[None, :] - st.fill_offset[:, None].long()) % w
+    composite = torch.gather(img, 2, src[:, None, :, None].expand(b, h, w, 3))
+    covered = torch.zeros(depth.shape, dtype=torch.bool, device=depth.device)
+    for j, s in enumerate(range(-s_neg, s_pos + 1)):
+        iv = torch.roll(code, s, dims=2)
+        bj = bid[:, j, None, None]
+        m = st.valid[:, j, None, None] & ((iv == bj) | (iv == bj + 127)
+                                          | (iv == bj + 128))
+        composite = torch.where(m[..., None], torch.roll(img, s, dims=2),
+                                composite)
+        covered = covered | m
+    return composite, covered
+
+
 def _require(x: torch.Tensor, dtype, shape, name: str) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
             or not x.is_contiguous():
@@ -150,11 +235,15 @@ def _require(x: torch.Tensor, dtype, shape, name: str) -> None:
 
 
 def warp_composite(img: torch.Tensor, depth: torch.Tensor, st: ShiftTables,
-                   s_neg: int, s_pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   s_neg: int, s_pos: int, banded: bool | None = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The compositor: plain version for CPU tensors, csrc/warp.cu for CUDA
-    tensors."""
+    tensors. ``banded`` resolves as the JAX wrapper's (:func:`resolve_banded`):
+    the banded kernel only when asked for and at most 126 shifts."""
+    banded = resolve_banded(banded, s_neg, s_pos)
     if not on_cuda(img, depth, st.lo):
-        return warp_composite_plain(img, depth, st, s_neg, s_pos)
+        plain = warp_composite_banded_plain if banded else warp_composite_plain
+        return plain(img, depth, st, s_neg, s_pos)
     b, h, w, _ = img.shape
     n_shift = s_neg + s_pos + 1
     _require(img, torch.uint8, (b, h, w, 3), "warp_composite img")
@@ -168,6 +257,16 @@ def warp_composite(img: torch.Tensor, depth: torch.Tensor, st: ShiftTables,
 
     out = torch.empty_like(img)
     covered = torch.empty((b, h, w), dtype=torch.bool, device=img.device)
+    if banded:
+        bid = band_ranks(valid)
+        err = library().vrvg_warp_composite_banded(
+            img.data_ptr(), depth.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            valid.data_ptr(), bid.data_ptr(), fill.data_ptr(), out.data_ptr(),
+            covered.data_ptr(), b, h, w, s_neg, n_shift,
+            stream_handle(img.device))
+        check(err, "vrvg_warp_composite_banded")
+        BANDED_LAUNCHES.count += 1
+        return out, covered
     err = library().vrvg_warp_composite(
         img.data_ptr(), depth.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         valid.data_ptr(), fill.data_ptr(), out.data_ptr(), covered.data_ptr(),
@@ -192,6 +291,23 @@ def blur_select_sbs_plain(composite: torch.Tensor, covered: torch.Tensor,
     return torch.cat([result, img], dim=2)
 
 
+def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 -> (...) uint32 words r | g<<8 | b<<16 (top byte zero),
+    built in int32 (torch has few uint32 operations) and viewed as uint32."""
+    v = rgb.to(torch.int32)
+    return (v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16)).view(torch.uint32)
+
+
+def blur_select_sbs_packed_plain(composite: torch.Tensor,
+                                 covered: torch.Tensor, img: torch.Tensor,
+                                 edge_width: torch.Tensor, kernel_size: int,
+                                 sigma: float) -> torch.Tensor:
+    """The packed emit (warp_pallas `_blur_select_sbs_kernel`): the same SBS
+    as blur_select_sbs_plain, (B, H, 2W) uint32 words."""
+    return pack_rgb(blur_select_sbs_plain(composite, covered, img, edge_width,
+                                          kernel_size, sigma))
+
+
 @functools.lru_cache(maxsize=None)
 def _taps(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(gaussian_kernel1d(ksize, sigma)).to(device)
@@ -199,12 +315,17 @@ def _taps(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
 
 def blur_select_sbs(composite: torch.Tensor, covered: torch.Tensor,
                     img: torch.Tensor, edge_width: torch.Tensor,
-                    kernel_size: int, sigma: float) -> torch.Tensor:
+                    kernel_size: int, sigma: float,
+                    emit: str = "u8") -> torch.Tensor:
     """Hole fill + SBS: plain version for CPU tensors, csrc/blur_select.cu
-    for CUDA tensors."""
+    for CUDA tensors. ``emit="u8"``: (B, H, 2W, 3) u8; ``emit="packed"``:
+    (B, H, 2W) uint32 words r | g<<8 | b<<16."""
+    if emit not in EMITS:
+        raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
     if not on_cuda(composite, covered, img, edge_width):
-        return blur_select_sbs_plain(composite, covered, img, edge_width,
-                                     kernel_size, sigma)
+        plain = (blur_select_sbs_packed_plain if emit == "packed"
+                 else blur_select_sbs_plain)
+        return plain(composite, covered, img, edge_width, kernel_size, sigma)
     b, h, w, _ = img.shape
     kx, ky = kernel_size * 2 + 3, kernel_size * 2 + 1
     if kx // 2 >= w or ky // 2 >= h:
@@ -216,13 +337,16 @@ def blur_select_sbs(composite: torch.Tensor, covered: torch.Tensor,
     kxw, kyw = _taps(kx, sigma, img.device), _taps(ky, sigma, img.device)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    out = torch.empty((b, h, 2 * w, 3), dtype=torch.uint8, device=img.device)
+    packed = emit == "packed"
+    out = (torch.empty((b, h, 2 * w), dtype=torch.uint32, device=img.device)
+           if packed else
+           torch.empty((b, h, 2 * w, 3), dtype=torch.uint8, device=img.device))
     err = library().vrvg_blur_select_sbs(
         composite.data_ptr(), covered.data_ptr(), img.data_ptr(),
         edge.data_ptr(), kxw.data_ptr(), kyw.data_ptr(), out.data_ptr(),
-        b, h, w, kx, ky, stream_handle(img.device))
+        b, h, w, kx, ky, int(packed), stream_handle(img.device))
     check(err, "vrvg_blur_select_sbs")
-    BLUR_SELECT_LAUNCHES.count += 1
+    (PACKED_LAUNCHES if packed else BLUR_SELECT_LAUNCHES).count += 1
     return out
 
 
@@ -237,10 +361,18 @@ class WarpSpec:
     kernel_size: int
     s_neg: int
     s_pos: int
+    impl: str = "xla"
 
     @staticmethod
-    def create(height: int, width: int, cfg: StereoConfig) -> "WarpSpec":
-        """ops/warp.py `WarpSpec.create` sizing."""
+    def create(height: int, width: int, cfg: StereoConfig, impl: str = "xla",
+               device: torch.device | str = "cpu") -> "WarpSpec":
+        """ops/warp.py `WarpSpec.create` sizing; ``impl="auto"`` resolves to
+        "pallas" on a CUDA ``device`` and to "xla" elsewhere."""
+        if impl not in WARP_IMPLS:
+            raise ValueError(f"warp_impl must be one of {WARP_IMPLS}, "
+                             f"got {impl!r}")
+        if impl == "auto":
+            impl = "pallas" if torch.device(device).type == "cuda" else "xla"
         cfg = cfg.normalized()
         ks = int(np.round(0.0036 * height))  # round half to even
         step = max(cfg.offset_step_size, 1)
@@ -250,7 +382,7 @@ class WarpSpec:
                             / 14.0 / step) * step) + 1
         return WarpSpec(height=height, width=width, cfg=cfg,
                         max_planes=cfg.max_planes(height), kernel_size=ks,
-                        s_neg=s_neg, s_pos=s_pos)
+                        s_neg=s_neg, s_pos=s_pos, impl=impl)
 
     def tables(self, depths: torch.Tensor, offset_ranges: torch.Tensor
                ) -> Tuple[PlaneTables, ShiftTables]:
@@ -259,14 +391,20 @@ class WarpSpec:
         return t, build_shift_tables(t, self.s_neg, self.s_pos)
 
     def warp_batch(self, imgs: torch.Tensor, depths: torch.Tensor,
-                   offset_ranges: torch.Tensor) -> torch.Tensor:
+                   offset_ranges: torch.Tensor, emit: str = "u8"
+                   ) -> torch.Tensor:
         """(B, H, W, 3) u8 + (B, H, W) smoothed depth + (B, 2) ranges ->
-        (B, H, 2W, 3) u8 SBS, through the two kernels on CUDA."""
+        (B, H, 2W, 3) u8 SBS or, with ``emit="packed"`` (pallas only),
+        (B, H, 2W) uint32 words; "pallas" runs the two kernels on CUDA."""
+        if self.impl != "pallas":
+            if emit == "packed":
+                raise ValueError("packed SBS output requires the pallas warp")
+            return self.warp_batch_plain(imgs, depths, offset_ranges)
         _, st = self.tables(depths, offset_ranges)
         comp, covered = warp_composite(imgs, depths, st, self.s_neg,
                                        self.s_pos)
         return blur_select_sbs(comp, covered, imgs, st.edge_width,
-                               self.kernel_size, self.cfg.sigma)
+                               self.kernel_size, self.cfg.sigma, emit=emit)
 
     def warp_batch_plain(self, imgs: torch.Tensor, depths: torch.Tensor,
                          offset_ranges: torch.Tensor) -> torch.Tensor:

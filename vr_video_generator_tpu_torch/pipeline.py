@@ -9,8 +9,9 @@ Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
       -> bicubic upsample to the source size x encoder scaler
       -> temporal EWMA (depth dampening + offset-range smoothing)
       -> plane/shift tables, forward-warp compositor kernel, hole-fill +
-         SBS kernel
-      -> uint8 (B, H, 2W, 3)
+         SBS kernel (``warp_impl``: the kernels, or their plain versions)
+      -> uint8 (B, H, 2W, 3), or with ``sbs_output="packed"`` uint32
+         (B, H, 2W) words r | g<<8 | b<<16 that the writer unpacks
 
 The temporal state crosses batch boundaries, so batching is invisible.
 PyTorch runs eagerly: ``step`` enqueues the batch's work on the device's
@@ -34,6 +35,8 @@ from vr_video_generator_tpu_torch.models.factory import load_model
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         temporal_scan)
 from vr_video_generator_tpu_torch.ops.warp import WarpSpec
+
+SBS_OUTPUTS = ("auto", "u8", "packed")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -61,8 +64,9 @@ def check_supported(run_cfg: RunConfig) -> None:
                    "depth_stride and the stride audit")
     if run_cfg.chunk_batches > 1:
         not_ported(f"chunk_batches={run_cfg.chunk_batches}", "step_many")
-    if run_cfg.sbs_output == "packed":
-        not_ported("sbs_output='packed'", "packed SBS output")
+    if run_cfg.sbs_output not in SBS_OUTPUTS:
+        raise ValueError(f"sbs_output must be one of {SBS_OUTPUTS}, "
+                         f"got {run_cfg.sbs_output!r}")
     if run_cfg.preprocess == "folded":
         not_ported("preprocess='folded'", "folded preprocess")
     # An explicit 'fused' at a width whose kernel is not ported raises here,
@@ -88,7 +92,10 @@ class SbsPipeline:
         self.model = model
         self.device = next(model.parameters()).device
         self.height, self.width = height, width
-        self.spec = WarpSpec.create(height, width, self.run_cfg.stereo())
+        self.spec = WarpSpec.create(height, width, self.run_cfg.stereo(),
+                                    impl=self.run_cfg.warp_impl,
+                                    device=self.device)
+        self.sbs_emit = resolve_sbs_emit(self.run_cfg)
 
     @classmethod
     def create(cls, run_cfg: RunConfig, height: int, width: int,
@@ -127,13 +134,16 @@ class SbsPipeline:
     def step(self, frames_u8, state: TemporalState,
              n_valid: Optional[int] = None
              ) -> Tuple[torch.Tensor, TemporalState]:
-        """One batch -> ((B, H, 2W, 3) uint8 SBS on the device, state').
-        ``n_valid``: how many leading frames are real (the rest are padding
-        copies); only those count toward the overflow tally."""
+        """One batch -> (SBS on the device, state'): (B, H, 2W, 3) uint8, or
+        with ``sbs_emit == "packed"`` (B, H, 2W) uint32 words for the
+        host's rgb24 unpack (native.unpack_sbs). ``n_valid``: how many
+        leading frames are real (the rest are padding copies); only those
+        count toward the overflow tally."""
         frames = self.frames_to_device(frames_u8)
         blended, ranges, state = temporal_scan(self._depth(frames), state,
                                                self.spec, n_valid=n_valid)
-        return self.spec.warp_batch(frames, blended, ranges), state
+        return self.spec.warp_batch(frames, blended, ranges,
+                                    emit=self.sbs_emit), state
 
     def step_many(self, frames_u8, state: TemporalState):
         not_ported("SbsPipeline.step_many", "step_many")
@@ -163,3 +173,10 @@ class SbsPipeline:
     def depth_only(self, frames_u8) -> torch.Tensor:
         """Depth maps at source resolution (scaled), (B, H, W) f32."""
         return self._depth(self.frames_to_device(frames_u8))
+
+
+def resolve_sbs_emit(run_cfg: RunConfig) -> str:
+    """The SBS emit (the JAX package's pipeline `_resolve_sbs_emit`): "auto"
+    is "u8"; "packed" is opt-in and needs the pallas warp (WarpSpec raises
+    otherwise, at the first step, as the JAX package's does)."""
+    return "u8" if run_cfg.sbs_output == "auto" else run_cfg.sbs_output

@@ -109,7 +109,9 @@ class EmitWindow:
 class HostStaging:
     """Pinned host buffers for uploads and readbacks on a CUDA device: two
     per direction, each reused only after the event recorded behind its
-    last copy has completed. On the CPU it passes tensors through."""
+    last copy has completed, and allocated anew, in the tensor's own dtype,
+    when the shape or the dtype changes (a packed SBS batch is uint32). On
+    the CPU it passes tensors through."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -118,14 +120,15 @@ class HostStaging:
         self._events: Dict[tuple, torch.cuda.Event] = {}
         self._turn = {"up": 0, "down": 0}
 
-    def _slot(self, direction: str, shape) -> tuple:
+    def _slot(self, direction: str, shape, dtype: torch.dtype) -> tuple:
         i = self._turn[direction]
         self._turn[direction] ^= 1
         key = (direction, i)
         buf = self._bufs.get(key)
-        if buf is None or tuple(buf.shape) != tuple(shape):
-            self._bufs[key] = torch.empty(tuple(shape), dtype=torch.uint8,
-                                          pin_memory=True)
+        if buf is None or tuple(buf.shape) != tuple(shape) \
+                or buf.dtype != dtype:
+            self._bufs[key] = torch.empty(tuple(shape), dtype=dtype,
+                                          pin_memory=self.cuda)
         elif key in self._events:
             self._events[key].synchronize()
         return key
@@ -138,7 +141,7 @@ class HostStaging:
     def upload(self, batch: np.ndarray) -> torch.Tensor:
         if not self.cuda:
             return torch.from_numpy(batch)
-        key = self._slot("up", batch.shape)
+        key = self._slot("up", batch.shape, torch.uint8)
         buf = self._bufs[key]
         buf.numpy()[...] = batch
         dev = buf.to(self.device, non_blocking=True)
@@ -148,7 +151,7 @@ class HostStaging:
     def start_readback(self, sbs: torch.Tensor):
         if not self.cuda:
             return sbs
-        key = self._slot("down", sbs.shape)
+        key = self._slot("down", sbs.shape, sbs.dtype)
         self._bufs[key].copy_(sbs, non_blocking=True)
         self._record(key)
         return key

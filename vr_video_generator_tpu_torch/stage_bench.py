@@ -5,13 +5,18 @@ Run from the root of a checkout on a machine with a CUDA GPU:
     python3 -m vr_video_generator_tpu_torch.stage_bench [--out DIR]
         [--encoder vits|vitb|vitl|vitg] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
+        [--sbs_output auto|u8|packed]
 
 The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
 vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
 otherwise, with the kernel paths the two flags pick as the CLI's do (default
 ``auto``: on the card the fused attention half-block and DPT tail), and
 numpy-seeded random weights whose depth scaler is calibrated on the first
-batch (see :func:`calibrate_random_scaler`). It measures, in this order:
+batch (see :func:`calibrate_random_scaler`). ``--sbs_output packed`` emits
+uint32 words from the packed blur/select kernel and reads them back (4
+bytes a pixel against u8's 3); the writer's host work is run (the packed
+words unpacked to rgb24 by ``native.unpack_sbs``), its encode is not. It
+measures, in this order:
 
 * ``step``: ``SbsPipeline.step`` on frames already on the device, CUDA
   events around ``STEPS`` back-to-back steps, ``REPEATS`` times;
@@ -78,15 +83,23 @@ class MemoryReader:
 
 
 class CollectingWriter:
-    """Duck-typed subclip writer; keeps the frames only with ``keep``."""
+    """Duck-typed subclip writer; keeps the frames only with ``keep``. With
+    ``unpack`` it does the host work the subclip writer does before it
+    encodes: packed uint32 frames are unpacked to rgb24 (native.unpack_sbs,
+    as ``video/writer.py``), u8 frames pass as they are."""
 
-    def __init__(self, keep: bool = True):
-        self.keep = keep
+    def __init__(self, keep: bool = True, unpack: bool = False):
+        self.keep, self.unpack = keep, unpack
         self.frames: List[np.ndarray] = []
         self.clips: List[tuple] = []
 
     def write_clip(self, begin: int, frames) -> None:
+        from vr_video_generator_tpu_torch import native
+
         self.clips.append((begin, len(frames)))
+        if self.unpack:
+            frames = [native.unpack_sbs(f) if f.dtype == np.uint32 else f
+                      for f in frames]
         if self.keep:
             self.frames.extend(frames)
 
@@ -197,7 +210,8 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
 
     def blur_select():
         return blur_select_sbs(comp, cov, imgs, st.edge_width,
-                               spec.kernel_size, spec.cfg.sigma)
+                               spec.kernel_size, spec.cfg.sigma,
+                               emit=pipe.sbs_emit)
 
     return {name: event_ms(fn) for name, fn in (
         ("preprocess", preprocess), ("encoder", encoder), ("head", head),
@@ -214,8 +228,9 @@ def run_segment(pipe, frames: np.ndarray) -> Tuple[float, Dict[str, float]]:
     timer = StageTimer()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = process_segment(pipe, MemoryReader(frames), CollectingWriter(False),
-                        0, len(frames), max_frame_count=15, batch_size=B,
+    n = process_segment(pipe, MemoryReader(frames),
+                        CollectingWriter(keep=False, unpack=True), 0,
+                        len(frames), max_frame_count=15, batch_size=B,
                         timer=timer)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -300,6 +315,10 @@ def main(argv=None) -> int:
                     help="ViT half-block kernel fusion policy (as the CLI)")
     ap.add_argument("--tail", default="auto", choices=["auto", "fused", "xla"],
                     help="DPT head tail implementation (as the CLI)")
+    ap.add_argument("--sbs_output", default="auto",
+                    choices=["auto", "u8", "packed"],
+                    help="device SBS emit (as the CLI; the warp is the "
+                         "kernels' on the card)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_bench: no CUDA device", file=sys.stderr)
@@ -319,9 +338,11 @@ def main(argv=None) -> int:
         os.makedirs(opts.out, exist_ok=True)
     cfg = RunConfig(encoder=opts.encoder, batch_size=B,
                     compute_dtype="bfloat16", input_size=opts.input_size,
-                    mlp_fused=opts.mlp_fused, tail=opts.tail)
+                    mlp_fused=opts.mlp_fused, tail=opts.tail,
+                    sbs_output=opts.sbs_output)
     label = (f"1080p {opts.encoder} --input_size {opts.input_size} bf16 B={B} "
-             f"mlp_fused={opts.mlp_fused} tail={opts.tail}")
+             f"mlp_fused={opts.mlp_fused} tail={opts.tail} "
+             f"sbs_output={opts.sbs_output}")
     print(label, flush=True)
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
                               seed=SEED)

@@ -134,13 +134,31 @@ def test_swiglu_kernel_matches_plain(cuda, m):
                                      swiglu_residual_plain(*args), args)
 
 
-@pytest.mark.parametrize("b,n,h", [(1, 4097, 2), (2, 4785, 16)])
-def test_flash_attention_kernel_matches_plain(cuda, b, n, h):
-    from chip_smoke import attention_stats, peaked_qkv
+def _attention_inputs(cuda, b, n, h, views):
+    """Peaked q/k/v (attention_bench.peaked_qkv): with ``views`` strided
+    views into one qkv, as the fused path passes them; else contiguous."""
+    from vr_video_generator_tpu_torch.attention_bench import peaked_qkv
 
-    qkv = peaked_qkv(torch.Generator(device=cuda).manual_seed(n), b, n, h)
+    qkv = peaked_qkv(torch.Generator(device=cuda).manual_seed(n + h), b, n, h)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    attention_stats("flash_attention", flash_attention(q, k, v, 0.125),
+    if not views:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+# Past 4096 tokens at 2 and 16 heads; ragged and exact 128-key tiles (127,
+# 128, 129); vitg's 24 heads; contiguous q/k/v and views into one qkv.
+@pytest.mark.parametrize("b,n,h,views", [
+    (1, 4097, 2, True), (2, 4785, 16, True), (1, 127, 2, True),
+    (1, 128, 2, False), (2, 129, 2, True), (1, 4785, 24, False)])
+def test_flash_attention_kernel_matches_plain(cuda, b, n, h, views):
+    from chip_smoke import attention_stats
+
+    q, k, v = _attention_inputs(cuda, b, n, h, views)
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, 0.125)
+    assert launch_counts()["flash_attention"] == before + 1
+    attention_stats("flash_attention", got,
                     flash_attention_plain(q, k, v, 0.125))
 
 
@@ -207,14 +225,21 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d):
     assert bool(((got - want).abs() <= 2e-2 + 1e-2 * want.abs()).all())
 
 
-@pytest.mark.parametrize("b,n,h", [(2, 70, 2), (1, 321, 6), (2, 2443, 6)])
-def test_attention_kernel_matches_plain(cuda, b, n, h):
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=cuda).to(torch.bfloat16)
-    q = (qkv[:, :, 0].float() * 0.125).to(torch.bfloat16)
-    k, v = qkv[:, :, 1], qkv[:, :, 2]
-    err = (attention(q, k, v).float() - attention_plain(q, k, v).float()).abs()
-    assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+# q pre-scaled as mha passes it; N < 128, ragged and exact 128-key tiles
+# (127, 128, 129), vits' 1080p tokens at 6 heads and vitg's 24.
+@pytest.mark.parametrize("b,n,h,views", [
+    (2, 70, 2, True), (1, 321, 6, True), (2, 2443, 6, True),
+    (1, 127, 3, True), (1, 128, 3, False), (2, 129, 3, True),
+    (1, 2443, 24, True), (1, 2443, 24, False)])
+def test_attention_kernel_matches_plain(cuda, b, n, h, views):
+    from chip_smoke import attention_stats
+
+    q, k, v = _attention_inputs(cuda, b, n, h, views)
+    q = (q.float() * 0.125).to(torch.bfloat16)
+    before = launch_counts()["attention"]
+    got = attention(q, k, v)
+    assert launch_counts()["attention"] == before + 1
+    attention_stats("attention", got, attention_plain(q, k, v))
 
 
 def _warp_case(cuda, h, w, b=3):
@@ -403,3 +428,22 @@ def test_step_enqueues_without_host_sync(cuda, fused):
         counts = launch_counts()
         assert all(counts.get(k, 0) > 0 for k in (
             "ln_qkv", "proj_ls_residual", "mlp_residual", "head_tail_ext"))
+
+
+def test_cli_f32_on_the_card_raises(cuda, tmp_path):
+    """--compute_dtype float32 with --device cuda (the default) raises
+    not_ported("f32 on the card") before any weight is built."""
+    cv2 = pytest.importorskip("cv2")
+    from vr_video_generator_tpu_torch.cli import main
+
+    src = str(tmp_path / "in.mp4")
+    w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    for _ in range(4):
+        w.write(np.zeros((48, 64, 3), np.uint8))
+    w.release()
+    with pytest.raises(NotImplementedError, match="f32 on the card"):
+        main(["--VideoDir", src, "--OutputDir", str(tmp_path / "out.mkv"),
+              "--DebugDir", str(tmp_path / "D") + "/",
+              "--SubClipDir", str(tmp_path / "S") + "/",
+              "--input_size", "56", "--compute_dtype", "float32",
+              "--allow_random_weights"])

@@ -436,6 +436,24 @@ def test_auto_resolution(encoder, device, want):
     assert resolve_tail("xla", pre, torch.bfloat16, out_hw, device) is None
 
 
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cuda", torch.bfloat16, "folded"),   # the JAX package's TPU bf16 rule
+    ("cuda", torch.float32, "exact"),
+    ("cpu", torch.bfloat16, "exact"),
+    ("cpu", torch.float32, "exact"),
+])
+def test_preprocess_auto_resolution(device, dtype, want):
+    """--preprocess auto resolves as the JAX package's `_resolve_preprocess`
+    on its accelerator, with CUDA in the TPU's place (folded for a bf16
+    model), exact elsewhere; explicit choices pass through. No GPU is
+    needed to check it."""
+    from vr_video_generator_tpu_torch.pipeline import resolve_preprocess
+
+    assert resolve_preprocess("auto", device, dtype) == want
+    for explicit in ("exact", "folded"):
+        assert resolve_preprocess(explicit, device, dtype) == explicit
+
+
 # --- the port's own copies of the configuration and the CLI parser -------
 
 @pytest.mark.parametrize("encoder", ["vits", "vitb", "vitl", "vitg"])

@@ -304,6 +304,30 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
     np.testing.assert_array_equal(clips["range"], clips["full"])
 
 
+def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
+    """compute_dtype float32 on a CUDA device raises not_ported("f32 on the
+    card") in SbsPipeline.create, before load_model builds a weight: the
+    card's kernels are bf16. bf16 on the card passes the guard."""
+    import dataclasses
+
+    import vr_video_generator_tpu_torch.pipeline as pipeline
+
+    def load_model(*args, **kwargs):
+        raise AssertionError("load_model ran")
+
+    monkeypatch.setattr(pipeline, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(pipeline, "load_model", load_model)
+    with pytest.raises(NotImplementedError, match="f32 on the card"):
+        SbsPipeline.create(CFG, H, W, allow_random=True, device="cuda")
+    with pytest.raises(NotImplementedError, match="f32 on the card"):
+        SbsPipeline.create(dataclasses.replace(CFG, compute_dtype="bfloat16"),
+                           H, W, allow_random=True, dtype=torch.float32)
+    with pytest.raises(AssertionError, match="load_model ran"):
+        SbsPipeline.create(dataclasses.replace(CFG, compute_dtype="bfloat16"),
+                           H, W, allow_random=True, device="cuda")
+
+
 def test_cuda_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the refusal is for machines "
@@ -314,7 +338,6 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("field,value,item", [
     ("depth_stride", 2, "depth_stride"), ("chunk_batches", 2, "step_many"),
-    ("preprocess", "folded", "folded"),
     ("gelu", "tanh", "UI impl switches"),
 ])
 def test_unported_run_options_raise(field, value, item):
@@ -384,9 +407,12 @@ def test_unported_entry_points_raise(pipe, frames):
 
     with pytest.raises(NotImplementedError, match="step_many"):
         pipe.step_many(frames[None, :BATCH], pipe.initial_state())
-    with pytest.raises(NotImplementedError, match="folded"):
+    # the folded preprocess is ported; an unknown path still raises
+    assert preprocess_frames(torch.zeros(1, H, W, 3, dtype=torch.uint8),
+                             (56, 70), impl="folded").shape == (1, 56, 70, 3)
+    with pytest.raises(ValueError, match="'exact' or 'folded'"):
         preprocess_frames(torch.zeros(1, H, W, 3, dtype=torch.uint8),
-                          (56, 70), impl="folded")
+                          (56, 70), impl="banded")
     # vitg builds now (on the meta device: no storage for its 1.1 B
     # encoder parameters), with its SwiGLU blocks.
     with torch.device("meta"):
@@ -401,7 +427,8 @@ def test_port_imports_no_jax():
             "vr_video_generator_tpu_torch.pipeline, "
             "vr_video_generator_tpu_torch.runtime.segment, "
             "vr_video_generator_tpu_torch.runtime.orchestrator, "
-            "vr_video_generator_tpu_torch.stage_bench; "
+            "vr_video_generator_tpu_torch.stage_bench, "
+            "vr_video_generator_tpu_torch.attention_bench; "
             "spec = importlib.util.spec_from_file_location('chip_smoke', "
             "'chip_smoke.py'); spec.loader.exec_module("
             "importlib.util.module_from_spec(spec)); "

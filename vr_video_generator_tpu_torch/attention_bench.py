@@ -1,0 +1,155 @@
+"""Check and time the attention kernels (rows 2 and 17) on the card at the
+shapes the main paths give them.
+
+    python3 -m vr_video_generator_tpu_torch.attention_bench [--sass]
+
+For each shape (1080p, --input_size 518: N = 2443 tokens at vits' 6 heads,
+vitl's 16 and vitg's 24, batch 8; --input_size 728: N = 4785 at vitl's 16
+heads, batch 2 as ``chip_smoke.py`` runs it and batch 8 as ``stage_bench``
+does) it runs the kernel and its plain version on the same seeded q/k/v,
+with k and v strided views into one qkv as the fused path passes them, and
+prints one JSON line: the error against the plain version (max and mean,
+absolute and against max / mean |o|), the CUDA-event median times of the
+kernel, the plain version and one ``scaled_dot_product_attention`` call
+(never called by the port), the kernel's TFLOP/s and the least time the
+card could take (the bf16 tensor-core FLOPs at 989 TFLOP/s). ``--sass``
+also counts, in the built library, the wgmma (HGMMA) and TMA (UTMALDG,
+UTMASTG) instructions of each attention kernel. The last line is one JSON
+object with every row and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from vr_video_generator_tpu_torch.kernels import launch_counts
+from vr_video_generator_tpu_torch.ops import attention as A
+from vr_video_generator_tpu_torch.stage_bench import card_line, event_ms
+
+BF16_FLOP_PER_S = 989e12
+SHAPES = (  # (label, kernel, B, N, H)
+    ("row 2 vits", "attention", 8, 2443, 6),
+    ("row 2 vitl-518", "attention", 8, 2443, 16),
+    ("row 2 vitg-518", "attention", 8, 2443, 24),
+    ("row 17 vitl-728 B=2", "flash_attention", 2, 4785, 16),
+    ("row 17 vitl-728 B=8", "flash_attention", 8, 4785, 16),
+)
+SCALE = 64 ** -0.5
+
+
+def peaked_qkv(gen, b, n, heads):
+    """(B, N, 3, H, 64) bf16 q/k/v with a peaked softmax: the other logits
+    have std ~1.5, and head dim 0 adds the same -4 (after the 1/8 scale) to
+    every logit, so the softmax over the real keys is unchanged but a key at
+    or past N that a kernel failed to mask (logit 0) would weigh as much as
+    e^4 real keys."""
+    qkv = torch.randn(b, n, 3, heads, 64, generator=gen, device=gen.device)
+    qkv[:, :, 1] *= 1.5
+    qkv[:, :, 0, :, 0] = 4.0
+    qkv[:, :, 1, :, 0] = -8.0
+    return qkv.to(torch.bfloat16)
+
+
+def error_stats(got, want) -> dict:
+    """Max and mean |got - want|, absolute and against max / mean |want|."""
+    err = (got.float() - want.float()).abs()
+    size = want.float().abs()
+    return dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                max_rel_err=(err.max() / size.max()).item(),
+                mean_rel_err=(err.mean() / size.mean()).item())
+
+
+def attention_case(kernel: str, b: int, n: int, heads: int, seed: int = 0):
+    """The inputs and calls of one shape: (args, kernel fn, plain fn, SDPA
+    fn). Row 2 takes q pre-scaled as ``mha`` passes it; row 17 q unscaled,
+    as a view into the same qkv."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = peaked_qkv(gen, b, n, heads)
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    if kernel == "attention":
+        q = (qkv[:, :, 0].float() * SCALE).to(torch.bfloat16)
+        fn, plain, sdpa_scale = A.attention, A.attention_plain, 1.0
+        args = (q, k, v)
+    else:
+        q = qkv[:, :, 0]
+        fn = A.flash_attention
+        plain, sdpa_scale = A.flash_attention_plain, SCALE
+        args = (q, k, v, SCALE)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return (args, fn, plain,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   scale=sdpa_scale))
+
+
+def measure(label: str, kernel: str, b: int, n: int, heads: int) -> dict:
+    args, fn, plain, sdpa = attention_case(kernel, b, n, heads)
+    before = launch_counts().get(kernel, 0)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launched = launch_counts()[kernel] - before
+    stats = error_stats(got, plain(*args))
+    del got
+    flops = 4 * b * heads * n * n * 64
+    ms = event_ms(lambda: fn(*args))
+    row = dict(label=label, kernel=kernel, B=b, N=n, H=heads,
+               launches=launched, **stats, ms=ms,
+               plain_ms=event_ms(lambda: plain(*args)),
+               library_ms=event_ms(sdpa),
+               bound_ms=flops / BF16_FLOP_PER_S * 1e3)
+    row["tflops"] = flops / ms * 1e-9
+    row["library_tflops"] = flops / row["library_ms"] * 1e-9
+    row["over_library"] = ms / row["library_ms"]
+    return row
+
+
+def sass_counts() -> dict:
+    """wgmma and TMA instructions of each attention kernel in the built
+    library (cuobjdump -sass)."""
+    from vr_video_generator_tpu_torch.kernels.build import build, find_nvcc
+
+    cuobjdump = str(find_nvcc()).replace("nvcc", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "attention_kernel" in name:
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
+                            for op in ("HGMMA", "UTMALDG", "UTMASTG",
+                                       "SYNCS", "MUFU.EX2")}
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sass", action="store_true",
+                    help="count wgmma/TMA instructions in the built kernels")
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("attention_bench: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    out = dict(card=card)
+    if opts.sass:
+        out["sass"] = sass_counts()
+        print(f"sass: {json.dumps(out['sass'])}", flush=True)
+    rows = []
+    for shape in SHAPES:
+        rows.append(measure(*shape))
+        print(json.dumps(rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,7 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--input_size", type=int, default=518)
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32"],
+                   help="depth-net compute dtype; float32 runs on the CPU "
+                        "only for now (--device cpu): the card's kernels "
+                        "are bf16")
     p.add_argument("--warp_impl", type=str, default="auto",
                    choices=["auto", "xla", "pallas"])
     p.add_argument("--encoder_device", type=str, default="cpu",
@@ -76,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preprocess", type=str, default="auto",
                    choices=["auto", "exact", "folded"],
                    help="depth-net input preprocessing: exact f32 INTER_AREA "
-                        "or the folded bf16 fast path (auto: folded on TPU "
-                        "bf16)")
+                        "or the folded bf16 fast path (auto: folded for a "
+                        "bf16 model on the card, exact otherwise)")
     p.add_argument("--depth_stride", type=int, default=1,
                    help="run the depth net only on every s-th frame and "
                         "linearly interpolate raw depth in between (opt-in "

@@ -1,5 +1,6 @@
 """Depth-net input preprocessing: /255, cv2 INTER_AREA resize, ImageNet
-normalize (mirrors the exact path of vr_video_generator_tpu/ops/preprocess.py).
+normalize, in f32 (``exact``) or folded into bf16 products and one affine
+(``folded``), as vr_video_generator_tpu/ops/preprocess.py computes them.
 """
 
 from __future__ import annotations
@@ -10,7 +11,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.ops.resize import resize_area_cv2
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -41,19 +41,42 @@ def network_input_size(height: int, width: int, target: int = 518,
 def preprocess_frames(frames_rgb_u8: torch.Tensor, net_hw: Tuple[int, int],
                       dtype: torch.dtype = torch.float32,
                       impl: str = "exact") -> torch.Tensor:
-    """uint8 RGB (B, H, W, 3) -> normalized (B, Hn, Wn, 3) network input,
-    in f32 until the final cast (reference order: /255, resize, normalize)."""
+    """uint8 RGB (B, H, W, 3) -> normalized (B, Hn, Wn, 3) network input.
+
+    ``exact``: in f32 until the final cast (reference order: /255, resize,
+    normalize). ``folded`` (the bf16 fast path): the pixels cast to
+    ``dtype`` (exact for 0..255), both separable INTER_AREA products in
+    ``dtype`` (H, then W; dense weight matrices, as the JAX package runs
+    them by default), then ``x * scale + bias`` in ``dtype``, each op
+    rounded, with /255 and the ImageNet normalize folded into scale and
+    bias."""
+    if impl == "folded":
+        x = resize_area_cv2(frames_rgb_u8.to(dtype), net_hw, dtype=dtype)
+        scale, bias = _folded_affine(x.device, dtype)
+        return x * scale + bias
     if impl != "exact":
-        not_ported(f"preprocess={impl!r}", "folded preprocess")
+        raise ValueError(f"preprocess must be 'exact' or 'folded', got "
+                         f"{impl!r}")
     x = frames_rgb_u8.to(torch.float32) / 255.0
     x = resize_area_cv2(x, net_hw)
     mean, std = _imagenet_stats(x.device)
     return ((x - mean) / std).to(dtype)
 
 
+# Made once per device (and dtype): a host-to-device copy in every step would
+# make the host wait for the device's queue to drain.
 @functools.lru_cache(maxsize=None)
 def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    # Made once per device: a host-to-device copy in every step would make
-    # the host wait for the device's queue to drain.
     return (torch.as_tensor(IMAGENET_MEAN, device=device),
             torch.as_tensor(IMAGENET_STD, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _folded_affine(device: torch.device,
+                   dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded path's scale 1 / (255 std) and bias -mean / std, computed
+    in f32 and cast to ``dtype``."""
+    scale = 1.0 / (255.0 * IMAGENET_STD)
+    bias = -IMAGENET_MEAN / IMAGENET_STD
+    return (torch.as_tensor(scale, device=device).to(dtype),
+            torch.as_tensor(bias, device=device).to(dtype))

@@ -158,13 +158,15 @@ def _apply_separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
 
 
 def resize_area_cv2(x: torch.Tensor, out_hw: Tuple[int, int],
-                    h_axis: int = -3, w_axis: int = -2) -> torch.Tensor:
-    """cv2.resize(..., interpolation=INTER_AREA) parity resize (HWC default)."""
+                    h_axis: int = -3, w_axis: int = -2,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """cv2.resize(..., interpolation=INTER_AREA) parity resize (HWC default),
+    computed in ``dtype`` (default: f32 or wider)."""
     h_in, w_in = x.shape[h_axis], x.shape[w_axis]
     zoom = out_hw[0] > h_in or out_hw[1] > w_in
     return _apply_separable(x, area_or_linear_weights(h_in, out_hw[0], zoom),
                             area_or_linear_weights(w_in, out_hw[1], zoom),
-                            h_axis, w_axis)
+                            h_axis, w_axis, dtype=dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],

@@ -3,7 +3,9 @@
 Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
 
     uint8 RGB frames (B, H, W, 3)
-      -> exact preprocess (/255, INTER_AREA resize, ImageNet normalize)
+      -> preprocess (/255, INTER_AREA resize, ImageNet normalize: exact in
+         f32, or folded into bf16 products; ``preprocess`` auto is folded
+         for a bf16 model on the card)
       -> DINOv2 + DPT depth forward (compute dtype; LayerNorm, attention,
          fused half-block and DPT tail kernels as mlp_fused / tail pick)
       -> bicubic upsample to the source size x encoder scaler
@@ -67,8 +69,6 @@ def check_supported(run_cfg: RunConfig) -> None:
     if run_cfg.sbs_output not in SBS_OUTPUTS:
         raise ValueError(f"sbs_output must be one of {SBS_OUTPUTS}, "
                          f"got {run_cfg.sbs_output!r}")
-    if run_cfg.preprocess == "folded":
-        not_ported("preprocess='folded'", "folded preprocess")
     # An explicit 'fused' at a width whose kernel is not ported raises here,
     # before any weight is built (the device and the token count do not
     # change that answer). The tail's choice depends on the geometry; the
@@ -96,6 +96,8 @@ class SbsPipeline:
                                     impl=self.run_cfg.warp_impl,
                                     device=self.device)
         self.sbs_emit = resolve_sbs_emit(self.run_cfg)
+        self.preprocess_impl = resolve_preprocess(
+            self.run_cfg.preprocess, self.device.type, model.dtype)
 
     @classmethod
     def create(cls, run_cfg: RunConfig, height: int, width: int,
@@ -107,6 +109,9 @@ class SbsPipeline:
         if dtype is None:
             dtype = (torch.bfloat16 if run_cfg.compute_dtype == "bfloat16"
                      else torch.float32)
+        if device.type == "cuda" and dtype == torch.float32:
+            # The card's kernels are bf16; raise before any weight is built.
+            not_ported("compute_dtype='float32' on the card", "f32 on the card")
         model = load_model(run_cfg.encoder, run_cfg.encoder_path, dtype=dtype,
                            device=device, allow_random=allow_random,
                            seed=seed, cfg=run_cfg.model(), tail=run_cfg.tail)
@@ -128,7 +133,8 @@ class SbsPipeline:
 
     def _depth(self, frames: torch.Tensor) -> torch.Tensor:
         return infer_depth(self.model, frames,
-                           input_size=self.run_cfg.input_size)
+                           input_size=self.run_cfg.input_size,
+                           preprocess=self.preprocess_impl)
 
     @torch.inference_mode()
     def step(self, frames_u8, state: TemporalState,
@@ -173,6 +179,17 @@ class SbsPipeline:
     def depth_only(self, frames_u8) -> torch.Tensor:
         """Depth maps at source resolution (scaled), (B, H, W) f32."""
         return self._depth(self.frames_to_device(frames_u8))
+
+
+def resolve_preprocess(preprocess: str, device_type: str,
+                       dtype: torch.dtype) -> str:
+    """The preprocess path (the JAX package's pipeline
+    `_resolve_preprocess`, with CUDA in the TPU's place): "auto" is
+    "folded" for a bf16 model on the card, "exact" otherwise."""
+    if preprocess == "auto":
+        return ("folded" if device_type == "cuda" and dtype == torch.bfloat16
+                else "exact")
+    return preprocess
 
 
 def resolve_sbs_emit(run_cfg: RunConfig) -> str:

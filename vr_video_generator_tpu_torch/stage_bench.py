@@ -172,7 +172,8 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
     layers = model.cfg.intermediate_layers
 
     def preprocess():
-        return preprocess_frames(imgs, net_hw, dtype=model.dtype)
+        return preprocess_frames(imgs, net_hw, dtype=model.dtype,
+                                 impl=pipe.preprocess_impl)
 
     x = preprocess().to(model.dtype)
 

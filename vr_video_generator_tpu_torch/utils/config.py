@@ -199,7 +199,7 @@ class RunConfig:
     gelu: str = "exact"           # 'exact' (reference parity) | 'tanh' (fast)
     # Depth-net input preprocessing: 'exact' (f32 INTER_AREA + normalize,
     # reference-equal), 'folded' (bf16 GEMMs, /255+normalize folded — the
-    # fast path, -0.17 ms/frame at 1080p), 'auto' = folded on TPU bf16.
+    # fast path), 'auto' = folded for a bf16 model on the card, else exact.
     preprocess: str = "auto"
     mlp_fused: str = "auto"       # ViT half-block fusion: 'auto'|'fused'|'xla'
     tail: str = "auto"            # DPT head tail impl: 'auto'|'fused'|'xla'

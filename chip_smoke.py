@@ -8,13 +8,16 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
-     all started together) and compile the Triton LayerNorm;
+     all started together);
   3. each of the seventeen kernels against its plain PyTorch version on the
      card at its path's shapes (1080p; vits, batch 8; vitl, batch 8 at
      --input_size 518 and batch 2 at 728; vitg, batch 8 at 518), with
      CUDA-event timings of both, of one PyTorch library call where one
      computes the same function, and the least time the card could take
-     (bound); row 2 also at vitg-518's 24 heads; the DPT tail kernels at
+     (bound); row 1 also at vitl-728's (38280, 1024) and vitg-518's (19544,
+     1536) rows; row 9 also at vitl-728's batch of 8 (M = 38280), and each
+     stage of its chain against its plain version (the LN stage bit-exact
+     against row 1); row 2 also at vitg-518's 24 heads; the DPT tail kernels at
      the widths vitg and vitl add (the
      big-C tail at C=384, the ext tail at C=256 and 384); the packed
      blur/select and the banded compositor bit-exact (the banded one also
@@ -43,8 +46,9 @@ Phases, each fatal on failure:
      RCU pair -> ext tail at vits' shapes), each launching exactly its
      kernels.
 
-It prints the per-kernel JSON line before the last line (row 2 twice: at
-vits' shapes and at vitg-518's 24 heads), and as the last
+It prints the per-kernel JSON line before the last line (row 1 three times:
+at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
+at vitg-518's 24 heads; row 9 twice: at M = 19544 and 38280), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -82,6 +86,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 # bf16 LayerNorm bound of the JAX package's tests (tests/test_layernorm.py).
 LN_ATOL, LN_RTOL = 2e-2, 1e-2
+# Row 1's rows: vits (every path), vitl-728's unfused attention half and
+# vitg-518's, at batch 8.
+LN_SHAPES = ((B * N_TOK, DIM), (B * N_L728, DIM_L), (B * N_TOK, DIM_G))
 # Online rescaling and the bf16 probabilities reorder the rounding. The
 # absolute bounds are those of the port's design; the relative ones hold the
 # error to a small share of the output's own size (max against max |o|,
@@ -123,12 +130,17 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # HBM3, 700.00 W); the chain is held instead by its error against the same
 # chain in f32, at most RCU_F32_FLOOR times the plain bf16 chain's, as the
 # depth is (DEPTH_FLOOR).
+# Row 9's chain is held stage by stage too: its two GEMM stages
+# (mlp_fc1_gelu, K = 1024 under the GELU; mlp_fc2_residual, K = 4096) each
+# on the chain's own input, to row 9's bounds.
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
+                 "mlp_fc1_gelu": 0.01, "mlp_fc2_residual": 0.01,
                  "swiglu_residual": 0.01, "head_tail_big_front": 0.005,
                  "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
-                 "mlp_residual_hblocked": 8, "swiglu_residual": 8,
+                 "mlp_residual_hblocked": 8, "mlp_fc1_gelu": 8,
+                 "mlp_fc2_residual": 8, "swiglu_residual": 8,
                  "head_tail_big_front": 4, "rcu_pair": 8}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
@@ -162,7 +174,7 @@ RCU_F32_FLOOR = DEPTH_FLOOR
 PKG = "vr_video_generator_tpu_torch"
 JAX_PKG = "vr_video_generator_tpu"
 KERNELS = {
-    "layernorm": ("triton", f"{PKG}/ops/layernorm.py",
+    "layernorm": ("cuda", f"{PKG}/csrc/layernorm.cu",
                   f"{JAX_PKG}/ops/layernorm.py:33"),
     "attention": ("cuda", f"{PKG}/csrc/attention.cu",
                   f"{JAX_PKG}/ops/attention_pallas.py:43"),
@@ -178,7 +190,7 @@ KERNELS = {
                      f"{JAX_PKG}/ops/mlp_pallas.py:66"),
     "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail.cu",
                       f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
-    "mlp_residual_hblocked": ("cuda", f"{PKG}/csrc/mlp.cu",
+    "mlp_residual_hblocked": ("cuda", f"{PKG}/csrc/mlp_hblocked.cu",
                               f"{JAX_PKG}/ops/mlp_pallas.py:38"),
     "head_tail_big_front": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                             f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
@@ -284,6 +296,11 @@ def gemm_addends(name: str, want, args):
         return ()  # a bare conv sum, cast
     if name.startswith("rcu_pair"):
         return tuple(args)  # the conv's residuals
+    if name == "mlp_fc1_gelu":
+        return (args[0],)  # b1, which its product was added to
+    if name == "mlp_fc2_residual":
+        x, gamma, b = args
+        return x, gamma.float() * b.float()
     if name == "ln_qkv":
         b, heads, scale = args[4], args[5], args[6]
         bias = b.float().reshape(3, heads, -1).clone()
@@ -295,9 +312,9 @@ def gemm_addends(name: str, want, args):
 
 
 def gemm_check(name: str, got, want, args) -> dict:
-    """Rows 5, 6, 8-11: the share of bf16 outputs that differ and the
-    largest difference in ulps of the largest operand, each against its
-    bound (``name`` may carry a width after a space)."""
+    """Rows 5, 6, 8-11 and row 9's stages: the share of bf16 outputs that
+    differ and the largest difference in ulps of the largest operand, each
+    against its bound (``name`` may carry a width after a space)."""
     kernel = name.split()[0]
     ulps = operand_ulps(got, want, 3 if kernel == "ln_qkv" else 1,
                         *gemm_addends(kernel, want, args))
@@ -351,6 +368,41 @@ def check_ln_qkv(device) -> dict:
                 plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
                 library_ms=None,
                 **bound(nbytes(x, lnw, lnb, w, b, got), 2 * m * DIM * 3 * DIM))
+
+
+def check_layernorm(gen, rows: int, d: int) -> dict:
+    """Row 1 on (rows, d) seeded bf16 rows with an f32 affine: every output
+    within the JAX package's LayerNorm bound (LN_ATOL, LN_RTOL) of the plain
+    version, the share of outputs that differ and the largest difference in
+    ulps (as the dense rows are measured), times of the kernel, the plain
+    version and one F.layer_norm call, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
+                                                             layernorm_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    bf = torch.bfloat16
+    x = torch.randn(rows, d, generator=gen, device=gen.device).to(bf)
+    w = torch.randn(d, generator=gen, device=gen.device)
+    b = torch.randn(d, generator=gen, device=gen.device)
+    got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    require(bool((err <= LN_ATOL + LN_RTOL * want.float().abs()).all()),
+            f"layernorm D={d}: max abs err {err.max().item()} over "
+            f"atol {LN_ATOL} + rtol {LN_RTOL}")
+    # The library call takes its affine in the input's dtype.
+    wb, bb = w.to(bf), b.to(bf)
+    return dict(
+        max_abs_err=err.max().item(),
+        max_ulps=operand_ulps(got, want, 1).max().item(),
+        frac_differ=(got != want).float().mean().item(),
+        ms=event_ms(lambda: layernorm(x, w, b)),
+        plain_ms=event_ms(lambda: layernorm_plain(x, w, b)),
+        library_ms=event_ms(lambda: F.layer_norm(x, (d,), wb, bb, 1e-6)),
+        **bound(nbytes(x, w, b, got), 0))
 
 
 def attention_stats(name: str, got, want) -> dict:
@@ -424,30 +476,70 @@ def tail_weights(gen, c):
             randn(gen, (1,), 0.1, 0.5, dtype=bf))
 
 
-def check_vitl_kernels(device, results) -> None:
-    """Rows 9, 11, 12 at vitl-518's shapes and row 17 at vitl-728's."""
+def check_hblocked(gen, m: int, stages: bool) -> dict:
+    """Row 9 on M seeded rows at vitl's widths: the output against
+    mlp_residual_plain (GEMM_MAX_FRAC, GEMM_MAX_ULPS); with ``stages``, each
+    stage of the chain against its plain version on the chain's own input
+    (the LN stage bit-exact against row 1's kernel and within the LN bound
+    of the plain LayerNorm; the two GEMM stages to row 9's bounds); times of
+    the kernel and the plain version, and the bound."""
     import torch
 
-    from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual_hblocked,
-                                                       mlp_residual_plain)
+    from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
+                                                             layernorm_plain)
+    from vr_video_generator_tpu_torch.ops.mlp import (
+        fc1_gelu_plain, fc2_residual_plain, mlp_residual_hblocked,
+        mlp_residual_hblocked_stages, mlp_residual_plain)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 9)
     bf = torch.bfloat16
-    d, hid, m = DIM_L, 4 * DIM_L, B * N_TOK
+    d, hid = DIM_L, 4 * DIM_L
     args = (randn(gen, (m, d), dtype=bf), randn(gen, (d,), 0.1, 1.0),
             randn(gen, (d,), 0.1), randn(gen, (hid, d), d ** -0.5, dtype=bf),
             randn(gen, (hid,), 0.5, dtype=bf),
             randn(gen, (d, hid), hid ** -0.5, dtype=bf),
             randn(gen, (d,), 0.5, dtype=bf), randn(gen, (d,), 0.1, 1.0, dtype=bf))
-    got, want = mlp_residual_hblocked(*args), mlp_residual_plain(*args)
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    a, h, got = mlp_residual_hblocked_stages(*args)
+    want = mlp_residual_plain(*args)
     torch.cuda.synchronize()
-    results["mlp_residual_hblocked"] = dict(
-        **gemm_check("mlp_residual_hblocked", got, want, args),
-        ms=event_ms(lambda: mlp_residual_hblocked(*args)),
-        plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
-        library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * d * hid))
-    del args, got, want
+    out = gemm_check(f"mlp_residual_hblocked M={m}", got, want, args)
+    del want
+    if stages:
+        require(torch.equal(a, layernorm(x, lnw, lnb)),
+                "mlp_residual_hblocked: the LN stage differs from row 1")
+        a_p = layernorm_plain(x, lnw, lnb)
+        err = (a.float() - a_p.float()).abs()
+        require(bool((err <= LN_ATOL + LN_RTOL * a_p.float().abs()).all()),
+                f"mlp_residual_hblocked LN stage: max abs err "
+                f"{err.max().item()} over atol {LN_ATOL} + rtol {LN_RTOL}")
+        del a_p, err
+        fc1 = gemm_check(f"mlp_fc1_gelu M={m}", h, fc1_gelu_plain(a, w1, b1),
+                         (b1,))
+        fc2 = gemm_check(f"mlp_fc2_residual M={m}", got,
+                         fc2_residual_plain(h, w2, b2, gamma, x),
+                         (x, gamma, b2))
+        log(f"row 9 stages at M={m}: LN bit-exact against row 1; fc1 + GELU "
+            f"{json.dumps(fc1)}; fc2 + residual {json.dumps(fc2)}")
+        out.update(fc1_gelu=fc1, fc2_residual=fc2)
+    del a, h, got
+    torch.cuda.empty_cache()
+    return dict(**out, ms=event_ms(lambda: mlp_residual_hblocked(*args)),
+                plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
+                library_ms=None,
+                **bound(nbytes(*args, x), 2 * 2 * m * d * hid))
+
+
+def check_vitl_kernels(device, results, widths) -> None:
+    """Row 9 at vitl-518's shapes (and at vitl-728's batch of 8, into
+    ``widths``), rows 11, 12 at vitl-518's and row 17 at vitl-728's."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    results["mlp_residual_hblocked"] = check_hblocked(gen, B * N_TOK, True)
+    widths[f"mlp_residual_hblocked M={B * N_L728}"] = check_hblocked(
+        torch.Generator(device=device).manual_seed(SEED + 90), B * N_L728,
+        False)
 
     # Row 17 at vitl-728: q, k and v unscaled strided views into one qkv.
     results["flash_attention"] = check_attention(
@@ -730,11 +822,8 @@ def kernel_parity(device, rng, results, widths):
     (``results``), and the DPT tails at the widths vitg and vitl add
     (``widths``)."""
     import torch
-    import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch import StereoConfig
-    from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
-                                                             layernorm_plain)
     from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
                                                        mlp_residual_plain)
     from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual,
@@ -751,23 +840,10 @@ def kernel_parity(device, rng, results, widths):
     bf = torch.bfloat16
     m = B * N_TOK
 
-    x = torch.randn(m, DIM, generator=gen, device=device).to(bf)
-    w = torch.randn(DIM, generator=gen, device=device)
-    b = torch.randn(DIM, generator=gen, device=device)
-    got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    require(bool((err <= LN_ATOL + LN_RTOL * want.float().abs()).all()),
-            f"layernorm: max abs err {err.max().item()} over "
-            f"atol {LN_ATOL} + rtol {LN_RTOL}")
-    # The library call takes its affine in the input's dtype.
-    wb, bb = w.to(bf), b.to(bf)
-    results["layernorm"] = dict(
-        max_abs_err=err.max().item(),
-        ms=event_ms(lambda: layernorm(x, w, b)),
-        plain_ms=event_ms(lambda: layernorm_plain(x, w, b)),
-        library_ms=event_ms(lambda: F.layer_norm(x, (DIM,), wb, bb, 1e-6)),
-        **bound(nbytes(x, w, b, got), 0))
+    results["layernorm"] = check_layernorm(gen, *LN_SHAPES[0])
+    gen_ln = torch.Generator(device=device).manual_seed(SEED + 1)
+    for rows, d in LN_SHAPES[1:]:
+        widths[f"layernorm D={d}"] = check_layernorm(gen_ln, rows, d)
 
     # Row 2: q pre-scaled as mha does; k and v strided views into a fused
     # qkv; at vits' 6 heads and at vitg-518's 24, where it costs the most.
@@ -897,7 +973,7 @@ def kernel_parity(device, rng, results, widths):
             results["head_tail"], results["rcu_pair"] = base, rcu
         else:
             widths[f"head_tail C={c}"], widths[f"rcu_pair C={c}"] = base, rcu
-    check_vitl_kernels(device, results)
+    check_vitl_kernels(device, results, widths)
     check_vitg_kernels(device, results, widths)
     for name, r in {**results, **widths}.items():
         log(f"kernel {name}: {json.dumps(r)}")
@@ -1333,7 +1409,6 @@ def setup(verbose_build: bool = False):
     device = torch.device("cuda", 0)
 
     from vr_video_generator_tpu_torch.kernels import build
-    from vr_video_generator_tpu_torch.ops.layernorm import layernorm
     from vr_video_generator_tpu_torch.stage_bench import card_line
 
     card = card_line()
@@ -1344,12 +1419,7 @@ def setup(verbose_build: bool = False):
     if verbose_build:
         build.build(verbose=True)
     build.library()
-    t_nvcc = time.perf_counter() - t0
-    x = torch.zeros(4, DIM, dtype=torch.bfloat16, device=device)
-    layernorm(x, torch.ones(DIM, device=device), torch.zeros(DIM, device=device))
-    torch.cuda.synchronize()
-    log(f"build: nvcc {t_nvcc:.2f} s, with the Triton LayerNorm "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"build: nvcc {time.perf_counter() - t0:.2f} s")
     return device, card
 
 
@@ -1384,11 +1454,20 @@ def main() -> int:
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
-    # Row 2 appears twice: at vits' shapes with the first path's launches,
-    # and at vitg-518's 24 heads with that path's launches.
+    # Rows 1, 2 and 9 appear more than once: at the first path's shapes with
+    # its launches, and at the widths of a later path with that path's
+    # launches (row 1 at vitl-728's and vitg-518's rows, row 2 at vitg-518's
+    # 24 heads, row 9 at vitl-728's rows).
     entries = [(name, results[name], counts[name]) for name in KERNELS]
-    entries.append(("attention", widths[f"attention H={HEADS_G}"],
-                    paths["vitg-518 auto/auto"]["launches"]["attention"]))
+    l728 = paths["vitl-728 auto/auto"]["launches"]
+    g518 = paths["vitg-518 auto/auto"]["launches"]
+    entries += [("layernorm", widths["layernorm D=1024"], l728["layernorm"]),
+                ("layernorm", widths["layernorm D=1536"], g518["layernorm"]),
+                ("attention", widths[f"attention H={HEADS_G}"],
+                 g518["attention"]),
+                ("mlp_residual_hblocked",
+                 widths[f"mlp_residual_hblocked M={B * N_L728}"],
+                 l728["mlp_residual_hblocked"])]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = KERNELS[name]

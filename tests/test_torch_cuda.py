@@ -15,11 +15,10 @@ from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
 from vr_video_generator_tpu_torch.ops.head_tail import (
     head_tail_big_back, head_tail_big_back_plain, head_tail_big_front,
     head_tail_big_front_plain, head_tail_ext, head_tail_ext_plain)
-from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
-                                                  mlp_residual_hblocked,
-                                                  mlp_residual_plain,
-                                                  swiglu_residual,
-                                                  swiglu_residual_plain)
+from vr_video_generator_tpu_torch.ops.mlp import (
+    fc1_gelu_plain, fc2_residual_plain, mlp_residual, mlp_residual_hblocked,
+    mlp_residual_hblocked_stages, mlp_residual_plain, swiglu_residual,
+    swiglu_residual_plain)
 from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
                                                   proj_ls_residual,
                                                   proj_ls_residual_plain)
@@ -37,8 +36,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have "
-                    "no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -101,20 +99,50 @@ def test_mlp_kernel_matches_plain(cuda, m, d):
                                      mlp_residual_plain(*args), args)
 
 
-@pytest.mark.parametrize("m", [100, 19544])
-def test_mlp_hblocked_kernel_matches_plain(cuda, m):
-    gen = torch.Generator(device=cuda).manual_seed(m)
-    d, f32 = 1024, torch.float32
-    args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
+def _hblocked_args(gen, m, d=1024):
+    f32 = torch.float32
+    return (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
             _randn(gen, (d,), 0.1, 0.0, f32),
             _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
             _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
             _randn(gen, (d,), 0.1, 1.0))
+
+
+# m = 100 and 130: one ragged 128-row tile and a ragged second one; 19544:
+# vitl-518's rows at batch 8.
+@pytest.mark.parametrize("m", [100, 19544, 130])
+def test_mlp_hblocked_kernel_matches_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    args = _hblocked_args(gen, m)
     before = launch_counts().get("mlp_residual_hblocked", 0)
     got = mlp_residual_hblocked(*args)
     assert launch_counts()["mlp_residual_hblocked"] == before + 1
     _assert_rounding_boundaries_only("mlp_residual_hblocked", got,
                                      mlp_residual_plain(*args), args)
+
+
+# Row 9's chain stage by stage, on its own scratch: the LN stage is row 1's
+# kernel (bit-exact) within the LN bound of the plain LayerNorm; each GEMM
+# stage against its plain version on the chain's own input; one launch count
+# a call, and the same output as the call without the stages.
+@pytest.mark.parametrize("m", [130, 19544])
+def test_mlp_hblocked_stages_match_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m + 9)
+    args = _hblocked_args(gen, m)
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    before = launch_counts().get("mlp_residual_hblocked", 0)
+    a, h, out = mlp_residual_hblocked_stages(*args)
+    assert launch_counts()["mlp_residual_hblocked"] == before + 1
+    assert a.shape == (m, 1024) and h.shape == (m, 4096) and out.shape == x.shape
+    assert torch.equal(a, layernorm(x, lnw, lnb))
+    a_p = layernorm_plain(x, lnw, lnb).float()
+    assert bool(((a.float() - a_p).abs() <= 2e-2 + 1e-2 * a_p.abs()).all())
+    _assert_rounding_boundaries_only("mlp_fc1_gelu", h,
+                                     fc1_gelu_plain(a, w1, b1), (b1,))
+    _assert_rounding_boundaries_only(
+        "mlp_fc2_residual", out, fc2_residual_plain(h, w2, b2, gamma, x),
+        (x, gamma, b2))
+    assert torch.equal(out, mlp_residual_hblocked(*args))
 
 
 # m = 100: one ragged row tile; 19544: vitg-518's rows at batch 8.
@@ -212,7 +240,12 @@ def test_head_tail_kernel_matches_plain(cuda, b, h0, w0, c):
     assert err.mean().item() <= TAIL_MEAN_REL * span
 
 
-@pytest.mark.parametrize("rows,d", [(19544, 384), (130, 128), (7, 384)])
+# Each encoder width (vits' 1080p rows, vitl-728's and vitg-518's at batch
+# 8), ragged row counts, and widths only the generic kernel takes.
+@pytest.mark.parametrize("rows,d", [(19544, 384), (130, 128), (7, 384),
+                                    (38280, 1024), (19544, 1536),
+                                    (131, 1024), (77, 1536), (45, 768),
+                                    (33, 200), (9, 1000)])
 def test_layernorm_kernel_matches_plain(cuda, rows, d):
     gen = torch.Generator(device=cuda).manual_seed(rows)
     x = (torch.randn(rows, d, generator=gen, device=cuda) * 3 + 1).to(torch.bfloat16)
@@ -223,6 +256,22 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d):
     assert launch_counts()["layernorm"] == before + 1
     # bf16 output rounding (tests/test_layernorm.py bound)
     assert bool(((got - want).abs() <= 2e-2 + 1e-2 * want.abs()).all())
+
+
+# An unaligned view takes the generic kernel; what the kernel does not take
+# raises rather than falling back.
+def test_layernorm_kernel_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = _randn(gen, (65, 384 + 1))[:, 1:]
+    w, b = torch.ones(384, device=cuda), torch.zeros(384, device=cuda)
+    xc = x.contiguous()
+    row = xc.reshape(-1)[1:1 + 384 * 64].view(64, 384)  # 2-byte offset
+    got, want = layernorm(row, w, b).float(), layernorm_plain(row, w, b).float()
+    assert bool(((got - want).abs() <= 2e-2 + 1e-2 * want.abs()).all())
+    for args in ((x, w, b), (xc.float(), w, b), (xc, w.to(torch.bfloat16), b),
+                 (xc, w[:-1], b)):
+        with pytest.raises(ValueError):
+            layernorm(*args)
 
 
 # q pre-scaled as mha passes it; N < 128, ragged and exact 128-key tiles

@@ -98,12 +98,17 @@ def test_gelu_matches_jax(rng):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("rows", [300, 130])
-def test_layernorm_plain_matches_pallas_interpret(rows):
+# Each width the encoders give row 1 (vits 384, vitl 1024, vitg 1536, and
+# 128), at a row count that is and one that is not a multiple of the 64-row
+# block; the first two cases keep their ids.
+@pytest.mark.parametrize("rows,d", [
+    pytest.param(300, 128, id="300"), pytest.param(130, 128, id="130"),
+    (64, 384), (97, 384), (128, 1024), (75, 1024), (64, 1536), (33, 1536)])
+def test_layernorm_plain_matches_pallas_interpret(rows, d):
     rng = np.random.default_rng(rows)
-    x = rng.standard_normal((rows, 128), dtype=np.float32) * 3 + 1
-    w = rng.standard_normal(128, dtype=np.float32)
-    b = rng.standard_normal(128, dtype=np.float32)
+    x = rng.standard_normal((rows, d), dtype=np.float32) * 3 + 1
+    w = rng.standard_normal(d, dtype=np.float32)
+    b = rng.standard_normal(d, dtype=np.float32)
     ref = np.asarray(jlayernorm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
                                 interpret=True, block_rows=64))
     ours = layernorm(torch.from_numpy(x), torch.from_numpy(w),

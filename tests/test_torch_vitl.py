@@ -35,8 +35,10 @@ from vr_video_generator_tpu_torch.ops import head_tail as ht
 from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
                                                         flash_attention_plain,
                                                         mha)
-from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual_hblocked,
-                                                  resident)
+from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+from vr_video_generator_tpu_torch.ops.mlp import (
+    fc1_gelu_plain, fc2_residual_plain, mlp_residual_hblocked,
+    mlp_residual_hblocked_stages, mlp_residual_plain, resident)
 from vr_video_generator_tpu_torch.ops.preprocess import network_input_size
 from vr_video_generator_tpu_torch.utils import config
 
@@ -86,6 +88,68 @@ def test_mlp_hblocked_plain_matches_pallas_interpret(dtype, atol):
         _t(x, tdt), _t(p["ln_scale"]), _t(p["ln_bias"]), _t(p["w1"].T, tdt),
         _t(p["b1"], tdt), _t(p["w2"].T, tdt), _t(p["b2"], tdt),
         _t(p["gamma"], tdt))
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=0, atol=atol)
+
+
+def _hblocked_params(rng, d):
+    return dict(
+        ln_scale=(1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+        ln_bias=(0.1 * rng.standard_normal(d)).astype(np.float32),
+        w1=(rng.standard_normal((d, 4 * d)) * 0.03).astype(np.float32),
+        b1=(0.1 * rng.standard_normal(4 * d)).astype(np.float32),
+        w2=(rng.standard_normal((4 * d, d)) * 0.02).astype(np.float32),
+        b2=(0.1 * rng.standard_normal(d)).astype(np.float32),
+        gamma=(1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+
+
+def _hblocked_torch_args(x, p, tdt):
+    return (_t(x, tdt), _t(p["ln_scale"]), _t(p["ln_bias"]),
+            _t(p["w1"].T, tdt), _t(p["b1"], tdt), _t(p["w2"].T, tdt),
+            _t(p["b2"], tdt), _t(p["gamma"], tdt))
+
+
+def test_mlp_hblocked_stages_compose_to_plain():
+    """The plain versions of row 9's three stages (LayerNorm, fc1 + GELU,
+    fc2 + LayerScale + residual), composed, are mlp_residual_plain bit for
+    bit in bf16, at a row count no tile divides."""
+    d, m = 1024, 77
+    rng = np.random.default_rng(19)
+    x = (rng.standard_normal((m, d)) * 0.5).astype(np.float32)
+    args = _hblocked_torch_args(x, _hblocked_params(rng, d), torch.bfloat16)
+    x_t, lnw, lnb, w1, b1, w2, b2, gamma = args
+    a = layernorm_plain(x_t, lnw, lnb)
+    h = fc1_gelu_plain(a, w1, b1)
+    out = fc2_residual_plain(h, w2, b2, gamma, x_t)
+    assert out.dtype == h.dtype == a.dtype == torch.bfloat16
+    assert torch.equal(out, mlp_residual_plain(*args))
+    # The wrapper's stage-by-stage entry point takes the same plain stages
+    # on the CPU.
+    for got, want in zip(mlp_residual_hblocked_stages(*args), (a, h, out)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,atol", [
+    (jnp.float32, 2e-5),   # test_mlp_hblocked_plain_matches_pallas_interpret's
+    (jnp.bfloat16, 6e-2),  # bounds
+])
+def test_mlp_hblocked_stages_match_pallas_interpret(dtype, atol):
+    """Row 9's chain, its three plain stages composed, against the JAX
+    hidden-blocked body (`_kernel`, taken for its 16 MB of weights) in
+    interpret mode, at 72 rows."""
+    d, m = 1024, 72
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((m, d)) * 0.5).astype(np.float32)
+    p = _hblocked_params(rng, d)
+    tdt = getattr(torch, jnp.dtype(dtype).name)
+    assert not resident(d, 4 * d, tdt)
+    ref = mlp_residual_pallas(jnp.asarray(x, dtype),
+                              **{k: jnp.asarray(v) for k, v in p.items()},
+                              interpret=True)
+    x_t, lnw, lnb, w1, b1, w2, b2, gamma = _hblocked_torch_args(x, p, tdt)
+    h = fc1_gelu_plain(layernorm_plain(x_t, lnw, lnb), w1, b1)
+    ours = fc2_residual_plain(h, w2, b2, gamma, x_t)
     np.testing.assert_allclose(ours.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                rtol=0, atol=atol)

@@ -6,7 +6,7 @@ smoothing, depth-plane stereo warp) on one NVIDIA H100. The JAX package
 nothing of it. It keeps its own copies of the JAX package's jax-free host
 modules (``utils/``, ``video/``, ``native/``, the CLI parser) and
 reimplements the device path in PyTorch, with hand-written Hopper kernels
-under ``csrc/`` (CUDA C++) and ``ops/layernorm.py`` (Triton).
+under ``csrc/`` (CUDA C++).
 """
 
 from __future__ import annotations

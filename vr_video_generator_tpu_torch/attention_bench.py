@@ -109,9 +109,9 @@ def measure(label: str, kernel: str, b: int, n: int, heads: int) -> dict:
     return row
 
 
-def sass_counts() -> dict:
-    """wgmma and TMA instructions of each attention kernel in the built
-    library (cuobjdump -sass)."""
+def sass_counts(kernels=("attention_kernel",)) -> dict:
+    """wgmma and TMA instructions of each kernel of the built library whose
+    name holds one of ``kernels`` (cuobjdump -sass)."""
     from vr_video_generator_tpu_torch.kernels.build import build, find_nvcc
 
     cuobjdump = str(find_nvcc()).replace("nvcc", "cuobjdump")
@@ -120,7 +120,7 @@ def sass_counts() -> dict:
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "attention_kernel" in name:
+        if any(k in name for k in kernels):
             counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
                             for op in ("HGMMA", "UTMALDG", "UTMASTG",
                                        "SYNCS", "MUFU.EX2")}

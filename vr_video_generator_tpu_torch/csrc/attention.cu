@@ -48,20 +48,23 @@
 // others' products. k and v may be strided views into the fused qkv
 // projection output: the tensor maps take the strides.
 //
+// The mbarrier, TMA and wgmma helpers are csrc/hopper.cuh's, shared with
+// the GEMM core of csrc/wgmma_gemm.cuh.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table):
 // 287-419 TFLOP/s, 0.84-1.05x one scaled_dot_product_attention call at the
 // same shapes. Two consumers reached 250-373 TFLOP/s; FA3's ordering of the
 // consumers' products (ping-pong) and running P_{t-1} V_{t-1} under the
 // softmax of S_t in the same warpgroup were both slower at these shapes.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace vrvg;
 
 constexpr int DH = 64;           // head dim: one 128-byte row per token
 constexpr int CONSUMERS = 3;     // consumer warpgroups, 64 query rows each
@@ -83,101 +86,6 @@ constexpr uint32_t BAR_OFF = V_OFF + STAGES * TILE_BYTES;
 // atom (1024 bytes).
 constexpr size_t SMEM_BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A lost arrival
-// would hang the card; after ~2^26 polls the launch fails instead.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// One (64, 1, rows, 1) box at (0, h, row, b) of a 4-D tensor map.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int h, int row, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(row), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int h, int row,
-                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(0), "r"(h), "r"(row), "r"(b), "r"(src)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle (layout type 1): 8-row groups 1024 bytes apart (stride byte
-// offset). The leading byte offset is unused by K-major operands (16) and,
-// for the MN-major V, is the 1024-byte step between 8-key groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving register reads or writes across a wgmma
-// that is in flight on those registers, or from reusing them for other
-// values before the wgmma is done.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // S (64 x 128, f32) (+)= Q (64 x 16) K^T, both from shared memory, K-major.
 template <int ACCUMULATE>
@@ -232,11 +140,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -464,25 +367,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       tma_store(&to, q_rows, h, q0 + cw * 64, b);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda.so.1, which the CUDA runtime
-// has already loaded, so nothing links against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
 }
 
 // (B, N, H, 64) bf16 with the (H, 64) pair contiguous as a 4-D map over

@@ -1,42 +1,32 @@
 // The MLP half-block of the DINOv2 blocks in one kernel, for Hopper
-// (sm_90a): out = x + gamma * (fc2(GELU(fc1(LN2(x))))).
+// (sm_90a): out = x + gamma * (fc2(GELU(fc1(LN2(x))))), at D <= 768.
 //
 // Replaces: vr_video_generator_tpu/ops/mlp_pallas.py `_kernel_resident`
 // (row 8: mlp_residual_pallas with the weights resident in VMEM, taken at
-// vits and vitb) and `_kernel` (row 9: the hidden-blocked grid, taken at
-// vitl, whose 16 MB of weights do not fit). Rounding points as there and as
-// flax's nn.Dense: LN with f32 statistics and the f32 affine, cast to bf16;
-// fc1 accumulates in f32, is cast to bf16, then + b1 in bf16; the GELU is the
-// A&S erf of ops/gelu.py evaluated in f32 (the same constants and order of
-// operations, each one rounded: no FMA, no erff, no fast math) and cast to
-// bf16; fc2 accumulates its partial products over the hidden chunks in f32,
-// is cast to bf16 once, + b2, gamma * . and x + . each round to bf16.
+// vits and vitb). Rounding points as there and as flax's nn.Dense: LN with
+// f32 statistics and the f32 affine, cast to bf16; fc1 accumulates in f32,
+// is cast to bf16, then + b1 in bf16; the GELU is the A&S erf of
+// ops/gelu.py evaluated in f32 (gemm.cuh's gelu_as) and cast to bf16; fc2
+// accumulates its partial products over the hidden chunks in f32, is cast to
+// bf16 once, + b2, gamma * . and x + . each round to bf16. Row 9 (the
+// hidden-blocked body `_kernel`, vitl's D = 1024) is csrc/mlp_hblocked.cu.
 //
 // What bounds it on the H100: at 1080p/vits (M = 8 * 2443 rows, D = 384,
 // hidden 1536) the two GEMMs are 46 GFLOP (47 us at the 989 TFLOP/s bf16
-// peak), at 1080p/vitl (D = 1024, hidden 4096) 328 GFLOP (0.33 ms), while
-// the kernel must move only x in and the output out (~30 / 80 MB): compute-
-// bound, once the (M, 4D) hidden activations stay on the chip. The unfused
-// path writes and re-reads them in f32 and bf16 several times (the A&S GELU
-// alone is ~10 elementwise passes).
+// peak), while the kernel must move only x in and the output out (~30 MB):
+// compute-bound, once the (M, 4D) hidden activations stay on the chip. The
+// unfused path writes and re-reads them in f32 and bf16 several times (the
+// A&S GELU alone is ~10 elementwise passes).
 //
-// Design: one block per BM rows. The block LNs its rows into shared memory,
-// then walks the hidden dimension in HC-wide chunks: the fc1 chunk (BM x HC,
-// f32 in shared memory) -> bias, GELU -> a bf16 chunk in shared memory ->
-// its fc2 partial product, accumulated in registers (each warp owns D /
-// warps output columns). On a GPU every width is hidden-blocked this way:
-// a block streams each chunk's weights from L2 into shared memory, so the
-// TPU's resident/blocked split becomes a choice of tile sizes. The (BM x D)
-// f32 accumulator is what sets them, at 64 f32 per thread or more:
-//   D <= 384: 8 warps, BM = 64, HC = 64 (96 f32 per thread at D = 384);
-//   D = 768:  8 warps, BM = 32, HC = 32 (96 per thread);
-//   D = 1024: 16 warps, BM = 32, HC = 32 (64 per thread). Rather than 16
-//     rows (which would stream the 16 MB of weights from L2 twice as often)
-//     or output columns split across blocks (fc1 and the GELU recomputed per
-//     split), the block has 512 threads. Its 4 fc1 tiles per chunk are split
-//     in two halves of K, each summed by one warp, so 8 of the 16 warps run
-//     fc1; the halves are added in f32 before the cast. Shared memory:
-//     227,328 bytes of the 232,448 a block may have.
+// Design: one block of 8 warps per BM rows. The block LNs its rows into
+// shared memory, then walks the hidden dimension in HC-wide chunks: the fc1
+// chunk (BM x HC, f32 in shared memory) -> bias, GELU -> a bf16 chunk in
+// shared memory -> its fc2 partial product, accumulated in registers (each
+// warp owns D / 8 output columns). On a GPU every width is hidden-blocked
+// this way: a block streams each chunk's weights from L2 into shared memory,
+// so the TPU's resident/blocked split becomes a choice of tile sizes. The
+// (BM x D) f32 accumulator is what sets them, at most 96 f32 a thread:
+//   D <= 384: BM = 64, HC = 64;  D = 768: BM = 32, HC = 32.
 // Simple first: each chunk's weights are loaded whole into shared memory
 // before use (no pipelining), wmma instead of wgmma/TMA.
 
@@ -46,48 +36,23 @@ namespace {
 
 using namespace vrvg;
 
-// A&S 7.1.26 constants of ops/gelu.py, as float32.
-constexpr float INV_SQRT2 = 0.70710678118654752440f;
-constexpr float P = 0.3275911f;
-constexpr float A0 = 0.254829592f, A1 = -0.284496736f, A2 = 1.421413741f,
-                A3 = -1.453152027f, A4 = 1.061405429f;
-
-// 0.5 * x * (1 + erf(x / sqrt(2))) with the A&S erf, in the order of
-// ops/gelu.py, every operation rounded on its own.
-__device__ __forceinline__ float gelu_as(float x) {
-  const float z = __fmul_rn(x, INV_SQRT2);
-  const float a = fabsf(z);
-  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(P, a)));
-  float poly = __fadd_rn(A3, __fmul_rn(t, A4));
-  poly = __fadd_rn(A2, __fmul_rn(t, poly));
-  poly = __fadd_rn(A1, __fmul_rn(t, poly));
-  poly = __fadd_rn(A0, __fmul_rn(t, poly));
-  poly = __fmul_rn(t, poly);
-  const float e = expf(__fmul_rn(-a, a));
-  const float sign = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
-  const float erf = __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(poly, e)));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, erf));
-}
-
 template <int D>
 struct Plan {
-  static constexpr bool WIDE = D > 768;  // row 9: 16 warps, split fc1 K
-  static constexpr int THREADS = WIDE ? 512 : 256;
+  static constexpr int THREADS = 256;
   static constexpr int NWARPS = THREADS / WARP;
   static constexpr int BM = D <= 384 ? 64 : 32;
   static constexpr int HC = D <= 384 ? 64 : 32;
-  static constexpr int KS = WIDE ? 2 : 1;  // fc1's K split over warps
   static constexpr int H = 4 * D;
   static constexpr int LDA = D + 16;   // LN rows, and the fc1 weight chunk
-  static constexpr int LDW2 = HC + (WIDE ? 8 : 16);  // fc2 weight chunk
+  static constexpr int LDW2 = HC + 16;  // fc2 weight chunk
   static constexpr int LDG = HC + 16;  // GELU chunk
-  static constexpr int LDS = HC + (WIDE ? 4 : 8);    // f32 fc1 chunk(s)
+  static constexpr int LDS = HC + 8;   // f32 fc1 chunk
   static constexpr int MI2 = BM / 16, NJ2 = D / NWARPS / 16;
   static constexpr size_t A = align128((size_t)BM * LDA * 2);
   static constexpr size_t W1 = align128((size_t)HC * LDA * 2);
   static constexpr size_t W2 = align128((size_t)D * LDW2 * 2);
   static constexpr size_t G = align128((size_t)BM * LDG * 2);
-  static constexpr size_t S = align128((size_t)KS * BM * LDS * 4);
+  static constexpr size_t S = align128((size_t)BM * LDS * 4);
   static constexpr size_t SMEM = A + W1 + W2 + G + S;
   static_assert(D % (NWARPS * 16) == 0, "D must split into 16-wide warp tiles");
   static_assert(W1 >= (size_t)NWARPS * 256 * 4, "epilogue staging");
@@ -102,7 +67,7 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
            const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
            bf16* __restrict__ out, int m, float eps) {
   typedef Plan<D> P_;
-  constexpr int BM = P_::BM, HC = P_::HC, H = P_::H, KS = P_::KS;
+  constexpr int BM = P_::BM, HC = P_::HC, H = P_::H;
   constexpr int THREADS = P_::THREADS, NWARPS = P_::NWARPS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -128,27 +93,22 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
     load_rows(W2s, P_::LDW2, w2 + h0, H, D, HC, D, tid, THREADS);
     __syncthreads();
 
-    // fc1 chunk: (BM x D) x (D x HC) -> f32 in shared memory, each tile's K
-    // in KS parts summed by KS warps into KS buffers.
-    constexpr int TN = HC / 16, TILES = (BM / 16) * TN, KP = D / KS;
-    for (int t = warp; t < TILES * KS; t += NWARPS) {
-      const int tm = (t % TILES) / TN, tn = t % TN, ks = t / TILES;
+    // fc1 chunk: (BM x D) x (D x HC) -> f32 in shared memory.
+    constexpr int TN = HC / 16, TILES = (BM / 16) * TN;
+    for (int t = warp; t < TILES; t += NWARPS) {
+      const int tm = t / TN, tn = t % TN;
       FragC c[1][1];
       zero(c);
-      mma_block<1, 1, KP>(c, As + tm * 16 * P_::LDA + ks * KP, P_::LDA,
-                          W1s + tn * 16 * P_::LDA + ks * KP, P_::LDA);
-      store(Ss + ks * BM * P_::LDS + tm * 16 * P_::LDS + tn * 16, P_::LDS, c);
+      mma_block<1, 1, D>(c, As + tm * 16 * P_::LDA, P_::LDA,
+                         W1s + tn * 16 * P_::LDA, P_::LDA);
+      store(Ss + tm * 16 * P_::LDS + tn * 16, P_::LDS, c);
     }
     __syncthreads();
 
     // bf16(fc1) + b1 -> GELU -> bf16.
     for (int i = tid; i < BM * HC; i += THREADS) {
       const int r = i / HC, c = i % HC;
-      float f = Ss[r * P_::LDS + c];
-#pragma unroll
-      for (int ks = 1; ks < KS; ++ks)
-        f = __fadd_rn(f, Ss[ks * BM * P_::LDS + r * P_::LDS + c]);
-      const bf16 t = add_bf(rbf(f), b1[h0 + c]);
+      const bf16 t = add_bf(rbf(Ss[r * P_::LDS + c]), b1[h0 + c]);
       Gs[r * P_::LDG + c] = rbf(gelu_as(bf(t)));
     }
     __syncthreads();
@@ -211,15 +171,4 @@ extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
     case 768: return run<768>(x, lnw, lnb, w1, b1, w2, b2, gamma, out, m, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Row 9, the same function at D = 1024 (hidden 4096), same arguments.
-extern "C" int vrvg_mlp_residual_hblocked(const void* x, const void* lnw,
-                                          const void* lnb, const void* w1,
-                                          const void* b1, const void* w2,
-                                          const void* b2, const void* gamma,
-                                          void* out, int m, int d, float eps,
-                                          void* stream) {
-  if (d != 1024) return (int)cudaErrorInvalidValue;
-  return run<1024>(x, lnw, lnb, w1, b1, w2, b2, gamma, out, m, eps, stream);
 }

@@ -40,15 +40,20 @@ def reset_launch_counts() -> None:
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device, False when every tensor
     is on the CPU; raises for any other mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        if all(t.is_cuda and t.get_device() == index for t in tensors):
+            return True
+    elif all(t.device.type == "cpu" for t in tensors):
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
     raise ValueError(f"kernel inputs on mixed or unsupported devices: "
                      f"{sorted({str(t.device) for t in tensors})}")
 
 
 def stream_handle(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer handle. The raw
+    query (the one torch's own generated kernels use) skips building a
+    ``torch.cuda.Stream`` object: a few microseconds of host time a launch,
+    which a kernel of tens of microseconds feels."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -49,8 +49,9 @@ SIGNATURES = {
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _F, _P],
+    "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _F, _P],
+    "vrvg_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_swiglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _F, _P],
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,

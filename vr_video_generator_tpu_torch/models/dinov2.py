@@ -11,7 +11,7 @@ upstream state_dict names (``pretrained.blocks.{i}.attn.qkv.weight``,
 
 ``mlp_fused`` picks each half-block's path as the JAX package does, with
 CUDA in the TPU's place (:func:`resolve_block_fusion`). Unfused, the
-LayerNorms go through ops/layernorm.py (Triton kernel on CUDA) and the
+LayerNorms go through ops/layernorm.py (the CUDA kernel on CUDA) and the
 attention through ops/attention.mha (the one-shot CUDA kernel up to 4096
 tokens, the flash kernel above). Fused, the attention half is
 ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual (up to 4096 tokens,

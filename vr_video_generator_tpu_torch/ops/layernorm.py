@@ -1,34 +1,36 @@
-"""Row LayerNorm with f32 statistics: the Triton kernel and its plain version.
+"""Row LayerNorm with f32 statistics: the CUDA kernel and its plain version.
 
 Replaces vr_video_generator_tpu/ops/layernorm.py `layernorm` (Pallas body
 `_ln_kernel`): bf16 rows in and out, mean/variance and the affine in f32,
-eps 1e-6. At 1080p/vits it runs 28 times per step on (8 * 2443, 384) rows.
+eps 1e-6. It runs at every final-norm tap and, on the unfused paths, twice a
+block: at 1080p, (8 * 2443, 384) rows 16 times a vits `auto` step, (8 *
+4785, 1024) 28 times a vitl-728 step, (8 * 2443, 1536) 44 times a vitg-518
+step.
 
-What bounds it on the H100: it reads and writes 384 bf16 per row and does a
-few flops per element, so it is memory-bound (~37 MB per call, ~11 us at
-3.35 TB/s). The plain version materialises f32 copies of the activations
-several times; the kernel reads the bf16 rows once, keeps the statistics in
-registers and writes bf16 once. A block reduction in Triton reaches the same
-bandwidth bound as CUDA C++, so this kernel is Triton.
+What bounds it on the H100: it reads and writes D bf16 a row and does a few
+flops an element, so it is bound by bytes (30 MB, 9 us at 3.35 TB/s, at
+vits). The plain version materialises f32 copies of the activations several
+times; the kernel (``csrc/layernorm.cu``: one warp a row, the row in
+registers, 8- or 16-byte vector loads, a specialisation for each encoder
+width and a generic one for any other) reads the bf16 rows once and writes
+bf16 once. It was a Triton kernel (16 rows a program, D rounded up to a
+power of two) until it measured 1.28x one ``F.layer_norm`` call at vits
+with CUDA events around one call. On an H100 that gap was the host's:
+Triton's launcher took ~63 us a call against ATen's ~21, while the Triton
+kernel's own device time was 9 us against ``F.layer_norm``'s 31; at D =
+1536 it ran 78 us against 61 (PERF.md, kernel table).
+The CUDA kernel, called through the package's ctypes library, costs ~19 us
+of host time a call.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import torch
 
-from vr_video_generator_tpu_torch.kernels import counter, on_cuda
-from vr_video_generator_tpu_torch.kernels.build import BUILD_DIR
+from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
+from vr_video_generator_tpu_torch.kernels.build import check, library
 
 LAUNCHES = counter("layernorm")
-ROWS_PER_PROGRAM = 16
-
-# Bound on first launch (this module must import without triton, which only
-# the GPU machine has); the jitted kernel resolves ``tl`` from these globals.
-triton = None
-tl = None
 
 
 def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -42,51 +44,35 @@ def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    # Triton caches its compiled kernels beside the CUDA build.
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    global triton, tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ln_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_rows, d, eps,
-                  BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        mask = (rows < n_rows)[:, None] & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=1) / d
-        xc = tl.where(mask, x - mean[:, None], 0.0)
-        var = tl.sum(xc * xc, axis=1) / d
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        y = xc * rstd[:, None] * w[None, :] + b[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return ln_kernel
+def _check_operands(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor) -> None:
+    """Raise unless x is contiguous bf16 (..., D) and weight and bias are
+    contiguous f32 (D,): what the kernel takes."""
+    d = x.shape[-1]
+    f32 = torch.float32
+    if (x.dtype != torch.bfloat16 or weight.dtype != f32 or bias.dtype != f32
+            or weight.shape != (d,) or bias.shape != (d,)
+            or not (x.is_contiguous() and weight.is_contiguous()
+                    and bias.is_contiguous())):
+        raise ValueError(
+            f"layernorm kernel needs contiguous bf16 (..., {d}) rows and "
+            f"contiguous f32 ({d},) affine; got x {x.dtype} "
+            f"{tuple(x.shape)} contiguous={x.is_contiguous()}, weight "
+            f"{weight.dtype} {tuple(weight.shape)}, bias {bias.dtype} "
+            f"{tuple(bias.shape)}")
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm of (..., D): the plain version for CPU tensors, the Triton
+    """LayerNorm of (..., D): the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
     if not on_cuda(x, weight, bias):
         return layernorm_plain(x, weight, bias, eps)
+    _check_operands(x, weight, bias)
     d = x.shape[-1]
-    if not x.is_contiguous() or weight.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"layernorm kernel needs contiguous (..., {d}) rows "
-                         f"and ({d},) affine; got {tuple(x.shape)} "
-                         f"contiguous={x.is_contiguous()}")
-    kernel = _triton_kernel()
-    n_rows = x.numel() // d
     y = torch.empty_like(x)
-    grid = (-(-n_rows // ROWS_PER_PROGRAM),)
-    kernel[grid](x, weight.contiguous(), bias.contiguous(), y, n_rows, d, eps,
-                 BLOCK_R=ROWS_PER_PROGRAM, BLOCK_D=1 << (d - 1).bit_length(), num_warps=4)
+    check(library().vrvg_layernorm(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x.numel() // d, d, eps, stream_handle(x.device)), "vrvg_layernorm")
     LAUNCHES.count += 1
     return y

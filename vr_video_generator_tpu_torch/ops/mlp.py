@@ -8,8 +8,13 @@ dtype. The JAX package runs it with the weights resident (body
 `_kernel_resident`, row 8) where they fit in 10 MiB, at vits and vitb, and
 hidden-blocked (body `_kernel`, row 9) above, at vitl; :func:`resident` is
 its rule. Both compute the same function, so both wrappers share the plain
-version; the kernels are ``csrc/mlp.cu``'s, one per width, each with its own
-launch counter. See its header for the design.
+version, each with its own launch counter. Row 8 is ``csrc/mlp.cu``'s
+kernel, one per width. Row 9 is ``csrc/mlp_hblocked.cu``'s chain of three
+kernels on a TMA + wgmma GEMM core: LayerNorm (row 1's kernel) -> fc1 + b1 +
+GELU -> fc2 + b2, LayerScale and residual, with the LN rows and the (M, 4D)
+hidden activations in scratch; :func:`fc1_gelu_plain` and
+:func:`fc2_residual_plain` are the plain versions of its two GEMM stages.
+See the sources' headers for the designs.
 
 The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
 `_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
@@ -80,6 +85,21 @@ def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     return x + gamma.to(dt) * y
 
 
+def fc1_gelu_plain(a: torch.Tensor, w1: torch.Tensor,
+                   b1: torch.Tensor) -> torch.Tensor:
+    """Row 9's second stage: GELU(fc1(a) + b1) on LayerNorm'd rows ``a``,
+    the product cast to a's dtype before the bias add."""
+    return gelu_exact(F.linear(a, w1.to(a.dtype)) + b1.to(a.dtype))
+
+
+def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                       gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row 9's third stage: x + gamma * (fc2(h) + b2), each operation
+    rounded to x's dtype."""
+    dt = x.dtype
+    return x + gamma.to(dt) * (F.linear(h, w2.to(dt)) + b2.to(dt))
+
+
 def takes_width(d: int, ffn_layer: str = "mlp") -> bool:
     """Whether a kernel of the ``ffn_layer`` half-block is built for model
     width ``d``."""
@@ -103,8 +123,17 @@ def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     kernel for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
-    out = _launch("mlp_residual", WIDTHS, x, ln_w, ln_b, w1, b1, w2, b2,
-                  gamma, eps)
+    d = x.shape[-1]
+    _check_mlp_operands("mlp_residual", WIDTHS, x, ln_w, ln_b, w1, b1, w2,
+                        b2, gamma)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty_like(x)
+    check(library().vrvg_mlp_residual(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+        out.data_ptr(), x.numel() // d, d, eps, stream_handle(x.device)),
+        "vrvg_mlp_residual")
     LAUNCHES.count += 1
     return out
 
@@ -115,13 +144,44 @@ def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
                           b2: torch.Tensor, gamma: torch.Tensor,
                           eps: float = 1e-6) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 9's
-    kernel for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, hidden 4D)."""
+    kernel chain for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, hidden
+    4D)."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
-    out = _launch("mlp_residual_hblocked", HBLOCKED_WIDTHS, x, ln_w, ln_b, w1,
-                  b1, w2, b2, gamma, eps)
+    return mlp_residual_hblocked_stages(x, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                        eps)[2]
+
+
+def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
+                                 ln_b: torch.Tensor, w1: torch.Tensor,
+                                 b1: torch.Tensor, w2: torch.Tensor,
+                                 b2: torch.Tensor, gamma: torch.Tensor,
+                                 eps: float = 1e-6):
+    """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output), each
+    (M, .) with M the rows of x. For CPU tensors, the plain versions of the
+    stages; for CUDA tensors, one launch of the kernel chain, whose scratch
+    holds the first two."""
+    if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
+        a = layernorm_plain(x, ln_w, ln_b, eps)
+        h = fc1_gelu_plain(a, w1, b1)
+        return a, h, fc2_residual_plain(h, w2, b2, gamma, x)
+    d = x.shape[-1]
+    _check_mlp_operands("mlp_residual_hblocked", HBLOCKED_WIDTHS, x, ln_w,
+                        ln_b, w1, b1, w2, b2, gamma)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    m = x.numel() // d
+    # Scratch of the chain: the LayerNorm'd rows and the hidden activations.
+    a = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    h = torch.empty((m, 4 * d), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    check(library().vrvg_mlp_residual_hblocked(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, eps,
+        stream_handle(x.device)), "vrvg_mlp_residual_hblocked")
     HBLOCKED_LAUNCHES.count += 1
-    return out
+    return a, h, out
 
 
 def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -175,11 +235,13 @@ def _check_operands(kernel: str, x: torch.Tensor, operands) -> None:
                              f"contiguous={t.is_contiguous()}")
 
 
-def _launch(kernel: str, widths, x: torch.Tensor, ln_w: torch.Tensor,
-            ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-            w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
-            eps: float) -> torch.Tensor:
-    """Check the operands and launch ``csrc/mlp.cu``'s ``vrvg_<kernel>``."""
+def _check_mlp_operands(kernel: str, widths, x: torch.Tensor,
+                        ln_w: torch.Tensor, ln_b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, gamma: torch.Tensor) -> None:
+    """Raise unless the operands are what the GELU half-block kernels take:
+    D in ``widths``, hidden 4D, bf16 activations and weights, f32 LN
+    affine, all contiguous."""
     d = x.shape[-1]
     if d not in widths:
         raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
@@ -189,12 +251,3 @@ def _launch(kernel: str, widths, x: torch.Tensor, ln_w: torch.Tensor,
         ("fc1 weight", w1, (4 * d, d), bf16), ("fc1 bias", b1, (4 * d,), bf16),
         ("fc2 weight", w2, (d, 4 * d), bf16), ("fc2 bias", b2, (d,), bf16),
         ("gamma", gamma, (d,), bf16)))
-    from vr_video_generator_tpu_torch.kernels.build import check, library
-
-    out = torch.empty_like(x)
-    err = getattr(library(), f"vrvg_{kernel}")(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-        out.data_ptr(), x.numel() // d, d, eps, stream_handle(x.device))
-    check(err, f"vrvg_{kernel}")
-    return out

@@ -17,7 +17,10 @@ Phases, each fatal on failure:
      (bound); row 1 also at vitl-728's (38280, 1024) and vitg-518's (19544,
      1536) rows; row 9 also at vitl-728's batch of 8 (M = 38280), and each
      stage of its chain against its plain version (the LN stage bit-exact
-     against row 1); row 2 also at vitg-518's 24 heads; the DPT tail kernels at
+     against row 1); row 10 likewise stage by stage, and the device silu of
+     its gate epilogue bit for bit against the plain one on every bf16
+     input; rows 5 and 6 also at vitl-518's D = 1024; row 2 also at
+     vitg-518's 24 heads; the DPT tail kernels at
      the widths vitg and vitl add (the
      big-C tail at C=384, the ext tail at C=256 and 384); the packed
      blur/select and the banded compositor bit-exact (the banded one also
@@ -48,7 +51,8 @@ Phases, each fatal on failure:
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
-at vitg-518's 24 heads; row 9 twice: at M = 19544 and 38280), and as the last
+at vitg-518's 24 heads; rows 5 and 6 twice: at D = 384 and 1024; row 9
+twice: at M = 19544 and 38280), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -132,15 +136,18 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # depth is (DEPTH_FLOOR).
 # Row 9's chain is held stage by stage too: its two GEMM stages
 # (mlp_fc1_gelu, K = 1024 under the GELU; mlp_fc2_residual, K = 4096) each
-# on the chain's own input, to row 9's bounds.
+# on the chain's own input, to row 9's bounds; and so is row 10's
+# (swiglu_gate, K = 1536 under the bf16 silu chain; swiglu_down, K = 4096).
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
                  "mlp_fc1_gelu": 0.01, "mlp_fc2_residual": 0.01,
-                 "swiglu_residual": 0.01, "head_tail_big_front": 0.005,
+                 "swiglu_residual": 0.01, "swiglu_gate": 0.01,
+                 "swiglu_down": 0.01, "head_tail_big_front": 0.005,
                  "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
                  "mlp_residual_hblocked": 8, "mlp_fc1_gelu": 8,
                  "mlp_fc2_residual": 8, "swiglu_residual": 8,
+                 "swiglu_gate": 8, "swiglu_down": 8,
                  "head_tail_big_front": 4, "rcu_pair": 8}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
@@ -298,7 +305,9 @@ def gemm_addends(name: str, want, args):
         return tuple(args)  # the conv's residuals
     if name == "mlp_fc1_gelu":
         return (args[0],)  # b1, which its product was added to
-    if name == "mlp_fc2_residual":
+    if name == "swiglu_gate":
+        return ()  # silu(x1 + b1) * (x2 + b2): no addend of the output
+    if name in ("mlp_fc2_residual", "swiglu_down"):
         x, gamma, b = args
         return x, gamma.float() * b.float()
     if name == "ln_qkv":
@@ -345,29 +354,58 @@ def randn(gen, shape, scale=1.0, shift=0.0, dtype=None):
     return t.to(dtype) if dtype is not None else t
 
 
-def check_ln_qkv(device) -> dict:
-    """Row 5 at main-path shapes. Module-level so a deliberately broken
-    copy of the kernel can be held against the same check."""
+def check_ln_qkv(device, d: int = DIM) -> dict:
+    """Row 5 at a main path's shapes: vits' (D = 384, 6 heads) or vitl-518's
+    (D = 1024, 16 heads), batch 8 at 1080p. Module-level so a deliberately
+    broken copy of the kernel can be held against the same check."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, ln_qkv_plain
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    # vits' inputs come from the seed they always had; vitl's from their own.
+    gen = torch.Generator(device=device).manual_seed(
+        SEED + 5 if d == DIM else SEED + 50)
     bf = torch.bfloat16
-    x = randn(gen, (B, N_TOK, DIM), dtype=bf)
-    lnw, lnb = randn(gen, (DIM,), 0.1, 1.0), randn(gen, (DIM,), 0.1)
-    w = randn(gen, (3 * DIM, DIM), DIM ** -0.5, dtype=bf)
-    b = randn(gen, (3 * DIM,), 0.5, dtype=bf)
-    args = (x, lnw, lnb, w, b, HEADS, 64 ** -0.5)
+    x = randn(gen, (B, N_TOK, d), dtype=bf)
+    lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
+    w = randn(gen, (3 * d, d), d ** -0.5, dtype=bf)
+    b = randn(gen, (3 * d,), 0.5, dtype=bf)
+    args = (x, lnw, lnb, w, b, d // 64, 64 ** -0.5)
     got, want = ln_qkv(*args), ln_qkv_plain(*args)
     torch.cuda.synchronize()
-    stats = gemm_check("ln_qkv", got, want, args)
+    stats = gemm_check(f"ln_qkv D={d}", got, want, args)
     m = B * N_TOK
     return dict(**stats, ms=event_ms(lambda: ln_qkv(*args)),
                 plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
                 library_ms=None,
-                **bound(nbytes(x, lnw, lnb, w, b, got), 2 * m * DIM * 3 * DIM))
+                **bound(nbytes(x, lnw, lnb, w, b, got), 2 * m * d * 3 * d))
+
+
+def check_proj(gen, d: int):
+    """Row 6 at a main path's shapes: vits' (D = 384) or vitl-518's (D =
+    1024), batch 8 at 1080p, on inputs drawn from ``gen``: its statistics,
+    times and bound, and the inputs (o, x, w, b, gamma)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual,
+                                                       proj_ls_residual_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    bf = torch.bfloat16
+    o = randn(gen, (B, N_TOK, d // 64, 64), dtype=bf)
+    xr = randn(gen, (B, N_TOK, d), dtype=bf)
+    wp = randn(gen, (d, d), d ** -0.5, dtype=bf)
+    bp = randn(gen, (d,), 0.5, dtype=bf)
+    gp = randn(gen, (d,), 0.1, 1.0, dtype=bf)
+    args = (o, xr, wp, bp, gp)
+    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
+    torch.cuda.synchronize()
+    return dict(**gemm_check(f"proj_ls_residual D={d}", got, want, args),
+                ms=event_ms(lambda: proj_ls_residual(*args)),
+                plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
+                library_ms=None,
+                **bound(nbytes(*args, got), 2 * B * N_TOK * d * d)), args
 
 
 def check_layernorm(gen, rows: int, d: int) -> dict:
@@ -619,16 +657,48 @@ def check_ext_tail(gen, c, grid, out_hw) -> dict:
                 library_ms=None, **bound(nbytes(xt, *wts, got), flops))
 
 
-def check_vitg_kernels(device, results, widths) -> None:
-    """Row 10 at vitg-518's shapes into ``results``; rows 11 and 12 at
-    vitg's C=384 and row 7 at C=384 (vitg-126's grid) and C=256 (vitl-252's)
-    into ``widths``."""
+def check_silu_mul(device) -> None:
+    """Row 10's gate epilogue applies silu_mul on the card: its device
+    function, launched elementwise on every bf16 value of x1 (x2 = 1, then
+    seeded x2), must equal the plain silu_mul bit for bit (NaN where the
+    plain one is NaN: the card's f32 -> bf16 conversion has its own NaN
+    payload)."""
     import torch
 
-    from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
-                                                       swiglu_residual_plain)
+    from vr_video_generator_tpu_torch.ops.mlp import silu_mul, silu_mul_kernel
+
+    x1 = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 65536)
+    for label, x2 in (("x2 = 1", torch.ones_like(x1)),
+                      ("seeded x2", randn(gen, x1.shape, 3.0,
+                                          dtype=torch.bfloat16))):
+        got, want = silu_mul_kernel(x1, x2), silu_mul(x1, x2)
+        nan = torch.isnan(want)
+        same = torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+        require(same, f"silu_mul, {label}: the device function differs from "
+                f"the plain one in {int((got != want).sum())} of "
+                f"{x1.numel()} bf16 inputs")
+        log(f"silu_mul, {label}: equal to the plain one on all {x1.numel()} "
+            f"bf16 x1 ({int(nan.sum())} NaN)")
+
+
+def check_vitg_kernels(device, results, widths) -> None:
+    """Row 10 at vitg-518's shapes into ``results``, whole and stage by
+    stage, and its silu on every bf16 input; rows 11 and 12 at vitg's C=384
+    and row 7 at C=384 (vitg-126's grid) and C=256 (vitl-252's) into
+    ``widths``."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
+                                                             layernorm_plain)
+    from vr_video_generator_tpu_torch.ops.mlp import (
+        fc2_residual_plain, swiglu_gate_plain, swiglu_residual,
+        swiglu_residual_plain, swiglu_residual_stages)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
+    check_silu_mul(device)
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
     bf = torch.bfloat16
     d, hid, m = DIM_G, HID_G, B * N_TOK
@@ -638,15 +708,37 @@ def check_vitg_kernels(device, results, widths) -> None:
             randn(gen, (2 * hid,), 0.5, dtype=bf),
             randn(gen, (d, hid), hid ** -0.5, dtype=bf),
             randn(gen, (d,), 0.5, dtype=bf), randn(gen, (d,), 0.1, 1.0, dtype=bf))
-    got, want = swiglu_residual(*args), swiglu_residual_plain(*args)
+    x, lnw, lnb, w12, b12, w3, b3, gamma = args
+    h, g, got = swiglu_residual_stages(*args)
+    want = swiglu_residual_plain(*args)
     torch.cuda.synchronize()
+    whole = gemm_check("swiglu_residual", got, want, args)
+    del want
+    # Stage by stage, each on the chain's own input: the LN stage bit-exact
+    # against row 1's kernel and within the LN bound of the plain LayerNorm;
+    # the two GEMM stages to row 9's stage bounds.
+    require(torch.equal(h, layernorm(x, lnw, lnb)),
+            "swiglu_residual: the LN stage differs from row 1")
+    h_p = layernorm_plain(x, lnw, lnb)
+    err = (h.float() - h_p.float()).abs()
+    require(bool((err <= LN_ATOL + LN_RTOL * h_p.float().abs()).all()),
+            f"swiglu_residual LN stage: max abs err {err.max().item()} over "
+            f"atol {LN_ATOL} + rtol {LN_RTOL}")
+    del h_p, err
+    gate = gemm_check("swiglu_gate", g, swiglu_gate_plain(h, w12, b12), ())
+    down = gemm_check("swiglu_down", got,
+                      fc2_residual_plain(g, w3, b3, gamma, x), (x, gamma, b3))
+    log(f"row 10 stages at M={m}: LN bit-exact against row 1; gate + silu "
+        f"{json.dumps(gate)}; down + residual {json.dumps(down)}")
+    del h, g, got
+    torch.cuda.empty_cache()
     results["swiglu_residual"] = dict(
-        **gemm_check("swiglu_residual", got, want, args),
+        **whole, gate=gate, down=down,
         ms=event_ms(lambda: swiglu_residual(*args)),
         plain_ms=event_ms(lambda: swiglu_residual_plain(*args)),
         library_ms=None,
-        **bound(nbytes(*args, got), 2 * m * d * 2 * hid + 2 * m * hid * d))
-    del args, got, want
+        **bound(nbytes(*args, x), 2 * m * d * 2 * hid + 2 * m * hid * d))
+    del args, x
     for name, r in check_big_tail(gen, FEATURES_G).items():
         widths[f"{name} C={FEATURES_G}"] = r
     for c, (grid, out_hw) in EXT_WIDE.items():
@@ -826,8 +918,6 @@ def kernel_parity(device, rng, results, widths):
     from vr_video_generator_tpu_torch import StereoConfig
     from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
                                                        mlp_residual_plain)
-    from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual,
-                                                       proj_ls_residual_plain)
     from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                             temporal_scan)
     from vr_video_generator_tpu_torch.ops.warp import (
@@ -853,20 +943,12 @@ def kernel_parity(device, rng, results, widths):
         "attention", B, N_TOK, HEADS_G, SEED + 2)
 
     results["ln_qkv"] = check_ln_qkv(device)
+    widths[f"ln_qkv D={DIM_L}"] = check_ln_qkv(device, DIM_L)
 
-    o = randn(gen, (B, N_TOK, HEADS, 64), dtype=bf)
-    xr = randn(gen, (B, N_TOK, DIM), dtype=bf)
-    wp = randn(gen, (DIM, DIM), DIM ** -0.5, dtype=bf)
-    bp = randn(gen, (DIM,), 0.5, dtype=bf)
-    gp = randn(gen, (DIM,), 0.1, 1.0, dtype=bf)
-    args = (o, xr, wp, bp, gp)
-    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
-    torch.cuda.synchronize()
-    results["proj_ls_residual"] = dict(
-        **gemm_check("proj_ls_residual", got, want, args),
-        ms=event_ms(lambda: proj_ls_residual(*args)),
-        plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
-        library_ms=None, **bound(nbytes(*args, got), 2 * m * DIM * DIM))
+    # Row 8 below takes row 6's x and gamma.
+    results["proj_ls_residual"], (_, xr, _, _, gp) = check_proj(gen, DIM)
+    widths[f"proj_ls_residual D={DIM_L}"] = check_proj(
+        torch.Generator(device=device).manual_seed(SEED + 60), DIM_L)[0]
 
     hid = 4 * DIM
     args = (xr, randn(gen, (DIM,), 0.1, 1.0), randn(gen, (DIM,), 0.1),
@@ -881,7 +963,7 @@ def kernel_parity(device, rng, results, widths):
         ms=event_ms(lambda: mlp_residual(*args)),
         plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
         library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * DIM * hid))
-    del o, xr, args, got, want
+    del xr, args, got, want
 
     results["head_tail_ext"] = check_ext_tail(gen, FEATURES, (H0, W0),
                                               OUT_HW)
@@ -1454,14 +1536,20 @@ def main() -> int:
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
-    # Rows 1, 2 and 9 appear more than once: at the first path's shapes with
-    # its launches, and at the widths of a later path with that path's
-    # launches (row 1 at vitl-728's and vitg-518's rows, row 2 at vitg-518's
-    # 24 heads, row 9 at vitl-728's rows).
+    # Rows 1, 2, 5, 6 and 9 appear more than once: at the first path's
+    # shapes with its launches, and at the widths of a later path with that
+    # path's launches (rows 5 and 6 at vitl-518's D = 1024, row 1 at
+    # vitl-728's and
+    # vitg-518's rows, row 2 at vitg-518's 24 heads, row 9 at vitl-728's
+    # rows).
     entries = [(name, results[name], counts[name]) for name in KERNELS]
+    l518 = paths["vitl-518 fused/fused"]["launches"]
     l728 = paths["vitl-728 auto/auto"]["launches"]
     g518 = paths["vitg-518 auto/auto"]["launches"]
-    entries += [("layernorm", widths["layernorm D=1024"], l728["layernorm"]),
+    entries += [("ln_qkv", widths[f"ln_qkv D={DIM_L}"], l518["ln_qkv"]),
+                ("proj_ls_residual", widths[f"proj_ls_residual D={DIM_L}"],
+                 l518["proj_ls_residual"]),
+                ("layernorm", widths["layernorm D=1024"], l728["layernorm"]),
                 ("layernorm", widths["layernorm D=1536"], g518["layernorm"]),
                 ("attention", widths[f"attention H={HEADS_G}"],
                  g518["attention"]),

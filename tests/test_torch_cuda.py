@@ -17,11 +17,12 @@ from vr_video_generator_tpu_torch.ops.head_tail import (
     head_tail_big_front_plain, head_tail_ext, head_tail_ext_plain)
 from vr_video_generator_tpu_torch.ops.mlp import (
     fc1_gelu_plain, fc2_residual_plain, mlp_residual, mlp_residual_hblocked,
-    mlp_residual_hblocked_stages, mlp_residual_plain, swiglu_residual,
-    swiglu_residual_plain)
+    mlp_residual_hblocked_stages, mlp_residual_plain, swiglu_gate_plain,
+    swiglu_residual, swiglu_residual_plain, swiglu_residual_stages)
 from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
                                                   proj_ls_residual,
-                                                  proj_ls_residual_plain)
+                                                  proj_ls_residual_plain,
+                                                  qkv_plain)
 from vr_video_generator_tpu_torch.utils.config import StereoConfig
 from vr_video_generator_tpu_torch.ops.attention import attention, attention_plain
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm, layernorm_plain
@@ -58,10 +59,16 @@ def _randn(gen, shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
             + shift).to(dtype)
 
 
-# N not a multiple of the 64-row tile; D at each width the kernel is built for.
+# N not a multiple of the 64-row tile; D at each width the kernel is built
+# for (3D ragged against the GEMM core's 256-column tile at 128 and 384);
+# at vits' and vitl's D also one row, ragged 128-row tiles and 1080p's rows
+# at batch 8. Row 5's GEMM stage is held alone too, on the kernel's own LN.
 @pytest.mark.parametrize("b,n,d", [(2, 70, 128), (1, 321, 384),
                                    (2, 2443, 384), (1, 67, 768),
-                                   (1, 33, 1024)])
+                                   (1, 33, 1024), (1, 1, 384), (1, 127, 384),
+                                   (1, 129, 384), (8, 2443, 384),
+                                   (1, 1, 1024), (1, 127, 1024),
+                                   (1, 129, 1024), (8, 2443, 1024)])
 def test_ln_qkv_and_proj_kernels_match_plain(cuda, b, n, d):
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     heads = d // 64
@@ -75,6 +82,8 @@ def test_ln_qkv_and_proj_kernels_match_plain(cuda, b, n, d):
     assert launch_counts()["ln_qkv"] == before + 1
     assert qkv.shape == (b, n, 3, heads, 64)
     _assert_rounding_boundaries_only("ln_qkv", qkv, ln_qkv_plain(*args), args)
+    _assert_rounding_boundaries_only(
+        "ln_qkv", qkv, qkv_plain(layernorm(*args[:3]), *args[3:]), args)
     pargs = (_randn(gen, (b, n, heads, 64)), x, _randn(gen, (d, d), d ** -0.5),
              _randn(gen, (d,), 0.5), _randn(gen, (d,), 0.1, 1.0))
     _assert_rounding_boundaries_only("proj_ls_residual",
@@ -145,21 +154,82 @@ def test_mlp_hblocked_stages_match_plain(cuda, m):
     assert torch.equal(out, mlp_residual_hblocked(*args))
 
 
-# m = 100: one ragged row tile; 19544: vitg-518's rows at batch 8.
-@pytest.mark.parametrize("m", [100, 19544])
-def test_swiglu_kernel_matches_plain(cuda, m):
-    gen = torch.Generator(device=cuda).manual_seed(m + 1)
-    d, hid, f32 = 1536, 4096, torch.float32
-    args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
+def _swiglu_args(gen, m, d=1536, hid=4096):
+    f32 = torch.float32
+    return (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
             _randn(gen, (d,), 0.1, 0.0, f32),
             _randn(gen, (2 * hid, d), d ** -0.5), _randn(gen, (2 * hid,), 0.5),
             _randn(gen, (d, hid), hid ** -0.5), _randn(gen, (d,), 0.5),
             _randn(gen, (d,), 0.1, 1.0))
+
+
+# Row 10 whole and stage by stage, as row 9's chain: the LN stage is row 1's
+# kernel (bit-exact); the gate against swiglu_gate_plain and the down
+# product against fc2_residual_plain, each on the chain's own input; one
+# launch count a call, and the same output as the call without the stages.
+# m = 1, 100, 127, 129: a lone row and ragged 128-row tiles; 19544:
+# vitg-518's rows at batch 8.
+@pytest.mark.parametrize("m", [100, 19544, 1, 127, 129])
+def test_swiglu_kernel_matches_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    args = _swiglu_args(gen, m)
+    x, lnw, lnb, w12, b12, w3, b3, gamma = args
     before = launch_counts().get("swiglu_residual", 0)
-    got = swiglu_residual(*args)
+    h, g, out = swiglu_residual_stages(*args)
     assert launch_counts()["swiglu_residual"] == before + 1
-    _assert_rounding_boundaries_only("swiglu_residual", got,
+    assert h.shape == (m, 1536) and g.shape == (m, 4096) and out.shape == x.shape
+    _assert_rounding_boundaries_only("swiglu_residual", out,
                                      swiglu_residual_plain(*args), args)
+    assert torch.equal(h, layernorm(x, lnw, lnb))
+    _assert_rounding_boundaries_only("swiglu_gate", g,
+                                     swiglu_gate_plain(h, w12, b12), ())
+    _assert_rounding_boundaries_only(
+        "swiglu_down", out, fc2_residual_plain(g, w3, b3, gamma, x),
+        (x, gamma, b3))
+    assert torch.equal(out, swiglu_residual(*args))
+
+
+# The gate epilogue's silu_mul against the plain one on every bf16 x1
+# (chip_smoke.py's check, which raises on any difference), one launch each
+# for x2 = 1 and for seeded x2.
+def test_silu_mul_kernel_exhaustive(cuda):
+    from chip_smoke import check_silu_mul
+
+    before = launch_counts().get("silu_mul", 0)
+    check_silu_mul(cuda)
+    assert launch_counts()["silu_mul"] == before + 2
+
+
+# Rows 5 and 10 on the card run their own kernels only: no cuBLAS product,
+# F.linear or torch.matmul (all made to raise), and every kernel of the
+# calls' profile is the LayerNorm's or the GEMM core's.
+def test_ln_qkv_and_swiglu_call_no_library_product(cuda, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library product was called")
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    d = 1024
+    qargs = (_randn(gen, (2, 129, d)),
+             _randn(gen, (d,), 0.1, 1.0, torch.float32),
+             _randn(gen, (d,), 0.1, 0.0, torch.float32),
+             _randn(gen, (3 * d, d), d ** -0.5), _randn(gen, (3 * d,), 0.5),
+             d // 64, 64 ** -0.5)
+    sargs = _swiglu_args(gen, 300)
+    torch.cuda.synchronize()
+    for mod, name in ((torch.nn.functional, "linear"), (torch, "matmul"),
+                      (torch, "mm"), (torch, "addmm"), (torch, "bmm"),
+                      (torch.Tensor, "__matmul__")):
+        monkeypatch.setattr(mod, name, refuse)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ln_qkv(*qargs)
+        swiglu_residual(*sargs)
+        torch.cuda.synchronize()
+    monkeypatch.undo()
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert names and all("layernorm_kernel" in n or "tma_gemm::gemm_kernel" in n
+                         for n in names), sorted(names)
 
 
 def _attention_inputs(cuda, b, n, h, views):

@@ -25,7 +25,8 @@
 //   2. the persistent TMA + wgmma GEMM core (csrc/wgmma_gemm.cuh) for
 //      a W1^T, its epilogue warpgroup adding b1 and taking the GELU on the
 //      bf16 sums: h, (M, 4096) bf16;
-//   3. the same core for h W2^T, its epilogue + b2, gamma * ., x + .:
+//   3. the same core for h W2^T, its epilogue (the core's
+//      LayerScaleResidual, which row 10 shares) + b2, gamma * ., x + .:
 //      out, (M, 1024) bf16.
 // a and h are scratch the caller allocates. The GELU (one reciprocal, one
 // expf and ~15 other rounded f32 operations an element, 80M elements at
@@ -51,39 +52,16 @@ using tma_gemm::load_bf16;
 // none, 386 with all four on the consumers).
 struct Fc1Gelu {
   static constexpr int CONSUMER_BOXES = 2;
-  const bf16* b1;
+  static constexpr bool GATED = false;
+  const bf16* bias;  // b1
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&v)[N], int,
                                              int col) const {
-    __align__(16) bf16 bias[N];
-    load_bf16(bias, b1 + col);
+    __align__(16) bf16 b[N];
+    load_bf16(b, bias + col);
 #pragma unroll
     for (int e = 0; e < N; ++e) {
-      v[e] = rbf(gelu_as(bf(add_bf(v[e], bias[e]))));
-    }
-  }
-};
-
-// out = x + gamma * (bf16(h w2^T) + b2), each operation rounded to bf16.
-struct Fc2Residual {
-  static constexpr int CONSUMER_BOXES = 0;
-  const bf16* b2;
-  const bf16* gamma;
-  const bf16* x;
-  int m, d;
-  template <int N>
-  __device__ __forceinline__ void operator()(bf16 (&v)[N], int row,
-                                             int col) const {
-    if (row >= m) return;  // clipped by the store
-    __align__(16) bf16 bias[N];
-    __align__(16) bf16 g[N];
-    __align__(16) bf16 xr[N];
-    load_bf16(bias, b2 + col);
-    load_bf16(g, gamma + col);
-    load_bf16(xr, x + (long long)row * d + col);
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      v[e] = add_bf(xr[e], mul_bf(g[e], add_bf(v[e], bias[e])));
+      v[e] = rbf(gelu_as(bf(add_bf(v[e], b[e]))));
     }
   }
 };
@@ -104,8 +82,9 @@ extern "C" int vrvg_mlp_residual_hblocked(
   err = tma_gemm::gemm(a, w1, h, m, hid, d, Fc1Gelu{(const bf16*)b1},
                        stream);
   if (err != 0) return err;
-  return tma_gemm::gemm(
-      h, w2, out, m, d, hid,
-      Fc2Residual{(const bf16*)b2, (const bf16*)gamma, (const bf16*)x, m, d},
-      stream);
+  return tma_gemm::gemm(h, w2, out, m, d, hid,
+                        tma_gemm::LayerScaleResidual{
+                            (const bf16*)b2, (const bf16*)gamma,
+                            (const bf16*)x, m, d},
+                        stream);
 }

@@ -25,21 +25,34 @@
 //     costly (fc1's GELU), three warps cannot keep up with the products,
 //     and the consumers finish the tile's first CONSUMER_BOXES 64-column
 //     boxes themselves, from their registers, after staging the rest.
-// TMA zero-fills A rows >= M. The ring's and the staging tile's mbarriers
-// (full/empty per stage; staged/done/free for the tile) carry phases across
-// tiles. Every thread has 168 registers (65536 / 384): enough for a
+// TMA zero-fills A rows >= M and B rows >= N, and clips the stored rows >= M
+// and columns >= N, so M is any count and N any multiple of 8 (a ragged last
+// column tile: its columns >= N are neither finished nor stored). A gated
+// epilogue (Epilogue::GATED, SwiGLU's gate) takes a product tile whose 256
+// B rows are two 128-row boxes of one (2N, K) B, rows [n0, n0 + 128) and
+// [N + n0, N + n0 + 128): a consumer thread holding column c of the first
+// half holds column c + 128 of the second (8-column groups j and j + 16), so
+// C's tile is the 128 columns [n0, n0 + 128), half the staging tile's, and
+// the epilogue takes the sums of both halves (N a multiple of 128). The
+// ring's and the staging tile's mbarriers (full/empty per stage;
+// staged/done/free for the tile) carry phases across tiles. Every thread has 168 registers (65536 / 384): enough for a
 // consumer's 128 accumulators, so no setmaxnreg (ptxas allocates a
 // warpgroup's registers within the launch bound's cap whatever setmaxnreg
 // later grants: a fourth warpgroup, at 128 registers a thread, could not
 // compile the m64n256k16 product).
 //
 // An epilogue is a struct with
-//   static constexpr int CONSUMER_BOXES;  // 0-3: boxes the consumers finish
+//   static constexpr int CONSUMER_BOXES;  // boxes of C's tile the consumers
+//                                         // finish: 0-3, gated 0-1
+//   static constexpr bool GATED;
+//   const bf16* bias;                     // the bias it adds
 //   template <int N>
 //   __device__ void operator()(bf16 (&v)[N], int row, int col) const
 // turning the bf16 sums v of C[row, col : col + N] (N = 2 from the
 // consumers, 8 from the epilogue warps; v 4N-byte aligned) into the bf16
-// outputs there; rows may be >= M (their results are clipped).
+// outputs there; rows may be >= M (their results are clipped), columns are
+// < N. A gated one's operator() takes (v, u, row, col), u the sums of the
+// second half's column, and writes C into v.
 
 #pragma once
 
@@ -106,11 +119,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t bar_staged = bar_empty + 8 * STAGES;  // rest staged
   const uint32_t bar_done = bar_staged + 8;   // consumers' boxes finished
   const uint32_t bar_free = bar_done + 8;     // staging tile stored
-  // The 64-column boxes (and 8-column groups) the consumers finish.
+  constexpr bool GATED = Epilogue::GATED;
+  constexpr int TN = GATED ? BN / 2 : BN;  // columns of C a tile covers
+  constexpr int OUT_BOXES = TN / 64;       // its 64-column boxes a consumer
+  // The boxes (and 8-column groups) the consumers finish.
   constexpr int CB = Epilogue::CONSUMER_BOXES, CJ = 8 * CB;
-  static_assert(CB >= 0 && CB < BN / 64, "the epilogue warps keep a box");
+  static_assert(CB >= 0 && CB < OUT_BOXES, "the epilogue warps keep a box");
 
-  const int tiles_n = n / BN;
+  const int tiles_n = (n + TN - 1) / TN;
   const int tiles = tiles_n * ((m + BM - 1) / BM);
   const int k_tiles = k / BK;
   const int wg = threadIdx.x / 128;
@@ -131,15 +147,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       uint32_t it = 0;  // K slices loaded, over all tiles
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * TN;
         for (int t = 0; t < k_tiles; ++t, ++it) {
           const uint32_t s = it % STAGES;
+          const uint32_t sb = base + s * STAGE_BYTES;
           mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
           mbar_expect_tx(bar_full + 8 * s, STAGE_BYTES);
-          tma_load_2d(base + s * STAGE_BYTES, &ta, t * BK, m0,
-                      bar_full + 8 * s);
-          tma_load_2d(base + s * STAGE_BYTES + A_BYTES, &tb, t * BK, n0,
-                      bar_full + 8 * s);
+          tma_load_2d(sb, &ta, t * BK, m0, bar_full + 8 * s);
+          tma_load_2d(sb + A_BYTES, &tb, t * BK, n0, bar_full + 8 * s);
+          if (GATED) {
+            tma_load_2d(sb + A_BYTES + B_BYTES / 2, &tb, t * BK, n + n0,
+                        bar_full + 8 * s);
+          }
         }
       }
     }
@@ -156,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int j = 0;  // this block's tiles so far
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
       const int row0 = tile / tiles_n * BM + cw * 64 + r0;
-      const int col0 = tile % tiles_n * BN + 2 * quad;
+      const int col0 = tile % tiles_n * TN + 2 * quad;
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.f;
       for (int t = 0; t < k_tiles; ++t, ++it) {
@@ -187,11 +206,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
 
       // The sums, rounded to bf16, into the staging tile once the epilogue
-      // has stored the previous one: the epilogue warps' boxes first, then
-      // the consumers' own, finished here.
+      // has stored the previous one: the epilogue warps' boxes first (both
+      // halves' in a gated tile), then the consumers' own, finished here.
       mbar_wait(bar_free, (j & 1) ^ 1);
 #pragma unroll
-      for (int jj = CJ; jj < BN / 8; ++jj) {
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        if (jj % (TN / 8) < CJ) continue;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = r0 + 8 * i;
@@ -204,12 +224,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_arrive(bar_staged);
 #pragma unroll
       for (int jj = 0; jj < CJ; ++jj) {
+        if (col0 + 8 * jj >= n) continue;  // past a ragged last tile
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = r0 + 8 * i;
-          __align__(8) bf16 v[2] = {rbf(acc[4 * jj + 2 * i]),
-                                    rbf(acc[4 * jj + 2 * i + 1])};
-          epi(v, row0 + 8 * i, col0 + 8 * jj);
+          const int q = 4 * jj + 2 * i;
+          __align__(8) bf16 v[2] = {rbf(acc[q]), rbf(acc[q + 1])};
+          if constexpr (GATED) {
+            // The second half's sums: group jj + 16, 64 values on.
+            __align__(8) bf16 u[2] = {rbf(acc[q + 64]), rbf(acc[q + 65])};
+            epi(v, u, row0 + 8 * i, col0 + 8 * jj);
+          } else {
+            epi(v, row0 + 8 * i, col0 + 8 * jj);
+          }
           *reinterpret_cast<uint32_t*>(
               staged + (jj / 8) * BOX_BYTES + r * 128 +
               (((jj % 8) ^ (r & 7)) << 4) + quad * 4) =
@@ -223,22 +250,30 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int tid = threadIdx.x - 32;  // this epilogue thread, 0..95
     int j = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
-      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * TN;
       mbar_wait(bar_staged, j & 1);
       // 16-byte unit p of the staging tile: consumer p / 2048, box
       // (p / 512) % 4, row (p / 8) % 64, swizzled unit p % 8. Each
-      // consumer's half leaves SPAN units, past its first CB boxes.
-      constexpr int SPAN = (BN / 64 - CB) * 512;
+      // consumer's half leaves SPAN units of C, past its first CB boxes; a
+      // gated tile's second half sits two boxes (1024 units) on.
+      constexpr int SPAN = (OUT_BOXES - CB) * 512;
 #pragma unroll 4
       for (int l = tid; l < CONSUMERS * SPAN; l += EPILOGUE_THREADS) {
         const int p = l / SPAN * 2048 + CB * 512 + l % SPAN;
         const int r = (p >> 3) & 63;
         const int row = m0 + (p >> 11) * 64 + r;
         const int col = n0 + ((p >> 9) & 3) * 64 + (((p & 7) ^ (r & 7)) << 3);
+        if (col >= n) continue;  // past a ragged last tile: not stored
         uint4* unit = reinterpret_cast<uint4*>(smem + C_OFF) + p;
         __align__(16) bf16 v[8];
         *reinterpret_cast<uint4*>(v) = *unit;
-        epi(v, row, col);
+        if constexpr (GATED) {
+          __align__(16) bf16 u[8];
+          *reinterpret_cast<uint4*>(u) = unit[1024];
+          epi(v, u, row, col);
+        } else {
+          epi(v, row, col);
+        }
         *unit = *reinterpret_cast<const uint4*>(v);
       }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -249,7 +284,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int cw = 0; cw < CONSUMERS; ++cw) {
           if (m0 + cw * 64 >= m) continue;
 #pragma unroll
-          for (int q = 0; q < BN / 64; ++q) {
+          for (int q = 0; q < OUT_BOXES; ++q) {
+            if (n0 + 64 * q >= n) continue;
             tma_store_2d(&tc,
                          base + C_OFF + (cw * (BN / 64) + q) * BOX_BYTES,
                          n0 + 64 * q, m0 + cw * 64);
@@ -278,18 +314,24 @@ inline bool make_map_2d(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C (M, N) = epi(bf16(A (M, K) B (N, K)^T)) on `stream`; N a multiple of
-// 256, K of 64, every pointer 16-byte aligned. Returns a CUDA error code.
+// C (M, N) = epi(bf16(A (M, K) B (N, K)^T)) on `stream`, or for a gated
+// epilogue epi of the two halves of bf16(A B^T) with B (2N, K); N a multiple
+// of 8 (gated: of 128), K of 64, every pointer 16-byte aligned. Returns a
+// CUDA error code.
 template <class Epilogue>
 int gemm(const void* a, const void* b, void* c, int m, int n, int k,
          const Epilogue& epi, void* stream) {
+  constexpr bool GATED = Epilogue::GATED;
+  constexpr int TN = GATED ? BN / 2 : BN;
   if (m <= 0) return (int)cudaSuccess;
-  if (n % BN != 0 || k % BK != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n % (GATED ? TN : 8) != 0 || k <= 0 || k % BK != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap ta, tb, tc;
   if (!make_map_2d(encode, &ta, a, m, k, BM, BK) ||
-      !make_map_2d(encode, &tb, b, n, k, BN, BK) ||
+      !make_map_2d(encode, &tb, b, GATED ? 2 * n : n, k, TN, BK) ||
       !make_map_2d(encode, &tc, c, m, n, 64, 64)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -305,12 +347,39 @@ int gemm(const void* a, const void* b, void* c, int m, int n, int k,
                                (int)SMEM_BYTES);
   }
   if (err != cudaSuccess) return (int)err;
-  const int tiles = n / BN * ((m + BM - 1) / BM);
+  const int tiles = (n + TN - 1) / TN * ((m + BM - 1) / BM);
   const int grid = tiles < sms ? tiles : sms;
   gemm_kernel<Epilogue><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       ta, tb, tc, m, n, k, epi);
   return (int)cudaGetLastError();
 }
+
+// out = x + gamma * (bf16(sums) + bias), each operation rounded to bf16:
+// the down projection of the MLP and SwiGLU halves (rows 9 and 10) with
+// LayerScale and the residual; x and out (M, D).
+struct LayerScaleResidual {
+  static constexpr int CONSUMER_BOXES = 0;
+  static constexpr bool GATED = false;
+  const bf16* bias;
+  const bf16* gamma;
+  const bf16* x;
+  int m, d;
+  template <int N>
+  __device__ __forceinline__ void operator()(bf16 (&v)[N], int row,
+                                             int col) const {
+    if (row >= m) return;  // clipped by the store
+    __align__(16) bf16 b[N];
+    __align__(16) bf16 g[N];
+    __align__(16) bf16 xr[N];
+    load_bf16(b, bias + col);
+    load_bf16(g, gamma + col);
+    load_bf16(xr, x + (long long)row * d + col);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      v[e] = add_bf(xr[e], mul_bf(g[e], add_bf(v[e], b[e])));
+    }
+  }
+};
 
 }  // namespace tma_gemm
 }  // namespace vrvg

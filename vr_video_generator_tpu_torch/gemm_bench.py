@@ -1,7 +1,8 @@
-"""Check and time the LayerNorm kernel (row 1) and the hidden-blocked MLP
-half (row 9) on the card at the shapes the main paths give them.
+"""Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), the
+hidden-blocked MLP half (row 9) and the SwiGLU half (row 10) on the card at
+the shapes the main paths give them.
 
-    python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] [--rows 1,9]
+    python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] [--rows 1,5,9,10]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -18,10 +19,21 @@ it makes, the call's TFLOP/s and ``event_ms``, the error against
 ``mlp_residual_plain``, and as a yardstick
 (no PyTorch call computes the same function) the two cuBLAS products of the
 same shapes, ``F.linear`` (M, 1024) x (4096, 1024) and (M, 4096) x (1024,
-4096), timed the same ways. ``--sass`` counts, in the built library, the
-wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm and
-GEMM kernels. Each result is a JSON line; the last line is one JSON object
-with every row and the card's name and power limit.
+4096), timed the same ways.
+
+Row 5 at vits' (19544, 384) and vitl-518's (19544, 1024) rows, and row 10
+at vitg-518's (19544 rows, D = 1536, hidden 4096): the same measurements,
+each stage's TFLOP/s (row 5's GEMM; row 10's gate and down products), and
+the cuBLAS products of the same shapes as the yardstick: ``F.linear`` (M,
+D) x (3D, D) for row 5, (M, 1536) x (8192, 1536) and (M, 4096) x (1536,
+4096) for row 10. The stages are found by kernel name on this tree's
+kernels and on the wmma ones before them, so the file runs unchanged on an
+older tree.
+
+``--sass`` counts, in the built library, the wgmma (HGMMA) and TMA
+(UTMALDG, UTMASTG) instructions of the LayerNorm and GEMM kernels. Each
+result is a JSON line; the last line is one JSON object with every row and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +59,10 @@ LN_SHAPES = (("vits", 19544, 384), ("vitl-728", 38280, 1024),
              ("vitg-518", 19544, 1536))
 MLP_SHAPES = (("vitl-518", 19544), ("vitl-728", 38280))
 D_L = 1024
+QKV_SHAPES = (("vits", 19544, 384), ("vitl-518", 19544, 1024))
+SWIGLU_SHAPES = (("vitg-518", 19544),)
+D_G, HID_G = 1536, 4096
+BATCH = 8  # row 5's rows are (8, M / 8) tokens
 
 
 def kernel_us(fn, calls: int = CALLS) -> tuple:
@@ -145,13 +161,7 @@ def mlp_row(label: str, m: int) -> dict:
                                                        mlp_residual_plain)
 
     d, hid = D_L, 4 * D_L
-    bf = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(m)
-
-    def randn(shape, scale=1.0, shift=0.0, dtype=bf):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale
-                + shift).to(dtype)
-
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m))
     f32 = torch.float32
     args = (randn((m, d)), randn((d,), 0.1, 1.0, f32), randn((d,), 0.1, 0.0, f32),
             randn((hid, d), d ** -0.5), randn((hid,), 0.5),
@@ -169,21 +179,96 @@ def mlp_row(label: str, m: int) -> dict:
     del got, want
     a, h = randn((m, d)), randn((m, hid))
     w1, w2 = args[3], args[5]
-    row["cublas_fc1"] = timings(lambda: F.linear(a, w1))
-    row["cublas_fc2"] = timings(lambda: F.linear(h, w2))
+    # Each GEMM stage is half the FLOPs; the one-kernel MLP before them all.
+    return against_cublas(row, flops,
+                          (("gemm_kernel", flops / 2), ("mlp_kernel", flops)),
+                          (("cublas_fc1", lambda: F.linear(a, w1)),
+                           ("cublas_fc2", lambda: F.linear(h, w2))))
+
+
+def seeded(gen):
+    """randn(shape, scale, shift, dtype) on the card from ``gen``."""
+    def randn(shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+    return randn
+
+
+def against_cublas(row: dict, flops: float, stages, products) -> dict:
+    """Add to ``row`` the kernel's TFLOP/s (kernel-only and by ``event_ms``),
+    each stage's (a kernel whose name holds a key of ``stages``, with that
+    stage's FLOPs), the cuBLAS products' timings and the kernel's time over
+    theirs."""
     k = row["kernel"]
     k["tflops"] = flops / k["kernel_us"] * 1e-6
     k["event_tflops"] = flops / k["event_ms"] * 1e-9
-    for name, us in k["kernels"].items():
-        # Each GEMM stage is half the FLOPs.
-        if "gemm" in name or "mlp_kernel" in name:
-            k.setdefault("stage_tflops", {})[name] = (
-                flops / (2 if "gemm" in name else 1) / us * 1e-6)
-    cublas_us = row["cublas_fc1"]["kernel_us"] + row["cublas_fc2"]["kernel_us"]
-    cublas_ms = row["cublas_fc1"]["event_ms"] + row["cublas_fc2"]["event_ms"]
-    row["over_cublas_kernel"] = k["kernel_us"] / cublas_us
-    row["over_cublas_event"] = k["event_ms"] / cublas_ms
+    k["stage_tflops"] = {name: f / us * 1e-6
+                         for name, us in k["kernels"].items()
+                         for key, f in stages if key in name}
+    for name, fn in products:
+        row[name] = timings(fn)
+    row["over_cublas_kernel"] = k["kernel_us"] / sum(
+        row[name]["kernel_us"] for name, _ in products)
+    row["over_cublas_event"] = k["event_ms"] / sum(
+        row[name]["event_ms"] for name, _ in products)
     return row
+
+
+def qkv_row(label: str, m: int, d: int) -> dict:
+    from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, ln_qkv_plain
+
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + 5 * d))
+    f32 = torch.float32
+    x = randn((BATCH, m // BATCH, d))
+    args = (x, randn((d,), 0.1, 1.0, f32), randn((d,), 0.1, 0.0, f32),
+            randn((3 * d, d), d ** -0.5), randn((3 * d,), 0.5), d // 64,
+            64 ** -0.5)
+    got, want = ln_qkv(*args), ln_qkv_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    flops = 2 * m * d * 3 * d
+    moved = 2 * (x.numel() + 3 * d * d + 3 * d + got.numel()) + 8 * d
+    row = dict(row=5, label=label, M=m, D=d, max_abs_err=err.max().item(),
+               frac_differ=(got != want).float().mean().item(),
+               bound_ms=max(flops / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: ln_qkv(*args)))
+    del got, want, err
+    a, w = randn((m, d)), args[3]
+    return against_cublas(row, flops,
+                          (("gemm_kernel", flops), ("dense_rows", flops)),
+                          (("cublas_qkv", lambda: F.linear(a, w)),))
+
+
+def swiglu_row(label: str, m: int) -> dict:
+    from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
+                                                       swiglu_residual_plain)
+
+    d, hid = D_G, HID_G
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + 10))
+    f32 = torch.float32
+    args = (randn((m, d)), randn((d,), 0.1, 1.0, f32),
+            randn((d,), 0.1, 0.0, f32), randn((2 * hid, d), d ** -0.5),
+            randn((2 * hid,), 0.5), randn((d, hid), hid ** -0.5),
+            randn((d,), 0.5), randn((d,), 0.1, 1.0))
+    got, want = swiglu_residual(*args), swiglu_residual_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    gate, down = 2 * m * d * 2 * hid, 2 * m * hid * d
+    row = dict(row=10, label=label, M=m, D=d, hidden=hid,
+               max_abs_err=err.max().item(),
+               frac_differ=(got != want).float().mean().item(),
+               bound_ms=(gate + down) / BF16_FLOP_PER_S * 1e3,
+               kernel=timings(lambda: swiglu_residual(*args)))
+    del got, want, err
+    h, g = randn((m, d)), randn((m, hid))
+    w12, w3 = args[3], args[5]
+    # This tree's gate and down GEMMs, and the wmma kernels before them.
+    stages = (("SwigluGate", gate), ("gate_kernel", gate),
+              ("LayerScaleResidual", down), ("down_kernel", down))
+    return against_cublas(row, gate + down, stages,
+                          (("cublas_gate", lambda: F.linear(h, w12)),
+                           ("cublas_down", lambda: F.linear(g, w3))))
 
 
 def sass_counts() -> dict:
@@ -198,8 +283,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="count wgmma/TMA instructions in the built kernels")
-    ap.add_argument("--rows", default="1,9",
-                    help="which rows to measure (comma-separated: 1, 9)")
+    ap.add_argument("--rows", default="1,5,9,10",
+                    help="which rows to measure (comma-separated: 1, 5, 9, "
+                    "10)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -218,9 +304,19 @@ def main(argv=None) -> int:
         for shape in LN_SHAPES:
             rows.append(ln_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
+    if "5" in wanted:
+        for shape in QKV_SHAPES:
+            rows.append(qkv_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
     if "9" in wanted:
         for shape in MLP_SHAPES:
             rows.append(mlp_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "10" in wanted:
+        for shape in SWIGLU_SHAPES:
+            rows.append(swiglu_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
     out["rows"] = rows

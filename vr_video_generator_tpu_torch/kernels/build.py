@@ -46,7 +46,7 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _P],
     "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
-    "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -54,6 +54,7 @@ SIGNATURES = {
     "vrvg_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_swiglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _F, _P],
+    "vrvg_silu_mul": [_P, _P, _P, _I, _P],
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

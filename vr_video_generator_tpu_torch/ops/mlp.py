@@ -20,7 +20,11 @@ The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
 `_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
 w12(LN2(x)), at the same rounding points, and with silu rounded as XLA rounds
 ``jax.nn.silu`` on bf16 (:func:`silu_mul`). Its kernel chain is
-``csrc/swiglu.cu``.
+``csrc/swiglu.cu``, on the same GEMM core as row 9: LayerNorm (row 1's
+kernel) -> the gate (h w12^T, + b12, silu(x1) * x2) -> the down product
+with b3, LayerScale and the residual, with the LN rows and the (M, H) gate
+output in scratch; :func:`swiglu_gate_plain` and :func:`fc2_residual_plain`
+are the plain versions of its two GEMM stages.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
 LAUNCHES = counter("mlp_residual")
 HBLOCKED_LAUNCHES = counter("mlp_residual_hblocked")
 SWIGLU_LAUNCHES = counter("swiglu_residual")
+SILU_MUL_LAUNCHES = counter("silu_mul")
 WIDTHS = (128, 384, 768)  # row 8's widths in csrc/mlp.cu (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
 SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
@@ -53,6 +58,39 @@ def silu_mul(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return x1 * (1 / (1 + torch.exp(-x1))) * x2
 
 
+def silu_mul_kernel(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """:func:`silu_mul` of two bf16 tensors of one shape: the plain version
+    for CPU tensors, for CUDA tensors the device function that row 10's gate
+    epilogue applies, launched elementwise (no CLI path calls this; it
+    exposes the epilogue's arithmetic for a check over every bf16 x1)."""
+    if not on_cuda(x1, x2):
+        return silu_mul(x1, x2)
+    for name, t in (("x1", x1), ("x2", x2)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.shape != x1.shape:
+            raise ValueError(f"silu_mul kernel {name} must be contiguous "
+                             f"bf16 {tuple(x1.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty_like(x1)
+    check(library().vrvg_silu_mul(x1.data_ptr(), x2.data_ptr(),
+                                  out.data_ptr(), x1.numel(),
+                                  stream_handle(x1.device)), "vrvg_silu_mul")
+    SILU_MUL_LAUNCHES.count += 1
+    return out
+
+
+def swiglu_gate_plain(h: torch.Tensor, w12: torch.Tensor,
+                      b12: torch.Tensor) -> torch.Tensor:
+    """Row 10's second stage: silu(x1) * x2 with [x1 | x2] = w12(h) + b12
+    on LayerNorm'd rows ``h``, the product cast to h's dtype before the bias
+    add."""
+    dt = h.dtype
+    x1, x2 = (F.linear(h, w12.to(dt)) + b12.to(dt)).chunk(2, dim=-1)
+    return silu_mul(x1, x2)
+
+
 def swiglu_residual_plain(x: torch.Tensor, ln_w: torch.Tensor,
                           ln_b: torch.Tensor, w12: torch.Tensor,
                           b12: torch.Tensor, w3: torch.Tensor,
@@ -60,15 +98,10 @@ def swiglu_residual_plain(x: torch.Tensor, ln_w: torch.Tensor,
                           eps: float = 1e-6) -> torch.Tensor:
     """(..., D) -> x + gamma * (w3(silu(x1) * x2) + b3), [x1 | x2] =
     w12(LN(x)) + b12 split in halves; weights in PyTorch layout, w12
-    (2H, D), w3 (D, H)."""
-    dt = x.dtype
-    h = layernorm_plain(x, ln_w, ln_b, eps)
-    t = F.linear(h, w12.to(dt))
-    t = t + b12.to(dt)
-    x1, x2 = t.chunk(2, dim=-1)
-    y = F.linear(silu_mul(x1, x2), w3.to(dt))
-    y = y + b3.to(dt)
-    return x + gamma.to(dt) * y
+    (2H, D), w3 (D, H). Its stages are row 10's kernel stages' plain
+    versions."""
+    g = swiglu_gate_plain(layernorm_plain(x, ln_w, ln_b, eps), w12, b12)
+    return fc2_residual_plain(g, w3, b3, gamma, x)
 
 
 def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -94,8 +127,8 @@ def fc1_gelu_plain(a: torch.Tensor, w1: torch.Tensor,
 
 def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Row 9's third stage: x + gamma * (fc2(h) + b2), each operation
-    rounded to x's dtype."""
+    """The third stage of rows 9 and 10: x + gamma * (fc2(h) + b2), each
+    operation rounded to x's dtype (row 10: h the gate's output, w2 = w3)."""
     dt = x.dtype
     return x + gamma.to(dt) * (F.linear(h, w2.to(dt)) + b2.to(dt))
 
@@ -194,7 +227,26 @@ def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
         return swiglu_residual_plain(x, ln_w, ln_b, w12, b12, w3, b3, gamma,
                                      eps)
+    return swiglu_residual_stages(x, ln_w, ln_b, w12, b12, w3, b3, gamma,
+                                  eps)[2]
+
+
+def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
+                           ln_b: torch.Tensor, w12: torch.Tensor,
+                           b12: torch.Tensor, w3: torch.Tensor,
+                           b3: torch.Tensor, gamma: torch.Tensor,
+                           eps: float = 1e-6):
+    """Row 10 stage by stage: (LN(x), silu(x1) * x2, the output), each
+    (M, .) with M the rows of x. For CPU tensors, the plain versions of the
+    stages; for CUDA tensors, one launch of the kernel chain, whose scratch
+    holds the first two."""
     d = x.shape[-1]
+    m = x.numel() // d
+    if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
+        h = layernorm_plain(x, ln_w, ln_b, eps).reshape(m, d)
+        g = swiglu_gate_plain(h, w12, b12)
+        return h, g, fc2_residual_plain(g, w3, b3, gamma,
+                                        x.reshape(m, d)).reshape(x.shape)
     if d not in SWIGLU_WIDTHS:
         raise ValueError(f"swiglu_residual kernel takes D in {SWIGLU_WIDTHS}, "
                          f"got {d}")
@@ -209,19 +261,17 @@ def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         ("gamma", gamma, (d,), torch.bfloat16)))
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    m = x.numel() // d
     # Scratch of the chain: the LayerNorm'd rows and silu(x1) * x2.
-    h = torch.empty_like(x)
+    h = torch.empty((m, d), dtype=x.dtype, device=x.device)
     g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = library().vrvg_swiglu_residual(
+    check(library().vrvg_swiglu_residual(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
         b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
         h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, eps,
-        stream_handle(x.device))
-    check(err, "vrvg_swiglu_residual")
+        stream_handle(x.device)), "vrvg_swiglu_residual")
     SWIGLU_LAUNCHES.count += 1
-    return out
+    return h, g, out
 
 
 def _check_operands(kernel: str, x: torch.Tensor, operands) -> None:

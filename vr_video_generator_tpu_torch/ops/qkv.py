@@ -14,6 +14,9 @@ The port's layout differs from the TPU's on purpose: ``ln_qkv`` returns
 (B, N, 3, H, 64), whose q, k and v slices are the strided views the
 attention kernel reads, with no pad rows (the port's attention masks keys
 >= N itself). The kernels are ``csrc/qkv.cu``; see its header for the design.
+``ln_qkv``'s is a chain: row 1's LayerNorm into an (M, D) scratch, then the
+TMA + wgmma GEMM core with the bias and scale in its epilogue;
+:func:`qkv_plain` is the plain version of that second stage.
 """
 
 from __future__ import annotations
@@ -55,9 +58,16 @@ def ln_qkv_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """(B, N, D) -> (B, N, 3, heads, D / heads): LN1, the qkv projection with
     the bias added after the cast, q pre-scaled in f32 and cast back."""
-    bsz, n, d = x.shape
-    h = layernorm_plain(x, ln_w, ln_b, eps)
-    t = F.linear(h, w.to(x.dtype))
+    return qkv_plain(layernorm_plain(x, ln_w, ln_b, eps), w, b, heads, scale)
+
+
+def qkv_plain(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, heads: int,
+              scale: float) -> torch.Tensor:
+    """Row 5's GEMM stage on LayerNorm'd rows ``a`` (B, N, D) -> (B, N, 3,
+    heads, D / heads): the product cast to a's dtype, + bias in that dtype,
+    q's third scaled in f32 and cast back."""
+    bsz, n, d = a.shape
+    t = F.linear(a, w.to(a.dtype))
     t = (t + b.to(t.dtype)).reshape(bsz, n, 3, heads, d // heads)
     q = (t[:, :, 0].float() * scale).to(t.dtype)
     return torch.stack([q, t[:, :, 1], t[:, :, 2]], dim=2)
@@ -91,7 +101,7 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
            eps: float = 1e-6) -> torch.Tensor:
     """(B, N, D) -> (B, N, 3, heads, 64): the plain version for CPU tensors,
-    the kernel for CUDA tensors (bf16)."""
+    the kernel chain for CUDA tensors (bf16)."""
     if not on_cuda(x, ln_w, ln_b, w, b):
         return ln_qkv_plain(x, ln_w, ln_b, w, b, heads, scale, eps)
     bsz, n, d = x.shape
@@ -103,11 +113,13 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _check("ln_qkv bias", b, (3 * d,), torch.bfloat16)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    # Scratch of the chain: the LayerNorm'd rows.
+    a = torch.empty_like(x)
     out = torch.empty((bsz, n, 3, heads, HEAD_DIM), dtype=x.dtype,
                       device=x.device)
     err = library().vrvg_ln_qkv(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), bsz * n, d, scale, eps,
+        b.data_ptr(), a.data_ptr(), out.data_ptr(), bsz * n, d, scale, eps,
         stream_handle(x.device))
     check(err, "vrvg_ln_qkv")
     LN_QKV_LAUNCHES.count += 1

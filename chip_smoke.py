@@ -20,8 +20,10 @@ Phases, each fatal on failure:
      against row 1); row 10 likewise stage by stage, and the device silu of
      its gate epilogue bit for bit against the plain one on every bf16
      input; rows 5 and 6 also at vitl-518's D = 1024; row 2 also at
-     vitg-518's 24 heads; the DPT tail kernels at
-     the widths vitg and vitl add (the
+     vitg-518's 24 heads; rows 11 and 12 stage by stage (the upsample and
+     resize passes bit for bit, conv1 by the dense kernels' bounds, conv2
+     with its 1x1 by the tail bounds) and also at vitl-728's grid; the DPT
+     tail kernels at the widths vitg and vitl add (the
      big-C tail at C=384, the ext tail at C=256 and 384); the packed
      blur/select and the banded compositor bit-exact (the banded one also
      against the classic kernel, and a 4K frame, past its 126 shifts,
@@ -52,7 +54,8 @@ Phases, each fatal on failure:
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
 at vitg-518's 24 heads; rows 5 and 6 twice: at D = 384 and 1024; row 9
-twice: at M = 19544 and 38280), and as the last
+twice: at M = 19544 and 38280; rows 11 and 12 three times: at vitl-518's,
+vitl-728's and vitg-518's shapes), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -79,6 +82,7 @@ HEADS_G = 24
 # ext tail at C=384) and 252 (vitl, ext tail at C=256)
 EXT_WIDE = {384: ((36, 64), (126, 224)), 256: ((72, 128), (252, 448))}
 N_L728 = 4785  # 52 x 92 patches + cls at 1080p, vitl --input_size 728
+GRID_L728, OUT_HW_L728 = (208, 368), (728, 1288)  # its tail's grid, depth
 # vitl-728 runs 2 frames a batch (a cut from 8): the plain attention the
 # kernels are held against materialises f32 logits per 512-key block, and
 # the depth check runs the whole model three times.
@@ -570,7 +574,8 @@ def check_hblocked(gen, m: int, stages: bool) -> dict:
 
 def check_vitl_kernels(device, results, widths) -> None:
     """Row 9 at vitl-518's shapes (and at vitl-728's batch of 8, into
-    ``widths``), rows 11, 12 at vitl-518's and row 17 at vitl-728's."""
+    ``widths``), rows 11, 12 at vitl-518's (and at vitl-728's batch of 8,
+    into ``widths``) and row 17 at vitl-728's."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
@@ -583,14 +588,70 @@ def check_vitl_kernels(device, results, widths) -> None:
     results["flash_attention"] = check_attention(
         "flash_attention", B_L728, N_L728, HEADS_L, SEED + 17)
     results.update(check_big_tail(gen, FEATURES_L))
+    # Rows 11 and 12 at vitl-728's grid, batch 8.
+    for name, r in check_big_tail(gen, FEATURES_L, GRID_L728,
+                                  OUT_HW_L728).items():
+        widths[f"{name} 728"] = r
 
 
-def check_big_tail(gen, c) -> dict:
+def require_equal(label, got, want) -> None:
+    """Bit for bit, or fail with the count of values that differ."""
+    import torch
+
+    require(got.shape == want.shape, f"{label}: shape {tuple(got.shape)}, "
+            f"its plain stage's {tuple(want.shape)}")
+    require(torch.equal(got, want),
+            f"{label}: differs from its plain stage in "
+            f"{int((got != want).sum())} of {want.numel()} values")
+
+
+def big_tail_stages(label, x, wts, out_hw):
+    """Rows 11 and 12 stage by stage, each stage on the kernel chain's own
+    input: the upsample pass and the resize pass bit for bit against their
+    plain stages; conv1 (its bf16 sums) as the dense kernels are held
+    (GEMM_MAX_FRAC, GEMM_MAX_ULPS); conv2 with the 1x1 by TAIL_MAX_REL and
+    TAIL_MEAN_REL; the back's stages on the plain front's output. Each
+    wrapper call must launch once. Returns (statistics, the front's output,
+    the plain front's output)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        big_conv1_plain, big_conv2_plain, big_resize_plain, big_upsample_plain,
+        head_tail_big_back_stages, head_tail_big_front_plain,
+        head_tail_big_front_stages)
+
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    before = launch_counts()
+    u, mid = head_tail_big_front_stages(x, k_oc, k1)
+    torch.cuda.synchronize()
+    require_equal(f"{label} upsample pass", u, big_upsample_plain(x))
+    conv1 = gemm_check(f"head_tail_big_front {label} conv1", mid,
+                       big_conv1_plain(u, k_oc, k1), ())
+    del u
+    mid_p = head_tail_big_front_plain(x, k_oc, k1)
+    r, depth = head_tail_big_back_stages(mid_p, k1, b_oc, b1, k2, b2, k3, b3,
+                                         out_hw)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    require(all(after[k] == before[k] + 1 for k in BIG_TAIL),
+            f"{label}: launches {before} -> {after}")
+    require_equal(f"{label} resize pass", r,
+                  big_resize_plain(mid_p, k1, b_oc, b1, out_hw))
+    conv2 = tail_stats(f"head_tail_big_back {label} conv2", depth,
+                       big_conv2_plain(r, k2, b2, k3, b3))
+    log(f"big-C tail stages {label}: upsample and resize passes bit-exact; "
+        f"conv1 {json.dumps(conv1)}; conv2 {json.dumps(conv2)}")
+    return dict(conv1=conv1, conv2=conv2), mid, mid_p
+
+
+def check_big_tail(gen, c, grid=(H0, W0), out_hw=OUT_HW, batch=B) -> dict:
     """Rows 11 and 12 at ``c`` channels on refinenet1's pre-upsample
-    activation at 1080p, --input_size 518, as the model hands it over (NCHW
-    seen as (B, H0, W0, C)). The back is held on the plain front's output,
-    so each kernel is checked alone; the chain is held too. Returns each
-    kernel's statistics, times and bound."""
+    activation on ``grid`` (1080p, --input_size 518 unless given), as the
+    model hands it over (NCHW seen as (B, H0, W0, C)), depth at ``out_hw``:
+    stage by stage (:func:`big_tail_stages`), each kernel alone (the back on
+    the plain front's output) and the chain. Returns each kernel's
+    statistics, times and bound."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.head_tail import (
@@ -599,35 +660,41 @@ def check_big_tail(gen, c) -> dict:
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
     c2, c3 = c // 2, 32
-    h1, w1 = OUT_HW
-    hm, w2 = 2 * H0, 2 * W0
-    xt = randn(gen, (B, c, H0, W0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    (h0, w0), (h1, w1) = grid, out_hw
+    hm, w2 = 2 * h0, 2 * w0
+    label = f"C={c} {batch}x{h0}x{w0}"
+    xt = randn(gen, (batch, c, h0, w0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
     wts = tail_weights(gen, c)
     k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
-    mid, mid_p = head_tail_big_front(xt, k_oc, k1), head_tail_big_front_plain(xt, k_oc, k1)
-    torch.cuda.synchronize()
+    stages, mid, mid_p = big_tail_stages(label, xt, wts, (h1, w1))
     out = {"head_tail_big_front": dict(
-        **gemm_check(f"head_tail_big_front C={c}", mid, mid_p, ()),
+        **gemm_check(f"head_tail_big_front {label}", mid, mid_p, ()),
+        conv1=stages["conv1"],
         ms=event_ms(lambda: head_tail_big_front(xt, k_oc, k1)),
         plain_ms=event_ms(lambda: head_tail_big_front_plain(xt, k_oc, k1)),
         library_ms=None,
-        **bound(nbytes(xt, k_oc, k1, mid), 2 * B * hm * w2 * 9 * c * c2))}
+        **bound(nbytes(xt, k_oc, k1, mid),
+                2 * batch * hm * w2 * 9 * c * c2))}
+    del mid
     back = (k1, b_oc, b1, k2, b2, k3, b3, (h1, w1))
     got = head_tail_big_back(mid_p, *back)
     want = head_tail_big_back_plain(mid_p, *back)
     torch.cuda.synchronize()
     out["head_tail_big_back"] = dict(
-        **tail_stats(f"head_tail_big_back C={c}", got, want),
+        **tail_stats(f"head_tail_big_back {label}", got, want),
+        conv2=stages["conv2"],
         ms=event_ms(lambda: head_tail_big_back(mid_p, *back)),
         plain_ms=event_ms(lambda: head_tail_big_back_plain(mid_p, *back)),
         library_ms=None,
         **bound(nbytes(mid_p, k1, b_oc, b1, k2, b2, k3, b3, got),
-                2 * B * (h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)))
-    chain = tail_stats(f"head_tail_big C={c} (front + back)",
+                2 * batch * (h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)))
+    del got, want, mid_p
+    chain = tail_stats(f"head_tail_big {label} (front + back)",
                        head_tail_big(xt, *wts, (h1, w1)),
                        head_tail_big_plain(xt, *wts, (h1, w1)))
-    log(f"big-C tail chain at C={c} against its plain version: "
+    log(f"big-C tail chain {label} against its plain version: "
         f"{json.dumps(chain)}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1536,12 +1603,12 @@ def main() -> int:
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
-    # Rows 1, 2, 5, 6 and 9 appear more than once: at the first path's
-    # shapes with its launches, and at the widths of a later path with that
-    # path's launches (rows 5 and 6 at vitl-518's D = 1024, row 1 at
-    # vitl-728's and
-    # vitg-518's rows, row 2 at vitg-518's 24 heads, row 9 at vitl-728's
-    # rows).
+    # Rows 1, 2, 5, 6, 9, 11 and 12 appear more than once: at the first
+    # path's shapes with its launches, and at the widths of a later path with
+    # that path's launches (rows 5 and 6 at vitl-518's D = 1024, row 1 at
+    # vitl-728's and vitg-518's rows, row 2 at vitg-518's 24 heads, row 9 at
+    # vitl-728's rows, rows 11 and 12 at vitl-728's grid and vitg-518's C =
+    # 384).
     entries = [(name, results[name], counts[name]) for name in KERNELS]
     l518 = paths["vitl-518 fused/fused"]["launches"]
     l728 = paths["vitl-728 auto/auto"]["launches"]
@@ -1556,6 +1623,9 @@ def main() -> int:
                 ("mlp_residual_hblocked",
                  widths[f"mlp_residual_hblocked M={B * N_L728}"],
                  l728["mlp_residual_hblocked"])]
+    entries += [(name, widths[f"{name} 728"], l728[name]) for name in BIG_TAIL]
+    entries += [(name, widths[f"{name} C={FEATURES_G}"], g518[name])
+                for name in BIG_TAIL]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = KERNELS[name]

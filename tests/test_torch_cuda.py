@@ -14,7 +14,7 @@ from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
                                                         flash_attention_plain)
 from vr_video_generator_tpu_torch.ops.head_tail import (
     head_tail_big_back, head_tail_big_back_plain, head_tail_big_front,
-    head_tail_big_front_plain, head_tail_ext, head_tail_ext_plain)
+    head_tail_ext, head_tail_ext_plain)
 from vr_video_generator_tpu_torch.ops.mlp import (
     fc1_gelu_plain, fc2_residual_plain, mlp_residual, mlp_residual_hblocked,
     mlp_residual_hblocked_stages, mlp_residual_plain, swiglu_gate_plain,
@@ -260,25 +260,48 @@ def test_flash_attention_kernel_matches_plain(cuda, b, n, h, views):
                     flash_attention_plain(q, k, v, 0.125))
 
 
-# Odd grids (37 x 45 and 20 x 36: no multiple of the 128-pixel segment) at
-# each channel width the big-C kernels are built for.
+# Odd grids (37 x 45 and 20 x 36: no multiple of the 128-pixel tile) at
+# each channel width the big-C kernels are built for, one and three frames:
+# every stage against its plain stage on the chain's own input
+# (chip_smoke.big_tail_stages: the upsample and resize passes bit for bit,
+# conv1 by the GEMM bounds, conv2 by the tail bounds), one launch a wrapper
+# call, and each kernel alone against its whole plain version.
 @pytest.mark.parametrize("b,h0,w0,c", [(1, 37, 45, 256), (2, 20, 36, 128),
-                                       (1, 12, 20, 64), (1, 37, 45, 384)])
+                                       (1, 12, 20, 64), (1, 37, 45, 384),
+                                       (3, 37, 45, 256), (1, 20, 36, 128),
+                                       (3, 20, 36, 128), (3, 12, 20, 64),
+                                       (3, 37, 45, 384)])
 def test_head_tail_big_kernels_match_plain(cuda, b, h0, w0, c):
-    from chip_smoke import gemm_check, tail_stats, tail_weights
+    from chip_smoke import big_tail_stages, gemm_check, tail_stats, tail_weights
 
     gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c)
     out_hw = (h0 * 14 // 4, w0 * 14 // 4)
     x = _randn(gen, (b, c, h0, w0)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
-    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = tail_weights(gen, c)
-    mid = head_tail_big_front(x, k_oc, k1)
-    mid_p = head_tail_big_front_plain(x, k_oc, k1)
+    wts = tail_weights(gen, c)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    _, mid, mid_p = big_tail_stages(f"C={c}", x, wts, out_hw)
     assert mid.shape == mid_p.shape == (b, 2 * h0, 2 * w0, c // 2)
+    assert torch.equal(head_tail_big_front(x, k_oc, k1), mid)
     gemm_check("head_tail_big_front", mid, mid_p, ())
     back = (k1, b_oc, b1, k2, b2, k3, b3, out_hw)
     got = head_tail_big_back(mid_p, *back)
     assert got.shape == (b, *out_hw) and got.dtype == torch.float32
     tail_stats("head_tail_big_back", got, head_tail_big_back_plain(mid_p, *back))
+
+
+# The front reads x in its own strides: NCHW seen as NHWC (as the model
+# hands it over), contiguous NHWC, and a channel slice of a wider NHWC
+# tensor give the same bits.
+def test_head_tail_big_front_reads_any_strides(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, (2, 256, 13, 21)).permute(0, 2, 3, 1)
+    k_oc = _randn(gen, (256, 256, 1, 1), 256 ** -0.5)
+    k1 = _randn(gen, (128, 256, 3, 3), (9 * 256) ** -0.5)
+    wide = torch.zeros((2, 13, 21, 320), dtype=x.dtype, device=cuda)
+    wide[..., 64:] = x
+    want = head_tail_big_front(x, k_oc, k1)
+    for view in (x.contiguous(), wide[..., 64:]):
+        assert torch.equal(head_tail_big_front(view, k_oc, k1), want)
 
 
 # An odd grid (37 x 45: no multiple of the 64-pixel segment anywhere), the

@@ -122,7 +122,7 @@ def sass_counts(kernels=("attention_kernel",)) -> dict:
         name = chunk.split("\n", 1)[0].strip()
         if any(k in name for k in kernels):
             counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
-                            for op in ("HGMMA", "UTMALDG", "UTMASTG",
+                            for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG",
                                        "SYNCS", "MUFU.EX2")}
     return counts
 

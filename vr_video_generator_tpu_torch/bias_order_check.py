@@ -32,10 +32,10 @@ PKG = "vr_video_generator_tpu_torch"
 # add after the cast goes.
 EDITS = (
     ("wgmma_gemm.cuh",
-     "for (int i = 0; i < 128; ++i) acc[i] = 0.f;",
-     "for (int i = 0; i < 128; ++i) {"
+     "for (int i = 0; i < BN / 2; ++i) acc[mw][i] = 0.f;",
+     "for (int i = 0; i < BN / 2; ++i) {"
      " const int c = col0 + 8 * (i / 4) + (i & 1);"
-     " acc[i] = c < n ? bf(epi.bias[c]) : 0.f; }"),
+     " acc[mw][i] = c < n ? bf(epi.bias[c]) : 0.f; }"),
     ("qkv.cu", "bf16 t = add_bf(v[e], b[e]);", "bf16 t = v[e];"),
 )
 

@@ -280,16 +280,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                  : "memory");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, Q_BYTES);
-      tma_load(base, &tq, h, q0, b, bar_q);
+      tma_load_4d(base, &tq, 0, h, q0, b, bar_q);
       int s = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
         mbar_wait(bar_empty + 8 * s, phase ^ 1);
         mbar_expect_tx(bar_full + 8 * s, 2 * TILE_BYTES);
-        tma_load(base + K_OFF + s * TILE_BYTES, &tk, h, t * BN, b,
-                 bar_full + 8 * s);
-        tma_load(base + V_OFF + s * TILE_BYTES, &tv, h, t * BN, b,
-                 bar_full + 8 * s);
+        tma_load_4d(base + K_OFF + s * TILE_BYTES, &tk, 0, h, t * BN, b,
+                    bar_full + 8 * s);
+        tma_load_4d(base + V_OFF + s * TILE_BYTES, &tv, 0, h, t * BN, b,
+                    bar_full + 8 * s);
         if (++s == STAGES) {
           s = 0;
           phase ^= 1;

@@ -1,15 +1,25 @@
 // The big-C DPT tail (vitl C = 256, vitg C = 384) from refinenet1's
-// pre-upsample activation to depth, for Hopper (sm_90a), as two kernels:
+// pre-upsample activation to depth, for Hopper (sm_90a), as two entry
+// points of two kernels each:
 //
-//   front: the x2 align-corners W-upsample of x -> bf16, the x2 H-upsample
-//          (f32 lerp) -> bf16, zero outside the image, then output_conv1
-//          3x3 (C -> C/2) with out_conv's 1x1 mix folded into its weights,
-//          as an implicit GEMM, f32 sums -> bf16                  (HM, W2)
-//   back:  the W-resize to the net width (two taps, f32) + out_conv's bias
-//          response `cw` (interior / top / bottom row) -> bf16, the H-resize
-//          (f32 lerp) -> bf16, zero outside, output_conv2 3x3 (C/2 -> 32) as
-//          an implicit GEMM + f32 bias, ReLU, the 1x1 (32 -> 1) summed in f32
-//          + bias, ReLU -> f32 depth                               (H1, W1)
+//   front (row 11):
+//     0. an NCHW x (the model's activation seen as NHWC) transposed to NHWC;
+//     1. upsample pass: the x2 align-corners W-upsample of x -> bf16, the x2
+//        H-upsample (f32 lerp) -> bf16: U (B, HM, W2, C), what the TPU
+//        kernel keeps in `rz2_s`;
+//     2. output_conv1 3x3 (C -> C2 = C/2) with out_conv's 1x1 mix folded
+//        into its weights, zero padding, f32 sums -> bf16: mid (B, HM, W2,
+//        C2), an implicit GEMM on the TMA + wgmma core
+//        (csrc/wgmma_gemm.cuh, Conv3x3Layout).
+//   back (row 12):
+//     1. resize pass: at each H tap's HM row, the W-resize to the net width
+//        (two taps, f32) + out_conv's bias response `cw` (interior / top /
+//        bottom row) -> bf16, then the H-resize (f32 lerp) -> bf16: R (B,
+//        H1, W1, C2);
+//     2. output_conv2 3x3 (C2 -> 32), zero padding, + f32 bias, ReLU, the
+//        1x1 (32 -> 1) + bias, ReLU -> f32 depth (B, H1, W1): halo tiles
+//        of R by TMA, mma.sync on the tensor cores, the epilogue in
+//        registers.
 //
 // Replaces: vr_video_generator_tpu/ops/head_tail_pallas.py
 // `head_tail_big_pallas`: row 11 `_big_front_kernel` and row 12
@@ -17,202 +27,134 @@
 // the W-resize and `cw` and keeps a (B, HM, C2, W1P) bf16 intermediate in
 // HBM; here the front stores the post-conv1 product (B, HM, W2, C2) bf16
 // instead (its bf16 cast is the same rounding point), and the back applies
-// the W-resize and `cw` as it loads, rounding to bf16 before the H-resize as
-// the TPU's intermediate does. The W-resizes have two non-zero taps per
-// output, so fl(wa * a + wb * b) from per-column tap tables (bf16-rounded
-// weights) is what the TPU's dense resize GEMM gives. `cw` is computed by the
-// wrapper (ops/head_tail.py) in f32 as the JAX package computes it, and added
-// as (z + cw0) + top * (cw1 - cw0) + bot * (cw2 - cw0).
+// the W-resize and `cw`, rounding to bf16 before the H-resize as the TPU's
+// intermediate does. The W-resizes have two non-zero taps per output, so
+// fl(wa * a + wb * b) from per-column tap tables (bf16-rounded weights) is
+// what the TPU's dense resize GEMM gives. `cw` is computed by the wrapper
+// (ops/head_tail.py) in f32 as the JAX package computes it, and added as
+// (z + cw0) + top * (cw1 - cw0) + bot * (cw2 - cw0).
 //
-// What bounds it on the H100: at 1080p/vitl (B = 8, 148 x 264 x 256 in, conv1
-// at 296 x 528 x (256 -> 128), conv2 at 518 x 924 x (128 -> 32)) the two
-// convolutions are 737 + 282 GFLOP (1.03 ms at the 989 TFLOP/s bf16 peak)
-// against ~160 MB in, a 320 MB intermediate out and back, and 15 MB of depth:
-// compute-bound. Each kernel is one block of 8 warps per 128-pixel segment of
-// one output row; the block walks the input channels in chunks of 32: it
-// builds the chunk's 3 rows x 130 pixels, resizing as it loads, and stages
-// the chunk's 9 x 32 x COUT weights (the front's full 9 x 256 x 128 weights,
-// 590 KB, do not fit in shared memory; a chunk is 74 KB), then each warp
-// accumulates its 16 pixels x COUT on the tensor cores (nvcuda::wmma, bf16
-// in, f32 accumulate). 111 KB of shared memory for the front, so two blocks
-// share an SM. At vitg (C = 384, conv1 384 -> 192: 1.66 TFLOP at 1080p, B =
-// 8, bound 1.68 ms; conv2 192 -> 32: 0.42 TFLOP, 0.43 ms) the front makes two
-// passes of 96 output channels (FRONT_CP): 128 registers with a 4-byte
-// spill, 93 KB of shared memory. Simple first: no pipelining, the weights
-// re-read from L2 by every block, wmma and not wgmma.
+// What bounds it on the H100: at 1080p/vitl (B = 8, 148 x 264 x 256 in,
+// conv1 at 296 x 528 x (256 -> 128), conv2 at 518 x 924 x (128 -> 32)) the
+// two convolutions are 737 + 282 GFLOP (0.75 + 0.29 ms at the 989 TFLOP/s
+// bf16 peak); at vitg (C = 384) 1659 + 424 GFLOP. Compute-bound, so the
+// design keeps the tensor cores fed:
+//   - The upsampled conv1 input U (640 MB at vitl-518) is written once by a
+//     memory-bound pass (~0.8 GB of traffic) instead of being rebuilt three
+//     times by each output row's block, and conv1 reads it in place through
+//     TMA: a 3x3 conv is a GEMM with K = 9 C whose K slices are shifted
+//     boxes of U, TMA's zero fill is the padding, and the core's persistent
+//     ring of TMA loads and wgmma products runs it (256 x 128 tiles, 8 image
+//     rows x 32 pixels, at C2 = 128; 128 x 192, 4 rows x 32 pixels, at C2 =
+//     192).
+//   - conv2 has 32 output channels, too narrow for the core's tiles. Its
+//     resized input R is written once by a memory-bound pass, and a
+//     persistent kernel walks tiles of 2 output rows x 128 pixels: for each
+//     64-channel chunk one TMA box of R (64 ch, 130 px, 4 rows, zero-filled
+//     at the image's edges) and the chunk's (9, 32, 64) weights land in a
+//     2-stage ring; each of 8 consumer warps takes 32 pixels of one output
+//     row (two m16 tiles), and reads the nine taps as ldmatrix rows at shifted pixel
+//     offsets (the 128-byte swizzle applied in the address arithmetic) into
+//     mma.m16n8k16. So each element of R is read from device memory (4 /
+//     2) times, not 3 x 3. b2, ReLU, the 1x1 (a thread's 8 channels, then
+//     a quad shuffle), b3 and ReLU run on the accumulator registers.
+// The upsample and resize passes are one block per output row (the row's H
+// taps computed once), 16 bytes a thread. (A resize pass in bands of 8
+// output rows, each HM row's W-resize computed once and staged in shared
+// memory, took 0.86 ms at vitl-518 on an H100 against this one's 0.81.) The
+// model hands x over as an NCHW activation seen as NHWC; a transpose in 64 x
+// 64 tiles makes it NHWC first: 0.17 ms at vitg-518, where PyTorch's copy
+// took 0.95 ms; at vitl-518 the transpose and this upsample pass take 0.11 +
+// 0.34 ms, where a pass reading the NCHW planes directly in 16-channel
+// chunks took 1.23 ms (its 32-byte writes of U scattered).
 
-#include "gemm.cuh"
 #include "taps.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace vrvg;
 
-constexpr int THREADS = 256;
-constexpr int NW = THREADS / WARP;
-constexpr int SEG = NW * 16;   // output pixels of one row per block
-constexpr int KC = 32;         // input channels per chunk
-constexpr int LDI = KC + 16;   // bf16 pitch of a staged input pixel
-constexpr int C3 = 32;         // output_conv2's width (reference head)
-constexpr int ITEMS = 3 * (SEG + 2) * (KC / 8);  // 8-channel groups per chunk
+constexpr int C3 = 32;           // output_conv2's width (reference head)
+constexpr int PASS_THREADS = 256;
 
-constexpr size_t IN_BYTES = align128((size_t)3 * (SEG + 2) * LDI * 2);
+// ---------------------------------------------------------------------------
+// Row 11, 0: the model hands x over as an NCHW activation seen as NHWC. x
+// (B, C, H0 W0) -> (B, H0 W0, C) bf16 in 64 x 64 tiles through shared
+// memory, so a warp reads 64 pixels of a channel and writes 64 channels of a
+// pixel, 128 bytes each way.
+constexpr int TT = 64;  // transpose tile
 
-template <int COUT>
-__host__ __device__ constexpr size_t conv_smem() {
-  return IN_BYTES + align128((size_t)9 * KC * COUT * 2);
-}
-
-// The staged item i of a chunk: input row dh (0..2), pixel p (0..SEG+1),
-// channel group c (0, 8, ...).
-struct Item {
-  int dh, p, c;
-};
-
-__device__ __forceinline__ Item item(int i) {
-  Item it;
-  it.dh = i / ((SEG + 2) * (KC / 8));
-  const int rem = i % ((SEG + 2) * (KC / 8));
-  it.p = rem / (KC / 8);
-  it.c = (rem % (KC / 8)) * 8;
-  return it;
-}
-
-// acc += the 3x3 convolution of the staged chunk: warp w's 16 pixels x COUT.
-template <int COUT>
-__device__ __forceinline__ void conv_chunk(FragC (&acc)[1][COUT / 16],
-                                           const bf16* In, const bf16* Wt,
-                                           int warp) {
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dh = tap / 3, dw = tap % 3;
-    const bf16* a = In + (dh * (SEG + 2) + warp * 16 + dw) * LDI;
-    const bf16* wt = Wt + tap * KC * COUT;
+__global__ void __launch_bounds__(PASS_THREADS)
+to_channels_last_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+                        int c, int hw) {
+  __shared__ bf16 t[TT][TT + 2];  // [channel][pixel]
+  const int p0 = blockIdx.x * TT, c0 = blockIdx.y * TT, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* src = x + ((long long)b * c + c0) * hw + p0;
+  for (int ch = warp; ch < TT; ch += PASS_THREADS / 32) {
 #pragma unroll
-    for (int k = 0; k < KC; k += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + k, LDI);
-#pragma unroll
-      for (int j = 0; j < COUT / 16; ++j) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, wt + k * COUT + j * 16, COUT);
-        wmma::mma_sync(acc[0][j], fa, fb, acc[0][j]);
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int p = 2 * lane + e;
+      t[ch][p] = p0 + p < hw ? src[(long long)ch * hw + p] : rbf(0.f);
     }
   }
-}
-
-// Stage each warp's accumulators (16 x COUT f32) in shared memory, over the
-// input and weight buffers, which are free once every warp is done.
-template <int COUT>
-__device__ __forceinline__ float* stage(unsigned char* smem,
-                                        const FragC (&acc)[1][COUT / 16],
-                                        int warp) {
-  static_assert((size_t)NW * 16 * COUT * 4 <= conv_smem<COUT>(), "staging");
   __syncthreads();
-  float* st = reinterpret_cast<float*>(smem) + warp * 16 * COUT;
-#pragma unroll
-  for (int j = 0; j < COUT / 16; ++j)
-    wmma::store_matrix_sync(st + j * 16, acc[0][j], COUT, wmma::mem_row_major);
-  __syncwarp();
-  return st;
+  bf16* dst = y + ((long long)b * hw + p0) * c + c0;
+  for (int p = warp; p < TT && p0 + p < hw; p += PASS_THREADS / 32) {
+    __nv_bfloat162 v;
+    v.x = t[2 * lane][p];
+    v.y = t[2 * lane + 1][p];
+    *reinterpret_cast<__nv_bfloat162*>(dst + (long long)p * c + 2 * lane) = v;
+  }
 }
 
-// ---------------------------------------------------------------------------
-// Row 11, front: W/H x2 upsample + folded conv1 -> bf16 mid. Grid (segments
-// of W2, HM rows, frames). The output channels are computed CP at a time,
-// each pass walking all input chunks: at C2 = 192 a warp's 16 x 192 f32
-// accumulator would be 96 registers a lane and a chunk's weights 111 KB, so
-// two passes of 96 (48 registers, 55 KB) restage the upsampled input once
-// more instead.
-
-template <int C2>
-constexpr int FRONT_CP = C2 <= 128 ? C2 : C2 / 2;
-
-template <int C, int C2>
-__global__ void __launch_bounds__(THREADS, 2)
-big_front_kernel(const bf16* __restrict__ x,     // (B, H0, W0, C)
-                 const bf16* __restrict__ wt1,   // (9, C, C2) folded
-                 const int* __restrict__ taps,   // (2, W2) j0, j1
-                 const float* __restrict__ tapw, // (2, W2) wa, wb
-                 bf16* __restrict__ mid,         // (B, HM, W2, C2)
-                 int h0n, int w0n, int hm, int w2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* In = reinterpret_cast<bf16*>(smem);
-  bf16* Wt = reinterpret_cast<bf16*>(smem + IN_BYTES);
-  const int x0 = blockIdx.x * SEG, g = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
-  const bf16* xb = x + (long long)b * h0n * w0n * C;
-
-  constexpr int CP = FRONT_CP<C2>;
-  FragC acc[1][CP / 16];
-#pragma unroll 1
-  for (int p0 = 0; p0 < C2; p0 += CP) {
-    zero(acc);
-#pragma unroll 1
-    for (int kc = 0; kc < C; kc += KC) {
-      __syncthreads();  // the previous chunk (or pass) fully consumed
-      for (int i = tid; i < ITEMS; i += THREADS) {
-        const Item it = item(i);
-        const int zr = g - 1 + it.dh, col = x0 - 1 + it.p;
-        __align__(16) bf16 v[8];
-        if (zr >= 0 && zr < hm && col >= 0 && col < w2) {
-          const Taps k = lerp_taps(zr, h0n, hm);
-          const int ja = taps[col], jb = taps[w2 + col];
-          const float wa = tapw[col], wb = tapw[w2 + col];
-          const bf16* r0 = xb + (long long)k.i0 * w0n * C + kc + it.c;
-          const bf16* r1 = xb + (long long)k.i1 * w0n * C + kc + it.c;
-          const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + (long long)ja * C);
-          const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + (long long)jb * C);
-          const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + (long long)ja * C);
-          const uint4 b1 = *reinterpret_cast<const uint4*>(r1 + (long long)jb * C);
-          __align__(16) bf16 z0[8], z1[8];
-          wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
-                 reinterpret_cast<const bf16*>(&b0), wa, wb);
-          wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
-                 reinterpret_cast<const bf16*>(&b1), wa, wb);
+// Row 11, 1: U (B, HM, W2, C) from x (B, H0, W0, C) contiguous. Block (HM
+// row, frame), 16 bytes of U a thread.
+__global__ void __launch_bounds__(PASS_THREADS)
+upsample_kernel(const bf16* __restrict__ x,      // (B, H0, W0, C)
+                const int* __restrict__ taps,    // (2, W2) j0, j1
+                const float* __restrict__ tapw,  // (2, W2) wa, wb
+                bf16* __restrict__ u,            // (B, HM, W2, C)
+                int c, int h0, int w0, int hm, int w2) {
+  const int zr = blockIdx.x, b = blockIdx.y;
+  const int groups = c / 8;
+  const Taps k = lerp_taps(zr, h0, hm);
+  const bf16* r0 = x + ((long long)b * h0 + k.i0) * w0 * c;
+  const bf16* r1 = x + ((long long)b * h0 + k.i1) * w0 * c;
+  bf16* dst = u + ((long long)b * hm + zr) * w2 * c;
+  for (int i = threadIdx.x; i < w2 * groups; i += PASS_THREADS) {
+    const int col = i / groups, cg = (i - col * groups) * 8;
+    const int ja = taps[col] * c + cg, jb = taps[w2 + col] * c + cg;
+    const float wa = tapw[col], wb = tapw[w2 + col];
+    const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + ja);
+    const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + jb);
+    const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + ja);
+    const uint4 b1 = *reinterpret_cast<const uint4*>(r1 + jb);
+    __align__(16) bf16 z0[8], z1[8], v[8];
+    wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
+           reinterpret_cast<const bf16*>(&b0), wa, wb);
+    wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
+           reinterpret_cast<const bf16*>(&b1), wa, wb);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
-        }
-        *reinterpret_cast<uint4*>(In + (it.dh * (SEG + 2) + it.p) * LDI + it.c) =
-            *reinterpret_cast<const uint4*>(v);
-      }
-      load_taps(Wt, wt1 + p0, C2, C, kc, KC, CP);
-      __syncthreads();
-      conv_chunk<CP>(acc, In, Wt, warp);
-    }
-
-    const float* st = stage<CP>(smem, acc, warp);
-    bf16* dst = mid + ((long long)b * hm + g) * w2 * C2 + p0;
-    for (int e = lane * 8; e < 16 * CP; e += WARP * 8) {
-      const int r = e / CP, c = e % CP;
-      const int px = x0 + warp * 16 + r;
-      if (px >= w2) continue;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = rbf(st[e + q]);
-      *reinterpret_cast<uint4*>(dst + (long long)px * C2 + c) =
-          *reinterpret_cast<const uint4*>(v);
-    }
+    for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
+    *reinterpret_cast<uint4*>(dst + (long long)i * 8) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Row 12, back: W-resize + cw -> bf16, H-resize -> bf16, conv2 + ReLU + 1x1
-// + ReLU -> f32 depth. Grid (segments of W1, H1 rows, frames).
+// Row 12, 1: R (B, H1, W1, C2) from mid (B, HM, W2, C2).
 
 // One row of the TPU's intermediate at HM row m, 8 channels: the two-tap
 // W-resize of mid in f32, + cw0, + the top / bottom row correction, -> bf16.
 __device__ __forceinline__ void mid_row8(float* out, const bf16* row, int ja,
-                                         int jb, float wa, float wb, int c2,
+                                         int jb, float wa, float wb,
                                          const float* cw0, const float* dtop,
                                          const float* dbot, bool top,
                                          bool bot) {
-  const uint4 ua = *reinterpret_cast<const uint4*>(row + (long long)ja * c2);
-  const uint4 ub = *reinterpret_cast<const uint4*>(row + (long long)jb * c2);
+  const uint4 ua = *reinterpret_cast<const uint4*>(row + ja);
+  const uint4 ub = *reinterpret_cast<const uint4*>(row + jb);
   const bf16* a = reinterpret_cast<const bf16*>(&ua);
   const bf16* b = reinterpret_cast<const bf16*>(&ub);
 #pragma unroll
@@ -225,127 +167,329 @@ __device__ __forceinline__ void mid_row8(float* out, const bf16* row, int ja,
   }
 }
 
-template <int C2>
-__global__ void __launch_bounds__(THREADS, 2)
-big_back_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
-                const int* __restrict__ taps,    // (2, W1) j0, j1
-                const float* __restrict__ tapw,  // (2, W1) wa, wb
-                const float* __restrict__ cw,    // (3, W1, C2) cw0, dtop, dbot
-                const bf16* __restrict__ wt2,    // (9, C2, C3)
-                const float* __restrict__ b2, const float* __restrict__ w3,
-                const float* __restrict__ b3, float* __restrict__ out, int hm,
-                int w2, int h1, int w1) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* In = reinterpret_cast<bf16*>(smem);
-  bf16* Wt = reinterpret_cast<bf16*>(smem + IN_BYTES);
-  const int x0 = blockIdx.x * SEG, r = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
-  const bf16* mb = mid + (long long)b * hm * w2 * C2;
-  const long long plane = (long long)w1 * C2;
+// Block (H1 row, frame), 16 bytes of R a thread.
+__global__ void __launch_bounds__(PASS_THREADS)
+resize_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
+              const int* __restrict__ taps,    // (2, W1) j0, j1
+              const float* __restrict__ tapw,  // (2, W1) wa, wb
+              const float* __restrict__ cw,    // (3, W1, C2) cw0, dtop, dbot
+              bf16* __restrict__ r,            // (B, H1, W1, C2)
+              int c2, int hm, int w2, int h1, int w1) {
+  const int row = blockIdx.x, b = blockIdx.y;
+  const int groups = c2 / 8;
+  const long long plane = (long long)w1 * c2;
+  const Taps k = lerp_taps(row, hm, h1);
+  const bf16* m0 = mid + ((long long)b * hm + k.i0) * w2 * c2;
+  const bf16* m1 = mid + ((long long)b * hm + k.i1) * w2 * c2;
+  bf16* dst = r + ((long long)b * h1 + row) * w1 * c2;
+  for (int i = threadIdx.x; i < w1 * groups; i += PASS_THREADS) {
+    const int col = i / groups, cg = (i - col * groups) * 8;
+    const int ja = taps[col] * c2 + cg, jb = taps[w1 + col] * c2 + cg;
+    const float wa = tapw[col], wb = tapw[w1 + col];
+    const float* c0 = cw + (long long)i * 8;
+    float z0[8], z1[8];
+    mid_row8(z0, m0, ja, jb, wa, wb, c0, c0 + plane, c0 + 2 * plane,
+             k.i0 == 0, k.i0 == hm - 1);
+    mid_row8(z1, m1, ja, jb, wa, wb, c0, c0 + plane, c0 + 2 * plane,
+             k.i1 == 0, k.i1 == hm - 1);
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, z0[e], z1[e]));
+    *reinterpret_cast<uint4*>(dst + (long long)i * 8) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
 
-  FragC acc[1][C3 / 16];
-  zero(acc);
-#pragma unroll 1
-  for (int kc = 0; kc < C2; kc += KC) {
-    __syncthreads();
-    for (int i = tid; i < ITEMS; i += THREADS) {
-      const Item it = item(i);
-      const int rr = r - 1 + it.dh, col = x0 - 1 + it.p;
-      __align__(16) bf16 v[8];
-      if (rr >= 0 && rr < h1 && col >= 0 && col < w1) {
-        const Taps k = lerp_taps(rr, hm, h1);
-        const int ja = taps[col], jb = taps[w1 + col];
-        const float wa = tapw[col], wb = tapw[w1 + col];
-        const float* c0 = cw + (long long)col * C2 + kc + it.c;
-        float z0[8], z1[8];
-        mid_row8(z0, mb + (long long)k.i0 * w2 * C2 + kc + it.c, ja, jb, wa,
-                 wb, C2, c0, c0 + plane, c0 + 2 * plane, k.i0 == 0,
-                 k.i0 == hm - 1);
-        mid_row8(z1, mb + (long long)k.i1 * w2 * C2 + kc + it.c, ja, jb, wa,
-                 wb, C2, c0, c0 + plane, c0 + 2 * plane, k.i1 == 0,
-                 k.i1 == hm - 1);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, z0[e], z1[e]));
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = rbf(0.f);
+// ---------------------------------------------------------------------------
+// Row 12, 2: conv2 + ReLU + 1x1 + ReLU on halo tiles of R.
+namespace conv2 {
+
+constexpr int TR = 2;                 // output rows a tile
+constexpr int TW = 128;               // output pixels a tile row
+constexpr int HALO_W = TW + 2;        // R's pixels a halo row
+constexpr int MT = 2;  // m16 tiles (16 pixels) a warp (4: 1.05 ms against
+                       // 0.95 at vitl-518 on an H100)
+constexpr int WARP_PX = 16 * MT;      // a consumer warp's pixels of a row
+constexpr int WARPS = TR * TW / WARP_PX;   // consumers
+constexpr int THREADS = 32 * (WARPS + 1);  // + the producer warp
+// A pixel of a 64-channel chunk is one 128-byte row of the 128-byte
+// swizzle, in (row, pixel) order; the weights are rows tap * 32 + n of the
+// chunk's 64 input channels, loaded as two boxes of 144 rows.
+constexpr uint32_t HALO_BYTES = (TR + 2) * HALO_W * 128;  // 66560
+constexpr int W_ROWS = 9 * C3;
+constexpr uint32_t W_BYTES = W_ROWS * 128;                // 36864
+constexpr uint32_t STAGE_BYTES = HALO_BYTES + W_BYTES;
+constexpr int STAGES = 2;
+constexpr uint32_t BAR_OFF = STAGES * STAGE_BYTES;
+constexpr size_t SMEM_BYTES = BAR_OFF + 8 * 2 * STAGES + 1024;
+static_assert(SMEM_BYTES <= tma_gemm::SMEM_LIMIT, "shared memory");
+static_assert(HALO_BYTES % 1024 == 0 && W_BYTES % 2048 == 0, "alignment");
+
+// The 16-byte unit `chunk` (8 channels) of 128-byte row `row` of a tile
+// laid out by TMA in the 128-byte swizzle from `base` (1024-aligned).
+__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int chunk) {
+  return base + row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, row-major) b (16 x 8, column-major).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv2_kernel(const __grid_constant__ CUtensorMap tr,  // R (C2, W1, H1, B)
+             const __grid_constant__ CUtensorMap tw,  // w (C2, 9 * 32)
+             const float* __restrict__ b2,            // (32,)
+             const float* __restrict__ w3,            // (32,)
+             const float* __restrict__ b3,            // (1,)
+             float* __restrict__ out,                 // (B, H1, W1)
+             int batch, int h1, int w1, int c2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar_full = base + BAR_OFF;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const int tiles_x = (w1 + TW - 1) / TW, tiles_y = (h1 + TR - 1) / TR;
+  const int tiles = batch * tiles_y * tiles_x;
+  const int chunks = (c2 + 63) / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {
+    if (lane == 0) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int x0 = tile % tiles_x * TW;
+        const int y0 = tile / tiles_x % tiles_y * TR;
+        const int b = tile / (tiles_x * tiles_y);
+        for (int ch = 0; ch < chunks; ++ch, ++it) {
+          const uint32_t s = it % STAGES;
+          const uint32_t sb = base + s * STAGE_BYTES;
+          mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, STAGE_BYTES);
+          tma_load_4d(sb, &tr, ch * 64, x0 - 1, y0 - 1, b, bar_full + 8 * s);
+          tma_load_2d(sb + HALO_BYTES, &tw, ch * 64, 0, bar_full + 8 * s);
+          tma_load_2d(sb + HALO_BYTES + W_BYTES / 2, &tw, ch * 64, W_ROWS / 2,
+                      bar_full + 8 * s);
+        }
       }
-      *reinterpret_cast<uint4*>(In + (it.dh * (SEG + 2) + it.p) * LDI + it.c) =
-          *reinterpret_cast<const uint4*>(v);
     }
-    load_taps(Wt, wt2, C3, C2, kc, KC, C3);
-    __syncthreads();
-    conv_chunk<C3>(acc, In, Wt, warp);
+    return;
   }
 
-  const float* st = stage<C3>(smem, acc, warp);
-  const int px = x0 + warp * 16 + lane;
-  if (lane < 16 && px < w1) {
-    float s = 0.f;
+  // Consumer warp: output row y0 + rr, pixels x0 + px0 + [0, WARP_PX) as
+  // MT m16 tiles; the accumulator of m16 tile mt, n8 tile nt holds pixels
+  // g and g + 8 (g = lane / 4), channels 8 nt + 2 (lane % 4) + {0, 1}.
+  const int rr = warp / (TW / WARP_PX);
+  const int px0 = warp % (TW / WARP_PX) * WARP_PX;
+  const int g = lane / 4, q = lane % 4;
+  float bias[8], wout[8];
 #pragma unroll
-    for (int c = 0; c < C3; ++c) {
-      const float y = fmaxf(__fadd_rn(st[lane * C3 + c], b2[c]), 0.f);
-      s = __fadd_rn(s, __fmul_rn(y, w3[c]));
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias[2 * nt + e] = b2[8 * nt + 2 * q + e];
+      wout[2 * nt + e] = w3[8 * nt + 2 * q + e];
     }
-    out[((long long)b * h1 + r) * w1 + px] = fmaxf(__fadd_rn(s, b3[0]), 0.f);
+  }
+  const float bout = b3[0];
+  // ldmatrix rows of this lane: A pixel lane % 16 (+ 16 mt) at k half lane
+  // / 16; B row n = 8 (lane / 16) + lane % 8 (+ 16 np) at k half (lane / 8)
+  // % 2.
+  const int a_px = px0 + lane % 16, a_half = lane / 16;
+  const int b_n = 8 * (lane / 16) + lane % 8, b_half = (lane / 8) % 2;
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int x0 = tile % tiles_x * TW;
+    const int y0 = tile / tiles_x % tiles_y * TR;
+    const int b = tile / (tiles_x * tiles_y);
+    float acc[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch, ++it) {
+      const uint32_t s = it % STAGES;
+      mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+      const uint32_t halo = base + s * STAGE_BYTES;
+      const uint32_t wts = halo + HALO_BYTES;
+      // 16-channel k steps of this chunk that hold channels < C2.
+      const int ksteps = min(4, (c2 - ch * 64) / 16);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dh = tap / 3, dw = tap - 3 * dh;
+        const int a_row = (rr + dh) * HALO_W + a_px + dw;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk >= ksteps) break;
+          uint32_t bf_[2][4], af[MT][4];
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            ldmatrix_x4(bf_[np], swz(wts, tap * C3 + 16 * np + b_n,
+                                     2 * kk + b_half));
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            ldmatrix_x4(af[mt], swz(halo, a_row + 16 * mt, 2 * kk + a_half));
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              mma_bf16(acc[mt][nt], af[mt], bf_[nt / 2][2 * (nt % 2)],
+                       bf_[nt / 2][2 * (nt % 2) + 1]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // + b2, ReLU, the 1x1 over this thread's 8 channels, the quad's sum,
+    // + b3, ReLU.
+    const int row = y0 + rr;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y =
+                fmaxf(__fadd_rn(acc[mt][nt][2 * h + e], bias[2 * nt + e]), 0.f);
+            sum = __fadd_rn(sum, __fmul_rn(y, wout[2 * nt + e]));
+          }
+        }
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+        const int px = x0 + px0 + 16 * mt + 8 * h + g;
+        if (q == 0 && row < h1 && px < w1) {
+          out[((long long)b * h1 + row) * w1 + px] =
+              fmaxf(__fadd_rn(sum, bout), 0.f);
+        }
+      }
+    }
   }
 }
 
-template <int C>
-int run_front(const void* x, const void* wt1, const void* taps,
-              const void* tapw, void* mid, int batch, int h0, int w0,
-              void* stream) {
-  const int hm = 2 * h0, w2 = 2 * w0;
-  return launch(big_front_kernel<C, C / 2>, dim3((w2 + SEG - 1) / SEG, hm, batch),
-                THREADS, conv_smem<FRONT_CP<C / 2>>(), stream, (const bf16*)x,
-                (const bf16*)wt1, (const int*)taps, (const float*)tapw,
-                (bf16*)mid, h0, w0, hm, w2);
-}
-
-template <int C2>
-int run_back(const void* mid, const void* taps, const void* tapw,
-             const void* cw, const void* wt2, const void* b2, const void* w3,
-             const void* b3, void* out, int batch, int hm, int w2, int h1,
-             int w1, void* stream) {
-  return launch(big_back_kernel<C2>, dim3((w1 + SEG - 1) / SEG, h1, batch),
-                THREADS, conv_smem<C3>(), stream, (const bf16*)mid,
-                (const int*)taps, (const float*)tapw, (const float*)cw,
-                (const bf16*)wt2, (const float*)b2, (const float*)w3,
-                (const float*)b3, (float*)out, hm, w2, h1, w1);
-}
+}  // namespace conv2
 
 }  // namespace
 
-// Row 11. x (B, H0, W0, C) bf16 contiguous; conv1 with out_conv's mix folded
-// in, (9, C, C/2) bf16; W-upsample tap tables (2, 2*W0) int32 / f32 -> mid
-// (B, 2*H0, 2*W0, C/2) bf16. C in {64, 128, 256, 384}.
-extern "C" int vrvg_head_tail_big_front(const void* x, const void* wt1,
-                                        const void* taps, const void* tapw,
-                                        void* mid, int batch, int h0, int w0,
-                                        int c, void* stream) {
-  switch (c) {
-    case 64: return run_front<64>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
-    case 128: return run_front<128>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
-    case 256: return run_front<256>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
-    case 384: return run_front<384>(x, wt1, taps, tapw, mid, batch, h0, w0, stream);
-    default: return (int)cudaErrorInvalidValue;
+// Row 11. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW tensor
+// (B, C, H0, W0) seen as NHWC, then first transposed into the scratch xt (B,
+// H0, W0, C); conv1 with out_conv's mix folded in, as the GEMM's B (C/2, 9
+// C) bf16, k = (3 dh + dw) C + c; W-upsample tap tables (2, 2 W0) int32 /
+// f32; scratch u (B, 2 H0, 2 W0, C) bf16 -> mid (B, 2 H0, 2 W0, C/2) bf16. C
+// in {64, 128, 256, 384}.
+extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
+                                        const void* w1m, const void* taps,
+                                        const void* tapw, void* u, void* mid,
+                                        int batch, int h0, int w0, int c,
+                                        void* stream) {
+  if (c != 64 && c != 128 && c != 256 && c != 384) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
+  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nchw) {
+    to_channels_last_kernel<<<dim3((h0 * w0 + TT - 1) / TT, c / TT, batch),
+                              PASS_THREADS, 0, st>>>((const bf16*)x,
+                                                     (bf16*)xt, c, h0 * w0);
+    x = xt;
+  }
+  upsample_kernel<<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+      (const bf16*)x, (const int*)taps, (const float*)tapw, (bf16*)u, c, h0,
+      w0, hm, w2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const tma_gemm::Identity epi{nullptr};
+  // 256 x 128 tiles up to C2 = 128 (ragged N below); 128 x 192 at C2 = 192.
+  if (c2 == 192) {
+    return tma_gemm::conv3x3<tma_gemm::Tile<128, 192>>(u, w1m, mid, batch, hm,
+                                                       w2, c, c2, epi, stream);
+  }
+  return tma_gemm::conv3x3<tma_gemm::Tile<256, 128>>(u, w1m, mid, batch, hm,
+                                                     w2, c, c2, epi, stream);
 }
 
 // Row 12. mid (B, HM, W2, C2) bf16; W-resize tap tables (2, W1); cw (3, W1,
-// C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2 (9, C2, 32) bf16 + (32,) f32;
-// the 1x1 (32,) f32 + (1,) f32 -> out (B, H1, W1) f32. C2 in {32, 64, 128, 192}.
+// C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2 as (9 * 32, C2) bf16, row (3 dh
+// + dw) 32 + n; b2 (32,), the 1x1 (32,) and its bias (1,) f32; scratch r
+// (B, H1, W1, C2) bf16 -> out (B, H1, W1) f32. C2 in {32, 64, 128, 192}.
 extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
                                        const void* tapw, const void* cw,
-                                       const void* wt2, const void* b2,
+                                       const void* w2m, const void* b2,
                                        const void* w3, const void* b3,
-                                       void* out, int batch, int hm, int w2,
-                                       int c2, int h1, int w1, void* stream) {
-  switch (c2) {
-    case 32: return run_back<32>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
-    case 64: return run_back<64>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
-    case 128: return run_back<128>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
-    case 192: return run_back<192>(mid, taps, tapw, cw, wt2, b2, w3, b3, out, batch, hm, w2, h1, w1, stream);
-    default: return (int)cudaErrorInvalidValue;
+                                       void* r, void* out, int batch, int hm,
+                                       int w2, int c2, int h1, int w1,
+                                       void* stream) {
+  if (c2 != 32 && c2 != 64 && c2 != 128 && c2 != 192) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (batch <= 0 || h1 <= 0 || w1 <= 0) return (int)cudaSuccess;
+  resize_kernel<<<dim3(h1, batch), PASS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)mid, (const int*)taps, (const float*)tapw,
+      (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t px = (cuuint64_t)c2 * 2, row = px * w1;
+  CUtensorMap tr, tw;
+  if (!tma_gemm::make_map<4>(
+          encode, &tr, r,
+          {(cuuint64_t)c2, (cuuint64_t)w1, (cuuint64_t)h1, (cuuint64_t)batch},
+          {px, row, row * h1},
+          {64, conv2::HALO_W, conv2::TR + 2, 1}) ||
+      !tma_gemm::make_map_2d(encode, &tw, w2m, conv2::W_ROWS, c2,
+                             conv2::W_ROWS / 2, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(conv2::conv2_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)conv2::SMEM_BYTES);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = batch * ((h1 + conv2::TR - 1) / conv2::TR) *
+                    ((w1 + conv2::TW - 1) / conv2::TW);
+  conv2::conv2_kernel<<<tiles < sms ? tiles : sms, conv2::THREADS,
+                        conv2::SMEM_BYTES, (cudaStream_t)stream>>>(
+      tr, tw, (const float*)b2, (const float*)w3, (const float*)b3,
+      (float*)out, batch, h1, w1, c2);
+  return (int)cudaGetLastError();
 }

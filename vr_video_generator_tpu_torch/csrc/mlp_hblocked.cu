@@ -75,7 +75,7 @@ extern "C" int vrvg_mlp_residual_hblocked(
     const void* x, const void* lnw, const void* lnb, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* gamma,
     void* a, void* h, void* out, int m, int d, float eps, void* stream) {
-  if (d % tma_gemm::BN != 0) return (int)cudaErrorInvalidValue;
+  if (d % tma_gemm::Wide::BN != 0) return (int)cudaErrorInvalidValue;
   const int hid = 4 * d;
   int err = vrvg_layernorm(x, lnw, lnb, a, m, d, eps, stream);
   if (err != 0) return err;

@@ -1,8 +1,9 @@
 """Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), the
-hidden-blocked MLP half (row 9) and the SwiGLU half (row 10) on the card at
-the shapes the main paths give them.
+hidden-blocked MLP half (row 9), the SwiGLU half (row 10) and the big-C DPT
+tail (rows 11 and 12) on the card at the shapes the main paths give them.
 
-    python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] [--rows 1,5,9,10]
+    python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
+        [--rows 1,5,9,10,11,12]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -30,10 +31,22 @@ D) x (3D, D) for row 5, (M, 1536) x (8192, 1536) and (M, 4096) x (1536,
 kernels and on the wmma ones before them, so the file runs unchanged on an
 older tree.
 
-``--sass`` counts, in the built library, the wgmma (HGMMA) and TMA
-(UTMALDG, UTMASTG) instructions of the LayerNorm and GEMM kernels. Each
-result is a JSON line; the last line is one JSON object with every row and
-the card's name and power limit.
+Rows 11 and 12, the big-C DPT tail, at vitl-518's (C = 256, x 148 x 264,
+depth 518 x 924), vitl-728's (C = 256, 208 x 368, 728 x 1288) and
+vitg-518's (C = 384, 148 x 264, 518 x 924) shapes, batch 8, x an NCHW
+tensor seen as NHWC as the model hands it over: each kernel's device time
+by stage (the transpose, the upsample pass and conv1; the resize pass and
+conv2), each stage's TFLOP/s (the convs) or GB/s (the passes), the span
+and ``event_ms`` of a call, the error against the plain version, the bound,
+and as a yardstick (the port never calls it) cuDNN's bf16 channels-last
+``F.conv2d`` of the same conv1 and conv2 on seeded inputs of their shapes.
+The stages are found by kernel name, and the row-12 kernels of an older
+tree (``big_front_kernel``, ``big_back_kernel``) count as one stage each.
+
+``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
+(HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
+big-C tail kernels. Each result is a JSON line; the last line is one JSON
+object with every row and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -61,6 +74,10 @@ MLP_SHAPES = (("vitl-518", 19544), ("vitl-728", 38280))
 D_L = 1024
 QKV_SHAPES = (("vits", 19544, 384), ("vitl-518", 19544, 1024))
 SWIGLU_SHAPES = (("vitg-518", 19544),)
+# (label, C, (H0, W0), (H1, W1)) of the big-C tail at 1080p.
+BIG_TAIL_SHAPES = (("vitl-518", 256, (148, 264), (518, 924)),
+                   ("vitl-728", 256, (208, 368), (728, 1288)),
+                   ("vitg-518", 384, (148, 264), (518, 924)))
 D_G, HID_G = 1536, 4096
 BATCH = 8  # row 5's rows are (8, M / 8) tokens
 
@@ -271,21 +288,97 @@ def swiglu_row(label: str, m: int) -> dict:
                            ("cublas_down", lambda: F.linear(g, w3))))
 
 
+def stage_times(kernels: dict, stages) -> dict:
+    """Device us a call of each stage: the kernels whose name holds its
+    key."""
+    return {label: sum(us for name, us in kernels.items() if key in name)
+            for label, key in stages}
+
+
+def big_tail_rows(label: str, c: int, grid, out_hw) -> list:
+    """Rows 11 and 12 at one path's shapes (module docstring)."""
+    from chip_smoke import tail_stats, tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_big_back, head_tail_big_back_plain, head_tail_big_front,
+        head_tail_big_front_plain)
+
+    (h0, w0), (h1, w1) = grid, out_hw
+    c2, hm, w2 = c // 2, 2 * h0, 2 * w0
+    gen = torch.Generator(device="cuda").manual_seed(c + h0)
+    randn = seeded(gen)
+    x = randn((BATCH, c, h0, w0)).permute(0, 2, 3, 1)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = tail_weights(gen, c)
+    mid, mid_p = head_tail_big_front(x, k_oc, k1), head_tail_big_front_plain(
+        x, k_oc, k1)
+    torch.cuda.synchronize()
+    conv1 = 2 * BATCH * hm * w2 * 9 * c * c2
+    conv2 = 2 * BATCH * h1 * w1 * 9 * c2 * 32
+    xb, ub = 2 * x.numel(), 2 * BATCH * hm * w2 * c
+    midb, rb = 2 * mid.numel(), 2 * BATCH * h1 * w1 * c2
+    front = dict(row=11, label=label, C=c, grid=grid,
+                 frac_differ=(mid != mid_p).float().mean().item(),
+                 bound_ms=max(conv1 / BF16_FLOP_PER_S,
+                              (xb + midb) / HBM_BYTES_PER_S) * 1e3,
+                 kernel=timings(lambda: head_tail_big_front(x, k_oc, k1)))
+    del mid
+    back_args = (k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+    got = head_tail_big_back(mid_p, *back_args)
+    want = head_tail_big_back_plain(mid_p, *back_args)
+    torch.cuda.synchronize()
+    back = dict(row=12, label=label, C2=c2, out_hw=out_hw,
+                **tail_stats(f"head_tail_big_back {label}", got, want),
+                bound_ms=max(conv2 / BF16_FLOP_PER_S,
+                             (midb + 4 * got.numel()) / HBM_BYTES_PER_S) * 1e3,
+                kernel=timings(lambda: head_tail_big_back(mid_p, *back_args)))
+    del got, want
+    # Stage rates: FLOPs of the convs, bytes (each input read once, each
+    # output written once) of the passes.
+    for row, stages in (
+            (front, (("transpose", "to_channels_last", 2 * xb, None),
+                     ("upsample", "upsample", xb + ub, None),
+                     ("conv1", "gemm_kernel", None, conv1),
+                     ("whole (older tree)", "big_front_kernel", None, conv1))),
+            (back, (("resize", "resize_kernel", midb + rb, None),
+                    ("conv2", "conv2::conv2_kernel", None, conv2),
+                    ("whole (older tree)", "big_back_kernel", None, conv2)))):
+        k = row["kernel"]
+        us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+        k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+        k["stage_rates"] = {
+            n: (dict(gb_s=b / us[n] * 1e-3) if b else
+                dict(tflops=f / us[n] * 1e-6))
+            for n, _, b, f in stages if us[n] > 0}
+    # cuDNN's bf16 channels-last convolutions of the same shapes.
+    cl = torch.channels_last
+    u = randn((BATCH, c, hm, w2)).contiguous(memory_format=cl)
+    w1c = randn((c2, c, 3, 3), (9 * c) ** -0.5).contiguous(memory_format=cl)
+    r = randn((BATCH, c2, h1, w1)).contiguous(memory_format=cl)
+    w2c = k2.contiguous(memory_format=cl)
+    front["cudnn_conv1"] = timings(lambda: F.conv2d(u, w1c, padding=1))
+    back["cudnn_conv2"] = timings(lambda: F.conv2d(r, w2c, padding=1))
+    for row, key, flops in ((front, "cudnn_conv1", conv1),
+                            (back, "cudnn_conv2", conv2)):
+        row[key]["tflops"] = flops / row[key]["kernel_us"] * 1e-6
+        row["over_cudnn_kernel"] = (row["kernel"]["kernel_us"]
+                                    / row[key]["kernel_us"])
+    return [front, back]
+
+
 def sass_counts() -> dict:
-    """wgmma and TMA instructions of the LayerNorm and GEMM kernels in the
-    built library (cuobjdump -sass)."""
+    """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM and big-C
+    tail kernels in the built library (cuobjdump -sass)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts as sc
 
-    return sc(("layernorm", "gemm_kernel"))
+    return sc(("layernorm", "gemm_kernel", "head_tail_big"))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="count wgmma/TMA instructions in the built kernels")
-    ap.add_argument("--rows", default="1,5,9,10",
+    ap.add_argument("--rows", default="1,5,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 5, 9, "
-                    "10)")
+                    "10, 11, 12; 11 and 12 are measured together)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -318,6 +411,13 @@ def main(argv=None) -> int:
         for shape in SWIGLU_SHAPES:
             rows.append(swiglu_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if wanted & {"11", "12"}:
+        torch.backends.cudnn.allow_tf32 = False
+        for shape in BIG_TAIL_SHAPES:
+            for row in big_tail_rows(*shape):
+                rows.append(row)
+                print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
     out["rows"] = rows
     print(json.dumps(out))

@@ -61,8 +61,9 @@ SIGNATURES = {
     "vrvg_head_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _P],
     "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vrvg_head_tail_big_front": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "vrvg_head_tail_big_front": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _P],
+    "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P],
 }
 

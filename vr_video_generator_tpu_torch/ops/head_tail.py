@@ -36,9 +36,13 @@ out_conv's bias and conv1's bias ride ``cw``, conv1's response to the bias
 image per row case (interior, top, bottom), W-resized in f32 and added before
 the intermediate's cast. The back H-resizes (f32 lerp, bf16), runs conv2 with
 its f32 bias, ReLU, the f32 1x1 and ReLU. The kernels are
-``csrc/head_tail_big.cu``; their intermediate is the bf16 post-conv1 product
-(B, 2 H0, 2 W0, C/2), and the back applies the W-resize and ``cw`` as it
-loads it.
+``csrc/head_tail_big.cu``, a short chain for each wrapper: the front
+transposes an NCHW x to NHWC, then runs the upsample pass (U, the upsampled
+conv1 input) and conv1 as an implicit GEMM on the TMA + wgmma core; their
+intermediate is the bf16 post-conv1 product (B, 2 H0, 2 W0, C/2); the back
+runs the resize pass (R: the W-resize and ``cw``, then the H-resize) and
+conv2 with the 1x1 in registers. Each of those four stages has its own
+plain version, and the whole plain versions compose them.
 """
 
 from __future__ import annotations
@@ -413,14 +417,18 @@ def fold_conv1(k_oc: torch.Tensor, k1: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _host_bias_tables(w2: int, w1: int) -> Tuple[np.ndarray, np.ndarray]:
+def _host_bias_tables(w2: int, w1: int):
     """(3, W2) masks of the image columns where conv1's width taps dw = 0,
-    1, 2 fall inside the image, and the f32 (W2, W1) W-resize matrix."""
+    1, 2 fall inside the image; (3, 3) masks of the kernel rows dh each row
+    case keeps (interior: all, top: 1 and 2, bottom: 0 and 1); and the f32
+    (W2, W1) W-resize matrix."""
     cm = np.zeros((3, w2), np.float32)
     cm[0, 1:] = 1.0
     cm[1, :] = 1.0
     cm[2, :w2 - 1] = 1.0
-    return cm, linear_weights(w2, w1, align_corners=True).T.astype(np.float32)
+    rows = np.array([[1, 1, 1], [0, 1, 1], [1, 1, 0]], np.float32)
+    return (cm, rows,
+            linear_weights(w2, w1, align_corners=True).T.astype(np.float32))
 
 
 def big_tail_bias(k1: torch.Tensor, b_oc: torch.Tensor, b1: torch.Tensor,
@@ -428,45 +436,54 @@ def big_tail_bias(k1: torch.Tensor, b_oc: torch.Tensor, b1: torch.Tensor,
     """``cw`` of head_tail_big_pallas (:716-735), in f32: for the interior,
     top and bottom rows, conv1's response to the out_conv-bias image with
     zero padding, plus b1, through the f32 W-resize. Returned as (3, W1, C2):
-    cw0, cw1 - cw0 and cw2 - cw0, the three terms the intermediate adds."""
-    cm, wtb = _on_device(_host_bias_tables, w2, w1, k1.device)
-    base = torch.einsum("ojhw,j->hwo", k1.float(), b_oc.float())  # (3, 3, C2)
-    b1pat = b1.float()[:, None] * cm[1][None, :]
+    cw0, cw1 - cw0 and cw2 - cw0, the three terms the intermediate adds. The
+    three row cases are products with (3, 3) row masks: a few launches and
+    little host time a call (a sum of taps per case took ~50 launches)."""
+    cm, rows, wtb = _on_device(_host_bias_tables, w2, w1, k1.device)
+    c2 = k1.shape[0]
+    base = k1.float().permute(2, 3, 0, 1) @ b_oc.float()  # (3, 3, C2)
+    # The case's kernel rows, then the image columns each width tap reaches.
+    per_dw = (rows @ base.reshape(3, 3 * c2)).reshape(3, 3, c2)
+    corr = per_dw.transpose(1, 2) @ cm  # (3, C2, W2)
+    cw = ((corr + b1.float()[:, None] * cm[1]) @ wtb).transpose(1, 2)
+    return torch.stack([cw[0], cw[1] - cw[0], cw[2] - cw[0]])
 
-    def case(dhs):
-        corr = sum(base[dh, dw][:, None] * cm[dw][None, :]
-                   for dh in dhs for dw in range(3))
-        return ((corr + b1pat) @ wtb).T  # (W1, C2)
 
-    cw0, cw1, cw2 = case((0, 1, 2)), case((1, 2)), case((0, 1))
-    return torch.stack([cw0, cw1 - cw0, cw2 - cw0])
+def big_upsample_plain(x: torch.Tensor) -> torch.Tensor:
+    """Row 11's first stage: x (B, H0, W0, C) -> U (B, 2 H0, 2 W0, C) in x's
+    dtype: the W-upsample (bf16 resize weights, f32 sums) -> dtype, the
+    H-upsample (exact taps, f32 lerp, no bias) -> dtype."""
+    dt = x.dtype
+    _, h0, w0, _ = x.shape
+    wta = _resize_matrix(w0, 2 * w0, dt, x.device)
+    rw = torch.einsum("bhwc,vw->bhvc", x.float(), wta).to(dt)
+    return _hlerp(rw.float(), 2 * h0, 1).to(dt)
+
+
+def big_conv1_plain(u: torch.Tensor, k_oc: torch.Tensor,
+                    k1: torch.Tensor) -> torch.Tensor:
+    """Row 11's second stage: U (B, HM, W2, C) -> the post-conv1 product (B,
+    HM, W2, C2) in U's dtype: the folded 3x3 conv1 in f32 with zero padding
+    and no bias -> dtype."""
+    dt = u.dtype
+    c1 = F.conv2d(u.permute(0, 3, 1, 2).float(),
+                  fold_conv1(k_oc, k1, dt).float(), padding=1)
+    return c1.to(dt).permute(0, 2, 3, 1).contiguous()
 
 
 def head_tail_big_front_plain(x: torch.Tensor, k_oc: torch.Tensor,
                               k1: torch.Tensor) -> torch.Tensor:
     """x (B, H0, W0, C) -> the post-conv1 product (B, 2 H0, 2 W0, C2) in x's
-    dtype: W-upsample (bf16 resize weights, f32 sums) -> dtype, H-upsample
-    (exact taps, f32 lerp, no bias) -> dtype, the folded 3x3 conv1 in f32
-    with zero padding and no bias -> dtype."""
-    dt = x.dtype
-    _, h0, w0, _ = x.shape
-    wta = _resize_matrix(w0, 2 * w0, dt, x.device)
-    rw = torch.einsum("bhwc,vw->bhvc", x.float(), wta).to(dt)
-    z = _hlerp(rw.float(), 2 * h0, 1).to(dt)
-    c1 = F.conv2d(z.permute(0, 3, 1, 2).float(),
-                  fold_conv1(k_oc, k1, dt).float(), padding=1)
-    return c1.to(dt).permute(0, 2, 3, 1).contiguous()
+    dtype: :func:`big_upsample_plain`, then :func:`big_conv1_plain`."""
+    return big_conv1_plain(big_upsample_plain(x), k_oc, k1)
 
 
-def head_tail_big_back_plain(mid: torch.Tensor, k1: torch.Tensor,
-                             b_oc: torch.Tensor, b1: torch.Tensor,
-                             k2: torch.Tensor, b2: torch.Tensor,
-                             k3: torch.Tensor, b3: torch.Tensor,
-                             out_hw: Tuple[int, int]) -> torch.Tensor:
-    """mid (B, HM, W2, C2) -> depth (B, H1, W1) f32: the W-resize (f32) +
-    (cw0 + top * dtop + bot * dbot) -> dtype (the TPU's intermediate), the
-    H-resize (f32 lerp) -> dtype, b2 + conv2 in f32, ReLU, the f32 1x1 + b3,
-    ReLU."""
+def big_resize_plain(mid: torch.Tensor, k1: torch.Tensor, b_oc: torch.Tensor,
+                     b1: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Row 12's first stage: mid (B, HM, W2, C2) -> R (B, H1, W1, C2) in
+    mid's dtype: the W-resize (f32) + (cw0 + top * dtop + bot * dbot) ->
+    dtype (the TPU's intermediate), the H-resize (f32 lerp) -> dtype."""
     dt = mid.dtype
     _, hm, w2, _ = mid.shape
     h1, w1 = out_hw
@@ -476,11 +493,29 @@ def head_tail_big_back_plain(mid: torch.Tensor, k1: torch.Tensor,
     t = zw + cw[0]
     t[:, 0] = t[:, 0] + cw[1]
     t[:, hm - 1] = t[:, hm - 1] + cw[2]
-    zz = _hlerp(t.to(dt).float(), h1, 1).to(dt)
-    y = F.conv2d(zz.permute(0, 3, 1, 2).float(), k2.to(dt).float(), padding=1)
+    return _hlerp(t.to(dt).float(), h1, 1).to(dt)
+
+
+def big_conv2_plain(r: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                    k3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """Row 12's second stage: R (B, H1, W1, C2) -> depth (B, H1, W1) f32: b2
+    + conv2 in f32 with zero padding, ReLU, the f32 1x1 + b3, ReLU."""
+    y = F.conv2d(r.permute(0, 3, 1, 2).float(), k2.to(r.dtype).float(),
+                 padding=1)
     y = F.relu(b2.float()[None, :, None, None] + y)
     res = (y * k3[0, :, 0, 0].float()[:, None, None]).sum(dim=1) + b3.float()
     return F.relu(res)
+
+
+def head_tail_big_back_plain(mid: torch.Tensor, k1: torch.Tensor,
+                             b_oc: torch.Tensor, b1: torch.Tensor,
+                             k2: torch.Tensor, b2: torch.Tensor,
+                             k3: torch.Tensor, b3: torch.Tensor,
+                             out_hw: Tuple[int, int]) -> torch.Tensor:
+    """mid (B, HM, W2, C2) -> depth (B, H1, W1) f32: :func:`big_resize_plain`,
+    then :func:`big_conv2_plain`."""
+    return big_conv2_plain(big_resize_plain(mid, k1, b_oc, b1, out_hw),
+                           k2, b2, k3, b3)
 
 
 def head_tail_big_plain(x: torch.Tensor, k_oc: torch.Tensor,
@@ -494,13 +529,36 @@ def head_tail_big_plain(x: torch.Tensor, k_oc: torch.Tensor,
     return head_tail_big_back_plain(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
 
 
+def conv1_weights(k_oc: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """conv1 with out_conv's mix folded in, as the GEMM's B: (C2, 9 C) bf16,
+    k = (3 dh + dw) C + c."""
+    fold = fold_conv1(k_oc, k1, torch.bfloat16)  # (C2, C, 3, 3)
+    return fold.permute(0, 2, 3, 1).reshape(fold.shape[0], -1).contiguous()
+
+
+def conv2_weights(k2: torch.Tensor) -> torch.Tensor:
+    """conv2 (32, C2, 3, 3) as the row-12 kernel reads it: (9 * 32, C2)
+    bf16, row (3 dh + dw) 32 + n."""
+    return k2.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(
+        9 * k2.shape[0], k2.shape[1]).contiguous()
+
+
 def head_tail_big_front(x: torch.Tensor, k_oc: torch.Tensor,
                         k1: torch.Tensor) -> torch.Tensor:
     """x (B, H0, W0, C), any strides -> (B, 2 H0, 2 W0, C2): the plain
-    version for CPU tensors, the row-11 kernel for CUDA tensors (bf16, C in
+    version for CPU tensors, the row-11 kernels for CUDA tensors (bf16, C in
     ``BIG_CHANNELS``)."""
+    return head_tail_big_front_stages(x, k_oc, k1)[1]
+
+
+def head_tail_big_front_stages(x: torch.Tensor, k_oc: torch.Tensor,
+                               k1: torch.Tensor):
+    """Row 11 stage by stage: (U, mid). For CPU tensors, the plain versions
+    of the stages; for CUDA tensors, one launch of the chain (an NCHW x
+    transposed first, the upsample pass, conv1), whose scratch holds U."""
     if not on_cuda(x, k_oc, k1):
-        return head_tail_big_front_plain(x, k_oc, k1)
+        u = big_upsample_plain(x)
+        return u, big_conv1_plain(u, k_oc, k1)
     b, h0, w0, c = x.shape
     c2 = c // 2
     if x.dtype != torch.bfloat16 or not big_takes(c):
@@ -513,17 +571,26 @@ def head_tail_big_front(x: torch.Tensor, k_oc: torch.Tensor,
                              f"{shape}, got {tuple(t.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    xc = x.contiguous()  # channel rows of 16-byte loads
-    wt1 = fold_conv1(k_oc, k1, torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+    # The kernels read x as it is when it is contiguous or an NCHW tensor
+    # seen as NHWC (the model's), which they transpose first into xt.
+    nchw = not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous()
+    if not nchw:
+        x = x.contiguous()
+    xt = torch.empty_like(x, memory_format=torch.contiguous_format) \
+        if nchw else x
+    w1m = conv1_weights(k_oc, k1)
     taps, tapw = _device_taps(w0, 2 * w0, x.device)
+    u = torch.empty((b, 2 * h0, 2 * w0, c), dtype=torch.bfloat16,
+                    device=x.device)
     mid = torch.empty((b, 2 * h0, 2 * w0, c2), dtype=torch.bfloat16,
                       device=x.device)
     err = library().vrvg_head_tail_big_front(
-        xc.data_ptr(), wt1.data_ptr(), taps.data_ptr(), tapw.data_ptr(),
-        mid.data_ptr(), b, h0, w0, c, stream_handle(x.device))
+        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
+        taps.data_ptr(), tapw.data_ptr(), u.data_ptr(), mid.data_ptr(), b, h0,
+        w0, c, stream_handle(x.device))
     check(err, "vrvg_head_tail_big_front")
     BIG_FRONT_LAUNCHES.count += 1
-    return mid
+    return u, mid
 
 
 def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
@@ -531,11 +598,24 @@ def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
                        b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
                        out_hw: Tuple[int, int]) -> torch.Tensor:
     """mid (B, HM, W2, C2) contiguous -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the row-12 kernel for CUDA tensors (bf16, C2 in
-    ``BIG_CHANNELS`` / 2)."""
+    version for CPU tensors, the row-12 kernels for CUDA tensors (bf16, C2
+    in ``BIG_CHANNELS`` / 2)."""
+    return head_tail_big_back_stages(mid, k1, b_oc, b1, k2, b2, k3, b3,
+                                     out_hw)[1]
+
+
+def head_tail_big_back_stages(mid: torch.Tensor, k1: torch.Tensor,
+                              b_oc: torch.Tensor, b1: torch.Tensor,
+                              k2: torch.Tensor, b2: torch.Tensor,
+                              k3: torch.Tensor, b3: torch.Tensor,
+                              out_hw: Tuple[int, int]):
+    """Row 12 stage by stage: (R, depth). For CPU tensors, the plain
+    versions of the stages; for CUDA tensors, one launch of the resize pass
+    and conv2, whose scratch holds R."""
     args = (k1, b_oc, b1, k2, b2, k3, b3)
     if not on_cuda(mid, *args):
-        return head_tail_big_back_plain(mid, *args, out_hw)
+        r = big_resize_plain(mid, k1, b_oc, b1, out_hw)
+        return r, big_conv2_plain(r, k2, b2, k3, b3)
     b, hm, w2, c2 = mid.shape
     h1, w1 = out_hw
     if (mid.dtype != torch.bfloat16 or not big_takes(2 * c2)
@@ -554,18 +634,19 @@ def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
 
     f32 = torch.float32
     cw = big_tail_bias(k1, b_oc, b1, w2, w1).contiguous()
-    wt2 = k2.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (3,3,C2,C3)
+    w2m = conv2_weights(k2)
     vecs = [t.to(f32).contiguous() for t in (b2, k3.reshape(-1), b3)]
     taps, tapw = _device_taps(w2, w1, mid.device)
+    r = torch.empty((b, h1, w1, c2), dtype=torch.bfloat16, device=mid.device)
     out = torch.empty((b, h1, w1), dtype=f32, device=mid.device)
     err = library().vrvg_head_tail_big_back(
         mid.data_ptr(), taps.data_ptr(), tapw.data_ptr(), cw.data_ptr(),
-        wt2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-        vecs[2].data_ptr(), out.data_ptr(), b, hm, w2, c2, h1, w1,
-        stream_handle(mid.device))
+        w2m.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        vecs[2].data_ptr(), r.data_ptr(), out.data_ptr(), b, hm, w2, c2, h1,
+        w1, stream_handle(mid.device))
     check(err, "vrvg_head_tail_big_back")
     BIG_BACK_LAUNCHES.count += 1
-    return out
+    return r, out
 
 
 def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,

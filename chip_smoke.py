@@ -22,9 +22,11 @@ Phases, each fatal on failure:
      input; rows 5 and 6 also at vitl-518's D = 1024; row 2 also at
      vitg-518's 24 heads; rows 11 and 12 stage by stage (the upsample and
      resize passes bit for bit, conv1 by the dense kernels' bounds, conv2
-     with its 1x1 by the tail bounds) and also at vitl-728's grid; the DPT
-     tail kernels at the widths vitg and vitl add (the
-     big-C tail at C=384, the ext tail at C=256 and 384); the packed
+     with its 1x1 by the tail bounds) and also at vitl-728's grid; row 7
+     stage by stage the same way (its out_conv mix and conv1 by the dense
+     kernels' bounds) at vits' C=64; the DPT tail kernels at the widths
+     vitg, vitl and vitb add (the big-C tail at C=384, the ext tail stage by
+     stage at C=128, 256 and 384, and at C=32 the older ext chain); the packed
      blur/select and the banded compositor bit-exact (the banded one also
      against the classic kernel, and a 4K frame, past its 126 shifts,
      through the classic kernel); the single-kernel tail and the RCU pair at
@@ -54,8 +56,9 @@ Phases, each fatal on failure:
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
 at vitg-518's 24 heads; rows 5 and 6 twice: at D = 384 and 1024; row 9
-twice: at M = 19544 and 38280; rows 11 and 12 three times: at vitl-518's,
-vitl-728's and vitg-518's shapes), and as the last
+twice: at M = 19544 and 38280; rows 7, 11 and 12 three times: at vits'
+C=64, vitl-252's C=256 and vitg-126's C=384, and at vitl-518's, vitl-728's
+and vitg-518's shapes), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -129,7 +132,9 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # (fraction) and 2x (ulps) of margin. Row 10 at vitg-518 (two products over
 # K = 1536 and 4096 around the bf16 silu chain): 1.2e-3 of outputs differ,
 # by at most 3 ulps, under row 9's bounds (8x and 2.7x of margin); row 11 at
-# vitg's C=384: 2.0e-3, 1 ulp (same card; 2.5x and 4x).
+# vitg's C=384: 2.0e-3, 1 ulp (same card; 2.5x and 4x). Row 7's stages on
+# the same cores, its out_conv mix (K = C) and its conv1 (K = 9 C, the f32
+# bias added before the cast), are held to row 11's conv1 bounds.
 # Row 16, the RCU pair, is four launches of one 3x3 conv (576 or 1152
 # products an output) with bf16 between them: each launch is held alone to
 # row 9's bounds. Chained, a one-ulp flip of an intermediate moves the next
@@ -147,12 +152,14 @@ GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "mlp_fc1_gelu": 0.01, "mlp_fc2_residual": 0.01,
                  "swiglu_residual": 0.01, "swiglu_gate": 0.01,
                  "swiglu_down": 0.01, "head_tail_big_front": 0.005,
+                 "head_tail_ext_mix": 0.005, "head_tail_ext_conv1": 0.005,
                  "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
                  "mlp_residual_hblocked": 8, "mlp_fc1_gelu": 8,
                  "mlp_fc2_residual": 8, "swiglu_residual": 8,
                  "swiglu_gate": 8, "swiglu_down": 8,
-                 "head_tail_big_front": 4, "rcu_pair": 8}
+                 "head_tail_big_front": 4, "head_tail_ext_mix": 4,
+                 "head_tail_ext_conv1": 4, "rcu_pair": 8}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
 # (measured on an NVIDIA H100 80GB HBM3, 700.00 W: row 7 max 1.7e-3, mean
@@ -199,7 +206,7 @@ KERNELS = {
                          f"{JAX_PKG}/ops/qkv_pallas.py:137"),
     "mlp_residual": ("cuda", f"{PKG}/csrc/mlp.cu",
                      f"{JAX_PKG}/ops/mlp_pallas.py:66"),
-    "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail.cu",
+    "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                       f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
     "mlp_residual_hblocked": ("cuda", f"{PKG}/csrc/mlp_hblocked.cu",
                               f"{JAX_PKG}/ops/mlp_pallas.py:38"),
@@ -305,6 +312,8 @@ def gemm_addends(name: str, want, args):
     and gamma * bias for proj_ls_residual and the MLP and SwiGLU halves."""
     if name.startswith("head_tail_big_front"):
         return ()  # a bare conv sum, cast
+    if name.startswith("head_tail_ext"):
+        return tuple(args)  # the mix: none; conv1: its f32 bias
     if name.startswith("rcu_pair"):
         return tuple(args)  # the conv's residuals
     if name == "mlp_fc1_gelu":
@@ -698,10 +707,51 @@ def check_big_tail(gen, c, grid=(H0, W0), out_hw=OUT_HW, batch=B) -> dict:
     return out
 
 
+def ext_tail_stages(label, x, wts, out_hw) -> dict:
+    """Row 7 stage by stage, each stage on the kernel chain's own input: the
+    out_conv mix and conv1 (its f32 bias before the cast) as the dense
+    kernels are held (GEMM_MAX_FRAC, GEMM_MAX_ULPS, row 11's conv1 bounds);
+    the upsample pass (with the out_conv bias) and the resize pass bit for
+    bit against their plain stages; conv2 with the 1x1 by TAIL_MAX_REL and
+    TAIL_MEAN_REL. The call must launch head_tail_ext once."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        big_conv2_plain, big_upsample_plain, ext_conv1_plain, ext_mix_plain,
+        ext_resize_plain, head_tail_ext_stages)
+
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    before = launch_counts()
+    xoc, z, c1, r, depth = head_tail_ext_stages(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    require(after["head_tail_ext"] == before["head_tail_ext"] + 1
+            and all(after[k] == before[k] for k in after
+                    if k != "head_tail_ext"),
+            f"{label}: launches {before} -> {after}")
+    mix = gemm_check(f"head_tail_ext_mix {label}", xoc,
+                     ext_mix_plain(x, k_oc), ())
+    require_equal(f"{label} upsample pass", z, big_upsample_plain(xoc, b_oc))
+    del xoc
+    conv1 = gemm_check(f"head_tail_ext_conv1 {label}", c1,
+                       ext_conv1_plain(z, k1, b1), (b1,))
+    del z
+    require_equal(f"{label} resize pass", r, ext_resize_plain(c1, out_hw))
+    conv2 = tail_stats(f"head_tail_ext {label} conv2", depth,
+                       big_conv2_plain(r, k2, b2, k3, b3))
+    log(f"ext tail stages {label}: upsample and resize passes bit-exact; "
+        f"mix {json.dumps(mix)}; conv1 {json.dumps(conv1)}; conv2 "
+        f"{json.dumps(conv2)}")
+    return dict(mix=mix, conv1=conv1, conv2=conv2)
+
+
 def check_ext_tail(gen, c, grid, out_hw) -> dict:
     """Row 7 at ``c`` channels on refinenet1's pre-upsample activation on
     ``grid`` (H0, W0) as the model hands it over (an NCHW tensor seen as
-    (B, H0, W0, C)), depth at ``out_hw``: statistics, times and bound."""
+    (B, H0, W0, C)), depth at ``out_hw``: stage by stage
+    (:func:`ext_tail_stages`; not at C = 32, whose older chain has no
+    stages), the whole tail against its plain version, times and bound."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.head_tail import (
@@ -712,10 +762,13 @@ def check_ext_tail(gen, c, grid, out_hw) -> dict:
     c2, c3 = c // 2, 32
     xt = randn(gen, (B, c, h0, w0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
     wts = tail_weights(gen, c)
+    stages = ext_tail_stages(f"C={c} {B}x{h0}x{w0}", xt, wts, (h1, w1)) \
+        if c > 32 else {}
+    torch.cuda.empty_cache()
     got = head_tail_ext(xt, *wts, (h1, w1))
     want = head_tail_ext_plain(xt, *wts, (h1, w1))
     torch.cuda.synchronize()
-    stats = tail_stats(f"head_tail_ext C={c}", got, want)
+    stats = dict(**tail_stats(f"head_tail_ext C={c}", got, want), **stages)
     hm, w2 = 2 * h0, 2 * w0
     flops = 2 * B * (h0 * w0 * c * c + hm * w2 * c2 * 9 * c
                      + h1 * w1 * c3 * 9 * c2 + h1 * w1 * c3)
@@ -810,6 +863,11 @@ def check_vitg_kernels(device, results, widths) -> None:
         widths[f"{name} C={FEATURES_G}"] = r
     for c, (grid, out_hw) in EXT_WIDE.items():
         widths[f"head_tail_ext C={c}"] = check_ext_tail(gen, c, grid, out_hw)
+    # Row 7 at vitb's C=128 and at C=32 (a custom head's width, on the older
+    # chain of csrc/head_tail.cu), on vits' grid.
+    for c in (2 * FEATURES, FEATURES // 2):
+        widths[f"head_tail_ext C={c}"] = check_ext_tail(gen, c, (H0, W0),
+                                                        OUT_HW)
 
 
 def check_base_tail(gen, c) -> dict:
@@ -1603,12 +1661,12 @@ def main() -> int:
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
-    # Rows 1, 2, 5, 6, 9, 11 and 12 appear more than once: at the first
+    # Rows 1, 2, 5, 6, 7, 9, 11 and 12 appear more than once: at the first
     # path's shapes with its launches, and at the widths of a later path with
     # that path's launches (rows 5 and 6 at vitl-518's D = 1024, row 1 at
     # vitl-728's and vitg-518's rows, row 2 at vitg-518's 24 heads, row 9 at
     # vitl-728's rows, rows 11 and 12 at vitl-728's grid and vitg-518's C =
-    # 384).
+    # 384, row 7 at vitl-252's C = 256 and vitg-126's C = 384).
     entries = [(name, results[name], counts[name]) for name in KERNELS]
     l518 = paths["vitl-518 fused/fused"]["launches"]
     l728 = paths["vitl-728 auto/auto"]["launches"]
@@ -1626,6 +1684,10 @@ def main() -> int:
     entries += [(name, widths[f"{name} 728"], l728[name]) for name in BIG_TAIL]
     entries += [(name, widths[f"{name} C={FEATURES_G}"], g518[name])
                 for name in BIG_TAIL]
+    entries += [("head_tail_ext", widths[f"head_tail_ext C={c}"],
+                 paths[label]["launches"]["head_tail_ext"])
+                for c, label in ((FEATURES_L, "vitl-252 auto/auto"),
+                                 (FEATURES_G, "vitg-126 auto/auto"))]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = KERNELS[name]

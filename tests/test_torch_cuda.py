@@ -333,6 +333,43 @@ def test_head_tail_kernel_matches_plain(cuda, b, h0, w0, c):
     assert err.mean().item() <= TAIL_MEAN_REL * span
 
 
+# Row 7 stage by stage on the chain's own inputs (chip_smoke.ext_tail_stages:
+# the upsample and resize passes bit for bit, the mix and conv1 by the GEMM
+# bounds, conv2 by the tail bounds, one launch a call), at every width of
+# the five-stage chain: conv1 on the halo kernel (C = 64) and on the GEMM
+# core's two tile shapes, odd grids and batches.
+@pytest.mark.parametrize("b,h0,w0,c", [(1, 12, 20, 64), (2, 37, 45, 64),
+                                       (1, 20, 36, 128), (2, 37, 45, 256),
+                                       (1, 37, 45, 384), (3, 12, 20, 384)])
+def test_head_tail_ext_stages_match_plain(cuda, b, h0, w0, c):
+    from chip_smoke import ext_tail_stages, tail_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(h0 * w0 + c + 7)
+    out_hw = (h0 * 14 // 4, w0 * 14 // 4)
+    x = _randn(gen, (b, c, h0, w0)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
+    ext_tail_stages(f"C={c}", x, tail_weights(gen, c), out_hw)
+
+
+# The ext chain reads x in its own strides (NCHW seen as NHWC, contiguous
+# NHWC, a channel slice of a wider tensor: the same bits), and a head of 32
+# features runs the older chain, which has no stages.
+def test_head_tail_ext_reads_any_strides(cuda):
+    from chip_smoke import tail_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, (2, 64, 13, 21)).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, 64)
+    wide = torch.zeros((2, 13, 21, 96), dtype=x.dtype, device=cuda)
+    wide[..., 32:] = x
+    want = head_tail_ext(x, *wts, (45, 73))
+    for view in (x.contiguous(), wide[..., 32:]):
+        assert torch.equal(head_tail_ext(view, *wts, (45, 73)), want)
+    from vr_video_generator_tpu_torch.ops.head_tail import head_tail_ext_stages
+
+    with pytest.raises(ValueError, match="C=32"):
+        head_tail_ext_stages(x[..., :32], *tail_weights(gen, 32), (45, 73))
+
+
 # Each encoder width (vits' 1080p rows, vitl-728's and vitg-518's at batch
 # 8), ragged row counts, and widths only the generic kernel takes.
 @pytest.mark.parametrize("rows,d", [(19544, 384), (130, 128), (7, 384),

@@ -50,8 +50,8 @@ __host__ __device__ constexpr size_t conv_smem() {
 
 // Input channels per chunk: all of them where the nine taps' weights fit in
 // shared memory beside the input rows (the tails' conv1 at C <= 128, every
-// conv2, the RCU convs at C = 64), else 32 (conv1 at C = 256 and 384, whose
-// weights are 590 KB and 1.3 MB; the RCU convs at C = 128, 295 KB).
+// conv2, the RCU convs at C = 64), else 32 (the RCU convs at C = 128, whose
+// weights are 295 KB).
 template <int CIN, int COUT>
 __host__ __device__ constexpr int conv_kc() {
   return conv_smem<CIN, COUT>() <= 232448 ? CIN : 32;

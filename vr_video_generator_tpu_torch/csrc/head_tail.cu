@@ -1,5 +1,7 @@
-// The DPT head's tail from refinenet1's pre-upsample activation to depth,
-// for Hopper (sm_90a), as a chain of three kernels:
+// The DPT head's tail from refinenet1's pre-upsample activation to depth at
+// C = 32 (a custom head's width: row 7 at every encoder's width, C = 64 to
+// 384, is csrc/head_tail_big.cu's vrvg_head_tail_ext_front and the row-12
+// back), for Hopper (sm_90a), as a chain of three kernels:
 //
 //   1. mix_wresize: out_conv's 1x1 channel mix per input pixel (tensor-core
 //      GEMM) -> bf16, then the x2 align-corners W-resize -> bf16   (H0, W2)
@@ -12,16 +14,16 @@
 //      -> f32 depth                                                 (H1, W1)
 //
 // The same file holds the older single-kernel tail (vrvg_head_tail), which
-// replaces head_tail_pallas.py `_tail_kernel` (head_tail_pallas): path1
-// (B, H2, W2, C) -> conv1 read straight from path1 with zero padding, its f32
-// sum, then + b1, then the cast (:113-121), and then stage 3 below, which is
-// that kernel's back half (:123-153) at the same rounding points. C in {32,
-// 64, 128}, C2 = C / 2, C3 = 32 (vits and vitb).
+// replaces head_tail_pallas.py `_tail_kernel` (head_tail_pallas, row 15):
+// path1 (B, H2, W2, C) -> conv1 read straight from path1 with zero padding,
+// its f32 sum, then + b1, then the cast (:113-121), and then stage 3 below,
+// which is that kernel's back half (:123-153) at the same rounding points.
+// C in {32, 64, 128}, C2 = C / 2, C3 = 32 (vits and vitb).
 //
 // Replaces: vr_video_generator_tpu/ops/head_tail_pallas.py
-// `_tail_ext_kernel` (head_tail_ext_pallas), the same order and rounding
-// points (:287-354): the out_conv mix before the W-resize, the resize
-// weights in bf16 (ops/resize.linear_weights), the H-resizes as exact
+// `_tail_ext_kernel` (head_tail_ext_pallas) at C = 32, the same order and
+// rounding points (:287-354): the out_conv mix before the W-resize, the
+// resize weights in bf16 (ops/resize.linear_weights), the H-resizes as exact
 // integer taps r * (n_in - 1) // (n_out - 1) with an f32 fraction and an f32
 // lerp, conv1's f32 bias added BEFORE its cast to bf16 (unlike the dense
 // layers), conv2's f32 bias and ReLU, the f32 1x1 and its bias. Every
@@ -30,29 +32,18 @@
 // compute fl(wa * x0 + wb * x1) from per-column tap tables; that is what the
 // TPU's dense resize GEMM gives (bf16 x bf16 products are exact in f32).
 //
-// What bounds it on the H100: at 1080p/vits (B = 8, 148 x 264 x 64 in,
-// 518 x 924 out) the two 3x3 convolutions are ~117 GFLOP per call (118 us
-// at the 989 TFLOP/s bf16 peak) against ~55 MB of input and output (17 us at
-// 3.35 TB/s): compute-bound. The TPU kernel keeps every intermediate of a
-// row band in VMEM; here the two row-local stages (mix + W-resize, conv1)
-// write bf16 intermediates to device memory (~40 and ~80 MB), and the
-// resizes feeding each convolution are computed while its input tile is
-// loaded into shared memory, so the 64- and 32-channel full-resolution
-// tensors between them never exist. The convolutions are implicit GEMMs on
-// the tensor cores (nvcuda::wmma, bf16 in, f32 accumulate): one block of 4
-// warps per 64-pixel segment of one output row, the 3 input rows of the
-// segment (+1 halo column each side) and all 9 taps' weights in shared
-// memory, each warp owning 16 pixels x all output channels. Where the 9
-// taps' weights do not fit beside the input rows (conv1 at C = 256 and 384:
-// 590 KB and 1.3 MB), the block walks the input channels in chunks of 32,
-// staging each chunk's rows and weights in turn (111 KB of weights at C =
-// 384), as csrc/head_tail_big.cu does. The first kernel holds a whole input
-// row, and computes the out_conv mix and the W-resize 64 output channels at
-// a time, so only the mix weights of those channels (51 KB at C = 384) sit
-// beside the row. Those widths serve vitl (C = 256) and vitg (C = 384) at
-// the small inputs where the JAX planners pick this tail (refinenet1 grids
-// up to 36 x 64 at vitg, 72 x 128 at vitl, at 1080p). Simple first: no
-// pipelining, weights re-read from L2 by every block.
+// Design (simple first: no pipelining, weights re-read from L2 by every
+// block): the two row-local stages (mix + W-resize, conv1) write bf16
+// intermediates to device memory, and the resizes feeding each convolution
+// are computed while its input tile is loaded into shared memory. The
+// convolutions are implicit GEMMs on the tensor cores (nvcuda::wmma, bf16
+// in, f32 accumulate): one block of 4 warps per 64-pixel segment of one
+// output row, the 3 input rows of the segment (+1 halo column each side) and
+// all 9 taps' weights in shared memory, each warp owning 16 pixels x all
+// output channels (csrc/conv3x3.cuh). The first kernel holds a whole input
+// row in shared memory. (At C = 64 to 384 this chain took 3.2 to 10.3 ms at
+// 1080p, B = 8, on an H100, 27-41x its bound: every block restaged all nine
+// taps' weights for one 64-pixel segment.)
 
 #include "conv3x3.cuh"
 
@@ -360,8 +351,8 @@ int run_tail(const void* x, int batch, int h2, int w2, const void* wt1,
 // conv2 (9, C/2, 32) bf16 + (32,) f32; the 1x1 (32,) f32 + (1,) f32;
 // W-resize tap tables (2, 2*W0) / (2, W1) int32 indices and f32 weights;
 // scratch rw (B, H0, 2*W0, C) and c1 (B, 2*H0, 2*W0, C/2) bf16 ->
-// out (B, H1, W1) f32. C in {32, 64, 128, 256, 384}. The first kernel holds a whole
-// input row in shared memory: an input too wide for it fails to launch.
+// out (B, H1, W1) f32. C = 32. The first kernel holds a whole input row in
+// shared memory: an input too wide for it fails to launch.
 extern "C" int vrvg_head_tail_ext(
     const void* x, long long sb, long long sh, long long sw, long long sc,
     int batch, int h0, int w0, int c, const void* koc, const void* boc,
@@ -369,14 +360,10 @@ extern "C" int vrvg_head_tail_ext(
     const void* w3, const void* b3, const void* taps_a, const void* tapw_a,
     const void* taps_b, const void* tapw_b, void* rw, void* c1, void* out,
     int h1, int w1, void* stream) {
-  switch (c) {
-    case 32: return run<32>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
-    case 64: return run<64>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
-    case 128: return run<128>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
-    case 256: return run<256>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
-    case 384: return run<384>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2, b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1, w1, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (c != 32) return (int)cudaErrorInvalidValue;
+  return run<32>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2,
+                 b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1,
+                 w1, stream);
 }
 
 // The single-kernel DPT tail (head_tail_pallas.py `_tail_kernel`): path1

@@ -67,6 +67,34 @@
 // took 0.95 ms; at vitl-518 the transpose and this upsample pass take 0.11 +
 // 0.34 ms, where a pass reading the NCHW planes directly in 16-channel
 // chunks took 1.23 ms (its 32-byte writes of U scattered).
+//
+// The ext tail (row 7, head_tail_pallas.py `_tail_ext_kernel`, at C = 64 to
+// 384) is built from the same kernels, at its own rounding points
+// (:287-354), which keep the out_conv mix before the resizes and add its
+// bias inside the H-upsample:
+//   front (vrvg_head_tail_ext_front):
+//     0. the NCHW transpose, as row 11's;
+//     1. the out_conv mix per input pixel, (B H0 W0, C) x (C, C)^T on the
+//        GEMM core, f32 sums -> bf16: xoc;
+//     2. the upsample pass on xoc with out_conv's f32 bias added to the
+//        H-lerp before its cast: Z (B, HM, W2, C);
+//     3. conv1 3x3 (C -> C2), zero padding, f32 sums + f32 b1, one cast to
+//        bf16: c1 (B, HM, W2, C2). At C2 = 64 to 192 an implicit GEMM on the
+//        core (row 11's tiles; the BiasBeforeCast epilogue adds b1 to the
+//        f32 sums as the consumers stage them); at C2 = 32 (vits) the halo
+//        kernel above with b1 and the cast in its registers (Conv1Out): its
+//        input (64 channels) and output (32) are conv2's at C2 = 64.
+//   back: row 12's entry point without `cw` (an f32 + 0 is exact, so R is
+//   the resize pass's bits without it): the resize pass (the W-resize to
+//   the net width -> bf16, the H-resize -> bf16) and conv2 with the 1x1.
+// At vits (B = 8, 148 x 264 x 64 in, 518 x 924 out) its two convolutions
+// are 46 + 71 GFLOP (0.12 ms at the bf16 peak) against ~0.7 GB of
+// intermediates written and read (xoc 40 MB, Z 160 MB, c1 80 MB, R 245 MB):
+// about as much time on the passes' traffic as on the products. No
+// intermediate is held whole in shared memory, so the chain takes any grid
+// the JAX planner sends it.
+
+#include <type_traits>
 
 #include "taps.cuh"
 #include "wgmma_gemm.cuh"
@@ -110,11 +138,15 @@ to_channels_last_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
 }
 
 // Row 11, 1: U (B, HM, W2, C) from x (B, H0, W0, C) contiguous. Block (HM
-// row, frame), 16 bytes of U a thread.
+// row, frame), 16 bytes of U a thread. With BIAS (row 7's Z) the f32 bias
+// is added to the H-lerp before its cast (head_tail_pallas.py:309-318, the
+// out_conv bias).
+template <bool BIAS>
 __global__ void __launch_bounds__(PASS_THREADS)
 upsample_kernel(const bf16* __restrict__ x,      // (B, H0, W0, C)
                 const int* __restrict__ taps,    // (2, W2) j0, j1
                 const float* __restrict__ tapw,  // (2, W2) wa, wb
+                const float* __restrict__ bias,  // (C,) with BIAS
                 bf16* __restrict__ u,            // (B, HM, W2, C)
                 int c, int h0, int w0, int hm, int w2) {
   const int zr = blockIdx.x, b = blockIdx.y;
@@ -137,37 +169,45 @@ upsample_kernel(const bf16* __restrict__ x,      // (B, H0, W0, C)
     wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
            reinterpret_cast<const bf16*>(&b1), wa, wb);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, bf(z0[e]), bf(z1[e])));
+    for (int e = 0; e < 8; ++e) {
+      const float f = lerp(k, bf(z0[e]), bf(z1[e]));
+      v[e] = rbf(BIAS ? __fadd_rn(f, __ldg(bias + cg + e)) : f);
+    }
     *reinterpret_cast<uint4*>(dst + (long long)i * 8) =
         *reinterpret_cast<const uint4*>(v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Row 12, 1: R (B, H1, W1, C2) from mid (B, HM, W2, C2).
+// Row 12, 1: R (B, H1, W1, C2) from mid (B, HM, W2, C2); row 7's R from its
+// conv1 output c1 the same way, without `cw` (CW false).
 
 // One row of the TPU's intermediate at HM row m, 8 channels: the two-tap
-// W-resize of mid in f32, + cw0, + the top / bottom row correction, -> bf16.
+// W-resize of mid in f32, with CW + cw0 (at cw) and the top / bottom row
+// corrections (`plane` and 2 `plane` floats on), -> bf16.
+template <bool CW>
 __device__ __forceinline__ void mid_row8(float* out, const bf16* row, int ja,
                                          int jb, float wa, float wb,
-                                         const float* cw0, const float* dtop,
-                                         const float* dbot, bool top,
-                                         bool bot) {
+                                         const float* cw, long long plane,
+                                         bool top, bool bot) {
   const uint4 ua = *reinterpret_cast<const uint4*>(row + ja);
   const uint4 ub = *reinterpret_cast<const uint4*>(row + jb);
   const bf16* a = reinterpret_cast<const bf16*>(&ua);
   const bf16* b = reinterpret_cast<const bf16*>(&ub);
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    float f = __fadd_rn(__fadd_rn(__fmul_rn(wa, bf(a[e])),
-                                  __fmul_rn(wb, bf(b[e]))), cw0[e]);
-    if (top) f = __fadd_rn(f, dtop[e]);
-    if (bot) f = __fadd_rn(f, dbot[e]);
+    float f = __fadd_rn(__fmul_rn(wa, bf(a[e])), __fmul_rn(wb, bf(b[e])));
+    if constexpr (CW) {
+      f = __fadd_rn(f, cw[e]);
+      if (top) f = __fadd_rn(f, cw[plane + e]);
+      if (bot) f = __fadd_rn(f, cw[2 * plane + e]);
+    }
     out[e] = bf(rbf(f));
   }
 }
 
 // Block (H1 row, frame), 16 bytes of R a thread.
+template <bool CW>
 __global__ void __launch_bounds__(PASS_THREADS)
 resize_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
               const int* __restrict__ taps,    // (2, W1) j0, j1
@@ -186,12 +226,12 @@ resize_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
     const int col = i / groups, cg = (i - col * groups) * 8;
     const int ja = taps[col] * c2 + cg, jb = taps[w1 + col] * c2 + cg;
     const float wa = tapw[col], wb = tapw[w1 + col];
-    const float* c0 = cw + (long long)i * 8;
+    const float* c0 = CW ? cw + (long long)i * 8 : nullptr;
     float z0[8], z1[8];
-    mid_row8(z0, m0, ja, jb, wa, wb, c0, c0 + plane, c0 + 2 * plane,
-             k.i0 == 0, k.i0 == hm - 1);
-    mid_row8(z1, m1, ja, jb, wa, wb, c0, c0 + plane, c0 + 2 * plane,
-             k.i1 == 0, k.i1 == hm - 1);
+    mid_row8<CW>(z0, m0, ja, jb, wa, wb, c0, plane, k.i0 == 0,
+                 k.i0 == hm - 1);
+    mid_row8<CW>(z1, m1, ja, jb, wa, wb, c0, plane, k.i1 == 0,
+                 k.i1 == hm - 1);
     __align__(16) bf16 v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, z0[e], z1[e]));
@@ -201,7 +241,8 @@ resize_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
 }
 
 // ---------------------------------------------------------------------------
-// Row 12, 2: conv2 + ReLU + 1x1 + ReLU on halo tiles of R.
+// Row 12, 2: conv2 + ReLU + 1x1 + ReLU on halo tiles of R; and row 7's conv1
+// at 32 output channels.
 namespace conv2 {
 
 constexpr int TR = 2;                 // output rows a tile
@@ -248,14 +289,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// What the kernel makes of a pixel's 32 f32 sums: row 12's conv2, + b2,
+// ReLU, the 1x1 (32 -> 1), + b3, ReLU -> f32 depth (B, H1, W1); or row 7's
+// conv1 at 32 output channels, + b1 in f32, cast -> bf16 (B, H1, W1, 32).
+struct DepthOut {};
+struct Conv1Out {};
+
+// For DepthOut, b2 is conv2's bias and w3, b3 the 1x1's; for Conv1Out b2 is
+// conv1's bias b1 and w3, b3 are not read. (c2, h1, w1 name conv2's input
+// width and grid; for conv1 they are C, HM and W2.)
+template <class Out>
 __global__ void __launch_bounds__(THREADS, 1)
 conv2_kernel(const __grid_constant__ CUtensorMap tr,  // R (C2, W1, H1, B)
              const __grid_constant__ CUtensorMap tw,  // w (C2, 9 * 32)
              const float* __restrict__ b2,            // (32,)
              const float* __restrict__ w3,            // (32,)
              const float* __restrict__ b3,            // (1,)
-             float* __restrict__ out,                 // (B, H1, W1)
+             void* __restrict__ out,
              int batch, int h1, int w1, int c2) {
+  constexpr bool DEPTH = std::is_same<Out, DepthOut>::value;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -309,10 +361,10 @@ conv2_kernel(const __grid_constant__ CUtensorMap tr,  // R (C2, W1, H1, B)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       bias[2 * nt + e] = b2[8 * nt + 2 * q + e];
-      wout[2 * nt + e] = w3[8 * nt + 2 * q + e];
+      wout[2 * nt + e] = DEPTH ? w3[8 * nt + 2 * q + e] : 0.f;
     }
   }
-  const float bout = b3[0];
+  const float bout = DEPTH ? b3[0] : 0.f;
   // ldmatrix rows of this lane: A pixel lane % 16 (+ 16 mt) at k half lane
   // / 16; B row n = 8 (lane / 16) + lane % 8 (+ 16 np) at k half (lane / 8)
   // % 2.
@@ -368,9 +420,29 @@ conv2_kernel(const __grid_constant__ CUtensorMap tr,  // R (C2, W1, H1, B)
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
     }
 
+    const int row = y0 + rr;
+    if constexpr (!DEPTH) {
+      // + b1, cast: a thread's two channels of each n8 tile as one word.
+      bf16* c1 = static_cast<bf16*>(out);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = x0 + px0 + 16 * mt + 8 * h + g;
+          if (row >= h1 || px >= w1) continue;
+          bf16* dst = c1 + (((long long)b * h1 + row) * w1 + px) * C3 + 2 * q;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(
+                __fadd_rn(acc[mt][nt][2 * h], bias[2 * nt]),
+                __fadd_rn(acc[mt][nt][2 * h + 1], bias[2 * nt + 1]));
+          }
+        }
+      }
+      continue;
+    }
     // + b2, ReLU, the 1x1 over this thread's 8 channels, the quad's sum,
     // + b3, ReLU.
-    const int row = y0 + rr;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -389,12 +461,48 @@ conv2_kernel(const __grid_constant__ CUtensorMap tr,  // R (C2, W1, H1, B)
         sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
         const int px = x0 + px0 + 16 * mt + 8 * h + g;
         if (q == 0 && row < h1 && px < w1) {
-          out[((long long)b * h1 + row) * w1 + px] =
+          static_cast<float*>(out)[((long long)b * h1 + row) * w1 + px] =
               fmaxf(__fadd_rn(sum, bout), 0.f);
         }
       }
     }
   }
+}
+
+// The halo-tile kernel over `in` (B, H, W, C) bf16 with weights w (9 * 32,
+// C) bf16, row (3 dh + dw) 32 + n, on `stream`. Returns a CUDA error code.
+template <class Out>
+int launch(const void* in, const void* w, const float* bias, const float* w3,
+           const float* b3, void* out, int batch, int h, int width, int c,
+           void* stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t px = (cuuint64_t)c * 2, row = px * width;
+  CUtensorMap tr, tw;
+  if (!tma_gemm::make_map<4>(
+          encode, &tr, in,
+          {(cuuint64_t)c, (cuuint64_t)width, (cuuint64_t)h, (cuuint64_t)batch},
+          {px, row, row * h}, {64, HALO_W, TR + 2, 1}) ||
+      !tma_gemm::make_map_2d(encode, &tw, w, W_ROWS, c, W_ROWS / 2, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(conv2_kernel<Out>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = batch * ((h + TR - 1) / TR) * ((width + TW - 1) / TW);
+  conv2_kernel<Out><<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES,
+                      (cudaStream_t)stream>>>(tr, tw, bias, w3, b3, out,
+                                              batch, h, width, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace conv2
@@ -424,9 +532,9 @@ extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
                                                      (bf16*)xt, c, h0 * w0);
     x = xt;
   }
-  upsample_kernel<<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
-      (const bf16*)x, (const int*)taps, (const float*)tapw, (bf16*)u, c, h0,
-      w0, hm, w2);
+  upsample_kernel<false><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+      (const bf16*)x, (const int*)taps, (const float*)tapw, nullptr,
+      (bf16*)u, c, h0, w0, hm, w2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const tma_gemm::Identity epi{nullptr};
@@ -440,9 +548,10 @@ extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
 }
 
 // Row 12. mid (B, HM, W2, C2) bf16; W-resize tap tables (2, W1); cw (3, W1,
-// C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2 as (9 * 32, C2) bf16, row (3 dh
-// + dw) 32 + n; b2 (32,), the 1x1 (32,) and its bias (1,) f32; scratch r
-// (B, H1, W1, C2) bf16 -> out (B, H1, W1) f32. C2 in {32, 64, 128, 192}.
+// C2) f32 (cw0, cw1 - cw0, cw2 - cw0), or null for row 7's back (no `cw`);
+// conv2 as (9 * 32, C2) bf16, row (3 dh + dw) 32 + n; b2 (32,), the 1x1
+// (32,) and its bias (1,) f32; scratch r (B, H1, W1, C2) bf16 -> out (B, H1,
+// W1) f32. C2 in {32, 64, 128, 192}.
 extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
                                        const void* tapw, const void* cw,
                                        const void* w2m, const void* b2,
@@ -454,42 +563,74 @@ extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
     return (int)cudaErrorInvalidValue;
   }
   if (batch <= 0 || h1 <= 0 || w1 <= 0) return (int)cudaSuccess;
-  resize_kernel<<<dim3(h1, batch), PASS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)mid, (const int*)taps, (const float*)tapw,
-      (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(h1, batch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cw != nullptr) {
+    resize_kernel<true><<<grid, PASS_THREADS, 0, st>>>(
+        (const bf16*)mid, (const int*)taps, (const float*)tapw,
+        (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
+  } else {
+    resize_kernel<false><<<grid, PASS_THREADS, 0, st>>>(
+        (const bf16*)mid, (const int*)taps, (const float*)tapw, nullptr,
+        (bf16*)r, c2, hm, w2, h1, w1);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  return conv2::launch<conv2::DepthOut>(r, w2m, (const float*)b2,
+                                        (const float*)w3, (const float*)b3,
+                                        out, batch, h1, w1, c2, stream);
+}
 
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t px = (cuuint64_t)c2 * 2, row = px * w1;
-  CUtensorMap tr, tw;
-  if (!tma_gemm::make_map<4>(
-          encode, &tr, r,
-          {(cuuint64_t)c2, (cuuint64_t)w1, (cuuint64_t)h1, (cuuint64_t)batch},
-          {px, row, row * h1},
-          {64, conv2::HALO_W, conv2::TR + 2, 1}) ||
-      !tma_gemm::make_map_2d(encode, &tw, w2m, conv2::W_ROWS, c2,
-                             conv2::W_ROWS / 2, 64)) {
+// Row 7's front. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW
+// tensor (B, C, H0, W0) seen as NHWC, then first transposed into the scratch
+// xt (B, H0, W0, C); out_conv (C out, C in) bf16 + (C,) f32 bias; W-upsample
+// tap tables (2, 2 W0); conv1 + (C/2,) f32 bias, as (C/2, 9 C) bf16 with k =
+// (3 dh + dw) C + c (the GEMM's B) where C/2 > 32, as (9 * 32, C) with row
+// (3 dh + dw) 32 + n (the halo kernel's) at C/2 = 32; scratch xoc (B, H0,
+// W0, C) and z (B, 2 H0, 2 W0, C) bf16 -> c1 (B, 2 H0, 2 W0, C/2) bf16. C in
+// {64, 128, 256, 384}.
+extern "C" int vrvg_head_tail_ext_front(
+    const void* x, int nchw, void* xt, const void* koc, const void* boc,
+    const void* taps, const void* tapw, void* xoc, void* z, const void* w1,
+    const void* b1, void* c1, int batch, int h0, int w0, int c,
+    void* stream) {
+  if (c != 64 && c != 128 && c != 256 && c != 384) {
     return (int)cudaErrorInvalidValue;
   }
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
+  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nchw) {
+    to_channels_last_kernel<<<dim3((h0 * w0 + TT - 1) / TT, c / TT, batch),
+                              PASS_THREADS, 0, st>>>((const bf16*)x,
+                                                     (bf16*)xt, c, h0 * w0);
+    x = xt;
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(conv2::conv2_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)conv2::SMEM_BYTES);
+  // The out_conv mix per input pixel: a (B H0 W0, C) x (C, C)^T product.
+  typedef tma_gemm::Tile<256, 128> Tall;
+  typedef tma_gemm::Tile<128, 192> Wide192;
+  const tma_gemm::Identity mix{nullptr};
+  int err = c == 384
+                ? tma_gemm::gemm<Wide192>(x, koc, xoc, batch * h0 * w0, c, c,
+                                          mix, stream)
+                : tma_gemm::gemm<Tall>(x, koc, xoc, batch * h0 * w0, c, c,
+                                       mix, stream);
+  if (err != 0) return err;
+  upsample_kernel<true><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+      (const bf16*)xoc, (const int*)taps, (const float*)tapw,
+      (const float*)boc, (bf16*)z, c, h0, w0, hm, w2);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (c2 == 32) {
+    return conv2::launch<conv2::Conv1Out>(z, w1, (const float*)b1, nullptr,
+                                          nullptr, c1, batch, hm, w2, c,
+                                          stream);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = batch * ((h1 + conv2::TR - 1) / conv2::TR) *
-                    ((w1 + conv2::TW - 1) / conv2::TW);
-  conv2::conv2_kernel<<<tiles < sms ? tiles : sms, conv2::THREADS,
-                        conv2::SMEM_BYTES, (cudaStream_t)stream>>>(
-      tr, tw, (const float*)b2, (const float*)w3, (const float*)b3,
-      (float*)out, batch, h1, w1, c2);
-  return (int)cudaGetLastError();
+  const tma_gemm::BiasBeforeCast epi{nullptr, (const float*)b1};
+  if (c2 == 192) {
+    return tma_gemm::conv3x3<Wide192>(z, w1, c1, batch, hm, w2, c, c2, epi,
+                                      stream);
+  }
+  return tma_gemm::conv3x3<Tall>(z, w1, c1, batch, hm, w2, c, c2, epi,
+                                 stream);
 }

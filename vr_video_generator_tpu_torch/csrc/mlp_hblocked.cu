@@ -53,6 +53,7 @@ using tma_gemm::load_bf16;
 struct Fc1Gelu {
   static constexpr int CONSUMER_BOXES = 2;
   static constexpr bool GATED = false;
+  static constexpr bool SUM_BIAS = false;
   const bf16* bias;  // b1
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&v)[N], int,

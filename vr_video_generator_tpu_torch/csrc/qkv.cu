@@ -22,8 +22,9 @@
 // What bounds them on the H100: at 1080p/vitl-518 (M = 8 * 2443 rows, D =
 // 1024) ln_qkv is 123 GFLOP (0.124 ms at the 989 TFLOP/s bf16 peak) against
 // ~166 MB of traffic (0.05 ms): compute-bound; at vits (D = 384) 17.3 GFLOP
-// against ~61 MB, balanced (18 us either way). proj is 5.8 GFLOP against
-// ~45 MB at vits: memory-bound.
+// against ~61 MB, balanced (18 us either way). proj is 41 GFLOP at vitl-518
+// (0.041 ms) against ~120 MB (0.036 ms); at vits 5.8 GFLOP against ~45 MB:
+// memory-bound.
 //
 // ln_qkv's design: a chain of row 1's LayerNorm kernel (csrc/layernorm.cu),
 // x -> a, (M, D) bf16 scratch, then the TMA + wgmma GEMM core
@@ -35,11 +36,14 @@
 // and 384 the last column tile is ragged (TMA zero-fills w's rows >= 3D,
 // the store clips columns >= 3D, the epilogue is never asked for them).
 //
-// proj's design: one block of 8 warps per (64-row, 128-column) output tile,
-// the block's 64 A rows in shared memory for the whole K, weight tiles of
-// 128 x 64 streamed through shared memory, each warp a 32 x 32 sub-tile
-// (2 x 2 wmma fragments). Simple first: no cp.async pipelining, wmma
-// instead of wgmma/TMA.
+// proj's design: the same core for o w^T, with the arithmetic of the
+// LayerScaleResidual epilogue that the MLP halves' down products use (rows 9
+// and 10): bf16 sums, + bias, gamma *, x +, each rounded to bf16, three of a
+// tile's four boxes on the consumers and the fourth on the epilogue warps
+// (ProjEpilogue). D = 384 leaves a ragged last column tile (256 + 128), as
+// row 5's 3D does. (The earlier kernel, one unpipelined wmma block a 64 x
+// 128 tile with all of its A rows in shared memory, took 0.575 ms at
+// vitl-518 on an H100, 14x its bound and 2x its plain version.)
 
 #include "wgmma_gemm.cuh"
 
@@ -50,11 +54,6 @@ namespace {
 
 using namespace vrvg;
 
-constexpr int BM = 64, BN = 128, BK = 64;
-constexpr int THREADS = 256;
-constexpr int LDB = BK + 16;
-constexpr int LDC = BN + 8;
-
 using tma_gemm::load_bf16;
 
 // ln_qkv's epilogue: [q * scale | k | v] = bf16(a w^T) + bias, q's columns
@@ -62,6 +61,7 @@ using tma_gemm::load_bf16;
 struct QkvEpilogue {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
+  static constexpr bool SUM_BIAS = false;
   const bf16* bias;  // (3D,)
   int d;
   float scale;
@@ -79,79 +79,22 @@ struct QkvEpilogue {
   }
 };
 
-// The A rows, or the f32 output staging that reuses their space.
-template <int D>
-__host__ __device__ constexpr size_t a_bytes() {
-  constexpr size_t rows = (size_t)BM * (D + 16) * 2;
-  constexpr size_t staged = (size_t)BM * LDC * 4;
-  return align128(rows > staged ? rows : staged);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return a_bytes<D>() + (size_t)BN * LDB * 2;
-}
-
-// out (M, D) = resid + gamma * (a @ w^T + bias).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-            const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-            const bf16* __restrict__ gamma, bf16* __restrict__ out, int m) {
-  constexpr int LDA = D + 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);  // aliases As after the K loop
-  bf16* Bs = reinterpret_cast<bf16*>(smem + a_bytes<D>());
-
-  const int tid = threadIdx.x;
-  const int warp = tid / WARP;
-  const int wm = warp / 4, wn = warp % 4;
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int valid = (int)min((long long)BM, (long long)m - row0);
-
-  load_rows(As, LDA, a + row0 * D, D, BM, D, valid, tid, THREADS);
-
-  FragC acc[2][2];
-  zero(acc);
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    __syncthreads();  // As ready; every warp done with the previous Bs
-    load_rows(Bs, LDB, w + (long long)n0 * D + k0, D, BN, BK, BN, tid,
-              THREADS);
-    __syncthreads();
-    mma_block<2, 2, BK>(acc, As + wm * 32 * LDA + k0, LDA,
-                        Bs + wn * 32 * LDB, LDB);
+// proj's epilogue: LayerScaleResidual's arithmetic, with the consumers
+// finishing three of a 128 x 256 tile's four 64-column boxes from their
+// registers. Its K = D (6 or 16 slices) leaves too little product time a
+// tile to hide three epilogue warps' loads of x, bias and gamma, which rows 9
+// and 10 hide under K = 4096. A row past M reads row M - 1 (its result is
+// clipped by the store) so the consumers' unrolled loads issue together.
+// On an H100 at 1080p, B = 8: 93 / 176 us a call (D = 384 / 1024) with the
+// epilogue warps alone, 57 / 114 with two boxes, 48 / 107 with three.
+struct ProjEpilogue : tma_gemm::LayerScaleResidual {
+  static constexpr int CONSUMER_BOXES = 3;
+  template <int N>
+  __device__ __forceinline__ void operator()(bf16 (&v)[N], int row,
+                                             int col) const {
+    apply(v, row < m ? row : m - 1, col);
   }
-  __syncthreads();  // all warps done reading As before Cs overwrites it
-  store(Cs + wm * 32 * LDC + wn * 32, LDC, acc);
-  __syncthreads();
-
-  for (int i = tid; i < BM * (BN / 8); i += THREADS) {
-    const int r = i / (BN / 8);
-    const int c = (i % (BN / 8)) * 8;
-    if (r >= valid) continue;
-    const int n = n0 + c;
-    const long long row = row0 + r;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const bf16 t = add_bf(rbf(Cs[r * LDC + c + e]), bias[n + e]);
-      v[e] = add_bf(resid[row * D + n + e], mul_bf(gamma[n + e], t));
-    }
-    *reinterpret_cast<uint4*>(out + row * D + n) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-template <int D>
-int run_proj(const void* o, const void* x, const void* w, const void* bias,
-             const void* gamma, void* out, int m, void* stream) {
-  dim3 grid((m + BM - 1) / BM, D / BN);
-  return launch(proj_kernel<D>, grid, THREADS, smem_bytes<D>(), stream,
-                (const bf16*)o, (const bf16*)w, (const bf16*)bias,
-                (const bf16*)x, (const bf16*)gamma, (bf16*)out, m);
-}
+};
 
 }  // namespace
 
@@ -168,17 +111,14 @@ extern "C" int vrvg_ln_qkv(const void* x, const void* lnw, const void* lnb,
 }
 
 // o (M, D) bf16 (the attention output), x (M, D) bf16 residual, w (D, D),
-// b (D,), gamma (D,) bf16 -> out (M, D) bf16 = x + gamma * (o w^T + b). D in
-// {128, 384, 768, 1024}.
+// b (D,), gamma (D,) bf16 -> out (M, D) bf16 = x + gamma * (o w^T + b). D a
+// multiple of 64.
 extern "C" int vrvg_proj_ls_residual(const void* o, const void* x,
                                      const void* w, const void* b,
                                      const void* gamma, void* out, int m,
                                      int d, void* stream) {
-  switch (d) {
-    case 128: return run_proj<128>(o, x, w, b, gamma, out, m, stream);
-    case 384: return run_proj<384>(o, x, w, b, gamma, out, m, stream);
-    case 768: return run_proj<768>(o, x, w, b, gamma, out, m, stream);
-    case 1024: return run_proj<1024>(o, x, w, b, gamma, out, m, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return tma_gemm::gemm(o, w, out, m, d, d,
+                        ProjEpilogue{{(const bf16*)b, (const bf16*)gamma,
+                                      (const bf16*)x, m, d}},
+                        stream);
 }

@@ -7,8 +7,9 @@
 // walking BM x BN tiles of C in order (tile i, i + grid, ...), the N tiles
 // of one row band consecutive, so the blocks in flight share their A rows in
 // L2 and B stays in L2. The tile shape is a template parameter (Tile): 128
-// x 256 for the dense rows (5, 9, 10); 256 x 128 and 128 x 192 for the
-// convolution of row 11 (C2 = 128 and 192 output channels).
+// x 256 for the dense rows (5, 6, 9, 10); 256 x 128 and 128 x 192 for the
+// convolutions of rows 7 and 11 (C2 = 64 or 128, and 192 output channels)
+// and row 7's out_conv mix.
 //   - Warp 0, the producer: one thread issues TMA loads (128-byte swizzle,
 //     64-element K slices: a BM x 64 A tile and a BN x 64 B tile a stage)
 //     into a ring of STAGES buffers behind full/empty mbarrier pairs,
@@ -52,6 +53,8 @@
 //   static constexpr int CONSUMER_BOXES;  // boxes of C's tile the consumers
 //                                         // finish: 0-3, gated 0-1
 //   static constexpr bool GATED;
+//   static constexpr bool SUM_BIAS;       // adds f32 sum_bias[col] to the
+//                                         // f32 sums before their cast
 //   const bf16* bias;                     // the bias it adds
 //   template <int N>
 //   __device__ void operator()(bf16 (&v)[N], int row, int col) const
@@ -59,7 +62,12 @@
 // consumers, 8 from the epilogue warps; v 4N-byte aligned) into the bf16
 // outputs there; rows may be >= M (their results are clipped), columns are
 // < N. A gated one's operator() takes (v, u, row, col), u the sums of the
-// second half's column, and writes C into v.
+// second half's column, and writes C into v. One with SUM_BIAS (row 7's
+// conv1, whose f32 bias is added before the cast) also has
+//   const float* sum_bias;                // (N,) f32
+// which the consumers add to the f32 sums as they leave the registers,
+// before the one rounding to bf16; every other epilogue leaves that code
+// out at compile time.
 
 #pragma once
 
@@ -300,6 +308,25 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int mw = 0; mw < MW; ++mw) fence_regs(acc[mw]);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+      if constexpr (Epilogue::SUM_BIAS) {
+        static_assert(!GATED, "a gated epilogue has no sum bias");
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = col0 + 8 * jj + c;
+            const float b = col < n ? __ldg(epi.sum_bias + col) : 0.f;
+#pragma unroll
+            for (int mw = 0; mw < MW; ++mw) {
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                acc[mw][4 * jj + 2 * i + c] =
+                    __fadd_rn(acc[mw][4 * jj + 2 * i + c], b);
+              }
+            }
+          }
+        }
+      }
 
       // The sums, rounded to bf16, into the staging tile once the epilogue
       // has stored the previous one: the epilogue warps' boxes first (both
@@ -465,13 +492,13 @@ int launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb,
 
 // C (M, N) = epi(bf16(A (M, K) B (N, K)^T)), or for a gated epilogue epi of
 // the two halves of bf16(A B^T) with B (2N, K); N a multiple of 8 (gated: of
-// 128), K of 64, every pointer 16-byte aligned. 128 x 256 tiles. Returns a
-// CUDA error code.
-template <class Epilogue>
+// Shape::BN / 2), K of 64, every pointer 16-byte aligned. On Shape's tiles
+// (128 x 256 unless given). Returns a CUDA error code.
+template <class Shape = Wide, class Epilogue>
 int gemm(const void* a, const void* b, void* c, int m, int n, int k,
          const Epilogue& epi, void* stream) {
   constexpr bool GATED = Epilogue::GATED;
-  constexpr int TN = GATED ? Wide::BN / 2 : Wide::BN;
+  constexpr int TN = GATED ? Shape::BN / 2 : Shape::BN;
   if (m <= 0) return (int)cudaSuccess;
   if (n <= 0 || n % (GATED ? TN : 8) != 0 || k <= 0 || k % BK != 0) {
     return (int)cudaErrorInvalidValue;
@@ -479,13 +506,13 @@ int gemm(const void* a, const void* b, void* c, int m, int n, int k,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap ta, tb, tc;
-  if (!make_map_2d(encode, &ta, a, m, k, Wide::BM, BK) ||
+  if (!make_map_2d(encode, &ta, a, m, k, Shape::BM, BK) ||
       !make_map_2d(encode, &tb, b, GATED ? 2 * n : n, k, TN, BK) ||
       !make_map_2d(encode, &tc, c, m, n, 64, 64)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_tiles<Epilogue, Wide>(ta, tb, tc, n, k, DenseLayout{m}, epi,
-                                      stream);
+  return launch_tiles<Epilogue, Shape>(ta, tb, tc, n, k, DenseLayout{m}, epi,
+                                       stream);
 }
 
 // out (B, H, W, N) = epi(bf16(conv3x3(u (B, H, W, C), w))) with zero
@@ -526,21 +553,37 @@ int conv3x3(const void* u, const void* w, void* out, int batch, int h,
 }
 
 // The bf16 sums as they are: a product with no epilogue arithmetic (row
-// 11's conv1; its bias is not added here).
+// 11's conv1, whose bias is not added here; row 7's out_conv mix).
 struct Identity {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
+  static constexpr bool SUM_BIAS = false;
   const bf16* bias;  // not added; named as every epilogue's bias is
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&)[N], int, int) const {}
 };
 
+// bf16(sums + sum_bias) with an f32 bias added before the one cast: row 7's
+// conv1 (head_tail_pallas.py `_tail_ext_kernel`, unlike the dense layers,
+// whose bias is added to the bf16 sums).
+struct BiasBeforeCast {
+  static constexpr int CONSUMER_BOXES = 0;
+  static constexpr bool GATED = false;
+  static constexpr bool SUM_BIAS = true;
+  const bf16* bias;  // not added; named as every epilogue's bias is
+  const float* sum_bias;
+  template <int N>
+  __device__ __forceinline__ void operator()(bf16 (&)[N], int, int) const {}
+};
+
 // out = x + gamma * (bf16(sums) + bias), each operation rounded to bf16:
-// the down projection of the MLP and SwiGLU halves (rows 9 and 10) with
-// LayerScale and the residual; x and out (M, D).
+// the attention half's proj (row 6) and the down projections of the MLP and
+// SwiGLU halves (rows 9 and 10), with LayerScale and the residual; x and out
+// (M, D).
 struct LayerScaleResidual {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
+  static constexpr bool SUM_BIAS = false;
   const bf16* bias;
   const bf16* gamma;
   const bf16* x;
@@ -549,6 +592,12 @@ struct LayerScaleResidual {
   __device__ __forceinline__ void operator()(bf16 (&v)[N], int row,
                                              int col) const {
     if (row >= m) return;  // clipped by the store
+    apply(v, row, col);
+  }
+  // The arithmetic at a row < M.
+  template <int N>
+  __device__ __forceinline__ void apply(bf16 (&v)[N], int row,
+                                        int col) const {
     __align__(16) bf16 b[N];
     __align__(16) bf16 g[N];
     __align__(16) bf16 xr[N];

@@ -1,9 +1,10 @@
-"""Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), the
-hidden-blocked MLP half (row 9), the SwiGLU half (row 10) and the big-C DPT
-tail (rows 11 and 12) on the card at the shapes the main paths give them.
+"""Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), proj +
+LayerScale + residual (row 6), the ext DPT tail (row 7), the hidden-blocked
+MLP half (row 9), the SwiGLU half (row 10) and the big-C DPT tail (rows 11
+and 12) on the card at the shapes the main paths give them.
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
-        [--rows 1,5,9,10,11,12]
+        [--rows 1,5,6,7,9,10,11,12]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -31,6 +32,21 @@ D) x (3D, D) for row 5, (M, 1536) x (8192, 1536) and (M, 4096) x (1536,
 kernels and on the wmma ones before them, so the file runs unchanged on an
 older tree.
 
+Row 6 at vits' (19544, 384) and vitl-518's (19544, 1024) rows: the same
+measurements as row 5, with cuBLAS's ``F.linear`` of o (M, D) x (D, D) as
+the yardstick (the proj product without the epilogue); the stage is this
+tree's GEMM core or the wmma ``proj_kernel`` before it.
+
+Row 7, the ext DPT tail, at vits' (C = 64, x 148 x 264, depth 518 x 924),
+vitb's (C = 128, the same grid), vitl-252's (C = 256, 72 x 128, 252 x 448)
+and vitg-126's (C = 384, 36 x 64, 126 x 224) shapes, batch 8, x an NCHW
+tensor seen as NHWC: the device time by stage (the transpose, the out_conv
+mix, the upsample pass, conv1, the resize pass and conv2; on an older tree
+its three wmma kernels), each stage's TFLOP/s or GB/s, the span,
+``event_ms``, the host time a call (on an idle device too), the error
+against the plain version, the bound, and cuDNN's two bf16 channels-last
+convolutions (conv1, conv2) of the same shapes as the yardstick.
+
 Rows 11 and 12, the big-C DPT tail, at vitl-518's (C = 256, x 148 x 264,
 depth 518 x 924), vitl-728's (C = 256, 208 x 368, 728 x 1288) and
 vitg-518's (C = 384, 148 x 264, 518 x 924) shapes, batch 8, x an NCHW
@@ -45,7 +61,7 @@ tree (``big_front_kernel``, ``big_back_kernel``) count as one stage each.
 
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
-big-C tail kernels. Each result is a JSON line; the last line is one JSON
+DPT tail kernels. Each result is a JSON line; the last line is one JSON
 object with every row and the card's name and power limit.
 """
 
@@ -73,6 +89,12 @@ LN_SHAPES = (("vits", 19544, 384), ("vitl-728", 38280, 1024),
 MLP_SHAPES = (("vitl-518", 19544), ("vitl-728", 38280))
 D_L = 1024
 QKV_SHAPES = (("vits", 19544, 384), ("vitl-518", 19544, 1024))
+PROJ_SHAPES = QKV_SHAPES
+# (label, C, (H0, W0), (H1, W1)) of the ext tail at 1080p.
+EXT_TAIL_SHAPES = (("vits", 64, (148, 264), (518, 924)),
+                   ("vitb", 128, (148, 264), (518, 924)),
+                   ("vitl-252", 256, (72, 128), (252, 448)),
+                   ("vitg-126", 384, (36, 64), (126, 224)))
 SWIGLU_SHAPES = (("vitg-518", 19544),)
 # (label, C, (H0, W0), (H1, W1)) of the big-C tail at 1080p.
 BIG_TAIL_SHAPES = (("vitl-518", 256, (148, 264), (518, 924)),
@@ -257,6 +279,94 @@ def qkv_row(label: str, m: int, d: int) -> dict:
                           (("cublas_qkv", lambda: F.linear(a, w)),))
 
 
+def proj_row(label: str, m: int, d: int) -> dict:
+    from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual,
+                                                       proj_ls_residual_plain)
+
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + 6 * d))
+    n = m // BATCH
+    args = (randn((BATCH, n, d // 64, 64)), randn((BATCH, n, d)),
+            randn((d, d), d ** -0.5), randn((d,), 0.5), randn((d,), 0.1, 1.0))
+    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    flops = 2 * m * d * d
+    moved = 2 * (3 * m * d + d * d + 2 * d)
+    row = dict(row=6, label=label, M=m, D=d, max_abs_err=err.max().item(),
+               frac_differ=(got != want).float().mean().item(),
+               bound_ms=max(flops / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: proj_ls_residual(*args)))
+    del got, want, err
+    o, w = args[0].reshape(m, d), args[2]
+    row = against_cublas(row, flops,
+                         (("gemm_kernel", flops), ("proj_kernel", flops)),
+                         (("cublas_proj", lambda: F.linear(o, w)),))
+    row["kernel"]["gb_s"] = moved / row["kernel"]["kernel_us"] * 1e-3
+    return row
+
+
+def ext_tail_row(label: str, c: int, grid, out_hw) -> dict:
+    """Row 7 at one path's shapes (module docstring)."""
+    from chip_smoke import tail_stats, tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        head_tail_ext, head_tail_ext_plain)
+
+    (h0, w0), (h1, w1) = grid, out_hw
+    c2, hm, w2 = c // 2, 2 * h0, 2 * w0
+    gen = torch.Generator(device="cuda").manual_seed(c + h0 + 7)
+    randn = seeded(gen)
+    x = randn((BATCH, c, h0, w0)).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    got = head_tail_ext(x, *wts, out_hw)
+    want = head_tail_ext_plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    mix = 2 * BATCH * h0 * w0 * c * c
+    conv1 = 2 * BATCH * hm * w2 * 9 * c * c2
+    conv2 = 2 * BATCH * h1 * w1 * 9 * c2 * 32
+    xb, zb = 2 * x.numel(), 2 * BATCH * hm * w2 * c
+    c1b, rb = 2 * BATCH * hm * w2 * c2, 2 * BATCH * h1 * w1 * c2
+    moved = xb + sum(2 * t.numel() for t in wts) + 4 * got.numel()
+    row = dict(row=7, label=label, C=c, grid=grid, out_hw=out_hw,
+               **tail_stats(f"head_tail_ext {label}", got, want),
+               bound_ms=max((mix + conv1 + conv2) / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: head_tail_ext(x, *wts, out_hw)))
+    del got, want
+    # Stage rates: FLOPs of the products, bytes (each input read once, each
+    # output written once) of the passes; the older tree's three kernels.
+    stages = (("transpose", "to_channels_last", 2 * xb, None),
+              ("mix", ("Identity", "DenseLayout"), None, mix),
+              ("upsample", "upsample_kernel", xb + zb, None),
+              ("conv1", "BiasBeforeCast", None, conv1),
+              ("conv1", "Conv1Out", None, conv1),
+              ("resize", "::resize_kernel", c1b + rb, None),
+              ("conv2", "DepthOut", None, conv2),
+              ("mix + W-resize (older tree)", "mix_wresize_kernel", None, mix),
+              ("conv1 (older tree)", "conv1_kernel", None, conv1),
+              ("conv2 (older tree)", "namespace)::conv2_kernel<", None, conv2))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+    k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
+    # cuDNN's bf16 channels-last convolutions of the same shapes.
+    cl = torch.channels_last
+    z = randn((BATCH, c, hm, w2)).contiguous(memory_format=cl)
+    k1 = wts[2].contiguous(memory_format=cl)
+    r = randn((BATCH, c2, h1, w1)).contiguous(memory_format=cl)
+    k2 = wts[4].contiguous(memory_format=cl)
+    for key, fn, flops in (
+            ("cudnn_conv1", lambda: F.conv2d(z, k1, wts[3], padding=1), conv1),
+            ("cudnn_conv2", lambda: F.conv2d(r, k2, padding=1), conv2)):
+        row[key] = timings(fn)
+        row[key]["tflops"] = flops / row[key]["kernel_us"] * 1e-6
+    row["over_cudnn_kernel"] = k["kernel_us"] / (
+        row["cudnn_conv1"]["kernel_us"] + row["cudnn_conv2"]["kernel_us"])
+    return row
+
+
 def swiglu_row(label: str, m: int) -> dict:
     from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
                                                        swiglu_residual_plain)
@@ -289,10 +399,14 @@ def swiglu_row(label: str, m: int) -> dict:
 
 
 def stage_times(kernels: dict, stages) -> dict:
-    """Device us a call of each stage: the kernels whose name holds its
-    key."""
-    return {label: sum(us for name, us in kernels.items() if key in name)
-            for label, key in stages}
+    """Device us a call of each stage: the kernels whose name holds its key
+    (or each of a tuple of keys); stages of one label add up."""
+    out = defaultdict(float)
+    for label, key in stages:
+        keys = (key,) if isinstance(key, str) else key
+        out[label] += sum(us for name, us in kernels.items()
+                          if all(k in name for k in keys))
+    return dict(out)
 
 
 def big_tail_rows(label: str, c: int, grid, out_hw) -> list:
@@ -369,16 +483,17 @@ def sass_counts() -> dict:
     tail kernels in the built library (cuobjdump -sass)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts as sc
 
-    return sc(("layernorm", "gemm_kernel", "head_tail_big"))
+    return sc(("layernorm", "gemm_kernel", "head_tail_big", "conv2_kernel",
+               "proj_kernel", "mix_wresize", "conv1_kernel"))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="count wgmma/TMA instructions in the built kernels")
-    ap.add_argument("--rows", default="1,5,9,10,11,12",
-                    help="which rows to measure (comma-separated: 1, 5, 9, "
-                    "10, 11, 12; 11 and 12 are measured together)")
+    ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
+                    help="which rows to measure (comma-separated: 1, 5, 6, "
+                    "7, 9, 10, 11, 12; 11 and 12 are measured together)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -400,6 +515,17 @@ def main(argv=None) -> int:
     if "5" in wanted:
         for shape in QKV_SHAPES:
             rows.append(qkv_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "6" in wanted:
+        for shape in PROJ_SHAPES:
+            rows.append(proj_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "7" in wanted:
+        torch.backends.cudnn.allow_tf32 = False
+        for shape in EXT_TAIL_SHAPES:
+            rows.append(ext_tail_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
     if "9" in wanted:

@@ -65,6 +65,8 @@ SIGNATURES = {
                                  _I, _P],
     "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P],
+    "vrvg_head_tail_ext_front": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _P],
 }
 
 

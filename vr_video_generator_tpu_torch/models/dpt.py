@@ -49,10 +49,9 @@ def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
     pick (ops/head_tail.plan_tail); ``xla``, and ``auto`` off the card, fuse
     nothing. Off the card the fused tails run their plain versions. On the
     card a planned tail whose kernels do not take its shape raises here, not
-    in a kernel wrapper: the ext chain takes C in ops/head_tail.CHANNELS and
-    a row that fits one block's shared memory, the big-C kernels C in
-    BIG_CHANNELS (every encoder's width, and every row of a 16:9 frame up to
-    2160p that the planners send to the ext tail)."""
+    in a kernel wrapper: the ext kernels take any grid at every encoder's
+    width (ops/head_tail.EXT_CHANNELS) and, at C = 32, a row that fits one
+    block's shared memory; the big-C kernels C in BIG_CHANNELS."""
     if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
     if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):

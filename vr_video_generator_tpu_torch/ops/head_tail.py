@@ -15,8 +15,16 @@ in the TPU kernel's order and at its rounding points: the out_conv channel
 mix before the resizes (a 1x1 commutes with them), the W-resizes as GEMMs
 with bf16 weights, the H-resizes as exact integer taps with an f32 lerp
 (the out_conv bias added there, zero outside the image), conv1's f32 bias
-added before its cast, conv2's f32 bias and ReLU, and the 1x1 in f32. The
-kernels are ``csrc/head_tail.cu``; see its header for the design.
+added before its cast, conv2's f32 bias and ReLU, and the 1x1 in f32. On
+the card it runs as five stages, each with its own plain version (the whole
+plain version composes them): the out_conv mix (xoc), the upsample pass
+with the out_conv bias (Z), conv1 with its f32 bias before the cast (c1),
+the resize pass (R) and conv2 with the 1x1; the first three are the entry
+point ``vrvg_head_tail_ext_front`` and the last two the big-C tail's back
+without ``cw``, all in ``csrc/head_tail_big.cu`` (see its header). A head
+of 32 features (a custom config) runs the older chain of
+``csrc/head_tail.cu`` instead, chosen by width, which holds a whole input
+row in shared memory.
 
 The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
 15), which no CLI path of the JAX package runs (its DPT head takes the ext or
@@ -48,6 +56,7 @@ plain version, and the whole plain versions compose them.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -62,7 +71,8 @@ LAUNCHES = counter("head_tail_ext")
 BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
-CHANNELS = (32, 64, 128, 256, 384)  # the feature widths csrc/head_tail.cu takes
+CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
+EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
 C3 = 32                             # output_conv2's width in the reference head
@@ -74,7 +84,7 @@ def _align128(n: int) -> int:
 
 
 def ext_mix_smem(w0: int, c: int) -> int:
-    """Shared memory of the ext chain's first kernel (``mix_smem`` in
+    """Shared memory of the C = 32 ext chain's first kernel (``mix_smem`` in
     csrc/head_tail.cu), which holds a whole input row of W0 pixels."""
     w0p, nc = -(-w0 // 16) * 16, min(c, 64)
     return (_align128(w0p * (c + 16) * 2) + _align128(nc * (c + 16) * 2)
@@ -82,9 +92,11 @@ def ext_mix_smem(w0: int, c: int) -> int:
 
 
 def takes(features: int, w0: int) -> bool:
-    """Whether the ext kernel chain is built for a head of ``features``
-    channels and its first kernel holds a row of ``w0`` pixels."""
-    return features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK
+    """Whether the ext kernels are built for a head of ``features`` channels
+    on a grid W0 pixels wide: any grid at ``EXT_CHANNELS``; at C = 32 one
+    whose row fits the older chain's first kernel."""
+    return features in EXT_CHANNELS or (
+        features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK)
 
 
 def base_takes(features: int) -> bool:
@@ -227,42 +239,61 @@ def _resize_matrix(n_in: int, n_out: int, dt: torch.dtype,
                            dtype=dt, device=device).float()
 
 
+def ext_mix_plain(x: torch.Tensor, k_oc: torch.Tensor) -> torch.Tensor:
+    """Row 7's first stage: x (B, H0, W0, C) -> xoc (B, H0, W0, C) in x's
+    dtype, the out_conv 1x1 mix (C out, C in, 1, 1) per pixel: f32 sums ->
+    dtype."""
+    dt = x.dtype
+    return (x.float() @ k_oc[:, :, 0, 0].to(dt).float().T).to(dt)
+
+
+def ext_conv1_plain(z: torch.Tensor, k1: torch.Tensor,
+                    b1: torch.Tensor) -> torch.Tensor:
+    """Row 7's conv1: Z (B, HM, W2, C) -> c1 (B, HM, W2, C2) in Z's dtype:
+    output_conv1 3x3 with zero padding, f32 sums + the f32 bias, then the
+    cast."""
+    dt = z.dtype
+    c1 = F.conv2d(z.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
+                  b1.to(torch.float32), padding=1).to(dt)
+    return c1.permute(0, 2, 3, 1)
+
+
+def ext_resize_plain(c1: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Row 7's resize pass: c1 (B, HM, W2, C2) -> R (B, H1, W1, C2) in c1's
+    dtype: the W-resize (bf16-rounded weights, f32 sums) -> dtype, the
+    H-resize (f32 lerp) -> dtype (head_tail_pallas.py:123-141, :327-341)."""
+    dt = c1.dtype
+    h1, w1 = out_hw
+    c = c1.permute(0, 3, 1, 2)
+    wtb = _resize_matrix(c.shape[3], w1, dt, c.device)
+    c1w = torch.einsum("bchw,vw->bchv", c.float(), wtb).to(dt)
+    return _hlerp(c1w.float(), h1, 2).to(dt).permute(0, 2, 3, 1)
+
+
 def head_tail_ext_plain(x: torch.Tensor, k_oc: torch.Tensor,
                         b_oc: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
                         k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
                         b3: torch.Tensor, out_hw: Tuple[int, int]
                         ) -> torch.Tensor:
-    """x (B, H0, W0, C) -> depth (B, H1, W1) f32. Weights in PyTorch layout:
-    k_oc (C, C, 1, 1), k1 (C2, C, 3, 3), k2 (C3, C2, 3, 3), k3 (1, C3, 1,
-    1); biases (out,)."""
-    dt, f32 = x.dtype, torch.float32
-    b, h0, w0, c = x.shape
-    h1, w1 = out_hw
-    xoc = (x.float() @ k_oc[:, :, 0, 0].to(dt).float().T).to(dt)
-    wta = _resize_matrix(w0, 2 * w0, dt, x.device)
-    rw = torch.einsum("bhwc,vw->bhvc", xoc.float(), wta).to(dt)
-    z = (_hlerp(rw.float(), 2 * h0, 1) + b_oc.to(f32)).to(dt)
-    c1 = F.conv2d(z.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
-                  b1.to(f32), padding=1).to(dt)
-    return _tail_back_plain(c1, k2, b2, k3, b3, out_hw)
+    """x (B, H0, W0, C) -> depth (B, H1, W1) f32: the row-7 stages composed
+    (:func:`ext_mix_plain`, :func:`big_upsample_plain` with the out_conv
+    bias, :func:`ext_conv1_plain`, :func:`ext_resize_plain`,
+    :func:`big_conv2_plain`). Weights in PyTorch layout: k_oc (C, C, 1, 1),
+    k1 (C2, C, 3, 3), k2 (C3, C2, 3, 3), k3 (1, C3, 1, 1); biases (out,)."""
+    z = big_upsample_plain(ext_mix_plain(x, k_oc), b_oc)
+    r = ext_resize_plain(ext_conv1_plain(z, k1, b1), out_hw)
+    return big_conv2_plain(r, k2, b2, k3, b3)
 
 
 def _tail_back_plain(c1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
                      k3: torch.Tensor, b3: torch.Tensor,
                      out_hw: Tuple[int, int]) -> torch.Tensor:
     """conv1's output (B, C2, HM, W2) in the working dtype -> depth (B, H1,
-    W1) f32: the W-resize (bf16-rounded weights, f32 sums) -> dtype, the
-    H-resize (f32 lerp) -> dtype, output_conv2's f32 sum + b2, ReLU, the f32
-    1x1 + b3, ReLU (head_tail_pallas.py:123-153 and :327-354)."""
-    dt, f32 = c1.dtype, torch.float32
-    h1, w1 = out_hw
-    wtb = _resize_matrix(c1.shape[3], w1, dt, c1.device)
-    c1w = torch.einsum("bchw,vw->bchv", c1.float(), wtb).to(dt)
-    zz = _hlerp(c1w.float(), h1, 2).to(dt)
-    y = F.conv2d(zz.float(), k2.to(dt).float(), padding=1)
-    y = F.relu(y + b2.to(f32)[:, None, None])
-    res = (y * k3[0, :, 0, 0].to(f32)[:, None, None]).sum(dim=1) + b3.to(f32)
-    return F.relu(res)
+    W1) f32: :func:`ext_resize_plain`, then :func:`big_conv2_plain`
+    (head_tail_pallas.py:123-153)."""
+    r = ext_resize_plain(c1.permute(0, 2, 3, 1), out_hw)
+    return big_conv2_plain(r, k2, b2, k3, b3)
 
 
 def head_tail_plain(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
@@ -358,23 +389,64 @@ def _device_taps(n_in: int, n_out: int, device: torch.device):
     return _on_device(_host_taps, n_in, n_out, device)
 
 
-def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
-                  k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
-                  b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
-                  out_hw: Tuple[int, int]) -> torch.Tensor:
-    """x (B, H0, W0, C), any strides -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the kernel chain for CUDA tensors (bf16, C in
-    ``CHANNELS``)."""
-    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
-    if not on_cuda(x, *args):
-        return head_tail_ext_plain(x, *args, out_hw)
-    b, h0, w0, c = x.shape
-    h1, w1 = out_hw
+_PREPARED: Dict[tuple, tuple] = {}
+
+
+def _prepared(build, weights: Tuple[torch.Tensor, ...], *args):
+    """``build(*weights, *args)``, kept for these weight tensors as they are:
+    rebuilt when one of them is another tensor or has been written in place
+    since (its version counter), dropped when one of them is freed. Inference
+    tensors, whose writes are not counted, are never kept. A kernel wrapper
+    thus rebuilds its weight layouts once per set of weights, not per call."""
+    if any(w.is_inference() for w in weights):
+        return build(*weights, *args)
+    key = (build, *(id(w) for w in weights), *args)
+    versions = tuple(w._version for w in weights)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[1] == versions and all(
+            r() is w for r, w in zip(hit[0], weights)):
+        return hit[2]
+    value = build(*weights, *args)
+    drop = lambda _, k=key: _PREPARED.pop(k, None)  # noqa: E731
+    _PREPARED[key] = (tuple(weakref.ref(w, drop) for w in weights), versions,
+                      value)
+    return value
+
+
+def _f32_vectors(*ts):
+    """The tensors flattened, as f32 vectors on their device (copies: no
+    prepared tensor is a view of a weight, so a freed weight frees them)."""
+    return [t.to(torch.float32, copy=True).reshape(-1) for t in ts]
+
+
+def _ext_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
+    """Row 7's weights as vrvg_head_tail_ext_front and the row-12 back read
+    them: the mix (C, C) bf16; conv1 as the GEMM's B (C2 > 32) or the halo
+    kernel's rows (C2 = 32); conv2's rows; the f32 vectors b_oc, b1, b2, the
+    1x1, b3."""
+    w1 = conv2_weights(k1) if k1.shape[0] == C3 else conv3x3_gemm_weights(k1)
+    return (k_oc[:, :, 0, 0].to(torch.bfloat16, copy=True), w1,
+            conv2_weights(k2), *_f32_vectors(b_oc, b1, b2, k3, b3))
+
+
+def _ext32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
+    """The C = 32 chain's weights (csrc/head_tail.cu): the mix, conv1 (3, 3,
+    C, C2) and conv2 (3, 3, C2, C3) bf16, and the f32 vectors."""
+    bf16 = torch.bfloat16
+    return (k_oc[:, :, 0, 0].to(bf16, copy=True),
+            k1.to(bf16).permute(2, 3, 1, 0).contiguous(),
+            k2.to(bf16).permute(2, 3, 1, 0).contiguous(),
+            *_f32_vectors(b_oc, b1, b2, k3, b3))
+
+
+def _check_ext(x: torch.Tensor, k_oc, k1, k2, k3) -> None:
+    c = x.shape[3]
     c2 = c // 2
-    if x.dtype != torch.bfloat16 or not takes(c, w0):
+    if x.dtype != torch.bfloat16 or not takes(c, x.shape[2]):
         raise ValueError(f"head_tail_ext kernel takes bf16 input with C in "
-                         f"{CHANNELS} and rows within {SMEM_PER_BLOCK} bytes "
-                         f"of shared memory, got {x.dtype} C={c} W0={w0}")
+                         f"{CHANNELS} (at C=32 rows within {SMEM_PER_BLOCK} "
+                         f"bytes of shared memory), got {x.dtype} C={c} "
+                         f"W0={x.shape[2]}")
     for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
                            ("output_conv1", k1, (c2, c, 3, 3)),
                            ("output_conv2.0", k2, (C3, c2, 3, 3)),
@@ -382,18 +454,46 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"head_tail_ext {name} weight must be {shape}, "
                              f"got {tuple(t.shape)}")
+
+
+def _channels_last(x: torch.Tensor):
+    """x (B, H0, W0, C) as the chains read it: (x, nchw, xt) with nchw when x
+    is an NCHW tensor seen as NHWC (the model's), which the kernels
+    transpose first into the scratch xt; any other strides copied to a
+    contiguous x."""
+    nchw = not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous()
+    if not nchw:
+        x = x.contiguous()
+    xt = torch.empty_like(x, memory_format=torch.contiguous_format) \
+        if nchw else x
+    return x, nchw, xt
+
+
+def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
+                  k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+                  b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
+                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """x (B, H0, W0, C), any strides -> depth (B, H1, W1) f32: the plain
+    version for CPU tensors, the kernels for CUDA tensors (bf16, C in
+    ``CHANNELS``): the five-stage chain at ``EXT_CHANNELS``, the older
+    chain of csrc/head_tail.cu at C = 32."""
+    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
+    if not on_cuda(x, *args):
+        return head_tail_ext_plain(x, *args, out_hw)
+    if x.shape[3] in EXT_CHANNELS:
+        return head_tail_ext_stages(x, *args, out_hw)[-1]
+    _check_ext(x, k_oc, k1, k2, k3)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    koc = k_oc[:, :, 0, 0].to(bf16).contiguous()
-    wt1 = k1.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C, C2)
-    wt2 = k2.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C2, C3)
-    vecs = [t.to(f32).contiguous() for t in (b_oc, b1, b2, k3.reshape(-1), b3)]
+    b, h0, w0, c = x.shape
+    h1, w1 = out_hw
+    koc, wt1, wt2, *vecs = _prepared(_ext32_weights, args)
     taps_a, tapw_a = _device_taps(w0, 2 * w0, x.device)
     taps_b, tapw_b = _device_taps(2 * w0, w1, x.device)
+    bf16 = torch.bfloat16
     rw = torch.empty((b, h0, 2 * w0, c), dtype=bf16, device=x.device)
-    c1 = torch.empty((b, 2 * h0, 2 * w0, c2), dtype=bf16, device=x.device)
-    out = torch.empty((b, h1, w1), dtype=f32, device=x.device)
+    c1 = torch.empty((b, 2 * h0, 2 * w0, c // 2), dtype=bf16, device=x.device)
+    out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
     err = library().vrvg_head_tail_ext(
         x.data_ptr(), *x.stride(), b, h0, w0, c, koc.data_ptr(),
         vecs[0].data_ptr(), wt1.data_ptr(), vecs[1].data_ptr(),
@@ -404,6 +504,56 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
     check(err, "vrvg_head_tail_ext")
     LAUNCHES.count += 1
     return out
+
+
+def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
+                         b_oc: torch.Tensor, k1: torch.Tensor,
+                         b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                         k3: torch.Tensor, b3: torch.Tensor,
+                         out_hw: Tuple[int, int]):
+    """Row 7 stage by stage: (xoc, Z, c1, R, depth), each (B, H, W, C)
+    channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
+    versions of the stages; for CUDA tensors (bf16, C in ``EXT_CHANNELS``),
+    one launch of the chain (the front and the back entry points), whose
+    scratch holds the intermediates."""
+    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
+    if not on_cuda(x, *args):
+        xoc = ext_mix_plain(x, k_oc)
+        z = big_upsample_plain(xoc, b_oc)
+        c1 = ext_conv1_plain(z, k1, b1)
+        r = ext_resize_plain(c1, out_hw)
+        return xoc, z, c1, r, big_conv2_plain(r, k2, b2, k3, b3)
+    _check_ext(x, k_oc, k1, k2, k3)
+    b, h0, w0, c = x.shape
+    if c not in EXT_CHANNELS:
+        raise ValueError(f"head_tail_ext_stages takes C in {EXT_CHANNELS}, "
+                         f"got C={c}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    h1, w1 = out_hw
+    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
+    koc, w1m, w2m, boc, b1f, b2f, w3f, b3f = _prepared(_ext_weights, args)
+    x, nchw, xt = _channels_last(x)
+    taps_a, tapw_a = _device_taps(w0, w2, x.device)
+    taps_b, tapw_b = _device_taps(w2, w1, x.device)
+    new = functools.partial(torch.empty, dtype=torch.bfloat16,
+                            device=x.device)
+    xoc, z, c1, r = (new((b, h0, w0, c)), new((b, hm, w2, c)),
+                     new((b, hm, w2, c2)), new((b, h1, w1, c2)))
+    out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
+    lib, stream = library(), stream_handle(x.device)
+    check(lib.vrvg_head_tail_ext_front(
+        x.data_ptr(), int(nchw), xt.data_ptr(), koc.data_ptr(),
+        boc.data_ptr(), taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(),
+        z.data_ptr(), w1m.data_ptr(), b1f.data_ptr(), c1.data_ptr(), b, h0,
+        w0, c, stream), "vrvg_head_tail_ext_front")
+    check(lib.vrvg_head_tail_big_back(
+        c1.data_ptr(), taps_b.data_ptr(), tapw_b.data_ptr(), None,
+        w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
+        r.data_ptr(), out.data_ptr(), b, hm, w2, c2, h1, w1, stream),
+        "vrvg_head_tail_big_back")
+    LAUNCHES.count += 1
+    return xoc, z, c1, r, out
 
 
 # --- the big-C tail (rows 11, 12) ---------------------------------------------
@@ -449,15 +599,20 @@ def big_tail_bias(k1: torch.Tensor, b_oc: torch.Tensor, b1: torch.Tensor,
     return torch.stack([cw[0], cw[1] - cw[0], cw[2] - cw[0]])
 
 
-def big_upsample_plain(x: torch.Tensor) -> torch.Tensor:
-    """Row 11's first stage: x (B, H0, W0, C) -> U (B, 2 H0, 2 W0, C) in x's
-    dtype: the W-upsample (bf16 resize weights, f32 sums) -> dtype, the
-    H-upsample (exact taps, f32 lerp, no bias) -> dtype."""
+def big_upsample_plain(x: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 11's first stage (and row 7's second, with its out_conv bias): x
+    (B, H0, W0, C) -> U (B, 2 H0, 2 W0, C) in x's dtype: the W-upsample
+    (bf16 resize weights, f32 sums) -> dtype, the H-upsample (exact taps, f32
+    lerp, + the f32 ``bias`` where given) -> dtype."""
     dt = x.dtype
     _, h0, w0, _ = x.shape
     wta = _resize_matrix(w0, 2 * w0, dt, x.device)
     rw = torch.einsum("bhwc,vw->bhvc", x.float(), wta).to(dt)
-    return _hlerp(rw.float(), 2 * h0, 1).to(dt)
+    u = _hlerp(rw.float(), 2 * h0, 1)
+    if bias is not None:
+        u = u + bias.to(torch.float32)
+    return u.to(dt)
 
 
 def big_conv1_plain(u: torch.Tensor, k_oc: torch.Tensor,
@@ -529,16 +684,23 @@ def head_tail_big_plain(x: torch.Tensor, k_oc: torch.Tensor,
     return head_tail_big_back_plain(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
 
 
+def conv3x3_gemm_weights(k: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv (O, I, 3, 3) as the GEMM core's B for Conv3x3Layout: (O,
+    9 I) bf16, k = (3 dh + dw) I + i (row 7's conv1)."""
+    k = k.to(torch.bfloat16)
+    return k.permute(0, 2, 3, 1).reshape(k.shape[0], -1).contiguous()
+
+
 def conv1_weights(k_oc: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     """conv1 with out_conv's mix folded in, as the GEMM's B: (C2, 9 C) bf16,
     k = (3 dh + dw) C + c."""
-    fold = fold_conv1(k_oc, k1, torch.bfloat16)  # (C2, C, 3, 3)
-    return fold.permute(0, 2, 3, 1).reshape(fold.shape[0], -1).contiguous()
+    return conv3x3_gemm_weights(fold_conv1(k_oc, k1, torch.bfloat16))
 
 
 def conv2_weights(k2: torch.Tensor) -> torch.Tensor:
-    """conv2 (32, C2, 3, 3) as the row-12 kernel reads it: (9 * 32, C2)
-    bf16, row (3 dh + dw) 32 + n."""
+    """A 3x3 conv to 32 channels (32, C2, 3, 3) as the halo kernel reads it
+    (row 12's conv2, row 7's conv1 at C2 = 32): (9 * 32, C2) bf16, row (3 dh
+    + dw) 32 + n."""
     return k2.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(
         9 * k2.shape[0], k2.shape[1]).contiguous()
 
@@ -571,14 +733,8 @@ def head_tail_big_front_stages(x: torch.Tensor, k_oc: torch.Tensor,
                              f"{shape}, got {tuple(t.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    # The kernels read x as it is when it is contiguous or an NCHW tensor
-    # seen as NHWC (the model's), which they transpose first into xt.
-    nchw = not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous()
-    if not nchw:
-        x = x.contiguous()
-    xt = torch.empty_like(x, memory_format=torch.contiguous_format) \
-        if nchw else x
-    w1m = conv1_weights(k_oc, k1)
+    x, nchw, xt = _channels_last(x)
+    w1m = _prepared(conv1_weights, (k_oc, k1))
     taps, tapw = _device_taps(w0, 2 * w0, x.device)
     u = torch.empty((b, 2 * h0, 2 * w0, c), dtype=torch.bfloat16,
                     device=x.device)
@@ -632,13 +788,12 @@ def head_tail_big_back_stages(mid: torch.Tensor, k1: torch.Tensor,
                              f"{shape}, got {tuple(t.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    f32 = torch.float32
-    cw = big_tail_bias(k1, b_oc, b1, w2, w1).contiguous()
-    w2m = conv2_weights(k2)
-    vecs = [t.to(f32).contiguous() for t in (b2, k3.reshape(-1), b3)]
+    cw = _prepared(big_tail_bias, (k1, b_oc, b1), w2, w1)
+    w2m = _prepared(conv2_weights, (k2,))
+    vecs = _prepared(_f32_vectors, (b2, k3, b3))
     taps, tapw = _device_taps(w2, w1, mid.device)
     r = torch.empty((b, h1, w1, c2), dtype=torch.bfloat16, device=mid.device)
-    out = torch.empty((b, h1, w1), dtype=f32, device=mid.device)
+    out = torch.empty((b, h1, w1), dtype=torch.float32, device=mid.device)
     err = library().vrvg_head_tail_big_back(
         mid.data_ptr(), taps.data_ptr(), tapw.data_ptr(), cw.data_ptr(),
         w2m.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),

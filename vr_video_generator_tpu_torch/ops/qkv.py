@@ -17,6 +17,8 @@ attention kernel reads, with no pad rows (the port's attention masks keys
 ``ln_qkv``'s is a chain: row 1's LayerNorm into an (M, D) scratch, then the
 TMA + wgmma GEMM core with the bias and scale in its epilogue;
 :func:`qkv_plain` is the plain version of that second stage.
+``proj_ls_residual`` is one launch of the same core with the bias,
+LayerScale and residual in its epilogue.
 """
 
 from __future__ import annotations

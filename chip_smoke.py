@@ -37,7 +37,9 @@ Phases, each fatal on failure:
      before it and read just after, each required to launch exactly its
      kernels: vits fused (``--mlp_fused fused --tail fused``, 3 batches of 8
      random 1080x1920 frames, no host sync in a step, the output held
-     against the input, the plain warp and the plain versions' depth),
+     against the input, the plain warp and the plain versions' depth;
+     rows 3, 4, 13 and 14 held bit for bit and timed, kernel-only, on
+     that step's own depth),
      slice 1's unfused path (``xla``/``xla``, 1 batch) and one batch of the
      default ``auto`` path; then Depth-Anything-V2-Large (vitl) fused at
      --input_size 518 (2 batches of 8, the same checks) and ``auto`` at 728
@@ -1386,12 +1388,72 @@ def launched_exactly(label, counts, need) -> None:
             f"{label} launched {sorted(launched)}, expected {sorted(need)}")
 
 
-def checked_path(label, pipe, frames, need, pipe32=None) -> dict:
+def warp_at_step_depth(label, imgs, depth, st, spec) -> dict:
+    """Rows 3, 4, 13 and 14 on a main-path step's own depth (its blended
+    depth and tables), each bit for bit against its plain version, with
+    its kernel-only time (torch.profiler), its event time and the bound's
+    share of its kernel-only time."""
+    import torch
+
+    from vr_video_generator_tpu_torch.gemm_bench import kernel_us
+    from vr_video_generator_tpu_torch.ops.warp import (
+        blur_select_sbs, blur_select_sbs_packed_plain, blur_select_sbs_plain,
+        resolve_banded, warp_composite, warp_composite_banded_plain,
+        warp_composite_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    args = (imgs, depth, st, spec.s_neg, spec.s_pos)
+    comp, cov = warp_composite(*args)
+    comp_p, cov_p = warp_composite_plain(*args)
+    bargs = (comp_p, cov_p, imgs, st.edge_width, spec.kernel_size,
+             spec.cfg.sigma)
+    sbs, sbs_p = blur_select_sbs(*bargs), blur_select_sbs_plain(*bargs)
+    pk = blur_select_sbs(*bargs, emit="packed").view(torch.int32)
+    pk_p = blur_select_sbs_packed_plain(*bargs).view(torch.int32)
+    torch.cuda.synchronize()
+    require(torch.equal(comp, comp_p) and torch.equal(cov, cov_p),
+            f"{label}: warp_composite differs from plain at the step's depth")
+    require(torch.equal(sbs, sbs_p) and torch.equal(pk, pk_p),
+            f"{label}: blur_select_sbs differs from plain at the step's depth")
+    moved_warp = nbytes(imgs, depth, *st, comp, cov)
+    moved_blur = nbytes(comp_p, cov_p, imgs, st.edge_width)
+    rows = [("warp_composite", "warp_composite_kernel",
+             lambda: warp_composite(*args), moved_warp),
+            ("blur_select_sbs", "blur_select_sbs_kernel",
+             lambda: blur_select_sbs(*bargs), moved_blur + nbytes(sbs)),
+            ("blur_select_sbs_packed", "blur_select_sbs_kernel",
+             lambda: blur_select_sbs(*bargs, emit="packed"),
+             moved_blur + nbytes(pk))]
+    if resolve_banded(True, spec.s_neg, spec.s_pos):
+        bd = warp_composite(*args, banded=True)
+        bd_p = warp_composite_banded_plain(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(bd, bd_p)),
+                f"{label}: warp_composite banded differs from plain at the "
+                f"step's depth")
+        rows.append(("warp_composite_banded", "warp_composite_banded_kernel",
+                     lambda: warp_composite(*args, banded=True), moved_warp))
+    out = dict(live_shifts=st.valid.sum(dim=1).tolist(),
+               hole_fraction=1.0 - cov.float().mean().item())
+    for name, key, fn, moved in rows:
+        kernels, _, _ = kernel_us(fn)
+        ms = sum(us for k, us in kernels.items() if key in k) * 1e-3
+        b = bound(moved, 0)
+        out[name] = dict(kernel_ms=ms, event_ms=event_ms(fn),
+                         bound_ms=b["bound_ms"],
+                         bound_share=b["bound_ms"] / ms)
+    log(f"{label} warp kernels at the step's depth: {json.dumps(out)}")
+    return out
+
+
+def checked_path(label, pipe, frames, need, pipe32=None,
+                 warp_timing=False) -> dict:
     """A main path with every output check: a step with no host sync, the
     launch counts of one process_segment over ``frames`` (exactly ``need``),
     the right half equal to the input, the SBS equal to the plain warp of
     its own depth, and, with ``pipe32``, depth held against the plain
-    versions and f32."""
+    versions and f32; with ``warp_timing``, the warp kernels on the step's
+    depth (:func:`warp_at_step_depth`)."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
@@ -1440,6 +1502,10 @@ def checked_path(label, pipe, frames, need, pipe32=None) -> dict:
         f"depth range [{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
     stats = dict(frames=n, seconds=elapsed, fps=fps, launches=counts,
                  live_shifts=live, hole_fraction=holes)
+    if warp_timing:
+        with torch.inference_mode():
+            stats["warp_step"] = warp_at_step_depth(label, batch, blended, st,
+                                                    pipe.spec)
     if pipe32 is not None:
         stats.update(depth_agreement(label, pipe, pipe32, batch, depth))
     return stats
@@ -1477,7 +1543,8 @@ def main_path(device, rng):
                                           dtype="float32"), sd)
     pipe32.model.cfg = pipe.model.cfg  # the calibrated scaler
     keep("vits fused/fused", checked_path("vits fused/fused", pipe, frames,
-                                          FUSED_VITS, pipe32))
+                                          FUSED_VITS, pipe32,
+                                          warp_timing=True))
     model_cfg = pipe.model.cfg
     del pipe, pipe32
     torch.cuda.empty_cache()

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.warp_tables import (above_all, all_invalid, descending,
+                               overlapping, random_bands, unbounded)
 from vr_video_generator_tpu_torch.kernels import launch_counts
 from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
                                                         flash_attention_plain)
@@ -28,7 +30,7 @@ from vr_video_generator_tpu_torch.ops.attention import attention, attention_plai
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm, layernorm_plain
 from vr_video_generator_tpu_torch.ops.warp import (
     WarpSpec, blur_select_sbs, blur_select_sbs_packed_plain,
-    blur_select_sbs_plain, pack_rgb, warp_composite,
+    blur_select_sbs_plain, pack_rgb, resolve_banded, warp_composite,
     warp_composite_banded_plain, warp_composite_plain)
 
 pytestmark = pytest.mark.cuda
@@ -489,6 +491,90 @@ def test_banded_past_126_shifts_runs_classic_kernel(cuda):
     comp_p, cov_p = warp_composite_plain(imgs, depth, st, spec.s_neg,
                                          spec.s_pos)
     assert torch.equal(comp, comp_p) and torch.equal(cov, cov_p)
+
+
+def _warp_all_rows(spec, imgs, depth, st, banded_equals_classic=True):
+    """Rows 3, 14 (where its 126 shifts allow), 4 and 13 on one input, each
+    bit for bit against its plain version; row 14 also against row 3 where
+    no pixel lies in more than two bands."""
+    comp, cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos)
+    comp_p, cov_p = warp_composite_plain(imgs, depth, st, spec.s_neg,
+                                         spec.s_pos)
+    assert torch.equal(cov, cov_p) and torch.equal(comp, comp_p)
+    if resolve_banded(True, spec.s_neg, spec.s_pos):
+        bd, bd_cov = warp_composite(imgs, depth, st, spec.s_neg, spec.s_pos,
+                                    banded=True)
+        bd_p, bd_cov_p = warp_composite_banded_plain(imgs, depth, st,
+                                                     spec.s_neg, spec.s_pos)
+        assert torch.equal(bd, bd_p) and torch.equal(bd_cov, bd_cov_p)
+        if banded_equals_classic:
+            assert torch.equal(bd, comp) and torch.equal(bd_cov, cov)
+    args = (comp, cov, imgs, st.edge_width, spec.kernel_size, spec.cfg.sigma)
+    assert torch.equal(blur_select_sbs(*args), blur_select_sbs_plain(*args))
+    assert torch.equal(blur_select_sbs(*args, emit="packed").view(torch.int32),
+                       blur_select_sbs_packed_plain(*args).view(torch.int32))
+    return comp, cov
+
+
+WARP_TABLES = {"three-overlapping-bands": overlapping,
+               "bands-descending": descending, "random-bands": random_bands,
+               "depth-above-every-band": above_all,
+               "all-shifts-invalid": all_invalid,
+               "unbounded-bands-nan-depth": unbounded}
+
+
+@pytest.mark.parametrize("h,w", [(61, 97), (150, 96), (1080, 1920)])
+@pytest.mark.parametrize("tables", list(WARP_TABLES))
+def test_warp_rows_on_adversarial_tables(cuda, tables, h, w):
+    """Rows 3, 4, 13 and 14 on tables no shortcut survives: bands that
+    overlap three deep (row 14's code byte holds two, so it is held only
+    against its own plain version there), that descend, random ones, depth
+    above every band, no valid shift, unbounded and empty bands, NaN
+    depth."""
+    spec, imgs, depth, st = _warp_case(cuda, h, w)
+    imgs, depth, st = WARP_TABLES[tables](spec, imgs, depth, st)
+    _warp_all_rows(spec, imgs, depth, st, banded_equals_classic=tables not in (
+        "three-overlapping-bands", "random-bands", "unbounded-bands-nan-depth"))
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_warp_rows_at_2160p(cuda, b):
+    """4K: 134 shifts (row 14 gives way to row 3), a (19, 17) blur."""
+    spec, imgs, depth, st = _warp_case(cuda, 2160, 3840, b=b)
+    assert spec.s_neg + spec.s_pos + 1 == 134 and spec.kernel_size == 8
+    _warp_all_rows(spec, imgs, depth, st)
+
+
+def test_warp_rows_shifts_wider_than_the_frame(cuda):
+    """1080 x 32: s_pos = 48 >= w, so a shift wraps more than once."""
+    spec, imgs, depth, st = _warp_case(cuda, 1080, 32)
+    assert spec.s_pos >= 32
+    _, cov = _warp_all_rows(spec, imgs, depth, st)
+    assert 0 < cov.float().mean() < 1
+
+
+@pytest.mark.parametrize("h,w", [(61, 97), (1080, 1920)])
+@pytest.mark.parametrize("kind", ["all-covered", "none-covered",
+                                  "edge-past-width"])
+def test_blur_select_coverage_extremes(cuda, kind, h, w):
+    """Rows 4 and 13 with every pixel covered (no blur at all), none
+    covered (blur everywhere) and an edge at or past the width (the left
+    half all original)."""
+    gen = torch.Generator(device=cuda).manual_seed(h + w)
+    comp, imgs = (torch.randint(0, 256, (3, h, w, 3), generator=gen,
+                                device=cuda, dtype=torch.uint8)
+                  for _ in range(2))
+    cov = torch.full((3, h, w), kind != "none-covered", device=cuda)
+    edge = torch.tensor([w, w + 3, 4 * w] if kind == "edge-past-width"
+                        else [0, 5, 40], dtype=torch.int32, device=cuda)
+    ksize = int(np.round(0.0036 * h))
+    args = (comp, cov, imgs, edge, ksize, 3.0)
+    got = blur_select_sbs(*args)
+    assert torch.equal(got, blur_select_sbs_plain(*args))
+    assert torch.equal(blur_select_sbs(*args, emit="packed").view(torch.int32),
+                       pack_rgb(got).view(torch.int32))
+    if kind == "edge-past-width":
+        assert torch.equal(got[:, :, :w], imgs)
 
 
 # path1 on an odd grid (37 x 45: no multiple of the 64-pixel segment), at

@@ -1,10 +1,11 @@
 """Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), proj +
 LayerScale + residual (row 6), the ext DPT tail (row 7), the hidden-blocked
-MLP half (row 9), the SwiGLU half (row 10) and the big-C DPT tail (rows 11
-and 12) on the card at the shapes the main paths give them.
+MLP half (row 9), the SwiGLU half (row 10), the big-C DPT tail (rows 11
+and 12) and the warp kernels (rows 3, 4, 13 and 14) on the card at the
+shapes the main paths give them.
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
-        [--rows 1,5,6,7,9,10,11,12]
+        [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -59,6 +60,20 @@ and as a yardstick (the port never calls it) cuDNN's bf16 channels-last
 The stages are found by kernel name, and the row-12 kernels of an older
 tree (``big_front_kernel``, ``big_back_kernel``) count as one stage each.
 
+Rows 3, 4, 13 and 14, the compositor, the blur/select pass, its packed
+emit and the banded compositor, at 1080p, batch 8, at two depths whose
+data sets their work: ``chip_smoke.py``'s synthetic ramp (0 to 14 plus
+noise, through the temporal scan), and the depth of a real vits ``auto``
+step (seeded random weights, the depth scaler calibrated to a peak of 12,
+as ``stage_bench`` does); rows 3 and 4 also on a 4K ramp, batch 2 (S =
+134, kx = 19). For each: the live shifts of each frame, the hole share,
+the share of (row, 128-column strip) cells with no hole and of pixels with
+a hole within the blur's reach; each kernel's kernel-only time
+(profiler), ``event_ms``, host time a call, its bytes (each input read
+once, each output written once) over its time, and the bound's share of
+its time; each output against its plain version, bit for bit. The rows
+call only the wrappers, so the file runs unchanged on an older tree.
+
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
 DPT tail kernels. Each result is a JSON line; the last line is one JSON
@@ -102,6 +117,8 @@ BIG_TAIL_SHAPES = (("vitl-518", 256, (148, 264), (518, 924)),
                    ("vitg-518", 384, (148, 264), (518, 924)))
 D_G, HID_G = 1536, 4096
 BATCH = 8  # row 5's rows are (8, M / 8) tokens
+# The warp rows' frames: 1080p at batch 8 (both depths) and 4K at batch 2.
+WARP_STRIP = 128  # blur/select's strip width, for the hole-free share
 
 
 def kernel_us(fn, calls: int = CALLS) -> tuple:
@@ -478,6 +495,136 @@ def big_tail_rows(label: str, c: int, grid, out_hw) -> list:
     return [front, back]
 
 
+def warp_depths():
+    """(label, frames, depth) of the warp rows: chip_smoke.py's ramp and a
+    vits step's depth at 1080p, batch 8, each through the temporal scan,
+    and a ramp at 4K, batch 2."""
+    import numpy as np
+
+    import chip_smoke
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.stage_bench import (
+        calibrate_random_scaler)
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (chip_smoke.B, chip_smoke.H, chip_smoke.W,
+                                   3), dtype=np.uint8)
+    out = [("1080p ramp", frames, chip_smoke.synthetic_depth(rng, "cuda"))]
+    cfg = RunConfig(encoder="vits", batch_size=chip_smoke.B,
+                    compute_dtype="bfloat16", input_size=518)
+    pipe = SbsPipeline.create(cfg, chip_smoke.H, chip_smoke.W,
+                              allow_random=True, device="cuda", seed=0)
+    calibrate_random_scaler(pipe, frames)
+    with torch.inference_mode():
+        depth = pipe.depth_only(pipe.frames_to_device(frames)).clone()
+    out.append(("1080p vits step", frames, depth))
+    del pipe
+    h, w, b = 2160, 3840, 2
+    ramp = np.linspace(0.0, 14.0, w, dtype=np.float32)[None, None, :]
+    d4k = np.clip(ramp + rng.normal(0.0, 0.4, (b, h, w)).astype(np.float32),
+                  0.0, None)
+    out.append(("4K ramp", rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
+                torch.from_numpy(d4k).cuda()))
+    return out
+
+
+def warp_rows(label: str, frames, depth, wanted) -> list:
+    """Rows 3, 4, 13 and 14 (those in ``wanted``) on one depth (module
+    docstring); the 4K ramp has no row 14 (134 shifts: the wrapper runs
+    row 3)."""
+    from chip_smoke import nbytes
+    from vr_video_generator_tpu_torch import StereoConfig
+    from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
+                                                            temporal_scan)
+    from vr_video_generator_tpu_torch.ops.warp import (
+        WarpSpec, blur_select_sbs, blur_select_sbs_packed_plain,
+        blur_select_sbs_plain, resolve_banded, warp_composite,
+        warp_composite_banded_plain, warp_composite_plain)
+
+    b, h, w = depth.shape
+    spec = WarpSpec.create(h, w, StereoConfig(), impl="pallas",
+                           device="cuda")
+    imgs = torch.from_numpy(frames).cuda()
+    with torch.inference_mode():
+        blended, ranges, _ = temporal_scan(
+            depth, TemporalState.initial(h, w, "cuda"), spec)
+        _, st = spec.tables(blended, ranges)
+    blended = blended.clone()
+    st = type(st)(*(t.clone() for t in st))
+    args = (imgs, blended, st, spec.s_neg, spec.s_pos)
+    comp, cov = warp_composite(*args)
+    comp_p, cov_p = warp_composite_plain(*args)
+    torch.cuda.synchronize()
+    kx, ky = 2 * spec.kernel_size + 3, 2 * spec.kernel_size + 1
+    cols = torch.arange(w, device="cuda")
+    holes = ~cov & (cols[None, None, :] >= st.edge_width[:, None, None])
+    pad = (-w) % WARP_STRIP
+    strips = F.pad(holes.to(torch.uint8), (0, pad)).view(b, h, -1,
+                                                        WARP_STRIP).amax(-1)
+    reach = F.max_pool1d(holes.permute(0, 2, 1).reshape(-1, 1, h).float(),
+                         ky, stride=1, padding=ky // 2)
+    data = dict(label=label, B=b, H=h, W=w, kx=kx, ky=ky,
+                shifts=spec.s_neg + spec.s_pos + 1,
+                live_shifts=st.valid.sum(dim=1).tolist(),
+                hole_share=holes.float().mean().item(),
+                uncovered_share=1.0 - cov.float().mean().item(),
+                hole_free_strip_rows=1.0 - strips.float().mean().item(),
+                hole_within_reach=reach.mean().item())
+    print(f"warp data {json.dumps(data)}", flush=True)
+    table = nbytes(*st)
+    rows = []
+
+    def row(num, name, fn, got, want, moved):
+        equal = all(torch.equal(g.view(torch.uint8) if g.dtype == torch.uint32
+                                else g, v.view(torch.uint8)
+                                if v.dtype == torch.uint32 else v)
+                    for g, v in zip(got, want))
+        r = dict(row=num, kernel_name=name, label=label, equal_to_plain=equal,
+                 bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                 kernel=timings(fn))
+        k = r["kernel"]
+        # The kernel itself, by name (row 14's call also ranks the shifts).
+        k["main_us"] = sum(us for n, us in k["kernels"].items()
+                           if name + "_kernel" in n)
+        k["gb_s"] = moved / k["main_us"] * 1e-3
+        k["bound_share"] = r["bound_ms"] * 1e3 / k["main_us"]
+        k["event_bound_share"] = r["bound_ms"] / k["event_ms"]
+        rows.append(r)
+        print(json.dumps(r), flush=True)
+
+    if "3" in wanted:
+        row(3, "warp_composite", lambda: warp_composite(*args), (comp, cov),
+            (comp_p, cov_p), nbytes(imgs, blended, comp, cov) + table)
+    if "14" in wanted and resolve_banded(True, spec.s_neg, spec.s_pos):
+        got = warp_composite(*args, banded=True)
+        want = warp_composite_banded_plain(*args)
+        torch.cuda.synchronize()
+        row(14, "warp_composite_banded",
+            lambda: warp_composite(*args, banded=True), got + (comp, cov),
+            want + (comp_p, cov_p), nbytes(imgs, blended, comp, cov) + table)
+        del got, want
+    bargs = (comp_p, cov_p, imgs, st.edge_width, spec.kernel_size,
+             spec.cfg.sigma)
+    moved_in = nbytes(comp_p, cov_p, imgs, st.edge_width)
+    if "4" in wanted:
+        got = blur_select_sbs(*bargs)
+        want = blur_select_sbs_plain(*bargs)
+        torch.cuda.synchronize()
+        row(4, "blur_select_sbs", lambda: blur_select_sbs(*bargs), (got,),
+            (want,), moved_in + nbytes(got))
+        del got, want
+    if "13" in wanted and h <= 1080:
+        got = blur_select_sbs(*bargs, emit="packed")
+        want = blur_select_sbs_packed_plain(*bargs)
+        torch.cuda.synchronize()
+        row(13, "blur_select_sbs", lambda: blur_select_sbs(*bargs,
+                                                          emit="packed"),
+            (got,), (want,), moved_in + nbytes(got))
+        del got, want
+    return rows
+
+
 def sass_counts() -> dict:
     """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM and big-C
     tail kernels in the built library (cuobjdump -sass)."""
@@ -492,8 +639,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true",
                     help="count wgmma/TMA instructions in the built kernels")
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
-                    help="which rows to measure (comma-separated: 1, 5, 6, "
-                    "7, 9, 10, 11, 12; 11 and 12 are measured together)")
+                    help="which rows to measure (comma-separated: 1, 3, 4, "
+                    "5, 6, 7, 9, 10, 11, 12, 13, 14; 11 and 12 are measured "
+                    "together)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -544,6 +692,11 @@ def main(argv=None) -> int:
             for row in big_tail_rows(*shape):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
+            torch.cuda.empty_cache()
+    if wanted & {"3", "4", "13", "14"}:
+        for label, frames, depth in warp_depths():
+            rows.extend(warp_rows(label, frames, depth, wanted))
+            del frames, depth
             torch.cuda.empty_cache()
     out["rows"] = rows
     print(json.dumps(out))

@@ -1,14 +1,22 @@
 """Build + load the native framepack library (g++ -O3, cached .so).
 
-The port's own copy of vr_video_generator_tpu/native/build.py, kept in step
-with it (the port imports nothing of the JAX package).
+The port's own copy of vr_video_generator_tpu/native/build.py (the port
+imports nothing of the JAX package), with one difference: the library is
+only ever written whole. g++ writes a temporary file in the same directory,
+which ``os.replace`` then moves onto ``libframepack.so``, all under an
+``fcntl.flock`` on ``libframepack.so.lock`` beside it. So several processes
+(xdist workers, the multi-process runtime) building at once compile once,
+and none of them loads a half-written library, which ``native.available()``
+would take for "no native library".
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -19,15 +27,32 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _fresh() -> bool:
+    return (os.path.exists(_SO)
+            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC))
+
+
 def build(force: bool = False) -> str:
     """Compile the shared library if missing or stale; returns its path."""
     with _lock:
-        if (not force and os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
+        if not force and _fresh():
             return _SO
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-               _SRC, "-o", _SO]
-        subprocess.run(cmd, check=True, capture_output=True)
+        with open(_SO + ".lock", "a") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            # Another process may have built it while this one waited.
+            if not force and _fresh():
+                return _SO
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(_SO),
+                                       prefix=".libframepack.", suffix=".tmp")
+            os.close(fd)
+            try:
+                cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                       "-std=c++17", _SRC, "-o", tmp]
+                subprocess.run(cmd, check=True, capture_output=True)
+                os.replace(tmp, _SO)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
         return _SO
 
 

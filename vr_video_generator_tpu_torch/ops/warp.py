@@ -50,6 +50,12 @@ EMITS = ("u8", "packed")
 # compares bj + 127 / bj + 128 [127, 253], so 254 is the first value a
 # pixel in no band can hold without the rank-0 shift claiming it.
 UNMATCHED = 254
+# Depth bins of the compositor's per-frame candidate table (csrc/warp.cu
+# NB): each bin lists the valid shifts whose band can hold its depths.
+WARP_BINS = 512
+# The largest blur kernel_size (round(0.0036 H)) csrc/blur_select.cu is
+# built for: 4320p.
+BLUR_KS_MAX = 16
 
 
 class PlaneTables(NamedTuple):
@@ -226,6 +232,71 @@ def warp_composite_banded_plain(img: torch.Tensor, depth: torch.Tensor,
     return composite, covered
 
 
+def depth_bins(depth: torch.Tensor, origin: torch.Tensor,
+               scale: torch.Tensor, bins: int = WARP_BINS) -> torch.Tensor:
+    """csrc/warp.cu ``bin_of``: clamp((depth - origin) * scale, 0, bins - 1)
+    in f32, truncated; NaN goes to bin 0. Monotone in depth, so a band
+    [lo, hi) holds only depths whose bin lies in [bin(lo), bin(hi)]."""
+    t = (depth - origin) * scale
+    t = torch.where(torch.isnan(t), 0.0, t).clamp(0.0, bins - 1)
+    return t.to(torch.int64)
+
+
+def shift_bin_ranges(st: ShiftTables, bins: int = WARP_BINS):
+    """The compositor's per-frame candidate table (csrc/warp.cu): the bin
+    origin and scale over the finite bounds of the valid bands, and each
+    band's bins [kl, kh], widened by one bin on each side. Invalid bands
+    get the empty range [1, 0]. Returns (origin, scale, kl, kh): (B, 1),
+    (B, 1), (B, S), (B, S)."""
+    inf = torch.tensor(torch.inf, dtype=torch.float32, device=st.lo.device)
+    fin_lo = st.valid & torch.isfinite(st.lo)
+    fin_hi = st.valid & torch.isfinite(st.hi)
+    low = torch.minimum(torch.where(fin_lo, st.lo, inf).amin(1),
+                        torch.where(fin_hi, st.hi, inf).amin(1))
+    high = torch.maximum(torch.where(fin_lo, st.lo, -inf).amax(1),
+                         torch.where(fin_hi, st.hi, -inf).amax(1))
+    span = high - low
+    scale = torch.tensor(float(bins), dtype=torch.float32) / span
+    ok = (span > 0) & torch.isfinite(span) & torch.isfinite(scale)
+    origin = torch.where(ok, low, 0.0)[:, None]
+    scale = torch.where(ok, scale, 0.0)[:, None]
+    kl = (depth_bins(st.lo, origin, scale, bins) - 1).clamp(min=0)
+    kh = (depth_bins(st.hi, origin, scale, bins) + 1).clamp(max=bins - 1)
+    kl = torch.where(st.valid, kl, 1)
+    kh = torch.where(st.valid, kh, 0)
+    return origin, scale, kl, kh
+
+
+def warp_composite_scatter_plain(img: torch.Tensor, depth: torch.Tensor,
+                                 st: ShiftTables, s_neg: int, s_pos: int,
+                                 bins: int = WARP_BINS
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 3's formulation on the CPU (tests only): each SOURCE pixel sx
+    takes the shifts its depth bin lists as candidates, checks each band
+    exactly, and scatters j to x = (sx + s_j) mod w with amax; output x
+    takes the winner's source pixel, or the fill roll where none won. The
+    (x, j) pairs are those of the ascending walk, and max does not depend
+    on order, so this equals :func:`warp_composite_plain` bit for bit."""
+    b, h, w, _ = img.shape
+    origin, scale, kl, kh = shift_bin_ranges(st, bins)
+    k = depth_bins(depth, origin[:, :, None], scale[:, :, None], bins)
+    cols = torch.arange(w, device=img.device)
+    win = torch.full(depth.shape, -1, dtype=torch.int64, device=depth.device)
+    wraps = torch.remainder(torch.arange(-s_neg, s_pos + 1), w)
+    for j in range(s_neg + s_pos + 1):
+        v = st.valid[:, j, None, None]
+        cand = v & (kl[:, j, None, None] <= k) & (k <= kh[:, j, None, None])
+        m = cand & (st.lo[:, j, None, None] <= depth) \
+            & (depth < st.hi[:, j, None, None])
+        target = ((cols + wraps[j]) % w).expand(b, h, w)
+        win.scatter_reduce_(2, target, torch.where(m, j, -1), "amax")
+    covered = win >= 0
+    src = torch.where(covered, cols - wraps[win.clamp(min=0)],
+                      cols - st.fill_offset[:, None, None].long()) % w
+    composite = torch.gather(img, 2, src[..., None].expand(b, h, w, 3))
+    return composite, covered
+
+
 def _require(x: torch.Tensor, dtype, shape, name: str) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
             or not x.is_contiguous():
@@ -309,8 +380,10 @@ def blur_select_sbs_packed_plain(composite: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _taps(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(gaussian_kernel1d(ksize, sigma)).to(device)
+def _taps(ksize: int, sigma: float) -> torch.Tensor:
+    """The blur's taps in host memory: the kernel copies them into its
+    launch's parameters."""
+    return torch.from_numpy(gaussian_kernel1d(ksize, sigma))
 
 
 def blur_select_sbs(composite: torch.Tensor, covered: torch.Tensor,
@@ -330,11 +403,14 @@ def blur_select_sbs(composite: torch.Tensor, covered: torch.Tensor,
     kx, ky = kernel_size * 2 + 3, kernel_size * 2 + 1
     if kx // 2 >= w or ky // 2 >= h:
         raise ValueError(f"blur window ({kx}, {ky}) too large for {h}x{w}")
+    if kernel_size > BLUR_KS_MAX:
+        raise ValueError(f"blur kernel_size {kernel_size} > {BLUR_KS_MAX}: "
+                         f"csrc/blur_select.cu takes frames up to 4320 rows")
     _require(composite, torch.uint8, (b, h, w, 3), "blur_select_sbs composite")
     _require(img, torch.uint8, (b, h, w, 3), "blur_select_sbs img")
     _require(covered, torch.bool, (b, h, w), "blur_select_sbs covered")
     edge = edge_width.to(torch.int32).contiguous()
-    kxw, kyw = _taps(kx, sigma, img.device), _taps(ky, sigma, img.device)
+    kxw, kyw = _taps(kx, sigma), _taps(ky, sigma)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     packed = emit == "packed"

@@ -19,18 +19,21 @@ Phases, each fatal on failure:
      stage of its chain against its plain version (the LN stage bit-exact
      against row 1); row 10 likewise stage by stage, and the device silu of
      its gate epilogue bit for bit against the plain one on every bf16
-     input; rows 5 and 6 also at vitl-518's D = 1024; row 2 also at
-     vitg-518's 24 heads; rows 11 and 12 stage by stage (the upsample and
-     resize passes bit for bit, conv1 by the dense kernels' bounds, conv2
-     with its 1x1 by the tail bounds) and also at vitl-728's grid; row 7
-     stage by stage the same way (its out_conv mix and conv1 by the dense
-     kernels' bounds) at vits' C=64; the DPT tail kernels at the widths
-     vitg, vitl and vitb add (the big-C tail at C=384, the ext tail stage by
-     stage at C=128, 256 and 384, and at C=32 the older ext chain); the packed
-     blur/select and the banded compositor bit-exact (the banded one also
+     input; row 8 stage by stage (the LN stage bit-exact against row 1)
+     at vits' D = 384 and vitb's D = 768; rows 5 and 6 also at vitb-518's
+     D = 768 and vitl-518's D = 1024; row 2 also at vitg-518's 24 heads; rows 11 and 12 stage by
+     stage (the upsample and resize passes bit for bit, conv1 by the dense
+     kernels' bounds, conv2 with its 1x1 by the tail bounds) and also at
+     vitl-728's grid; row 7 stage by stage the same way (its out_conv mix
+     and conv1 by the dense kernels' bounds) at vits' C=64; the DPT tail
+     kernels at the widths vitg, vitl and vitb add (the big-C tail at
+     C=384, the ext tail stage by stage at C=128, 256 and 384, and at C=32
+     the older ext chain); the packed blur/select and the banded
+     compositor bit-exact (the banded one also
      against the classic kernel, and a 4K frame, past its 126 shifts,
      through the classic kernel); the single-kernel tail and the RCU pair at
-     vits' and vitb's widths, and the chain RCU pair -> ext tail;
+     vits' and vitb's widths (each of the RCU pair's four conv calls alone,
+     conv2a's ReLU copy bit for bit), and the chain RCU pair -> ext tail;
   4. the main paths through ``runtime.segment.process_segment`` with bf16
      and seeded random weights (``--preprocess auto``: folded; the f32
      references exact), each with the launch counts reset just
@@ -41,7 +44,10 @@ Phases, each fatal on failure:
      rows 3, 4, 13 and 14 held bit for bit and timed, kernel-only, on
      that step's own depth),
      slice 1's unfused path (``xla``/``xla``, 1 batch) and one batch of the
-     default ``auto`` path; then Depth-Anything-V2-Large (vitl) fused at
+     default ``auto`` path; Depth-Anything-V2-Base (vitb) ``auto`` at
+     --input_size 518 (1 batch of 8: row 8 at D = 768, the ext tail at
+     C=128; the same checks as vits fused, and each kernel's launches in the
+     step counted); then Depth-Anything-V2-Large (vitl) fused at
      --input_size 518 (2 batches of 8, the same checks) and ``auto`` at 728
      (1 batch of 2: the attention half unfused past 4096 tokens, through
      the flash kernel), and ``auto`` at 252 (1 batch of 8: the ext tail at
@@ -57,10 +63,12 @@ Phases, each fatal on failure:
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
-at vitg-518's 24 heads; rows 5 and 6 twice: at D = 384 and 1024; row 9
-twice: at M = 19544 and 38280; rows 7, 11 and 12 three times: at vits'
-C=64, vitl-252's C=256 and vitg-126's C=384, and at vitl-518's, vitl-728's
-and vitg-518's shapes), and as the last
+at vitg-518's 24 heads; rows 5 and 6 three times: at D = 384, 768 and
+1024; row 8
+twice: at D = 384 and 768; row 9 twice: at M = 19544 and 38280; row 7 four
+times: at vits' C=64, vitb's C=128, vitl-252's C=256 and vitg-126's C=384;
+rows 11 and 12 three times: at vitl-518's, vitl-728's and vitg-518's
+shapes), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -82,6 +90,7 @@ FEATURES, H0, W0 = 64, 148, 264   # refinenet1's pre-upsample grid, vits
 OUT_HW = (518, 924)               # the depth net's size at --input_size 518
 DIM_L, HEADS_L, FEATURES_L = 1024, 16, 256  # vitl, same grids at 518
 DIM_G, HID_G, FEATURES_G = 1536, 4096, 384  # vitg (SwiGLU hidden), at 518
+DIM_B, FEATURES_B = 768, 128  # vitb, same grids at 518
 HEADS_G = 24
 # refinenet1's grid and the net's size at 1080p with --input_size 126 (vitg,
 # ext tail at C=384) and 252 (vitl, ext tail at C=256)
@@ -149,15 +158,21 @@ ATTN_MAX_REL, ATTN_MEAN_REL = 2e-2, 5e-3
 # (mlp_fc1_gelu, K = 1024 under the GELU; mlp_fc2_residual, K = 4096) each
 # on the chain's own input, to row 9's bounds; and so is row 10's
 # (swiglu_gate, K = 1536 under the bf16 silu chain; swiglu_down, K = 4096).
+# Row 8 runs row 9's chain at D = 384 and 768 and is held the same way: its
+# stages to those bounds, the whole at both widths to row 8's (mlp_residual;
+# at D = 768, 5.8e-4 of outputs differ, by at most 3 ulps, NVIDIA H100 80GB
+# HBM3, 700.00 W).
 GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
-                 "mlp_residual": 0.005, "mlp_residual_hblocked": 0.01,
+                 "mlp_residual": 0.005,
+                 "mlp_residual_hblocked": 0.01,
                  "mlp_fc1_gelu": 0.01, "mlp_fc2_residual": 0.01,
                  "swiglu_residual": 0.01, "swiglu_gate": 0.01,
                  "swiglu_down": 0.01, "head_tail_big_front": 0.005,
                  "head_tail_ext_mix": 0.005, "head_tail_ext_conv1": 0.005,
                  "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
-                 "mlp_residual_hblocked": 8, "mlp_fc1_gelu": 8,
+                 "mlp_residual_hblocked": 8,
+                 "mlp_fc1_gelu": 8,
                  "mlp_fc2_residual": 8, "swiglu_residual": 8,
                  "swiglu_gate": 8, "swiglu_down": 8,
                  "head_tail_big_front": 4, "head_tail_ext_mix": 4,
@@ -206,7 +221,7 @@ KERNELS = {
                f"{JAX_PKG}/ops/qkv_pallas.py:59"),
     "proj_ls_residual": ("cuda", f"{PKG}/csrc/qkv.cu",
                          f"{JAX_PKG}/ops/qkv_pallas.py:137"),
-    "mlp_residual": ("cuda", f"{PKG}/csrc/mlp.cu",
+    "mlp_residual": ("cuda", f"{PKG}/csrc/mlp_hblocked.cu",
                      f"{JAX_PKG}/ops/mlp_pallas.py:66"),
     "head_tail_ext": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                       f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
@@ -239,6 +254,14 @@ KERNELS = {
 SLICE1 = ("layernorm", "attention", "warp_composite", "blur_select_sbs")
 AUTO_VITS = SLICE1 + ("ln_qkv", "proj_ls_residual", "head_tail_ext")
 FUSED_VITS = AUTO_VITS + ("mlp_residual",)
+# vitb-518 (``auto``: D = 768 >= 512 fuses the MLP half) runs vits fused's
+# kernels at D = 768 and 12 heads, the ext tail at C = 128; its launches in
+# one step (12 blocks; LayerNorm at the four taps).
+VITB_518 = FUSED_VITS
+VITB_518_STEP = {"layernorm": 4, "ln_qkv": 12, "attention": 12,
+                 "proj_ls_residual": 12, "mlp_residual": 12,
+                 "head_tail_ext": 1, "warp_composite": 1,
+                 "blur_select_sbs": 1}
 BIG_TAIL = ("head_tail_big_front", "head_tail_big_back")
 VITL_518 = SLICE1 + ("ln_qkv", "proj_ls_residual",
                      "mlp_residual_hblocked") + BIG_TAIL
@@ -370,17 +393,19 @@ def randn(gen, shape, scale=1.0, shift=0.0, dtype=None):
 
 
 def check_ln_qkv(device, d: int = DIM) -> dict:
-    """Row 5 at a main path's shapes: vits' (D = 384, 6 heads) or vitl-518's
-    (D = 1024, 16 heads), batch 8 at 1080p. Module-level so a deliberately
-    broken copy of the kernel can be held against the same check."""
+    """Row 5 at a main path's shapes: vits' (D = 384, 6 heads), vitb-518's
+    (D = 768, 12 heads) or vitl-518's (D = 1024, 16 heads), batch 8 at
+    1080p. Module-level so a deliberately broken copy of the kernel can be
+    held against the same check."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, ln_qkv_plain
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    # vits' inputs come from the seed they always had; vitl's from their own.
+    # vits' inputs come from the seed they always had; vitl's and vitb's
+    # from their own.
     gen = torch.Generator(device=device).manual_seed(
-        SEED + 5 if d == DIM else SEED + 50)
+        {DIM: SEED + 5, DIM_L: SEED + 50, DIM_B: SEED + 70}[d])
     bf = torch.bfloat16
     x = randn(gen, (B, N_TOK, d), dtype=bf)
     lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
@@ -398,8 +423,8 @@ def check_ln_qkv(device, d: int = DIM) -> dict:
 
 
 def check_proj(gen, d: int):
-    """Row 6 at a main path's shapes: vits' (D = 384) or vitl-518's (D =
-    1024), batch 8 at 1080p, on inputs drawn from ``gen``: its statistics,
+    """Row 6 at a main path's shapes: vits' (D = 384), vitb-518's (D = 768)
+    or vitl-518's (D = 1024), batch 8 at 1080p, on inputs drawn from ``gen``: its statistics,
     times and bound, and the inputs (o, x, w, b, gamma)."""
     import torch
 
@@ -529,56 +554,76 @@ def tail_weights(gen, c):
             randn(gen, (1,), 0.1, 0.5, dtype=bf))
 
 
-def check_hblocked(gen, m: int, stages: bool) -> dict:
-    """Row 9 on M seeded rows at vitl's widths: the output against
-    mlp_residual_plain (GEMM_MAX_FRAC, GEMM_MAX_ULPS); with ``stages``, each
-    stage of the chain against its plain version on the chain's own input
-    (the LN stage bit-exact against row 1's kernel and within the LN bound
-    of the plain LayerNorm; the two GEMM stages to row 9's bounds); times of
-    the kernel and the plain version, and the bound."""
+def mlp_args(gen, m: int, d: int, x=None, gamma=None):
+    """Seeded operands of the GELU MLP half at width ``d`` on ``m`` rows (x
+    and gamma drawn here unless given)."""
     import torch
 
+    bf = torch.bfloat16
+    hid = 4 * d
+    x = randn(gen, (m, d), dtype=bf) if x is None else x
+    lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
+    w1 = randn(gen, (hid, d), d ** -0.5, dtype=bf)
+    b1 = randn(gen, (hid,), 0.5, dtype=bf)
+    w2 = randn(gen, (d, hid), hid ** -0.5, dtype=bf)
+    b2 = randn(gen, (d,), 0.5, dtype=bf)
+    gamma = randn(gen, (d,), 0.1, 1.0, dtype=bf) if gamma is None else gamma
+    return (x, lnw, lnb, w1, b1, w2, b2, gamma)
+
+
+def check_mlp_chain(row: int, key: str, args, stages: bool) -> dict:
+    """Row 8 (``row`` 8, vits' and vitb's widths) or row 9 (vitl's) on
+    ``args`` (:func:`mlp_args`, x 2-D): the output against
+    mlp_residual_plain by the bounds of ``key`` (GEMM_MAX_FRAC,
+    GEMM_MAX_ULPS); with ``stages``, each stage of the chain against its
+    plain version on the chain's own input (the LN stage bit-exact against
+    row 1's kernel and within the LN bound of the plain LayerNorm; the two
+    GEMM stages to row 9's stage bounds); the call must launch its kernel
+    once. Times of the kernel and the plain version, and the bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import launch_counts
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
                                                              layernorm_plain)
-    from vr_video_generator_tpu_torch.ops.mlp import (
-        fc1_gelu_plain, fc2_residual_plain, mlp_residual_hblocked,
-        mlp_residual_hblocked_stages, mlp_residual_plain)
+    from vr_video_generator_tpu_torch.ops import mlp
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    bf = torch.bfloat16
-    d, hid = DIM_L, 4 * DIM_L
-    args = (randn(gen, (m, d), dtype=bf), randn(gen, (d,), 0.1, 1.0),
-            randn(gen, (d,), 0.1), randn(gen, (hid, d), d ** -0.5, dtype=bf),
-            randn(gen, (hid,), 0.5, dtype=bf),
-            randn(gen, (d, hid), hid ** -0.5, dtype=bf),
-            randn(gen, (d,), 0.5, dtype=bf), randn(gen, (d,), 0.1, 1.0, dtype=bf))
+    name = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
+    fn, stages_fn = getattr(mlp, name), getattr(mlp, f"{name}_stages")
     x, lnw, lnb, w1, b1, w2, b2, gamma = args
-    a, h, got = mlp_residual_hblocked_stages(*args)
-    want = mlp_residual_plain(*args)
+    (m, d), hid = x.shape, w1.shape[0]
+    label = f"{key} D={d} M={m}"
+    before = launch_counts()
+    a, h, got = stages_fn(*args)
     torch.cuda.synchronize()
-    out = gemm_check(f"mlp_residual_hblocked M={m}", got, want, args)
+    after = launch_counts()
+    require(after[name] == before[name] + 1
+            and all(after[k] == before[k] for k in after if k != name),
+            f"{label}: launches {before} -> {after}")
+    want = mlp.mlp_residual_plain(*args)
+    out = gemm_check(label, got, want, args)
     del want
     if stages:
         require(torch.equal(a, layernorm(x, lnw, lnb)),
-                "mlp_residual_hblocked: the LN stage differs from row 1")
+                f"{label}: the LN stage differs from row 1")
         a_p = layernorm_plain(x, lnw, lnb)
         err = (a.float() - a_p.float()).abs()
         require(bool((err <= LN_ATOL + LN_RTOL * a_p.float().abs()).all()),
-                f"mlp_residual_hblocked LN stage: max abs err "
-                f"{err.max().item()} over atol {LN_ATOL} + rtol {LN_RTOL}")
+                f"{label} LN stage: max abs err {err.max().item()} over atol "
+                f"{LN_ATOL} + rtol {LN_RTOL}")
         del a_p, err
-        fc1 = gemm_check(f"mlp_fc1_gelu M={m}", h, fc1_gelu_plain(a, w1, b1),
-                         (b1,))
-        fc2 = gemm_check(f"mlp_fc2_residual M={m}", got,
-                         fc2_residual_plain(h, w2, b2, gamma, x),
+        fc1 = gemm_check(f"mlp_fc1_gelu {label}", h,
+                         mlp.fc1_gelu_plain(a, w1, b1), (b1,))
+        fc2 = gemm_check(f"mlp_fc2_residual {label}", got,
+                         mlp.fc2_residual_plain(h, w2, b2, gamma, x),
                          (x, gamma, b2))
-        log(f"row 9 stages at M={m}: LN bit-exact against row 1; fc1 + GELU "
-            f"{json.dumps(fc1)}; fc2 + residual {json.dumps(fc2)}")
+        log(f"row {row} stages at D={d}, M={m}: LN bit-exact against row 1; "
+            f"fc1 + GELU {json.dumps(fc1)}; fc2 + residual {json.dumps(fc2)}")
         out.update(fc1_gelu=fc1, fc2_residual=fc2)
     del a, h, got
     torch.cuda.empty_cache()
-    return dict(**out, ms=event_ms(lambda: mlp_residual_hblocked(*args)),
-                plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
+    return dict(**out, ms=event_ms(lambda: fn(*args)),
+                plain_ms=event_ms(lambda: mlp.mlp_residual_plain(*args)),
                 library_ms=None,
                 **bound(nbytes(*args, x), 2 * 2 * m * d * hid))
 
@@ -590,10 +635,12 @@ def check_vitl_kernels(device, results, widths) -> None:
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
-    results["mlp_residual_hblocked"] = check_hblocked(gen, B * N_TOK, True)
-    widths[f"mlp_residual_hblocked M={B * N_L728}"] = check_hblocked(
-        torch.Generator(device=device).manual_seed(SEED + 90), B * N_L728,
-        False)
+    results["mlp_residual_hblocked"] = check_mlp_chain(
+        9, "mlp_residual_hblocked", mlp_args(gen, B * N_TOK, DIM_L), True)
+    widths[f"mlp_residual_hblocked M={B * N_L728}"] = check_mlp_chain(
+        9, "mlp_residual_hblocked",
+        mlp_args(torch.Generator(device=device).manual_seed(SEED + 90),
+                 B * N_L728, DIM_L), False)
 
     # Row 17 at vitl-728: q, k and v unscaled strided views into one qkv.
     results["flash_attention"] = check_attention(
@@ -913,13 +960,15 @@ def rcu_inputs(gen, c):
 
 
 def rcu_pair_stats(label, rn0, path2, ws):
-    """Row 16 against its plain version: each of its four conv launches
-    alone, on the plain chain's own input and residuals, as the dense
-    kernels are held (GEMM_MAX_FRAC, GEMM_MAX_ULPS); and the chain by its
-    error against the same chain in f32, at most RCU_F32_FLOOR times the
-    plain bf16 chain's, in max and in mean. Returns (statistics, the
-    kernel's output, the plain output)."""
+    """Row 16 against its plain version: each of its four conv calls alone,
+    on the plain chain's own input and residuals, as the dense kernels are
+    held (GEMM_MAX_FRAC, GEMM_MAX_ULPS), conv2a's ReLU copy bit for bit
+    against the ReLU of its own output; and the chain by its error against
+    the same chain in f32, at most RCU_F32_FLOOR times the plain bf16
+    chain's, in max and in mean. Returns (statistics, the kernel's output,
+    the plain output)."""
     import torch
+    import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch.attic.refinenet_pre import (
         rcu_chain, rcu_conv, rcu_conv_plain, refinenet_pre,
@@ -927,17 +976,21 @@ def rcu_pair_stats(label, rn0, path2, ws):
 
     steps = []
 
-    def record(x, k, b, relu, residuals=()):
-        steps.append((x, k, b, relu, residuals))
-        return rcu_conv_plain(x, k, b, relu, residuals)
+    def record(*args, **kw):
+        steps.append((args, kw))
+        return rcu_conv_plain(*args, **kw)
 
     want = rcu_chain(record, rn0, path2, *ws)
     convs = []
-    for i, (x, k, b, relu, res) in enumerate(steps):
-        got_i = rcu_conv(x, k, b, relu, res)
+    for i, (args, kw) in enumerate(steps):
+        got_i, want_i = rcu_conv(*args, **kw), rcu_conv_plain(*args, **kw)
         torch.cuda.synchronize()
-        convs.append(gemm_check(f"{label} conv {i}", got_i,
-                                rcu_conv_plain(x, k, b, relu, res), res))
+        if kw.get("relu_copy"):
+            require_equal(f"{label} conv {i} ReLU copy", got_i[1],
+                          F.relu(got_i[0]))
+            got_i, want_i = got_i[0], want_i[0]
+        res = args[4] if len(args) > 4 else ()
+        convs.append(gemm_check(f"{label} conv {i}", got_i, want_i, res))
     got = refinenet_pre(rn0, path2, *ws)
     ref32 = refinenet_pre_plain(*(t.float() for t in (rn0, path2, *ws)))
     torch.cuda.synchronize()
@@ -1043,8 +1096,6 @@ def kernel_parity(device, rng, results, widths):
     import torch
 
     from vr_video_generator_tpu_torch import StereoConfig
-    from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
-                                                       mlp_residual_plain)
     from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                             temporal_scan)
     from vr_video_generator_tpu_torch.ops.warp import (
@@ -1054,7 +1105,6 @@ def kernel_parity(device, rng, results, widths):
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    bf = torch.bfloat16
     m = B * N_TOK
 
     results["layernorm"] = check_layernorm(gen, *LN_SHAPES[0])
@@ -1070,27 +1120,25 @@ def kernel_parity(device, rng, results, widths):
         "attention", B, N_TOK, HEADS_G, SEED + 2)
 
     results["ln_qkv"] = check_ln_qkv(device)
+    widths[f"ln_qkv D={DIM_B}"] = check_ln_qkv(device, DIM_B)
     widths[f"ln_qkv D={DIM_L}"] = check_ln_qkv(device, DIM_L)
 
     # Row 8 below takes row 6's x and gamma.
     results["proj_ls_residual"], (_, xr, _, _, gp) = check_proj(gen, DIM)
+    widths[f"proj_ls_residual D={DIM_B}"] = check_proj(
+        torch.Generator(device=device).manual_seed(SEED + 75), DIM_B)[0]
     widths[f"proj_ls_residual D={DIM_L}"] = check_proj(
         torch.Generator(device=device).manual_seed(SEED + 60), DIM_L)[0]
 
-    hid = 4 * DIM
-    args = (xr, randn(gen, (DIM,), 0.1, 1.0), randn(gen, (DIM,), 0.1),
-            randn(gen, (hid, DIM), DIM ** -0.5, dtype=bf),
-            randn(gen, (hid,), 0.5, dtype=bf),
-            randn(gen, (DIM, hid), hid ** -0.5, dtype=bf),
-            randn(gen, (DIM,), 0.5, dtype=bf), gp)
-    got, want = mlp_residual(*args), mlp_residual_plain(*args)
-    torch.cuda.synchronize()
-    results["mlp_residual"] = dict(
-        **gemm_check("mlp_residual", got, want, args),
-        ms=event_ms(lambda: mlp_residual(*args)),
-        plain_ms=event_ms(lambda: mlp_residual_plain(*args)),
-        library_ms=None, **bound(nbytes(*args, got), 2 * 2 * m * DIM * hid))
-    del xr, args, got, want
+    # Row 8 stage by stage at vits' D = 384 (on row 6's x and gamma) and
+    # vitb's D = 768.
+    results["mlp_residual"] = check_mlp_chain(
+        8, "mlp_residual", mlp_args(gen, m, DIM, xr.reshape(m, DIM), gp), True)
+    widths[f"mlp_residual D={DIM_B}"] = check_mlp_chain(
+        8, "mlp_residual",
+        mlp_args(torch.Generator(device=device).manual_seed(SEED + 80), m,
+                 DIM_B), True)
+    del xr
 
     results["head_tail_ext"] = check_ext_tail(gen, FEATURES, (H0, W0),
                                               OUT_HW)
@@ -1524,8 +1572,8 @@ def main_path(device, rng):
 
     def keep(label, stats):
         # A kernel's count is that of the first path, in this order, that
-        # launches it: vits fused, vits auto packed, vitl-518, vitl-728,
-        # vitg-518, then the off-CLI entry points.
+        # launches it: vits fused, vits auto packed, vitb-518, vitl-518,
+        # vitl-728, vitg-518, then the off-CLI entry points.
         paths[label] = stats
         for k, v in stats["launches"].items():
             if v > 0 and k not in launches:
@@ -1562,6 +1610,28 @@ def main_path(device, rng):
             keep(f"{label} packed", packed_path(p, frames))
         del p
         torch.cuda.empty_cache()
+
+    # vitb (Depth-Anything-V2-Base) at 518 through the CLI's default (auto):
+    # row 8 at D = 768, the ext tail at C = 128; one batch, its own weights
+    # and f32 reference, each kernel launched its count a step.
+    t0 = time.perf_counter()
+    cfg = run_config("vitb", "auto", "auto")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    log(f"vitb depth scaler calibrated to {scaler:.6g} on the first batch")
+    pipe32 = make_pipe(device, run_config("vitb", "auto", "auto",
+                                          dtype="float32"), sd)
+    del sd
+    pipe32.model.cfg = pipe.model.cfg
+    stats = checked_path("vitb-518 auto/auto", pipe, frames[:B], VITB_518,
+                         pipe32)
+    per_step = {k: v for k, v in stats["launches"].items() if v}
+    require(per_step == VITB_518_STEP, f"vitb-518 auto/auto launched "
+            f"{per_step} in one step, expected {VITB_518_STEP}")
+    keep("vitb-518 auto/auto", stats)
+    del pipe, pipe32
+    torch.cuda.empty_cache()
 
     # vitl, one set of weights for both geometries and the f32 reference.
     t0 = time.perf_counter()
@@ -1728,17 +1798,26 @@ def main() -> int:
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
-    # Rows 1, 2, 5, 6, 7, 9, 11 and 12 appear more than once: at the first
-    # path's shapes with its launches, and at the widths of a later path with
-    # that path's launches (rows 5 and 6 at vitl-518's D = 1024, row 1 at
-    # vitl-728's and vitg-518's rows, row 2 at vitg-518's 24 heads, row 9 at
-    # vitl-728's rows, rows 11 and 12 at vitl-728's grid and vitg-518's C =
-    # 384, row 7 at vitl-252's C = 256 and vitg-126's C = 384).
+    # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
+    # shapes with its launches, and at the widths of a later path with that
+    # path's launches (rows 5, 6 and 8 at vitb-518's D = 768, rows 5 and 6
+    # at vitl-518's D = 1024, row 1 at vitl-728's and vitg-518's rows, row 2 at
+    # vitg-518's 24 heads, row 9 at vitl-728's rows, rows 11 and 12 at
+    # vitl-728's grid and vitg-518's C = 384, row 7 at vitb-518's C = 128,
+    # vitl-252's C = 256 and vitg-126's C = 384).
     entries = [(name, results[name], counts[name]) for name in KERNELS]
+    b518 = paths["vitb-518 auto/auto"]["launches"]
     l518 = paths["vitl-518 fused/fused"]["launches"]
     l728 = paths["vitl-728 auto/auto"]["launches"]
     g518 = paths["vitg-518 auto/auto"]["launches"]
-    entries += [("ln_qkv", widths[f"ln_qkv D={DIM_L}"], l518["ln_qkv"]),
+    entries += [("ln_qkv", widths[f"ln_qkv D={DIM_B}"], b518["ln_qkv"]),
+                ("proj_ls_residual", widths[f"proj_ls_residual D={DIM_B}"],
+                 b518["proj_ls_residual"]),
+                ("mlp_residual", widths[f"mlp_residual D={DIM_B}"],
+                 b518["mlp_residual"]),
+                ("head_tail_ext", widths[f"head_tail_ext C={FEATURES_B}"],
+                 b518["head_tail_ext"]),
+                ("ln_qkv", widths[f"ln_qkv D={DIM_L}"], l518["ln_qkv"]),
                 ("proj_ls_residual", widths[f"proj_ls_residual D={DIM_L}"],
                  l518["proj_ls_residual"]),
                 ("layernorm", widths["layernorm D=1024"], l728["layernorm"]),

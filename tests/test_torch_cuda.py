@@ -64,13 +64,15 @@ def _randn(gen, shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
 # N not a multiple of the 64-row tile; D at each width the kernel is built
 # for (3D ragged against the GEMM core's 256-column tile at 128 and 384);
 # at vits' and vitl's D also one row, ragged 128-row tiles and 1080p's rows
-# at batch 8. Row 5's GEMM stage is held alone too, on the kernel's own LN.
+# at batch 8, and at vitb's D 1080p's rows at batch 8. Row 5's GEMM stage
+# is held alone too, on the kernel's own LN.
 @pytest.mark.parametrize("b,n,d", [(2, 70, 128), (1, 321, 384),
                                    (2, 2443, 384), (1, 67, 768),
                                    (1, 33, 1024), (1, 1, 384), (1, 127, 384),
                                    (1, 129, 384), (8, 2443, 384),
                                    (1, 1, 1024), (1, 127, 1024),
-                                   (1, 129, 1024), (8, 2443, 1024)])
+                                   (1, 129, 1024), (8, 2443, 1024),
+                                   (8, 2443, 768)])
 def test_ln_qkv_and_proj_kernels_match_plain(cuda, b, n, d):
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     heads = d // 64
@@ -93,9 +95,19 @@ def test_ln_qkv_and_proj_kernels_match_plain(cuda, b, n, d):
                                      proj_ls_residual_plain(*pargs), pargs)
 
 
+# Row 8 whole and stage by stage (row 9's chain at D = 128, 384 and 768):
+# the LN stage is row 1's kernel (bit-exact); each GEMM stage against its
+# plain version on the chain's own input; one launch count a call, and the
+# same output as the call without the stages. m = 1, 127, 129: a lone row
+# and ragged 128-row tiles; 19544: 1080p's rows at batch 8. Every case is
+# held to row 8's whole-output bounds.
 @pytest.mark.parametrize("m,d", [(140, 128), (321, 384), (19544, 384),
-                                 (100, 768)])
+                                 (100, 768), (1, 384), (127, 384), (129, 384),
+                                 (1, 768), (127, 768), (129, 768),
+                                 (19544, 768)])
 def test_mlp_kernel_matches_plain(cuda, m, d):
+    from vr_video_generator_tpu_torch.ops.mlp import mlp_residual_stages
+
     gen = torch.Generator(device=cuda).manual_seed(m + d)
     f32 = torch.float32
     args = (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
@@ -103,11 +115,22 @@ def test_mlp_kernel_matches_plain(cuda, m, d):
             _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
             _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
             _randn(gen, (d,), 0.1, 1.0))
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
     before = launch_counts().get("mlp_residual", 0)
     got = mlp_residual(*args)
     assert launch_counts()["mlp_residual"] == before + 1
     _assert_rounding_boundaries_only("mlp_residual", got,
                                      mlp_residual_plain(*args), args)
+    a, h, out = mlp_residual_stages(*args)
+    assert launch_counts()["mlp_residual"] == before + 2
+    assert a.shape == (m, d) and h.shape == (m, 4 * d)
+    assert torch.equal(a, layernorm(x, lnw, lnb))
+    _assert_rounding_boundaries_only("mlp_fc1_gelu", h,
+                                     fc1_gelu_plain(a, w1, b1), (b1,))
+    _assert_rounding_boundaries_only(
+        "mlp_fc2_residual", out, fc2_residual_plain(h, w2, b2, gamma, x),
+        (x, gamma, b2))
+    assert torch.equal(out, got)
 
 
 def _hblocked_args(gen, m, d=1024):
@@ -232,6 +255,47 @@ def test_ln_qkv_and_swiglu_call_no_library_product(cuda, monkeypatch):
     names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
     assert names and all("layernorm_kernel" in n or "tma_gemm::gemm_kernel" in n
                          for n in names), sorted(names)
+
+
+# Rows 8 and 16 on the card run their own kernels only: no cuBLAS product
+# or cuDNN convolution (F.linear, torch.matmul, mm, addmm, bmm and conv2d
+# made to raise), and every kernel of the calls' profile is the LayerNorm's,
+# the GEMM core's or the RCU pair's ReLU pass.
+def test_mlp_and_rcu_pair_call_no_library_product(cuda, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library product was called")
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    d, c = 384, 64
+    margs = (_randn(gen, (300, d)),
+             _randn(gen, (d,), 0.1, 1.0, torch.float32),
+             _randn(gen, (d,), 0.1, 0.0, torch.float32),
+             _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
+             _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
+             _randn(gen, (d,), 0.1, 1.0))
+    rn0, path2 = (_randn(gen, (2, 20, 36, c)) for _ in range(2))
+    ws = []
+    for _ in range(4):
+        ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5), _randn(gen, (c,), 0.1)]
+    refinenet_pre(rn0, path2, *ws)  # the weight layouts, built once
+    torch.cuda.synchronize()
+    for mod, name in ((torch.nn.functional, "linear"), (torch, "matmul"),
+                      (torch, "mm"), (torch, "addmm"), (torch, "bmm"),
+                      (torch.Tensor, "__matmul__"),
+                      (torch.nn.functional, "conv2d"), (torch, "conv2d")):
+        monkeypatch.setattr(mod, name, refuse)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mlp_residual(*margs)
+        refinenet_pre(rn0, path2, *ws)
+        torch.cuda.synchronize()
+    monkeypatch.undo()
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert names and all("layernorm_kernel" in n or "tma_gemm::gemm_kernel" in n
+                         or "relu_kernel" in n for n in names), sorted(names)
 
 
 def _attention_inputs(cuda, b, n, h, views):
@@ -598,10 +662,15 @@ def test_head_tail_base_kernel_matches_plain(cuda, b, h2, w2, c):
 
 
 @pytest.mark.parametrize("b,h0,w0,c", [(2, 37, 45, 64), (1, 148, 264, 64),
-                                       (2, 20, 36, 128), (1, 148, 264, 128)])
+                                       (2, 20, 36, 128), (1, 148, 264, 128),
+                                       (2, 7, 33, 64), (1, 61, 97, 64),
+                                       (2, 7, 33, 128), (1, 61, 97, 128),
+                                       (8, 148, 264, 64)])
 def test_rcu_pair_kernel_matches_plain(cuda, b, h0, w0, c):
-    """Each of the four conv launches alone, and the chain by its error
-    against f32 (chip_smoke.py's check and bounds)."""
+    """Each of the four conv calls alone against rcu_conv_plain (conv2a's
+    ReLU copy bit for bit), and the chain by its error against f32
+    (chip_smoke.py's check and bounds); odd grids against the core's 8-row
+    x 32-pixel tiles, and vits' 1080p grid at batch 8."""
     from chip_smoke import rcu_pair_stats
     from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
 

@@ -1,7 +1,7 @@
 // The 3x3 convolution of one 64-pixel output row segment as an implicit GEMM
-// on the tensor cores (nvcuda::wmma, bf16 in, f32 accumulate), shared by the
-// DPT tail kernels (csrc/head_tail.cu) and the refinenet1 RCU pair
-// (csrc/rcu_pair.cu). A block of CONV_THREADS (4 warps) owns one segment:
+// on the tensor cores (nvcuda::wmma, bf16 in, f32 accumulate), used by the
+// C = 32 and single-kernel DPT tails (csrc/head_tail.cu). A block of
+// CONV_THREADS (4 warps) owns one segment:
 // the 3 input rows of the segment (+1 halo column each side) and the chunk's
 // 9 taps of weights sit in shared memory, and each warp adds its 16 pixels x
 // all output channels into its accumulator fragments.
@@ -48,13 +48,13 @@ __host__ __device__ constexpr size_t conv_smem() {
          (size_t)(CONV_THREADS / WARP) * 16 * COUT * 4;
 }
 
-// Input channels per chunk: all of them where the nine taps' weights fit in
-// shared memory beside the input rows (the tails' conv1 at C <= 128, every
-// conv2, the RCU convs at C = 64), else 32 (the RCU convs at C = 128, whose
-// weights are 295 KB).
+// Input channels per chunk: all of them; the nine taps' weights of every
+// conv here (the tails' conv1 at C <= 128, every conv2) fit in shared
+// memory beside the input rows.
 template <int CIN, int COUT>
 __host__ __device__ constexpr int conv_kc() {
-  return conv_smem<CIN, COUT>() <= 232448 ? CIN : 32;
+  static_assert(conv_smem<CIN, COUT>() <= 232448, "shared memory");
+  return CIN;
 }
 
 }  // namespace vrvg

@@ -280,12 +280,36 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The m64nNk16 product of the tile width N (128, 192 or 256).
+// D (64 x 64, f32) (+)= A (64 x 16) B^T (B 64 x 16), both from shared
+// memory, K-major; the sum starts from D when `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The m64nNk16 product of the tile width N (64, 128, 192 or 256).
 template <int N>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da,
                                              uint64_t db, int accumulate) {
-  static_assert(N == 128 || N == 192 || N == 256, "wgmma tile width");
-  if constexpr (N == 128) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma tile width");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16(d, da, db, accumulate);
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16(d, da, db, accumulate);
   } else if constexpr (N == 192) {
     wgmma_m64n192k16(d, da, db, accumulate);

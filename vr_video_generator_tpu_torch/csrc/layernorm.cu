@@ -5,10 +5,9 @@
 // `_ln_kernel`, row 1), whose arithmetic is `ln_rows_f32`: the mean, the
 // mean of the squared deviations, (x - mean) * (1 / sqrt(var + eps)), then
 // y * w + b with the f32 affine, cast to bf16. Each sum, product and
-// quotient here is rounded on its own (no FMA), as gemm.cuh's
-// layernorm_rows<D> computes it for row 8. The chains of rows 5, 9 and 10
-// (csrc/qkv.cu, csrc/mlp_hblocked.cu, csrc/swiglu.cu) run their LN stage
-// through this entry point.
+// quotient here is rounded on its own (no FMA). The chains of rows 5, 8, 9
+// and 10 (csrc/qkv.cu, csrc/mlp_hblocked.cu, csrc/swiglu.cu) run their LN
+// stage through this entry point.
 //
 // What bounds it on the H100: it reads D bf16 and writes D bf16 a row and
 // does ~8 f32 operations an element, so it is bound by bytes: 30 MB at vits

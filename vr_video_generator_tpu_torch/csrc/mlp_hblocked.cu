@@ -1,37 +1,49 @@
-// The hidden-blocked MLP half-block of vitl's blocks (D = 1024, hidden
-// 4096), for Hopper (sm_90a): out = x + gamma * (fc2(GELU(fc1(LN2(x))))),
-// as a chain of three kernels on the caller's stream.
+// The MLP half-block of the DINOv2 blocks with a GELU MLP (vits, vitb: row
+// 8; vitl: row 9), for Hopper (sm_90a): out = x + gamma *
+// (fc2(GELU(fc1(LN2(x))))), hidden 4D, as a chain of three kernels on the
+// caller's stream.
 //
-// Replaces: vr_video_generator_tpu/ops/mlp_pallas.py `_kernel` (row 9: the
-// hidden-blocked grid that mlp_residual_pallas takes when the 16 MB of
-// weights do not fit in VMEM). Rounding points as there and as row 8
-// (csrc/mlp.cu): LN with f32 statistics and the f32 affine, cast to bf16;
-// fc1 accumulates in f32, is cast to bf16, then + b1 in bf16; the A&S GELU
-// in f32, every operation rounded (gemm.cuh's gelu_as), cast to bf16; fc2
-// accumulates in f32 over all 4096 hidden columns, is cast to bf16 once;
-// + b2, gamma * . and x + . each round to bf16.
+// Replaces: vr_video_generator_tpu/ops/mlp_pallas.py `_kernel_resident`
+// (row 8: the weights resident in VMEM, which mlp_residual_pallas takes
+// where both fit in 10 MiB: D = 128, 384, 768) and `_kernel` (row 9: the
+// hidden-blocked grid above, vitl's D = 1024). Both compute
+// `mlp_residual_ref`, at its rounding points: LN with f32 statistics and the
+// f32 affine, cast to bf16; fc1 accumulates in f32, is cast to bf16, then +
+// b1 in bf16; the A&S GELU in f32, every operation rounded (gemm.cuh's
+// gelu_as), cast to bf16; fc2 accumulates in f32 over the whole hidden
+// width, is cast to bf16 once; + b2, gamma * . and x + . each round to
+// bf16. They differ only in how the TPU held the weights, so on the GPU
+// they are one chain with a tile shape per width.
 //
-// What bounds it on the H100: the two GEMMs are 2 * 2 * M * 1024 * 4096
-// FLOPs, 328 GFLOP at vitl-518 (M = 8 * 2443), 0.33 ms at the 989 TFLOP/s
-// bf16 peak; it is compute-bound.
+// What bounds it on the H100: the two GEMMs are 2 * 2 * M * D * 4D FLOPs:
+// 46 GFLOP at vits (M = 8 * 2443 at 1080p/518, D = 384), 184 at vitb (D =
+// 768), 328 at vitl-518 (D = 1024); 0.047, 0.186 and 0.33 ms at the 989
+// TFLOP/s bf16 peak, against ~30-80 MB of x, out and weights (10-25 us at
+// 3.35 TB/s): compute-bound.
 //
-// Design: the TPU kernel keeps the (rows x 1024) f32 fc2 sum on the chip
-// while it walks the hidden dimension; for a 128-row wgmma tile that is
-// 512 KB, more than an SM holds. The hidden activations are rounded to bf16
-// before fc2 in the JAX kernel too, so writing them to device memory moves
-// no rounding point, only the order of fc2's f32 sum: 160 MB each way at
-// vitl-518, ~0.1 ms. So the chain is
-//   1. row 1's LayerNorm kernel (csrc/layernorm.cu): x -> a, (M, 1024) bf16;
+// Design: the TPU kernel keeps the (rows x D) f32 fc2 sum on the chip while
+// it walks the hidden dimension; for a 128-row wgmma tile that is 128 x D x
+// 4 bytes (192 registers a consumer thread at D = 384, 512 KB at D = 1024),
+// more than an SM holds. The hidden activations are rounded to bf16 before
+// fc2 in the JAX kernel too, so writing them to device memory moves no
+// rounding point, only the order of fc2's f32 sum: 60 MB each way at vits,
+// 120 at vitb, 160 at vitl-518 (0.04-0.1 ms). So the chain is
+//   1. row 1's LayerNorm kernel (csrc/layernorm.cu): x -> a, (M, D) bf16;
 //   2. the persistent TMA + wgmma GEMM core (csrc/wgmma_gemm.cuh) for
-//      a W1^T, its epilogue warpgroup adding b1 and taking the GELU on the
-//      bf16 sums: h, (M, 4096) bf16;
+//      a W1^T on 128 x 256 tiles, its epilogue adding b1 and taking the
+//      GELU on the bf16 sums: h, (M, 4D) bf16;
 //   3. the same core for h W2^T, its epilogue (the core's
-//      LayerScaleResidual, which row 10 shares) + b2, gamma * ., x + .:
-//      out, (M, 1024) bf16.
+//      LayerScaleResidual, which rows 6 and 10 share) + b2, gamma * ., x +
+//      .: out, (M, D) bf16, on tiles as wide as D allows without a ragged
+//      column tile: 128 x 256 at D = 768 and 1024, 128 x 192 at D = 384
+//      (0.092 ms on an H100 at M = 19544, against 0.120 on 128 x 256 tiles
+//      with a ragged second one), 128 x 128 at D = 128.
 // a and h are scratch the caller allocates. The GELU (one reciprocal, one
-// expf and ~15 other rounded f32 operations an element, 80M elements at
-// vitl-518) is what fc1 pays over fc2: half of it runs on the epilogue warps
-// under the next tile's products, half on the consumers.
+// expf and ~15 other rounded f32 operations an element, 4D of them a row)
+// is what fc1 pays over fc2: part of it runs on the epilogue warps under
+// the next tile's products, part on the consumers. At K = D = 384 a fc1
+// tile has only six K slices, so the GELU, not the products, can set its
+// time.
 
 #include <cuda_bf16.h>
 
@@ -45,15 +57,22 @@ namespace {
 using namespace vrvg;
 
 using tma_gemm::load_bf16;
+using tma_gemm::Tile;
+using tma_gemm::Wide;
 
 // h = bf16(gelu(bf16(a w1^T) + b1)). The GELU is the costly epilogue: the
-// consumers finish two of each tile's four 64-column boxes themselves (on
-// an H100, fc1 at M = 19544 took 368 us so, 399 with one box, 398 with
-// none, 386 with all four on the consumers).
+// consumers finish CB of each tile's four 64-column boxes themselves, the
+// epilogue warps the rest under the next tile's products. The share that
+// measured fastest falls with K = D, the products a tile has to hide the
+// GELU under (on an H100 at M = 19544: at D = 1024, 368 us with two boxes,
+// 399 with one, 398 with none, 386 with four; at D = 768 and 384, 0.280
+// and 0.109 ms with three, 0.301 and 0.114 with two; at D = 128, 0.044
+// with one, 0.050 with two, 0.063 with three).
+template <int CB>
 struct Fc1Gelu {
-  static constexpr int CONSUMER_BOXES = 2;
+  static constexpr int CONSUMER_BOXES = CB;
   static constexpr bool GATED = false;
-  static constexpr bool SUM_BIAS = false;
+  static constexpr bool F32_STEP = false;
   const bf16* bias;  // b1
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&v)[N], int,
@@ -67,25 +86,59 @@ struct Fc1Gelu {
   }
 };
 
+// LN -> fc1 + GELU (CB consumer boxes) -> fc2 + residual, fc2 on
+// Fc2Shape's tiles.
+template <int CB, class Fc2Shape>
+int chain(const void* x, const void* lnw, const void* lnb, const void* w1,
+          const void* b1, const void* w2, const void* b2, const void* gamma,
+          void* a, void* h, void* out, int m, int d, float eps,
+          void* stream) {
+  const int hid = 4 * d;
+  int err = vrvg_layernorm(x, lnw, lnb, a, m, d, eps, stream);
+  if (err != 0) return err;
+  err = tma_gemm::gemm(a, w1, h, m, hid, d, Fc1Gelu<CB>{(const bf16*)b1},
+                       stream);
+  if (err != 0) return err;
+  return tma_gemm::gemm<Fc2Shape>(
+      h, w2, out, m, d, hid,
+      tma_gemm::LayerScaleResidual{(const bf16*)b2, (const bf16*)gamma,
+                                   (const bf16*)x, m, d},
+      stream);
+}
+
 }  // namespace
 
-// Row 9: x (M, D) bf16, LN affine (D,) f32, w1 (4D, D), b1 (4D,), w2 (D, 4D),
-// b2 (D,), gamma (D,) bf16; scratch a (M, D) and h (M, 4D) bf16 -> out (M,
-// D) bf16. D a multiple of 256 (the port takes it at D = 1024).
+// Row 8: x (M, D) bf16, LN affine (D,) f32, w1 (4D, D), b1 (4D,), w2 (D,
+// 4D), b2 (D,), gamma (D,) bf16; scratch a (M, D) and h (M, 4D) bf16 -> out
+// (M, D) bf16. D in {128, 384, 768}.
+extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
+                                 const void* lnb, const void* w1,
+                                 const void* b1, const void* w2,
+                                 const void* b2, const void* gamma, void* a,
+                                 void* h, void* out, int m, int d, float eps,
+                                 void* stream) {
+  switch (d) {
+    case 128:
+      return chain<1, Tile<128, 128>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
+                                      h, out, m, d, eps, stream);
+    case 384:
+      return chain<3, Tile<128, 192>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
+                                      h, out, m, d, eps, stream);
+    case 768:
+      return chain<3, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m,
+                            d, eps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Row 9: the same operands. D a multiple of 256 (the port takes it at D =
+// 1024).
 extern "C" int vrvg_mlp_residual_hblocked(
     const void* x, const void* lnw, const void* lnb, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* gamma,
     void* a, void* h, void* out, int m, int d, float eps, void* stream) {
-  if (d % tma_gemm::Wide::BN != 0) return (int)cudaErrorInvalidValue;
-  const int hid = 4 * d;
-  int err = vrvg_layernorm(x, lnw, lnb, a, m, d, eps, stream);
-  if (err != 0) return err;
-  err = tma_gemm::gemm(a, w1, h, m, hid, d, Fc1Gelu{(const bf16*)b1},
-                       stream);
-  if (err != 0) return err;
-  return tma_gemm::gemm(h, w2, out, m, d, hid,
-                        tma_gemm::LayerScaleResidual{
-                            (const bf16*)b2, (const bf16*)gamma,
-                            (const bf16*)x, m, d},
-                        stream);
+  if (d % Wide::BN != 0) return (int)cudaErrorInvalidValue;
+  return chain<2, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
+                        eps, stream);
 }

@@ -61,7 +61,7 @@ using tma_gemm::load_bf16;
 struct QkvEpilogue {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
-  static constexpr bool SUM_BIAS = false;
+  static constexpr bool F32_STEP = false;
   const bf16* bias;  // (3D,)
   int d;
   float scale;

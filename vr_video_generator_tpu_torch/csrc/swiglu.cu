@@ -79,7 +79,7 @@ __device__ __forceinline__ bf16 silu_mul(bf16 x1, bf16 x2) {
 struct SwigluGate {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = true;
-  static constexpr bool SUM_BIAS = false;
+  static constexpr bool F32_STEP = false;
   const bf16* bias;  // b12, (2H,)
   int hidden;
   template <int N>

@@ -7,9 +7,11 @@
 // walking BM x BN tiles of C in order (tile i, i + grid, ...), the N tiles
 // of one row band consecutive, so the blocks in flight share their A rows in
 // L2 and B stays in L2. The tile shape is a template parameter (Tile): 128
-// x 256 for the dense rows (5, 6, 9, 10); 256 x 128 and 128 x 192 for the
-// convolutions of rows 7 and 11 (C2 = 64 or 128, and 192 output channels)
-// and row 7's out_conv mix.
+// x 256 for the dense rows (5, 6, 8, 9, 10); 256 x 128 and 128 x 192 for
+// the convolutions of rows 7 and 11 (C2 = 64 or 128, and 192 output
+// channels) and row 7's out_conv mix; 128 x 192 and 128 x 128 for row 8's
+// fc2 at D = 384 and 128; 256 x 64 and 128 x 128 for row 16's convs (C =
+// 64 and 128).
 //   - Warp 0, the producer: one thread issues TMA loads (128-byte swizzle,
 //     64-element K slices: a BM x 64 A tile and a BN x 64 B tile a stage)
 //     into a ring of STAGES buffers behind full/empty mbarrier pairs,
@@ -53,8 +55,8 @@
 //   static constexpr int CONSUMER_BOXES;  // boxes of C's tile the consumers
 //                                         // finish: 0-3, gated 0-1
 //   static constexpr bool GATED;
-//   static constexpr bool SUM_BIAS;       // adds f32 sum_bias[col] to the
-//                                         // f32 sums before their cast
+//   static constexpr bool F32_STEP;       // an f32 step on the sums before
+//                                         // their cast (below)
 //   const bf16* bias;                     // the bias it adds
 //   template <int N>
 //   __device__ void operator()(bf16 (&v)[N], int row, int col) const
@@ -62,12 +64,14 @@
 // consumers, 8 from the epilogue warps; v 4N-byte aligned) into the bf16
 // outputs there; rows may be >= M (their results are clipped), columns are
 // < N. A gated one's operator() takes (v, u, row, col), u the sums of the
-// second half's column, and writes C into v. One with SUM_BIAS (row 7's
-// conv1, whose f32 bias is added before the cast) also has
-//   const float* sum_bias;                // (N,) f32
-// which the consumers add to the f32 sums as they leave the registers,
-// before the one rounding to bf16; every other epilogue leaves that code
-// out at compile time.
+// second half's column, and writes C into v. One with F32_STEP (row 7's
+// conv1, whose f32 bias is added before the cast; row 16's convs, whose
+// bias, ReLU and residuals all come before it) also has
+//   __device__ void f32_step(float& v0, float& v1, int row, int col) const
+// which the consumers apply to the f32 sums of C[row, col : col + 2] as
+// they leave the registers, before the one rounding to bf16 (row is the
+// GEMM row: a Conv3x3Layout's tiles map it to a pixel); every other
+// epilogue leaves that code out at compile time.
 
 #pragma once
 
@@ -85,7 +89,7 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);  // + producer and epilogue
 constexpr int EPILOGUE_THREADS = 96;            // warps 1-3
 constexpr size_t SMEM_LIMIT = 232448;           // one block's on an H100
 
-// The block tile: BM (128 or 256) rows by BN (128, 192 or 256) columns. A
+// The block tile: BM (128 or 256) rows by BN (64 to 256) columns. A
 // consumer's BM / 2 rows are MW products of 64 rows; MW * BN / 2 f32
 // accumulators a thread. The staging tile is [consumer][64-column box][row
 // of the consumer's BM / 2][128 bytes]; the ring takes as many stages (3 or
@@ -308,21 +312,20 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int mw = 0; mw < MW; ++mw) fence_regs(acc[mw]);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
-      if constexpr (Epilogue::SUM_BIAS) {
-        static_assert(!GATED, "a gated epilogue has no sum bias");
+      if constexpr (Epilogue::F32_STEP) {
+        static_assert(!GATED, "a gated epilogue has no f32 step");
 #pragma unroll
-        for (int jj = 0; jj < BN / 8; ++jj) {
+        for (int mw = 0; mw < MW; ++mw) {
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = col0 + 8 * jj + c;
-            const float b = col < n ? __ldg(epi.sum_bias + col) : 0.f;
+          for (int i = 0; i < 2; ++i) {
 #pragma unroll
-            for (int mw = 0; mw < MW; ++mw) {
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                acc[mw][4 * jj + 2 * i + c] =
-                    __fadd_rn(acc[mw][4 * jj + 2 * i + c], b);
-              }
+            for (int jj = 0; jj < BN / 8; ++jj) {
+              // Columns past a ragged last tile are neither finished nor
+              // stored: they take column n - 2's operands, so the unrolled
+              // loop has no branch and the step's loads issue together.
+              const int q = 4 * jj + 2 * i;
+              epi.f32_step(acc[mw][q], acc[mw][q + 1],
+                           row0 + mw * 64 + 8 * i, min(col0 + 8 * jj, n - 2));
             }
           }
         }
@@ -557,7 +560,7 @@ int conv3x3(const void* u, const void* w, void* out, int batch, int h,
 struct Identity {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
-  static constexpr bool SUM_BIAS = false;
+  static constexpr bool F32_STEP = false;
   const bf16* bias;  // not added; named as every epilogue's bias is
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&)[N], int, int) const {}
@@ -569,9 +572,14 @@ struct Identity {
 struct BiasBeforeCast {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
-  static constexpr bool SUM_BIAS = true;
+  static constexpr bool F32_STEP = true;
   const bf16* bias;  // not added; named as every epilogue's bias is
   const float* sum_bias;
+  __device__ __forceinline__ void f32_step(float& v0, float& v1, int,
+                                           int col) const {
+    v0 = __fadd_rn(v0, __ldg(sum_bias + col));
+    v1 = __fadd_rn(v1, __ldg(sum_bias + col + 1));
+  }
   template <int N>
   __device__ __forceinline__ void operator()(bf16 (&)[N], int, int) const {}
 };
@@ -583,7 +591,7 @@ struct BiasBeforeCast {
 struct LayerScaleResidual {
   static constexpr int CONSUMER_BOXES = 0;
   static constexpr bool GATED = false;
-  static constexpr bool SUM_BIAS = false;
+  static constexpr bool F32_STEP = false;
   const bf16* bias;
   const bf16* gamma;
   const bf16* x;

@@ -1,11 +1,11 @@
 """Check and time the LayerNorm kernel (row 1), LN + qkv (row 5), proj +
-LayerScale + residual (row 6), the ext DPT tail (row 7), the hidden-blocked
-MLP half (row 9), the SwiGLU half (row 10), the big-C DPT tail (rows 11
-and 12) and the warp kernels (rows 3, 4, 13 and 14) on the card at the
-shapes the main paths give them.
+LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
+(rows 8 and 9), the SwiGLU half (row 10), the big-C DPT tail (rows 11 and
+12), the warp kernels (rows 3, 4, 13 and 14) and refinenet1's RCU pair (row
+16) on the card at the shapes the main paths give them.
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
-        [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14]
+        [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -15,28 +15,42 @@ time (``torch.profiler``, CUDA kernel events, mean over ``CALLS`` calls),
 is inside it), the host time a call (``HOST_CALLS`` calls without a sync,
 and one call on an idle device), and the error against the plain version.
 
-Row 9 at M = 19544 (vitl-518, batch 8) and 38280 (vitl-728, batch 8): the
-device time of each kernel of the call and the span from the first kernel's
-start to the last one's end (profiler), the host time of each CUDA API call
-it makes, the call's TFLOP/s and ``event_ms``, the error against
-``mlp_residual_plain``, and as a yardstick
+Rows 9 and 8, the MLP half: row 9 at M = 19544 (vitl-518, batch 8) and
+38280 (vitl-728, batch 8), row 8 at vits' (19544, 384) and vitb-518's
+(19544, 768) rows and at D = 128. The device time of each kernel of the
+call and the span from the first kernel's start to the last one's end
+(profiler), each stage's device time and TFLOP/s (the LayerNorm, fc1 +
+GELU, fc2 + residual; on an older tree the one wmma ``mlp_kernel``), the
+host time of each CUDA API call it makes, the call's TFLOP/s and
+``event_ms``, the error against ``mlp_residual_plain``, and as a yardstick
 (no PyTorch call computes the same function) the two cuBLAS products of the
-same shapes, ``F.linear`` (M, 1024) x (4096, 1024) and (M, 4096) x (1024,
-4096), timed the same ways.
+same shapes, ``F.linear`` (M, D) x (4D, D) and (M, 4D) x (D, 4D), timed the
+same ways.
 
-Row 5 at vits' (19544, 384) and vitl-518's (19544, 1024) rows, and row 10
-at vitg-518's (19544 rows, D = 1536, hidden 4096): the same measurements,
-each stage's TFLOP/s (row 5's GEMM; row 10's gate and down products), and
+Row 16, refinenet1's RCU pair, at vits' (C = 64) and vitb's (C = 128)
+widths on refinenet1's 1080p/518 grid (B = 8, 148 x 264; ``chip_smoke``'s
+seeded inputs, NCHW tensors seen as NHWC): each kernel of a call in launch
+order (the ReLU pass by its GB/s, each conv by its TFLOP/s; the wrapper's
+copies of strided inputs, and an older tree's per-call weight copies, left
+out), the chain's sum, ``event_ms``, the error against the plain version,
+the bound, and cuDNN's bf16 channels-last ``F.conv2d`` of one conv (+ bias)
+as the yardstick. The kernels are found by name, so the file runs unchanged
+on an older tree.
+
+Row 5 at vits' (19544, 384), vitb-518's (19544, 768) and vitl-518's
+(19544, 1024) rows, and row 10 at vitg-518's (19544 rows, D = 1536, hidden
+4096): the same measurements, each stage's TFLOP/s (row 5's GEMM; row 10's gate and down products), and
 the cuBLAS products of the same shapes as the yardstick: ``F.linear`` (M,
 D) x (3D, D) for row 5, (M, 1536) x (8192, 1536) and (M, 4096) x (1536,
 4096) for row 10. The stages are found by kernel name on this tree's
 kernels and on the wmma ones before them, so the file runs unchanged on an
 older tree.
 
-Row 6 at vits' (19544, 384) and vitl-518's (19544, 1024) rows: the same
-measurements as row 5, with cuBLAS's ``F.linear`` of o (M, D) x (D, D) as
-the yardstick (the proj product without the epilogue); the stage is this
-tree's GEMM core or the wmma ``proj_kernel`` before it.
+Row 6 at vits' (19544, 384), vitb-518's (19544, 768) and vitl-518's
+(19544, 1024) rows: the same measurements as row 5, with cuBLAS's
+``F.linear`` of o (M, D) x (D, D) as the yardstick (the proj product
+without the epilogue); the stage is this tree's GEMM core or the wmma
+``proj_kernel`` before it.
 
 Row 7, the ext DPT tail, at vits' (C = 64, x 148 x 264, depth 518 x 924),
 vitb's (C = 128, the same grid), vitl-252's (C = 256, 72 x 128, 252 x 448)
@@ -101,9 +115,17 @@ CALLS = 50          # calls under the profiler
 HOST_CALLS = 1000   # calls timed on the host clock, no sync between
 LN_SHAPES = (("vits", 19544, 384), ("vitl-728", 38280, 1024),
              ("vitg-518", 19544, 1536))
-MLP_SHAPES = (("vitl-518", 19544), ("vitl-728", 38280))
-D_L = 1024
-QKV_SHAPES = (("vits", 19544, 384), ("vitl-518", 19544, 1024))
+# (row, label, M, D): row 9 at vitl's rows, batch 8; row 8 at 1080p/518,
+# batch 8, at vits' and vitb's widths and at D = 128 (a width the kernel
+# takes that no encoder has).
+MLP_SHAPES = ((9, "vitl-518", 19544, 1024), (9, "vitl-728", 38280, 1024))
+RESIDENT_SHAPES = ((8, "vits", 19544, 384), (8, "vitb-518", 19544, 768),
+                   (8, "D=128", 19544, 128))
+# Row 16 on refinenet1's 1080p/518 grid (chip_smoke's B, H0, W0): vits'
+# and vitb's feature widths.
+RCU_SHAPES = (("vits", 64), ("vitb", 128))
+QKV_SHAPES = (("vits", 19544, 384), ("vitb-518", 19544, 768),
+              ("vitl-518", 19544, 1024))
 PROJ_SHAPES = QKV_SHAPES
 # (label, C, (H0, W0), (H1, W1)) of the ext tail at 1080p.
 EXT_TAIL_SHAPES = (("vits", 64, (148, 264), (518, 924)),
@@ -121,12 +143,9 @@ BATCH = 8  # row 5's rows are (8, M / 8) tokens
 WARP_STRIP = 128  # blur/select's strip width, for the hole-free share
 
 
-def kernel_us(fn, calls: int = CALLS) -> tuple:
-    """Under torch.profiler, over ``calls`` calls of ``fn``: the device time
-    of each CUDA kernel it launches, in us a call, by kernel name; the mean
-    span from a call's first kernel start to its last kernel end (us); and
-    the host time of each CUDA runtime or driver call, in us a call, by
-    name."""
+def traced(fn, calls: int) -> list:
+    """The Chrome trace events of ``calls`` calls of ``fn`` under
+    torch.profiler, after one call outside it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -140,7 +159,16 @@ def kernel_us(fn, calls: int = CALLS) -> tuple:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path, encoding="utf-8") as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def kernel_us(fn, calls: int = CALLS) -> tuple:
+    """Under torch.profiler, over ``calls`` calls of ``fn``: the device time
+    of each CUDA kernel it launches, in us a call, by kernel name; the mean
+    span from a call's first kernel start to its last kernel end (us); and
+    the host time of each CUDA runtime or driver call, in us a call, by
+    name."""
+    events = traced(fn, calls)
     by_name, api = defaultdict(float), defaultdict(float)
     kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                      if e.get("cat") == "kernel" and "dur" in e)
@@ -153,6 +181,29 @@ def kernel_us(fn, calls: int = CALLS) -> tuple:
     spans = [kernels[i + per - 1][1] - kernels[i][0]
              for i in range(0, per * calls, per)] if per else [0.0]
     return dict(by_name), sum(spans) / len(spans), dict(api)
+
+
+def kernel_sequence(fn, keys, calls: int = CALLS) -> list:
+    """Under torch.profiler, over ``calls`` calls of ``fn``: each kernel of
+    a call whose name holds one of ``keys``, in launch order, as (name,
+    device us a call), so launches of one kernel name at different places
+    of a chain stay apart: the k-th launch of a name that a call launches n
+    times is its (k mod n)-th place in the call."""
+    kernels = sorted((e["ts"], e["name"], e["dur"])
+                     for e in traced(fn, calls)
+                     if e.get("cat") == "kernel" and "dur" in e
+                     and any(k in e["name"] for k in keys))
+    by_name = defaultdict(list)
+    for _, name, dur in kernels:
+        by_name[name].append(dur)
+    per = {name: max(1, round(len(durs) / calls))
+           for name, durs in by_name.items()}
+    seen, order = defaultdict(int), []
+    for _, name, _ in kernels[:sum(per.values())]:
+        order.append((name, seen[name]))
+        seen[name] += 1
+    return [(name, sum(by_name[name][j::per[name]])
+             / len(by_name[name][j::per[name]])) for name, j in order]
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -212,34 +263,102 @@ def ln_row(label: str, m: int, d: int) -> dict:
     return row
 
 
-def mlp_row(label: str, m: int) -> dict:
-    from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual_hblocked,
-                                                       mlp_residual_plain)
+def mlp_row(row: int, label: str, m: int, d: int) -> dict:
+    """Row 8 or 9 (``mlp_residual``, ``mlp_residual_hblocked``) at (m, d)
+    (module docstring)."""
+    from vr_video_generator_tpu_torch.ops import mlp
 
-    d, hid = D_L, 4 * D_L
-    randn = seeded(torch.Generator(device="cuda").manual_seed(m))
+    fn = {8: mlp.mlp_residual, 9: mlp.mlp_residual_hblocked}[row]
+    hid = 4 * d
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + d))
     f32 = torch.float32
     args = (randn((m, d)), randn((d,), 0.1, 1.0, f32), randn((d,), 0.1, 0.0, f32),
             randn((hid, d), d ** -0.5), randn((hid,), 0.5),
             randn((d, hid), hid ** -0.5), randn((d,), 0.5),
             randn((d,), 0.1, 1.0))
-    got, want = mlp_residual_hblocked(*args), mlp_residual_plain(*args)
+    got, want = fn(*args), mlp.mlp_residual_plain(*args)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    flops = 2 * 2 * m * d * hid
-    row = dict(row=9, label=label, M=m, D=d, hidden=hid,
+    fc = 2 * m * d * hid  # each product
+    moved = 2 * (2 * m * d + 2 * d * hid + hid + 2 * d) + 8 * d
+    row = dict(row=row, label=label, M=m, D=d, hidden=hid,
                max_abs_err=err.max().item(),
                frac_differ=(got != want).float().mean().item(),
-               bound_ms=flops / BF16_FLOP_PER_S * 1e3,
-               kernel=timings(lambda: mlp_residual_hblocked(*args)))
-    del got, want
+               bound_ms=max(2 * fc / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: fn(*args)))
+    del got, want, err
+    # This tree's chain (row 1's LN, fc1 + GELU, fc2 + residual) and the
+    # one wmma kernel before it.
+    stages = (("ln", "layernorm_kernel", 4 * m * d, None),
+              ("fc1 + GELU", "Fc1Gelu", None, fc),
+              ("fc2 + residual", "LayerScaleResidual", None, fc),
+              ("whole (older tree)", "mlp_kernel", None, 2 * fc))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+    k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
     a, h = randn((m, d)), randn((m, hid))
     w1, w2 = args[3], args[5]
-    # Each GEMM stage is half the FLOPs; the one-kernel MLP before them all.
-    return against_cublas(row, flops,
-                          (("gemm_kernel", flops / 2), ("mlp_kernel", flops)),
+    return against_cublas(row, 2 * fc,
+                          (("Fc1Gelu", fc), ("LayerScaleResidual", fc),
+                           ("mlp_kernel", 2 * fc)),
                           (("cublas_fc1", lambda: F.linear(a, w1)),
                            ("cublas_fc2", lambda: F.linear(h, w2))))
+
+
+def rcu_row(label: str, c: int) -> dict:
+    """Row 16 at one width (module docstring)."""
+    import chip_smoke
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        refinenet_pre, refinenet_pre_plain)
+
+    b, h0, w0 = chip_smoke.B, chip_smoke.H0, chip_smoke.W0
+    gen = torch.Generator(device="cuda").manual_seed(c + 16)
+    rn0, path2, ws = chip_smoke.rcu_inputs(gen, c)
+    got = refinenet_pre(rn0, path2, *ws)
+    want = refinenet_pre_plain(rn0, path2, *ws)
+    torch.cuda.synchronize()
+    conv = 2 * b * h0 * w0 * 9 * c * c  # one conv's FLOPs
+    act = 2 * rn0.numel()               # one (B, H0, W0, C) bf16 tensor
+    moved = 3 * act + sum(2 * t.numel() for t in ws)
+    fn = lambda: refinenet_pre(rn0, path2, *ws)  # noqa: E731
+    row = dict(row=16, label=label, C=c, B=b, grid=(h0, w0),
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               frac_differ=(got != want).float().mean().item(),
+               bound_ms=max(4 * conv / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               conv_bound_ms=conv / BF16_FLOP_PER_S * 1e3,
+               kernel=timings(fn))
+    del got, want
+    # Each kernel of the chain in launch order (the wrapper's copies of
+    # strided inputs and, on an older tree, of the weights left out): the
+    # convs (this tree's GEMM core or the wmma kernel before it) by their
+    # FLOPs, the ReLU pass by its bytes (one tensor read, one written).
+    launches = []
+    for name, us in kernel_sequence(fn, ("gemm_kernel", "rcu_conv_kernel",
+                                         "relu_kernel")):
+        is_conv = "relu_kernel" not in name
+        launches.append(dict(
+            kernel=name[:160], us=us,
+            **(dict(tflops=conv / us * 1e-6) if is_conv
+               else dict(gb_s=2 * act / us * 1e-3))))
+    row["launches"] = launches
+    k = row["kernel"]
+    k["chain_us"] = sum(r["us"] for r in launches)
+    k["tflops"] = 4 * conv / k["chain_us"] * 1e-6
+    # cuDNN's bf16 channels-last convolution of one conv (+ bias).
+    torch.backends.cudnn.allow_tf32 = False
+    cl = torch.channels_last
+    x = rn0.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    k1 = ws[0].contiguous(memory_format=cl)
+    row["cudnn_conv"] = timings(lambda: F.conv2d(x, k1, ws[1], padding=1))
+    row["cudnn_conv"]["tflops"] = conv / row["cudnn_conv"]["kernel_us"] * 1e-6
+    row["over_cudnn_kernel"] = k["chain_us"] / (
+        4 * row["cudnn_conv"]["kernel_us"])
+    return row
 
 
 def seeded(gen):
@@ -640,8 +759,8 @@ def main(argv=None) -> int:
                     help="count wgmma/TMA instructions in the built kernels")
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 3, 4, "
-                    "5, 6, 7, 9, 10, 11, 12, 13, 14; 11 and 12 are measured "
-                    "together)")
+                    "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16; 11 and 12 are "
+                    "measured together)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -674,6 +793,16 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         for shape in EXT_TAIL_SHAPES:
             rows.append(ext_tail_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "8" in wanted:
+        for shape in RESIDENT_SHAPES:
+            rows.append(mlp_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "16" in wanted:
+        for shape in RCU_SHAPES:
+            rows.append(rcu_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
     if "9" in wanted:

@@ -48,7 +48,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _P],
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _F, _P],
     "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _F, _P],
     "vrvg_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
@@ -60,7 +61,8 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_head_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _P],
-    "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P],
     "vrvg_head_tail_big_front": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _P],
     "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

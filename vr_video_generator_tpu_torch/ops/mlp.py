@@ -1,4 +1,4 @@
-"""The MLP half-block in one CUDA kernel, and its plain version.
+"""The MLP half-block as a CUDA kernel chain, and its plain version.
 
 Replaces vr_video_generator_tpu/ops/mlp_pallas.py `mlp_residual_pallas`:
 x + gamma * fc2(GELU(fc1(LN2(x)))) with LN in f32, each dense layer's
@@ -8,20 +8,21 @@ dtype. The JAX package runs it with the weights resident (body
 `_kernel_resident`, row 8) where they fit in 10 MiB, at vits and vitb, and
 hidden-blocked (body `_kernel`, row 9) above, at vitl; :func:`resident` is
 its rule. Both compute the same function, so both wrappers share the plain
-version, each with its own launch counter. Row 8 is ``csrc/mlp.cu``'s
-kernel, one per width. Row 9 is ``csrc/mlp_hblocked.cu``'s chain of three
-kernels on a TMA + wgmma GEMM core: LayerNorm (row 1's kernel) -> fc1 + b1 +
-GELU -> fc2 + b2, LayerScale and residual, with the LN rows and the (M, 4D)
-hidden activations in scratch; :func:`fc1_gelu_plain` and
-:func:`fc2_residual_plain` are the plain versions of its two GEMM stages.
-See the sources' headers for the designs.
+version and the kernel chain of ``csrc/mlp_hblocked.cu``, each with its own
+entry point (a tile shape per width) and launch counter: LayerNorm (row 1's
+kernel) -> fc1 + b1 + GELU -> fc2 + b2, LayerScale and residual on a TMA +
+wgmma GEMM core, with the LN rows and the (M, 4D) hidden activations in
+scratch; :func:`fc1_gelu_plain` and :func:`fc2_residual_plain` are the
+plain versions of its two GEMM stages, :func:`mlp_residual_stages` and
+:func:`mlp_residual_hblocked_stages` return every stage. See the source's
+header for the design.
 
 The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
 `_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
 w12(LN2(x)), at the same rounding points, and with silu rounded as XLA rounds
 ``jax.nn.silu`` on bf16 (:func:`silu_mul`). Its kernel chain is
-``csrc/swiglu.cu``, on the same GEMM core as row 9: LayerNorm (row 1's
-kernel) -> the gate (h w12^T, + b12, silu(x1) * x2) -> the down product
+``csrc/swiglu.cu``, on the same GEMM core as rows 8 and 9: LayerNorm (row
+1's kernel) -> the gate (h w12^T, + b12, silu(x1) * x2) -> the down product
 with b3, LayerScale and the residual, with the LN rows and the (M, H) gate
 output in scratch; :func:`swiglu_gate_plain` and :func:`fc2_residual_plain`
 are the plain versions of its two GEMM stages.
@@ -40,7 +41,7 @@ LAUNCHES = counter("mlp_residual")
 HBLOCKED_LAUNCHES = counter("mlp_residual_hblocked")
 SWIGLU_LAUNCHES = counter("swiglu_residual")
 SILU_MUL_LAUNCHES = counter("silu_mul")
-WIDTHS = (128, 384, 768)  # row 8's widths in csrc/mlp.cu (hidden 4D)
+WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
 SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
 
@@ -120,14 +121,14 @@ def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 def fc1_gelu_plain(a: torch.Tensor, w1: torch.Tensor,
                    b1: torch.Tensor) -> torch.Tensor:
-    """Row 9's second stage: GELU(fc1(a) + b1) on LayerNorm'd rows ``a``,
-    the product cast to a's dtype before the bias add."""
+    """The second stage of rows 8 and 9: GELU(fc1(a) + b1) on LayerNorm'd
+    rows ``a``, the product cast to a's dtype before the bias add."""
     return gelu_exact(F.linear(a, w1.to(a.dtype)) + b1.to(a.dtype))
 
 
 def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The third stage of rows 9 and 10: x + gamma * (fc2(h) + b2), each
+    """The third stage of rows 8, 9 and 10: x + gamma * (fc2(h) + b2), each
     operation rounded to x's dtype (row 10: h the gate's output, w2 = w3)."""
     dt = x.dtype
     return x + gamma.to(dt) * (F.linear(h, w2.to(dt)) + b2.to(dt))
@@ -153,22 +154,20 @@ def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  b2: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 8's
-    kernel for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
+    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
-    d = x.shape[-1]
-    _check_mlp_operands("mlp_residual", WIDTHS, x, ln_w, ln_b, w1, b1, w2,
-                        b2, gamma)
-    from vr_video_generator_tpu_torch.kernels.build import check, library
+    return mlp_residual_stages(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)[2]
 
-    out = torch.empty_like(x)
-    check(library().vrvg_mlp_residual(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-        out.data_ptr(), x.numel() // d, d, eps, stream_handle(x.device)),
-        "vrvg_mlp_residual")
-    LAUNCHES.count += 1
-    return out
+
+def mlp_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
+                        ln_b: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        gamma: torch.Tensor, eps: float = 1e-6):
+    """Row 8 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
+    :func:`_gelu_mlp_stages`."""
+    return _gelu_mlp_stages("mlp_residual", WIDTHS, LAUNCHES, x, ln_w, ln_b,
+                            w1, b1, w2, b2, gamma, eps)
 
 
 def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
@@ -190,17 +189,28 @@ def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
                                  b1: torch.Tensor, w2: torch.Tensor,
                                  b2: torch.Tensor, gamma: torch.Tensor,
                                  eps: float = 1e-6):
-    """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output), each
-    (M, .) with M the rows of x. For CPU tensors, the plain versions of the
-    stages; for CUDA tensors, one launch of the kernel chain, whose scratch
-    holds the first two."""
+    """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
+    :func:`_gelu_mlp_stages`."""
+    return _gelu_mlp_stages("mlp_residual_hblocked", HBLOCKED_WIDTHS,
+                            HBLOCKED_LAUNCHES, x, ln_w, ln_b, w1, b1, w2, b2,
+                            gamma, eps)
+
+
+def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
+                     ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                     b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                     gamma: torch.Tensor, eps: float):
+    """The GELU MLP half stage by stage: (LN(x), GELU(fc1(.) + b1), the
+    output). For CPU tensors, the plain versions of the stages, each shaped
+    as x; for CUDA tensors, one launch of the entry point ``vrvg_<kernel>``
+    (D in ``widths``), counted on ``launches``, whose scratch holds the
+    first two as (M, .) with M the rows of x."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         a = layernorm_plain(x, ln_w, ln_b, eps)
         h = fc1_gelu_plain(a, w1, b1)
         return a, h, fc2_residual_plain(h, w2, b2, gamma, x)
     d = x.shape[-1]
-    _check_mlp_operands("mlp_residual_hblocked", HBLOCKED_WIDTHS, x, ln_w,
-                        ln_b, w1, b1, w2, b2, gamma)
+    _check_mlp_operands(kernel, widths, x, ln_w, ln_b, w1, b1, w2, b2, gamma)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     m = x.numel() // d
@@ -208,12 +218,12 @@ def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
     a = torch.empty((m, d), dtype=x.dtype, device=x.device)
     h = torch.empty((m, 4 * d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    check(library().vrvg_mlp_residual_hblocked(
+    check(getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
         a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, eps,
-        stream_handle(x.device)), "vrvg_mlp_residual_hblocked")
-    HBLOCKED_LAUNCHES.count += 1
+        stream_handle(x.device)), f"vrvg_{kernel}")
+    launches.count += 1
     return a, h, out
 
 

@@ -32,8 +32,10 @@ Phases, each fatal on failure:
      compositor bit-exact (the banded one also
      against the classic kernel, and a 4K frame, past its 126 shifts,
      through the classic kernel); the single-kernel tail and the RCU pair at
-     vits' and vitb's widths (each of the RCU pair's four conv calls alone,
-     conv2a's ReLU copy bit for bit), and the chain RCU pair -> ext tail;
+     vits' and vitb's widths (the tail stage by stage: conv1 by the dense
+     kernels' bounds, the resize pass bit for bit, conv2 with the 1x1 by the
+     tail bounds; each of the RCU pair's four conv calls alone, conv2a's
+     ReLU copy bit for bit), and the chain RCU pair -> ext tail;
   4. the main paths through ``runtime.segment.process_segment`` with bf16
      and seeded random weights (``--preprocess auto``: folded; the f32
      references exact), each with the launch counts reset just
@@ -169,14 +171,15 @@ GEMM_MAX_FRAC = {"ln_qkv": 0.005, "proj_ls_residual": 0.005,
                  "swiglu_residual": 0.01, "swiglu_gate": 0.01,
                  "swiglu_down": 0.01, "head_tail_big_front": 0.005,
                  "head_tail_ext_mix": 0.005, "head_tail_ext_conv1": 0.005,
-                 "rcu_pair": 0.01}
+                 "head_tail_conv1": 0.005, "rcu_pair": 0.01}
 GEMM_MAX_ULPS = {"ln_qkv": 4, "proj_ls_residual": 4, "mlp_residual": 4,
                  "mlp_residual_hblocked": 8,
                  "mlp_fc1_gelu": 8,
                  "mlp_fc2_residual": 8, "swiglu_residual": 8,
                  "swiglu_gate": 8, "swiglu_down": 8,
                  "head_tail_big_front": 4, "head_tail_ext_mix": 4,
-                 "head_tail_ext_conv1": 4, "rcu_pair": 8}
+                 "head_tail_ext_conv1": 4, "head_tail_conv1": 4,
+                 "rcu_pair": 8}
 # The DPT tail's f32 depth against its plain version, relative to the
 # output's range: a one-ulp flip of a bf16 intermediate moves single pixels
 # (measured on an NVIDIA H100 80GB HBM3, 700.00 W: row 7 max 1.7e-3, mean
@@ -239,7 +242,7 @@ KERNELS = {
                                f"{JAX_PKG}/ops/warp_pallas.py:389"),
     "warp_composite_banded": ("cuda", f"{PKG}/csrc/warp.cu",
                               f"{JAX_PKG}/ops/warp_pallas.py:89"),
-    "head_tail": ("cuda", f"{PKG}/csrc/head_tail.cu",
+    "head_tail": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                   f"{JAX_PKG}/ops/head_tail_pallas.py:90"),
     "rcu_pair": ("cuda", f"{PKG}/csrc/rcu_pair.cu",
                  f"{JAX_PKG}/attic/refinenet_pre.py:47"),
@@ -337,8 +340,8 @@ def gemm_addends(name: str, want, args):
     and gamma * bias for proj_ls_residual and the MLP and SwiGLU halves."""
     if name.startswith("head_tail_big_front"):
         return ()  # a bare conv sum, cast
-    if name.startswith("head_tail_ext"):
-        return tuple(args)  # the mix: none; conv1: its f32 bias
+    if name.startswith("head_tail_ext") or name == "head_tail_conv1":
+        return tuple(args)  # the mix: none; conv1 (rows 7, 15): its f32 bias
     if name.startswith("rcu_pair"):
         return tuple(args)  # the conv's residuals
     if name == "mlp_fc1_gelu":
@@ -919,11 +922,47 @@ def check_vitg_kernels(device, results, widths) -> None:
                                                         OUT_HW)
 
 
+def base_tail_stages(label, x, wts, out_hw) -> dict:
+    """Row 15 stage by stage, each stage on the kernel chain's own input:
+    conv1 (its f32 bias before the cast) as the dense kernels are held
+    (GEMM_MAX_FRAC, GEMM_MAX_ULPS), the resize pass bit for bit against its
+    plain stage, conv2 with the 1x1 by TAIL_MAX_REL and TAIL_MEAN_REL. The
+    call must launch head_tail once and nothing else. Returns (statistics,
+    R)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops.head_tail import (
+        base_conv1_plain, big_conv2_plain, ext_resize_plain, head_tail_stages)
+
+    k1, b1, k2, b2, k3, b3 = wts
+    before = launch_counts()
+    c1, r, depth = head_tail_stages(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    require(after["head_tail"] == before["head_tail"] + 1
+            and all(after[k] == before[k] for k in after if k != "head_tail"),
+            f"{label}: launches {before} -> {after}")
+    conv1 = gemm_check(f"head_tail_conv1 {label}", c1,
+                       base_conv1_plain(x, k1, b1), (b1,))
+    require_equal(f"{label} resize pass", r, ext_resize_plain(c1, out_hw))
+    del c1
+    conv2 = tail_stats(f"head_tail {label} conv2", depth,
+                       big_conv2_plain(r, k2, b2, k3, b3))
+    log(f"single-kernel tail stages {label}: resize pass bit-exact; conv1 "
+        f"{json.dumps(conv1)}; conv2 {json.dumps(conv2)}")
+    return dict(conv1=conv1, conv2=conv2), r
+
+
 def check_base_tail(gen, c) -> dict:
     """Row 15 at ``c`` channels on path1 at vits' 1080p/518 grid (2 H0 x 2
-    W0, NCHW seen as (B, H2, W2, C)), depth at 518 x 924: statistics, times
-    and bound."""
+    W0, NCHW seen as (B, H2, W2, C)), depth at 518 x 924: stage by stage
+    (:func:`base_tail_stages`), the whole tail against its plain version,
+    times and bound, and cuDNN's two bf16 channels-last convolutions (conv1
+    on path1, conv2 on R) as the library time: the port never calls them,
+    and no one PyTorch call computes the tail."""
     import torch
+    import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
                                                              head_tail_plain)
@@ -933,15 +972,26 @@ def check_base_tail(gen, c) -> dict:
     h2, w2, out_hw = 2 * H0, 2 * W0, OUT_HW
     x = randn(gen, (B, c, h2, w2), dtype=torch.bfloat16).permute(0, 2, 3, 1)
     wts = tail_weights(gen, c)[2:]
+    stages, r = base_tail_stages(f"C={c} {B}x{h2}x{w2}", x, wts, out_hw)
     got, want = head_tail(x, *wts, out_hw), head_tail_plain(x, *wts, out_hw)
     torch.cuda.synchronize()
-    stats = tail_stats(f"head_tail C={c}", got, want)
+    stats = dict(**tail_stats(f"head_tail C={c}", got, want), **stages)
     h1, w1 = out_hw
     flops = 2 * B * (h2 * w2 * c2 * 9 * c + h1 * w1 * c3 * 9 * c2
                      + h1 * w1 * c3)
-    return dict(**stats, ms=event_ms(lambda: head_tail(x, *wts, out_hw)),
-                plain_ms=event_ms(lambda: head_tail_plain(x, *wts, out_hw)),
-                library_ms=None, **bound(nbytes(x, *wts, got), flops))
+    k1, b1, k2 = wts[0], wts[1], wts[2]
+    cl = torch.channels_last
+    x_cl, k1_cl = (t.contiguous(memory_format=cl)
+                   for t in (x.permute(0, 3, 1, 2), k1))
+    r_cl, k2_cl = r.permute(0, 3, 1, 2), k2.contiguous(memory_format=cl)
+    cudnn = event_ms(lambda: (F.conv2d(x_cl, k1_cl, b1, padding=1),
+                              F.conv2d(r_cl, k2_cl, padding=1)))
+    del x_cl, r_cl, r
+    out = dict(**stats, ms=event_ms(lambda: head_tail(x, *wts, out_hw)),
+               plain_ms=event_ms(lambda: head_tail_plain(x, *wts, out_hw)),
+               library_ms=cudnn, **bound(nbytes(x, *wts, got), flops))
+    torch.cuda.empty_cache()
+    return out
 
 
 def rcu_inputs(gen, c):

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from tests.warp_tables import (above_all, all_invalid, descending,
-                               overlapping, random_bands, unbounded)
+                               last_rank_dual, overlapping, random_bands,
+                               shifts_126, skip_one, unbounded)
 from vr_video_generator_tpu_torch.kernels import launch_counts
 from vr_video_generator_tpu_torch.ops.attention import (flash_attention,
                                                         flash_attention_plain)
@@ -584,21 +585,42 @@ WARP_TABLES = {"three-overlapping-bands": overlapping,
                "bands-descending": descending, "random-bands": random_bands,
                "depth-above-every-band": above_all,
                "all-shifts-invalid": all_invalid,
-               "unbounded-bands-nan-depth": unbounded}
+               "unbounded-bands-nan-depth": unbounded,
+               "two-bands-not-rank-adjacent": skip_one,
+               "last-valid-rank-dual": last_rank_dual}
 
 
 @pytest.mark.parametrize("h,w", [(61, 97), (150, 96), (1080, 1920)])
 @pytest.mark.parametrize("tables", list(WARP_TABLES))
 def test_warp_rows_on_adversarial_tables(cuda, tables, h, w):
     """Rows 3, 4, 13 and 14 on tables no shortcut survives: bands that
-    overlap three deep (row 14's code byte holds two, so it is held only
-    against its own plain version there), that descend, random ones, depth
-    above every band, no valid shift, unbounded and empty bands, NaN
-    depth."""
+    overlap three deep or in pairs that are not rank-adjacent (row 14's
+    second claim is rank r + 1's shift, so it is held only against its own
+    plain version there), that descend, random ones, depth above every
+    band, no valid shift, unbounded and empty bands, NaN depth, a dual pair
+    ending at the last valid rank."""
     spec, imgs, depth, st = _warp_case(cuda, h, w)
     imgs, depth, st = WARP_TABLES[tables](spec, imgs, depth, st)
     _warp_all_rows(spec, imgs, depth, st, banded_equals_classic=tables not in (
-        "three-overlapping-bands", "random-bands", "unbounded-bands-nan-depth"))
+        "three-overlapping-bands", "random-bands", "unbounded-bands-nan-depth",
+        "two-bands-not-rank-adjacent"))
+
+
+@pytest.mark.parametrize("h,w", [(61, 97), (1080, 1920)])
+def test_banded_kernel_at_126_shifts(cuda, h, w):
+    """Row 14 at the most shifts it takes (126, each band overlapping the
+    next: codes up to 125 | 128), launched once and bit for bit against its
+    plain version."""
+    _, imgs, depth, st = _warp_case(cuda, h, w)
+    st, s_neg, s_pos = shifts_126(st)
+    before = launch_counts()
+    got = warp_composite(imgs, depth, st, s_neg, s_pos, banded=True)
+    after = launch_counts()
+    assert after["warp_composite_banded"] \
+        == before.get("warp_composite_banded", 0) + 1
+    assert after.get("warp_composite", 0) == before.get("warp_composite", 0)
+    want = warp_composite_banded_plain(imgs, depth, st, s_neg, s_pos)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("b", [1, 2])
@@ -659,6 +681,43 @@ def test_head_tail_base_kernel_matches_plain(cuda, b, h2, w2, c):
     assert launch_counts()["head_tail"] == before + 1
     assert got.shape == (b, *out_hw) and got.dtype == torch.float32
     tail_stats("head_tail", got, head_tail_plain(x, *wts, out_hw))
+
+
+# Row 15 stage by stage on the chain's own inputs (chip_smoke.base_tail_stages:
+# conv1 by the GEMM bounds, the resize pass bit for bit, conv2 by the tail
+# bounds, one launch a call): conv1 on the halo kernel (C = 64) and on the
+# core's 256 x 64 tiles (C = 128), odd grids, vits' 1080p path1 at batch 8.
+@pytest.mark.parametrize("b,h2,w2,c", [(2, 37, 45, 64), (1, 9, 33, 64),
+                                       (8, 296, 528, 64), (2, 37, 45, 128),
+                                       (1, 9, 33, 128), (8, 296, 528, 128)])
+def test_head_tail_base_stages_match_plain(cuda, b, h2, w2, c):
+    from chip_smoke import base_tail_stages, tail_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(h2 * w2 + c + 15)
+    out_hw = (h2 * 7 // 4, w2 * 7 // 4)
+    x = _randn(gen, (b, c, h2, w2)).permute(0, 2, 3, 1)  # NCHW seen as NHWC
+    base_tail_stages(f"C={c}", x, tail_weights(gen, c)[2:], out_hw)
+
+
+# The chain reads path1 in its own strides (NCHW seen as NHWC, contiguous
+# NHWC, a channel slice of a wider tensor: the same bits); C = 32 runs the
+# wmma chain, which has no stages.
+@pytest.mark.parametrize("c", [64, 128])
+def test_head_tail_base_reads_any_strides(cuda, c):
+    from chip_smoke import tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                            head_tail_stages)
+
+    gen = torch.Generator(device=cuda).manual_seed(c + 9)
+    x = _randn(gen, (2, c, 26, 42)).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)[2:]
+    wide = torch.zeros((2, 26, 42, c + 32), dtype=x.dtype, device=cuda)
+    wide[..., 32:] = x
+    want = head_tail(x, *wts, (45, 73))
+    for view in (x.contiguous(), wide[..., 32:]):
+        assert torch.equal(head_tail(view, *wts, (45, 73)), want)
+    with pytest.raises(ValueError, match="C=32"):
+        head_tail_stages(x[..., :32], *tail_weights(gen, 32)[2:], (45, 73))
 
 
 @pytest.mark.parametrize("b,h0,w0,c", [(2, 37, 45, 64), (1, 148, 264, 64),

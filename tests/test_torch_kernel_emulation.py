@@ -1,5 +1,5 @@
-"""PyTorch port: the compositor (row 3) and blur/select (rows 4 and 13)
-CUDA sources run on the CPU under a host emulation of CUDA
+"""PyTorch port: the compositors (rows 3 and 14) and blur/select (rows 4 and
+13) CUDA sources run on the CPU under a host emulation of CUDA
 (tests/cuda_emu/cuda_runtime.h), against their plain versions, bit for bit.
 
 g++ compiles csrc/warp.cu and csrc/blur_select.cu as they are, with their
@@ -24,13 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_banded_scatter import CASES as BANDED_CASES
+from tests.test_torch_banded_scatter import case_inputs
 from tests.test_torch_warp_scatter import jax_inputs
 from tests.warp_tables import (above_all, all_invalid, descending,
                                overlapping, random_bands, unbounded)
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
 from vr_video_generator_tpu_torch.ops.warp import (
     WarpSpec, _taps, blur_select_sbs_packed_plain, blur_select_sbs_plain,
-    warp_composite_plain)
+    warp_composite_banded_plain, warp_composite_plain)
 from vr_video_generator_tpu_torch.utils.config import StereoConfig
 
 torch.set_num_threads(2)
@@ -86,20 +88,23 @@ def lib(tmp_path_factory):
          "-o", str(so)], capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     emu = ctypes.CDLL(str(so))
-    for name in ("vrvg_warp_composite", "vrvg_blur_select_sbs"):
+    for name in ("vrvg_warp_composite", "vrvg_warp_composite_banded",
+                 "vrvg_blur_select_sbs"):
         getattr(emu, name).argtypes = SIGNATURES[name]
         getattr(emu, name).restype = ctypes.c_int
     return emu
 
 
-def composite(lib, imgs, depth, st, s_neg, s_pos):
+def composite(lib, imgs, depth, st, s_neg, s_pos, banded=False):
     b, h, w, _ = imgs.shape
     out = torch.empty_like(imgs)
     cov = torch.empty((b, h, w), dtype=torch.bool)
     lo, hi = st.lo.contiguous(), st.hi.contiguous()
     valid = st.valid.contiguous()
     fill = st.fill_offset.to(torch.int32).contiguous()
-    err = lib.vrvg_warp_composite(
+    entry = (lib.vrvg_warp_composite_banded if banded
+             else lib.vrvg_warp_composite)
+    err = entry(
         imgs.data_ptr(), depth.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         valid.data_ptr(), fill.data_ptr(), out.data_ptr(), cov.data_ptr(),
         b, h, w, s_neg, s_neg + s_pos + 1, None)
@@ -168,6 +173,36 @@ def test_compositor_source_shifts_wider_than_the_frame(lib, monkeypatch):
     want, want_cov = warp_composite_plain(imgs, depth, st, spec.s_neg,
                                           spec.s_pos)
     assert torch.equal(got_cov, want_cov) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", list(BANDED_CASES))
+def test_banded_compositor_source_bit_exact(lib, case):
+    """Row 14 on every table of the banded compositor's CPU tests
+    (tests/test_torch_banded_scatter.py), the 126-shift table and shifts
+    wider than the frame among them, against the TPU kernel's formulation
+    (warp_composite_banded_plain)."""
+    imgs, depth, st, s_neg, s_pos = case_inputs(case)
+    got, got_cov = composite(lib, imgs, depth.contiguous(), st, s_neg, s_pos,
+                             banded=True)
+    want, want_cov = warp_composite_banded_plain(imgs, depth, st, s_neg,
+                                                 s_pos)
+    assert torch.equal(got_cov, want_cov)
+    assert torch.equal(got, want)
+
+
+def test_banded_compositor_source_refuses_127_shifts(lib):
+    """The entry point takes at most 126 shifts (the code's 7-bit rank)."""
+    spec, imgs, depth, st = jax_inputs(61, 97)
+    b, h, w, _ = imgs.shape
+    lo = torch.zeros((b, 127))
+    err = lib.vrvg_warp_composite_banded(
+        imgs.data_ptr(), depth.data_ptr(), lo.data_ptr(), lo.data_ptr(),
+        torch.zeros((b, 127), dtype=torch.bool).data_ptr(),
+        torch.zeros(b, dtype=torch.int32).data_ptr(),
+        torch.empty_like(imgs).data_ptr(),
+        torch.empty((b, h, w), dtype=torch.bool).data_ptr(), b, h, w, 63,
+        127, None)
+    assert err != 0
 
 
 def blur_inputs(h, w, b=3, seed=0):

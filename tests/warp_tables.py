@@ -1,9 +1,10 @@
 """Shift tables made to break the shortcuts a compositor could take, for
-the compositor's tests on the CPU (tests/test_torch_warp_scatter.py,
-tests/test_torch_kernel_emulation.py) and on the card
-(tests/test_torch_cuda.py). Each builder takes (spec, imgs, depth, st) and
-returns (imgs, depth, st) with the tables or the depth changed; the fill
-offset stays the frame's own. No JAX here: the card's machine has none.
+the compositors' tests on the CPU (tests/test_torch_warp_scatter.py,
+tests/test_torch_banded_scatter.py, tests/test_torch_kernel_emulation.py)
+and on the card (tests/test_torch_cuda.py). Each builder takes (spec, imgs,
+depth, st) and returns (imgs, depth, st) with the tables or the depth
+changed; the fill offset stays the frame's own. No JAX here: the card's
+machine has none.
 """
 
 import numpy as np
@@ -87,3 +88,44 @@ def unbounded(spec, imgs, depth, st):
     depth = depth.clone()
     depth[:, 2, ::7] = torch.nan
     return imgs, depth, with_bands(st, lo, hi)
+
+
+def skip_one(spec, imgs, depth, st):
+    """Every shift valid, band j [j c, (j + 1.1) c), the even ones reaching
+    on to (j + 3.05) c: a depth in [(j + 2.1) c, (j + 3) c) lies in bands j
+    and j + 2 only, not rank-adjacent, so the banded compositor's second
+    claim (rank r + 1) is not the band that matched second."""
+    def make(n):
+        c = 30.0 / n
+        lo = np.arange(n, dtype=np.float32) * c
+        hi = lo + 1.1 * c
+        hi[::2] = lo[::2] + 3.05 * c
+        return lo, hi, np.ones(n, bool)
+    return imgs, depth, hand_bands(st, make)
+
+
+def last_rank_dual(spec, imgs, depth, st):
+    """Three valid shifts, the last valid one not the last shift, its band
+    overlapping the band before it: pixels in both claim rank 1's and rank
+    2's (the last valid) shifts; the shifts after it stay invalid."""
+    def make(n):
+        lo = np.full(n, np.inf, np.float32)
+        hi = np.full(n, -np.inf, np.float32)
+        valid = np.zeros(n, bool)
+        for j, (a, b) in zip((1, n // 2, n - 3), ((0.0, 4.0), (3.0, 9.0),
+                                                  (8.0, 30.0))):
+            lo[j], hi[j], valid[j] = a, b, True
+        return lo, hi, valid
+    return imgs, depth, hand_bands(st, make)
+
+
+def shifts_126(st):
+    """A table of 126 shifts, the most the banded compositor takes, every
+    one valid and overlapping the next (codes up to 125 | 128): (tables,
+    s_neg, s_pos) with the fill offsets of ``st``."""
+    n, s_neg = 126, 40
+    c = 30.0 / n
+    lo = np.broadcast_to(np.arange(n, dtype=np.float32) * c,
+                         (st.lo.shape[0], n)).copy()
+    return (with_bands(st, lo, lo + 1.1 * c, np.ones(lo.shape, bool)),
+            s_neg, n - 1 - s_neg)

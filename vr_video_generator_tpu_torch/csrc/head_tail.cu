@@ -13,12 +13,13 @@
 //      GEMM + f32 bias, ReLU, the 1x1 (32 -> 1) summed in f32 + bias, ReLU
 //      -> f32 depth                                                 (H1, W1)
 //
-// The same file holds the older single-kernel tail (vrvg_head_tail), which
-// replaces head_tail_pallas.py `_tail_kernel` (head_tail_pallas, row 15):
-// path1 (B, H2, W2, C) -> conv1 read straight from path1 with zero padding,
-// its f32 sum, then + b1, then the cast (:113-121), and then stage 3 below,
-// which is that kernel's back half (:123-153) at the same rounding points.
-// C in {32, 64, 128}, C2 = C / 2, C3 = 32 (vits and vitb).
+// The same file holds the single-kernel tail at C = 32 (head_tail_wmma,
+// which csrc/head_tail_big.cu's vrvg_head_tail runs at that width; C = 64
+// and 128 run there on the Hopper chain), replacing head_tail_pallas.py
+// `_tail_kernel` (head_tail_pallas, row 15): path1 (B, H2, W2, 32) -> conv1
+// read straight from path1 with zero padding, its f32 sum, then + b1, then
+// the cast (:113-121), and then stage 3 below, which is that kernel's back
+// half (:123-153) at the same rounding points.
 //
 // Replaces: vr_video_generator_tpu/ops/head_tail_pallas.py
 // `_tail_ext_kernel` (head_tail_ext_pallas) at C = 32, the same order and
@@ -324,13 +325,19 @@ int run(const void* x, long long sb, long long sh, long long sw, long long sc,
                 (float*)out, hm, w2, h1, w1);
 }
 
-// The single-kernel tail: conv1 straight from path1, then conv2 as above.
-template <int C>
-int run_tail(const void* x, int batch, int h2, int w2, const void* wt1,
-             const void* b1, const void* wt2, const void* b2, const void* w3,
-             const void* b3, const void* taps, const void* tapw, void* c1,
-             void* out, int h1, int w1, void* stream) {
-  constexpr int C2 = C / 2;
+}  // namespace
+
+namespace vrvg {
+
+// The single-kernel tail at C = 32: conv1 straight from path1 (B, H2, W2,
+// 32) bf16 contiguous with wt1 (3, 3, 32, 16), then conv2 as above with wt2
+// (3, 3, 16, 32); scratch c1 (B, H2, W2, 16). Returns a CUDA error code.
+int head_tail_wmma(const void* x, int batch, int h2, int w2, const void* wt1,
+                   const void* b1, const void* wt2, const void* b2,
+                   const void* w3, const void* b3, const void* taps,
+                   const void* tapw, void* c1, void* out, int h1, int w1,
+                   void* stream) {
+  constexpr int C = 32, C2 = C / 2;
   int err = launch(conv1_kernel<C, C2, false>,
                    dim3((w2 + SEG - 1) / SEG, h2, batch), THREADS,
                    conv_smem<conv_kc<C, C2>(), C2>(), stream, (const bf16*)x,
@@ -344,7 +351,7 @@ int run_tail(const void* x, int batch, int h2, int w2, const void* wt1,
                 (const float*)b3, (float*)out, h2, w2, h1, w1);
 }
 
-}  // namespace
+}  // namespace vrvg
 
 // x (B, H0, W0, C) bf16 with element strides (sb, sh, sw, sc); out_conv
 // (C out, C in) bf16 + (C,) f32 bias; conv1 (9, C, C/2) bf16 + (C/2,) f32;
@@ -364,22 +371,4 @@ extern "C" int vrvg_head_tail_ext(
   return run<32>(x, sb, sh, sw, sc, batch, h0, w0, koc, boc, wt1, b1, wt2,
                  b2, w3, b3, taps_a, tapw_a, taps_b, tapw_b, rw, c1, out, h1,
                  w1, stream);
-}
-
-// The single-kernel DPT tail (head_tail_pallas.py `_tail_kernel`): path1
-// (B, H2, W2, C) bf16 contiguous; conv1 (9, C, C/2) bf16 + (C/2,) f32;
-// conv2 (9, C/2, 32) bf16 + (32,) f32; the 1x1 (32,) f32 + (1,) f32; the
-// W-resize tap table (2, W1) int32 indices and f32 weights; scratch c1
-// (B, H2, W2, C/2) bf16 -> out (B, H1, W1) f32. C in {32, 64, 128}.
-extern "C" int vrvg_head_tail(const void* x, int batch, int h2, int w2, int c,
-                              const void* wt1, const void* b1, const void* wt2,
-                              const void* b2, const void* w3, const void* b3,
-                              const void* taps, const void* tapw, void* c1,
-                              void* out, int h1, int w1, void* stream) {
-  switch (c) {
-    case 32: return run_tail<32>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
-    case 64: return run_tail<64>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
-    case 128: return run_tail<128>(x, batch, h2, w2, wt1, b1, wt2, b2, w3, b3, taps, tapw, c1, out, h1, w1, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

@@ -93,6 +93,24 @@
 // about as much time on the passes' traffic as on the products. No
 // intermediate is held whole in shared memory, so the chain takes any grid
 // the JAX planner sends it.
+//
+// The single-kernel tail (row 15, head_tail_pallas.py `_tail_kernel`,
+// vrvg_head_tail) is row 7 without its first three stages (:113-153):
+// conv1 (3x3, C -> C2) read straight from path1 (B, H2, W2, C), its f32 sum
+// + b1 before the one cast, then row 7's back. So it is a chain of the
+// parts above:
+//   0. the NCHW transpose of path1 where it comes as NCHW seen as NHWC;
+//   1. conv1 with b1 in f32 before the cast: at C2 = 32 (vits' C = 64) the
+//      halo kernel (Conv1Out), at C2 = 64 (vitb's C = 128) an implicit GEMM
+//      on the core with BiasBeforeCast on 256 x 64 tiles (m64n64k16: the
+//      whole of C2 a tile, none of its columns idle);
+//   2. row 12's back without `cw`: the resize pass and conv2 with the 1x1.
+// At vits' 1080p (B = 8, path1 296 x 528 x 64, depth 518 x 924) the convs
+// are 46 + 71 GFLOP (0.12 ms at the bf16 peak), against ~0.6 GB of
+// intermediates (c1 80 MB, R 245 MB, each written and read): about as much
+// time on traffic as on products. At C = 32 (a custom head) the tail runs
+// csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a core
+// tile nor a halo mode for C2 = 16.
 
 #include <type_traits>
 
@@ -507,7 +525,50 @@ int launch(const void* in, const void* w, const float* bias, const float* w3,
 
 }  // namespace conv2
 
+// Row 11, 0 on `stream`: x (B, C, H0 W0) -> xt (B, H0 W0, C). C a multiple
+// of TT. Returns a CUDA error code.
+int to_channels_last(const void* x, void* xt, int batch, int c, int hw,
+                     void* stream) {
+  to_channels_last_kernel<<<dim3((hw + TT - 1) / TT, c / TT, batch),
+                            PASS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (bf16*)xt, c, hw);
+  return (int)cudaGetLastError();
+}
+
+// Row 12 (and the back of rows 7 and 15 with a null `cw`): the resize pass
+// into r, then conv2 with the 1x1 into out. Returns a CUDA error code.
+int back(const void* mid, const void* taps, const void* tapw, const void* cw,
+         const void* w2m, const void* b2, const void* w3, const void* b3,
+         void* r, void* out, int batch, int hm, int w2, int c2, int h1,
+         int w1, void* stream) {
+  const dim3 grid(h1, batch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cw != nullptr) {
+    resize_kernel<true><<<grid, PASS_THREADS, 0, st>>>(
+        (const bf16*)mid, (const int*)taps, (const float*)tapw,
+        (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
+  } else {
+    resize_kernel<false><<<grid, PASS_THREADS, 0, st>>>(
+        (const bf16*)mid, (const int*)taps, (const float*)tapw, nullptr,
+        (bf16*)r, c2, hm, w2, h1, w1);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return conv2::launch<conv2::DepthOut>(r, w2m, (const float*)b2,
+                                        (const float*)w3, (const float*)b3,
+                                        out, batch, h1, w1, c2, stream);
+}
+
 }  // namespace
+
+namespace vrvg {
+// csrc/head_tail.cu: the single-kernel tail at C = 32 on the wmma chain.
+int head_tail_wmma(const void* x, int batch, int h2, int w2, const void* wt1,
+                   const void* b1, const void* wt2, const void* b2,
+                   const void* w3, const void* b3, const void* taps,
+                   const void* tapw, void* c1, void* out, int h1, int w1,
+                   void* stream);
+}  // namespace vrvg
 
 // Row 11. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW tensor
 // (B, C, H0, W0) seen as NHWC, then first transposed into the scratch xt (B,
@@ -525,14 +586,13 @@ extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
   }
   if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
   const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
-  const cudaStream_t st = (cudaStream_t)stream;
   if (nchw) {
-    to_channels_last_kernel<<<dim3((h0 * w0 + TT - 1) / TT, c / TT, batch),
-                              PASS_THREADS, 0, st>>>((const bf16*)x,
-                                                     (bf16*)xt, c, h0 * w0);
+    const int err = to_channels_last(x, xt, batch, c, h0 * w0, stream);
+    if (err != 0) return err;
     x = xt;
   }
-  upsample_kernel<false><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+  upsample_kernel<false><<<dim3(hm, batch), PASS_THREADS, 0,
+                           (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)taps, (const float*)tapw, nullptr,
       (bf16*)u, c, h0, w0, hm, w2);
   const cudaError_t err = cudaGetLastError();
@@ -563,22 +623,8 @@ extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
     return (int)cudaErrorInvalidValue;
   }
   if (batch <= 0 || h1 <= 0 || w1 <= 0) return (int)cudaSuccess;
-  const dim3 grid(h1, batch);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (cw != nullptr) {
-    resize_kernel<true><<<grid, PASS_THREADS, 0, st>>>(
-        (const bf16*)mid, (const int*)taps, (const float*)tapw,
-        (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
-  } else {
-    resize_kernel<false><<<grid, PASS_THREADS, 0, st>>>(
-        (const bf16*)mid, (const int*)taps, (const float*)tapw, nullptr,
-        (bf16*)r, c2, hm, w2, h1, w1);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return conv2::launch<conv2::DepthOut>(r, w2m, (const float*)b2,
-                                        (const float*)w3, (const float*)b3,
-                                        out, batch, h1, w1, c2, stream);
+  return back(mid, taps, tapw, cw, w2m, b2, w3, b3, r, out, batch, hm, w2, c2,
+              h1, w1, stream);
 }
 
 // Row 7's front. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW
@@ -599,11 +645,9 @@ extern "C" int vrvg_head_tail_ext_front(
   }
   if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
   const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
-  const cudaStream_t st = (cudaStream_t)stream;
   if (nchw) {
-    to_channels_last_kernel<<<dim3((h0 * w0 + TT - 1) / TT, c / TT, batch),
-                              PASS_THREADS, 0, st>>>((const bf16*)x,
-                                                     (bf16*)xt, c, h0 * w0);
+    const int err = to_channels_last(x, xt, batch, c, h0 * w0, stream);
+    if (err != 0) return err;
     x = xt;
   }
   // The out_conv mix per input pixel: a (B H0 W0, C) x (C, C)^T product.
@@ -616,7 +660,8 @@ extern "C" int vrvg_head_tail_ext_front(
                 : tma_gemm::gemm<Tall>(x, koc, xoc, batch * h0 * w0, c, c,
                                        mix, stream);
   if (err != 0) return err;
-  upsample_kernel<true><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+  upsample_kernel<true><<<dim3(hm, batch), PASS_THREADS, 0,
+                          (cudaStream_t)stream>>>(
       (const bf16*)xoc, (const int*)taps, (const float*)tapw,
       (const float*)boc, (bf16*)z, c, h0, w0, hm, w2);
   err = (int)cudaGetLastError();
@@ -633,4 +678,58 @@ extern "C" int vrvg_head_tail_ext_front(
   }
   return tma_gemm::conv3x3<Tall>(z, w1, c1, batch, hm, w2, c, c2, epi,
                                  stream);
+}
+
+// Row 15, the single-kernel tail. path1 (B, H2, W2, C) bf16, contiguous, or
+// with `nchw` an NCHW tensor (B, C, H2, W2) seen as NHWC, then first
+// transposed into the scratch xt (B, H2, W2, C) (not at C = 32, whose path1
+// is contiguous); conv1 (C/2, C, 3, 3) + (C/2,) f32 bias as k1 in the
+// layout of its kernel: at C = 32 (3, 3, C, C/2) (the wmma chain), at 64 (9
+// * 32, C) with row (3 dh + dw) 32 + n (the halo kernel), at 128 (C/2, 9 C)
+// with k = (3 dh + dw) C + c (the GEMM's B); conv2 as k2, (3, 3, C/2, 32) at
+// C = 32 and (9 * 32, C/2) otherwise; b2 (32,), the 1x1 (32,) and b3 (1,)
+// f32; the W-resize tap tables (2, W1); scratch c1 (B, H2, W2, C/2) and r
+// (B, H1, W1, C/2) bf16 (r not read at C = 32) -> out (B, H1, W1) f32. C in
+// {32, 64, 128}.
+extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
+                              const void* k1, const void* b1, const void* k2,
+                              const void* b2, const void* w3, const void* b3,
+                              const void* taps, const void* tapw, void* c1,
+                              void* r, void* out, int batch, int h2, int w2,
+                              int c, int h1, int w1, void* stream) {
+  if ((c != 32 && c != 64 && c != 128) || (c == 32 && nchw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (batch <= 0 || h2 <= 0 || w2 <= 0 || h1 <= 0 || w1 <= 0) {
+    return (int)cudaSuccess;
+  }
+  if (c == 32) {
+    return head_tail_wmma(x, batch, h2, w2, k1, b1, k2, b2, w3, b3, taps,
+                          tapw, c1, out, h1, w1, stream);
+  }
+  if (nchw) {
+    const int err = to_channels_last(x, xt, batch, c, h2 * w2, stream);
+    if (err != 0) return err;
+    x = xt;
+  }
+  const int c2 = c / 2;
+  int err;
+  switch (c) {
+    case 64:
+      err = conv2::launch<conv2::Conv1Out>(x, k1, (const float*)b1, nullptr,
+                                           nullptr, c1, batch, h2, w2, c,
+                                           stream);
+      break;
+    case 128: {
+      const tma_gemm::BiasBeforeCast epi{nullptr, (const float*)b1};
+      err = tma_gemm::conv3x3<tma_gemm::Tile<256, 64>>(x, k1, c1, batch, h2,
+                                                       w2, c, c2, epi, stream);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  return back(c1, taps, tapw, nullptr, k2, b2, w3, b3, r, out, batch, h2, w2,
+              c2, h1, w1, stream);
 }

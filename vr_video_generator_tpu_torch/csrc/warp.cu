@@ -40,16 +40,26 @@
 //
 // The banded compositor (`warp_composite_banded_kernel`) replaces
 // warp_pallas.py `_warp_kernel_banded`, the TPU's one-rotate-per-shift arm
-// (`_composite_prepacked(banded=True)`, at most 126 shifts). A first pass
-// over the staged row computes one code byte per SOURCE pixel: walking the
-// valid shifts ascending with the same f32 lo <= d < hi compares on the
-// unshifted depth, the rank (cumsum(valid) - valid, from the wrapper) of
-// the first band that matches, | 128 when a second one does, 254 when none
-// does. The output pass walks the shifts descending and stops at the first
-// whose rank bj the gathered code hits three ways (iv == bj, bj + 127,
-// bj + 128), then gathers that pixel's RGB. Same bytes as the classic
-// kernel; it trades the per-shift depth read for a byte read (one block per
-// row, a walk per output pixel).
+// (`_composite_prepacked(banded=True)`, at most 126 shifts). That kernel
+// gives each SOURCE pixel a code: the rank r (among the valid shifts,
+// cumsum(valid) - valid) of the first valid band, in ascending j, that its
+// own depth lies in, with bit 7 set when a later valid band holds it too;
+// output pixel x takes shift j when the code at x - s_j is j's rank, or has
+// bit 7 and is the rank before j's. So a pixel claims at most two shifts:
+// rank r's and, with the bit, rank r + 1's, whichever band actually matched
+// second (the next valid shift after rank r's; on tables where a depth lies
+// in three bands, or in two bands that are not rank-adjacent, this is not
+// what the classic kernel computes). A pixel in no band claims nothing.
+// The kernel is row 3's with that scatter: the same staging, bin table and
+// output pass; per pixel it finds the code from its bin's candidates with
+// the same f32 lo <= d < hi compares in ascending j, then does
+// atomicMax(win[(sx + s_j) mod w], j) for rank r's shift and, with the bit,
+// for rank r + 1's, which the per-frame table holds as `next` (the shift
+// of the next rank, -1 past the last). The winner is still the largest
+// shift index j. ops/warp.py `warp_composite_banded_scatter_plain` is the
+// same algorithm in torch, held against the TPU kernel's formulation on the
+// CPU. The per-pixel work is the classic kernel's candidate walk, cut short
+// at the second match, and at most two shared atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,9 +72,9 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NB = 512;  // depth bins (ops/warp.py WARP_BINS)
 
-// Shared memory of warp_composite_kernel, in bytes from the base: two
-// slots each of the depth and RGB rows, the staged composite and covered
-// rows, the winners, the bin masks and the per-shift tables.
+// Shared memory of the compositors, in bytes from the base: two slots each
+// of the depth and RGB rows, the staged composite and covered rows, the
+// winners, the bin masks and the per-shift tables.
 struct WarpLayout {
   int depth_slot, rgb_slot, depth, rgb, out, cov, win, mask, table, total;
   __host__ __device__ WarpLayout(int w, int n_shift) {
@@ -78,8 +88,8 @@ struct WarpLayout {
     win = cov + vrvg::chunk_bytes(w);
     mask = win + ((4 * w + 15) & ~15);
     table = mask + NB * words * 4;
-    // lo, hi, wrap, kl, kh (S each) and the bin origin and scale
-    total = table + ((20 * n_shift + 8 + 15) & ~15);
+    // lo, hi, wrap, kl, kh, next (S each) and the bin origin and scale
+    total = table + ((24 * n_shift + 8 + 15) & ~15);
   }
 };
 
@@ -89,15 +99,25 @@ __device__ __forceinline__ int bin_of(float d, float origin, float scale) {
   return (int)fminf(fmaxf(t, 0.f), (float)(NB - 1));
 }
 
-__global__ void __launch_bounds__(THREADS)
-warp_composite_kernel(const uint8_t* __restrict__ img,
-                      const float* __restrict__ depth,
-                      const float* __restrict__ lo,
-                      const float* __restrict__ hi,
-                      const uint8_t* __restrict__ valid,
-                      const int* __restrict__ fill, uint8_t* __restrict__ out,
-                      uint8_t* __restrict__ covered, int h, int w, int s_neg,
-                      int n_shift) {
+// Shift j claims output pixel (sx + s_j) mod w for source pixel sx (wrap =
+// s_j mod w): the largest claim wins.
+__device__ __forceinline__ void claim(int* win, int sx, int wrap, int w,
+                                      int j) {
+  int x = sx + wrap;
+  if (x >= w) x -= w;
+  atomicMax(&win[x], j);
+}
+
+// Both compositors: BANDED picks row 14's scatter (a pixel claims its first
+// band's shift and, when a later band holds it too, the next valid shift)
+// over row 3's (every band that holds it).
+template <bool BANDED>
+__device__ __forceinline__ void composite_rows(
+    const uint8_t* __restrict__ img, const float* __restrict__ depth,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const uint8_t* __restrict__ valid, const int* __restrict__ fill,
+    uint8_t* __restrict__ out, uint8_t* __restrict__ covered, int h, int w,
+    int s_neg, int n_shift) {
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int words = (n_shift + 31) / 32;
@@ -112,7 +132,8 @@ warp_composite_kernel(const uint8_t* __restrict__ img,
   int* s_wrap = reinterpret_cast<int*>(s_hi + n_shift);
   int* s_kl = s_wrap + n_shift;
   int* s_kh = s_kl + n_shift;
-  float* s_bins = reinterpret_cast<float*>(s_kh + n_shift);  // origin, scale
+  int* s_next = s_kh + n_shift;  // the shift of the next rank (BANDED)
+  float* s_bins = reinterpret_cast<float*>(s_next + n_shift);  // origin, scale
 
   const long long frame = (long long)b * h;
   const float* depth_row = depth + frame * w;
@@ -155,6 +176,15 @@ warp_composite_kernel(const uint8_t* __restrict__ img,
     const bool ok = span > 0.f && isfinite(span) && isfinite(scale);
     s_bins[0] = ok ? low : 0.f;
     s_bins[1] = ok ? scale : 0.f;
+    if constexpr (BANDED) {
+      // Ranks ascend with j over the valid shifts, so rank r + 1's shift is
+      // the next valid one after rank r's.
+      int next = -1;
+      for (int j = n_shift - 1; j >= 0; --j) {
+        s_next[j] = next;
+        if (valid[tab + j]) next = j;
+      }
+    }
   }
   __syncthreads();
   const float origin = s_bins[0], scale = s_bins[1];
@@ -196,22 +226,44 @@ warp_composite_kernel(const uint8_t* __restrict__ img,
     vrvg::cp_async_commit();
     if (prev >= 0) store(prev);
 
-    // Scatter: each source pixel's winners, by shift index.
+    // Scatter: each source pixel's claims, by shift index.
     const float* d_row = reinterpret_cast<const float*>(
         s_depth + slot * L.depth_slot + vrvg::chunk_head(depth_row + (long long)y * w));
     for (int sx = tid; sx < w; sx += THREADS) {
       const float d = d_row[sx];
       const uint32_t* m = s_mask + bin_of(d, origin, scale) * words;
-      for (int wd = 0; wd < words; ++wd) {
-        uint32_t bits = m[wd];
-        while (bits) {
-          const int j = wd * 32 + __ffs((int)bits) - 1;
-          bits &= bits - 1;
-          if (s_lo[j] <= d && d < s_hi[j]) {
-            int x = sx + s_wrap[j];
-            if (x >= w) x -= w;
-            atomicMax(&s_win[x], j);
+      if constexpr (!BANDED) {
+        for (int wd = 0; wd < words; ++wd) {
+          uint32_t bits = m[wd];
+          while (bits) {
+            const int j = wd * 32 + __ffs((int)bits) - 1;
+            bits &= bits - 1;
+            if (s_lo[j] <= d && d < s_hi[j]) claim(s_win, sx, s_wrap[j], w, j);
           }
+        }
+      } else {
+        // The TPU kernel's code: the first band (ascending j) that holds d,
+        // and whether a later one does too.
+        int first = -1;
+        bool dual = false;
+        for (int wd = 0; wd < words && !dual; ++wd) {
+          uint32_t bits = m[wd];
+          while (bits) {
+            const int j = wd * 32 + __ffs((int)bits) - 1;
+            bits &= bits - 1;
+            if (s_lo[j] <= d && d < s_hi[j]) {
+              if (first >= 0) {
+                dual = true;
+                break;
+              }
+              first = j;
+            }
+          }
+        }
+        if (first >= 0) {
+          claim(s_win, sx, s_wrap[first], w, first);
+          const int second = dual ? s_next[first] : -1;
+          if (second >= 0) claim(s_win, sx, s_wrap[second], w, second);
         }
       }
     }
@@ -239,76 +291,54 @@ warp_composite_kernel(const uint8_t* __restrict__ img,
   if (prev >= 0) store(prev);
 }
 
+// Row 3's and row 14's kernels: the same body, the same arguments.
+__global__ void __launch_bounds__(THREADS)
+warp_composite_kernel(const uint8_t* __restrict__ img,
+                      const float* __restrict__ depth,
+                      const float* __restrict__ lo,
+                      const float* __restrict__ hi,
+                      const uint8_t* __restrict__ valid,
+                      const int* __restrict__ fill, uint8_t* __restrict__ out,
+                      uint8_t* __restrict__ covered, int h, int w, int s_neg,
+                      int n_shift) {
+  composite_rows<false>(img, depth, lo, hi, valid, fill, out, covered, h, w,
+                        s_neg, n_shift);
+}
+
 __global__ void __launch_bounds__(THREADS)
 warp_composite_banded_kernel(const uint8_t* __restrict__ img,
                              const float* __restrict__ depth,
                              const float* __restrict__ lo,
                              const float* __restrict__ hi,
                              const uint8_t* __restrict__ valid,
-                             const int* __restrict__ bid,
                              const int* __restrict__ fill,
                              uint8_t* __restrict__ out,
                              uint8_t* __restrict__ covered, int h, int w,
                              int s_neg, int n_shift) {
-  const int y = blockIdx.x;
-  const int b = blockIdx.y;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_lo = reinterpret_cast<float*>(smem);
-  float* s_hi = s_lo + n_shift;
-  int* s_valid = reinterpret_cast<int*>(s_hi + n_shift);
-  int* s_bid = s_valid + n_shift;
-  uint8_t* s_code = reinterpret_cast<uint8_t*>(s_bid + n_shift);
-  uint8_t* s_rgb = s_code + w;
+  composite_rows<true>(img, depth, lo, hi, valid, fill, out, covered, h, w,
+                       s_neg, n_shift);
+}
 
-  const long long row = (long long)b * h + y;
-  const float* drow = depth + row * w;
-  const uint8_t* irow = img + row * w * 3;
-  for (int i = threadIdx.x; i < 3 * w; i += THREADS) s_rgb[i] = irow[i];
-  for (int i = threadIdx.x; i < n_shift; i += THREADS) {
-    s_lo[i] = lo[(long long)b * n_shift + i];
-    s_hi[i] = hi[(long long)b * n_shift + i];
-    s_valid[i] = valid[(long long)b * n_shift + i];
-    s_bid[i] = bid[(long long)b * n_shift + i];
-  }
-  __syncthreads();
-
-  // The code byte of each source pixel, from its own (unshifted) depth.
-  for (int x = threadIdx.x; x < w; x += THREADS) {
-    const float d = drow[x];
-    int code = 254;
-    for (int j = 0; j < n_shift; ++j) {
-      if (s_valid[j] && s_lo[j] <= d && d < s_hi[j])
-        code = code == 254 ? s_bid[j] : (code | 128);
-    }
-    s_code[x] = (uint8_t)code;
-  }
-  __syncthreads();
-
-  const int f = fill[b];
-  for (int x = threadIdx.x; x < w; x += THREADS) {
-    int src = -1;
-    for (int j = n_shift - 1; j >= 0; --j) {
-      if (!s_valid[j]) continue;
-      int sx = (x - (j - s_neg)) % w;
-      if (sx < 0) sx += w;
-      const int iv = s_code[sx];
-      const int bj = s_bid[j];
-      if (iv == bj || iv == bj + 127 || iv == bj + 128) {
-        src = sx;
-        break;
-      }
-    }
-    const bool cov = src >= 0;
-    if (!cov) {
-      src = (x - f) % w;
-      if (src < 0) src += w;
-    }
-    uint8_t* dst = out + (row * w + x) * 3;
-    dst[0] = s_rgb[src * 3 + 0];
-    dst[1] = s_rgb[src * 3 + 1];
-    dst[2] = s_rgb[src * 3 + 2];
-    covered[row * w + x] = cov ? 1 : 0;
-  }
+// Persistent blocks: as many as fit on the card at once, each walking the
+// rows y = blockIdx.x, + gridDim.x, ... of one frame.
+template <class Kernel>
+int launch_composite(Kernel kernel, const void* img, const void* depth,
+                     const void* lo, const void* hi, const void* valid,
+                     const void* fill, void* out, void* covered, int batch,
+                     int h, int w, int s_neg, int n_shift, void* stream) {
+  const size_t smem = WarpLayout(w, n_shift).total;
+  vrvg::LaunchLimits lim;
+  cudaError_t err = vrvg::launch_limits(reinterpret_cast<const void*>(kernel),
+                                        THREADS, smem, &lim);
+  if (err != cudaSuccess) return (int)err;
+  const int fit = lim.sms * lim.blocks_per_sm;
+  const int per_frame = (fit + batch - 1) / batch;
+  dim3 grid(per_frame < h ? per_frame : h, batch);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)img, (const float*)depth, (const float*)lo,
+      (const float*)hi, (const uint8_t*)valid, (const int*)fill,
+      (uint8_t*)out, (uint8_t*)covered, h, w, s_neg, n_shift);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -322,46 +352,21 @@ extern "C" int vrvg_warp_composite(const void* img, const void* depth,
                                    void* out, void* covered, int batch, int h,
                                    int w, int s_neg, int n_shift,
                                    void* stream) {
-  const size_t smem = WarpLayout(w, n_shift).total;
-  vrvg::LaunchLimits lim;
-  cudaError_t err = vrvg::launch_limits(
-      reinterpret_cast<const void*>(warp_composite_kernel), THREADS, smem,
-      &lim);
-  if (err != cudaSuccess) return (int)err;
-  // Persistent blocks: as many as fit on the card at once, each walking
-  // the rows y = blockIdx.x, + gridDim.x, ... of one frame.
-  const int fit = lim.sms * lim.blocks_per_sm;
-  const int per_frame = (fit + batch - 1) / batch;
-  dim3 grid(per_frame < h ? per_frame : h, batch);
-  warp_composite_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (const float*)depth, (const float*)lo,
-      (const float*)hi, (const uint8_t*)valid, (const int*)fill,
-      (uint8_t*)out, (uint8_t*)covered, h, w, s_neg, n_shift);
-  return (int)cudaGetLastError();
+  return launch_composite(warp_composite_kernel, img, depth, lo, hi, valid,
+                          fill, out, covered, batch, h, w, s_neg, n_shift,
+                          stream);
 }
 
-// The banded compositor: the same arguments as vrvg_warp_composite plus
-// bid (B, S) i32, each valid shift's rank among the valid shifts. At most
+// The banded compositor: the same arguments as vrvg_warp_composite. At most
 // 126 shifts (the wrapper falls back to vrvg_warp_composite above that).
 extern "C" int vrvg_warp_composite_banded(const void* img, const void* depth,
                                           const void* lo, const void* hi,
-                                          const void* valid, const void* bid,
-                                          const void* fill, void* out,
-                                          void* covered, int batch, int h,
-                                          int w, int s_neg, int n_shift,
-                                          void* stream) {
+                                          const void* valid, const void* fill,
+                                          void* out, void* covered, int batch,
+                                          int h, int w, int s_neg,
+                                          int n_shift, void* stream) {
   if (n_shift > 126) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)(2 * n_shift) +
-                      sizeof(int) * (size_t)(2 * n_shift) + 4 * (size_t)w;
-  cudaError_t err = cudaFuncSetAttribute(
-      warp_composite_banded_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(h, batch);
-  warp_composite_banded_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (const float*)depth, (const float*)lo,
-      (const float*)hi, (const uint8_t*)valid, (const int*)bid,
-      (const int*)fill, (uint8_t*)out, (uint8_t*)covered, h, w, s_neg,
-      n_shift);
-  return (int)cudaGetLastError();
+  return launch_composite(warp_composite_banded_kernel, img, depth, lo, hi,
+                          valid, fill, out, covered, batch, h, w, s_neg,
+                          n_shift, stream);
 }

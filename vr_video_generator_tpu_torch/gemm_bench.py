@@ -6,6 +6,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
         [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
+        [--rows 15]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -61,6 +62,16 @@ its three wmma kernels), each stage's TFLOP/s or GB/s, the span,
 ``event_ms``, the host time a call (on an idle device too), the error
 against the plain version, the bound, and cuDNN's two bf16 channels-last
 convolutions (conv1, conv2) of the same shapes as the yardstick.
+
+Row 15, the single-kernel DPT tail, at vits' (C = 64) and vitb's (C = 128)
+widths on path1 at 1080p/518 (B = 8, 296 x 528, depth 518 x 924;
+``chip_smoke``'s seeded weights, path1 an NCHW tensor seen as NHWC): the
+device time by stage (the transpose, conv1, the resize pass and conv2; on an
+older tree its two wmma kernels), each stage's TFLOP/s or GB/s, the span,
+``event_ms``, the host time a call, the error against the plain version, the
+bound, and cuDNN's two bf16 channels-last convolutions (conv1 on path1 with
+its bias, conv2) of the same shapes as the yardstick. Row 7 at vitb runs the
+same conv1 shape on 256 x 128 tiles, row 15 at C = 128 on 256 x 64 ones.
 
 Rows 11 and 12, the big-C DPT tail, at vitl-518's (C = 256, x 148 x 264,
 depth 518 x 924), vitl-728's (C = 256, 208 x 368, 728 x 1288) and
@@ -133,6 +144,10 @@ EXT_TAIL_SHAPES = (("vits", 64, (148, 264), (518, 924)),
                    ("vitl-252", 256, (72, 128), (252, 448)),
                    ("vitg-126", 384, (36, 64), (126, 224)))
 SWIGLU_SHAPES = (("vitg-518", 19544),)
+# (label, C, (H2, W2), (H1, W1)) of the single-kernel tail at 1080p: path1
+# on vits' grid at vits' and vitb's widths.
+BASE_TAIL_SHAPES = (("vits", 64, (296, 528), (518, 924)),
+                    ("vitb", 128, (296, 528), (518, 924)))
 # (label, C, (H0, W0), (H1, W1)) of the big-C tail at 1080p.
 BIG_TAIL_SHAPES = (("vitl-518", 256, (148, 264), (518, 924)),
                    ("vitl-728", 256, (208, 368), (728, 1288)),
@@ -503,6 +518,62 @@ def ext_tail_row(label: str, c: int, grid, out_hw) -> dict:
     return row
 
 
+def base_tail_row(label: str, c: int, grid, out_hw) -> dict:
+    """Row 15 at one path's shapes (module docstring)."""
+    from chip_smoke import tail_stats, tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                             head_tail_plain)
+
+    (h2, w2), (h1, w1) = grid, out_hw
+    c2 = c // 2
+    gen = torch.Generator(device="cuda").manual_seed(c + h2 + 15)
+    randn = seeded(gen)
+    x = randn((BATCH, c, h2, w2)).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)[2:]
+    got = head_tail(x, *wts, out_hw)
+    want = head_tail_plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    conv1 = 2 * BATCH * h2 * w2 * 9 * c * c2
+    conv2 = 2 * BATCH * h1 * w1 * 9 * c2 * 32
+    xb, c1b, rb = 2 * x.numel(), 2 * BATCH * h2 * w2 * c2, \
+        2 * BATCH * h1 * w1 * c2
+    moved = xb + sum(2 * t.numel() for t in wts) + 4 * got.numel()
+    row = dict(row=15, label=label, C=c, grid=grid, out_hw=out_hw,
+               **tail_stats(f"head_tail {label}", got, want),
+               bound_ms=max((conv1 + conv2) / BF16_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: head_tail(x, *wts, out_hw)))
+    del got, want
+    stages = (("transpose", "to_channels_last", 2 * xb, None),
+              ("conv1", "BiasBeforeCast", None, conv1),
+              ("conv1", "Conv1Out", None, conv1),
+              ("resize", "::resize_kernel", c1b + rb, None),
+              ("conv2", "DepthOut", None, conv2),
+              ("conv1 (older tree)", "conv1_kernel", None, conv1),
+              ("conv2 (older tree)", "namespace)::conv2_kernel<", None, conv2))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+    k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
+    # cuDNN's bf16 channels-last convolutions of the same shapes.
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    k1 = wts[0].contiguous(memory_format=cl)
+    r = randn((BATCH, c2, h1, w1)).contiguous(memory_format=cl)
+    k2 = wts[2].contiguous(memory_format=cl)
+    for key, fn, flops in (
+            ("cudnn_conv1", lambda: F.conv2d(xc, k1, wts[1], padding=1),
+             conv1),
+            ("cudnn_conv2", lambda: F.conv2d(r, k2, padding=1), conv2)):
+        row[key] = timings(fn)
+        row[key]["tflops"] = flops / row[key]["kernel_us"] * 1e-6
+    row["over_cudnn_kernel"] = k["kernel_us"] / (
+        row["cudnn_conv1"]["kernel_us"] + row["cudnn_conv2"]["kernel_us"])
+    return row
+
+
 def swiglu_row(label: str, m: int) -> dict:
     from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
                                                        swiglu_residual_plain)
@@ -703,7 +774,8 @@ def warp_rows(label: str, frames, depth, wanted) -> list:
                  bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                  kernel=timings(fn))
         k = r["kernel"]
-        # The kernel itself, by name (row 14's call also ranks the shifts).
+        # The kernel itself, by name (an older tree's row 14 call also ranks
+        # the shifts in PyTorch kernels).
         k["main_us"] = sum(us for n, us in k["kernels"].items()
                            if name + "_kernel" in n)
         k["gb_s"] = moved / k["main_us"] * 1e-3
@@ -759,8 +831,8 @@ def main(argv=None) -> int:
                     help="count wgmma/TMA instructions in the built kernels")
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 3, 4, "
-                    "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16; 11 and 12 are "
-                    "measured together)")
+                    "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
+                    "are measured together)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -793,6 +865,12 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         for shape in EXT_TAIL_SHAPES:
             rows.append(ext_tail_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+    if "15" in wanted:
+        torch.backends.cudnn.allow_tf32 = False
+        for shape in BASE_TAIL_SHAPES:
+            rows.append(base_tail_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
     if "8" in wanted:

@@ -42,7 +42,7 @@ SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vrvg_warp_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
-    "vrvg_warp_composite_banded": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "vrvg_warp_composite_banded": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _P],
     "vrvg_blur_select_sbs": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
@@ -59,8 +59,8 @@ SIGNATURES = {
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "vrvg_head_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _I, _I, _P],
+    "vrvg_head_tail": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _P],
     "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P],
     "vrvg_head_tail_big_front": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

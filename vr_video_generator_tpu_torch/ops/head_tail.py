@@ -31,9 +31,13 @@ The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
 the big-C tail): path1 (B, H2, W2, C) -> output_conv1 3x3 (its f32 sum, then
 + b1, then the cast) -> the W-resize with bf16 weights -> the H-resize (exact
 taps, f32 lerp) -> output_conv2 3x3 + b2, ReLU -> the f32 1x1 + b3, ReLU. Its
-back half is the ext tail's from conv1's output on, so both plain versions
-share it and the kernel (``vrvg_head_tail`` in csrc/head_tail.cu) runs the
-ext chain's last kernel after a conv1 that reads path1 directly.
+back half is the ext tail's from conv1's output on, so on the card it runs
+as three stages with their own plain versions: conv1 with its f32 bias
+before the cast (c1; the halo kernel at C = 64, the GEMM core at C = 128),
+the resize pass (R) and conv2 with the 1x1, all one entry point
+(``vrvg_head_tail`` in csrc/head_tail_big.cu, after an NCHW path1's
+transpose). At C = 32 it runs csrc/head_tail.cu's wmma chain, chosen by
+width there (``BASE_CONV1``).
 
 The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
@@ -75,6 +79,10 @@ CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
+# The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
+# layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
+# kernel (Conv1Out), or the GEMM core (256 x 64 tiles).
+BASE_CONV1 = {32: "wmma", 64: "halo", 128: "core"}
 C3 = 32                             # output_conv2's width in the reference head
 SMEM_PER_BLOCK = 232448             # shared memory one block may have (H100)
 
@@ -286,41 +294,31 @@ def head_tail_ext_plain(x: torch.Tensor, k_oc: torch.Tensor,
     return big_conv2_plain(r, k2, b2, k3, b3)
 
 
-def _tail_back_plain(c1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
-                     k3: torch.Tensor, b3: torch.Tensor,
-                     out_hw: Tuple[int, int]) -> torch.Tensor:
-    """conv1's output (B, C2, HM, W2) in the working dtype -> depth (B, H1,
-    W1) f32: :func:`ext_resize_plain`, then :func:`big_conv2_plain`
-    (head_tail_pallas.py:123-153)."""
-    r = ext_resize_plain(c1.permute(0, 2, 3, 1), out_hw)
-    return big_conv2_plain(r, k2, b2, k3, b3)
+def base_conv1_plain(path1: torch.Tensor, k1: torch.Tensor,
+                     b1: torch.Tensor) -> torch.Tensor:
+    """Row 15's conv1: path1 (B, H2, W2, C) -> c1 (B, H2, W2, C2) in
+    path1's dtype: output_conv1 3x3 with zero padding, its f32 sum, then +
+    the f32 bias, then the cast (head_tail_pallas.py:113-121)."""
+    dt, f32 = path1.dtype, torch.float32
+    c1 = F.conv2d(path1.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
+                  padding=1)
+    return (c1 + b1.to(f32)[:, None, None]).to(dt).permute(0, 2, 3, 1)
 
 
 def head_tail_plain(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
                     k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
                     b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """path1 (B, H2, W2, C) -> depth (B, H1, W1) f32, head_tail_pallas's
-    function: conv1's f32 sum, then + b1, then the cast, and the shared back
-    half. Weights in PyTorch layout: k1 (C2, C, 3, 3), k2 (C3, C2, 3, 3),
-    k3 (1, C3, 1, 1); biases (out,)."""
-    dt, f32 = path1.dtype, torch.float32
-    c1 = F.conv2d(path1.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
-                  padding=1)
-    c1 = (c1 + b1.to(f32)[:, None, None]).to(dt)
-    return _tail_back_plain(c1, k2, b2, k3, b3, out_hw)
+    function: :func:`base_conv1_plain`, then the ext tail's back half
+    (:func:`ext_resize_plain`, :func:`big_conv2_plain`;
+    head_tail_pallas.py:123-153). Weights in PyTorch layout: k1 (C2, C, 3,
+    3), k2 (C3, C2, 3, 3), k3 (1, C3, 1, 1); biases (out,)."""
+    r = ext_resize_plain(base_conv1_plain(path1, k1, b1), out_hw)
+    return big_conv2_plain(r, k2, b2, k3, b3)
 
 
-def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
-              k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
-              b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the row-15 kernels for CUDA tensors (bf16, C in
-    ``BASE_CHANNELS``; another width raises naming the roadmap item)."""
-    args = (k1, b1, k2, b2, k3, b3)
-    if not on_cuda(path1, *args):
-        return head_tail_plain(path1, *args, out_hw)
+def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
     b, h2, w2, c = path1.shape
-    h1, w1 = out_hw
     c2 = c // 2
     if not base_takes(c):
         not_ported(f"the single-kernel DPT tail at C={c} on the card",
@@ -333,24 +331,84 @@ def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"head_tail {name} weight must be {shape}, "
                              f"got {tuple(t.shape)}")
+
+
+def _base_weights(k1, b1, k2, b2, k3, b3):
+    """Row 15's weights as vrvg_head_tail reads them at path1's width
+    (``BASE_CONV1``): conv1 and conv2 as (3, 3, in, out) for the wmma chain;
+    otherwise conv1 as the halo kernel's rows or the GEMM's B and conv2 as
+    the halo kernel's rows; then the f32 vectors b1, b2, the 1x1, b3."""
+    kind = BASE_CONV1[k1.shape[1]]
+    if kind == "wmma":
+        w1, w2 = (k.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+                  for k in (k1, k2))
+    else:
+        w1 = conv2_weights(k1) if kind == "halo" else conv3x3_gemm_weights(k1)
+        w2 = conv2_weights(k2)
+    return (w1, w2, *_f32_vectors(b1, b2, k3, b3))
+
+
+def _launch_base(path1: torch.Tensor, wts, out_hw):
+    """One launch of vrvg_head_tail on path1 (B, H2, W2, C) bf16 with the
+    torch weights ``wts`` (k1, b1, k2, b2, k3, b3): (c1, R, depth), R None
+    at C = 32 (the wmma chain has no resize pass)."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    x = path1.contiguous()  # channel rows of 16-byte loads
-    wt1 = k1.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C, C2)
-    wt2 = k2.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, C2, C3)
-    vecs = [t.to(f32).contiguous() for t in (b1, b2, k3.reshape(-1), b3)]
+    b, h2, w2, c = path1.shape
+    h1, w1 = out_hw
+    c2 = c // 2
+    w1m, w2m, b1f, b2f, w3f, b3f = _prepared(_base_weights, wts)
+    if BASE_CONV1[c] == "wmma":
+        x, nchw, xt = path1.contiguous(), False, path1
+    else:
+        x, nchw, xt = _channels_last(path1)
     taps, tapw = _device_taps(w2, w1, x.device)
-    c1 = torch.empty((b, h2, w2, c2), dtype=bf16, device=x.device)
-    out = torch.empty((b, h1, w1), dtype=f32, device=x.device)
-    err = library().vrvg_head_tail(
-        x.data_ptr(), b, h2, w2, c, wt1.data_ptr(), vecs[0].data_ptr(),
-        wt2.data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-        vecs[3].data_ptr(), taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
-        out.data_ptr(), h1, w1, stream_handle(x.device))
-    check(err, "vrvg_head_tail")
+    new = functools.partial(torch.empty, dtype=torch.bfloat16,
+                            device=x.device)
+    c1 = new((b, h2, w2, c2))
+    r = new((b, h1, w1, c2)) if BASE_CONV1[c] != "wmma" else None
+    out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
+    check(library().vrvg_head_tail(
+        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
+        b1f.data_ptr(), w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
+        b3f.data_ptr(), taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
+        None if r is None else r.data_ptr(), out.data_ptr(), b, h2, w2, c,
+        h1, w1, stream_handle(x.device)), "vrvg_head_tail")
     BASE_LAUNCHES.count += 1
-    return out
+    return c1, r, out
+
+
+def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
+              k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
+              b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
+    version for CPU tensors, the row-15 kernels for CUDA tensors (bf16, C in
+    ``BASE_CHANNELS``; another width raises naming the roadmap item)."""
+    args = (k1, b1, k2, b2, k3, b3)
+    if not on_cuda(path1, *args):
+        return head_tail_plain(path1, *args, out_hw)
+    _check_base(path1, k1, k2, k3)
+    return _launch_base(path1, args, out_hw)[-1]
+
+
+def head_tail_stages(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
+                     k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
+                     b3: torch.Tensor, out_hw: Tuple[int, int]):
+    """Row 15 stage by stage: (c1, R, depth), c1 (B, H2, W2, C2) and R (B,
+    H1, W1, C2) channels-last, depth (B, H1, W1) f32. For CPU tensors, the
+    plain versions of the stages (composed, :func:`head_tail_plain`); for
+    CUDA tensors (bf16, C in 64 or 128), one launch of the chain, whose
+    scratch holds the intermediates."""
+    args = (k1, b1, k2, b2, k3, b3)
+    if not on_cuda(path1, *args):
+        c1 = base_conv1_plain(path1, k1, b1)
+        r = ext_resize_plain(c1, out_hw)
+        return c1, r, big_conv2_plain(r, k2, b2, k3, b3)
+    _check_base(path1, k1, k2, k3)
+    if BASE_CONV1[path1.shape[3]] == "wmma":
+        raise ValueError(f"head_tail_stages: C={path1.shape[3]} runs the wmma "
+                         f"chain, which has no stages")
+    return _launch_base(path1, args, out_hw)
 
 
 @functools.lru_cache(maxsize=None)

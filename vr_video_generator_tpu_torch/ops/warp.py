@@ -6,8 +6,8 @@ Mirrors vr_video_generator_tpu/ops/warp.py and ops/warp_pallas.py
 sync); the two per-pixel passes are the kernels:
 
   * ``warp_composite``: the forward-warp compositor (csrc/warp.cu), the
-    classic kernel or, with ``banded=True``, the banded one (one code byte
-    per source pixel, one gather per shift);
+    classic kernel or, with ``banded=True``, the banded one (the TPU's code
+    byte per source pixel: each pixel claims at most two shifts);
   * ``blur_select_sbs``: Gaussian hole fill, hole select, left-edge copy and
     the [synth | original] concat (csrc/blur_select.cu), emitting u8 HWC
     frames or packed uint32 words r | g<<8 | b<<16 (``emit="packed"``).
@@ -297,6 +297,63 @@ def warp_composite_scatter_plain(img: torch.Tensor, depth: torch.Tensor,
     return composite, covered
 
 
+def next_ranked(valid: torch.Tensor) -> torch.Tensor:
+    """(B, S) int64: for each shift, the valid shift of the next rank, the
+    first valid one after it (-1 past the last): rank r + 1's shift for a
+    shift of rank r, as the banded kernel's per-frame table holds it."""
+    s = valid.shape[1]
+    idx = torch.where(valid, torch.arange(s, device=valid.device), s)
+    after = torch.cat([idx[:, 1:], torch.full_like(idx[:, :1], s)], dim=1)
+    nxt = after.flip(1).cummin(dim=1).values.flip(1)
+    return torch.where(nxt < s, nxt, -1)
+
+
+def warp_composite_banded_scatter_plain(img: torch.Tensor,
+                                        depth: torch.Tensor, st: ShiftTables,
+                                        s_neg: int, s_pos: int,
+                                        bins: int = WARP_BINS
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 14's formulation on the CPU (tests only), as csrc/warp.cu runs
+    it: each SOURCE pixel walks the shifts its depth bin lists, ascending,
+    with the exact band compares, to its code (the first band that holds
+    it, and whether a later one does too), then claims the first band's
+    shift and, with a second, the next valid shift after it (rank r + 1's,
+    whichever band matched second), scattering j to x = (sx + s_j) mod w
+    with amax; output x takes the winner's source pixel, or the fill roll
+    where none won. Equals :func:`warp_composite_banded_plain` bit for
+    bit."""
+    if not banded_compositor_fits(s_neg, s_pos):
+        raise ValueError(f"the banded compositor takes at most 126 shifts, "
+                         f"got {s_neg + s_pos + 1}")
+    b, h, w, _ = img.shape
+    origin, scale, kl, kh = shift_bin_ranges(st, bins)
+    k = depth_bins(depth, origin[:, :, None], scale[:, :, None], bins)
+    first = torch.full(depth.shape, -1, dtype=torch.int64, device=depth.device)
+    dual = torch.zeros(depth.shape, dtype=torch.bool, device=depth.device)
+    for j in range(s_neg + s_pos + 1):
+        cand = (st.valid[:, j, None, None] & (kl[:, j, None, None] <= k)
+                & (k <= kh[:, j, None, None]))
+        m = cand & (st.lo[:, j, None, None] <= depth) \
+            & (depth < st.hi[:, j, None, None])
+        dual = dual | (m & (first >= 0))
+        first = torch.where(m & (first < 0), j, first)
+    nxt = next_ranked(st.valid)
+    second = torch.where(dual & (first >= 0),
+                         nxt.gather(1, first.clamp(min=0).reshape(b, -1))
+                         .reshape(depth.shape), -1)
+    cols = torch.arange(w, device=img.device)
+    wraps = torch.remainder(torch.arange(-s_neg, s_pos + 1), w)
+    win = torch.full(depth.shape, -1, dtype=torch.int64, device=depth.device)
+    for j in (first, second):
+        target = (cols + wraps[j.clamp(min=0)]) % w
+        win.scatter_reduce_(2, target, j, "amax")
+    covered = win >= 0
+    src = torch.where(covered, cols - wraps[win.clamp(min=0)],
+                      cols - st.fill_offset[:, None, None].long()) % w
+    composite = torch.gather(img, 2, src[..., None].expand(b, h, w, 3))
+    return composite, covered
+
+
 def _require(x: torch.Tensor, dtype, shape, name: str) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
             or not x.is_contiguous():
@@ -328,22 +385,13 @@ def warp_composite(img: torch.Tensor, depth: torch.Tensor, st: ShiftTables,
 
     out = torch.empty_like(img)
     covered = torch.empty((b, h, w), dtype=torch.bool, device=img.device)
-    if banded:
-        bid = band_ranks(valid)
-        err = library().vrvg_warp_composite_banded(
-            img.data_ptr(), depth.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            valid.data_ptr(), bid.data_ptr(), fill.data_ptr(), out.data_ptr(),
-            covered.data_ptr(), b, h, w, s_neg, n_shift,
-            stream_handle(img.device))
-        check(err, "vrvg_warp_composite_banded")
-        BANDED_LAUNCHES.count += 1
-        return out, covered
-    err = library().vrvg_warp_composite(
+    name = "vrvg_warp_composite_banded" if banded else "vrvg_warp_composite"
+    err = getattr(library(), name)(
         img.data_ptr(), depth.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         valid.data_ptr(), fill.data_ptr(), out.data_ptr(), covered.data_ptr(),
         b, h, w, s_neg, n_shift, stream_handle(img.device))
-    check(err, "vrvg_warp_composite")
-    COMPOSITE_LAUNCHES.count += 1
+    check(err, name)
+    (BANDED_LAUNCHES if banded else COMPOSITE_LAUNCHES).count += 1
     return out, covered
 
 

@@ -61,7 +61,16 @@ Phases, each fatal on failure:
      the entry points no CLI path calls, as a user would call them (the
      banded compositor at 1080p, batch 8; the single-kernel tail and the
      RCU pair -> ext tail at vits' shapes), each launching exactly its
-     kernels.
+     kernels;
+  5. ``SbsPipeline.step_many`` as a CUDA graph at vits ``auto`` (1080p,
+     batch 8, k = 3): bit for bit against three eager steps, SBS and state,
+     on two calls, the second replayed on fresh frames without a new
+     capture and leaving the first call's outputs intact; its launches per
+     replay 3 times one eager step's; ``process_segment`` over 40 frames
+     writing the same bytes at ``--chunk_batches`` 3 and 1; a
+     ``utils.profiling.trace`` of a replay; and the port's ``bench
+     --config 2 --chunk_batches 4`` once, cut to 2 repeats, its JSON line
+     printed.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -1753,6 +1762,134 @@ def main_path(device, rng):
     return launches, paths
 
 
+def states_equal(a, b) -> bool:
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def step_many_path(device, rng) -> dict:
+    """Phase 5: ``SbsPipeline.step_many`` as a CUDA graph at vits ``auto``,
+    1080p, batch 8, k = 3: the graph's SBS and state equal to three eager
+    steps bit for bit; a second call on fresh frames replays without a new
+    capture, equals the eager steps too, and leaves the first call's
+    outputs intact; the launches captured per replay are 3 times one eager
+    step's (exactly ``AUTO_VITS``); ``process_segment`` over 40 frames
+    writes the same bytes at ``chunk_batches`` 3 and 1; ``utils.profiling
+    .trace`` writes a trace holding the replay's kernels; and the port's
+    ``bench --config 2 --chunk_batches 4`` runs once, cut to 2 repeats."""
+    import tempfile
+
+    import torch
+
+    from vr_video_generator_tpu_torch import bench
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+    from vr_video_generator_tpu_torch.utils.profiling import trace
+
+    k = 3
+    label = f"vits auto/auto step_many k={k}"
+    pipe = make_pipe(device, run_config("vits", "auto", "auto"))
+    frames = rng.integers(0, 256, (2 * k * B, H, W, 3), dtype=np.uint8)
+    calibrate_random_scaler(pipe, frames[:B])
+    chunks = [torch.from_numpy(frames[i * k * B:(i + 1) * k * B].reshape(
+        k, B, H, W, 3)).to(device) for i in range(2)]
+    state0 = pipe.initial_state()
+    pipe.step(chunks[0][0], state0)  # warm-up: kernels built, tables cached
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe.step(chunks[0][0], state0)
+    one_step = {n: v for n, v in launch_counts().items() if v}
+    eager, st = [], state0
+    for chunk in chunks:
+        outs = []
+        for batch in chunk:
+            sbs, st = pipe.step(batch, st)
+            outs.append(sbs)
+        eager.append((outs, st))
+
+    t0 = time.perf_counter()
+    first, st1 = pipe.step_many(chunks[0], state0)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    require(len(pipe._graphs) == 1, f"{label}: {len(pipe._graphs)} graphs")
+    graph = pipe._graphs[(k, B)]
+    per_replay = dict(graph.launches)
+    launched_exactly(label, per_replay, AUTO_VITS)
+    require(per_replay == {n: k * v for n, v in one_step.items()},
+            f"{label}: a replay launches {per_replay}, {k} x one eager "
+            f"step's {one_step} expected")
+    first_copy = [o.clone() for o in first]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    second, st2 = pipe.step_many(chunks[1], st1)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay_counts = {n: v for n, v in launch_counts().items() if v}
+    require(pipe._graphs == {(k, B): graph},
+            f"{label}: the second call captured again")
+    require(replay_counts == per_replay,
+            f"{label}: a replay counted {replay_counts}, captured "
+            f"{per_replay}")
+    for i, (outs, st_g) in enumerate(((first, st1), (second, st2))):
+        want, st_e = eager[i]
+        bad = [j for j, (g, e) in enumerate(zip(outs, want))
+               if not torch.equal(g, e)]
+        require(not bad, f"{label}: call {i + 1}'s SBS of batches {bad} "
+                f"differ from the eager steps'")
+        require(states_equal(st_g, st_e),
+                f"{label}: call {i + 1}'s state differs from the eager "
+                f"steps'")
+    require(all(torch.equal(a, b) for a, b in zip(first, first_copy)),
+            f"{label}: the second call overwrote the first call's outputs")
+    log(f"{label}: graph SBS and state equal to {k} eager steps bit for bit "
+        f"(two calls, the second on fresh frames without a new capture); "
+        f"first call with capture {capture_s:.3f} s, replay call "
+        f"{replay_s:.4f} s; launches per replay {json.dumps(per_replay)}")
+
+    # process_segment over 40 frames (chunks of 3 and 2 full batches) at
+    # chunk_batches 3 against chunk_batches 1.
+    seg = {}
+    for chunk in (3, 1):
+        p = type(pipe)(pipe.model, H, W, run_cfg=dataclasses.replace(
+            pipe.run_cfg, chunk_batches=chunk))
+        counts, writer, n, secs = drive(p, frames[:40], B)
+        check_output(writer, n, frames[:40])
+        seg[chunk] = (np.stack(writer.frames), counts, secs)
+        del p
+    require(np.array_equal(seg[3][0], seg[1][0]),
+            f"{label}: process_segment at chunk_batches 3 wrote other bytes "
+            f"than at 1")
+    launched_exactly(f"{label} process_segment", seg[3][1], AUTO_VITS)
+    log(f"{label}: process_segment, 40 frames, the same bytes at "
+        f"chunk_batches 3 ({seg[3][2]:.3f} s, with two captures) and 1 "
+        f"({seg[1][2]:.3f} s)")
+
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d, "step_many.json"):
+            pipe.step_many(chunks[1], st1)
+            torch.cuda.synchronize()
+        with open(os.path.join(d, "step_many.json"), encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    require(kernels > 0, f"{label}: the trace holds no device kernel")
+    log(f"{label}: trace written, {kernels} device kernels in one call")
+    del pipe, graph, chunks, first, second, first_copy, eager, seg
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line = bench.run_config(2, chunk_batches=4, reps=2, segment_batches=8)
+    print(json.dumps(line), flush=True)
+    require(line["value"] > 0 and line["host_fps"] > 0,
+            f"bench --config 2: {line}")
+    log(f"bench --config 2 --chunk_batches 4 --reps 2 --segment_batches 8: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches_per_replay=per_replay, one_step=one_step,
+                capture_s=capture_s, replay_s=replay_s,
+                trace_kernels=kernels, bench=line)
+
+
 def depth_agreement(label, pipe, pipe32, batch, depth):
     """Depth through the kernels (bf16) against the plain versions in bf16
     and in f32, on the same weights and frames."""
@@ -1846,6 +1983,10 @@ def main() -> int:
     t0 = time.perf_counter()
     counts, paths = main_path(device, rng)
     log(f"phase 4 (main paths): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["vits auto/auto step_many"] = step_many_path(device, rng)
+    log(f"phase 5 (step_many, chunked segment, trace, bench): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's

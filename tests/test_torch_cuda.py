@@ -840,3 +840,159 @@ def test_cli_f32_on_the_card_raises(cuda, tmp_path):
               "--SubClipDir", str(tmp_path / "S") + "/",
               "--input_size", "56", "--compute_dtype", "float32",
               "--allow_random_weights"])
+
+
+def _graph_pipe(cuda, mlp_fused="auto", h=150, w=96, batch=2, chunk=1,
+                sbs_output="auto"):
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vits", batch_size=batch, compute_dtype="bfloat16",
+                    mlp_fused=mlp_fused, tail=mlp_fused, input_size=56,
+                    chunk_batches=chunk, sbs_output=sbs_output,
+                    warp_impl="pallas" if sbs_output == "packed" else "auto")
+    return SbsPipeline.create(cfg, h, w, allow_random=True, device=cuda)
+
+
+def _eager(pipe, chunk, state):
+    outs = []
+    for batch in chunk:
+        sbs, state = pipe.step(batch, state)
+        outs.append(sbs)
+    return outs, state
+
+
+@pytest.mark.parametrize("mlp_fused,sbs_output", [
+    ("xla", "auto"), ("auto", "auto"), ("fused", "auto"),
+    ("auto", "packed")])
+def test_step_many_graph_equals_eager_steps(cuda, mlp_fused, sbs_output):
+    """step_many on the card (a CUDA graph of k = 3 steps) against 3 eager
+    steps, bit for bit, SBS and every state field, on the unfused, auto and
+    fused paths and the packed emit: two calls, the second on other frames
+    and without a new capture; the first call's outputs survive the
+    second; a replay counts k times one eager step's launches."""
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+
+    pipe = _graph_pipe(cuda, mlp_fused, sbs_output=sbs_output)
+    rng = np.random.default_rng(9)
+    chunks = [torch.from_numpy(rng.integers(0, 256, (3, 2, 150, 96, 3),
+                                            dtype=np.uint8)).to(cuda)
+              for _ in range(2)]
+    state0 = pipe.initial_state()
+    pipe.step(chunks[0][0], state0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe.step(chunks[0][0], state0)
+    one = {k: v for k, v in launch_counts().items() if v}
+    want1, st = _eager(pipe, chunks[0], state0)
+    want2, st_want2 = _eager(pipe, chunks[1], st)
+    got1, st1 = pipe.step_many(chunks[0], state0)
+    keep = [o.clone() for o in got1]
+    graph = pipe._graphs[(3, 2)]
+    reset_launch_counts()
+    got2, st2 = pipe.step_many(chunks[1], st1)
+    assert list(pipe._graphs.values()) == [graph]
+    assert graph.launches == {k: 3 * v for k, v in one.items()}
+    assert {k: v for k, v in launch_counts().items() if v} == graph.launches
+    for got, want in ((got1, want1), (got2, want2)):
+        for g, e in zip(got, want):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+    for a, b in ((st1, st), (st2, st_want2)):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert all(torch.equal(a, b) for a, b in zip(got1, keep))
+    assert not any(o.data_ptr() == s.data_ptr()
+                   for o in got2 for s in graph.outs)
+
+
+def test_step_many_graph_at_1080p(cuda):
+    """vits auto at 1080p, batch 8, k = 3 (chip_smoke.py's phase 5 shape):
+    the graph equals the eager steps bit for bit from the cold start."""
+    pipe = _graph_pipe(cuda, h=1080, w=1920, batch=8)
+    chunk = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (3, 8, 1080, 1920, 3), dtype=np.uint8)).to(cuda)
+    state0 = pipe.initial_state()
+    want, st = _eager(pipe, chunk, state0)
+    got, st_g = pipe.step_many(chunk, state0)
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+    assert all(torch.equal(x, y) for x, y in zip(st_g, st))
+
+
+@pytest.mark.parametrize("chunk", [2, 3])
+def test_chunked_segment_on_the_card(cuda, chunk):
+    """process_segment over 22 frames at batch 4 (five full batches and a
+    short one): the same bytes at chunk_batches 2 or 3 as at 1."""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.runtime.segment import process_segment
+    from vr_video_generator_tpu_torch.stage_bench import (CollectingWriter,
+                                                          MemoryReader)
+
+    base = _graph_pipe(cuda, batch=4)
+    frames = np.random.default_rng(2).integers(0, 256, (22, 150, 96, 3),
+                                               dtype=np.uint8)
+    out = {}
+    for k in (1, chunk):
+        import dataclasses
+
+        pipe = SbsPipeline(base.model, 150, 96, run_cfg=dataclasses.replace(
+            base.run_cfg, chunk_batches=k))
+        writer = CollectingWriter()
+        assert process_segment(pipe, MemoryReader(frames), writer, 0, 22,
+                               max_frame_count=5, batch_size=4) == 22
+        out[k] = (np.stack(writer.frames), writer.clips)
+    np.testing.assert_array_equal(out[1][0], out[chunk][0])
+    assert out[1][1] == out[chunk][1]
+
+
+def test_host_staging_chunk_roundtrip(cuda):
+    """A chunk goes up from one pinned buffer as a (k, B, H, W, 3) stack and
+    its k outputs come back in order as one (k B, ...) array."""
+    from vr_video_generator_tpu_torch.runtime.segment import HostStaging
+
+    staging = HostStaging(cuda)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        batches = [rng.integers(0, 256, (2, 5, 7, 3), dtype=np.uint8)
+                   for _ in range(4)]
+        up = staging.upload(batches)
+        assert up.is_cuda and tuple(up.shape) == (4, 2, 5, 7, 3)
+        back = staging.finish_readback(staging.start_readback(tuple(up)))
+        np.testing.assert_array_equal(back, np.concatenate(batches))
+
+
+def test_trace_records_device_kernels(cuda, tmp_path):
+    """utils.profiling.trace on the card: CUDA activity is on, and the
+    Chrome trace holds the block's kernels."""
+    import json
+
+    from vr_video_generator_tpu_torch.utils.profiling import trace
+
+    a = torch.randn(256, 256, device=cuda)
+    with trace(str(tmp_path), "t.json"):
+        (a @ a).sum()
+        torch.cuda.synchronize()
+    with open(tmp_path / "t.json", encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_step_many_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here: a host read inside it) makes
+    step_many raise; it never falls back to the eager loop. (Last in the
+    file: a failed capture is ended, but nothing after it depends on
+    that.)"""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    pipe = _graph_pipe(cuda)
+    frames = torch.zeros((2, 2, 150, 96, 3), dtype=torch.uint8, device=cuda)
+    real = SbsPipeline.step
+
+    def step(self, frames, state, n_valid=None):
+        out = real(self, frames, state, n_valid=n_valid)
+        float(out[1].offset_range.sum())  # a host sync
+        return out
+
+    monkeypatch.setattr(SbsPipeline, "step", step)
+    with pytest.raises(RuntimeError):
+        pipe.step_many(frames, pipe.initial_state())
+    torch.cuda.synchronize()

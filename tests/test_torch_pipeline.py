@@ -340,11 +340,27 @@ def test_cuda_device_without_gpu_raises():
     ("depth_stride", 2, "depth_stride"), ("chunk_batches", 2, "step_many"),
     ("gelu", "tanh", "UI impl switches"),
 ])
-def test_unported_run_options_raise(field, value, item):
+def test_unported_run_options_raise(field, value, item, pipe, frames):
+    """depth_stride > 1 and the tanh GELU raise not_ported. chunk_batches >
+    1 is ported (step_many): it passes the check, and a pipeline built
+    with it runs a chunk of two batches as two steps do."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(dataclasses.replace(CFG, **{field: value}))
+    cfg = dataclasses.replace(CFG, **{field: value})
+    if item != "step_many":
+        with pytest.raises(NotImplementedError, match=item):
+            check_supported(cfg)
+        return
+    check_supported(cfg)
+    chunked = SbsPipeline(pipe.model, H, W, run_cfg=cfg)
+    two = frames[:2 * BATCH].reshape(2, BATCH, H, W, 3)
+    outs, _ = chunked.step_many(two, chunked.initial_state())
+    st, want = pipe.initial_state(), []
+    for batch in two:
+        sbs, st = pipe.step(batch, st)
+        want.append(sbs.numpy())
+    np.testing.assert_array_equal(np.stack([o.numpy() for o in outs]),
+                                  np.stack(want))
 
 
 @pytest.mark.parametrize("overrides,kernel", [
@@ -392,12 +408,30 @@ def test_unported_fused_combinations_raise(overrides, kernel):
     (["--repair_mode", "3"], "repair modes 1 and 3"),
 ])
 def test_unported_cli_options_raise(argv, item, tmp_path):
+    """--mesh and repair modes 1 and 3 raise not_ported. --profile_dir is
+    ported: a conversion with it writes its torch.profiler trace into the
+    directory."""
     from vr_video_generator_tpu_torch.cli import main
 
     dirs = ["--DebugDir", str(tmp_path / "D") + "/",
             "--SubClipDir", str(tmp_path / "S") + "/"]
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--device", "cpu", *dirs, *argv])
+    if item != "profiling":
+        with pytest.raises(NotImplementedError, match=item):
+            main(["--device", "cpu", *dirs, *argv])
+        return
+    cv2 = pytest.importorskip("cv2")
+    src = str(tmp_path / "in.mp4")
+    w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    for i in range(5):
+        w.write(np.full((48, 64, 3), 40 * i, np.uint8))
+    w.release()
+    trace_dir = tmp_path / argv[1]
+    assert main(["--device", "cpu", *dirs, "--profile_dir", str(trace_dir),
+                 "--VideoDir", src, "--OutputDir", str(tmp_path / "o.mkv"),
+                 "--batch_size", "4", "--input_size", "56",
+                 "--compute_dtype", "float32", "--mlp_fused", "xla",
+                 "--tail", "xla", "--allow_random_weights"]) == 0
+    assert [f.endswith(".json") for f in os.listdir(trace_dir)] == [True]
 
 
 def test_unported_entry_points_raise(pipe, frames):
@@ -405,8 +439,11 @@ def test_unported_entry_points_raise(pipe, frames):
         DinoVisionTransformer
     from vr_video_generator_tpu_torch.ops.preprocess import preprocess_frames
 
-    with pytest.raises(NotImplementedError, match="step_many"):
-        pipe.step_many(frames[None, :BATCH], pipe.initial_state())
+    # step_many is ported: one whole batch as a chunk of one is one step.
+    (sbs,), st = pipe.step_many(frames[None, :BATCH], pipe.initial_state())
+    want, want_st = pipe.step(frames[:BATCH], pipe.initial_state())
+    np.testing.assert_array_equal(sbs.numpy(), want.numpy())
+    np.testing.assert_array_equal(st.d_prev1.numpy(), want_st.d_prev1.numpy())
     # the folded preprocess is ported; an unknown path still raises
     assert preprocess_frames(torch.zeros(1, H, W, 3, dtype=torch.uint8),
                              (56, 70), impl="folded").shape == (1, 56, 70, 3)
@@ -422,18 +459,22 @@ def test_unported_entry_points_raise(pipe, frames):
 
 def test_port_imports_no_jax():
     """Importing the port's entry points and loading chip_smoke.py pulls in
-    neither JAX, flax, cv2 nor any module of the JAX package."""
+    neither JAX, flax, cv2, the root bench.py nor any module of the JAX
+    package."""
     code = ("import sys, importlib.util; import vr_video_generator_tpu_torch.cli, "
             "vr_video_generator_tpu_torch.pipeline, "
             "vr_video_generator_tpu_torch.runtime.segment, "
             "vr_video_generator_tpu_torch.runtime.orchestrator, "
             "vr_video_generator_tpu_torch.stage_bench, "
-            "vr_video_generator_tpu_torch.attention_bench; "
+            "vr_video_generator_tpu_torch.attention_bench, "
+            "vr_video_generator_tpu_torch.bench, "
+            "vr_video_generator_tpu_torch.utils.profiling, "
+            "vr_video_generator_tpu_torch.utils.benchlib; "
             "spec = importlib.util.spec_from_file_location('chip_smoke', "
             "'chip_smoke.py'); spec.loader.exec_module("
             "importlib.util.module_from_spec(spec)); "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
-            "'vr_video_generator_tpu') "
+            "'vr_video_generator_tpu', 'bench') "
             "or m.startswith('vr_video_generator_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -443,14 +484,14 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax_package():
     """An ast scan: no module of the port, and not chip_smoke.py, names the
-    JAX package, JAX or flax in an import."""
+    JAX package, JAX, flax or the root bench.py in an import."""
     import ast
     import pathlib
 
     files = sorted(pathlib.Path(REPO, "vr_video_generator_tpu_torch").rglob(
         "*.py")) + [pathlib.Path(REPO, "chip_smoke.py")]
     assert len(files) > 20
-    banned = ("vr_video_generator_tpu", "jax", "flax")
+    banned = ("vr_video_generator_tpu", "jax", "flax", "bench")
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

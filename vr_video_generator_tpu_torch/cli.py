@@ -109,15 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "scripts/real_weights_runbook.py calibrates")
     p.add_argument("--chunk_batches", type=int, default=1,
                    help="dispatch up to k consecutive full batches as one "
-                        "jitted superstep (bit-identical output; amortizes "
-                        "per-dispatch host cost — see RunConfig). 1 = off")
+                        "superstep (on the card one CUDA graph replay; "
+                        "bit-identical output; amortizes per-dispatch host "
+                        "cost — see RunConfig). 1 = off")
     p.add_argument("--warmup_frames", type=int, default=32,
                    help="decode this many frames before each segment start "
                         "to prime the temporal smoothing state (0 = "
                         "reference-equal cold start)")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="write a profiler trace of the conversion here "
-                        "(not ported yet)")
+                   help="write a torch.profiler Chrome trace of the "
+                        "conversion here")
     p.add_argument("--mesh", type=str, default="",
                    help="(data,model) device-mesh shape, e.g. 4x2 — runs the "
                         "sharded multi-chip pipeline instead of single-chip")
@@ -177,8 +178,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg, args = parse_run_config(argv)
     if args.mesh or args.coordinator_address or args.num_processes > 1:
         not_ported("--mesh / multi-host runs", "sharded and multi-GPU runtime")
-    if args.profile_dir:
-        not_ported("--profile_dir", "bench, profiling and records")
     from vr_video_generator_tpu_torch.runtime.orchestrator import run
 
     run(cfg, allow_random=args.allow_random_weights, device=args.device)

@@ -4,6 +4,8 @@ Every kernel wrapper in ``ops/`` takes its plain PyTorch version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
 wrapper owns a :class:`LaunchCounter`, incremented where the kernel is
 launched and nowhere else, so a run can show which kernels it went through.
+A CUDA graph launches without the wrappers: ``pipeline.StepGraph`` takes
+back what its capture counted and adds it at each replay.
 """
 
 from __future__ import annotations

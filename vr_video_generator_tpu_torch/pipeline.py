@@ -17,12 +17,15 @@ Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
 
 The temporal state crosses batch boundaries, so batching is invisible.
 PyTorch runs eagerly: ``step`` enqueues the batch's work on the device's
-current stream and returns without waiting for it.
+current stream and returns without waiting for it. ``step_many`` runs k
+whole batches; on the card it replays them as one CUDA graph
+(:class:`StepGraph`), one host call where eager steps make hundreds of
+launches each.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +67,6 @@ def check_supported(run_cfg: RunConfig) -> None:
     if run_cfg.depth_stride > 1:
         not_ported(f"depth_stride={run_cfg.depth_stride}",
                    "depth_stride and the stride audit")
-    if run_cfg.chunk_batches > 1:
-        not_ported(f"chunk_batches={run_cfg.chunk_batches}", "step_many")
     if run_cfg.sbs_output not in SBS_OUTPUTS:
         raise ValueError(f"sbs_output must be one of {SBS_OUTPUTS}, "
                          f"got {run_cfg.sbs_output!r}")
@@ -98,6 +99,7 @@ class SbsPipeline:
         self.sbs_emit = resolve_sbs_emit(self.run_cfg)
         self.preprocess_impl = resolve_preprocess(
             self.run_cfg.preprocess, self.device.type, model.dtype)
+        self._graphs: Dict[Tuple[int, int], StepGraph] = {}
 
     @classmethod
     def create(cls, run_cfg: RunConfig, height: int, width: int,
@@ -151,8 +153,35 @@ class SbsPipeline:
         return self.spec.warp_batch(frames, blended, ranges,
                                     emit=self.sbs_emit), state
 
-    def step_many(self, frames_u8, state: TemporalState):
-        not_ported("SbsPipeline.step_many", "step_many")
+    def step_many(self, frames_u8, state: TemporalState
+                  ) -> Tuple[Tuple[torch.Tensor, ...], TemporalState]:
+        """k whole batches -> (k SBS tensors, state'), bit-identical to k
+        ``step`` calls, state included. ``frames_u8``: (k, B, H, W, 3)
+        uint8, numpy or tensor. It takes no ``n_valid``: every frame is
+        real (a short batch goes to ``step``).
+
+        On the CPU it is the loop of ``step``. On the card the k steps are
+        one CUDA graph (:class:`StepGraph`), captured at the first call of
+        each (k, B) and replayed after: the frames are copied into its
+        static input, the caller's state into its static state, and the
+        outputs are clones of its static outputs, so no result of one call
+        aliases another's. A failed capture or replay raises."""
+        frames = (torch.from_numpy(np.ascontiguousarray(frames_u8))
+                  if isinstance(frames_u8, np.ndarray) else frames_u8)
+        if frames.ndim != 5:
+            raise ValueError(f"step_many expects (k, B, H, W, 3) uint8, got "
+                             f"shape {tuple(frames.shape)}")
+        if self.device.type != "cuda":
+            outs = []
+            for batch in frames:
+                sbs, state = self.step(batch, state)
+                outs.append(sbs)
+            return tuple(outs), state
+        key = tuple(frames.shape[:2])
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(self, frames, state)
+        return graph.run(frames, state)
 
     def primed_state(self, warm_frames, batch_size: int,
                      min_batches: int = 0) -> TemporalState:
@@ -179,6 +208,67 @@ class SbsPipeline:
     def depth_only(self, frames_u8) -> torch.Tensor:
         """Depth maps at source resolution (scaled), (B, H, W) f32."""
         return self._depth(self.frames_to_device(frames_u8))
+
+
+class StepGraph:
+    """k steps of one pipeline captured as one CUDA graph.
+
+    Capture needs every lazy set-up of a step done before it: the kernels'
+    nvcc builds, cuBLAS's handle, the host tables each wrapper copies to
+    the card at its first call (a copy from pageable host memory cannot be
+    captured). So one eager step runs first, on the caller's first batch
+    and a throwaway copy of the state. The capture then records the k
+    steps on static buffers: the frames (k, B, H, W, 3), the state in, and
+    the k SBS tensors and the state out, which live in the graph's private
+    memory pool.
+
+    Each wrapper's ``LaunchCounter`` counts in Python, so it counts at
+    capture, when nothing runs. The counts a capture adds are taken back
+    and kept as ``launches``, the kernel launches of one replay, and each
+    replay adds them.
+    """
+
+    def __init__(self, pipe: SbsPipeline, frames: torch.Tensor,
+                 state: TemporalState):
+        from vr_video_generator_tpu_torch.kernels import COUNTERS
+
+        k, b = frames.shape[:2]
+        self.frames = torch.empty((k, b, pipe.height, pipe.width, 3),
+                                  dtype=torch.uint8, device=pipe.device)
+        self.state = TemporalState(*(torch.empty_like(t) for t in state))
+        with torch.inference_mode():
+            self.frames.copy_(frames)
+            pipe.step(self.frames[0], TemporalState(*(t.clone()
+                                                      for t in state)))
+        torch.cuda.synchronize(pipe.device)
+        before = {name: c.count for name, c in COUNTERS.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(self.graph):
+            st, outs = self.state, []
+            for i in range(k):
+                sbs, st = pipe.step(self.frames[i], st)
+                outs.append(sbs)
+        self.outs, self.out_state = tuple(outs), st
+        self.launches: Dict[str, int] = {}
+        for name, c in COUNTERS.items():
+            n = c.count - before.get(name, 0)
+            c.count -= n
+            if n:
+                self.launches[name] = n
+
+    @torch.inference_mode()
+    def run(self, frames: torch.Tensor, state: TemporalState
+            ) -> Tuple[Tuple[torch.Tensor, ...], TemporalState]:
+        from vr_video_generator_tpu_torch.kernels import counter
+
+        self.frames.copy_(frames, non_blocking=True)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            counter(name).count += n
+        return (tuple(o.clone() for o in self.outs),
+                TemporalState(*(t.clone() for t in self.out_state)))
 
 
 def resolve_preprocess(preprocess: str, device_type: str,

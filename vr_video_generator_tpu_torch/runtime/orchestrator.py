@@ -3,7 +3,8 @@
 Mirrors vr_video_generator_tpu/runtime/orchestrator.py `convert_range` and
 `run` on one device:
 
-  repair_mode 0: clear the debug and subclip dirs, convert, combine
+  repair_mode 0: clear the debug and subclip dirs, convert (under a
+                 torch.profiler trace with ``profile_dir``), combine
   repair_mode 2: clear the debug dir, combine existing subclips with audio
 
 Video I/O comes from the port's ``video`` modules, imported here lazily
@@ -23,6 +24,7 @@ from vr_video_generator_tpu_torch.utils.fsutil import (create_folder_if_not_exis
 from vr_video_generator_tpu_torch.utils.logging import (WorkerLog, overflow_message,
                                                   overflow_path, print_flush,
                                                   summarize_overflow)
+from vr_video_generator_tpu_torch.utils.profiling import trace
 from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 from vr_video_generator_tpu_torch.runtime.segment import process_segment
@@ -96,8 +98,9 @@ def run(cfg: RunConfig, allow_random: bool = False,
     remove_all_files(cfg.debug_dir)
     if cfg.repair_mode == 0:
         remove_all_files(cfg.subclip_dir)
-        convert_range(cfg, cfg.start_frame, cfg.end_frame,
-                      allow_random=allow_random, device=device)
+        with trace(cfg.profile_dir or None):
+            convert_range(cfg, cfg.start_frame, cfg.end_frame,
+                          allow_random=allow_random, device=device)
         total, _ = summarize_overflow(overflow_path(cfg.debug_dir))
         if total:
             print_flush(overflow_message(total, cfg.encoder))

@@ -1,16 +1,23 @@
-"""Segment processing loop (PyTorch), depth_stride 1 and chunk 1.
+"""Segment processing loop (PyTorch), depth_stride 1.
 
 Mirrors vr_video_generator_tpu/runtime/segment.py `process_segment`:
 
-  * decode runs on a background thread into a bounded queue;
+  * decode runs on a background thread into a bounded queue (two
+    batches, or a whole chunk);
   * each batch is uploaded through a pinned host buffer and its step is
     enqueued on the device without waiting;
-  * the SBS of batch i is copied into a pinned host buffer with
-    ``non_blocking=True`` right after its step, and read back (waiting on a
-    CUDA event) only after batch i+1 has been enqueued, so the copy and the
-    host-side encode of batch i overlap the device compute of batch i+1;
-  * the short last batch is padded by repeating its last frame, and only
-    the real frames count toward the overflow tally (``n_valid``).
+  * with ``run_cfg.chunk_batches`` k > 1, consecutive full batches gather
+    in a chunk buffer, and a chunk of k goes to the device as one
+    ``step_many`` (one CUDA graph replay on the card), uploaded as one
+    (k, B, H, W, 3) stack and read back as one (k B, H, 2W, 3) buffer;
+    a chunk of 1 goes to ``step``;
+  * the SBS of dispatch i is copied into a pinned host buffer with
+    ``non_blocking=True`` right after it, and read back (waiting on a CUDA
+    event) only after dispatch i+1 has been enqueued, so the copy and the
+    host-side encode of dispatch i overlap the device compute of i+1;
+  * the short last batch is padded by repeating its last frame, flushes the
+    chunk buffer and runs alone through ``step``, and only the real frames
+    count toward the overflow tally (``n_valid``).
 
 The reader and writer are duck-typed: ``.height``, ``.width``,
 ``.read_into(frame) -> bool`` on the reader, ``.write_clip(begin, frames)``
@@ -19,14 +26,9 @@ and ``.wait()`` on the writer.
 
 from __future__ import annotations
 
-import contextlib
-import csv
-import os
 import queue
 import threading
-import time
-from collections import defaultdict
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,37 +36,11 @@ import torch
 from vr_video_generator_tpu_torch.utils.logging import (ProgressMeter, WorkerLog,
                                                   record_overflow)
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+# StageTimer lives in utils/profiling.py, as in the JAX package; it is
+# re-exported here for the callers that import it from the segment loop.
+from vr_video_generator_tpu_torch.utils.profiling import StageTimer
 
-
-class StageTimer:
-    """Wall-clock per named stage, dumped in the JAX package's CSV schema."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.hits: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.hits[name] += 1
-
-    def dump_csv(self, filename: str) -> None:
-        file_exists = os.path.exists(filename)
-        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-        with open(filename, "a", newline="", encoding="utf-8") as f:
-            writer = csv.writer(f)
-            if not file_exists:
-                writer.writerow(["Function", "Line #", "Line Content",
-                                 "Hits", "Total Time (µs)", "Per Hit (µs)"])
-            for name in sorted(self.totals):
-                total_us = self.totals[name] * 1e6
-                hits = self.hits[name]
-                writer.writerow([name, 0, "", hits, f"{total_us:.0f}",
-                                 f"{total_us / max(hits, 1):.2f}"])
+__all__ = ["EmitWindow", "HostStaging", "StageTimer", "process_segment"]
 
 
 def _decode_batches(reader, begin: int, end: int, batch_size: int,
@@ -110,8 +86,9 @@ class HostStaging:
     """Pinned host buffers for uploads and readbacks on a CUDA device: two
     per direction, each reused only after the event recorded behind its
     last copy has completed, and allocated anew, in the tensor's own dtype,
-    when the shape or the dtype changes (a packed SBS batch is uint32). On
-    the CPU it passes tensors through."""
+    when the shape or the dtype changes (a packed SBS batch is uint32). A
+    chunk goes up as one (k, B, H, W, 3) stack and comes back as one
+    (k B, ...) buffer. On the CPU it passes tensors through."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -138,27 +115,46 @@ class HostStaging:
         ev.record(torch.cuda.current_stream(self.device))
         self._events[key] = ev
 
-    def upload(self, batch: np.ndarray) -> torch.Tensor:
+    def upload(self, batch: Union[np.ndarray, Sequence[np.ndarray]]
+               ) -> torch.Tensor:
+        """One (B, H, W, 3) batch, or a list of k batches as one (k, B, H,
+        W, 3) stack, on the device."""
         if not self.cuda:
-            return torch.from_numpy(batch)
-        key = self._slot("up", batch.shape, torch.uint8)
-        buf = self._bufs[key]
-        buf.numpy()[...] = batch
-        dev = buf.to(self.device, non_blocking=True)
+            return torch.from_numpy(batch if isinstance(batch, np.ndarray)
+                                    else np.stack(batch))
+        shape = (batch.shape if isinstance(batch, np.ndarray)
+                 else (len(batch),) + batch[0].shape)
+        key = self._slot("up", shape, torch.uint8)
+        host = self._bufs[key].numpy()
+        if isinstance(batch, np.ndarray):
+            host[...] = batch
+        else:
+            for i, b in enumerate(batch):
+                host[i] = b
+        dev = self._bufs[key].to(self.device, non_blocking=True)
         self._record(key)
         return dev
 
-    def start_readback(self, sbs: torch.Tensor):
+    def start_readback(self, sbs: Union[torch.Tensor, Tuple[torch.Tensor, ...]]):
+        """Start copying one SBS tensor, or a chunk's k of them into one
+        buffer, to the host; returns the handle ``finish_readback`` takes."""
         if not self.cuda:
             return sbs
-        key = self._slot("down", sbs.shape, sbs.dtype)
-        self._bufs[key].copy_(sbs, non_blocking=True)
+        parts = (sbs,) if isinstance(sbs, torch.Tensor) else sbs
+        rows = parts[0].shape[0]
+        shape = (rows * len(parts),) + tuple(parts[0].shape[1:])
+        key = self._slot("down", shape, parts[0].dtype)
+        for i, part in enumerate(parts):
+            self._bufs[key][i * rows:(i + 1) * rows].copy_(part,
+                                                           non_blocking=True)
         self._record(key)
         return key
 
     def finish_readback(self, handle) -> np.ndarray:
         if not self.cuda:
-            return handle.numpy()
+            if isinstance(handle, torch.Tensor):
+                return handle.numpy()
+            return torch.cat(handle).numpy()
         self._events[handle].synchronize()
         return self._bufs[handle].numpy().copy()
 
@@ -184,7 +180,12 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
     meter = ProgressMeter(decode_end - stream_base, log)
     log.write(f"Worker begin from {begin} to {end}")
 
-    batches: "queue.Queue" = queue.Queue(maxsize=2)
+    # Chunked dispatch (RunConfig.chunk_batches): consecutive full batches
+    # gather in a chunk and go to the device as one step_many. The decoder
+    # may run a whole chunk ahead, so a chunk is ready when the device
+    # finishes the one before it.
+    chunk_k = max(1, pipeline.run_cfg.chunk_batches)
+    batches: "queue.Queue" = queue.Queue(maxsize=max(2, chunk_k))
     decoder = threading.Thread(target=_decode_batches,
                                args=(reader, stream_base, decode_end,
                                      batch_size, batches),
@@ -197,15 +198,16 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
     pending: List[np.ndarray] = []
     clip_begin = begin
     frames_done = 0
-    prev = None  # (readback handle, real frame count) of the last batch
+    prev = None  # (readback handle, real frame count) of the last dispatch
     window = EmitWindow(discard_first, end - begin)
+    chunk: List[np.ndarray] = []
 
     def flush(force: bool) -> None:
         nonlocal pending, clip_begin
         while len(pending) >= max_frame_count or (force and pending):
-            chunk, pending = pending[:max_frame_count], pending[max_frame_count:]
-            writer.write_clip(clip_begin, chunk)
-            clip_begin += len(chunk)
+            part, pending = pending[:max_frame_count], pending[max_frame_count:]
+            writer.write_clip(clip_begin, part)
+            clip_begin += len(part)
 
     def readback_prev() -> None:
         nonlocal prev
@@ -219,24 +221,46 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
             flush(force=False)
         prev = None
 
+    def dispatch(group: List[np.ndarray], n_real: int) -> None:
+        """Enqueue one batch (``step``, with ``n_valid``) or a chunk of full
+        batches (``step_many``), start its readback, then read back the
+        previous dispatch."""
+        nonlocal state, prev
+        with timer.stage("device_dispatch"):
+            if len(group) == 1:
+                sbs, state = pipeline.step(staging.upload(group[0]), state,
+                                           n_valid=n_real)
+            else:
+                sbs, state = pipeline.step_many(staging.upload(group), state)
+            handle = staging.start_readback(sbs)
+        readback_prev()
+        prev = (handle, n_real)
+
+    def dispatch_chunk() -> None:
+        nonlocal chunk
+        if chunk:
+            dispatch(chunk, len(chunk) * batch_size)
+            chunk = []
+
     while True:
         with timer.stage("decode_wait"):
             batch = batches.get()
         if batch is None:
+            dispatch_chunk()
             break
         if isinstance(batch, BaseException):
             raise RuntimeError(f"decode thread crashed at frame "
                                f"{stream_base + frames_done}") from batch
         n_real = batch.shape[0]
         if n_real < batch_size:
+            # The short last batch, padded, flushes the chunk and runs alone.
             pad = np.repeat(batch[-1:], batch_size - n_real, axis=0)
-            batch = np.concatenate([batch, pad], axis=0)
-        with timer.stage("device_dispatch"):
-            sbs, state = pipeline.step(staging.upload(batch), state,
-                                       n_valid=n_real)
-            handle = staging.start_readback(sbs)
-        readback_prev()
-        prev = (handle, n_real)
+            dispatch_chunk()
+            dispatch([np.concatenate([batch, pad], axis=0)], n_real)
+        else:
+            chunk.append(batch)
+            if len(chunk) == chunk_k:
+                dispatch_chunk()
         frames_done += n_real
         if frames_done % (batch_size * report_every) == 0:
             meter.report(frames_done)

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA GPU:
     python3 -m vr_video_generator_tpu_torch.stage_bench [--out DIR]
         [--encoder vits|vitb|vitl|vitg] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
-        [--sbs_output auto|u8|packed]
+        [--sbs_output auto|u8|packed] [--chunk_batches K]
 
 The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
 vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
@@ -23,9 +23,14 @@ measures, in this order:
 * ``stages``: each stage of one step alone (preprocess, encoder, DPT head,
   bicubic upsample, temporal scan, warp tables, the two warp kernels),
   CUDA events, median of ``RUNS``;
+* ``dispatch``: the host time of one call (after a synchronize, median of
+  ``RUNS``) and the kernels it puts on the device (a torch.profiler trace
+  of one call) for an eager ``step``, and with ``--chunk_batches K`` > 1
+  for one ``step_many`` of K batches (a CUDA graph replay);
 * ``segment``: host-inclusive ``process_segment`` over ``FRAMES``
-  in-memory frames (decode thread, pinned upload, step, readback, writer
-  hand-off), wall clock, ``REPEATS`` times;
+  in-memory frames (decode thread, pinned upload, step or, with
+  ``--chunk_batches K``, chunks of K through ``step_many``, readback,
+  writer hand-off), wall clock, ``REPEATS`` times;
 * ``trace``: one more ``process_segment`` run under ``torch.profiler``. The
   device's busy time is the union of its kernel, memcpy and memset
   intervals; its idle share is 1 - busy / the run's wall time. The
@@ -43,10 +48,12 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -220,20 +227,47 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
         ("warp_composite", composite), ("blur_select_sbs", blur_select))}
 
 
+def host_ms(fn: Callable[[], object]) -> float:
+    """Median host ms of one call of ``fn`` over ``RUNS`` calls, each after
+    a synchronize: the time to enqueue, not to run (the host blocks only
+    where a call fills the launch queue or waits on the device)."""
+    times = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def run_segment(pipe, frames: np.ndarray) -> Tuple[float, Dict[str, float]]:
-    """One host-inclusive ``process_segment`` over ``frames``: its seconds,
-    and the seconds of each host stage of its ``StageTimer``."""
+    """One host-inclusive ``process_segment`` over ``frames`` at the
+    pipeline's batch size and ``chunk_batches``: its seconds, and the
+    seconds of each host stage of its ``StageTimer``."""
     from vr_video_generator_tpu_torch.runtime.segment import (StageTimer,
                                                               process_segment)
+    from vr_video_generator_tpu_torch.utils.logging import WorkerLog
 
     timer = StageTimer()
-    torch.cuda.synchronize()
+    # The worker log goes to a file, as the CLI's does, not to stdout.
+    log = WorkerLog(os.devnull)
+    _sync(pipe.device)
     t0 = time.perf_counter()
-    n = process_segment(pipe, MemoryReader(frames),
-                        CollectingWriter(keep=False, unpack=True), 0,
-                        len(frames), max_frame_count=15, batch_size=B,
-                        timer=timer)
-    torch.cuda.synchronize()
+    try:
+        n = process_segment(pipe, MemoryReader(frames),
+                            CollectingWriter(keep=False, unpack=True), 0,
+                            len(frames), max_frame_count=15,
+                            batch_size=pipe.run_cfg.batch_size, log=log,
+                            timer=timer)
+        _sync(pipe.device)
+    finally:
+        log.close()
     elapsed = time.perf_counter() - t0
     if n != len(frames):
         raise RuntimeError(f"process_segment wrote {n} of {len(frames)} frames")
@@ -252,23 +286,66 @@ def _union_us(intervals: List[tuple]) -> float:
     return busy
 
 
+def traced(fn: Callable[[], object], out_dir: str | None = None,
+           name: str = "trace.json"):
+    """``fn()`` under ``utils.profiling.trace``, synchronized at its end:
+    (its result, the Chrome trace's events, the profiler). The trace file
+    stays in ``out_dir`` when one is given."""
+    from vr_video_generator_tpu_torch.utils.profiling import trace
+
+    trace_dir = out_dir or tempfile.mkdtemp()
+    with trace(trace_dir, name) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, name), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    if not out_dir:
+        shutil.rmtree(trace_dir)
+    return result, events, prof
+
+
+def dispatch_costs(pipe, frames: np.ndarray, k: int) -> dict:
+    """Host ms of one call (:func:`host_ms`) against the work it enqueues,
+    for an eager ``step`` of one batch and, with ``k`` > 1, one
+    ``step_many`` of k batches (a graph replay, its frames and state
+    copied in and its outputs cloned out): the device kernels of one call
+    (a torch.profiler trace), the CUDA runtime calls that launch or copy,
+    by name, and the port's kernel launches (its LaunchCounters)."""
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+
+    batch = pipe.frames_to_device(frames[:B])
+    state = pipe.initial_state()
+    calls = {"step": lambda: pipe.step(batch, state)}
+    if k > 1:
+        stack = torch.stack([batch] * k)
+        calls[f"step_many k={k}"] = lambda: pipe.step_many(stack, state)
+    out = {}
+    for label, fn in calls.items():
+        fn()  # builds, caches, the capture
+        ms = host_ms(fn)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, events, _ = traced(fn)
+        runtime = Counter(e["name"] for e in events
+                          if e.get("cat") == "cuda_runtime" and any(
+                              w in e["name"] for w in ("Launch", "Memcpy",
+                                                       "Memset")))
+        out[label] = dict(
+            batches=k if label != "step" else 1, host_ms=ms,
+            device_kernels=sum(1 for e in events if e.get("cat") == "kernel"),
+            runtime_calls=dict(runtime),
+            port_launches={n: v for n, v in launch_counts().items() if v})
+    return out
+
+
 def traced_segment(pipe, frames: np.ndarray, out_dir: str | None,
                    top: int = 15) -> dict:
     """One ``process_segment`` under torch.profiler: the device's busy and
     idle share of the run's wall time, and the device time of the ``top``
     kernels and copies, by name."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        seconds, _ = run_segment(pipe, frames)
-    trace_dir = out_dir or tempfile.mkdtemp()
-    trace_path = os.path.join(trace_dir, "segment_trace.json")
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path, encoding="utf-8") as f:
-        events = json.load(f)["traceEvents"]
+    (seconds, _), events, prof = traced(lambda: run_segment(pipe, frames),
+                                        out_dir, "segment_trace.json")
     device = [e for e in events if "dur" in e and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     busy_s = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) * 1e-6
@@ -289,9 +366,6 @@ def traced_segment(pipe, frames: np.ndarray, out_dir: str | None,
         with open(os.path.join(out_dir, "segment_ops.txt"), "w",
                   encoding="utf-8") as f:
             f.write(table)
-    else:
-        os.remove(trace_path)
-        os.rmdir(trace_dir)
     ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(seconds=seconds, fps=len(frames) / seconds,
                 device_busy_s=busy_s, kernel_busy_s=kernel_busy_s,
@@ -320,15 +394,16 @@ def main(argv=None) -> int:
                     choices=["auto", "u8", "packed"],
                     help="device SBS emit (as the CLI; the warp is the "
                          "kernels' on the card)")
+    ap.add_argument("--chunk_batches", type=int, default=1,
+                    help="the segment and trace phases dispatch chunks of "
+                         "this many full batches through step_many (as the "
+                         "CLI)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_bench: no CUDA device", file=sys.stderr)
         return 2
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
-
-    from vr_video_generator_tpu_torch.kernels import (launch_counts,
-                                                       reset_launch_counts)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -340,20 +415,24 @@ def main(argv=None) -> int:
     cfg = RunConfig(encoder=opts.encoder, batch_size=B,
                     compute_dtype="bfloat16", input_size=opts.input_size,
                     mlp_fused=opts.mlp_fused, tail=opts.tail,
-                    sbs_output=opts.sbs_output)
+                    sbs_output=opts.sbs_output,
+                    chunk_batches=opts.chunk_batches)
     label = (f"1080p {opts.encoder} --input_size {opts.input_size} bf16 B={B} "
              f"mlp_fused={opts.mlp_fused} tail={opts.tail} "
-             f"sbs_output={opts.sbs_output}")
+             f"sbs_output={opts.sbs_output} chunk_batches={opts.chunk_batches}")
     print(label, flush=True)
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
                               seed=SEED)
     rng = np.random.default_rng(SEED)
     frames = rng.integers(0, 256, (FRAMES, H, W, 3), dtype=np.uint8)
     scaler = calibrate_random_scaler(pipe, frames[:B])
-    reset_launch_counts()
-    run_segment(pipe, frames[:2 * B])  # warm-up: kernels built, buffers pinned
-    launches = {k: v // 2 for k, v in launch_counts().items() if v}
+    # Warm-up: kernels built, buffers pinned; with chunks, each chunk size
+    # the runs take captured.
+    run_segment(pipe, frames if opts.chunk_batches > 1 else frames[:2 * B])
+    dispatch = dispatch_costs(pipe, frames, opts.chunk_batches)
+    launches = dispatch["step"]["port_launches"]
     print(f"launches per step: {json.dumps(launches)}", flush=True)
+    print(f"dispatch: {json.dumps(dispatch)}", flush=True)
 
     step_ms = [step_rate(pipe, frames[:B]) for _ in range(REPEATS)]
     print(f"step: {step_ms} ms per {B}-frame step", flush=True)
@@ -371,7 +450,7 @@ def main(argv=None) -> int:
               f"{r['op'][:100]}", flush=True)
     print(json.dumps(dict(
         card=card, config=label, launches_per_step=launches,
-        depth_scaler=scaler,
+        depth_scaler=scaler, dispatch=dispatch,
         step_ms=step_ms, step_fps=[B * 1e3 / ms for ms in step_ms],
         stages_ms=stages, stages_sum_ms=sum(stages.values()),
         segment_frames=FRAMES, segment_s=seg_s,

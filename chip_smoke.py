@@ -70,7 +70,23 @@ Phases, each fatal on failure:
      writing the same bytes at ``--chunk_batches`` 3 and 1; a
      ``utils.profiling.trace`` of a replay; and the port's ``bench
      --config 2 --chunk_batches 4`` once, cut to 2 repeats, its JSON line
-     printed.
+     printed;
+  6. ``--depth_stride`` at vits ``auto`` (1080p, batch 8, input 518, bf16,
+     the calibrated scaler): the stride-2 path through ``process_segment``
+     (exactly its kernels launched, no host sync in a step, the right half
+     the input, the SBS the plain warp of its own depth, the anchors' depth
+     held against the plain versions and f32 with phase 4's bounds); the
+     depth net at batch 4, 2 and 1 (strides 2, 4, 8) against the rows of
+     batch 8 (phase 4's mean bound; whether each is bit-equal, and where
+     not the first module that differs); ``step_audited`` equal to a
+     stride-1 step bit for bit and its stats to ``stride_audit``'s, which
+     leaves the state as it was; ``step_many`` at k = 3 equal to 3 eager
+     steps, anchor_prev included; the adaptive segment loop over 48 frames
+     at ``stride_max_rms`` 1e-30 (the stride-1 bytes) and 1e30 with a probe
+     every 2 batches (the probe schedule's bytes), at ``chunk_batches`` 1
+     and 3; ``convert_range`` over ranges off the stride grid equal to the
+     full run's frames; and the port's ``bench --config 2 --depth_stride
+     2`` once, cut to 2 repeats, its JSON line printed.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -1763,9 +1779,13 @@ def main_path(device, rng):
 
 
 def states_equal(a, b) -> bool:
+    """Every field of two TemporalStates equal, dtype and bits; anchor_prev
+    (None at depth_stride 1) included."""
     import torch
 
-    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    return all((x is None and y is None)
+               or (x is not None and y is not None and x.dtype == y.dtype
+                   and torch.equal(x, y)) for x, y in zip(a, b))
 
 
 def step_many_path(device, rng) -> dict:
@@ -1890,6 +1910,300 @@ def step_many_path(device, rng) -> dict:
                 trace_kernels=kernels, bench=line)
 
 
+def first_divergence(pipe, frames, s):
+    """The first module of the depth net, in call order, whose output on
+    the anchors ``frames[s-1::s]`` (depth batch B/s) differs from its
+    output rows s-1, 2s-1, ... on all of ``frames`` (depth batch B), with
+    the largest difference; None when every module's output is equal."""
+    import torch
+
+    full_rows, found, seen = {}, [], {}
+
+    def record(name):
+        def hook(_mod, _inp, out):
+            if isinstance(out, torch.Tensor) and out.shape[0] == len(frames):
+                full_rows.setdefault(name, []).append(out[s - 1::s].clone())
+        return hook
+
+    def compare(name):
+        def hook(_mod, _inp, out):
+            if not isinstance(out, torch.Tensor) or found \
+                    or out.shape[0] != len(frames) // s:
+                return
+            i = seen[name] = seen.get(name, -1) + 1
+            want = full_rows.get(name, [])
+            if i < len(want) and not torch.equal(out, want[i]):
+                found.append((name, float((out.float() - want[i].float())
+                                          .abs().max())))
+        return hook
+
+    for hook_of, batch in ((record, frames), (compare, frames[s - 1::s])):
+        handles = [m.register_forward_hook(hook_of(n))
+                   for n, m in pipe.model.named_modules() if n]
+        try:
+            pipe.depth_only(batch)
+        finally:
+            for h in handles:
+                h.remove()
+    return found[0] if found else None
+
+
+def stride_path(device, rng) -> dict:
+    """Phase 6: ``--depth_stride`` at vits ``auto``, 1080p, batch 8, input
+    518, bf16, numpy-seeded weights with the calibrated scaler: (a) the
+    stride-2 path through ``process_segment`` (exactly ``AUTO_VITS``
+    launched, no host sync in a step, the right half the input, the SBS
+    the plain warp of its own depth, the anchors' depth held against the
+    plain versions and f32 with phase 4's bounds); (b) the depth batches of
+    strides 2, 4, 8 (B/s = 4, 2, 1) against the rows of batch 8; (c)
+    ``step_audited`` against a stride-1 step and ``stride_audit``; (d)
+    ``step_many`` at stride 2 against eager steps; (e) the adaptive segment
+    loop at both extreme thresholds; (f) repair ranges off the stride grid
+    through ``convert_range``; (g) ``bench --config 2 --depth_stride 2``."""
+    import tempfile
+
+    import torch
+
+    from vr_video_generator_tpu_torch import bench
+    from vr_video_generator_tpu_torch.models.factory import random_state_dict
+    from vr_video_generator_tpu_torch.ops.temporal import (stride_interpolate,
+                                                           temporal_scan)
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    out = {}
+    label = "vits auto/auto depth_stride 2"
+    cfg = dataclasses.replace(run_config("vits", "auto", "auto"),
+                              depth_stride=2)
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    frames = rng.integers(0, 256, (6 * B, H, W, 3), dtype=np.uint8)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    pipe32 = make_pipe(device, dataclasses.replace(cfg,
+                                                   compute_dtype="float32"), sd)
+    del sd
+    pipe32.model.cfg = pipe.model.cfg
+    model = pipe.model
+
+    def variant(**kw):
+        return type(pipe)(model, H, W, run_cfg=dataclasses.replace(
+            cfg, **kw))
+
+    # (a) the stride-2 step: no host sync, its launches, its output.
+    t0 = time.perf_counter()
+    _, st = pipe.step(frames[:B], pipe.initial_state())
+    on_device = pipe.frames_to_device(frames[B:2 * B])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step(on_device, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts, writer, n, secs = drive(pipe, frames[:3 * B], B)
+    launched_exactly(label, counts, AUTO_VITS)
+    check_output(writer, n, frames[:3 * B])
+    batch = pipe.frames_to_device(frames[:B])
+    state0 = pipe.initial_state()
+    sbs, _ = pipe.step(batch, state0)
+    with torch.inference_mode():
+        anchors = batch[1::2]
+        depth_a = pipe.depth_only(anchors)
+        depth, _ = stride_interpolate(depth_a, state0, 2)
+        blended, ranges, _ = temporal_scan(depth, state0, pipe.spec)
+        plain_sbs = pipe.spec.warp_batch_plain(batch, blended, ranges)
+    n_bad = int((sbs != plain_sbs).sum())
+    require(n_bad == 0, f"{label}: step SBS differs from the plain warp of "
+            f"its own depth in {n_bad} values")
+    out["a"] = dict(frames=n, seconds=secs, launches=counts, **depth_agreement(
+        f"{label} anchors", pipe, pipe32, anchors, depth_a))
+    log(f"{label}: no host sync in a step; {n} frames in {secs:.4f} s, "
+        f"launch counts {json.dumps(counts)}; SBS equal to the plain warp of "
+        f"its own depth; (a) {time.perf_counter() - t0:.1f} s")
+    del pipe32
+
+    # (b) the depth net at batch B/s against the rows of batch B.
+    t0 = time.perf_counter()
+    full = pipe.depth_only(batch)
+    span = float(full.max() - full.min())
+    out["b"] = {}
+    for s in (2, 4, 8):
+        sub = pipe.depth_only(batch[s - 1::s])
+        want = full[s - 1::s]
+        diff = (sub - want).abs()
+        bit_equal = bool(torch.equal(sub, want))
+        where = None if bit_equal else first_divergence(pipe, batch, s)
+        out["b"][s] = dict(depth_batch=B // s, bit_equal=bit_equal,
+                           mean_abs=float(diff.mean()),
+                           max_abs=float(diff.max()), first_diff=where)
+        log(f"{label}: depth at batch {B // s} (stride {s}) against batch "
+            f"{B}'s rows: bit-equal {bit_equal}, mean |diff| "
+            f"{float(diff.mean()):.3g}, max {float(diff.max()):.3g} (range "
+            f"{span:.4g})" + ("" if bit_equal else
+                              f"; first module that differs: {where}"))
+        require(float(diff.mean()) <= DEPTH_REL * span,
+                f"{label}: depth at batch {B // s} is off batch {B}'s rows by "
+                f"{float(diff.mean())} on average (limit {DEPTH_REL} x range "
+                f"{span})")
+    log(f"(b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) step_audited against a stride-1 step on the same weights, batch
+    # and state; stride_audit on the same batch and state, read-only.
+    t0 = time.perf_counter()
+    p1 = variant(depth_stride=1)
+    _, warm = pipe.step(frames[:B], pipe.initial_state())
+    batch2 = pipe.frames_to_device(frames[B:2 * B])
+    before = warm.map(torch.clone)
+    rms_r, mx_r = pipe.stride_audit(batch2, warm)
+    require(states_equal(warm, before), f"{label}: stride_audit changed the "
+            f"state")
+    want_sbs, want_st = p1.step(batch2, warm._replace(anchor_prev=None))
+    sbs_a, st_a, rms, mx = pipe.step_audited(batch2, warm)
+    require(torch.equal(sbs_a, want_sbs), f"{label}: step_audited's SBS "
+            f"differs from the stride-1 step's")
+    require(states_equal(st_a._replace(anchor_prev=None), want_st),
+            f"{label}: step_audited's state differs from the stride-1 step's")
+    require((rms, mx) == (rms_r, mx_r), f"{label}: step_audited's stats "
+            f"({rms}, {mx}) differ from stride_audit's ({rms_r}, {mx_r})")
+    out["c"] = dict(rms=rms, max=mx)
+    log(f"{label}: step_audited SBS and state equal to a stride-1 step bit "
+        f"for bit; rms {rms:.6g} and max {mx:.6g} equal to stride_audit's; "
+        f"stride_audit read-only; (c) {time.perf_counter() - t0:.1f} s")
+
+    # (d) the graph of k = 3 stride-2 steps against eager steps.
+    t0 = time.perf_counter()
+    k = 3
+    chunk = torch.from_numpy(frames[:k * B].reshape(k, B, H, W, 3)).to(device)
+    eager, st_e = [], pipe.initial_state()
+    for b_ in chunk:
+        o, st_e = pipe.step(b_, st_e)
+        eager.append(o)
+    got, st_g = pipe.step_many(chunk, pipe.initial_state())
+    got2, st_g2 = pipe.step_many(chunk, pipe.initial_state())
+    for g_outs, g_st in ((got, st_g), (got2, st_g2)):
+        require(all(torch.equal(x, y) for x, y in zip(g_outs, eager)),
+                f"{label}: step_many's SBS differs from the eager steps'")
+        require(states_equal(g_st, st_e), f"{label}: step_many's state "
+                f"(anchor_prev included) differs from the eager steps'")
+    graph = pipe._graphs.get((k, B))
+    require(graph is not None or device.type != "cuda",
+            f"{label}: step_many captured no graph")
+    out["d"] = dict(k=k, launches_per_replay=graph and dict(graph.launches))
+    log(f"{label}: step_many k={k} equal to {k} eager steps bit for bit, "
+        f"SBS and state with anchor_prev, capture and replay; (d) "
+        f"{time.perf_counter() - t0:.1f} s")
+    del chunk, eager, got, got2
+
+    # (e) the segment loop over 48 frames at both extreme thresholds.
+    t0 = time.perf_counter()
+    seg = frames[:6 * B]
+    _, w1, _, _ = drive(p1, seg, B)
+    parity = np.stack(w1.frames)
+    high_ref, st_h = [], pipe.initial_state()
+    for i in range(6):
+        b_ = seg[i * B:(i + 1) * B]
+        if i % 2 == 0:
+            o, st_h, _, _ = pipe.step_audited(b_, st_h)
+        else:
+            o, st_h = pipe.step(b_, st_h)
+        high_ref.append(o.cpu().numpy())
+    high_ref = np.concatenate(high_ref)
+    out["e"] = {}
+    for chunk_k in (1, 3):
+        for name, kw, want in (
+                ("rms 1e-30", dict(stride_max_rms=1e-30), parity),
+                ("rms 1e30 every 2", dict(stride_max_rms=1e30,
+                                          stride_audit_every=2), high_ref)):
+            p = variant(chunk_batches=chunk_k, **kw)
+            counts, wr, n, secs = drive(p, seg, B)
+            launched_exactly(f"{label} {name}", counts, AUTO_VITS)
+            check_output(wr, n, seg)
+            require(np.array_equal(np.stack(wr.frames), want),
+                    f"{label}: the adaptive loop ({name}, chunk_batches "
+                    f"{chunk_k}) wrote other bytes than its reference")
+            out["e"][f"{name} K={chunk_k}"] = dict(seconds=secs)
+            del p, wr
+    log(f"{label}: adaptive segment loop, 48 frames: stride_max_rms 1e-30 "
+        f"writes the stride-1 bytes, 1e30 with a probe every 2 batches the "
+        f"probe schedule's (step_audited on batches 0, 2, 4), at "
+        f"chunk_batches 1 and 3; (e) {time.perf_counter() - t0:.1f} s")
+    del parity, high_ref, w1
+
+    # (f) repair ranges off the stride grid, warm-ups reaching frame 0.
+    t0 = time.perf_counter()
+    import cv2
+
+    from vr_video_generator_tpu_torch.runtime import orchestrator
+    from vr_video_generator_tpu_torch.video import writer as writer_mod
+    from vr_video_generator_tpu_torch.video.reader import VideoReader
+
+    with tempfile.TemporaryDirectory() as d:
+        video = os.path.join(d, "in.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                             (W, H))
+        for f in frames[:3 * B]:
+            vw.write(f[:, :, ::-1])
+        vw.release()
+        with VideoReader(video, begin=0, backend="cv2") as r:
+            decoded = np.stack(list(r.frames(0, 3 * B)))
+        full_run, st_f = [], pipe.initial_state()
+        for i in range(3):
+            o, st_f = pipe.step(decoded[i * B:(i + 1) * B], st_f)
+            full_run.append(o.cpu().numpy())
+        full_run = np.concatenate(full_run)
+        clips = {}
+
+        class Capture:
+            def __init__(self, *a, **kw):
+                pass
+
+            def write_clip(self, begin, fr):
+                clips[begin] = np.stack(fr)
+
+            def wait(self):
+                pass
+
+            def close(self):
+                pass
+
+        real_writer = writer_mod.SubclipWriter
+        writer_mod.SubclipWriter = Capture
+        try:
+            for lo, hi, warmup in ((9, 15, 8), (17, 23, 16)):
+                rcfg = dataclasses.replace(
+                    cfg, video_dir=video, debug_dir=d + os.sep,
+                    subclip_dir=d + os.sep, warmup_frames=warmup,
+                    reader_backend="cv2", max_frame_count=30)
+                clips.clear()
+                n = orchestrator.convert_range(rcfg, lo, hi, pipeline=pipe)
+                require(n == hi - lo and list(clips) == [lo],
+                        f"{label}: convert_range [{lo}, {hi}) wrote {n} "
+                        f"frames in clips {sorted(clips)}")
+                require(np.array_equal(clips[lo], full_run[lo:hi]),
+                        f"{label}: convert_range [{lo}, {hi}) differs from "
+                        f"the full run's frames")
+        finally:
+            writer_mod.SubclipWriter = real_writer
+    out["f"] = dict(ranges=[[9, 15, 8], [17, 23, 16]])
+    log(f"{label}: convert_range over [9, 15) and [17, 23) (off the stride "
+        f"grid at both ends; warm-ups of 8 and 16 frames from frame 0) equal "
+        f"to the full run's frames bit for bit; (f) "
+        f"{time.perf_counter() - t0:.1f} s")
+    del pipe, p1, model, full_run, decoded, graph
+    torch.cuda.empty_cache()
+
+    # (g) the port's bench at stride 2.
+    t0 = time.perf_counter()
+    line = bench.run_config(2, reps=2, segment_batches=8, depth_stride=2)
+    print(json.dumps(line), flush=True)
+    require(line["value"] > 0 and line["host_fps"] > 0
+            and line["metric"].endswith("_stride2"),
+            f"bench --config 2 --depth_stride 2: {line}")
+    out["g"] = line
+    log(f"bench --config 2 --depth_stride 2 --reps 2 --segment_batches 8: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["depth_scaler"] = scaler
+    return out
+
+
 def depth_agreement(label, pipe, pipe32, batch, depth):
     """Depth through the kernels (bf16) against the plain versions in bf16
     and in f32, on the same weights and frames."""
@@ -1987,6 +2301,10 @@ def main() -> int:
     paths["vits auto/auto step_many"] = step_many_path(device, rng)
     log(f"phase 5 (step_many, chunked segment, trace, bench): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["vits auto/auto depth_stride"] = stride_path(device, rng)
+    log(f"phase 6 (depth stride, audit, adaptive loop, repair ranges, "
+        f"bench): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's

@@ -5,6 +5,8 @@ without a GPU. On a GPU machine (no JAX needed):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -843,15 +845,24 @@ def test_cli_f32_on_the_card_raises(cuda, tmp_path):
 
 
 def _graph_pipe(cuda, mlp_fused="auto", h=150, w=96, batch=2, chunk=1,
-                sbs_output="auto"):
+                sbs_output="auto", input_size=56, **kw):
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
     cfg = RunConfig(encoder="vits", batch_size=batch, compute_dtype="bfloat16",
-                    mlp_fused=mlp_fused, tail=mlp_fused, input_size=56,
+                    mlp_fused=mlp_fused, tail=mlp_fused, input_size=input_size,
                     chunk_batches=chunk, sbs_output=sbs_output,
-                    warp_impl="pallas" if sbs_output == "packed" else "auto")
+                    warp_impl="pallas" if sbs_output == "packed" else "auto",
+                    **kw)
     return SbsPipeline.create(cfg, h, w, allow_random=True, device=cuda)
+
+
+def _states_equal(a, b):
+    """Every field equal, dtype and bits (chip_smoke.py's check):
+    anchor_prev is None at depth_stride 1."""
+    from chip_smoke import states_equal
+
+    return states_equal(a, b)
 
 
 def _eager(pipe, chunk, state):
@@ -898,8 +909,7 @@ def test_step_many_graph_equals_eager_steps(cuda, mlp_fused, sbs_output):
         for g, e in zip(got, want):
             assert g.dtype == e.dtype and torch.equal(g, e)
     for a, b in ((st1, st), (st2, st_want2)):
-        for x, y in zip(a, b):
-            assert x.dtype == y.dtype and torch.equal(x, y)
+        assert _states_equal(a, b)
     assert all(torch.equal(a, b) for a, b in zip(got1, keep))
     assert not any(o.data_ptr() == s.data_ptr()
                    for o in got2 for s in graph.outs)
@@ -915,7 +925,7 @@ def test_step_many_graph_at_1080p(cuda):
     want, st = _eager(pipe, chunk, state0)
     got, st_g = pipe.step_many(chunk, state0)
     assert all(torch.equal(g, e) for g, e in zip(got, want))
-    assert all(torch.equal(x, y) for x, y in zip(st_g, st))
+    assert _states_equal(st_g, st)
 
 
 @pytest.mark.parametrize("chunk", [2, 3])
@@ -974,6 +984,113 @@ def test_trace_records_device_kernels(cuda, tmp_path):
     with open(tmp_path / "t.json", encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.parametrize("stride", [2, 4, 8])
+def test_stride_step_at_1080p(cuda, stride):
+    """vits auto at 1080p, batch 8, input 518, depth_stride 2, 4 and 8
+    (depth batches 4, 2, 1): two steps from the cold start, each with the
+    right half equal to the input and the SBS equal to the plain warp of
+    its own depth (the anchors' depth lerped, ops.temporal), the carried
+    anchor the last anchor's depth, bit for bit."""
+    from vr_video_generator_tpu_torch.ops.temporal import (stride_interpolate,
+                                                           temporal_scan)
+
+    pipe = _graph_pipe(cuda, h=1080, w=1920, batch=8, input_size=518,
+                       depth_stride=stride)
+    frames = torch.from_numpy(np.random.default_rng(stride).integers(
+        0, 256, (16, 1080, 1920, 3), dtype=np.uint8)).to(cuda)
+    st = pipe.initial_state()
+    for i in range(2):
+        batch = frames[8 * i:8 * i + 8]
+        sbs, st_next = pipe.step(batch, st)
+        assert torch.equal(sbs[:, :, 1920:], batch)
+        with torch.inference_mode():
+            anchors = pipe.depth_only(batch[stride - 1::stride])
+            depth, last = stride_interpolate(anchors, st, stride)
+            blended, ranges, _ = temporal_scan(depth, st, pipe.spec)
+            plain = pipe.spec.warp_batch_plain(batch, blended, ranges)
+        assert torch.equal(sbs, plain)
+        assert torch.equal(st_next.anchor_prev, last)
+        st = st_next
+
+
+def test_step_audited_equals_stride_1_step(cuda):
+    """step_audited at stride 2 against the stride-1 step on the same
+    weights, batch and (warm) state: the SBS and the state bit for bit, the
+    stats equal to stride_audit's, which leaves the state as it was."""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    pipe = _graph_pipe(cuda, batch=4, depth_stride=2)
+    p1 = SbsPipeline(pipe.model, 150, 96, run_cfg=dataclasses.replace(
+        pipe.run_cfg, depth_stride=1))
+    frames = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (8, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    _, warm = pipe.step(frames[:4], pipe.initial_state())
+    before = warm.map(torch.clone)
+    rms_r, mx_r = pipe.stride_audit(frames[4:], warm)
+    assert _states_equal(warm, before)
+    want, want_st = p1.step(frames[4:], warm._replace(anchor_prev=None))
+    sbs, st, rms, mx = pipe.step_audited(frames[4:], warm)
+    assert torch.equal(sbs, want)
+    assert _states_equal(st._replace(anchor_prev=None), want_st)
+    assert (rms, mx) == (rms_r, mx_r) and mx >= rms > 0
+
+
+def test_stride_graph_equals_eager_steps(cuda):
+    """step_many at stride 2 (a CUDA graph of k = 3 steps, a 6-tensor
+    state) against 3 eager steps, bit for bit, the SBS and every state
+    field with anchor_prev, on two calls."""
+    pipe = _graph_pipe(cuda, batch=4, depth_stride=2)
+    rng = np.random.default_rng(12)
+    state = pipe.initial_state()
+    assert state.anchor_prev is not None
+    for _ in range(2):
+        chunk = torch.from_numpy(rng.integers(0, 256, (3, 4, 150, 96, 3),
+                                              dtype=np.uint8)).to(cuda)
+        want, st_want = _eager(pipe, chunk, state)
+        got, st_got = pipe.step_many(chunk, state)
+        assert all(torch.equal(g, e) for g, e in zip(got, want))
+        assert _states_equal(st_got, st_want)
+        state = st_got
+    assert list(pipe._graphs) == [(3, 4)]
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_adaptive_segment_extremes_on_the_card(cuda, chunk):
+    """process_segment over 24 frames at batch 4, stride 2: stride_max_rms
+    1e-30 (always full depth) writes the stride-1 run's bytes;
+    1e30 with a probe every 2 batches writes the probe schedule's
+    (step_audited on batches 0, 2 and 4, step on the others)."""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.runtime.segment import process_segment
+    from vr_video_generator_tpu_torch.stage_bench import (CollectingWriter,
+                                                          MemoryReader)
+
+    base = _graph_pipe(cuda, batch=4, depth_stride=2)
+    frames = np.random.default_rng(13).integers(0, 256, (24, 150, 96, 3),
+                                                dtype=np.uint8)
+
+    def segment(**kw):
+        pipe = SbsPipeline(base.model, 150, 96, run_cfg=dataclasses.replace(
+            base.run_cfg, chunk_batches=chunk, **kw))
+        writer = CollectingWriter()
+        assert process_segment(pipe, MemoryReader(frames), writer, 0, 24,
+                               max_frame_count=5, batch_size=4) == 24
+        return np.stack(writer.frames)
+
+    np.testing.assert_array_equal(segment(stride_max_rms=1e-30),
+                                  segment(depth_stride=1))
+    st, want = base.initial_state(), []
+    for i in range(6):
+        if i % 2 == 0:
+            sbs, st, _, _ = base.step_audited(frames[4 * i:4 * i + 4], st)
+        else:
+            sbs, st = base.step(frames[4 * i:4 * i + 4], st)
+        want.append(sbs.cpu().numpy())
+    np.testing.assert_array_equal(
+        segment(stride_max_rms=1e30, stride_audit_every=2),
+        np.concatenate(want))
 
 
 def test_step_many_capture_failure_raises(cuda, monkeypatch):

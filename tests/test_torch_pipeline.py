@@ -341,12 +341,25 @@ def test_cuda_device_without_gpu_raises():
     ("gelu", "tanh", "UI impl switches"),
 ])
 def test_unported_run_options_raise(field, value, item, pipe, frames):
-    """depth_stride > 1 and the tanh GELU raise not_ported. chunk_batches >
-    1 is ported (step_many): it passes the check, and a pipeline built
-    with it runs a chunk of two batches as two steps do."""
+    """The tanh GELU raises not_ported. chunk_batches > 1 is ported
+    (step_many): it passes the check, and a pipeline built with it runs a
+    chunk of two batches as two steps do. depth_stride 2 is ported: it
+    passes the check (it divides the batch of 4), 3 raises the JAX
+    package's ValueError, and a stride-2 pipeline's two batches of 2 equal
+    one batch of 4."""
     import dataclasses
 
     cfg = dataclasses.replace(CFG, **{field: value})
+    if item == "depth_stride":
+        check_supported(cfg)
+        with pytest.raises(ValueError, match="must divide batch_size"):
+            check_supported(dataclasses.replace(cfg, depth_stride=3))
+        strided = SbsPipeline(pipe.model, H, W, run_cfg=cfg)
+        whole, _ = strided.step(frames[:BATCH], strided.initial_state())
+        a, st = strided.step(frames[:2], strided.initial_state())
+        b, _ = strided.step(frames[2:BATCH], st)
+        np.testing.assert_array_equal(whole.numpy(), torch.cat([a, b]).numpy())
+        return
     if item != "step_many":
         with pytest.raises(NotImplementedError, match=item):
             check_supported(cfg)
@@ -408,14 +421,16 @@ def test_unported_fused_combinations_raise(overrides, kernel):
     (["--repair_mode", "3"], "repair modes 1 and 3"),
 ])
 def test_unported_cli_options_raise(argv, item, tmp_path):
-    """--mesh and repair modes 1 and 3 raise not_ported. --profile_dir is
-    ported: a conversion with it writes its torch.profiler trace into the
-    directory."""
+    """--mesh raises not_ported. --profile_dir is ported: a conversion with
+    it writes its torch.profiler trace into the directory. Repair modes 1
+    and 3 are ported: mode 1 converts into the subclip dir, keeps the debug
+    dir and combines nothing; mode 3, after it, clears the debug dir and
+    combines the subclips, video only."""
     from vr_video_generator_tpu_torch.cli import main
 
     dirs = ["--DebugDir", str(tmp_path / "D") + "/",
             "--SubClipDir", str(tmp_path / "S") + "/"]
-    if item != "profiling":
+    if item == "multi-GPU":
         with pytest.raises(NotImplementedError, match=item):
             main(["--device", "cpu", *dirs, *argv])
         return
@@ -425,13 +440,27 @@ def test_unported_cli_options_raise(argv, item, tmp_path):
     for i in range(5):
         w.write(np.full((48, 64, 3), 40 * i, np.uint8))
     w.release()
-    trace_dir = tmp_path / argv[1]
-    assert main(["--device", "cpu", *dirs, "--profile_dir", str(trace_dir),
-                 "--VideoDir", src, "--OutputDir", str(tmp_path / "o.mkv"),
-                 "--batch_size", "4", "--input_size", "56",
-                 "--compute_dtype", "float32", "--mlp_fused", "xla",
-                 "--tail", "xla", "--allow_random_weights"]) == 0
-    assert [f.endswith(".json") for f in os.listdir(trace_dir)] == [True]
+    run = ["--device", "cpu", *dirs, "--VideoDir", src,
+           "--OutputDir", str(tmp_path / "o.mkv"), "--batch_size", "4",
+           "--input_size", "56", "--compute_dtype", "float32",
+           "--mlp_fused", "xla", "--tail", "xla", "--allow_random_weights"]
+    if item == "profiling":
+        trace_dir = tmp_path / argv[1]
+        assert main([*run, "--profile_dir", str(trace_dir)]) == 0
+        assert [f.endswith(".json") for f in os.listdir(trace_dir)] == [True]
+        return
+    os.makedirs(tmp_path / "D")
+    (tmp_path / "D" / "earlier.txt").write_text("kept by mode 1")
+    assert main([*run, "--repair_mode", "1"]) == 0
+    assert sorted(os.listdir(tmp_path / "S")) == ["0_4.mp4"]
+    assert (tmp_path / "D" / "earlier.txt").exists()
+    assert not (tmp_path / "o.mkv").exists()
+    if argv[1] == "3":
+        assert main([*run, "--repair_mode", "3"]) == 0
+        assert not (tmp_path / "D" / "earlier.txt").exists()
+        cap = cv2.VideoCapture(str(tmp_path / "o.mkv"))
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 5
+        cap.release()
 
 
 def test_unported_entry_points_raise(pipe, frames):
@@ -468,6 +497,8 @@ def test_port_imports_no_jax():
             "vr_video_generator_tpu_torch.stage_bench, "
             "vr_video_generator_tpu_torch.attention_bench, "
             "vr_video_generator_tpu_torch.bench, "
+            "vr_video_generator_tpu_torch.checktool, "
+            "vr_video_generator_tpu_torch.stride_study, "
             "vr_video_generator_tpu_torch.utils.profiling, "
             "vr_video_generator_tpu_torch.utils.benchlib; "
             "spec = importlib.util.spec_from_file_location('chip_smoke', "

@@ -33,7 +33,8 @@ TINY = ModelConfig(encoder="vits", embed_dim=128, depth=2, num_heads=2,
 H, W, BATCH, K = 150, 96, 4, 3
 CFG = RunConfig(batch_size=BATCH, input_size=56, compute_dtype="float32",
                 mlp_fused="xla", tail="xla")
-FIELDS = ("d_prev1", "d_prev2", "offset_range", "has_state", "overflow")
+FIELDS = ("d_prev1", "d_prev2", "offset_range", "has_state", "overflow",
+          "anchor_prev")
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +70,9 @@ def _assert_states_equal(a, b):
     assert a._fields == FIELDS
     for name in FIELDS:
         x, y = getattr(a, name), getattr(b, name)
+        if name == "anchor_prev":  # None at depth_stride 1
+            assert x is None and y is None
+            continue
         assert x.dtype == y.dtype, name
         np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=name)
 
@@ -146,14 +150,16 @@ def test_step_many_matches_jax_step_many(pipe, weights, frames):
 @pytest.mark.parametrize("chunk", [2, 3, 8])
 def test_check_supported_lets_chunks_through(chunk):
     """--chunk_batches > 1 is ported; 0 is refused as the JAX package
-    refuses it, and depth_stride > 1 still raises not_ported."""
+    refuses it. With it, depth_stride 2 passes (it divides the batch of
+    4) and depth_stride 3 raises the JAX package's ValueError."""
     check_supported(dataclasses.replace(CFG, chunk_batches=chunk))
     with pytest.raises(ValueError, match="chunk_batches"):
         check_supported(dataclasses.replace(CFG, chunk_batches=0))
-    with pytest.raises(NotImplementedError,
-                       match="depth_stride and the stride audit"):
+    check_supported(dataclasses.replace(CFG, chunk_batches=chunk,
+                                        depth_stride=2))
+    with pytest.raises(ValueError, match="must divide batch_size"):
         check_supported(dataclasses.replace(CFG, chunk_batches=chunk,
-                                            depth_stride=2))
+                                            depth_stride=3))
 
 
 class _Reader:

@@ -3,7 +3,7 @@
 Run from the root of a checkout:
 
     python3 -m vr_video_generator_tpu_torch.bench [--config N]
-        [--chunk_batches K] [--device cuda|cpu]
+        [--chunk_batches K] [--depth_stride S] [--device cuda|cpu]
 
 The counterpart of the root ``bench.py``, at its configurations (``CONFIGS``,
 a copy of its table): the encoder, geometry, batch and offset step of
@@ -11,9 +11,11 @@ config N (default 2: vits, 1080p, batch 8), bf16, ``--input_size`` 518,
 numpy-seeded random weights with the depth scaler calibrated on the first
 batch (``stage_bench.calibrate_random_scaler``), and the CLI's defaults
 otherwise (``--mlp_fused auto --tail auto``, u8 output, PyTorch's own
-numeric settings). ``--device cpu`` shrinks to the root bench's smoke
-geometry (vits, 270 x 480, input 126, batch 2, f32) and its two steps a
-chain. It measures two rates:
+numeric settings). ``--depth_stride S`` runs the depth net on every S-th
+frame (as the root bench's flag; the metric gets ``_stride<S>``); a config
+whose batch S does not divide is skipped with a message. ``--device cpu``
+shrinks to the root bench's smoke geometry (vits, 270 x 480, input 126,
+batch max(2, S), f32) and its two steps a chain. It measures two rates:
 
 * device-resident frames/s: ``--steps`` chained steps on one batch already
   on the device, its SBS and state feeding a device checksum that the next
@@ -74,8 +76,8 @@ class Chain:
 
 
 def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
-               steps: int = 0, reps: int = 6,
-               segment_batches: int = 12) -> dict:
+               steps: int = 0, reps: int = 6, segment_batches: int = 12,
+               depth_stride: int = 1) -> dict:
     """The JSON line of one configuration; ``steps`` 0 is 8 on the card
     and 2 on the CPU, rounded up to whole chunks."""
     from vr_video_generator_tpu_torch import RunConfig
@@ -87,11 +89,11 @@ def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
     on_card = torch.device(device).type == "cuda"
     encoder, h, w, b, step = CONFIGS[config]
     if not on_card:
-        encoder, h, w, b = "vits", 270, 480, 2
+        encoder, h, w, b = "vits", 270, 480, max(2, depth_stride)
     cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
                     input_size=518 if on_card else 126,
                     compute_dtype="bfloat16" if on_card else "float32",
-                    chunk_batches=chunk_batches)
+                    chunk_batches=chunk_batches, depth_stride=depth_stride)
     pipe = SbsPipeline.create(cfg, h, w, allow_random=True, device=device,
                               seed=SEED)
     frames = np.random.default_rng(SEED).integers(
@@ -107,9 +109,11 @@ def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
 
     run_segment(pipe, frames)  # warm-up: kernels built, graphs captured
     host = [len(frames) / run_segment(pipe, frames)[0] for _ in range(reps)]
-    return {"metric": f"torch_sbs_fps_{h}p_{encoder}", "value": fps,
+    tag = f"_stride{depth_stride}" if depth_stride > 1 else ""
+    return {"metric": f"torch_sbs_fps_{h}p_{encoder}{tag}", "value": fps,
             "unit": "frames/s", "vs_baseline": fps / BASELINE_FPS,
             "host_fps": max(host), "chunk_batches": k,
+            "depth_stride": depth_stride,
             "card": card_line() if on_card else None,
             "config": config, "device": str(pipe.device),
             "steps": calls * k, "reps": reps,
@@ -122,6 +126,9 @@ def main(argv=None) -> int:
     ap.add_argument("--config", type=int, default=2, choices=sorted(CONFIGS))
     ap.add_argument("--chunk_batches", type=int, default=1,
                     help="steps a step_many call takes (1: step)")
+    ap.add_argument("--depth_stride", type=int, default=1,
+                    help="run the depth net on every S-th frame (1: every "
+                         "frame)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu runs the root bench's smoke geometry")
     ap.add_argument("--steps", type=int, default=0,
@@ -134,8 +141,17 @@ def main(argv=None) -> int:
     opts = ap.parse_args(argv)
     if opts.chunk_batches < 1:
         ap.error("--chunk_batches must be >= 1")
+    if opts.depth_stride < 1:
+        ap.error("--depth_stride must be >= 1")
+    batch = CONFIGS[opts.config][3]
+    if opts.device == "cuda" and batch % opts.depth_stride:
+        print(f"config {opts.config}: skipped: depth_stride "
+              f"{opts.depth_stride} does not divide its batch {batch}",
+              file=sys.stderr)
+        return 0
     line = run_config(opts.config, opts.chunk_batches, opts.device,
-                      opts.steps, opts.reps, opts.segment_batches)
+                      opts.steps, opts.reps, opts.segment_batches,
+                      opts.depth_stride)
     print(json.dumps(line), flush=True)
     return 0
 

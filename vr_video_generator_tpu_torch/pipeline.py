@@ -1,6 +1,6 @@
 """The per-batch SBS pipeline on one device (PyTorch).
 
-Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
+Mirrors vr_video_generator_tpu/pipeline.py:
 
     uint8 RGB frames (B, H, W, 3)
       -> preprocess (/255, INTER_AREA resize, ImageNet normalize: exact in
@@ -9,6 +9,9 @@ Mirrors vr_video_generator_tpu/pipeline.py at depth_stride 1:
       -> DINOv2 + DPT depth forward (compute dtype; LayerNorm, attention,
          fused half-block and DPT tail kernels as mlp_fused / tail pick)
       -> bicubic upsample to the source size x encoder scaler
+      -> with ``depth_stride`` s > 1 the depth net runs on every s-th
+         frame only and raw depth is lerped in between
+         (``ops.temporal.stride_interpolate``)
       -> temporal EWMA (depth dampening + offset-range smoothing)
       -> plane/shift tables, forward-warp compositor kernel, hole-fill +
          SBS kernel (``warp_impl``: the kernels, or their plain versions)
@@ -38,6 +41,8 @@ from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
 from vr_video_generator_tpu_torch.models.dpt import TAILS
 from vr_video_generator_tpu_torch.models.factory import load_model
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
+                                                        stride_audit_stats,
+                                                        stride_interpolate,
                                                         temporal_scan)
 from vr_video_generator_tpu_torch.ops.warp import WarpSpec
 
@@ -58,15 +63,18 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def check_supported(run_cfg: RunConfig) -> None:
-    """Raise for the RunConfig options this package does not have yet."""
-    if run_cfg.depth_stride < 1:
-        raise ValueError(f"depth_stride must be >= 1, got {run_cfg.depth_stride}")
+    """Raise for invalid RunConfig options (the JAX package's
+    ``_check_depth_stride``) and for those this package does not have yet."""
+    s = run_cfg.depth_stride
+    if s < 1:
+        raise ValueError(f"depth_stride must be >= 1, got {s}")
     if run_cfg.chunk_batches < 1:
         raise ValueError(f"chunk_batches must be >= 1, "
                          f"got {run_cfg.chunk_batches}")
-    if run_cfg.depth_stride > 1:
-        not_ported(f"depth_stride={run_cfg.depth_stride}",
-                   "depth_stride and the stride audit")
+    if s > 1 and run_cfg.batch_size % s:
+        raise ValueError(
+            f"depth_stride={s} must divide batch_size={run_cfg.batch_size} "
+            "(each device batch is split into whole anchor groups)")
     if run_cfg.sbs_output not in SBS_OUTPUTS:
         raise ValueError(f"sbs_output must be one of {SBS_OUTPUTS}, "
                          f"got {run_cfg.sbs_output!r}")
@@ -120,7 +128,8 @@ class SbsPipeline:
         return cls(model, height, width, run_cfg=run_cfg)
 
     def initial_state(self) -> TemporalState:
-        return TemporalState.initial(self.height, self.width, self.device)
+        return TemporalState.initial(self.height, self.width, self.device,
+                                     depth_stride=self.run_cfg.depth_stride)
 
     def frames_to_device(self, frames_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 numpy array or tensor -> tensor on the device."""
@@ -146,10 +155,23 @@ class SbsPipeline:
         with ``sbs_emit == "packed"`` (B, H, 2W) uint32 words for the
         host's rgb24 unpack (native.unpack_sbs). ``n_valid``: how many
         leading frames are real (the rest are padding copies); only those
-        count toward the overflow tally."""
+        count toward the overflow tally. With ``depth_stride`` s > 1 the
+        depth net runs on frames s-1, 2s-1, ... (the last of each group)
+        and the state carries the last anchor."""
         frames = self.frames_to_device(frames_u8)
-        blended, ranges, state = temporal_scan(self._depth(frames), state,
-                                               self.spec, n_valid=n_valid)
+        s = self.run_cfg.depth_stride
+        if s > 1:
+            if frames.shape[0] % s:
+                raise ValueError(f"batch {frames.shape[0]} not divisible by "
+                                 f"depth_stride {s}")
+            depth, anchor_last = stride_interpolate(
+                self._depth(frames[s - 1::s]), state, s)
+        else:
+            depth = self._depth(frames)
+        blended, ranges, state = temporal_scan(depth, state, self.spec,
+                                               n_valid=n_valid)
+        if s > 1:
+            state = state._replace(anchor_prev=anchor_last)
         return self.spec.warp_batch(frames, blended, ranges,
                                     emit=self.sbs_emit), state
 
@@ -187,8 +209,13 @@ class SbsPipeline:
                      min_batches: int = 0) -> TemporalState:
         """State after feeding the frames [begin-W, begin), so a segment
         start continues the full-video sequence instead of resetting.
-        Front-padding with copies of the first frame is exact at
-        depth_stride 1 (copies are a fixed point of the cold start)."""
+
+        At depth_stride 1, front-padding the window to whole batches with
+        copies of its first frame is exact: copies are a fixed point of the
+        cold start. At depth_stride > 1 they are not (they prime the anchor
+        carry), so the pad count is part of the warm-up's trajectory:
+        ``min_batches`` pins the number of fed batches whatever the window's
+        length, and the orchestrator passes ceil(warm-up / batch)."""
         state = self.initial_state()
         warm = np.asarray(warm_frames)
         n = warm.shape[0]
@@ -203,6 +230,44 @@ class SbsPipeline:
                                  state)
         # warm-up frames do not count toward the segment's overflow tally
         return state._replace(overflow=torch.zeros_like(state.overflow))
+
+    def _require_stride(self, what: str) -> int:
+        s = self.run_cfg.depth_stride
+        if s < 2:
+            raise ValueError(f"{what} requires depth_stride > 1")
+        return s
+
+    @torch.inference_mode()
+    def step_audited(self, frames_u8, state: TemporalState,
+                     n_valid: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, TemporalState, float, float]:
+        """(sbs, state', stride_rms, stride_max): the adaptive stride's
+        full-depth batch. Depth runs on every frame (the SBS is what the
+        stride-1 step gives), the stats say what the stride path would
+        have erred on this batch given the carried anchor (read back to the
+        host, a sync), and ``anchor_prev`` becomes the batch's last frame's
+        raw depth, unclamped, an anchor position of the absolute grid."""
+        s = self._require_stride("step_audited")
+        frames = self.frames_to_device(frames_u8)
+        true = self._depth(frames)
+        rms, mx = stride_audit_stats(true, state, s)
+        blended, ranges, state = temporal_scan(true, state, self.spec,
+                                               n_valid=n_valid)
+        state = state._replace(anchor_prev=true[-1])
+        sbs = self.spec.warp_batch(frames, blended, ranges, emit=self.sbs_emit)
+        return sbs, state, float(rms), float(mx)
+
+    @torch.inference_mode()
+    def stride_audit(self, frames_u8, state: TemporalState
+                     ) -> Tuple[float, float]:
+        """The sampled stride audit, read-only: depth on EVERY frame of the
+        batch against what the stride path would interpolate from its
+        anchors and the carried ``anchor_prev``. Returns (rms, max) in
+        scaled raw-depth units over the non-anchor frames (a host sync)."""
+        s = self._require_stride("stride_audit")
+        rms, mx = stride_audit_stats(
+            self._depth(self.frames_to_device(frames_u8)), state, s)
+        return float(rms), float(mx)
 
     @torch.inference_mode()
     def depth_only(self, frames_u8) -> torch.Tensor:
@@ -220,7 +285,8 @@ class StepGraph:
     and a throwaway copy of the state. The capture then records the k
     steps on static buffers: the frames (k, B, H, W, 3), the state in, and
     the k SBS tensors and the state out, which live in the graph's private
-    memory pool.
+    memory pool. At depth_stride 1 the state's ``anchor_prev`` is None and
+    stays out of the copies; at s > 1 it is the sixth static tensor.
 
     Each wrapper's ``LaunchCounter`` counts in Python, so it counts at
     capture, when nothing runs. The counts a capture adds are taken back
@@ -235,11 +301,10 @@ class StepGraph:
         k, b = frames.shape[:2]
         self.frames = torch.empty((k, b, pipe.height, pipe.width, 3),
                                   dtype=torch.uint8, device=pipe.device)
-        self.state = TemporalState(*(torch.empty_like(t) for t in state))
+        self.state = state.map(torch.empty_like)
         with torch.inference_mode():
             self.frames.copy_(frames)
-            pipe.step(self.frames[0], TemporalState(*(t.clone()
-                                                      for t in state)))
+            pipe.step(self.frames[0], state.map(torch.clone))
         torch.cuda.synchronize(pipe.device)
         before = {name: c.count for name, c in COUNTERS.items()}
         self.graph = torch.cuda.CUDAGraph()
@@ -263,12 +328,13 @@ class StepGraph:
 
         self.frames.copy_(frames, non_blocking=True)
         for dst, src in zip(self.state, state):
-            dst.copy_(src)
+            if dst is not None:
+                dst.copy_(src)
         self.graph.replay()
         for name, n in self.launches.items():
             counter(name).count += n
         return (tuple(o.clone() for o in self.outs),
-                TemporalState(*(t.clone() for t in self.out_state)))
+                self.out_state.map(torch.clone))
 
 
 def resolve_preprocess(preprocess: str, device_type: str,

@@ -1,4 +1,4 @@
-"""Segment processing loop (PyTorch), depth_stride 1.
+"""Segment processing loop (PyTorch).
 
 Mirrors vr_video_generator_tpu/runtime/segment.py `process_segment`:
 
@@ -17,7 +17,16 @@ Mirrors vr_video_generator_tpu/runtime/segment.py `process_segment`:
     host-side encode of dispatch i overlap the device compute of i+1;
   * the short last batch is padded by repeating its last frame, flushes the
     chunk buffer and runs alone through ``step``, and only the real frames
-    count toward the overflow tally (``n_valid``).
+    count toward the overflow tally (``n_valid``);
+  * with ``depth_stride`` > 1, every ``stride_audit_every``-th full batch
+    is a probe: the chunk buffer is flushed first, and the probe runs
+    alone. With ``stride_max_rms`` 0 the probe is observe-only (the
+    read-only ``stride_audit``, then ``step``); otherwise the stride is
+    adaptive: probes run ``step_audited`` (full depth), a probe whose rms
+    exceeds the threshold drops the loop to full depth (every batch through
+    ``step_audited``, never a chunk) until the error stays at or under it
+    for ``stride_hold`` batches. Each audit of a full batch is logged
+    (``stride_audit_line``), as are the drops and re-raises.
 
 The reader and writer are duck-typed: ``.height``, ``.width``,
 ``.read_into(frame) -> bool`` on the reader, ``.write_clip(begin, frames)``
@@ -34,7 +43,8 @@ import numpy as np
 import torch
 
 from vr_video_generator_tpu_torch.utils.logging import (ProgressMeter, WorkerLog,
-                                                  record_overflow)
+                                                  record_overflow,
+                                                  stride_audit_line)
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 # StageTimer lives in utils/profiling.py, as in the JAX package; it is
 # re-exported here for the callers that import it from the segment loop.
@@ -221,13 +231,19 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
             flush(force=False)
         prev = None
 
-    def dispatch(group: List[np.ndarray], n_real: int) -> None:
-        """Enqueue one batch (``step``, with ``n_valid``) or a chunk of full
-        batches (``step_many``), start its readback, then read back the
-        previous dispatch."""
+    def dispatch(group: List[np.ndarray], n_real: int,
+                 audited: bool = False) -> Optional[Tuple[float, float]]:
+        """Enqueue one batch (``step``, with ``n_valid``; with ``audited``
+        ``step_audited``, whose stats it returns) or a chunk of full batches
+        (``step_many``), start its readback, then read back the previous
+        dispatch."""
         nonlocal state, prev
+        stats = None
         with timer.stage("device_dispatch"):
-            if len(group) == 1:
+            if audited:
+                sbs, state, *stats = pipeline.step_audited(
+                    staging.upload(group[0]), state, n_valid=n_real)
+            elif len(group) == 1:
                 sbs, state = pipeline.step(staging.upload(group[0]), state,
                                            n_valid=n_real)
             else:
@@ -235,12 +251,25 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
             handle = staging.start_readback(sbs)
         readback_prev()
         prev = (handle, n_real)
+        return stats
 
     def dispatch_chunk() -> None:
         nonlocal chunk
         if chunk:
             dispatch(chunk, len(chunk) * batch_size)
             chunk = []
+
+    # The stride audit (RunConfig.stride_audit_every) and the adaptive
+    # stride (stride_max_rms > 0; probes every 8 batches unless set).
+    run_cfg = pipeline.run_cfg
+    stride = run_cfg.depth_stride
+    cap = pipeline.spec.cfg.limit_step_cap
+    adaptive = stride > 1 and run_cfg.stride_max_rms > 0
+    audit_every = run_cfg.stride_audit_every
+    if adaptive and audit_every <= 0:
+        audit_every = 8
+    audit_on = stride > 1 and audit_every > 0
+    mode_full, hold, batch_idx = False, 0, 0
 
     while True:
         with timer.stage("decode_wait"):
@@ -252,16 +281,52 @@ def process_segment(pipeline: SbsPipeline, reader, writer, begin: int,
             raise RuntimeError(f"decode thread crashed at frame "
                                f"{stream_base + frames_done}") from batch
         n_real = batch.shape[0]
-        if n_real < batch_size:
-            # The short last batch, padded, flushes the chunk and runs alone.
-            pad = np.repeat(batch[-1:], batch_size - n_real, axis=0)
-            dispatch_chunk()
-            dispatch([np.concatenate([batch, pad], axis=0)], n_real)
-        else:
+        lo = stream_base + frames_done
+        # Audits observe full batches only: padded copies skew the stats.
+        probe = (audit_on and n_real == batch_size
+                 and batch_idx % audit_every == 0)
+        if n_real == batch_size and not probe and not mode_full:
             chunk.append(batch)
-            if len(chunk) == chunk_k:
+            next_is_probe = audit_on and (batch_idx + 1) % audit_every == 0
+            if len(chunk) == chunk_k or next_is_probe:
                 dispatch_chunk()
+        else:
+            # The short last batch, padded, a probe, or a full-depth batch:
+            # the chunk is flushed first and the batch runs alone.
+            if n_real < batch_size:
+                pad = np.repeat(batch[-1:], batch_size - n_real, axis=0)
+                batch = np.concatenate([batch, pad], axis=0)
+            dispatch_chunk()
+            if adaptive and (mode_full or probe):
+                rms, mx = dispatch([batch], n_real, audited=True)
+                if n_real == batch_size:
+                    log.write(stride_audit_line(lo, lo + n_real, rms, mx,
+                                                cap))
+                    if rms > run_cfg.stride_max_rms:
+                        if not mode_full:
+                            log.write(f"adaptive stride: dropped to full "
+                                      f"depth at frame {lo} (rms {rms:.4f} "
+                                      f"> {run_cfg.stride_max_rms})")
+                        mode_full = True
+                        hold = max(1, run_cfg.stride_hold)
+                    elif mode_full:
+                        hold -= 1
+                        if hold <= 0:
+                            mode_full = False
+                            log.write(f"adaptive stride: re-raised to "
+                                      f"stride {stride} at frame "
+                                      f"{lo + n_real} (rms {rms:.4f} <= "
+                                      f"{run_cfg.stride_max_rms})")
+            else:
+                if probe:  # observe-only: read-only, before the step
+                    with timer.stage("stride_audit"):
+                        rms, mx = pipeline.stride_audit(
+                            staging.upload(batch), state)
+                    log.write(stride_audit_line(lo, lo + n_real, rms, mx,
+                                                cap))
+                dispatch([batch], n_real)
         frames_done += n_real
+        batch_idx += 1
         if frames_done % (batch_size * report_every) == 0:
             meter.report(frames_done)
 

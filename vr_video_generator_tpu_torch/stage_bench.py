@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with a CUDA GPU:
         [--encoder vits|vitb|vitl|vitg] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
         [--sbs_output auto|u8|packed] [--chunk_batches K]
+        [--depth_stride S]
 
 The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
 vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
@@ -15,14 +16,16 @@ numpy-seeded random weights whose depth scaler is calibrated on the first
 batch (see :func:`calibrate_random_scaler`). ``--sbs_output packed`` emits
 uint32 words from the packed blur/select kernel and reads them back (4
 bytes a pixel against u8's 3); the writer's host work is run (the packed
-words unpacked to rgb24 by ``native.unpack_sbs``), its encode is not. It
-measures, in this order:
+words unpacked to rgb24 by ``native.unpack_sbs``), its encode is not.
+``--depth_stride S`` runs the depth net on every S-th frame of a batch (as
+the CLI); its stages then run on those B/S frames, and the lerp to B frames
+is one more stage. It measures, in this order:
 
 * ``step``: ``SbsPipeline.step`` on frames already on the device, CUDA
   events around ``STEPS`` back-to-back steps, ``REPEATS`` times;
 * ``stages``: each stage of one step alone (preprocess, encoder, DPT head,
-  bicubic upsample, temporal scan, warp tables, the two warp kernels),
-  CUDA events, median of ``RUNS``;
+  bicubic upsample, with a stride the lerp, temporal scan, warp tables,
+  the two warp kernels), CUDA events, median of ``RUNS``;
 * ``dispatch``: the host time of one call (after a synchronize, median of
   ``RUNS``) and the kernels it puts on the device (a torch.profiler trace
   of one call) for an eager ``step``, and with ``--chunk_batches K`` > 1
@@ -166,12 +169,15 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
     from vr_video_generator_tpu_torch.ops.preprocess import (
         network_input_size, preprocess_frames)
     from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
-    from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
+    from vr_video_generator_tpu_torch.ops.temporal import (stride_interpolate,
+                                                           temporal_scan)
     from vr_video_generator_tpu_torch.ops.warp import (blur_select_sbs,
                                                        warp_composite)
 
     model, spec = pipe.model, pipe.spec
     imgs = pipe.frames_to_device(frames)
+    stride = pipe.run_cfg.depth_stride
+    anchors = imgs[stride - 1::stride]  # every frame at stride 1
     p = model.cfg.patch_size
     net_hw = network_input_size(H, W, target=pipe.run_cfg.input_size,
                                 multiple_of=p)
@@ -179,7 +185,7 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
     layers = model.cfg.intermediate_layers
 
     def preprocess():
-        return preprocess_frames(imgs, net_hw, dtype=model.dtype,
+        return preprocess_frames(anchors, net_hw, dtype=model.dtype,
                                  impl=pipe.preprocess_impl)
 
     x = preprocess().to(model.dtype)
@@ -200,6 +206,15 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
 
     depth = upsample()
     state = pipe.initial_state()
+    extra = {}
+    if stride > 1:
+        anchor_depth = depth
+
+        def interpolate():
+            return stride_interpolate(anchor_depth, state, stride)
+
+        extra["stride_interpolate"] = interpolate
+        depth, _ = interpolate()
 
     def temporal():
         return temporal_scan(depth, state, spec)
@@ -223,8 +238,9 @@ def stage_times(pipe, frames: np.ndarray) -> Dict[str, float]:
 
     return {name: event_ms(fn) for name, fn in (
         ("preprocess", preprocess), ("encoder", encoder), ("head", head),
-        ("upsample", upsample), ("temporal", temporal), ("tables", tables),
-        ("warp_composite", composite), ("blur_select_sbs", blur_select))}
+        ("upsample", upsample), *extra.items(), ("temporal", temporal),
+        ("tables", tables), ("warp_composite", composite),
+        ("blur_select_sbs", blur_select))}
 
 
 def host_ms(fn: Callable[[], object]) -> float:
@@ -394,6 +410,9 @@ def main(argv=None) -> int:
                     choices=["auto", "u8", "packed"],
                     help="device SBS emit (as the CLI; the warp is the "
                          "kernels' on the card)")
+    ap.add_argument("--depth_stride", type=int, default=1,
+                    help="run the depth net on every S-th frame (as the "
+                         "CLI; must divide the batch of 8)")
     ap.add_argument("--chunk_batches", type=int, default=1,
                     help="the segment and trace phases dispatch chunks of "
                          "this many full batches through step_many (as the "
@@ -416,10 +435,12 @@ def main(argv=None) -> int:
                     compute_dtype="bfloat16", input_size=opts.input_size,
                     mlp_fused=opts.mlp_fused, tail=opts.tail,
                     sbs_output=opts.sbs_output,
-                    chunk_batches=opts.chunk_batches)
+                    chunk_batches=opts.chunk_batches,
+                    depth_stride=opts.depth_stride)
     label = (f"1080p {opts.encoder} --input_size {opts.input_size} bf16 B={B} "
              f"mlp_fused={opts.mlp_fused} tail={opts.tail} "
-             f"sbs_output={opts.sbs_output} chunk_batches={opts.chunk_batches}")
+             f"sbs_output={opts.sbs_output} chunk_batches={opts.chunk_batches} "
+             f"depth_stride={opts.depth_stride}")
     print(label, flush=True)
     pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
                               seed=SEED)

@@ -86,7 +86,24 @@ Phases, each fatal on failure:
      every 2 batches (the probe schedule's bytes), at ``chunk_batches`` 1
      and 3; ``convert_range`` over ranges off the stride grid equal to the
      full run's frames; and the port's ``bench --config 2 --depth_stride
-     2`` once, cut to 2 repeats, its JSON line printed.
+     2`` once, cut to 2 repeats, its JSON line printed;
+  7. ``--gelu tanh`` and the data axis: (a) the tanh GELU of rows 8 and
+     9's fc1 epilogue bit for bit against ``gelu_tanh`` on all 65536 bf16
+     inputs (``vrvg_gelu_tanh``); (b) rows 8 (D = 384, 768) and 9 (vitl-518's
+     D = 1024) at ``approx`` stage by stage against their plain versions,
+     the GELU stage bit for bit through a selection fc1, each timed beside
+     the exact chain; (c) one batch of vitb-518 ``--gelu tanh --mlp_fused
+     auto`` through ``process_segment`` with phase 4's checks (row 8's tanh
+     variant in the exact one's place) and one of vitl-518 ``--gelu tanh``
+     (row 9's); (d) ``ShardedSbsPipeline`` at a 1 x 1 mesh (vits ``auto``,
+     1080p, B = 8): three steps' SBS and state equal to ``SbsPipeline
+     .step``'s bit for bit; (e) the same at two slots on one card, each slot
+     against its own ``SbsPipeline``, at depth_stride 1 and 2, with the host
+     ms of one sharded step's dispatch (graphs and eager); (f) ``cli.main``
+     with ``--mesh 1x1`` on a 1080p mp4 equal to the run without it, and
+     ``check_and_repair`` of a lost subclip with the mesh equal to the full
+     run's; (g) ``bench --sharded 1x1 --config 2`` once, cut to 2 repeats,
+     its JSON line printed.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -95,7 +112,8 @@ at vitg-518's 24 heads; rows 5 and 6 three times: at D = 384, 768 and
 twice: at D = 384 and 768; row 9 twice: at M = 19544 and 38280; row 7 four
 times: at vits' C=64, vitb's C=128, vitl-252's C=256 and vitg-126's C=384;
 rows 11 and 12 three times: at vitl-518's, vitl-728's and vitg-518's
-shapes), and as the last
+shapes; the tanh variants of rows 8 and 9 at vitb-518's D = 768 and
+vitl-518's D = 1024, with the launches of phase 7's paths), and as the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -311,6 +329,20 @@ AUTO_VITS_PACKED = tuple(k for k in AUTO_VITS if k != "blur_select_sbs") \
 # The entry points no CLI path calls (as in the JAX package): the banded
 # compositor, the single-kernel tail, and the RCU pair feeding the ext tail.
 OFF_CLI = ("warp_composite_banded", "head_tail", "rcu_pair", "head_tail_ext")
+# --gelu tanh: rows 8 and 9 with the tanh GELU in fc1's epilogue, counted
+# apart from the exact chains, in their place on vitb-518 and vitl-518.
+TANH_KERNELS = {
+    "mlp_residual_tanh": ("cuda", f"{PKG}/csrc/mlp_hblocked.cu",
+                          f"{JAX_PKG}/ops/mlp_pallas.py:66"),
+    "mlp_residual_hblocked_tanh": ("cuda", f"{PKG}/csrc/mlp_hblocked.cu",
+                                   f"{JAX_PKG}/ops/mlp_pallas.py:38"),
+}
+VITB_518_TANH = tuple(k for k in VITB_518 if k != "mlp_residual") \
+    + ("mlp_residual_tanh",)
+VITB_518_TANH_STEP = {("mlp_residual_tanh" if k == "mlp_residual" else k): v
+                      for k, v in VITB_518_STEP.items()}
+VITL_518_TANH = tuple(k for k in VITL_518 if k != "mlp_residual_hblocked") \
+    + ("mlp_residual_hblocked_tanh",)
 
 
 class SmokeFailure(RuntimeError):
@@ -599,14 +631,16 @@ def mlp_args(gen, m: int, d: int, x=None, gamma=None):
     return (x, lnw, lnb, w1, b1, w2, b2, gamma)
 
 
-def check_mlp_chain(row: int, key: str, args, stages: bool) -> dict:
+def check_mlp_chain(row: int, key: str, args, stages: bool,
+                    approx: bool = False) -> dict:
     """Row 8 (``row`` 8, vits' and vitb's widths) or row 9 (vitl's) on
-    ``args`` (:func:`mlp_args`, x 2-D): the output against
-    mlp_residual_plain by the bounds of ``key`` (GEMM_MAX_FRAC,
-    GEMM_MAX_ULPS); with ``stages``, each stage of the chain against its
-    plain version on the chain's own input (the LN stage bit-exact against
-    row 1's kernel and within the LN bound of the plain LayerNorm; the two
-    GEMM stages to row 9's stage bounds); the call must launch its kernel
+    ``args`` (:func:`mlp_args`, x 2-D), with the tanh GELU where
+    ``approx``: the output against mlp_residual_plain by the bounds of
+    ``key`` (GEMM_MAX_FRAC, GEMM_MAX_ULPS); with ``stages``, each stage of
+    the chain against its plain version on the chain's own input (the LN
+    stage bit-exact against row 1's kernel and within the LN bound of the
+    plain LayerNorm; the two GEMM stages to row 9's stage bounds); the call
+    must launch its kernel (the tanh variant's counter with ``approx``)
     once. Times of the kernel and the plain version, and the bound."""
     import torch
 
@@ -616,19 +650,20 @@ def check_mlp_chain(row: int, key: str, args, stages: bool) -> dict:
     from vr_video_generator_tpu_torch.ops import mlp
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    name = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
-    fn, stages_fn = getattr(mlp, name), getattr(mlp, f"{name}_stages")
+    base = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
+    fn, stages_fn = getattr(mlp, base), getattr(mlp, f"{base}_stages")
+    name = f"{base}_tanh" if approx else base
     x, lnw, lnb, w1, b1, w2, b2, gamma = args
     (m, d), hid = x.shape, w1.shape[0]
-    label = f"{key} D={d} M={m}"
+    label = f"{key} D={d} M={m}" + (" gelu tanh" if approx else "")
     before = launch_counts()
-    a, h, got = stages_fn(*args)
+    a, h, got = stages_fn(*args, approx=approx)
     torch.cuda.synchronize()
     after = launch_counts()
-    require(after[name] == before[name] + 1
-            and all(after[k] == before[k] for k in after if k != name),
+    require(after[name] == before.get(name, 0) + 1
+            and all(after[k] == before.get(k, 0) for k in after if k != name),
             f"{label}: launches {before} -> {after}")
-    want = mlp.mlp_residual_plain(*args)
+    want = mlp.mlp_residual_plain(*args, approx=approx)
     out = gemm_check(label, got, want, args)
     del want
     if stages:
@@ -641,7 +676,7 @@ def check_mlp_chain(row: int, key: str, args, stages: bool) -> dict:
                 f"{LN_ATOL} + rtol {LN_RTOL}")
         del a_p, err
         fc1 = gemm_check(f"mlp_fc1_gelu {label}", h,
-                         mlp.fc1_gelu_plain(a, w1, b1), (b1,))
+                         mlp.fc1_gelu_plain(a, w1, b1, approx), (b1,))
         fc2 = gemm_check(f"mlp_fc2_residual {label}", got,
                          mlp.fc2_residual_plain(h, w2, b2, gamma, x),
                          (x, gamma, b2))
@@ -650,8 +685,9 @@ def check_mlp_chain(row: int, key: str, args, stages: bool) -> dict:
         out.update(fc1_gelu=fc1, fc2_residual=fc2)
     del a, h, got
     torch.cuda.empty_cache()
-    return dict(**out, ms=event_ms(lambda: fn(*args)),
-                plain_ms=event_ms(lambda: mlp.mlp_residual_plain(*args)),
+    return dict(**out, ms=event_ms(lambda: fn(*args, approx=approx)),
+                plain_ms=event_ms(lambda: mlp.mlp_residual_plain(
+                    *args, approx=approx)),
                 library_ms=None,
                 **bound(nbytes(*args, x), 2 * 2 * m * d * hid))
 
@@ -2241,6 +2277,313 @@ def depth_agreement(label, pipe, pipe32, batch, depth):
     return stats
 
 
+def check_gelu_tanh(device) -> None:
+    """Phase 7 (a): the tanh GELU of rows 8 and 9's fc1 epilogue, its device
+    function launched elementwise (``vrvg_gelu_tanh``) on every bf16 value,
+    must equal the plain ``gelu_tanh`` bit for bit (NaN where the plain one
+    is NaN)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.gelu import gelu_tanh
+    from vr_video_generator_tpu_torch.ops.mlp import gelu_tanh_kernel
+
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16)
+    got, want = gelu_tanh_kernel(x), gelu_tanh(x)
+    nan = torch.isnan(want)
+    same = torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+    require(same, f"gelu_tanh: the device function differs from the plain "
+            f"one in {int((got != want).sum())} of {x.numel()} bf16 inputs")
+    log(f"gelu_tanh: the epilogue's device function equal to the plain one "
+        f"on all {x.numel()} bf16 inputs ({int(nan.sum())} NaN)")
+
+
+def selection_gelu_stage(row: int, args) -> dict:
+    """The tanh GELU stage of row ``row``'s chain bit for bit in place: with
+    fc1 a selection (w1[j, j mod D] = 1, every product one element of the
+    LN rows, exact in f32 and in bf16) the stage is gelu_tanh(a[:, j mod D]
+    + b1[j]) on the chain's own LN rows, so the kernel's h must equal
+    ``fc1_gelu_plain``'s bit for bit."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    hid, d = w1.shape
+    sel = torch.zeros_like(w1)
+    sel[torch.arange(hid, device=w1.device),
+        torch.arange(hid, device=w1.device) % d] = 1
+    base = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
+    a, h, _ = getattr(mlp, f"{base}_stages")(x, lnw, lnb, sel, b1, w2, b2,
+                                             gamma, approx=True)
+    want = mlp.fc1_gelu_plain(a, sel, b1, approx=True)
+    torch.cuda.synchronize()
+    n_bad = int((h.view(torch.int16) != want.view(torch.int16)).sum())
+    require(n_bad == 0, f"row {row} D={d}: the tanh GELU stage differs from "
+            f"the plain one in {n_bad} of {h.numel()} values (selection fc1)")
+    return dict(values=h.numel(), range=[float(want.min()),
+                                         float(want.max())])
+
+
+def tanh_kernels(device) -> dict:
+    """Phase 7 (a) and (b): the tanh epilogue on every bf16 input; rows 8
+    (D = 384, 768) and 9 (vitl-518's D = 1024) at ``approx`` stage by stage
+    against their plain versions (the GELU stage bit for bit through a
+    selection fc1, the rest by the exact chains' bounds), each timed with
+    CUDA events beside the exact-GELU chain on the same operands."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    check_gelu_tanh(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    out = {}
+    for row, d in ((8, DIM), (8, DIM_B), (9, DIM_L)):
+        key = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
+        args = mlp_args(gen, B * N_TOK, d)
+        r = check_mlp_chain(row, key, args, stages=True, approx=True)
+        r["gelu_stage_bit_exact"] = selection_gelu_stage(row, args)
+        r["exact_ms"] = event_ms(lambda: getattr(mlp, key)(*args))
+        log(f"row {row} gelu tanh D={d} M={B * N_TOK}: {json.dumps(r)}")
+        out[f"{key}_tanh D={d}"] = r
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def gelu_tanh_paths(device, rng) -> dict:
+    """Phase 7 (c): one batch of vitb-518 ``--gelu tanh --mlp_fused auto``
+    through process_segment with every check of phase 4's checked paths
+    (exactly its kernels, row 8's tanh variant in the exact one's place,
+    and each its count a step; no host sync in a step; the right half the
+    input; the SBS the plain warp of its own depth; depth against the plain
+    versions and f32 with phase 4's bounds), and one batch of vitl-518
+    ``--gelu tanh`` (row 9's tanh variant in the exact one's place)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import random_state_dict
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    out = {}
+    cfg = dataclasses.replace(run_config("vitb", "auto", "auto"), gelu="tanh")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    calibrate_random_scaler(pipe, frames)
+    pipe32 = make_pipe(device, dataclasses.replace(
+        cfg, compute_dtype="float32"), sd)
+    del sd
+    pipe32.model.cfg = pipe.model.cfg
+    label = "vitb-518 auto/auto gelu tanh"
+    stats = checked_path(label, pipe, frames, VITB_518_TANH, pipe32)
+    per_step = {k: v for k, v in stats["launches"].items() if v}
+    require(per_step == VITB_518_TANH_STEP, f"{label} launched {per_step} in "
+            f"one step, expected {VITB_518_TANH_STEP}")
+    out[label] = stats
+    del pipe, pipe32
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(run_config("vitl", "auto", "auto"), gelu="tanh")
+    pipe = make_pipe(device, cfg)
+    calibrate_random_scaler(pipe, frames)
+    label = "vitl-518 auto/auto gelu tanh"
+    out[label] = one_batch(label, pipe, frames, VITL_518_TANH)
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_steps(device, rng) -> dict:
+    """Phase 7 (d) and (e): ``ShardedSbsPipeline`` at vits ``auto``, 1080p,
+    B = 8, with the calibrated scaler: at a 1 x 1 mesh on ``device``, three
+    steps' SBS and state equal to ``SbsPipeline.step``'s bit for bit, its
+    kernels exactly vits ``auto``'s; at two slots on ``device``
+    (``make_mesh((2, 1), devices=[device, device])``), each slot equal to
+    its own ``SbsPipeline`` over its own frames bit for bit over three
+    steps, at depth_stride 1 and 2. The host ms of one sharded step's
+    dispatch (every slot's work issued, nothing read back), median of 10,
+    at 1 and 2 slots, beside the same round of eager replica steps (what a
+    one-thread loop without the graphs would issue)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    out = {}
+    frames = rng.integers(0, 256, (6 * B, H, W, 3), dtype=np.uint8)
+    base = make_pipe(device, run_config("vits", "auto", "auto"))
+    calibrate_random_scaler(base, frames[:B])
+    model = base.model
+    del base
+
+    def eager_round(sp, parts, states):
+        return None, [r.step(p, st)[1] for r, p, st in zip(sp.replicas,
+                                                            parts, states)]
+
+    def dispatch_ms(step, parts, states, n=10):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, states = step(parts, states)
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    for s in (1, 2):
+        cfg = dataclasses.replace(run_config("vits", "auto", "auto"),
+                                  depth_stride=s)
+        for slots in (1, 2):
+            label = f"sharded {slots}x1 on {device} depth_stride {s}"
+            mesh = make_mesh((slots, 1), devices=[device] * slots)
+            sp = ShardedSbsPipeline(model, H, W, mesh, run_cfg=cfg)
+            singles = [SbsPipeline(r.model, H, W, run_cfg=cfg)
+                       for r in sp.replicas]
+            states = sp.initial_state()
+            sstates = [p.initial_state() for p in singles]
+            parts_seq = [[torch.from_numpy(frames[(3 * i + k) * B:
+                                                  (3 * i + k + 1) * B]).to(
+                device) for i in range(slots)] for k in range(3)]
+            sp.step(parts_seq[0], states)  # warm-up: builds, graph capture
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for k, parts in enumerate(parts_seq):
+                sbs, states = sp.step(parts, states)
+                for i, single in enumerate(singles):
+                    want, sstates[i] = single.step(parts[i], sstates[i])
+                    require(torch.equal(sbs[i], want),
+                            f"{label}: slot {i}'s SBS of step {k} differs "
+                            f"from its SbsPipeline's")
+                    require(states_equal(states[i], sstates[i]),
+                            f"{label}: slot {i}'s state after step {k} "
+                            f"differs from its SbsPipeline's")
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            launched_exactly(label, counts, AUTO_VITS)
+            ms = {"graphs": dispatch_ms(sp.step, parts_seq[0], states),
+                  "eager": dispatch_ms(lambda p, st: eager_round(sp, p, st),
+                                       parts_seq[0], states)}
+            out[label] = dict(host_dispatch_ms=ms,
+                              launches={k: v for k, v in counts.items() if v})
+            log(f"{label}: 3 steps, each slot's SBS and state equal to its "
+                f"SbsPipeline's bit for bit; host ms of one sharded step's "
+                f"dispatch (median of 10): {json.dumps(ms)}")
+            del sp, singles, states, sstates, parts_seq
+            torch.cuda.empty_cache()
+    del model
+    return out
+
+
+def mesh_cli(device, rng) -> dict:
+    """Phase 7 (f): ``cli.main`` with ``--mesh 1x1`` end to end (repair mode
+    1: convert only) on a 1080p mp4 (cv2, 24 frames) equal to the run
+    without ``--mesh``, decoded subclip by subclip; then, with the middle
+    subclip of the mesh run lost, ``check_and_repair`` with the mesh set
+    finds the gap and converts it again, equal to the full run's."""
+    import tempfile
+
+    import cv2
+
+    from vr_video_generator_tpu_torch import cli
+    from vr_video_generator_tpu_torch.runtime import orchestrator
+    from vr_video_generator_tpu_torch.video.combine import sorted_subclips
+    from vr_video_generator_tpu_torch.video.reader import VideoReader
+
+    frames = rng.integers(0, 256, (3 * B, H, W, 3), dtype=np.uint8)
+
+    def decoded(d):
+        clips = {}
+        for name in sorted_subclips(d):
+            path = os.path.join(d, name)
+            with VideoReader(path, begin=0, backend="cv2") as r:
+                clips[name] = np.stack(list(r.frames(0, r.frame_count)))
+        return clips
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        video = os.path.join(d, "in.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                             (W, H))
+        for f in frames:
+            vw.write(f[:, :, ::-1])
+        vw.release()
+        runs = {}
+        for tag, extra in (("single", []), ("mesh", ["--mesh", "1x1"])):
+            sub = os.path.join(d, f"S_{tag}") + os.sep
+            argv = ["--device", device.type, "--VideoDir", video,
+                    "--OutputDir", os.path.join(d, f"{tag}.mkv"),
+                    "--DebugDir", os.path.join(d, f"D_{tag}") + os.sep,
+                    "--SubClipDir", sub, "--Max_Frame_Count", "6",
+                    "--batch_size", str(B), "--repair_mode", "1",
+                    "--reader_backend", "cv2", "--writer_backend", "cv2",
+                    "--allow_random_weights", *extra]
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, f"cli {tag}: non-zero exit")
+            runs[tag] = (sub, argv, time.perf_counter() - t0)
+        single, mesh = decoded(runs["single"][0]), decoded(runs["mesh"][0])
+        names = [f"{i}_{min(i + 6, 3 * B) - 1}.mp4" for i in range(0, 3 * B, 6)]
+        require(list(single) == list(mesh) == names,
+                f"cli --mesh 1x1: subclips {list(mesh)}, without "
+                f"{list(single)}")
+        for name in single:
+            require(np.array_equal(single[name], mesh[name]),
+                    f"cli --mesh 1x1: {name} differs from the run without "
+                    f"--mesh")
+        os.remove(os.path.join(runs["mesh"][0], "6_11.mp4"))
+        cfg, _ = cli.parse_run_config(runs["mesh"][1])
+        t0 = time.perf_counter()
+        issues = orchestrator.check_and_repair(cfg, repair=True,
+                                               allow_random=True,
+                                               device=device.type)
+        repair_s = time.perf_counter() - t0
+        require([i.repair_range for i in issues] == [(6, 12)],
+                f"check_and_repair found {issues}")
+        repaired = decoded(runs["mesh"][0])
+        require(np.array_equal(repaired["6_11.mp4"], single["6_11.mp4"]),
+                "check_and_repair with --mesh 1x1: the repaired 6_11 differs "
+                "from the full run's")
+        out = dict(clips=list(single), single_s=runs["single"][2],
+                   mesh_s=runs["mesh"][2], repair_s=repair_s)
+    log(f"cli --mesh 1x1: 24 frames of a 1080p mp4, subclips equal to the run "
+        f"without --mesh; the lost 6_11 repaired by check_and_repair with "
+        f"the mesh, equal to the full run's: {json.dumps(out)}")
+    return out
+
+
+def sharded_path(device, rng) -> dict:
+    """Phase 7: --gelu tanh and the data axis (see the module's header)."""
+    from vr_video_generator_tpu_torch import bench
+
+    out, t0 = {}, time.perf_counter()
+    out["tanh_kernels"] = tanh_kernels(device)
+    log(f"phase 7 (a, b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tanh_paths"] = gelu_tanh_paths(device, rng)
+    log(f"phase 7 (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["sharded_steps"] = sharded_steps(device, rng)
+    log(f"phase 7 (d, e): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["mesh_cli"] = mesh_cli(device, rng)
+    log(f"phase 7 (f): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    line = bench.run_sharded_config(2, (1, 1), reps=2)
+    print(json.dumps(line), flush=True)
+    require(line["value"] > 0 and line["metric"].endswith("_sharded_mesh1x1"),
+            f"bench --sharded 1x1 --config 2: {line}")
+    out["bench"] = line
+    log(f"phase 7 (g) bench --sharded 1x1 --config 2 --reps 2: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -2305,6 +2648,11 @@ def main() -> int:
     paths["vits auto/auto depth_stride"] = stride_path(device, rng)
     log(f"phase 6 (depth stride, audit, adaptive loop, repair ranges, "
         f"bench): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase7 = sharded_path(device, rng)
+    log(f"phase 7 (gelu tanh, sharded steps, --mesh 1x1, bench --sharded): "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths["phase 7"] = phase7
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
@@ -2343,9 +2691,19 @@ def main() -> int:
                  paths[label]["launches"]["head_tail_ext"])
                 for c, label in ((FEATURES_L, "vitl-252 auto/auto"),
                                  (FEATURES_G, "vitg-126 auto/auto"))]
+    # The tanh variants of rows 8 and 9 at the widths of the paths that
+    # launch them (phase 7): vitb-518's D = 768 and vitl-518's D = 1024.
+    tanh = phase7["tanh_kernels"]
+    entries += [(name, tanh[f"{name} D={d}"],
+                 phase7["tanh_paths"][label]["launches"][name])
+                for name, d, label in (
+                    ("mlp_residual_tanh", DIM_B,
+                     "vitb-518 auto/auto gelu tanh"),
+                    ("mlp_residual_hblocked_tanh", DIM_L,
+                     "vitl-518 auto/auto gelu tanh"))]
     kernels = []
     for name, r, launches in entries:
-        route, source, replaces = KERNELS[name]
+        route, source, replaces = {**KERNELS, **TANH_KERNELS}[name]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],

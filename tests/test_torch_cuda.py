@@ -137,6 +137,7 @@ def test_mlp_kernel_matches_plain(cuda, m, d):
 
 
 def _hblocked_args(gen, m, d=1024):
+    """Seeded operands of the GELU MLP half at width d (hidden 4D)."""
     f32 = torch.float32
     return (_randn(gen, (m, d)), _randn(gen, (d,), 0.1, 1.0, f32),
             _randn(gen, (d,), 0.1, 0.0, f32),
@@ -1091,6 +1092,211 @@ def test_adaptive_segment_extremes_on_the_card(cuda, chunk):
     np.testing.assert_array_equal(
         segment(stride_max_rms=1e30, stride_audit_every=2),
         np.concatenate(want))
+
+
+# The tanh GELU of rows 8 and 9's fc1 epilogue against the plain gelu_tanh
+# on every bf16 input (chip_smoke.py's check, which raises on any
+# difference), one launch.
+def test_gelu_tanh_kernel_exhaustive(cuda):
+    from chip_smoke import check_gelu_tanh
+
+    before = launch_counts().get("gelu_tanh", 0)
+    check_gelu_tanh(cuda)
+    assert launch_counts()["gelu_tanh"] == before + 1
+
+
+# Rows 8 and 9 with the tanh GELU (--gelu tanh), whole and stage by stage:
+# the LN stage row 1's kernel, the GEMM stages and the output by the exact
+# chains' bounds, the GELU stage bit for bit through a selection fc1
+# (chip_smoke.py's check); each call counted on the tanh variant's counter
+# and on no other.
+@pytest.mark.parametrize("m,d", [(140, 128), (321, 384), (19544, 384),
+                                 (127, 768), (19544, 768), (130, 1024),
+                                 (19544, 1024)])
+def test_mlp_kernels_at_tanh_match_plain(cuda, m, d):
+    from chip_smoke import selection_gelu_stage
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    gen = torch.Generator(device=cuda).manual_seed(m + d + 16)
+    args = _hblocked_args(gen, m, d)
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    base = "mlp_residual_hblocked" if d == 1024 else "mlp_residual"
+    name = f"{base}_tanh"
+    before = launch_counts()
+    a, h, out = getattr(mlp, f"{base}_stages")(*args, approx=True)
+    after = launch_counts()
+    assert after[name] == before.get(name, 0) + 1
+    assert all(after[k] == before.get(k, 0) for k in after if k != name)
+    _assert_rounding_boundaries_only(
+        base, out, mlp_residual_plain(*args, approx=True), args)
+    assert torch.equal(a, layernorm(x, lnw, lnb))
+    _assert_rounding_boundaries_only(
+        "mlp_fc1_gelu", h, fc1_gelu_plain(a, w1, b1, approx=True), (b1,))
+    _assert_rounding_boundaries_only(
+        "mlp_fc2_residual", out, fc2_residual_plain(h, w2, b2, gamma, x),
+        (x, gamma, b2))
+    assert torch.equal(out, getattr(mlp, base)(*args, approx=True))
+    selection_gelu_stage(9 if d == 1024 else 8, args)
+
+
+def test_gelu_tanh_step_on_the_card(cuda):
+    """A --gelu tanh step at vits fused runs row 8's tanh variant (and not
+    the exact chain), 12 times a step, without a host sync."""
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+
+    pipe = _graph_pipe(cuda, "fused", gelu="tanh")
+    frames = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 256, (2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    _, state = pipe.step(frames, pipe.initial_state())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step(frames, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    assert counts["mlp_residual_tanh"] == 12
+    assert counts.get("mlp_residual", 0) == 0
+
+
+def _sharded(cuda, slots, stride=1, batch=2):
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+
+    base = _graph_pipe(cuda, batch=batch, depth_stride=stride)
+    mesh = make_mesh((slots, 1), devices=[cuda] * slots)
+    return ShardedSbsPipeline(base.model, 150, 96, mesh, run_cfg=base.run_cfg)
+
+
+@pytest.mark.parametrize("slots,stride", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_sharded_step_equals_sbs_pipeline(cuda, slots, stride):
+    """ShardedSbsPipeline at a 1 x 1 mesh and at two slots on one card:
+    each slot's SBS and state (through the slot's single-step graph) equal
+    to its own SbsPipeline's eager step over its own frames, bit for bit,
+    over three steps; each replica holds its own copy of the weights."""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    sp = _sharded(cuda, slots, stride)
+    w = [next(r.model.parameters()) for r in sp.replicas]
+    assert len({t.data_ptr() for t in w}) == slots
+    assert next(sp.model.parameters()).data_ptr() not in {t.data_ptr()
+                                                          for t in w}
+    singles = [SbsPipeline(r.model, 150, 96, run_cfg=sp.run_cfg)
+               for r in sp.replicas]
+    rng = np.random.default_rng(slots + 10 * stride)
+    states = sp.initial_state()
+    want_states = [p.initial_state() for p in singles]
+    for _ in range(3):
+        frames = rng.integers(0, 256, (2 * slots, 150, 96, 3), dtype=np.uint8)
+        sbs, states = sp.step(frames, states)
+        for i, p in enumerate(singles):
+            want, want_states[i] = p.step(frames[2 * i:2 * i + 2],
+                                          want_states[i])
+            assert torch.equal(sbs[i], want)
+            assert _states_equal(states[i], want_states[i])
+
+
+def test_sharded_short_batch_on_the_card(cuda):
+    """A slot's short batch (n_valid below B) steps eagerly and counts only
+    its real frames, as SbsPipeline.step does with n_valid."""
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    sp = _sharded(cuda, 2)
+    singles = [SbsPipeline(r.model, 150, 96, run_cfg=sp.run_cfg)
+               for r in sp.replicas]
+    frames = np.random.default_rng(3).integers(0, 256, (4, 150, 96, 3),
+                                               dtype=np.uint8)
+    sbs, states = sp.step(frames, sp.initial_state(), n_valid=[2, 1])
+    for i, (p, nv) in enumerate(zip(singles, (2, 1))):
+        want, st = p.step(frames[2 * i:2 * i + 2], p.initial_state(),
+                          n_valid=nv)
+        assert torch.equal(sbs[i], want)
+        assert _states_equal(states[i], st)
+
+
+def test_sharded_on_every_card(cuda, tmp_path, monkeypatch):
+    """With two cards or more: a mesh of every card (make_mesh without a
+    device list), each slot's replica on its own card, its SBS and state
+    equal to an SbsPipeline's on that card over the slot's frames, bit for
+    bit, over three steps; then the CLI with --mesh Dx1 over a video of 8
+    frames a card equal to one sequential run's frames (the warm-up covers
+    every slot's prefix)."""
+    import cv2
+
+    from vr_video_generator_tpu_torch import cli
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import (
+        ShardedSbsPipeline, device_scope)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.video import writer as writer_mod
+    from vr_video_generator_tpu_torch.video.reader import VideoReader
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    base = _graph_pipe(cuda)
+    sp = ShardedSbsPipeline(base.model, 150, 96, make_mesh((n, 1)),
+                            run_cfg=base.run_cfg)
+    assert [r.device for r in sp.replicas] == [torch.device("cuda", i)
+                                               for i in range(n)]
+    singles = [SbsPipeline(r.model, 150, 96, run_cfg=sp.run_cfg)
+               for r in sp.replicas]
+    rng = np.random.default_rng(n)
+    states = sp.initial_state()
+    want_states = [p.initial_state() for p in singles]
+    for _ in range(3):
+        frames = rng.integers(0, 256, (2 * n, 150, 96, 3), dtype=np.uint8)
+        sbs, states = sp.step(frames, states)
+        for i, p in enumerate(singles):
+            with device_scope(p.device):
+                want, want_states[i] = p.step(frames[2 * i:2 * i + 2],
+                                              want_states[i])
+            assert sbs[i].device == p.device and torch.equal(sbs[i], want)
+            assert _states_equal(states[i], want_states[i])
+
+    frames = rng.integers(0, 256, (8 * n, 150, 96, 3), dtype=np.uint8)
+    video = str(tmp_path / "in.mp4")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                         (96, 150))
+    for f in frames:
+        vw.write(f[:, :, ::-1])
+    vw.release()
+    with VideoReader(video, begin=0, backend="cv2") as r:
+        decoded = np.stack(list(r.frames(0, 8 * n)))
+    clips = {}
+
+    class Capture:
+        def __init__(self, *a, **k):
+            pass
+
+        def write_clip(self, begin, fr):
+            clips[begin] = np.stack(fr)
+
+        def wait(self):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(writer_mod, "SubclipWriter", Capture)
+    assert cli.main(["--VideoDir", video, "--OutputDir", str(tmp_path / "o"),
+                     "--DebugDir", str(tmp_path / "D") + "/",
+                     "--SubClipDir", str(tmp_path / "S") + "/",
+                     "--batch_size", "2", "--input_size", "56",
+                     "--Max_Frame_Count", "64", "--repair_mode", "1",
+                     "--reader_backend", "cv2", "--allow_random_weights",
+                     "--mesh", f"{n}x1"]) == 0
+    assert sorted(clips) == list(range(0, 8 * n, 8))
+    pipe = SbsPipeline.create(base.run_cfg, 150, 96, allow_random=True,
+                              device=cuda)
+    st, want = pipe.initial_state(), []
+    for i in range(0, 8 * n, 2):
+        out, st = pipe.step(decoded[i:i + 2], st)
+        want.append(out.cpu().numpy())
+    got = np.concatenate([clips[k] for k in sorted(clips)])
+    np.testing.assert_array_equal(got, np.concatenate(want))
 
 
 def test_step_many_capture_failure_raises(cuda, monkeypatch):

@@ -340,16 +340,30 @@ def test_cuda_device_without_gpu_raises():
     ("depth_stride", 2, "depth_stride"), ("chunk_batches", 2, "step_many"),
     ("gelu", "tanh", "UI impl switches"),
 ])
-def test_unported_run_options_raise(field, value, item, pipe, frames):
-    """The tanh GELU raises not_ported. chunk_batches > 1 is ported
-    (step_many): it passes the check, and a pipeline built with it runs a
-    chunk of two batches as two steps do. depth_stride 2 is ported: it
+def test_unported_run_options_raise(field, value, item, pipe, frames,
+                                    weights):
+    """Every option here is ported now. The tanh GELU passes the check, and
+    a pipeline built with it (ModelConfig.gelu_approx) runs one step: the
+    right half the input, the left half other than the exact GELU's.
+    chunk_batches > 1 (step_many) passes the check, and a pipeline built
+    with it runs a chunk of two batches as two steps do. depth_stride 2
     passes the check (it divides the batch of 4), 3 raises the JAX
     package's ValueError, and a stride-2 pipeline's two batches of 2 equal
     one batch of 4."""
     import dataclasses
 
     cfg = dataclasses.replace(CFG, **{field: value})
+    if field == "gelu":
+        check_supported(cfg)
+        tanh = SbsPipeline(build_model(dataclasses.replace(
+            TINY, gelu_approx=True), weights, torch.float32, "cpu"), H, W,
+            run_cfg=cfg)
+        assert tanh.model.pretrained.blocks[0].mlp.gelu_approx
+        sbs, _ = tanh.step(frames[:BATCH], tanh.initial_state())
+        exact, _ = pipe.step(frames[:BATCH], pipe.initial_state())
+        np.testing.assert_array_equal(sbs.numpy()[:, :, W:], frames[:BATCH])
+        assert not torch.equal(sbs, exact)
+        return
     if item == "depth_stride":
         check_supported(cfg)
         with pytest.raises(ValueError, match="must divide batch_size"):
@@ -359,10 +373,6 @@ def test_unported_run_options_raise(field, value, item, pipe, frames):
         a, st = strided.step(frames[:2], strided.initial_state())
         b, _ = strided.step(frames[2:BATCH], st)
         np.testing.assert_array_equal(whole.numpy(), torch.cat([a, b]).numpy())
-        return
-    if item != "step_many":
-        with pytest.raises(NotImplementedError, match=item):
-            check_supported(cfg)
         return
     check_supported(cfg)
     chunked = SbsPipeline(pipe.model, H, W, run_cfg=cfg)
@@ -421,19 +431,17 @@ def test_unported_fused_combinations_raise(overrides, kernel):
     (["--repair_mode", "3"], "repair modes 1 and 3"),
 ])
 def test_unported_cli_options_raise(argv, item, tmp_path):
-    """--mesh raises not_ported. --profile_dir is ported: a conversion with
-    it writes its torch.profiler trace into the directory. Repair modes 1
-    and 3 are ported: mode 1 converts into the subclip dir, keeps the debug
-    dir and combines nothing; mode 3, after it, clears the debug dir and
-    combines the subclips, video only."""
+    """Every option here is ported now. --mesh 2x1 with --device cpu
+    converts through the sharded runtime, one segment per CPU slot, into
+    contiguous subclips and its log. --profile_dir: a conversion with it
+    writes its torch.profiler trace into the directory. Repair modes 1 and
+    3: mode 1 converts into the subclip dir, keeps the debug dir and
+    combines nothing; mode 3, after it, clears the debug dir and combines
+    the subclips, video only."""
     from vr_video_generator_tpu_torch.cli import main
 
     dirs = ["--DebugDir", str(tmp_path / "D") + "/",
             "--SubClipDir", str(tmp_path / "S") + "/"]
-    if item == "multi-GPU":
-        with pytest.raises(NotImplementedError, match=item):
-            main(["--device", "cpu", *dirs, *argv])
-        return
     cv2 = pytest.importorskip("cv2")
     src = str(tmp_path / "in.mp4")
     w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
@@ -444,6 +452,15 @@ def test_unported_cli_options_raise(argv, item, tmp_path):
            "--OutputDir", str(tmp_path / "o.mkv"), "--batch_size", "4",
            "--input_size", "56", "--compute_dtype", "float32",
            "--mlp_fused", "xla", "--tail", "xla", "--allow_random_weights"]
+    if item == "multi-GPU":
+        assert main([*run, *argv, "--Max_Frame_Count", "2"]) == 0
+        assert sorted(os.listdir(tmp_path / "S")) == ["0_1.mp4", "2_2.mp4",
+                                                      "3_4.mp4"]
+        assert os.listdir(tmp_path / "D") == ["sharded_p0.txt"]
+        cap = cv2.VideoCapture(str(tmp_path / "o.mkv"))
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 5
+        cap.release()
+        return
     if item == "profiling":
         trace_dir = tmp_path / argv[1]
         assert main([*run, "--profile_dir", str(trace_dir)]) == 0
@@ -494,6 +511,9 @@ def test_port_imports_no_jax():
             "vr_video_generator_tpu_torch.pipeline, "
             "vr_video_generator_tpu_torch.runtime.segment, "
             "vr_video_generator_tpu_torch.runtime.orchestrator, "
+            "vr_video_generator_tpu_torch.runtime.sharded_runner, "
+            "vr_video_generator_tpu_torch.parallel.sharded, "
+            "vr_video_generator_tpu_torch.models.checkpoint, "
             "vr_video_generator_tpu_torch.stage_bench, "
             "vr_video_generator_tpu_torch.attention_bench, "
             "vr_video_generator_tpu_torch.bench, "

@@ -4,6 +4,7 @@ Run from the root of a checkout:
 
     python3 -m vr_video_generator_tpu_torch.bench [--config N]
         [--chunk_batches K] [--depth_stride S] [--device cuda|cpu]
+        [--sharded DxM]
 
 The counterpart of the root ``bench.py``, at its configurations (``CONFIGS``,
 a copy of its table): the encoder, geometry, batch and offset step of
@@ -35,6 +36,16 @@ It prints one JSON line: ``{"metric": "torch_sbs_fps_<h>p_<encoder>",
 power limit>"}`` and the runs behind both rates; ``card`` is nvidia-smi's
 line on the card and null with ``--device cpu``. The baseline is the
 reference's ~12 frames/s at 1080p (the root bench's ``BASELINE_FPS``).
+
+``--sharded DxM`` (the root bench's ``_run_sharded``) measures the sharded
+runtime's step instead (``parallel.sharded.ShardedSbsPipeline`` on a D x M
+mesh of every card, or of D ``cpu`` slots with ``--device cpu``; M > 1
+raises ``not_ported``): D batches a step, one a slot, the device-resident
+rate only, chained and timed as above with a checksum and a pair of CUDA
+events on each slot's device (the slowest slot's time), in the metric
+``torch_sbs_fps_<h>p_<encoder>_sharded_mesh<D>x<M>[_stride<S>]``;
+``host_fps`` is null. At 1x1 it runs the single-device step through the
+sharded layer, as the root bench does on one chip.
 """
 
 from __future__ import annotations
@@ -121,6 +132,108 @@ def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
             "host_frames": len(frames), "host_fps_runs": host}
 
 
+def sharded_device_time(pipe, parts, k: int, reps: int) -> float:
+    """Best seconds per sharded step over ``reps`` chains of ``k`` steps, the
+    chain of :func:`utils.benchlib.device_time` kept per slot: each slot's
+    SBS and state feed a checksum on its device that its next frames depend
+    on. On the card each slot's chain is timed by CUDA events on its device
+    and a chain takes its slowest slot's time; on the CPU, the host clock."""
+    import time
+
+    from vr_video_generator_tpu_torch.parallel.sharded import device_scope
+    from vr_video_generator_tpu_torch.utils.benchlib import checksum, poison
+
+    cuda = parts[0].device.type == "cuda"
+    states = pipe.initial_state()
+
+    def run(n_calls: int):
+        nonlocal states
+        css = [torch.zeros((), device=p.device) for p in parts]
+        inputs = list(parts)
+        for _ in range(n_calls):
+            sbs, states = pipe.step(inputs, states)
+            for i, dev in enumerate(pipe.devices):
+                with device_scope(dev):
+                    css[i] = css[i] + checksum((sbs[i], states[i]))
+            inputs = [poison(p, cs) for p, cs in zip(parts, css)]
+        return css
+
+    [float(cs) for cs in run(1)]  # warm-up: builds, caches, graph capture
+    best = float("inf")
+    for _ in range(reps):
+        if cuda:
+            events = []
+            for dev in pipe.devices:
+                torch.cuda.synchronize(dev)
+            for dev in pipe.devices:
+                with device_scope(dev):
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    events.append(start)
+            css = run(k)
+            for i, dev in enumerate(pipe.devices):
+                with device_scope(dev):
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    events[i] = (events[i], end)
+            [float(cs) for cs in css]
+            seconds = max(a.elapsed_time(b) for a, b in events) * 1e-3
+        else:
+            t0 = time.perf_counter()
+            [float(cs) for cs in run(k)]
+            seconds = time.perf_counter() - t0
+        best = min(best, seconds)
+    return best / k
+
+
+def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
+                       steps: int = 0, reps: int = 6,
+                       depth_stride: int = 1) -> dict:
+    """The JSON line of one configuration through the sharded step on a
+    ``mesh_shape`` mesh; ``steps`` as in :func:`run_config`."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.stage_bench import (
+        calibrate_random_scaler, card_line)
+
+    on_card = torch.device(device).type == "cuda"
+    d, m = mesh_shape
+    mesh = make_mesh(mesh_shape, device=device,
+                     devices=None if on_card else ["cpu"] * (d * m))
+    encoder, h, w, b, step = CONFIGS[config]
+    if not on_card:
+        encoder, h, w, b = "vits", 270, 480, max(2, depth_stride)
+    cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
+                    input_size=518 if on_card else 126,
+                    compute_dtype="bfloat16" if on_card else "float32",
+                    depth_stride=depth_stride, mesh_shape=tuple(mesh_shape))
+    single = SbsPipeline.create(cfg, h, w, allow_random=True,
+                                device=mesh.data_devices[0], seed=SEED)
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (d * b, h, w, 3), dtype=np.uint8)
+    calibrate_random_scaler(single, frames[:b])
+    pipe = ShardedSbsPipeline(single.model, h, w, mesh, run_cfg=cfg)
+    del single
+    parts = [torch.from_numpy(frames[i * b:(i + 1) * b]).to(dev)
+             for i, dev in enumerate(pipe.devices)]
+    calls = steps or (8 if on_card else 2)
+    per_step = sharded_device_time(pipe, parts, calls, reps)
+    fps = d * b / per_step
+    tag = f"_stride{depth_stride}" if depth_stride > 1 else ""
+    return {"metric": f"torch_sbs_fps_{h}p_{encoder}_sharded_mesh{d}x{m}"
+                      f"{tag}",
+            "value": fps, "unit": "frames/s",
+            "vs_baseline": fps / BASELINE_FPS, "host_fps": None,
+            "mesh": [d, m], "depth_stride": depth_stride,
+            "card": card_line() if on_card else None, "config": config,
+            "devices": [str(dev) for dev in pipe.devices],
+            "steps": calls, "reps": reps,
+            "device_resident_s_per_frame": per_step / (d * b)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", type=int, default=2, choices=sorted(CONFIGS))
@@ -138,6 +251,9 @@ def main(argv=None) -> int:
                     help="timed repeats of each rate; the best is reported")
     ap.add_argument("--segment_batches", type=int, default=12,
                     help="batches of frames the host-inclusive run takes")
+    ap.add_argument("--sharded", type=str, default="",
+                    help="DxM: time the sharded step on a D x M mesh "
+                         "(device-resident rate only)")
     opts = ap.parse_args(argv)
     if opts.chunk_batches < 1:
         ap.error("--chunk_batches must be >= 1")
@@ -149,9 +265,17 @@ def main(argv=None) -> int:
               f"{opts.depth_stride} does not divide its batch {batch}",
               file=sys.stderr)
         return 0
-    line = run_config(opts.config, opts.chunk_batches, opts.device,
-                      opts.steps, opts.reps, opts.segment_batches,
-                      opts.depth_stride)
+    if opts.sharded:
+        mesh_shape = tuple(int(v) for v in
+                           opts.sharded.replace("x", ",").split(","))
+        if len(mesh_shape) != 2:
+            ap.error(f"--sharded takes DxM, got {opts.sharded!r}")
+        line = run_sharded_config(opts.config, mesh_shape, opts.device,
+                                  opts.steps, opts.reps, opts.depth_stride)
+    else:
+        line = run_config(opts.config, opts.chunk_batches, opts.device,
+                          opts.steps, opts.reps, opts.segment_batches,
+                          opts.depth_stride)
     print(json.dumps(line), flush=True)
     return 0
 

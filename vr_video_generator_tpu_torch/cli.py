@@ -4,8 +4,10 @@ The same flags as vr_video_generator_tpu.cli: the 15 reference flags
 (reference PredictAndGenerate.py:327-363) with their names and defaults,
 unknown flags discarded via parse_known_args (:365), the same sign fixup of
 the offsets (:387-393) and the same build knobs; plus ``--device`` (default
-``cuda``). ``build_parser`` and ``parse_run_config`` are the port's own copy
-of the JAX package's (the port imports nothing of it).
+``cuda``). ``--mesh Dx1`` runs the sharded runtime on D devices; a model
+axis above 1 and the multi-host flags raise ``not_ported``.
+``build_parser`` and ``parse_run_config`` are the port's own copy of the
+JAX package's (the port imports nothing of it).
 
 Usage:  python -m vr_video_generator_tpu_torch.cli --VideoDir in.mp4 \
             --OutputDir out.mkv [--device cuda]
@@ -120,8 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler Chrome trace of the "
                         "conversion here")
     p.add_argument("--mesh", type=str, default="",
-                   help="(data,model) device-mesh shape, e.g. 4x2 — runs the "
-                        "sharded multi-chip pipeline instead of single-chip")
+                   help="(data,model) device-mesh shape, e.g. 4x1: runs the "
+                        "sharded runtime, one contiguous segment per data "
+                        "slot, one slot per device (--device cpu: that many "
+                        "CPU slots); model must be 1 for now")
     # multi-host bootstrap (jax.distributed); all three or none
     p.add_argument("--coordinator_address", type=str, default="",
                    help="host:port of process 0 for multi-host pod slices")
@@ -176,8 +180,17 @@ def parse_run_config(argv: Optional[List[str]] = None
 
 def main(argv: Optional[List[str]] = None) -> int:
     cfg, args = parse_run_config(argv)
-    if args.mesh or args.coordinator_address or args.num_processes > 1:
-        not_ported("--mesh / multi-host runs", "sharded and multi-GPU runtime")
+    if args.coordinator_address or args.num_processes > 1 \
+            or args.process_id >= 0:
+        not_ported("multi-host runs (--coordinator_address, --num_processes, "
+                   "--process_id)", "sharded runtime, model axis and "
+                   "multi-host")
+    if cfg.mesh_shape is not None:
+        if len(cfg.mesh_shape) != 2:
+            raise ValueError(f"--mesh takes DxM, got {args.mesh!r}")
+        if cfg.mesh_shape[1] > 1:
+            not_ported(f"--mesh {args.mesh} (model axis {cfg.mesh_shape[1]})",
+                       "sharded runtime, model axis and multi-host")
     from vr_video_generator_tpu_torch.runtime.orchestrator import run
 
     run(cfg, allow_random=args.allow_random_weights, device=args.device)

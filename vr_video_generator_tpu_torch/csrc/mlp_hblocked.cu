@@ -44,6 +44,18 @@
 // the next tile's products, part on the consumers. At K = D = 384 a fc1
 // tile has only six K slices, so the GELU, not the products, can set its
 // time.
+//
+// --gelu tanh (ModelConfig.gelu_approx): the TPU kernels take `approx` and
+// apply jax.nn.gelu(t, approximate=True) to the bf16 t = bf16(a w1^T) + b1
+// (mlp_pallas.py:50-55), which rounds every operation to bf16: x^3 as (x x)
+// x, 0.044715 and sqrt(2/pi) as bf16 constants, + x, * sqrt(2/pi), tanh, 1
+// + ., 0.5 * ., x * . (ops/gelu.gelu_tanh). The chain's fc1 epilogue has a
+// variant (Fc1Gelu's TANH) that does the same on the card: each step an
+// f32 operation on bf16 values, __fmul_rn/__fadd_rn so that nothing
+// contracts to an FMA, IEEE tanhf (not tanh.approx.f32), each result
+// rounded to bf16. It is lighter than the A&S GELU (one tanhf and nine
+// rounded operations against an expf, a reciprocal and ~15), so the tanh
+// chains keep the exact ones' share of boxes on the consumers.
 
 #include <cuda_bf16.h>
 
@@ -68,7 +80,24 @@ using tma_gemm::Wide;
 // 399 with one, 398 with none, 386 with four; at D = 768 and 384, 0.280
 // and 0.109 ms with three, 0.301 and 0.114 with two; at D = 128, 0.044
 // with one, 0.050 with two, 0.063 with three).
-template <int CB>
+// jax.nn.gelu(x, approximate=True) on a bf16 x at XLA's bf16 rounding
+// points (see the header): every product and sum an f32 operation on bf16
+// values, rounded to bf16. C0 and C1 are 0.044715 and sqrt(2/pi) rounded
+// to bf16 (0.044677734375 and 0.796875).
+__device__ __forceinline__ bf16 gelu_tanh(bf16 xb) {
+  constexpr float C0 = 0.044677734375f, C1 = 0.796875f;
+  const float x = bf(xb);
+  const float x2 = bf(rbf(__fmul_rn(x, x)));
+  const float x3 = bf(rbf(__fmul_rn(x2, x)));
+  const float p = bf(rbf(__fmul_rn(x3, C0)));
+  const float s = bf(rbf(__fadd_rn(x, p)));
+  const float u = bf(rbf(__fmul_rn(s, C1)));
+  const float t = bf(rbf(tanhf(u)));
+  const float c = bf(rbf(__fmul_rn(0.5f, bf(rbf(__fadd_rn(1.f, t))))));
+  return rbf(__fmul_rn(x, c));
+}
+
+template <int CB, bool TANH = false>
 struct Fc1Gelu {
   static constexpr int CONSUMER_BOXES = CB;
   static constexpr bool GATED = false;
@@ -81,23 +110,33 @@ struct Fc1Gelu {
     load_bf16(b, bias + col);
 #pragma unroll
     for (int e = 0; e < N; ++e) {
-      v[e] = rbf(gelu_as(bf(add_bf(v[e], b[e]))));
+      if constexpr (TANH) {
+        v[e] = gelu_tanh(add_bf(v[e], b[e]));
+      } else {
+        v[e] = rbf(gelu_as(bf(add_bf(v[e], b[e]))));
+      }
     }
   }
 };
 
-// LN -> fc1 + GELU (CB consumer boxes) -> fc2 + residual, fc2 on
-// Fc2Shape's tiles.
-template <int CB, class Fc2Shape>
-int chain(const void* x, const void* lnw, const void* lnb, const void* w1,
-          const void* b1, const void* w2, const void* b2, const void* gamma,
-          void* a, void* h, void* out, int m, int d, float eps,
-          void* stream) {
+__global__ void gelu_tanh_kernel(const bf16* __restrict__ x,
+                                 bf16* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = gelu_tanh(x[i]);
+}
+
+// LN -> fc1 + GELU (CB consumer boxes; the tanh GELU with TANH) -> fc2 +
+// residual, fc2 on Fc2Shape's tiles.
+template <int CB, class Fc2Shape, bool TANH>
+int chain_at(const void* x, const void* lnw, const void* lnb, const void* w1,
+             const void* b1, const void* w2, const void* b2,
+             const void* gamma, void* a, void* h, void* out, int m, int d,
+             float eps, void* stream) {
   const int hid = 4 * d;
   int err = vrvg_layernorm(x, lnw, lnb, a, m, d, eps, stream);
   if (err != 0) return err;
-  err = tma_gemm::gemm(a, w1, h, m, hid, d, Fc1Gelu<CB>{(const bf16*)b1},
-                       stream);
+  err = tma_gemm::gemm(a, w1, h, m, hid, d,
+                       Fc1Gelu<CB, TANH>{(const bf16*)b1}, stream);
   if (err != 0) return err;
   return tma_gemm::gemm<Fc2Shape>(
       h, w2, out, m, d, hid,
@@ -106,27 +145,40 @@ int chain(const void* x, const void* lnw, const void* lnb, const void* w1,
       stream);
 }
 
+template <int CB, class Fc2Shape>
+int chain(const void* x, const void* lnw, const void* lnb, const void* w1,
+          const void* b1, const void* w2, const void* b2, const void* gamma,
+          void* a, void* h, void* out, int m, int d, float eps, int approx,
+          void* stream) {
+  return approx ? chain_at<CB, Fc2Shape, true>(x, lnw, lnb, w1, b1, w2, b2,
+                                               gamma, a, h, out, m, d, eps,
+                                               stream)
+                : chain_at<CB, Fc2Shape, false>(x, lnw, lnb, w1, b1, w2, b2,
+                                                gamma, a, h, out, m, d, eps,
+                                                stream);
+}
+
 }  // namespace
 
 // Row 8: x (M, D) bf16, LN affine (D,) f32, w1 (4D, D), b1 (4D,), w2 (D,
 // 4D), b2 (D,), gamma (D,) bf16; scratch a (M, D) and h (M, 4D) bf16 -> out
-// (M, D) bf16. D in {128, 384, 768}.
+// (M, D) bf16. D in {128, 384, 768}. approx != 0: the tanh GELU.
 extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
                                  const void* lnb, const void* w1,
                                  const void* b1, const void* w2,
                                  const void* b2, const void* gamma, void* a,
                                  void* h, void* out, int m, int d, float eps,
-                                 void* stream) {
+                                 int approx, void* stream) {
   switch (d) {
     case 128:
       return chain<1, Tile<128, 128>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
-                                      h, out, m, d, eps, stream);
+                                      h, out, m, d, eps, approx, stream);
     case 384:
       return chain<3, Tile<128, 192>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
-                                      h, out, m, d, eps, stream);
+                                      h, out, m, d, eps, approx, stream);
     case 768:
       return chain<3, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m,
-                            d, eps, stream);
+                            d, eps, approx, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -137,8 +189,18 @@ extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
 extern "C" int vrvg_mlp_residual_hblocked(
     const void* x, const void* lnw, const void* lnb, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* gamma,
-    void* a, void* h, void* out, int m, int d, float eps, void* stream) {
+    void* a, void* h, void* out, int m, int d, float eps, int approx,
+    void* stream) {
   if (d % Wide::BN != 0) return (int)cudaErrorInvalidValue;
   return chain<2, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
-                        eps, stream);
+                        eps, approx, stream);
+}
+
+// The tanh GELU of the fc1 epilogue, elementwise: x (n,) bf16 -> out (n,)
+// bf16, for the check of its arithmetic on every bf16 input.
+extern "C" int vrvg_gelu_tanh(const void* x, void* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  gelu_tanh_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (bf16*)out, n);
+  return (int)cudaGetLastError();
 }

@@ -49,9 +49,10 @@ SIGNATURES = {
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _F, _P],
+                          _I, _I, _F, _I, _P],
     "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _F, _P],
+                                   _P, _I, _I, _F, _I, _P],
+    "vrvg_gelu_tanh": [_P, _P, _I, _P],
     "vrvg_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_swiglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _F, _P],

@@ -3,7 +3,8 @@
 Mirrors vr_video_generator_tpu/models/dinov2.py: patch embed as one GEMM in
 the (py, px, c) flatten order, cls token, bicubic pos-embed resample with
 the +0.1 offset, pre-norm blocks (LayerNorm -> qkv -> attention -> proj ->
-LayerScale, LayerNorm -> MLP with the A&S GELU, or vitg's SwiGLU ->
+LayerScale, LayerNorm -> MLP with the A&S GELU (the tanh GELU with
+``gelu_approx``), or vitg's SwiGLU ->
 LayerScale), and final-norm taps. Module and parameter names are the
 upstream state_dict names (``pretrained.blocks.{i}.attn.qkv.weight``,
 ``...mlp.w12.weight``), so an official checkpoint loads with
@@ -38,7 +39,6 @@ from vr_video_generator_tpu_torch.ops import mlp as mlp_ops
 from vr_video_generator_tpu_torch.ops import qkv as qkv_ops
 from vr_video_generator_tpu_torch.ops.attention import (attention, mha,
                                                         oneshot_supported)
-from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm
 from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
                                                   mlp_residual_hblocked,
@@ -116,13 +116,17 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 -> GELU -> fc2: the A&S GELU, or with ``gelu_approx`` the tanh
+    GELU (``ModelConfig.gelu_approx``, ``--gelu tanh``)."""
+
+    def __init__(self, dim: int, hidden: int, gelu_approx: bool = False):
         super().__init__()
+        self.gelu_approx = gelu_approx
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.fc2(mlp_ops.gelu(self.fc1(x), self.gelu_approx))
 
 
 class SwiGLUFFN(nn.Module):
@@ -154,7 +158,8 @@ class Block(nn.Module):
     parameters either way."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 mlp_fused: str = "auto", ffn_layer: str = "mlp"):
+                 mlp_fused: str = "auto", ffn_layer: str = "mlp",
+                 gelu_approx: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.mlp_fused = dim, num_heads, mlp_fused
         self.ffn_layer = ffn_layer
@@ -165,7 +170,7 @@ class Block(nn.Module):
         if ffn_layer == "swiglufused":
             self.mlp = SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio))
         elif ffn_layer == "mlp":
-            self.mlp = Mlp(dim, int(dim * mlp_ratio))
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
         else:
             raise ValueError(f"ffn_layer must be mlp or swiglufused, got "
                              f"{ffn_layer!r}")
@@ -197,7 +202,8 @@ class Block(nn.Module):
             return half(x, self.norm2.weight, self.norm2.bias,
                         self.mlp.fc1.weight, self.mlp.fc1.bias,
                         self.mlp.fc2.weight, self.mlp.fc2.bias,
-                        self.ls2.gamma, eps=self.norm2.eps)
+                        self.ls2.gamma, eps=self.norm2.eps,
+                        approx=self.mlp.gelu_approx)
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -235,7 +241,7 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused,
-                  cfg.ffn_layer)
+                  cfg.ffn_layer, cfg.gelu_approx)
             for _ in range(cfg.depth))
         self.norm = LayerNorm(d)
 

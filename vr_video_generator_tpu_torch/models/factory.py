@@ -1,4 +1,5 @@
-"""Model factory: official checkpoints or seeded random weights (numpy)."""
+"""Model factory: the port's checkpoint directories, official checkpoints or
+seeded random weights (numpy)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from vr_video_generator_tpu_torch.utils.config import ModelConfig
+from vr_video_generator_tpu_torch.models import checkpoint
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 
 # Parameters that stay f32 whatever the compute dtype: LayerNorm affine
@@ -76,12 +78,18 @@ def load_model(encoder: str, encoder_path: Optional[str] = None,
                allow_random: bool = False, seed: int = 0,
                cfg: Optional[ModelConfig] = None,
                tail: str = "auto") -> DepthAnythingV2:
-    """Load an official Depth-Anything-V2 ``.pth`` or, with
-    ``allow_random``, seeded random weights. ``cfg`` overrides the
-    encoder's ModelConfig (e.g. RunConfig.model()); ``tail`` is the DPT
-    head's tail path."""
+    """Load a checkpoint directory of the port's format
+    (:mod:`models.checkpoint`), an official Depth-Anything-V2 ``.pth`` or,
+    with ``allow_random``, seeded random weights. A directory takes the
+    first branch, as the JAX package's ``load_model`` reads one as its
+    Orbax checkpoint: any other directory (an Orbax one, an empty one)
+    raises whatever ``allow_random`` is, and never falls through to random
+    weights. ``cfg`` overrides the encoder's ModelConfig (e.g.
+    RunConfig.model()); ``tail`` is the DPT head's tail path."""
     cfg = cfg or ModelConfig.for_encoder(encoder)
-    if encoder_path and os.path.isfile(encoder_path):
+    if encoder_path and os.path.isdir(encoder_path):
+        state_dict = checkpoint.load(encoder_path)
+    elif encoder_path and os.path.isfile(encoder_path):
         state_dict = torch.load(encoder_path, map_location="cpu",
                                 weights_only=True)
     elif allow_random:

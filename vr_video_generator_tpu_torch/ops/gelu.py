@@ -1,10 +1,18 @@
-"""The A&S 7.1.26 erf GELU of vr_video_generator_tpu/ops/gelu.py, in f32.
+"""The GELUs of the JAX package: the A&S 7.1.26 erf GELU of
+vr_video_generator_tpu/ops/gelu.py in f32 (``gelu_exact``), and the tanh
+approximation of ``jax.nn.gelu(x, approximate=True)`` (``gelu_tanh``,
+``--gelu tanh``).
 
-Not torch's exact erf: the two differ by up to ~8e-7 in f32, and this form
-flushes to -0.0 below x ~ -5.7. The port keeps the JAX package's numbers.
+``gelu_exact`` is not torch's exact erf: the two differ by up to ~8e-7 in
+f32, and this form flushes to -0.0 below x ~ -5.7. ``gelu_tanh`` is not
+``F.gelu(approximate="tanh")``, which computes in f32 and rounds once: the
+JAX function rounds every operation to x's dtype. The port keeps the JAX
+package's numbers.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,3 +32,20 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     poly = t * (_A[0] + t * (_A[1] + t * (_A[2] + t * (_A[3] + t * _A[4]))))
     erf = torch.sign(z) * (1.0 - poly * torch.exp(-a * a))
     return (0.5 * xf * (1.0 + erf)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _tanh_consts(dtype: torch.dtype) -> tuple:
+    """(0.044715, sqrt(2/pi)) rounded to ``dtype``, as jax.nn.gelu holds
+    them: the first a weak-typed Python float, the second cast by numpy."""
+    return tuple(float(torch.tensor(v, dtype=torch.float64).to(dtype))
+                 for v in (0.044715, np.sqrt(2 / np.pi)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))) in x's dtype,
+    each operation rounded to it as jax.nn.gelu(x, approximate=True) rounds:
+    x^3 as (x x) x, the constants in x's dtype, then x * cdf."""
+    c, k = _tanh_consts(x.dtype)
+    inner = (x + x * x * x * c) * k
+    return x * (0.5 * (1.0 + torch.tanh(inner)))

@@ -3,8 +3,9 @@
 Replaces vr_video_generator_tpu/ops/mlp_pallas.py `mlp_residual_pallas`:
 x + gamma * fc2(GELU(fc1(LN2(x)))) with LN in f32, each dense layer's
 product cast to the compute dtype before its bias add, the A&S GELU in f32
-(ops/gelu.py), and gamma * y and the residual add rounded in the compute
-dtype. The JAX package runs it with the weights resident (body
+(ops/gelu.py; with ``approx`` the tanh GELU, every operation rounded to the
+compute dtype, ``gelu_tanh``), and gamma * y and the residual add rounded in
+the compute dtype. The JAX package runs it with the weights resident (body
 `_kernel_resident`, row 8) where they fit in 10 MiB, at vits and vitb, and
 hidden-blocked (body `_kernel`, row 9) above, at vitl; :func:`resident` is
 its rule. Both compute the same function, so both wrappers share the plain
@@ -34,13 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
-from vr_video_generator_tpu_torch.ops.gelu import gelu_exact
+from vr_video_generator_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
 
 LAUNCHES = counter("mlp_residual")
 HBLOCKED_LAUNCHES = counter("mlp_residual_hblocked")
+# The chains with the tanh GELU in fc1's epilogue (--gelu tanh), counted
+# apart from the exact ones.
+TANH_LAUNCHES = counter("mlp_residual_tanh")
+HBLOCKED_TANH_LAUNCHES = counter("mlp_residual_hblocked_tanh")
 SWIGLU_LAUNCHES = counter("swiglu_residual")
 SILU_MUL_LAUNCHES = counter("silu_mul")
+GELU_TANH_LAUNCHES = counter("gelu_tanh")
 WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
 SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
@@ -82,6 +88,32 @@ def silu_mul_kernel(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gelu(x: torch.Tensor, approx: bool = False) -> torch.Tensor:
+    """The MLP's GELU: the A&S erf form, or with ``approx`` the tanh form
+    (``ModelConfig.gelu_approx``, ``--gelu tanh``)."""
+    return gelu_tanh(x) if approx else gelu_exact(x)
+
+
+def gelu_tanh_kernel(x: torch.Tensor) -> torch.Tensor:
+    """:func:`ops.gelu.gelu_tanh` of a bf16 tensor: the plain version for
+    CPU tensors, for CUDA tensors the device function that the tanh
+    variant of rows 8 and 9's fc1 epilogue applies, launched elementwise
+    (no CLI path calls this; it exposes the epilogue's arithmetic for a
+    check over every bf16 input)."""
+    if not on_cuda(x):
+        return gelu_tanh(x)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"gelu_tanh kernel takes contiguous bf16, got "
+                         f"{x.dtype} contiguous={x.is_contiguous()}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty_like(x)
+    check(library().vrvg_gelu_tanh(x.data_ptr(), out.data_ptr(), x.numel(),
+                                   stream_handle(x.device)), "vrvg_gelu_tanh")
+    GELU_TANH_LAUNCHES.count += 1
+    return out
+
+
 def swiglu_gate_plain(h: torch.Tensor, w12: torch.Tensor,
                       b12: torch.Tensor) -> torch.Tensor:
     """Row 10's second stage: silu(x1) * x2 with [x1 | x2] = w12(h) + b12
@@ -108,22 +140,24 @@ def swiglu_residual_plain(x: torch.Tensor, ln_w: torch.Tensor,
 def mlp_residual_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                        b2: torch.Tensor, gamma: torch.Tensor,
-                       eps: float = 1e-6) -> torch.Tensor:
-    """(..., D) -> x + gamma * (fc2(GELU(fc1(LN(x)) + b1)) + b2)."""
+                       eps: float = 1e-6, approx: bool = False) -> torch.Tensor:
+    """(..., D) -> x + gamma * (fc2(GELU(fc1(LN(x)) + b1)) + b2); ``approx``
+    the tanh GELU."""
     dt = x.dtype
     h = layernorm_plain(x, ln_w, ln_b, eps)
     t = F.linear(h, w1.to(dt))
     t = t + b1.to(dt)
-    y = F.linear(gelu_exact(t), w2.to(dt))
+    y = F.linear(gelu(t, approx), w2.to(dt))
     y = y + b2.to(dt)
     return x + gamma.to(dt) * y
 
 
-def fc1_gelu_plain(a: torch.Tensor, w1: torch.Tensor,
-                   b1: torch.Tensor) -> torch.Tensor:
+def fc1_gelu_plain(a: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   approx: bool = False) -> torch.Tensor:
     """The second stage of rows 8 and 9: GELU(fc1(a) + b1) on LayerNorm'd
-    rows ``a``, the product cast to a's dtype before the bias add."""
-    return gelu_exact(F.linear(a, w1.to(a.dtype)) + b1.to(a.dtype))
+    rows ``a``, the product cast to a's dtype before the bias add;
+    ``approx`` the tanh GELU."""
+    return gelu(F.linear(a, w1.to(a.dtype)) + b1.to(a.dtype), approx)
 
 
 def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
@@ -152,62 +186,71 @@ def resident(d: int, hidden: int, dtype: torch.dtype) -> bool:
 def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, gamma: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 eps: float = 1e-6, approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 8's
-    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D)."""
+    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D);
+    ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
-        return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
-    return mlp_residual_stages(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)[2]
+        return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                                  approx)
+    return mlp_residual_stages(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                               approx)[2]
 
 
 def mlp_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
                         ln_b: torch.Tensor, w1: torch.Tensor,
                         b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                        gamma: torch.Tensor, eps: float = 1e-6):
+                        gamma: torch.Tensor, eps: float = 1e-6,
+                        approx: bool = False):
     """Row 8 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
-    return _gelu_mlp_stages("mlp_residual", WIDTHS, LAUNCHES, x, ln_w, ln_b,
-                            w1, b1, w2, b2, gamma, eps)
+    return _gelu_mlp_stages("mlp_residual", WIDTHS,
+                            TANH_LAUNCHES if approx else LAUNCHES, x, ln_w,
+                            ln_b, w1, b1, w2, b2, gamma, eps, approx)
 
 
 def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
                           ln_b: torch.Tensor, w1: torch.Tensor,
                           b1: torch.Tensor, w2: torch.Tensor,
                           b2: torch.Tensor, gamma: torch.Tensor,
-                          eps: float = 1e-6) -> torch.Tensor:
+                          eps: float = 1e-6,
+                          approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 9's
     kernel chain for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, hidden
-    4D)."""
+    4D); ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
-        return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+        return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                                  approx)
     return mlp_residual_hblocked_stages(x, ln_w, ln_b, w1, b1, w2, b2, gamma,
-                                        eps)[2]
+                                        eps, approx)[2]
 
 
 def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
                                  ln_b: torch.Tensor, w1: torch.Tensor,
                                  b1: torch.Tensor, w2: torch.Tensor,
                                  b2: torch.Tensor, gamma: torch.Tensor,
-                                 eps: float = 1e-6):
+                                 eps: float = 1e-6, approx: bool = False):
     """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
     return _gelu_mlp_stages("mlp_residual_hblocked", HBLOCKED_WIDTHS,
-                            HBLOCKED_LAUNCHES, x, ln_w, ln_b, w1, b1, w2, b2,
-                            gamma, eps)
+                            HBLOCKED_TANH_LAUNCHES if approx
+                            else HBLOCKED_LAUNCHES, x, ln_w, ln_b, w1, b1, w2,
+                            b2, gamma, eps, approx)
 
 
 def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
                      ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                     gamma: torch.Tensor, eps: float):
+                     gamma: torch.Tensor, eps: float, approx: bool = False):
     """The GELU MLP half stage by stage: (LN(x), GELU(fc1(.) + b1), the
-    output). For CPU tensors, the plain versions of the stages, each shaped
-    as x; for CUDA tensors, one launch of the entry point ``vrvg_<kernel>``
-    (D in ``widths``), counted on ``launches``, whose scratch holds the
-    first two as (M, .) with M the rows of x."""
+    output), ``approx`` the tanh GELU. For CPU tensors, the plain versions
+    of the stages, each shaped as x; for CUDA tensors, one launch of the
+    entry point ``vrvg_<kernel>`` (D in ``widths``; its fc1 epilogue's tanh
+    variant with ``approx``), counted on ``launches``, whose scratch holds
+    the first two as (M, .) with M the rows of x."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         a = layernorm_plain(x, ln_w, ln_b, eps)
-        h = fc1_gelu_plain(a, w1, b1)
+        h = fc1_gelu_plain(a, w1, b1, approx)
         return a, h, fc2_residual_plain(h, w2, b2, gamma, x)
     d = x.shape[-1]
     _check_mlp_operands(kernel, widths, x, ln_w, ln_b, w1, b1, w2, b2, gamma)
@@ -221,7 +264,7 @@ def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
     check(getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, eps,
+        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, eps, int(approx),
         stream_handle(x.device)), f"vrvg_{kernel}")
     launches.count += 1
     return a, h, out

@@ -87,8 +87,6 @@ def check_supported(run_cfg: RunConfig) -> None:
                          torch.float32, cfg.ffn_layer)
     if run_cfg.tail not in TAILS:
         raise ValueError(f"tail must be one of {TAILS}, got {run_cfg.tail!r}")
-    if run_cfg.gelu != "exact":
-        not_ported(f"gelu={run_cfg.gelu!r}", "UI impl switches")
 
 
 class SbsPipeline:
@@ -288,6 +286,9 @@ class StepGraph:
     memory pool. At depth_stride 1 the state's ``anchor_prev`` is None and
     stays out of the copies; at s > 1 it is the sixth static tensor.
 
+    The capture runs on a stream of the pipeline's device, so a pipeline
+    on any card captures (the data axis has one a slot).
+
     Each wrapper's ``LaunchCounter`` counts in Python, so it counts at
     capture, when nothing runs. The counts a capture adds are taken back
     and kept as ``launches``, the kernel launches of one replay, and each
@@ -308,7 +309,12 @@ class StepGraph:
         torch.cuda.synchronize(pipe.device)
         before = {name: c.count for name, c in COUNTERS.items()}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(self.graph):
+        # A capture stream on the pipeline's device: torch.cuda.graph's
+        # default one is made once per process, on the device current then,
+        # and a capture of another device's work on it fails.
+        capture = torch.cuda.Stream(pipe.device)
+        with torch.inference_mode(), torch.cuda.graph(self.graph,
+                                                      stream=capture):
             st, outs = self.state, []
             for i in range(k):
                 sbs, st = pipe.step(self.frames[i], st)

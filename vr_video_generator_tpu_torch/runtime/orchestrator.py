@@ -2,7 +2,9 @@
 stride anchor grid, combine, and check-and-repair.
 
 Mirrors vr_video_generator_tpu/runtime/orchestrator.py `convert_range`,
-`run` and `check_and_repair` on one device:
+`run` and `check_and_repair`; with ``cfg.mesh_shape`` set a range goes to
+the sharded runtime (``runtime/sharded_runner.py``, one contiguous segment
+per data slot), as in the JAX package:
 
   repair_mode 0: clear the debug and subclip dirs, convert (under a
                  torch.profiler trace with ``profile_dir``), combine
@@ -47,17 +49,26 @@ def convert_range(cfg: RunConfig, begin: int, end: int,
     video has the frames, ends at ceil(end/s)*s, the extra outputs
     discarded, and the warm-up window is rounded up to the grid, so a
     repair range renders bit-identically to the original full run. At
-    stride 1 this is all identity."""
+    stride 1 this is all identity. With ``cfg.mesh_shape`` set (and no
+    ``pipeline``) the range goes to the sharded runtime."""
     from vr_video_generator_tpu_torch.video.reader import VideoReader, probe_video
     from vr_video_generator_tpu_torch.video.writer import (SubclipWriter,
                                                      get_ffmpeg_config)
 
-    if cfg.mesh_shape is not None:
-        not_ported("--mesh (multi-device runs)", "sharded and multi-GPU runtime")
     fps, video_length, width, height = probe_video(cfg.video_dir)
     end = min(end, video_length)
     if end <= begin:
         return 0
+    if cfg.mesh_shape is not None and pipeline is None:
+        return _convert_range_sharded(cfg, begin, end, width, height,
+                                      allow_random=allow_random, log=log,
+                                      device=device)
+    if pipeline is not None and not isinstance(pipeline, SbsPipeline):
+        # a sharded pipeline in the single-device loop would read its batch
+        # as n_data separate temporal segments
+        raise TypeError("convert_range takes a single-device SbsPipeline; "
+                        "for the sharded runtime set cfg.mesh_shape and "
+                        "pass pipeline=None")
     if pipeline is None:
         pipeline = SbsPipeline.create(cfg, height, width,
                                       allow_random=allow_random, device=device)
@@ -102,6 +113,56 @@ def convert_range(cfg: RunConfig, begin: int, end: int,
         writer.close()
 
 
+def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
+                           width: int, height: int,
+                           allow_random: bool = False,
+                           log: Optional[WorkerLog] = None,
+                           device: str = "cuda") -> int:
+    """Frames [begin, end) through ``run_sharded`` on a mesh of
+    ``cfg.mesh_shape`` over every device of type ``device`` (on the CPU:
+    that many ``cpu`` slots). The model is built once on the CPU and each
+    slot's replica copied to its device."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import load_model
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.pipeline import (check_supported,
+                                                       resolve_device)
+    from vr_video_generator_tpu_torch.runtime.sharded_runner import \
+        run_sharded
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n_data, n_model = cfg.mesh_shape
+    mesh = make_mesh(cfg.mesh_shape, device=dev.type,
+                     devices=([dev] * (n_data * n_model)
+                              if dev.type == "cpu" else None))
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    if dev.type == "cuda" and dtype == torch.float32:
+        not_ported("compute_dtype='float32' on the card", "f32 on the card")
+    model = load_model(cfg.encoder, cfg.encoder_path, dtype=dtype,
+                       device="cpu", allow_random=allow_random,
+                       cfg=cfg.model(), tail=cfg.tail)
+    pipe = ShardedSbsPipeline(model, height, width, mesh, run_cfg=cfg)
+    del model
+    log = log or WorkerLog(os.path.join(cfg.debug_dir, "sharded_p0.txt"))
+    try:
+        return run_sharded(pipe, cfg.video_dir, cfg.subclip_dir, begin, end,
+                           max_frame_count=cfg.max_frame_count,
+                           batch_size=cfg.batch_size, log=log,
+                           reader_backend=cfg.reader_backend,
+                           writer_backend=cfg.writer_backend,
+                           warmup=cfg.warmup_frames,
+                           overflow_path=overflow_path(cfg.debug_dir))
+    except Exception as e:  # error funnel: the log and ERROR.txt
+        log.error("Sharded conversion failed", e,
+                  error_path=os.path.join(cfg.debug_dir, "ERROR.txt"))
+        raise
+
+
 def run(cfg: RunConfig, allow_random: bool = False,
         device: str = "cuda") -> None:
     """Full run with repair_mode dispatch (modes 0-3)."""
@@ -134,13 +195,14 @@ def check_and_repair(cfg: RunConfig, repair: bool = True,
     """Check the subclips (``video.check.check_subclips``) and, with
     ``repair``, remove the bad ones and convert exactly their ranges again,
     all through one pipeline: ``pipeline``, or one built at the first
-    broken range."""
+    broken range. With ``cfg.mesh_shape`` set, each range goes through the
+    sharded runtime, which builds its own."""
     from vr_video_generator_tpu_torch.video.check import check_subclips
     from vr_video_generator_tpu_torch.video.reader import probe_video
 
     issues = check_subclips(cfg.subclip_dir, remove_bad=repair)
     if repair and issues:
-        if pipeline is None:
+        if pipeline is None and cfg.mesh_shape is None:
             _, _, width, height = probe_video(cfg.video_dir)
             pipeline = SbsPipeline.create(cfg, height, width,
                                           allow_random=allow_random,

@@ -103,7 +103,25 @@ Phases, each fatal on failure:
      with ``--mesh 1x1`` on a 1080p mp4 equal to the run without it, and
      ``check_and_repair`` of a lost subclip with the mesh equal to the full
      run's; (g) ``bench --sharded 1x1 --config 2`` once, cut to 2 repeats,
-     its JSON line printed.
+     its JSON line printed;
+  8. f32 on the card (``--compute_dtype float32``): (a) the f32 kernels of
+     rows 1 (at vits', vitl-728's and vitg-518's rows), 5 and 6 (D = 384), 2
+     (vits' shapes), 17 (vitl-728's) and 7 (C = 64, stage by stage) against
+     their plain versions with both TF32 flags off, each bound shown to
+     refuse the TF32 result of the same operands, timed beside the plain
+     version, one library call (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's
+     two convs, all f32) and the f32 bound (67 TFLOP/s); with PyTorch's
+     default TF32 flags (cuDNN's on): (b) vits ``auto`` at f32 through
+     ``process_segment`` (1 batch of 8): TF32 off inside the forward and
+     restored after, exactly the f32 kernels a step (16, 12, 12, 12 and 1),
+     none of their plain versions, no host sync in a step, the right half
+     the input, the SBS the plain warp of its own depth, ``step_many`` (k =
+     2) bit for bit equal to two steps, and the depth against a plain f64
+     forward at most 2x the plain f32 path's error; (c) vitl-518, vitg-518
+     and vitl-728 ``xla``/``xla`` at f32 (4 blocks, batch 2) through rows 1
+     and 2, or 1 and 17; (d) ``cli.main --compute_dtype float32`` plainly,
+     with ``--mesh 1x1`` and with ``--depth_stride 2`` on a 1080p mp4; (e)
+     ``bench --config 2 --compute_dtype float32`` once, its line printed.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -113,14 +131,16 @@ twice: at D = 384 and 768; row 9 twice: at M = 19544 and 38280; row 7 four
 times: at vits' C=64, vitb's C=128, vitl-252's C=256 and vitg-126's C=384;
 rows 11 and 12 three times: at vitl-518's, vitl-728's and vitg-518's
 shapes; the tanh variants of rows 8 and 9 at vitb-518's D = 768 and
-vitl-518's D = 1024, with the launches of phase 7's paths), and as the last
-line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+vitl-518's D = 1024, with the launches of phase 7's paths; the f32 kernels
+of phase 8 with the launches of its paths, row 1 at f32 three times), and
+as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -2584,6 +2604,674 @@ def sharded_path(device, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: f32 on the card.
+
+# The f32 variants of rows 1, 2, 5, 6, 7 and 17 (--compute_dtype float32),
+# with their sources and the TPU kernels they replace.
+KERNELS_F32 = {
+    "layernorm_f32": ("cuda", f"{PKG}/csrc/layernorm.cu",
+                      f"{JAX_PKG}/ops/layernorm.py:33"),
+    "ln_qkv_f32": ("cuda", f"{PKG}/csrc/qkv_f32.cu",
+                   f"{JAX_PKG}/ops/qkv_pallas.py:59"),
+    "proj_ls_residual_f32": ("cuda", f"{PKG}/csrc/qkv_f32.cu",
+                             f"{JAX_PKG}/ops/qkv_pallas.py:137"),
+    "attention_f32": ("cuda", f"{PKG}/csrc/attention_f32.cu",
+                      f"{JAX_PKG}/ops/attention_pallas.py:43"),
+    "flash_attention_f32": ("cuda", f"{PKG}/csrc/attention_f32.cu",
+                            f"{JAX_PKG}/ops/attention.py:53"),
+    "head_tail_ext_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
+                          f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
+}
+# The card's f32 rate outside the tensor cores (H100 SXM data sheet): the
+# f32 kernels' operations bound (wgmma takes no f32 operands).
+F32_FLOP_PER_S = 67e12
+# One vits auto step at f32 (1080p, B = 8, --input_size 518): the attention
+# half fused (attn_fusable(384, 2443, f32)), the MLP half unfused (D < 512:
+# cuBLAS SGEMMs and the eager GELU), the ext tail at C = 64; LayerNorm at
+# norm2 of each block and the four taps.
+AUTO_VITS_F32_STEP = {"layernorm_f32": 16, "ln_qkv_f32": 12,
+                      "attention_f32": 12, "proj_ls_residual_f32": 12,
+                      "head_tail_ext_f32": 1, "warp_composite": 1,
+                      "blur_select_sbs": 1}
+# --mlp_fused xla --tail xla at f32: LayerNorm twice a block and at the four
+# taps, the one-shot attention (N <= 4096) or the flash kernel (N > 4096).
+XLA_F32 = ("layernorm_f32", "attention_f32", "warp_composite",
+           "blur_select_sbs")
+XLA_F32_FLASH = ("layernorm_f32", "flash_attention_f32", "warp_composite",
+                 "blur_select_sbs")
+# vitl and vitg on the xla path in phase 8 run 4 of their blocks (taps at
+# blocks 0-3) at their full width: the kernels' shapes are the width's and
+# the token count's, not the depth's; at batch 2.
+F32_CUT_DEPTH, F32_CUT_BATCH = 4, 2
+# Bounds of the f32 kernels against their plain versions, both f32 with
+# both TF32 flags off. The dense rows (1, 5, 6) in f32 ulps of each output's
+# scale (as operand_ulps, at 23 bits): only the sums' order differs. Rows 2
+# and 17 relative to max / mean |o|, the tail relative to the depth's
+# range. Each bound must refuse the same function computed with TF32 (10
+# mantissa bits: thousands of f32 ulps, ~1e-3 relative), which the check
+# shows on the same operands. Measured (NVIDIA H100 80GB HBM3, 700.00 W):
+# row 1 6 ulps, row 5 24, row 6 0, row 7's conv1 (K = 576) 64, its passes
+# 3-6; TF32 10698-24430 ulps. Rows 2, 17 and 7 at most 3.4e-6 (max) of
+# |o| or the range; TF32 5.4e-4-8.3e-4.
+F32_MAX_ULPS = 256
+ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL = 1e-4, 1e-5
+TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL = 1e-4, 1e-5
+# Depth of the f32 kernel path against a plain f64 forward on the same
+# weights and input: at most this many times the plain f32 path's error,
+# in max and in mean.
+F32_DEPTH_FACTOR = 2.0
+
+
+def bound_f32(moved: int, flops: float) -> dict:
+    """The least time the card could take for an f32 kernel: the larger of
+    the bytes over the HBM rate and the FLOPs over the f32 rate."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """Both TF32 flags set to ``on``, restored after."""
+    import torch
+
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def tf32_round(x):
+    """x rounded to TF32's 10 mantissa bits (to nearest, ties to even)."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def f32_ulps(got, want, feature_dims, *addends):
+    """|got - want| in f32 ulps of the output's scale (operand_ulps' scale:
+    |want|, its feature's RMS, each addend and what the addends leave)."""
+    import torch
+
+    w = want.double()
+    lead = tuple(range(w.ndim - feature_dims))
+    size = torch.maximum(w.abs(), w.square().mean(dim=lead).sqrt())
+    rest = w
+    for t in addends:
+        size = torch.maximum(size, t.double().abs())
+        rest = rest - t.double()
+        size = torch.maximum(size, rest.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(size.clamp_min(2.0 ** -126))) - 23)
+    return (got.double() - w).abs() / ulp
+
+
+def f32_dense_check(name, got, want, tf32_want, feature_dims, *addends):
+    """A dense f32 kernel against its plain version within F32_MAX_ULPS; the
+    same function at TF32 must be outside it."""
+    ulps = f32_ulps(got, want, feature_dims, *addends)
+    tf = f32_ulps(tf32_want, want, feature_dims, *addends)
+    stats = dict(max_abs_err=(got.double() - want.double()).abs().max().item(),
+                 max_ulps=ulps.max().item(), mean_ulps=ulps.mean().item(),
+                 tf32_max_ulps=tf.max().item(),
+                 tf32_mean_ulps=tf.mean().item())
+    require(stats["max_ulps"] <= F32_MAX_ULPS,
+            f"{name}: {json.dumps(stats)} over the bound of {F32_MAX_ULPS} "
+            f"f32 ulps")
+    require(stats["tf32_max_ulps"] > F32_MAX_ULPS,
+            f"{name}: the TF32 result is within the f32 bound "
+            f"({json.dumps(stats)}): the bound cannot tell f32 from TF32")
+    return stats
+
+
+def f32_rel_check(name, got, want, tf32_want, max_rel, mean_rel, span=None):
+    """An f32 kernel against its plain version, its error relative to max /
+    mean |want| (attention) or to ``span`` (the depth's range); the same
+    function at TF32 must exceed the max bound."""
+    def rel(a):
+        err = (a.double() - want.double()).abs()
+        size_max = span if span else want.double().abs().max().item()
+        size_mean = span if span else want.double().abs().mean().item()
+        return (err.max().item(), err.mean().item(),
+                err.max().item() / size_max, err.mean().item() / size_mean)
+    mx, mean, mx_rel, mean_rel_err = rel(got)
+    _, _, tf_mx_rel, tf_mean_rel = rel(tf32_want)
+    stats = dict(max_abs_err=mx, mean_abs_err=mean, max_rel_err=mx_rel,
+                 mean_rel_err=mean_rel_err, tf32_max_rel_err=tf_mx_rel,
+                 tf32_mean_rel_err=tf_mean_rel)
+    require(mx_rel <= max_rel and mean_rel_err <= mean_rel,
+            f"{name}: {json.dumps(stats)} over bounds max rel {max_rel}, "
+            f"mean rel {mean_rel}")
+    require(tf_mx_rel > max_rel,
+            f"{name}: the TF32 result is within the f32 bound "
+            f"({json.dumps(stats)}): the bound cannot tell f32 from TF32")
+    return stats
+
+
+def f32_kernel_parity(device) -> dict:
+    """Phase 8 (a): each f32 kernel against its plain version at its path's
+    shapes, TF32 off, with the TF32 result of the same operands refused by
+    the same bound; the kernel's, the plain version's and one library
+    call's times (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's two convs, each
+    f32 with TF32 off) and the f32 bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+    from vr_video_generator_tpu_torch.ops.attention import (
+        attention, attention_plain, flash_attention, flash_attention_plain)
+    from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
+                                                             layernorm_plain)
+    from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
+                                                       proj_ls_residual,
+                                                       proj_ls_residual_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 800)
+    f32 = torch.float32
+    scale = 64 ** -0.5
+
+    # Row 1 at vits' rows, vitl-728's and vitg-518's (at phase 8's batch
+    # of 2); TF32 here is the input rounded to 10 mantissa bits.
+    for rows, d in ((B * N_TOK, DIM), (F32_CUT_BATCH * N_L728, DIM_L),
+                    (F32_CUT_BATCH * N_TOK, DIM_G)):
+        x = randn(gen, (rows, d), 3.0, 1.0)
+        w, b = randn(gen, (d,)), randn(gen, (d,))
+        got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
+        tfw = layernorm_plain(tf32_round(x), w, b)
+        torch.cuda.synchronize()
+        stats = f32_dense_check(f"layernorm_f32 D={d}", got, want, tfw, 1, b)
+        out[f"layernorm_f32 D={d}"] = dict(
+            **stats, ms=event_ms(lambda: layernorm(x, w, b)),
+            plain_ms=event_ms(lambda: layernorm_plain(x, w, b)),
+            library_ms=event_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6)),
+            **bound_f32(nbytes(x, w, b, got), 0))
+        del x, got, want, tfw
+
+    # Row 5 at vits' D = 384; the library call is the qkv product and bias
+    # alone (cuBLAS SGEMM through addmm) on the LayerNorm'd rows.
+    d, m = DIM, B * N_TOK
+    x = randn(gen, (B, N_TOK, d))
+    lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
+    w, b = randn(gen, (3 * d, d), d ** -0.5), randn(gen, (3 * d,), 0.5)
+    args = (x, lnw, lnb, w, b, d // 64, scale)
+    got, want = ln_qkv(*args), ln_qkv_plain(*args)
+    with tf32(True):
+        tfw = ln_qkv_plain(*args)
+    torch.cuda.synchronize()
+    bias = b.reshape(3, d // 64, 64).clone()
+    bias[0] *= scale
+    a2 = layernorm_plain(x, lnw, lnb).reshape(m, d)
+    out["ln_qkv_f32"] = dict(
+        **f32_dense_check("ln_qkv_f32 D=384", got, want, tfw, 3, bias),
+        ms=event_ms(lambda: ln_qkv(*args)),
+        plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
+        library_ms=event_ms(lambda: torch.addmm(b, a2, w.t())),
+        **bound_f32(nbytes(x, lnw, lnb, w, b, got), 2 * m * d * 3 * d))
+    del got, want, tfw, a2
+
+    # Row 6 at vits' D = 384.
+    o = randn(gen, (B, N_TOK, d // 64, 64))
+    gp = randn(gen, (d,), 0.1, 1.0)
+    wp, bp = randn(gen, (d, d), d ** -0.5), randn(gen, (d,), 0.5)
+    args = (o, x, wp, bp, gp)
+    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
+    with tf32(True):
+        tfw = proj_ls_residual_plain(*args)
+    torch.cuda.synchronize()
+    o2 = o.reshape(m, d)
+    out["proj_ls_residual_f32"] = dict(
+        **f32_dense_check("proj_ls_residual_f32 D=384", got, want, tfw, 1, x,
+                          gp * bp),
+        ms=event_ms(lambda: proj_ls_residual(*args)),
+        plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
+        library_ms=event_ms(lambda: torch.addmm(bp, o2, wp.t())),
+        **bound_f32(nbytes(*args, got), 2 * m * d * d))
+    del o, x, got, want, tfw, o2
+
+    # Rows 2 (vits: B = 8, N = 2443, 6 heads; q pre-scaled) and 17
+    # (vitl-728: B = 2, N = 4785, 16 heads; q unscaled) on peaked q/k/v, k
+    # and v strided views into one qkv.
+    for name, bsz, n, heads in (("attention_f32", B, N_TOK, HEADS),
+                                ("flash_attention_f32", B_L728, N_L728,
+                                 HEADS_L)):
+        qkv = randn(gen, (bsz, n, 3, heads, 64))
+        qkv[:, :, 1] *= 1.5
+        qkv[:, :, 0, :, 0] = 4.0
+        qkv[:, :, 1, :, 0] = -8.0
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        if name == "attention_f32":
+            q = (qkv[:, :, 0] * scale).contiguous()
+            fn, plain, args, s = attention, attention_plain, (q, k, v), 1.0
+        else:
+            q = qkv[:, :, 0]
+            fn, plain = flash_attention, flash_attention_plain
+            args, s = (q, k, v, scale), scale
+        got, want = fn(*args), plain(*args)
+        with tf32(True):
+            tfw = plain(*args)
+        torch.cuda.synchronize()
+        stats = f32_rel_check(f"{name} B={bsz} N={n} H={heads}", got, want,
+                              tfw, ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL)
+        del want, tfw
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out[name] = dict(
+            **stats, ms=event_ms(lambda: fn(*args)),
+            plain_ms=event_ms(lambda: plain(*args)),
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=s)),
+            **bound_f32(nbytes(q, k, v, got), 4 * bsz * heads * n * n * 64))
+        del qkv, q, k, v, got, qt, kt, vt
+
+    # Row 7 at vits' C = 64 (B = 8, refinenet1 148 x 264 -> 518 x 924), x an
+    # NCHW activation seen as NHWC as the model hands it over, stage by
+    # stage: the mix and conv1 in f32 ulps, the passes in f32 ulps, the
+    # depth relative to its range; the library time is cuDNN's two f32
+    # convs.
+    c, c2 = FEATURES, FEATURES // 2
+    x = randn(gen, (B, c, H0, W0)).permute(0, 2, 3, 1)
+    wts = (randn(gen, (c, c, 1, 1), c ** -0.5), randn(gen, (c,), 0.1),
+           randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5), randn(gen, (c2,), 0.1),
+           randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5), randn(gen, (32,), 0.1),
+           randn(gen, (1, 32, 1, 1), 32 ** -0.5), randn(gen, (1,), 0.1, 0.5))
+    got = ht.head_tail_ext_stages(x, *wts, OUT_HW)
+    xoc = ht.ext_mix_plain(x, wts[0])
+    z = ht.big_upsample_plain(got[0], wts[1])
+    c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
+    r = ht.ext_resize_plain(got[2], OUT_HW)
+    depth = ht.big_conv2_plain(got[3], *wts[4:])
+    want = ht.head_tail_ext_plain(x, *wts, OUT_HW)
+    with tf32(True):
+        tfw = ht.head_tail_ext_plain(x, *wts, OUT_HW)
+        tf_c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
+    torch.cuda.synchronize()
+    stages = {}
+    for label, g, w_, nf, add in (("mix", got[0], xoc, 1, ()),
+                                  ("upsample", got[1], z, 1, (wts[1],)),
+                                  ("resize", got[3], r, 1, ())):
+        u = f32_ulps(g, w_, nf, *add)
+        stages[label] = dict(max_ulps=u.max().item())
+        require(stages[label]["max_ulps"] <= F32_MAX_ULPS,
+                f"head_tail_ext_f32 {label}: {stages[label]} over "
+                f"{F32_MAX_ULPS} f32 ulps")
+    stages["conv1"] = f32_dense_check("head_tail_ext_f32 conv1", got[2], c1,
+                                      tf_c1, 1, wts[3])
+    span = (want.max() - want.min()).item()
+    stages["conv2"] = dict(max_rel_err=(got[4] - depth).abs().max().item()
+                           / span)
+    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"head_tail_ext_f32 conv2: {stages['conv2']}")
+    stats = f32_rel_check("head_tail_ext_f32 C=64", got[4], want, tfw,
+                          TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, span)
+    require(span > 0 and (want > 0).float().mean().item() > 0.2,
+            f"head_tail_ext_f32: depth range {span}, a ReLU left too few "
+            f"pixels")
+    log(f"head_tail_ext_f32 stages: {json.dumps(stages)}")
+    zc = got[1].permute(0, 3, 1, 2).contiguous()
+    rc = got[3].permute(0, 3, 1, 2).contiguous()
+    run = lambda: ht.head_tail_ext(x, *wts, OUT_HW)  # noqa: E731
+    m0, m1, m2 = B * H0 * W0, B * 2 * H0 * 2 * W0, B * OUT_HW[0] * OUT_HW[1]
+    flops = 2 * (m0 * c * c + m1 * c2 * 9 * c + m2 * 32 * 9 * c2)
+    out["head_tail_ext_f32"] = dict(
+        **stats, stages=stages, ms=event_ms(run),
+        plain_ms=event_ms(lambda: ht.head_tail_ext_plain(x, *wts, OUT_HW)),
+        library_ms=event_ms(lambda: (
+            F.conv2d(zc, wts[2], wts[3], padding=1),
+            F.conv2d(rc, wts[4], wts[5], padding=1))),
+        **bound_f32(nbytes(x, *wts, got[4]), flops))
+    del x, got, want, tfw, tf_c1, xoc, z, c1, r, depth, zc, rc
+    torch.cuda.empty_cache()
+    for name, res in out.items():
+        log(f"kernel {name}: {json.dumps(res)}")
+    return out
+
+
+class NoPlainF32:
+    """The plain versions of the f32 kernels' wrappers raise while active:
+    a run inside shows that no CUDA f32 tensor reached one."""
+
+    NAMES = (("ops.layernorm", "layernorm_plain"),
+             ("ops.qkv", "ln_qkv_plain"), ("ops.qkv", "proj_ls_residual_plain"),
+             ("ops.attention", "attention_plain"),
+             ("ops.attention", "flash_attention_plain"),
+             ("ops.head_tail", "head_tail_ext_plain"),
+             ("ops.head_tail", "ext_mix_plain"))
+
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for mod, name in self.NAMES:
+            target = importlib.import_module(f"{PKG}.{mod}")
+            self._saved.append((target, name, getattr(target, name)))
+
+            def refuse(*args, _name=name, **kwargs):
+                raise SmokeFailure(f"{_name} ran on the f32 path")
+            setattr(target, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for target, name, fn in reversed(self._saved):
+            setattr(target, name, fn)
+        return False
+
+
+class F64Plain:
+    """The model's kernel calls swapped for f64 computations of the same
+    functions (LayerNorm, the attention softmax, the A&S GELU in the input's
+    dtype): with an f64 model, a plain f64 forward (its MLP half and tail
+    unfused, as ``auto`` resolves off the card)."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+        import torch.nn.functional as F
+
+        from vr_video_generator_tpu_torch.ops import gelu as gelu_mod
+
+        def layernorm64(x, w, b, eps=1e-6):
+            return F.layer_norm(x, (x.shape[-1],), w.to(x.dtype),
+                                b.to(x.dtype), eps)
+
+        def mha64(q, k, v, scale):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            p = torch.softmax((qt @ kt.transpose(-1, -2)) * scale, dim=-1)
+            return (p @ vt).transpose(1, 2).contiguous()
+
+        def gelu64(x):
+            z = x * gelu_mod._INV_SQRT2
+            a = z.abs()
+            t = 1.0 / (1.0 + gelu_mod._P * a)
+            c = gelu_mod._A
+            poly = t * (c[0] + t * (c[1] + t * (c[2] + t * (c[3] + t * c[4]))))
+            erf = torch.sign(z) * (1.0 - poly * torch.exp(-a * a))
+            return 0.5 * x * (1.0 + erf)
+
+        swaps = (("models.dinov2", "layernorm", layernorm64),
+                 ("models.dinov2", "mha", mha64),
+                 ("ops.mlp", "gelu_exact", gelu64))
+        self._saved = []
+        for mod, name, fn in swaps:
+            target = importlib.import_module(f"{PKG}.{mod}")
+            self._saved.append((target, name, getattr(target, name)))
+            setattr(target, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for target, name, fn in reversed(self._saved):
+            setattr(target, name, fn)
+        return False
+
+
+def f32_vits_auto(device, frames) -> dict:
+    """Phase 8 (b): vits ``auto`` at f32 (1080p, B = 8, input 518) with
+    PyTorch's default TF32 flags (cuDNN's on): TF32 off inside the forward
+    and as it was after; exactly the f32 kernels a step (AUTO_VITS_F32_STEP),
+    no plain version of them, no host sync in a step, the right half the
+    input and the SBS the plain warp of its own depth (checked_path);
+    step_many's graph (k = 2) bit for bit equal to two steps; and the
+    depth, at the net's output on two frames, against a plain f64 forward on
+    the same weights: the kernel path's max and mean error at most
+    F32_DEPTH_FACTOR times the plain f32 path's."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.ops.preprocess import (
+        network_input_size, preprocess_frames)
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    label = "vits auto/auto f32"
+    cfg = run_config("vits", "auto", "auto", dtype="float32")
+    sd = random_state_dict(cfg.model(), SEED)
+    pipe = make_pipe(device, cfg, sd)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    seen = []
+    hook = pipe.model.depth_head.scratch.layer1_rn.register_forward_hook(
+        lambda *a: seen.append((torch.backends.cuda.matmul.allow_tf32,
+                                torch.backends.cudnn.allow_tf32)))
+    with NoPlainF32():
+        stats = checked_path(label, pipe, frames[:B],
+                             tuple(AUTO_VITS_F32_STEP))
+    hook.remove()
+    per_step = {k: v for k, v in stats["launches"].items() if v}
+    require(per_step == AUTO_VITS_F32_STEP,
+            f"{label}: one step launched {per_step}, expected "
+            f"{AUTO_VITS_F32_STEP}")
+    require(seen and set(seen) == {(False, False)},
+            f"{label}: TF32 flags inside the forward {set(seen)}")
+    require((torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) == (False, True),
+            f"{label}: the forward left the TF32 flags changed")
+
+    # step_many (k = 2) as a CUDA graph against two eager steps.
+    batches = torch.from_numpy(frames[:2 * B].reshape(2, B, H, W, 3)).to(
+        device)
+    state0 = pipe.initial_state()
+    eager, st = [], state0
+    for batch in batches:
+        sbs, st = pipe.step(batch, st)
+        eager.append(sbs)
+    graph_out, st_g = pipe.step_many(batches, state0)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, e) for g, e in zip(graph_out, eager))
+            and states_equal(st_g, st),
+            f"{label}: step_many's graph differs from two eager steps")
+    per_replay = dict(pipe._graphs[(2, B)].launches)
+    require(per_replay == {k: 2 * v for k, v in AUTO_VITS_F32_STEP.items()},
+            f"{label}: a replay launches {per_replay}")
+    log(f"{label}: step_many (k = 2) as a CUDA graph equal to two eager "
+        f"steps bit for bit; launches per replay {json.dumps(per_replay)}")
+    del batches, eager, graph_out, st, st_g, state0
+
+    # Depth at the net's output on two frames: kernels, plain f32, plain f64.
+    net_hw = network_input_size(H, W, target=518, multiple_of=14)
+    with torch.inference_mode():
+        x32 = preprocess_frames(torch.from_numpy(frames[:2]).to(device),
+                                net_hw, dtype=torch.float32, impl="exact")
+        d_kernel = pipe.model(x32)
+        with PlainKernels():
+            d_plain = pipe.model(x32)
+        model64 = build_model(pipe.model.cfg, sd, torch.float64, device,
+                              tail=cfg.tail)
+        with F64Plain():
+            d64 = model64(x32.double())
+    del model64, sd
+    span = float(d64.max() - d64.min())
+    dk, dp = (d_kernel.double() - d64).abs(), (d_plain.double() - d64).abs()
+    depth = dict(depth_range=span, kernel_vs_f64_max=float(dk.max()),
+                 kernel_vs_f64_mean=float(dk.mean()),
+                 plain_f32_vs_f64_max=float(dp.max()),
+                 plain_f32_vs_f64_mean=float(dp.mean()),
+                 kernel_vs_plain_f32_max=float((d_kernel - d_plain).abs().max()))
+    log(f"{label} depth against a plain f64 forward: {json.dumps(depth)}")
+    require(span > 0 and bool(torch.isfinite(d_kernel).all()),
+            f"{label}: depth {depth}")
+    for kind in ("max", "mean"):
+        require(depth[f"kernel_vs_f64_{kind}"]
+                <= F32_DEPTH_FACTOR * depth[f"plain_f32_vs_f64_{kind}"],
+                f"{label}: the kernel path's {kind} error against f64 "
+                f"exceeds {F32_DEPTH_FACTOR} x the plain f32 path's: "
+                f"{json.dumps(depth)}")
+    stats.update(depth=depth, scaler=scaler, launches_per_replay=per_replay)
+    del pipe
+    torch.cuda.empty_cache()
+    return stats
+
+
+def f32_xla_paths(device, frames) -> dict:
+    """Phase 8 (c): vitl-518, vitg-518 and vitl-728 with ``--mlp_fused xla
+    --tail xla`` at f32 (F32_CUT_DEPTH blocks, batch F32_CUT_BATCH): one
+    batch each through process_segment with exactly the f32 LayerNorm and
+    one-shot (518) or flash (728) attention kernels, their per-step
+    launches, the right half the input, and the depth within 1e-3 of its
+    range of the plain f32 path's on average."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    out = {}
+    taps = tuple(range(F32_CUT_DEPTH))
+    for encoder, size, need, attn in (
+            ("vitl", 518, XLA_F32, "attention_f32"),
+            ("vitg", 518, XLA_F32, "attention_f32"),
+            ("vitl", 728, XLA_F32_FLASH, "flash_attention_f32")):
+        label = f"{encoder}-{size} xla/xla f32"
+        cfg = run_config(encoder, "xla", "xla", batch=F32_CUT_BATCH,
+                         input_size=size, dtype="float32")
+        mcfg = dataclasses.replace(cfg.model(), depth=F32_CUT_DEPTH,
+                                   intermediate_layers=taps)
+        model = build_model(mcfg, random_state_dict(mcfg, SEED),
+                            torch.float32, device, tail="xla")
+        pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+        stats = one_batch(label, pipe, frames, need)
+        per_step = {k: v for k, v in stats["launches"].items() if v}
+        want = {"layernorm_f32": 2 * F32_CUT_DEPTH + 4, attn: F32_CUT_DEPTH,
+                "warp_composite": 1, "blur_select_sbs": 1}
+        require(per_step == want,
+                f"{label}: one step launched {per_step}, expected {want}")
+        batch = pipe.frames_to_device(frames[:F32_CUT_BATCH])
+        d_kernel = pipe.depth_only(batch)
+        with PlainKernels():
+            d_plain = pipe.depth_only(batch)
+        span = float(d_plain.max() - d_plain.min())
+        mean = float((d_kernel - d_plain).abs().mean())
+        require(bool(torch.isfinite(d_kernel).all()) and span > 0
+                and mean <= 1e-3 * span,
+                f"{label}: depth off the plain f32 path by {mean} on average "
+                f"(range {span})")
+        stats.update(depth_vs_plain_mean=mean, depth_range=span)
+        log(f"{label}: depth against the plain f32 path: mean {mean}, range "
+            f"{span}")
+        out[label] = stats
+        del model, pipe, batch, d_kernel, d_plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_cli(device) -> dict:
+    """Phase 8 (d): ``cli.main --compute_dtype float32`` on a 1080p mp4 of 16
+    smooth frames (cv2): plainly, with ``--mesh 1x1`` and with
+    ``--depth_stride 2``; each writes subclips 0_7 and 8_15 whose right
+    half is the input up to the codec (mean |difference| at most 4 of 255
+    against the decoded input: mp4v encodes the SBS again; measured 2.2 on
+    an NVIDIA H100 80GB HBM3, 700.00 W), and the mesh run's decoded
+    subclips equal the plain run's."""
+    import tempfile
+
+    import cv2
+
+    from vr_video_generator_tpu_torch import cli
+    from vr_video_generator_tpu_torch.video.combine import sorted_subclips
+    from vr_video_generator_tpu_torch.video.reader import VideoReader
+
+    n = 2 * B
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    frames = np.stack([np.stack([(xx / W * 255 + 9 * i) % 256,
+                                 (yy / H * 255) % 256,
+                                 128 + 100 * np.sin((xx + yy + 40 * i) / 90)],
+                                axis=-1).astype(np.uint8) for i in range(n)])
+
+    def decoded(path):
+        with VideoReader(path, begin=0, backend="cv2") as r:
+            return np.stack(list(r.frames(0, r.frame_count)))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        video = os.path.join(d, "in.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                             (W, H))
+        for f in frames:
+            vw.write(f[:, :, ::-1])
+        vw.release()
+        source = decoded(video)
+        runs = {}
+        for tag, extra in (("plain", []), ("mesh", ["--mesh", "1x1"]),
+                           ("stride", ["--depth_stride", "2"])):
+            sub = os.path.join(d, f"S_{tag}") + os.sep
+            argv = ["--device", device.type, "--VideoDir", video,
+                    "--OutputDir", os.path.join(d, f"{tag}.mkv"),
+                    "--DebugDir", os.path.join(d, f"D_{tag}") + os.sep,
+                    "--SubClipDir", sub, "--Max_Frame_Count", str(B),
+                    "--batch_size", str(B), "--repair_mode", "1",
+                    "--compute_dtype", "float32",
+                    "--reader_backend", "cv2", "--writer_backend", "cv2",
+                    "--allow_random_weights", *extra]
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, f"cli f32 {tag}: non-zero exit")
+            secs = time.perf_counter() - t0
+            names = sorted_subclips(sub)
+            require(names == ["0_7.mp4", "8_15.mp4"],
+                    f"cli f32 {tag}: subclips {names}")
+            clips = np.concatenate([decoded(os.path.join(sub, c))
+                                    for c in names])
+            require(clips.shape == (n, H, 2 * W, 3),
+                    f"cli f32 {tag}: {clips.shape}")
+            diff = np.abs(clips[:, :, W:].astype(np.int16)
+                          - source.astype(np.int16))
+            runs[tag] = clips
+            out[tag] = dict(seconds=secs, right_half_mean_abs=float(diff.mean()),
+                            left_vs_right_mean_abs=float(np.abs(
+                                clips[:, :, :W].astype(np.int16)
+                                - clips[:, :, W:].astype(np.int16)).mean()))
+            require(out[tag]["right_half_mean_abs"] <= 4.0,
+                    f"cli f32 {tag}: the right half is off the input by "
+                    f"{out[tag]['right_half_mean_abs']} on average")
+        require(np.array_equal(runs["plain"], runs["mesh"]),
+                "cli f32 --mesh 1x1: subclips differ from the run without "
+                "--mesh")
+    log(f"cli --compute_dtype float32 (plain, --mesh 1x1, --depth_stride 2) "
+        f"on a 16-frame 1080p mp4: {json.dumps(out)}")
+    return out
+
+
+def f32_path(device, rng) -> dict:
+    """Phase 8: f32 on the card (see the module's header)."""
+    import torch
+
+    from vr_video_generator_tpu_torch import bench
+
+    out, t0 = {}, time.perf_counter()
+    out["kernels"] = f32_kernel_parity(device)
+    log(f"phase 8 (a) f32 kernel parity: {time.perf_counter() - t0:.1f} s")
+    frames = rng.integers(0, 256, (2 * B, H, W, 3), dtype=np.uint8)
+    # PyTorch's own defaults for the f32 paths: cuDNN's TF32 on, cuBLAS's
+    # off; the f32 forward turns both off itself.
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        out["vits_auto"] = f32_vits_auto(device, frames)
+        log(f"phase 8 (b) vits auto f32: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["xla"] = f32_xla_paths(device, frames)
+        log(f"phase 8 (c) vitl/vitg xla f32: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["cli"] = f32_cli(device)
+        log(f"phase 8 (d) cli f32: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        line = bench.run_config(2, reps=2, segment_batches=4,
+                                compute_dtype="float32")
+        print(json.dumps(line), flush=True)
+        require(line["value"] > 0 and line["metric"].endswith("_f32"),
+                f"bench --config 2 --compute_dtype float32: {line}")
+        out["bench"] = line
+        log(f"phase 8 (e) bench --config 2 --compute_dtype float32 --reps 2 "
+            f"--segment_batches 4: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -2653,6 +3341,11 @@ def main() -> int:
     log(f"phase 7 (gelu tanh, sharded steps, --mesh 1x1, bench --sharded): "
         f"{time.perf_counter() - t0:.1f} s")
     paths["phase 7"] = phase7
+    t0 = time.perf_counter()
+    phase8 = f32_path(device, rng)
+    log(f"phase 8 (f32 on the card: kernel parity, vits auto, vitl/vitg "
+        f"xla, cli, bench): {time.perf_counter() - t0:.1f} s")
+    paths["phase 8"] = phase8
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
@@ -2701,9 +3394,27 @@ def main() -> int:
                      "vitb-518 auto/auto gelu tanh"),
                     ("mlp_residual_hblocked_tanh", DIM_L,
                      "vitl-518 auto/auto gelu tanh"))]
+    # The f32 kernels (phase 8) with the launches of the f32 path that runs
+    # them: vits auto's, vitl-728 xla's (row 1 at D = 1024, row 17) and
+    # vitg-518 xla's (row 1 at D = 1536).
+    f32k, v32 = phase8["kernels"], phase8["vits_auto"]["launches"]
+    l728 = phase8["xla"]["vitl-728 xla/xla f32"]["launches"]
+    g518 = phase8["xla"]["vitg-518 xla/xla f32"]["launches"]
+    entries += [("layernorm_f32", f32k[f"layernorm_f32 D={DIM}"],
+                 v32["layernorm_f32"]),
+                ("layernorm_f32", f32k[f"layernorm_f32 D={DIM_L}"],
+                 l728["layernorm_f32"]),
+                ("layernorm_f32", f32k[f"layernorm_f32 D={DIM_G}"],
+                 g518["layernorm_f32"])]
+    entries += [(name, f32k[name], v32[name]) for name in (
+        "ln_qkv_f32", "proj_ls_residual_f32", "attention_f32",
+        "head_tail_ext_f32")]
+    entries.append(("flash_attention_f32", f32k["flash_attention_f32"],
+                    l728["flash_attention_f32"]))
     kernels = []
     for name, r, launches in entries:
-        route, source, replaces = {**KERNELS, **TANH_KERNELS}[name]
+        route, source, replaces = {**KERNELS, **TANH_KERNELS,
+                                   **KERNELS_F32}[name]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,5 +1,6 @@
 // A host emulation of the CUDA runtime and device built-ins that the
-// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) use, so g++
+// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) and its f32
+// kernels (csrc/sgemm.cuh, csrc/qkv_f32.cu, csrc/attention_f32.cu) use, so g++
 // can compile those sources unchanged and run them on the CPU: every CUDA
 // thread of a block is a std::thread, __syncthreads is a std::barrier,
 // blocks run one after another, and "device" pointers are host pointers
@@ -45,6 +46,9 @@ struct alignas(16) uint4 {
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
 }
+struct alignas(8) float2 {
+  float x, y;
+};
 struct alignas(16) float4 {
   float x, y, z, w;
 };

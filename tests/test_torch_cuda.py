@@ -468,7 +468,9 @@ def test_layernorm_kernel_operands(cuda):
     row = xc.reshape(-1)[1:1 + 384 * 64].view(64, 384)  # 2-byte offset
     got, want = layernorm(row, w, b).float(), layernorm_plain(row, w, b).float()
     assert bool(((got - want).abs() <= 2e-2 + 1e-2 * want.abs()).all())
-    for args in ((x, w, b), (xc.float(), w, b), (xc, w.to(torch.bfloat16), b),
+    # f32 rows go to the f32 variant (test_layernorm_f32_kernel_matches_plain);
+    # f16 rows, a bf16 affine and a short affine are refused.
+    for args in ((x, w, b), (xc.half(), w, b), (xc, w.to(torch.bfloat16), b),
                  (xc, w[:-1], b)):
         with pytest.raises(ValueError):
             layernorm(*args)
@@ -828,7 +830,9 @@ def test_step_enqueues_without_host_sync(cuda, fused):
 
 def test_cli_f32_on_the_card_raises(cuda, tmp_path):
     """--compute_dtype float32 with --device cuda (the default) raises
-    not_ported("f32 on the card") before any weight is built."""
+    not_ported("f32 on the card") before any weight is built where the f32
+    plan needs a kernel with no f32 variant yet: vits fused runs the
+    weights-resident MLP half (row 8)."""
     cv2 = pytest.importorskip("cv2")
     from vr_video_generator_tpu_torch.cli import main
 
@@ -842,7 +846,7 @@ def test_cli_f32_on_the_card_raises(cuda, tmp_path):
               "--DebugDir", str(tmp_path / "D") + "/",
               "--SubClipDir", str(tmp_path / "S") + "/",
               "--input_size", "56", "--compute_dtype", "float32",
-              "--allow_random_weights"])
+              "--mlp_fused", "fused", "--allow_random_weights"])
 
 
 def _graph_pipe(cuda, mlp_fused="auto", h=150, w=96, batch=2, chunk=1,
@@ -1319,3 +1323,143 @@ def test_step_many_capture_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         pipe.step_many(frames, pipe.initial_state())
     torch.cuda.synchronize()
+
+
+# --- f32 on the card: the f32 kernels and the f32 paths ---------------------
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("rows,d", [(1, 384), (333, 384), (97, 768),
+                                    (130, 1024), (64, 1536), (33, 200)])
+def test_layernorm_f32_kernel_matches_plain(cuda, rows, d):
+    """Row 1 at f32 at every encoder width and one the generic kernel takes
+    (200), within chip_smoke.py's f32 bound, which refuses TF32-rounded
+    input."""
+    from chip_smoke import f32_dense_check, tf32_round
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = _randn(gen, (rows, d), 3.0, 1.0, F32)
+    w, b = _randn(gen, (d,), dtype=F32), _randn(gen, (d,), dtype=F32)
+    before = launch_counts().get("layernorm_f32", 0)
+    got = layernorm(x, w, b)
+    assert launch_counts()["layernorm_f32"] == before + 1
+    f32_dense_check("layernorm_f32", got, layernorm_plain(x, w, b),
+                    layernorm_plain(tf32_round(x), w, b), 1, b)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 1, 384), (2, 37, 384), (8, 2443, 384),
+                                   (2, 131, 768), (1, 70, 128)])
+def test_ln_qkv_and_proj_f32_kernels_match_plain(cuda, b, n, d):
+    """Rows 5 and 6 at f32 on the f32 GEMM core: ragged row and column
+    tiles, vits' 1080p rows; within the f32 bound, which the TF32 product
+    of the same operands fails (the weights rounded to TF32: cuBLAS may run
+    a small product without TF32 whatever the flag says)."""
+    from chip_smoke import f32_dense_check, tf32_round
+
+    gen = torch.Generator(device=cuda).manual_seed(b * n + d)
+    heads, scale = d // 64, 64 ** -0.5
+    x = _randn(gen, (b, n, d), dtype=F32)
+    args = (x, _randn(gen, (d,), 0.1, 1.0, F32), _randn(gen, (d,), 0.1, 0.0, F32),
+            _randn(gen, (3 * d, d), d ** -0.5, dtype=F32),
+            _randn(gen, (3 * d,), 0.5, dtype=F32), heads, scale)
+    tfw = ln_qkv_plain(*args[:3], tf32_round(args[3]), *args[4:])
+    bias = args[4].reshape(3, heads, 64).clone()
+    bias[0] *= scale
+    f32_dense_check("ln_qkv_f32", ln_qkv(*args), ln_qkv_plain(*args), tfw, 3,
+                    bias)
+    o = _randn(gen, (b, n, heads, 64), dtype=F32)
+    w, bb = _randn(gen, (d, d), d ** -0.5, dtype=F32), _randn(gen, (d,), 0.5, dtype=F32)
+    gamma = _randn(gen, (d,), 0.1, 1.0, F32)
+    pargs = (o, x, w, bb, gamma)
+    tfw = proj_ls_residual_plain(o, x, tf32_round(w), bb, gamma)
+    f32_dense_check("proj_ls_residual_f32", proj_ls_residual(*pargs),
+                    proj_ls_residual_plain(*pargs), tfw, 1, x, gamma * bb)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["row2", "row17"])
+@pytest.mark.parametrize("b,n,h", [(3, 33, 1), (2, 45, 2), (1, 1000, 6),
+                                   (1, 4200, 2)])
+def test_attention_f32_kernels_match_plain(cuda, flash, b, n, h):
+    """Rows 2 and 17 at f32 on views into one qkv, ragged key tiles and
+    query blocks, against the one-shot and the blocked flash plain
+    versions within chip_smoke.py's bounds, which the result on q, k and v
+    rounded to TF32 fails."""
+    from chip_smoke import (ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL,
+                            f32_rel_check, tf32_round)
+
+    gen = torch.Generator(device=cuda).manual_seed(n + h + flash)
+    qkv = _randn(gen, (b, n, 3, h, 64), 2.0, dtype=F32)
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    if flash:
+        args, fn, plain = (qkv[:, :, 0], k, v, 0.125), flash_attention, \
+            flash_attention_plain
+    else:
+        args, fn, plain = ((qkv[:, :, 0] * 0.125).contiguous(), k, v), \
+            attention, attention_plain
+    tfw = plain(*(tf32_round(t) for t in args[:3]), *args[3:])
+    f32_rel_check("attention_f32", fn(*args), plain(*args), tfw,
+                  ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL)
+
+
+@pytest.mark.parametrize("b,h0,w0", [(1, 7, 11), (2, 37, 66), (8, 148, 264)])
+def test_head_tail_ext_f32_kernel_matches_plain(cuda, b, h0, w0):
+    """Row 7 at f32, C = 64, on an NCHW activation seen as NHWC, against its
+    plain version relative to the depth's range, a bound that the plain
+    version on TF32-rounded input and conv weights fails."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
+                            f32_rel_check, tf32_round)
+
+    gen = torch.Generator(device=cuda).manual_seed(b * h0 + w0)
+    c, c2 = 64, 32
+    x = _randn(gen, (b, c, h0, w0), dtype=F32).permute(0, 2, 3, 1)
+    wts = (_randn(gen, (c, c, 1, 1), c ** -0.5, dtype=F32),
+           _randn(gen, (c,), 0.1, dtype=F32),
+           _randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=F32),
+           _randn(gen, (c2,), 0.1, dtype=F32),
+           _randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5, dtype=F32),
+           _randn(gen, (32,), 0.1, dtype=F32),
+           _randn(gen, (1, 32, 1, 1), 32 ** -0.5, dtype=F32),
+           _randn(gen, (1,), 0.1, 0.5, dtype=F32))
+    out_hw = (h0 * 7 // 2, w0 * 7 // 2)
+    want = head_tail_ext_plain(x, *wts, out_hw)
+    rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
+    tfw = head_tail_ext_plain(tf32_round(x), *rounded, out_hw)
+    span = (want.max() - want.min()).item()
+    f32_rel_check("head_tail_ext_f32", head_tail_ext(x, *wts, out_hw), want,
+                  tfw, TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, span)
+
+
+def test_vits_auto_f32_step_on_the_card(cuda):
+    """vits auto at f32 on a small frame: exactly the f32 kernels a step
+    (LayerNorm at 12 norm2s and 4 taps, rows 5, 2, 6 a block, row 7 once),
+    no host sync in the step, the right half the input, and step_many's
+    graph bit for bit equal to two eager steps."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vits", batch_size=2, compute_dtype="float32",
+                    input_size=56)
+    pipe = SbsPipeline.create(cfg, 150, 96, allow_random=True, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    state = pipe.initial_state()
+    pipe.step(frames[0], state)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sbs, st1 = pipe.step(frames[0], state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"layernorm_f32": 16, "ln_qkv_f32": 12,
+                      "attention_f32": 12, "proj_ls_residual_f32": 12,
+                      "head_tail_ext_f32": 1, "warp_composite": 1,
+                      "blur_select_sbs": 1}
+    assert torch.equal(sbs[:, :, 96:], frames[0])
+    sbs2, st2 = pipe.step(frames[1], st1)
+    outs, st_g = pipe.step_many(frames, state)
+    assert torch.equal(outs[0], sbs) and torch.equal(outs[1], sbs2)
+    assert all(torch.equal(a, b) for a, b in zip(st_g, st2) if a is not None)

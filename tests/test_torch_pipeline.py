@@ -306,8 +306,11 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
 
 def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     """compute_dtype float32 on a CUDA device raises not_ported("f32 on the
-    card") in SbsPipeline.create, before load_model builds a weight: the
-    card's kernels are bf16. bf16 on the card passes the guard."""
+    card") in SbsPipeline.create, before load_model builds a weight, where
+    the f32 plan needs a kernel with no f32 variant yet: vits fused runs
+    the weights-resident MLP half (row 8). bf16 on the card passes the
+    check, and so does f32 on a plan whose kernels all have their f32
+    variants (CFG: xla/xla)."""
     import dataclasses
 
     import vr_video_generator_tpu_torch.pipeline as pipeline
@@ -318,11 +321,14 @@ def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     monkeypatch.setattr(pipeline, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(pipeline, "load_model", load_model)
+    fused = dataclasses.replace(CFG, mlp_fused="fused", tail="fused")
     with pytest.raises(NotImplementedError, match="f32 on the card"):
-        SbsPipeline.create(CFG, H, W, allow_random=True, device="cuda")
+        SbsPipeline.create(fused, H, W, allow_random=True, device="cuda")
     with pytest.raises(NotImplementedError, match="f32 on the card"):
-        SbsPipeline.create(dataclasses.replace(CFG, compute_dtype="bfloat16"),
+        SbsPipeline.create(dataclasses.replace(fused, compute_dtype="bfloat16"),
                            H, W, allow_random=True, dtype=torch.float32)
+    with pytest.raises(AssertionError, match="load_model ran"):
+        SbsPipeline.create(CFG, H, W, allow_random=True, device="cuda")
     with pytest.raises(AssertionError, match="load_model ran"):
         SbsPipeline.create(dataclasses.replace(CFG, compute_dtype="bfloat16"),
                            H, W, allow_random=True, device="cuda")

@@ -4,7 +4,7 @@ Run from the root of a checkout:
 
     python3 -m vr_video_generator_tpu_torch.bench [--config N]
         [--chunk_batches K] [--depth_stride S] [--device cuda|cpu]
-        [--sharded DxM]
+        [--sharded DxM] [--compute_dtype bfloat16|float32]
 
 The counterpart of the root ``bench.py``, at its configurations (``CONFIGS``,
 a copy of its table): the encoder, geometry, batch and offset step of
@@ -14,7 +14,9 @@ batch (``stage_bench.calibrate_random_scaler``), and the CLI's defaults
 otherwise (``--mlp_fused auto --tail auto``, u8 output, PyTorch's own
 numeric settings). ``--depth_stride S`` runs the depth net on every S-th
 frame (as the root bench's flag; the metric gets ``_stride<S>``); a config
-whose batch S does not divide is skipped with a message. ``--device cpu``
+whose batch S does not divide is skipped with a message.
+``--compute_dtype float32`` runs the depth net in f32 (the f32 kernels; the
+metric gets ``_f32``); bf16 is the default on the card. ``--device cpu``
 shrinks to the root bench's smoke geometry (vits, 270 x 480, input 126,
 batch max(2, S), f32) and its two steps a chain. It measures two rates:
 
@@ -86,11 +88,19 @@ class Chain:
         return sbs, self.state
 
 
+def _dtype_tag(compute_dtype, on_card: bool):
+    """(the RunConfig's compute dtype, the metric's suffix): bf16 on the
+    card and f32 on the CPU unless named; ``_f32`` where f32 was named."""
+    dtype = compute_dtype or ("bfloat16" if on_card else "float32")
+    return dtype, "_f32" if compute_dtype == "float32" else ""
+
+
 def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
                steps: int = 0, reps: int = 6, segment_batches: int = 12,
-               depth_stride: int = 1) -> dict:
+               depth_stride: int = 1, compute_dtype=None) -> dict:
     """The JSON line of one configuration; ``steps`` 0 is 8 on the card
-    and 2 on the CPU, rounded up to whole chunks."""
+    and 2 on the CPU, rounded up to whole chunks; ``compute_dtype`` None is
+    bf16 on the card, f32 on the CPU."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
     from vr_video_generator_tpu_torch.stage_bench import (
@@ -101,9 +111,9 @@ def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
     encoder, h, w, b, step = CONFIGS[config]
     if not on_card:
         encoder, h, w, b = "vits", 270, 480, max(2, depth_stride)
+    dtype, dtag = _dtype_tag(compute_dtype, on_card)
     cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
-                    input_size=518 if on_card else 126,
-                    compute_dtype="bfloat16" if on_card else "float32",
+                    input_size=518 if on_card else 126, compute_dtype=dtype,
                     chunk_batches=chunk_batches, depth_stride=depth_stride)
     pipe = SbsPipeline.create(cfg, h, w, allow_random=True, device=device,
                               seed=SEED)
@@ -120,11 +130,11 @@ def run_config(config: int, chunk_batches: int = 1, device: str = "cuda",
 
     run_segment(pipe, frames)  # warm-up: kernels built, graphs captured
     host = [len(frames) / run_segment(pipe, frames)[0] for _ in range(reps)]
-    tag = f"_stride{depth_stride}" if depth_stride > 1 else ""
+    tag = dtag + (f"_stride{depth_stride}" if depth_stride > 1 else "")
     return {"metric": f"torch_sbs_fps_{h}p_{encoder}{tag}", "value": fps,
             "unit": "frames/s", "vs_baseline": fps / BASELINE_FPS,
             "host_fps": max(host), "chunk_batches": k,
-            "depth_stride": depth_stride,
+            "depth_stride": depth_stride, "compute_dtype": dtype,
             "card": card_line() if on_card else None,
             "config": config, "device": str(pipe.device),
             "steps": calls * k, "reps": reps,
@@ -188,7 +198,7 @@ def sharded_device_time(pipe, parts, k: int, reps: int) -> float:
 
 def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
                        steps: int = 0, reps: int = 6,
-                       depth_stride: int = 1) -> dict:
+                       depth_stride: int = 1, compute_dtype=None) -> dict:
     """The JSON line of one configuration through the sharded step on a
     ``mesh_shape`` mesh; ``steps`` as in :func:`run_config`."""
     from vr_video_generator_tpu_torch import RunConfig
@@ -206,9 +216,9 @@ def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
     encoder, h, w, b, step = CONFIGS[config]
     if not on_card:
         encoder, h, w, b = "vits", 270, 480, max(2, depth_stride)
+    dtype, dtag = _dtype_tag(compute_dtype, on_card)
     cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
-                    input_size=518 if on_card else 126,
-                    compute_dtype="bfloat16" if on_card else "float32",
+                    input_size=518 if on_card else 126, compute_dtype=dtype,
                     depth_stride=depth_stride, mesh_shape=tuple(mesh_shape))
     single = SbsPipeline.create(cfg, h, w, allow_random=True,
                                 device=mesh.data_devices[0], seed=SEED)
@@ -222,7 +232,7 @@ def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
     calls = steps or (8 if on_card else 2)
     per_step = sharded_device_time(pipe, parts, calls, reps)
     fps = d * b / per_step
-    tag = f"_stride{depth_stride}" if depth_stride > 1 else ""
+    tag = dtag + (f"_stride{depth_stride}" if depth_stride > 1 else "")
     return {"metric": f"torch_sbs_fps_{h}p_{encoder}_sharded_mesh{d}x{m}"
                       f"{tag}",
             "value": fps, "unit": "frames/s",
@@ -254,6 +264,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded", type=str, default="",
                     help="DxM: time the sharded step on a D x M mesh "
                          "(device-resident rate only)")
+    ap.add_argument("--compute_dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="depth-net dtype (default: bfloat16 on the card, "
+                         "float32 on the CPU); float32 adds _f32 to the "
+                         "metric")
     opts = ap.parse_args(argv)
     if opts.chunk_batches < 1:
         ap.error("--chunk_batches must be >= 1")
@@ -271,11 +286,12 @@ def main(argv=None) -> int:
         if len(mesh_shape) != 2:
             ap.error(f"--sharded takes DxM, got {opts.sharded!r}")
         line = run_sharded_config(opts.config, mesh_shape, opts.device,
-                                  opts.steps, opts.reps, opts.depth_stride)
+                                  opts.steps, opts.reps, opts.depth_stride,
+                                  opts.compute_dtype)
     else:
         line = run_config(opts.config, opts.chunk_batches, opts.device,
                           opts.steps, opts.reps, opts.segment_batches,
-                          opts.depth_stride)
+                          opts.depth_stride, opts.compute_dtype)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -50,9 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_size", type=int, default=518)
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"],
-                   help="depth-net compute dtype; float32 runs on the CPU "
-                        "only for now (--device cpu): the card's kernels "
-                        "are bf16")
+                   help="depth-net compute dtype; on the card float32 runs "
+                        "the f32 kernels (vits auto, and --mlp_fused xla "
+                        "--tail xla at any encoder); a plan that fuses the "
+                        "MLP half (vits fused, vitb/vitl/vitg auto) or the "
+                        "big-C tail raises NotImplementedError before any "
+                        "weight is built")
     p.add_argument("--warp_impl", type=str, default="auto",
                    choices=["auto", "xla", "pallas"])
     p.add_argument("--encoder_device", type=str, default="cpu",

@@ -111,9 +111,23 @@
 // time on traffic as on products. At C = 32 (a custom head) the tail runs
 // csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a core
 // tile nor a halo mode for C2 = 16.
+//
+// The ext tail at f32 (row 7 for --compute_dtype float32, at vits' C = 64;
+// vrvg_head_tail_ext_f32) is the same chain at the f32 rounding points of
+// `_tail_ext_kernel` (every intermediate f32, the W-resize weights f32):
+// the NCHW transpose, the upsample pass with out_conv's bias and the resize
+// pass are the kernels above instantiated on f32 (16 bytes a thread, 4
+// channels); the out_conv mix, conv1 with its f32 bias, and conv2 with b2,
+// ReLU, the 1x1, b3 and ReLU are products on the f32 core (csrc/sgemm.cuh;
+// the convs implicit GEMMs, csrc/sconv.cuh): wgmma takes no f32 operands
+// and TF32 is not f32. What bounds it: at vits' 1080p (B = 8) the mix,
+// conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 1.78 ms at the card's 67
+// TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of f32
+// intermediates (0.42 ms): bound by operations.
 
 #include <type_traits>
 
+#include "sconv.cuh"
 #include "taps.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -126,72 +140,86 @@ constexpr int PASS_THREADS = 256;
 
 // ---------------------------------------------------------------------------
 // Row 11, 0: the model hands x over as an NCHW activation seen as NHWC. x
-// (B, C, H0 W0) -> (B, H0 W0, C) bf16 in 64 x 64 tiles through shared
-// memory, so a warp reads 64 pixels of a channel and writes 64 channels of a
-// pixel, 128 bytes each way.
+// (B, C, H0 W0) -> (B, H0 W0, C) in 64 x 64 tiles through shared memory, so
+// a warp reads 64 pixels of a channel and writes 64 channels of a pixel, 128
+// bytes each way (256 for f32). T is bf16, or f32 for the f32 ext tail.
 constexpr int TT = 64;  // transpose tile
 
+template <class T>
+struct Pair;  // two elements stored as one
+template <>
+struct Pair<bf16> {
+  typedef __nv_bfloat162 type;
+};
+template <>
+struct Pair<float> {
+  typedef float2 type;
+};
+
+template <class T>
 __global__ void __launch_bounds__(PASS_THREADS)
-to_channels_last_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
-                        int c, int hw) {
-  __shared__ bf16 t[TT][TT + 2];  // [channel][pixel]
+to_channels_last_kernel(const T* __restrict__ x, T* __restrict__ y, int c,
+                        int hw) {
+  __shared__ T t[TT][TT + 2];  // [channel][pixel]
   const int p0 = blockIdx.x * TT, c0 = blockIdx.y * TT, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* src = x + ((long long)b * c + c0) * hw + p0;
+  const T* src = x + ((long long)b * c + c0) * hw + p0;
   for (int ch = warp; ch < TT; ch += PASS_THREADS / 32) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int p = 2 * lane + e;
-      t[ch][p] = p0 + p < hw ? src[(long long)ch * hw + p] : rbf(0.f);
+      t[ch][p] = p0 + p < hw ? src[(long long)ch * hw + p] : from_f32<T>(0.f);
     }
   }
   __syncthreads();
-  bf16* dst = y + ((long long)b * hw + p0) * c + c0;
+  T* dst = y + ((long long)b * hw + p0) * c + c0;
   for (int p = warp; p < TT && p0 + p < hw; p += PASS_THREADS / 32) {
-    __nv_bfloat162 v;
+    typename Pair<T>::type v;
     v.x = t[2 * lane][p];
     v.y = t[2 * lane + 1][p];
-    *reinterpret_cast<__nv_bfloat162*>(dst + (long long)p * c + 2 * lane) = v;
+    *reinterpret_cast<typename Pair<T>::type*>(dst + (long long)p * c +
+                                               2 * lane) = v;
   }
 }
 
 // Row 11, 1: U (B, HM, W2, C) from x (B, H0, W0, C) contiguous. Block (HM
-// row, frame), 16 bytes of U a thread. With BIAS (row 7's Z) the f32 bias
-// is added to the H-lerp before its cast (head_tail_pallas.py:309-318, the
-// out_conv bias).
-template <bool BIAS>
+// row, frame), 16 bytes of U a thread (8 bf16 or 4 f32 channels). With BIAS
+// (row 7's Z) the f32 bias is added to the H-lerp before its cast
+// (head_tail_pallas.py:309-318, the out_conv bias).
+template <class T, bool BIAS>
 __global__ void __launch_bounds__(PASS_THREADS)
-upsample_kernel(const bf16* __restrict__ x,      // (B, H0, W0, C)
+upsample_kernel(const T* __restrict__ x,         // (B, H0, W0, C)
                 const int* __restrict__ taps,    // (2, W2) j0, j1
                 const float* __restrict__ tapw,  // (2, W2) wa, wb
                 const float* __restrict__ bias,  // (C,) with BIAS
-                bf16* __restrict__ u,            // (B, HM, W2, C)
+                T* __restrict__ u,               // (B, HM, W2, C)
                 int c, int h0, int w0, int hm, int w2) {
+  constexpr int V = 16 / sizeof(T);  // channels a thread
   const int zr = blockIdx.x, b = blockIdx.y;
-  const int groups = c / 8;
+  const int groups = c / V;
   const Taps k = lerp_taps(zr, h0, hm);
-  const bf16* r0 = x + ((long long)b * h0 + k.i0) * w0 * c;
-  const bf16* r1 = x + ((long long)b * h0 + k.i1) * w0 * c;
-  bf16* dst = u + ((long long)b * hm + zr) * w2 * c;
+  const T* r0 = x + ((long long)b * h0 + k.i0) * w0 * c;
+  const T* r1 = x + ((long long)b * h0 + k.i1) * w0 * c;
+  T* dst = u + ((long long)b * hm + zr) * w2 * c;
   for (int i = threadIdx.x; i < w2 * groups; i += PASS_THREADS) {
-    const int col = i / groups, cg = (i - col * groups) * 8;
+    const int col = i / groups, cg = (i - col * groups) * V;
     const int ja = taps[col] * c + cg, jb = taps[w2 + col] * c + cg;
     const float wa = tapw[col], wb = tapw[w2 + col];
     const uint4 a0 = *reinterpret_cast<const uint4*>(r0 + ja);
     const uint4 b0 = *reinterpret_cast<const uint4*>(r0 + jb);
     const uint4 a1 = *reinterpret_cast<const uint4*>(r1 + ja);
     const uint4 b1 = *reinterpret_cast<const uint4*>(r1 + jb);
-    __align__(16) bf16 z0[8], z1[8], v[8];
-    wlerp8(z0, reinterpret_cast<const bf16*>(&a0),
-           reinterpret_cast<const bf16*>(&b0), wa, wb);
-    wlerp8(z1, reinterpret_cast<const bf16*>(&a1),
-           reinterpret_cast<const bf16*>(&b1), wa, wb);
+    __align__(16) T z0[V], z1[V], v[V];
+    wlerp<T, V>(z0, reinterpret_cast<const T*>(&a0),
+                reinterpret_cast<const T*>(&b0), wa, wb);
+    wlerp<T, V>(z1, reinterpret_cast<const T*>(&a1),
+                reinterpret_cast<const T*>(&b1), wa, wb);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float f = lerp(k, bf(z0[e]), bf(z1[e]));
-      v[e] = rbf(BIAS ? __fadd_rn(f, __ldg(bias + cg + e)) : f);
+    for (int e = 0; e < V; ++e) {
+      const float f = lerp(k, to_f32(z0[e]), to_f32(z1[e]));
+      v[e] = from_f32<T>(BIAS ? __fadd_rn(f, __ldg(bias + cg + e)) : f);
     }
-    *reinterpret_cast<uint4*>(dst + (long long)i * 8) =
+    *reinterpret_cast<uint4*>(dst + (long long)i * V) =
         *reinterpret_cast<const uint4*>(v);
   }
 }
@@ -200,60 +228,64 @@ upsample_kernel(const bf16* __restrict__ x,      // (B, H0, W0, C)
 // Row 12, 1: R (B, H1, W1, C2) from mid (B, HM, W2, C2); row 7's R from its
 // conv1 output c1 the same way, without `cw` (CW false).
 
-// One row of the TPU's intermediate at HM row m, 8 channels: the two-tap
-// W-resize of mid in f32, with CW + cw0 (at cw) and the top / bottom row
-// corrections (`plane` and 2 `plane` floats on), -> bf16.
-template <bool CW>
-__device__ __forceinline__ void mid_row8(float* out, const bf16* row, int ja,
-                                         int jb, float wa, float wb,
-                                         const float* cw, long long plane,
-                                         bool top, bool bot) {
+// One row of the TPU's intermediate at HM row m, V = 16 / sizeof(T)
+// channels: the two-tap W-resize of mid in f32, with CW + cw0 (at cw) and
+// the top / bottom row corrections (`plane` and 2 `plane` floats on), ->
+// T.
+template <class T, bool CW>
+__device__ __forceinline__ void mid_row(float* out, const T* row, int ja,
+                                        int jb, float wa, float wb,
+                                        const float* cw, long long plane,
+                                        bool top, bool bot) {
+  constexpr int V = 16 / sizeof(T);
   const uint4 ua = *reinterpret_cast<const uint4*>(row + ja);
   const uint4 ub = *reinterpret_cast<const uint4*>(row + jb);
-  const bf16* a = reinterpret_cast<const bf16*>(&ua);
-  const bf16* b = reinterpret_cast<const bf16*>(&ub);
+  const T* a = reinterpret_cast<const T*>(&ua);
+  const T* b = reinterpret_cast<const T*>(&ub);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    float f = __fadd_rn(__fmul_rn(wa, bf(a[e])), __fmul_rn(wb, bf(b[e])));
+  for (int e = 0; e < V; ++e) {
+    float f = __fadd_rn(__fmul_rn(wa, to_f32(a[e])),
+                        __fmul_rn(wb, to_f32(b[e])));
     if constexpr (CW) {
       f = __fadd_rn(f, cw[e]);
       if (top) f = __fadd_rn(f, cw[plane + e]);
       if (bot) f = __fadd_rn(f, cw[2 * plane + e]);
     }
-    out[e] = bf(rbf(f));
+    out[e] = to_f32(from_f32<T>(f));
   }
 }
 
 // Block (H1 row, frame), 16 bytes of R a thread.
-template <bool CW>
+template <class T, bool CW>
 __global__ void __launch_bounds__(PASS_THREADS)
-resize_kernel(const bf16* __restrict__ mid,    // (B, HM, W2, C2)
+resize_kernel(const T* __restrict__ mid,       // (B, HM, W2, C2)
               const int* __restrict__ taps,    // (2, W1) j0, j1
               const float* __restrict__ tapw,  // (2, W1) wa, wb
               const float* __restrict__ cw,    // (3, W1, C2) cw0, dtop, dbot
-              bf16* __restrict__ r,            // (B, H1, W1, C2)
+              T* __restrict__ r,               // (B, H1, W1, C2)
               int c2, int hm, int w2, int h1, int w1) {
+  constexpr int V = 16 / sizeof(T);
   const int row = blockIdx.x, b = blockIdx.y;
-  const int groups = c2 / 8;
+  const int groups = c2 / V;
   const long long plane = (long long)w1 * c2;
   const Taps k = lerp_taps(row, hm, h1);
-  const bf16* m0 = mid + ((long long)b * hm + k.i0) * w2 * c2;
-  const bf16* m1 = mid + ((long long)b * hm + k.i1) * w2 * c2;
-  bf16* dst = r + ((long long)b * h1 + row) * w1 * c2;
+  const T* m0 = mid + ((long long)b * hm + k.i0) * w2 * c2;
+  const T* m1 = mid + ((long long)b * hm + k.i1) * w2 * c2;
+  T* dst = r + ((long long)b * h1 + row) * w1 * c2;
   for (int i = threadIdx.x; i < w1 * groups; i += PASS_THREADS) {
-    const int col = i / groups, cg = (i - col * groups) * 8;
+    const int col = i / groups, cg = (i - col * groups) * V;
     const int ja = taps[col] * c2 + cg, jb = taps[w1 + col] * c2 + cg;
     const float wa = tapw[col], wb = tapw[w1 + col];
-    const float* c0 = CW ? cw + (long long)i * 8 : nullptr;
-    float z0[8], z1[8];
-    mid_row8<CW>(z0, m0, ja, jb, wa, wb, c0, plane, k.i0 == 0,
-                 k.i0 == hm - 1);
-    mid_row8<CW>(z1, m1, ja, jb, wa, wb, c0, plane, k.i1 == 0,
-                 k.i1 == hm - 1);
-    __align__(16) bf16 v[8];
+    const float* c0 = CW ? cw + (long long)i * V : nullptr;
+    float z0[V], z1[V];
+    mid_row<T, CW>(z0, m0, ja, jb, wa, wb, c0, plane, k.i0 == 0,
+                   k.i0 == hm - 1);
+    mid_row<T, CW>(z1, m1, ja, jb, wa, wb, c0, plane, k.i1 == 0,
+                   k.i1 == hm - 1);
+    __align__(16) T v[V];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = rbf(lerp(k, z0[e], z1[e]));
-    *reinterpret_cast<uint4*>(dst + (long long)i * 8) =
+    for (int e = 0; e < V; ++e) v[e] = from_f32<T>(lerp(k, z0[e], z1[e]));
+    *reinterpret_cast<uint4*>(dst + (long long)i * V) =
         *reinterpret_cast<const uint4*>(v);
   }
 }
@@ -525,13 +557,14 @@ int launch(const void* in, const void* w, const float* bias, const float* w3,
 
 }  // namespace conv2
 
-// Row 11, 0 on `stream`: x (B, C, H0 W0) -> xt (B, H0 W0, C). C a multiple
-// of TT. Returns a CUDA error code.
+// Row 11, 0 on `stream`: x (B, C, H0 W0) -> xt (B, H0 W0, C), elements T
+// (bf16 unless named). C a multiple of TT. Returns a CUDA error code.
+template <class T = bf16>
 int to_channels_last(const void* x, void* xt, int batch, int c, int hw,
                      void* stream) {
-  to_channels_last_kernel<<<dim3((hw + TT - 1) / TT, c / TT, batch),
-                            PASS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (bf16*)xt, c, hw);
+  to_channels_last_kernel<T><<<dim3((hw + TT - 1) / TT, c / TT, batch),
+                               PASS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (T*)xt, c, hw);
   return (int)cudaGetLastError();
 }
 
@@ -544,11 +577,11 @@ int back(const void* mid, const void* taps, const void* tapw, const void* cw,
   const dim3 grid(h1, batch);
   const cudaStream_t st = (cudaStream_t)stream;
   if (cw != nullptr) {
-    resize_kernel<true><<<grid, PASS_THREADS, 0, st>>>(
+    resize_kernel<bf16, true><<<grid, PASS_THREADS, 0, st>>>(
         (const bf16*)mid, (const int*)taps, (const float*)tapw,
         (const float*)cw, (bf16*)r, c2, hm, w2, h1, w1);
   } else {
-    resize_kernel<false><<<grid, PASS_THREADS, 0, st>>>(
+    resize_kernel<bf16, false><<<grid, PASS_THREADS, 0, st>>>(
         (const bf16*)mid, (const int*)taps, (const float*)tapw, nullptr,
         (bf16*)r, c2, hm, w2, h1, w1);
   }
@@ -591,8 +624,8 @@ extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
     if (err != 0) return err;
     x = xt;
   }
-  upsample_kernel<false><<<dim3(hm, batch), PASS_THREADS, 0,
-                           (cudaStream_t)stream>>>(
+  upsample_kernel<bf16, false><<<dim3(hm, batch), PASS_THREADS, 0,
+                                 (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)taps, (const float*)tapw, nullptr,
       (bf16*)u, c, h0, w0, hm, w2);
   const cudaError_t err = cudaGetLastError();
@@ -660,8 +693,8 @@ extern "C" int vrvg_head_tail_ext_front(
                 : tma_gemm::gemm<Tall>(x, koc, xoc, batch * h0 * w0, c, c,
                                        mix, stream);
   if (err != 0) return err;
-  upsample_kernel<true><<<dim3(hm, batch), PASS_THREADS, 0,
-                          (cudaStream_t)stream>>>(
+  upsample_kernel<bf16, true><<<dim3(hm, batch), PASS_THREADS, 0,
+                                (cudaStream_t)stream>>>(
       (const bf16*)xoc, (const int*)taps, (const float*)tapw,
       (const float*)boc, (bf16*)z, c, h0, w0, hm, w2);
   err = (int)cudaGetLastError();
@@ -732,4 +765,61 @@ extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
   if (err != 0) return err;
   return back(c1, taps, tapw, nullptr, k2, b2, w3, b3, r, out, batch, h2, w2,
               c2, h1, w1, stream);
+}
+
+// Row 7 at f32 (C = 64, C2 = 32; the whole chain, front and back). x (B,
+// H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor (B, C, H0, W0)
+// seen as NHWC, first transposed into the scratch xt; out_conv (C out, C
+// in) f32 + (C,) f32 bias; the f32 W-upsample tap tables (2, 2 W0); conv1
+// as (C2, 9 C) f32 with k = (3 dh + dw) C + c, + (C2,) bias; the f32
+// W-resize tap tables (2, W1); conv2 as (32, 9 C2) f32 in the same k order,
+// b2 (32,), the 1x1 (32,) and b3 (1,); scratch xoc (B, H0, W0, C), z (B,
+// 2 H0, 2 W0, C), c1 (B, 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out
+// (B, H1, W1) f32.
+extern "C" int vrvg_head_tail_ext_f32(
+    const void* x, int nchw, void* xt, const void* koc, const void* boc,
+    const void* taps_a, const void* tapw_a, void* xoc, void* z,
+    const void* w1m, const void* b1, void* c1, const void* taps_b,
+    const void* tapw_b, void* r, const void* w2m, const void* b2,
+    const void* w3, const void* b3, void* out, int batch, int h0, int w0,
+    int c, int h1, int w1, void* stream) {
+  if (c != 64) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
+    return (int)cudaSuccess;
+  }
+  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nchw) {
+    const int err = to_channels_last<float>(x, xt, batch, c, h0 * w0, stream);
+    if (err != 0) return err;
+    x = xt;
+  }
+  const int m0 = batch * h0 * w0, m1 = batch * hm * w2, m2 = batch * h1 * w1;
+  int err = sgemm::gemm<sgemm::Tall64>(
+      sgemm::DenseRows{(const float*)x, c, m0, c},
+      sgemm::DenseRows{(const float*)koc, c, c, c}, m0, c, c,
+      sgemm::Store{(float*)xoc, c}, stream);
+  if (err != 0) return err;
+  upsample_kernel<float, true><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+      (const float*)xoc, (const int*)taps_a, (const float*)tapw_a,
+      (const float*)boc, (float*)z, c, h0, w0, hm, w2);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = sgemm::gemm<sgemm::Rows32>(
+      sgemm::Conv3x3Rows{(const float*)z, hm, w2, c, m1},
+      sgemm::DenseRows{(const float*)w1m, 9 * c, c2, 9 * c}, m1, c2, 9 * c,
+      sgemm::BiasStore{(float*)c1, (const float*)b1, c2}, stream);
+  if (err != 0) return err;
+  resize_kernel<float, false><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
+      (const float*)c1, (const int*)taps_b, (const float*)tapw_b, nullptr,
+      (float*)r, c2, hm, w2, h1, w1);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sgemm::gemm<sgemm::Rows32>(
+      sgemm::Conv3x3Rows{(const float*)r, h1, w1, c2, m2},
+      sgemm::DenseRows{(const float*)w2m, 9 * c2, C3, 9 * c2}, m2, C3,
+      9 * c2,
+      sgemm::DepthOut{(float*)out, (const float*)b2, (const float*)w3,
+                      (const float*)b3},
+      stream);
 }

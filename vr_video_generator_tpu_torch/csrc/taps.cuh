@@ -46,6 +46,32 @@ __device__ __forceinline__ void wlerp8(bf16* dst, const bf16* a, const bf16* b,
     dst[e] = rbf(__fadd_rn(__fmul_rn(wa, bf(a[e])), __fmul_rn(wb, bf(b[e]))));
 }
 
+// The element types of the tail's passes (bf16, and f32 for the f32 ext
+// tail): to f32 for the arithmetic, and the rounding back.
+__device__ __forceinline__ float to_f32(bf16 v) { return bf(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return rbf(v);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+
+// W-resize of N channels of element type T: fl(wa * a + wb * b) per
+// channel, rounded to T (wlerp8's arithmetic at bf16).
+template <class T, int N>
+__device__ __forceinline__ void wlerp(T* dst, const T* a, const T* b,
+                                      float wa, float wb) {
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    dst[e] = from_f32<T>(__fadd_rn(__fmul_rn(wa, to_f32(a[e])),
+                                   __fmul_rn(wb, to_f32(b[e]))));
+}
+
 // Rows [kc, kc + kcn) of each tap of (9, cin, ld) 3x3 conv weights, columns
 // [0, cols) of `wt` (pre-offset to the first column), into shared memory as
 // (9, kcn, cols).

@@ -70,6 +70,16 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _P],
     "vrvg_head_tail_ext_front": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _I, _I, _I, _I, _P],
+    # The f32 variants (--compute_dtype float32).
+    "vrvg_layernorm_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "vrvg_qkv_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "vrvg_ln_qkv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "vrvg_proj_ls_residual_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "vrvg_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vrvg_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
+                                 _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vrvg_head_tail_ext_f32": [_P, _I] + [_P] * 18 + [_I] * 6 + [_P],
 }
 
 

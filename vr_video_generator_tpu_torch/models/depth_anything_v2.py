@@ -5,6 +5,8 @@ Mirrors vr_video_generator_tpu/models/depth_anything_v2.py.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -17,6 +19,20 @@ from vr_video_generator_tpu_torch.ops.preprocess import (network_input_size,
 from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuBLAS products and cuDNN convolutions, restored on
+    exit. An f32 model computes in f32: TF32 (PyTorch's default for f32
+    convolutions) keeps 10 mantissa bits, about three decimal digits."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
 class DepthAnythingV2(nn.Module):
     """Forward over preprocessed input (B, Hn, Wn, 3) -> (B, Hn, Wn) depth.
 
@@ -24,7 +40,9 @@ class DepthAnythingV2(nn.Module):
     the weights to it (LayerNorm parameters and the pos-embed stay f32).
     ``cfg.mlp_fused`` and ``tail`` pick the encoder's and the head's fused
     paths (models/dinov2.resolve_block_fusion, models/dpt.resolve_tail), as
-    in the JAX package (its ``DepthAnythingV2(tail=...)``).
+    in the JAX package (its ``DepthAnythingV2(tail=...)``). An f32
+    model's forward runs with TF32 off (:func:`no_tf32`), also inside a
+    CUDA graph's capture.
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
@@ -38,8 +56,12 @@ class DepthAnythingV2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.cfg.patch_size
         ph, pw = x.shape[1] // p, x.shape[2] // p
-        taps = self.pretrained(x.to(self.dtype), self.cfg.intermediate_layers)
-        return F.relu(self.depth_head(taps, ph, pw))
+        scope = no_tf32() if self.dtype == torch.float32 \
+            else contextlib.nullcontext()
+        with scope:
+            taps = self.pretrained(x.to(self.dtype),
+                                   self.cfg.intermediate_layers)
+            return F.relu(self.depth_head(taps, ph, pw))
 
 
 def infer_depth(model: DepthAnythingV2, frames_rgb_u8: torch.Tensor,

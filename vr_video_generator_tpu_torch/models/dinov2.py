@@ -49,9 +49,11 @@ from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 
 
 def kernel_device(x: torch.Tensor) -> str:
-    """The device type ``auto`` resolves for: "cuda" for bf16 activations on
-    the card (the fused kernels are bf16), else "cpu"."""
-    return "cuda" if x.is_cuda and x.dtype == torch.bfloat16 else "cpu"
+    """The device type ``auto`` resolves for: "cuda" for bf16 or f32
+    activations on the card (the kernels and their f32 variants), else
+    "cpu"."""
+    return "cuda" if x.is_cuda and x.dtype in (torch.bfloat16,
+                                               torch.float32) else "cpu"
 
 
 def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
@@ -66,9 +68,10 @@ def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
     resident weights (:func:`ops.qkv.attn_fusable`: not at D=1024 in f32,
     nor at vitg's D=1536), and only at a width the qkv kernels take.
     ``auto`` fuses the attention half there and the MLP half at D >= 512, on
-    CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 on the
-    card); off the card it fuses nothing, as the JAX package's ``auto`` does
-    off the TPU. ``fused`` fuses both wherever the JAX package would (off the
+    CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 or f32 on
+    the card; at f32 ``attn_fusable`` leaves vitl's D = 1024 unfused); off
+    the card it fuses nothing, as the JAX package's ``auto`` does off the
+    TPU. ``fused`` fuses both wherever the JAX package would (off the
     card through the plain versions); where either would fuse the MLP half
     (``ffn_layer`` "mlp" or vitg's "swiglufused") at a width no kernel takes,
     it raises; ``xla`` fuses nothing."""

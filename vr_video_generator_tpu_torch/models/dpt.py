@@ -51,7 +51,9 @@ def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
     card a planned tail whose kernels do not take its shape raises here, not
     in a kernel wrapper: the ext kernels take any grid at every encoder's
     width (ops/head_tail.EXT_CHANNELS) and, at C = 32, a row that fits one
-    block's shared memory; the big-C kernels C in BIG_CHANNELS."""
+    block's shared memory; the big-C kernels C in BIG_CHANNELS. At f32 the
+    planners see f32's itemsize; which f32 plans have their kernels is
+    pipeline.check_f32_plan's question, asked before any weight is built."""
     if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
     if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):

@@ -16,7 +16,10 @@ the PV product.
 
 ``mha`` picks between them as the JAX package's does on its accelerator:
 the one-shot function up to 4096 tokens, the flash function above. Both
-kernels are ``csrc/attention.cu``; see its header for the design.
+kernels are ``csrc/attention.cu``; see its header for the design. At f32
+(``--compute_dtype float32``) the wrappers launch the f32 variants of both
+rows (``csrc/attention_f32.cu``, counted as ``attention_f32`` and
+``flash_attention_f32``): FFMA products, an f32 softmax, nothing cast.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 
 LAUNCHES = counter("attention")
 FLASH_LAUNCHES = counter("flash_attention")
+F32_LAUNCHES = counter("attention_f32")
+FLASH_F32_LAUNCHES = counter("flash_attention_f32")
 HEAD_DIM = 64
 MAX_ONESHOT_TOKENS = 4096  # attention_pallas._MAX_SEQ
 FLASH_BLOCK = 512          # ops/attention._FLASH_BLOCK
@@ -86,32 +91,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return acc.to(q.dtype).transpose(1, 2).contiguous()
 
 
-def _check_layout(kernel: str, name: str, x: torch.Tensor, shape) -> None:
-    if x.dtype != torch.bfloat16 or tuple(x.shape) != shape:
-        raise ValueError(f"{kernel} kernel: {name} must be bf16 {shape}, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+def _check_layout(kernel: str, name: str, x: torch.Tensor, shape,
+                  dtype: torch.dtype) -> None:
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{kernel} kernel: {name} must be {dtype} {shape}, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if x.stride(3) != 1 or x.stride(2) != shape[3]:
         raise ValueError(f"{kernel} kernel: {name} needs its (H, D) pair "
                          f"contiguous, got strides {x.stride()}")
-    if x.stride(1) % 8 or x.stride(0) % 8 or x.data_ptr() % 16:
+    per16 = 16 // x.element_size()
+    if x.stride(1) % per16 or x.stride(0) % per16 or x.data_ptr() % 16:
         raise ValueError(f"{kernel} kernel: {name} rows must be 16-byte "
                          f"aligned, got strides {x.stride()}")
 
 
 def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float) -> torch.Tensor:
-    """Check the layout and launch ``csrc/attention.cu``'s kernel, which
-    multiplies the f32 logits by ``scale``."""
+    """Check the layout and launch ``csrc/attention.cu``'s kernel (bf16) or
+    ``csrc/attention_f32.cu``'s (f32), which multiplies the f32 logits by
+    ``scale``."""
     b, n, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"{kernel} kernel supports head_dim {HEAD_DIM}, "
                          f"got {d}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel} kernel takes bf16 or f32, got {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_layout(kernel, name, x, (b, n, h, d))
+        _check_layout(kernel, name, x, (b, n, h, d), q.dtype)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    entry = f"vrvg_{kernel}"
+    entry = f"vrvg_{kernel}" + ("_f32" if q.dtype == torch.float32 else "")
     err = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -124,12 +134,12 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, N, H, D) pre-scaled q, k, v -> (B, N, H, D): the plain version for
-    CPU tensors, the kernel for CUDA tensors (bf16, D = 64; k and v may be
-    strided views into a fused qkv output)."""
+    CPU tensors, the kernel for CUDA tensors (bf16 or f32, D = 64; k and v
+    may be strided views into a fused qkv output)."""
     if not on_cuda(q, k, v):
         return attention_plain(q, k, v)
     o = _launch("attention", q, k, v, 1.0)
-    LAUNCHES.count += 1
+    (F32_LAUNCHES if o.dtype == torch.float32 else LAUNCHES).count += 1
     return o
 
 
@@ -137,11 +147,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """(B, N, H, D) unscaled q, k, v -> (B, N, H, D) with the logits scaled
     in f32: the plain version for CPU tensors, the kernel for CUDA tensors
-    (bf16, D = 64; q, k and v may be strided views into a qkv output)."""
+    (bf16 or f32, D = 64; q, k and v may be strided views into a qkv
+    output)."""
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)
     o = _launch("flash_attention", q, k, v, scale)
-    FLASH_LAUNCHES.count += 1
+    (FLASH_F32_LAUNCHES if o.dtype == torch.float32
+     else FLASH_LAUNCHES).count += 1
     return o
 
 

@@ -24,7 +24,11 @@ point ``vrvg_head_tail_ext_front`` and the last two the big-C tail's back
 without ``cw``, all in ``csrc/head_tail_big.cu`` (see its header). A head
 of 32 features (a custom config) runs the older chain of
 ``csrc/head_tail.cu`` instead, chosen by width, which holds a whole input
-row in shared memory.
+row in shared memory. At f32 (``--compute_dtype float32``, vits' C = 64)
+the same five stages run as one entry point, ``vrvg_head_tail_ext_f32``
+(counted as ``head_tail_ext_f32``): the passes instantiated on f32, the mix
+and both convs on the f32 SIMT core (``csrc/sgemm.cuh``), the W-resize
+weights f32 as the plain version's are at f32.
 
 The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
 15), which no CLI path of the JAX package runs (its DPT head takes the ext or
@@ -72,11 +76,13 @@ from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.resize import linear_weights
 
 LAUNCHES = counter("head_tail_ext")
+F32_LAUNCHES = counter("head_tail_ext_f32")
 BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
+EXT_F32_CHANNELS = (64,)            # ... at f32, vrvg_head_tail_ext_f32
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
 # The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
@@ -105,6 +111,12 @@ def takes(features: int, w0: int) -> bool:
     whose row fits the older chain's first kernel."""
     return features in EXT_CHANNELS or (
         features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK)
+
+
+def takes_f32(features: int) -> bool:
+    """Whether the f32 ext kernels are built for a head of ``features``
+    channels (vits' 64; any grid)."""
+    return features in EXT_F32_CHANNELS
 
 
 def base_takes(features: int) -> bool:
@@ -412,12 +424,15 @@ def head_tail_stages(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _host_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+def _host_taps(n_in: int, n_out: int,
+               dt: torch.dtype = torch.bfloat16
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """Per output column of the align-corners W-resize n_in -> n_out: the two
-    input columns (int32, (2, n_out)) and their weights as bf16-rounded f32
-    ((2, n_out)), from the same matrix the plain version multiplies by."""
+    input columns (int32, (2, n_out)) and their weights rounded to ``dt``,
+    as f32 ((2, n_out)), from the same matrix the plain version multiplies
+    by in that dtype."""
     m = torch.as_tensor(linear_weights(n_in, n_out, align_corners=True),
-                        dtype=torch.bfloat16).float().numpy()
+                        dtype=dt).float().numpy()
     idx = np.zeros((2, n_out), np.int32)
     wts = np.zeros((2, n_out), np.float32)
     for k in range(n_out):
@@ -433,18 +448,20 @@ def _host_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
 _ON_DEVICE: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
 
 
-def _on_device(tables, n_in: int, n_out: int, device: torch.device):
-    """The host tables ``tables(n_in, n_out)`` on ``device``, copied once (a
-    copy inside a step would synchronise the stream)."""
-    key = (tables, n_in, n_out, device)
+def _on_device(tables, n_in: int, n_out: int, device: torch.device, *args):
+    """The host tables ``tables(n_in, n_out, *args)`` on ``device``, copied
+    once (a copy inside a step would synchronise the stream)."""
+    key = (tables, n_in, n_out, device, *args)
     if key not in _ON_DEVICE:
         _ON_DEVICE[key] = tuple(torch.as_tensor(t, device=device)
-                                for t in tables(n_in, n_out))
+                                for t in tables(n_in, n_out, *args))
     return _ON_DEVICE[key]
 
 
-def _device_taps(n_in: int, n_out: int, device: torch.device):
-    return _on_device(_host_taps, n_in, n_out, device)
+def _device_taps(n_in: int, n_out: int, device: torch.device,
+                 dt: torch.dtype = torch.bfloat16):
+    """The W-resize tap tables on ``device``, weights rounded to ``dt``."""
+    return _on_device(_host_taps, n_in, n_out, device, dt)
 
 
 _PREPARED: Dict[tuple, tuple] = {}
@@ -487,6 +504,16 @@ def _ext_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
             conv2_weights(k2), *_f32_vectors(b_oc, b1, b2, k3, b3))
 
 
+def _ext_f32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
+    """Row 7's weights as vrvg_head_tail_ext_f32 reads them: the mix (C, C),
+    conv1 (C2, 9 C) and conv2 (32, 9 C2) f32, and the f32 vectors b_oc, b1,
+    b2, the 1x1, b3."""
+    return (k_oc[:, :, 0, 0].to(torch.float32, copy=True).contiguous(),
+            conv3x3_gemm_weights(k1, torch.float32),
+            conv3x3_gemm_weights(k2, torch.float32),
+            *_f32_vectors(b_oc, b1, b2, k3, b3))
+
+
 def _ext32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
     """The C = 32 chain's weights (csrc/head_tail.cu): the mix, conv1 (3, 3,
     C, C2) and conv2 (3, 3, C2, C3) bf16, and the f32 vectors."""
@@ -500,10 +527,15 @@ def _ext32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
 def _check_ext(x: torch.Tensor, k_oc, k1, k2, k3) -> None:
     c = x.shape[3]
     c2 = c // 2
-    if x.dtype != torch.bfloat16 or not takes(c, x.shape[2]):
+    if x.dtype == torch.float32:
+        if not takes_f32(c):
+            raise ValueError(f"head_tail_ext f32 kernel takes C in "
+                             f"{EXT_F32_CHANNELS}, got C={c}")
+    elif x.dtype != torch.bfloat16 or not takes(c, x.shape[2]):
         raise ValueError(f"head_tail_ext kernel takes bf16 input with C in "
                          f"{CHANNELS} (at C=32 rows within {SMEM_PER_BLOCK} "
-                         f"bytes of shared memory), got {x.dtype} C={c} "
+                         f"bytes of shared memory), or f32 input with C in "
+                         f"{EXT_F32_CHANNELS}, got {x.dtype} C={c} "
                          f"W0={x.shape[2]}")
     for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
                            ("output_conv1", k1, (c2, c, 3, 3)),
@@ -534,11 +566,12 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
     """x (B, H0, W0, C), any strides -> depth (B, H1, W1) f32: the plain
     version for CPU tensors, the kernels for CUDA tensors (bf16, C in
     ``CHANNELS``): the five-stage chain at ``EXT_CHANNELS``, the older
-    chain of csrc/head_tail.cu at C = 32."""
+    chain of csrc/head_tail.cu at C = 32; f32 (C in ``EXT_F32_CHANNELS``):
+    the f32 chain."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if not on_cuda(x, *args):
         return head_tail_ext_plain(x, *args, out_hw)
-    if x.shape[3] in EXT_CHANNELS:
+    if x.shape[3] in EXT_CHANNELS or x.dtype == torch.float32:
         return head_tail_ext_stages(x, *args, out_hw)[-1]
     _check_ext(x, k_oc, k1, k2, k3)
     from vr_video_generator_tpu_torch.kernels.build import check, library
@@ -571,8 +604,9 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
                          out_hw: Tuple[int, int]):
     """Row 7 stage by stage: (xoc, Z, c1, R, depth), each (B, H, W, C)
     channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
-    versions of the stages; for CUDA tensors (bf16, C in ``EXT_CHANNELS``),
-    one launch of the chain (the front and the back entry points), whose
+    versions of the stages; for CUDA tensors (bf16, C in ``EXT_CHANNELS``,
+    or f32, C in ``EXT_F32_CHANNELS``), one launch of the chain (the front
+    and the back entry points; at f32 the one f32 entry point), whose
     scratch holds the intermediates."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if not on_cuda(x, *args):
@@ -582,6 +616,8 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
         r = ext_resize_plain(c1, out_hw)
         return xoc, z, c1, r, big_conv2_plain(r, k2, b2, k3, b3)
     _check_ext(x, k_oc, k1, k2, k3)
+    if x.dtype == torch.float32:
+        return _ext_f32_stages(x, args, out_hw)
     b, h0, w0, c = x.shape
     if c not in EXT_CHANNELS:
         raise ValueError(f"head_tail_ext_stages takes C in {EXT_CHANNELS}, "
@@ -611,6 +647,35 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
         r.data_ptr(), out.data_ptr(), b, hm, w2, c2, h1, w1, stream),
         "vrvg_head_tail_big_back")
     LAUNCHES.count += 1
+    return xoc, z, c1, r, out
+
+
+def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
+    """Row 7 at f32 on the card: (xoc, Z, c1, R, depth) from one launch of
+    vrvg_head_tail_ext_f32 (x checked by :func:`_check_ext`)."""
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    b, h0, w0, c = x.shape
+    h1, w1 = out_hw
+    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
+    koc, w1m, w2m, boc, b1f, b2f, w3f, b3f = _prepared(_ext_f32_weights, args)
+    x, nchw, xt = _channels_last(x)
+    f32 = torch.float32
+    taps_a, tapw_a = _device_taps(w0, w2, x.device, f32)
+    taps_b, tapw_b = _device_taps(w2, w1, x.device, f32)
+    new = functools.partial(torch.empty, dtype=f32, device=x.device)
+    xoc, z, c1, r = (new((b, h0, w0, c)), new((b, hm, w2, c)),
+                     new((b, hm, w2, c2)), new((b, h1, w1, c2)))
+    out = new((b, h1, w1))
+    check(library().vrvg_head_tail_ext_f32(
+        x.data_ptr(), int(nchw), xt.data_ptr(), koc.data_ptr(),
+        boc.data_ptr(), taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(),
+        z.data_ptr(), w1m.data_ptr(), b1f.data_ptr(), c1.data_ptr(),
+        taps_b.data_ptr(), tapw_b.data_ptr(), r.data_ptr(), w2m.data_ptr(),
+        b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(), out.data_ptr(), b,
+        h0, w0, c, h1, w1, stream_handle(x.device)),
+        "vrvg_head_tail_ext_f32")
+    F32_LAUNCHES.count += 1
     return xoc, z, c1, r, out
 
 
@@ -742,10 +807,12 @@ def head_tail_big_plain(x: torch.Tensor, k_oc: torch.Tensor,
     return head_tail_big_back_plain(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
 
 
-def conv3x3_gemm_weights(k: torch.Tensor) -> torch.Tensor:
+def conv3x3_gemm_weights(k: torch.Tensor,
+                         dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A 3x3 conv (O, I, 3, 3) as the GEMM core's B for Conv3x3Layout: (O,
-    9 I) bf16, k = (3 dh + dw) I + i (row 7's conv1)."""
-    k = k.to(torch.bfloat16)
+    9 I) bf16, k = (3 dh + dw) I + i (row 7's conv1); with ``dt`` f32, the
+    f32 core's B for its implicit GEMM (csrc/sconv.cuh, row 7 at f32)."""
+    k = k.to(dt)
     return k.permute(0, 2, 3, 1).reshape(k.shape[0], -1).contiguous()
 
 

@@ -2,7 +2,8 @@
 
 Replaces vr_video_generator_tpu/ops/layernorm.py `layernorm` (Pallas body
 `_ln_kernel`): bf16 rows in and out, mean/variance and the affine in f32,
-eps 1e-6. It runs at every final-norm tap and, on the unfused paths, twice a
+eps 1e-6; its f32 variant (``--compute_dtype float32``, counted as
+``layernorm_f32``) takes f32 rows in and out at the same arithmetic. It runs at every final-norm tap and, on the unfused paths, twice a
 block: at 1080p, (8 * 2443, 384) rows 16 times a vits `auto` step, (8 *
 4785, 1024) 28 times a vitl-728 step, (8 * 2443, 1536) 44 times a vitg-518
 step.
@@ -31,6 +32,7 @@ from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.kernels.build import check, library
 
 LAUNCHES = counter("layernorm")
+F32_LAUNCHES = counter("layernorm_f32")
 
 
 def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -46,16 +48,17 @@ def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def _check_operands(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor) -> None:
-    """Raise unless x is contiguous bf16 (..., D) and weight and bias are
-    contiguous f32 (D,): what the kernel takes."""
+    """Raise unless x is contiguous bf16 or f32 (..., D) and weight and bias
+    are contiguous f32 (D,): what the kernels take."""
     d = x.shape[-1]
     f32 = torch.float32
-    if (x.dtype != torch.bfloat16 or weight.dtype != f32 or bias.dtype != f32
+    if (x.dtype not in (torch.bfloat16, f32) or weight.dtype != f32
+            or bias.dtype != f32
             or weight.shape != (d,) or bias.shape != (d,)
             or not (x.is_contiguous() and weight.is_contiguous()
                     and bias.is_contiguous())):
         raise ValueError(
-            f"layernorm kernel needs contiguous bf16 (..., {d}) rows and "
+            f"layernorm kernel needs contiguous bf16 or f32 (..., {d}) rows and "
             f"contiguous f32 ({d},) affine; got x {x.dtype} "
             f"{tuple(x.shape)} contiguous={x.is_contiguous()}, weight "
             f"{weight.dtype} {tuple(weight.shape)}, bias {bias.dtype} "
@@ -65,14 +68,17 @@ def _check_operands(x: torch.Tensor, weight: torch.Tensor,
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm of (..., D): the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors (bf16 rows, or f32 rows through the f32
+    variant)."""
     if not on_cuda(x, weight, bias):
         return layernorm_plain(x, weight, bias, eps)
     _check_operands(x, weight, bias)
     d = x.shape[-1]
     y = torch.empty_like(x)
-    check(library().vrvg_layernorm(
+    f32 = x.dtype == torch.float32
+    entry = "vrvg_layernorm_f32" if f32 else "vrvg_layernorm"
+    check(getattr(library(), entry)(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        x.numel() // d, d, eps, stream_handle(x.device)), "vrvg_layernorm")
-    LAUNCHES.count += 1
+        x.numel() // d, d, eps, stream_handle(x.device)), entry)
+    (F32_LAUNCHES if f32 else LAUNCHES).count += 1
     return y

@@ -19,6 +19,12 @@ TMA + wgmma GEMM core with the bias and scale in its epilogue;
 :func:`qkv_plain` is the plain version of that second stage.
 ``proj_ls_residual`` is one launch of the same core with the bias,
 LayerScale and residual in its epilogue.
+
+At f32 (``--compute_dtype float32``) both run their f32 variants
+(``csrc/qkv_f32.cu``, counted as ``ln_qkv_f32`` and
+``proj_ls_residual_f32``): row 1's f32 LayerNorm, then the f32 SIMT GEMM
+core of ``csrc/sgemm.cuh`` with the same epilogues in f32, where the JAX
+package plans the fused half at f32 (:func:`attn_fusable`).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
 
 LN_QKV_LAUNCHES = counter("ln_qkv")
 PROJ_LAUNCHES = counter("proj_ls_residual")
+LN_QKV_F32_LAUNCHES = counter("ln_qkv_f32")
+PROJ_F32_LAUNCHES = counter("proj_ls_residual_f32")
 HEAD_DIM = 64
 WIDTHS = (128, 384, 768, 1024)  # the widths csrc/qkv.cu is built for
 
@@ -99,55 +107,71 @@ def _check_width(kernel: str, d: int, heads: int) -> None:
                          f"{HEAD_DIM}, got D={d}, heads={heads}")
 
 
+def _kernel_dtype(kernel: str, x: torch.Tensor) -> torch.dtype:
+    """The element type of a kernel's activations: bf16, or f32 for its f32
+    variant; any other raises."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel} kernel takes bf16 or f32 activations, "
+                         f"got {x.dtype}")
+    return x.dtype
+
+
 def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
            eps: float = 1e-6) -> torch.Tensor:
     """(B, N, D) -> (B, N, 3, heads, 64): the plain version for CPU tensors,
-    the kernel chain for CUDA tensors (bf16)."""
+    the kernel chain for CUDA tensors (bf16; f32 through the f32 variant,
+    weights and biases f32)."""
     if not on_cuda(x, ln_w, ln_b, w, b):
         return ln_qkv_plain(x, ln_w, ln_b, w, b, heads, scale, eps)
     bsz, n, d = x.shape
+    dt = _kernel_dtype("ln_qkv", x)
     _check_width("ln_qkv", d, heads)
-    _check("ln_qkv x", x, (bsz, n, d), torch.bfloat16)
+    _check("ln_qkv x", x, (bsz, n, d), dt)
     _check("ln_qkv LN weight", ln_w, (d,), torch.float32)
     _check("ln_qkv LN bias", ln_b, (d,), torch.float32)
-    _check("ln_qkv weight", w, (3 * d, d), torch.bfloat16)
-    _check("ln_qkv bias", b, (3 * d,), torch.bfloat16)
+    _check("ln_qkv weight", w, (3 * d, d), dt)
+    _check("ln_qkv bias", b, (3 * d,), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     # Scratch of the chain: the LayerNorm'd rows.
     a = torch.empty_like(x)
     out = torch.empty((bsz, n, 3, heads, HEAD_DIM), dtype=x.dtype,
                       device=x.device)
-    err = library().vrvg_ln_qkv(
+    f32 = dt == torch.float32
+    entry = "vrvg_ln_qkv_f32" if f32 else "vrvg_ln_qkv"
+    err = getattr(library(), entry)(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
         b.data_ptr(), a.data_ptr(), out.data_ptr(), bsz * n, d, scale, eps,
         stream_handle(x.device))
-    check(err, "vrvg_ln_qkv")
-    LN_QKV_LAUNCHES.count += 1
+    check(err, entry)
+    (LN_QKV_F32_LAUNCHES if f32 else LN_QKV_LAUNCHES).count += 1
     return out
 
 
 def proj_ls_residual(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     """o (B, N, H, 64), x (B, N, D) -> x + gamma * (proj(o) + b): the plain
-    version for CPU tensors, the kernel for CUDA tensors (bf16)."""
+    version for CPU tensors, the kernel for CUDA tensors (bf16; f32 through
+    the f32 variant, every operand f32)."""
     if not on_cuda(o, x, w, b, gamma):
         return proj_ls_residual_plain(o, x, w, b, gamma)
     bsz, n, d = x.shape
+    dt = _kernel_dtype("proj_ls_residual", x)
     _check_width("proj_ls_residual", d, o.shape[2])
-    _check("proj_ls_residual o", o, (bsz, n, d // HEAD_DIM, HEAD_DIM),
-           torch.bfloat16)
-    _check("proj_ls_residual x", x, (bsz, n, d), torch.bfloat16)
-    _check("proj_ls_residual weight", w, (d, d), torch.bfloat16)
-    _check("proj_ls_residual bias", b, (d,), torch.bfloat16)
-    _check("proj_ls_residual gamma", gamma, (d,), torch.bfloat16)
+    _check("proj_ls_residual o", o, (bsz, n, d // HEAD_DIM, HEAD_DIM), dt)
+    _check("proj_ls_residual x", x, (bsz, n, d), dt)
+    _check("proj_ls_residual weight", w, (d, d), dt)
+    _check("proj_ls_residual bias", b, (d,), dt)
+    _check("proj_ls_residual gamma", gamma, (d,), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     out = torch.empty_like(x)
-    err = library().vrvg_proj_ls_residual(
+    f32 = dt == torch.float32
+    entry = "vrvg_proj_ls_residual_f32" if f32 else "vrvg_proj_ls_residual"
+    err = getattr(library(), entry)(
         o.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
         gamma.data_ptr(), out.data_ptr(), bsz * n, d, stream_handle(x.device))
-    check(err, "vrvg_proj_ls_residual")
-    PROJ_LAUNCHES.count += 1
+    check(err, entry)
+    (PROJ_F32_LAUNCHES if f32 else PROJ_LAUNCHES).count += 1
     return out

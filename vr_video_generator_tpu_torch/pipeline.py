@@ -38,8 +38,11 @@ from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2, infer_depth)
 from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
-from vr_video_generator_tpu_torch.models.dpt import TAILS
+from vr_video_generator_tpu_torch.models.dpt import TAILS, resolve_tail
 from vr_video_generator_tpu_torch.models.factory import load_model
+from vr_video_generator_tpu_torch.ops.head_tail import takes_f32
+from vr_video_generator_tpu_torch.ops.mlp import resident
+from vr_video_generator_tpu_torch.ops.preprocess import network_input_size
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         stride_audit_stats,
                                                         stride_interpolate,
@@ -89,6 +92,49 @@ def check_supported(run_cfg: RunConfig) -> None:
         raise ValueError(f"tail must be one of {TAILS}, got {run_cfg.tail!r}")
 
 
+def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
+    """``compute_dtype`` float32 on the card: raise ``not_ported`` where the
+    plan the JAX package's planners make at f32 for this geometry (its
+    token count, ``attn_fusable``, the MLP half's fusion and its resident
+    or hidden-blocked kernel, the DPT tail) needs a kernel row that has no
+    f32 variant yet, naming the first: the fused MLP half (row 8 resident,
+    row 9 hidden-blocked, row 10 SwiGLU), then the tail (rows 11 and 12 for
+    the big-C tail, row 7 at a width other than vits' C = 64). Rows 1, 2,
+    5, 6, 7 at C = 64 and 17 have theirs, which covers vits ``auto`` and
+    ``--mlp_fused xla --tail xla`` at every encoder and token count. It
+    reads only the config, so it runs before any weight is built."""
+    cfg = run_cfg.model()
+    p, d = cfg.patch_size, cfg.embed_dim
+    hn, wn = network_input_size(height, width, target=run_cfg.input_size,
+                                multiple_of=p)
+    ph, pw = hn // p, wn // p
+    f32 = torch.float32
+    _, fuse_mlp = resolve_block_fusion(cfg.mlp_fused, d, cfg.num_heads,
+                                       ph * pw + 1, "cuda", f32,
+                                       cfg.ffn_layer)
+    if fuse_mlp:
+        if cfg.ffn_layer == "swiglufused":
+            row, half = 10, "the fused SwiGLU half"
+        elif resident(d, int(d * cfg.mlp_ratio), f32):
+            row, half = 8, "the weights-resident MLP half"
+        else:
+            row, half = 9, "the hidden-blocked MLP half"
+        not_ported(f"compute_dtype='float32' on the card: encoder "
+                   f"{run_cfg.encoder} with mlp_fused={cfg.mlp_fused!r} at "
+                   f"--input_size {run_cfg.input_size} runs {half} (row "
+                   f"{row}) at D={d}, which has no f32 kernel yet",
+                   "f32 on the card")
+    batch = max(run_cfg.batch_size // run_cfg.depth_stride, 1)
+    pre = (batch, 4 * ph, 4 * pw, cfg.features)
+    choice = resolve_tail(run_cfg.tail, pre, f32, (hn, wn), "cuda")
+    if choice and not (choice == "ext" and takes_f32(cfg.features)):
+        rows = "row 7" if choice == "ext" else "rows 11 and 12"
+        not_ported(f"compute_dtype='float32' on the card: the {choice} DPT "
+                   f"tail at C={cfg.features} (tail={run_cfg.tail!r}, "
+                   f"refinenet1 grid {pre[1]}x{pre[2]}) needs {rows} at f32",
+                   "f32 on the card")
+
+
 class SbsPipeline:
     """Single-device pipeline for a fixed (height, width) video geometry."""
 
@@ -118,8 +164,9 @@ class SbsPipeline:
             dtype = (torch.bfloat16 if run_cfg.compute_dtype == "bfloat16"
                      else torch.float32)
         if device.type == "cuda" and dtype == torch.float32:
-            # The card's kernels are bf16; raise before any weight is built.
-            not_ported("compute_dtype='float32' on the card", "f32 on the card")
+            # A plan that needs an f32 kernel not ported yet raises here,
+            # before any weight is built.
+            check_f32_plan(run_cfg, height, width)
         model = load_model(run_cfg.encoder, run_cfg.encoder_path, dtype=dtype,
                            device=device, allow_random=allow_random,
                            seed=seed, cfg=run_cfg.model(), tail=run_cfg.tail)

@@ -30,7 +30,6 @@ from vr_video_generator_tpu_torch.utils.logging import (WorkerLog, overflow_mess
                                                   overflow_path, print_flush,
                                                   summarize_overflow)
 from vr_video_generator_tpu_torch.utils.profiling import trace
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 from vr_video_generator_tpu_torch.runtime.segment import process_segment
 
@@ -128,7 +127,8 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
     from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
     from vr_video_generator_tpu_torch.parallel.sharded import \
         ShardedSbsPipeline
-    from vr_video_generator_tpu_torch.pipeline import (check_supported,
+    from vr_video_generator_tpu_torch.pipeline import (check_f32_plan,
+                                                       check_supported,
                                                        resolve_device)
     from vr_video_generator_tpu_torch.runtime.sharded_runner import \
         run_sharded
@@ -142,7 +142,7 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     if dev.type == "cuda" and dtype == torch.float32:
-        not_ported("compute_dtype='float32' on the card", "f32 on the card")
+        check_f32_plan(cfg, height, width)
     model = load_model(cfg.encoder, cfg.encoder_path, dtype=dtype,
                        device="cpu", allow_random=allow_random,
                        cfg=cfg.model(), tail=cfg.tail)

@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with a CUDA GPU:
         [--encoder vits|vitb|vitl|vitg] [--input_size N]
         [--mlp_fused auto|fused|xla] [--tail auto|fused|xla]
         [--sbs_output auto|u8|packed] [--chunk_batches K]
-        [--depth_stride S]
+        [--depth_stride S] [--compute_dtype bfloat16|float32]
 
-The configuration is ``bench.py`` config 2's geometry: 1080p, bf16, batch 8,
+The configuration is ``bench.py`` config 2's geometry: 1080p, bf16 (f32 with
+``--compute_dtype float32``: the f32 kernels), batch 8,
 vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
 otherwise, with the kernel paths the two flags pick as the CLI's do (default
 ``auto``: on the card the fused attention half-block and DPT tail), and
@@ -417,6 +418,9 @@ def main(argv=None) -> int:
                     help="the segment and trace phases dispatch chunks of "
                          "this many full batches through step_many (as the "
                          "CLI)")
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="depth-net compute dtype (as the CLI)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_bench: no CUDA device", file=sys.stderr)
@@ -432,12 +436,14 @@ def main(argv=None) -> int:
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
     cfg = RunConfig(encoder=opts.encoder, batch_size=B,
-                    compute_dtype="bfloat16", input_size=opts.input_size,
+                    compute_dtype=opts.compute_dtype,
+                    input_size=opts.input_size,
                     mlp_fused=opts.mlp_fused, tail=opts.tail,
                     sbs_output=opts.sbs_output,
                     chunk_batches=opts.chunk_batches,
                     depth_stride=opts.depth_stride)
-    label = (f"1080p {opts.encoder} --input_size {opts.input_size} bf16 B={B} "
+    dt = "bf16" if opts.compute_dtype == "bfloat16" else "f32"
+    label = (f"1080p {opts.encoder} --input_size {opts.input_size} {dt} B={B} "
              f"mlp_fused={opts.mlp_fused} tail={opts.tail} "
              f"sbs_output={opts.sbs_output} chunk_batches={opts.chunk_batches} "
              f"depth_stride={opts.depth_stride}")

@@ -105,23 +105,37 @@ Phases, each fatal on failure:
      run's; (g) ``bench --sharded 1x1 --config 2`` once, cut to 2 repeats,
      its JSON line printed;
   8. f32 on the card (``--compute_dtype float32``): (a) the f32 kernels of
-     rows 1 (at vits', vitl-728's and vitg-518's rows), 5 and 6 (D = 384), 2
-     (vits' shapes), 17 (vitl-728's) and 7 (C = 64, stage by stage) against
-     their plain versions with both TF32 flags off, each bound shown to
-     refuse the TF32 result of the same operands, timed beside the plain
-     version, one library call (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's
-     two convs, all f32) and the f32 bound (67 TFLOP/s); with PyTorch's
+     rows 1 (at vits', vitl-728's and vitg-518's rows), 5 and 6 (D = 384
+     and vitb's 768), 2 (vits' shapes), 17 (vitl-728's), 8 (D = 128, 384)
+     and 9 (D = 768, 1024) stage by stage, 7 (C = 64 at vits', 128 at
+     vitb-252's, 256 and 384 at the 126 grid) and 11 + 12 (C = 64 at
+     vits-728's grid, 128 at vitb-518's, 256 at vitl-252's, 384 at
+     vitg-518's) stage by stage, against their plain versions with both
+     TF32 flags off, each bound shown to refuse the TF32 result of the same
+     operands, timed beside the plain version, one library call
+     (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's convs, all f32) and the f32
+     bound (67 TFLOP/s); the GELU of rows 8 and 9's f32 fc1 epilogue bit
+     for bit against the eager f32 chain through a selection fc1 (every
+     bf16 value, a dense sweep, the flush near -5.7); with PyTorch's
      default TF32 flags (cuDNN's on): (b) vits ``auto`` at f32 through
      ``process_segment`` (1 batch of 8): TF32 off inside the forward and
      restored after, exactly the f32 kernels a step (16, 12, 12, 12 and 1),
      none of their plain versions, no host sync in a step, the right half
      the input, the SBS the plain warp of its own depth, ``step_many`` (k =
      2) bit for bit equal to two steps, and the depth against a plain f64
-     forward at most 2x the plain f32 path's error; (c) vitl-518, vitg-518
-     and vitl-728 ``xla``/``xla`` at f32 (4 blocks, batch 2) through rows 1
-     and 2, or 1 and 17; (d) ``cli.main --compute_dtype float32`` plainly,
-     with ``--mesh 1x1`` and with ``--depth_stride 2`` on a 1080p mp4; (e)
-     ``bench --config 2 --compute_dtype float32`` once, its line printed.
+     forward at most 2x the plain f32 path's error; (b') vitb-518 ``auto``
+     at f32 at full width (12 blocks, B = 8) with the same checks, its
+     launches (rows 1, 5, 2, 6, 9, 11 + 12, 3, 4: 4, 12, 12, 12, 12, 1, 1,
+     1) and its depth against f64 at most 1.25x the plain f32 path's; (c)
+     vitl-518, vitg-518 and vitl-728 ``xla``/``xla`` at f32 (4 blocks,
+     batch 2) through rows 1 and 2, or 1 and 17; (c') vits ``fused`` (row
+     8), vitb-252 ``auto`` (row 7 at C = 128) and vitl-518 ``auto`` (4
+     blocks, batch 2: row 9, the attention half and the tail unfused) at
+     f32, one batch each, exactly their kernels; (d) ``cli.main
+     --compute_dtype float32`` plainly, with ``--mesh 1x1``, with
+     ``--depth_stride 2`` and with ``--encoder vitb`` on a 1080p mp4; (e)
+     ``bench --config 2`` and ``--config 3`` at ``--compute_dtype float32``
+     once each, their lines printed.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -132,7 +146,10 @@ times: at vits' C=64, vitb's C=128, vitl-252's C=256 and vitg-126's C=384;
 rows 11 and 12 three times: at vitl-518's, vitl-728's and vitg-518's
 shapes; the tanh variants of rows 8 and 9 at vitb-518's D = 768 and
 vitl-518's D = 1024, with the launches of phase 7's paths; the f32 kernels
-of phase 8 with the launches of its paths, row 1 at f32 three times), and
+of phase 8 with the launches of its paths: row 1 at f32 three times, rows
+5 and 6 at f32 twice (D = 384, 768), row 9 at f32 twice (D = 768, 1024),
+row 7 at f32 twice (C = 64, 128), rows 11 + 12 at f32 at vitb's C = 128),
+and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -2607,8 +2624,10 @@ def sharded_path(device, rng) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 8: f32 on the card.
 
-# The f32 variants of rows 1, 2, 5, 6, 7 and 17 (--compute_dtype float32),
-# with their sources and the TPU kernels they replace.
+# The f32 variants of rows 1, 2, 5-9, 11, 12 and 17 (--compute_dtype
+# float32), with their sources and the TPU kernels they replace (rows 11
+# and 12 at f32 are one entry point, front and back: the row-11 body is
+# named).
 KERNELS_F32 = {
     "layernorm_f32": ("cuda", f"{PKG}/csrc/layernorm.cu",
                       f"{JAX_PKG}/ops/layernorm.py:33"),
@@ -2622,6 +2641,12 @@ KERNELS_F32 = {
                             f"{JAX_PKG}/ops/attention.py:53"),
     "head_tail_ext_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                           f"{JAX_PKG}/ops/head_tail_pallas.py:254"),
+    "mlp_residual_f32": ("cuda", f"{PKG}/csrc/mlp_f32.cu",
+                         f"{JAX_PKG}/ops/mlp_pallas.py:66"),
+    "mlp_residual_hblocked_f32": ("cuda", f"{PKG}/csrc/mlp_f32.cu",
+                                  f"{JAX_PKG}/ops/mlp_pallas.py:38"),
+    "head_tail_big_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
+                          f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
 }
 # The card's f32 rate outside the tensor cores (H100 SXM data sheet): the
 # f32 kernels' operations bound (wgmma takes no f32 operands).
@@ -2634,6 +2659,42 @@ AUTO_VITS_F32_STEP = {"layernorm_f32": 16, "ln_qkv_f32": 12,
                       "attention_f32": 12, "proj_ls_residual_f32": 12,
                       "head_tail_ext_f32": 1, "warp_composite": 1,
                       "blur_select_sbs": 1}
+# vitb-518 auto at f32 (1080p, B = 8): the attention half fused
+# (attn_fusable(768, 2443, f32): 128-token blocks), the MLP half on row 9 at
+# f32 (its f32 weights, 18.9 MB, pass 10 MiB), the big-C tail at C = 128;
+# LayerNorm only at the four taps.
+AUTO_VITB_F32_STEP = {"layernorm_f32": 4, "ln_qkv_f32": 12,
+                      "attention_f32": 12, "proj_ls_residual_f32": 12,
+                      "mlp_residual_hblocked_f32": 12, "head_tail_big_f32": 1,
+                      "warp_composite": 1, "blur_select_sbs": 1}
+# The other fused f32 paths of phase 8 (c), one batch each: (label, encoder,
+# --input_size, mlp_fused = tail, blocks (None: all), batch, one step's
+# launches). vits fused runs row 8 at f32 (4.7 MB of f32 weights, resident)
+# and the ext tail at C = 64; vitb-252 auto the ext tail at C = 128; vitl-518
+# auto (4 blocks, batch 2) its attention half unfused (attn_fusable is False
+# at D = 1024 in f32: LayerNorm, cuBLAS qkv and proj, the one-shot
+# attention), row 9 at f32 and the tail unfused (no plan fits at f32).
+F32_FUSED_PATHS = (
+    ("vits-518 fused/fused f32", "vits", 518, "fused", None, B,
+     {"layernorm_f32": 4, "ln_qkv_f32": 12, "attention_f32": 12,
+      "proj_ls_residual_f32": 12, "mlp_residual_f32": 12,
+      "head_tail_ext_f32": 1, "warp_composite": 1, "blur_select_sbs": 1}),
+    ("vitb-252 auto/auto f32", "vitb", 252, "auto", None, B,
+     {"layernorm_f32": 4, "ln_qkv_f32": 12, "attention_f32": 12,
+      "proj_ls_residual_f32": 12, "mlp_residual_hblocked_f32": 12,
+      "head_tail_ext_f32": 1, "warp_composite": 1, "blur_select_sbs": 1}),
+    ("vitl-518 auto/auto f32", "vitl", 518, "auto", 4, 2,
+     {"layernorm_f32": 4 + 4, "attention_f32": 4,
+      "mlp_residual_hblocked_f32": 4, "warp_composite": 1,
+      "blur_select_sbs": 1}))
+# The f32 tails held in phase 8 (a): (C, grid, depth size) of the path that
+# runs each. Rows 11 and 12: vits-728 (C = 64), vitb-518 (128), vitl-252
+# (256), vitg-518's grid (384; vitg's f32 path waits for row 10). Row 7:
+# vits-518 (64), vitb-252 (128), vitl-126 (256), vitg-126 (384).
+BIG_F32_SHAPES = ((64, GRID_L728, OUT_HW_L728), (128, (H0, W0), OUT_HW),
+                  (256, *EXT_WIDE[256]), (384, (H0, W0), OUT_HW))
+EXT_F32_SHAPES = ((64, (H0, W0), OUT_HW), (128, *EXT_WIDE[256]),
+                  (256, *EXT_WIDE[384]), (384, *EXT_WIDE[384]))
 # --mlp_fused xla --tail xla at f32: LayerNorm twice a block and at the four
 # taps, the one-shot attention (N <= 4096) or the flash kernel (N > 4096).
 XLA_F32 = ("layernorm_f32", "attention_f32", "warp_composite",
@@ -2659,8 +2720,10 @@ ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL = 1e-4, 1e-5
 TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL = 1e-4, 1e-5
 # Depth of the f32 kernel path against a plain f64 forward on the same
 # weights and input: at most this many times the plain f32 path's error,
-# in max and in mean.
+# in max and in mean (vits auto; vitb-518 auto, the slice's path, at
+# F32_DEPTH_FACTOR_VITB).
 F32_DEPTH_FACTOR = 2.0
+F32_DEPTH_FACTOR_VITB = 1.25
 
 
 def bound_f32(moved: int, flops: float) -> dict:
@@ -2754,6 +2817,266 @@ def f32_rel_check(name, got, want, tf32_want, max_rel, mean_rel, span=None):
     return stats
 
 
+def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
+    """Row 8 or 9 at f32 on (m, d) seeded rows, hidden 4D: each stage on
+    the chain's own input (the LN rows within the f32 bound of the plain
+    LayerNorm; fc1 + b1 + GELU, its scale taking in the GELU's input, and
+    fc2 + b2 + LayerScale + residual with the dense f32 bound), the whole
+    output against mlp_residual_plain; each bound refuses the same function
+    with the weights rounded to TF32.
+    Timed beside the plain version and cuBLAS's two f32 products (addmm,
+    TF32 off), with the f32 bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+    from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    hid = 4 * d
+    x = randn(gen, (B, m // B, d))
+    args = (x, randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1),
+            randn(gen, (hid, d), d ** -0.5), randn(gen, (hid,), 0.5),
+            randn(gen, (d, hid), hid ** -0.5), randn(gen, (d,), 0.5),
+            randn(gen, (d,), 0.1, 1.0))
+    _, lnw, lnb, w1, b1, w2, b2, gamma = args
+    tf_args = (*args[:3], tf32_round(w1), b1, tf32_round(w2), *args[6:])
+    fn = mlp.mlp_residual if row == 8 else mlp.mlp_residual_hblocked
+    stages = (mlp.mlp_residual_stages if row == 8
+              else mlp.mlp_residual_hblocked_stages)
+    a, h, got = stages(*args)
+    torch.cuda.synchronize()
+    name = f"{'mlp_residual' if row == 8 else 'mlp_residual_hblocked'}_f32"
+    label = f"{name} D={d}"
+    st = {}
+    u = f32_ulps(a, layernorm_plain(x, lnw, lnb).reshape(m, d), 1, lnb)
+    st["ln"] = dict(max_ulps=u.max().item())
+    require(st["ln"]["max_ulps"] <= F32_MAX_ULPS,
+            f"{label} LN stage: {st['ln']} over {F32_MAX_ULPS} f32 ulps")
+    t = torch.addmm(b1, a, w1.t())
+    st["fc1_gelu"] = f32_dense_check(
+        f"{label} fc1 + GELU", h, mlp.fc1_gelu_plain(a, w1, b1),
+        mlp.fc1_gelu_plain(a, tf32_round(w1), b1), 1, t)
+    del t
+    x2 = x.reshape(m, d)
+    st["fc2_residual"] = f32_dense_check(
+        f"{label} fc2 + residual", got.reshape(m, d),
+        mlp.fc2_residual_plain(h, w2, b2, gamma, x2),
+        mlp.fc2_residual_plain(h, tf32_round(w2), b2, gamma, x2), 1, x2,
+        gamma * b2)
+    del a
+    want = mlp.mlp_residual_plain(*args)
+    stats = f32_dense_check(label, got, want, mlp.mlp_residual_plain(*tf_args),
+                            1, x, gamma * b2)
+    del got, want
+    log(f"{label} stages: {json.dumps(st)}")
+    fc = 2 * m * d * hid
+    hh = torch.empty_like(h)
+    res = dict(**stats, stages=st, ms=event_ms(lambda: fn(*args)),
+               plain_ms=event_ms(lambda: mlp.mlp_residual_plain(*args)),
+               library_ms=event_ms(lambda: (torch.addmm(b1, x2, w1.t()),
+                                            torch.addmm(b2, hh, w2.t()))),
+               **bound_f32(nbytes(*args) + 4 * m * d, 2 * fc))
+    log(f"kernel {label}: {json.dumps(res)}")
+    return res
+
+
+def check_gelu_f32(device) -> dict:
+    """The GELU of rows 8 and 9's f32 fc1 epilogue (csrc/gelu_as.cuh) bit for
+    bit against the eager f32 chain (ops/gelu.gelu_exact) on the same f32
+    values, through a selection fc1 (fc1_gelu_kernel with w1 (512, 128)
+    picking input column n mod 128 for output n and b1 = 0: each sum is one
+    exact product, so the epilogue sees the value itself): every finite
+    bf16 value as f32, 2^18 values spaced evenly over [-8, 8], and the 8192
+    f32 values below -5.75 where the A&S form flushes to -0.0. The tanh
+    variant (approx) against ops/gelu.gelu_tanh on the same values: bit for
+    bit where the card's tanhf and PyTorch's agree, else within 2 f32 ulps
+    of max(|x|, |gelu|) (logged)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+    from vr_video_generator_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
+
+    f32 = torch.float32
+    bf = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16).to(f32)
+    flush = (torch.tensor(-5.75, device=device).view(torch.int32)
+             - torch.arange(8192, dtype=torch.int32, device=device)).view(f32)
+    vals = torch.cat([bf[torch.isfinite(bf)],
+                      torch.linspace(-8.0, 8.0, 2 ** 18, device=device),
+                      flush])
+    vals = torch.cat([vals, torch.zeros((-len(vals)) % 128, device=device)])
+    a = vals.reshape(-1, 128)
+    w1 = torch.eye(128, device=device).repeat(4, 1)
+    b1 = torch.zeros(512, device=device)
+    out = {}
+    for approx, eager in ((False, gelu_exact), (True, gelu_tanh)):
+        got = mlp.fc1_gelu_kernel(a, w1, b1, approx)
+        want = eager(a).repeat(1, 4)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        x = a.repeat(1, 4).double()
+        size = torch.maximum(x.abs(), want.double().abs()).clamp_min(2 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(size)) - 23)
+        ulps = ((got.double() - want.double()).abs() / ulp).max().item()
+        key = "tanh" if approx else "exact"
+        out[key] = dict(values=len(vals), differ=differ, max_ulps=ulps,
+                        flushed_to_zero=int((got[:, :128] == 0).sum()))
+        if approx:
+            require(ulps <= 2, f"gelu_f32 tanh: {out[key]}")
+        else:
+            require(differ == 0, f"gelu_f32: the fc1 epilogue's A&S GELU "
+                    f"differs from the eager f32 chain: {out[key]}")
+    log(f"gelu_f32 (the fc1 epilogue through a selection fc1): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def f32_tail_weights(gen, c):
+    """Seeded f32 DPT tail weights in PyTorch layout (tail_weights' shapes
+    and scales)."""
+    c2 = c // 2
+    return (randn(gen, (c, c, 1, 1), c ** -0.5), randn(gen, (c,), 0.1),
+            randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5), randn(gen, (c2,), 0.1),
+            randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5), randn(gen, (32,), 0.1),
+            randn(gen, (1, 32, 1, 1), 32 ** -0.5), randn(gen, (1,), 0.1, 0.5))
+
+
+def f32_tail_result(label, got_depth, want, tfw, stages, run, plain, library,
+                    moved, flops) -> dict:
+    """The depth of an f32 tail against its plain version relative to its
+    range (TAIL_F32_* bounds, refusing the TF32 depth), the stages logged,
+    and the kernel's, the plain version's and the library's times."""
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    span = (want.max() - want.min()).item()
+    stats = f32_rel_check(label, got_depth, want, tfw, TAIL_F32_MAX_REL,
+                          TAIL_F32_MEAN_REL, span)
+    require(span > 0 and (want > 0).float().mean().item() > 0.2,
+            f"{label}: depth range {span}, a ReLU left too few pixels")
+    log(f"{label} stages: {json.dumps(stages)}")
+    return dict(**stats, stages=stages, ms=event_ms(run),
+                plain_ms=event_ms(plain), library_ms=event_ms(library),
+                **bound_f32(moved, flops))
+
+
+def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
+    """Row 7 at f32, C = c, batch 8, x an NCHW activation seen as NHWC as the
+    model hands it over, stage by stage, each on the chain's own input: the
+    mix and the passes in f32 ulps, conv1 by the dense f32 bound (refusing
+    cuDNN's TF32 conv1), conv2 with the 1x1 relative to the depth's range,
+    the whole depth against head_tail_ext_plain (refusing it with TF32); the
+    library time is cuDNN's two f32 convs."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    (h0, w0), c2 = grid, c // 2
+    x = randn(gen, (B, c, h0, w0)).permute(0, 2, 3, 1)
+    wts = f32_tail_weights(gen, c)
+    label = f"head_tail_ext_f32 C={c}"
+    got = ht.head_tail_ext_stages(x, *wts, out_hw)
+    xoc = ht.ext_mix_plain(x, wts[0])
+    z = ht.big_upsample_plain(got[0], wts[1])
+    c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
+    r = ht.ext_resize_plain(got[2], out_hw)
+    depth = ht.big_conv2_plain(got[3], *wts[4:])
+    want = ht.head_tail_ext_plain(x, *wts, out_hw)
+    with tf32(True):
+        tfw = ht.head_tail_ext_plain(x, *wts, out_hw)
+        tf_c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
+    torch.cuda.synchronize()
+    stages = {}
+    for name, g, w_, add in (("mix", got[0], xoc, ()),
+                             ("upsample", got[1], z, (wts[1],)),
+                             ("resize", got[3], r, ())):
+        stages[name] = dict(max_ulps=f32_ulps(g, w_, 1, *add).max().item())
+        require(stages[name]["max_ulps"] <= F32_MAX_ULPS,
+                f"{label} {name}: {stages[name]} over {F32_MAX_ULPS} f32 ulps")
+    stages["conv1"] = f32_dense_check(f"{label} conv1", got[2], c1, tf_c1, 1,
+                                      wts[3])
+    span = (want.max() - want.min()).item()
+    stages["conv2"] = dict(max_rel_err=(got[4] - depth).abs().max().item()
+                           / span)
+    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2: {stages['conv2']}")
+    zc = got[1].permute(0, 3, 1, 2).contiguous()
+    rc = got[3].permute(0, 3, 1, 2).contiguous()
+    m0, m1 = B * h0 * w0, B * 2 * h0 * 2 * w0
+    m2 = B * out_hw[0] * out_hw[1]
+    flops = 2 * (m0 * c * c + m1 * c2 * 9 * c + m2 * 32 * 9 * c2)
+    res = f32_tail_result(
+        label, got[4], want, tfw, stages,
+        lambda: ht.head_tail_ext(x, *wts, out_hw),
+        lambda: ht.head_tail_ext_plain(x, *wts, out_hw),
+        lambda: (F.conv2d(zc, wts[2], wts[3], padding=1),
+                 F.conv2d(rc, wts[4], wts[5], padding=1)),
+        nbytes(x, *wts, got[4]), flops)
+    log(f"kernel {label}: {json.dumps(res)}")
+    return res
+
+
+def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
+    """Rows 11 and 12 at f32 (vrvg_head_tail_big_f32), C = c, batch 8, x an
+    NCHW activation seen as NHWC, stage by stage, each on the chain's own
+    input: the upsample and resize passes (with cw) in f32 ulps, the folded
+    conv1 by the dense f32 bound (refusing cuDNN's TF32 conv1), conv2 with
+    the 1x1 relative to the depth's range, the whole depth against
+    head_tail_big_plain (refusing it with TF32); the library time is cuDNN's
+    f32 conv1 (folded weights) and conv2."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    (h0, w0), c2 = grid, c // 2
+    x = randn(gen, (B, c, h0, w0)).permute(0, 2, 3, 1)
+    wts = f32_tail_weights(gen, c)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    label = f"head_tail_big_f32 C={c}"
+    got = ht.head_tail_big_stages(x, *wts, out_hw)
+    stages = dict(upsample=dict(max_ulps=f32_ulps(
+        got[0], ht.big_upsample_plain(x), 1).max().item()))
+    mid = ht.big_conv1_plain(got[0], k_oc, k1)
+    with tf32(True):
+        tf_mid = ht.big_conv1_plain(got[0], k_oc, k1)
+    stages["conv1"] = f32_dense_check(f"{label} conv1", got[1], mid, tf_mid, 1)
+    del mid, tf_mid
+    r = ht.big_resize_plain(got[1], k1, b_oc, b1, out_hw)
+    stages["resize"] = dict(max_ulps=f32_ulps(got[2], r, 1).max().item())
+    del r
+    depth = ht.big_conv2_plain(got[2], k2, b2, k3, b3)
+    want = ht.head_tail_big_plain(x, *wts, out_hw)
+    with tf32(True):
+        tfw = ht.head_tail_big_plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    for name in ("upsample", "resize"):
+        require(stages[name]["max_ulps"] <= F32_MAX_ULPS,
+                f"{label} {name}: {stages[name]} over {F32_MAX_ULPS} f32 ulps")
+    span = (want.max() - want.min()).item()
+    stages["conv2"] = dict(max_rel_err=(got[3] - depth).abs().max().item()
+                           / span)
+    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2: {stages['conv2']}")
+    del depth
+    uc = got[0].permute(0, 3, 1, 2).contiguous()
+    rc = got[2].permute(0, 3, 1, 2).contiguous()
+    k1f = ht.fold_conv1(k_oc, k1, torch.float32)
+    hm, w2 = 2 * h0, 2 * w0
+    flops = 2 * B * (hm * w2 * c2 * 9 * c + out_hw[0] * out_hw[1] * 32 * 9
+                     * c2)
+    res = f32_tail_result(
+        label, got[3], want, tfw, stages,
+        lambda: ht.head_tail_big(x, *wts, out_hw),
+        lambda: ht.head_tail_big_plain(x, *wts, out_hw),
+        lambda: (F.conv2d(uc, k1f, padding=1),
+                 F.conv2d(rc, k2, b2, padding=1)),
+        nbytes(x, *wts, got[3]), flops)
+    del got, uc, rc
+    log(f"kernel {label}: {json.dumps(res)}")
+    return res
+
+
 def f32_kernel_parity(device) -> dict:
     """Phase 8 (a): each f32 kernel against its plain version at its path's
     shapes, TF32 off, with the TF32 result of the same operands refused by
@@ -2763,7 +3086,6 @@ def f32_kernel_parity(device) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from vr_video_generator_tpu_torch.ops import head_tail as ht
     from vr_video_generator_tpu_torch.ops.attention import (
         attention, attention_plain, flash_attention, flash_attention_plain)
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
@@ -2775,7 +3097,6 @@ def f32_kernel_parity(device) -> dict:
 
     out = {}
     gen = torch.Generator(device=device).manual_seed(SEED + 800)
-    f32 = torch.float32
     scale = 64 ** -0.5
 
     # Row 1 at vits' rows, vitl-728's and vitg-518's (at phase 8's batch
@@ -2795,46 +3116,48 @@ def f32_kernel_parity(device) -> dict:
             **bound_f32(nbytes(x, w, b, got), 0))
         del x, got, want, tfw
 
-    # Row 5 at vits' D = 384; the library call is the qkv product and bias
-    # alone (cuBLAS SGEMM through addmm) on the LayerNorm'd rows.
-    d, m = DIM, B * N_TOK
-    x = randn(gen, (B, N_TOK, d))
-    lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
-    w, b = randn(gen, (3 * d, d), d ** -0.5), randn(gen, (3 * d,), 0.5)
-    args = (x, lnw, lnb, w, b, d // 64, scale)
-    got, want = ln_qkv(*args), ln_qkv_plain(*args)
-    with tf32(True):
-        tfw = ln_qkv_plain(*args)
-    torch.cuda.synchronize()
-    bias = b.reshape(3, d // 64, 64).clone()
-    bias[0] *= scale
-    a2 = layernorm_plain(x, lnw, lnb).reshape(m, d)
-    out["ln_qkv_f32"] = dict(
-        **f32_dense_check("ln_qkv_f32 D=384", got, want, tfw, 3, bias),
-        ms=event_ms(lambda: ln_qkv(*args)),
-        plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
-        library_ms=event_ms(lambda: torch.addmm(b, a2, w.t())),
-        **bound_f32(nbytes(x, lnw, lnb, w, b, got), 2 * m * d * 3 * d))
-    del got, want, tfw, a2
+    # Rows 5 and 6 at vits' D = 384 and vitb-518's D = 768 (B = 8, 2443
+    # tokens); row 5's library call is the qkv product and bias alone (cuBLAS
+    # SGEMM through addmm) on the LayerNorm'd rows, row 6's the proj product.
+    m = B * N_TOK
+    for d in (DIM, DIM_B):
+        tag = "" if d == DIM else f" D={d}"
+        x = randn(gen, (B, N_TOK, d))
+        lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
+        w, b = randn(gen, (3 * d, d), d ** -0.5), randn(gen, (3 * d,), 0.5)
+        args = (x, lnw, lnb, w, b, d // 64, scale)
+        got, want = ln_qkv(*args), ln_qkv_plain(*args)
+        with tf32(True):
+            tfw = ln_qkv_plain(*args)
+        torch.cuda.synchronize()
+        bias = b.reshape(3, d // 64, 64).clone()
+        bias[0] *= scale
+        a2 = layernorm_plain(x, lnw, lnb).reshape(m, d)
+        out[f"ln_qkv_f32{tag}"] = dict(
+            **f32_dense_check(f"ln_qkv_f32 D={d}", got, want, tfw, 3, bias),
+            ms=event_ms(lambda: ln_qkv(*args)),
+            plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
+            library_ms=event_ms(lambda: torch.addmm(b, a2, w.t())),
+            **bound_f32(nbytes(x, lnw, lnb, w, b, got), 2 * m * d * 3 * d))
+        del got, want, tfw, a2
 
-    # Row 6 at vits' D = 384.
-    o = randn(gen, (B, N_TOK, d // 64, 64))
-    gp = randn(gen, (d,), 0.1, 1.0)
-    wp, bp = randn(gen, (d, d), d ** -0.5), randn(gen, (d,), 0.5)
-    args = (o, x, wp, bp, gp)
-    got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
-    with tf32(True):
-        tfw = proj_ls_residual_plain(*args)
-    torch.cuda.synchronize()
-    o2 = o.reshape(m, d)
-    out["proj_ls_residual_f32"] = dict(
-        **f32_dense_check("proj_ls_residual_f32 D=384", got, want, tfw, 1, x,
-                          gp * bp),
-        ms=event_ms(lambda: proj_ls_residual(*args)),
-        plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
-        library_ms=event_ms(lambda: torch.addmm(bp, o2, wp.t())),
-        **bound_f32(nbytes(*args, got), 2 * m * d * d))
-    del o, x, got, want, tfw, o2
+        o = randn(gen, (B, N_TOK, d // 64, 64))
+        gp = randn(gen, (d,), 0.1, 1.0)
+        wp, bp = randn(gen, (d, d), d ** -0.5), randn(gen, (d,), 0.5)
+        args = (o, x, wp, bp, gp)
+        got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
+        with tf32(True):
+            tfw = proj_ls_residual_plain(*args)
+        torch.cuda.synchronize()
+        o2 = o.reshape(m, d)
+        out[f"proj_ls_residual_f32{tag}"] = dict(
+            **f32_dense_check(f"proj_ls_residual_f32 D={d}", got, want, tfw,
+                              1, x, gp * bp),
+            ms=event_ms(lambda: proj_ls_residual(*args)),
+            plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
+            library_ms=event_ms(lambda: torch.addmm(bp, o2, wp.t())),
+            **bound_f32(nbytes(*args, got), 2 * m * d * d))
+        del o, x, got, want, tfw, o2
 
     # Rows 2 (vits: B = 8, N = 2443, 6 heads; q pre-scaled) and 17
     # (vitl-728: B = 2, N = 4785, 16 heads; q unscaled) on peaked q/k/v, k
@@ -2870,64 +3193,24 @@ def f32_kernel_parity(device) -> dict:
             **bound_f32(nbytes(q, k, v, got), 4 * bsz * heads * n * n * 64))
         del qkv, q, k, v, got, qt, kt, vt
 
-    # Row 7 at vits' C = 64 (B = 8, refinenet1 148 x 264 -> 518 x 924), x an
-    # NCHW activation seen as NHWC as the model hands it over, stage by
-    # stage: the mix and conv1 in f32 ulps, the passes in f32 ulps, the
-    # depth relative to its range; the library time is cuDNN's two f32
-    # convs.
-    c, c2 = FEATURES, FEATURES // 2
-    x = randn(gen, (B, c, H0, W0)).permute(0, 2, 3, 1)
-    wts = (randn(gen, (c, c, 1, 1), c ** -0.5), randn(gen, (c,), 0.1),
-           randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5), randn(gen, (c2,), 0.1),
-           randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5), randn(gen, (32,), 0.1),
-           randn(gen, (1, 32, 1, 1), 32 ** -0.5), randn(gen, (1,), 0.1, 0.5))
-    got = ht.head_tail_ext_stages(x, *wts, OUT_HW)
-    xoc = ht.ext_mix_plain(x, wts[0])
-    z = ht.big_upsample_plain(got[0], wts[1])
-    c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
-    r = ht.ext_resize_plain(got[2], OUT_HW)
-    depth = ht.big_conv2_plain(got[3], *wts[4:])
-    want = ht.head_tail_ext_plain(x, *wts, OUT_HW)
-    with tf32(True):
-        tfw = ht.head_tail_ext_plain(x, *wts, OUT_HW)
-        tf_c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
-    torch.cuda.synchronize()
-    stages = {}
-    for label, g, w_, nf, add in (("mix", got[0], xoc, 1, ()),
-                                  ("upsample", got[1], z, 1, (wts[1],)),
-                                  ("resize", got[3], r, 1, ())):
-        u = f32_ulps(g, w_, nf, *add)
-        stages[label] = dict(max_ulps=u.max().item())
-        require(stages[label]["max_ulps"] <= F32_MAX_ULPS,
-                f"head_tail_ext_f32 {label}: {stages[label]} over "
-                f"{F32_MAX_ULPS} f32 ulps")
-    stages["conv1"] = f32_dense_check("head_tail_ext_f32 conv1", got[2], c1,
-                                      tf_c1, 1, wts[3])
-    span = (want.max() - want.min()).item()
-    stages["conv2"] = dict(max_rel_err=(got[4] - depth).abs().max().item()
-                           / span)
-    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
-            f"head_tail_ext_f32 conv2: {stages['conv2']}")
-    stats = f32_rel_check("head_tail_ext_f32 C=64", got[4], want, tfw,
-                          TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, span)
-    require(span > 0 and (want > 0).float().mean().item() > 0.2,
-            f"head_tail_ext_f32: depth range {span}, a ReLU left too few "
-            f"pixels")
-    log(f"head_tail_ext_f32 stages: {json.dumps(stages)}")
-    zc = got[1].permute(0, 3, 1, 2).contiguous()
-    rc = got[3].permute(0, 3, 1, 2).contiguous()
-    run = lambda: ht.head_tail_ext(x, *wts, OUT_HW)  # noqa: E731
-    m0, m1, m2 = B * H0 * W0, B * 2 * H0 * 2 * W0, B * OUT_HW[0] * OUT_HW[1]
-    flops = 2 * (m0 * c * c + m1 * c2 * 9 * c + m2 * 32 * 9 * c2)
-    out["head_tail_ext_f32"] = dict(
-        **stats, stages=stages, ms=event_ms(run),
-        plain_ms=event_ms(lambda: ht.head_tail_ext_plain(x, *wts, OUT_HW)),
-        library_ms=event_ms(lambda: (
-            F.conv2d(zc, wts[2], wts[3], padding=1),
-            F.conv2d(rc, wts[4], wts[5], padding=1))),
-        **bound_f32(nbytes(x, *wts, got[4]), flops))
-    del x, got, want, tfw, tf_c1, xoc, z, c1, r, depth, zc, rc
-    torch.cuda.empty_cache()
+    # Rows 8 and 9 (the MLP half, hidden 4D) at 1080p/518 rows (B = 8): row
+    # 8 at D = 128 and vits' 384, row 9 at vitb's 768 and vitl's 1024.
+    for row, d in ((8, 128), (8, DIM), (9, DIM_B), (9, DIM_L)):
+        name = "mlp_residual_f32" if row == 8 else "mlp_residual_hblocked_f32"
+        out[f"{name} D={d}"] = f32_mlp_check(gen, row, d)
+        torch.cuda.empty_cache()
+    out["gelu_f32"] = check_gelu_f32(device)
+
+    # Row 7 at every width, stage by stage, at the grid of the path that
+    # runs it; rows 11 and 12 the same way.
+    for c, grid, out_hw in EXT_F32_SHAPES:
+        out["head_tail_ext_f32" + ("" if c == FEATURES else f" C={c}")] = \
+            f32_ext_tail_check(gen, c, grid, out_hw)
+        torch.cuda.empty_cache()
+    for c, grid, out_hw in BIG_F32_SHAPES:
+        out[f"head_tail_big_f32 C={c}"] = f32_big_tail_check(gen, c, grid,
+                                                             out_hw)
+        torch.cuda.empty_cache()
     for name, res in out.items():
         log(f"kernel {name}: {json.dumps(res)}")
     return out
@@ -2942,7 +3225,11 @@ class NoPlainF32:
              ("ops.attention", "attention_plain"),
              ("ops.attention", "flash_attention_plain"),
              ("ops.head_tail", "head_tail_ext_plain"),
-             ("ops.head_tail", "ext_mix_plain"))
+             ("ops.head_tail", "ext_mix_plain"),
+             ("ops.head_tail", "head_tail_big_plain"),
+             ("ops.head_tail", "big_upsample_plain"),
+             ("ops.mlp", "mlp_residual_plain"),
+             ("ops.mlp", "fc1_gelu_plain"))
 
     def __enter__(self):
         import importlib
@@ -3011,26 +3298,64 @@ class F64Plain:
         return False
 
 
-def f32_vits_auto(device, frames) -> dict:
-    """Phase 8 (b): vits ``auto`` at f32 (1080p, B = 8, input 518) with
-    PyTorch's default TF32 flags (cuDNN's on): TF32 off inside the forward
-    and as it was after; exactly the f32 kernels a step (AUTO_VITS_F32_STEP),
-    no plain version of them, no host sync in a step, the right half the
-    input and the SBS the plain warp of its own depth (checked_path);
-    step_many's graph (k = 2) bit for bit equal to two steps; and the
-    depth, at the net's output on two frames, against a plain f64 forward on
-    the same weights: the kernel path's max and mean error at most
-    F32_DEPTH_FACTOR times the plain f32 path's."""
+def f64_depth(label, pipe, sd, cfg, frames, factor) -> dict:
+    """The depth at the net's output on two frames through the kernels, the
+    plain f32 path and a plain f64 forward on the same weights (state dict
+    ``sd``) and input: the kernel path's max and mean error against f64 at
+    most ``factor`` times the plain f32 path's."""
     import torch
 
-    from vr_video_generator_tpu_torch.models.factory import (build_model,
-                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.models.factory import build_model
     from vr_video_generator_tpu_torch.ops.preprocess import (
         network_input_size, preprocess_frames)
+
+    net_hw = network_input_size(H, W, target=cfg.input_size, multiple_of=14)
+    with torch.inference_mode():
+        x32 = preprocess_frames(torch.from_numpy(frames[:2]).to(pipe.device),
+                                net_hw, dtype=torch.float32, impl="exact")
+        d_kernel = pipe.model(x32)
+        with PlainKernels():
+            d_plain = pipe.model(x32)
+        model64 = build_model(pipe.model.cfg, sd, torch.float64, pipe.device,
+                              tail=cfg.tail)
+        with F64Plain():
+            d64 = model64(x32.double())
+    del model64
+    span = float(d64.max() - d64.min())
+    dk, dp = (d_kernel.double() - d64).abs(), (d_plain.double() - d64).abs()
+    depth = dict(depth_range=span, kernel_vs_f64_max=float(dk.max()),
+                 kernel_vs_f64_mean=float(dk.mean()),
+                 plain_f32_vs_f64_max=float(dp.max()),
+                 plain_f32_vs_f64_mean=float(dp.mean()),
+                 kernel_vs_plain_f32_max=float((d_kernel - d_plain).abs().max()),
+                 factor=factor)
+    log(f"{label} depth against a plain f64 forward: {json.dumps(depth)}")
+    require(span > 0 and bool(torch.isfinite(d_kernel).all()),
+            f"{label}: depth {depth}")
+    for kind in ("max", "mean"):
+        require(depth[f"kernel_vs_f64_{kind}"]
+                <= factor * depth[f"plain_f32_vs_f64_{kind}"],
+                f"{label}: the kernel path's {kind} error against f64 "
+                f"exceeds {factor} x the plain f32 path's: "
+                f"{json.dumps(depth)}")
+    del d_kernel, d_plain, d64, x32
+    torch.cuda.empty_cache()
+    return depth
+
+
+def f32_auto_path(device, frames, label, encoder, step) -> tuple:
+    """``auto`` at f32 for ``encoder`` (1080p, B = 8, input 518) with
+    PyTorch's default TF32 flags, through process_segment (checked_path: no
+    host sync in a step, the right half the input, the SBS the plain warp
+    of its own depth): exactly the kernels ``step`` a step, none of the f32
+    kernels' plain versions, TF32 off inside the forward and as it was
+    after. Returns (stats, pipe, state dict, RunConfig)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import random_state_dict
     from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
 
-    label = "vits auto/auto f32"
-    cfg = run_config("vits", "auto", "auto", dtype="float32")
+    cfg = run_config(encoder, "auto", "auto", dtype="float32")
     sd = random_state_dict(cfg.model(), SEED)
     pipe = make_pipe(device, cfg, sd)
     scaler = calibrate_random_scaler(pipe, frames[:B])
@@ -3039,18 +3364,31 @@ def f32_vits_auto(device, frames) -> dict:
         lambda *a: seen.append((torch.backends.cuda.matmul.allow_tf32,
                                 torch.backends.cudnn.allow_tf32)))
     with NoPlainF32():
-        stats = checked_path(label, pipe, frames[:B],
-                             tuple(AUTO_VITS_F32_STEP))
+        stats = checked_path(label, pipe, frames[:B], tuple(step))
     hook.remove()
     per_step = {k: v for k, v in stats["launches"].items() if v}
-    require(per_step == AUTO_VITS_F32_STEP,
-            f"{label}: one step launched {per_step}, expected "
-            f"{AUTO_VITS_F32_STEP}")
+    require(per_step == step,
+            f"{label}: one step launched {per_step}, expected {step}")
     require(seen and set(seen) == {(False, False)},
             f"{label}: TF32 flags inside the forward {set(seen)}")
     require((torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) == (False, True),
             f"{label}: the forward left the TF32 flags changed")
+    stats["scaler"] = scaler
+    return stats, pipe, sd, cfg
+
+
+def f32_vits_auto(device, frames) -> dict:
+    """Phase 8 (b): vits ``auto`` at f32 (f32_auto_path, AUTO_VITS_F32_STEP);
+    step_many's graph (k = 2) bit for bit equal to two steps; and the depth,
+    at the net's output on two frames, against a plain f64 forward on the
+    same weights: the kernel path's max and mean error at most
+    F32_DEPTH_FACTOR times the plain f32 path's."""
+    import torch
+
+    label = "vits auto/auto f32"
+    stats, pipe, sd, cfg = f32_auto_path(device, frames, label, "vits",
+                                         AUTO_VITS_F32_STEP)
 
     # step_many (k = 2) as a CUDA graph against two eager steps.
     batches = torch.from_numpy(frames[:2 * B].reshape(2, B, H, W, 3)).to(
@@ -3072,37 +3410,9 @@ def f32_vits_auto(device, frames) -> dict:
         f"steps bit for bit; launches per replay {json.dumps(per_replay)}")
     del batches, eager, graph_out, st, st_g, state0
 
-    # Depth at the net's output on two frames: kernels, plain f32, plain f64.
-    net_hw = network_input_size(H, W, target=518, multiple_of=14)
-    with torch.inference_mode():
-        x32 = preprocess_frames(torch.from_numpy(frames[:2]).to(device),
-                                net_hw, dtype=torch.float32, impl="exact")
-        d_kernel = pipe.model(x32)
-        with PlainKernels():
-            d_plain = pipe.model(x32)
-        model64 = build_model(pipe.model.cfg, sd, torch.float64, device,
-                              tail=cfg.tail)
-        with F64Plain():
-            d64 = model64(x32.double())
-    del model64, sd
-    span = float(d64.max() - d64.min())
-    dk, dp = (d_kernel.double() - d64).abs(), (d_plain.double() - d64).abs()
-    depth = dict(depth_range=span, kernel_vs_f64_max=float(dk.max()),
-                 kernel_vs_f64_mean=float(dk.mean()),
-                 plain_f32_vs_f64_max=float(dp.max()),
-                 plain_f32_vs_f64_mean=float(dp.mean()),
-                 kernel_vs_plain_f32_max=float((d_kernel - d_plain).abs().max()))
-    log(f"{label} depth against a plain f64 forward: {json.dumps(depth)}")
-    require(span > 0 and bool(torch.isfinite(d_kernel).all()),
-            f"{label}: depth {depth}")
-    for kind in ("max", "mean"):
-        require(depth[f"kernel_vs_f64_{kind}"]
-                <= F32_DEPTH_FACTOR * depth[f"plain_f32_vs_f64_{kind}"],
-                f"{label}: the kernel path's {kind} error against f64 "
-                f"exceeds {F32_DEPTH_FACTOR} x the plain f32 path's: "
-                f"{json.dumps(depth)}")
-    stats.update(depth=depth, scaler=scaler, launches_per_replay=per_replay)
-    del pipe
+    depth = f64_depth(label, pipe, sd, cfg, frames, F32_DEPTH_FACTOR)
+    stats.update(depth=depth, launches_per_replay=per_replay)
+    del pipe, sd
     torch.cuda.empty_cache()
     return stats
 
@@ -3159,10 +3469,77 @@ def f32_xla_paths(device, frames) -> dict:
     return out
 
 
+def f32_vitb_auto(device, frames) -> dict:
+    """Phase 8 (b'): the slice's path, vitb-518 ``auto`` at f32 at full width
+    (12 blocks, D = 768, 1080p, B = 8; f32_auto_path): exactly the f32
+    kernels a step (AUTO_VITB_F32_STEP: rows 1, 5, 2, 6, 9, 11 + 12, 3, 4);
+    the depth on two frames against a plain f64 forward within
+    F32_DEPTH_FACTOR_VITB times the plain f32 path's error."""
+    import torch
+
+    label = "vitb-518 auto/auto f32"
+    stats, pipe, sd, cfg = f32_auto_path(device, frames, label, "vitb",
+                                         AUTO_VITB_F32_STEP)
+    stats["depth"] = f64_depth(label, pipe, sd, cfg, frames,
+                               F32_DEPTH_FACTOR_VITB)
+    del pipe, sd
+    torch.cuda.empty_cache()
+    return stats
+
+
+def f32_fused_paths(device, frames) -> dict:
+    """Phase 8 (c'): the other fused f32 paths (F32_FUSED_PATHS: vits fused,
+    vitb-252 auto, vitl-518 auto cut to 4 blocks at batch 2), one batch each
+    through process_segment with exactly their f32 kernels, their per-step
+    launches, the right half the input, and the depth within 1e-3 of its
+    range of the plain f32 path's on average."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    out = {}
+    for label, encoder, size, fused, blocks, batch, want in F32_FUSED_PATHS:
+        cfg = run_config(encoder, fused, fused, batch=batch, input_size=size,
+                         dtype="float32")
+        mcfg = cfg.model()
+        if blocks is not None:
+            mcfg = dataclasses.replace(mcfg, depth=blocks,
+                                       intermediate_layers=tuple(
+                                           range(blocks)))
+        model = build_model(mcfg, random_state_dict(mcfg, SEED),
+                            torch.float32, device, tail=fused)
+        pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+        with NoPlainF32():
+            stats = one_batch(label, pipe, frames, tuple(want))
+        per_step = {k: v for k, v in stats["launches"].items() if v}
+        require(per_step == want,
+                f"{label}: one step launched {per_step}, expected {want}")
+        x = pipe.frames_to_device(frames[:batch])
+        d_kernel = pipe.depth_only(x)
+        with PlainKernels():
+            d_plain = pipe.depth_only(x)
+        span = float(d_plain.max() - d_plain.min())
+        mean = float((d_kernel - d_plain).abs().mean())
+        require(bool(torch.isfinite(d_kernel).all()) and span > 0
+                and mean <= 1e-3 * span,
+                f"{label}: depth off the plain f32 path by {mean} on average "
+                f"(range {span})")
+        stats.update(depth_vs_plain_mean=mean, depth_range=span)
+        log(f"{label}: depth against the plain f32 path: mean {mean}, range "
+            f"{span}")
+        out[label] = stats
+        del model, pipe, x, d_kernel, d_plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def f32_cli(device) -> dict:
     """Phase 8 (d): ``cli.main --compute_dtype float32`` on a 1080p mp4 of 16
-    smooth frames (cv2): plainly, with ``--mesh 1x1`` and with
-    ``--depth_stride 2``; each writes subclips 0_7 and 8_15 whose right
+    smooth frames (cv2): plainly, with ``--mesh 1x1``, with
+    ``--depth_stride 2`` and with ``--encoder vitb`` (the slice's path: row
+    9 and the big-C tail at f32); each writes subclips 0_7 and 8_15 whose right
     half is the input up to the codec (mean |difference| at most 4 of 255
     against the decoded input: mp4v encodes the SBS again; measured 2.2 on
     an NVIDIA H100 80GB HBM3, 700.00 W), and the mesh run's decoded
@@ -3197,7 +3574,8 @@ def f32_cli(device) -> dict:
         source = decoded(video)
         runs = {}
         for tag, extra in (("plain", []), ("mesh", ["--mesh", "1x1"]),
-                           ("stride", ["--depth_stride", "2"])):
+                           ("stride", ["--depth_stride", "2"]),
+                           ("vitb", ["--encoder", "vitb"])):
             sub = os.path.join(d, f"S_{tag}") + os.sep
             argv = ["--device", device.type, "--VideoDir", video,
                     "--OutputDir", os.path.join(d, f"{tag}.mkv"),
@@ -3230,8 +3608,8 @@ def f32_cli(device) -> dict:
         require(np.array_equal(runs["plain"], runs["mesh"]),
                 "cli f32 --mesh 1x1: subclips differ from the run without "
                 "--mesh")
-    log(f"cli --compute_dtype float32 (plain, --mesh 1x1, --depth_stride 2) "
-        f"on a 16-frame 1080p mp4: {json.dumps(out)}")
+    log(f"cli --compute_dtype float32 (plain, --mesh 1x1, --depth_stride 2, "
+        f"--encoder vitb) on a 16-frame 1080p mp4: {json.dumps(out)}")
     return out
 
 
@@ -3253,8 +3631,16 @@ def f32_path(device, rng) -> dict:
         out["vits_auto"] = f32_vits_auto(device, frames)
         log(f"phase 8 (b) vits auto f32: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        out["vitb_auto"] = f32_vitb_auto(device, frames)
+        log(f"phase 8 (b') vitb-518 auto f32: {time.perf_counter() - t0:.1f} "
+            f"s")
+        t0 = time.perf_counter()
         out["xla"] = f32_xla_paths(device, frames)
         log(f"phase 8 (c) vitl/vitg xla f32: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["fused"] = f32_fused_paths(device, frames)
+        log(f"phase 8 (c') vits fused, vitb-252 auto, vitl-518 auto f32: "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         out["cli"] = f32_cli(device)
         log(f"phase 8 (d) cli f32: {time.perf_counter() - t0:.1f} s")
@@ -3267,6 +3653,16 @@ def f32_path(device, rng) -> dict:
         out["bench"] = line
         log(f"phase 8 (e) bench --config 2 --compute_dtype float32 --reps 2 "
             f"--segment_batches 4: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        line = bench.run_config(3, reps=2, segment_batches=2,
+                                compute_dtype="float32")
+        print(json.dumps(line), flush=True)
+        require(line["value"] > 0
+                and line["metric"] == "torch_sbs_fps_1080p_vitb_f32",
+                f"bench --config 3 --compute_dtype float32: {line}")
+        out["bench_vitb"] = line
+        log(f"phase 8 (e) bench --config 3 --compute_dtype float32 --reps 2 "
+            f"--segment_batches 2: {time.perf_counter() - t0:.1f} s")
     finally:
         torch.backends.cudnn.allow_tf32 = False
     return out
@@ -3411,6 +3807,32 @@ def main() -> int:
         "head_tail_ext_f32")]
     entries.append(("flash_attention_f32", f32k["flash_attention_f32"],
                     l728["flash_attention_f32"]))
+    # The f32 kernels of this slice with the launches of the f32 paths that
+    # run them: vitb-518 auto (rows 5 and 6 at D = 768, row 9 at D = 768,
+    # rows 11 and 12 at C = 128), vits fused (row 8 at D = 384), vitl-518
+    # auto (row 9 at D = 1024) and vitb-252 auto (row 7 at C = 128).
+    b32 = phase8["vitb_auto"]["launches"]
+    fused32 = phase8["fused"]
+    entries += [("ln_qkv_f32", f32k[f"ln_qkv_f32 D={DIM_B}"],
+                 b32["ln_qkv_f32"]),
+                ("proj_ls_residual_f32",
+                 f32k[f"proj_ls_residual_f32 D={DIM_B}"],
+                 b32["proj_ls_residual_f32"]),
+                ("mlp_residual_f32", f32k[f"mlp_residual_f32 D={DIM}"],
+                 fused32["vits-518 fused/fused f32"]["launches"][
+                     "mlp_residual_f32"]),
+                ("mlp_residual_hblocked_f32",
+                 f32k[f"mlp_residual_hblocked_f32 D={DIM_B}"],
+                 b32["mlp_residual_hblocked_f32"]),
+                ("mlp_residual_hblocked_f32",
+                 f32k[f"mlp_residual_hblocked_f32 D={DIM_L}"],
+                 fused32["vitl-518 auto/auto f32"]["launches"][
+                     "mlp_residual_hblocked_f32"]),
+                ("head_tail_big_f32", f32k[f"head_tail_big_f32 C={FEATURES_B}"],
+                 b32["head_tail_big_f32"]),
+                ("head_tail_ext_f32", f32k[f"head_tail_ext_f32 C={FEATURES_B}"],
+                 fused32["vitb-252 auto/auto f32"]["launches"][
+                     "head_tail_ext_f32"])]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,

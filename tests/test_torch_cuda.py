@@ -831,8 +831,8 @@ def test_step_enqueues_without_host_sync(cuda, fused):
 def test_cli_f32_on_the_card_raises(cuda, tmp_path):
     """--compute_dtype float32 with --device cuda (the default) raises
     not_ported("f32 on the card") before any weight is built where the f32
-    plan needs a kernel with no f32 variant yet: vits fused runs the
-    weights-resident MLP half (row 8)."""
+    plan needs a kernel with no f32 variant yet: vitg fused runs the fused
+    SwiGLU half (row 10)."""
     cv2 = pytest.importorskip("cv2")
     from vr_video_generator_tpu_torch.cli import main
 
@@ -846,7 +846,8 @@ def test_cli_f32_on_the_card_raises(cuda, tmp_path):
               "--DebugDir", str(tmp_path / "D") + "/",
               "--SubClipDir", str(tmp_path / "S") + "/",
               "--input_size", "56", "--compute_dtype", "float32",
-              "--mlp_fused", "fused", "--allow_random_weights"])
+              "--encoder", "vitg", "--mlp_fused", "fused",
+              "--allow_random_weights"])
 
 
 def _graph_pipe(cuda, mlp_fused="auto", h=150, w=96, batch=2, chunk=1,
@@ -1463,3 +1464,138 @@ def test_vits_auto_f32_step_on_the_card(cuda):
     outs, st_g = pipe.step_many(frames, state)
     assert torch.equal(outs[0], sbs) and torch.equal(outs[1], sbs2)
     assert all(torch.equal(a, b) for a, b in zip(st_g, st2) if a is not None)
+
+
+# --- f32 on the card: rows 8, 9, 11 and 12, row 7 at every width ----------
+
+def _f32_mlp_args(gen, m, d):
+    hid = 4 * d
+    return (_randn(gen, (1, m, d), dtype=F32),
+            _randn(gen, (d,), 0.1, 1.0, F32), _randn(gen, (d,), 0.1, 0.0, F32),
+            _randn(gen, (hid, d), d ** -0.5, dtype=F32),
+            _randn(gen, (hid,), 0.5, dtype=F32),
+            _randn(gen, (d, hid), hid ** -0.5, dtype=F32),
+            _randn(gen, (d,), 0.5, dtype=F32),
+            _randn(gen, (d,), 0.1, 1.0, F32))
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "tanh"])
+@pytest.mark.parametrize("row,d,m", [(8, 128, 77), (8, 384, 300),
+                                     (9, 768, 130), (9, 1024, 64)])
+def test_mlp_f32_kernels_match_plain(cuda, row, d, m, approx):
+    """Rows 8 (D = 128, 384) and 9 (D = 768, 1024) at f32 on the f32 chain
+    (csrc/mlp_f32.cu), ragged row tiles, the A&S and the tanh GELU: within
+    chip_smoke.py's f32 bound of the plain version, which the same function
+    with the weights rounded to TF32 fails; one launch on the f32 counter."""
+    from chip_smoke import f32_dense_check, tf32_round
+
+    gen = torch.Generator(device=cuda).manual_seed(row * d + m + approx)
+    args = _f32_mlp_args(gen, m, d)
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    fn = mlp_residual if row == 8 else mlp_residual_hblocked
+    name = "mlp_residual_f32" if row == 8 else "mlp_residual_hblocked_f32"
+    before = launch_counts().get(name, 0)
+    got = fn(*args, approx=approx)
+    assert launch_counts()[name] == before + 1
+    tf_args = (x, lnw, lnb, tf32_round(w1), b1, tf32_round(w2), b2, gamma)
+    f32_dense_check(name, got, mlp_residual_plain(*args, approx=approx),
+                    mlp_residual_plain(*tf_args, approx=approx), 1, x,
+                    gamma * b2)
+
+
+def test_mlp_f32_entry_points_refuse_other_widths(cuda):
+    """Row 8's f32 chain takes D = 128 and 384, row 9's 768 and 1024: the
+    wrappers raise at another width and launch nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    before = dict(launch_counts())
+    with pytest.raises(ValueError):
+        mlp_residual(*_f32_mlp_args(gen, 5, 768))
+    with pytest.raises(ValueError):
+        mlp_residual_hblocked(*_f32_mlp_args(gen, 5, 384))
+    assert launch_counts() == before
+
+
+def test_gelu_f32_epilogue_bit_for_bit(cuda):
+    """The f32 fc1 epilogue's A&S GELU equals the eager f32 chain bit for
+    bit on every bf16 value, a dense sweep and the flush to -0.0 near -5.7;
+    its tanh GELU within 2 f32 ulps (chip_smoke.check_gelu_f32)."""
+    from chip_smoke import check_gelu_f32
+
+    res = check_gelu_f32(cuda)
+    assert res["exact"]["differ"] == 0 and res["exact"]["values"] > 300000
+
+
+def _f32_tail_wts(gen, c):
+    c2 = c // 2
+    return (_randn(gen, (c, c, 1, 1), c ** -0.5, dtype=F32),
+            _randn(gen, (c,), 0.1, dtype=F32),
+            _randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=F32),
+            _randn(gen, (c2,), 0.1, dtype=F32),
+            _randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5, dtype=F32),
+            _randn(gen, (32,), 0.1, dtype=F32),
+            _randn(gen, (1, 32, 1, 1), 32 ** -0.5, dtype=F32),
+            _randn(gen, (1,), 0.1, 0.5, dtype=F32))
+
+
+@pytest.mark.parametrize("big", [True, False], ids=["rows11_12", "row7"])
+@pytest.mark.parametrize("c,b,h0,w0", [(64, 1, 4, 7), (128, 2, 5, 9),
+                                       (256, 1, 9, 13), (384, 2, 4, 6)])
+def test_f32_tails_at_every_width_match_plain(cuda, big, c, b, h0, w0):
+    """Rows 11 and 12 at f32 (vrvg_head_tail_big_f32) and row 7 at f32 at C
+    = 64-384, on an NCHW activation seen as NHWC, on grids of 4-9 rows
+    (most of rows 11 and 12's conv1 rows are cw's edge rows), against their
+    plain versions relative to the depth's range: a bound that the plain
+    version on TF32-rounded input and conv weights fails."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
+                            f32_rel_check, tf32_round)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + h0 + big)
+    x = _randn(gen, (b, c, h0, w0), dtype=F32).permute(0, 2, 3, 1)
+    wts = _f32_tail_wts(gen, c)
+    out_hw = (h0 * 7 // 2, w0 * 7 // 2)
+    fn, plain, counter = (
+        (ht.head_tail_big, ht.head_tail_big_plain, "head_tail_big_f32")
+        if big else (head_tail_ext, head_tail_ext_plain, "head_tail_ext_f32"))
+    want = plain(x, *wts, out_hw)
+    rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
+    tfw = plain(tf32_round(x), *rounded, out_hw)
+    before = launch_counts().get(counter, 0)
+    got = fn(x, *wts, out_hw)
+    assert launch_counts()[counter] == before + 1
+    span = (want.max() - want.min()).item()
+    f32_rel_check(counter, got, want, tfw, TAIL_F32_MAX_REL,
+                  TAIL_F32_MEAN_REL, span)
+
+
+@pytest.mark.parametrize("encoder,mlp_fused,need", [
+    ("vits", "fused", "mlp_residual_f32"),
+    ("vitb", "auto", "mlp_residual_hblocked_f32")])
+def test_fused_f32_step_on_the_card(cuda, encoder, mlp_fused, need):
+    """vits fused and vitb auto at f32 on a small frame: the MLP half on its
+    f32 chain in each of the 12 blocks (row 8 at vits, row 9 at vitb), only
+    f32 kernels and the warp, no host sync in the step, the right half the
+    input."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder=encoder, batch_size=2, compute_dtype="float32",
+                    input_size=56, mlp_fused=mlp_fused, tail=mlp_fused)
+    pipe = SbsPipeline.create(cfg, 150, 96, allow_random=True, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    state = pipe.initial_state()
+    pipe.step(frames, state)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sbs, _ = pipe.step(frames, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts[need] == 12
+    assert all(k.endswith("_f32") or k in ("warp_composite", "blur_select_sbs")
+               for k in counts)
+    assert torch.equal(sbs[:, :, 96:], frames)

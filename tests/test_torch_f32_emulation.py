@@ -3,16 +3,22 @@ CPU under the host emulation of CUDA (tests/cuda_emu/cuda_runtime.h),
 against their plain versions.
 
 g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
-5's and row 6's epilogues) and csrc/attention_f32.cu (rows 2 and 17 at f32)
-as they are, launches rewritten to the emulator's, and a unit that
-instantiates the core with the f32 DPT tail's operands (csrc/sconv.cuh: the
-3x3 conv as an implicit GEMM, conv1's bias store, conv2's depth epilogue)
-as vrvg_head_tail_ext_f32 does. Each CUDA thread is a std::thread and each
+5's and row 6's epilogues), csrc/attention_f32.cu (rows 2 and 17 at f32) and
+csrc/mlp_f32.cu (rows 8 and 9 at f32: fc1 with b1 and the GELU of
+csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual) as they are,
+launches rewritten to the emulator's, and a unit that instantiates the core
+with the f32 DPT tails' operands (csrc/sconv.cuh: the 3x3 conv as an
+implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
+and the tile each product takes by width) as vrvg_head_tail_ext_f32 and
+vrvg_head_tail_big_f32 call them; the tails' passes (upsample, resize) are
+their plain versions around them. Each CUDA thread is a std::thread and each
 __syncthreads a barrier, so the tiles' indexing, the ragged edges, the
 double-buffered k slices and the online softmax run as written. The plain
 versions sum in another order, so each output is held to a bound in f32
 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32 product
-would be thousands off). This checks logic only; the card checks the
+would be thousands off); the GELU epilogue's expf and tanhf are the host's,
+so the fc1 stage is held to the same bound, not bit for bit (the card holds
+it bit for bit against the eager chain). This checks logic only; the card checks the
 kernels themselves (chip_smoke.py phase 8). Needs g++ (C++20).
 """
 
@@ -30,6 +36,8 @@ import torch.nn.functional as F
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
 from vr_video_generator_tpu_torch.ops.attention import (attention_plain,
                                                         flash_attention_plain)
+from vr_video_generator_tpu_torch.ops import head_tail as ht
+from vr_video_generator_tpu_torch.ops import mlp
 from vr_video_generator_tpu_torch.ops.head_tail import (big_conv2_plain,
                                                         conv3x3_gemm_weights,
                                                         ext_conv1_plain,
@@ -84,6 +92,31 @@ extern "C" int emu_conv2_depth_f32(const float* r, const float* w2,
       sgemm::DenseRows{w2, 9 * c2, 32, 9 * c2}, m, 32, 9 * c2,
       sgemm::DepthOut{out, b2, w3, b3}, nullptr);
 }
+// The same products as both f32 tails' entry points run them, on the tile
+// csrc/sconv.cuh picks by width: the mix, a conv3x3 with or without its
+// bias (row 7's conv1 / row 11's folded conv1), conv2 with the 1x1.
+extern "C" int emu_mix_n_f32(const float* x, const float* koc, float* xoc,
+                             int m, int c) {
+  return sgemm::gemm_n(sgemm::DenseRows{x, c, m, c}, koc, m, c, c,
+                       sgemm::Store{xoc, c}, nullptr);
+}
+extern "C" int emu_conv3x3_f32(const float* x, const float* w,
+                               const float* bias, float* out, int batch,
+                               int h, int wd, int c, int n) {
+  if (bias != nullptr) {
+    return sgemm::conv3x3(x, w, batch, h, wd, c, n,
+                          sgemm::BiasStore{out, bias, n}, nullptr);
+  }
+  return sgemm::conv3x3(x, w, batch, h, wd, c, n, sgemm::Store{out, n},
+                        nullptr);
+}
+extern "C" int emu_conv2_depth_n_f32(const float* r, const float* w2,
+                                     const float* b2, const float* w3,
+                                     const float* b3, float* out, int batch,
+                                     int h, int w, int c2) {
+  return sgemm::conv2_depth(r, w2, b2, w3, b3, out, batch, h, w, c2,
+                            nullptr);
+}
 """
 UNITS = {"qkv_f32.cu": ("", "qkv_f32.cu", LN_STUB),
          "attention_f32.cu": ("", "attention_f32.cu", ""),
@@ -93,7 +126,31 @@ EMU_SIGNATURES = {
     "emu_mix_f32": [_P, _P, _P, _I, _I],
     "emu_conv1_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "emu_conv2_depth_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
+    "emu_mix_n_f32": [_P, _P, _P, _I, _I],
+    "emu_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    "emu_conv2_depth_n_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
 }
+# mlp_f32.cu's chain starts with row 1's f32 LayerNorm (csrc/layernorm.cu,
+# not emulated): in its own library this stand-in computes it on the host
+# (f64 statistics, f32 output), so the chain runs whole.
+LN_HOST = """#include <math.h>
+extern "C" int vrvg_layernorm_f32(const void* x, const void* w,
+                                  const void* b, void* y, int m, int d,
+                                  float eps, void*) {
+  for (int r = 0; r < m; ++r) {
+    const float* xr = (const float*)x + (long long)r * d;
+    float* yr = (float*)y + (long long)r * d;
+    double s = 0, v = 0;
+    for (int i = 0; i < d; ++i) s += xr[i];
+    const double mean = s / d;
+    for (int i = 0; i < d; ++i) v += (xr[i] - mean) * (xr[i] - mean);
+    const double rstd = 1.0 / sqrt(v / d + eps);
+    for (int i = 0; i < d; ++i)
+      yr[i] = (float)((xr[i] - mean) * rstd) * ((const float*)w)[i] +
+              ((const float*)b)[i];
+  }
+  return 0;
+}"""
 # Bounds in f32 ulps of each output's scale (the largest of the output, its
 # feature's RMS and its addends): f32 sums in another order than the plain
 # version's.
@@ -106,35 +163,49 @@ def emulated(text: str) -> str:
                   r"emu::Launch(\2)(\1, ", text, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build(tmp, units, entries, name):
+    """g++ the emulated sources and ``units`` ({file: (pre, include, post)})
+    into one library; bind ``entries`` (SIGNATURES' and EMU_SIGNATURES')."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
-    tmp = tmp_path_factory.mktemp("cuda_emu_f32")
-    for name in ("sgemm.cuh", "sconv.cuh", "qkv_f32.cu", "attention_f32.cu"):
-        (tmp / name).write_text(emulated((CSRC_DIR / name).read_text()))
-    units = []
-    for unit, (pre, inc, post) in UNITS.items():
+    for src in ("gelu_as.cuh", "sgemm.cuh", "sconv.cuh", "qkv_f32.cu",
+                "attention_f32.cu", "mlp_f32.cu"):
+        (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
+    paths = []
+    for unit, (pre, inc, post) in units.items():
         path = tmp / (unit + ".cpp")
         path.write_text(UNIT % (pre, inc, post))
-        units.append(str(path))
-    so = tmp / "libemu_f32.so"
+        paths.append(str(path))
+    so = tmp / name
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-ffp-contract=off", "-w", f"-I{tmp}", f"-I{EMU_DIR}", *units,
+         "-ffp-contract=off", "-w", f"-I{tmp}", f"-I{EMU_DIR}", *paths,
          "-o", str(so)], capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     emu = ctypes.CDLL(str(so))
-    for name in ("vrvg_qkv_f32", "vrvg_ln_qkv_f32",
-                 "vrvg_proj_ls_residual_f32", "vrvg_attention_f32",
-                 "vrvg_flash_attention_f32"):
-        getattr(emu, name).argtypes = SIGNATURES[name]
-        getattr(emu, name).restype = ctypes.c_int
-    for name, argtypes in EMU_SIGNATURES.items():
-        getattr(emu, name).argtypes = argtypes
-        getattr(emu, name).restype = ctypes.c_int
+    for entry in entries:
+        getattr(emu, entry).argtypes = {**SIGNATURES, **EMU_SIGNATURES}[entry]
+        getattr(emu, entry).restype = ctypes.c_int
     return emu
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("cuda_emu_f32"), UNITS,
+                  ("vrvg_qkv_f32", "vrvg_ln_qkv_f32",
+                   "vrvg_proj_ls_residual_f32", "vrvg_attention_f32",
+                   "vrvg_flash_attention_f32", *EMU_SIGNATURES),
+                  "libemu_f32.so")
+
+
+@pytest.fixture(scope="module")
+def mlp_lib(tmp_path_factory):
+    """csrc/mlp_f32.cu as it is, with the host LayerNorm."""
+    return _build(tmp_path_factory.mktemp("cuda_emu_mlp_f32"),
+                  {"mlp_f32.cu": ("", "mlp_f32.cu", LN_HOST)},
+                  ("vrvg_fc1_gelu_f32", "vrvg_mlp_residual_f32",
+                   "vrvg_mlp_residual_hblocked_f32"), "libemu_mlp_f32.so")
 
 
 def f32_ulps(got, want, *addends):
@@ -286,3 +357,155 @@ def test_conv2_depth_source(lib):
     y = F.relu(F.conv2d(r.permute(0, 3, 1, 2), k2, b2, padding=1))
     ref = F.relu((y * k3[0, :, 0, 0][:, None, None]).sum(dim=1) + b3)
     assert (out - ref).abs().max().item() <= 1e-5 * span
+
+
+# --- rows 8 and 9 at f32 (csrc/mlp_f32.cu) ----------------------------------
+
+def _mlp_args(rng, m, d):
+    """Seeded f32 operands of the MLP half in PyTorch layout: x (1, M, D),
+    the LN affine, fc1 (4D, D) + b1, fc2 (D, 4D) + b2, gamma."""
+    hid = 4 * d
+    return (randn(rng, (1, m, d)), randn(rng, (d,), 0.1, 1.0),
+            randn(rng, (d,), 0.1), randn(rng, (hid, d), d ** -0.5),
+            randn(rng, (hid,), 0.3), randn(rng, (d, hid), hid ** -0.5),
+            randn(rng, (d,), 0.3), randn(rng, (d,), 0.1, 1.0))
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "tanh"])
+def test_fc1_gelu_stage_source(mlp_lib, approx):
+    """The fc1 stage (sgemm::BiasGelu on 128 x 128 tiles: a ragged last row
+    tile, 4D = 512 columns): + b1, then the A&S or the tanh GELU on the
+    f32 sum, against fc1_gelu_plain. The host's expf / tanhf stand in for
+    the card's, so the bound is the core's, not bit for bit."""
+    rng = np.random.default_rng(11 + approx)
+    m, d = 130, 128
+    a = randn(rng, (m, d))
+    w1, b1 = randn(rng, (4 * d, d), d ** -0.5), randn(rng, (4 * d,), 0.5)
+    h = torch.empty((m, 4 * d))
+    assert mlp_lib.vrvg_fc1_gelu_f32(a.data_ptr(), w1.data_ptr(),
+                                     b1.data_ptr(), h.data_ptr(), m, d,
+                                     int(approx), None) == 0
+    want = mlp.fc1_gelu_plain(a, w1, b1, approx)
+    t = a @ w1.T + b1  # the GELU's input: its scale sets the GELU's ulps
+    assert f32_ulps(h, want, t, b1).max() <= MAX_ULPS
+    assert (want < 0).float().mean() > 0.2  # the GELU's negative arm ran
+
+
+@pytest.mark.parametrize("entry,d,m", [
+    ("vrvg_mlp_residual_f32", 128, 150), ("vrvg_mlp_residual_f32", 384, 70),
+    ("vrvg_mlp_residual_hblocked_f32", 768, 33)])
+def test_mlp_chain_source(mlp_lib, entry, d, m):
+    """Rows 8 (D = 128, 384) and 9 (D = 768) at f32 as one chain: LN (on the
+    host here), fc1 + b1 + GELU into the hidden scratch, fc2 + b2 +
+    LayerScale + residual. The scratch holds the LN rows and the hidden
+    activations; each stage is held against its plain version on the
+    chain's own input (the host LN is not row 1's, and one ulp of a moves
+    fc1's sums by more than their own ulps), and the whole against
+    mlp_residual_plain relative to max |out|."""
+    rng = np.random.default_rng(d + m)
+    args = _mlp_args(rng, m, d)
+    x, lnw, lnb, w1, b1, w2, b2, gamma = args
+    a, h = torch.empty((m, d)), torch.empty((m, 4 * d))
+    out = torch.empty_like(x)
+    assert getattr(mlp_lib, entry)(
+        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, 1e-6, 0,
+        None) == 0
+    want_a = mlp.mlp_residual_stages(*args)[0]
+    assert f32_ulps(a, want_a.reshape(m, d)).max() <= MAX_ULPS
+    # Each product's scale includes the sum of its terms' magnitudes: at K =
+    # 768 and 3072 the f32 sums' order moves a result by a few ulps of that.
+    want_h = mlp.fc1_gelu_plain(a, w1, b1)
+    assert f32_ulps(h, want_h, a @ w1.T + b1, b1,
+                    a.abs() @ w1.abs().T).max() <= MAX_ULPS
+    want = mlp.fc2_residual_plain(h, w2, b2, gamma, x.reshape(m, d))
+    assert f32_ulps(out.reshape(m, d), want, x.reshape(m, d), gamma * b2,
+                    gamma.abs() * (h.abs() @ w2.abs().T)).max() <= MAX_ULPS
+    whole = mlp.mlp_residual_plain(*args)
+    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+def test_mlp_entry_points_refuse_other_widths(mlp_lib):
+    """Row 8's f32 entry point takes D = 128 and 384 only, row 9's a
+    multiple of 128: others return cudaErrorInvalidValue (1) and write
+    nothing."""
+    for entry, d in (("vrvg_mlp_residual_f32", 768),
+                     ("vrvg_mlp_residual_f32", 256),
+                     ("vrvg_mlp_residual_hblocked_f32", 200)):
+        m = 4
+        x = torch.zeros((m, d))
+        out = torch.full((m, d), 5.0)
+        err = getattr(mlp_lib, entry)(
+            *(x.data_ptr(),) * 8, x.data_ptr(), x.data_ptr(), out.data_ptr(),
+            m, d, 1e-6, 0, None)
+        assert err == 1 and bool((out == 5.0).all())
+
+
+# --- rows 7, 11 and 12 at f32 at every width (csrc/sconv.cuh) ---------------
+
+@pytest.mark.parametrize("c", [128, 384])
+def test_mix_by_width_source(lib, c):
+    """Row 7's out_conv mix at f32 on the tile gemm_n picks for N = C above
+    64 (Square, 128 x 128: at C = 384 three column tiles)."""
+    rng = np.random.default_rng(c)
+    x = randn(rng, (1, 9, 15, c))
+    koc = randn(rng, (c, c, 1, 1), c ** -0.5)
+    xoc = torch.empty_like(x)
+    km = koc[:, :, 0, 0].contiguous()
+    assert lib.emu_mix_n_f32(x.data_ptr(), km.data_ptr(), xoc.data_ptr(),
+                             9 * 15, c) == 0
+    assert f32_ulps(xoc, ext_mix_plain(x, koc)).max() <= MAX_ULPS
+
+
+@pytest.mark.parametrize("c", [128, 384])
+def test_ext_conv1_by_width_source(lib, c):
+    """Row 7's conv1 at f32 with its bias at C2 = 64 (Tall64) and 192
+    (Square, a half-empty second column tile), 2 frames, zero padding at
+    every edge."""
+    rng = np.random.default_rng(3 * c)
+    h, w, c2 = 7, 13, c // 2
+    z = randn(rng, (2, h, w, c))
+    k1, b1 = randn(rng, (c2, c, 3, 3), (9 * c) ** -0.5), randn(rng, (c2,), 0.5)
+    c1 = torch.empty((2, h, w, c2))
+    w1 = conv3x3_gemm_weights(k1, torch.float32)
+    assert lib.emu_conv3x3_f32(z.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                               c1.data_ptr(), 2, h, w, c, c2) == 0
+    assert f32_ulps(c1, ext_conv1_plain(z, k1, b1), b1).max() <= MAX_ULPS
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_big_tail_chain_source(lib, c):
+    """Rows 11 and 12 at f32 as vrvg_head_tail_big_f32 runs them, the passes
+    their plain versions: the folded conv1, bias-free (Store; C2 = 32, 64,
+    128 on Rows32, Tall64, Square), then the resize pass with cw, then
+    conv2 with the 1x1 (Rows32); mid in f32 ulps against big_conv1_plain,
+    the depth against head_tail_big_plain relative to its range. A 4-row
+    grid: most conv1 rows are cw's top or bottom rows."""
+    rng = np.random.default_rng(c + 5)
+    b, h0, w0, c2 = 2, 4, 7, c // 2
+    out_hw = (14, 24)
+    x = randn(rng, (b, h0, w0, c))
+    wts = [randn(rng, (c, c, 1, 1), c ** -0.5), randn(rng, (c,), 0.1),
+           randn(rng, (c2, c, 3, 3), (9 * c) ** -0.5), randn(rng, (c2,), 0.1),
+           randn(rng, (32, c2, 3, 3), (9 * c2) ** -0.5), randn(rng, (32,), 0.1),
+           randn(rng, (1, 32, 1, 1), 32 ** -0.5), randn(rng, (1,), 0.1, 0.5)]
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    u = ht.big_upsample_plain(x)
+    w1m = conv3x3_gemm_weights(ht.fold_conv1(k_oc, k1, torch.float32),
+                               torch.float32)
+    mid = torch.empty((b, 2 * h0, 2 * w0, c2))
+    assert lib.emu_conv3x3_f32(u.data_ptr(), w1m.data_ptr(), None,
+                               mid.data_ptr(), b, 2 * h0, 2 * w0, c, c2) == 0
+    assert f32_ulps(mid, ht.big_conv1_plain(u, k_oc, k1)).max() <= MAX_ULPS
+    r = ht.big_resize_plain(mid, k1, b_oc, b1, out_hw).contiguous()
+    out = torch.empty((b, *out_hw))
+    w2 = conv3x3_gemm_weights(k2, torch.float32)
+    assert lib.emu_conv2_depth_n_f32(
+        r.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        k3.reshape(32).contiguous().data_ptr(), b3.data_ptr(),
+        out.data_ptr(), b, *out_hw, c2) == 0
+    want = ht.head_tail_big_plain(x, *wts, out_hw)
+    span = (want.max() - want.min()).item()
+    assert span > 0 and (want > 0).float().mean() > 0.2
+    assert (out - want).abs().max().item() <= 1e-5 * span

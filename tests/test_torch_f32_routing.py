@@ -32,6 +32,7 @@ from vr_video_generator_tpu_torch.models.factory import (build_model,
 from vr_video_generator_tpu_torch.ops import attention as attn_ops
 from vr_video_generator_tpu_torch.ops import head_tail as ht
 from vr_video_generator_tpu_torch.ops import layernorm as ln_ops
+from vr_video_generator_tpu_torch.ops import mlp as mlp_ops
 from vr_video_generator_tpu_torch.ops import qkv as qkv_ops
 from vr_video_generator_tpu_torch.pipeline import SbsPipeline, check_f32_plan
 from vr_video_generator_tpu_torch.utils.config import ModelConfig
@@ -107,10 +108,12 @@ def test_block_fusion_at_f32_follows_jax(encoder):
 @pytest.mark.parametrize("encoder", ENCODERS)
 def test_tail_at_f32_follows_jax_or_raises(encoder):
     """resolve_tail at f32 is the JAX planners' choice with f32's itemsize,
-    off and on the card; check_f32_plan lets it through where its f32
-    kernel exists (the ext tail at C = 64, or none) and raises otherwise,
-    naming the rows, under the ROADMAP item "f32 on the card"."""
+    off and on the card; check_f32_plan lets it through, every encoder's
+    head width having both f32 tails (ext and big-C, C = 64-384), and
+    raises where the head's width has none (a 32-feature head), naming the
+    rows, under the ROADMAP item "f32 on the card"."""
     feats = ModelConfig.for_encoder(encoder).features
+    assert ht.takes_f32(feats)
     for size in SIZES:
         _, _, want, _, shape, out_hw = jax_f32_plan(encoder, "auto", "auto",
                                                     size)
@@ -121,18 +124,25 @@ def test_tail_at_f32_follows_jax_or_raises(encoder):
                             "cuda") == want
         cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                         mlp_fused="xla", tail="auto", input_size=size)
-        if want is None or (want == "ext" and feats == 64):
-            check_f32_plan(cfg, 1080, 1920)
-            continue
-        rows = "row 7" if want == "ext" else "rows 11 and 12"
-        with pytest.raises(NotImplementedError,
-                           match=f"{want} DPT tail at C={feats}.*{rows} at "
-                                 f"f32.*f32 on the card"):
-            check_f32_plan(cfg, 1080, 1920)
+        check_f32_plan(cfg, 1080, 1920)
+    cfg = RunConfig(encoder=encoder, compute_dtype="float32",
+                    mlp_fused="xla", tail="fused", input_size=56)
+    narrow = dataclasses.replace(cfg.model(), features=32)
+    with pytest.raises(NotImplementedError,
+                       match=r"DPT tail at C=32.*(row 7|rows 11 and 12) at "
+                             r"f32.*f32 on the card"):
+        check_f32_plan(_with_model(cfg, narrow), 1080, 1920)
     if encoder == "vits":
         shape = jax_f32_plan("vits", "auto", "auto", 518)[4]
         assert resolve_tail("auto", shape, torch.float32, (518, 924),
                             "cuda") == "ext"
+
+
+def _with_model(cfg, model_cfg):
+    """``cfg`` whose model() returns ``model_cfg`` (a custom head)."""
+    return types.SimpleNamespace(**{f.name: getattr(cfg, f.name)
+                                    for f in dataclasses.fields(cfg)},
+                                 model=lambda: model_cfg)
 
 
 class Reached(Exception):
@@ -156,15 +166,31 @@ def _create_on_fake_card(monkeypatch, cfg):
     raise AssertionError("create returned without building")
 
 
+# The sizes each plan is built at below: 518, and where the plan changes
+# with the size (vitl past 4096 tokens at 728: row 17; the big-C tail at
+# vits-728 and vitl-252, the ext tail at C = 128 and 256 at vitb-252 and
+# vitl-126).
+PLAN_SIZES = {("vits", "auto", "auto"): (518, 728),
+              ("vitb", "auto", "auto"): (518, 252),
+              ("vitb", "xla", "auto"): (518, 252),
+              ("vitl", "auto", "auto"): (518, 728, 252, 126),
+              ("vitl", "xla", "xla"): (518, 728)}
+
+
 @pytest.mark.parametrize("encoder,mlp_fused,tail", [
     ("vits", "auto", "auto"), ("vits", "xla", "xla"), ("vitb", "xla", "xla"),
-    ("vitl", "xla", "xla"), ("vitg", "xla", "xla")])
+    ("vitl", "xla", "xla"), ("vitg", "xla", "xla"),
+    ("vits", "fused", "fused"), ("vitb", "auto", "auto"),
+    ("vitb", "xla", "auto"), ("vitl", "auto", "auto"),
+    ("vitl", "fused", "fused")])
 def test_f32_plans_with_kernels_reach_load_model(monkeypatch, encoder,
                                                  mlp_fused, tail):
-    """vits auto and --mlp_fused xla --tail xla at every encoder (vitl also
-    at 728, past 4096 tokens: row 17) pass the plan-time check on the
-    card."""
-    for size in ((518, 728) if encoder == "vitl" else (518,)):
+    """Every plan of vits, vitb and vitl at f32 and --mlp_fused xla --tail
+    xla at every encoder pass the plan-time check on the card: the fused
+    MLP half (row 8 at vits, row 9 at vitb and vitl), the big-C tail (vitb
+    at 518, vits at 728, vitl at 252) and the ext tail at every width (vitb
+    at 252, vitl at 126), and vitl at 728 (past 4096 tokens: row 17)."""
+    for size in PLAN_SIZES.get((encoder, mlp_fused, tail), (518,)):
         cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                         mlp_fused=mlp_fused, tail=tail, input_size=size)
         assert _create_on_fake_card(monkeypatch, cfg) == "built"
@@ -172,20 +198,15 @@ def test_f32_plans_with_kernels_reach_load_model(monkeypatch, encoder,
 
 
 @pytest.mark.parametrize("encoder,mlp_fused,tail,size,match", [
-    ("vits", "fused", "fused", 518, r"weights-resident MLP half \(row 8\)"),
-    ("vitb", "auto", "auto", 518, r"hidden-blocked MLP half \(row 9\)"),
-    ("vitl", "auto", "auto", 518, r"hidden-blocked MLP half \(row 9\)"),
     ("vitg", "auto", "auto", 518, r"fused SwiGLU half \(row 10\)"),
-    ("vitb", "xla", "auto", 518, r"big DPT tail at C=128.*rows 11 and 12"),
-    ("vits", "auto", "auto", 728, r"big DPT tail at C=64.*rows 11 and 12"),
-    ("vitb", "xla", "auto", 252, r"ext DPT tail at C=128.*row 7 at f32")])
+    ("vitg", "fused", "fused", 126, r"fused SwiGLU half \(row 10\)"),
+    ("vitg", "auto", "xla", 56, r"fused SwiGLU half \(row 10\)")])
 def test_f32_plans_without_kernels_raise_before_load_model(
         monkeypatch, encoder, mlp_fused, tail, size, match):
-    """Each f32 plan that needs a row with no f32 kernel yet raises
-    not_ported naming the first such row, before load_model runs, and
-    names the ROADMAP item."""
-    jattn, jmlp, jtail, *_ = jax_f32_plan(encoder, mlp_fused, tail, size)
-    assert jmlp is not None or jtail in ("big", "ext")
+    """Each f32 plan that needs a row with no f32 kernel yet (vitg's fused
+    SwiGLU half, row 10) raises not_ported naming it, before load_model
+    runs, and names the ROADMAP item."""
+    assert jax_f32_plan(encoder, mlp_fused, tail, size)[1] == 10
     cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                     mlp_fused=mlp_fused, tail=tail, input_size=size)
     with pytest.raises(NotImplementedError, match=match) as info:
@@ -193,9 +214,31 @@ def test_f32_plans_without_kernels_raise_before_load_model(
     assert "f32 on the card" in str(info.value)
 
 
+@pytest.mark.parametrize("encoder", ENCODERS)
+def test_every_f32_plan_of_the_jax_package(encoder):
+    """Over --input_size 56-728 at 1080p and every mlp_fused and tail
+    choice, check_f32_plan passes each f32 plan of the JAX package at vits,
+    vitb and vitl, and at vitg each that leaves the MLP half unfused; a vitg
+    plan that fuses it (auto, fused: row 10) raises naming row 10."""
+    for size in (56, *SIZES):
+        for mlp_fused in ("auto", "fused", "xla"):
+            for tail in ("auto", "fused", "xla"):
+                _, jmlp, *_ = jax_f32_plan(encoder, mlp_fused, tail, size)
+                cfg = RunConfig(encoder=encoder, compute_dtype="float32",
+                                mlp_fused=mlp_fused, tail=tail,
+                                input_size=size)
+                if jmlp != 10:
+                    check_f32_plan(cfg, 1080, 1920)
+                    continue
+                assert encoder == "vitg"
+                with pytest.raises(NotImplementedError,
+                                   match=r"row 10.*f32 on the card"):
+                    check_f32_plan(cfg, 1080, 1920)
+
+
 def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
-    """The orchestrator's --mesh path: a plan without f32 kernels raises
-    before load_model; vits auto reaches it."""
+    """The orchestrator's --mesh path: a plan without f32 kernels (vitg
+    fused) raises before load_model; vits auto reaches it."""
     from vr_video_generator_tpu_torch.parallel import mesh as mesh_mod
     from vr_video_generator_tpu_torch.runtime import orchestrator
 
@@ -205,10 +248,11 @@ def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
     monkeypatch.setattr(factory, "load_model", _load_model)
     base = RunConfig(encoder="vits", compute_dtype="float32",
                      mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match=r"row 8"):
+    with pytest.raises(NotImplementedError, match=r"row 10"):
         orchestrator._convert_range_sharded(
-            dataclasses.replace(base, mlp_fused="fused", tail="fused"), 0, 8,
-            1920, 1080, device="cuda")
+            dataclasses.replace(base, encoder="vitg", mlp_fused="fused",
+                                tail="fused"), 0, 8, 1920, 1080,
+            device="cuda")
     with pytest.raises(Reached):
         orchestrator._convert_range_sharded(base, 0, 8, 1920, 1080,
                                             device="cuda")
@@ -271,7 +315,7 @@ def fake_card(monkeypatch):
     from vr_video_generator_tpu_torch.kernels import build
 
     lib = FakeLibrary()
-    for mod in (ln_ops, qkv_ops, attn_ops, ht):
+    for mod in (ln_ops, qkv_ops, attn_ops, ht, mlp_ops):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
     monkeypatch.setattr(ln_ops, "library", lambda: lib)
@@ -287,6 +331,11 @@ def _x_wts(c):
     return (_f32(1, 6, 10, c), _f32(c, c, 1, 1), _f32(c),
             _f32(c // 2, c, 3, 3), _f32(c // 2), _f32(32, c // 2, 3, 3),
             _f32(32), _f32(1, 32, 1, 1), _f32(1))
+
+
+def _mlp_args(d):
+    return (_f32(1, 5, d), _f32(d), _f32(d), _f32(4 * d, d), _f32(4 * d),
+            _f32(d, 4 * d), _f32(d), _f32(d))
 
 
 CALLS = {
@@ -306,28 +355,50 @@ CALLS = {
         "flash_attention_f32"),
     "head_tail_ext": (lambda: ht.head_tail_ext(*_x_wts(64), (21, 35)),
                       "vrvg_head_tail_ext_f32", "head_tail_ext_f32"),
+    "head_tail_ext C=256": (lambda: ht.head_tail_ext(*_x_wts(256), (21, 35)),
+                            "vrvg_head_tail_ext_f32", "head_tail_ext_f32"),
+    "head_tail_big_front": (lambda: ht.head_tail_big(*_x_wts(128), (21, 35)),
+                            "vrvg_head_tail_big_f32", "head_tail_big_f32"),
+    "mlp_residual": (lambda: mlp_ops.mlp_residual(*_mlp_args(384)),
+                     "vrvg_mlp_residual_f32", "mlp_residual_f32"),
+    "mlp_residual_tanh": (lambda: mlp_ops.mlp_residual(*_mlp_args(128),
+                                                       approx=True),
+                          "vrvg_mlp_residual_f32", "mlp_residual_f32"),
+    "mlp_residual_hblocked": (lambda: mlp_ops.mlp_residual_hblocked(
+        *_mlp_args(768)), "vrvg_mlp_residual_hblocked_f32",
+        "mlp_residual_hblocked_f32"),
+    "mlp_residual_hblocked_tanh": (lambda: mlp_ops.mlp_residual_hblocked(
+        *_mlp_args(1024), approx=True), "vrvg_mlp_residual_hblocked_f32",
+        "mlp_residual_hblocked_f32"),
+    "fc1_gelu": (lambda: mlp_ops.fc1_gelu_kernel(_f32(1, 5, 128),
+                                                 _f32(512, 128), _f32(512)),
+                 "vrvg_fc1_gelu_f32", "fc1_gelu_f32"),
 }
 
 
 @pytest.mark.parametrize("name", list(CALLS))
 def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
     """An f32 tensor on the card goes to its wrapper's f32 entry point, once,
-    and counts on the f32 counter, never on the bf16 one; it never reaches
-    the plain version."""
+    and counts on the f32 counter, never on the bf16 one (the case's name,
+    where the kernel has one); it never reaches the plain version."""
     call, entry, counter = CALLS[name]
     before = launch_counts()
     call()
     after = launch_counts()
     assert fake_card.calls == [entry]
     assert after[counter] == before.get(counter, 0) + 1
-    assert after[name] == before.get(name, 0)
+    bf16 = name.split()[0]
+    assert after.get(bf16, 0) == before.get(bf16, 0)
 
 
 @pytest.mark.parametrize("name", ["layernorm", "ln_qkv", "attention",
-                                  "head_tail_ext"])
+                                  "head_tail_ext", "head_tail_big",
+                                  "mlp_residual", "mlp_residual_hblocked",
+                                  "mlp_residual f16"])
 def test_other_dtypes_on_the_card_raise(fake_card, name):
-    """float16 on the card raises in the wrapper; so does the f32 ext tail
-    at a width it has no kernel for (C = 128). No entry point is called."""
+    """float16 on the card raises in the wrapper; so does an f32 kernel at a
+    width it has no kernel for (the tails at C = 32, row 8 at D = 768, row
+    9 at D = 384). No entry point is called."""
     h = torch.float16
     calls = {
         "layernorm": lambda: ln_ops.layernorm(_f32(5, 384).to(h), _f32(384),
@@ -337,8 +408,30 @@ def test_other_dtypes_on_the_card_raise(fake_card, name):
                                          _f32(1152).to(h), 6, 0.125),
         "attention": lambda: attn_ops.attention(
             *(t.to(h) for t in _f32(3, 1, 5, 2, 64))),
-        "head_tail_ext": lambda: ht.head_tail_ext(*_x_wts(128), (21, 35)),
+        "head_tail_ext": lambda: ht.head_tail_ext(*_x_wts(32), (21, 35)),
+        "head_tail_big": lambda: ht.head_tail_big(*_x_wts(32), (21, 35)),
+        "mlp_residual": lambda: mlp_ops.mlp_residual(*_mlp_args(768)),
+        "mlp_residual_hblocked": lambda: mlp_ops.mlp_residual_hblocked(
+            *_mlp_args(384)),
+        "mlp_residual f16": lambda: mlp_ops.mlp_residual(
+            *(t.to(h) for t in _mlp_args(384))),
     }
     with pytest.raises(ValueError):
         calls[name]()
     assert fake_card.calls == []
+
+
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 5])
+def test_bench_configs_at_f32_pass_the_plan_check(config):
+    """Every bench configuration at f32 on the card (its encoder, geometry
+    and batch, input 518, auto) passes check_f32_plan: configs 3 (vitb) and
+    4, 5 (vitl) now run rows 9, 11 and 12 at f32, where before only config
+    2's vits reached its f32 metric; the metric takes _f32."""
+    from vr_video_generator_tpu_torch import bench
+
+    encoder, h, w, b, step = bench.CONFIGS[config]
+    cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
+                    input_size=518, compute_dtype="float32")
+    check_f32_plan(cfg, h, w)
+    assert bench._dtype_tag("float32", True) == ("float32", "_f32")
+    assert bench._dtype_tag(None, True) == ("bfloat16", "")

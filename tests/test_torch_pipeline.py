@@ -307,10 +307,10 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
 def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     """compute_dtype float32 on a CUDA device raises not_ported("f32 on the
     card") in SbsPipeline.create, before load_model builds a weight, where
-    the f32 plan needs a kernel with no f32 variant yet: vits fused runs
-    the weights-resident MLP half (row 8). bf16 on the card passes the
-    check, and so does f32 on a plan whose kernels all have their f32
-    variants (CFG: xla/xla)."""
+    the f32 plan needs a kernel with no f32 variant yet: vitg fused runs
+    the fused SwiGLU half (row 10). bf16 on the card passes the check, and
+    so does f32 on a plan whose kernels all have their f32 variants (CFG:
+    xla/xla; vits fused, rows 8 and 7 at f32)."""
     import dataclasses
 
     import vr_video_generator_tpu_torch.pipeline as pipeline
@@ -321,17 +321,17 @@ def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     monkeypatch.setattr(pipeline, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(pipeline, "load_model", load_model)
-    fused = dataclasses.replace(CFG, mlp_fused="fused", tail="fused")
+    fused = dataclasses.replace(CFG, encoder="vitg", mlp_fused="fused",
+                                tail="fused")
     with pytest.raises(NotImplementedError, match="f32 on the card"):
         SbsPipeline.create(fused, H, W, allow_random=True, device="cuda")
     with pytest.raises(NotImplementedError, match="f32 on the card"):
         SbsPipeline.create(dataclasses.replace(fused, compute_dtype="bfloat16"),
                            H, W, allow_random=True, dtype=torch.float32)
-    with pytest.raises(AssertionError, match="load_model ran"):
-        SbsPipeline.create(CFG, H, W, allow_random=True, device="cuda")
-    with pytest.raises(AssertionError, match="load_model ran"):
-        SbsPipeline.create(dataclasses.replace(CFG, compute_dtype="bfloat16"),
-                           H, W, allow_random=True, device="cuda")
+    for ok in (CFG, dataclasses.replace(CFG, compute_dtype="bfloat16"),
+               dataclasses.replace(CFG, mlp_fused="fused", tail="fused")):
+        with pytest.raises(AssertionError, match="load_model ran"):
+            SbsPipeline.create(ok, H, W, allow_random=True, device="cuda")
 
 
 def test_cuda_device_without_gpu_raises():

@@ -16,7 +16,9 @@ numeric settings). ``--depth_stride S`` runs the depth net on every S-th
 frame (as the root bench's flag; the metric gets ``_stride<S>``); a config
 whose batch S does not divide is skipped with a message.
 ``--compute_dtype float32`` runs the depth net in f32 (the f32 kernels; the
-metric gets ``_f32``); bf16 is the default on the card. ``--device cpu``
+metric gets ``_f32``) at every config: 2 (vits ``auto``: rows 1, 5, 2, 6, 7
+at f32), 3 (vitb: rows 1, 5, 2, 6, 9, 11 and 12) and 4, 5 (vitl: rows 1, 2,
+9, the tail unfused); bf16 is the default on the card. ``--device cpu``
 shrinks to the root bench's smoke geometry (vits, 270 x 480, input 126,
 batch max(2, S), f32) and its two steps a chain. It measures two rates:
 

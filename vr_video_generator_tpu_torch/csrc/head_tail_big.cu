@@ -112,18 +112,26 @@
 // csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a core
 // tile nor a halo mode for C2 = 16.
 //
-// The ext tail at f32 (row 7 for --compute_dtype float32, at vits' C = 64;
-// vrvg_head_tail_ext_f32) is the same chain at the f32 rounding points of
-// `_tail_ext_kernel` (every intermediate f32, the W-resize weights f32):
-// the NCHW transpose, the upsample pass with out_conv's bias and the resize
-// pass are the kernels above instantiated on f32 (16 bytes a thread, 4
-// channels); the out_conv mix, conv1 with its f32 bias, and conv2 with b2,
-// ReLU, the 1x1, b3 and ReLU are products on the f32 core (csrc/sgemm.cuh;
-// the convs implicit GEMMs, csrc/sconv.cuh): wgmma takes no f32 operands
-// and TF32 is not f32. What bounds it: at vits' 1080p (B = 8) the mix,
-// conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 1.78 ms at the card's 67
-// TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of f32
-// intermediates (0.42 ms): bound by operations.
+// The tails at f32 (--compute_dtype float32): row 7
+// (vrvg_head_tail_ext_f32) and rows 11 and 12 (vrvg_head_tail_big_f32), at
+// C = 64 to 384, are the same chains at the f32 rounding points of
+// `_tail_ext_kernel` and of `_big_front_kernel` / `_big_back_kernel`
+// (every intermediate f32, the resize weights f32, conv1's folded weights
+// the f32 fold itself): the NCHW transpose, the upsample pass (with
+// out_conv's bias for row 7) and the resize pass (with `cw` for row 12) are
+// the kernels above instantiated on f32 (16 bytes a thread, 4 channels);
+// row 7's out_conv mix, the conv1s (row 7's with its f32 bias, row 11's
+// folded and bias-free) and conv2 with b2, ReLU, the 1x1, b3 and ReLU are
+// products on the f32 core (csrc/sgemm.cuh; the convs implicit GEMMs on
+// the tiles csrc/sconv.cuh picks by width): wgmma takes no f32 operands and
+// TF32 is not f32. Each is one entry point, front and back together, so
+// the f32 big-C tail's intermediate mid (B, HM, W2, C2) f32 is the front's
+// post-conv1 product as at bf16. What bounds them: at vits' 1080p (B = 8)
+// row 7's mix, conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 1.78 ms at the
+// card's 67 TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of
+// f32 intermediates (0.42 ms); at vitb-518 (C = 128) rows 11 and 12's conv1
+// and conv2 are 184 + 141 GFLOP (4.9 ms) against ~4 GB of f32 U, mid and R
+// written and read (1.2 ms): bound by operations.
 
 #include <type_traits>
 
@@ -142,7 +150,7 @@ constexpr int PASS_THREADS = 256;
 // Row 11, 0: the model hands x over as an NCHW activation seen as NHWC. x
 // (B, C, H0 W0) -> (B, H0 W0, C) in 64 x 64 tiles through shared memory, so
 // a warp reads 64 pixels of a channel and writes 64 channels of a pixel, 128
-// bytes each way (256 for f32). T is bf16, or f32 for the f32 ext tail.
+// bytes each way (256 for f32). T is bf16, or f32 for the f32 tails.
 constexpr int TT = 64;  // transpose tile
 
 template <class T>
@@ -767,15 +775,15 @@ extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
               c2, h1, w1, stream);
 }
 
-// Row 7 at f32 (C = 64, C2 = 32; the whole chain, front and back). x (B,
-// H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor (B, C, H0, W0)
-// seen as NHWC, first transposed into the scratch xt; out_conv (C out, C
-// in) f32 + (C,) f32 bias; the f32 W-upsample tap tables (2, 2 W0); conv1
-// as (C2, 9 C) f32 with k = (3 dh + dw) C + c, + (C2,) bias; the f32
-// W-resize tap tables (2, W1); conv2 as (32, 9 C2) f32 in the same k order,
-// b2 (32,), the 1x1 (32,) and b3 (1,); scratch xoc (B, H0, W0, C), z (B,
-// 2 H0, 2 W0, C), c1 (B, 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out
-// (B, H1, W1) f32.
+// Row 7 at f32 (the whole chain, front and back). x (B, H0, W0, C) f32,
+// contiguous, or with `nchw` an NCHW tensor (B, C, H0, W0) seen as NHWC,
+// first transposed into the scratch xt; out_conv (C out, C in) f32 + (C,)
+// f32 bias; the f32 W-upsample tap tables (2, 2 W0); conv1 as (C2, 9 C) f32
+// with k = (3 dh + dw) C + c, + (C2,) bias; the f32 W-resize tap tables (2,
+// W1); conv2 as (32, 9 C2) f32 in the same k order, b2 (32,), the 1x1 (32,)
+// and b3 (1,); scratch xoc (B, H0, W0, C), z (B, 2 H0, 2 W0, C), c1 (B,
+// 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in
+// {64, 128, 256, 384}, C2 = C / 2.
 extern "C" int vrvg_head_tail_ext_f32(
     const void* x, int nchw, void* xt, const void* koc, const void* boc,
     const void* taps_a, const void* tapw_a, void* xoc, void* z,
@@ -783,7 +791,9 @@ extern "C" int vrvg_head_tail_ext_f32(
     const void* tapw_b, void* r, const void* w2m, const void* b2,
     const void* w3, const void* b3, void* out, int batch, int h0, int w0,
     int c, int h1, int w1, void* stream) {
-  if (c != 64) return (int)cudaErrorInvalidValue;
+  if (c != 64 && c != 128 && c != 256 && c != 384) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
@@ -794,32 +804,74 @@ extern "C" int vrvg_head_tail_ext_f32(
     if (err != 0) return err;
     x = xt;
   }
-  const int m0 = batch * h0 * w0, m1 = batch * hm * w2, m2 = batch * h1 * w1;
-  int err = sgemm::gemm<sgemm::Tall64>(
-      sgemm::DenseRows{(const float*)x, c, m0, c},
-      sgemm::DenseRows{(const float*)koc, c, c, c}, m0, c, c,
-      sgemm::Store{(float*)xoc, c}, stream);
+  const int m0 = batch * h0 * w0;
+  int err = sgemm::gemm_n(sgemm::DenseRows{(const float*)x, c, m0, c},
+                          (const float*)koc, m0, c, c,
+                          sgemm::Store{(float*)xoc, c}, stream);
   if (err != 0) return err;
   upsample_kernel<float, true><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
       (const float*)xoc, (const int*)taps_a, (const float*)tapw_a,
       (const float*)boc, (float*)z, c, h0, w0, hm, w2);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = sgemm::gemm<sgemm::Rows32>(
-      sgemm::Conv3x3Rows{(const float*)z, hm, w2, c, m1},
-      sgemm::DenseRows{(const float*)w1m, 9 * c, c2, 9 * c}, m1, c2, 9 * c,
-      sgemm::BiasStore{(float*)c1, (const float*)b1, c2}, stream);
+  err = sgemm::conv3x3((const float*)z, (const float*)w1m, batch, hm, w2, c,
+                       c2, sgemm::BiasStore{(float*)c1, (const float*)b1, c2},
+                       stream);
   if (err != 0) return err;
   resize_kernel<float, false><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
       (const float*)c1, (const int*)taps_b, (const float*)tapw_b, nullptr,
       (float*)r, c2, hm, w2, h1, w1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return sgemm::gemm<sgemm::Rows32>(
-      sgemm::Conv3x3Rows{(const float*)r, h1, w1, c2, m2},
-      sgemm::DenseRows{(const float*)w2m, 9 * c2, C3, 9 * c2}, m2, C3,
-      9 * c2,
-      sgemm::DepthOut{(float*)out, (const float*)b2, (const float*)w3,
-                      (const float*)b3},
-      stream);
+  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
+                            (const float*)b2, (const float*)w3,
+                            (const float*)b3, (float*)out, batch, h1, w1, c2,
+                            stream);
+}
+
+// Rows 11 and 12 at f32 (the big-C tail, front and back in one chain). x
+// (B, H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor seen as
+// NHWC, first transposed into the scratch xt; conv1 with out_conv's mix
+// folded in (f32, ops/head_tail.fold_conv1) as (C2, 9 C) f32, k = (3 dh +
+// dw) C + c; the f32 W-upsample tap tables (2, 2 W0); the f32 W-resize tap
+// tables (2, W1) and cw (3, W1, C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2
+// as (32, 9 C2) f32, b2 (32,), the 1x1 (32,) and b3 (1,); scratch u (B,
+// 2 H0, 2 W0, C), mid (B, 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out
+// (B, H1, W1) f32. C in {64, 128, 256, 384}, C2 = C / 2.
+extern "C" int vrvg_head_tail_big_f32(
+    const void* x, int nchw, void* xt, const void* w1m, const void* taps_a,
+    const void* tapw_a, void* u, void* mid, const void* taps_b,
+    const void* tapw_b, const void* cw, void* r, const void* w2m,
+    const void* b2, const void* w3, const void* b3, void* out, int batch,
+    int h0, int w0, int c, int h1, int w1, void* stream) {
+  if (c != 64 && c != 128 && c != 256 && c != 384) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
+    return (int)cudaSuccess;
+  }
+  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nchw) {
+    const int err = to_channels_last<float>(x, xt, batch, c, h0 * w0, stream);
+    if (err != 0) return err;
+    x = xt;
+  }
+  upsample_kernel<float, false><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
+      (const float*)x, (const int*)taps_a, (const float*)tapw_a, nullptr,
+      (float*)u, c, h0, w0, hm, w2);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = sgemm::conv3x3((const float*)u, (const float*)w1m, batch, hm, w2, c,
+                       c2, sgemm::Store{(float*)mid, c2}, stream);
+  if (err != 0) return err;
+  resize_kernel<float, true><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
+      (const float*)mid, (const int*)taps_b, (const float*)tapw_b,
+      (const float*)cw, (float*)r, c2, hm, w2, h1, w1);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
+                            (const float*)b2, (const float*)w3,
+                            (const float*)b3, (float*)out, batch, h1, w1, c2,
+                            stream);
 }

@@ -27,7 +27,8 @@
 // vrvg_layernorm_f32) into an (M, D) f32 scratch, then the f32 GEMM core
 // (csrc/sgemm.cuh, 128 x 128 tiles) with the bias and q's scale in its
 // epilogue (QkvF32); proj is one launch of the core with bias, LayerScale
-// and the residual in its epilogue (ProjF32). vrvg_qkv_f32, the GEMM stage
+// and the residual in its epilogue (sgemm::LayerScaleResidual, which fc2 of
+// rows 8 and 9 at f32 shares, csrc/mlp_f32.cu). vrvg_qkv_f32, the GEMM stage
 // alone, exposes the product for the CPU emulation of the core
 // (tests/test_torch_f32_emulation.py).
 
@@ -40,10 +41,7 @@ extern "C" int vrvg_layernorm_f32(const void* x, const void* w,
 namespace {
 
 using sgemm::for_each4;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+using sgemm::ld4;
 
 // [q * scale | k | v] = a w^T + bias, q's columns (< d) scaled.
 struct QkvF32 {
@@ -64,29 +62,6 @@ struct QkvF32 {
         t.z = __fmul_rn(t.z, scale), t.w = __fmul_rn(t.w, scale);
       }
       *reinterpret_cast<float4*>(dst + col) = t;
-    });
-  }
-};
-
-// out = x + gamma * (o w^T + bias).
-struct ProjF32 {
-  float* out;          // (M, D)
-  const float* x;      // (M, D)
-  const float* bias;   // (D,)
-  const float* gamma;  // (D,)
-  int d;
-  template <class T>
-  __device__ __forceinline__ void store(int row, int n0, int tx,
-                                        const float (&v)[T::TN]) const {
-    const long long base = (long long)row * d;
-    for_each4<T>(n0, tx, d, v, [&](int col, const float* s) {
-      const float4 b = ld4(bias + col), g = ld4(gamma + col);
-      const float4 r = ld4(x + base + col);
-      *reinterpret_cast<float4*>(out + base + col) = make_float4(
-          __fadd_rn(r.x, __fmul_rn(g.x, __fadd_rn(s[0], b.x))),
-          __fadd_rn(r.y, __fmul_rn(g.y, __fadd_rn(s[1], b.y))),
-          __fadd_rn(r.z, __fmul_rn(g.z, __fadd_rn(s[2], b.z))),
-          __fadd_rn(r.w, __fmul_rn(g.w, __fadd_rn(s[3], b.w))));
     });
   }
 };
@@ -128,7 +103,7 @@ extern "C" int vrvg_proj_ls_residual_f32(const void* o, const void* x,
   const sgemm::DenseRows W{(const float*)w, d, d, d};
   return sgemm::gemm<sgemm::Square>(
       A, W, m, d, d,
-      ProjF32{(float*)out, (const float*)x, (const float*)b,
-              (const float*)gamma, d},
+      sgemm::LayerScaleResidual{(float*)out, (const float*)x,
+                                (const float*)b, (const float*)gamma, d},
       stream);
 }

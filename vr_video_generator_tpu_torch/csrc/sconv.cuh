@@ -1,9 +1,11 @@
-// The f32 DPT tail's convolutions as implicit GEMMs on the f32 core
-// (csrc/sgemm.cuh), for row 7 at f32 (csrc/head_tail_big.cu,
-// vrvg_head_tail_ext_f32): the A operand of a 3x3 convolution with zero
-// padding read in place from a (B, H, W, C) f32 image, and the epilogue of
-// output_conv2 -> ReLU -> 1x1 -> ReLU. Plain loads only, so the CPU
-// emulation (tests/test_torch_f32_emulation.py) runs them with the core.
+// The f32 DPT tails' products on the f32 core (csrc/sgemm.cuh), for rows
+// 7, 11 and 12 at f32 (csrc/head_tail_big.cu, vrvg_head_tail_ext_f32 and
+// vrvg_head_tail_big_f32): the A operand of a 3x3 convolution with zero
+// padding read in place from a (B, H, W, C) f32 image (an implicit GEMM),
+// the epilogue of output_conv2 -> ReLU -> 1x1 -> ReLU, and the tile each
+// product runs on at each width (gemm_n, conv3x3, conv2_depth), which the
+// tails' entry points and the CPU emulation (tests/test_torch_f32_emulation
+// .py) share. Plain loads only, so the emulation runs them with the core.
 
 #pragma once
 
@@ -62,6 +64,46 @@ struct DepthOut {
     out[row] = fmaxf(__fadd_rn(sum, b3[0]), 0.f);
   }
 };
+
+// C = epi(A B^T), B the (N, K) row-major f32 matrix w, on the tile that
+// fits N: a whole 32-column row a thread at N = 32 (Rows32), 256 x 64 at N
+// = 64 (Tall64), 128 x 128 above (Square; N = 192, conv1 at C = 384, has a
+// half-empty second column tile). Row 7's out_conv mix (N = C = 64-384),
+// its conv1 (N = C2 = 32-192) and row 11's folded conv1 (the same) run on
+// it.
+template <class OpA, class Epi>
+int gemm_n(const OpA& a, const float* w, int m, int n, int k, const Epi& epi,
+           void* stream) {
+  const DenseRows b{w, k, n, k};
+  switch (n) {
+    case 32:
+      return gemm<Rows32>(a, b, m, n, k, epi, stream);
+    case 64:
+      return gemm<Tall64>(a, b, m, n, k, epi, stream);
+    default:
+      return gemm<Square>(a, b, m, n, k, epi, stream);
+  }
+}
+
+// A 3x3 convolution with zero padding of x (B, H, W, C) f32 by w (N, 9 C)
+// f32, k = (3 dh + dw) C + c: epi on its (B H W, N) f32 sums.
+template <class Epi>
+int conv3x3(const float* x, const float* w, int batch, int h, int wd, int c,
+            int n, const Epi& epi, void* stream) {
+  const int m = batch * h * wd;
+  return gemm_n(Conv3x3Rows{x, h, wd, c, m}, w, m, n, 9 * c, epi, stream);
+}
+
+// output_conv2 (32, 9 C2) f32 of R (B, H, W, C2) f32, + b2, ReLU, the 1x1
+// and b3, ReLU -> out (B, H, W) f32 (DepthOut: a pixel's 32 sums a thread).
+inline int conv2_depth(const float* r, const float* w2, const float* b2,
+                       const float* w3, const float* b3, float* out,
+                       int batch, int h, int wd, int c2, void* stream) {
+  const int m = batch * h * wd;
+  return gemm<Rows32>(Conv3x3Rows{r, h, wd, c2, m},
+                      DenseRows{w2, 9 * c2, 32, 9 * c2}, m, 32, 9 * c2,
+                      DepthOut{out, b2, w3, b3}, stream);
+}
 
 }  // namespace sgemm
 }  // namespace

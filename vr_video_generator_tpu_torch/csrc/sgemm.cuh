@@ -48,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gelu_as.cuh"
+
 namespace {
 
 // The block's dynamic shared memory, declared in the unnamed namespace (the
@@ -243,6 +245,10 @@ __device__ __forceinline__ void for_each4(int n0, int tx, int n,
   }
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // C = A B^T into an (M, N) row-major f32 matrix.
 struct Store {
   float* c;
@@ -268,10 +274,59 @@ struct BiasStore {
                                         const float (&v)[T::TN]) const {
     float* dst = c + (long long)row * n;
     for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
-      const float4 b = *reinterpret_cast<const float4*>(bias + col);
+      const float4 b = ld4(bias + col);
       *reinterpret_cast<float4*>(dst + col) =
           make_float4(__fadd_rn(s[0], b.x), __fadd_rn(s[1], b.y),
                       __fadd_rn(s[2], b.z), __fadd_rn(s[3], b.w));
+    });
+  }
+};
+
+// out = x + gamma * (A B^T + bias), all (M, N) or (N,) f32: row 6's
+// epilogue at f32 (proj + LayerScale + residual) and fc2's of rows 8 and 9
+// (+ b2, LayerScale, residual), each sum and product rounded on its own.
+struct LayerScaleResidual {
+  float* out;
+  const float* x;
+  const float* bias;
+  const float* gamma;
+  int n;
+  template <class T>
+  __device__ __forceinline__ void store(int row, int n0, int tx,
+                                        const float (&v)[T::TN]) const {
+    const long long base = (long long)row * n;
+    for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
+      const float4 b = ld4(bias + col), g = ld4(gamma + col);
+      const float4 r = ld4(x + base + col);
+      *reinterpret_cast<float4*>(out + base + col) = make_float4(
+          __fadd_rn(r.x, __fmul_rn(g.x, __fadd_rn(s[0], b.x))),
+          __fadd_rn(r.y, __fmul_rn(g.y, __fadd_rn(s[1], b.y))),
+          __fadd_rn(r.z, __fmul_rn(g.z, __fadd_rn(s[2], b.z))),
+          __fadd_rn(r.w, __fmul_rn(g.w, __fadd_rn(s[3], b.w))));
+    });
+  }
+};
+
+// C = GELU(A B^T + bias), f32: fc1's epilogue of rows 8 and 9 at f32, the
+// A&S GELU (vrvg::gelu_as) or with TANH the tanh GELU (vrvg::gelu_tanh_f32)
+// on the rounded sum.
+template <bool TANH>
+struct BiasGelu {
+  float* c;
+  const float* bias;
+  int n;
+  static __device__ __forceinline__ float gelu(float t) {
+    return TANH ? vrvg::gelu_tanh_f32(t) : vrvg::gelu_as(t);
+  }
+  template <class T>
+  __device__ __forceinline__ void store(int row, int n0, int tx,
+                                        const float (&v)[T::TN]) const {
+    float* dst = c + (long long)row * n;
+    for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
+      const float4 b = ld4(bias + col);
+      *reinterpret_cast<float4*>(dst + col) = make_float4(
+          gelu(__fadd_rn(s[0], b.x)), gelu(__fadd_rn(s[1], b.y)),
+          gelu(__fadd_rn(s[2], b.z)), gelu(__fadd_rn(s[3], b.w)));
     });
   }
 };

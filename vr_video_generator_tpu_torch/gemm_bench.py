@@ -6,7 +6,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
         [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
-        [--rows 15]
+        [--rows 15] [--rows f32]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -99,6 +99,17 @@ once, each output written once) over its time, and the bound's share of
 its time; each output against its plain version, bit for bit. The rows
 call only the wrappers, so the file runs unchanged on an older tree.
 
+``--rows f32``: the f32 variants of this slice (``--compute_dtype
+float32``) on the f32 SIMT core of ``csrc/sgemm.cuh``, at 1080p, batch 8:
+rows 8 (vits' D = 384) and 9 (vitb-518's 768, vitl-518's 1024) by stage
+(row 1's f32 LayerNorm, fc1 + b1 + GELU, fc2 + residual), against cuBLAS's
+two f32 products (``torch.addmm``, TF32 off); rows 11 and 12 at vitb-518
+(C = 128) and row 7 at vitb-252 (C = 128) by stage (the transpose, the
+passes, the mix, the convs), against cuDNN's f32 convs (TF32 off). Each
+row: the device time by stage and its TFLOP/s or GB/s, the span,
+``event_ms``, the error against the plain version and the bound at the
+card's f32 rate (67 TFLOP/s) or its HBM rate.
+
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
 DPT tail kernels. Each result is a JSON line; the last line is one JSON
@@ -121,6 +132,7 @@ import torch.nn.functional as F
 from vr_video_generator_tpu_torch.stage_bench import card_line, event_ms
 
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # outside the tensor cores (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 CALLS = 50          # calls under the profiler
 HOST_CALLS = 1000   # calls timed on the host clock, no sync between
@@ -816,6 +828,118 @@ def warp_rows(label: str, frames, depth, wanted) -> list:
     return rows
 
 
+# The f32 rows: (row, label, M, D) of the MLP half and (row, label, C,
+# (H0, W0), (H1, W1)) of the tails, at 1080p, batch 8.
+F32_MLP_SHAPES = ((8, "vits", 19544, 384), (9, "vitb-518", 19544, 768),
+                  (9, "vitl-518", 19544, 1024))
+F32_TAIL_SHAPES = ((11, "vitb-518", 128, (148, 264), (518, 924)),
+                   (7, "vitb-252", 128, (72, 128), (252, 448)))
+
+
+def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
+    """Row 8 or 9 at f32 (module docstring)."""
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    f32 = torch.float32
+    fn = {8: mlp.mlp_residual, 9: mlp.mlp_residual_hblocked}[row]
+    hid = 4 * d
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + d))
+    args = tuple(randn(shape, sc, sh, f32) for shape, sc, sh in (
+        ((m, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
+        ((hid, d), d ** -0.5, 0.0), ((hid,), 0.5, 0.0),
+        ((d, hid), hid ** -0.5, 0.0), ((d,), 0.5, 0.0), ((d,), 0.1, 1.0)))
+    got, want = fn(*args), mlp.mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    fc = 2 * m * d * hid  # each product
+    moved = 4 * (2 * m * d + 2 * d * hid + hid + 5 * d)
+    row = dict(row=row, label=f"{label} f32", M=m, D=d, hidden=hid,
+               max_abs_err=(got - want).abs().max().item(),
+               bound_ms=max(2 * fc / F32_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: fn(*args)))
+    del got, want
+    stages = (("ln", "layernorm", 8 * m * d, None),
+              ("fc1 + GELU", "BiasGelu", None, fc),
+              ("fc2 + residual", "LayerScaleResidual", None, fc))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+    k["stages_us"] = us
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
+    a, h = randn((m, d), dtype=f32), randn((m, hid), dtype=f32)
+    w1, b1, w2, b2 = args[3], args[4], args[5], args[6]
+    return against_cublas(row, 2 * fc,
+                          (("BiasGelu", fc), ("LayerScaleResidual", fc)),
+                          (("cublas_fc1", lambda: torch.addmm(b1, a, w1.t())),
+                           ("cublas_fc2", lambda: torch.addmm(b2, h, w2.t()))))
+
+
+def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
+    """Rows 11 + 12 (``row`` 11) or row 7 at f32 (module docstring)."""
+    from chip_smoke import f32_tail_weights
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    (h0, w0), (h1, w1) = grid, out_hw
+    c2, hm, w2 = c // 2, 2 * h0, 2 * w0
+    gen = torch.Generator(device="cuda").manual_seed(c + h0)
+    x = seeded(gen)((BATCH, c, h0, w0), dtype=torch.float32).permute(
+        0, 2, 3, 1)
+    wts = f32_tail_weights(gen, c)
+    fn, plain = ((ht.head_tail_big, ht.head_tail_big_plain) if row == 11
+                 else (ht.head_tail_ext, ht.head_tail_ext_plain))
+    got, want = fn(x, *wts, out_hw), plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    m0, m1, m2 = BATCH * h0 * w0, BATCH * hm * w2, BATCH * h1 * w1
+    mix = 2 * m0 * c * c if row == 7 else 0
+    conv1, conv2 = 2 * m1 * 9 * c * c2, 2 * m2 * 9 * c2 * 32
+    xb, ub, midb, rb = 4 * x.numel(), 4 * m1 * c, 4 * m1 * c2, 4 * m2 * c2
+    span = (want.max() - want.min()).item()
+    res = dict(row=f"{row}" if row == 7 else "11+12", label=f"{label} f32",
+               C=c, grid=grid, out_hw=out_hw,
+               max_rel_err=(got - want).abs().max().item() / span,
+               bound_ms=max((mix + conv1 + conv2) / F32_FLOP_PER_S,
+                            (xb + 4 * got.numel()) / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: fn(x, *wts, out_hw)))
+    del got, want
+    # Stages by kernel name: the passes by name, the f32 core's products
+    # (sgemm_kernel) by their A operand and epilogue: conv2 DepthOut, conv1
+    # an implicit GEMM (Conv3x3Rows), the mix the dense one.
+    def stage(name: str) -> str:
+        for key in ("to_channels_last", "upsample", "resize_kernel",
+                    "DepthOut", "Conv3x3Rows"):
+            if key in name:
+                return key
+        return "sgemm_kernel" if "sgemm_kernel" in name else "other"
+
+    stages = (("transpose", "to_channels_last", 2 * xb, None),
+              ("mix", "sgemm_kernel", None, mix),
+              ("upsample", "upsample", xb + ub, None),
+              ("conv1", "Conv3x3Rows", None, conv1),
+              ("resize", "resize_kernel", midb + rb, None),
+              ("conv2", "DepthOut", None, conv2))
+    k = res["kernel"]
+    by_stage = defaultdict(float)
+    for name, t in k["kernels"].items():
+        by_stage[stage(name)] += t
+    us = {n: by_stage[key] for n, key, _, _ in stages}
+    k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
+    u = seeded(gen)((BATCH, c, hm, w2), dtype=torch.float32).contiguous(
+        memory_format=torch.channels_last)
+    r = seeded(gen)((BATCH, c2, h1, w1), dtype=torch.float32).contiguous(
+        memory_format=torch.channels_last)
+    k1, k2 = wts[2], wts[4]
+    res["cudnn_convs"] = timings(lambda: (F.conv2d(u, k1, padding=1),
+                                          F.conv2d(r, k2, padding=1)))
+    res["cudnn_convs"]["tflops"] = ((conv1 + conv2)
+                                    / res["cudnn_convs"]["kernel_us"] * 1e-6)
+    res["over_cudnn_kernel"] = k["kernel_us"] / res["cudnn_convs"]["kernel_us"]
+    return res
+
+
 def sass_counts() -> dict:
     """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM and big-C
     tail kernels in the built library (cuobjdump -sass)."""
@@ -832,7 +956,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 3, 4, "
                     "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
-                    "are measured together)")
+                    "are measured together; f32: rows 7, 8, 9, 11 and 12 "
+                    "at f32)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -899,6 +1024,16 @@ def main(argv=None) -> int:
             for row in big_tail_rows(*shape):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
+            torch.cuda.empty_cache()
+    if "f32" in wanted:
+        torch.backends.cudnn.allow_tf32 = False
+        for shape in F32_MLP_SHAPES:
+            rows.append(f32_mlp_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
+            torch.cuda.empty_cache()
+        for shape in F32_TAIL_SHAPES:
+            rows.append(f32_tail_row(*shape))
+            print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
     if wanted & {"3", "4", "13", "14"}:
         for label, frames, depth in warp_depths():

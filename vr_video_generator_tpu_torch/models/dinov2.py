@@ -18,7 +18,8 @@ tokens, the flash kernel above). Fused, the attention half is
 ops/qkv.ln_qkv -> attention -> ops/qkv.proj_ls_residual (up to 4096 tokens,
 where the JAX package plans it) and the MLP half is ops/mlp.mlp_residual
 (vits, vitb), ops/mlp.mlp_residual_hblocked (vitl), as the JAX package picks
-its resident or hidden-blocked kernel, or ops/mlp.swiglu_residual (vitg),
+its resident or hidden-blocked kernel (at f32 by f32's weight bytes: vits
+resident, vitb and vitl hidden-blocked), or ops/mlp.swiglu_residual (vitg),
 reading the same parameters. Activations are in the compute dtype;
 LayerNorm statistics, the pos-embed resample and the softmax are f32; dense
 layers round as flax's (models/layers.py).
@@ -73,8 +74,8 @@ def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
     the card it fuses nothing, as the JAX package's ``auto`` does off the
     TPU. ``fused`` fuses both wherever the JAX package would (off the
     card through the plain versions); where either would fuse the MLP half
-    (``ffn_layer`` "mlp" or vitg's "swiglufused") at a width no kernel takes,
-    it raises; ``xla`` fuses nothing."""
+    (``ffn_layer`` "mlp" or vitg's "swiglufused") at a width no kernel takes
+    in ``dtype``, it raises; ``xla`` fuses nothing."""
     if mlp_fused not in ("auto", "fused", "xla"):
         raise ValueError(f"mlp_fused must be auto, fused or xla, got "
                          f"{mlp_fused!r}")
@@ -85,7 +86,7 @@ def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
         and qkv_ops.attn_fusable(dim, n_tokens, dtype)
     mlp = dim % 128 == 0 and (mlp_fused == "fused" or (
         mlp_fused == "auto" and on_card and dim >= 512))
-    if mlp and not mlp_ops.takes_width(dim, ffn_layer):
+    if mlp and not mlp_ops.takes_width(dim, ffn_layer, dtype):
         not_ported(f"mlp_fused={mlp_fused!r} at D={dim} ({ffn_layer})",
                    "fused MLP kernels at other widths")
     return attn, mlp

@@ -13,8 +13,9 @@ Pallas kernel, and round as flax's (models/layers.py).
 (:func:`resolve_tail`): "xla" runs refinenet1's upsample and out_conv and
 the output convs here; "fused" hands refinenet1's pre-upsample activation
 and the weights to ops/head_tail.head_tail_ext or, where the JAX package's
-planners pick the big-C tail (vitl), ops/head_tail.head_tail_big (the CUDA
-kernels on the card), as the JAX package hands them to its Pallas tails.
+planners pick the big-C tail (vitl; vitb and vits at f32),
+ops/head_tail.head_tail_big (the CUDA kernels on the card; at f32 their f32
+variants), as the JAX package hands them to its Pallas tails.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ point ``vrvg_head_tail_ext_front`` and the last two the big-C tail's back
 without ``cw``, all in ``csrc/head_tail_big.cu`` (see its header). A head
 of 32 features (a custom config) runs the older chain of
 ``csrc/head_tail.cu`` instead, chosen by width, which holds a whole input
-row in shared memory. At f32 (``--compute_dtype float32``, vits' C = 64)
+row in shared memory. At f32 (``--compute_dtype float32``, C = 64 to 384)
 the same five stages run as one entry point, ``vrvg_head_tail_ext_f32``
 (counted as ``head_tail_ext_f32``): the passes instantiated on f32, the mix
 and both convs on the f32 SIMT core (``csrc/sgemm.cuh``), the W-resize
@@ -58,7 +58,11 @@ conv1 input) and conv1 as an implicit GEMM on the TMA + wgmma core; their
 intermediate is the bf16 post-conv1 product (B, 2 H0, 2 W0, C/2); the back
 runs the resize pass (R: the W-resize and ``cw``, then the H-resize) and
 conv2 with the 1x1 in registers. Each of those four stages has its own
-plain version, and the whole plain versions compose them.
+plain version, and the whole plain versions compose them. At f32 (C = 64 to
+384) front and back run as one entry point, ``vrvg_head_tail_big_f32``
+(counted as ``head_tail_big_f32``): the passes instantiated on f32, conv1
+(out_conv's mix folded in f32, as the JAX front folds it) and conv2 with
+the 1x1 on the f32 SIMT core, ``cw`` and the resize weights f32.
 """
 
 from __future__ import annotations
@@ -80,10 +84,12 @@ F32_LAUNCHES = counter("head_tail_ext_f32")
 BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
+BIG_F32_LAUNCHES = counter("head_tail_big_f32")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
-EXT_F32_CHANNELS = (64,)            # ... at f32, vrvg_head_tail_ext_f32
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
+# ... at f32, by both vrvg_head_tail_ext_f32 and vrvg_head_tail_big_f32
+EXT_F32_CHANNELS = BIG_CHANNELS
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
 # The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
 # layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
@@ -114,8 +120,8 @@ def takes(features: int, w0: int) -> bool:
 
 
 def takes_f32(features: int) -> bool:
-    """Whether the f32 ext kernels are built for a head of ``features``
-    channels (vits' 64; any grid)."""
+    """Whether the f32 tail kernels, ext and big-C, are built for a head of
+    ``features`` channels (any grid)."""
     return features in EXT_F32_CHANNELS
 
 
@@ -934,6 +940,78 @@ def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
                   b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """x (B, H0, W0, C) -> depth (B, H1, W1) f32 through the front and the
-    back (each its kernel on the card, its plain version on the CPU)."""
+    back (each its kernel on the card, its plain version on the CPU); an
+    f32 x on the card through the f32 chain (``vrvg_head_tail_big_f32``, C
+    in ``EXT_F32_CHANNELS``)."""
+    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
+    if x.dtype == torch.float32 and on_cuda(x, *args):
+        return _big_f32_stages(x, args, out_hw)[-1]
     mid = head_tail_big_front(x, k_oc, k1)
     return head_tail_big_back(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+
+
+def head_tail_big_stages(x: torch.Tensor, k_oc: torch.Tensor,
+                         b_oc: torch.Tensor, k1: torch.Tensor,
+                         b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                         k3: torch.Tensor, b3: torch.Tensor,
+                         out_hw: Tuple[int, int]):
+    """Rows 11 and 12 stage by stage: (U, mid, R, depth), each (B, H, W, C)
+    channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
+    versions of the stages; for CUDA tensors, the front's and the back's
+    launches (bf16), or one launch of the f32 chain (f32, C in
+    ``EXT_F32_CHANNELS``), whose scratch holds the intermediates."""
+    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
+    if x.dtype == torch.float32 and on_cuda(x, *args):
+        return _big_f32_stages(x, args, out_hw)
+    u, mid = head_tail_big_front_stages(x, k_oc, k1)
+    return (u, mid, *head_tail_big_back_stages(mid, k1, b_oc, b1, k2, b2, k3,
+                                               b3, out_hw))
+
+
+def _big_f32_weights(k_oc, k1, k2, b2, k3, b3):
+    """Rows 11 and 12's weights as vrvg_head_tail_big_f32 reads them: conv1
+    with out_conv's mix folded in f32, (C2, 9 C), and conv2 (32, 9 C2) f32;
+    the f32 vectors b2, the 1x1, b3."""
+    f32 = torch.float32
+    return (conv3x3_gemm_weights(fold_conv1(k_oc, k1, f32), f32),
+            conv3x3_gemm_weights(k2, f32), *_f32_vectors(b2, k3, b3))
+
+
+def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
+    """Rows 11 and 12 at f32 on the card: (U, mid, R, depth) from one launch
+    of vrvg_head_tail_big_f32."""
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = args
+    b, h0, w0, c = x.shape
+    h1, w1 = out_hw
+    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
+    if not takes_f32(c):
+        raise ValueError(f"head_tail_big f32 kernel takes C in "
+                         f"{EXT_F32_CHANNELS}, got C={c}")
+    for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
+                           ("output_conv1", k1, (c2, c, 3, 3)),
+                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
+                           ("output_conv2.2", k3, (1, C3, 1, 1))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"head_tail_big {name} weight must be {shape}, "
+                             f"got {tuple(t.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    w1m, w2m, b2f, w3f, b3f = _prepared(_big_f32_weights,
+                                        (k_oc, k1, k2, b2, k3, b3))
+    cw = _prepared(big_tail_bias, (k1, b_oc, b1), w2, w1)
+    x, nchw, xt = _channels_last(x)
+    f32 = torch.float32
+    taps_a, tapw_a = _device_taps(w0, w2, x.device, f32)
+    taps_b, tapw_b = _device_taps(w2, w1, x.device, f32)
+    new = functools.partial(torch.empty, dtype=f32, device=x.device)
+    u, mid, r = new((b, hm, w2, c)), new((b, hm, w2, c2)), new((b, h1, w1, c2))
+    out = new((b, h1, w1))
+    check(library().vrvg_head_tail_big_f32(
+        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
+        taps_a.data_ptr(), tapw_a.data_ptr(), u.data_ptr(), mid.data_ptr(),
+        taps_b.data_ptr(), tapw_b.data_ptr(), cw.data_ptr(), r.data_ptr(),
+        w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
+        out.data_ptr(), b, h0, w0, c, h1, w1, stream_handle(x.device)),
+        "vrvg_head_tail_big_f32")
+    BIG_F32_LAUNCHES.count += 1
+    return u, mid, r, out

@@ -16,7 +16,15 @@ wgmma GEMM core, with the LN rows and the (M, 4D) hidden activations in
 scratch; :func:`fc1_gelu_plain` and :func:`fc2_residual_plain` are the
 plain versions of its two GEMM stages, :func:`mlp_residual_stages` and
 :func:`mlp_residual_hblocked_stages` return every stage. See the source's
-header for the design.
+header for the design. At f32 (``--compute_dtype float32``) both rows run
+the f32 chain of ``csrc/mlp_f32.cu`` (entry points ``vrvg_mlp_residual_f32``
+at D = 128 and 384, where the JAX package keeps the f32 weights resident,
+and ``vrvg_mlp_residual_hblocked_f32`` at D = 768 and 1024; counted as
+``mlp_residual_f32`` and ``mlp_residual_hblocked_f32``): row 1's f32
+LayerNorm, then fc1 and fc2 on the f32 SIMT GEMM core of ``csrc/sgemm.cuh``
+with b1 and the GELU (``approx``: the tanh GELU in f32), and b2, LayerScale
+and the residual, in their epilogues; :func:`fc1_gelu_kernel` launches its
+fc1 stage alone.
 
 The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
 `_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
@@ -47,8 +55,13 @@ HBLOCKED_TANH_LAUNCHES = counter("mlp_residual_hblocked_tanh")
 SWIGLU_LAUNCHES = counter("swiglu_residual")
 SILU_MUL_LAUNCHES = counter("silu_mul")
 GELU_TANH_LAUNCHES = counter("gelu_tanh")
+F32_LAUNCHES = counter("mlp_residual_f32")
+HBLOCKED_F32_LAUNCHES = counter("mlp_residual_hblocked_f32")
+FC1_GELU_F32_LAUNCHES = counter("fc1_gelu_f32")
 WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
+F32_WIDTHS = (128, 384)            # row 8's at f32 (resident(d, 4d, f32))
+HBLOCKED_F32_WIDTHS = (768, 1024)  # row 9's at f32
 SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
 
 
@@ -168,11 +181,15 @@ def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     return x + gamma.to(dt) * (F.linear(h, w2.to(dt)) + b2.to(dt))
 
 
-def takes_width(d: int, ffn_layer: str = "mlp") -> bool:
+def takes_width(d: int, ffn_layer: str = "mlp",
+                dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether a kernel of the ``ffn_layer`` half-block is built for model
-    width ``d``."""
+    width ``d`` with activations in ``dtype`` (bf16, or f32 for the f32
+    variants: rows 8 and 9, not yet row 10)."""
     if ffn_layer == "swiglufused":
         return d in SWIGLU_WIDTHS
+    if dtype == torch.float32:
+        return d in F32_WIDTHS + HBLOCKED_F32_WIDTHS
     return d in WIDTHS + HBLOCKED_WIDTHS
 
 
@@ -183,13 +200,36 @@ def resident(d: int, hidden: int, dtype: torch.dtype) -> bool:
     return 2 * d * hidden * dtype.itemsize <= 10 * 2 ** 20 and hidden % 512 == 0
 
 
+def fc1_gelu_kernel(a: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    approx: bool = False) -> torch.Tensor:
+    """:func:`fc1_gelu_plain` of f32 LayerNorm'd rows a (..., D): the plain
+    version for CPU tensors, for CUDA tensors the f32 chain's fc1 stage
+    alone (``vrvg_fc1_gelu_f32``; no CLI path calls this: it exposes the
+    epilogue's GELU, for a check through a selection fc1)."""
+    if not on_cuda(a, w1, b1):
+        return fc1_gelu_plain(a, w1, b1, approx)
+    d = a.shape[-1]
+    f32 = torch.float32
+    _check_operands("fc1_gelu_f32", a, (("fc1 weight", w1, (4 * d, d), f32),
+                                        ("fc1 bias", b1, (4 * d,), f32)), f32)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    h = torch.empty((*a.shape[:-1], 4 * d), dtype=f32, device=a.device)
+    check(library().vrvg_fc1_gelu_f32(
+        a.data_ptr(), w1.data_ptr(), b1.data_ptr(), h.data_ptr(),
+        a.numel() // d, d, int(approx), stream_handle(a.device)),
+        "vrvg_fc1_gelu_f32")
+    FC1_GELU_F32_LAUNCHES.count += 1
+    return h
+
+
 def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-6, approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 8's
-    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, hidden 4D);
-    ``approx`` the tanh GELU."""
+    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, or f32, D in
+    ``F32_WIDTHS``; hidden 4D); ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
                                   approx)
@@ -204,9 +244,12 @@ def mlp_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
                         approx: bool = False):
     """Row 8 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
-    return _gelu_mlp_stages("mlp_residual", WIDTHS,
-                            TANH_LAUNCHES if approx else LAUNCHES, x, ln_w,
-                            ln_b, w1, b1, w2, b2, gamma, eps, approx)
+    if x.dtype == torch.float32:
+        chain = ("mlp_residual_f32", F32_WIDTHS, F32_LAUNCHES)
+    else:
+        chain = ("mlp_residual", WIDTHS, TANH_LAUNCHES if approx else LAUNCHES)
+    return _gelu_mlp_stages(*chain, x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                            approx)
 
 
 def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
@@ -216,8 +259,8 @@ def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
                           eps: float = 1e-6,
                           approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 9's
-    kernel chain for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, hidden
-    4D); ``approx`` the tanh GELU."""
+    kernel chain for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, or f32,
+    D in ``HBLOCKED_F32_WIDTHS``; hidden 4D); ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
                                   approx)
@@ -232,10 +275,14 @@ def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
                                  eps: float = 1e-6, approx: bool = False):
     """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
-    return _gelu_mlp_stages("mlp_residual_hblocked", HBLOCKED_WIDTHS,
-                            HBLOCKED_TANH_LAUNCHES if approx
-                            else HBLOCKED_LAUNCHES, x, ln_w, ln_b, w1, b1, w2,
-                            b2, gamma, eps, approx)
+    if x.dtype == torch.float32:
+        chain = ("mlp_residual_hblocked_f32", HBLOCKED_F32_WIDTHS,
+                 HBLOCKED_F32_LAUNCHES)
+    else:
+        chain = ("mlp_residual_hblocked", HBLOCKED_WIDTHS,
+                 HBLOCKED_TANH_LAUNCHES if approx else HBLOCKED_LAUNCHES)
+    return _gelu_mlp_stages(*chain, x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                            approx)
 
 
 def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
@@ -246,8 +293,9 @@ def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
     output), ``approx`` the tanh GELU. For CPU tensors, the plain versions
     of the stages, each shaped as x; for CUDA tensors, one launch of the
     entry point ``vrvg_<kernel>`` (D in ``widths``; its fc1 epilogue's tanh
-    variant with ``approx``), counted on ``launches``, whose scratch holds
-    the first two as (M, .) with M the rows of x."""
+    variant with ``approx``; an f32 chain where ``kernel`` ends in _f32),
+    counted on ``launches``, whose scratch holds the first two as (M, .)
+    with M the rows of x."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         a = layernorm_plain(x, ln_w, ln_b, eps)
         h = fc1_gelu_plain(a, w1, b1, approx)
@@ -327,10 +375,12 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
     return h, g, out
 
 
-def _check_operands(kernel: str, x: torch.Tensor, operands) -> None:
+def _check_operands(kernel: str, x: torch.Tensor, operands,
+                    x_dtype: torch.dtype = torch.bfloat16) -> None:
     """Raise unless x and each (name, tensor, shape, dtype) of ``operands``
-    is contiguous with that shape and dtype (x: bf16, any leading shape)."""
-    for name, t, shape, dtype in (("x", x, tuple(x.shape), torch.bfloat16),
+    is contiguous with that shape and dtype (x: ``x_dtype``, any leading
+    shape)."""
+    for name, t, shape, dtype in (("x", x, tuple(x.shape), x_dtype),
                                   *operands):
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{kernel} {name} must be contiguous {dtype} "
@@ -343,14 +393,15 @@ def _check_mlp_operands(kernel: str, widths, x: torch.Tensor,
                         w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                         b2: torch.Tensor, gamma: torch.Tensor) -> None:
     """Raise unless the operands are what the GELU half-block kernels take:
-    D in ``widths``, hidden 4D, bf16 activations and weights, f32 LN
-    affine, all contiguous."""
+    D in ``widths``, hidden 4D, activations and weights bf16 (f32 for an
+    f32 chain, ``kernel`` ending in _f32), f32 LN affine, all contiguous."""
     d = x.shape[-1]
     if d not in widths:
         raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
-    bf16, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
+    dt = f32 if kernel.endswith("_f32") else torch.bfloat16
     _check_operands(kernel, x, (
         ("LN weight", ln_w, (d,), f32), ("LN bias", ln_b, (d,), f32),
-        ("fc1 weight", w1, (4 * d, d), bf16), ("fc1 bias", b1, (4 * d,), bf16),
-        ("fc2 weight", w2, (d, 4 * d), bf16), ("fc2 bias", b2, (d,), bf16),
-        ("gamma", gamma, (d,), bf16)))
+        ("fc1 weight", w1, (4 * d, d), dt), ("fc1 bias", b1, (4 * d,), dt),
+        ("fc2 weight", w2, (d, 4 * d), dt), ("fc2 bias", b2, (d,), dt),
+        ("gamma", gamma, (d,), dt)), dt)

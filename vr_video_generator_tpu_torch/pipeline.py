@@ -41,7 +41,6 @@ from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
 from vr_video_generator_tpu_torch.models.dpt import TAILS, resolve_tail
 from vr_video_generator_tpu_torch.models.factory import load_model
 from vr_video_generator_tpu_torch.ops.head_tail import takes_f32
-from vr_video_generator_tpu_torch.ops.mlp import resident
 from vr_video_generator_tpu_torch.ops.preprocess import network_input_size
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         stride_audit_stats,
@@ -95,14 +94,13 @@ def check_supported(run_cfg: RunConfig) -> None:
 def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     """``compute_dtype`` float32 on the card: raise ``not_ported`` where the
     plan the JAX package's planners make at f32 for this geometry (its
-    token count, ``attn_fusable``, the MLP half's fusion and its resident
-    or hidden-blocked kernel, the DPT tail) needs a kernel row that has no
-    f32 variant yet, naming the first: the fused MLP half (row 8 resident,
-    row 9 hidden-blocked, row 10 SwiGLU), then the tail (rows 11 and 12 for
-    the big-C tail, row 7 at a width other than vits' C = 64). Rows 1, 2,
-    5, 6, 7 at C = 64 and 17 have theirs, which covers vits ``auto`` and
-    ``--mlp_fused xla --tail xla`` at every encoder and token count. It
-    reads only the config, so it runs before any weight is built."""
+    token count, the MLP half's fusion and its kernel, the DPT tail) needs
+    a kernel row that has no f32 variant yet, naming the first: the fused
+    SwiGLU half (row 10: vitg ``auto`` and ``fused``), then a tail width no
+    f32 tail kernel takes (ops/head_tail.takes_f32). Rows 1, 2, 5-9, 11, 12
+    and 17 have theirs, and row 7 at every ext width, which covers every
+    plan of vits, vitb and vitl and ``--mlp_fused xla`` at every encoder.
+    It reads only the config, so it runs before any weight is built."""
     cfg = run_cfg.model()
     p, d = cfg.patch_size, cfg.embed_dim
     hn, wn = network_input_size(height, width, target=run_cfg.input_size,
@@ -112,22 +110,16 @@ def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     _, fuse_mlp = resolve_block_fusion(cfg.mlp_fused, d, cfg.num_heads,
                                        ph * pw + 1, "cuda", f32,
                                        cfg.ffn_layer)
-    if fuse_mlp:
-        if cfg.ffn_layer == "swiglufused":
-            row, half = 10, "the fused SwiGLU half"
-        elif resident(d, int(d * cfg.mlp_ratio), f32):
-            row, half = 8, "the weights-resident MLP half"
-        else:
-            row, half = 9, "the hidden-blocked MLP half"
+    if fuse_mlp and cfg.ffn_layer == "swiglufused":
         not_ported(f"compute_dtype='float32' on the card: encoder "
                    f"{run_cfg.encoder} with mlp_fused={cfg.mlp_fused!r} at "
-                   f"--input_size {run_cfg.input_size} runs {half} (row "
-                   f"{row}) at D={d}, which has no f32 kernel yet",
+                   f"--input_size {run_cfg.input_size} runs the fused SwiGLU "
+                   f"half (row 10) at D={d}, which has no f32 kernel yet",
                    "f32 on the card")
     batch = max(run_cfg.batch_size // run_cfg.depth_stride, 1)
     pre = (batch, 4 * ph, 4 * pw, cfg.features)
     choice = resolve_tail(run_cfg.tail, pre, f32, (hn, wn), "cuda")
-    if choice and not (choice == "ext" and takes_f32(cfg.features)):
+    if choice and not takes_f32(cfg.features):
         rows = "row 7" if choice == "ext" else "rows 11 and 12"
         not_ported(f"compute_dtype='float32' on the card: the {choice} DPT "
                    f"tail at C={cfg.features} (tail={run_cfg.tail!r}, "

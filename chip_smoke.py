@@ -106,17 +106,23 @@ Phases, each fatal on failure:
      its JSON line printed;
   8. f32 on the card (``--compute_dtype float32``): (a) the f32 kernels of
      rows 1 (at vits', vitl-728's and vitg-518's rows), 5 and 6 (D = 384
-     and vitb's 768), 2 (vits' shapes), 17 (vitl-728's), 8 (D = 128, 384)
-     and 9 (D = 768, 1024) stage by stage, 7 (C = 64 at vits', 128 at
-     vitb-252's, 256 and 384 at the 126 grid) and 11 + 12 (C = 64 at
+     and vitb's 768), 2 (vits' shapes and vitg-518's 24 heads), 17
+     (vitl-728's), 8 (D = 128, 384), 9 (D = 768, 1024) and 10 (vitg-518's
+     (19544, 1536), hidden 4096) stage by stage, 7 (C = 64 at vits', 128 at
+     vitb-252's, 256 and 384 at the 126 grid), 11 + 12 (C = 64 at
      vits-728's grid, 128 at vitb-518's, 256 at vitl-252's, 384 at
-     vitg-518's) stage by stage, against their plain versions with both
+     vitg-126's), 15 (C = 64, 128 on path1 at vits' grid) and 16 (C = 64,
+     128 on refinenet1's grid, each conv call alone) stage by stage,
+     against their plain versions with both
      TF32 flags off, each bound shown to refuse the TF32 result of the same
      operands, timed beside the plain version, one library call
      (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's convs, all f32) and the f32
      bound (67 TFLOP/s); the GELU of rows 8 and 9's f32 fc1 epilogue bit
      for bit against the eager f32 chain through a selection fc1 (every
-     bf16 value, a dense sweep, the flush near -5.7); with PyTorch's
+     bf16 value, a dense sweep, the flush near -5.7), and the silu of row
+     10's f32 gate epilogue against the plain f32 silu_mul through a
+     selection w12 (every bf16 value, a dense sweep past the overflow of
+     exp(-x1)); with PyTorch's
      default TF32 flags (cuDNN's on): (b) vits ``auto`` at f32 through
      ``process_segment`` (1 batch of 8): TF32 off inside the forward and
      restored after, exactly the f32 kernels a step (16, 12, 12, 12 and 1),
@@ -126,14 +132,22 @@ Phases, each fatal on failure:
      forward at most 2x the plain f32 path's error; (b') vitb-518 ``auto``
      at f32 at full width (12 blocks, B = 8) with the same checks, its
      launches (rows 1, 5, 2, 6, 9, 11 + 12, 3, 4: 4, 12, 12, 12, 12, 1, 1,
-     1) and its depth against f64 at most 1.25x the plain f32 path's; (c)
+     1) and its depth against f64 at most 1.25x the plain f32 path's;
+     (b'') vitg-518 ``auto`` at f32 at full width and depth (40 blocks, B =
+     8) with the same checks and ``step_many``: rows 1, 2, 10, 3, 4 (44,
+     40, 40, 1, 1 a step), its depth against f64 at most 1.25x the plain
+     f32 path's; (c'') vitg-126 ``fused`` at f32 on the same weights, one
+     batch: row 10 and rows 11 + 12 at C = 384; (c''') rows 15 and 16 at
+     f32 called as a user calls them at C = 64 and 128, exactly their
+     kernels; (c)
      vitl-518, vitg-518 and vitl-728 ``xla``/``xla`` at f32 (4 blocks,
      batch 2) through rows 1 and 2, or 1 and 17; (c') vits ``fused`` (row
      8), vitb-252 ``auto`` (row 7 at C = 128) and vitl-518 ``auto`` (4
      blocks, batch 2: row 9, the attention half and the tail unfused) at
      f32, one batch each, exactly their kernels; (d) ``cli.main
      --compute_dtype float32`` plainly, with ``--mesh 1x1``, with
-     ``--depth_stride 2`` and with ``--encoder vitb`` on a 1080p mp4; (e)
+     ``--depth_stride 2``, with ``--encoder vitb`` and with ``--encoder
+     vitg --input_size 126`` on a 1080p mp4; (e)
      ``bench --config 2`` and ``--config 3`` at ``--compute_dtype float32``
      once each, their lines printed.
 
@@ -148,8 +162,10 @@ shapes; the tanh variants of rows 8 and 9 at vitb-518's D = 768 and
 vitl-518's D = 1024, with the launches of phase 7's paths; the f32 kernels
 of phase 8 with the launches of its paths: row 1 at f32 three times, rows
 5 and 6 at f32 twice (D = 384, 768), row 9 at f32 twice (D = 768, 1024),
-row 7 at f32 twice (C = 64, 128), rows 11 + 12 at f32 at vitb's C = 128),
-and
+row 7 at f32 twice (C = 64, 128), rows 11 + 12 at f32 twice (vitb's C =
+128, vitg-126's 384), row 1 at f32 also at vitg-518's batch of 8, row 2 at
+f32 also at its 24 heads, row 10 at f32 once, rows 15 and 16 at f32 twice
+each (C = 64, 128)), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -2624,10 +2640,9 @@ def sharded_path(device, rng) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 8: f32 on the card.
 
-# The f32 variants of rows 1, 2, 5-9, 11, 12 and 17 (--compute_dtype
-# float32), with their sources and the TPU kernels they replace (rows 11
-# and 12 at f32 are one entry point, front and back: the row-11 body is
-# named).
+# The f32 variants of rows 1, 2, 5-12 and 15-17 (--compute_dtype float32),
+# with their sources and the TPU kernels they replace (rows 11 and 12 at
+# f32 are one entry point, front and back: the row-11 body is named).
 KERNELS_F32 = {
     "layernorm_f32": ("cuda", f"{PKG}/csrc/layernorm.cu",
                       f"{JAX_PKG}/ops/layernorm.py:33"),
@@ -2647,6 +2662,12 @@ KERNELS_F32 = {
                                   f"{JAX_PKG}/ops/mlp_pallas.py:38"),
     "head_tail_big_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                           f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
+    "swiglu_residual_f32": ("cuda", f"{PKG}/csrc/swiglu_f32.cu",
+                            f"{JAX_PKG}/ops/mlp_pallas.py:101"),
+    "head_tail_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
+                      f"{JAX_PKG}/ops/head_tail_pallas.py:90"),
+    "rcu_pair_f32": ("cuda", f"{PKG}/csrc/rcu_pair_f32.cu",
+                     f"{JAX_PKG}/attic/refinenet_pre.py:47"),
 }
 # The card's f32 rate outside the tensor cores (H100 SXM data sheet): the
 # f32 kernels' operations bound (wgmma takes no f32 operands).
@@ -2667,6 +2688,23 @@ AUTO_VITB_F32_STEP = {"layernorm_f32": 4, "ln_qkv_f32": 12,
                       "attention_f32": 12, "proj_ls_residual_f32": 12,
                       "mlp_residual_hblocked_f32": 12, "head_tail_big_f32": 1,
                       "warp_composite": 1, "blur_select_sbs": 1}
+# vitg-518 auto at f32 (1080p, B = 8, 40 blocks): the attention half
+# unfused (D = 1536 is not attn_fusable: LayerNorm, cuBLAS qkv and proj,
+# the one-shot attention at 2443 tokens), the SwiGLU half on row 10 at f32,
+# the tail unfused (no f32 plan fits: cuDNN); LayerNorm at norm1 of each
+# block and the four taps.
+AUTO_VITG_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
+                      "swiglu_residual_f32": 40, "warp_composite": 1,
+                      "blur_select_sbs": 1}
+# vitg-126 fused at f32 (1080p, B = 8, 40 blocks, 145 tokens): the same
+# encoder kernels, and the big-C tail at C = 384 at f32 (rows 11 + 12).
+VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
+                     "swiglu_residual_f32": 40, "head_tail_big_f32": 1,
+                     "warp_composite": 1, "blur_select_sbs": 1}
+# Rows 15 and 16 at f32 called as a user calls them, one width at a time
+# (vits' C = 64, vitb's 128): the single-kernel tail on path1, and the RCU
+# pair feeding the ext tail.
+OFF_CLI_F32 = ("head_tail_f32", "rcu_pair_f32", "head_tail_ext_f32")
 # The other fused f32 paths of phase 8 (c), one batch each: (label, encoder,
 # --input_size, mlp_fused = tail, blocks (None: all), batch, one step's
 # launches). vits fused runs row 8 at f32 (4.7 MB of f32 weights, resident)
@@ -2689,10 +2727,11 @@ F32_FUSED_PATHS = (
       "blur_select_sbs": 1}))
 # The f32 tails held in phase 8 (a): (C, grid, depth size) of the path that
 # runs each. Rows 11 and 12: vits-728 (C = 64), vitb-518 (128), vitl-252
-# (256), vitg-518's grid (384; vitg's f32 path waits for row 10). Row 7:
-# vits-518 (64), vitb-252 (128), vitl-126 (256), vitg-126 (384).
+# (256), vitg-126 (384). Row 7: vits-518 (64), vitb-252 (128), vitl-126
+# (256), and C = 384 at the 126 grid (vitg's f32 plans take the big-C tail
+# there and at 252, row 7 only at small inputs such as 56).
 BIG_F32_SHAPES = ((64, GRID_L728, OUT_HW_L728), (128, (H0, W0), OUT_HW),
-                  (256, *EXT_WIDE[256]), (384, (H0, W0), OUT_HW))
+                  (256, *EXT_WIDE[256]), (384, *EXT_WIDE[384]))
 EXT_F32_SHAPES = ((64, (H0, W0), OUT_HW), (128, *EXT_WIDE[256]),
                   (256, *EXT_WIDE[384]), (384, *EXT_WIDE[384]))
 # --mlp_fused xla --tail xla at f32: LayerNorm twice a block and at the four
@@ -3077,6 +3116,268 @@ def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
     return res
 
 
+def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
+    """Row 10 at f32 at vitg-518's (m, 1536) rows, hidden 4096, stage by
+    stage, each stage on the chain's own input: the LN rows within the f32
+    bound of the plain LayerNorm; the gate (+ b12, silu(x1) * x2), its scale
+    taking in |x1 x2|, and the down product (+ b3, LayerScale, residual) by
+    the dense f32 bound; the whole output against swiglu_residual_plain.
+    Each bound refuses the same function with the weights rounded to TF32.
+    Timed beside the plain version and cuBLAS's two f32 products (addmm,
+    TF32 off), with the f32 bound."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+    from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    d, hid = DIM_G, HID_G
+    x = randn(gen, (B, m // B, d))
+    args = (x, randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1),
+            randn(gen, (2 * hid, d), d ** -0.5), randn(gen, (2 * hid,), 0.5),
+            randn(gen, (d, hid), hid ** -0.5), randn(gen, (d,), 0.5),
+            randn(gen, (d,), 0.1, 1.0))
+    _, lnw, lnb, w12, b12, w3, b3, gamma = args
+    tf_args = (*args[:3], tf32_round(w12), b12, tf32_round(w3), *args[6:])
+    h, g, got = mlp.swiglu_residual_stages(*args)
+    torch.cuda.synchronize()
+    label = f"swiglu_residual_f32 D={d}"
+    st = {}
+    u = f32_ulps(h, layernorm_plain(x, lnw, lnb).reshape(m, d), 1, lnb)
+    st["ln"] = dict(max_ulps=u.max().item())
+    require(st["ln"]["max_ulps"] <= F32_MAX_ULPS,
+            f"{label} LN stage: {st['ln']} over {F32_MAX_ULPS} f32 ulps")
+    t = torch.addmm(b12, h, w12.t())
+    scale = (t[:, :hid] * t[:, hid:]).abs()
+    del t
+    st["gate"] = f32_dense_check(
+        f"{label} gate + silu", g, mlp.swiglu_gate_plain(h, w12, b12),
+        mlp.swiglu_gate_plain(h, tf32_round(w12), b12), 1, scale)
+    del scale
+    x2 = x.reshape(m, d)
+    st["down_residual"] = f32_dense_check(
+        f"{label} down + residual", got.reshape(m, d),
+        mlp.fc2_residual_plain(g, w3, b3, gamma, x2),
+        mlp.fc2_residual_plain(g, tf32_round(w3), b3, gamma, x2), 1, x2,
+        gamma * b3)
+    want = mlp.swiglu_residual_plain(*args)
+    stats = f32_dense_check(label, got, want,
+                            mlp.swiglu_residual_plain(*tf_args), 1, x,
+                            gamma * b3)
+    del got, want
+    log(f"{label} stages: {json.dumps(st)}")
+    gate, down = 2 * m * d * 2 * hid, 2 * m * hid * d
+    res = dict(**stats, stages=st,
+               ms=event_ms(lambda: mlp.swiglu_residual(*args)),
+               plain_ms=event_ms(lambda: mlp.swiglu_residual_plain(*args)),
+               library_ms=event_ms(lambda: (torch.addmm(b12, h, w12.t()),
+                                            torch.addmm(b3, g, w3.t()))),
+               **bound_f32(nbytes(*args) + 4 * m * d, gate + down))
+    del h, g
+    log(f"kernel {label}: {json.dumps(res)}")
+    return res
+
+
+def check_silu_f32(device) -> dict:
+    """The silu of row 10's f32 gate epilogue (sgemm::silu_mul_f32) bit for
+    bit against the plain f32 silu_mul on the card, through a selection w12
+    (swiglu_gate_kernel with h (rows, 256) = [x1 values | x2 values], x1's
+    row c picking h's column c mod 128 and x2's row c column 128 + c mod
+    128, b12 = 0; or x2's rows zero and its bias 1: every sum is one exact
+    product): every finite bf16 value as f32, 2^20 values spaced evenly
+    over [-110, 40] (past x1 = -87.3 the logistic is subnormal, past -88.7
+    exp(-x1) overflows and it is 0), x2 = 1 or seeded. Equal as numbers
+    (+0 and -0 alike: the bias add turns x1 = -0 into +0), NaN nowhere; a
+    difference is logged with its values and ulps before the check fails."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    f32 = torch.float32
+    bf = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16).to(f32)
+    vals = torch.cat([bf[torch.isfinite(bf)],
+                      torch.linspace(-110.0, 40.0, 2 ** 20, device=device)])
+    vals = torch.cat([vals, torch.zeros((-len(vals)) % 128, device=device)])
+    x1 = vals.reshape(-1, 128)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1010)
+    hid = 512
+    eye = torch.eye(128, device=device).repeat(4, 1)
+    zero = torch.zeros_like(eye)
+    out = {}
+    for label, x2, w2, b2 in (
+            ("x2 = 1", torch.ones_like(x1), zero, 1.0),
+            ("seeded x2", randn(gen, x1.shape, 3.0), eye, 0.0)):
+        h = torch.cat([x1, x2], dim=1).contiguous()
+        w12 = torch.cat([torch.cat([eye, zero], dim=1),
+                         torch.cat([zero, w2], dim=1)]).contiguous()
+        b12 = torch.cat([torch.zeros(hid, device=device),
+                         torch.full((hid,), b2, device=device)])
+        got = mlp.swiglu_gate_kernel(h, w12, b12)
+        want = mlp.silu_mul(x1, x2).repeat(1, 4)
+        torch.cuda.synchronize()
+        bad = got != want
+        res = dict(values=x1.numel(), differ=int(bad.sum()),
+                   nan=int(torch.isnan(got).sum()),
+                   zero=int((got == 0).sum()))
+        if res["differ"]:
+            a = x1.repeat(1, 4)[bad]
+            size = torch.maximum(got[bad].abs(), want[bad].abs()).double()
+            ulp = torch.exp2(torch.floor(torch.log2(size.clamp_min(
+                2.0 ** -126))) - 23)
+            res["max_ulps"] = ((got[bad].double() - want[bad].double()).abs()
+                               / ulp).max().item()
+            res["first_x1"] = a[:16].tolist()
+        out[label] = res
+        require(res["differ"] == 0 and res["nan"] == 0,
+                f"silu_f32, {label}: the gate epilogue's silu differs from "
+                f"the plain f32 silu_mul: {json.dumps(res)}")
+    log(f"silu_f32 (row 10's gate epilogue through a selection w12): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def f32_base_tail_check(gen, c: int) -> dict:
+    """Row 15 at f32 (vrvg_head_tail_f32), C = c, on path1 at vits' 1080p/518
+    grid (B = 8, 296 x 528, an NCHW tensor seen as NHWC), depth 518 x 924,
+    stage by stage, each on the chain's own input: conv1 + b1 by the dense
+    f32 bound (refusing cuDNN's TF32 conv1), the resize pass in f32 ulps,
+    conv2 with the 1x1 relative to the depth's range, the whole depth
+    against head_tail_plain (refusing it with TF32); the library time is
+    cuDNN's two f32 convs (conv1 with its bias, conv2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    h2, w2, c2 = 2 * H0, 2 * W0, c // 2
+    h1, w1 = OUT_HW
+    x = randn(gen, (B, c, h2, w2)).permute(0, 2, 3, 1)
+    wts = f32_tail_weights(gen, c)[2:]
+    k1, b1, k2, b2, k3, b3 = wts
+    label = f"head_tail_f32 C={c}"
+    got = ht.head_tail_stages(x, *wts, OUT_HW)
+    c1 = ht.base_conv1_plain(x, k1, b1)
+    with tf32(True):
+        tf_c1 = ht.base_conv1_plain(x, k1, b1)
+    stages = dict(conv1=f32_dense_check(f"{label} conv1", got[0], c1, tf_c1,
+                                        1, b1))
+    del c1, tf_c1
+    r = ht.ext_resize_plain(got[0], OUT_HW)
+    stages["resize"] = dict(max_ulps=f32_ulps(got[1], r, 1).max().item())
+    require(stages["resize"]["max_ulps"] <= F32_MAX_ULPS,
+            f"{label} resize: {stages['resize']} over {F32_MAX_ULPS} f32 "
+            f"ulps")
+    del r
+    depth = ht.big_conv2_plain(got[1], k2, b2, k3, b3)
+    want = ht.head_tail_plain(x, *wts, OUT_HW)
+    with tf32(True):
+        tfw = ht.head_tail_plain(x, *wts, OUT_HW)
+    torch.cuda.synchronize()
+    span = (want.max() - want.min()).item()
+    stages["conv2"] = dict(max_rel_err=(got[2] - depth).abs().max().item()
+                           / span)
+    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2: {stages['conv2']}")
+    del depth
+    xc = x.permute(0, 3, 1, 2)
+    rc = got[1].permute(0, 3, 1, 2)
+    flops = 2 * B * (h2 * w2 * c2 * 9 * c + h1 * w1 * 32 * 9 * c2)
+    res = f32_tail_result(
+        label, got[2], want, tfw, stages,
+        lambda: ht.head_tail(x, *wts, OUT_HW),
+        lambda: ht.head_tail_plain(x, *wts, OUT_HW),
+        lambda: (F.conv2d(xc, k1, b1, padding=1),
+                 F.conv2d(rc, k2, b2, padding=1)),
+        nbytes(x, *wts, got[2]), flops)
+    del got, rc
+    log(f"kernel {label}: {json.dumps(res)}")
+    return res
+
+
+def f32_rcu_inputs(gen, c):
+    """rn0 and path2 on refinenet1's 1080p/518 grid (NCHW seen as NHWC) and
+    the four convs' weights and biases, f32 (rcu_inputs' shapes and
+    scales, drawn in f32: bf16 values would be exact in TF32 too)."""
+    rn0, path2 = (randn(gen, (B, c, H0, W0)).permute(0, 2, 3, 1)
+                  for _ in range(2))
+    ws = []
+    for _ in range(4):
+        ws += [randn(gen, (c, c, 3, 3), (9 * c) ** -0.5),
+               randn(gen, (c,), 0.1)]
+    return rn0, path2, ws
+
+
+def f32_rcu_check(gen, c: int) -> dict:
+    """Row 16 at f32 (vrvg_rcu_conv_f32), C = c, on refinenet1's 1080p/518
+    grid: each of the four conv calls alone, on the plain chain's own input
+    and residuals, by the dense f32 bound (refusing the same conv by
+    cuDNN's TF32), conv2a's ReLU'd copy bit for bit the ReLU of its output;
+    the chain against refinenet_pre_plain (refusing it with TF32); timed
+    beside the plain chain and cuDNN's four f32 convs. A conv's f32 ulps are
+    of a scale that takes in the sum of its terms' magnitudes (the sums'
+    order is all that differs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        rcu_chain, rcu_conv, rcu_conv_plain, refinenet_pre,
+        refinenet_pre_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    rn0, path2, ws = f32_rcu_inputs(gen, c)
+    label = f"rcu_pair_f32 C={c}"
+    steps = []
+
+    def record(*args, **kw):
+        steps.append((args, kw))
+        return rcu_conv_plain(*args, **kw)
+
+    rcu_chain(record, rn0, path2, *ws)
+    convs = []
+    for i, (args, kw) in enumerate(steps):
+        got_i, want_i = rcu_conv(*args, **kw), rcu_conv_plain(*args, **kw)
+        with tf32(True):
+            tf_i = rcu_conv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if kw.get("relu_copy"):
+            require_equal(f"{label} conv {i} ReLU copy", got_i[1],
+                          F.relu(got_i[0]))
+            got_i, want_i, tf_i = got_i[0], want_i[0], tf_i[0]
+        # The scale takes in the sum of the conv's terms' magnitudes: its
+        # input is ReLU'd (non-negative), so a channel whose weights sum
+        # negative is mostly 0 after its own ReLU, its RMS far below the
+        # sums that cancel in its few positive outputs.
+        x, k, b = args[:3]
+        mag = F.conv2d((F.relu(x) if args[3] else x).abs().permute(0, 3, 1, 2),
+                       k.abs(), padding=1).permute(0, 2, 3, 1)
+        res = args[4] if len(args) > 4 else ()
+        convs.append(f32_dense_check(f"{label} conv {i}", got_i, want_i, tf_i,
+                                     1, b, mag, *res))
+        del got_i, want_i, tf_i, mag
+    got = refinenet_pre(rn0, path2, *ws)
+    want = refinenet_pre_plain(rn0, path2, *ws)
+    with tf32(True):
+        tfw = refinenet_pre_plain(rn0, path2, *ws)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape == rn0.shape, f"{label} shape {got.shape}")
+    stats = f32_dense_check(label, got, want, tfw, 1, rn0, path2)
+    del want, tfw
+    stats["conv_max_ulps"] = max(cv["max_ulps"] for cv in convs)
+    log(f"{label} convs: {json.dumps(convs)}")
+    x = rn0.permute(0, 3, 1, 2)
+    out = dict(**stats, convs=convs,
+               ms=event_ms(lambda: refinenet_pre(rn0, path2, *ws)),
+               plain_ms=event_ms(lambda: refinenet_pre_plain(rn0, path2, *ws)),
+               library_ms=event_ms(lambda: [
+                   F.conv2d(x, ws[2 * i], ws[2 * i + 1], padding=1)
+                   for i in range(4)]),
+               **bound_f32(nbytes(rn0, path2, *ws, got),
+                           4 * 2 * B * H0 * W0 * 9 * c * c))
+    log(f"kernel {label}: {json.dumps(out)}")
+    return out
+
+
 def f32_kernel_parity(device) -> dict:
     """Phase 8 (a): each f32 kernel against its plain version at its path's
     shapes, TF32 off, with the TF32 result of the same operands refused by
@@ -3100,16 +3401,19 @@ def f32_kernel_parity(device) -> dict:
     scale = 64 ** -0.5
 
     # Row 1 at vits' rows, vitl-728's and vitg-518's (at phase 8's batch
-    # of 2); TF32 here is the input rounded to 10 mantissa bits.
+    # of 2, and at vitg-518 auto's batch of 8); TF32 here is the input
+    # rounded to 10 mantissa bits.
     for rows, d in ((B * N_TOK, DIM), (F32_CUT_BATCH * N_L728, DIM_L),
-                    (F32_CUT_BATCH * N_TOK, DIM_G)):
+                    (F32_CUT_BATCH * N_TOK, DIM_G), (B * N_TOK, DIM_G)):
         x = randn(gen, (rows, d), 3.0, 1.0)
         w, b = randn(gen, (d,)), randn(gen, (d,))
         got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
         tfw = layernorm_plain(tf32_round(x), w, b)
         torch.cuda.synchronize()
         stats = f32_dense_check(f"layernorm_f32 D={d}", got, want, tfw, 1, b)
-        out[f"layernorm_f32 D={d}"] = dict(
+        key = f"layernorm_f32 D={d}" + (f" M={rows}" if rows == B * N_TOK
+                                        and d == DIM_G else "")
+        out[key] = dict(
             **stats, ms=event_ms(lambda: layernorm(x, w, b)),
             plain_ms=event_ms(lambda: layernorm_plain(x, w, b)),
             library_ms=event_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6)),
@@ -3159,10 +3463,11 @@ def f32_kernel_parity(device) -> dict:
             **bound_f32(nbytes(*args, got), 2 * m * d * d))
         del o, x, got, want, tfw, o2
 
-    # Rows 2 (vits: B = 8, N = 2443, 6 heads; q pre-scaled) and 17
-    # (vitl-728: B = 2, N = 4785, 16 heads; q unscaled) on peaked q/k/v, k
-    # and v strided views into one qkv.
+    # Rows 2 (vits: B = 8, N = 2443, 6 heads; vitg-518: 24 heads; q
+    # pre-scaled) and 17 (vitl-728: B = 2, N = 4785, 16 heads; q unscaled)
+    # on peaked q/k/v, k and v strided views into one qkv.
     for name, bsz, n, heads in (("attention_f32", B, N_TOK, HEADS),
+                                ("attention_f32", B, N_TOK, HEADS_G),
                                 ("flash_attention_f32", B_L728, N_L728,
                                  HEADS_L)):
         qkv = randn(gen, (bsz, n, 3, heads, 64))
@@ -3172,11 +3477,13 @@ def f32_kernel_parity(device) -> dict:
         k, v = qkv[:, :, 1], qkv[:, :, 2]
         if name == "attention_f32":
             q = (qkv[:, :, 0] * scale).contiguous()
+            key = name + ("" if heads == HEADS else f" H={heads}")
             fn, plain, args, s = attention, attention_plain, (q, k, v), 1.0
         else:
             q = qkv[:, :, 0]
             fn, plain = flash_attention, flash_attention_plain
             args, s = (q, k, v, scale), scale
+            key = name
         got, want = fn(*args), plain(*args)
         with tf32(True):
             tfw = plain(*args)
@@ -3185,7 +3492,7 @@ def f32_kernel_parity(device) -> dict:
                               tfw, ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL)
         del want, tfw
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        out[name] = dict(
+        out[key] = dict(
             **stats, ms=event_ms(lambda: fn(*args)),
             plain_ms=event_ms(lambda: plain(*args)),
             library_ms=event_ms(lambda: F.scaled_dot_product_attention(
@@ -3200,6 +3507,10 @@ def f32_kernel_parity(device) -> dict:
         out[f"{name} D={d}"] = f32_mlp_check(gen, row, d)
         torch.cuda.empty_cache()
     out["gelu_f32"] = check_gelu_f32(device)
+    # Row 10 at vitg-518's rows, and its gate epilogue's silu.
+    out[f"swiglu_residual_f32 D={DIM_G}"] = f32_swiglu_check(gen)
+    torch.cuda.empty_cache()
+    out["silu_f32"] = check_silu_f32(device)
 
     # Row 7 at every width, stage by stage, at the grid of the path that
     # runs it; rows 11 and 12 the same way.
@@ -3210,6 +3521,12 @@ def f32_kernel_parity(device) -> dict:
     for c, grid, out_hw in BIG_F32_SHAPES:
         out[f"head_tail_big_f32 C={c}"] = f32_big_tail_check(gen, c, grid,
                                                              out_hw)
+        torch.cuda.empty_cache()
+    # Rows 15 and 16 at vits' and vitb's widths.
+    for c in (FEATURES, FEATURES_B):
+        out[f"head_tail_f32 C={c}"] = f32_base_tail_check(gen, c)
+        torch.cuda.empty_cache()
+        out[f"rcu_pair_f32 C={c}"] = f32_rcu_check(gen, c)
         torch.cuda.empty_cache()
     for name, res in out.items():
         log(f"kernel {name}: {json.dumps(res)}")
@@ -3229,7 +3546,9 @@ class NoPlainF32:
              ("ops.head_tail", "head_tail_big_plain"),
              ("ops.head_tail", "big_upsample_plain"),
              ("ops.mlp", "mlp_residual_plain"),
-             ("ops.mlp", "fc1_gelu_plain"))
+             ("ops.mlp", "fc1_gelu_plain"),
+             ("ops.mlp", "swiglu_residual_plain"),
+             ("ops.mlp", "swiglu_gate_plain"))
 
     def __enter__(self):
         import importlib
@@ -3389,27 +3708,7 @@ def f32_vits_auto(device, frames) -> dict:
     label = "vits auto/auto f32"
     stats, pipe, sd, cfg = f32_auto_path(device, frames, label, "vits",
                                          AUTO_VITS_F32_STEP)
-
-    # step_many (k = 2) as a CUDA graph against two eager steps.
-    batches = torch.from_numpy(frames[:2 * B].reshape(2, B, H, W, 3)).to(
-        device)
-    state0 = pipe.initial_state()
-    eager, st = [], state0
-    for batch in batches:
-        sbs, st = pipe.step(batch, st)
-        eager.append(sbs)
-    graph_out, st_g = pipe.step_many(batches, state0)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, e) for g, e in zip(graph_out, eager))
-            and states_equal(st_g, st),
-            f"{label}: step_many's graph differs from two eager steps")
-    per_replay = dict(pipe._graphs[(2, B)].launches)
-    require(per_replay == {k: 2 * v for k, v in AUTO_VITS_F32_STEP.items()},
-            f"{label}: a replay launches {per_replay}")
-    log(f"{label}: step_many (k = 2) as a CUDA graph equal to two eager "
-        f"steps bit for bit; launches per replay {json.dumps(per_replay)}")
-    del batches, eager, graph_out, st, st_g, state0
-
+    per_replay = step_many_check(label, pipe, frames, AUTO_VITS_F32_STEP)
     depth = f64_depth(label, pipe, sd, cfg, frames, F32_DEPTH_FACTOR)
     stats.update(depth=depth, launches_per_replay=per_replay)
     del pipe, sd
@@ -3535,11 +3834,140 @@ def f32_fused_paths(device, frames) -> dict:
     return out
 
 
+def step_many_check(label, pipe, frames, step) -> dict:
+    """``step_many`` (k = 2) as a CUDA graph bit for bit equal to two eager
+    steps on two batches of ``frames``, its replay launching twice ``step``.
+    Returns the launches per replay."""
+    import torch
+
+    batches = torch.from_numpy(frames[:2 * B].reshape(2, B, H, W, 3)).to(
+        pipe.device)
+    state0 = pipe.initial_state()
+    eager, st = [], state0
+    for batch in batches:
+        sbs, st = pipe.step(batch, st)
+        eager.append(sbs)
+    graph_out, st_g = pipe.step_many(batches, state0)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, e) for g, e in zip(graph_out, eager))
+            and states_equal(st_g, st),
+            f"{label}: step_many's graph differs from two eager steps")
+    per_replay = dict(pipe._graphs[(2, B)].launches)
+    require(per_replay == {k: 2 * v for k, v in step.items()},
+            f"{label}: a replay launches {per_replay}")
+    log(f"{label}: step_many (k = 2) as a CUDA graph equal to two eager "
+        f"steps bit for bit; launches per replay {json.dumps(per_replay)}")
+    return per_replay
+
+
+def f32_vitg_auto(device, frames) -> dict:
+    """Phase 8 (b''): the slice's path, vitg-518 ``auto`` at f32 at full width
+    and depth (40 blocks, D = 1536, 1080p, B = 8; f32_auto_path): exactly
+    the f32 kernels a step (AUTO_VITG_F32_STEP: rows 1, 2, 10, 3, 4);
+    step_many (k = 2) bit for bit equal to two steps; the depth on two
+    frames against a plain f64 forward within F32_DEPTH_FACTOR_VITB times
+    the plain f32 path's error. Then (c'') vitg-126 ``fused`` at f32 on the
+    same weights, one batch through process_segment: exactly
+    VITG_126_F32_STEP (row 10 and rows 11 + 12 at C = 384), none of the
+    plain versions, the right half the input, and the depth within 1e-3 of
+    its range of the plain f32 path's on average."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.factory import build_model
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    label = "vitg-518 auto/auto f32"
+    stats, pipe, sd, cfg = f32_auto_path(device, frames, label, "vitg",
+                                         AUTO_VITG_F32_STEP)
+    stats["launches_per_replay"] = step_many_check(label, pipe, frames,
+                                                   AUTO_VITG_F32_STEP)
+    stats["depth"] = f64_depth(label, pipe, sd, cfg, frames,
+                               F32_DEPTH_FACTOR_VITB)
+    del pipe
+    torch.cuda.empty_cache()
+
+    label = "vitg-126 fused/fused f32"
+    cfg = run_config("vitg", "fused", "fused", input_size=126,
+                     dtype="float32")
+    model = build_model(cfg.model(), sd, torch.float32, device, tail="fused")
+    del sd
+    pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+    with NoPlainF32():
+        st = one_batch(label, pipe, frames, tuple(VITG_126_F32_STEP))
+    per_step = {k: v for k, v in st["launches"].items() if v}
+    require(per_step == VITG_126_F32_STEP,
+            f"{label}: one step launched {per_step}, expected "
+            f"{VITG_126_F32_STEP}")
+    x = pipe.frames_to_device(frames[:B])
+    d_kernel = pipe.depth_only(x)
+    with PlainKernels():
+        d_plain = pipe.depth_only(x)
+    span = float(d_plain.max() - d_plain.min())
+    mean = float((d_kernel - d_plain).abs().mean())
+    require(bool(torch.isfinite(d_kernel).all()) and span > 0
+            and mean <= 1e-3 * span,
+            f"{label}: depth off the plain f32 path by {mean} on average "
+            f"(range {span})")
+    st.update(depth_vs_plain_mean=mean, depth_range=span)
+    log(f"{label}: depth against the plain f32 path: mean {mean}, range "
+        f"{span}")
+    stats["vitg-126"] = st
+    del model, pipe, x, d_kernel, d_plain
+    torch.cuda.empty_cache()
+    return stats
+
+
+def f32_off_cli(device) -> dict:
+    """Phase 8 (c'''): rows 15 and 16 at f32 called as a user calls them, at
+    vits' C = 64 and vitb's C = 128, with the launch counts reset just
+    before and read just after each width: the single-kernel tail on f32
+    path1 (an NCHW tensor seen as NHWC) at vits' 1080p/518 grid, and the RCU
+    pair feeding the ext tail on refinenet1's grid. Exactly OFF_CLI_F32
+    must launch, the tail and the ext tail once, the RCU conv four times;
+    the depths finite."""
+    import torch
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                             head_tail_ext)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1516)
+    out = {}
+    for c in (FEATURES, FEATURES_B):
+        label = f"off-CLI f32 entry points C={c}"
+        path1 = randn(gen, (B, c, 2 * H0, 2 * W0)).permute(0, 2, 3, 1)
+        tail = f32_tail_weights(gen, c)
+        rn0, path2, ws = f32_rcu_inputs(gen, c)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        depth = head_tail(path1, *tail[2:], OUT_HW)
+        depth2 = head_tail_ext(refinenet_pre(rn0, path2, *ws), *tail, OUT_HW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        log(f"{label}: {secs:.4f} s; launch counts {json.dumps(counts)}")
+        launched_exactly(label, counts, OFF_CLI_F32)
+        require(counts["head_tail_f32"] == 1 and counts["rcu_pair_f32"] == 4
+                and counts["head_tail_ext_f32"] == 1,
+                f"{label}: launches {counts}")
+        require(bool(torch.isfinite(depth).all() & torch.isfinite(depth2).all())
+                and depth.shape == depth2.shape == (B, *OUT_HW),
+                f"{label}: depth {tuple(depth.shape)} {tuple(depth2.shape)}")
+        out[f"C={c}"] = dict(seconds=secs, launches=counts)
+        del path1, rn0, path2, ws, depth, depth2
+        torch.cuda.empty_cache()
+    return out
+
+
 def f32_cli(device) -> dict:
     """Phase 8 (d): ``cli.main --compute_dtype float32`` on a 1080p mp4 of 16
     smooth frames (cv2): plainly, with ``--mesh 1x1``, with
-    ``--depth_stride 2`` and with ``--encoder vitb`` (the slice's path: row
-    9 and the big-C tail at f32); each writes subclips 0_7 and 8_15 whose right
+    ``--depth_stride 2``, with ``--encoder vitb`` (row 9 and the big-C tail
+    at f32) and with ``--encoder vitg --input_size 126`` (row 10 and the
+    big-C tail at C = 384 at f32); each writes subclips 0_7 and 8_15 whose right
     half is the input up to the codec (mean |difference| at most 4 of 255
     against the decoded input: mp4v encodes the SBS again; measured 2.2 on
     an NVIDIA H100 80GB HBM3, 700.00 W), and the mesh run's decoded
@@ -3575,7 +4003,9 @@ def f32_cli(device) -> dict:
         runs = {}
         for tag, extra in (("plain", []), ("mesh", ["--mesh", "1x1"]),
                            ("stride", ["--depth_stride", "2"]),
-                           ("vitb", ["--encoder", "vitb"])):
+                           ("vitb", ["--encoder", "vitb"]),
+                           ("vitg", ["--encoder", "vitg", "--input_size",
+                                     "126"])):
             sub = os.path.join(d, f"S_{tag}") + os.sep
             argv = ["--device", device.type, "--VideoDir", video,
                     "--OutputDir", os.path.join(d, f"{tag}.mkv"),
@@ -3609,7 +4039,8 @@ def f32_cli(device) -> dict:
                 "cli f32 --mesh 1x1: subclips differ from the run without "
                 "--mesh")
     log(f"cli --compute_dtype float32 (plain, --mesh 1x1, --depth_stride 2, "
-        f"--encoder vitb) on a 16-frame 1080p mp4: {json.dumps(out)}")
+        f"--encoder vitb, --encoder vitg --input_size 126) on a 16-frame "
+        f"1080p mp4: {json.dumps(out)}")
     return out
 
 
@@ -3634,6 +4065,14 @@ def f32_path(device, rng) -> dict:
         out["vitb_auto"] = f32_vitb_auto(device, frames)
         log(f"phase 8 (b') vitb-518 auto f32: {time.perf_counter() - t0:.1f} "
             f"s")
+        t0 = time.perf_counter()
+        out["vitg_auto"] = f32_vitg_auto(device, frames)
+        log(f"phase 8 (b'', c'') vitg-518 auto, vitg-126 fused f32: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["off_cli"] = f32_off_cli(device)
+        log(f"phase 8 (c''') rows 15 and 16 at f32: "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         out["xla"] = f32_xla_paths(device, frames)
         log(f"phase 8 (c) vitl/vitg xla f32: {time.perf_counter() - t0:.1f} s")
@@ -3739,8 +4178,9 @@ def main() -> int:
     paths["phase 7"] = phase7
     t0 = time.perf_counter()
     phase8 = f32_path(device, rng)
-    log(f"phase 8 (f32 on the card: kernel parity, vits auto, vitl/vitg "
-        f"xla, cli, bench): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 (f32 on the card: kernel parity, vits, vitb and vitg "
+        f"auto, rows 15 and 16, vitl/vitg xla, cli, bench): "
+        f"{time.perf_counter() - t0:.1f} s")
     paths["phase 8"] = phase8
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
@@ -3833,6 +4273,26 @@ def main() -> int:
                 ("head_tail_ext_f32", f32k[f"head_tail_ext_f32 C={FEATURES_B}"],
                  fused32["vitb-252 auto/auto f32"]["launches"][
                      "head_tail_ext_f32"])]
+    # The f32 kernels of vitg's f32 path with its launches: vitg-518 auto
+    # (row 1 at its rows, row 2 at 24 heads, row 10) and vitg-126 fused
+    # (rows 11 + 12 at C = 384); rows 15 and 16 at f32 with the launches of
+    # their off-CLI calls at C = 64 and 128.
+    g32 = phase8["vitg_auto"]["launches"]
+    g126 = phase8["vitg_auto"]["vitg-126"]["launches"]
+    off32 = phase8["off_cli"]
+    entries += [("layernorm_f32",
+                 f32k[f"layernorm_f32 D={DIM_G} M={B * N_TOK}"],
+                 g32["layernorm_f32"]),
+                ("attention_f32", f32k[f"attention_f32 H={HEADS_G}"],
+                 g32["attention_f32"]),
+                ("swiglu_residual_f32", f32k[f"swiglu_residual_f32 D={DIM_G}"],
+                 g32["swiglu_residual_f32"]),
+                ("head_tail_big_f32", f32k[f"head_tail_big_f32 C={FEATURES_G}"],
+                 g126["head_tail_big_f32"])]
+    entries += [(name, f32k[f"{name} C={c}"],
+                 off32[f"C={c}"]["launches"][name])
+                for c in (FEATURES, FEATURES_B)
+                for name in ("head_tail_f32", "rcu_pair_f32")]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,

@@ -829,25 +829,32 @@ def test_step_enqueues_without_host_sync(cuda, fused):
 
 
 def test_cli_f32_on_the_card_raises(cuda, tmp_path):
-    """--compute_dtype float32 with --device cuda (the default) raises
-    not_ported("f32 on the card") before any weight is built where the f32
-    plan needs a kernel with no f32 variant yet: vitg fused runs the fused
-    SwiGLU half (row 10)."""
+    """--compute_dtype float32 with --device cuda (the default) runs vitg
+    fused on the card (row 10's f32 chain and the f32 tail): the CLI
+    converts a small clip, its subclips double width with the right half
+    the input up to the codec. Nothing raises where before the fused
+    SwiGLU half had no f32 kernel."""
     cv2 = pytest.importorskip("cv2")
     from vr_video_generator_tpu_torch.cli import main
 
     src = str(tmp_path / "in.mp4")
     w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
-    for _ in range(4):
-        w.write(np.zeros((48, 64, 3), np.uint8))
+    for i in range(4):
+        w.write(np.full((48, 64, 3), 40 * i, np.uint8))
     w.release()
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
-        main(["--VideoDir", src, "--OutputDir", str(tmp_path / "out.mkv"),
-              "--DebugDir", str(tmp_path / "D") + "/",
-              "--SubClipDir", str(tmp_path / "S") + "/",
-              "--input_size", "56", "--compute_dtype", "float32",
-              "--encoder", "vitg", "--mlp_fused", "fused",
-              "--allow_random_weights"])
+    sub = tmp_path / "S"
+    assert main(["--VideoDir", src, "--OutputDir", str(tmp_path / "out.mkv"),
+                 "--DebugDir", str(tmp_path / "D") + "/",
+                 "--SubClipDir", str(sub) + "/", "--batch_size", "2",
+                 "--input_size", "56", "--compute_dtype", "float32",
+                 "--encoder", "vitg", "--mlp_fused", "fused",
+                 "--allow_random_weights"]) == 0
+    clips = sorted(p.name for p in sub.iterdir())
+    assert clips and all(c.endswith(".mp4") for c in clips)
+    cap = cv2.VideoCapture(str(sub / clips[0]))
+    ok, frame = cap.read()
+    cap.release()
+    assert ok and frame.shape == (48, 128, 3)
 
 
 def _graph_pipe(cuda, mlp_fused="auto", h=150, w=96, batch=2, chunk=1,
@@ -1596,6 +1603,132 @@ def test_fused_f32_step_on_the_card(cuda, encoder, mlp_fused, need):
         torch.cuda.set_sync_debug_mode("default")
     counts = {k: v for k, v in launch_counts().items() if v}
     assert counts[need] == 12
+    assert all(k.endswith("_f32") or k in ("warp_composite", "blur_select_sbs")
+               for k in counts)
+    assert torch.equal(sbs[:, :, 96:], frames)
+
+
+# --- f32 on the card: row 10 (vitg), rows 15 and 16 -------------------------
+
+@pytest.mark.parametrize("m", [77, 300])
+def test_swiglu_f32_kernel_matches_plain(cuda, m):
+    """Row 10 at f32 on its chain (csrc/swiglu_f32.cu) at vitg's D = 1536,
+    hidden 4096, a ragged row tile: within chip_smoke.py's f32 bound of the
+    plain version, which the same function with w12 and w3 rounded to TF32
+    fails; one launch on the f32 counter."""
+    from chip_smoke import f32_dense_check, tf32_round
+    from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
+                                                       swiglu_residual_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    d, hid = 1536, 4096
+    args = (_randn(gen, (1, m, d), dtype=F32),
+            _randn(gen, (d,), 0.1, 1.0, F32), _randn(gen, (d,), 0.1, 0.0, F32),
+            _randn(gen, (2 * hid, d), d ** -0.5, dtype=F32),
+            _randn(gen, (2 * hid,), 0.5, dtype=F32),
+            _randn(gen, (d, hid), hid ** -0.5, dtype=F32),
+            _randn(gen, (d,), 0.5, dtype=F32), _randn(gen, (d,), 0.1, 1.0, F32))
+    x, lnw, lnb, w12, b12, w3, b3, gamma = args
+    before = launch_counts().get("swiglu_residual_f32", 0)
+    got = swiglu_residual(*args)
+    assert launch_counts()["swiglu_residual_f32"] == before + 1
+    tf_args = (x, lnw, lnb, tf32_round(w12), b12, tf32_round(w3), b3, gamma)
+    f32_dense_check("swiglu_residual_f32", got, swiglu_residual_plain(*args),
+                    swiglu_residual_plain(*tf_args), 1, x, gamma * b3)
+
+
+def test_swiglu_f32_silu_epilogue_bit_for_bit(cuda):
+    """The f32 gate epilogue's silu equals the plain f32 silu_mul on the card
+    on every bf16 value, a dense sweep over [-110, 40] and seeded x2
+    (chip_smoke.check_silu_f32)."""
+    from chip_smoke import check_silu_f32
+
+    res = check_silu_f32(cuda)
+    assert all(r["differ"] == 0 for r in res.values())
+
+
+@pytest.mark.parametrize("c,b,h2,w2", [(64, 2, 9, 14), (128, 1, 12, 20)])
+def test_head_tail_f32_kernel_matches_plain(cuda, c, b, h2, w2):
+    """Row 15 at f32 (vrvg_head_tail_f32) at vits' and vitb's widths on an
+    NCHW path1 seen as NHWC, against head_tail_plain relative to the
+    depth's range: a bound that the plain version on TF32-rounded input
+    and conv weights fails; one launch on the f32 counter."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
+                            f32_rel_check, tf32_round)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + h2)
+    x = _randn(gen, (b, c, h2, w2), dtype=F32).permute(0, 2, 3, 1)
+    wts = _f32_tail_wts(gen, c)[2:]
+    out_hw = (h2 * 7 // 4, w2 * 7 // 4)
+    want = ht.head_tail_plain(x, *wts, out_hw)
+    rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
+    tfw = ht.head_tail_plain(tf32_round(x), *rounded, out_hw)
+    before = launch_counts().get("head_tail_f32", 0)
+    got = ht.head_tail(x, *wts, out_hw)
+    assert launch_counts()["head_tail_f32"] == before + 1
+    span = (want.max() - want.min()).item()
+    f32_rel_check("head_tail_f32", got, want, tfw, TAIL_F32_MAX_REL,
+                  TAIL_F32_MEAN_REL, span)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_rcu_pair_f32_kernel_matches_plain(cuda, c):
+    """Row 16 at f32 (vrvg_rcu_conv_f32, four calls) at vits' and vitb's
+    widths on a small grid: within chip_smoke.py's f32 bound of the plain
+    chain, which the chain on TF32-rounded inputs and weights fails; four
+    launches on the f32 counter."""
+    from chip_smoke import f32_dense_check, tf32_round
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        refinenet_pre, refinenet_pre_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(c + 16)
+    rn0, path2 = (_randn(gen, (2, c, 9, 17), dtype=F32).permute(0, 2, 3, 1)
+                  for _ in range(2))
+    ws = []
+    for _ in range(4):
+        ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5, dtype=F32),
+               _randn(gen, (c,), 0.1, dtype=F32)]
+    before = launch_counts().get("rcu_pair_f32", 0)
+    got = refinenet_pre(rn0, path2, *ws)
+    assert launch_counts()["rcu_pair_f32"] == before + 4
+    tfw = refinenet_pre_plain(tf32_round(rn0), tf32_round(path2),
+                              *(tf32_round(w) if w.ndim == 4 else w
+                                for w in ws))
+    f32_dense_check("rcu_pair_f32", got, refinenet_pre_plain(rn0, path2, *ws),
+                    tfw, 1, rn0, path2)
+
+
+def test_vitg_f32_step_on_the_card(cuda):
+    """vitg fused at f32 on a small frame, cut to 4 blocks: the SwiGLU half
+    on row 10's f32 chain in each block, only f32 kernels and the warp, no
+    host sync in the step, the right half the input."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vitg", batch_size=2, compute_dtype="float32",
+                    input_size=56, mlp_fused="fused", tail="fused")
+    mcfg = dataclasses.replace(cfg.model(), depth=4,
+                               intermediate_layers=(0, 1, 2, 3))
+    model = build_model(mcfg, random_state_dict(mcfg, 0), F32, cuda,
+                        tail="fused")
+    pipe = SbsPipeline(model, 150, 96, run_cfg=cfg)
+    frames = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    state = pipe.initial_state()
+    pipe.step(frames, state)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sbs, _ = pipe.step(frames, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts["swiglu_residual_f32"] == 4
     assert all(k.endswith("_f32") or k in ("warp_composite", "blur_select_sbs")
                for k in counts)
     assert torch.equal(sbs[:, :, 96:], frames)

@@ -5,19 +5,25 @@ against their plain versions.
 g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
 5's and row 6's epilogues), csrc/attention_f32.cu (rows 2 and 17 at f32) and
 csrc/mlp_f32.cu (rows 8 and 9 at f32: fc1 with b1 and the GELU of
-csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual) as they are,
+csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual),
+csrc/swiglu_f32.cu (row 10 at f32: the gate with w12 as the gated operand
+sgemm::GatedRows, b12 and silu(x1) * x2 in its epilogue, the down product
+with b3, LayerScale and the residual) and csrc/rcu_pair_f32.cu (row 16 at
+f32: the ReLU pass and each conv of the chain with its bias, ReLU,
+residuals and ReLU'd copy) as they are,
 launches rewritten to the emulator's, and a unit that instantiates the core
 with the f32 DPT tails' operands (csrc/sconv.cuh: the 3x3 conv as an
 implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
-and the tile each product takes by width) as vrvg_head_tail_ext_f32 and
-vrvg_head_tail_big_f32 call them; the tails' passes (upsample, resize) are
+and the tile each product takes by width) as vrvg_head_tail_ext_f32,
+vrvg_head_tail_big_f32 and vrvg_head_tail_f32 (row 15 at f32) call them; the tails' passes (upsample, resize) are
 their plain versions around them. Each CUDA thread is a std::thread and each
 __syncthreads a barrier, so the tiles' indexing, the ragged edges, the
 double-buffered k slices and the online softmax run as written. The plain
 versions sum in another order, so each output is held to a bound in f32
 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32 product
 would be thousands off); the GELU epilogue's expf and tanhf are the host's,
-so the fc1 stage is held to the same bound, not bit for bit (the card holds
+so the fc1 stage (and row 10's gate, its silu's expf) is held to the
+same bound, not bit for bit (the card holds
 it bit for bit against the eager chain). This checks logic only; the card checks the
 kernels themselves (chip_smoke.py phase 8). Needs g++ (C++20).
 """
@@ -170,7 +176,8 @@ def _build(tmp, units, entries, name):
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
     for src in ("gelu_as.cuh", "sgemm.cuh", "sconv.cuh", "qkv_f32.cu",
-                "attention_f32.cu", "mlp_f32.cu"):
+                "attention_f32.cu", "mlp_f32.cu", "swiglu_f32.cu",
+                "rcu_pair_f32.cu"):
         (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     paths = []
     for unit, (pre, inc, post) in units.items():
@@ -509,3 +516,251 @@ def test_big_tail_chain_source(lib, c):
     span = (want.max() - want.min()).item()
     assert span > 0 and (want > 0).float().mean() > 0.2
     assert (out - want).abs().max().item() <= 1e-5 * span
+
+
+# --- row 10 at f32 (csrc/swiglu_f32.cu) --------------------------------------
+
+@pytest.fixture(scope="module")
+def swiglu_lib(tmp_path_factory):
+    """csrc/swiglu_f32.cu as it is, with the host LayerNorm."""
+    return _build(tmp_path_factory.mktemp("cuda_emu_swiglu_f32"),
+                  {"swiglu_f32.cu": ("", "swiglu_f32.cu", LN_HOST)},
+                  ("vrvg_swiglu_gate_f32", "vrvg_swiglu_residual_f32"),
+                  "libemu_swiglu_f32.so")
+
+
+def _swiglu_args(rng, m, d, hid):
+    """Seeded f32 operands of the SwiGLU half in PyTorch layout: x (1, M,
+    D), the LN affine, w12 (2H, D) + b12, w3 (D, H) + b3, gamma."""
+    return (randn(rng, (1, m, d)), randn(rng, (d,), 0.1, 1.0),
+            randn(rng, (d,), 0.1), randn(rng, (2 * hid, d), d ** -0.5),
+            randn(rng, (2 * hid,), 0.3), randn(rng, (d, hid), hid ** -0.5),
+            randn(rng, (d,), 0.3), randn(rng, (d,), 0.1, 1.0))
+
+
+def _gate(lib, h, w12, b12):
+    m, d = h.shape
+    hid = w12.shape[0] // 2
+    g = torch.full((m, hid), float("nan"))
+    assert lib.vrvg_swiglu_gate_f32(h.data_ptr(), w12.data_ptr(),
+                                    b12.data_ptr(), g.data_ptr(), m, d, hid,
+                                    None) == 0
+    return g
+
+
+def _gate_bound(h, w12, b12):
+    """The gate's addends for f32_ulps: an ulp of x1's sum (its terms'
+    magnitudes) moves g by about |x2| of them, an ulp of x2's by |x1|."""
+    hid = w12.shape[0] // 2
+    t, mag = h @ w12.T + b12, h.abs() @ w12.abs().T + b12.abs()
+    return (t[:, :hid].abs() * t[:, hid:].abs(),
+            mag[:, :hid] * t[:, hid:].abs(), mag[:, hid:] * t[:, :hid].abs())
+
+
+@pytest.mark.parametrize("hid", [128, 200, 344])
+def test_gated_operand_pairs_x1_and_x2(swiglu_lib, hid):
+    """sgemm::GatedRows and SwigluGate on a selection: h the identity (row i
+    picks input column i), so every sum is one exact product and g[i, c] =
+    silu(w12[c, i] + b12[c]) * (w12[H + c, i] + b12[H + c]) on distinct
+    seeded values; only the host's expf against torch's exp may differ (a
+    few ulps), where a wrong pairing of x1 and x2 columns would be off
+    entirely. H a multiple of 64 (128) and not (200, 344: a last tile of 8
+    and 24 g columns)."""
+    d = 64
+    rng = np.random.default_rng(hid)
+    h = torch.eye(d)
+    w12, b12 = randn(rng, (2 * hid, d), 2.0), randn(rng, (2 * hid,))
+    got = _gate(swiglu_lib, h, w12, b12)
+    want = mlp.swiglu_gate_plain(h, w12, b12)
+    assert torch.isfinite(got).all()
+    assert f32_ulps(got, want).max() <= 4
+    assert (got != 0).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("m,d,hid", [(130, 128, 344), (33, 64, 200),
+                                     (70, 256, 688)])
+def test_swiglu_gate_stage_source(swiglu_lib, m, d, hid):
+    """The gate stage (128 x 128 tiles of 64 x1 and 64 x2 columns: a ragged
+    last row tile, and H = 344, 200 and 688 not multiples of 64): + b12,
+    then silu(x1) * x2 on the f32 sums, against swiglu_gate_plain. The
+    host's expf stands in for the card's, so the bound is the core's."""
+    rng = np.random.default_rng(m + d + hid)
+    h = randn(rng, (m, d))
+    w12, b12 = randn(rng, (2 * hid, d), d ** -0.5), randn(rng, (2 * hid,), 0.5)
+    got = _gate(swiglu_lib, h, w12, b12)
+    want = mlp.swiglu_gate_plain(h, w12, b12)
+    assert f32_ulps(got, want, *_gate_bound(h, w12, b12)).max() <= MAX_ULPS
+    assert (want < 0).float().mean() > 0.2  # silu's negative arm and x2 < 0
+
+
+@pytest.mark.parametrize("d,m", [(128, 150), (256, 70)])
+def test_swiglu_chain_source(swiglu_lib, d, m):
+    """Row 10 at f32 as one chain (LN on the host here, the gate into the g
+    scratch, the down product + b3 + LayerScale + residual), hidden from
+    swiglu_hidden (344, 688: not multiples of 64): each stage against its
+    plain version on the chain's own input, and the whole against
+    swiglu_residual_plain relative to max |out|."""
+    hid = mlp.swiglu_hidden(d)
+    rng = np.random.default_rng(d + m + 1)
+    args = _swiglu_args(rng, m, d, hid)
+    x, lnw, lnb, w12, b12, w3, b3, gamma = args
+    h, g = torch.empty((m, d)), torch.empty((m, hid))
+    out = torch.empty_like(x)
+    assert swiglu_lib.vrvg_swiglu_residual_f32(
+        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w12.data_ptr(),
+        b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
+        h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, 1e-6,
+        None) == 0
+    want_h = mlp.swiglu_residual_stages(*args)[0]
+    assert f32_ulps(h, want_h).max() <= MAX_ULPS
+    want_g = mlp.swiglu_gate_plain(h, w12, b12)
+    assert f32_ulps(g, want_g, *_gate_bound(h, w12, b12)).max() <= MAX_ULPS
+    x2 = x.reshape(m, d)
+    want = mlp.fc2_residual_plain(g, w3, b3, gamma, x2)
+    assert f32_ulps(out.reshape(m, d), want, x2, gamma * b3,
+                    gamma.abs() * (g.abs() @ w3.abs().T)).max() <= MAX_ULPS
+    whole = mlp.swiglu_residual_plain(*args)
+    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+def test_swiglu_entry_points_refuse_other_widths(swiglu_lib):
+    """D or H not a multiple of 4: cudaErrorInvalidValue (1), nothing
+    written."""
+    for d, hid in ((66, 128), (64, 130)):
+        m = 4
+        x = torch.zeros((m, 2 * max(d, hid) * 2))
+        out = torch.full((m, d), 5.0)
+        err = swiglu_lib.vrvg_swiglu_residual_f32(
+            *(x.data_ptr(),) * 10, out.data_ptr(), m, d, hid, 1e-6, None)
+        assert err == 1 and bool((out == 5.0).all())
+        g = torch.full((m, hid), 5.0)
+        assert swiglu_lib.vrvg_swiglu_gate_f32(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), g.data_ptr(), m, d, hid,
+            None) == 1
+        assert bool((g == 5.0).all())
+
+
+# --- row 15 at f32 (vrvg_head_tail_f32's products) ---------------------------
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_base_tail_chain_source(lib, c):
+    """Row 15 at f32 as vrvg_head_tail_f32 runs it, the resize pass its plain
+    version: conv1 of path1 with its f32 bias (BiasStore on Rows32 at C2 =
+    32, Tall64 at 64), then the resize pass, then conv2 with the 1x1
+    (Rows32); c1 in f32 ulps against base_conv1_plain, the depth against
+    head_tail_plain relative to its range. 2 frames, zero padding at every
+    edge."""
+    rng = np.random.default_rng(c + 15)
+    b, h2, w2, c2 = 2, 8, 14, c // 2
+    out_hw = (15, 26)
+    x = randn(rng, (b, h2, w2, c))
+    k1, b1 = randn(rng, (c2, c, 3, 3), (9 * c) ** -0.5), randn(rng, (c2,), 0.1)
+    k2, b2 = randn(rng, (32, c2, 3, 3), (9 * c2) ** -0.5), randn(rng, (32,),
+                                                                  0.1)
+    k3, b3 = randn(rng, (1, 32, 1, 1), 32 ** -0.5), randn(rng, (1,), 0.1, 0.5)
+    c1 = torch.empty((b, h2, w2, c2))
+    w1m = conv3x3_gemm_weights(k1, torch.float32)
+    assert lib.emu_conv3x3_f32(x.data_ptr(), w1m.data_ptr(), b1.data_ptr(),
+                               c1.data_ptr(), b, h2, w2, c, c2) == 0
+    assert f32_ulps(c1, ht.base_conv1_plain(x, k1, b1), b1).max() <= MAX_ULPS
+    r = ht.ext_resize_plain(c1, out_hw).contiguous()
+    out = torch.empty((b, *out_hw))
+    w2m = conv3x3_gemm_weights(k2, torch.float32)
+    assert lib.emu_conv2_depth_n_f32(
+        r.data_ptr(), w2m.data_ptr(), b2.data_ptr(),
+        k3.reshape(32).contiguous().data_ptr(), b3.data_ptr(),
+        out.data_ptr(), b, *out_hw, c2) == 0
+    want = ht.head_tail_plain(x, k1, b1, k2, b2, k3, b3, out_hw)
+    span = (want.max() - want.min()).item()
+    assert span > 0 and (want > 0).float().mean() > 0.2
+    assert (out - want).abs().max().item() <= 1e-5 * span
+
+
+# --- row 16 at f32 (csrc/rcu_pair_f32.cu) ------------------------------------
+
+@pytest.fixture(scope="module")
+def rcu_lib(tmp_path_factory):
+    """csrc/rcu_pair_f32.cu as it is."""
+    return _build(tmp_path_factory.mktemp("cuda_emu_rcu_f32"),
+                  {"rcu_pair_f32.cu": ("", "rcu_pair_f32.cu", "")},
+                  ("vrvg_rcu_conv_f32",), "libemu_rcu_f32.so")
+
+
+def _emu_rcu_conv(lib, x, k, b, relu, residuals=(), relu_done=False,
+                  relu_copy=False):
+    """rcu_conv's call of vrvg_rcu_conv_f32, on the emulated library."""
+    n, h, w, c = x.shape
+    wt = conv3x3_gemm_weights(k, torch.float32)
+    out = torch.full_like(x, float("nan"))
+    in_relu = torch.empty_like(x) if relu and not relu_done else None
+    out_relu = torch.full_like(x, float("nan")) if relu_copy else None
+    ptrs = [r.data_ptr() for r in residuals] + [None] * (2 - len(residuals))
+    err = lib.vrvg_rcu_conv_f32(
+        x.data_ptr(), None if in_relu is None else in_relu.data_ptr(),
+        wt.data_ptr(), b.data_ptr(), *ptrs, out.data_ptr(),
+        None if out_relu is None else out_relu.data_ptr(), n, h, w, c,
+        int(relu), len(residuals), None)
+    assert err == 0
+    if in_relu is not None:
+        assert torch.equal(in_relu, F.relu(x))
+    return (out, out_relu) if relu_copy else out
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_rcu_chain_source(rcu_lib, c):
+    """Row 16 at f32: the four convs of rcu_chain, each on the plain chain's
+    own input and residuals (conv1a after the ReLU pass; conv2a with two
+    residuals and its ReLU'd copy; conv1b reading that copy; conv2b with
+    one residual), at C = 64 (Tall64) and 128 (Square), 2 frames, a ragged
+    last row tile: each in f32 ulps of its output's scale and sums against
+    rcu_conv_plain, the copy bit for bit the ReLU of the output, and the
+    emulated chain against refinenet_pre_plain relative to max |out|."""
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        rcu_chain, rcu_conv_plain, refinenet_pre_plain)
+
+    rng = np.random.default_rng(c + 16)
+    shape = (2, 7, 11, c)
+    rn0, path2 = randn(rng, shape), randn(rng, shape)
+    ws = []
+    for _ in range(4):
+        ws += [randn(rng, (c, c, 3, 3), (9 * c) ** -0.5), randn(rng, (c,), 0.1)]
+    steps = []
+
+    def record(*args, **kw):
+        steps.append((args, kw))
+        return rcu_conv_plain(*args, **kw)
+
+    rcu_chain(record, rn0, path2, *ws)
+    assert len(steps) == 4
+    for args, kw in steps:
+        got = _emu_rcu_conv(rcu_lib, *args, **kw)
+        want = rcu_conv_plain(*args, **kw)
+        if kw.get("relu_copy"):
+            assert torch.equal(got[1], F.relu(got[0]))
+            got, want = got[0], want[0]
+        x, k = args[0], args[1]
+        mag = F.conv2d(F.relu(x).permute(0, 3, 1, 2).abs(), k.abs(),
+                       padding=1).permute(0, 2, 3, 1)
+        res = args[4] if len(args) > 4 else ()
+        assert f32_ulps(got, want, mag, *res).max() <= MAX_ULPS
+    got = rcu_chain(lambda *a, **kw: _emu_rcu_conv(rcu_lib, *a, **kw), rn0,
+                    path2, *ws)
+    want = refinenet_pre_plain(rn0, path2, *ws)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_rcu_entry_point_refuses_other_kinds(rcu_lib):
+    """C outside {64, 128}, an input ReLU pass on a conv without ReLU, a
+    ReLU with residuals or with a copy, no residual without ReLU: 1
+    (cudaErrorInvalidValue), nothing written."""
+    x = torch.zeros((1, 4, 4, 128))
+    out = torch.full_like(x, 5.0)
+    p = x.data_ptr()
+    for c, in_relu, relu, nres, out_relu in (
+            (96, None, 1, 0, None), (64, p, 0, 1, None), (64, None, 1, 1, None),
+            (64, None, 1, 0, p), (128, None, 0, 0, None), (128, None, 0, 3,
+                                                           None)):
+        err = rcu_lib.vrvg_rcu_conv_f32(p, in_relu, p, p, p, p,
+                                        out.data_ptr(), out_relu, 1, 4, 4, c,
+                                        relu, nres, None)
+        assert err == 1 and bool((out == 5.0).all())

@@ -21,6 +21,7 @@ from vr_video_generator_tpu.ops.qkv_pallas import attn_fusable
 from vr_video_generator_tpu.utils import config as jconfig
 from vr_video_generator_tpu_torch import RunConfig
 from vr_video_generator_tpu_torch import pipeline
+from vr_video_generator_tpu_torch.attic import refinenet_pre as rp
 from vr_video_generator_tpu_torch.kernels import launch_counts
 from vr_video_generator_tpu_torch.models import factory
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import no_tf32
@@ -169,12 +170,16 @@ def _create_on_fake_card(monkeypatch, cfg):
 # The sizes each plan is built at below: 518, and where the plan changes
 # with the size (vitl past 4096 tokens at 728: row 17; the big-C tail at
 # vits-728 and vitl-252, the ext tail at C = 128 and 256 at vitb-252 and
-# vitl-126).
+# vitl-126; vitg's fused SwiGLU half, row 10, with the big-C tail at C = 384
+# at 126 and 252, the tail unfused at 518, row 17 at 728).
 PLAN_SIZES = {("vits", "auto", "auto"): (518, 728),
               ("vitb", "auto", "auto"): (518, 252),
               ("vitb", "xla", "auto"): (518, 252),
               ("vitl", "auto", "auto"): (518, 728, 252, 126),
-              ("vitl", "xla", "xla"): (518, 728)}
+              ("vitl", "xla", "xla"): (518, 728),
+              ("vitg", "auto", "auto"): (518, 126, 252, 728),
+              ("vitg", "fused", "fused"): (126, 518),
+              ("vitg", "auto", "xla"): (56, 518)}
 
 
 @pytest.mark.parametrize("encoder,mlp_fused,tail", [
@@ -182,33 +187,46 @@ PLAN_SIZES = {("vits", "auto", "auto"): (518, 728),
     ("vitl", "xla", "xla"), ("vitg", "xla", "xla"),
     ("vits", "fused", "fused"), ("vitb", "auto", "auto"),
     ("vitb", "xla", "auto"), ("vitl", "auto", "auto"),
-    ("vitl", "fused", "fused")])
+    ("vitl", "fused", "fused"), ("vitg", "auto", "auto"),
+    ("vitg", "fused", "fused"), ("vitg", "auto", "xla")])
 def test_f32_plans_with_kernels_reach_load_model(monkeypatch, encoder,
                                                  mlp_fused, tail):
-    """Every plan of vits, vitb and vitl at f32 and --mlp_fused xla --tail
-    xla at every encoder pass the plan-time check on the card: the fused
-    MLP half (row 8 at vits, row 9 at vitb and vitl), the big-C tail (vitb
-    at 518, vits at 728, vitl at 252) and the ext tail at every width (vitb
-    at 252, vitl at 126), and vitl at 728 (past 4096 tokens: row 17)."""
+    """Every plan of every encoder at f32 passes the plan-time check on the
+    card: the fused MLP half (row 8 at vits, row 9 at vitb and vitl, row 10
+    at vitg), the big-C tail (vitb at 518, vits at 728, vitl at 252, vitg at
+    126 and 252) and the ext tail at every width (vitb at 252, vitl at
+    126), and vitl and vitg at 728 (past 4096 tokens: row 17)."""
     for size in PLAN_SIZES.get((encoder, mlp_fused, tail), (518,)):
+        if encoder == "vitg" and mlp_fused != "xla":
+            assert jax_f32_plan(encoder, mlp_fused, tail, size)[1] == 10
         cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                         mlp_fused=mlp_fused, tail=tail, input_size=size)
         assert _create_on_fake_card(monkeypatch, cfg) == "built"
         check_f32_plan(cfg, 1080, 1920)
 
 
+def _narrow_head(monkeypatch):
+    """RunConfig.model() with a custom head of 32 features, whose DPT tail
+    has no f32 kernel."""
+    model = RunConfig.model
+    monkeypatch.setattr(RunConfig, "model", lambda self: dataclasses.replace(
+        model(self), features=32))
+
+
 @pytest.mark.parametrize("encoder,mlp_fused,tail,size,match", [
-    ("vitg", "auto", "auto", 518, r"fused SwiGLU half \(row 10\)"),
-    ("vitg", "fused", "fused", 126, r"fused SwiGLU half \(row 10\)"),
-    ("vitg", "auto", "xla", 56, r"fused SwiGLU half \(row 10\)")])
+    ("vitg", "auto", "auto", 126, r"tail at C=32.*at f32"),
+    ("vitg", "fused", "fused", 126, r"tail at C=32.*at f32"),
+    ("vits", "auto", "auto", 518, r"tail at C=32.*at f32")])
 def test_f32_plans_without_kernels_raise_before_load_model(
         monkeypatch, encoder, mlp_fused, tail, size, match):
-    """Each f32 plan that needs a row with no f32 kernel yet (vitg's fused
-    SwiGLU half, row 10) raises not_ported naming it, before load_model
-    runs, and names the ROADMAP item."""
-    assert jax_f32_plan(encoder, mlp_fused, tail, size)[1] == 10
+    """An f32 plan whose DPT tail has no f32 kernel (a custom head of 32
+    features) raises not_ported naming the rows, before load_model runs,
+    and names the ROADMAP item; vitg's fused SwiGLU half (row 10) no
+    longer raises, so its plans here fail only at the tail."""
+    _narrow_head(monkeypatch)
     cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                     mlp_fused=mlp_fused, tail=tail, input_size=size)
+    assert cfg.model().features == 32
     with pytest.raises(NotImplementedError, match=match) as info:
         _create_on_fake_card(monkeypatch, cfg)
     assert "f32 on the card" in str(info.value)
@@ -217,9 +235,10 @@ def test_f32_plans_without_kernels_raise_before_load_model(
 @pytest.mark.parametrize("encoder", ENCODERS)
 def test_every_f32_plan_of_the_jax_package(encoder):
     """Over --input_size 56-728 at 1080p and every mlp_fused and tail
-    choice, check_f32_plan passes each f32 plan of the JAX package at vits,
-    vitb and vitl, and at vitg each that leaves the MLP half unfused; a vitg
-    plan that fuses it (auto, fused: row 10) raises naming row 10."""
+    choice, check_f32_plan passes each f32 plan of the JAX package at every
+    encoder, vitg's plans that fuse the SwiGLU half (auto, fused: row 10)
+    included."""
+    fused_swiglu = 0
     for size in (56, *SIZES):
         for mlp_fused in ("auto", "fused", "xla"):
             for tail in ("auto", "fused", "xla"):
@@ -227,18 +246,15 @@ def test_every_f32_plan_of_the_jax_package(encoder):
                 cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                                 mlp_fused=mlp_fused, tail=tail,
                                 input_size=size)
-                if jmlp != 10:
-                    check_f32_plan(cfg, 1080, 1920)
-                    continue
-                assert encoder == "vitg"
-                with pytest.raises(NotImplementedError,
-                                   match=r"row 10.*f32 on the card"):
-                    check_f32_plan(cfg, 1080, 1920)
+                check_f32_plan(cfg, 1080, 1920)
+                fused_swiglu += jmlp == 10
+    assert (fused_swiglu > 0) == (encoder == "vitg")
 
 
 def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
-    """The orchestrator's --mesh path: a plan without f32 kernels (vitg
-    fused) raises before load_model; vits auto reaches it."""
+    """The orchestrator's --mesh path: a plan without f32 kernels (a custom
+    head of 32 features, its tail) raises before load_model; vits auto and
+    vitg fused reach it."""
     from vr_video_generator_tpu_torch.parallel import mesh as mesh_mod
     from vr_video_generator_tpu_torch.runtime import orchestrator
 
@@ -248,13 +264,15 @@ def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
     monkeypatch.setattr(factory, "load_model", _load_model)
     base = RunConfig(encoder="vits", compute_dtype="float32",
                      mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match=r"row 10"):
-        orchestrator._convert_range_sharded(
-            dataclasses.replace(base, encoder="vitg", mlp_fused="fused",
-                                tail="fused"), 0, 8, 1920, 1080,
-            device="cuda")
-    with pytest.raises(Reached):
-        orchestrator._convert_range_sharded(base, 0, 8, 1920, 1080,
+    vitg = dataclasses.replace(base, encoder="vitg", mlp_fused="fused",
+                               tail="fused", input_size=126)
+    for cfg in (base, vitg):
+        with pytest.raises(Reached):
+            orchestrator._convert_range_sharded(cfg, 0, 8, 1920, 1080,
+                                                device="cuda")
+    _narrow_head(monkeypatch)
+    with pytest.raises(NotImplementedError, match=r"tail at C=32"):
+        orchestrator._convert_range_sharded(vitg, 0, 8, 1920, 1080,
                                             device="cuda")
 
 
@@ -315,7 +333,7 @@ def fake_card(monkeypatch):
     from vr_video_generator_tpu_torch.kernels import build
 
     lib = FakeLibrary()
-    for mod in (ln_ops, qkv_ops, attn_ops, ht, mlp_ops):
+    for mod in (ln_ops, qkv_ops, attn_ops, ht, mlp_ops, rp):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
     monkeypatch.setattr(ln_ops, "library", lambda: lib)
@@ -336,6 +354,21 @@ def _x_wts(c):
 def _mlp_args(d):
     return (_f32(1, 5, d), _f32(d), _f32(d), _f32(4 * d, d), _f32(4 * d),
             _f32(d, 4 * d), _f32(d), _f32(d))
+
+
+def _swiglu_args(d=1536, hid=4096):
+    return (_f32(1, 3, d), _f32(d), _f32(d), _f32(2 * hid, d), _f32(2 * hid),
+            _f32(d, hid), _f32(d), _f32(d))
+
+
+def _base_args(c):
+    return (_f32(1, 6, 10, c), _f32(c // 2, c, 3, 3), _f32(c // 2),
+            _f32(32, c // 2, 3, 3), _f32(32), _f32(1, 32, 1, 1), _f32(1))
+
+
+def _rcu_conv_args(c, nres=0):
+    return (_f32(1, 4, 6, c), _f32(c, c, 3, 3), _f32(c), nres == 0,
+            tuple(_f32(1, 4, 6, c) for _ in range(nres)))
 
 
 CALLS = {
@@ -373,6 +406,20 @@ CALLS = {
     "fc1_gelu": (lambda: mlp_ops.fc1_gelu_kernel(_f32(1, 5, 128),
                                                  _f32(512, 128), _f32(512)),
                  "vrvg_fc1_gelu_f32", "fc1_gelu_f32"),
+    "swiglu_residual": (lambda: mlp_ops.swiglu_residual(*_swiglu_args()),
+                        "vrvg_swiglu_residual_f32", "swiglu_residual_f32"),
+    "swiglu_gate": (lambda: mlp_ops.swiglu_gate_kernel(
+        _f32(1, 5, 128), _f32(688, 128), _f32(688)), "vrvg_swiglu_gate_f32",
+        "swiglu_gate_f32"),
+    "head_tail": (lambda: ht.head_tail(*_base_args(64), (21, 35)),
+                  "vrvg_head_tail_f32", "head_tail_f32"),
+    "head_tail C=128": (lambda: ht.head_tail(*_base_args(128), (21, 35)),
+                        "vrvg_head_tail_f32", "head_tail_f32"),
+    "rcu_pair": (lambda: rp.rcu_conv(*_rcu_conv_args(64)),
+                 "vrvg_rcu_conv_f32", "rcu_pair_f32"),
+    "rcu_pair C=128": (lambda: rp.rcu_conv(*_rcu_conv_args(128, 2),
+                                           relu_copy=True),
+                       "vrvg_rcu_conv_f32", "rcu_pair_f32"),
 }
 
 
@@ -394,11 +441,16 @@ def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
 @pytest.mark.parametrize("name", ["layernorm", "ln_qkv", "attention",
                                   "head_tail_ext", "head_tail_big",
                                   "mlp_residual", "mlp_residual_hblocked",
-                                  "mlp_residual f16"])
+                                  "mlp_residual f16", "swiglu_residual f16",
+                                  "head_tail f16", "rcu_pair f16",
+                                  "head_tail C=32", "swiglu_gate width",
+                                  "rcu_pair mixed"])
 def test_other_dtypes_on_the_card_raise(fake_card, name):
-    """float16 on the card raises in the wrapper; so does an f32 kernel at a
-    width it has no kernel for (the tails at C = 32, row 8 at D = 768, row
-    9 at D = 384). No entry point is called."""
+    """float16 on the card raises in the wrapper (rows 1, 5, 2, 8, 10, 15
+    and 16); so does an f32 kernel at a width it has no kernel for (the
+    tails at C = 32, row 8 at D = 768, row 9 at D = 384, row 15 at C = 32),
+    the f32 gate stage given a w12 of another width than h, or an RCU conv
+    whose residual's dtype is not its input's. No entry point is called."""
     h = torch.float16
     calls = {
         "layernorm": lambda: ln_ops.layernorm(_f32(5, 384).to(h), _f32(384),
@@ -415,6 +467,19 @@ def test_other_dtypes_on_the_card_raise(fake_card, name):
             *_mlp_args(384)),
         "mlp_residual f16": lambda: mlp_ops.mlp_residual(
             *(t.to(h) for t in _mlp_args(384))),
+        "swiglu_residual f16": lambda: mlp_ops.swiglu_residual(
+            *(t.to(h) for t in _swiglu_args())),
+        "head_tail f16": lambda: ht.head_tail(
+            *(t.to(h) for t in _base_args(64)), (21, 35)),
+        "rcu_pair f16": lambda: rp.rcu_conv(
+            *(t.to(h) if torch.is_tensor(t) else t
+              for t in _rcu_conv_args(64))),
+        "head_tail C=32": lambda: ht.head_tail(*_base_args(32), (21, 35)),
+        "swiglu_gate width": lambda: mlp_ops.swiglu_gate_kernel(
+            _f32(1, 5, 126), _f32(688, 128), _f32(688)),
+        "rcu_pair mixed": lambda: rp.rcu_conv(
+            _f32(1, 4, 6, 64), _f32(64, 64, 3, 3), _f32(64), False,
+            (_f32(1, 4, 6, 64).to(torch.bfloat16),)),
     }
     with pytest.raises(ValueError):
         calls[name]()

@@ -307,10 +307,11 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
 def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     """compute_dtype float32 on a CUDA device raises not_ported("f32 on the
     card") in SbsPipeline.create, before load_model builds a weight, where
-    the f32 plan needs a kernel with no f32 variant yet: vitg fused runs
-    the fused SwiGLU half (row 10). bf16 on the card passes the check, and
-    so does f32 on a plan whose kernels all have their f32 variants (CFG:
-    xla/xla; vits fused, rows 8 and 7 at f32)."""
+    the f32 plan needs a kernel with no f32 variant: a custom head of 32
+    features, whose DPT tail has none. bf16 on the card passes the check,
+    and so does f32 on a plan whose kernels all have their f32 variants
+    (CFG: xla/xla; vits fused, rows 8 and 7 at f32; vitg fused, row 10 and
+    the big-C tail at f32)."""
     import dataclasses
 
     import vr_video_generator_tpu_torch.pipeline as pipeline
@@ -321,17 +322,29 @@ def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
     monkeypatch.setattr(pipeline, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(pipeline, "load_model", load_model)
-    fused = dataclasses.replace(CFG, encoder="vitg", mlp_fused="fused",
-                                tail="fused")
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
-        SbsPipeline.create(fused, H, W, allow_random=True, device="cuda")
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
-        SbsPipeline.create(dataclasses.replace(fused, compute_dtype="bfloat16"),
-                           H, W, allow_random=True, dtype=torch.float32)
+    vitg = dataclasses.replace(CFG, encoder="vitg", mlp_fused="fused",
+                               tail="fused")
     for ok in (CFG, dataclasses.replace(CFG, compute_dtype="bfloat16"),
-               dataclasses.replace(CFG, mlp_fused="fused", tail="fused")):
+               dataclasses.replace(CFG, mlp_fused="fused", tail="fused"),
+               vitg):
         with pytest.raises(AssertionError, match="load_model ran"):
             SbsPipeline.create(ok, H, W, allow_random=True, device="cuda")
+    model = RunConfig.model
+    monkeypatch.setattr(RunConfig, "model", lambda self: dataclasses.replace(
+        model(self), features=32))  # CFG's class: a custom head
+    # At 1080p and --input_size 126 the JAX planners pick a fused tail.
+    narrow = dataclasses.replace(vitg, input_size=126)
+    with pytest.raises(NotImplementedError, match="f32 on the card"):
+        SbsPipeline.create(narrow, 1080, 1920, allow_random=True,
+                           device="cuda")
+    with pytest.raises(NotImplementedError, match="f32 on the card"):
+        SbsPipeline.create(dataclasses.replace(narrow,
+                                               compute_dtype="bfloat16"),
+                           1080, 1920, allow_random=True, dtype=torch.float32)
+    with pytest.raises(AssertionError, match="load_model ran"):
+        SbsPipeline.create(dataclasses.replace(narrow,
+                                               compute_dtype="bfloat16"),
+                           1080, 1920, allow_random=True, device="cuda")
 
 
 def test_cuda_device_without_gpu_raises():

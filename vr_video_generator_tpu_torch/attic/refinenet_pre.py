@@ -35,6 +35,11 @@ four plain convs bit for bit).
 at vitl's C = 256) becomes :func:`takes`: the widths the CUDA kernel is
 built for, C in {64, 128} (vits, vitb). On the card another width raises
 NotImplementedError naming the roadmap item.
+
+At f32 (the same widths) each call runs ``vrvg_rcu_conv_f32``
+(csrc/rcu_pair_f32.cu, counted as ``rcu_pair_f32``): the conv an implicit
+GEMM on the f32 SIMT core, the bias, the ReLU, the residuals and the ReLU'd
+copy in its epilogue, the ReLU pass on the input as at bf16.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from vr_video_generator_tpu_torch.ops.head_tail import (_prepared,
                                                          conv3x3_gemm_weights)
 
 LAUNCHES = counter("rcu_pair")
+F32_LAUNCHES = counter("rcu_pair_f32")
 CHANNELS = (64, 128)  # the feature widths csrc/rcu_pair.cu takes
 
 
@@ -88,8 +94,9 @@ def rcu_conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
              relu_copy: bool = False):
     """One conv of the chain (:func:`rcu_conv_plain`'s arguments): the plain
     version for CPU tensors, the CUDA kernel (csrc/rcu_pair.cu) for CUDA
-    tensors (bf16, C in ``CHANNELS``; the chain's three kinds: ReLU without
-    residuals, or two or one residuals without ReLU). With ``relu`` and not
+    tensors (bf16 or f32, C in ``CHANNELS``; the chain's three kinds: ReLU
+    without residuals, or two or one residuals without ReLU; f32 tensors run
+    the f32 kernel). With ``relu`` and not
     ``relu_done`` the call runs a ReLU pass over x first; with
     ``relu_done`` the kernel reads x as it is, which must then be relu'd
     already (the previous conv's ``relu_copy``): the plain version raises
@@ -110,33 +117,39 @@ def rcu_conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
     if tuple(k.shape) != (c, c, 3, 3):
         raise ValueError(f"rcu_conv weights must be {(c, c, 3, 3)}, got "
                          f"{tuple(k.shape)}")
+    dt = x.dtype
     for t in (x, *residuals):
-        if t.dtype != torch.bfloat16 or t.shape != x.shape:
-            raise ValueError(f"rcu_conv takes bf16 {tuple(x.shape)} tensors, "
-                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != dt \
+                or t.shape != x.shape:
+            raise ValueError(f"rcu_conv takes bf16 or f32 {tuple(x.shape)} "
+                             f"tensors of one dtype, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    xs = x.contiguous()  # the TMA boxes' channel rows
+    f32 = dt == torch.float32
+    xs = x.contiguous()  # the kernel's channel rows
     res = [r.contiguous() for r in residuals]
-    wt, bias = _prepared(_rcu_weights, (k, b))
+    wt, bias = _prepared(_rcu_weights, (k, b), dt)
     out = torch.empty_like(xs)
     in_relu = torch.empty_like(xs) if relu and not relu_done else None
     out_relu = torch.empty_like(xs) if relu_copy else None
     ptrs = [r.data_ptr() for r in res] + [None] * (2 - len(res))
-    err = library().vrvg_rcu_conv(
+    kernel = "vrvg_rcu_conv_f32" if f32 else "vrvg_rcu_conv"
+    err = getattr(library(), kernel)(
         xs.data_ptr(), None if in_relu is None else in_relu.data_ptr(),
         wt.data_ptr(), bias.data_ptr(), *ptrs, out.data_ptr(),
         None if out_relu is None else out_relu.data_ptr(), n, h0, w0, c,
         int(bool(relu)), len(res), stream_handle(x.device))
-    check(err, "vrvg_rcu_conv")
-    LAUNCHES.count += 1
+    check(err, kernel)
+    (F32_LAUNCHES if f32 else LAUNCHES).count += 1
     return (out, out_relu) if relu_copy else out
 
 
-def _rcu_weights(k: torch.Tensor, b: torch.Tensor):
-    """A conv's weights as the GEMM core's B (C, 9 C) bf16 and its bias as
-    an f32 vector."""
-    return conv3x3_gemm_weights(k), b.to(torch.float32, copy=True)
+def _rcu_weights(k: torch.Tensor, b: torch.Tensor,
+                 dt: torch.dtype = torch.bfloat16):
+    """A conv's weights as the GEMM core's B (C, 9 C) in ``dt`` (bf16, or
+    f32 for the f32 kernel) and its bias as an f32 vector."""
+    return conv3x3_gemm_weights(k, dt), b.to(torch.float32, copy=True)
 
 
 def rcu_chain(conv: Callable, rn0: torch.Tensor, path2: torch.Tensor,
@@ -168,7 +181,7 @@ def refinenet_pre(rn0: torch.Tensor, path2: torch.Tensor, k1a: torch.Tensor,
                   b2b: torch.Tensor) -> torch.Tensor:
     """rn0, path2 (B, H0, W0, C), any strides -> (B, H0, W0, C): the plain
     version for CPU tensors, four calls of the conv kernel (conv1a's after
-    its ReLU pass) for CUDA tensors (bf16, C in ``CHANNELS``)."""
+    its ReLU pass) for CUDA tensors (bf16 or f32, C in ``CHANNELS``)."""
     # Copied once if strided: each is read by two calls.
     return rcu_chain(rcu_conv, rn0.contiguous(), path2.contiguous(), k1a, b1a,
                      k2a, b2a, k1b, b1b, k2b, b2b)

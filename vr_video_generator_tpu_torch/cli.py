@@ -51,11 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"],
                    help="depth-net compute dtype; on the card float32 runs "
-                        "the f32 kernels (every plan of vits, vitb and vitl, "
-                        "and --mlp_fused xla at any encoder); a plan that "
-                        "fuses vitg's SwiGLU half (vitg auto or fused) "
-                        "raises NotImplementedError before any weight is "
-                        "built")
+                        "the f32 kernels (every plan of vits, vitb, vitl and "
+                        "vitg); a custom head whose DPT tail has no f32 "
+                        "kernel (32 features) raises NotImplementedError "
+                        "before any weight is built")
     p.add_argument("--warp_impl", type=str, default="auto",
                    choices=["auto", "xla", "pallas"])
     p.add_argument("--encoder_device", type=str, default="cpu",

@@ -131,7 +131,10 @@
 // card's 67 TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of
 // f32 intermediates (0.42 ms); at vitb-518 (C = 128) rows 11 and 12's conv1
 // and conv2 are 184 + 141 GFLOP (4.9 ms) against ~4 GB of f32 U, mid and R
-// written and read (1.2 ms): bound by operations.
+// written and read (1.2 ms): bound by operations. Row 15 at f32
+// (vrvg_head_tail_f32, C = 64 and 128) is row 7's f32 chain from conv1 on:
+// conv1 of path1 with its f32 bias on the core, the resize pass on f32,
+// conv2 with the 1x1 (see its entry point).
 
 #include <type_traits>
 
@@ -868,6 +871,54 @@ extern "C" int vrvg_head_tail_big_f32(
   resize_kernel<float, true><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
       (const float*)mid, (const int*)taps_b, (const float*)tapw_b,
       (const float*)cw, (float*)r, c2, hm, w2, h1, w1);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
+                            (const float*)b2, (const float*)w3,
+                            (const float*)b3, (float*)out, batch, h1, w1, c2,
+                            stream);
+}
+
+// Row 15 at f32 (the single-kernel tail, csrc/head_tail_big.cu's
+// vrvg_head_tail at the f32 rounding points of `_tail_kernel`): path1 (B,
+// H2, W2, C) f32, contiguous, or with `nchw` an NCHW tensor seen as NHWC,
+// first transposed into the scratch xt; conv1 as (C2, 9 C) f32, k = (3 dh +
+// dw) C + c, + (C2,) f32 bias on its f32 sums (sgemm::BiasStore, the tile
+// csrc/sconv.cuh picks: Rows32 at C2 = 32, Tall64 at 64); the f32 W-resize
+// tap tables (2, W1); conv2 as (32, 9 C2) f32, b2 (32,), the 1x1 (32,) and
+// b3 (1,); scratch c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B,
+// H1, W1) f32. Row 7's f32 back from c1 on: the resize pass and conv2 with
+// the 1x1. C in {64, 128}. What bounds it: at vits' 1080p grid (B = 8, path1
+// 296 x 528 x 64, depth 518 x 924) conv1 and conv2 are 46 + 71 GFLOP (1.75
+// ms at 67 TFLOP/s), at vitb's C = 128 184 + 141 (4.9 ms), against 0.8-1.4
+// GB of f32 path1, c1 and R: bound by operations.
+extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
+                                  const void* w1m, const void* b1,
+                                  const void* w2m, const void* b2,
+                                  const void* w3, const void* b3,
+                                  const void* taps, const void* tapw,
+                                  void* c1, void* r, void* out, int batch,
+                                  int h2, int w2, int c, int h1, int w1,
+                                  void* stream) {
+  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || h2 <= 0 || w2 <= 0 || h1 <= 0 || w1 <= 0) {
+    return (int)cudaSuccess;
+  }
+  const int c2 = c / 2;
+  if (nchw) {
+    const int err = to_channels_last<float>(x, xt, batch, c, h2 * w2, stream);
+    if (err != 0) return err;
+    x = xt;
+  }
+  int err = sgemm::conv3x3((const float*)x, (const float*)w1m, batch, h2, w2,
+                           c, c2,
+                           sgemm::BiasStore{(float*)c1, (const float*)b1, c2},
+                           stream);
+  if (err != 0) return err;
+  resize_kernel<float, false><<<dim3(h1, batch), PASS_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+      (const float*)c1, (const int*)taps, (const float*)tapw, nullptr,
+      (float*)r, c2, h2, w2, h1, w1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   return sgemm::conv2_depth((const float*)r, (const float*)w2m,

@@ -1,0 +1,153 @@
+// refinenet1's residual-unit pair at f32 (--compute_dtype float32),
+// rcu2(path2 + rcu1(rn0)), for Hopper (sm_90a), as the chain of four 3x3
+// convolutions (C -> C) of csrc/rcu_pair.cu, each at f32:
+//
+//   rb  = relu(b1a + conv1a(relu(rn0)))
+//   t   = b2a + conv2a(rb) + rn0 + path2
+//   rd  = relu(b1b + conv1b(relu(t)))
+//   out = b2b + conv2b(rd) + t
+//
+// Replaces: vr_video_generator_tpu/attic/refinenet_pre.py `_rcu_pair_kernel`
+// (row 16, refinenet_pre_pallas) run at f32, at its rounding points
+// (:92-121): the f32 bias and the f32 products make each accumulator, the
+// ReLU applied to the loaded input and to the output where that kernel has
+// one, the residuals added in f32 in its order (acc + rn0 + path2, then acc
+// + t), every conv zero-padding its own input. Every intermediate is f32,
+// so nothing is cast; the sums' order is the only difference.
+//
+// Design: each conv is an implicit GEMM on the f32 SIMT core
+// (csrc/sgemm.cuh, the A operand the im2col of the NHWC image read in
+// place, sconv.cuh's Conv3x3Rows; K = 9 C; 256 x 64 tiles at C = 64, 128 x
+// 128 at C = 128, as sgemm::conv3x3 picks by width), its epilogue RcuStore
+// adding the bias, the ReLU and the residuals in registers. As at bf16 the
+// input ReLUs are made beforehand, so that the wrapper's calls and their
+// plain versions are the same at both dtypes: relu(rn0) by a pass over rn0
+// before conv1a (relu_kernel), relu(t) by conv2a's epilogue, which writes
+// it beside t. The ReLU of an f32 value is exact, so reading the relu'd copy
+// is the TPU kernel's ReLU on the load.
+//
+// What bounds it on the H100: at 1080p/vits (B = 8, 148 x 264, C = 64) the
+// four convs are ~92 GFLOP, 1.38 ms at the card's 67 TFLOP/s f32 rate
+// outside the tensor cores, against ~5 x 80 MB of f32 inputs, outputs and
+// intermediates (0.12 ms at 3.35 TB/s); at vitb's C = 128 369 GFLOP (5.5
+// ms): bound by operations, since wgmma takes no f32 operands and TF32 is
+// not f32 (csrc/sgemm.cuh's header).
+
+#include "sconv.cuh"
+
+namespace {
+
+// One conv's epilogue at f32: out = sum + bias, with RELU a ReLU, then NRES
+// residuals (B H W, C) f32 added in order; relu(out) into relu_copy unless
+// it is null. A GEMM row is a pixel of the (B, H, W, C) image.
+template <bool RELU, int NRES>
+struct RcuStore {
+  float* out;
+  const float* bias;
+  const float* res0;
+  const float* res1;
+  float* relu_copy;
+  int c;
+  template <class T>
+  __device__ __forceinline__ void store(int row, int n0, int tx,
+                                        const float (&v)[T::TN]) const {
+    const long long base = (long long)row * c;
+    sgemm::for_each4<T>(n0, tx, c, v, [&](int col, const float* s) {
+      const float4 b = sgemm::ld4(bias + col);
+      float o[4] = {__fadd_rn(s[0], b.x), __fadd_rn(s[1], b.y),
+                    __fadd_rn(s[2], b.z), __fadd_rn(s[3], b.w)};
+      if (RELU) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = fmaxf(o[e], 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < NRES; ++i) {
+        const float4 r = sgemm::ld4((i == 0 ? res0 : res1) + base + col);
+        o[0] = __fadd_rn(o[0], r.x);
+        o[1] = __fadd_rn(o[1], r.y);
+        o[2] = __fadd_rn(o[2], r.z);
+        o[3] = __fadd_rn(o[3], r.w);
+      }
+      *reinterpret_cast<float4*>(out + base + col) =
+          make_float4(o[0], o[1], o[2], o[3]);
+      if (relu_copy != nullptr) {
+        *reinterpret_cast<float4*>(relu_copy + base + col) = make_float4(
+            o[0] > 0.f ? o[0] : 0.f, o[1] > 0.f ? o[1] : 0.f,
+            o[2] > 0.f ? o[2] : 0.f, o[3] > 0.f ? o[3] : 0.f);
+      }
+    });
+  }
+};
+
+// out = relu(in) over n f32 values (n a multiple of 4, 16-byte aligned),
+// 16 bytes a thread, grid-stride; -0 and NaN become +0, as the bf16 pass.
+constexpr int RELU_THREADS = 256;
+
+__global__ void __launch_bounds__(RELU_THREADS)
+relu_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+            long long n4) {
+  for (long long i = blockIdx.x * (long long)RELU_THREADS + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * RELU_THREADS) {
+    const float4 v = in[i];
+    out[i] = make_float4(v.x > 0.f ? v.x : 0.f, v.y > 0.f ? v.y : 0.f,
+                         v.z > 0.f ? v.z : 0.f, v.w > 0.f ? v.w : 0.f);
+  }
+}
+
+template <bool RELU, int NRES>
+int conv(const void* in, const void* wt, const void* bias, const void* res0,
+         const void* res1, void* out, void* relu_copy, int batch, int h,
+         int w, int c, void* stream) {
+  return sgemm::conv3x3((const float*)in, (const float*)wt, batch, h, w, c, c,
+                        RcuStore<RELU, NRES>{(float*)out, (const float*)bias,
+                                             (const float*)res0,
+                                             (const float*)res1,
+                                             (float*)relu_copy, c},
+                        stream);
+}
+
+}  // namespace
+
+// One conv of the chain at f32, with vrvg_rcu_conv's arguments (csrc/
+// rcu_pair.cu) in f32: in (B, H0, W0, C) f32 contiguous; with relu and a
+// non-null `in_relu` (B, H0, W0, C) scratch, relu(in) is written there
+// first and the conv reads it, with relu and a null one `in` is relu'd
+// already; its weights (C, 9 C) f32 (k = (3 dh + dw) C + c) and bias (C,)
+// f32; `nres` residuals (B, H0, W0, C) f32 -> out (B, H0, W0, C) f32, and
+// relu(out) into `out_relu` unless it is null. The chain's three kinds:
+// relu = 1 with no residual and no out_relu (conv1a, conv1b), relu = 0 with
+// two (conv2a: rn0, path2) or one (conv2b: t). C in {64, 128}. Returns a
+// CUDA error code.
+extern "C" int vrvg_rcu_conv_f32(const void* in, void* in_relu,
+                                 const void* wt, const void* bias,
+                                 const void* res0, const void* res1,
+                                 void* out, void* out_relu, int batch, int h,
+                                 int w, int c, int relu, int nres,
+                                 void* stream) {
+  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  if (in_relu != nullptr && !relu) return (int)cudaErrorInvalidValue;
+  const bool ok = relu ? nres == 0 && out_relu == nullptr
+                       : nres == 1 || nres == 2;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
+  if (in_relu != nullptr) {
+    const long long n4 = (long long)batch * h * w * c / 4;
+    const long long blocks = (n4 + RELU_THREADS - 1) / RELU_THREADS;
+    relu_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), RELU_THREADS, 0,
+                  (cudaStream_t)stream>>>((const float4*)in,
+                                          (float4*)in_relu, n4);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    in = in_relu;
+  }
+  if (relu) {
+    return conv<true, 0>(in, wt, bias, res0, res1, out, nullptr, batch, h, w,
+                         c, stream);
+  }
+  if (nres == 2) {
+    return conv<false, 2>(in, wt, bias, res0, res1, out, out_relu, batch, h,
+                          w, c, stream);
+  }
+  return conv<false, 1>(in, wt, bias, res0, res1, out, out_relu, batch, h, w,
+                        c, stream);
+}

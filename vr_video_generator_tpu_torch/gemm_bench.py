@@ -99,16 +99,21 @@ once, each output written once) over its time, and the bound's share of
 its time; each output against its plain version, bit for bit. The rows
 call only the wrappers, so the file runs unchanged on an older tree.
 
-``--rows f32``: the f32 variants of this slice (``--compute_dtype
-float32``) on the f32 SIMT core of ``csrc/sgemm.cuh``, at 1080p, batch 8:
-rows 8 (vits' D = 384) and 9 (vitb-518's 768, vitl-518's 1024) by stage
-(row 1's f32 LayerNorm, fc1 + b1 + GELU, fc2 + residual), against cuBLAS's
-two f32 products (``torch.addmm``, TF32 off); rows 11 and 12 at vitb-518
-(C = 128) and row 7 at vitb-252 (C = 128) by stage (the transpose, the
-passes, the mix, the convs), against cuDNN's f32 convs (TF32 off). Each
-row: the device time by stage and its TFLOP/s or GB/s, the span,
-``event_ms``, the error against the plain version and the bound at the
-card's f32 rate (67 TFLOP/s) or its HBM rate.
+``--rows f32``: the f32 variants (``--compute_dtype float32``) on the f32
+SIMT core of ``csrc/sgemm.cuh``, at 1080p, batch 8: rows 8 (vits' D = 384)
+and 9 (vitb-518's 768, vitl-518's 1024) by stage (row 1's f32 LayerNorm,
+fc1 + b1 + GELU, fc2 + residual) and row 10 at vitg-518's (19544, 1536),
+hidden 4096, by stage (the LayerNorm, the gate + silu, the down product +
+residual), each against cuBLAS's two f32 products of the same shapes
+(``torch.addmm``, TF32 off); rows 11 and 12 at vitb-518 (C = 128), row 7 at
+vitb-252 (C = 128) and row 15 at vits' and vitb's path1 (C = 64, 128) by
+stage (the transpose, the passes, the mix, the convs), against cuDNN's f32
+convs (TF32 off); row 16 at C = 64 and 128 on refinenet1's grid, each
+launch of the chain in order (the ReLU pass, the four convs), against
+cuDNN's f32 conv of one of them. Each row: the device time by stage and its
+TFLOP/s or GB/s, the span, ``event_ms``, the error against the plain
+version and the bound at the card's f32 rate (67 TFLOP/s) or its HBM
+rate.
 
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
@@ -834,6 +839,7 @@ F32_MLP_SHAPES = ((8, "vits", 19544, 384), (9, "vitb-518", 19544, 768),
                   (9, "vitl-518", 19544, 1024))
 F32_TAIL_SHAPES = ((11, "vitb-518", 128, (148, 264), (518, 924)),
                    (7, "vitb-252", 128, (72, 128), (252, 448)))
+F32_BASE_TAIL_SHAPES = BASE_TAIL_SHAPES  # row 15: vits' and vitb's path1
 
 
 def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
@@ -940,6 +946,133 @@ def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
     return res
 
 
+def f32_swiglu_row(label: str, m: int) -> dict:
+    """Row 10 at f32 (module docstring)."""
+    from vr_video_generator_tpu_torch.ops.mlp import (swiglu_residual,
+                                                       swiglu_residual_plain)
+
+    d, hid, f32 = D_G, HID_G, torch.float32
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + 10))
+    args = tuple(randn(shape, sc, sh, f32) for shape, sc, sh in (
+        ((m, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
+        ((2 * hid, d), d ** -0.5, 0.0), ((2 * hid,), 0.5, 0.0),
+        ((d, hid), hid ** -0.5, 0.0), ((d,), 0.5, 0.0), ((d,), 0.1, 1.0)))
+    got, want = swiglu_residual(*args), swiglu_residual_plain(*args)
+    torch.cuda.synchronize()
+    gate, down = 2 * m * d * 2 * hid, 2 * m * hid * d
+    moved = 4 * (2 * m * d + 3 * d * hid + 2 * hid + 5 * d)
+    row = dict(row=10, label=f"{label} f32", M=m, D=d, hidden=hid,
+               max_abs_err=(got - want).abs().max().item(),
+               bound_ms=max((gate + down) / F32_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: swiglu_residual(*args)))
+    del got, want
+    k = row["kernel"]
+    k["stages_us"] = stage_times(k["kernels"], (
+        ("ln", "layernorm"), ("gate + silu", "SwigluGate"),
+        ("down + residual", "LayerScaleResidual")))
+    h, g = randn((m, d), dtype=f32), randn((m, hid), dtype=f32)
+    w12, b12, w3, b3 = args[3], args[4], args[5], args[6]
+    return against_cublas(row, gate + down,
+                          (("SwigluGate", gate), ("LayerScaleResidual", down)),
+                          (("cublas_gate", lambda: torch.addmm(b12, h,
+                                                               w12.t())),
+                           ("cublas_down", lambda: torch.addmm(b3, g,
+                                                               w3.t()))))
+
+
+def f32_base_tail_row(label: str, c: int, grid, out_hw) -> dict:
+    """Row 15 at f32 (module docstring)."""
+    from chip_smoke import f32_tail_weights
+    from vr_video_generator_tpu_torch.ops.head_tail import (head_tail,
+                                                             head_tail_plain)
+
+    (h2, w2), (h1, w1) = grid, out_hw
+    c2, f32 = c // 2, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(c + h2 + 15)
+    randn = seeded(gen)
+    x = randn((BATCH, c, h2, w2), dtype=f32).permute(0, 2, 3, 1)
+    wts = f32_tail_weights(gen, c)[2:]
+    got, want = head_tail(x, *wts, out_hw), head_tail_plain(x, *wts, out_hw)
+    torch.cuda.synchronize()
+    conv1 = 2 * BATCH * h2 * w2 * 9 * c * c2
+    conv2 = 2 * BATCH * h1 * w1 * 9 * c2 * 32
+    xb, c1b, rb = 4 * x.numel(), 4 * BATCH * h2 * w2 * c2, \
+        4 * BATCH * h1 * w1 * c2
+    moved = xb + sum(4 * t.numel() for t in wts) + 4 * got.numel()
+    span = (want.max() - want.min()).item()
+    row = dict(row=15, label=f"{label} f32", C=c, grid=grid, out_hw=out_hw,
+               max_rel_err=(got - want).abs().max().item() / span,
+               bound_ms=max((conv1 + conv2) / F32_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: head_tail(x, *wts, out_hw)))
+    del got, want
+    stages = (("transpose", "to_channels_last", 2 * xb, None),
+              ("conv1", "BiasStore", None, conv1),
+              ("resize", "resize_kernel", c1b + rb, None),
+              ("conv2", "DepthOut", None, conv2))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(n, key) for n, key, _, _ in stages])
+    k["stages_us"] = {n: t for n, t in us.items() if t > 0}
+    k["stage_rates"] = {
+        n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
+        for n, _, b, f in stages if us[n] > 0}
+    xc = x.permute(0, 3, 1, 2)
+    r = randn((BATCH, c2, h1, w1), dtype=f32).contiguous(
+        memory_format=torch.channels_last)
+    k1, b1, k2 = wts[0], wts[1], wts[2]
+    row["cudnn_convs"] = timings(lambda: (F.conv2d(xc, k1, b1, padding=1),
+                                          F.conv2d(r, k2, padding=1)))
+    row["cudnn_convs"]["tflops"] = ((conv1 + conv2)
+                                    / row["cudnn_convs"]["kernel_us"] * 1e-6)
+    row["over_cudnn_kernel"] = k["kernel_us"] / row["cudnn_convs"]["kernel_us"]
+    return row
+
+
+def f32_rcu_row(label: str, c: int) -> dict:
+    """Row 16 at f32 (module docstring)."""
+    import chip_smoke
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
+        refinenet_pre, refinenet_pre_plain)
+
+    b, h0, w0 = chip_smoke.B, chip_smoke.H0, chip_smoke.W0
+    gen = torch.Generator(device="cuda").manual_seed(c + 16)
+    rn0, path2, ws = (t.float() if not isinstance(t, list)
+                      else [w.float() for w in t]
+                      for t in chip_smoke.rcu_inputs(gen, c))
+    got = refinenet_pre(rn0, path2, *ws)
+    want = refinenet_pre_plain(rn0, path2, *ws)
+    torch.cuda.synchronize()
+    conv = 2 * b * h0 * w0 * 9 * c * c  # one conv's FLOPs
+    act = 4 * rn0.numel()               # one (B, H0, W0, C) f32 tensor
+    moved = 3 * act + sum(4 * t.numel() for t in ws)
+    fn = lambda: refinenet_pre(rn0, path2, *ws)  # noqa: E731
+    row = dict(row=16, label=f"{label} f32", C=c, B=b, grid=(h0, w0),
+               max_abs_err=(got - want).abs().max().item(),
+               bound_ms=max(4 * conv / F32_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               conv_bound_ms=conv / F32_FLOP_PER_S * 1e3,
+               kernel=timings(fn))
+    del got, want
+    launches = []
+    for name, us in kernel_sequence(fn, ("sgemm_kernel", "relu_kernel")):
+        is_conv = "relu_kernel" not in name
+        launches.append(dict(
+            kernel=name[:160], us=us,
+            **(dict(tflops=conv / us * 1e-6) if is_conv
+               else dict(gb_s=2 * act / us * 1e-3))))
+    row["launches"] = launches
+    k = row["kernel"]
+    k["chain_us"] = sum(r["us"] for r in launches)
+    k["tflops"] = 4 * conv / k["chain_us"] * 1e-6
+    x = rn0.permute(0, 3, 1, 2)
+    row["cudnn_conv"] = timings(lambda: F.conv2d(x, ws[0], ws[1], padding=1))
+    row["cudnn_conv"]["tflops"] = conv / row["cudnn_conv"]["kernel_us"] * 1e-6
+    row["over_cudnn_kernel"] = k["chain_us"] / (
+        4 * row["cudnn_conv"]["kernel_us"])
+    return row
+
+
 def sass_counts() -> dict:
     """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM and big-C
     tail kernels in the built library (cuobjdump -sass)."""
@@ -956,7 +1089,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 3, 4, "
                     "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
-                    "are measured together; f32: rows 7, 8, 9, 11 and 12 "
+                    "are measured together; f32: rows 7-12, 15 and 16 "
                     "at f32)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1035,6 +1168,13 @@ def main(argv=None) -> int:
             rows.append(f32_tail_row(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
+        for fn, shapes in ((f32_swiglu_row, SWIGLU_SHAPES),
+                           (f32_base_tail_row, F32_BASE_TAIL_SHAPES),
+                           (f32_rcu_row, RCU_SHAPES)):
+            for shape in shapes:
+                rows.append(fn(*shape))
+                print(json.dumps(rows[-1]), flush=True)
+                torch.cuda.empty_cache()
     if wanted & {"3", "4", "13", "14"}:
         for label, frames, depth in warp_depths():
             rows.extend(warp_rows(label, frames, depth, wanted))

@@ -84,6 +84,10 @@ SIGNATURES = {
     "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vrvg_mlp_residual_f32": [_P] * 11 + [_I, _I, _F, _I, _P],
     "vrvg_mlp_residual_hblocked_f32": [_P] * 11 + [_I, _I, _F, _I, _P],
+    "vrvg_swiglu_gate_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vrvg_swiglu_residual_f32": [_P] * 11 + [_I, _I, _I, _F, _P],
+    "vrvg_head_tail_f32": [_P, _I] + [_P] * 12 + [_I] * 6 + [_P],
+    "vrvg_rcu_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 

@@ -41,7 +41,10 @@ before the cast (c1; the halo kernel at C = 64, the GEMM core at C = 128),
 the resize pass (R) and conv2 with the 1x1, all one entry point
 (``vrvg_head_tail`` in csrc/head_tail_big.cu, after an NCHW path1's
 transpose). At C = 32 it runs csrc/head_tail.cu's wmma chain, chosen by
-width there (``BASE_CONV1``).
+width there (``BASE_CONV1``). At f32 (C = 64 and 128) the same three stages
+run as the entry point ``vrvg_head_tail_f32`` (counted as
+``head_tail_f32``): conv1 with its f32 bias and conv2 with the 1x1 on the
+f32 SIMT core, the resize pass on f32, the W-resize weights f32.
 
 The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
@@ -85,12 +88,14 @@ BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
 BIG_F32_LAUNCHES = counter("head_tail_big_f32")
+BASE_F32_LAUNCHES = counter("head_tail_f32")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
 # ... at f32, by both vrvg_head_tail_ext_f32 and vrvg_head_tail_big_f32
 EXT_F32_CHANNELS = BIG_CHANNELS
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
+BASE_F32_CHANNELS = (64, 128)       # ... at f32 (vrvg_head_tail_f32)
 # The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
 # layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
 # kernel (Conv1Out), or the GEMM core (256 x 64 tiles).
@@ -341,8 +346,13 @@ def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
     if not base_takes(c):
         not_ported(f"the single-kernel DPT tail at C={c} on the card",
                    "DPT tail kernels at other widths")
-    if path1.dtype != torch.bfloat16:
-        raise ValueError(f"head_tail kernel takes bf16 input, got {path1.dtype}")
+    if path1.dtype == torch.float32:
+        if c not in BASE_F32_CHANNELS:
+            raise ValueError(f"head_tail f32 kernel takes C in "
+                             f"{BASE_F32_CHANNELS}, got C={c}")
+    elif path1.dtype != torch.bfloat16:
+        raise ValueError(f"head_tail kernel takes bf16 or f32 input, got "
+                         f"{path1.dtype}")
     for name, t, shape in (("output_conv1", k1, (c2, c, 3, 3)),
                            ("output_conv2.0", k2, (C3, c2, 3, 3)),
                            ("output_conv2.2", k3, (1, C3, 1, 1))):
@@ -366,33 +376,44 @@ def _base_weights(k1, b1, k2, b2, k3, b3):
     return (w1, w2, *_f32_vectors(b1, b2, k3, b3))
 
 
+def _base_f32_weights(k1, b1, k2, b2, k3, b3):
+    """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 (C2, 9 C)
+    and conv2 (32, 9 C2) f32, and the f32 vectors b1, b2, the 1x1, b3."""
+    return (conv3x3_gemm_weights(k1, torch.float32),
+            conv3x3_gemm_weights(k2, torch.float32),
+            *_f32_vectors(b1, b2, k3, b3))
+
+
 def _launch_base(path1: torch.Tensor, wts, out_hw):
-    """One launch of vrvg_head_tail on path1 (B, H2, W2, C) bf16 with the
-    torch weights ``wts`` (k1, b1, k2, b2, k3, b3): (c1, R, depth), R None
-    at C = 32 (the wmma chain has no resize pass)."""
+    """One launch of vrvg_head_tail on path1 (B, H2, W2, C) bf16, or of
+    vrvg_head_tail_f32 on f32 path1, with the torch weights ``wts`` (k1, b1,
+    k2, b2, k3, b3): (c1, R, depth), R None at C = 32 (the wmma chain has no
+    resize pass)."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     b, h2, w2, c = path1.shape
     h1, w1 = out_hw
     c2 = c // 2
-    w1m, w2m, b1f, b2f, w3f, b3f = _prepared(_base_weights, wts)
+    f32 = path1.dtype == torch.float32
+    w1m, w2m, b1f, b2f, w3f, b3f = _prepared(
+        _base_f32_weights if f32 else _base_weights, wts)
     if BASE_CONV1[c] == "wmma":
         x, nchw, xt = path1.contiguous(), False, path1
     else:
         x, nchw, xt = _channels_last(path1)
-    taps, tapw = _device_taps(w2, w1, x.device)
-    new = functools.partial(torch.empty, dtype=torch.bfloat16,
-                            device=x.device)
+    taps, tapw = _device_taps(w2, w1, x.device, path1.dtype)
+    new = functools.partial(torch.empty, dtype=path1.dtype, device=x.device)
     c1 = new((b, h2, w2, c2))
     r = new((b, h1, w1, c2)) if BASE_CONV1[c] != "wmma" else None
     out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
-    check(library().vrvg_head_tail(
+    kernel = "vrvg_head_tail_f32" if f32 else "vrvg_head_tail"
+    check(getattr(library(), kernel)(
         x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
         b1f.data_ptr(), w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
         b3f.data_ptr(), taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
         None if r is None else r.data_ptr(), out.data_ptr(), b, h2, w2, c,
-        h1, w1, stream_handle(x.device)), "vrvg_head_tail")
-    BASE_LAUNCHES.count += 1
+        h1, w1, stream_handle(x.device)), kernel)
+    (BASE_F32_LAUNCHES if f32 else BASE_LAUNCHES).count += 1
     return c1, r, out
 
 
@@ -401,7 +422,8 @@ def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
               b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
     version for CPU tensors, the row-15 kernels for CUDA tensors (bf16, C in
-    ``BASE_CHANNELS``; another width raises naming the roadmap item)."""
+    ``BASE_CHANNELS``, another width raising naming the roadmap item; f32,
+    C in ``BASE_F32_CHANNELS``)."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
         return head_tail_plain(path1, *args, out_hw)
@@ -415,8 +437,8 @@ def head_tail_stages(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
     """Row 15 stage by stage: (c1, R, depth), c1 (B, H2, W2, C2) and R (B,
     H1, W1, C2) channels-last, depth (B, H1, W1) f32. For CPU tensors, the
     plain versions of the stages (composed, :func:`head_tail_plain`); for
-    CUDA tensors (bf16, C in 64 or 128), one launch of the chain, whose
-    scratch holds the intermediates."""
+    CUDA tensors (bf16 or f32, C in 64 or 128), one launch of the chain,
+    whose scratch holds the intermediates."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
         c1 = base_conv1_plain(path1, k1, b1)

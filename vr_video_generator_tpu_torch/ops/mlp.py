@@ -34,7 +34,14 @@ w12(LN2(x)), at the same rounding points, and with silu rounded as XLA rounds
 1's kernel) -> the gate (h w12^T, + b12, silu(x1) * x2) -> the down product
 with b3, LayerScale and the residual, with the LN rows and the (M, H) gate
 output in scratch; :func:`swiglu_gate_plain` and :func:`fc2_residual_plain`
-are the plain versions of its two GEMM stages.
+are the plain versions of its two GEMM stages. At f32 it runs the f32 chain
+of ``csrc/swiglu_f32.cu`` (entry point ``vrvg_swiglu_residual_f32``, D in
+``SWIGLU_F32_WIDTHS``, counted as ``swiglu_residual_f32``): row 1's f32
+LayerNorm, the gate on the f32 SIMT core with w12 read as its gated operand
+(x1 and x2 of a g column in one thread) and b12 and silu(x1) * x2 in its
+epilogue, then the down product with b3, LayerScale and the residual;
+:func:`swiglu_gate_kernel` launches its gate stage alone. The plain version
+(:func:`swiglu_residual_plain`) is one for both dtypes.
 """
 
 from __future__ import annotations
@@ -58,11 +65,14 @@ GELU_TANH_LAUNCHES = counter("gelu_tanh")
 F32_LAUNCHES = counter("mlp_residual_f32")
 HBLOCKED_F32_LAUNCHES = counter("mlp_residual_hblocked_f32")
 FC1_GELU_F32_LAUNCHES = counter("fc1_gelu_f32")
+SWIGLU_F32_LAUNCHES = counter("swiglu_residual_f32")
+SWIGLU_GATE_F32_LAUNCHES = counter("swiglu_gate_f32")
 WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
 F32_WIDTHS = (128, 384)            # row 8's at f32 (resident(d, 4d, f32))
 HBLOCKED_F32_WIDTHS = (768, 1024)  # row 9's at f32
 SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
+SWIGLU_F32_WIDTHS = (1536,)  # row 10's at f32 (csrc/swiglu_f32.cu)
 
 
 def swiglu_hidden(d: int, mlp_ratio: float = 4.0) -> int:
@@ -74,7 +84,8 @@ def silu_mul(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """silu(x1) * x2 in x1's dtype, each operation rounded to it: XLA
     evaluates ``jax.nn.silu`` (x * logistic(x)) on bf16 as
     1 / (1 + exp(-x)) with a bf16 rounding after the exp, the add and the
-    divide, then rounds x * s and the product with x2."""
+    divide, then rounds x * s and the product with x2; on f32 the same
+    operations, each rounded to f32 (row 10's f32 gate epilogue)."""
     return x1 * (1 / (1 + torch.exp(-x1))) * x2
 
 
@@ -185,9 +196,10 @@ def takes_width(d: int, ffn_layer: str = "mlp",
                 dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether a kernel of the ``ffn_layer`` half-block is built for model
     width ``d`` with activations in ``dtype`` (bf16, or f32 for the f32
-    variants: rows 8 and 9, not yet row 10)."""
+    variants of rows 8, 9 and 10)."""
     if ffn_layer == "swiglufused":
-        return d in SWIGLU_WIDTHS
+        return d in (SWIGLU_F32_WIDTHS if dtype == torch.float32
+                     else SWIGLU_WIDTHS)
     if dtype == torch.float32:
         return d in F32_WIDTHS + HBLOCKED_F32_WIDTHS
     return d in WIDTHS + HBLOCKED_WIDTHS
@@ -323,8 +335,8 @@ def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                     b3: torch.Tensor, gamma: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 10's
-    kernel chain for CUDA tensors (bf16, D in ``SWIGLU_WIDTHS``, hidden
-    :func:`swiglu_hidden`)."""
+    kernel chain for CUDA tensors (bf16, D in ``SWIGLU_WIDTHS``, or f32, D
+    in ``SWIGLU_F32_WIDTHS``; hidden :func:`swiglu_hidden`)."""
     if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
         return swiglu_residual_plain(x, ln_w, ln_b, w12, b12, w3, b3, gamma,
                                      eps)
@@ -339,8 +351,8 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
                            eps: float = 1e-6):
     """Row 10 stage by stage: (LN(x), silu(x1) * x2, the output), each
     (M, .) with M the rows of x. For CPU tensors, the plain versions of the
-    stages; for CUDA tensors, one launch of the kernel chain, whose scratch
-    holds the first two."""
+    stages; for CUDA tensors, one launch of the kernel chain (bf16, or the
+    f32 chain for f32 x), whose scratch holds the first two."""
     d = x.shape[-1]
     m = x.numel() // d
     if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
@@ -348,31 +360,60 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
         g = swiglu_gate_plain(h, w12, b12)
         return h, g, fc2_residual_plain(g, w3, b3, gamma,
                                         x.reshape(m, d)).reshape(x.shape)
-    if d not in SWIGLU_WIDTHS:
-        raise ValueError(f"swiglu_residual kernel takes D in {SWIGLU_WIDTHS}, "
-                         f"got {d}")
+    f32 = x.dtype == torch.float32
+    kernel, widths, launches = (
+        ("swiglu_residual_f32", SWIGLU_F32_WIDTHS, SWIGLU_F32_LAUNCHES) if f32
+        else ("swiglu_residual", SWIGLU_WIDTHS, SWIGLU_LAUNCHES))
+    if d not in widths:
+        raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
     hid = swiglu_hidden(d)
-    _check_operands("swiglu_residual", x, (
+    dt = torch.float32 if f32 else torch.bfloat16
+    _check_operands(kernel, x, (
         ("LN weight", ln_w, (d,), torch.float32),
         ("LN bias", ln_b, (d,), torch.float32),
-        ("w12 weight", w12, (2 * hid, d), torch.bfloat16),
-        ("w12 bias", b12, (2 * hid,), torch.bfloat16),
-        ("w3 weight", w3, (d, hid), torch.bfloat16),
-        ("w3 bias", b3, (d,), torch.bfloat16),
-        ("gamma", gamma, (d,), torch.bfloat16)))
+        ("w12 weight", w12, (2 * hid, d), dt),
+        ("w12 bias", b12, (2 * hid,), dt),
+        ("w3 weight", w3, (d, hid), dt),
+        ("w3 bias", b3, (d,), dt),
+        ("gamma", gamma, (d,), dt)), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     # Scratch of the chain: the LayerNorm'd rows and silu(x1) * x2.
     h = torch.empty((m, d), dtype=x.dtype, device=x.device)
     g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    check(library().vrvg_swiglu_residual(
+    check(getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
         b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
         h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, eps,
-        stream_handle(x.device)), "vrvg_swiglu_residual")
-    SWIGLU_LAUNCHES.count += 1
+        stream_handle(x.device)), f"vrvg_{kernel}")
+    launches.count += 1
     return h, g, out
+
+
+def swiglu_gate_kernel(h: torch.Tensor, w12: torch.Tensor,
+                       b12: torch.Tensor) -> torch.Tensor:
+    """:func:`swiglu_gate_plain` of f32 LayerNorm'd rows h (..., D), w12
+    (2H, D) and b12 (2H,) f32, D and H multiples of 4: the plain version for
+    CPU tensors, for CUDA tensors row 10's f32 gate stage alone
+    (``vrvg_swiglu_gate_f32``; no CLI path calls this: it exposes the
+    epilogue's silu, for a check through a selection w12)."""
+    if not on_cuda(h, w12, b12):
+        return swiglu_gate_plain(h, w12, b12)
+    d, hid = h.shape[-1], w12.shape[0] // 2
+    f32 = torch.float32
+    _check_operands("swiglu_gate_f32", h, (
+        ("w12 weight", w12, (2 * hid, d), f32),
+        ("w12 bias", b12, (2 * hid,), f32)), f32)
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    g = torch.empty((*h.shape[:-1], hid), dtype=f32, device=h.device)
+    check(library().vrvg_swiglu_gate_f32(
+        h.data_ptr(), w12.data_ptr(), b12.data_ptr(), g.data_ptr(),
+        h.numel() // d, d, hid, stream_handle(h.device)),
+        "vrvg_swiglu_gate_f32")
+    SWIGLU_GATE_F32_LAUNCHES.count += 1
+    return g
 
 
 def _check_operands(kernel: str, x: torch.Tensor, operands,

@@ -93,29 +93,22 @@ def check_supported(run_cfg: RunConfig) -> None:
 
 def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     """``compute_dtype`` float32 on the card: raise ``not_ported`` where the
-    plan the JAX package's planners make at f32 for this geometry (its
-    token count, the MLP half's fusion and its kernel, the DPT tail) needs
-    a kernel row that has no f32 variant yet, naming the first: the fused
-    SwiGLU half (row 10: vitg ``auto`` and ``fused``), then a tail width no
-    f32 tail kernel takes (ops/head_tail.takes_f32). Rows 1, 2, 5-9, 11, 12
-    and 17 have theirs, and row 7 at every ext width, which covers every
-    plan of vits, vitb and vitl and ``--mlp_fused xla`` at every encoder.
-    It reads only the config, so it runs before any weight is built."""
+    plan the JAX package's planners make at f32 for this geometry needs a
+    DPT tail at a width no f32 tail kernel takes (ops/head_tail.takes_f32:
+    a custom head of 32 features), naming the rows. Every depth-net kernel
+    has an f32 variant, vitg's fused SwiGLU half (row 10) included, and the
+    f32 tails take C = 64 to 384, which covers every plan of vits, vitb,
+    vitl and vitg. The MLP half's fusion is resolved too, so a width its
+    kernel does not take raises here. It reads only the config, so it runs
+    before any weight is built."""
     cfg = run_cfg.model()
     p, d = cfg.patch_size, cfg.embed_dim
     hn, wn = network_input_size(height, width, target=run_cfg.input_size,
                                 multiple_of=p)
     ph, pw = hn // p, wn // p
     f32 = torch.float32
-    _, fuse_mlp = resolve_block_fusion(cfg.mlp_fused, d, cfg.num_heads,
-                                       ph * pw + 1, "cuda", f32,
-                                       cfg.ffn_layer)
-    if fuse_mlp and cfg.ffn_layer == "swiglufused":
-        not_ported(f"compute_dtype='float32' on the card: encoder "
-                   f"{run_cfg.encoder} with mlp_fused={cfg.mlp_fused!r} at "
-                   f"--input_size {run_cfg.input_size} runs the fused SwiGLU "
-                   f"half (row 10) at D={d}, which has no f32 kernel yet",
-                   "f32 on the card")
+    resolve_block_fusion(cfg.mlp_fused, d, cfg.num_heads, ph * pw + 1, "cuda",
+                         f32, cfg.ffn_layer)
     batch = max(run_cfg.batch_size // run_cfg.depth_stride, 1)
     pre = (batch, 4 * ph, 4 * pw, cfg.features)
     choice = resolve_tail(run_cfg.tail, pre, f32, (hn, wn), "cuda")

@@ -9,8 +9,8 @@ Run from the root of a checkout on a machine with a CUDA GPU:
         [--depth_stride S] [--compute_dtype bfloat16|float32]
 
 The configuration is ``bench.py`` config 2's geometry: 1080p, bf16 (f32 with
-``--compute_dtype float32``: the f32 kernels, at every encoder but vitg's
-fused SwiGLU half), batch 8,
+``--compute_dtype float32``: the f32 kernels, at every encoder; vitg's
+fused SwiGLU half on row 10's f32 chain), batch 8,
 vits at --input_size 518 unless ``--encoder`` / ``--input_size`` say
 otherwise, with the kernel paths the two flags pick as the CLI's do (default
 ``auto``: on the card the fused attention half-block and DPT tail), and

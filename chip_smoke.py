@@ -117,9 +117,10 @@ Phases, each fatal on failure:
      TF32 flags off, each bound shown to refuse the TF32 result of the same
      operands, timed beside the plain version, one library call
      (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's convs, all f32) and the f32
-     bound (67 TFLOP/s); the GELU of rows 8 and 9's f32 fc1 epilogue bit
-     for bit against the eager f32 chain through a selection fc1 (every
-     bf16 value, a dense sweep, the flush near -5.7), and the silu of row
+     bound (165 TFLOP/s: 3xTF32 on the tensor cores); the GELU of rows 8
+     and 9's f32 fc1 epilogue bit for bit against the eager f32 chain
+     through a selection fc1 (every bf16 value, a dense sweep, the flush
+     near -5.7), and the silu of row
      10's f32 gate epilogue against the plain f32 silu_mul through a
      selection w12 (every bf16 value, a dense sweep past the overflow of
      exp(-x1)); with PyTorch's
@@ -2669,9 +2670,13 @@ KERNELS_F32 = {
     "rcu_pair_f32": ("cuda", f"{PKG}/csrc/rcu_pair_f32.cu",
                      f"{JAX_PKG}/attic/refinenet_pre.py:47"),
 }
-# The card's f32 rate outside the tensor cores (H100 SXM data sheet): the
-# f32 kernels' operations bound (wgmma takes no f32 operands).
-F32_FLOP_PER_S = 67e12
+# The f32 kernels' operations bound: the least time for the work at f32
+# accuracy, whatever implements it. The larger of the card's f32 rate
+# outside the tensor cores (67 TFLOP/s, H100 SXM data sheet) and a third of
+# its dense TF32 rate (495 TFLOP/s): 3xTF32 takes three TF32 products for
+# one f32-accurate one (rows 2 and 17 run so, csrc/attention_f32.cu).
+F32_SIMT_FLOP_PER_S, TF32_FLOP_PER_S = 67e12, 495e12
+F32_FLOP_PER_S = max(F32_SIMT_FLOP_PER_S, TF32_FLOP_PER_S / 3)
 # One vits auto step at f32 (1080p, B = 8, --input_size 518): the attention
 # half fused (attn_fusable(384, 2443, f32)), the MLP half unfused (D < 512:
 # cuBLAS SGEMMs and the eager GELU), the ext tail at C = 64; LayerNorm at
@@ -2753,7 +2758,8 @@ F32_CUT_DEPTH, F32_CUT_BATCH = 4, 2
 # shows on the same operands. Measured (NVIDIA H100 80GB HBM3, 700.00 W):
 # row 1 6 ulps, row 5 24, row 6 0, row 7's conv1 (K = 576) 64, its passes
 # 3-6; TF32 10698-24430 ulps. Rows 2, 17 and 7 at most 3.4e-6 (max) of
-# |o| or the range; TF32 5.4e-4-8.3e-4.
+# |o| or the range; TF32 5.4e-4-8.3e-4. Rows 2 and 17 on 3xTF32 wgmma: at
+# most 3.7e-6 (max) and 1.1e-6 (mean) of |o| (attention_bench).
 F32_MAX_ULPS = 256
 ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL = 1e-4, 1e-5
 TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL = 1e-4, 1e-5

@@ -1410,6 +1410,21 @@ def test_attention_f32_kernels_match_plain(cuda, flash, b, n, h):
                   ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL)
 
 
+def test_attention_f32_kernels_hold_tf32_hgmma(cuda):
+    """Both f32 attention kernels (rows 2 and 17) run their products as
+    wgmma with TF32 operands (3xTF32), fed by TMA: the one-thread-a-row FFMA
+    design is gone."""
+    from vr_video_generator_tpu_torch.attention_bench import sass_counts
+
+    counts = {name: c for name, c in sass_counts().items()
+              if "attention_f32_kernel" in name}
+    assert len(counts) == 2, counts
+    for name, c in counts.items():
+        assert c["HGMMA_TF32"] >= 48 and c["HGMMA_TF32"] == c["HGMMA"], (
+            name, c)
+        assert c["UTMALDG"] > 0, (name, c)
+
+
 @pytest.mark.parametrize("b,h0,w0", [(1, 7, 11), (2, 37, 66), (8, 148, 264)])
 def test_head_tail_ext_f32_kernel_matches_plain(cuda, b, h0, w0):
     """Row 7 at f32, C = 64, on an NCHW activation seen as NHWC, against its

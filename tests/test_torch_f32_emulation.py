@@ -3,9 +3,8 @@ CPU under the host emulation of CUDA (tests/cuda_emu/cuda_runtime.h),
 against their plain versions.
 
 g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
-5's and row 6's epilogues), csrc/attention_f32.cu (rows 2 and 17 at f32) and
-csrc/mlp_f32.cu (rows 8 and 9 at f32: fc1 with b1 and the GELU of
-csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual),
+5's and row 6's epilogues) and csrc/mlp_f32.cu (rows 8 and 9 at f32: fc1
+with b1 and the GELU of csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual),
 csrc/swiglu_f32.cu (row 10 at f32: the gate with w12 as the gated operand
 sgemm::GatedRows, b12 and silu(x1) * x2 in its epilogue, the down product
 with b3, LayerScale and the residual) and csrc/rcu_pair_f32.cu (row 16 at
@@ -17,8 +16,10 @@ implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
 and the tile each product takes by width) as vrvg_head_tail_ext_f32,
 vrvg_head_tail_big_f32 and vrvg_head_tail_f32 (row 15 at f32) call them; the tails' passes (upsample, resize) are
 their plain versions around them. Each CUDA thread is a std::thread and each
-__syncthreads a barrier, so the tiles' indexing, the ragged edges, the
-double-buffered k slices and the online softmax run as written. The plain
+__syncthreads a barrier, so the tiles' indexing, the ragged edges and the
+double-buffered k slices run as written. Rows 2 and 17 at f32
+(csrc/attention_f32.cu: TMA and wgmma, which the emulation has not) are
+held on the CPU by tests/test_torch_attention_3xtf32.py. The plain
 versions sum in another order, so each output is held to a bound in f32
 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32 product
 would be thousands off); the GELU epilogue's expf and tanhf are the host's,
@@ -40,8 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
-from vr_video_generator_tpu_torch.ops.attention import (attention_plain,
-                                                        flash_attention_plain)
 from vr_video_generator_tpu_torch.ops import head_tail as ht
 from vr_video_generator_tpu_torch.ops import mlp
 from vr_video_generator_tpu_torch.ops.head_tail import (big_conv2_plain,
@@ -125,7 +124,6 @@ extern "C" int emu_conv2_depth_n_f32(const float* r, const float* w2,
 }
 """
 UNITS = {"qkv_f32.cu": ("", "qkv_f32.cu", LN_STUB),
-         "attention_f32.cu": ("", "attention_f32.cu", ""),
          "tail_f32.cpp": ("", "sconv.cuh", TAIL_ENTRIES)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EMU_SIGNATURES = {
@@ -176,8 +174,7 @@ def _build(tmp, units, entries, name):
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
     for src in ("gelu_as.cuh", "sgemm.cuh", "sconv.cuh", "qkv_f32.cu",
-                "attention_f32.cu", "mlp_f32.cu", "swiglu_f32.cu",
-                "rcu_pair_f32.cu"):
+                "mlp_f32.cu", "swiglu_f32.cu", "rcu_pair_f32.cu"):
         (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     paths = []
     for unit, (pre, inc, post) in units.items():
@@ -201,8 +198,7 @@ def _build(tmp, units, entries, name):
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("cuda_emu_f32"), UNITS,
                   ("vrvg_qkv_f32", "vrvg_ln_qkv_f32",
-                   "vrvg_proj_ls_residual_f32", "vrvg_attention_f32",
-                   "vrvg_flash_attention_f32", *EMU_SIGNATURES),
+                   "vrvg_proj_ls_residual_f32", *EMU_SIGNATURES),
                   "libemu_f32.so")
 
 
@@ -276,39 +272,6 @@ def test_proj_source(lib, m, d):
         gamma.data_ptr(), out.data_ptr(), m, d, None) == 0
     want = proj_ls_residual_plain(o, x, w, b, gamma)
     assert f32_ulps(out, want, x, gamma * b).max() <= MAX_ULPS
-
-
-def _attention(lib, entry, q, k, v, scale):
-    b, n, h, _ = q.shape
-    o = torch.empty((b, n, h, 64))
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), o.stride(0), o.stride(1), scale, None)
-    assert err == 0
-    return o
-
-
-@pytest.mark.parametrize("n", [45, 160])
-@pytest.mark.parametrize("flash", [False, True], ids=["row2", "row17"])
-def test_attention_source(lib, n, flash):
-    """Rows 2 and 17 at f32 with k and v strided views into one qkv: a
-    ragged last key tile (45: one tile, 160: five), query rows past N in
-    the block, peaked logits; against the one-shot and the blocked flash
-    plain versions, relative to max |o| (f32 rounding only, nothing cast)."""
-    rng = np.random.default_rng(n + 3 * flash)
-    b, h, scale = 2, 2, 64 ** -0.5
-    qkv = randn(rng, (b, n, 3, h, 64), 2.0)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    if flash:
-        got = _attention(lib, "vrvg_flash_attention_f32", q, k, v, scale)
-        want = flash_attention_plain(q, k, v, scale)
-    else:
-        qs = (q * scale).contiguous()
-        got = _attention(lib, "vrvg_attention_f32", qs, k, v, 1.0)
-        want = attention_plain(qs, k, v)
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5 * want.abs().max().item()
 
 
 def test_mix_source(lib):

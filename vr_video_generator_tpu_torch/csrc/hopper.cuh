@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (csrc/attention.cu, csrc/wgmma_gemm.cuh, csrc/head_tail_big.cu):
-// mbarriers, TMA loads and stores through tensor maps, wgmma shared-memory
-// descriptors in the 128-byte swizzle, the wgmma fences and products, and
+// (csrc/attention.cu, csrc/attention_f32.cu, csrc/wgmma_gemm.cuh,
+// csrc/head_tail_big.cu): mbarriers, TMA loads and stores through tensor
+// maps, wgmma shared-memory descriptors in the 128-byte swizzle, the wgmma
+// fences and products (bf16, and TF32 with A in registers), and
 // cuTensorMapEncodeTiled looked up at run time.
 
 #pragma once
@@ -316,6 +317,34 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da,
   } else {
     wgmma_m64n256k16(d, da, db, accumulate);
   }
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8) B^T (B 64 x 8), TF32 operands: A in
+// registers, B from shared memory, K-major (.tf32 has no transpose bit).
+// A's fragment: thread (warp w, lane l) holds rows r = 16 w + l / 4 and
+// r + 8 at k-slots c = l % 4 and c + 4, as a0 (r, c), a1 (r + 8, c),
+// a2 (r, c + 4), a3 (r + 8, c + 4). The sum starts from D when
+// `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3,
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -112,8 +112,9 @@ convs (TF32 off); row 16 at C = 64 and 128 on refinenet1's grid, each
 launch of the chain in order (the ReLU pass, the four convs), against
 cuDNN's f32 conv of one of them. Each row: the device time by stage and its
 TFLOP/s or GB/s, the span, ``event_ms``, the error against the plain
-version and the bound at the card's f32 rate (67 TFLOP/s) or its HBM
-rate.
+version and the bound at the card's f32-accurate rate (165 TFLOP/s: a
+third of its dense TF32 rate, as 3xTF32 takes three TF32 products for one,
+above the 67 TFLOP/s outside the tensor cores) or its HBM rate.
 
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
@@ -137,7 +138,10 @@ import torch.nn.functional as F
 from vr_video_generator_tpu_torch.stage_bench import card_line, event_ms
 
 BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12  # outside the tensor cores (H100 SXM data sheet)
+# The f32-accurate rate: the larger of the card's f32 rate outside the
+# tensor cores and 3xTF32's third of its dense TF32 rate (H100 SXM data
+# sheet: 67 and 495 TFLOP/s).
+F32_FLOP_PER_S = max(67e12, 495e12 / 3)
 HBM_BYTES_PER_S = 3.35e12
 CALLS = 50          # calls under the profiler
 HOST_CALLS = 1000   # calls timed on the host clock, no sync between

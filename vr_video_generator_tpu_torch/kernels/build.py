@@ -75,10 +75,11 @@ SIGNATURES = {
     "vrvg_qkv_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_ln_qkv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # The f32 attention entries take the wrapper's scratch before the stream.
     "vrvg_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _P, _P],
     "vrvg_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
-                                 _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+                                 _L, _L, _L, _L, _L, _L, _L, _L, _F, _P, _P],
     "vrvg_head_tail_ext_f32": [_P, _I] + [_P] * 18 + [_I] * 6 + [_P],
     "vrvg_head_tail_big_f32": [_P, _I] + [_P] * 15 + [_I] * 6 + [_P],
     "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -19,7 +19,11 @@ the one-shot function up to 4096 tokens, the flash function above. Both
 kernels are ``csrc/attention.cu``; see its header for the design. At f32
 (``--compute_dtype float32``) the wrappers launch the f32 variants of both
 rows (``csrc/attention_f32.cu``, counted as ``attention_f32`` and
-``flash_attention_f32``): FFMA products, an f32 softmax, nothing cast.
+``flash_attention_f32``): a pass that splits K and V into TF32 halves in a
+scratch buffer the wrapper allocates, then both products as 3xTF32 wgmma
+(each f32 operand the sum of two TF32 values, three products into one f32
+accumulator), an f32 softmax, nothing cast: 96-109 TFLOP/s on an H100
+(PERF.md), a third of one f32 ``scaled_dot_product_attention`` call's time.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ FLASH_F32_LAUNCHES = counter("flash_attention_f32")
 HEAD_DIM = 64
 MAX_ONESHOT_TOKENS = 4096  # attention_pallas._MAX_SEQ
 FLASH_BLOCK = 512          # ops/attention._FLASH_BLOCK
+F32_KEY_TILE = 64          # csrc/attention_f32.cu BN: the split K/V's padding
 # The library kernel's logit for a masked key (flash_attention.DEFAULT_MASK_VALUE).
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -105,11 +110,17 @@ def _check_layout(kernel: str, name: str, x: torch.Tensor, shape,
                          f"aligned, got strides {x.stride()}")
 
 
+def f32_scratch_numel(b: int, n: int, h: int) -> int:
+    """Floats of scratch ``csrc/attention_f32.cu`` takes: K_hi, K_lo, V^T_hi
+    and V^T_lo, each (B, H, N rounded up to 64, 64)."""
+    return 4 * b * h * -(-n // F32_KEY_TILE) * F32_KEY_TILE * HEAD_DIM
+
+
 def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float) -> torch.Tensor:
     """Check the layout and launch ``csrc/attention.cu``'s kernel (bf16) or
-    ``csrc/attention_f32.cu``'s (f32), which multiplies the f32 logits by
-    ``scale``."""
+    ``csrc/attention_f32.cu``'s (f32, with its scratch), which multiplies
+    the f32 logits by ``scale``."""
     b, n, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"{kernel} kernel supports head_dim {HEAD_DIM}, "
@@ -121,12 +132,17 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    entry = f"vrvg_{kernel}" + ("_f32" if q.dtype == torch.float32 else "")
+    entry, scratch = f"vrvg_{kernel}", ()
+    if q.dtype == torch.float32:
+        entry += "_f32"
+        ws = torch.empty(f32_scratch_numel(b, n, h), dtype=q.dtype,
+                         device=q.device)
+        scratch = (ws.data_ptr(),)
     err = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1), scale,
-        stream_handle(q.device))
+        *scratch, stream_handle(q.device))
     check(err, entry)
     return o
 

@@ -2665,6 +2665,10 @@ KERNELS_F32 = {
                           f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
     "swiglu_residual_f32": ("cuda", f"{PKG}/csrc/swiglu_f32.cu",
                             f"{JAX_PKG}/ops/mlp_pallas.py:101"),
+    # The weights' TF32 split that rows 8, 9 and 10 at f32 take (once per
+    # weight, at a path's first step), named with row 10's TPU kernel.
+    "tf32x3_split": ("cuda", f"{PKG}/csrc/tf32x3_split.cu",
+                     f"{JAX_PKG}/ops/mlp_pallas.py:101"),
     "head_tail_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
                       f"{JAX_PKG}/ops/head_tail_pallas.py:90"),
     "rcu_pair_f32": ("cuda", f"{PKG}/csrc/rcu_pair_f32.cu",
@@ -2701,6 +2705,10 @@ AUTO_VITB_F32_STEP = {"layernorm_f32": 4, "ln_qkv_f32": 12,
 AUTO_VITG_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                       "swiglu_residual_f32": 40, "warp_composite": 1,
                       "blur_select_sbs": 1}
+# The weight splits (tf32x3_split) of an auto path's first step at f32: two
+# a block whose MLP half is fused (vitb's 12 row 9 halves, vitg's 40 row 10
+# halves; vits auto leaves the MLP half unfused); later steps split none.
+AUTO_F32_SPLITS = {"vits": 0, "vitb": 24, "vitg": 80}
 # vitg-126 fused at f32 (1080p, B = 8, 40 blocks, 145 tokens): the same
 # encoder kernels, and the big-C tail at C = 384 at f32 (rows 11 + 12).
 VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
@@ -2759,7 +2767,9 @@ F32_CUT_DEPTH, F32_CUT_BATCH = 4, 2
 # row 1 6 ulps, row 5 24, row 6 0, row 7's conv1 (K = 576) 64, its passes
 # 3-6; TF32 10698-24430 ulps. Rows 2, 17 and 7 at most 3.4e-6 (max) of
 # |o| or the range; TF32 5.4e-4-8.3e-4. Rows 2 and 17 on 3xTF32 wgmma: at
-# most 3.7e-6 (max) and 1.1e-6 (mean) of |o| (attention_bench).
+# most 3.7e-6 (max) and 1.1e-6 (mean) of |o| (attention_bench). Rows 8, 9
+# and 10 on 3xTF32 wgmma, against the plain versions on f64 operands: at
+# most 54 ulps on vitg-518's gate, where cuBLAS's f32 products are 282 off.
 F32_MAX_ULPS = 256
 ATTN_F32_MAX_REL, ATTN_F32_MEAN_REL = 1e-4, 1e-5
 TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL = 1e-4, 1e-5
@@ -2838,6 +2848,38 @@ def f32_dense_check(name, got, want, tf32_want, feature_dims, *addends):
     return stats
 
 
+def f32_exact_check(name, got, exact, plain, tf32_want, feature_dims,
+                    *addends):
+    """A kernel on the 3xTF32 core (rows 8, 9 and 10 at f32) within
+    F32_MAX_ULPS of its plain version evaluated on f64 operands (``exact``:
+    its products and sums to f64, each elementwise step as the plain version
+    has it), the TF32 result of the same operands refused by that bound
+    (f32_dense_check). The f32 plain version (``plain``: cuBLAS's f32
+    sums) is held against the same reference and logged beside it, with the
+    kernel's distance from it: its own error reaches the bound (282 ulps on
+    vitg-518's gate, where the kernel is 54 off, on an NVIDIA H100), so a
+    kernel that sums in another order than cuBLAS is not held to cuBLAS's
+    own error. The kernel must be at least as close to the reference as
+    the f32 plain version on average."""
+    stats = f32_dense_check(name, got, exact, tf32_want, feature_dims,
+                            *addends)
+    u_plain = f32_ulps(plain, exact, feature_dims, *addends)
+    u_got = f32_ulps(got, plain, feature_dims, *addends)
+    stats.update(plain_max_ulps=u_plain.max().item(),
+                 plain_mean_ulps=u_plain.mean().item(),
+                 vs_plain_max_ulps=u_got.max().item(),
+                 vs_plain_mean_ulps=u_got.mean().item())
+    require(stats["mean_ulps"] <= stats["plain_mean_ulps"],
+            f"{name}: {json.dumps(stats)}: further from the f64 reference "
+            f"on average than the f32 plain version")
+    return stats
+
+
+def f64(*tensors):
+    """The tensors as f64 (the plain versions' exact reference)."""
+    return tuple(t.double() for t in tensors)
+
+
 def f32_rel_check(name, got, want, tf32_want, max_rel, mean_rel, span=None):
     """An f32 kernel against its plain version, its error relative to max /
     mean |want| (attention) or to ``span`` (the depth's range); the same
@@ -2867,8 +2909,9 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
     the chain's own input (the LN rows within the f32 bound of the plain
     LayerNorm; fc1 + b1 + GELU, its scale taking in the GELU's input, and
     fc2 + b2 + LayerScale + residual with the dense f32 bound), the whole
-    output against mlp_residual_plain; each bound refuses the same function
-    with the weights rounded to TF32.
+    output against mlp_residual_plain, the products' stages and the whole
+    against the plain versions on f64 operands (f32_exact_check); each
+    bound refuses the same function with the weights rounded to TF32.
     Timed beside the plain version and cuBLAS's two f32 products (addmm,
     TF32 off), with the f32 bound."""
     import torch
@@ -2898,21 +2941,23 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
     require(st["ln"]["max_ulps"] <= F32_MAX_ULPS,
             f"{label} LN stage: {st['ln']} over {F32_MAX_ULPS} f32 ulps")
     t = torch.addmm(b1, a, w1.t())
-    st["fc1_gelu"] = f32_dense_check(
-        f"{label} fc1 + GELU", h, mlp.fc1_gelu_plain(a, w1, b1),
+    st["fc1_gelu"] = f32_exact_check(
+        f"{label} fc1 + GELU", h, mlp.fc1_gelu_plain(*f64(a, w1, b1)),
+        mlp.fc1_gelu_plain(a, w1, b1),
         mlp.fc1_gelu_plain(a, tf32_round(w1), b1), 1, t)
     del t
     x2 = x.reshape(m, d)
-    st["fc2_residual"] = f32_dense_check(
+    st["fc2_residual"] = f32_exact_check(
         f"{label} fc2 + residual", got.reshape(m, d),
+        mlp.fc2_residual_plain(*f64(h, w2, b2, gamma, x2)),
         mlp.fc2_residual_plain(h, w2, b2, gamma, x2),
         mlp.fc2_residual_plain(h, tf32_round(w2), b2, gamma, x2), 1, x2,
         gamma * b2)
     del a
-    want = mlp.mlp_residual_plain(*args)
-    stats = f32_dense_check(label, got, want, mlp.mlp_residual_plain(*tf_args),
-                            1, x, gamma * b2)
-    del got, want
+    stats = f32_exact_check(label, got, mlp.mlp_residual_plain(*f64(*args)),
+                            mlp.mlp_residual_plain(*args),
+                            mlp.mlp_residual_plain(*tf_args), 1, x, gamma * b2)
+    del got
     log(f"{label} stages: {json.dumps(st)}")
     fc = 2 * m * d * hid
     hh = torch.empty_like(h)
@@ -2925,15 +2970,28 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
     return res
 
 
+def selection_sum(v):
+    """What a 3xTF32 product of v with 1 gives, every other term 0: hi(v) +
+    lo(v) (csrc/tf32x3.cuh's split), exact in f32."""
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    hi, lo = mlp.tf32x3_split_plain(v)
+    return hi + lo
+
+
 def check_gelu_f32(device) -> dict:
     """The GELU of rows 8 and 9's f32 fc1 epilogue (csrc/gelu_as.cuh) bit for
-    bit against the eager f32 chain (ops/gelu.gelu_exact) on the same f32
-    values, through a selection fc1 (fc1_gelu_kernel with w1 (512, 128)
-    picking input column n mod 128 for output n and b1 = 0: each sum is one
-    exact product, so the epilogue sees the value itself): every finite
-    bf16 value as f32, 2^18 values spaced evenly over [-8, 8], and the 8192
-    f32 values below -5.75 where the A&S form flushes to -0.0. The tanh
-    variant (approx) against ops/gelu.gelu_tanh on the same values: bit for
+    bit against the eager f32 chain (ops/gelu.gelu_exact), through a
+    selection fc1 (fc1_gelu_kernel with w1 (512, 128) picking input column n
+    mod 128 for output n and b1 = 0): every finite bf16 value as f32, 2^18
+    values spaced evenly over [-8, 8], and the 8192 f32 values below -5.75
+    where the A&S form flushes to -0.0. On the 3xTF32 core the selection's
+    sum of a is hi(a) + lo(a) (its only non-zero products, a_lo * 1 and
+    a_hi * 1, added exactly): a itself where a has at most 22 significant
+    bits (every bf16 value, required), else a to 2^-22 (the linspace and
+    flush sets, counted). So each value is compared with the eager chain on
+    that sum (selection_sum), and no value set is dropped. The tanh
+    variant (approx) against ops/gelu.gelu_tanh on the same sums: bit for
     bit where the card's tanhf and PyTorch's agree, else within 2 f32 ulps
     of max(|x|, |gelu|) (logged)."""
     import torch
@@ -2949,14 +3007,24 @@ def check_gelu_f32(device) -> dict:
     vals = torch.cat([bf[torch.isfinite(bf)],
                       torch.linspace(-8.0, 8.0, 2 ** 18, device=device),
                       flush])
+    sets = {"bf16": int(torch.isfinite(bf).sum()), "linspace": 2 ** 18,
+            "flush": 8192}
     vals = torch.cat([vals, torch.zeros((-len(vals)) % 128, device=device)])
     a = vals.reshape(-1, 128)
+    sum_a = selection_sum(a)
+    moved = (sum_a != a).flatten()
+    split_moves, at = {}, 0
+    for name, n in sets.items():
+        split_moves[name] = int(moved[at:at + n].sum())
+        at += n
+    require(split_moves["bf16"] == 0,
+            f"gelu_f32: hi + lo is not the bf16 value itself: {split_moves}")
     w1 = torch.eye(128, device=device).repeat(4, 1)
     b1 = torch.zeros(512, device=device)
-    out = {}
+    out = {"values_the_split_moves": split_moves}
     for approx, eager in ((False, gelu_exact), (True, gelu_tanh)):
         got = mlp.fc1_gelu_kernel(a, w1, b1, approx)
-        want = eager(a).repeat(1, 4)
+        want = eager(sum_a).repeat(1, 4)
         torch.cuda.synchronize()
         differ = int((got != want).sum())
         x = a.repeat(1, 4).double()
@@ -2966,6 +3034,9 @@ def check_gelu_f32(device) -> dict:
         key = "tanh" if approx else "exact"
         out[key] = dict(values=len(vals), differ=differ, max_ulps=ulps,
                         flushed_to_zero=int((got[:, :128] == 0).sum()))
+        if differ:
+            bad = (got != want).any(dim=1).nonzero()[:8, 0]
+            out[key]["first_rows_a"] = a[bad, :4].tolist()
         if approx:
             require(ulps <= 2, f"gelu_f32 tanh: {out[key]}")
         else:
@@ -3127,9 +3198,10 @@ def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
     stage, each stage on the chain's own input: the LN rows within the f32
     bound of the plain LayerNorm; the gate (+ b12, silu(x1) * x2), its scale
     taking in |x1 x2|, and the down product (+ b3, LayerScale, residual) by
-    the dense f32 bound; the whole output against swiglu_residual_plain.
-    Each bound refuses the same function with the weights rounded to TF32.
-    Timed beside the plain version and cuBLAS's two f32 products (addmm,
+    the dense f32 bound; the whole output against swiglu_residual_plain; the
+    products' stages and the whole against the plain versions on f64
+    operands (f32_exact_check). Each bound refuses the same function with
+    the weights rounded to TF32. Timed beside the plain version and cuBLAS's two f32 products (addmm,
     TF32 off), with the f32 bound."""
     import torch
 
@@ -3156,21 +3228,23 @@ def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
     t = torch.addmm(b12, h, w12.t())
     scale = (t[:, :hid] * t[:, hid:]).abs()
     del t
-    st["gate"] = f32_dense_check(
-        f"{label} gate + silu", g, mlp.swiglu_gate_plain(h, w12, b12),
+    st["gate"] = f32_exact_check(
+        f"{label} gate + silu", g, mlp.swiglu_gate_plain(*f64(h, w12, b12)),
+        mlp.swiglu_gate_plain(h, w12, b12),
         mlp.swiglu_gate_plain(h, tf32_round(w12), b12), 1, scale)
     del scale
     x2 = x.reshape(m, d)
-    st["down_residual"] = f32_dense_check(
+    st["down_residual"] = f32_exact_check(
         f"{label} down + residual", got.reshape(m, d),
+        mlp.fc2_residual_plain(*f64(g, w3, b3, gamma, x2)),
         mlp.fc2_residual_plain(g, w3, b3, gamma, x2),
         mlp.fc2_residual_plain(g, tf32_round(w3), b3, gamma, x2), 1, x2,
         gamma * b3)
-    want = mlp.swiglu_residual_plain(*args)
-    stats = f32_dense_check(label, got, want,
+    stats = f32_exact_check(label, got, mlp.swiglu_residual_plain(*f64(*args)),
+                            mlp.swiglu_residual_plain(*args),
                             mlp.swiglu_residual_plain(*tf_args), 1, x,
                             gamma * b3)
-    del got, want
+    del got
     log(f"{label} stages: {json.dumps(st)}")
     gate, down = 2 * m * d * 2 * hid, 2 * m * hid * d
     res = dict(**stats, stages=st,
@@ -3184,15 +3258,49 @@ def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
     return res
 
 
+def check_tf32x3_split(gen) -> dict:
+    """The weights' TF32 split (csrc/tf32x3_split.cu) at row 10's shapes,
+    w12 (8192, 1536) in the gated order and w3 (1536, 4096), bit for bit
+    against its plain version (mlp.tf32x3_weight_plain). Timed on w12, the
+    kernel at every call (mlp.tf32x3_split_kernel), beside the plain
+    version; bound by its bytes (w12 read, both planes written); no one
+    PyTorch call computes it."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    w12 = randn(gen, (2 * HID_G, DIM_G), DIM_G ** -0.5)
+    w3 = randn(gen, (DIM_G, HID_G), HID_G ** -0.5)
+    for w, hid in ((w12, HID_G), (w3, 0)):
+        got = mlp.tf32x3_split_kernel(w, hid)
+        want = mlp.tf32x3_weight_plain(w, hid)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        require(differ == 0 and got.shape == want.shape,
+                f"tf32x3_split {tuple(w.shape)} hidden={hid}: {differ} words "
+                f"differ from the plain split")
+    res = dict(max_abs_err=0.0,
+               ms=event_ms(lambda: mlp.tf32x3_split_kernel(w12, HID_G)),
+               plain_ms=event_ms(lambda: mlp.tf32x3_weight_plain(w12, HID_G)),
+               library_ms=None,
+               **bound_f32(nbytes(w12) + 2 * nbytes(w12), 0))
+    log(f"kernel tf32x3_split (w12 {tuple(w12.shape)}, gated): "
+        f"{json.dumps(res)}")
+    return res
+
+
 def check_silu_f32(device) -> dict:
-    """The silu of row 10's f32 gate epilogue (sgemm::silu_mul_f32) bit for
+    """The silu of row 10's f32 gate epilogue (vrvg::silu_mul_f32) bit for
     bit against the plain f32 silu_mul on the card, through a selection w12
     (swiglu_gate_kernel with h (rows, 256) = [x1 values | x2 values], x1's
     row c picking h's column c mod 128 and x2's row c column 128 + c mod
-    128, b12 = 0; or x2's rows zero and its bias 1: every sum is one exact
-    product): every finite bf16 value as f32, 2^20 values spaced evenly
-    over [-110, 40] (past x1 = -87.3 the logistic is subnormal, past -88.7
-    exp(-x1) overflows and it is 0), x2 = 1 or seeded. Equal as numbers
+    128, b12 = 0; or x2's rows zero and its bias 1): every finite bf16 value
+    as f32, 2^20 values spaced evenly over [-110, 40] (past x1 = -87.3 the
+    logistic is subnormal, past -88.7 exp(-x1) overflows and it is 0), x2 =
+    1 or seeded. On the 3xTF32 core a selected sum of v is hi(v) + lo(v)
+    exactly (check_gelu_f32), so silu_mul takes those sums (selection_sum)
+    of x1 and of the seeded x2. Equal as numbers
     (+0 and -0 alike: the bias add turns x1 = -0 into +0), NaN nowhere; a
     difference is logged with its values and ulps before the check fails."""
     import torch
@@ -3220,7 +3328,8 @@ def check_silu_f32(device) -> dict:
         b12 = torch.cat([torch.zeros(hid, device=device),
                          torch.full((hid,), b2, device=device)])
         got = mlp.swiglu_gate_kernel(h, w12, b12)
-        want = mlp.silu_mul(x1, x2).repeat(1, 4)
+        want = mlp.silu_mul(selection_sum(x1), selection_sum(x2) if b2 == 0.0
+                            else x2).repeat(1, 4)
         torch.cuda.synchronize()
         bad = got != want
         res = dict(values=x1.numel(), differ=int(bad.sum()),
@@ -3517,6 +3626,8 @@ def f32_kernel_parity(device) -> dict:
     out[f"swiglu_residual_f32 D={DIM_G}"] = f32_swiglu_check(gen)
     torch.cuda.empty_cache()
     out["silu_f32"] = check_silu_f32(device)
+    out["tf32x3_split"] = check_tf32x3_split(gen)
+    torch.cuda.empty_cache()
 
     # Row 7 at every width, stage by stage, at the grid of the path that
     # runs it; rows 11 and 12 the same way.
@@ -3554,7 +3665,8 @@ class NoPlainF32:
              ("ops.mlp", "mlp_residual_plain"),
              ("ops.mlp", "fc1_gelu_plain"),
              ("ops.mlp", "swiglu_residual_plain"),
-             ("ops.mlp", "swiglu_gate_plain"))
+             ("ops.mlp", "swiglu_gate_plain"),
+             ("ops.mlp", "tf32x3_weight_plain"))
 
     def __enter__(self):
         import importlib
@@ -3680,10 +3792,19 @@ def f32_auto_path(device, frames, label, encoder, step) -> tuple:
     from vr_video_generator_tpu_torch.models.factory import random_state_dict
     from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
 
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+
     cfg = run_config(encoder, "auto", "auto", dtype="float32")
     sd = random_state_dict(cfg.model(), SEED)
     pipe = make_pipe(device, cfg, sd)
+    # The first forward splits the fused MLP halves' weights, once.
+    reset_launch_counts()
     scaler = calibrate_random_scaler(pipe, frames[:B])
+    splits = launch_counts().get("tf32x3_split", 0)
+    require(splits == AUTO_F32_SPLITS[encoder],
+            f"{label}: the first step split {splits} weights, expected "
+            f"{AUTO_F32_SPLITS[encoder]}")
     seen = []
     hook = pipe.model.depth_head.scratch.layer1_rn.register_forward_hook(
         lambda *a: seen.append((torch.backends.cuda.matmul.allow_tf32,
@@ -3700,6 +3821,7 @@ def f32_auto_path(device, frames, label, encoder, step) -> tuple:
              torch.backends.cudnn.allow_tf32) == (False, True),
             f"{label}: the forward left the TF32 flags changed")
     stats["scaler"] = scaler
+    stats["first_step_splits"] = splits
     return stats, pipe, sd, cfg
 
 
@@ -4293,6 +4415,8 @@ def main() -> int:
                  g32["attention_f32"]),
                 ("swiglu_residual_f32", f32k[f"swiglu_residual_f32 D={DIM_G}"],
                  g32["swiglu_residual_f32"]),
+                ("tf32x3_split", f32k["tf32x3_split"],
+                 phase8["vitg_auto"]["first_step_splits"]),
                 ("head_tail_big_f32", f32k[f"head_tail_big_f32 C={FEATURES_G}"],
                  g126["head_tail_big_f32"])]
     entries += [(name, f32k[f"{name} C={c}"],

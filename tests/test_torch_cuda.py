@@ -1747,3 +1747,106 @@ def test_vitg_f32_step_on_the_card(cuda):
     assert all(k.endswith("_f32") or k in ("warp_composite", "blur_select_sbs")
                for k in counts)
     assert torch.equal(sbs[:, :, 96:], frames)
+
+
+# --- rows 8, 9 and 10 at f32 on the 3xTF32 core: the weights' split ---------
+
+@pytest.mark.parametrize("change", ["none", "in place", "load_state_dict",
+                                    "new data", "inference tensor"])
+def test_tf32x3_weight_split_once_and_after_a_change(cuda, change):
+    """mlp.tf32x3_weight splits a weight on the card once (one
+    vrvg_tf32x3_split launch) and hands back the kept planes at the next
+    call; a weight changed in place (its version counter), reloaded by
+    load_state_dict or given new data is split again, and an inference
+    tensor (no version counter) at every call. The planes equal the plain
+    split bit for bit, gated (row 10's w12) and plain."""
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lin = torch.nn.Linear(64, 2 * 200).to(cuda).requires_grad_(False)
+    lin.weight.copy_(_randn(gen, (400, 64), dtype=F32))
+    w = lin.weight
+    if change == "inference tensor":
+        with torch.inference_mode():
+            w = w.clone()
+
+    def split(hidden):
+        before = launch_counts().get("tf32x3_split", 0)
+        out = mlp.tf32x3_weight(w, hidden)
+        return out, launch_counts()["tf32x3_split"] - before
+
+    for hidden in (200, 0):
+        first, n1 = split(hidden)
+        again, n2 = split(hidden)
+        assert n1 == 1 and n2 == (1 if change == "inference tensor" else 0)
+        want = mlp.tf32x3_weight_plain(w.cpu(), hidden)
+        assert torch.equal(again.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    if change in ("none", "inference tensor"):
+        return
+    if change == "in place":
+        w.mul_(-2.0)
+    elif change == "load_state_dict":
+        lin.load_state_dict({"weight": torch.ones_like(lin.weight),
+                             "bias": lin.bias})
+    else:
+        lin.weight.data = lin.weight.data.flip(0).contiguous()
+    w = lin.weight
+    out, n = split(0)
+    assert n == 1
+    assert torch.equal(out.cpu().view(torch.int32),
+                       mlp.tf32x3_weight_plain(w.cpu()).view(torch.int32))
+
+
+def test_weights_split_before_step_many_capture(cuda):
+    """vitg fused at f32, cut to 4 blocks, on a new pipeline: step_many's
+    eager step splits each block's w12 and w3 once (8 launches) before its
+    capture, the capture splits nothing (a replay launches no split), and a
+    second replay splits nothing either."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vitg", batch_size=2, compute_dtype="float32",
+                    input_size=56, mlp_fused="fused", tail="fused")
+    mcfg = dataclasses.replace(cfg.model(), depth=4,
+                               intermediate_layers=(0, 1, 2, 3))
+    model = build_model(mcfg, random_state_dict(mcfg, 0), F32, cuda,
+                        tail="fused")
+    pipe = SbsPipeline(model, 150, 96, run_cfg=cfg)
+    frames = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    reset_launch_counts()
+    outs, st = pipe.step_many(frames, pipe.initial_state())
+    torch.cuda.synchronize()
+    assert launch_counts()["tf32x3_split"] == 8
+    per_replay = dict(pipe._graphs[(2, 2)].launches)
+    assert per_replay.get("tf32x3_split", 0) == 0
+    assert per_replay["swiglu_residual_f32"] == 8
+    reset_launch_counts()
+    pipe.step_many(frames, st)
+    torch.cuda.synchronize()
+    assert launch_counts().get("tf32x3_split", 0) == 0
+    assert launch_counts()["swiglu_residual_f32"] == 8
+
+
+def test_tf32x3_gemm_kernels_hold_tf32_hgmma(cuda):
+    """Rows 8, 9 and 10 at f32 run their products as wgmma with TF32
+    operands (3xTF32: twelve a stage), fed by TMA: no FFMA main loop is left
+    (the down products' kernels, whose epilogue has no transcendental, hold
+    no FFMA at all; fc1's and the gate's hold their GELU's and silu's)."""
+    from vr_video_generator_tpu_torch.attention_bench import sass_counts
+
+    counts = {name: c for name, c in sass_counts(("tf32x3_gemm",)).items()
+              if "gemm_kernel" in name}
+    # mlp_f32.cu: BiasGelu exact and tanh, LayerScaleResidual; swiglu_f32.cu:
+    # SwigluGate, LayerScaleResidual.
+    assert len(counts) == 5, sorted(counts)
+    for name, c in counts.items():
+        assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
+            name, c)
+        assert c["UTMALDG"] > 0, (name, c)
+        if "LayerScaleResidual" in name:
+            assert c["FFMA"] == 0, (name, c)

@@ -3,13 +3,9 @@ CPU under the host emulation of CUDA (tests/cuda_emu/cuda_runtime.h),
 against their plain versions.
 
 g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
-5's and row 6's epilogues) and csrc/mlp_f32.cu (rows 8 and 9 at f32: fc1
-with b1 and the GELU of csrc/gelu_as.cuh, fc2 with b2, LayerScale and the residual),
-csrc/swiglu_f32.cu (row 10 at f32: the gate with w12 as the gated operand
-sgemm::GatedRows, b12 and silu(x1) * x2 in its epilogue, the down product
-with b3, LayerScale and the residual) and csrc/rcu_pair_f32.cu (row 16 at
-f32: the ReLU pass and each conv of the chain with its bias, ReLU,
-residuals and ReLU'd copy) as they are,
+5's and row 6's epilogues) and csrc/rcu_pair_f32.cu (row 16 at f32: the
+ReLU pass and each conv of the chain with its bias, ReLU, residuals and
+ReLU'd copy) as they are,
 launches rewritten to the emulator's, and a unit that instantiates the core
 with the f32 DPT tails' operands (csrc/sconv.cuh: the 3x3 conv as an
 implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
@@ -18,15 +14,14 @@ vrvg_head_tail_big_f32 and vrvg_head_tail_f32 (row 15 at f32) call them; the tai
 their plain versions around them. Each CUDA thread is a std::thread and each
 __syncthreads a barrier, so the tiles' indexing, the ragged edges and the
 double-buffered k slices run as written. Rows 2 and 17 at f32
-(csrc/attention_f32.cu: TMA and wgmma, which the emulation has not) are
-held on the CPU by tests/test_torch_attention_3xtf32.py. The plain
-versions sum in another order, so each output is held to a bound in f32
-ulps of its scale (the f32 sums' reordering: a few ulps; a TF32 product
-would be thousands off); the GELU epilogue's expf and tanhf are the host's,
-so the fc1 stage (and row 10's gate, its silu's expf) is held to the
-same bound, not bit for bit (the card holds
-it bit for bit against the eager chain). This checks logic only; the card checks the
-kernels themselves (chip_smoke.py phase 8). Needs g++ (C++20).
+(csrc/attention_f32.cu) and rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu and
+csrc/swiglu_f32.cu on the 3xTF32 core of csrc/tf32x3_gemm.cuh: TMA and
+wgmma, which the emulation has not) are held on the CPU by
+tests/test_torch_attention_3xtf32.py and tests/test_torch_gemm_3xtf32.py.
+The plain versions sum in another order, so each output is held to a bound
+in f32 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32
+product would be thousands off). This checks logic only; the card checks
+the kernels themselves (chip_smoke.py phase 8). Needs g++ (C++20).
 """
 
 import ctypes
@@ -42,7 +37,6 @@ import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
 from vr_video_generator_tpu_torch.ops import head_tail as ht
-from vr_video_generator_tpu_torch.ops import mlp
 from vr_video_generator_tpu_torch.ops.head_tail import (big_conv2_plain,
                                                         conv3x3_gemm_weights,
                                                         ext_conv1_plain,
@@ -134,27 +128,6 @@ EMU_SIGNATURES = {
     "emu_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "emu_conv2_depth_n_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
 }
-# mlp_f32.cu's chain starts with row 1's f32 LayerNorm (csrc/layernorm.cu,
-# not emulated): in its own library this stand-in computes it on the host
-# (f64 statistics, f32 output), so the chain runs whole.
-LN_HOST = """#include <math.h>
-extern "C" int vrvg_layernorm_f32(const void* x, const void* w,
-                                  const void* b, void* y, int m, int d,
-                                  float eps, void*) {
-  for (int r = 0; r < m; ++r) {
-    const float* xr = (const float*)x + (long long)r * d;
-    float* yr = (float*)y + (long long)r * d;
-    double s = 0, v = 0;
-    for (int i = 0; i < d; ++i) s += xr[i];
-    const double mean = s / d;
-    for (int i = 0; i < d; ++i) v += (xr[i] - mean) * (xr[i] - mean);
-    const double rstd = 1.0 / sqrt(v / d + eps);
-    for (int i = 0; i < d; ++i)
-      yr[i] = (float)((xr[i] - mean) * rstd) * ((const float*)w)[i] +
-              ((const float*)b)[i];
-  }
-  return 0;
-}"""
 # Bounds in f32 ulps of each output's scale (the largest of the output, its
 # feature's RMS and its addends): f32 sums in another order than the plain
 # version's.
@@ -173,8 +146,8 @@ def _build(tmp, units, entries, name):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
-    for src in ("gelu_as.cuh", "sgemm.cuh", "sconv.cuh", "qkv_f32.cu",
-                "mlp_f32.cu", "swiglu_f32.cu", "rcu_pair_f32.cu"):
+    for src in ("gelu_as.cuh", "epilogue_f32.cuh", "sgemm.cuh", "sconv.cuh",
+                "qkv_f32.cu", "rcu_pair_f32.cu"):
         (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     paths = []
     for unit, (pre, inc, post) in units.items():
@@ -200,15 +173,6 @@ def lib(tmp_path_factory):
                   ("vrvg_qkv_f32", "vrvg_ln_qkv_f32",
                    "vrvg_proj_ls_residual_f32", *EMU_SIGNATURES),
                   "libemu_f32.so")
-
-
-@pytest.fixture(scope="module")
-def mlp_lib(tmp_path_factory):
-    """csrc/mlp_f32.cu as it is, with the host LayerNorm."""
-    return _build(tmp_path_factory.mktemp("cuda_emu_mlp_f32"),
-                  {"mlp_f32.cu": ("", "mlp_f32.cu", LN_HOST)},
-                  ("vrvg_fc1_gelu_f32", "vrvg_mlp_residual_f32",
-                   "vrvg_mlp_residual_hblocked_f32"), "libemu_mlp_f32.so")
 
 
 def f32_ulps(got, want, *addends):
@@ -329,89 +293,6 @@ def test_conv2_depth_source(lib):
     assert (out - ref).abs().max().item() <= 1e-5 * span
 
 
-# --- rows 8 and 9 at f32 (csrc/mlp_f32.cu) ----------------------------------
-
-def _mlp_args(rng, m, d):
-    """Seeded f32 operands of the MLP half in PyTorch layout: x (1, M, D),
-    the LN affine, fc1 (4D, D) + b1, fc2 (D, 4D) + b2, gamma."""
-    hid = 4 * d
-    return (randn(rng, (1, m, d)), randn(rng, (d,), 0.1, 1.0),
-            randn(rng, (d,), 0.1), randn(rng, (hid, d), d ** -0.5),
-            randn(rng, (hid,), 0.3), randn(rng, (d, hid), hid ** -0.5),
-            randn(rng, (d,), 0.3), randn(rng, (d,), 0.1, 1.0))
-
-
-@pytest.mark.parametrize("approx", [False, True], ids=["exact", "tanh"])
-def test_fc1_gelu_stage_source(mlp_lib, approx):
-    """The fc1 stage (sgemm::BiasGelu on 128 x 128 tiles: a ragged last row
-    tile, 4D = 512 columns): + b1, then the A&S or the tanh GELU on the
-    f32 sum, against fc1_gelu_plain. The host's expf / tanhf stand in for
-    the card's, so the bound is the core's, not bit for bit."""
-    rng = np.random.default_rng(11 + approx)
-    m, d = 130, 128
-    a = randn(rng, (m, d))
-    w1, b1 = randn(rng, (4 * d, d), d ** -0.5), randn(rng, (4 * d,), 0.5)
-    h = torch.empty((m, 4 * d))
-    assert mlp_lib.vrvg_fc1_gelu_f32(a.data_ptr(), w1.data_ptr(),
-                                     b1.data_ptr(), h.data_ptr(), m, d,
-                                     int(approx), None) == 0
-    want = mlp.fc1_gelu_plain(a, w1, b1, approx)
-    t = a @ w1.T + b1  # the GELU's input: its scale sets the GELU's ulps
-    assert f32_ulps(h, want, t, b1).max() <= MAX_ULPS
-    assert (want < 0).float().mean() > 0.2  # the GELU's negative arm ran
-
-
-@pytest.mark.parametrize("entry,d,m", [
-    ("vrvg_mlp_residual_f32", 128, 150), ("vrvg_mlp_residual_f32", 384, 70),
-    ("vrvg_mlp_residual_hblocked_f32", 768, 33)])
-def test_mlp_chain_source(mlp_lib, entry, d, m):
-    """Rows 8 (D = 128, 384) and 9 (D = 768) at f32 as one chain: LN (on the
-    host here), fc1 + b1 + GELU into the hidden scratch, fc2 + b2 +
-    LayerScale + residual. The scratch holds the LN rows and the hidden
-    activations; each stage is held against its plain version on the
-    chain's own input (the host LN is not row 1's, and one ulp of a moves
-    fc1's sums by more than their own ulps), and the whole against
-    mlp_residual_plain relative to max |out|."""
-    rng = np.random.default_rng(d + m)
-    args = _mlp_args(rng, m, d)
-    x, lnw, lnb, w1, b1, w2, b2, gamma = args
-    a, h = torch.empty((m, d)), torch.empty((m, 4 * d))
-    out = torch.empty_like(x)
-    assert getattr(mlp_lib, entry)(
-        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, 1e-6, 0,
-        None) == 0
-    want_a = mlp.mlp_residual_stages(*args)[0]
-    assert f32_ulps(a, want_a.reshape(m, d)).max() <= MAX_ULPS
-    # Each product's scale includes the sum of its terms' magnitudes: at K =
-    # 768 and 3072 the f32 sums' order moves a result by a few ulps of that.
-    want_h = mlp.fc1_gelu_plain(a, w1, b1)
-    assert f32_ulps(h, want_h, a @ w1.T + b1, b1,
-                    a.abs() @ w1.abs().T).max() <= MAX_ULPS
-    want = mlp.fc2_residual_plain(h, w2, b2, gamma, x.reshape(m, d))
-    assert f32_ulps(out.reshape(m, d), want, x.reshape(m, d), gamma * b2,
-                    gamma.abs() * (h.abs() @ w2.abs().T)).max() <= MAX_ULPS
-    whole = mlp.mlp_residual_plain(*args)
-    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
-
-
-def test_mlp_entry_points_refuse_other_widths(mlp_lib):
-    """Row 8's f32 entry point takes D = 128 and 384 only, row 9's a
-    multiple of 128: others return cudaErrorInvalidValue (1) and write
-    nothing."""
-    for entry, d in (("vrvg_mlp_residual_f32", 768),
-                     ("vrvg_mlp_residual_f32", 256),
-                     ("vrvg_mlp_residual_hblocked_f32", 200)):
-        m = 4
-        x = torch.zeros((m, d))
-        out = torch.full((m, d), 5.0)
-        err = getattr(mlp_lib, entry)(
-            *(x.data_ptr(),) * 8, x.data_ptr(), x.data_ptr(), out.data_ptr(),
-            m, d, 1e-6, 0, None)
-        assert err == 1 and bool((out == 5.0).all())
-
-
 # --- rows 7, 11 and 12 at f32 at every width (csrc/sconv.cuh) ---------------
 
 @pytest.mark.parametrize("c", [128, 384])
@@ -479,128 +360,6 @@ def test_big_tail_chain_source(lib, c):
     span = (want.max() - want.min()).item()
     assert span > 0 and (want > 0).float().mean() > 0.2
     assert (out - want).abs().max().item() <= 1e-5 * span
-
-
-# --- row 10 at f32 (csrc/swiglu_f32.cu) --------------------------------------
-
-@pytest.fixture(scope="module")
-def swiglu_lib(tmp_path_factory):
-    """csrc/swiglu_f32.cu as it is, with the host LayerNorm."""
-    return _build(tmp_path_factory.mktemp("cuda_emu_swiglu_f32"),
-                  {"swiglu_f32.cu": ("", "swiglu_f32.cu", LN_HOST)},
-                  ("vrvg_swiglu_gate_f32", "vrvg_swiglu_residual_f32"),
-                  "libemu_swiglu_f32.so")
-
-
-def _swiglu_args(rng, m, d, hid):
-    """Seeded f32 operands of the SwiGLU half in PyTorch layout: x (1, M,
-    D), the LN affine, w12 (2H, D) + b12, w3 (D, H) + b3, gamma."""
-    return (randn(rng, (1, m, d)), randn(rng, (d,), 0.1, 1.0),
-            randn(rng, (d,), 0.1), randn(rng, (2 * hid, d), d ** -0.5),
-            randn(rng, (2 * hid,), 0.3), randn(rng, (d, hid), hid ** -0.5),
-            randn(rng, (d,), 0.3), randn(rng, (d,), 0.1, 1.0))
-
-
-def _gate(lib, h, w12, b12):
-    m, d = h.shape
-    hid = w12.shape[0] // 2
-    g = torch.full((m, hid), float("nan"))
-    assert lib.vrvg_swiglu_gate_f32(h.data_ptr(), w12.data_ptr(),
-                                    b12.data_ptr(), g.data_ptr(), m, d, hid,
-                                    None) == 0
-    return g
-
-
-def _gate_bound(h, w12, b12):
-    """The gate's addends for f32_ulps: an ulp of x1's sum (its terms'
-    magnitudes) moves g by about |x2| of them, an ulp of x2's by |x1|."""
-    hid = w12.shape[0] // 2
-    t, mag = h @ w12.T + b12, h.abs() @ w12.abs().T + b12.abs()
-    return (t[:, :hid].abs() * t[:, hid:].abs(),
-            mag[:, :hid] * t[:, hid:].abs(), mag[:, hid:] * t[:, :hid].abs())
-
-
-@pytest.mark.parametrize("hid", [128, 200, 344])
-def test_gated_operand_pairs_x1_and_x2(swiglu_lib, hid):
-    """sgemm::GatedRows and SwigluGate on a selection: h the identity (row i
-    picks input column i), so every sum is one exact product and g[i, c] =
-    silu(w12[c, i] + b12[c]) * (w12[H + c, i] + b12[H + c]) on distinct
-    seeded values; only the host's expf against torch's exp may differ (a
-    few ulps), where a wrong pairing of x1 and x2 columns would be off
-    entirely. H a multiple of 64 (128) and not (200, 344: a last tile of 8
-    and 24 g columns)."""
-    d = 64
-    rng = np.random.default_rng(hid)
-    h = torch.eye(d)
-    w12, b12 = randn(rng, (2 * hid, d), 2.0), randn(rng, (2 * hid,))
-    got = _gate(swiglu_lib, h, w12, b12)
-    want = mlp.swiglu_gate_plain(h, w12, b12)
-    assert torch.isfinite(got).all()
-    assert f32_ulps(got, want).max() <= 4
-    assert (got != 0).float().mean() > 0.99
-
-
-@pytest.mark.parametrize("m,d,hid", [(130, 128, 344), (33, 64, 200),
-                                     (70, 256, 688)])
-def test_swiglu_gate_stage_source(swiglu_lib, m, d, hid):
-    """The gate stage (128 x 128 tiles of 64 x1 and 64 x2 columns: a ragged
-    last row tile, and H = 344, 200 and 688 not multiples of 64): + b12,
-    then silu(x1) * x2 on the f32 sums, against swiglu_gate_plain. The
-    host's expf stands in for the card's, so the bound is the core's."""
-    rng = np.random.default_rng(m + d + hid)
-    h = randn(rng, (m, d))
-    w12, b12 = randn(rng, (2 * hid, d), d ** -0.5), randn(rng, (2 * hid,), 0.5)
-    got = _gate(swiglu_lib, h, w12, b12)
-    want = mlp.swiglu_gate_plain(h, w12, b12)
-    assert f32_ulps(got, want, *_gate_bound(h, w12, b12)).max() <= MAX_ULPS
-    assert (want < 0).float().mean() > 0.2  # silu's negative arm and x2 < 0
-
-
-@pytest.mark.parametrize("d,m", [(128, 150), (256, 70)])
-def test_swiglu_chain_source(swiglu_lib, d, m):
-    """Row 10 at f32 as one chain (LN on the host here, the gate into the g
-    scratch, the down product + b3 + LayerScale + residual), hidden from
-    swiglu_hidden (344, 688: not multiples of 64): each stage against its
-    plain version on the chain's own input, and the whole against
-    swiglu_residual_plain relative to max |out|."""
-    hid = mlp.swiglu_hidden(d)
-    rng = np.random.default_rng(d + m + 1)
-    args = _swiglu_args(rng, m, d, hid)
-    x, lnw, lnb, w12, b12, w3, b3, gamma = args
-    h, g = torch.empty((m, d)), torch.empty((m, hid))
-    out = torch.empty_like(x)
-    assert swiglu_lib.vrvg_swiglu_residual_f32(
-        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w12.data_ptr(),
-        b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
-        h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, 1e-6,
-        None) == 0
-    want_h = mlp.swiglu_residual_stages(*args)[0]
-    assert f32_ulps(h, want_h).max() <= MAX_ULPS
-    want_g = mlp.swiglu_gate_plain(h, w12, b12)
-    assert f32_ulps(g, want_g, *_gate_bound(h, w12, b12)).max() <= MAX_ULPS
-    x2 = x.reshape(m, d)
-    want = mlp.fc2_residual_plain(g, w3, b3, gamma, x2)
-    assert f32_ulps(out.reshape(m, d), want, x2, gamma * b3,
-                    gamma.abs() * (g.abs() @ w3.abs().T)).max() <= MAX_ULPS
-    whole = mlp.swiglu_residual_plain(*args)
-    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
-
-
-def test_swiglu_entry_points_refuse_other_widths(swiglu_lib):
-    """D or H not a multiple of 4: cudaErrorInvalidValue (1), nothing
-    written."""
-    for d, hid in ((66, 128), (64, 130)):
-        m = 4
-        x = torch.zeros((m, 2 * max(d, hid) * 2))
-        out = torch.full((m, d), 5.0)
-        err = swiglu_lib.vrvg_swiglu_residual_f32(
-            *(x.data_ptr(),) * 10, out.data_ptr(), m, d, hid, 1e-6, None)
-        assert err == 1 and bool((out == 5.0).all())
-        g = torch.full((m, hid), 5.0)
-        assert swiglu_lib.vrvg_swiglu_gate_f32(
-            x.data_ptr(), x.data_ptr(), x.data_ptr(), g.data_ptr(), m, d, hid,
-            None) == 1
-        assert bool((g == 5.0).all())
 
 
 # --- row 15 at f32 (vrvg_head_tail_f32's products) ---------------------------

@@ -423,16 +423,26 @@ CALLS = {
 }
 
 
+# The weights each f32 chain on the 3xTF32 core splits first (fresh weights
+# here: nothing is kept from an earlier call), one vrvg_tf32x3_split each.
+SPLITS = {"mlp_residual": 2, "mlp_residual_tanh": 2,
+          "mlp_residual_hblocked": 2, "mlp_residual_hblocked_tanh": 2,
+          "fc1_gelu": 1, "swiglu_residual": 2, "swiglu_gate": 1}
+
+
 @pytest.mark.parametrize("name", list(CALLS))
 def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
     """An f32 tensor on the card goes to its wrapper's f32 entry point, once,
     and counts on the f32 counter, never on the bf16 one (the case's name,
-    where the kernel has one); it never reaches the plain version."""
+    where the kernel has one); it never reaches the plain version. Rows 8,
+    9 and 10 split each weight on the card first (vrvg_tf32x3_split)."""
     call, entry, counter = CALLS[name]
     before = launch_counts()
     call()
     after = launch_counts()
-    assert fake_card.calls == [entry]
+    splits = SPLITS.get(name, 0)
+    assert fake_card.calls == ["vrvg_tf32x3_split"] * splits + [entry]
+    assert after["tf32x3_split"] == before.get("tf32x3_split", 0) + splits
     assert after[counter] == before.get(counter, 0) + 1
     bf16 = name.split()[0]
     assert after.get(bf16, 0) == before.get(bf16, 0)

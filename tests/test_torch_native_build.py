@@ -2,6 +2,9 @@
 ``libframepack.so`` only whole (g++ into a temporary file, then
 ``os.replace``), under an ``fcntl.flock`` beside it, so concurrent builds
 in several processes compile once and every process loads a whole library.
+A library is reused only beside a stamp of the host that built it
+(``libframepack.so.host``: the CPU's model name and flags, since g++ builds
+it with ``-march=native``); a missing or foreign stamp rebuilds it.
 
 The compiler is faked: it "builds" a copy of a shared object the
 interpreter already has (``_ctypes``), in two halves with a pause between,
@@ -101,7 +104,8 @@ def test_final_library_appears_only_whole_via_os_replace(tmp_lib, monkeypatch):
     finally:
         done.set()
         watcher.join()
-    assert replaced and replaced[-1][1] == nb._SO and replaced[-1][2]
+    onto_lib = [whole_src for _, dst, whole_src in replaced if dst == nb._SO]
+    assert onto_lib == [True]
     assert all(seen), "the library path held a partial file"
     assert open(nb._SO, "rb").read() == whole
 
@@ -121,6 +125,7 @@ def test_waits_for_a_held_lock_and_reuses_that_build(tmp_lib, monkeypatch):
         assert not result and not compiles(log), "build() did not wait"
         with open(nb._SO, "wb") as f:  # the holder's finished build
             f.write(open(SHARED_OBJECT, "rb").read())
+        nb._write_stamp()
         fcntl.flock(held, fcntl.LOCK_UN)
     t.join(timeout=30)
     assert result == [nb._SO] and compiles(log) == []
@@ -137,6 +142,44 @@ def test_stale_library_is_rebuilt(tmp_lib, monkeypatch):
     os.utime(nb._SRC, (later, later))
     nb.build()
     assert len(compiles(log)) == 2
+
+
+FOREIGN = "model name: Another CPU\nflags: fpu sse2\n"
+
+
+@pytest.mark.parametrize("stamp", ["foreign", "missing", "matching"])
+def test_library_is_reused_only_on_the_host_that_built_it(tmp_lib,
+                                                          monkeypatch, stamp):
+    """A fresh library beside a stamp of another CPU, or beside none (a
+    library copied from another machine, or built before the stamp
+    existed), is compiled again, and its stamp then names this host; beside
+    this host's stamp it is loaded as it is."""
+    log = tmp_lib / "log"
+    monkeypatch.setattr(nb.subprocess, "run", fake_compile(log, pause=0.0))
+    with open(nb._SO, "wb") as f:  # a whole library, newer than its source
+        f.write(open(SHARED_OBJECT, "rb").read())
+    stamp_path = tmp_lib / "libframepack.so.host"
+    if stamp != "missing":
+        stamp_path.write_text(FOREIGN if stamp == "foreign"
+                              else nb.host_stamp())
+    assert nb.build() == nb._SO
+    assert len(compiles(log)) == (stamp != "matching")
+    assert stamp_path.read_text() == nb.host_stamp()
+    nb.build()
+    assert len(compiles(log)) == (stamp != "matching")
+
+
+def test_host_stamp_names_this_cpu():
+    """The stamp holds the CPU's model name and flags, as /proc/cpuinfo
+    gives them, and is the same at every call."""
+    stamp = nb.host_stamp()
+    assert stamp == nb.host_stamp() and stamp.endswith("\n")
+    if os.path.exists("/proc/cpuinfo"):
+        text = open("/proc/cpuinfo").read()
+        flags = next(line.split(":", 1)[1].split() for line in
+                     text.splitlines() if line.startswith("flags"))
+        assert stamp.startswith("model name: ")
+        assert "flags: " + " ".join(flags) in stamp
 
 
 CHILD = textwrap.dedent("""

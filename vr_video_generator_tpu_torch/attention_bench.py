@@ -240,7 +240,7 @@ def sass_counts(kernels=("attention_kernel", "attention_f32_kernel",
         if any(k in name for k in kernels):
             counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
                             for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG",
-                                       "SYNCS", "MUFU.EX2")}
+                                       "SYNCS", "MUFU.EX2", "FFMA")}
             counts[name]["HGMMA_TF32"] = len(
                 re.findall(r"\bHGMMA\.\S*TF32", chunk))
     return counts

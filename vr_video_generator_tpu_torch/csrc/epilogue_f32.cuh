@@ -1,0 +1,52 @@
+// The per-element arithmetic of the f32 GEMM epilogues, one function per
+// epilogue, called by both f32 GEMM cores: the SIMT core (csrc/sgemm.cuh,
+// rows 5, 6, 7, 11, 12, 15 and 16 at f32) and the 3xTF32 wgmma core
+// (csrc/tf32x3_gemm.cuh, rows 8, 9 and 10 at f32). Each takes a product's
+// f32 sum and rounds every operation on its own (no FMA, no fast math), at
+// the JAX package's f32 rounding points, so the two cores and the CPU
+// emulation (tests/cuda_emu/cuda_runtime.h, which g++ compiles this header
+// under: tests/test_torch_gemm_3xtf32.py) share one copy of them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "gelu_as.cuh"
+
+namespace vrvg {
+
+// fc1's epilogue of rows 8 and 9 at f32: GELU(s + b), the A&S GELU
+// (gelu_as) or with TANH the tanh GELU (gelu_tanh_f32) on the rounded sum.
+template <bool TANH>
+__device__ __forceinline__ float bias_gelu_f32(float s, float b) {
+  const float t = __fadd_rn(s, b);
+  return TANH ? gelu_tanh_f32(t) : gelu_as(t);
+}
+
+// x + gamma * (s + b): row 6's epilogue at f32 (proj + LayerScale +
+// residual) and the down products' of rows 8, 9 and 10 (+ b2 or b3,
+// LayerScale, residual).
+__device__ __forceinline__ float ls_residual_f32(float s, float b, float g,
+                                                 float x) {
+  return __fadd_rn(x, __fmul_rn(g, __fadd_rn(s, b)));
+}
+
+// silu(x1) * x2 at f32, the rounding points of jax.nn.silu(t1) * t2 on f32
+// (mlp_pallas.py `_swiglu_kernel`; ops/mlp.silu_mul): s = 1 / (1 +
+// exp(-x1)), then x1 * s, then that times x2, each operation rounded on its
+// own: expf without fast math, the IEEE division (past x1 < -88.7 exp
+// overflows to inf and s is 0).
+__device__ __forceinline__ float silu_mul_f32(float x1, float x2) {
+  const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x1)));
+  return __fmul_rn(__fmul_rn(x1, s), x2);
+}
+
+// Row 10's gate epilogue at f32: silu(s1 + b1) * (s2 + b2), s1 and s2 the
+// sums of one hidden column's x1 and x2.
+__device__ __forceinline__ float swiglu_gate_f32(float s1, float b1, float s2,
+                                                 float b2) {
+  return silu_mul_f32(__fadd_rn(s1, b1), __fadd_rn(s2, b2));
+}
+
+}  // namespace vrvg

@@ -7,10 +7,10 @@
 // tensor cores' "f32") rounds each operand to 10 mantissa bits, about three
 // decimal digits, which is not f32 (the JAX package's f32 path multiplies in
 // f32). So this core is bound by the card's f32 rate outside the tensor
-// cores, 67 TFLOP/s on an H100 SXM, about 1/15 of the bf16 one. (3xTF32,
+// cores, 67 TFLOP/s on an H100 SXM, about 1/15 of the bf16 one. 3xTF32,
 // each operand split into a TF32 head and tail and three tensor-core products
-// summed in f32, would keep f32 accuracy on the tensor cores: the later
-// redesign of this core.)
+// summed in f32, keeps f32 accuracy on the tensor cores: rows 8, 9 and 10
+// at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here are next.
 //
 // Design: the classic register-blocked SIMT product. A block of 256 threads
 // computes a BM x BN tile of C; each thread owns TM x TN outputs (8 x 8 for
@@ -31,9 +31,7 @@
 //   __device__ float4 load4(const Row&, int k) const;  // A[r, k : k + 4]
 // returning zeros past the rows or K (K a multiple of 4): DenseRows reads an
 // (R, K) row-major matrix; Conv3x3Rows (csrc/sconv.cuh) makes A the
-// im2col of a (B, H, W, C) image read in place, an implicit GEMM;
-// GatedRows interleaves the two halves of row 10's w12 by 64 rows, so that
-// its gate epilogue (SwigluGate) finds x1 and x2 in one thread.
+// im2col of a (B, H, W, C) image read in place, an implicit GEMM.
 // An epilogue is a struct with
 //   template <class T>
 //   __device__ void store(int row, int n0, int tx,
@@ -50,7 +48,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "gelu_as.cuh"
+#include "epilogue_f32.cuh"
 
 namespace {
 
@@ -106,33 +104,6 @@ struct DenseRows {
   };
   __device__ __forceinline__ Row row(int r) const {
     return Row{r < rows ? a + (long long)r * ld : nullptr};
-  }
-  __device__ __forceinline__ float4 load4(const Row& r, int kk) const {
-    if (r.p == nullptr || kk >= k) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return *reinterpret_cast<const float4*>(r.p + kk);
-  }
-};
-
-// The gated B operand of row 10's gate product at f32: w12 (2H, D)
-// row-major in its upstream layout, rows [0, H) making x1 and [H, 2H) x2.
-// GEMM column r of 128-column tile t = r / 128 is, at u = r % 128, w12's
-// row 64 t + u for u < 64 (x1) and H + 64 t + u - 64 above (x2); a g column
-// past H reads zeros, as DenseRows does past its rows. On Square's tiles
-// (col(n0, tx, j): n0 + tx * 4 + j for j < 4, n0 + 64 + tx * 4 + j - 4
-// above) a thread's sums v[j] and v[j + 4] are then x1 and x2 of one g
-// column, 64 (n0 / 128) + tx * 4 + j: the epilogue pairs them in registers.
-// The product has 128 ceil(H / 64) columns.
-struct GatedRows {
-  const float* w;
-  int hidden, k;  // H, D
-  struct Row {
-    const float* p;  // null past H
-  };
-  __device__ __forceinline__ Row row(int r) const {
-    const int t = r / 128, u = r % 128;
-    const int g = 64 * t + u % 64;
-    if (g >= hidden) return Row{nullptr};
-    return Row{w + (long long)(u < 64 ? g : hidden + g) * k};
   }
   __device__ __forceinline__ float4 load4(const Row& r, int kk) const {
     if (r.p == nullptr || kk >= k) return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -312,8 +283,8 @@ struct BiasStore {
 };
 
 // out = x + gamma * (A B^T + bias), all (M, N) or (N,) f32: row 6's
-// epilogue at f32 (proj + LayerScale + residual) and fc2's of rows 8 and 9
-// (+ b2, LayerScale, residual), each sum and product rounded on its own.
+// epilogue at f32 (proj + LayerScale + residual; vrvg::ls_residual_f32),
+// each sum and product rounded on its own.
 struct LayerScaleResidual {
   float* out;
   const float* x;
@@ -328,68 +299,11 @@ struct LayerScaleResidual {
       const float4 b = ld4(bias + col), g = ld4(gamma + col);
       const float4 r = ld4(x + base + col);
       *reinterpret_cast<float4*>(out + base + col) = make_float4(
-          __fadd_rn(r.x, __fmul_rn(g.x, __fadd_rn(s[0], b.x))),
-          __fadd_rn(r.y, __fmul_rn(g.y, __fadd_rn(s[1], b.y))),
-          __fadd_rn(r.z, __fmul_rn(g.z, __fadd_rn(s[2], b.z))),
-          __fadd_rn(r.w, __fmul_rn(g.w, __fadd_rn(s[3], b.w))));
+          vrvg::ls_residual_f32(s[0], b.x, g.x, r.x),
+          vrvg::ls_residual_f32(s[1], b.y, g.y, r.y),
+          vrvg::ls_residual_f32(s[2], b.z, g.z, r.z),
+          vrvg::ls_residual_f32(s[3], b.w, g.w, r.w));
     });
-  }
-};
-
-// C = GELU(A B^T + bias), f32: fc1's epilogue of rows 8 and 9 at f32, the
-// A&S GELU (vrvg::gelu_as) or with TANH the tanh GELU (vrvg::gelu_tanh_f32)
-// on the rounded sum.
-template <bool TANH>
-struct BiasGelu {
-  float* c;
-  const float* bias;
-  int n;
-  static __device__ __forceinline__ float gelu(float t) {
-    return TANH ? vrvg::gelu_tanh_f32(t) : vrvg::gelu_as(t);
-  }
-  template <class T>
-  __device__ __forceinline__ void store(int row, int n0, int tx,
-                                        const float (&v)[T::TN]) const {
-    float* dst = c + (long long)row * n;
-    for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
-      const float4 b = ld4(bias + col);
-      *reinterpret_cast<float4*>(dst + col) = make_float4(
-          gelu(__fadd_rn(s[0], b.x)), gelu(__fadd_rn(s[1], b.y)),
-          gelu(__fadd_rn(s[2], b.z)), gelu(__fadd_rn(s[3], b.w)));
-    });
-  }
-};
-
-// silu(x1) * x2 at f32, the rounding points of jax.nn.silu(t1) * t2 on f32
-// (mlp_pallas.py `_swiglu_kernel`; ops/mlp.silu_mul): s = 1 / (1 +
-// exp(-x1)), then x1 * s, then that times x2, each operation rounded on its
-// own: expf without fast math, the IEEE division (past x1 < -88.7 exp
-// overflows to inf and s is 0).
-__device__ __forceinline__ float silu_mul_f32(float x1, float x2) {
-  const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x1)));
-  return __fmul_rn(__fmul_rn(x1, s), x2);
-}
-
-// Row 10's gate epilogue at f32 on GatedRows' product (Square tiles only):
-// g (M, H) f32 = silu(t1) * t2, t1 = sum + b12[c], t2 = sum + b12[H + c],
-// for the g column c of each pair (v[j], v[j + 4]). H a multiple of 4.
-struct SwigluGate {
-  float* g;
-  const float* bias;  // b12, (2H,)
-  int hidden;
-  template <class T>
-  __device__ __forceinline__ void store(int row, int n0, int tx,
-                                        const float (&v)[T::TN]) const {
-    static_assert(T::BN == 128 && T::TN == 8 && T::RN == 2,
-                  "x1 and x2 of a g column in one thread");
-    const int c = n0 / 2 + tx * 4;
-    if (c >= hidden) return;
-    const float4 b1 = ld4(bias + c), b2 = ld4(bias + hidden + c);
-    *reinterpret_cast<float4*>(g + (long long)row * hidden + c) = make_float4(
-        silu_mul_f32(__fadd_rn(v[0], b1.x), __fadd_rn(v[4], b2.x)),
-        silu_mul_f32(__fadd_rn(v[1], b1.y), __fadd_rn(v[5], b2.y)),
-        silu_mul_f32(__fadd_rn(v[2], b1.z), __fadd_rn(v[6], b2.z)),
-        silu_mul_f32(__fadd_rn(v[3], b1.w), __fadd_rn(v[7], b2.w)));
   }
 };
 

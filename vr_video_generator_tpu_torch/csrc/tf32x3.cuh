@@ -1,7 +1,8 @@
 // 3xTF32: an f32 operand as the sum of two TF32 values, so that three
 // tensor-core products (hi·hi + hi·lo + lo·hi) give an f32-accurate product
-// (csrc/attention_f32.cu). Host and device code alike: tests/
-// test_torch_attention_3xtf32.py builds this header with g++.
+// (csrc/attention_f32.cu, csrc/tf32x3_gemm.cuh). Host and device code
+// alike: tests/test_torch_attention_3xtf32.py and
+// tests/test_torch_gemm_3xtf32.py build this header with g++.
 //
 // TF32 keeps f32's sign and 8-bit exponent and the top 10 of its 23
 // mantissa bits. rna() rounds an f32 value to it to nearest, ties away from
@@ -82,5 +83,18 @@ TF32X3_FN void split_finite(float x, uint32_t& hi, uint32_t& lo) {
 // register A fragment wants k-slots t and t + 4, so key 2t sits at slot t
 // and key 2t + 1 at slot t + 4: keys 0, 2, 4, 6, 1, 3, 5, 7.
 TF32X3_FN int pv_slot_key(int s) { return s < 4 ? 2 * s : 2 * (s - 4) + 1; }
+
+// The w12 row (2H, K: x1 rows [0, H), x2 rows [H, 2H)) that row p of row
+// 10's gated B operand holds (csrc/tf32x3_gemm.cuh): in each 128-row tile
+// t, rows u < 64 are x1 of hidden columns 64 t + u and rows u >= 64 x2 of
+// the same columns, so the thread of a wgmma m64n128 accumulator that holds
+// column c (c % 128 < 64) holds c + 64 too: x1 and x2 of one hidden column.
+// -1 where the hidden column is past H (the operand is zero there).
+TF32X3_FN int gated_row(int p, int hidden) {
+  const int t = p / 128, u = p % 128;
+  const int c = 64 * t + u % 64;
+  if (c >= hidden) return -1;
+  return u < 64 ? c : hidden + c;
+}
 
 }  // namespace tf32x3

@@ -6,7 +6,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
 
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
         [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
-        [--rows 15] [--rows f32]
+        [--rows 15] [--rows f32] [--rows f32:vits,f32:vitg-518]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -99,13 +99,17 @@ once, each output written once) over its time, and the bound's share of
 its time; each output against its plain version, bit for bit. The rows
 call only the wrappers, so the file runs unchanged on an older tree.
 
-``--rows f32``: the f32 variants (``--compute_dtype float32``) on the f32
-SIMT core of ``csrc/sgemm.cuh``, at 1080p, batch 8: rows 8 (vits' D = 384)
-and 9 (vitb-518's 768, vitl-518's 1024) by stage (row 1's f32 LayerNorm,
-fc1 + b1 + GELU, fc2 + residual) and row 10 at vitg-518's (19544, 1536),
-hidden 4096, by stage (the LayerNorm, the gate + silu, the down product +
-residual), each against cuBLAS's two f32 products of the same shapes
-(``torch.addmm``, TF32 off); rows 11 and 12 at vitb-518 (C = 128), row 7 at
+``--rows f32``: the f32 variants (``--compute_dtype float32``), at 1080p,
+batch 8: rows 8 (vits' D = 384) and 9 (vitb-518's 768, vitl-518's 1024) on
+the 3xTF32 wgmma core of ``csrc/tf32x3_gemm.cuh`` by stage (row 1's f32
+LayerNorm, fc1 + b1 + GELU, fc2 + residual) and row 10 at vitg-518's
+(19544, 1536), hidden 4096, by stage (the LayerNorm, the gate + silu, the
+down product + residual), the weights split before the timing as a path's
+first step splits them, each against cuBLAS's two f32 products of the same
+shapes (``torch.addmm``, TF32 off); ``f32:<label>`` (vits, vitb-518,
+vitl-518, vitg-518) takes one of those rows alone, so that each can be a
+process's first profile (ROADMAP fault 5). On the f32 SIMT core of
+``csrc/sgemm.cuh``: rows 11 and 12 at vitb-518 (C = 128), row 7 at
 vitb-252 (C = 128) and row 15 at vits' and vitb's path1 (C = 64, 128) by
 stage (the transpose, the passes, the mix, the convs), against cuDNN's f32
 convs (TF32 off); row 16 at C = 64 and 128 on refinenet1's grid, each
@@ -1083,7 +1087,7 @@ def sass_counts() -> dict:
     from vr_video_generator_tpu_torch.attention_bench import sass_counts as sc
 
     return sc(("layernorm", "gemm_kernel", "head_tail_big", "conv2_kernel",
-               "proj_kernel", "mix_wresize", "conv1_kernel"))
+               "proj_kernel", "mix_wresize", "conv1_kernel", "split_kernel"))
 
 
 def main(argv=None) -> int:
@@ -1094,7 +1098,7 @@ def main(argv=None) -> int:
                     help="which rows to measure (comma-separated: 1, 3, 4, "
                     "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
                     "are measured together; f32: rows 7-12, 15 and 16 "
-                    "at f32)")
+                    "at f32; f32:<label> one f32 row of rows 8-10)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
@@ -1162,23 +1166,21 @@ def main(argv=None) -> int:
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
-    if "f32" in wanted:
-        torch.backends.cudnn.allow_tf32 = False
-        for shape in F32_MLP_SHAPES:
-            rows.append(f32_mlp_row(*shape))
+    every = "f32" in wanted  # else only the f32:<label> rows of rows 8-10
+    labels = {w.split(":", 1)[1] for w in wanted if w.startswith("f32:")}
+    torch.backends.cudnn.allow_tf32 = False
+    for fn, shapes in (
+            (f32_mlp_row, [s for s in F32_MLP_SHAPES
+                           if every or s[1] in labels]),
+            (f32_swiglu_row, [s for s in SWIGLU_SHAPES
+                              if every or s[0] in labels]),
+            (f32_tail_row, F32_TAIL_SHAPES if every else ()),
+            (f32_base_tail_row, F32_BASE_TAIL_SHAPES if every else ()),
+            (f32_rcu_row, RCU_SHAPES if every else ())):
+        for shape in shapes:
+            rows.append(fn(*shape))
             print(json.dumps(rows[-1]), flush=True)
             torch.cuda.empty_cache()
-        for shape in F32_TAIL_SHAPES:
-            rows.append(f32_tail_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-        for fn, shapes in ((f32_swiglu_row, SWIGLU_SHAPES),
-                           (f32_base_tail_row, F32_BASE_TAIL_SHAPES),
-                           (f32_rcu_row, RCU_SHAPES)):
-            for shape in shapes:
-                rows.append(fn(*shape))
-                print(json.dumps(rows[-1]), flush=True)
-                torch.cuda.empty_cache()
     if wanted & {"3", "4", "13", "14"}:
         for label, frames, depth in warp_depths():
             rows.extend(warp_rows(label, frames, depth, wanted))

@@ -8,6 +8,12 @@ which ``os.replace`` then moves onto ``libframepack.so``, all under an
 (xdist workers, the multi-process runtime) building at once compile once,
 and none of them loads a half-written library, which ``native.available()``
 would take for "no native library".
+
+The library is built with ``-march=native``, so it belongs to the host that
+built it. Beside it, ``libframepack.so.host`` holds that host's CPU model
+name and flags (``/proc/cpuinfo``), written after the library, and a
+library whose stamp is missing or names another CPU is rebuilt: a checkout
+copied to another machine never loads code compiled for the first one.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -27,13 +34,55 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def host_stamp() -> str:
+    """This host's CPU as ``-march=native`` sees it: the model name and the
+    flags of the first processor in ``/proc/cpuinfo`` (the machine and
+    processor names where there is none)."""
+    keys = {"model name": "", "flags": ""}
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in keys and not keys[key]:
+                    keys[key] = " ".join(value.split())
+                if all(keys.values()):
+                    break
+    except OSError:
+        pass
+    if not any(keys.values()):
+        keys = {"machine": platform.machine(),
+                "processor": platform.processor()}
+    return "".join(f"{k}: {v}\n" for k, v in keys.items())
+
+
+def _stamp_path() -> str:
+    return _SO + ".host"
+
+
 def _fresh() -> bool:
-    return (os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC))
+    if not (os.path.exists(_SO)
+            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
+        return False
+    try:
+        with open(_stamp_path(), encoding="utf-8") as f:
+            return f.read() == host_stamp()
+    except OSError:
+        return False
+
+
+def _write_stamp() -> None:
+    """The stamp of this host beside the library, written whole."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(_SO),
+                               prefix=".libframepack.", suffix=".host")
+    with os.fdopen(fd, "w", encoding="utf-8") as f:
+        f.write(host_stamp())
+    os.replace(tmp, _stamp_path())
 
 
 def build(force: bool = False) -> str:
-    """Compile the shared library if missing or stale; returns its path."""
+    """Compile the shared library if missing, stale or built on another
+    host; returns its path."""
     with _lock:
         if not force and _fresh():
             return _SO
@@ -50,6 +99,7 @@ def build(force: bool = False) -> str:
                        "-std=c++17", _SRC, "-o", tmp]
                 subprocess.run(cmd, check=True, capture_output=True)
                 os.replace(tmp, _SO)
+                _write_stamp()
             finally:
                 if os.path.exists(tmp):
                     os.remove(tmp)

@@ -21,10 +21,12 @@ the f32 chain of ``csrc/mlp_f32.cu`` (entry points ``vrvg_mlp_residual_f32``
 at D = 128 and 384, where the JAX package keeps the f32 weights resident,
 and ``vrvg_mlp_residual_hblocked_f32`` at D = 768 and 1024; counted as
 ``mlp_residual_f32`` and ``mlp_residual_hblocked_f32``): row 1's f32
-LayerNorm, then fc1 and fc2 on the f32 SIMT GEMM core of ``csrc/sgemm.cuh``
-with b1 and the GELU (``approx``: the tanh GELU in f32), and b2, LayerScale
-and the residual, in their epilogues; :func:`fc1_gelu_kernel` launches its
-fc1 stage alone.
+LayerNorm, then fc1 and fc2 on the 3xTF32 wgmma core of
+``csrc/tf32x3_gemm.cuh`` with b1 and the GELU (``approx``: the tanh GELU in
+f32), and b2, LayerScale and the residual, in their epilogues;
+:func:`fc1_gelu_kernel` launches its fc1 stage alone. That core takes each
+weight as its TF32 hi/lo split (:func:`tf32x3_weight`), made by a kernel
+once per weight and kept with it.
 
 The SwiGLU half-block (vitg) replaces `swiglu_residual_pallas` (body
 `_swiglu_kernel`, row 10): x + gamma * w3(silu(x1) * x2) with [x1 | x2] =
@@ -37,7 +39,7 @@ output in scratch; :func:`swiglu_gate_plain` and :func:`fc2_residual_plain`
 are the plain versions of its two GEMM stages. At f32 it runs the f32 chain
 of ``csrc/swiglu_f32.cu`` (entry point ``vrvg_swiglu_residual_f32``, D in
 ``SWIGLU_F32_WIDTHS``, counted as ``swiglu_residual_f32``): row 1's f32
-LayerNorm, the gate on the f32 SIMT core with w12 read as its gated operand
+LayerNorm, the gate on the 3xTF32 core with w12 split in the gated order
 (x1 and x2 of a g column in one thread) and b12 and silu(x1) * x2 in its
 epilogue, then the down product with b3, LayerScale and the residual;
 :func:`swiglu_gate_kernel` launches its gate stage alone. The plain version
@@ -67,6 +69,8 @@ HBLOCKED_F32_LAUNCHES = counter("mlp_residual_hblocked_f32")
 FC1_GELU_F32_LAUNCHES = counter("fc1_gelu_f32")
 SWIGLU_F32_LAUNCHES = counter("swiglu_residual_f32")
 SWIGLU_GATE_F32_LAUNCHES = counter("swiglu_gate_f32")
+TF32X3_SPLIT_LAUNCHES = counter("tf32x3_split")
+TF32X3_TILE = 128  # csrc/tf32x3_gemm.cuh's BN: the split planes' row step
 WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
 HBLOCKED_WIDTHS = (1024,)  # row 9's
 F32_WIDTHS = (128, 384)            # row 8's at f32 (resident(d, 4d, f32))
@@ -192,6 +196,107 @@ def fc2_residual_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     return x + gamma.to(dt) * (F.linear(h, w2.to(dt)) + b2.to(dt))
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero, the low 13 bits cleared (csrc/tf32x3.cuh rna: infinity
+    passes, a NaN stays a NaN)."""
+    u = x.contiguous().view(torch.int32)
+    r = (u + 0x1000) & -0x2000
+    special = (u & 0x7F800000) == 0x7F800000
+    nan_bit = torch.where((u & 0x7FFFFF) != 0, 0x400000, 0).to(torch.int32)
+    return torch.where(special, (u & -0x2000) | nan_bit, r).view(torch.float32)
+
+
+def tf32x3_split_plain(x: torch.Tensor):
+    """x (f32) as TF32 (hi, lo) with hi = rna(x), lo = rna(x - hi):
+    csrc/tf32x3.cuh's split, bit for bit. hi + lo is x to about 2^-22 |x|;
+    in f32 it is exact, and it is what a 3xTF32 product of x with 1 gives
+    (the selection checks of the f32 epilogues)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32x3_rows(rows: int, hidden: int = 0) -> int:
+    """Rows of a weight's split planes (csrc/tf32x3_gemm.cuh split_rows):
+    ``rows`` rounded up to TF32X3_TILE, or for row 10's gated w12 (``hidden``
+    = H > 0, rows = 2H) 128 ceil(H / 64)."""
+    if hidden:
+        return TF32X3_TILE * -(-hidden // 64)
+    return -(-rows // TF32X3_TILE) * TF32X3_TILE
+
+
+def gated_rows(hidden: int) -> torch.Tensor:
+    """The w12 row each row of the gated split holds (tf32x3::gated_row):
+    in each 128-row tile t, rows u < 64 are x1 of hidden column 64 t + u and
+    rows u >= 64 x2 of the same column; -1 past H."""
+    p = torch.arange(tf32x3_rows(2 * hidden, hidden))
+    c = 64 * (p // 128) + p % 64
+    return torch.where(c >= hidden, -1,
+                       torch.where(p % 128 < 64, c, hidden + c))
+
+
+def tf32x3_weight_plain(w: torch.Tensor, hidden: int = 0) -> torch.Tensor:
+    """w (N, K) f32 -> (2, Npad, K): its TF32 hi and lo planes as
+    csrc/tf32x3_gemm.cuh's split_kernel writes them, rows padded with zeros
+    to :func:`tf32x3_rows`; with ``hidden`` (row 10's w12) in
+    :func:`gated_rows`' order."""
+    rows = w.shape[0]
+    p = torch.arange(tf32x3_rows(rows, hidden))
+    src = (gated_rows(hidden) if hidden
+           else p.masked_fill(p >= rows, -1)).to(w.device)
+    picked = torch.where((src >= 0)[:, None], w.float()[src.clamp_min(0)],
+                         torch.zeros((), device=w.device))
+    return torch.stack(tf32x3_split_plain(picked))
+
+
+def tf32x3_split_kernel(w: torch.Tensor, hidden: int = 0) -> torch.Tensor:
+    """:func:`tf32x3_weight_plain` of w: the plain version for a CPU tensor,
+    ``vrvg_tf32x3_split`` (csrc/tf32x3_split.cu) for a CUDA one, every call
+    (:func:`tf32x3_weight` keeps its result)."""
+    if not on_cuda(w):
+        return tf32x3_weight_plain(w, hidden)
+    rows, k = w.shape
+    if w.dtype != torch.float32 or not w.is_contiguous() or k % 4 \
+            or (hidden and rows != 2 * hidden):
+        raise ValueError(f"tf32x3_split takes a contiguous f32 (N, K) weight, "
+                         f"K a multiple of 4 (gated: N = 2H), got {w.dtype} "
+                         f"{tuple(w.shape)} contiguous={w.is_contiguous()} "
+                         f"hidden={hidden}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    out = torch.empty((2, tf32x3_rows(rows, hidden), k), dtype=torch.float32,
+                      device=w.device)
+    check(library().vrvg_tf32x3_split(w.data_ptr(), out.data_ptr(), rows, k,
+                                      hidden, stream_handle(w.device)),
+          "vrvg_tf32x3_split")
+    TF32X3_SPLIT_LAUNCHES.count += 1
+    return out
+
+
+def tf32x3_weight(w: torch.Tensor, hidden: int = 0) -> torch.Tensor:
+    """w's TF32 split (:func:`tf32x3_split_kernel`), made once and kept on
+    w itself, keyed on its storage, version counter and ``hidden``, so a
+    weight changed in place (``load_state_dict``) or given new data
+    (``Module.to``) is split again. The split planes take twice the weight's
+    bytes. Planes made inside a CUDA graph capture are not kept (a capture
+    runs nothing, so ``pipeline.StepGraph``'s eager step splits the weights
+    before it), nor those of a weight without a version counter (an
+    inference tensor): such a weight is split at every call."""
+    if not on_cuda(w):
+        return tf32x3_weight_plain(w, hidden)
+    versioned = not w.is_inference()
+    key = (w.data_ptr(), w._version if versioned else None, hidden,
+           tuple(w.shape))
+    kept = getattr(w, "_vrvg_tf32x3", None)
+    if versioned and kept is not None and kept[0] == key:
+        return kept[1]
+    out = tf32x3_split_kernel(w, hidden)
+    if versioned and not (torch.cuda.is_available()
+                          and torch.cuda.is_current_stream_capturing()):
+        w._vrvg_tf32x3 = (key, out)
+    return out
+
+
 def takes_width(d: int, ffn_layer: str = "mlp",
                 dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether a kernel of the ``ffn_layer`` half-block is built for model
@@ -226,9 +331,10 @@ def fc1_gelu_kernel(a: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                         ("fc1 bias", b1, (4 * d,), f32)), f32)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    w1s = tf32x3_weight(w1)
     h = torch.empty((*a.shape[:-1], 4 * d), dtype=f32, device=a.device)
     check(library().vrvg_fc1_gelu_f32(
-        a.data_ptr(), w1.data_ptr(), b1.data_ptr(), h.data_ptr(),
+        a.data_ptr(), w1s.data_ptr(), b1.data_ptr(), h.data_ptr(),
         a.numel() // d, d, int(approx), stream_handle(a.device)),
         "vrvg_fc1_gelu_f32")
     FC1_GELU_F32_LAUNCHES.count += 1
@@ -317,6 +423,8 @@ def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     m = x.numel() // d
+    if x.dtype == torch.float32:  # the 3xTF32 core takes the weights split
+        w1, w2 = tf32x3_weight(w1), tf32x3_weight(w2)
     # Scratch of the chain: the LayerNorm'd rows and the hidden activations.
     a = torch.empty((m, d), dtype=x.dtype, device=x.device)
     h = torch.empty((m, 4 * d), dtype=x.dtype, device=x.device)
@@ -378,6 +486,8 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
         ("gamma", gamma, (d,), dt)), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    if f32:  # the 3xTF32 core takes the weights split, w12 gated
+        w12, w3 = tf32x3_weight(w12, hid), tf32x3_weight(w3)
     # Scratch of the chain: the LayerNorm'd rows and silu(x1) * x2.
     h = torch.empty((m, d), dtype=x.dtype, device=x.device)
     g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
@@ -407,9 +517,10 @@ def swiglu_gate_kernel(h: torch.Tensor, w12: torch.Tensor,
         ("w12 bias", b12, (2 * hid,), f32)), f32)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    w12s = tf32x3_weight(w12, hid)
     g = torch.empty((*h.shape[:-1], hid), dtype=f32, device=h.device)
     check(library().vrvg_swiglu_gate_f32(
-        h.data_ptr(), w12.data_ptr(), b12.data_ptr(), g.data_ptr(),
+        h.data_ptr(), w12s.data_ptr(), b12.data_ptr(), g.data_ptr(),
         h.numel() // d, d, hid, stream_handle(h.device)),
         "vrvg_swiglu_gate_f32")
     SWIGLU_GATE_F32_LAUNCHES.count += 1

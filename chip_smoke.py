@@ -114,8 +114,10 @@ Phases, each fatal on failure:
      vitg-126's), 15 (C = 64, 128 on path1 at vits' grid) and 16 (C = 64,
      128 on refinenet1's grid, each conv call alone) stage by stage,
      against their plain versions with both
-     TF32 flags off, each bound shown to refuse the TF32 result of the same
-     operands, timed beside the plain version, one library call
+     TF32 flags off (the products of rows 8-12, on the 3xTF32 core, against
+     the plain versions on f64 operands: rows 11 + 12's conv1 and conv2
+     before its 1x1, the latter through ``conv3x3_f32``), each bound shown
+     to refuse the TF32 result of the same operands, timed beside the plain version, one library call
      (F.layer_norm, cuBLAS SGEMM, SDPA, cuDNN's convs, all f32) and the f32
      bound (165 TFLOP/s: 3xTF32 on the tensor cores); the GELU of rows 8
      and 9's f32 fc1 epilogue bit for bit against the eager f32 chain
@@ -2707,8 +2709,10 @@ AUTO_VITG_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                       "blur_select_sbs": 1}
 # The weight splits (tf32x3_split) of an auto path's first step at f32: two
 # a block whose MLP half is fused (vitb's 12 row 9 halves, vitg's 40 row 10
-# halves; vits auto leaves the MLP half unfused); later steps split none.
-AUTO_F32_SPLITS = {"vits": 0, "vitb": 24, "vitg": 80}
+# halves; vits auto leaves the MLP half unfused), and the big-C tail's two
+# convs (rows 11 + 12 at vitb-518; vitg-518 auto takes cuDNN's tail);
+# later steps split none.
+AUTO_F32_SPLITS = {"vits": 0, "vitb": 26, "vitg": 80}
 # vitg-126 fused at f32 (1080p, B = 8, 40 blocks, 145 tokens): the same
 # encoder kernels, and the big-C tail at C = 384 at f32 (rows 11 + 12).
 VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
@@ -3132,12 +3136,31 @@ def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
     return res
 
 
+def conv3x3_f64(x, k):
+    """The 3x3 conv with zero padding of x (B, H, W, C) by k (O, C, 3, 3) on
+    f64 operands, (B, H, W, O) f64: a frame at a time, its im2col (F.unfold)
+    times k on cuBLAS's f64 product."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, _ = x.shape
+    km = k.double().reshape(k.shape[0], -1)
+    out = torch.empty((b, h, w, k.shape[0]), dtype=torch.float64,
+                      device=x.device)
+    for i in range(b):
+        cols = F.unfold(x[i:i + 1].permute(0, 3, 1, 2).double(), 3, padding=1)
+        out[i] = (km @ cols[0]).reshape(-1, h, w).permute(1, 2, 0)
+    return out
+
+
 def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
     """Rows 11 and 12 at f32 (vrvg_head_tail_big_f32), C = c, batch 8, x an
     NCHW activation seen as NHWC, stage by stage, each on the chain's own
-    input: the upsample and resize passes (with cw) in f32 ulps, the folded
-    conv1 by the dense f32 bound (refusing cuDNN's TF32 conv1), conv2 with
-    the 1x1 relative to the depth's range, the whole depth against
+    input: the upsample and resize passes (with cw) in f32 ulps; the folded
+    conv1 and conv2 before its 1x1 (conv3x3_f32, the same conv on the
+    3xTF32 core) by f32_exact_check against the conv on f64 operands (cuDNN's
+    f32 conv logged beside it, its TF32 conv refused); conv2 with the 1x1
+    relative to the depth's range; the whole depth against
     head_tail_big_plain (refusing it with TF32); the library time is cuDNN's
     f32 conv1 (folded weights) and conv2."""
     import torch
@@ -3153,11 +3176,17 @@ def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
     got = ht.head_tail_big_stages(x, *wts, out_hw)
     stages = dict(upsample=dict(max_ulps=f32_ulps(
         got[0], ht.big_upsample_plain(x), 1).max().item()))
-    mid = ht.big_conv1_plain(got[0], k_oc, k1)
-    with tf32(True):
-        tf_mid = ht.big_conv1_plain(got[0], k_oc, k1)
-    stages["conv1"] = f32_dense_check(f"{label} conv1", got[1], mid, tf_mid, 1)
-    del mid, tf_mid
+    k1f = ht.fold_conv1(k_oc, k1, torch.float32)
+    for name, src, k, out in (("conv1", got[0], k1f, got[1]),
+                              ("conv2", got[2], k2, None)):
+        if out is None:
+            out = ht.conv3x3_f32(src, k)
+        plain = ht.conv3x3_f32_plain(src, k)
+        with tf32(True):
+            tf_plain = ht.conv3x3_f32_plain(src, k)
+        stages[name] = f32_exact_check(f"{label} {name}", out,
+                                       conv3x3_f64(src, k), plain, tf_plain, 1)
+        del plain, tf_plain
     r = ht.big_resize_plain(got[1], k1, b_oc, b1, out_hw)
     stages["resize"] = dict(max_ulps=f32_ulps(got[2], r, 1).max().item())
     del r
@@ -3170,14 +3199,13 @@ def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
         require(stages[name]["max_ulps"] <= F32_MAX_ULPS,
                 f"{label} {name}: {stages[name]} over {F32_MAX_ULPS} f32 ulps")
     span = (want.max() - want.min()).item()
-    stages["conv2"] = dict(max_rel_err=(got[3] - depth).abs().max().item()
+    stages["depth"] = dict(max_rel_err=(got[3] - depth).abs().max().item()
                            / span)
-    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
-            f"{label} conv2: {stages['conv2']}")
+    require(stages["depth"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2 with the 1x1: {stages['depth']}")
     del depth
     uc = got[0].permute(0, 3, 1, 2).contiguous()
     rc = got[2].permute(0, 3, 1, 2).contiguous()
-    k1f = ht.fold_conv1(k_oc, k1, torch.float32)
     hm, w2 = 2 * h0, 2 * w0
     flops = 2 * B * (hm * w2 * c2 * 9 * c + out_hw[0] * out_hw[1] * 32 * 9
                      * c2)

@@ -229,77 +229,98 @@ def test_silu_mul_kernel_exhaustive(cuda):
     assert launch_counts()["silu_mul"] == before + 2
 
 
-# Rows 5 and 10 on the card run their own kernels only: no cuBLAS product,
-# F.linear or torch.matmul (all made to raise), and every kernel of the
-# calls' profile is the LayerNorm's or the GEMM core's.
-def test_ln_qkv_and_swiglu_call_no_library_product(cuda, monkeypatch):
-    from torch.profiler import ProfilerActivity, profile
-
+def _refuse_library_products(extra=()):
+    """F.linear, torch.matmul, mm, addmm, bmm and @ (and ``extra``) made to
+    raise; returns the saved attributes."""
     def refuse(*args, **kwargs):
         raise AssertionError("a library product was called")
 
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    d = 1024
-    qargs = (_randn(gen, (2, 129, d)),
-             _randn(gen, (d,), 0.1, 1.0, torch.float32),
-             _randn(gen, (d,), 0.1, 0.0, torch.float32),
-             _randn(gen, (3 * d, d), d ** -0.5), _randn(gen, (3 * d,), 0.5),
-             d // 64, 64 ** -0.5)
-    sargs = _swiglu_args(gen, 300)
-    torch.cuda.synchronize()
+    saved = []
     for mod, name in ((torch.nn.functional, "linear"), (torch, "matmul"),
                       (torch, "mm"), (torch, "addmm"), (torch, "bmm"),
-                      (torch.Tensor, "__matmul__")):
-        monkeypatch.setattr(mod, name, refuse)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ln_qkv(*qargs)
-        swiglu_residual(*sargs)
-        torch.cuda.synchronize()
-    monkeypatch.undo()
-    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+                      (torch.Tensor, "__matmul__"), *extra):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, refuse)
+    return saved
+
+
+def _profiled_kernel_names(which: str) -> list:
+    """In a fresh process (utils.profiling.in_fresh_process: its first
+    profile records the card's kernels, ROADMAP fault 5): the device
+    kernels of ``which``'s calls under torch.profiler, with the library
+    products made to raise around them. "ln_qkv_swiglu": rows 5 and 10;
+    "mlp_rcu": rows 8 and 16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
+
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if which == "ln_qkv_swiglu":
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        d = 1024
+        qargs = (_randn(gen, (2, 129, d)),
+                 _randn(gen, (d,), 0.1, 1.0, torch.float32),
+                 _randn(gen, (d,), 0.1, 0.0, torch.float32),
+                 _randn(gen, (3 * d, d), d ** -0.5),
+                 _randn(gen, (3 * d,), 0.5), d // 64, 64 ** -0.5)
+        sargs = _swiglu_args(gen, 300)
+        calls = lambda: (ln_qkv(*qargs), swiglu_residual(*sargs))  # noqa: E731
+        extra = ()
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(8)
+        d, c = 384, 64
+        margs = (_randn(gen, (300, d)),
+                 _randn(gen, (d,), 0.1, 1.0, torch.float32),
+                 _randn(gen, (d,), 0.1, 0.0, torch.float32),
+                 _randn(gen, (4 * d, d), d ** -0.5),
+                 _randn(gen, (4 * d,), 0.5),
+                 _randn(gen, (d, 4 * d), (4 * d) ** -0.5),
+                 _randn(gen, (d,), 0.5), _randn(gen, (d,), 0.1, 1.0))
+        rn0, path2 = (_randn(gen, (2, 20, 36, c)) for _ in range(2))
+        ws = []
+        for _ in range(4):
+            ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5),
+                   _randn(gen, (c,), 0.1)]
+        refinenet_pre(rn0, path2, *ws)  # the weight layouts, built once
+        calls = lambda: (mlp_residual(*margs),  # noqa: E731
+                         refinenet_pre(rn0, path2, *ws))
+        extra = ((torch.nn.functional, "conv2d"), (torch, "conv2d"))
+    torch.cuda.synchronize()
+    saved = _refuse_library_products(extra)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return sorted({e.name for e in prof.events()
+                   if e.device_type.name == "CUDA"})
+
+
+# Rows 5 and 10 on the card run their own kernels only: no cuBLAS product,
+# F.linear or torch.matmul (all made to raise), and every kernel of the
+# calls' profile is the LayerNorm's or the GEMM core's.
+def test_ln_qkv_and_swiglu_call_no_library_product(cuda):
+    from vr_video_generator_tpu_torch.utils.profiling import in_fresh_process
+
+    names = in_fresh_process(_profiled_kernel_names, "ln_qkv_swiglu")
     assert names and all("layernorm_kernel" in n or "tma_gemm::gemm_kernel" in n
-                         for n in names), sorted(names)
+                         for n in names), names
 
 
 # Rows 8 and 16 on the card run their own kernels only: no cuBLAS product
 # or cuDNN convolution (F.linear, torch.matmul, mm, addmm, bmm and conv2d
 # made to raise), and every kernel of the calls' profile is the LayerNorm's,
 # the GEMM core's or the RCU pair's ReLU pass.
-def test_mlp_and_rcu_pair_call_no_library_product(cuda, monkeypatch):
-    from torch.profiler import ProfilerActivity, profile
+def test_mlp_and_rcu_pair_call_no_library_product(cuda):
+    from vr_video_generator_tpu_torch.utils.profiling import in_fresh_process
 
-    from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a library product was called")
-
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    d, c = 384, 64
-    margs = (_randn(gen, (300, d)),
-             _randn(gen, (d,), 0.1, 1.0, torch.float32),
-             _randn(gen, (d,), 0.1, 0.0, torch.float32),
-             _randn(gen, (4 * d, d), d ** -0.5), _randn(gen, (4 * d,), 0.5),
-             _randn(gen, (d, 4 * d), (4 * d) ** -0.5), _randn(gen, (d,), 0.5),
-             _randn(gen, (d,), 0.1, 1.0))
-    rn0, path2 = (_randn(gen, (2, 20, 36, c)) for _ in range(2))
-    ws = []
-    for _ in range(4):
-        ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5), _randn(gen, (c,), 0.1)]
-    refinenet_pre(rn0, path2, *ws)  # the weight layouts, built once
-    torch.cuda.synchronize()
-    for mod, name in ((torch.nn.functional, "linear"), (torch, "matmul"),
-                      (torch, "mm"), (torch, "addmm"), (torch, "bmm"),
-                      (torch.Tensor, "__matmul__"),
-                      (torch.nn.functional, "conv2d"), (torch, "conv2d")):
-        monkeypatch.setattr(mod, name, refuse)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mlp_residual(*margs)
-        refinenet_pre(rn0, path2, *ws)
-        torch.cuda.synchronize()
-    monkeypatch.undo()
-    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    names = in_fresh_process(_profiled_kernel_names, "mlp_rcu")
     assert names and all("layernorm_kernel" in n or "tma_gemm::gemm_kernel" in n
-                         or "relu_kernel" in n for n in names), sorted(names)
+                         or "relu_kernel" in n for n in names), names
 
 
 def _attention_inputs(cuda, b, n, h, views):
@@ -985,7 +1006,8 @@ def test_host_staging_chunk_roundtrip(cuda):
 
 def test_trace_records_device_kernels(cuda, tmp_path):
     """utils.profiling.trace on the card: CUDA activity is on, and the
-    Chrome trace holds the block's kernels."""
+    Chrome trace holds the block's kernels (the suite takes its other
+    profiles in fresh processes, so this is the process's first)."""
     import json
 
     from vr_video_generator_tpu_torch.utils.profiling import trace
@@ -1850,3 +1872,130 @@ def test_tf32x3_gemm_kernels_hold_tf32_hgmma(cuda):
         assert c["UTMALDG"] > 0, (name, c)
         if "LayerScaleResidual" in name:
             assert c["FFMA"] == 0, (name, c)
+
+
+# --- rows 11 and 12 at f32 on the 3xTF32 core: the convs ---------------------
+
+@pytest.mark.parametrize("c,n,b,h,w", [
+    (64, 32, 2, 9, 45), (128, 64, 2, 13, 70), (256, 128, 1, 6, 33),
+    (384, 192, 2, 5, 40), (64, 32, 1, 37, 528), (192, 32, 2, 7, 61)],
+    ids=["conv1 C=64", "conv1 C=128", "conv1 C=256", "conv1 C=384",
+         "W=528", "conv2 C2=192"])
+def test_conv3x3_f32_kernel_matches_f64(cuda, c, n, b, h, w):
+    """The 3xTF32 core's implicit-GEMM conv (vrvg_conv3x3_f32, the convs of
+    rows 11 and 12 at f32) at every tile width (n = 32, 64, 128, 192 on two
+    96-wide tiles), ragged W (528 = 16.5 x 32 pixels) and H: within the f32
+    bound of the conv on f64 operands, at least as close to it on average
+    as cuDNN's f32 conv, its TF32 conv refused (chip_smoke.f32_exact_check);
+    one launch a call."""
+    from chip_smoke import conv3x3_f64, f32_exact_check, tf32
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + n + w)
+    x = _randn(gen, (b, h, w, c), dtype=F32)
+    k = _randn(gen, (n, c, 3, 3), (9 * c) ** -0.5, dtype=F32)
+    before = launch_counts().get("conv3x3_f32", 0)
+    got = ht.conv3x3_f32(x, k)
+    assert launch_counts()["conv3x3_f32"] == before + 1
+    plain = ht.conv3x3_f32_plain(x, k)
+    with tf32(True):
+        tfw = ht.conv3x3_f32_plain(x, k)
+    f32_exact_check(f"conv3x3_f32 C={c} n={n}", got, conv3x3_f64(x, k), plain,
+                    tfw, 1)
+
+
+@pytest.mark.parametrize("c,h0,w0", [(64, 5, 264), (128, 4, 9), (256, 3, 11),
+                                     (384, 4, 6)],
+                         ids=["C=64 W2=528", "C=128", "C=256", "C=384"])
+def test_head_tail_big_f32_kernel_matches_plain(cuda, c, h0, w0):
+    """Rows 11 and 12 at f32 on the 3xTF32 core (one head_tail_big_f32
+    launch, the weights split at the first call and not after), stage by
+    stage: mid against the folded conv1 on f64 operands, the depth against
+    head_tail_big_plain relative to its range (TF32 refused)."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, conv3x3_f64,
+                            f32_exact_check, f32_rel_check, tf32)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + w0)
+    x = _randn(gen, (2, c, h0, w0), dtype=F32).permute(0, 2, 3, 1)
+    wts = _f32_tail_wts(gen, c)
+    out_hw = (h0 * 7 // 2, w0 * 7 // 2)
+    counts = []
+    for _ in range(2):
+        before = dict(launch_counts())
+        got = ht.head_tail_big_stages(x, *wts, out_hw)
+        counts.append({k: launch_counts()[k] - before.get(k, 0)
+                       for k in ("head_tail_big_f32", "tf32x3_split")})
+    assert counts == [{"head_tail_big_f32": 1, "tf32x3_split": 2},
+                      {"head_tail_big_f32": 1, "tf32x3_split": 0}]
+    k1f = ht.fold_conv1(wts[0], wts[2], F32)
+    with tf32(True):
+        tf_mid = ht.conv3x3_f32_plain(got[0], k1f)
+    f32_exact_check(f"head_tail_big_f32 C={c} conv1", got[1],
+                    conv3x3_f64(got[0], k1f),
+                    ht.conv3x3_f32_plain(got[0], k1f), tf_mid, 1)
+    want = ht.head_tail_big_plain(x, *wts, out_hw)
+    with tf32(True):
+        tfw = ht.head_tail_big_plain(x, *wts, out_hw)
+    span = (want.max() - want.min()).item()
+    f32_rel_check(f"head_tail_big_f32 C={c}", got[3], want, tfw,
+                  TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, span)
+
+
+def test_big_tail_f32_split_before_step_many_capture(cuda):
+    """vitg fused at f32 at --input_size 126 on 90 x 160 frames (the big-C
+    tail at C = 384), cut to 4 blocks, on a new pipeline: step_many's eager step splits each
+    block's w12 and w3 and the tail's two convs once (10 launches) before
+    its capture; a replay runs rows 11 + 12 once and splits nothing; two
+    replays equal two eager steps bit for bit."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vitg", batch_size=2, compute_dtype="float32",
+                    input_size=126, mlp_fused="fused", tail="fused")
+    mcfg = dataclasses.replace(cfg.model(), depth=4,
+                               intermediate_layers=(0, 1, 2, 3))
+    model = build_model(mcfg, random_state_dict(mcfg, 0), F32, cuda,
+                        tail="fused")
+    # 90 x 160 frames: the net's 126 x 224 input, refinenet1's 36 x 64
+    # grid, where the planner takes the big-C tail.
+    pipe = SbsPipeline(model, 90, 160, run_cfg=cfg)
+    frames = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, 2, 90, 160, 3), dtype=np.uint8)).to(cuda)
+    reset_launch_counts()
+    st0 = pipe.initial_state()
+    outs, st = pipe.step_many(frames, st0)
+    torch.cuda.synchronize()
+    assert launch_counts()["tf32x3_split"] == 10
+    per_replay = dict(pipe._graphs[(2, 2)].launches)
+    assert per_replay.get("tf32x3_split", 0) == 0
+    assert per_replay["head_tail_big_f32"] == 2
+    eager, state = [], st0
+    for i in range(2):
+        sbs, state = pipe.step(frames[i], state)
+        eager.append(sbs)
+    assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+    reset_launch_counts()
+    pipe.step_many(frames, st)
+    torch.cuda.synchronize()
+    assert launch_counts().get("tf32x3_split", 0) == 0
+    assert launch_counts()["head_tail_big_f32"] == 2
+
+
+def test_big_tail_f32_convs_hold_tf32_hgmma(cuda):
+    """Rows 11 and 12 at f32 run their convs as wgmma with TF32 operands
+    (twelve a stage) fed by TMA: the 3xTF32 core's conv_kernel
+    instantiations (conv1 on 32-, 64- and 96-wide tiles, n = 128 on two of
+    64; conv2 with DepthOut) hold TF32 HGMMA only, and no FFMA."""
+    from vr_video_generator_tpu_torch.attention_bench import sass_counts
+
+    counts = {name: c for name, c in sass_counts(("tf32x3_gemm",)).items()
+              if "conv_kernel" in name}
+    assert len(counts) == 4, sorted(counts)
+    for name, c in counts.items():
+        assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
+            name, c)
+        assert c["UTMALDG"] > 0 and c["FFMA"] == 0, (name, c)

@@ -9,15 +9,17 @@ ReLU'd copy) as they are,
 launches rewritten to the emulator's, and a unit that instantiates the core
 with the f32 DPT tails' operands (csrc/sconv.cuh: the 3x3 conv as an
 implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
-and the tile each product takes by width) as vrvg_head_tail_ext_f32,
-vrvg_head_tail_big_f32 and vrvg_head_tail_f32 (row 15 at f32) call them; the tails' passes (upsample, resize) are
-their plain versions around them. Each CUDA thread is a std::thread and each
+and the tile each product takes by width) as vrvg_head_tail_ext_f32 and
+vrvg_head_tail_f32 (row 15 at f32) call them; the tails' passes (upsample,
+resize) are their plain versions around them. Each CUDA thread is a std::thread and each
 __syncthreads a barrier, so the tiles' indexing, the ragged edges and the
 double-buffered k slices run as written. Rows 2 and 17 at f32
-(csrc/attention_f32.cu) and rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu and
+(csrc/attention_f32.cu), rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu and
 csrc/swiglu_f32.cu on the 3xTF32 core of csrc/tf32x3_gemm.cuh: TMA and
-wgmma, which the emulation has not) are held on the CPU by
-tests/test_torch_attention_3xtf32.py and tests/test_torch_gemm_3xtf32.py.
+wgmma, which the emulation has not) and rows 11 and 12 at f32 (the same
+core's conv layout in csrc/head_tail_big.cu) are held on the CPU by
+tests/test_torch_attention_3xtf32.py, tests/test_torch_gemm_3xtf32.py and
+tests/test_torch_conv_3xtf32.py.
 The plain versions sum in another order, so each output is held to a bound
 in f32 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32
 product would be thousands off). This checks logic only; the card checks
@@ -327,12 +329,15 @@ def test_ext_conv1_by_width_source(lib, c):
 
 @pytest.mark.parametrize("c", [64, 128, 256])
 def test_big_tail_chain_source(lib, c):
-    """Rows 11 and 12 at f32 as vrvg_head_tail_big_f32 runs them, the passes
-    their plain versions: the folded conv1, bias-free (Store; C2 = 32, 64,
-    128 on Rows32, Tall64, Square), then the resize pass with cw, then
-    conv2 with the 1x1 (Rows32); mid in f32 ulps against big_conv1_plain,
-    the depth against head_tail_big_plain relative to its range. A 4-row
-    grid: most conv1 rows are cw's top or bottom rows."""
+    """The SIMT f32 core's convs (csrc/sconv.cuh) on the big-C tail's
+    chain, the passes their plain versions: a bias-free conv3x3 (Store; C2 =
+    32, 64, 128 on Rows32, Tall64, Square: the tiles row 7 at f32 runs its
+    conv1 on at C = 64-256, conv1 at C = 256 on Square), then the resize
+    pass with cw, then conv2 with the 1x1 (Rows32, row 7's and row 15's
+    back); mid in f32 ulps against big_conv1_plain, the depth against
+    head_tail_big_plain relative to its range. A 4-row grid: most conv1
+    rows are cw's top or bottom rows. (Rows 11 and 12 at f32 run their
+    convs on the 3xTF32 core, tests/test_torch_conv_3xtf32.py.)"""
     rng = np.random.default_rng(c + 5)
     b, h0, w0, c2 = 2, 4, 7, c // 2
     out_hw = (14, 24)

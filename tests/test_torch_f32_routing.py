@@ -392,6 +392,8 @@ CALLS = {
                             "vrvg_head_tail_ext_f32", "head_tail_ext_f32"),
     "head_tail_big_front": (lambda: ht.head_tail_big(*_x_wts(128), (21, 35)),
                             "vrvg_head_tail_big_f32", "head_tail_big_f32"),
+    "conv3x3": (lambda: ht.conv3x3_f32(_f32(1, 6, 10, 64), _f32(32, 64, 3, 3)),
+                "vrvg_conv3x3_f32", "conv3x3_f32"),
     "mlp_residual": (lambda: mlp_ops.mlp_residual(*_mlp_args(384)),
                      "vrvg_mlp_residual_f32", "mlp_residual_f32"),
     "mlp_residual_tanh": (lambda: mlp_ops.mlp_residual(*_mlp_args(128),
@@ -424,10 +426,12 @@ CALLS = {
 
 
 # The weights each f32 chain on the 3xTF32 core splits first (fresh weights
-# here: nothing is kept from an earlier call), one vrvg_tf32x3_split each.
+# here: nothing is kept from an earlier call), one vrvg_tf32x3_split each:
+# rows 8, 9 and 10's two products, rows 11 and 12's two convs.
 SPLITS = {"mlp_residual": 2, "mlp_residual_tanh": 2,
           "mlp_residual_hblocked": 2, "mlp_residual_hblocked_tanh": 2,
-          "fc1_gelu": 1, "swiglu_residual": 2, "swiglu_gate": 1}
+          "fc1_gelu": 1, "swiglu_residual": 2, "swiglu_gate": 1,
+          "head_tail_big_front": 2, "conv3x3": 1}
 
 
 @pytest.mark.parametrize("name", list(CALLS))
@@ -435,7 +439,8 @@ def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
     """An f32 tensor on the card goes to its wrapper's f32 entry point, once,
     and counts on the f32 counter, never on the bf16 one (the case's name,
     where the kernel has one); it never reaches the plain version. Rows 8,
-    9 and 10 split each weight on the card first (vrvg_tf32x3_split)."""
+    9, 10, 11 and 12 split each weight on the card first
+    (vrvg_tf32x3_split)."""
     call, entry, counter = CALLS[name]
     before = launch_counts()
     call()

@@ -1,16 +1,19 @@
 """PyTorch port: utils/profiling.py (StageTimer, trace) against the JAX
-package's, and --profile_dir and --chunk_batches through the port's CLI on
-the CPU."""
+package's, trace's refusal of a profile that lost the device's events and
+the fresh-process helper, and --profile_dir and --chunk_batches through the
+port's CLI on the CPU."""
 
 import csv
 import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from vr_video_generator_tpu.utils.profiling import StageTimer as JaxStageTimer
+from vr_video_generator_tpu_torch.utils import profiling
 from vr_video_generator_tpu_torch.utils.profiling import StageTimer, trace
 
 torch.set_num_threads(2)
@@ -101,6 +104,90 @@ def test_trace_writes_nothing_when_the_block_fails(tmp_path):
         with trace(str(tmp_path / "t")):
             raise RuntimeError("boom")
     assert not os.path.exists(tmp_path / "t")
+
+
+def _events(*pairs):
+    """Profiler events: (name, on the device) pairs."""
+    return [SimpleNamespace(name=n, device_type=SimpleNamespace(
+        name="CUDA" if dev else "CPU")) for n, dev in pairs]
+
+
+LAUNCH, KERNEL = ("cudaLaunchKernel", False), ("kernel_a", True)
+
+
+@pytest.mark.parametrize("events,lost", [
+    ([LAUNCH] * 3 + [KERNEL] * 3, False),
+    ([LAUNCH] * 3, True),
+    ([LAUNCH] * 3 + [KERNEL], True),
+    ([LAUNCH] * 2 + [("Memcpy HtoD", True)] * 2, True),
+    ([("cudaGraphLaunch", False)], True),
+    ([("cudaGraphLaunch", False)] + [KERNEL] * 40, False),
+    ([("cudaMemcpyAsync", False), ("Memcpy DtoH", True)], False),
+    ([("aten::mm", False)], False)],
+    ids=["all kept", "none kept", "one of three", "copies only",
+         "graph, none kept", "graph kept", "copy kept", "no device work"])
+def test_lost_device_events(events, lost):
+    """A profile lost the device's events when device work was launched
+    and none was recorded, or fewer kernels than the host launched one by
+    one (a graph launch's kernels are not counted on the host)."""
+    got = profiling.lost_device_events(_events(*events))
+    assert (got is not None) == lost
+    if lost:
+        assert "fresh process" in got
+
+
+class _FakeProfile:
+    """torch.profiler.profile's stand-in: events of a session that lost the
+    device's kernels."""
+
+    def __init__(self, activities):
+        self.activities = activities
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return _events(LAUNCH, LAUNCH)
+
+    def export_chrome_trace(self, path):
+        raise AssertionError("a trace that lost its device events written")
+
+
+def test_trace_raises_and_writes_nothing_when_the_card_was_lost(
+        tmp_path, monkeypatch):
+    """With CUDA activity, a session whose device events are missing raises
+    RuntimeError naming the cause and writes no trace; the device is
+    synchronized before the session ends."""
+    import torch.profiler
+
+    synced = []
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: synced.append(1))
+    with pytest.raises(RuntimeError, match="fault 5"):
+        with trace(str(tmp_path / "t")) as prof:
+            assert len(prof.activities) == 2
+    assert synced and not os.path.exists(tmp_path / "t")
+
+
+def _child_facts(x):
+    return os.getpid(), x * 2, torch.get_num_threads() > 0
+
+
+def _child_fails():
+    raise ValueError("from the child")
+
+
+def test_in_fresh_process_runs_the_function_in_a_child():
+    """in_fresh_process runs a module-level function in a spawned child and
+    hands back its result; the child's error is raised in the caller."""
+    pid, doubled, ok = profiling.in_fresh_process(_child_facts, 21)
+    assert pid != os.getpid() and doubled == 42 and ok
+    with pytest.raises(ValueError, match="from the child"):
+        profiling.in_fresh_process(_child_fails)
 
 
 def _video(tmp_path, n=14):

@@ -171,9 +171,8 @@ def profile_f32(shapes=F32_SHAPES) -> dict:
     kernel) and SDPA's kernels, from one ``torch.profiler`` session: per
     shape ``PROFILED`` kernel calls, then one SDPA call. Raises unless the
     trace holds 2 * PROFILED of the port's kernel events a shape."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vr_video_generator_tpu_torch.models.depth_anything_v2 import no_tf32
+    from vr_video_generator_tpu_torch.utils.profiling import trace
 
     cases = []
     with no_tf32():
@@ -183,18 +182,14 @@ def profile_f32(shapes=F32_SHAPES) -> dict:
             fn(*args), sdpa()
             cases.append((label, fn, args, sdpa))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _, fn, args, sdpa in cases:
-                for _ in range(PROFILED):
-                    fn(*args)
-                sdpa()
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path, encoding="utf-8") as f:
-            events = json.load(f)["traceEvents"]
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp, "trace.json"):
+                for _, fn, args, sdpa in cases:
+                    for _ in range(PROFILED):
+                        fn(*args)
+                    sdpa()
+            with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
+                events = json.load(f)["traceEvents"]
     kernels = sorted((e["ts"], e["name"], e["dur"]) for e in events
                      if e.get("cat") == "kernel" and "dur" in e)
     # In launch order: a shape's kernel calls, then its SDPA call's kernels.

@@ -1,11 +1,12 @@
 // The per-element arithmetic of the f32 GEMM epilogues, one function per
 // epilogue, called by both f32 GEMM cores: the SIMT core (csrc/sgemm.cuh,
-// rows 5, 6, 7, 11, 12, 15 and 16 at f32) and the 3xTF32 wgmma core
-// (csrc/tf32x3_gemm.cuh, rows 8, 9 and 10 at f32). Each takes a product's
-// f32 sum and rounds every operation on its own (no FMA, no fast math), at
-// the JAX package's f32 rounding points, so the two cores and the CPU
-// emulation (tests/cuda_emu/cuda_runtime.h, which g++ compiles this header
-// under: tests/test_torch_gemm_3xtf32.py) share one copy of them.
+// rows 5, 6, 7, 15 and 16 at f32) and the 3xTF32 wgmma core
+// (csrc/tf32x3_gemm.cuh, rows 8, 9, 10, 11 and 12 at f32). Each takes a
+// product's f32 sum and rounds every operation on its own (no FMA, no fast
+// math), at the JAX package's f32 rounding points, so the two cores and the
+// CPU emulation (tests/cuda_emu/cuda_runtime.h, which g++ compiles this
+// header under: tests/test_torch_gemm_3xtf32.py,
+// tests/test_torch_conv_3xtf32.py) share one copy of them.
 
 #pragma once
 
@@ -47,6 +48,22 @@ __device__ __forceinline__ float silu_mul_f32(float x1, float x2) {
 __device__ __forceinline__ float swiglu_gate_f32(float s1, float b1, float s2,
                                                  float b2) {
   return silu_mul_f32(__fadd_rn(s1, b1), __fadd_rn(s2, b2));
+}
+
+// output_conv2's epilogue at f32 (row 12's, and the back of rows 7 and 15):
+// a pixel's 32 sums s in channel order -> ReLU(b3 + the 1x1 of ReLU(b2 +
+// s)), the 1x1's terms w3 y added in channel order from 0
+// (ops/head_tail.big_conv2_plain).
+__device__ __forceinline__ float depth_out_f32(const float (&s)[32],
+                                               const float* b2,
+                                               const float* w3, float b3) {
+  float sum = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < 32; ++ch) {
+    const float y = fmaxf(__fadd_rn(b2[ch], s[ch]), 0.f);
+    sum = __fadd_rn(sum, __fmul_rn(y, w3[ch]));
+  }
+  return fmaxf(__fadd_rn(sum, b3), 0.f);
 }
 
 }  // namespace vrvg

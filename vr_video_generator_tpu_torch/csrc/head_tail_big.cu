@@ -119,27 +119,34 @@
 // (every intermediate f32, the resize weights f32, conv1's folded weights
 // the f32 fold itself): the NCHW transpose, the upsample pass (with
 // out_conv's bias for row 7) and the resize pass (with `cw` for row 12) are
-// the kernels above instantiated on f32 (16 bytes a thread, 4 channels);
-// row 7's out_conv mix, the conv1s (row 7's with its f32 bias, row 11's
-// folded and bias-free) and conv2 with b2, ReLU, the 1x1, b3 and ReLU are
-// products on the f32 core (csrc/sgemm.cuh; the convs implicit GEMMs on
-// the tiles csrc/sconv.cuh picks by width): wgmma takes no f32 operands and
-// TF32 is not f32. Each is one entry point, front and back together, so
+// the kernels above instantiated on f32 (16 bytes a thread, 4 channels).
+// wgmma takes no f32 operands and TF32 is not f32, so the products run on
+// f32-accurate cores: rows 11 and 12's folded conv1 and conv2 with b2,
+// ReLU, the 1x1, b3 and ReLU on the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh
+// conv_kernel: implicit GEMMs whose A is read from one TMA halo box of the
+// NHWC image a 32-channel slice, at each tap's shifted rows, the weights
+// split once by the wrapper; conv1 on 128 x C2 tiles (two of 64 at C2 =
+// 128, two of 96 at 192), conv2 on 128 x 32 with the 1x1 on a pixel's 32
+// sums gathered into one thread of its quad), row 7's out_conv mix and
+// convs on
+// the SIMT FFMA core (csrc/sgemm.cuh; the convs on the tiles csrc/sconv.cuh
+// picks by width). Each is one entry point, front and back together, so
 // the f32 big-C tail's intermediate mid (B, HM, W2, C2) f32 is the front's
 // post-conv1 product as at bf16. What bounds them: at vits' 1080p (B = 8)
 // row 7's mix, conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 1.78 ms at the
 // card's 67 TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of
 // f32 intermediates (0.42 ms); at vitb-518 (C = 128) rows 11 and 12's conv1
-// and conv2 are 184 + 141 GFLOP (4.9 ms) against ~4 GB of f32 U, mid and R
-// written and read (1.2 ms): bound by operations. Row 15 at f32
-// (vrvg_head_tail_f32, C = 64 and 128) is row 7's f32 chain from conv1 on:
-// conv1 of path1 with its f32 bias on the core, the resize pass on f32,
-// conv2 with the 1x1 (see its entry point).
+// and conv2 are 184 + 141 GFLOP (1.97 ms at 3xTF32's 165 TFLOP/s) against
+// ~4 GB of f32 U, mid and R written and read (1.2 ms): bound by
+// operations. Row 15 at f32 (vrvg_head_tail_f32, C = 64 and 128) is row 7's
+// f32 chain from conv1 on: conv1 of path1 with its f32 bias on the SIMT
+// core, the resize pass on f32, conv2 with the 1x1 (see its entry point).
 
 #include <type_traits>
 
 #include "sconv.cuh"
 #include "taps.cuh"
+#include "tf32x3_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -832,19 +839,47 @@ extern "C" int vrvg_head_tail_ext_f32(
                             stream);
 }
 
+namespace {
+
+// A 3x3 conv with zero padding of x (B, H, W, C) f32 on the 3xTF32 core,
+// its (B H W, n) f32 sums stored to out: the weights (n, 9 C) split, n in
+// {32, 64, 128, 192} on tiles as wide as n up to 64 (two of 64 at 128, two
+// of 96 at 192).
+int conv3x3_store_f32(const float* x, const uint32_t* ws, float* out,
+                      int batch, int h, int w, int c, int n, void* stream) {
+  const tf32x3_gemm::Store epi{n, out};
+  switch (n) {
+    case 32:
+      return tf32x3_gemm::conv3x3<32>(x, ws, batch, h, w, c, n, epi, stream);
+    case 64:
+      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, n, epi, stream);
+    case 128:
+      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, n, epi, stream);
+    case 192:
+      return tf32x3_gemm::conv3x3<96>(x, ws, batch, h, w, c, n, epi, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // Rows 11 and 12 at f32 (the big-C tail, front and back in one chain). x
 // (B, H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor seen as
 // NHWC, first transposed into the scratch xt; conv1 with out_conv's mix
-// folded in (f32, ops/head_tail.fold_conv1) as (C2, 9 C) f32, k = (3 dh +
-// dw) C + c; the f32 W-upsample tap tables (2, 2 W0); the f32 W-resize tap
+// folded in (f32, ops/head_tail.fold_conv1) as (C2, 9 C), k = (3 dh + dw) C
+// + c, given as its TF32 split (vrvg_tf32x3_split: (2, 128 ceil(C2 / 128),
+// 9 C)); the f32 W-upsample tap tables (2, 2 W0); the f32 W-resize tap
 // tables (2, W1) and cw (3, W1, C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2
-// as (32, 9 C2) f32, b2 (32,), the 1x1 (32,) and b3 (1,); scratch u (B,
-// 2 H0, 2 W0, C), mid (B, 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out
-// (B, H1, W1) f32. C in {64, 128, 256, 384}, C2 = C / 2.
+// as (32, 9 C2) in the same k order, split ((2, 128, 9 C2)), b2 (32,), the
+// 1x1 (32,) and b3 (1,) f32; scratch u (B, 2 H0, 2 W0, C), mid (B, 2 H0,
+// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {64,
+// 128, 256, 384}, C2 = C / 2. Returns a CUDA error code (a tensor map that
+// does not encode: cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_big_f32(
-    const void* x, int nchw, void* xt, const void* w1m, const void* taps_a,
+    const void* x, int nchw, void* xt, const void* w1s, const void* taps_a,
     const void* tapw_a, void* u, void* mid, const void* taps_b,
-    const void* tapw_b, const void* cw, void* r, const void* w2m,
+    const void* tapw_b, const void* cw, void* r, const void* w2s,
     const void* b2, const void* w3, const void* b3, void* out, int batch,
     int h0, int w0, int c, int h1, int w1, void* stream) {
   if (c != 64 && c != 128 && c != 256 && c != 384) {
@@ -865,18 +900,32 @@ extern "C" int vrvg_head_tail_big_f32(
       (float*)u, c, h0, w0, hm, w2);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = sgemm::conv3x3((const float*)u, (const float*)w1m, batch, hm, w2, c,
-                       c2, sgemm::Store{(float*)mid, c2}, stream);
+  err = conv3x3_store_f32((const float*)u, (const uint32_t*)w1s, (float*)mid,
+                          batch, hm, w2, c, c2, stream);
   if (err != 0) return err;
   resize_kernel<float, true><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
       (const float*)mid, (const int*)taps_b, (const float*)tapw_b,
       (const float*)cw, (float*)r, c2, hm, w2, h1, w1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
-                            (const float*)b2, (const float*)w3,
-                            (const float*)b3, (float*)out, batch, h1, w1, c2,
-                            stream);
+  return tf32x3_gemm::conv3x3<C3>(
+      (const float*)r, (const uint32_t*)w2s, batch, h1, w1, c2, C3,
+      tf32x3_gemm::DepthOut{C3, (float*)out, (const float*)b2,
+                            (const float*)w3, (const float*)b3},
+      stream);
+}
+
+// A 3x3 conv's f32 sums alone on the 3xTF32 core, as rows 11 and 12 at f32
+// run their convs (no CLI path calls this: it exposes conv2's sums before
+// the 1x1, for a check of the product): x (B, H, W, C) f32, contiguous, the
+// weights (n, 9 C), k = (3 dh + dw) C + c, given as their TF32 split -> out
+// (B, H, W, n) f32. C a multiple of 32, n in {32, 64, 128, 192}. Returns a
+// CUDA error code.
+extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
+                                int batch, int h, int w, int c, int n,
+                                void* stream) {
+  return conv3x3_store_f32((const float*)x, (const uint32_t*)ws, (float*)out,
+                           batch, h, w, c, n, stream);
 }
 
 // Row 15 at f32 (the single-kernel tail, csrc/head_tail_big.cu's

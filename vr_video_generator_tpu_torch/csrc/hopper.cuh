@@ -380,6 +380,73 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 32, f32) (+)= A (64 x 8) B^T (B 32 x 8), TF32 operands: A in
+// registers (wgmma_m64n64k8_tf32's fragment), B from shared memory, K-major.
+// The sum starts from D when `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3,
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 96, f32) (+)= A (64 x 8) B^T (B 96 x 8), TF32 operands: A in
+// registers (wgmma_m64n64k8_tf32's fragment), B from shared memory, K-major.
+// The sum starts from D when `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n96k8_tf32(float (&d)[48],
+                                                    uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3,
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// D (64 x N, f32) (+)= A (64 x 8) B^T, TF32, for N = 32, 64, 96 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128, "wgmma tf32 N");
+  if constexpr (N == 32) {
+    wgmma_m64n32k8_tf32(d, a0, a1, a2, a3, db, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k8_tf32(d, a0, a1, a2, a3, db, accumulate);
+  } else if constexpr (N == 96) {
+    wgmma_m64n96k8_tf32(d, a0, a1, a2, a3, db, accumulate);
+  } else {
+    wgmma_m64n128k8_tf32(d, a0, a1, a2, a3, db, accumulate);
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,

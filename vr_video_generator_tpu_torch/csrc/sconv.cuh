@@ -1,11 +1,13 @@
-// The f32 DPT tails' products on the f32 core (csrc/sgemm.cuh), for rows
-// 7, 11 and 12 at f32 (csrc/head_tail_big.cu, vrvg_head_tail_ext_f32 and
-// vrvg_head_tail_big_f32): the A operand of a 3x3 convolution with zero
-// padding read in place from a (B, H, W, C) f32 image (an implicit GEMM),
-// the epilogue of output_conv2 -> ReLU -> 1x1 -> ReLU, and the tile each
+// The f32 DPT tails' products on the SIMT f32 core (csrc/sgemm.cuh), for
+// rows 7 and 15 at f32 (csrc/head_tail_big.cu, vrvg_head_tail_ext_f32 and
+// vrvg_head_tail_f32): the A operand of a 3x3 convolution with zero padding
+// read in place from a (B, H, W, C) f32 image (an implicit GEMM), the
+// epilogue of output_conv2 -> ReLU -> 1x1 -> ReLU, and the tile each
 // product runs on at each width (gemm_n, conv3x3, conv2_depth), which the
 // tails' entry points and the CPU emulation (tests/test_torch_f32_emulation
 // .py) share. Plain loads only, so the emulation runs them with the core.
+// Rows 11 and 12 at f32 run their convs on the 3xTF32 wgmma core instead
+// (csrc/tf32x3_gemm.cuh, vrvg_head_tail_big_f32).
 
 #pragma once
 
@@ -42,9 +44,9 @@ struct Conv3x3Rows {
   }
 };
 
-// output_conv2's 32 sums of a pixel -> depth: + b2, ReLU, the 1x1 (32 -> 1)
-// in f32 in channel order, + b3, ReLU (ops/head_tail.big_conv2_plain). A
-// thread holds the pixel's whole row (Rows32).
+// output_conv2's 32 sums of a pixel -> depth (vrvg::depth_out_f32: + b2,
+// ReLU, the 1x1 (32 -> 1) in f32 in channel order, + b3, ReLU). A thread
+// holds the pixel's whole row (Rows32).
 struct DepthOut {
   float* out;  // (B H W,) f32
   const float* b2;
@@ -54,23 +56,18 @@ struct DepthOut {
   __device__ __forceinline__ void store(int row, int n0, int tx,
                                         const float (&v)[T::TN]) const {
     static_assert(T::BN == 32 && T::TN == 32, "a pixel's 32 sums a thread");
-    float sum = 0.f;
+    float s[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int ch = T::col(n0, tx, j);
-      const float y = fmaxf(__fadd_rn(b2[ch], v[j]), 0.f);
-      sum = __fadd_rn(sum, __fmul_rn(y, w3[ch]));
-    }
-    out[row] = fmaxf(__fadd_rn(sum, b3[0]), 0.f);
+    for (int j = 0; j < 32; ++j) s[T::col(n0, tx, j)] = v[j];
+    out[row] = vrvg::depth_out_f32(s, b2, w3, b3[0]);
   }
 };
 
 // C = epi(A B^T), B the (N, K) row-major f32 matrix w, on the tile that
 // fits N: a whole 32-column row a thread at N = 32 (Rows32), 256 x 64 at N
 // = 64 (Tall64), 128 x 128 above (Square; N = 192, conv1 at C = 384, has a
-// half-empty second column tile). Row 7's out_conv mix (N = C = 64-384),
-// its conv1 (N = C2 = 32-192) and row 11's folded conv1 (the same) run on
-// it.
+// half-empty second column tile). Row 7's out_conv mix (N = C = 64-384)
+// and its conv1 (N = C2 = 32-192) run on it.
 template <class OpA, class Epi>
 int gemm_n(const OpA& a, const float* w, int m, int n, int k, const Epi& epi,
            void* stream) {

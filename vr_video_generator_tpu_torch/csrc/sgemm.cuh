@@ -9,8 +9,9 @@
 // f32). So this core is bound by the card's f32 rate outside the tensor
 // cores, 67 TFLOP/s on an H100 SXM, about 1/15 of the bf16 one. 3xTF32,
 // each operand split into a TF32 head and tail and three tensor-core products
-// summed in f32, keeps f32 accuracy on the tensor cores: rows 8, 9 and 10
-// at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here are next.
+// summed in f32, keeps f32 accuracy on the tensor cores: rows 8, 9, 10, 11
+// and 12 at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here (5, 6, 7,
+// 15 and 16) are next.
 //
 // Design: the classic register-blocked SIMT product. A block of 256 threads
 // computes a BM x BN tile of C; each thread owns TM x TN outputs (8 x 8 for

@@ -1,8 +1,10 @@
 // 3xTF32: an f32 operand as the sum of two TF32 values, so that three
 // tensor-core products (hi·hi + hi·lo + lo·hi) give an f32-accurate product
-// (csrc/attention_f32.cu, csrc/tf32x3_gemm.cuh). Host and device code
-// alike: tests/test_torch_attention_3xtf32.py and
-// tests/test_torch_gemm_3xtf32.py build this header with g++.
+// (csrc/attention_f32.cu, csrc/tf32x3_gemm.cuh), and the index arithmetic
+// of the core's accumulator and of its conv tiles. Host and device code
+// alike: tests/test_torch_attention_3xtf32.py,
+// tests/test_torch_gemm_3xtf32.py and tests/test_torch_conv_3xtf32.py build
+// this header with g++.
 //
 // TF32 keeps f32's sign and 8-bit exponent and the top 10 of its 23
 // mantissa bits. rna() rounds an f32 value to it to nearest, ties away from
@@ -96,5 +98,58 @@ TF32X3_FN int gated_row(int p, int hidden) {
   if (c >= hidden) return -1;
   return u < 64 ? c : hidden + c;
 }
+
+// Column n of a wgmma m64nN f32 accumulator's row r0 + 8 i (i = 0, 1) lies
+// in the quad's lane acc_lane(n), as its value acc_value(n, i): a thread
+// holds value 4 j + 2 i + c at column 8 j + 2 (lane % 4) + c. A row's N
+// sums are spread over the 4 lanes of a quad; reading column n from lane
+// acc_lane(n) for n = 0, 1, ... gathers them in column order.
+TF32X3_FN constexpr int acc_lane(int n) { return n % 8 / 2; }
+TF32X3_FN constexpr int acc_value(int n, int i) {
+  return 4 * (n / 8) + 2 * i + n % 2;
+}
+
+// A 3x3 convolution with zero padding of x (B, H, W, C) f32 as the 3xTF32
+// core's implicit GEMM (csrc/tf32x3_gemm.cuh, conv_kernel): a tile's 128
+// GEMM rows are R = 4 image rows by P = 32 pixels of one frame, row r of
+// the tile at (r / P, r % P); tiles walk W, then H, then the frames. For
+// each 32-channel slice of C (CK channels) the kernel loads the tile's halo,
+// the box of (CK channels, P + 2 pixels, R + 2 rows, 1 frame) of x's 4-D
+// tensor map at halo() (TMA reads what lies outside the image as zeros,
+// the padding), and tap (dh, dw) of GEMM row r is the halo's row
+// halo_row(r, 3 dh + dw): k = (3 dh + dw) C + c. C a multiple of 32.
+struct ConvTiles {
+  static constexpr int P = 32, R = 4, CK = 32;
+  int c, h, w, batch;
+  TF32X3_FN int tiles_x() const { return (w + P - 1) / P; }
+  TF32X3_FN int tiles_y() const { return (h + R - 1) / R; }
+  TF32X3_FN int tiles() const { return tiles_x() * tiles_y() * batch; }
+  // The halo of channel slice cs for tile `tile`: its first channel, pixel
+  // and row (one before the tile's: -1 at the image's edge) and its frame.
+  TF32X3_FN void halo(int tile, int cs, int& c0, int& x0, int& y0,
+                      int& b) const {
+    const int tx = tiles_x(), ty = tiles_y();
+    const int rest = tile / tx;
+    c0 = cs * CK;
+    x0 = (tile - rest * tx) * P - 1;
+    y0 = rest % ty * R - 1;
+    b = rest / ty;
+  }
+  // The halo's row (of (R + 2) (P + 2), rows of pixels) that tap `tap` of
+  // GEMM row r reads.
+  static TF32X3_FN int halo_row(int r, int tap) {
+    return (r / P + tap / 3) * (P + 2) + r % P + tap % 3;
+  }
+  // Tile row r (0-127) -> its output pixel (b H + y) W + x, or -1 where
+  // the tile overhangs the image.
+  TF32X3_FN int pixel(int tile, int r) const {
+    const int tx = tiles_x(), ty = tiles_y();
+    const int rest = tile / tx;
+    const int x = (tile - rest * tx) * P + r % P;
+    const int y = rest % ty * R + r / P;
+    if (x >= w || y >= h) return -1;
+    return (rest / ty * h + y) * w + x;
+  }
+};
 
 }  // namespace tf32x3

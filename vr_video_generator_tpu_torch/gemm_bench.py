@@ -7,6 +7,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
     python3 -m vr_video_generator_tpu_torch.gemm_bench [--sass] \
         [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
         [--rows 15] [--rows f32] [--rows f32:vits,f32:vitg-518]
+        [--rows f32:tail-vitb-518,f32:tail-vitg-126]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -107,18 +108,28 @@ LayerNorm, fc1 + b1 + GELU, fc2 + residual) and row 10 at vitg-518's
 down product + residual), the weights split before the timing as a path's
 first step splits them, each against cuBLAS's two f32 products of the same
 shapes (``torch.addmm``, TF32 off); ``f32:<label>`` (vits, vitb-518,
-vitl-518, vitg-518) takes one of those rows alone, so that each can be a
-process's first profile (ROADMAP fault 5). On the f32 SIMT core of
-``csrc/sgemm.cuh``: rows 11 and 12 at vitb-518 (C = 128), row 7 at
-vitb-252 (C = 128) and row 15 at vits' and vitb's path1 (C = 64, 128) by
-stage (the transpose, the passes, the mix, the convs), against cuDNN's f32
-convs (TF32 off); row 16 at C = 64 and 128 on refinenet1's grid, each
-launch of the chain in order (the ReLU pass, the four convs), against
-cuDNN's f32 conv of one of them. Each row: the device time by stage and its
+vitl-518, vitg-518) takes one of those rows alone. Rows 11 and 12 at
+vitb-518 (C = 128) by stage (the transpose, the upsample pass, conv1, the
+resize pass, conv2 with the 1x1; the convs on the 3xTF32 core), against
+cuDNN's f32 convs (TF32 off); ``f32:tail-<label>`` takes them alone at
+vitb-518, at vitg-126 (C = 384) or at C = 384 on vitg-518's grid. On the
+f32 SIMT core of ``csrc/sgemm.cuh``: row 7 at vitb-252 (C = 128) and row
+15 at vits' and vitb's path1 (C = 64, 128) by stage (the transpose, the
+passes, the mix, the convs), against cuDNN's f32 convs (TF32 off); row 16
+at C = 64 and 128 on refinenet1's grid, each launch of the chain in order
+(the ReLU pass, the four convs), against cuDNN's f32 conv of one of
+them. Each row: the device time by stage and its
 TFLOP/s or GB/s, the span, ``event_ms``, the error against the plain
 version and the bound at the card's f32-accurate rate (165 TFLOP/s: a
 third of its dense TF32 rate, as 3xTF32 takes three TF32 products for one,
 above the 67 TFLOP/s outside the tensor cores) or its HBM rate.
+
+Each measurement (one shape of a row) runs in a fresh process
+(``utils.profiling.in_fresh_process``): a torch.profiler session a while
+after another one in the same process loses the card's events (ROADMAP
+fault 5), so each kernel-only time comes from its process's first
+profile, and its yardstick's from a session seconds later (the host
+timing between them is capped at HOST_SECONDS of calls).
 
 ``--sass`` counts, in the built library, the wgmma (HGMMA), mma.sync
 (HMMA) and TMA (UTMALDG, UTMASTG) instructions of the LayerNorm, GEMM and
@@ -149,6 +160,7 @@ F32_FLOP_PER_S = max(67e12, 495e12 / 3)
 HBM_BYTES_PER_S = 3.35e12
 CALLS = 50          # calls under the profiler
 HOST_CALLS = 1000   # calls timed on the host clock, no sync between
+HOST_SECONDS = 0.5  # ... and at most this long
 LN_SHAPES = (("vits", 19544, 384), ("vitl-728", 38280, 1024),
              ("vitg-518", 19544, 1536))
 # (row, label, M, D): row 9 at vitl's rows, batch 8; row 8 at 1080p/518,
@@ -185,20 +197,17 @@ WARP_STRIP = 128  # blur/select's strip width, for the hole-free share
 
 def traced(fn, calls: int) -> list:
     """The Chrome trace events of ``calls`` calls of ``fn`` under
-    torch.profiler, after one call outside it."""
-    from torch.profiler import ProfilerActivity, profile
+    ``utils.profiling.trace`` (which refuses a session that lost the card's
+    events), after one call outside it."""
+    from vr_video_generator_tpu_torch.utils.profiling import trace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path, encoding="utf-8") as f:
+        with trace(tmp, "trace.json"):
+            for _ in range(calls):
+                fn()
+        with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
             return json.load(f)["traceEvents"]
 
 
@@ -273,9 +282,15 @@ def idle_host_us(fn, runs: int = 20) -> float:
 
 
 def timings(fn) -> dict:
+    """``fn``'s kernel-only (:func:`kernel_us`), event and host times. The
+    host time a call is taken over at most HOST_SECONDS of calls, so that a
+    row's next profile follows its first within seconds (a later session
+    loses more of the card's events the later it starts, ROADMAP fault 5)."""
     kernels, span, api = kernel_us(fn)
+    ms = event_ms(fn)
+    calls = max(10, min(HOST_CALLS, int(HOST_SECONDS * 1e3 / ms)))
     return dict(kernel_us=sum(kernels.values()), kernels=kernels,
-                span_us=span, event_ms=event_ms(fn), host_us=host_us(fn),
+                span_us=span, event_ms=ms, host_us=host_us(fn, calls),
                 idle_host_us=idle_host_us(fn), api_us=api)
 
 
@@ -847,6 +862,13 @@ F32_MLP_SHAPES = ((8, "vits", 19544, 384), (9, "vitb-518", 19544, 768),
                   (9, "vitl-518", 19544, 1024))
 F32_TAIL_SHAPES = ((11, "vitb-518", 128, (148, 264), (518, 924)),
                    (7, "vitb-252", 128, (72, 128), (252, 448)))
+# Rows 11 + 12 at f32 by label (f32:tail-<label>): vitb-518's C = 128, the
+# CLI path that runs them; vitg-126's C = 384 (vitg's f32 fused path), and
+# C = 384 at vitg-518's grid (whose f32 plans take cuDNN's tail).
+F32_BIG_TAIL_SHAPES = {"vitb-518": F32_TAIL_SHAPES[0],
+                       "vitg-126": (11, "vitg-126", 384, (36, 64), (126, 224)),
+                       "vitg-518": (11, "vitg-518", 384, (148, 264),
+                                    (518, 924))}
 F32_BASE_TAIL_SHAPES = BASE_TAIL_SHAPES  # row 15: vits' and vitb's path1
 
 
@@ -916,31 +938,31 @@ def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
                             (xb + 4 * got.numel()) / HBM_BYTES_PER_S) * 1e3,
                kernel=timings(lambda: fn(x, *wts, out_hw)))
     del got, want
-    # Stages by kernel name: the passes by name, the f32 core's products
-    # (sgemm_kernel) by their A operand and epilogue: conv2 DepthOut, conv1
-    # an implicit GEMM (Conv3x3Rows), the mix the dense one.
+    # Stages by kernel name: the passes by name, the products by their
+    # kernel and epilogue: conv2 DepthOut, conv1 the SIMT core's implicit
+    # GEMM (Conv3x3Rows) or the 3xTF32 core's conv_kernel, the mix the SIMT
+    # core's dense product.
     def stage(name: str) -> str:
-        for key in ("to_channels_last", "upsample", "resize_kernel",
-                    "DepthOut", "Conv3x3Rows"):
+        for key, st in (("to_channels_last", "transpose"),
+                        ("upsample", "upsample"), ("resize_kernel", "resize"),
+                        ("DepthOut", "conv2"), ("Conv3x3Rows", "conv1"),
+                        ("conv_kernel", "conv1"), ("sgemm_kernel", "mix")):
             if key in name:
-                return key
-        return "sgemm_kernel" if "sgemm_kernel" in name else "other"
+                return st
+        return "other"
 
-    stages = (("transpose", "to_channels_last", 2 * xb, None),
-              ("mix", "sgemm_kernel", None, mix),
-              ("upsample", "upsample", xb + ub, None),
-              ("conv1", "Conv3x3Rows", None, conv1),
-              ("resize", "resize_kernel", midb + rb, None),
-              ("conv2", "DepthOut", None, conv2))
+    stages = (("transpose", 2 * xb, None), ("mix", None, mix),
+              ("upsample", xb + ub, None), ("conv1", None, conv1),
+              ("resize", midb + rb, None), ("conv2", None, conv2))
     k = res["kernel"]
     by_stage = defaultdict(float)
     for name, t in k["kernels"].items():
         by_stage[stage(name)] += t
-    us = {n: by_stage[key] for n, key, _, _ in stages}
+    us = {n: by_stage[n] for n, _, _ in stages}
     k["stages_us"] = {n: t for n, t in us.items() if t > 0}
     k["stage_rates"] = {
         n: (dict(gb_s=b / us[n] * 1e-3) if b else dict(tflops=f / us[n] * 1e-6))
-        for n, _, b, f in stages if us[n] > 0}
+        for n, b, f in stages if us[n] > 0}
     u = seeded(gen)((BATCH, c, hm, w2), dtype=torch.float32).contiguous(
         memory_format=torch.channels_last)
     r = seeded(gen)((BATCH, c2, h1, w1), dtype=torch.float32).contiguous(
@@ -1082,12 +1104,72 @@ def f32_rcu_row(label: str, c: int) -> dict:
 
 
 def sass_counts() -> dict:
-    """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM and big-C
-    tail kernels in the built library (cuobjdump -sass)."""
+    """wgmma, mma.sync and TMA instructions of the LayerNorm, GEMM, conv and
+    big-C tail kernels in the built library (cuobjdump -sass)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts as sc
 
     return sc(("layernorm", "gemm_kernel", "head_tail_big", "conv2_kernel",
-               "proj_kernel", "mix_wresize", "conv1_kernel", "split_kernel"))
+               "proj_kernel", "mix_wresize", "conv1_kernel", "split_kernel",
+               "conv_kernel"))
+
+
+def job(name: str, args: tuple) -> list:
+    """The rows of one measurement (a function of this module on its
+    arguments), with the numeric settings of every row: TF32 and cuBLAS's
+    reduced-precision bf16 sums off. Run in a fresh process
+    (utils.profiling.in_fresh_process), so that its kernel-only times come
+    from that process's first profile (ROADMAP fault 5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = globals()[name](*args)
+    return out if isinstance(out, list) else [out]
+
+
+def warp_group(wanted) -> list:
+    """Rows 3, 4, 13 and 14 (those in ``wanted``) on each of
+    :func:`warp_depths`."""
+    rows = []
+    for label, frames, depth in warp_depths():
+        rows.extend(warp_rows(label, frames, depth, wanted))
+        del frames, depth
+        torch.cuda.empty_cache()
+    return rows
+
+
+def jobs(wanted) -> list:
+    """(function name, arguments) of each measurement ``--rows`` asks for,
+    in order."""
+    out = []
+    for key, name, shapes in (("1", "ln_row", LN_SHAPES),
+                              ("5", "qkv_row", QKV_SHAPES),
+                              ("6", "proj_row", PROJ_SHAPES),
+                              ("7", "ext_tail_row", EXT_TAIL_SHAPES),
+                              ("15", "base_tail_row", BASE_TAIL_SHAPES),
+                              ("8", "mlp_row", RESIDENT_SHAPES),
+                              ("16", "rcu_row", RCU_SHAPES),
+                              ("9", "mlp_row", MLP_SHAPES),
+                              ("10", "swiglu_row", SWIGLU_SHAPES)):
+        if key in wanted:
+            out += [(name, shape) for shape in shapes]
+    if wanted & {"11", "12"}:
+        out += [("big_tail_rows", shape) for shape in BIG_TAIL_SHAPES]
+    every = "f32" in wanted  # else only the f32:<label> rows
+    labels = {w.split(":", 1)[1] for w in wanted if w.startswith("f32:")}
+    tails = [F32_BIG_TAIL_SHAPES[k.split("-", 1)[1]] for k in sorted(labels)
+             if k.startswith("tail-")]
+    for name, shapes in (
+            ("f32_mlp_row", [s for s in F32_MLP_SHAPES
+                             if every or s[1] in labels]),
+            ("f32_swiglu_row", [s for s in SWIGLU_SHAPES
+                                if every or s[0] in labels]),
+            ("f32_tail_row", F32_TAIL_SHAPES if every else tails),
+            ("f32_base_tail_row", F32_BASE_TAIL_SHAPES if every else ()),
+            ("f32_rcu_row", RCU_SHAPES if every else ())):
+        out += [(name, shape) for shape in shapes]
+    if wanted & {"3", "4", "13", "14"}:
+        out.append(("warp_group", (sorted(wanted),)))
+    return out
 
 
 def main(argv=None) -> int:
@@ -1098,94 +1180,28 @@ def main(argv=None) -> int:
                     help="which rows to measure (comma-separated: 1, 3, 4, "
                     "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
                     "are measured together; f32: rows 7-12, 15 and 16 "
-                    "at f32; f32:<label> one f32 row of rows 8-10)")
+                    "at f32; f32:<label> one f32 row of rows 8-10, "
+                    "f32:tail-<label> rows 11 + 12 at f32, label vitb-518, "
+                    "vitg-126 or vitg-518)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from vr_video_generator_tpu_torch.kernels.build import build
+    from vr_video_generator_tpu_torch.utils.profiling import in_fresh_process
+
     card = card_line()
     print(card, flush=True)
     out = dict(card=card)
+    build()  # once, before the measurements' processes load it
     if opts.sass:
         out["sass"] = sass_counts()
         print(f"sass: {json.dumps(out['sass'])}", flush=True)
     rows = []
-    wanted = set(opts.rows.split(","))
-    if "1" in wanted:
-        for shape in LN_SHAPES:
-            rows.append(ln_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-    if "5" in wanted:
-        for shape in QKV_SHAPES:
-            rows.append(qkv_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "6" in wanted:
-        for shape in PROJ_SHAPES:
-            rows.append(proj_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "7" in wanted:
-        torch.backends.cudnn.allow_tf32 = False
-        for shape in EXT_TAIL_SHAPES:
-            rows.append(ext_tail_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "15" in wanted:
-        torch.backends.cudnn.allow_tf32 = False
-        for shape in BASE_TAIL_SHAPES:
-            rows.append(base_tail_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "8" in wanted:
-        for shape in RESIDENT_SHAPES:
-            rows.append(mlp_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "16" in wanted:
-        for shape in RCU_SHAPES:
-            rows.append(rcu_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "9" in wanted:
-        for shape in MLP_SHAPES:
-            rows.append(mlp_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if "10" in wanted:
-        for shape in SWIGLU_SHAPES:
-            rows.append(swiglu_row(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if wanted & {"11", "12"}:
-        torch.backends.cudnn.allow_tf32 = False
-        for shape in BIG_TAIL_SHAPES:
-            for row in big_tail_rows(*shape):
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-            torch.cuda.empty_cache()
-    every = "f32" in wanted  # else only the f32:<label> rows of rows 8-10
-    labels = {w.split(":", 1)[1] for w in wanted if w.startswith("f32:")}
-    torch.backends.cudnn.allow_tf32 = False
-    for fn, shapes in (
-            (f32_mlp_row, [s for s in F32_MLP_SHAPES
-                           if every or s[1] in labels]),
-            (f32_swiglu_row, [s for s in SWIGLU_SHAPES
-                              if every or s[0] in labels]),
-            (f32_tail_row, F32_TAIL_SHAPES if every else ()),
-            (f32_base_tail_row, F32_BASE_TAIL_SHAPES if every else ()),
-            (f32_rcu_row, RCU_SHAPES if every else ())):
-        for shape in shapes:
-            rows.append(fn(*shape))
-            print(json.dumps(rows[-1]), flush=True)
-            torch.cuda.empty_cache()
-    if wanted & {"3", "4", "13", "14"}:
-        for label, frames, depth in warp_depths():
-            rows.extend(warp_rows(label, frames, depth, wanted))
-            del frames, depth
-            torch.cuda.empty_cache()
+    for name, args in jobs(set(opts.rows.split(","))):
+        for row in in_fresh_process(job, name, args):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     out["rows"] = rows
     print(json.dumps(out))
     return 0

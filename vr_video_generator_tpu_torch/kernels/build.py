@@ -82,6 +82,7 @@ SIGNATURES = {
                                  _L, _L, _L, _L, _L, _L, _L, _L, _F, _P, _P],
     "vrvg_head_tail_ext_f32": [_P, _I] + [_P] * 18 + [_I] * 6 + [_P],
     "vrvg_head_tail_big_f32": [_P, _I] + [_P] * 15 + [_I] * 6 + [_P],
+    "vrvg_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vrvg_tf32x3_split": [_P, _P, _I, _I, _I, _P],
     "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vrvg_mlp_residual_f32": [_P] * 11 + [_I, _I, _F, _I, _P],

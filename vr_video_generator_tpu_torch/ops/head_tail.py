@@ -65,7 +65,10 @@ plain version, and the whole plain versions compose them. At f32 (C = 64 to
 384) front and back run as one entry point, ``vrvg_head_tail_big_f32``
 (counted as ``head_tail_big_f32``): the passes instantiated on f32, conv1
 (out_conv's mix folded in f32, as the JAX front folds it) and conv2 with
-the 1x1 on the f32 SIMT core, ``cw`` and the resize weights f32.
+the 1x1 as implicit GEMMs on the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh),
+their weights split once into TF32 hi/lo planes (:func:`_big_f32_weights`),
+``cw`` and the resize weights f32. ``conv3x3_f32`` exposes that core's conv
+sums alone (no CLI path calls it), for a check of conv2 before its 1x1.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
+from vr_video_generator_tpu_torch.ops.mlp import tf32x3_split_kernel
 from vr_video_generator_tpu_torch.ops.resize import linear_weights
 
 LAUNCHES = counter("head_tail_ext")
@@ -88,6 +92,7 @@ BASE_LAUNCHES = counter("head_tail")
 BIG_FRONT_LAUNCHES = counter("head_tail_big_front")
 BIG_BACK_LAUNCHES = counter("head_tail_big_back")
 BIG_F32_LAUNCHES = counter("head_tail_big_f32")
+CONV3X3_F32_LAUNCHES = counter("conv3x3_f32")
 BASE_F32_LAUNCHES = counter("head_tail_f32")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
@@ -96,6 +101,7 @@ BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu t
 EXT_F32_CHANNELS = BIG_CHANNELS
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
 BASE_F32_CHANNELS = (64, 128)       # ... at f32 (vrvg_head_tail_f32)
+CONV3X3_F32_OUT = (32, 64, 128, 192)  # the output widths vrvg_conv3x3_f32 takes
 # The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
 # layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
 # kernel (Conv1Out), or the GEMM core (256 x 64 tiles).
@@ -990,13 +996,22 @@ def head_tail_big_stages(x: torch.Tensor, k_oc: torch.Tensor,
                                                b3, out_hw))
 
 
+def _conv_split(k: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv (O, I, 3, 3) as the 3xTF32 core's B: its f32 (O, 9 I)
+    GEMM weights (:func:`conv3x3_gemm_weights`), k = (3 dh + dw) I + i,
+    split into TF32 hi/lo planes (2, 128 ceil(O / 128), 9 I)
+    (ops/mlp.tf32x3_split_kernel)."""
+    return tf32x3_split_kernel(conv3x3_gemm_weights(k, torch.float32))
+
+
 def _big_f32_weights(k_oc, k1, k2, b2, k3, b3):
     """Rows 11 and 12's weights as vrvg_head_tail_big_f32 reads them: conv1
-    with out_conv's mix folded in f32, (C2, 9 C), and conv2 (32, 9 C2) f32;
-    the f32 vectors b2, the 1x1, b3."""
-    f32 = torch.float32
-    return (conv3x3_gemm_weights(fold_conv1(k_oc, k1, f32), f32),
-            conv3x3_gemm_weights(k2, f32), *_f32_vectors(b2, k3, b3))
+    with out_conv's mix folded in f32 and conv2, each split for the 3xTF32
+    core (:func:`_conv_split`); the f32 vectors b2, the 1x1, b3. Kept by
+    :func:`_prepared`, so a path splits them at its first (eager) step and
+    never inside a CUDA graph capture."""
+    return (_conv_split(fold_conv1(k_oc, k1, torch.float32)),
+            _conv_split(k2), *_f32_vectors(b2, k3, b3))
 
 
 def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
@@ -1018,7 +1033,7 @@ def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
                              f"got {tuple(t.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
-    w1m, w2m, b2f, w3f, b3f = _prepared(_big_f32_weights,
+    w1s, w2s, b2f, w3f, b3f = _prepared(_big_f32_weights,
                                         (k_oc, k1, k2, b2, k3, b3))
     cw = _prepared(big_tail_bias, (k1, b_oc, b1), w2, w1)
     x, nchw, xt = _channels_last(x)
@@ -1029,11 +1044,45 @@ def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     u, mid, r = new((b, hm, w2, c)), new((b, hm, w2, c2)), new((b, h1, w1, c2))
     out = new((b, h1, w1))
     check(library().vrvg_head_tail_big_f32(
-        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
+        x.data_ptr(), int(nchw), xt.data_ptr(), w1s.data_ptr(),
         taps_a.data_ptr(), tapw_a.data_ptr(), u.data_ptr(), mid.data_ptr(),
         taps_b.data_ptr(), tapw_b.data_ptr(), cw.data_ptr(), r.data_ptr(),
-        w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
+        w2s.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
         out.data_ptr(), b, h0, w0, c, h1, w1, stream_handle(x.device)),
         "vrvg_head_tail_big_f32")
     BIG_F32_LAUNCHES.count += 1
     return u, mid, r, out
+
+
+def conv3x3_f32_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) -> the 3x3 conv's sums (B, H, W, O) with zero padding
+    and no bias, in x's dtype, k (O, C, 3, 3)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.to(x.dtype), padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3_f32(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """:func:`conv3x3_f32_plain` of f32 x: the plain version for CPU tensors,
+    for CUDA tensors ``vrvg_conv3x3_f32``, a conv of rows 11 and 12 at f32
+    alone on the 3xTF32 core (C a multiple of 32, O in
+    ``CONV3X3_F32_OUT``), k split once (:func:`_prepared`)."""
+    if not on_cuda(x, k):
+        return conv3x3_f32_plain(x, k)
+    b, h, w, c = x.shape
+    n = k.shape[0]
+    if (x.dtype != torch.float32 or k.dtype != torch.float32 or c % 32
+            or n not in CONV3X3_F32_OUT or tuple(k.shape) != (n, c, 3, 3)):
+        raise ValueError(f"conv3x3_f32 takes f32 x (B, H, W, C), C a multiple "
+                         f"of 32, and an f32 (O, C, 3, 3) weight with O in "
+                         f"{CONV3X3_F32_OUT}, got {x.dtype} {tuple(x.shape)} "
+                         f"and {k.dtype} {tuple(k.shape)}")
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    x = x.contiguous()
+    ks = _prepared(_conv_split, (k,))
+    out = torch.empty((b, h, w, n), dtype=torch.float32, device=x.device)
+    check(library().vrvg_conv3x3_f32(
+        x.data_ptr(), ks.data_ptr(), out.data_ptr(), b, h, w, c, n,
+        stream_handle(x.device)), "vrvg_conv3x3_f32")
+    CONV3X3_F32_LAUNCHES.count += 1
+    return out

@@ -42,6 +42,12 @@ is one more stage. It measures, in this order:
   kernels and copies are ranked by device time. ``segment`` also reports
   the host stages of ``process_segment``'s ``StageTimer``.
 
+The eager step's dispatch trace is this process's first profile; the
+``step_many`` dispatch trace and the segment trace each run in a fresh
+process (``utils.profiling.in_fresh_process``) that builds the same
+pipeline from the same seed and warms it up the same way, since a later
+session in one process loses the card's events (ROADMAP fault 5).
+
 The last line is one JSON object with every number and the card's
 ``nvidia-smi`` name and power limit. With ``--out DIR`` it also writes the
 Chrome trace and torch.profiler's op table there.
@@ -322,9 +328,10 @@ def traced(fn: Callable[[], object], out_dir: str | None = None,
     return result, events, prof
 
 
-def dispatch_costs(pipe, frames: np.ndarray, k: int) -> dict:
+def dispatch_costs(pipe, frames: np.ndarray, k: int,
+                   many: bool = False) -> dict:
     """Host ms of one call (:func:`host_ms`) against the work it enqueues,
-    for an eager ``step`` of one batch and, with ``k`` > 1, one
+    for an eager ``step`` of one batch or, with ``many`` (k > 1), one
     ``step_many`` of k batches (a graph replay, its frames and state
     copied in and its outputs cloned out): the device kernels of one call
     (a torch.profiler trace), the CUDA runtime calls that launch or copy,
@@ -334,10 +341,11 @@ def dispatch_costs(pipe, frames: np.ndarray, k: int) -> dict:
 
     batch = pipe.frames_to_device(frames[:B])
     state = pipe.initial_state()
-    calls = {"step": lambda: pipe.step(batch, state)}
-    if k > 1:
+    if many:
         stack = torch.stack([batch] * k)
-        calls[f"step_many k={k}"] = lambda: pipe.step_many(stack, state)
+        calls = {f"step_many k={k}": lambda: pipe.step_many(stack, state)}
+    else:
+        calls = {"step": lambda: pipe.step(batch, state)}
     out = {}
     for label, fn in calls.items():
         fn()  # builds, caches, the capture
@@ -350,7 +358,7 @@ def dispatch_costs(pipe, frames: np.ndarray, k: int) -> dict:
                               w in e["name"] for w in ("Launch", "Memcpy",
                                                        "Memset")))
         out[label] = dict(
-            batches=k if label != "step" else 1, host_ms=ms,
+            batches=k if many else 1, host_ms=ms,
             device_kernels=sum(1 for e in events if e.get("cat") == "kernel"),
             runtime_calls=dict(runtime),
             port_launches={n: v for n, v in launch_counts().items() if v})
@@ -394,7 +402,7 @@ def traced_segment(pipe, frames: np.ndarray, out_dir: str | None,
                          for name, (ms, n) in ops])
 
 
-def main(argv=None) -> int:
+def parse(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace and the op table")
@@ -422,20 +430,19 @@ def main(argv=None) -> int:
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=["bfloat16", "float32"],
                     help="depth-net compute dtype (as the CLI)")
-    opts = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("stage_bench: no CUDA device", file=sys.stderr)
-        return 2
+    return ap.parse_args(argv)
+
+
+def setup(opts: argparse.Namespace):
+    """The run's pipeline (seeded random weights), frames and calibrated
+    depth scaler, warmed up: kernels built, buffers pinned, and with chunks
+    each chunk size the runs take captured."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    card = card_line()
-    print(card, flush=True)
-    if opts.out:
-        os.makedirs(opts.out, exist_ok=True)
     cfg = RunConfig(encoder=opts.encoder, batch_size=B,
                     compute_dtype=opts.compute_dtype,
                     input_size=opts.input_size,
@@ -443,21 +450,49 @@ def main(argv=None) -> int:
                     sbs_output=opts.sbs_output,
                     chunk_batches=opts.chunk_batches,
                     depth_stride=opts.depth_stride)
+    pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
+                              seed=SEED)
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, (FRAMES, H, W, 3), dtype=np.uint8)
+    scaler = calibrate_random_scaler(pipe, frames[:B])
+    run_segment(pipe, frames if opts.chunk_batches > 1 else frames[:2 * B])
+    return pipe, frames, scaler
+
+
+def fresh_profile(argv, phase: str) -> dict:
+    """One of the run's later profiles, in a fresh process
+    (utils.profiling.in_fresh_process) on the run's own set-up: ``phase``
+    "step_many" (:func:`dispatch_costs` of one step_many call) or
+    "segment" (:func:`traced_segment`)."""
+    opts = parse(argv)
+    pipe, frames, _ = setup(opts)
+    if phase == "segment":
+        return traced_segment(pipe, frames, opts.out)
+    return dispatch_costs(pipe, frames, opts.chunk_batches, many=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    opts = parse(argv)
+    if not torch.cuda.is_available():
+        print("stage_bench: no CUDA device", file=sys.stderr)
+        return 2
+    from vr_video_generator_tpu_torch.utils.profiling import in_fresh_process
+
+    card = card_line()
+    print(card, flush=True)
+    if opts.out:
+        os.makedirs(opts.out, exist_ok=True)
     dt = "bf16" if opts.compute_dtype == "bfloat16" else "f32"
     label = (f"1080p {opts.encoder} --input_size {opts.input_size} {dt} B={B} "
              f"mlp_fused={opts.mlp_fused} tail={opts.tail} "
              f"sbs_output={opts.sbs_output} chunk_batches={opts.chunk_batches} "
              f"depth_stride={opts.depth_stride}")
     print(label, flush=True)
-    pipe = SbsPipeline.create(cfg, H, W, allow_random=True, device="cuda",
-                              seed=SEED)
-    rng = np.random.default_rng(SEED)
-    frames = rng.integers(0, 256, (FRAMES, H, W, 3), dtype=np.uint8)
-    scaler = calibrate_random_scaler(pipe, frames[:B])
-    # Warm-up: kernels built, buffers pinned; with chunks, each chunk size
-    # the runs take captured.
-    run_segment(pipe, frames if opts.chunk_batches > 1 else frames[:2 * B])
+    pipe, frames, scaler = setup(opts)
     dispatch = dispatch_costs(pipe, frames, opts.chunk_batches)
+    if opts.chunk_batches > 1:
+        dispatch.update(in_fresh_process(fresh_profile, argv, "step_many"))
     launches = dispatch["step"]["port_launches"]
     print(f"launches per step: {json.dumps(launches)}", flush=True)
     print(f"dispatch: {json.dumps(dispatch)}", flush=True)
@@ -470,7 +505,9 @@ def main(argv=None) -> int:
     seg_s = [s for s, _ in segs]
     print(f"segment: {FRAMES} frames in {seg_s} s; host stages (s) "
           f"{json.dumps([st for _, st in segs])}", flush=True)
-    trace = traced_segment(pipe, frames, opts.out)
+    del pipe
+    torch.cuda.empty_cache()
+    trace = in_fresh_process(fresh_profile, argv, "segment")
     print(f"trace: {json.dumps({k: v for k, v in trace.items() if k != 'top_ops'})}",
           flush=True)
     for r in trace["top_ops"]:

@@ -2667,7 +2667,7 @@ KERNELS_F32 = {
                           f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
     "swiglu_residual_f32": ("cuda", f"{PKG}/csrc/swiglu_f32.cu",
                             f"{JAX_PKG}/ops/mlp_pallas.py:101"),
-    # The weights' TF32 split that rows 8, 9 and 10 at f32 take (once per
+    # The weights' TF32 split that rows 7-12 and 16 at f32 take (once per
     # weight, at a path's first step), named with row 10's TPU kernel.
     "tf32x3_split": ("cuda", f"{PKG}/csrc/tf32x3_split.cu",
                      f"{JAX_PKG}/ops/mlp_pallas.py:101"),
@@ -2709,10 +2709,10 @@ AUTO_VITG_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                       "blur_select_sbs": 1}
 # The weight splits (tf32x3_split) of an auto path's first step at f32: two
 # a block whose MLP half is fused (vitb's 12 row 9 halves, vitg's 40 row 10
-# halves; vits auto leaves the MLP half unfused), and the big-C tail's two
-# convs (rows 11 + 12 at vitb-518; vitg-518 auto takes cuDNN's tail);
-# later steps split none.
-AUTO_F32_SPLITS = {"vits": 0, "vitb": 26, "vitg": 80}
+# halves; vits auto leaves the MLP half unfused), the big-C tail's two
+# convs (rows 11 + 12 at vitb-518; vitg-518 auto takes cuDNN's tail) and
+# the ext tail's mix and two convs (row 7 at vits); later steps split none.
+AUTO_F32_SPLITS = {"vits": 3, "vitb": 26, "vitg": 80}
 # vitg-126 fused at f32 (1080p, B = 8, 40 blocks, 145 tokens): the same
 # encoder kernels, and the big-C tail at C = 384 at f32 (rows 11 + 12).
 VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
@@ -2720,8 +2720,11 @@ VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                      "warp_composite": 1, "blur_select_sbs": 1}
 # Rows 15 and 16 at f32 called as a user calls them, one width at a time
 # (vits' C = 64, vitb's 128): the single-kernel tail on path1, and the RCU
-# pair feeding the ext tail.
-OFF_CLI_F32 = ("head_tail_f32", "rcu_pair_f32", "head_tail_ext_f32")
+# pair feeding the ext tail, each on fresh weights: the RCU pair's four
+# convs and the ext tail's mix and two convs split once (7 tf32x3_split).
+OFF_CLI_F32 = ("head_tail_f32", "rcu_pair_f32", "head_tail_ext_f32",
+               "tf32x3_split")
+OFF_CLI_F32_SPLITS = 4 + 3
 # The other fused f32 paths of phase 8 (c), one batch each: (label, encoder,
 # --input_size, mlp_fused = tail, blocks (None: all), batch, one step's
 # launches). vits fused runs row 8 at f32 (4.7 MB of f32 weights, resident)
@@ -3082,10 +3085,12 @@ def f32_tail_result(label, got_depth, want, tfw, stages, run, plain, library,
 def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
     """Row 7 at f32, C = c, batch 8, x an NCHW activation seen as NHWC as the
     model hands it over, stage by stage, each on the chain's own input: the
-    mix and the passes in f32 ulps, conv1 by the dense f32 bound (refusing
-    cuDNN's TF32 conv1), conv2 with the 1x1 relative to the depth's range,
-    the whole depth against head_tail_ext_plain (refusing it with TF32); the
-    library time is cuDNN's two f32 convs."""
+    passes in f32 ulps; the mix, conv1 + b1 and conv2 before its 1x1
+    (conv3x3_f32, the same conv on the 3xTF32 core) by f32_exact_check
+    against the product on f64 operands (cuBLAS's or cuDNN's f32 result
+    logged beside it, its TF32 result refused); conv2 with the 1x1 relative
+    to the depth's range; the whole depth against head_tail_ext_plain
+    (refusing it with TF32); the library time is cuDNN's two f32 convs."""
     import torch
     import torch.nn.functional as F
 
@@ -3094,32 +3099,46 @@ def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
     (h0, w0), c2 = grid, c // 2
     x = randn(gen, (B, c, h0, w0)).permute(0, 2, 3, 1)
     wts = f32_tail_weights(gen, c)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
     label = f"head_tail_ext_f32 C={c}"
     got = ht.head_tail_ext_stages(x, *wts, out_hw)
-    xoc = ht.ext_mix_plain(x, wts[0])
-    z = ht.big_upsample_plain(got[0], wts[1])
-    c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
-    r = ht.ext_resize_plain(got[2], out_hw)
-    depth = ht.big_conv2_plain(got[3], *wts[4:])
+    # The mix's TF32 result from TF32-rounded operands (cuBLAS may keep
+    # a small f32 product at f32 with TF32 allowed).
+    tf_mix = ht.ext_mix_plain(tf32_round(x), tf32_round(k_oc))
+    stages = dict(mix=f32_exact_check(
+        f"{label} mix", got[0], ht.ext_mix_plain(*f64(x, k_oc)),
+        ht.ext_mix_plain(x, k_oc), tf_mix, 1))
+    del tf_mix
+    stages["upsample"] = dict(max_ulps=f32_ulps(
+        got[1], ht.big_upsample_plain(got[0], b_oc), 1, b_oc).max().item())
+    with tf32(True):
+        tf_c1 = ht.ext_conv1_plain(got[1], k1, b1)
+    stages["conv1"] = f32_exact_check(
+        f"{label} conv1", got[2], conv3x3_f64(got[1], k1) + b1.double(),
+        ht.ext_conv1_plain(got[1], k1, b1), tf_c1, 1, b1)
+    del tf_c1
+    stages["resize"] = dict(max_ulps=f32_ulps(
+        got[3], ht.ext_resize_plain(got[2], out_hw), 1).max().item())
+    for name in ("upsample", "resize"):
+        require(stages[name]["max_ulps"] <= F32_MAX_ULPS,
+                f"{label} {name}: {stages[name]} over {F32_MAX_ULPS} f32 ulps")
+    with tf32(True):
+        tf_c2 = ht.conv3x3_f32_plain(got[3], k2)
+    stages["conv2"] = f32_exact_check(
+        f"{label} conv2", ht.conv3x3_f32(got[3], k2), conv3x3_f64(got[3], k2),
+        ht.conv3x3_f32_plain(got[3], k2), tf_c2, 1)
+    del tf_c2
+    depth = ht.big_conv2_plain(got[3], k2, b2, k3, b3)
     want = ht.head_tail_ext_plain(x, *wts, out_hw)
     with tf32(True):
         tfw = ht.head_tail_ext_plain(x, *wts, out_hw)
-        tf_c1 = ht.ext_conv1_plain(got[1], wts[2], wts[3])
     torch.cuda.synchronize()
-    stages = {}
-    for name, g, w_, add in (("mix", got[0], xoc, ()),
-                             ("upsample", got[1], z, (wts[1],)),
-                             ("resize", got[3], r, ())):
-        stages[name] = dict(max_ulps=f32_ulps(g, w_, 1, *add).max().item())
-        require(stages[name]["max_ulps"] <= F32_MAX_ULPS,
-                f"{label} {name}: {stages[name]} over {F32_MAX_ULPS} f32 ulps")
-    stages["conv1"] = f32_dense_check(f"{label} conv1", got[2], c1, tf_c1, 1,
-                                      wts[3])
     span = (want.max() - want.min()).item()
-    stages["conv2"] = dict(max_rel_err=(got[4] - depth).abs().max().item()
+    stages["depth"] = dict(max_rel_err=(got[4] - depth).abs().max().item()
                            / span)
-    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
-            f"{label} conv2: {stages['conv2']}")
+    require(stages["depth"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2 with the 1x1: {stages['depth']}")
+    del depth
     zc = got[1].permute(0, 3, 1, 2).contiguous()
     rc = got[3].permute(0, 3, 1, 2).contiguous()
     m0, m1 = B * h0 * w0, B * 2 * h0 * 2 * w0
@@ -3129,9 +3148,10 @@ def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
         label, got[4], want, tfw, stages,
         lambda: ht.head_tail_ext(x, *wts, out_hw),
         lambda: ht.head_tail_ext_plain(x, *wts, out_hw),
-        lambda: (F.conv2d(zc, wts[2], wts[3], padding=1),
-                 F.conv2d(rc, wts[4], wts[5], padding=1)),
+        lambda: (F.conv2d(zc, k1, b1, padding=1),
+                 F.conv2d(rc, k2, b2, padding=1)),
         nbytes(x, *wts, got[4]), flops)
+    del got, zc, rc
     log(f"kernel {label}: {json.dumps(res)}")
     return res
 
@@ -3451,15 +3471,35 @@ def f32_rcu_inputs(gen, c):
     return rn0, path2, ws
 
 
+def rcu_conv_f64(x, k, b, relu, residuals=(), relu_done=False,
+                 relu_copy=False):
+    """rcu_conv_plain's function on f64 operands, (B, H, W, C) f64, the
+    conv by conv3x3_f64 (cuBLAS's f64 product): the exact reference of the
+    RCU convs at f32; with ``relu_copy`` (out, relu(out))."""
+    import torch.nn.functional as F
+
+    xin = x.double()
+    if relu and not relu_done:
+        xin = F.relu(xin)
+    y = b.double() + conv3x3_f64(xin, k)
+    if relu:
+        y = F.relu(y)
+    for r in residuals:
+        y = y + r.double()
+    return (y, F.relu(y)) if relu_copy else y
+
+
 def f32_rcu_check(gen, c: int) -> dict:
     """Row 16 at f32 (vrvg_rcu_conv_f32), C = c, on refinenet1's 1080p/518
     grid: each of the four conv calls alone, on the plain chain's own input
-    and residuals, by the dense f32 bound (refusing the same conv by
-    cuDNN's TF32), conv2a's ReLU'd copy bit for bit the ReLU of its output;
-    the chain against refinenet_pre_plain (refusing it with TF32); timed
-    beside the plain chain and cuDNN's four f32 convs. A conv's f32 ulps are
-    of a scale that takes in the sum of its terms' magnitudes (the sums'
-    order is all that differs)."""
+    and residuals, by f32_exact_check against the conv on f64 operands
+    (rcu_conv_f64; cuDNN's f32 conv logged beside it, the same conv by
+    cuDNN's TF32 refused), conv2a's ReLU'd copy bit for bit the ReLU of its
+    output; the chain the same way against the chain on f64 operands, and
+    against refinenet_pre_plain by the dense f32 bound (refusing it with
+    TF32); timed beside the plain chain and cuDNN's four f32 convs. A
+    conv's f32 ulps are of a scale that takes in the sum of its terms'
+    magnitudes (the sums' order is all that differs)."""
     import torch
     import torch.nn.functional as F
 
@@ -3480,13 +3520,15 @@ def f32_rcu_check(gen, c: int) -> dict:
     convs = []
     for i, (args, kw) in enumerate(steps):
         got_i, want_i = rcu_conv(*args, **kw), rcu_conv_plain(*args, **kw)
+        exact_i = rcu_conv_f64(*args, **kw)
         with tf32(True):
             tf_i = rcu_conv_plain(*args, **kw)
         torch.cuda.synchronize()
         if kw.get("relu_copy"):
             require_equal(f"{label} conv {i} ReLU copy", got_i[1],
                           F.relu(got_i[0]))
-            got_i, want_i, tf_i = got_i[0], want_i[0], tf_i[0]
+            got_i, want_i, tf_i, exact_i = (got_i[0], want_i[0], tf_i[0],
+                                            exact_i[0])
         # The scale takes in the sum of the conv's terms' magnitudes: its
         # input is ReLU'd (non-negative), so a channel whose weights sum
         # negative is mostly 0 after its own ReLU, its RMS far below the
@@ -3495,9 +3537,9 @@ def f32_rcu_check(gen, c: int) -> dict:
         mag = F.conv2d((F.relu(x) if args[3] else x).abs().permute(0, 3, 1, 2),
                        k.abs(), padding=1).permute(0, 2, 3, 1)
         res = args[4] if len(args) > 4 else ()
-        convs.append(f32_dense_check(f"{label} conv {i}", got_i, want_i, tf_i,
-                                     1, b, mag, *res))
-        del got_i, want_i, tf_i, mag
+        convs.append(f32_exact_check(f"{label} conv {i}", got_i, exact_i,
+                                     want_i, tf_i, 1, b, mag, *res))
+        del got_i, want_i, tf_i, exact_i, mag
     got = refinenet_pre(rn0, path2, *ws)
     want = refinenet_pre_plain(rn0, path2, *ws)
     with tf32(True):
@@ -3505,7 +3547,11 @@ def f32_rcu_check(gen, c: int) -> dict:
     torch.cuda.synchronize()
     require(got.shape == want.shape == rn0.shape, f"{label} shape {got.shape}")
     stats = f32_dense_check(label, got, want, tfw, 1, rn0, path2)
-    del want, tfw
+    exact = rcu_chain(rcu_conv_f64, rn0, path2, *ws)
+    chain = f32_exact_check(f"{label} chain", got, exact, want, tfw, 1, rn0,
+                            path2)
+    stats.update({f"vs_f64_{k}": v for k, v in chain.items()})
+    del want, tfw, exact
     stats["conv_max_ulps"] = max(cv["max_ulps"] for cv in convs)
     log(f"{label} convs: {json.dumps(convs)}")
     x = rn0.permute(0, 3, 1, 2)
@@ -4079,8 +4125,8 @@ def f32_off_cli(device) -> dict:
     before and read just after each width: the single-kernel tail on f32
     path1 (an NCHW tensor seen as NHWC) at vits' 1080p/518 grid, and the RCU
     pair feeding the ext tail on refinenet1's grid. Exactly OFF_CLI_F32
-    must launch, the tail and the ext tail once, the RCU conv four times;
-    the depths finite."""
+    must launch, the tail and the ext tail once, the RCU conv four times,
+    the split seven times (their fresh weights); the depths finite."""
     import torch
 
     from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
@@ -4107,7 +4153,8 @@ def f32_off_cli(device) -> dict:
         log(f"{label}: {secs:.4f} s; launch counts {json.dumps(counts)}")
         launched_exactly(label, counts, OFF_CLI_F32)
         require(counts["head_tail_f32"] == 1 and counts["rcu_pair_f32"] == 4
-                and counts["head_tail_ext_f32"] == 1,
+                and counts["head_tail_ext_f32"] == 1
+                and counts["tf32x3_split"] == OFF_CLI_F32_SPLITS,
                 f"{label}: launches {counts}")
         require(bool(torch.isfinite(depth).all() & torch.isfinite(depth2).all())
                 and depth.shape == depth2.shape == (B, *OUT_HW),

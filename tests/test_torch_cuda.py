@@ -1449,24 +1449,39 @@ def test_attention_f32_kernels_hold_tf32_hgmma(cuda):
 
 @pytest.mark.parametrize("b,h0,w0", [(1, 7, 11), (2, 37, 66), (8, 148, 264)])
 def test_head_tail_ext_f32_kernel_matches_plain(cuda, b, h0, w0):
-    """Row 7 at f32, C = 64, on an NCHW activation seen as NHWC, against its
-    plain version relative to the depth's range, a bound that the plain
+    """Row 7 at f32, C = 64, on an NCHW activation seen as NHWC, its
+    products on the 3xTF32 core: the mix, conv1 + b1 and conv2's sums
+    (conv3x3_f32, the same conv) within chip_smoke.py's f32 bound of the
+    product on f64 operands (f32_exact_check, TF32 refused); the depth
+    against its plain version relative to its range, a bound that the plain
     version on TF32-rounded input and conv weights fails."""
-    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
-                            f32_rel_check, tf32_round)
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, conv3x3_f64,
+                            f32_exact_check, f32_rel_check, f64, tf32,
+                            tf32_round)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
 
     gen = torch.Generator(device=cuda).manual_seed(b * h0 + w0)
-    c, c2 = 64, 32
+    c = 64
     x = _randn(gen, (b, c, h0, w0), dtype=F32).permute(0, 2, 3, 1)
-    wts = (_randn(gen, (c, c, 1, 1), c ** -0.5, dtype=F32),
-           _randn(gen, (c,), 0.1, dtype=F32),
-           _randn(gen, (c2, c, 3, 3), (9 * c) ** -0.5, dtype=F32),
-           _randn(gen, (c2,), 0.1, dtype=F32),
-           _randn(gen, (32, c2, 3, 3), (9 * c2) ** -0.5, dtype=F32),
-           _randn(gen, (32,), 0.1, dtype=F32),
-           _randn(gen, (1, 32, 1, 1), 32 ** -0.5, dtype=F32),
-           _randn(gen, (1,), 0.1, 0.5, dtype=F32))
+    wts = _f32_tail_wts(gen, c)
+    k_oc, _, k1, b1, k2 = wts[:5]
     out_hw = (h0 * 7 // 2, w0 * 7 // 2)
+    got = ht.head_tail_ext_stages(x, *wts, out_hw)
+    # cuBLAS keeps small f32 products at f32 with TF32 allowed: the mix's
+    # TF32 result from TF32-rounded operands.
+    tf_mix = ht.ext_mix_plain(tf32_round(x), tf32_round(k_oc))
+    with tf32(True):
+        tf_c1 = ht.ext_conv1_plain(got[1], k1, b1)
+        tf_c2 = ht.conv3x3_f32_plain(got[3], k2)
+    f32_exact_check("head_tail_ext_f32 mix", got[0],
+                    ht.ext_mix_plain(*f64(x, k_oc)), ht.ext_mix_plain(x, k_oc),
+                    tf_mix, 1)
+    f32_exact_check("head_tail_ext_f32 conv1", got[2],
+                    conv3x3_f64(got[1], k1) + b1.double(),
+                    ht.ext_conv1_plain(got[1], k1, b1), tf_c1, 1, b1)
+    f32_exact_check("head_tail_ext_f32 conv2", ht.conv3x3_f32(got[3], k2),
+                    conv3x3_f64(got[3], k2), ht.conv3x3_f32_plain(got[3], k2),
+                    tf_c2, 1)
     want = head_tail_ext_plain(x, *wts, out_hw)
     rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
     tfw = head_tail_ext_plain(tf32_round(x), *rounded, out_hw)
@@ -1711,29 +1726,60 @@ def test_head_tail_f32_kernel_matches_plain(cuda, c, b, h2, w2):
 
 @pytest.mark.parametrize("c", [64, 128])
 def test_rcu_pair_f32_kernel_matches_plain(cuda, c):
-    """Row 16 at f32 (vrvg_rcu_conv_f32, four calls) at vits' and vitb's
-    widths on a small grid: within chip_smoke.py's f32 bound of the plain
-    chain, which the chain on TF32-rounded inputs and weights fails; four
-    launches on the f32 counter."""
-    from chip_smoke import f32_dense_check, tf32_round
+    """Row 16 at f32 (vrvg_rcu_conv_f32, four calls on the 3xTF32 core) at
+    vits' and vitb's widths on a small grid with a ragged last tile (W =
+    37): within chip_smoke.py's f32 bound of the chain on f64 operands
+    (f32_exact_check, the chain on TF32-rounded inputs and weights refused)
+    and of the plain chain; four launches on the f32 counter, and the
+    weights split at the first call only."""
+    from chip_smoke import f32_dense_check, f32_exact_check, rcu_conv_f64, tf32_round
     from vr_video_generator_tpu_torch.attic.refinenet_pre import (
-        refinenet_pre, refinenet_pre_plain)
+        rcu_chain, refinenet_pre, refinenet_pre_plain)
 
     gen = torch.Generator(device=cuda).manual_seed(c + 16)
-    rn0, path2 = (_randn(gen, (2, c, 9, 17), dtype=F32).permute(0, 2, 3, 1)
+    rn0, path2 = (_randn(gen, (2, c, 9, 37), dtype=F32).permute(0, 2, 3, 1)
                   for _ in range(2))
     ws = []
     for _ in range(4):
         ws += [_randn(gen, (c, c, 3, 3), (9 * c) ** -0.5, dtype=F32),
                _randn(gen, (c,), 0.1, dtype=F32)]
-    before = launch_counts().get("rcu_pair_f32", 0)
-    got = refinenet_pre(rn0, path2, *ws)
-    assert launch_counts()["rcu_pair_f32"] == before + 4
+    counts = []
+    for _ in range(2):
+        before = dict(launch_counts())
+        got = refinenet_pre(rn0, path2, *ws)
+        counts.append({k: launch_counts().get(k, 0) - before.get(k, 0)
+                       for k in ("rcu_pair_f32", "tf32x3_split")})
+    assert counts == [{"rcu_pair_f32": 4, "tf32x3_split": 4},
+                      {"rcu_pair_f32": 4, "tf32x3_split": 0}]
     tfw = refinenet_pre_plain(tf32_round(rn0), tf32_round(path2),
                               *(tf32_round(w) if w.ndim == 4 else w
                                 for w in ws))
-    f32_dense_check("rcu_pair_f32", got, refinenet_pre_plain(rn0, path2, *ws),
-                    tfw, 1, rn0, path2)
+    want = refinenet_pre_plain(rn0, path2, *ws)
+    f32_dense_check("rcu_pair_f32", got, want, tfw, 1, rn0, path2)
+    f32_exact_check("rcu_pair_f32 against f64", got,
+                    rcu_chain(rcu_conv_f64, rn0, path2, *ws), want, tfw, 1,
+                    rn0, path2)
+
+
+def test_rcu_f32_entry_point_refuses_other_kinds(cuda):
+    """vrvg_rcu_conv_f32's argument checks: C outside {64, 128}, an input
+    ReLU pass on a conv without ReLU, a ReLU with residuals or with a copy,
+    no residual without ReLU: 1 (cudaErrorInvalidValue), nothing written,
+    nothing launched."""
+    from vr_video_generator_tpu_torch.kernels.build import library
+
+    x = torch.zeros((1, 4, 4, 128), dtype=F32, device=cuda)
+    out = torch.full_like(x, 5.0)
+    p = x.data_ptr()
+    for c, in_relu, relu, nres, out_relu in (
+            (96, None, 1, 0, None), (64, p, 0, 1, None), (64, None, 1, 1, None),
+            (64, None, 1, 0, p), (128, None, 0, 0, None), (128, None, 0, 3,
+                                                           None)):
+        err = library().vrvg_rcu_conv_f32(p, in_relu, p, p, p, p,
+                                          out.data_ptr(), out_relu, 1, 4, 4,
+                                          c, relu, nres, None)
+        torch.cuda.synchronize()
+        assert err == 1 and bool((out == 5.0).all())
 
 
 def test_vitg_f32_step_on_the_card(cuda):
@@ -1822,9 +1868,10 @@ def test_tf32x3_weight_split_once_and_after_a_change(cuda, change):
 
 def test_weights_split_before_step_many_capture(cuda):
     """vitg fused at f32, cut to 4 blocks, on a new pipeline: step_many's
-    eager step splits each block's w12 and w3 once (8 launches) before its
-    capture, the capture splits nothing (a replay launches no split), and a
-    second replay splits nothing either."""
+    eager step splits each block's w12 and w3 and the ext tail's (row 7 at
+    C = 384, the tail at --input_size 56) mix and two convs once (8 + 3
+    launches) before its capture, the capture splits nothing (a replay
+    launches no split), and a second replay splits nothing either."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.kernels import reset_launch_counts
     from vr_video_generator_tpu_torch.models.factory import (build_model,
@@ -1843,7 +1890,7 @@ def test_weights_split_before_step_many_capture(cuda):
     reset_launch_counts()
     outs, st = pipe.step_many(frames, pipe.initial_state())
     torch.cuda.synchronize()
-    assert launch_counts()["tf32x3_split"] == 8
+    assert launch_counts()["tf32x3_split"] == 8 + 3
     per_replay = dict(pipe._graphs[(2, 2)].launches)
     assert per_replay.get("tf32x3_split", 0) == 0
     assert per_replay["swiglu_residual_f32"] == 8
@@ -1855,22 +1902,23 @@ def test_weights_split_before_step_many_capture(cuda):
 
 
 def test_tf32x3_gemm_kernels_hold_tf32_hgmma(cuda):
-    """Rows 8, 9 and 10 at f32 run their products as wgmma with TF32
-    operands (3xTF32: twelve a stage), fed by TMA: no FFMA main loop is left
-    (the down products' kernels, whose epilogue has no transcendental, hold
-    no FFMA at all; fc1's and the gate's hold their GELU's and silu's)."""
+    """Rows 8, 9 and 10 at f32, and row 7's out_conv mix, run their
+    products as wgmma with TF32 operands (3xTF32: twelve a stage), fed by
+    TMA: no FFMA main loop is left (the down products' and the mix's
+    kernels, whose epilogues have no transcendental, hold no FFMA at all;
+    fc1's and the gate's hold their GELU's and silu's)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts
 
     counts = {name: c for name, c in sass_counts(("tf32x3_gemm",)).items()
               if "gemm_kernel" in name}
     # mlp_f32.cu: BiasGelu exact and tanh, LayerScaleResidual; swiglu_f32.cu:
-    # SwigluGate, LayerScaleResidual.
-    assert len(counts) == 5, sorted(counts)
+    # SwigluGate, LayerScaleResidual; head_tail_big.cu: Store (row 7's mix).
+    assert len(counts) == 6, sorted(counts)
     for name, c in counts.items():
         assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
             name, c)
         assert c["UTMALDG"] > 0, (name, c)
-        if "LayerScaleResidual" in name:
+        if "LayerScaleResidual" in name or "5Store" in name:
             assert c["FFMA"] == 0, (name, c)
 
 
@@ -1986,16 +2034,75 @@ def test_big_tail_f32_split_before_step_many_capture(cuda):
 
 
 def test_big_tail_f32_convs_hold_tf32_hgmma(cuda):
-    """Rows 11 and 12 at f32 run their convs as wgmma with TF32 operands
-    (twelve a stage) fed by TMA: the 3xTF32 core's conv_kernel
-    instantiations (conv1 on 32-, 64- and 96-wide tiles, n = 128 on two of
-    64; conv2 with DepthOut) hold TF32 HGMMA only, and no FFMA."""
+    """Rows 7, 11, 12 and 16 at f32 run their convs as wgmma with TF32
+    operands (twelve a stage) fed by TMA: the 3xTF32 core's conv_kernel
+    instantiations (Store and row 7's BiasStore on 32-, 64- and 96-wide
+    tiles, n = 128 on two of 64; conv2 with DepthOut; row 16's three RcuEpi
+    kinds on 64) hold TF32 HGMMA only, and no FFMA."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts
 
     counts = {name: c for name, c in sass_counts(("tf32x3_gemm",)).items()
               if "conv_kernel" in name}
-    assert len(counts) == 4, sorted(counts)
+    assert len(counts) == 10, sorted(counts)
     for name, c in counts.items():
         assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
             name, c)
         assert c["UTMALDG"] > 0 and c["FFMA"] == 0, (name, c)
+
+
+def test_rcu_ext_f32_products_hold_tf32_hgmma(cuda):
+    """Rows 16 and 7 at f32 on the 3xTF32 core, none on the SIMT core: row
+    16's conv kernels (RcuEpi, in rcu_pair_f32.cu's library code) and row
+    7's conv1 (BiasStore) and its mix (gemm_kernel with Store, a fresh sum
+    every 16 of K: two groups of six products a stage) hold TF32 HGMMA
+    only, UTMALDG loads and no FFMA; no SIMT sgemm_kernel carries their
+    epilogues."""
+    from vr_video_generator_tpu_torch.attention_bench import sass_counts
+
+    counts = sass_counts(("tf32x3_gemm", "sgemm"))
+    rcu = [n for n in counts if "conv_kernel" in n and "RcuEpi" in n]
+    conv1 = [n for n in counts if "conv_kernel" in n and "BiasStore" in n]
+    mix = [n for n in counts if "gemm_kernel" in n and "tf32x3_gemm" in n
+           and "5Store" in n and "Li16E" in n]
+    assert (len(rcu), len(conv1), len(mix)) == (3, 3, 1), sorted(counts)
+    for name in rcu + conv1 + mix:
+        c = counts[name]
+        assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
+            name, c)
+        assert c["UTMALDG"] > 0 and c["FFMA"] == 0, (name, c)
+    assert not [n for n in counts if "sgemm" in n and "Rcu" in n], counts
+
+
+def test_vits_auto_f32_split_before_step_many_capture(cuda):
+    """vits auto at f32 on a small frame (row 7's ext tail at C = 64), on a
+    new pipeline: step_many's eager step splits the ext tail's mix, conv1
+    and conv2 once (3 launches) before its capture; a replay runs row 7
+    once a step and splits nothing; two replays equal two eager steps bit
+    for bit; a second step_many splits nothing."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    cfg = RunConfig(encoder="vits", batch_size=2, compute_dtype="float32",
+                    input_size=56)
+    pipe = SbsPipeline.create(cfg, 150, 96, allow_random=True, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(23).integers(
+        0, 256, (2, 2, 150, 96, 3), dtype=np.uint8)).to(cuda)
+    reset_launch_counts()
+    st0 = pipe.initial_state()
+    outs, st = pipe.step_many(frames, st0)
+    torch.cuda.synchronize()
+    assert launch_counts()["tf32x3_split"] == 3
+    per_replay = dict(pipe._graphs[(2, 2)].launches)
+    assert per_replay.get("tf32x3_split", 0) == 0
+    assert per_replay["head_tail_ext_f32"] == 2
+    eager, state = [], st0
+    for i in range(2):
+        sbs, state = pipe.step(frames[i], state)
+        eager.append(sbs)
+    assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+    reset_launch_counts()
+    pipe.step_many(frames, st)
+    torch.cuda.synchronize()
+    assert launch_counts().get("tf32x3_split", 0) == 0
+    assert launch_counts()["head_tail_ext_f32"] == 2

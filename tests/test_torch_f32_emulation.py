@@ -3,23 +3,23 @@ CPU under the host emulation of CUDA (tests/cuda_emu/cuda_runtime.h),
 against their plain versions.
 
 g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
-5's and row 6's epilogues) and csrc/rcu_pair_f32.cu (row 16 at f32: the
-ReLU pass and each conv of the chain with its bias, ReLU, residuals and
-ReLU'd copy) as they are,
-launches rewritten to the emulator's, and a unit that instantiates the core
-with the f32 DPT tails' operands (csrc/sconv.cuh: the 3x3 conv as an
-implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
-and the tile each product takes by width) as vrvg_head_tail_ext_f32 and
-vrvg_head_tail_f32 (row 15 at f32) call them; the tails' passes (upsample,
-resize) are their plain versions around them. Each CUDA thread is a std::thread and each
+5's and row 6's epilogues) as it is, launches rewritten to the emulator's,
+and a unit that instantiates the core with the f32 DPT tail's operands
+(csrc/sconv.cuh: the 3x3 conv as an implicit GEMM, conv1's bias and
+bias-free stores, conv2's depth epilogue, and the tile each product takes
+by width) as vrvg_head_tail_f32 (row 15 at f32) calls them, and with the
+products the SIMT core keeps beside them (the dense product at N = 64 to
+384, the bias-free conv); the tail's passes (upsample, resize) are their
+plain versions around them. Each CUDA thread is a std::thread and each
 __syncthreads a barrier, so the tiles' indexing, the ragged edges and the
 double-buffered k slices run as written. Rows 2 and 17 at f32
 (csrc/attention_f32.cu), rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu and
 csrc/swiglu_f32.cu on the 3xTF32 core of csrc/tf32x3_gemm.cuh: TMA and
-wgmma, which the emulation has not) and rows 11 and 12 at f32 (the same
-core's conv layout in csrc/head_tail_big.cu) are held on the CPU by
-tests/test_torch_attention_3xtf32.py, tests/test_torch_gemm_3xtf32.py and
-tests/test_torch_conv_3xtf32.py.
+wgmma, which the emulation has not), rows 11 and 12 at f32 (the same
+core's conv in csrc/head_tail_big.cu) and rows 7 and 16 at f32 (the same
+core, csrc/head_tail_big.cu and csrc/rcu_pair_f32.cu) are held on the CPU
+by tests/test_torch_attention_3xtf32.py, tests/test_torch_gemm_3xtf32.py,
+tests/test_torch_conv_3xtf32.py and tests/test_torch_conv_3xtf32_rcu_ext.py.
 The plain versions sum in another order, so each output is held to a bound
 in f32 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32
 product would be thousands off). This checks logic only; the card checks
@@ -66,7 +66,8 @@ static unsigned char* shared_memory() { return smem; }
 LN_STUB = """extern "C" int vrvg_layernorm_f32(const void*, const void*,
                                   const void*, void*, int, int, float,
                                   void*) { return 77; }"""
-# The f32 tail's three products as vrvg_head_tail_ext_f32 runs them.
+# The SIMT core's tail products on fixed tiles: a dense product on Tall64,
+# conv1 + b1 and conv2 with the 1x1 on Rows32 (row 15's at C = 64).
 TAIL_ENTRIES = """
 extern "C" int emu_mix_f32(const float* x, const float* koc, float* xoc,
                            int m, int c) {
@@ -93,9 +94,9 @@ extern "C" int emu_conv2_depth_f32(const float* r, const float* w2,
       sgemm::DenseRows{w2, 9 * c2, 32, 9 * c2}, m, 32, 9 * c2,
       sgemm::DepthOut{out, b2, w3, b3}, nullptr);
 }
-// The same products as both f32 tails' entry points run them, on the tile
-// csrc/sconv.cuh picks by width: the mix, a conv3x3 with or without its
-// bias (row 7's conv1 / row 11's folded conv1), conv2 with the 1x1.
+// The same products on the tile csrc/sconv.cuh picks by width, as
+// vrvg_head_tail_f32 runs them: the dense product (gemm_n), a conv3x3 with
+// its bias (row 15's conv1) or without, conv2 with the 1x1.
 extern "C" int emu_mix_n_f32(const float* x, const float* koc, float* xoc,
                              int m, int c) {
   return sgemm::gemm_n(sgemm::DenseRows{x, c, m, c}, koc, m, c, c,
@@ -149,7 +150,7 @@ def _build(tmp, units, entries, name):
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
     for src in ("gelu_as.cuh", "epilogue_f32.cuh", "sgemm.cuh", "sconv.cuh",
-                "qkv_f32.cu", "rcu_pair_f32.cu"):
+                "qkv_f32.cu"):
         (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     paths = []
     for unit, (pre, inc, post) in units.items():
@@ -241,7 +242,8 @@ def test_proj_source(lib, m, d):
 
 
 def test_mix_source(lib):
-    """Row 7's out_conv mix at f32 (Tall64: 256 x 64 tiles, C = 64)."""
+    """The SIMT core's Tall64 tile (256 x 64: row 15's conv1 at C = 128) on
+    a dense product, an out_conv mix at C = 64 against ext_mix_plain."""
     rng = np.random.default_rng(5)
     x = randn(rng, (1, 13, 23, 64))
     koc = randn(rng, (64, 64, 1, 1), 0.125)
@@ -254,9 +256,10 @@ def test_mix_source(lib):
 
 @pytest.mark.parametrize("hw", [(9, 17), (24, 40)])
 def test_conv1_source(lib, hw):
-    """Row 7's conv1 at f32, C = 64 -> C2 = 32: the im2col read in place
-    with zero padding at every edge and the f32 bias in the store (Rows32,
-    one 32-channel row a thread; 2 frames, a ragged last row tile)."""
+    """Row 15's conv1 at f32 on its C = 64 tile, C = 64 -> C2 = 32: the
+    im2col read in place with zero padding at every edge and the f32 bias
+    in the store (Rows32, one 32-channel row a thread; 2 frames, a ragged
+    last row tile)."""
     h, w = hw
     rng = np.random.default_rng(h * w)
     z = randn(rng, (2, h, w, 64))
@@ -270,9 +273,9 @@ def test_conv1_source(lib, hw):
 
 
 def test_conv2_depth_source(lib):
-    """Row 7's (and row 12's) back at f32: conv2 (C2 = 32 -> 32), + b2,
-    ReLU, the 1x1, + b3, ReLU, a pixel's 32 sums in one thread, against
-    big_conv2_plain, relative to the depth's range."""
+    """Row 15's back at f32 (the function rows 7 and 12 end with): conv2
+    (C2 = 32 -> 32), + b2, ReLU, the 1x1, + b3, ReLU, a pixel's 32 sums in
+    one thread, against big_conv2_plain, relative to the depth's range."""
     rng = np.random.default_rng(11)
     h, w = 19, 33
     r = randn(rng, (2, h, w, 32))
@@ -295,12 +298,13 @@ def test_conv2_depth_source(lib):
     assert (out - ref).abs().max().item() <= 1e-5 * span
 
 
-# --- rows 7, 11 and 12 at f32 at every width (csrc/sconv.cuh) ---------------
+# --- the SIMT products at every tail width (csrc/sconv.cuh) ------------------
 
 @pytest.mark.parametrize("c", [128, 384])
 def test_mix_by_width_source(lib, c):
-    """Row 7's out_conv mix at f32 on the tile gemm_n picks for N = C above
-    64 (Square, 128 x 128: at C = 384 three column tiles)."""
+    """The SIMT core's dense product on the tile gemm_n picks for N above
+    64 (Square, 128 x 128, rows 5's and 6's tile: at C = 384 three column
+    tiles), an out_conv mix against ext_mix_plain."""
     rng = np.random.default_rng(c)
     x = randn(rng, (1, 9, 15, c))
     koc = randn(rng, (c, c, 1, 1), c ** -0.5)
@@ -313,9 +317,9 @@ def test_mix_by_width_source(lib, c):
 
 @pytest.mark.parametrize("c", [128, 384])
 def test_ext_conv1_by_width_source(lib, c):
-    """Row 7's conv1 at f32 with its bias at C2 = 64 (Tall64) and 192
-    (Square, a half-empty second column tile), 2 frames, zero padding at
-    every edge."""
+    """The SIMT conv with its bias (row 15's conv1) at C2 = 64 (Tall64, row
+    15's at C = 128) and 192 (Square, a half-empty second column tile)
+    against ext_conv1_plain, 2 frames, zero padding at every edge."""
     rng = np.random.default_rng(3 * c)
     h, w, c2 = 7, 13, c // 2
     z = randn(rng, (2, h, w, c))
@@ -331,13 +335,12 @@ def test_ext_conv1_by_width_source(lib, c):
 def test_big_tail_chain_source(lib, c):
     """The SIMT f32 core's convs (csrc/sconv.cuh) on the big-C tail's
     chain, the passes their plain versions: a bias-free conv3x3 (Store; C2 =
-    32, 64, 128 on Rows32, Tall64, Square: the tiles row 7 at f32 runs its
-    conv1 on at C = 64-256, conv1 at C = 256 on Square), then the resize
-    pass with cw, then conv2 with the 1x1 (Rows32, row 7's and row 15's
-    back); mid in f32 ulps against big_conv1_plain, the depth against
-    head_tail_big_plain relative to its range. A 4-row grid: most conv1
-    rows are cw's top or bottom rows. (Rows 11 and 12 at f32 run their
-    convs on the 3xTF32 core, tests/test_torch_conv_3xtf32.py.)"""
+    32, 64, 128 on Rows32, Tall64, Square), then the resize pass with cw,
+    then conv2 with the 1x1 (Rows32, row 15's back); mid in f32 ulps
+    against big_conv1_plain, the depth against head_tail_big_plain relative
+    to its range. A 4-row grid: most conv1 rows are cw's top or bottom
+    rows. (Rows 7, 11 and 12 at f32 run their products on the 3xTF32 core,
+    tests/test_torch_conv_3xtf32.py, test_torch_conv_3xtf32_rcu_ext.py.)"""
     rng = np.random.default_rng(c + 5)
     b, h0, w0, c2 = 2, 4, 7, c // 2
     out_hw = (14, 24)
@@ -401,93 +404,3 @@ def test_base_tail_chain_source(lib, c):
     span = (want.max() - want.min()).item()
     assert span > 0 and (want > 0).float().mean() > 0.2
     assert (out - want).abs().max().item() <= 1e-5 * span
-
-
-# --- row 16 at f32 (csrc/rcu_pair_f32.cu) ------------------------------------
-
-@pytest.fixture(scope="module")
-def rcu_lib(tmp_path_factory):
-    """csrc/rcu_pair_f32.cu as it is."""
-    return _build(tmp_path_factory.mktemp("cuda_emu_rcu_f32"),
-                  {"rcu_pair_f32.cu": ("", "rcu_pair_f32.cu", "")},
-                  ("vrvg_rcu_conv_f32",), "libemu_rcu_f32.so")
-
-
-def _emu_rcu_conv(lib, x, k, b, relu, residuals=(), relu_done=False,
-                  relu_copy=False):
-    """rcu_conv's call of vrvg_rcu_conv_f32, on the emulated library."""
-    n, h, w, c = x.shape
-    wt = conv3x3_gemm_weights(k, torch.float32)
-    out = torch.full_like(x, float("nan"))
-    in_relu = torch.empty_like(x) if relu and not relu_done else None
-    out_relu = torch.full_like(x, float("nan")) if relu_copy else None
-    ptrs = [r.data_ptr() for r in residuals] + [None] * (2 - len(residuals))
-    err = lib.vrvg_rcu_conv_f32(
-        x.data_ptr(), None if in_relu is None else in_relu.data_ptr(),
-        wt.data_ptr(), b.data_ptr(), *ptrs, out.data_ptr(),
-        None if out_relu is None else out_relu.data_ptr(), n, h, w, c,
-        int(relu), len(residuals), None)
-    assert err == 0
-    if in_relu is not None:
-        assert torch.equal(in_relu, F.relu(x))
-    return (out, out_relu) if relu_copy else out
-
-
-@pytest.mark.parametrize("c", [64, 128])
-def test_rcu_chain_source(rcu_lib, c):
-    """Row 16 at f32: the four convs of rcu_chain, each on the plain chain's
-    own input and residuals (conv1a after the ReLU pass; conv2a with two
-    residuals and its ReLU'd copy; conv1b reading that copy; conv2b with
-    one residual), at C = 64 (Tall64) and 128 (Square), 2 frames, a ragged
-    last row tile: each in f32 ulps of its output's scale and sums against
-    rcu_conv_plain, the copy bit for bit the ReLU of the output, and the
-    emulated chain against refinenet_pre_plain relative to max |out|."""
-    from vr_video_generator_tpu_torch.attic.refinenet_pre import (
-        rcu_chain, rcu_conv_plain, refinenet_pre_plain)
-
-    rng = np.random.default_rng(c + 16)
-    shape = (2, 7, 11, c)
-    rn0, path2 = randn(rng, shape), randn(rng, shape)
-    ws = []
-    for _ in range(4):
-        ws += [randn(rng, (c, c, 3, 3), (9 * c) ** -0.5), randn(rng, (c,), 0.1)]
-    steps = []
-
-    def record(*args, **kw):
-        steps.append((args, kw))
-        return rcu_conv_plain(*args, **kw)
-
-    rcu_chain(record, rn0, path2, *ws)
-    assert len(steps) == 4
-    for args, kw in steps:
-        got = _emu_rcu_conv(rcu_lib, *args, **kw)
-        want = rcu_conv_plain(*args, **kw)
-        if kw.get("relu_copy"):
-            assert torch.equal(got[1], F.relu(got[0]))
-            got, want = got[0], want[0]
-        x, k = args[0], args[1]
-        mag = F.conv2d(F.relu(x).permute(0, 3, 1, 2).abs(), k.abs(),
-                       padding=1).permute(0, 2, 3, 1)
-        res = args[4] if len(args) > 4 else ()
-        assert f32_ulps(got, want, mag, *res).max() <= MAX_ULPS
-    got = rcu_chain(lambda *a, **kw: _emu_rcu_conv(rcu_lib, *a, **kw), rn0,
-                    path2, *ws)
-    want = refinenet_pre_plain(rn0, path2, *ws)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
-
-
-def test_rcu_entry_point_refuses_other_kinds(rcu_lib):
-    """C outside {64, 128}, an input ReLU pass on a conv without ReLU, a
-    ReLU with residuals or with a copy, no residual without ReLU: 1
-    (cudaErrorInvalidValue), nothing written."""
-    x = torch.zeros((1, 4, 4, 128))
-    out = torch.full_like(x, 5.0)
-    p = x.data_ptr()
-    for c, in_relu, relu, nres, out_relu in (
-            (96, None, 1, 0, None), (64, p, 0, 1, None), (64, None, 1, 1, None),
-            (64, None, 1, 0, p), (128, None, 0, 0, None), (128, None, 0, 3,
-                                                           None)):
-        err = rcu_lib.vrvg_rcu_conv_f32(p, in_relu, p, p, p, p,
-                                        out.data_ptr(), out_relu, 1, 4, 4, c,
-                                        relu, nres, None)
-        assert err == 1 and bool((out == 5.0).all())

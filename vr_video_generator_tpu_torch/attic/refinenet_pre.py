@@ -38,8 +38,11 @@ NotImplementedError naming the roadmap item.
 
 At f32 (the same widths) each call runs ``vrvg_rcu_conv_f32``
 (csrc/rcu_pair_f32.cu, counted as ``rcu_pair_f32``): the conv an implicit
-GEMM on the f32 SIMT core, the bias, the ReLU, the residuals and the ReLU'd
-copy in its epilogue, the ReLU pass on the input as at bf16.
+GEMM on the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), its weights split
+once into TF32 hi/lo planes (:func:`_rcu_weights`), the bias, the ReLU, the
+residuals and the ReLU'd copy in its epilogue, the ReLU pass on the input
+as at bf16. The plain version sums in f64 for f64 operands (the f32 checks'
+exact reference), in f32 otherwise.
 """
 
 from __future__ import annotations
@@ -51,8 +54,10 @@ import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
-from vr_video_generator_tpu_torch.ops.head_tail import (_prepared,
-                                                         conv3x3_gemm_weights)
+from vr_video_generator_tpu_torch.ops.head_tail import (_conv_split,
+                                                         _prepared,
+                                                         conv3x3_gemm_weights,
+                                                         sum_dtype)
 
 LAUNCHES = counter("rcu_pair")
 F32_LAUNCHES = counter("rcu_pair_f32")
@@ -70,21 +75,22 @@ def rcu_conv_plain(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
     """One conv of the chain, (B, H0, W0, C) -> (B, H0, W0, C) in x's dtype:
     the f32 bias + the 3x3 conv (weights (C, C, 3, 3) cast to x's dtype,
     zero padding) of x, with ``relu`` a ReLU on x and on the f32 result,
-    then the residuals added in f32 in order, one cast. ``relu_done`` says
-    x is relu'd already: x is read as it is, as the kernel reads it, and a
-    negative value in x raises; with ``relu_copy`` it returns (out,
-    relu(out))."""
+    then the residuals added in f32 in order, one cast (f64 throughout for
+    f64 x). ``relu_done`` says x is relu'd already: x is read as it is, as
+    the kernel reads it, and a negative value in x raises; with
+    ``relu_copy`` it returns (out, relu(out))."""
     if relu_done and bool((x < 0).any()):
         raise ValueError("rcu_conv: relu_done with a negative value in x")
     dt = x.dtype
-    xin = x.permute(0, 3, 1, 2).float()
+    acc = sum_dtype(dt)
+    xin = x.permute(0, 3, 1, 2).to(acc)
     if relu and not relu_done:
         xin = F.relu(xin)
-    y = b.float()[:, None, None] + F.conv2d(xin, k.to(dt).float(), padding=1)
+    y = b.to(acc)[:, None, None] + F.conv2d(xin, k.to(dt).to(acc), padding=1)
     if relu:
         y = F.relu(y)
     for r in residuals:
-        y = y + r.permute(0, 3, 1, 2).float()
+        y = y + r.permute(0, 3, 1, 2).to(acc)
     out = y.to(dt).permute(0, 2, 3, 1).contiguous()
     return (out, F.relu(out)) if relu_copy else out
 
@@ -147,9 +153,12 @@ def rcu_conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
 
 def _rcu_weights(k: torch.Tensor, b: torch.Tensor,
                  dt: torch.dtype = torch.bfloat16):
-    """A conv's weights as the GEMM core's B (C, 9 C) in ``dt`` (bf16, or
-    f32 for the f32 kernel) and its bias as an f32 vector."""
-    return conv3x3_gemm_weights(k, dt), b.to(torch.float32, copy=True)
+    """A conv's weights as the GEMM core's B and its bias as an f32 vector:
+    for bf16 the (C, 9 C) bf16 GEMM weights; for f32 their TF32 split for
+    the 3xTF32 core (ops/head_tail._conv_split: (2, 128, 9 C)). Kept by
+    ``_prepared``, so each weight is split once."""
+    w = _conv_split(k) if dt == torch.float32 else conv3x3_gemm_weights(k, dt)
+    return w, b.to(torch.float32, copy=True)
 
 
 def rcu_chain(conv: Callable, rn0: torch.Tensor, path2: torch.Tensor,

@@ -1,12 +1,12 @@
 // The per-element arithmetic of the f32 GEMM epilogues, one function per
 // epilogue, called by both f32 GEMM cores: the SIMT core (csrc/sgemm.cuh,
-// rows 5, 6, 7, 15 and 16 at f32) and the 3xTF32 wgmma core
-// (csrc/tf32x3_gemm.cuh, rows 8, 9, 10, 11 and 12 at f32). Each takes a
-// product's f32 sum and rounds every operation on its own (no FMA, no fast
-// math), at the JAX package's f32 rounding points, so the two cores and the
-// CPU emulation (tests/cuda_emu/cuda_runtime.h, which g++ compiles this
-// header under: tests/test_torch_gemm_3xtf32.py,
-// tests/test_torch_conv_3xtf32.py) share one copy of them.
+// rows 5, 6 and 15 at f32) and the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh,
+// rows 7, 8, 9, 10, 11, 12 and 16 at f32). Each takes a product's f32 sum
+// and rounds every operation on its own (no FMA, no fast math), at the JAX
+// package's f32 rounding points, so the two cores and the CPU emulation
+// (tests/cuda_emu/cuda_runtime.h, which g++ compiles this header under:
+// tests/test_torch_gemm_3xtf32.py, tests/test_torch_conv_3xtf32.py,
+// tests/test_torch_conv_3xtf32_rcu_ext.py) share one copy of them.
 
 #pragma once
 
@@ -48,6 +48,33 @@ __device__ __forceinline__ float silu_mul_f32(float x1, float x2) {
 __device__ __forceinline__ float swiglu_gate_f32(float s1, float b1, float s2,
                                                  float b2) {
   return silu_mul_f32(__fadd_rn(s1, b1), __fadd_rn(s2, b2));
+}
+
+// A conv's f32 sum + its f32 bias: row 7's conv1 at f32
+// (ops/head_tail.ext_conv1_plain) and row 15's.
+__device__ __forceinline__ float bias_f32(float s, float b) {
+  return __fadd_rn(s, b);
+}
+
+// A refinenet1 residual-unit conv's epilogue at f32, row 16
+// (attic/refinenet_pre.rcu_conv_plain, `_rcu_pair_kernel`'s :92-121): s +
+// b, with RELU a ReLU, then NRES residuals added in order (r0, then r1).
+// The chain's kinds: RELU without residuals (conv1a, conv1b), two residuals
+// (conv2a: rn0, path2), one (conv2b: t).
+template <bool RELU, int NRES>
+__device__ __forceinline__ float rcu_out_f32(float s, float b, float r0,
+                                             float r1) {
+  float o = __fadd_rn(s, b);
+  if (RELU) o = fmaxf(o, 0.f);
+  if (NRES > 0) o = __fadd_rn(o, r0);
+  if (NRES > 1) o = __fadd_rn(o, r1);
+  return o;
+}
+
+// The ReLU'd copy conv2a writes beside its output for conv1b: -0 and NaN
+// become +0, as the bf16 chain's.
+__device__ __forceinline__ float relu_copy_f32(float o) {
+  return o > 0.f ? o : 0.f;
 }
 
 // output_conv2's epilogue at f32 (row 12's, and the back of rows 7 and 15):

@@ -121,26 +121,23 @@
 // out_conv's bias for row 7) and the resize pass (with `cw` for row 12) are
 // the kernels above instantiated on f32 (16 bytes a thread, 4 channels).
 // wgmma takes no f32 operands and TF32 is not f32, so the products run on
-// f32-accurate cores: rows 11 and 12's folded conv1 and conv2 with b2,
-// ReLU, the 1x1, b3 and ReLU on the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh
-// conv_kernel: implicit GEMMs whose A is read from one TMA halo box of the
-// NHWC image a 32-channel slice, at each tap's shifted rows, the weights
-// split once by the wrapper; conv1 on 128 x C2 tiles (two of 64 at C2 =
-// 128, two of 96 at 192), conv2 on 128 x 32 with the 1x1 on a pixel's 32
-// sums gathered into one thread of its quad), row 7's out_conv mix and
-// convs on
-// the SIMT FFMA core (csrc/sgemm.cuh; the convs on the tiles csrc/sconv.cuh
-// picks by width). Each is one entry point, front and back together, so
-// the f32 big-C tail's intermediate mid (B, HM, W2, C2) f32 is the front's
-// post-conv1 product as at bf16. What bounds them: at vits' 1080p (B = 8)
-// row 7's mix, conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 1.78 ms at the
-// card's 67 TFLOP/s f32 rate outside the tensor cores, against ~1.4 GB of
-// f32 intermediates (0.42 ms); at vitb-518 (C = 128) rows 11 and 12's conv1
-// and conv2 are 184 + 141 GFLOP (1.97 ms at 3xTF32's 165 TFLOP/s) against
-// ~4 GB of f32 U, mid and R written and read (1.2 ms): bound by
-// operations. Row 15 at f32 (vrvg_head_tail_f32, C = 64 and 128) is row 7's
-// f32 chain from conv1 on: conv1 of path1 with its f32 bias on the SIMT
-// core, the resize pass on f32, conv2 with the 1x1 (see its entry point).
+// the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), their weights split once by
+// the wrapper: rows 11 and 12's folded conv1 and row 7's conv1 (+ b1) as
+// implicit GEMMs (conv_kernel: A read from one TMA halo box of the NHWC
+// image a 32-channel slice, at each tap's shifted rows) on 128 x C2 tiles
+// (two of 64 at C2 = 128, two of 96 at 192), conv2 with b2, ReLU, the 1x1,
+// b3 and ReLU on 128 x 32 with the 1x1 on a pixel's 32 sums gathered into
+// one thread of its quad, and row 7's out_conv mix as the dense product
+// (gemm_kernel, 128 x 128 tiles). Each is one entry point, front and back
+// together, so the f32 big-C tail's intermediate mid (B, HM, W2, C2) f32 is
+// the front's post-conv1 product as at bf16. What bounds them: at vits'
+// 1080p (B = 8) row 7's mix, conv1 and conv2 are 2.6 + 46 + 71 GFLOP, 0.72
+// ms at 3xTF32's 165 TFLOP/s, against ~1.4 GB of f32 intermediates (0.42
+// ms); at vitb-518 (C = 128) rows 11 and 12's conv1 and conv2 are 184 + 141
+// GFLOP (1.97 ms) against ~4 GB of f32 U, mid and R written and read (1.2
+// ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32, C = 64 and
+// 128) is row 7's f32 chain from conv1 on, still on the SIMT FFMA core
+// (csrc/sgemm.cuh, csrc/sconv.cuh; see its entry point).
 
 #include <type_traits>
 
@@ -785,20 +782,54 @@ extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
               c2, h1, w1, stream);
 }
 
+namespace {
+
+// epi on the (B H W, n) f32 sums of a 3x3 conv with zero padding of x (B,
+// H, W, C) f32 on the 3xTF32 core, the weights (n, 9 C) split; n = epi.n in
+// {32, 64, 128, 192} on tiles as wide as n up to 64 (two of 64 at 128, two
+// of 96 at 192).
+template <class Epi>
+int conv3x3_f32(const float* x, const uint32_t* ws, int batch, int h, int w,
+                int c, const Epi& epi, void* stream) {
+  switch (epi.n) {
+    case 32:
+      return tf32x3_gemm::conv3x3<32>(x, ws, batch, h, w, c, 32, epi, stream);
+    case 64:
+    case 128:
+      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, epi.n, epi,
+                                      stream);
+    case 192:
+      return tf32x3_gemm::conv3x3<96>(x, ws, batch, h, w, c, 192, epi,
+                                      stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // Row 7 at f32 (the whole chain, front and back). x (B, H0, W0, C) f32,
 // contiguous, or with `nchw` an NCHW tensor (B, C, H0, W0) seen as NHWC,
-// first transposed into the scratch xt; out_conv (C out, C in) f32 + (C,)
-// f32 bias; the f32 W-upsample tap tables (2, 2 W0); conv1 as (C2, 9 C) f32
-// with k = (3 dh + dw) C + c, + (C2,) bias; the f32 W-resize tap tables (2,
-// W1); conv2 as (32, 9 C2) f32 in the same k order, b2 (32,), the 1x1 (32,)
-// and b3 (1,); scratch xoc (B, H0, W0, C), z (B, 2 H0, 2 W0, C), c1 (B,
-// 2 H0, 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in
-// {64, 128, 256, 384}, C2 = C / 2.
+// first transposed into the scratch xt; out_conv (C out, C in) f32 given as
+// its TF32 split (vrvg_tf32x3_split: (2, 128 ceil(C / 128), C)), + (C,) f32
+// bias; the f32 W-upsample tap tables (2, 2 W0); conv1 as (C2, 9 C) f32
+// with k = (3 dh + dw) C + c, split ((2, 128 ceil(C2 / 128), 9 C)), + (C2,)
+// f32 bias; the f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the
+// same k order, split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3
+// (1,) f32; scratch xoc (B, H0, W0, C), z (B, 2 H0, 2 W0, C), c1 (B, 2 H0,
+// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {64,
+// 128, 256, 384}, C2 = C / 2. The mix on the dense 3xTF32 product (128 x
+// 128 tiles: at C = 64 half of each idle; a fresh tensor-core sum every 16
+// of K, which keeps it as close to the f64 mix on average as cuBLAS's
+// SGEMM at K = 64), conv1 + b1 (BiasStore) and conv2 with the 1x1
+// (DepthOut) on its conv, as rows 11 and 12 at f32 run theirs.
+// Returns a CUDA error code (a tensor map that does not encode:
+// cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_ext_f32(
-    const void* x, int nchw, void* xt, const void* koc, const void* boc,
+    const void* x, int nchw, void* xt, const void* kocs, const void* boc,
     const void* taps_a, const void* tapw_a, void* xoc, void* z,
-    const void* w1m, const void* b1, void* c1, const void* taps_b,
-    const void* tapw_b, void* r, const void* w2m, const void* b2,
+    const void* w1s, const void* b1, void* c1, const void* taps_b,
+    const void* tapw_b, void* r, const void* w2s, const void* b2,
     const void* w3, const void* b3, void* out, int batch, int h0, int w0,
     int c, int h1, int w1, void* stream) {
   if (c != 64 && c != 128 && c != 256 && c != 384) {
@@ -814,55 +845,31 @@ extern "C" int vrvg_head_tail_ext_f32(
     if (err != 0) return err;
     x = xt;
   }
-  const int m0 = batch * h0 * w0;
-  int err = sgemm::gemm_n(sgemm::DenseRows{(const float*)x, c, m0, c},
-                          (const float*)koc, m0, c, c,
-                          sgemm::Store{(float*)xoc, c}, stream);
+  // The mix's K (C) is short: a fresh tensor-core sum every 16 of it.
+  int err = tf32x3_gemm::gemm<tf32x3_gemm::Store, 16>(
+      (const float*)x, (const uint32_t*)kocs, batch * h0 * w0, c, c, 0,
+      tf32x3_gemm::Store{c, (float*)xoc}, stream);
   if (err != 0) return err;
   upsample_kernel<float, true><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
       (const float*)xoc, (const int*)taps_a, (const float*)tapw_a,
       (const float*)boc, (float*)z, c, h0, w0, hm, w2);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = sgemm::conv3x3((const float*)z, (const float*)w1m, batch, hm, w2, c,
-                       c2, sgemm::BiasStore{(float*)c1, (const float*)b1, c2},
-                       stream);
+  err = conv3x3_f32((const float*)z, (const uint32_t*)w1s, batch, hm, w2, c,
+                    tf32x3_gemm::BiasStore{c2, (float*)c1, (const float*)b1},
+                    stream);
   if (err != 0) return err;
   resize_kernel<float, false><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
       (const float*)c1, (const int*)taps_b, (const float*)tapw_b, nullptr,
       (float*)r, c2, hm, w2, h1, w1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
-                            (const float*)b2, (const float*)w3,
-                            (const float*)b3, (float*)out, batch, h1, w1, c2,
-                            stream);
+  return tf32x3_gemm::conv3x3<C3>(
+      (const float*)r, (const uint32_t*)w2s, batch, h1, w1, c2, C3,
+      tf32x3_gemm::DepthOut{C3, (float*)out, (const float*)b2,
+                            (const float*)w3, (const float*)b3},
+      stream);
 }
-
-namespace {
-
-// A 3x3 conv with zero padding of x (B, H, W, C) f32 on the 3xTF32 core,
-// its (B H W, n) f32 sums stored to out: the weights (n, 9 C) split, n in
-// {32, 64, 128, 192} on tiles as wide as n up to 64 (two of 64 at 128, two
-// of 96 at 192).
-int conv3x3_store_f32(const float* x, const uint32_t* ws, float* out,
-                      int batch, int h, int w, int c, int n, void* stream) {
-  const tf32x3_gemm::Store epi{n, out};
-  switch (n) {
-    case 32:
-      return tf32x3_gemm::conv3x3<32>(x, ws, batch, h, w, c, n, epi, stream);
-    case 64:
-      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, n, epi, stream);
-    case 128:
-      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, n, epi, stream);
-    case 192:
-      return tf32x3_gemm::conv3x3<96>(x, ws, batch, h, w, c, n, epi, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
 
 // Rows 11 and 12 at f32 (the big-C tail, front and back in one chain). x
 // (B, H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor seen as
@@ -900,8 +907,8 @@ extern "C" int vrvg_head_tail_big_f32(
       (float*)u, c, h0, w0, hm, w2);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = conv3x3_store_f32((const float*)u, (const uint32_t*)w1s, (float*)mid,
-                          batch, hm, w2, c, c2, stream);
+  err = conv3x3_f32((const float*)u, (const uint32_t*)w1s, batch, hm, w2, c,
+                    tf32x3_gemm::Store{c2, (float*)mid}, stream);
   if (err != 0) return err;
   resize_kernel<float, true><<<dim3(h1, batch), PASS_THREADS, 0, st>>>(
       (const float*)mid, (const int*)taps_b, (const float*)tapw_b,
@@ -924,8 +931,8 @@ extern "C" int vrvg_head_tail_big_f32(
 extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
                                 int batch, int h, int w, int c, int n,
                                 void* stream) {
-  return conv3x3_store_f32((const float*)x, (const uint32_t*)ws, (float*)out,
-                           batch, h, w, c, n, stream);
+  return conv3x3_f32((const float*)x, (const uint32_t*)ws, batch, h, w, c,
+                     tf32x3_gemm::Store{n, (float*)out}, stream);
 }
 
 // Row 15 at f32 (the single-kernel tail, csrc/head_tail_big.cu's

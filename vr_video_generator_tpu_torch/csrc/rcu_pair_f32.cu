@@ -13,71 +13,36 @@
 // ReLU applied to the loaded input and to the output where that kernel has
 // one, the residuals added in f32 in its order (acc + rn0 + path2, then acc
 // + t), every conv zero-padding its own input. Every intermediate is f32,
-// so nothing is cast; the sums' order is the only difference.
+// so nothing is cast; the sums' order is the only difference (the TPU
+// kernel starts its sum at the bias, this one adds the bias to the sum).
 //
-// Design: each conv is an implicit GEMM on the f32 SIMT core
-// (csrc/sgemm.cuh, the A operand the im2col of the NHWC image read in
-// place, sconv.cuh's Conv3x3Rows; K = 9 C; 256 x 64 tiles at C = 64, 128 x
-// 128 at C = 128, as sgemm::conv3x3 picks by width), its epilogue RcuStore
-// adding the bias, the ReLU and the residuals in registers. As at bf16 the
-// input ReLUs are made beforehand, so that the wrapper's calls and their
-// plain versions are the same at both dtypes: relu(rn0) by a pass over rn0
-// before conv1a (relu_kernel), relu(t) by conv2a's epilogue, which writes
-// it beside t. The ReLU of an f32 value is exact, so reading the relu'd copy
-// is the TPU kernel's ReLU on the load.
+// Design: each conv is an implicit GEMM on the 3xTF32 wgmma core
+// (csrc/tf32x3_gemm.cuh conv_kernel: tiles of 4 image rows x 32 pixels, one
+// TMA halo box of the NHWC image a 32-channel slice, split once into TF32
+// hi/lo planes in shared memory and read at each tap's shifted rows; K = 9
+// C; 64-wide column tiles, one at C = 64 and two at C = 128), its weights
+// given as their TF32 split (ops/head_tail._conv_split, made once a weight
+// by the wrapper), its epilogue RcuEpi adding the bias, the ReLU and the
+// residuals to each pair of f32 sums (vrvg::rcu_out_f32,
+// csrc/epilogue_f32.cuh) and writing the ReLU'd copy. TMA's zero fill past
+// the image is each conv's own zero padding, and the rows of the ragged
+// last tile of a 264-pixel row map to no pixel. As at bf16 the input ReLUs
+// are made beforehand, since TMA cannot apply them on the way in, so that
+// the wrapper's calls and their plain versions are the same at both
+// dtypes: relu(rn0) by a pass over rn0 before conv1a (relu_kernel), relu(t)
+// by conv2a's epilogue, which writes it beside t. The ReLU of an f32 value
+// is exact, so reading the relu'd copy is the TPU kernel's ReLU on the load.
 //
 // What bounds it on the H100: at 1080p/vits (B = 8, 148 x 264, C = 64) the
-// four convs are ~92 GFLOP, 1.38 ms at the card's 67 TFLOP/s f32 rate
-// outside the tensor cores, against ~5 x 80 MB of f32 inputs, outputs and
-// intermediates (0.12 ms at 3.35 TB/s); at vitb's C = 128 369 GFLOP (5.5
-// ms): bound by operations, since wgmma takes no f32 operands and TF32 is
-// not f32 (csrc/sgemm.cuh's header).
+// four convs are ~92 GFLOP, 0.56 ms at 3xTF32's f32-accurate 165 TFLOP/s (a
+// third of the card's dense TF32 rate), against ~5 x 80 MB of f32 inputs,
+// outputs and intermediates (0.12 ms at 3.35 TB/s); at vitb's C = 128 369
+// GFLOP (2.2 ms): bound by operations, since wgmma takes no f32 operands
+// and TF32 alone is not f32 (csrc/tf32x3_gemm.cuh's header).
 
-#include "sconv.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace {
-
-// One conv's epilogue at f32: out = sum + bias, with RELU a ReLU, then NRES
-// residuals (B H W, C) f32 added in order; relu(out) into relu_copy unless
-// it is null. A GEMM row is a pixel of the (B, H, W, C) image.
-template <bool RELU, int NRES>
-struct RcuStore {
-  float* out;
-  const float* bias;
-  const float* res0;
-  const float* res1;
-  float* relu_copy;
-  int c;
-  template <class T>
-  __device__ __forceinline__ void store(int row, int n0, int tx,
-                                        const float (&v)[T::TN]) const {
-    const long long base = (long long)row * c;
-    sgemm::for_each4<T>(n0, tx, c, v, [&](int col, const float* s) {
-      const float4 b = sgemm::ld4(bias + col);
-      float o[4] = {__fadd_rn(s[0], b.x), __fadd_rn(s[1], b.y),
-                    __fadd_rn(s[2], b.z), __fadd_rn(s[3], b.w)};
-      if (RELU) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = fmaxf(o[e], 0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < NRES; ++i) {
-        const float4 r = sgemm::ld4((i == 0 ? res0 : res1) + base + col);
-        o[0] = __fadd_rn(o[0], r.x);
-        o[1] = __fadd_rn(o[1], r.y);
-        o[2] = __fadd_rn(o[2], r.z);
-        o[3] = __fadd_rn(o[3], r.w);
-      }
-      *reinterpret_cast<float4*>(out + base + col) =
-          make_float4(o[0], o[1], o[2], o[3]);
-      if (relu_copy != nullptr) {
-        *reinterpret_cast<float4*>(relu_copy + base + col) = make_float4(
-            o[0] > 0.f ? o[0] : 0.f, o[1] > 0.f ? o[1] : 0.f,
-            o[2] > 0.f ? o[2] : 0.f, o[3] > 0.f ? o[3] : 0.f);
-      }
-    });
-  }
-};
 
 // out = relu(in) over n f32 values (n a multiple of 4, 16-byte aligned),
 // 16 bytes a thread, grid-stride; -0 and NaN become +0, as the bf16 pass.
@@ -95,15 +60,15 @@ relu_kernel(const float4* __restrict__ in, float4* __restrict__ out,
 }
 
 template <bool RELU, int NRES>
-int conv(const void* in, const void* wt, const void* bias, const void* res0,
+int conv(const void* in, const void* ws, const void* bias, const void* res0,
          const void* res1, void* out, void* relu_copy, int batch, int h,
          int w, int c, void* stream) {
-  return sgemm::conv3x3((const float*)in, (const float*)wt, batch, h, w, c, c,
-                        RcuStore<RELU, NRES>{(float*)out, (const float*)bias,
-                                             (const float*)res0,
-                                             (const float*)res1,
-                                             (float*)relu_copy, c},
-                        stream);
+  return tf32x3_gemm::conv3x3<64>(
+      (const float*)in, (const uint32_t*)ws, batch, h, w, c, c,
+      tf32x3_gemm::RcuEpi<RELU, NRES>{c, (float*)out, (const float*)bias,
+                                      (const float*)res0, (const float*)res1,
+                                      (float*)relu_copy},
+      stream);
 }
 
 }  // namespace
@@ -112,14 +77,16 @@ int conv(const void* in, const void* wt, const void* bias, const void* res0,
 // rcu_pair.cu) in f32: in (B, H0, W0, C) f32 contiguous; with relu and a
 // non-null `in_relu` (B, H0, W0, C) scratch, relu(in) is written there
 // first and the conv reads it, with relu and a null one `in` is relu'd
-// already; its weights (C, 9 C) f32 (k = (3 dh + dw) C + c) and bias (C,)
-// f32; `nres` residuals (B, H0, W0, C) f32 -> out (B, H0, W0, C) f32, and
-// relu(out) into `out_relu` unless it is null. The chain's three kinds:
-// relu = 1 with no residual and no out_relu (conv1a, conv1b), relu = 0 with
-// two (conv2a: rn0, path2) or one (conv2b: t). C in {64, 128}. Returns a
-// CUDA error code.
+// already; its weights (C, 9 C) f32 (k = (3 dh + dw) C + c) given as their
+// TF32 split `ws` (vrvg_tf32x3_split: (2, 128, 9 C) 32-bit words) and its
+// bias (C,) f32; `nres` residuals (B, H0, W0, C) f32 -> out (B, H0, W0, C)
+// f32, and relu(out) into `out_relu` unless it is null. The chain's three
+// kinds: relu = 1 with no residual and no out_relu (conv1a, conv1b), relu =
+// 0 with two (conv2a: rn0, path2) or one (conv2b: t). C in {64, 128}; every
+// pointer 16-byte aligned. Returns a CUDA error code (a tensor map that
+// does not encode: cudaErrorInvalidValue).
 extern "C" int vrvg_rcu_conv_f32(const void* in, void* in_relu,
-                                 const void* wt, const void* bias,
+                                 const void* ws, const void* bias,
                                  const void* res0, const void* res1,
                                  void* out, void* out_relu, int batch, int h,
                                  int w, int c, int relu, int nres,
@@ -141,13 +108,13 @@ extern "C" int vrvg_rcu_conv_f32(const void* in, void* in_relu,
     in = in_relu;
   }
   if (relu) {
-    return conv<true, 0>(in, wt, bias, res0, res1, out, nullptr, batch, h, w,
+    return conv<true, 0>(in, ws, bias, res0, res1, out, nullptr, batch, h, w,
                          c, stream);
   }
   if (nres == 2) {
-    return conv<false, 2>(in, wt, bias, res0, res1, out, out_relu, batch, h,
+    return conv<false, 2>(in, ws, bias, res0, res1, out, out_relu, batch, h,
                           w, c, stream);
   }
-  return conv<false, 1>(in, wt, bias, res0, res1, out, out_relu, batch, h, w,
+  return conv<false, 1>(in, ws, bias, res0, res1, out, out_relu, batch, h, w,
                         c, stream);
 }

@@ -1,13 +1,12 @@
-// The f32 DPT tails' products on the SIMT f32 core (csrc/sgemm.cuh), for
-// rows 7 and 15 at f32 (csrc/head_tail_big.cu, vrvg_head_tail_ext_f32 and
-// vrvg_head_tail_f32): the A operand of a 3x3 convolution with zero padding
+// The f32 DPT tail's products on the SIMT f32 core (csrc/sgemm.cuh), for
+// row 15 at f32 (csrc/head_tail_big.cu, vrvg_head_tail_f32): the A operand of a 3x3 convolution with zero padding
 // read in place from a (B, H, W, C) f32 image (an implicit GEMM), the
 // epilogue of output_conv2 -> ReLU -> 1x1 -> ReLU, and the tile each
 // product runs on at each width (gemm_n, conv3x3, conv2_depth), which the
 // tails' entry points and the CPU emulation (tests/test_torch_f32_emulation
 // .py) share. Plain loads only, so the emulation runs them with the core.
-// Rows 11 and 12 at f32 run their convs on the 3xTF32 wgmma core instead
-// (csrc/tf32x3_gemm.cuh, vrvg_head_tail_big_f32).
+// Rows 7, 11, 12 and 16 at f32 run their products on the 3xTF32 wgmma core
+// instead (csrc/tf32x3_gemm.cuh).
 
 #pragma once
 
@@ -66,8 +65,8 @@ struct DepthOut {
 // C = epi(A B^T), B the (N, K) row-major f32 matrix w, on the tile that
 // fits N: a whole 32-column row a thread at N = 32 (Rows32), 256 x 64 at N
 // = 64 (Tall64), 128 x 128 above (Square; N = 192, conv1 at C = 384, has a
-// half-empty second column tile). Row 7's out_conv mix (N = C = 64-384)
-// and its conv1 (N = C2 = 32-192) run on it.
+// half-empty second column tile). Row 15's conv1 (N = C2 = 32, 64) runs on
+// it.
 template <class OpA, class Epi>
 int gemm_n(const OpA& a, const float* w, int m, int n, int k, const Epi& epi,
            void* stream) {

@@ -9,9 +9,9 @@
 // f32). So this core is bound by the card's f32 rate outside the tensor
 // cores, 67 TFLOP/s on an H100 SXM, about 1/15 of the bf16 one. 3xTF32,
 // each operand split into a TF32 head and tail and three tensor-core products
-// summed in f32, keeps f32 accuracy on the tensor cores: rows 8, 9, 10, 11
-// and 12 at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here (5, 6, 7,
-// 15 and 16) are next.
+// summed in f32, keeps f32 accuracy on the tensor cores: rows 7, 8, 9, 10,
+// 11, 12 and 16 at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here (5,
+// 6 and 15) are next.
 //
 // Design: the classic register-blocked SIMT product. A block of 256 threads
 // computes a BM x BN tile of C; each thread owns TM x TN outputs (8 x 8 for
@@ -265,7 +265,7 @@ struct Store {
   }
 };
 
-// C = A B^T + bias (f32, (N,)): row 7's conv1 at f32.
+// C = A B^T + bias (f32, (N,)): row 15's conv1 at f32 (vrvg::bias_f32).
 struct BiasStore {
   float* c;
   const float* bias;
@@ -277,8 +277,8 @@ struct BiasStore {
     for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
       const float4 b = ld4(bias + col);
       *reinterpret_cast<float4*>(dst + col) =
-          make_float4(__fadd_rn(s[0], b.x), __fadd_rn(s[1], b.y),
-                      __fadd_rn(s[2], b.z), __fadd_rn(s[3], b.w));
+          make_float4(vrvg::bias_f32(s[0], b.x), vrvg::bias_f32(s[1], b.y),
+                      vrvg::bias_f32(s[2], b.z), vrvg::bias_f32(s[3], b.w));
     });
   }
 };
@@ -309,8 +309,8 @@ struct LayerScaleResidual {
 };
 
 // The tiles: 128 x 128 (8 x 8 a thread) for the dense rows; 256 x 64 for N
-// = 64 (row 7's out_conv mix at C = 64); 512 x 32 with a whole 32-column
-// row a thread for N = 32 (row 7's conv1 at C2 = 32 and conv2, whose depth
+// = 64 (row 15's conv1 at C = 128); 512 x 32 with a whole 32-column row a
+// thread for N = 32 (row 15's conv1 at C = 64 and conv2, whose depth
 // epilogue needs a pixel's 32 sums in one thread).
 typedef Tile<128, 128, 8, 8> Square;
 typedef Tile<256, 64, 8, 8> Tall64;

@@ -3,10 +3,12 @@
 // the im2col of an NHWC image read in place: a 3x3 convolution as an
 // implicit GEMM), B an nn.Linear weight (N, K) or a conv's (N, 9 C) given as
 // its TF32 split (split_kernel), sums f32, C f32. Rows 8, 9 and 10 at f32
-// (csrc/mlp_f32.cu, csrc/swiglu_f32.cu) run their products on it, and rows
-// 11 and 12 at f32 their two convs (csrc/head_tail_big.cu,
-// vrvg_head_tail_big_f32); rows 5, 6, 7, 15 and 16 at f32 stay on the SIMT
-// core of csrc/sgemm.cuh for now.
+// (csrc/mlp_f32.cu, csrc/swiglu_f32.cu) run their products on it; rows 11
+// and 12 at f32 their two convs and row 7 at f32 its out_conv mix and two
+// convs (csrc/head_tail_big.cu, vrvg_head_tail_big_f32,
+// vrvg_head_tail_ext_f32); row 16 at f32 its four convs
+// (csrc/rcu_pair_f32.cu). Rows 5, 6 and 15 at f32 stay on the SIMT core of
+// csrc/sgemm.cuh for now.
 //
 // Why 3xTF32: wgmma takes no f32 operands, and TF32 keeps 10 mantissa bits.
 // Each operand x is the sum of two TF32 values hi + lo (csrc/tf32x3.cuh,
@@ -63,10 +65,10 @@
 //     most 192 x 3456 x 8 bytes) fits whole, so its tiles run along W,
 //     then H, then the frames, and the blocks in flight share image rows.
 // Registers: a thread holds BN / 2 accumulators, BN / 2 running sums and
-// the A fragment's 16 hi and 16 lo values: 193-198 registers at BN = 128
-// (gemm_kernel, of the 255 that 256 threads leave), 104-158 at BN = 32-96
-// (conv_kernel, of the 168 that its 288 threads leave), no spills (ptxas,
-// sm_90a).
+// the A fragment's 16 hi and 16 lo values: 193-228 registers at BN = 128
+// (gemm_kernel, of the 255 that 256 threads leave; 228 with half-stage
+// sums), 101-164 at BN = 32-96 (conv_kernel, of the 168 that its 288
+// threads leave; 137-138 with row 16's RcuEpi), no spills (ptxas, sm_90a).
 //
 // Register layout of a wgmma f32 accumulator (64 x BN) in a warpgroup:
 // thread (warp w, lane l) holds rows r0 = 16 w + l / 4 and r0 + 8; value
@@ -210,10 +212,11 @@ __device__ __forceinline__ void split_a(const unsigned char* tile, int row,
   }
 }
 
-// A stage's twelve products into a fresh accumulator, B_hi's and B_lo's BN
-// x 32 tiles at bh and bl: lo.hi and hi.lo over the four k-steps, then
-// hi.hi, committed as one group.
-template <int BN>
+// A stage's products of k-steps K0 .. K0 + KN - 1 (all four by default:
+// twelve products) into a fresh accumulator, B_hi's and B_lo's BN x 32 tiles
+// at bh and bl: lo.hi and hi.lo over the k-steps, then hi.hi, committed as
+// one group.
+template <int BN, int K0 = 0, int KN = 4>
 __device__ __forceinline__ void issue_stage(float (&acc)[BN / 2],
                                             uint32_t (&ah)[16],
                                             uint32_t (&al)[16], uint32_t bh,
@@ -225,14 +228,14 @@ __device__ __forceinline__ void issue_stage(float (&acc)[BN / 2],
   // A k-step of 8 is 32 bytes along B's 128-byte swizzled rows.
   const uint64_t dh = sw128_desc(bh, 16), dl = sw128_desc(bl, 16);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = K0; kk < K0 + KN; ++kk) {
     wgmma_tf32<BN>(acc, al[4 * kk], al[4 * kk + 1], al[4 * kk + 2],
-                   al[4 * kk + 3], dh + 2 * kk, kk > 0);
+                   al[4 * kk + 3], dh + 2 * kk, kk > K0);
     wgmma_tf32<BN>(acc, ah[4 * kk], ah[4 * kk + 1], ah[4 * kk + 2],
                    ah[4 * kk + 3], dl + 2 * kk, 1);
   }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = K0; kk < K0 + KN; ++kk) {
     wgmma_tf32<BN>(acc, ah[4 * kk], ah[4 * kk + 1], ah[4 * kk + 2],
                    ah[4 * kk + 3], dh + 2 * kk, 1);
   }
@@ -302,12 +305,18 @@ __device__ __forceinline__ void load_stage(const CUtensorMap* ta,
   tma_load_2d(sb + A_BYTES + B_BYTES, tb, k0, npad + n0, bar_full + 8 * s);
 }
 
-// The dense product: C = epi(A (M, K) B^T) on 128 x 128 tiles.
-template <class Epi>
+// The dense product: C = epi(A (M, K) B^T) on 128 x 128 tiles, a fresh
+// tensor-core sum every SUM_K of K (a stage, 32, or half of one, 16),
+// added in f32. The tensor core truncates each k-step's add to its sum, so
+// at a short K the shorter sum keeps the product as close to f32 as
+// cuBLAS's SGEMM; it waits for the first half's products before issuing
+// the second's.
+template <class Epi, int SUM_K>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap ta,
                 const __grid_constant__ CUtensorMap tb, int m, int npad,
                 int k, int group, const Epi epi) {
+  static_assert(SUM_K == BK || SUM_K == BK / 2, "a stage or half of one");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -355,7 +364,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t sb = base + s * STAGE_BYTES;
       mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
       split_a(smem + s * STAGE_BYTES, r0, quad, ah, al);
-      issue_stage<BN>(acc, ah, al, sb + A_BYTES, sb + A_BYTES + B_BYTES);
+      constexpr int KN = 4 * SUM_K / BK;  // k-steps a sum
+      issue_stage<BN, 0, KN>(acc, ah, al, sb + A_BYTES,
+                             sb + A_BYTES + B_BYTES);
       // Under the products: refill the slot stage it - 1 used with stage
       // it - 1 + STAGES, once both warpgroups have released it.
       if (producer && it > 0 && it - 1 + STAGES < stages) {
@@ -363,6 +374,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                   ((it - 1) / STAGES) & 1);
         load_stage(&ta, &tb, base, bar_full, it - 1 + STAGES, k_tiles,
                    tiles_m, tiles_n, group, npad);
+      }
+      if constexpr (KN < 4) {
+        __syncwarp();
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int v = 0; v < 64; ++v) sum[v] = __fadd_rn(sum[v], acc[v]);
+        issue_stage<BN, KN, KN>(acc, ah, al, sb + A_BYTES,
+                                sb + A_BYTES + B_BYTES);
       }
       __syncwarp();
       wgmma_wait<0>();
@@ -635,9 +655,10 @@ int prepare(Kernel kern, size_t bytes, int& sms) {
 }
 
 // C = epi(A (M, K) B^T), B given by `bsplit` as split() wrote it for B's
-// `rows` rows (gated: `hidden` > 0, rows = 2H); K a multiple of 4, epi.n
-// of 4, every pointer 16-byte aligned. Returns a CUDA error code.
-template <class Epi>
+// `rows` rows (gated: `hidden` > 0, rows = 2H), a fresh tensor-core sum
+// every SUM_K of K (gemm_kernel); K a multiple of 4, epi.n of 4, every
+// pointer 16-byte aligned. Returns a CUDA error code.
+template <class Epi, int SUM_K = BK>
 int gemm(const float* a, const uint32_t* bsplit, int m, int rows, int k,
          int hidden, const Epi& epi, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
@@ -654,7 +675,7 @@ int gemm(const float* a, const uint32_t* bsplit, int m, int rows, int k,
     return (int)cudaErrorInvalidValue;
   }
   int sms = 0;
-  const int err = prepare(gemm_kernel<Epi>, SMEM_BYTES, sms);
+  const int err = prepare(gemm_kernel<Epi, SUM_K>, SMEM_BYTES, sms);
   if (err != 0) return err;
   const int tiles_n = npad / BN;
   const int tiles = (m + BM - 1) / BM * tiles_n;
@@ -662,8 +683,9 @@ int gemm(const float* a, const uint32_t* bsplit, int m, int rows, int k,
   if (group < 1) group = 1;
   if (group > tiles_n) group = tiles_n;
   const int grid = tiles < sms ? tiles : sms;
-  gemm_kernel<Epi><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      ta, tb, m, npad, k, (int)group, epi);
+  gemm_kernel<Epi, SUM_K>
+      <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+          ta, tb, m, npad, k, (int)group, epi);
   return (int)cudaGetLastError();
 }
 
@@ -766,8 +788,8 @@ struct SwigluGate {
   }
 };
 
-// C (M, N) = the sums: row 11's folded conv1 at f32 (mid, bias-free), and a
-// conv's sums alone (vrvg_conv3x3_f32).
+// C (M, N) = the sums: row 11's folded conv1 at f32 (mid, bias-free), row
+// 7's out_conv mix at f32 (xoc), and a conv's sums alone (vrvg_conv3x3_f32).
 struct Store {
   static constexpr bool GATED = false, ROW = false;
   int n;
@@ -776,6 +798,50 @@ struct Store {
                                         float v1) const {
     *reinterpret_cast<float2*>(c + (long long)row * n + col) =
         make_float2(v0, v1);
+  }
+};
+
+// C (M, N) = the sums + an f32 bias (vrvg::bias_f32): row 7's conv1 at
+// f32 (c1).
+struct BiasStore {
+  static constexpr bool GATED = false, ROW = false;
+  int n;
+  float* c;
+  const float* bias;
+  __device__ __forceinline__ void store(int row, int col, float v0,
+                                        float v1) const {
+    const float2 b = ld2(bias + col);
+    *reinterpret_cast<float2*>(c + (long long)row * n + col) =
+        make_float2(bias_f32(v0, b.x), bias_f32(v1, b.y));
+  }
+};
+
+// out (pixels, C) = a refinenet1 residual-unit conv's epilogue at f32 on
+// its sums (vrvg::rcu_out_f32): + bias, with RELU a ReLU, then NRES
+// residuals (pixels, C) added in order; relu(out) into relu_copy unless it
+// is null (vrvg::relu_copy_f32). Row 16's four convs at f32.
+template <bool RELU, int NRES>
+struct RcuEpi {
+  static constexpr bool GATED = false, ROW = false;
+  int n;  // C
+  float* out;
+  const float* bias;
+  const float* res0;
+  const float* res1;
+  float* relu_copy;
+  __device__ __forceinline__ void store(int row, int col, float v0,
+                                        float v1) const {
+    const long long at = (long long)row * n + col;
+    const float2 b = ld2(bias + col);
+    const float2 r0 = NRES > 0 ? ld2(res0 + at) : make_float2(0.f, 0.f);
+    const float2 r1 = NRES > 1 ? ld2(res1 + at) : make_float2(0.f, 0.f);
+    const float o0 = rcu_out_f32<RELU, NRES>(v0, b.x, r0.x, r1.x);
+    const float o1 = rcu_out_f32<RELU, NRES>(v1, b.y, r0.y, r1.y);
+    *reinterpret_cast<float2*>(out + at) = make_float2(o0, o1);
+    if (relu_copy != nullptr) {
+      *reinterpret_cast<float2*>(relu_copy + at) =
+          make_float2(relu_copy_f32(o0), relu_copy_f32(o1));
+    }
   }
 };
 

@@ -8,6 +8,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
         [--rows 1,5,6,7,9,10,11,12] [--rows 3,4,13,14] [--rows 8,16]
         [--rows 15] [--rows f32] [--rows f32:vits,f32:vitg-518]
         [--rows f32:tail-vitb-518,f32:tail-vitg-126]
+        [--rows f32:ext-vits,f32:ext-vitb-252,f32:rcu-64,f32:rcu-128]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -112,17 +113,23 @@ vitl-518, vitg-518) takes one of those rows alone. Rows 11 and 12 at
 vitb-518 (C = 128) by stage (the transpose, the upsample pass, conv1, the
 resize pass, conv2 with the 1x1; the convs on the 3xTF32 core), against
 cuDNN's f32 convs (TF32 off); ``f32:tail-<label>`` takes them alone at
-vitb-518, at vitg-126 (C = 384) or at C = 384 on vitg-518's grid. On the
-f32 SIMT core of ``csrc/sgemm.cuh``: row 7 at vitb-252 (C = 128) and row
+vitb-518, at vitg-126 (C = 384) or at C = 384 on vitg-518's grid. Row 7 at
+vitb-252 (C = 128; ``f32:ext-<label>``: at vitb-252 or vits, C = 64) by
+stage (the transpose, the mix, the passes, the convs; the products on the
+3xTF32 core), against cuDNN's f32 convs (TF32 off). Row 16 at C = 64 and
+128 on refinenet1's grid (``f32:rcu-<C>``), each launch of the chain in
+order (the ReLU pass, the four convs on the 3xTF32 core), against cuDNN's
+f32 conv of one of them. On the f32 SIMT core of ``csrc/sgemm.cuh``: row
 15 at vits' and vitb's path1 (C = 64, 128) by stage (the transpose, the
-passes, the mix, the convs), against cuDNN's f32 convs (TF32 off); row 16
-at C = 64 and 128 on refinenet1's grid, each launch of the chain in order
-(the ReLU pass, the four convs), against cuDNN's f32 conv of one of
-them. Each row: the device time by stage and its
-TFLOP/s or GB/s, the span, ``event_ms``, the error against the plain
-version and the bound at the card's f32-accurate rate (165 TFLOP/s: a
-third of its dense TF32 rate, as 3xTF32 takes three TF32 products for one,
-above the 67 TFLOP/s outside the tensor cores) or its HBM rate.
+passes, the convs), against cuDNN's f32 convs (TF32 off). The stages and
+launches are found by kernel name on the SIMT core's kernels too, so an
+older tree's rows 7 and 16 are measured the same way. Each row: the device
+time by stage and its TFLOP/s or GB/s, the span, ``event_ms``, the error
+against the plain version and the bound at the card's f32-accurate rate
+(165 TFLOP/s: a third of its dense TF32 rate, as 3xTF32 takes three TF32
+products for one, above the 67 TFLOP/s outside the tensor cores) or its
+HBM rate, the bound's share of the kernel-only time and the kernel-only
+time over cuDNN's.
 
 Each measurement (one shape of a row) runs in a fresh process
 (``utils.profiling.in_fresh_process``): a torch.profiler session a while
@@ -413,6 +420,7 @@ def rcu_row(label: str, c: int) -> dict:
     row["cudnn_conv"]["tflops"] = conv / row["cudnn_conv"]["kernel_us"] * 1e-6
     row["over_cudnn_kernel"] = k["chain_us"] / (
         4 * row["cudnn_conv"]["kernel_us"])
+    row["bound_share"] = row["bound_ms"] * 1e3 / k["chain_us"]
     return row
 
 
@@ -870,6 +878,12 @@ F32_BIG_TAIL_SHAPES = {"vitb-518": F32_TAIL_SHAPES[0],
                        "vitg-518": (11, "vitg-518", 384, (148, 264),
                                     (518, 924))}
 F32_BASE_TAIL_SHAPES = BASE_TAIL_SHAPES  # row 15: vits' and vitb's path1
+# Row 7 at f32 by label (f32:ext-<label>): vits' C = 64 (vits auto f32's
+# tail) and vitb-252's C = 128.
+F32_EXT_TAIL_SHAPES = {"vits": (7, "vits", 64, (148, 264), (518, 924)),
+                       "vitb-252": F32_TAIL_SHAPES[1]}
+# Row 16 at f32 by width (f32:rcu-<C>).
+F32_RCU_SHAPES = {str(c): (label, c) for label, c in RCU_SHAPES}
 
 
 def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
@@ -941,12 +955,13 @@ def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
     # Stages by kernel name: the passes by name, the products by their
     # kernel and epilogue: conv2 DepthOut, conv1 the SIMT core's implicit
     # GEMM (Conv3x3Rows) or the 3xTF32 core's conv_kernel, the mix the SIMT
-    # core's dense product.
+    # core's dense product (an older tree's row 7) or the 3xTF32 core's
+    # gemm_kernel.
     def stage(name: str) -> str:
         for key, st in (("to_channels_last", "transpose"),
                         ("upsample", "upsample"), ("resize_kernel", "resize"),
                         ("DepthOut", "conv2"), ("Conv3x3Rows", "conv1"),
-                        ("conv_kernel", "conv1"), ("sgemm_kernel", "mix")):
+                        ("conv_kernel", "conv1"), ("gemm_kernel", "mix")):
             if key in name:
                 return st
         return "other"
@@ -973,6 +988,7 @@ def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
     res["cudnn_convs"]["tflops"] = ((conv1 + conv2)
                                     / res["cudnn_convs"]["kernel_us"] * 1e-6)
     res["over_cudnn_kernel"] = k["kernel_us"] / res["cudnn_convs"]["kernel_us"]
+    res["bound_share"] = res["bound_ms"] * 1e3 / k["kernel_us"]
     return res
 
 
@@ -1085,7 +1101,8 @@ def f32_rcu_row(label: str, c: int) -> dict:
                kernel=timings(fn))
     del got, want
     launches = []
-    for name, us in kernel_sequence(fn, ("sgemm_kernel", "relu_kernel")):
+    for name, us in kernel_sequence(fn, ("sgemm_kernel", "conv_kernel",
+                                         "relu_kernel")):
         is_conv = "relu_kernel" not in name
         launches.append(dict(
             kernel=name[:160], us=us,
@@ -1100,6 +1117,7 @@ def f32_rcu_row(label: str, c: int) -> dict:
     row["cudnn_conv"]["tflops"] = conv / row["cudnn_conv"]["kernel_us"] * 1e-6
     row["over_cudnn_kernel"] = k["chain_us"] / (
         4 * row["cudnn_conv"]["kernel_us"])
+    row["bound_share"] = row["bound_ms"] * 1e3 / k["chain_us"]
     return row
 
 
@@ -1156,8 +1174,13 @@ def jobs(wanted) -> list:
         out += [("big_tail_rows", shape) for shape in BIG_TAIL_SHAPES]
     every = "f32" in wanted  # else only the f32:<label> rows
     labels = {w.split(":", 1)[1] for w in wanted if w.startswith("f32:")}
-    tails = [F32_BIG_TAIL_SHAPES[k.split("-", 1)[1]] for k in sorted(labels)
-             if k.startswith("tail-")]
+
+    def picked(prefix: str, table: dict) -> list:
+        return [table[k.split("-", 1)[1]] for k in sorted(labels)
+                if k.startswith(prefix + "-")]
+
+    tails = picked("tail", F32_BIG_TAIL_SHAPES) + picked("ext",
+                                                        F32_EXT_TAIL_SHAPES)
     for name, shapes in (
             ("f32_mlp_row", [s for s in F32_MLP_SHAPES
                              if every or s[1] in labels]),
@@ -1165,7 +1188,8 @@ def jobs(wanted) -> list:
                                 if every or s[0] in labels]),
             ("f32_tail_row", F32_TAIL_SHAPES if every else tails),
             ("f32_base_tail_row", F32_BASE_TAIL_SHAPES if every else ()),
-            ("f32_rcu_row", RCU_SHAPES if every else ())):
+            ("f32_rcu_row", RCU_SHAPES if every
+             else picked("rcu", F32_RCU_SHAPES))):
         out += [(name, shape) for shape in shapes]
     if wanted & {"3", "4", "13", "14"}:
         out.append(("warp_group", (sorted(wanted),)))
@@ -1182,7 +1206,9 @@ def main(argv=None) -> int:
                     "are measured together; f32: rows 7-12, 15 and 16 "
                     "at f32; f32:<label> one f32 row of rows 8-10, "
                     "f32:tail-<label> rows 11 + 12 at f32, label vitb-518, "
-                    "vitg-126 or vitg-518)")
+                    "vitg-126 or vitg-518; f32:ext-<label> row 7 at f32, "
+                    "label vits or vitb-252; f32:rcu-<C> row 16 at f32, C "
+                    "64 or 128)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)

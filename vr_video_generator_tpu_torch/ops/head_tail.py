@@ -27,7 +27,9 @@ of 32 features (a custom config) runs the older chain of
 row in shared memory. At f32 (``--compute_dtype float32``, C = 64 to 384)
 the same five stages run as one entry point, ``vrvg_head_tail_ext_f32``
 (counted as ``head_tail_ext_f32``): the passes instantiated on f32, the mix
-and both convs on the f32 SIMT core (``csrc/sgemm.cuh``), the W-resize
+(the dense product) and both convs (implicit GEMMs, conv2 with the 1x1) on
+the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), their three weights split
+once into TF32 hi/lo planes (:func:`_ext_f32_weights`), the W-resize
 weights f32 as the plain version's are at f32.
 
 The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
@@ -276,12 +278,18 @@ def _resize_matrix(n_in: int, n_out: int, dt: torch.dtype,
                            dtype=dt, device=device).float()
 
 
+def sum_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype a plain product sums in: f32, or f64 for f64 operands (the
+    f32 kernels' exact reference)."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
 def ext_mix_plain(x: torch.Tensor, k_oc: torch.Tensor) -> torch.Tensor:
     """Row 7's first stage: x (B, H0, W0, C) -> xoc (B, H0, W0, C) in x's
     dtype, the out_conv 1x1 mix (C out, C in, 1, 1) per pixel: f32 sums ->
     dtype."""
-    dt = x.dtype
-    return (x.float() @ k_oc[:, :, 0, 0].to(dt).float().T).to(dt)
+    dt, acc = x.dtype, sum_dtype(x.dtype)
+    return (x.to(acc) @ k_oc[:, :, 0, 0].to(dt).to(acc).T).to(dt)
 
 
 def ext_conv1_plain(z: torch.Tensor, k1: torch.Tensor,
@@ -289,9 +297,9 @@ def ext_conv1_plain(z: torch.Tensor, k1: torch.Tensor,
     """Row 7's conv1: Z (B, HM, W2, C) -> c1 (B, HM, W2, C2) in Z's dtype:
     output_conv1 3x3 with zero padding, f32 sums + the f32 bias, then the
     cast."""
-    dt = z.dtype
-    c1 = F.conv2d(z.permute(0, 3, 1, 2).float(), k1.to(dt).float(),
-                  b1.to(torch.float32), padding=1).to(dt)
+    dt, acc = z.dtype, sum_dtype(z.dtype)
+    c1 = F.conv2d(z.permute(0, 3, 1, 2).to(acc), k1.to(dt).to(acc),
+                  b1.to(acc), padding=1).to(dt)
     return c1.permute(0, 2, 3, 1)
 
 
@@ -539,12 +547,14 @@ def _ext_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
 
 
 def _ext_f32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
-    """Row 7's weights as vrvg_head_tail_ext_f32 reads them: the mix (C, C),
-    conv1 (C2, 9 C) and conv2 (32, 9 C2) f32, and the f32 vectors b_oc, b1,
-    b2, the 1x1, b3."""
-    return (k_oc[:, :, 0, 0].to(torch.float32, copy=True).contiguous(),
-            conv3x3_gemm_weights(k1, torch.float32),
-            conv3x3_gemm_weights(k2, torch.float32),
+    """Row 7's weights as vrvg_head_tail_ext_f32 reads them: the mix (C, C)
+    split for the 3xTF32 core's dense product (ops/mlp.tf32x3_split_kernel),
+    conv1 and conv2 split for its conv (:func:`_conv_split`), and the f32
+    vectors b_oc, b1, b2, the 1x1, b3. Kept by :func:`_prepared`, so a path
+    splits them at its first (eager) step and never inside a CUDA graph
+    capture."""
+    mix = k_oc[:, :, 0, 0].to(torch.float32).contiguous()
+    return (tf32x3_split_kernel(mix), _conv_split(k1), _conv_split(k2),
             *_f32_vectors(b_oc, b1, b2, k3, b3))
 
 
@@ -692,7 +702,8 @@ def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
     hm, w2, c2 = 2 * h0, 2 * w0, c // 2
-    koc, w1m, w2m, boc, b1f, b2f, w3f, b3f = _prepared(_ext_f32_weights, args)
+    kocs, w1s, w2s, boc, b1f, b2f, w3f, b3f = _prepared(_ext_f32_weights,
+                                                        args)
     x, nchw, xt = _channels_last(x)
     f32 = torch.float32
     taps_a, tapw_a = _device_taps(w0, w2, x.device, f32)
@@ -702,10 +713,10 @@ def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
                      new((b, hm, w2, c2)), new((b, h1, w1, c2)))
     out = new((b, h1, w1))
     check(library().vrvg_head_tail_ext_f32(
-        x.data_ptr(), int(nchw), xt.data_ptr(), koc.data_ptr(),
+        x.data_ptr(), int(nchw), xt.data_ptr(), kocs.data_ptr(),
         boc.data_ptr(), taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(),
-        z.data_ptr(), w1m.data_ptr(), b1f.data_ptr(), c1.data_ptr(),
-        taps_b.data_ptr(), tapw_b.data_ptr(), r.data_ptr(), w2m.data_ptr(),
+        z.data_ptr(), w1s.data_ptr(), b1f.data_ptr(), c1.data_ptr(),
+        taps_b.data_ptr(), tapw_b.data_ptr(), r.data_ptr(), w2s.data_ptr(),
         b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(), out.data_ptr(), b,
         h0, w0, c, h1, w1, stream_handle(x.device)),
         "vrvg_head_tail_ext_f32")

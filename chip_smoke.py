@@ -2667,7 +2667,7 @@ KERNELS_F32 = {
                           f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
     "swiglu_residual_f32": ("cuda", f"{PKG}/csrc/swiglu_f32.cu",
                             f"{JAX_PKG}/ops/mlp_pallas.py:101"),
-    # The weights' TF32 split that rows 7-12 and 16 at f32 take (once per
+    # The weights' TF32 split that rows 5-12 and 16 at f32 take (once per
     # weight, at a path's first step), named with row 10's TPU kernel.
     "tf32x3_split": ("cuda", f"{PKG}/csrc/tf32x3_split.cu",
                      f"{JAX_PKG}/ops/mlp_pallas.py:101"),
@@ -2708,11 +2708,13 @@ AUTO_VITG_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                       "swiglu_residual_f32": 40, "warp_composite": 1,
                       "blur_select_sbs": 1}
 # The weight splits (tf32x3_split) of an auto path's first step at f32: two
-# a block whose MLP half is fused (vitb's 12 row 9 halves, vitg's 40 row 10
-# halves; vits auto leaves the MLP half unfused), the big-C tail's two
-# convs (rows 11 + 12 at vitb-518; vitg-518 auto takes cuDNN's tail) and
-# the ext tail's mix and two convs (row 7 at vits); later steps split none.
-AUTO_F32_SPLITS = {"vits": 3, "vitb": 26, "vitg": 80}
+# a block whose attention half is fused (qkv and proj, rows 5 and 6: vits'
+# and vitb's 12 blocks; vitg's D = 1536 is not attn_fusable), two a block
+# whose MLP half is fused (vitb's 12 row 9 halves, vitg's 40 row 10 halves;
+# vits auto leaves the MLP half unfused), the big-C tail's two convs (rows
+# 11 + 12 at vitb-518; vitg-518 auto takes cuDNN's tail) and the ext tail's
+# mix and two convs (row 7 at vits); later steps split none.
+AUTO_F32_SPLITS = {"vits": 24 + 3, "vitb": 24 + 24 + 2, "vitg": 80}
 # vitg-126 fused at f32 (1080p, B = 8, 40 blocks, 145 tokens): the same
 # encoder kernels, and the big-C tail at C = 384 at f32 (rows 11 + 12).
 VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
@@ -2856,8 +2858,8 @@ def f32_dense_check(name, got, want, tf32_want, feature_dims, *addends):
 
 
 def f32_exact_check(name, got, exact, plain, tf32_want, feature_dims,
-                    *addends):
-    """A kernel on the 3xTF32 core (rows 8, 9 and 10 at f32) within
+                    *addends, hold_mean=True):
+    """A kernel on the 3xTF32 core (rows 5-10 at f32) within
     F32_MAX_ULPS of its plain version evaluated on f64 operands (``exact``:
     its products and sums to f64, each elementwise step as the plain version
     has it), the TF32 result of the same operands refused by that bound
@@ -2867,7 +2869,8 @@ def f32_exact_check(name, got, exact, plain, tf32_want, feature_dims,
     vitg-518's gate, where the kernel is 54 off, on an NVIDIA H100), so a
     kernel that sums in another order than cuBLAS is not held to cuBLAS's
     own error. The kernel must be at least as close to the reference as
-    the f32 plain version on average."""
+    the f32 plain version on average (unless ``hold_mean`` is False: then
+    that comparison is only logged)."""
     stats = f32_dense_check(name, got, exact, tf32_want, feature_dims,
                             *addends)
     u_plain = f32_ulps(plain, exact, feature_dims, *addends)
@@ -2876,7 +2879,7 @@ def f32_exact_check(name, got, exact, plain, tf32_want, feature_dims,
                  plain_mean_ulps=u_plain.mean().item(),
                  vs_plain_max_ulps=u_got.max().item(),
                  vs_plain_mean_ulps=u_got.mean().item())
-    require(stats["mean_ulps"] <= stats["plain_mean_ulps"],
+    require(not hold_mean or stats["mean_ulps"] <= stats["plain_mean_ulps"],
             f"{name}: {json.dumps(stats)}: further from the f64 reference "
             f"on average than the f32 plain version")
     return stats
@@ -2975,6 +2978,47 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
                **bound_f32(nbytes(*args) + 4 * m * d, 2 * fc))
     log(f"kernel {label}: {json.dumps(res)}")
     return res
+
+
+def f32_qkv_check(label, args, got, hold_mean=True) -> dict:
+    """Row 5 at f32 (``got`` = ln_qkv(*args)): its product stage, on the LN
+    rows the chain's first launch writes (row 1's f32 kernel on the same
+    operands), by f32_exact_check (``hold_mean`` passed on) against
+    qkv_plain on f64 operands, the f32 plain stage (cuBLAS's sums) beside
+    it; the whole within F32_MAX_ULPS of ln_qkv_plain on f64 operands (its
+    LN torch's f32 one), the TF32 result refused. The scale takes in the
+    bias, q's scaled."""
+    from vr_video_generator_tpu_torch.ops.layernorm import layernorm
+    from vr_video_generator_tpu_torch.ops.qkv import ln_qkv_plain, qkv_plain
+
+    x, lnw, lnb, w, b, heads, scale = args
+    a = layernorm(x, lnw, lnb)
+    bias = b.reshape(3, heads, -1).clone()
+    bias[0] *= scale
+    stage = f32_exact_check(
+        f"{label} qkv", got, qkv_plain(*f64(a, w, b), heads, scale),
+        qkv_plain(a, w, b, heads, scale),
+        qkv_plain(a, tf32_round(w), b, heads, scale), 3, bias,
+        hold_mean=hold_mean)
+    del a
+    whole = f32_dense_check(
+        label, got, ln_qkv_plain(*f64(x, lnw, lnb, w, b), heads, scale),
+        ln_qkv_plain(x, lnw, lnb, tf32_round(w), b, heads, scale), 3, bias)
+    return dict(**stage, whole=whole)
+
+
+def f32_proj_check(label, args, got, hold_mean=True) -> dict:
+    """Row 6 at f32 (``got`` = proj_ls_residual(*args)) by f32_exact_check
+    (``hold_mean`` passed on) against proj_ls_residual_plain on f64
+    operands, the scale taking in the residual and gamma * b."""
+    from vr_video_generator_tpu_torch.ops.qkv import proj_ls_residual_plain
+
+    o, x, w, b, gamma = args
+    return f32_exact_check(
+        label, got, proj_ls_residual_plain(*f64(*args)),
+        proj_ls_residual_plain(*args),
+        proj_ls_residual_plain(o, x, tf32_round(w), b, gamma), 1, x,
+        gamma * b, hold_mean=hold_mean)
 
 
 def selection_sum(v):
@@ -3610,8 +3654,12 @@ def f32_kernel_parity(device) -> dict:
         del x, got, want, tfw
 
     # Rows 5 and 6 at vits' D = 384 and vitb-518's D = 768 (B = 8, 2443
-    # tokens); row 5's library call is the qkv product and bias alone (cuBLAS
-    # SGEMM through addmm) on the LayerNorm'd rows, row 6's the proj product.
+    # tokens) on the 3xTF32 core, held against the plain versions on f64
+    # operands (f32_qkv_check, f32_proj_check); row 5's library call is the
+    # qkv product and bias alone (cuBLAS SGEMM through addmm) on the
+    # LayerNorm'd rows, row 6's the proj product. The weights are split
+    # (their first call) before the timing, as a path's first step splits
+    # them.
     m = B * N_TOK
     for d in (DIM, DIM_B):
         tag = "" if d == DIM else f" D={d}"
@@ -3619,38 +3667,31 @@ def f32_kernel_parity(device) -> dict:
         lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
         w, b = randn(gen, (3 * d, d), d ** -0.5), randn(gen, (3 * d,), 0.5)
         args = (x, lnw, lnb, w, b, d // 64, scale)
-        got, want = ln_qkv(*args), ln_qkv_plain(*args)
-        with tf32(True):
-            tfw = ln_qkv_plain(*args)
+        got = ln_qkv(*args)
         torch.cuda.synchronize()
-        bias = b.reshape(3, d // 64, 64).clone()
-        bias[0] *= scale
         a2 = layernorm_plain(x, lnw, lnb).reshape(m, d)
         out[f"ln_qkv_f32{tag}"] = dict(
-            **f32_dense_check(f"ln_qkv_f32 D={d}", got, want, tfw, 3, bias),
+            **f32_qkv_check(f"ln_qkv_f32 D={d}", args, got),
             ms=event_ms(lambda: ln_qkv(*args)),
             plain_ms=event_ms(lambda: ln_qkv_plain(*args)),
             library_ms=event_ms(lambda: torch.addmm(b, a2, w.t())),
             **bound_f32(nbytes(x, lnw, lnb, w, b, got), 2 * m * d * 3 * d))
-        del got, want, tfw, a2
+        del got, a2
 
         o = randn(gen, (B, N_TOK, d // 64, 64))
         gp = randn(gen, (d,), 0.1, 1.0)
         wp, bp = randn(gen, (d, d), d ** -0.5), randn(gen, (d,), 0.5)
         args = (o, x, wp, bp, gp)
-        got, want = proj_ls_residual(*args), proj_ls_residual_plain(*args)
-        with tf32(True):
-            tfw = proj_ls_residual_plain(*args)
+        got = proj_ls_residual(*args)
         torch.cuda.synchronize()
         o2 = o.reshape(m, d)
         out[f"proj_ls_residual_f32{tag}"] = dict(
-            **f32_dense_check(f"proj_ls_residual_f32 D={d}", got, want, tfw,
-                              1, x, gp * bp),
+            **f32_proj_check(f"proj_ls_residual_f32 D={d}", args, got),
             ms=event_ms(lambda: proj_ls_residual(*args)),
             plain_ms=event_ms(lambda: proj_ls_residual_plain(*args)),
             library_ms=event_ms(lambda: torch.addmm(bp, o2, wp.t())),
             **bound_f32(nbytes(*args, got), 2 * m * d * d))
-        del o, x, got, want, tfw, o2
+        del o, x, got, o2
 
     # Rows 2 (vits: B = 8, N = 2443, 6 heads; vitg-518: 24 heads; q
     # pre-scaled) and 17 (vitl-728: B = 2, N = 4785, 16 heads; q unscaled)

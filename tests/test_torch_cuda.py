@@ -1378,33 +1378,59 @@ def test_layernorm_f32_kernel_matches_plain(cuda, rows, d):
                     layernorm_plain(tf32_round(x), w, b), 1, b)
 
 
-@pytest.mark.parametrize("b,n,d", [(1, 1, 384), (2, 37, 384), (8, 2443, 384),
-                                   (2, 131, 768), (1, 70, 128)])
-def test_ln_qkv_and_proj_f32_kernels_match_plain(cuda, b, n, d):
-    """Rows 5 and 6 at f32 on the f32 GEMM core: ragged row and column
-    tiles, vits' 1080p rows; within the f32 bound, which the TF32 product
-    of the same operands fails (the weights rounded to TF32: cuBLAS may run
-    a small product without TF32 whatever the flag says)."""
-    from chip_smoke import f32_dense_check, tf32_round
-
+def _qkv_proj_f32_args(cuda, b, n, d):
+    """Seeded operands of rows 5 and 6 at f32: ln_qkv's and
+    proj_ls_residual's arguments."""
     gen = torch.Generator(device=cuda).manual_seed(b * n + d)
     heads, scale = d // 64, 64 ** -0.5
     x = _randn(gen, (b, n, d), dtype=F32)
     args = (x, _randn(gen, (d,), 0.1, 1.0, F32), _randn(gen, (d,), 0.1, 0.0, F32),
             _randn(gen, (3 * d, d), d ** -0.5, dtype=F32),
             _randn(gen, (3 * d,), 0.5, dtype=F32), heads, scale)
-    tfw = ln_qkv_plain(*args[:3], tf32_round(args[3]), *args[4:])
-    bias = args[4].reshape(3, heads, 64).clone()
-    bias[0] *= scale
-    f32_dense_check("ln_qkv_f32", ln_qkv(*args), ln_qkv_plain(*args), tfw, 3,
-                    bias)
     o = _randn(gen, (b, n, heads, 64), dtype=F32)
-    w, bb = _randn(gen, (d, d), d ** -0.5, dtype=F32), _randn(gen, (d,), 0.5, dtype=F32)
-    gamma = _randn(gen, (d,), 0.1, 1.0, F32)
-    pargs = (o, x, w, bb, gamma)
-    tfw = proj_ls_residual_plain(o, x, tf32_round(w), bb, gamma)
-    f32_dense_check("proj_ls_residual_f32", proj_ls_residual(*pargs),
-                    proj_ls_residual_plain(*pargs), tfw, 1, x, gamma * bb)
+    pargs = (o, x, _randn(gen, (d, d), d ** -0.5, dtype=F32),
+             _randn(gen, (d,), 0.5, dtype=F32), _randn(gen, (d,), 0.1, 1.0, F32))
+    return args, pargs
+
+
+@pytest.mark.parametrize("b,n,d,hold_mean", [
+    (1, 1, 384, False), (2, 37, 384, True), (8, 2443, 384, True),
+    (2, 131, 768, True), (1, 70, 128, False)])
+def test_ln_qkv_and_proj_f32_kernels_match_plain(cuda, b, n, d, hold_mean):
+    """Rows 5 and 6 at f32 on the 3xTF32 core: ragged row tiles, vits'
+    1080p rows; within the f32 bound of the plain versions on f64 operands
+    (chip_smoke.f32_qkv_check, f32_proj_check: row 5's product stage on the
+    chain's own LN rows, the whole within the bound), and on average at
+    least as close to them as cuBLAS's f32 sums where ``hold_mean``; the
+    TF32 product of the same operands (the weights rounded to TF32: cuBLAS
+    may run a small product without TF32 whatever the flag says) fails the
+    bound. At one row and at K = 128 cuBLAS's f32 product (another kernel
+    at those shapes) is closer to f64 on average than the core's, whose
+    tensor-core sums truncate (row 5 at one row 2.02 against 1.38 mean
+    ulps, row 6 at 70 rows of K = 128 0.76 against 0.66, on an NVIDIA
+    H100): there the comparison is logged, not held."""
+    from chip_smoke import f32_proj_check, f32_qkv_check
+
+    args, pargs = _qkv_proj_f32_args(cuda, b, n, d)
+    f32_qkv_check("ln_qkv_f32", args, ln_qkv(*args), hold_mean)
+    f32_proj_check("proj_ls_residual_f32", pargs, proj_ls_residual(*pargs),
+                   hold_mean)
+
+
+def test_ln_qkv_and_proj_f32_split_each_weight_once(cuda):
+    """Rows 5 and 6 at f32 split their weight on the first call (one
+    tf32x3_split each) and not on the second on the same weights, which
+    gives the same output bit for bit."""
+    args, pargs = _qkv_proj_f32_args(cuda, 2, 37, 384)
+    for fn, a in ((ln_qkv, args), (proj_ls_residual, pargs)):
+        splits = []
+        outs = []
+        for _ in range(2):
+            before = launch_counts().get("tf32x3_split", 0)
+            outs.append(fn(*a))
+            splits.append(launch_counts()["tf32x3_split"] - before)
+        assert splits == [1, 0], (fn.__name__, splits)
+        assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("flash", [False, True], ids=["row2", "row17"])
@@ -1902,23 +1928,26 @@ def test_weights_split_before_step_many_capture(cuda):
 
 
 def test_tf32x3_gemm_kernels_hold_tf32_hgmma(cuda):
-    """Rows 8, 9 and 10 at f32, and row 7's out_conv mix, run their
+    """Rows 5, 6, 8, 9 and 10 at f32, and row 7's out_conv mix, run their
     products as wgmma with TF32 operands (3xTF32: twelve a stage), fed by
-    TMA: no FFMA main loop is left (the down products' and the mix's
-    kernels, whose epilogues have no transcendental, hold no FFMA at all;
-    fc1's and the gate's hold their GELU's and silu's)."""
+    TMA: no FFMA main loop is left (the qkv, proj, down products' and the
+    mix's kernels, whose epilogues have no transcendental, hold no FFMA at
+    all; fc1's and the gate's hold their GELU's and silu's)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts
 
     counts = {name: c for name, c in sass_counts(("tf32x3_gemm",)).items()
               if "gemm_kernel" in name}
     # mlp_f32.cu: BiasGelu exact and tanh, LayerScaleResidual; swiglu_f32.cu:
-    # SwigluGate, LayerScaleResidual; head_tail_big.cu: Store (row 7's mix).
-    assert len(counts) == 6, sorted(counts)
+    # SwigluGate, LayerScaleResidual; head_tail_big.cu: Store (row 7's mix);
+    # qkv_f32.cu: QkvScale (row 5), LayerScaleResidual (row 6).
+    assert len(counts) == 8, sorted(counts)
+    assert sum("QkvScale" in name for name in counts) == 1, sorted(counts)
     for name, c in counts.items():
         assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
             name, c)
         assert c["UTMALDG"] > 0, (name, c)
-        if "LayerScaleResidual" in name or "5Store" in name:
+        if any(k in name for k in ("LayerScaleResidual", "5Store",
+                                   "QkvScale")):
             assert c["FFMA"] == 0, (name, c)
 
 
@@ -2075,10 +2104,11 @@ def test_rcu_ext_f32_products_hold_tf32_hgmma(cuda):
 
 def test_vits_auto_f32_split_before_step_many_capture(cuda):
     """vits auto at f32 on a small frame (row 7's ext tail at C = 64), on a
-    new pipeline: step_many's eager step splits the ext tail's mix, conv1
-    and conv2 once (3 launches) before its capture; a replay runs row 7
-    once a step and splits nothing; two replays equal two eager steps bit
-    for bit; a second step_many splits nothing."""
+    new pipeline: step_many's eager step splits each block's qkv and proj
+    weights (rows 5 and 6) and the ext tail's mix, conv1 and conv2 once (24
+    + 3 launches) before its capture; a replay runs row 7 once a step and
+    splits nothing; two replays equal two eager steps bit for bit; a second
+    step_many splits nothing."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.kernels import reset_launch_counts
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
@@ -2092,7 +2122,7 @@ def test_vits_auto_f32_split_before_step_many_capture(cuda):
     st0 = pipe.initial_state()
     outs, st = pipe.step_many(frames, st0)
     torch.cuda.synchronize()
-    assert launch_counts()["tf32x3_split"] == 3
+    assert launch_counts()["tf32x3_split"] == 24 + 3
     per_replay = dict(pipe._graphs[(2, 2)].launches)
     assert per_replay.get("tf32x3_split", 0) == 0
     assert per_replay["head_tail_ext_f32"] == 2

@@ -2,23 +2,23 @@
 CPU under the host emulation of CUDA (tests/cuda_emu/cuda_runtime.h),
 against their plain versions.
 
-g++ compiles csrc/qkv_f32.cu (the f32 GEMM core of csrc/sgemm.cuh with row
-5's and row 6's epilogues) as it is, launches rewritten to the emulator's,
-and a unit that instantiates the core with the f32 DPT tail's operands
-(csrc/sconv.cuh: the 3x3 conv as an implicit GEMM, conv1's bias and
-bias-free stores, conv2's depth epilogue, and the tile each product takes
-by width) as vrvg_head_tail_f32 (row 15 at f32) calls them, and with the
-products the SIMT core keeps beside them (the dense product at N = 64 to
-384, the bias-free conv); the tail's passes (upsample, resize) are their
-plain versions around them. Each CUDA thread is a std::thread and each
-__syncthreads a barrier, so the tiles' indexing, the ragged edges and the
-double-buffered k slices run as written. Rows 2 and 17 at f32
-(csrc/attention_f32.cu), rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu and
-csrc/swiglu_f32.cu on the 3xTF32 core of csrc/tf32x3_gemm.cuh: TMA and
-wgmma, which the emulation has not), rows 11 and 12 at f32 (the same
-core's conv in csrc/head_tail_big.cu) and rows 7 and 16 at f32 (the same
-core, csrc/head_tail_big.cu and csrc/rcu_pair_f32.cu) are held on the CPU
-by tests/test_torch_attention_3xtf32.py, tests/test_torch_gemm_3xtf32.py,
+g++ compiles a unit that instantiates the f32 GEMM core of csrc/sgemm.cuh
+with the f32 DPT tail's operands (csrc/sconv.cuh: the 3x3 conv as an
+implicit GEMM, conv1's bias and bias-free stores, conv2's depth epilogue,
+and the tile each product takes by width) as vrvg_head_tail_f32 (row 15 at
+f32) calls them, and with the products the SIMT core keeps beside them
+(the dense product at N = 64 to 384, the bias-free conv), launches
+rewritten to the emulator's; the tail's passes (upsample, resize) are
+their plain versions around them. Each CUDA thread is a std::thread and
+each __syncthreads a barrier, so the tiles' indexing, the ragged edges and
+the double-buffered k slices run as written. Rows 2 and 17 at f32
+(csrc/attention_f32.cu), rows 5 and 6 at f32 (csrc/qkv_f32.cu) and rows 8,
+9 and 10 at f32 (csrc/mlp_f32.cu and csrc/swiglu_f32.cu on the 3xTF32 core
+of csrc/tf32x3_gemm.cuh: TMA and wgmma, which the emulation has not), rows
+11 and 12 at f32 (the same core's conv in csrc/head_tail_big.cu) and rows
+7 and 16 at f32 (the same core, csrc/head_tail_big.cu and
+csrc/rcu_pair_f32.cu) are held on the CPU by
+tests/test_torch_attention_3xtf32.py, tests/test_torch_gemm_3xtf32.py,
 tests/test_torch_conv_3xtf32.py and tests/test_torch_conv_3xtf32_rcu_ext.py.
 The plain versions sum in another order, so each output is held to a bound
 in f32 ulps of its scale (the f32 sums' reordering: a few ulps; a TF32
@@ -37,14 +37,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
+from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR
 from vr_video_generator_tpu_torch.ops import head_tail as ht
 from vr_video_generator_tpu_torch.ops.head_tail import (big_conv2_plain,
                                                         conv3x3_gemm_weights,
                                                         ext_conv1_plain,
                                                         ext_mix_plain)
-from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual_plain,
-                                                  qkv_plain)
 
 torch.set_num_threads(2)
 
@@ -60,12 +58,6 @@ static unsigned char* shared_memory() { return smem; }
 #include "%s"
 %s
 """
-# qkv_f32.cu's chain calls row 1's f32 LayerNorm (csrc/layernorm.cu, warp
-# shuffles, not emulated); this stand-in reports an error, which the chain
-# must pass on.
-LN_STUB = """extern "C" int vrvg_layernorm_f32(const void*, const void*,
-                                  const void*, void*, int, int, float,
-                                  void*) { return 77; }"""
 # The SIMT core's tail products on fixed tiles: a dense product on Tall64,
 # conv1 + b1 and conv2 with the 1x1 on Rows32 (row 15's at C = 64).
 TAIL_ENTRIES = """
@@ -120,8 +112,7 @@ extern "C" int emu_conv2_depth_n_f32(const float* r, const float* w2,
                             nullptr);
 }
 """
-UNITS = {"qkv_f32.cu": ("", "qkv_f32.cu", LN_STUB),
-         "tail_f32.cpp": ("", "sconv.cuh", TAIL_ENTRIES)}
+UNITS = {"tail_f32.cpp": ("", "sconv.cuh", TAIL_ENTRIES)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EMU_SIGNATURES = {
     "emu_mix_f32": [_P, _P, _P, _I, _I],
@@ -145,12 +136,11 @@ def emulated(text: str) -> str:
 
 def _build(tmp, units, entries, name):
     """g++ the emulated sources and ``units`` ({file: (pre, include, post)})
-    into one library; bind ``entries`` (SIGNATURES' and EMU_SIGNATURES')."""
+    into one library; bind ``entries`` (EMU_SIGNATURES')."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
-    for src in ("gelu_as.cuh", "epilogue_f32.cuh", "sgemm.cuh", "sconv.cuh",
-                "qkv_f32.cu"):
+    for src in ("gelu_as.cuh", "epilogue_f32.cuh", "sgemm.cuh", "sconv.cuh"):
         (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     paths = []
     for unit, (pre, inc, post) in units.items():
@@ -165,7 +155,7 @@ def _build(tmp, units, entries, name):
     assert proc.returncode == 0, proc.stderr[-4000:]
     emu = ctypes.CDLL(str(so))
     for entry in entries:
-        getattr(emu, entry).argtypes = {**SIGNATURES, **EMU_SIGNATURES}[entry]
+        getattr(emu, entry).argtypes = EMU_SIGNATURES[entry]
         getattr(emu, entry).restype = ctypes.c_int
     return emu
 
@@ -173,9 +163,7 @@ def _build(tmp, units, entries, name):
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("cuda_emu_f32"), UNITS,
-                  ("vrvg_qkv_f32", "vrvg_ln_qkv_f32",
-                   "vrvg_proj_ls_residual_f32", *EMU_SIGNATURES),
-                  "libemu_f32.so")
+                  EMU_SIGNATURES, "libemu_f32.so")
 
 
 def f32_ulps(got, want, *addends):
@@ -195,50 +183,6 @@ def f32_ulps(got, want, *addends):
 def randn(rng, shape, scale=1.0, shift=0.0):
     return torch.from_numpy(
         (rng.standard_normal(shape) * scale + shift).astype(np.float32))
-
-
-@pytest.mark.parametrize("m,d", [(300, 128), (130, 192)])
-def test_qkv_stage_source(lib, m, d):
-    """Row 5's GEMM stage (QkvF32 on the core's 128 x 128 tiles): ragged last
-    row tile, and at D = 192 a ragged last column tile (3D = 576)."""
-    rng = np.random.default_rng(m + d)
-    a = randn(rng, (1, m, d))
-    w, b = randn(rng, (3 * d, d), d ** -0.5), randn(rng, (3 * d,), 0.5)
-    heads, scale = d // 64, 64 ** -0.5
-    out = torch.empty((1, m, 3, heads, 64))
-    assert lib.vrvg_qkv_f32(a.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            out.data_ptr(), m, d, scale, None) == 0
-    want = qkv_plain(a, w, b, heads, scale)
-    bias = b.reshape(3, heads, 64).clone()
-    bias[0] *= scale
-    assert f32_ulps(out, want, bias).max() <= MAX_ULPS
-
-
-def test_ln_qkv_chain_passes_on_the_layernorm_error(lib):
-    """The chain returns its LayerNorm's error and runs no product."""
-    m, d = 8, 128
-    x = torch.zeros((m, d))
-    out = torch.full((m, 3 * d), 5.0)
-    err = lib.vrvg_ln_qkv_f32(x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                              x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                              out.data_ptr(), m, d, 1.0, 1e-6, None)
-    assert err == 77 and bool((out == 5.0).all())
-
-
-@pytest.mark.parametrize("m,d", [(300, 128), (77, 384)])
-def test_proj_source(lib, m, d):
-    """Row 6 (ProjF32: + bias, LayerScale, the residual) on the core."""
-    rng = np.random.default_rng(7 * m + d)
-    o = randn(rng, (1, m, d // 64, 64))
-    x = randn(rng, (1, m, d))
-    w, b = randn(rng, (d, d), d ** -0.5), randn(rng, (d,), 0.5)
-    gamma = randn(rng, (d,), 0.1, 1.0)
-    out = torch.empty_like(x)
-    assert lib.vrvg_proj_ls_residual_f32(
-        o.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        gamma.data_ptr(), out.data_ptr(), m, d, None) == 0
-    want = proj_ls_residual_plain(o, x, w, b, gamma)
-    assert f32_ulps(out, want, x, gamma * b).max() <= MAX_ULPS
 
 
 def test_mix_source(lib):
@@ -303,8 +247,8 @@ def test_conv2_depth_source(lib):
 @pytest.mark.parametrize("c", [128, 384])
 def test_mix_by_width_source(lib, c):
     """The SIMT core's dense product on the tile gemm_n picks for N above
-    64 (Square, 128 x 128, rows 5's and 6's tile: at C = 384 three column
-    tiles), an out_conv mix against ext_mix_plain."""
+    64 (Square, 128 x 128: at C = 384 three column tiles), an out_conv mix
+    against ext_mix_plain."""
     rng = np.random.default_rng(c)
     x = randn(rng, (1, 9, 15, c))
     koc = randn(rng, (c, c, 1, 1), c ** -0.5)

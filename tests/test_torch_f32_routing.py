@@ -427,9 +427,9 @@ CALLS = {
 
 # The weights each f32 chain on the 3xTF32 core splits first (fresh weights
 # here: nothing is kept from an earlier call), one vrvg_tf32x3_split each:
-# rows 8, 9 and 10's two products, rows 11 and 12's two convs, row 7's mix
-# and two convs, row 16's conv.
-SPLITS = {"mlp_residual": 2, "mlp_residual_tanh": 2,
+# rows 5 and 6's product, rows 8, 9 and 10's two products, rows 11 and 12's
+# two convs, row 7's mix and two convs, row 16's conv.
+SPLITS = {"ln_qkv": 1, "proj_ls_residual": 1, "mlp_residual": 2, "mlp_residual_tanh": 2,
           "mlp_residual_hblocked": 2, "mlp_residual_hblocked_tanh": 2,
           "fc1_gelu": 1, "swiglu_residual": 2, "swiglu_gate": 1,
           "head_tail_big_front": 2, "conv3x3": 1, "head_tail_ext": 3,
@@ -440,9 +440,8 @@ SPLITS = {"mlp_residual": 2, "mlp_residual_tanh": 2,
 def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
     """An f32 tensor on the card goes to its wrapper's f32 entry point, once,
     and counts on the f32 counter, never on the bf16 one (the case's name,
-    where the kernel has one); it never reaches the plain version. Rows 7,
-    8, 9, 10, 11, 12 and 16 split each weight on the card first
-    (vrvg_tf32x3_split)."""
+    where the kernel has one); it never reaches the plain version. Rows
+    5-12 and 16 split each weight on the card first (vrvg_tf32x3_split)."""
     call, entry, counter = CALLS[name]
     before = launch_counts()
     call()

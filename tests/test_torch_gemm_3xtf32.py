@@ -1,6 +1,6 @@
-"""PyTorch port, rows 8, 9 and 10 at f32 on the 3xTF32 wgmma GEMM core
-(csrc/tf32x3_gemm.cuh, csrc/mlp_f32.cu, csrc/swiglu_f32.cu): its arithmetic,
-on the CPU.
+"""PyTorch port, rows 5, 6, 8, 9 and 10 at f32 on the 3xTF32 wgmma GEMM
+core (csrc/tf32x3_gemm.cuh, csrc/qkv_f32.cu, csrc/mlp_f32.cu,
+csrc/swiglu_f32.cu): its arithmetic, on the CPU.
 
 The kernels (TMA, mbarriers, wgmma) run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 8). What they compute is
@@ -14,14 +14,16 @@ held here:
     first, then hi.hi, each added to the accumulator and truncated to f32
     as the tensor core's f32 sum is; that sum added into f32 running sums) stays within chip_smoke.py's f32 bound (F32_MAX_ULPS, its
     f32_exact_check) of the plain stages evaluated on f64 operands and of
-    the f32 plain stages, for row 10 at D = 1536, H = 4096 and rows 8 and 9
-    at D = 384, 768 and 1024, each product at its full K on 256 rows and 64
-    of its columns (columns are independent sums);
+    the f32 plain stages, for row 10 at D = 1536, H = 4096, rows 8 and 9
+    at D = 384, 768 and 1024 and rows 5 and 6 at D = 384 and 768, each
+    product at its full K on 256 rows and 64 of its columns (columns are
+    independent sums; row 5's 32 of q's and 32 of k's);
 (c) the same model on TF32 operands (one product, no lo) fails that bound;
 (d) the model's chains (row 1's LN plain, the products by the model, the
     epilogues by csrc/epilogue_f32.cuh built with g++) hold against the JAX
-    package's mlp_residual_pallas and swiglu_residual_pallas at f32 in
-    interpret mode, at small widths, within those tests' f32 bounds;
+    package's mlp_residual_pallas, swiglu_residual_pallas, ln_qkv_pallas
+    and proj_ls_residual_pallas at f32 in interpret mode, at small widths,
+    within those tests' f32 bounds;
 (e) the wgmma m64n128 accumulator hands a thread columns c and c + 64,
     which the gated planes fill with x1 and x2 of one hidden column, the
     column SwigluGate stores (and not without the permutation);
@@ -47,10 +49,14 @@ from chip_smoke import (F32_MAX_ULPS, f32_exact_check, f32_ulps, f64,
 from tests.test_torch_attention_3xtf32 import _patterns
 from vr_video_generator_tpu.ops.mlp_pallas import (mlp_residual_pallas,
                                                    swiglu_residual_pallas)
+from vr_video_generator_tpu.ops.qkv_pallas import (ln_qkv_pallas,
+                                                   proj_ls_residual_pallas)
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR
 from vr_video_generator_tpu_torch.ops import mlp
 from vr_video_generator_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+from vr_video_generator_tpu_torch.ops.qkv import (proj_ls_residual_plain,
+                                                  qkv_plain)
 
 torch.set_num_threads(2)
 torch.set_grad_enabled(False)
@@ -90,6 +96,12 @@ extern "C" void ls_residual_many(const float* s, const float* b,
     out[i] = vrvg::ls_residual_f32(s[i], b[i], g[i], x[i]);
   }
 }
+extern "C" void qkv_many(const float* s, const float* b, const float* q,
+                         float* out, long n, float scale) {
+  for (long i = 0; i < n; ++i) {
+    out[i] = vrvg::qkv_f32(s[i], b[i], scale, q[i] != 0.f);
+  }
+}
 extern "C" void swiglu_gate_many(const float* s1, const float* b1,
                                  const float* s2, const float* b2, float* out,
                                  long n) {
@@ -122,8 +134,9 @@ def lib(tmp_path_factory):
     out.bias_gelu_many.argtypes = [P, P, P, L, I]
     out.ls_residual_many.argtypes = [P] * 5 + [L]
     out.swiglu_gate_many.argtypes = [P] * 5 + [L]
+    out.qkv_many.argtypes = [P] * 4 + [L, ctypes.c_float]
     for fn in (out.split_many, out.bias_gelu_many, out.ls_residual_many,
-               out.swiglu_gate_many):
+               out.swiglu_gate_many, out.qkv_many):
         fn.restype = None
     return out
 
@@ -137,7 +150,8 @@ def elementwise(lib, name, *tensors, **kw):
     ts = [t.contiguous().float() for t in tensors]
     out = torch.empty_like(ts[0])
     fn = getattr(lib, name)
-    extra = (int(kw["tanh"]),) if "tanh" in kw else ()
+    extra = ((int(kw["tanh"]),) if "tanh" in kw
+             else (kw["scale"],) if "scale" in kw else ())
     fn(*map(_ptr, ts), _ptr(out), ts[0].numel(), *extra)
     return out
 
@@ -189,11 +203,14 @@ def seeded(rng, shape, scale=1.0, shift=0.0):
 
 ROWS, COLS = 256, 64  # of each product, at its full K
 
-# (label, D, K, stage): the products of rows 8 and 9 (fc1: K = D; fc2: K =
-# 4D) at vits', vitb's and vitl's widths, and row 10's gate (K = 1536) and
-# down product (K = 4096).
+# (stage, D): the products of rows 8 and 9 (fc1: K = D; fc2: K = 4D) at
+# vits', vitb's and vitl's widths, row 10's gate (K = 1536) and down
+# product (K = 4096), and rows 5 and 6 (qkv, proj: K = D) at vits' and
+# vitb's, where the JAX package fuses the attention half at f32.
 CASES = [("fc1", 384), ("fc2", 384), ("fc1", 768), ("fc2", 768),
-         ("fc1", 1024), ("fc2", 1024), ("gate", 1536), ("down", 1536)]
+         ("fc1", 1024), ("fc2", 1024), ("gate", 1536), ("down", 1536),
+         ("qkv", 384), ("qkv", 768), ("proj", 384), ("proj", 768)]
+SCALE = 64 ** -0.5  # q's scale at head dim 64
 IDS = [f"{stage} D={d}" for stage, d in CASES]
 
 
@@ -203,6 +220,10 @@ def stage_case(lib, stage: str, d: int, products="3xtf32"):
     version, by the f32 plain version with the weight rounded to TF32, the
     scale's addends)."""
     rng = np.random.default_rng(sum(map(ord, stage)) + d)
+    if stage == "qkv":
+        return qkv_case(lib, rng, d, products)
+    if stage == "proj":
+        return proj_case(lib, rng, d, products)
     if stage == "fc1":
         a = seeded(rng, (ROWS, d), 1.0)
         w, b = seeded(rng, (COLS, d), d ** -0.5), seeded(rng, (COLS,), 0.5)
@@ -245,6 +266,48 @@ def stage_case(lib, stage: str, d: int, products="3xtf32"):
             mlp.swiglu_gate_plain(h, *sub),
             mlp.swiglu_gate_plain(h, tf32_round(sub[0]), sub[1]),
             ((t[:, :COLS // 2] * t[:, COLS // 2:]).abs(),))
+
+
+def qkv_case(lib, rng, d: int, products: str):
+    """Row 5's product stage (the qkv product + bias, q scaled) on
+    LayerNorm'd rows, 32 of q's columns and 32 of k's; the references
+    qkv_plain's on all 3D columns."""
+    heads = d // 64
+    a = seeded(rng, (ROWS, d), 1.0)
+    w, b = seeded(rng, (3 * d, d), d ** -0.5), seeded(rng, (3 * d,), 0.5)
+    cols = torch.cat([torch.arange(COLS // 2), d + torch.arange(COLS // 2)])
+    is_q = (cols < d).float()
+    sums = core_sums(a, mlp.tf32x3_weight_plain(w[cols]), products)[:, :COLS]
+    got = elementwise(lib, "qkv_many", sums, b[cols].expand_as(sums),
+                      is_q.expand_as(sums), scale=SCALE)
+
+    def picked(*args):
+        t = qkv_plain(args[0].reshape(1, ROWS, d), *args[1:], heads, SCALE)
+        return t.reshape(ROWS, 3 * d)[:, cols]
+
+    bias = torch.where(is_q > 0, b[cols] * SCALE, b[cols])
+    return (got, picked(*f64(a, w, b)), picked(a, w, b),
+            picked(a, tf32_round(w), b), (bias,))
+
+
+def proj_case(lib, rng, d: int, products: str):
+    """Row 6 (the proj product + bias, LayerScale, the residual) on the
+    attention output's rows, its first 64 columns; the references
+    proj_ls_residual_plain's on all D columns."""
+    o = seeded(rng, (ROWS, d), 1.0)
+    w, b = seeded(rng, (d, d), d ** -0.5), seeded(rng, (d,), 0.5)
+    g, x = seeded(rng, (d,), 0.1, 1.0), seeded(rng, (ROWS, d))
+    sums = core_sums(o, mlp.tf32x3_weight_plain(w[:COLS]), products)[:, :COLS]
+    got = elementwise(lib, "ls_residual_many", sums, b[:COLS].expand_as(sums),
+                      g[:COLS].expand_as(sums), x[:, :COLS])
+
+    def picked(o, x, w, b, g):
+        return proj_ls_residual_plain(o.reshape(1, ROWS, d // 64, 64),
+                                      x.reshape(1, ROWS, d), w, b,
+                                      g).reshape(ROWS, d)[:, :COLS]
+
+    return (got, picked(*f64(o, x, w, b, g)), picked(o, x, w, b, g),
+            picked(o, x, tf32_round(w), b, g), (x[:, :COLS], (g * b)[:COLS]))
 
 
 # --- (a) the split -----------------------------------------------------------
@@ -403,6 +466,65 @@ def test_model_chain_matches_pallas_interpret(lib, half, d, m, approx):
         assert (got - ref).abs().max().item() <= 2e-5
 
 
+def model_ln_qkv(lib, x, lnw, lnb, w, b, heads, scale):
+    """Row 5 at f32 as csrc/qkv_f32.cu chains it: LN, then the qkv product
+    on the core, + b, q's columns (below D) times scale (the g++
+    epilogue): (B, N, 3, heads, 64)."""
+    bsz, n, d = x.shape
+    t = core_sums(layernorm_plain(x, lnw, lnb).reshape(-1, d),
+                  mlp.tf32x3_weight_plain(w))[:, :3 * d]
+    is_q = (torch.arange(3 * d) < d).float()
+    out = elementwise(lib, "qkv_many", t, b.expand_as(t), is_q.expand_as(t),
+                      scale=scale)
+    return out.reshape(bsz, n, 3, heads, d // heads)
+
+
+def model_proj(lib, o, x, w, b, gamma):
+    """Row 6 at f32 as csrc/qkv_f32.cu runs it: the proj product of the
+    attention output (B, N, H, 64) on the core, + b, LayerScale, residual."""
+    d = x.shape[-1]
+    y = core_sums(o.reshape(-1, d), mlp.tf32x3_weight_plain(w))[:, :d]
+    xs = x.reshape(-1, d)
+    return elementwise(lib, "ls_residual_many", y, b.expand_as(y),
+                       gamma.expand_as(y), xs).reshape(x.shape)
+
+
+@pytest.mark.parametrize("row", [5, 6])
+def test_model_qkv_chains_match_pallas_interpret(lib, row):
+    """(d) Rows 5 and 6 at f32, D = 128 (2 heads), as the model chains them,
+    against ln_qkv_pallas (q, k, v in its (B, H, N_pad, 64) layout, pads
+    dropped) and proj_ls_residual_pallas in interpret mode within 2e-5 (the
+    JAX tests' f32 bound); N = 100, not a multiple of a token block."""
+    d, heads, bsz, n = 128, 2, 2, 100
+    rng = np.random.default_rng(row + d)
+    x = rng.standard_normal((bsz, n, d)).astype(np.float32)
+    if row == 5:
+        lnw = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+        lnb = (0.1 * rng.standard_normal(d)).astype(np.float32)
+        w = (rng.standard_normal((3 * d, d)) * d ** -0.5).astype(np.float32)
+        b = (0.1 * rng.standard_normal(3 * d)).astype(np.float32)
+        qt, kt, vt = ln_qkv_pallas(*(jnp.asarray(v) for v in (
+            x, lnw, lnb, np.ascontiguousarray(w.T), b)), heads, SCALE,
+            interpret=True)
+        ref = torch.from_numpy(np.stack(
+            [np.asarray(t)[:, :, :n].transpose(0, 2, 1, 3)
+             for t in (qt, kt, vt)], axis=2))
+        got = model_ln_qkv(lib, *map(torch.from_numpy, (x, lnw, lnb, w, b)),
+                           heads, SCALE)
+    else:
+        o = rng.standard_normal((bsz, n, heads, 64)).astype(np.float32)
+        w = (rng.standard_normal((d, d)) * d ** -0.5).astype(np.float32)
+        b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+        gamma = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+        ref = torch.from_numpy(np.array(proj_ls_residual_pallas(*(
+            jnp.asarray(v) for v in (np.ascontiguousarray(
+                o.transpose(0, 2, 1, 3)), x, np.ascontiguousarray(w.T), b,
+                gamma)), interpret=True)))
+        got = model_proj(lib, *map(torch.from_numpy, (o, x, w, b, gamma)))
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 2e-5
+
+
 # --- (e) the accumulator's columns and the gated planes ----------------------
 
 def accumulator_columns(thread: int):
@@ -449,12 +571,13 @@ def ulps_of(got, want, size):
 
 
 @pytest.mark.parametrize("kind", ["gelu", "gelu tanh", "ls_residual",
-                                  "swiglu_gate"])
+                                  "swiglu_gate", "qkv"])
 def test_epilogue_functions_match_plain(lib, kind):
     """(f) csrc/epilogue_f32.cuh's functions (g++, the host's expf and
     tanhf) against the plain versions on seeded values: LayerScale and the
-    residual bit for bit (rounded adds and products only); the GELUs and
-    the gate within 2 f32 ulps of their operands' scale (expf, tanhf)."""
+    residual and row 5's + bias, q times scale bit for bit (rounded adds and
+    products only); the GELUs and the gate within 2 f32 ulps of their
+    operands' scale (expf, tanhf)."""
     rng = np.random.default_rng(len(kind))
     s, b = seeded(rng, (4096,), 3.0), seeded(rng, (4096,), 0.5)
     if kind.startswith("gelu"):
@@ -467,6 +590,10 @@ def test_epilogue_functions_match_plain(lib, kind):
         g, x = seeded(rng, (4096,), 0.1, 1.0), seeded(rng, (4096,))
         got = elementwise(lib, "ls_residual_many", s, b, g, x)
         assert torch.equal(got, x + g * (s + b))
+    elif kind == "qkv":
+        is_q = (torch.arange(4096) % 3 == 0).float()
+        got = elementwise(lib, "qkv_many", s, b, is_q, scale=0.1)
+        assert torch.equal(got, torch.where(is_q > 0, (s + b) * 0.1, s + b))
     else:
         s2, b2 = seeded(rng, (4096,), 3.0), seeded(rng, (4096,), 0.5)
         got = elementwise(lib, "swiglu_gate_many", s, b, s2, b2)

@@ -1,7 +1,7 @@
 // The per-element arithmetic of the f32 GEMM epilogues, one function per
 // epilogue, called by both f32 GEMM cores: the SIMT core (csrc/sgemm.cuh,
-// rows 5, 6 and 15 at f32) and the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh,
-// rows 7, 8, 9, 10, 11, 12 and 16 at f32). Each takes a product's f32 sum
+// row 15 at f32) and the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh, rows 5,
+// 6, 7, 8, 9, 10, 11, 12 and 16 at f32). Each takes a product's f32 sum
 // and rounds every operation on its own (no FMA, no fast math), at the JAX
 // package's f32 rounding points, so the two cores and the CPU emulation
 // (tests/cuda_emu/cuda_runtime.h, which g++ compiles this header under:
@@ -23,6 +23,14 @@ template <bool TANH>
 __device__ __forceinline__ float bias_gelu_f32(float s, float b) {
   const float t = __fadd_rn(s, b);
   return TANH ? gelu_tanh_f32(t) : gelu_as(t);
+}
+
+// s + b, then with is_q that times scale: row 5's epilogue at f32 (the qkv
+// product's sum + bias; q = f32(q) * scale, a no-op cast at f32).
+__device__ __forceinline__ float qkv_f32(float s, float b, float scale,
+                                         bool is_q) {
+  const float t = __fadd_rn(s, b);
+  return is_q ? __fmul_rn(t, scale) : t;
 }
 
 // x + gamma * (s + b): row 6's epilogue at f32 (proj + LayerScale +

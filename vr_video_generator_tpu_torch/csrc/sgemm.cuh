@@ -9,13 +9,12 @@
 // f32). So this core is bound by the card's f32 rate outside the tensor
 // cores, 67 TFLOP/s on an H100 SXM, about 1/15 of the bf16 one. 3xTF32,
 // each operand split into a TF32 head and tail and three tensor-core products
-// summed in f32, keeps f32 accuracy on the tensor cores: rows 7, 8, 9, 10,
-// 11, 12 and 16 at f32 run so (csrc/tf32x3_gemm.cuh); the rows left here (5,
-// 6 and 15) are next.
+// summed in f32, keeps f32 accuracy on the tensor cores: rows 5-12 and 16
+// at f32 run so (csrc/tf32x3_gemm.cuh); row 15, the one left here, is next.
 //
 // Design: the classic register-blocked SIMT product. A block of 256 threads
-// computes a BM x BN tile of C; each thread owns TM x TN outputs (8 x 8 for
-// the dense rows: 64 f32 accumulators), read as RM vectors of VM rows and RN
+// computes a BM x BN tile of C; each thread owns TM x TN outputs (8 x 8 on
+// the 128 x 128 tile: 64 f32 accumulators), read as RM vectors of VM rows and RN
 // vectors of 4 columns, BM / RM and BN / RN apart, so a warp's vector loads
 // from shared memory fall on distinct banks or broadcast. K is staged
 // through shared memory BK = 8 at a time, A and B tiles stored k-major
@@ -283,32 +282,7 @@ struct BiasStore {
   }
 };
 
-// out = x + gamma * (A B^T + bias), all (M, N) or (N,) f32: row 6's
-// epilogue at f32 (proj + LayerScale + residual; vrvg::ls_residual_f32),
-// each sum and product rounded on its own.
-struct LayerScaleResidual {
-  float* out;
-  const float* x;
-  const float* bias;
-  const float* gamma;
-  int n;
-  template <class T>
-  __device__ __forceinline__ void store(int row, int n0, int tx,
-                                        const float (&v)[T::TN]) const {
-    const long long base = (long long)row * n;
-    for_each4<T>(n0, tx, n, v, [&](int col, const float* s) {
-      const float4 b = ld4(bias + col), g = ld4(gamma + col);
-      const float4 r = ld4(x + base + col);
-      *reinterpret_cast<float4*>(out + base + col) = make_float4(
-          vrvg::ls_residual_f32(s[0], b.x, g.x, r.x),
-          vrvg::ls_residual_f32(s[1], b.y, g.y, r.y),
-          vrvg::ls_residual_f32(s[2], b.z, g.z, r.z),
-          vrvg::ls_residual_f32(s[3], b.w, g.w, r.w));
-    });
-  }
-};
-
-// The tiles: 128 x 128 (8 x 8 a thread) for the dense rows; 256 x 64 for N
+// The tiles: 128 x 128 (8 x 8 a thread) for N above 64; 256 x 64 for N
 // = 64 (row 15's conv1 at C = 128); 512 x 32 with a whole 32-column row a
 // thread for N = 32 (row 15's conv1 at C = 64 and conv2, whose depth
 // epilogue needs a pixel's 32 sums in one thread).

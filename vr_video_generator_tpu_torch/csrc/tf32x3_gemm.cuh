@@ -2,13 +2,13 @@
 // 3xTF32: C (M x N) = epilogue(A (M x K) B^T), A f32 (a row-major matrix, or
 // the im2col of an NHWC image read in place: a 3x3 convolution as an
 // implicit GEMM), B an nn.Linear weight (N, K) or a conv's (N, 9 C) given as
-// its TF32 split (split_kernel), sums f32, C f32. Rows 8, 9 and 10 at f32
-// (csrc/mlp_f32.cu, csrc/swiglu_f32.cu) run their products on it; rows 11
-// and 12 at f32 their two convs and row 7 at f32 its out_conv mix and two
-// convs (csrc/head_tail_big.cu, vrvg_head_tail_big_f32,
-// vrvg_head_tail_ext_f32); row 16 at f32 its four convs
-// (csrc/rcu_pair_f32.cu). Rows 5, 6 and 15 at f32 stay on the SIMT core of
-// csrc/sgemm.cuh for now.
+// its TF32 split (split_kernel), sums f32, C f32. Rows 5 and 6 at f32
+// (csrc/qkv_f32.cu) and rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu,
+// csrc/swiglu_f32.cu) run their products on it; rows 11 and 12 at f32 their
+// two convs and row 7 at f32 its out_conv mix and two convs
+// (csrc/head_tail_big.cu, vrvg_head_tail_big_f32, vrvg_head_tail_ext_f32);
+// row 16 at f32 its four convs (csrc/rcu_pair_f32.cu). Row 15 at f32 stays
+// on the SIMT core of csrc/sgemm.cuh for now.
 //
 // Why 3xTF32: wgmma takes no f32 operands, and TF32 keeps 10 mantissa bits.
 // Each operand x is the sum of two TF32 values hi + lo (csrc/tf32x3.cuh,
@@ -752,8 +752,29 @@ struct BiasGelu {
   }
 };
 
-// out (M, N) = x + gamma * (sums + bias): the down products' epilogue of
-// rows 8, 9 and 10 at f32 (vrvg::ls_residual_f32).
+// out (M, 3D) = [q * scale | k | v] with [q | k | v] = sums + bias: row 5's
+// epilogue at f32 (vrvg::qkv_f32), q's columns those below d. d is even, so
+// a pair of columns is all q or none. out is (B, N, 3, H, 64).
+struct QkvScale {
+  static constexpr bool GATED = false, ROW = false;
+  int n;  // 3D
+  float* out;
+  const float* bias;  // (3D,)
+  int d;
+  float scale;
+  __device__ __forceinline__ void store(int row, int col, float v0,
+                                        float v1) const {
+    const float2 b = ld2(bias + col);
+    const bool is_q = col < d;
+    *reinterpret_cast<float2*>(out + (long long)row * n + col) =
+        make_float2(qkv_f32(v0, b.x, scale, is_q),
+                    qkv_f32(v1, b.y, scale, is_q));
+  }
+};
+
+// out (M, N) = x + gamma * (sums + bias): row 6's epilogue at f32 (proj +
+// LayerScale + residual) and the down products' of rows 8, 9 and 10 at f32
+// (vrvg::ls_residual_f32).
 struct LayerScaleResidual {
   static constexpr bool GATED = false, ROW = false;
   int n;

@@ -9,6 +9,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
         [--rows 15] [--rows f32] [--rows f32:vits,f32:vitg-518]
         [--rows f32:tail-vitb-518,f32:tail-vitg-126]
         [--rows f32:ext-vits,f32:ext-vitb-252,f32:rcu-64,f32:rcu-128]
+        [--rows f32:ln,f32:qkv-vits,f32:qkv-vitb-518]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -102,7 +103,16 @@ its time; each output against its plain version, bit for bit. The rows
 call only the wrappers, so the file runs unchanged on an older tree.
 
 ``--rows f32``: the f32 variants (``--compute_dtype float32``), at 1080p,
-batch 8: rows 8 (vits' D = 384) and 9 (vitb-518's 768, vitl-518's 1024) on
+batch 8: row 1 (``f32:ln``) at ``chip_smoke.py`` phase 8's four shapes
+(vits' (19544, 384), vitl-728's (9570, 1024) and vitg-518's (4886, 1536)
+rows at batch 2, vitg-518's (19544, 1536)) beside ``F.layer_norm`` on f32,
+as row 1's bf16 measurement; rows 5 and 6 (``f32:qkv-<label>``: vits' D =
+384, vitb-518's 768) as one chain by stage (row 1's f32 LayerNorm, the qkv
+product + bias and q's scale, the proj product + bias, LayerScale and
+residual; on the 3xTF32 core, or an older tree's SIMT kernels found by
+their epilogues' names), each product stage's TFLOP/s and bound share
+beside cuBLAS's f32 ``torch.addmm`` of the same product (TF32 off); rows 8
+(vits' D = 384) and 9 (vitb-518's 768, vitl-518's 1024) on
 the 3xTF32 wgmma core of ``csrc/tf32x3_gemm.cuh`` by stage (row 1's f32
 LayerNorm, fc1 + b1 + GELU, fc2 + residual) and row 10 at vitg-518's
 (19544, 1536), hidden 4096, by stage (the LayerNorm, the gate + silu, the
@@ -123,7 +133,7 @@ f32 conv of one of them. On the f32 SIMT core of ``csrc/sgemm.cuh``: row
 15 at vits' and vitb's path1 (C = 64, 128) by stage (the transpose, the
 passes, the convs), against cuDNN's f32 convs (TF32 off). The stages and
 launches are found by kernel name on the SIMT core's kernels too, so an
-older tree's rows 7 and 16 are measured the same way. Each row: the device
+older tree's rows 5, 6, 7 and 16 are measured the same way. Each row: the device
 time by stage and its TFLOP/s or GB/s, the span, ``event_ms``, the error
 against the plain version and the bound at the card's f32-accurate rate
 (165 TFLOP/s: a third of its dense TF32 rate, as 3xTF32 takes three TF32
@@ -301,21 +311,24 @@ def timings(fn) -> dict:
                 idle_host_us=idle_host_us(fn), api_us=api)
 
 
-def ln_row(label: str, m: int, d: int) -> dict:
+def ln_row(label: str, m: int, d: int, f32: bool = False) -> dict:
+    """Row 1 at (m, d), on bf16 rows or with ``f32`` its f32 variant
+    (module docstring)."""
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
                                                              layernorm_plain)
 
+    dt = torch.float32 if f32 else torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(m + d)
-    x = (torch.randn(m, d, generator=gen, device="cuda") * 3 + 1).to(
-        torch.bfloat16)
+    x = (torch.randn(m, d, generator=gen, device="cuda") * 3 + 1).to(dt)
     w = torch.randn(d, generator=gen, device="cuda")
     b = torch.randn(d, generator=gen, device="cuda")
-    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    wb, bb = w.to(dt), b.to(dt)
     got, want = layernorm(x, w, b), layernorm_plain(x, w, b)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     moved = 2 * x.numel() * x.element_size() + 2 * d * 4
-    row = dict(row=1, label=label, M=m, D=d, max_abs_err=err.max().item(),
+    row = dict(row=1, label=f"{label} f32" if f32 else label, M=m, D=d,
+               max_abs_err=err.max().item(),
                frac_differ=(got != want).float().mean().item(),
                bound_us=moved / HBM_BYTES_PER_S * 1e6,
                kernel=timings(lambda: layernorm(x, w, b)),
@@ -878,6 +891,16 @@ F32_BIG_TAIL_SHAPES = {"vitb-518": F32_TAIL_SHAPES[0],
                        "vitg-518": (11, "vitg-518", 384, (148, 264),
                                     (518, 924))}
 F32_BASE_TAIL_SHAPES = BASE_TAIL_SHAPES  # row 15: vits' and vitb's path1
+# Rows 5 and 6 at f32 by label (f32:qkv-<label>): the paths that fuse the
+# attention half at f32, vits' D = 384 and vitb-518's D = 768, batch 8.
+F32_QKV_SHAPES = {"vits": ("vits", 19544, 384),
+                  "vitb-518": ("vitb-518", 19544, 768)}
+# Row 1 at f32 (f32:ln): chip_smoke.py phase 8's four shapes, vits' rows,
+# vitl-728's and vitg-518's at batch 2, and vitg-518's at batch 8.
+F32_LN_SHAPES = (("vits", 19544, 384, True),
+                 ("vitl-728 B=2", 9570, 1024, True),
+                 ("vitg-518 B=2", 4886, 1536, True),
+                 ("vitg-518", 19544, 1536, True))
 # Row 7 at f32 by label (f32:ext-<label>): vits' C = 64 (vits auto f32's
 # tail) and vitb-252's C = 128.
 F32_EXT_TAIL_SHAPES = {"vits": (7, "vits", 64, (148, 264), (518, 924)),
@@ -923,6 +946,66 @@ def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
                           (("BiasGelu", fc), ("LayerScaleResidual", fc)),
                           (("cublas_fc1", lambda: torch.addmm(b1, a, w1.t())),
                            ("cublas_fc2", lambda: torch.addmm(b2, h, w2.t()))))
+
+
+def f32_qkv_row(label: str, m: int, d: int) -> dict:
+    """Rows 5 and 6 at f32 (module docstring): one call of each, timed as a
+    chain."""
+    from vr_video_generator_tpu_torch.ops.qkv import (ln_qkv, ln_qkv_plain,
+                                                       proj_ls_residual,
+                                                       proj_ls_residual_plain)
+
+    f32, n = torch.float32, m // BATCH
+    randn = seeded(torch.Generator(device="cuda").manual_seed(m + 56 * d))
+    x = randn((BATCH, n, d), dtype=f32)
+    args = (x, randn((d,), 0.1, 1.0, f32), randn((d,), 0.1, 0.0, f32),
+            randn((3 * d, d), d ** -0.5, dtype=f32),
+            randn((3 * d,), 0.5, dtype=f32), d // 64, 64 ** -0.5)
+    pargs = (randn((BATCH, n, d // 64, 64), dtype=f32), x,
+             randn((d, d), d ** -0.5, dtype=f32), randn((d,), 0.5, dtype=f32),
+             randn((d,), 0.1, 1.0, f32))
+    errs = dict(
+        qkv_max_abs_err=(ln_qkv(*args) - ln_qkv_plain(*args)).abs().max()
+        .item(),
+        proj_max_abs_err=(proj_ls_residual(*pargs)
+                          - proj_ls_residual_plain(*pargs)).abs().max().item())
+    qkv, proj = 2 * m * d * 3 * d, 2 * m * d * d
+    moved = 4 * (m * d + 3 * d * d + 3 * d + 3 * m * d + 2 * d) \
+        + 4 * (3 * m * d + d * d + 2 * d)
+    row = dict(row="5+6", label=f"{label} f32", M=m, D=d, **errs,
+               bound_ms=max((qkv + proj) / F32_FLOP_PER_S,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+               kernel=timings(lambda: (ln_qkv(*args),
+                                       proj_ls_residual(*pargs))))
+    # The stages by kernel name: the 3xTF32 core's epilogues, or an older
+    # tree's SIMT ones (QkvF32; sgemm's LayerScaleResidual).
+    stages = (("ln", "layernorm", 8 * m * d, None, None),
+              ("qkv + bias, q scale", ("QkvScale", "QkvF32"), None, qkv,
+               qkv / F32_FLOP_PER_S),
+              ("proj + residual", ("LayerScaleResidual",), None, proj,
+               proj / F32_FLOP_PER_S))
+    k = row["kernel"]
+    us = stage_times(k["kernels"], [(name, key) for name, keys, _, _, _ in
+                                    stages for key in
+                                    ((keys,) if isinstance(keys, str)
+                                     else keys)])
+    k["stages_us"] = us
+    k["stage_rates"] = {
+        name: (dict(gb_s=b / us[name] * 1e-3) if b
+               else dict(tflops=f / us[name] * 1e-6,
+                         bound_share=t * 1e6 / us[name]))
+        for name, _, b, f, t in stages if us.get(name, 0) > 0}
+    a2 = randn((m, d), dtype=f32)
+    o2 = pargs[0].reshape(m, d)
+    w, b, wp, bp = args[3], args[4], pargs[2], pargs[3]
+    row["cublas_qkv"] = timings(lambda: torch.addmm(b, a2, w.t()))
+    row["cublas_proj"] = timings(lambda: torch.addmm(bp, o2, wp.t()))
+    for key, stage, f in (("cublas_qkv", "qkv + bias, q scale", qkv),
+                          ("cublas_proj", "proj + residual", proj)):
+        row[key]["tflops"] = f / row[key]["kernel_us"] * 1e-6
+        row[f"{key}_over"] = us.get(stage, 0.0) / row[key]["kernel_us"]
+    row["bound_share"] = row["bound_ms"] * 1e3 / k["kernel_us"]
+    return row
 
 
 def f32_tail_row(row: int, label: str, c: int, grid, out_hw) -> dict:
@@ -1182,6 +1265,9 @@ def jobs(wanted) -> list:
     tails = picked("tail", F32_BIG_TAIL_SHAPES) + picked("ext",
                                                         F32_EXT_TAIL_SHAPES)
     for name, shapes in (
+            ("ln_row", F32_LN_SHAPES if every or "ln" in labels else ()),
+            ("f32_qkv_row", list(F32_QKV_SHAPES.values()) if every
+             else picked("qkv", F32_QKV_SHAPES)),
             ("f32_mlp_row", [s for s in F32_MLP_SHAPES
                              if every or s[1] in labels]),
             ("f32_swiglu_row", [s for s in SWIGLU_SHAPES
@@ -1203,8 +1289,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", default="1,5,6,7,9,10,11,12",
                     help="which rows to measure (comma-separated: 1, 3, 4, "
                     "5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; 11 and 12 "
-                    "are measured together; f32: rows 7-12, 15 and 16 "
-                    "at f32; f32:<label> one f32 row of rows 8-10, "
+                    "are measured together; f32: rows 1 and 5-12, 15 "
+                    "and 16 at f32; f32:ln row 1 at f32; f32:qkv-<label> "
+                    "rows 5 and 6 at f32, label vits or vitb-518; "
+                    "f32:<label> one f32 row of rows 8-10, "
                     "f32:tail-<label> rows 11 + 12 at f32, label vitb-518, "
                     "vitg-126 or vitg-518; f32:ext-<label> row 7 at f32, "
                     "label vits or vitb-252; f32:rcu-<C> row 16 at f32, C "

@@ -22,9 +22,11 @@ LayerScale and residual in its epilogue.
 
 At f32 (``--compute_dtype float32``) both run their f32 variants
 (``csrc/qkv_f32.cu``, counted as ``ln_qkv_f32`` and
-``proj_ls_residual_f32``): row 1's f32 LayerNorm, then the f32 SIMT GEMM
-core of ``csrc/sgemm.cuh`` with the same epilogues in f32, where the JAX
-package plans the fused half at f32 (:func:`attn_fusable`).
+``proj_ls_residual_f32``), where the JAX package plans the fused half at f32
+(:func:`attn_fusable`): row 1's f32 LayerNorm, then the 3xTF32 wgmma GEMM
+core of ``csrc/tf32x3_gemm.cuh`` with the same epilogues in f32. That core
+takes each weight as its TF32 hi/lo split (``ops/mlp.tf32x3_weight``), made
+by a kernel once per weight and kept with it.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
+from vr_video_generator_tpu_torch.ops.mlp import tf32x3_weight
 
 LN_QKV_LAUNCHES = counter("ln_qkv")
 PROJ_LAUNCHES = counter("proj_ls_residual")
@@ -75,11 +78,12 @@ def qkv_plain(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, heads: int,
               scale: float) -> torch.Tensor:
     """Row 5's GEMM stage on LayerNorm'd rows ``a`` (B, N, D) -> (B, N, 3,
     heads, D / heads): the product cast to a's dtype, + bias in that dtype,
-    q's third scaled in f32 and cast back."""
+    q's third scaled in f32 (f64 stays f64) and cast back."""
     bsz, n, d = a.shape
     t = F.linear(a, w.to(a.dtype))
     t = (t + b.to(t.dtype)).reshape(bsz, n, 3, heads, d // heads)
-    q = (t[:, :, 0].float() * scale).to(t.dtype)
+    wide = torch.promote_types(t.dtype, torch.float32)
+    q = (t[:, :, 0].to(wide) * scale).to(t.dtype)
     return torch.stack([q, t[:, :, 1], t[:, :, 2]], dim=2)
 
 
@@ -121,7 +125,8 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
            eps: float = 1e-6) -> torch.Tensor:
     """(B, N, D) -> (B, N, 3, heads, 64): the plain version for CPU tensors,
     the kernel chain for CUDA tensors (bf16; f32 through the f32 variant,
-    weights and biases f32)."""
+    weights and biases f32, the weight split once by
+    :func:`~vr_video_generator_tpu_torch.ops.mlp.tf32x3_weight`)."""
     if not on_cuda(x, ln_w, ln_b, w, b):
         return ln_qkv_plain(x, ln_w, ln_b, w, b, heads, scale, eps)
     bsz, n, d = x.shape
@@ -134,11 +139,13 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _check("ln_qkv bias", b, (3 * d,), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    f32 = dt == torch.float32
+    if f32:  # the 3xTF32 core takes the weight split
+        w = tf32x3_weight(w)
     # Scratch of the chain: the LayerNorm'd rows.
     a = torch.empty_like(x)
     out = torch.empty((bsz, n, 3, heads, HEAD_DIM), dtype=x.dtype,
                       device=x.device)
-    f32 = dt == torch.float32
     entry = "vrvg_ln_qkv_f32" if f32 else "vrvg_ln_qkv"
     err = getattr(library(), entry)(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
@@ -153,7 +160,8 @@ def proj_ls_residual(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     """o (B, N, H, 64), x (B, N, D) -> x + gamma * (proj(o) + b): the plain
     version for CPU tensors, the kernel for CUDA tensors (bf16; f32 through
-    the f32 variant, every operand f32)."""
+    the f32 variant, every operand f32, the weight split once by
+    :func:`~vr_video_generator_tpu_torch.ops.mlp.tf32x3_weight`)."""
     if not on_cuda(o, x, w, b, gamma):
         return proj_ls_residual_plain(o, x, w, b, gamma)
     bsz, n, d = x.shape
@@ -168,6 +176,8 @@ def proj_ls_residual(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 
     out = torch.empty_like(x)
     f32 = dt == torch.float32
+    if f32:  # the 3xTF32 core takes the weight split
+        w = tf32x3_weight(w)
     entry = "vrvg_proj_ls_residual_f32" if f32 else "vrvg_proj_ls_residual"
     err = getattr(library(), entry)(
         o.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),

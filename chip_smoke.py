@@ -142,7 +142,7 @@ Phases, each fatal on failure:
      f32 path's; (c'') vitg-126 ``fused`` at f32 on the same weights, one
      batch: row 10 and rows 11 + 12 at C = 384; (c''') rows 15 and 16 at
      f32 called as a user calls them at C = 64 and 128, exactly their
-     kernels; (c)
+     kernels, and row 15 again on the same weights, which splits none; (c)
      vitl-518, vitg-518 and vitl-728 ``xla``/``xla`` at f32 (4 blocks,
      batch 2) through rows 1 and 2, or 1 and 17; (c') vits ``fused`` (row
      8), vitb-252 ``auto`` (row 7 at C = 128) and vitl-518 ``auto`` (4
@@ -2667,8 +2667,8 @@ KERNELS_F32 = {
                           f"{JAX_PKG}/ops/head_tail_pallas.py:480"),
     "swiglu_residual_f32": ("cuda", f"{PKG}/csrc/swiglu_f32.cu",
                             f"{JAX_PKG}/ops/mlp_pallas.py:101"),
-    # The weights' TF32 split that rows 5-12 and 16 at f32 take (once per
-    # weight, at a path's first step), named with row 10's TPU kernel.
+    # The weights' TF32 split that rows 5-12, 15 and 16 at f32 take (once
+    # per weight, at a path's first step), named with row 10's TPU kernel.
     "tf32x3_split": ("cuda", f"{PKG}/csrc/tf32x3_split.cu",
                      f"{JAX_PKG}/ops/mlp_pallas.py:101"),
     "head_tail_f32": ("cuda", f"{PKG}/csrc/head_tail_big.cu",
@@ -2722,11 +2722,12 @@ VITG_126_F32_STEP = {"layernorm_f32": 44, "attention_f32": 40,
                      "warp_composite": 1, "blur_select_sbs": 1}
 # Rows 15 and 16 at f32 called as a user calls them, one width at a time
 # (vits' C = 64, vitb's 128): the single-kernel tail on path1, and the RCU
-# pair feeding the ext tail, each on fresh weights: the RCU pair's four
-# convs and the ext tail's mix and two convs split once (7 tf32x3_split).
+# pair feeding the ext tail, each on fresh weights: the single-kernel
+# tail's two convs, the RCU pair's four and the ext tail's mix and two
+# convs split once (9 tf32x3_split).
 OFF_CLI_F32 = ("head_tail_f32", "rcu_pair_f32", "head_tail_ext_f32",
                "tf32x3_split")
-OFF_CLI_F32_SPLITS = 4 + 3
+OFF_CLI_F32_SPLITS = 2 + 4 + 3
 # The other fused f32 paths of phase 8 (c), one batch each: (label, encoder,
 # --input_size, mlp_fused = tail, blocks (None: all), batch, one step's
 # launches). vits fused runs row 8 at f32 (4.7 MB of f32 weights, resident)
@@ -3447,9 +3448,11 @@ def check_silu_f32(device) -> dict:
 def f32_base_tail_check(gen, c: int) -> dict:
     """Row 15 at f32 (vrvg_head_tail_f32), C = c, on path1 at vits' 1080p/518
     grid (B = 8, 296 x 528, an NCHW tensor seen as NHWC), depth 518 x 924,
-    stage by stage, each on the chain's own input: conv1 + b1 by the dense
-    f32 bound (refusing cuDNN's TF32 conv1), the resize pass in f32 ulps,
-    conv2 with the 1x1 relative to the depth's range, the whole depth
+    stage by stage, each on the chain's own input: conv1 + b1 and conv2
+    before its 1x1 (conv3x3_f32, the same conv on the 3xTF32 core) by
+    f32_exact_check against the product on f64 operands (cuDNN's f32 result
+    logged beside it, its TF32 result refused); the resize pass in f32
+    ulps; conv2 with the 1x1 relative to the depth's range; the whole depth
     against head_tail_plain (refusing it with TF32); the library time is
     cuDNN's two f32 convs (conv1 with its bias, conv2)."""
     import torch
@@ -3464,28 +3467,34 @@ def f32_base_tail_check(gen, c: int) -> dict:
     k1, b1, k2, b2, k3, b3 = wts
     label = f"head_tail_f32 C={c}"
     got = ht.head_tail_stages(x, *wts, OUT_HW)
-    c1 = ht.base_conv1_plain(x, k1, b1)
     with tf32(True):
         tf_c1 = ht.base_conv1_plain(x, k1, b1)
-    stages = dict(conv1=f32_dense_check(f"{label} conv1", got[0], c1, tf_c1,
-                                        1, b1))
-    del c1, tf_c1
+    stages = dict(conv1=f32_exact_check(
+        f"{label} conv1", got[0], conv3x3_f64(x, k1) + b1.double(),
+        ht.base_conv1_plain(x, k1, b1), tf_c1, 1, b1))
+    del tf_c1
     r = ht.ext_resize_plain(got[0], OUT_HW)
     stages["resize"] = dict(max_ulps=f32_ulps(got[1], r, 1).max().item())
     require(stages["resize"]["max_ulps"] <= F32_MAX_ULPS,
             f"{label} resize: {stages['resize']} over {F32_MAX_ULPS} f32 "
             f"ulps")
     del r
+    with tf32(True):
+        tf_c2 = ht.conv3x3_f32_plain(got[1], k2)
+    stages["conv2"] = f32_exact_check(
+        f"{label} conv2", ht.conv3x3_f32(got[1], k2), conv3x3_f64(got[1], k2),
+        ht.conv3x3_f32_plain(got[1], k2), tf_c2, 1)
+    del tf_c2
     depth = ht.big_conv2_plain(got[1], k2, b2, k3, b3)
     want = ht.head_tail_plain(x, *wts, OUT_HW)
     with tf32(True):
         tfw = ht.head_tail_plain(x, *wts, OUT_HW)
     torch.cuda.synchronize()
     span = (want.max() - want.min()).item()
-    stages["conv2"] = dict(max_rel_err=(got[2] - depth).abs().max().item()
+    stages["depth"] = dict(max_rel_err=(got[2] - depth).abs().max().item()
                            / span)
-    require(stages["conv2"]["max_rel_err"] <= TAIL_F32_MAX_REL,
-            f"{label} conv2: {stages['conv2']}")
+    require(stages["depth"]["max_rel_err"] <= TAIL_F32_MAX_REL,
+            f"{label} conv2 with the 1x1: {stages['depth']}")
     del depth
     xc = x.permute(0, 3, 1, 2)
     rc = got[1].permute(0, 3, 1, 2)
@@ -4167,7 +4176,9 @@ def f32_off_cli(device) -> dict:
     path1 (an NCHW tensor seen as NHWC) at vits' 1080p/518 grid, and the RCU
     pair feeding the ext tail on refinenet1's grid. Exactly OFF_CLI_F32
     must launch, the tail and the ext tail once, the RCU conv four times,
-    the split seven times (their fresh weights); the depths finite."""
+    the split OFF_CLI_F32_SPLITS times (their fresh weights); the depths
+    finite. Then the tail once more on the same weights: one launch of it
+    and no split."""
     import torch
 
     from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
@@ -4200,8 +4211,17 @@ def f32_off_cli(device) -> dict:
         require(bool(torch.isfinite(depth).all() & torch.isfinite(depth2).all())
                 and depth.shape == depth2.shape == (B, *OUT_HW),
                 f"{label}: depth {tuple(depth.shape)} {tuple(depth2.shape)}")
+        reset_launch_counts()
+        again = head_tail(path1, *tail[2:], OUT_HW)
+        torch.cuda.synchronize()
+        later = launch_counts()
+        log(f"{label}, the tail again: launch counts {json.dumps(later)}")
+        launched_exactly(f"{label}, the tail again", later, ("head_tail_f32",))
+        require(later["head_tail_f32"] == 1 and torch.equal(again, depth),
+                f"{label}, the tail again: launches {later}, depth equal "
+                f"{torch.equal(again, depth)}")
         out[f"C={c}"] = dict(seconds=secs, launches=counts)
-        del path1, rn0, path2, ws, depth, depth2
+        del path1, rn0, path2, ws, depth, depth2, again
         torch.cuda.empty_cache()
     return out
 

@@ -1,7 +1,8 @@
 // A host emulation of the CUDA runtime and device built-ins that the
-// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) and its f32
-// kernels (csrc/sgemm.cuh, csrc/qkv_f32.cu, csrc/attention_f32.cu) use, so g++
-// can compile those sources unchanged and run them on the CPU: every CUDA
+// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) use, and
+// that g++ needs to compile the f32 cores' host-and-device headers
+// (csrc/tf32x3.cuh, csrc/epilogue_f32.cuh), so g++ can compile those
+// sources unchanged and run them on the CPU: every CUDA
 // thread of a block is a std::thread, __syncthreads is a std::barrier,
 // blocks run one after another, and "device" pointers are host pointers
 // (CPU tensors); __syncwarp is a barrier of the thread's 32.

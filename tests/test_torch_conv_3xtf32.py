@@ -26,8 +26,7 @@ here, with g++ building the core's host-and-device headers as they are:
 (d) the quad gather of the ROW epilogue (tf32x3::acc_lane, acc_value)
     brings a row's columns to one thread in column order, at every tile
     width;
-(e) csrc/epilogue_f32.cuh's depth_out_f32 (the core's DepthOut) equals the
-    SIMT core's DepthOut (csrc/sconv.cuh, under tests/cuda_emu) and a
+(e) csrc/epilogue_f32.cuh's depth_out_f32 (the core's DepthOut) equals a
     sequential f32 model of big_conv2_plain's 1x1, bit for bit.
 Needs g++ (C++20).
 """
@@ -35,6 +34,7 @@ Needs g++ (C++20).
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,7 +42,6 @@ import torch
 import torch.nn.functional as F
 
 from chip_smoke import F32_MAX_ULPS, f32_exact_check, f32_ulps, f64, tf32_round
-from tests.test_torch_f32_emulation import EMU_DIR, emulated
 from tests.test_torch_gemm_3xtf32 import accumulator_columns, core_sums
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR
 from vr_video_generator_tpu_torch.ops import head_tail as ht
@@ -51,6 +50,7 @@ from vr_video_generator_tpu_torch.ops import mlp
 torch.set_num_threads(2)
 torch.set_grad_enabled(False)
 
+EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 P, R, CK = 32, 4, 32  # tf32x3::ConvTiles: pixels, rows, channels of a box
 UNIT = """#include <cuda_runtime.h>
 namespace {
@@ -60,7 +60,7 @@ namespace emu {
 static unsigned char* shared_memory() { return smem; }
 }
 #include "tf32x3.cuh"
-#include "sconv.cuh"
+#include "epilogue_f32.cuh"
 extern "C" int conv_tiles(int c, int h, int w, int batch) {
   return tf32x3::ConvTiles{c, h, w, batch}.tiles();
 }
@@ -83,23 +83,13 @@ extern "C" void split_many(const uint32_t* x, uint32_t* hi, uint32_t* lo,
     tf32x3::split(tf32x3::from_bits(x[i]), hi[i], lo[i]);
   }
 }
-// Each pixel's 32 sums s (n, 32) -> depth, by depth_out_f32 and by the SIMT
-// core's DepthOut (its Rows32 store, a pixel's row in one thread).
+// Each pixel's 32 sums s (n, 32) -> depth by depth_out_f32.
 extern "C" void depth_out_many(const float* s, const float* b2,
                                const float* w3, const float* b3, float* out,
                                long n) {
   for (long p = 0; p < n; ++p) {
     const float(&v)[32] = *reinterpret_cast<const float(*)[32]>(s + 32 * p);
     out[p] = vrvg::depth_out_f32(v, b2, w3, b3[0]);
-  }
-}
-extern "C" void simt_depth_out_many(const float* s, const float* b2,
-                                    const float* w3, const float* b3,
-                                    float* out, long n) {
-  const sgemm::DepthOut epi{out, b2, w3, b3};
-  for (long p = 0; p < n; ++p) {
-    const float(&v)[32] = *reinterpret_cast<const float(*)[32]>(s + 32 * p);
-    epi.store<sgemm::Rows32>((int)p, 0, 0, v);
   }
 }
 """
@@ -111,14 +101,11 @@ def lib(tmp_path_factory):
     if gxx is None:
         pytest.fail("g++ is needed to build csrc/tf32x3.cuh")
     tmp = tmp_path_factory.mktemp("conv_3xtf32")
-    for src in ("tf32x3.cuh", "gelu_as.cuh", "epilogue_f32.cuh", "sgemm.cuh",
-                "sconv.cuh"):
-        (tmp / src).write_text(emulated((CSRC_DIR / src).read_text()))
     (tmp / "unit.cpp").write_text(UNIT)
     so = tmp / "libconv_3xtf32.so"
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-ffp-contract=off", "-w", f"-I{tmp}", f"-I{EMU_DIR}",
+         "-ffp-contract=off", "-w", f"-I{CSRC_DIR}", f"-I{EMU_DIR}",
          str(tmp / "unit.cpp"), "-o", str(so)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -133,9 +120,8 @@ def lib(tmp_path_factory):
     out.acc_value.argtypes = [I, I]
     out.split_many.argtypes = [Pt, Pt, Pt, L]
     out.split_many.restype = None
-    for fn in (out.depth_out_many, out.simt_depth_out_many):
-        fn.argtypes = [Pt] * 5 + [L]
-        fn.restype = None
+    out.depth_out_many.argtypes = [Pt] * 5 + [L]
+    out.depth_out_many.restype = None
     return out
 
 
@@ -322,24 +308,22 @@ def test_quad_gather_keeps_the_column_order(lib, bn):
 
 @pytest.mark.parametrize("spread", [1.0, 30.0])
 def test_depth_out_matches_simt_and_sequential(lib, spread):
-    """(e) depth_out_f32 on a pixel's 32 sums equals the SIMT DepthOut's
-    store and a sequential f32 model (b2 + s, ReLU, w3 y added in channel
-    order from 0, + b3, ReLU) bit for bit; most pixels live, some ReLU'd
-    to 0."""
+    """(e) depth_out_f32 on a pixel's 32 sums equals a sequential f32 model
+    (b2 + s, ReLU, w3 y added in channel order from 0, + b3, ReLU) bit for
+    bit; most pixels live, some ReLU'd to 0."""
     rng = np.random.default_rng(int(spread))
     s = seeded(rng, (4096, 32), spread)
     b2, w3 = seeded(rng, (32,), 0.3, 0.2), seeded(rng, (32,), 0.3)
     b3 = torch.tensor([0.4])
-    got, simt = torch.empty(4096), torch.empty(4096)
+    got = torch.empty(4096)
     args = [t.data_ptr() for t in (s, b2, w3, b3)]
     lib.depth_out_many(*args, got.data_ptr(), 4096)
-    lib.simt_depth_out_many(*args, simt.data_ptr(), 4096)
     y = torch.relu(b2 + s).numpy()
     acc = np.zeros(4096, np.float32)
     for ch in range(32):
         acc = acc + y[:, ch] * w3.numpy()[ch]
     want = torch.relu(torch.from_numpy(acc) + b3)
-    assert torch.equal(got, simt) and torch.equal(got, want)
+    assert torch.equal(got, want)
     assert 0.1 < (got > 0).float().mean().item() < 1.0
     near = big_conv2_1x1(s, b2, w3, b3)
     assert (got - near).abs().max().item() <= 1e-5 * near.abs().max().item()

@@ -1727,27 +1727,58 @@ def test_swiglu_f32_silu_epilogue_bit_for_bit(cuda):
 
 @pytest.mark.parametrize("c,b,h2,w2", [(64, 2, 9, 14), (128, 1, 12, 20)])
 def test_head_tail_f32_kernel_matches_plain(cuda, c, b, h2, w2):
-    """Row 15 at f32 (vrvg_head_tail_f32) at vits' and vitb's widths on an
-    NCHW path1 seen as NHWC, against head_tail_plain relative to the
-    depth's range: a bound that the plain version on TF32-rounded input
-    and conv weights fails; one launch on the f32 counter."""
-    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
-                            f32_rel_check, tf32_round)
+    """Row 15 at f32 (vrvg_head_tail_f32, its convs on the 3xTF32 core) at
+    vits' and vitb's widths on an NCHW path1 seen as NHWC, on grids whose
+    tiles are ragged (W narrower than one 32-pixel box, H not a multiple of
+    the 4-row tile): conv1 + b1 and conv2's sums (conv3x3_f32, the same
+    conv) within chip_smoke.py's f32 bound of the conv on f64 operands
+    (f32_exact_check; the conv on TF32-rounded operands refused), the
+    resize pass within F32_MAX_ULPS of its plain version, the depth against
+    head_tail_plain relative to its range, a bound that the plain version
+    on TF32-rounded input and conv weights fails. Each call launches the
+    kernel once; the first splits the two conv weights, the second
+    nothing. On these few pixels cuDNN runs an f32 conv whose sums are
+    closer to f64 on average than the core's truncating tensor-core sums
+    (at C = 128 1.24 against 1.34 mean ulps on an H100), so the mean is
+    logged, not held (hold_mean=False); chip_smoke.py phase 8 holds it at
+    the paths' shapes."""
+    from chip_smoke import (F32_MAX_ULPS, TAIL_F32_MAX_REL,
+                            TAIL_F32_MEAN_REL, conv3x3_f64, f32_exact_check,
+                            f32_rel_check, f32_ulps, tf32_round)
     from vr_video_generator_tpu_torch.ops import head_tail as ht
 
     gen = torch.Generator(device=cuda).manual_seed(c + h2)
     x = _randn(gen, (b, c, h2, w2), dtype=F32).permute(0, 2, 3, 1)
     wts = _f32_tail_wts(gen, c)[2:]
+    k1, b1, k2 = wts[:3]
     out_hw = (h2 * 7 // 4, w2 * 7 // 4)
+    counts = []
+    for _ in range(2):
+        before = dict(launch_counts())
+        got = ht.head_tail_stages(x, *wts, out_hw)
+        counts.append({k: launch_counts().get(k, 0) - before.get(k, 0)
+                       for k in ("head_tail_f32", "tf32x3_split")})
+    assert counts == [{"head_tail_f32": 1, "tf32x3_split": 2},
+                      {"head_tail_f32": 1, "tf32x3_split": 0}]
+    tf_c1 = ht.base_conv1_plain(tf32_round(x), tf32_round(k1), b1)
+    tf_c2 = ht.conv3x3_f32_plain(tf32_round(got[1]), tf32_round(k2))
+    print(f32_exact_check("head_tail_f32 conv1", got[0],
+                          conv3x3_f64(x, k1) + b1.double(),
+                          ht.base_conv1_plain(x, k1, b1), tf_c1, 1, b1,
+                          hold_mean=False))
+    assert f32_ulps(got[1], ht.ext_resize_plain(got[0], out_hw),
+                    1).max().item() <= F32_MAX_ULPS
+    print(f32_exact_check("head_tail_f32 conv2", ht.conv3x3_f32(got[1], k2),
+                          conv3x3_f64(got[1], k2),
+                          ht.conv3x3_f32_plain(got[1], k2), tf_c2, 1,
+                          hold_mean=False))
     want = ht.head_tail_plain(x, *wts, out_hw)
     rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
     tfw = ht.head_tail_plain(tf32_round(x), *rounded, out_hw)
-    before = launch_counts().get("head_tail_f32", 0)
-    got = ht.head_tail(x, *wts, out_hw)
-    assert launch_counts()["head_tail_f32"] == before + 1
     span = (want.max() - want.min()).item()
-    f32_rel_check("head_tail_f32", got, want, tfw, TAIL_F32_MAX_REL,
+    f32_rel_check("head_tail_f32", got[2], want, tfw, TAIL_F32_MAX_REL,
                   TAIL_F32_MEAN_REL, span)
+    assert torch.equal(ht.head_tail(x, *wts, out_hw), got[2])
 
 
 @pytest.mark.parametrize("c", [64, 128])
@@ -2080,12 +2111,12 @@ def test_big_tail_f32_convs_hold_tf32_hgmma(cuda):
 
 
 def test_rcu_ext_f32_products_hold_tf32_hgmma(cuda):
-    """Rows 16 and 7 at f32 on the 3xTF32 core, none on the SIMT core: row
-    16's conv kernels (RcuEpi, in rcu_pair_f32.cu's library code) and row
-    7's conv1 (BiasStore) and its mix (gemm_kernel with Store, a fresh sum
-    every 16 of K: two groups of six products a stage) hold TF32 HGMMA
-    only, UTMALDG loads and no FFMA; no SIMT sgemm_kernel carries their
-    epilogues."""
+    """Rows 16, 7 and 15 at f32 on the 3xTF32 core: row 16's conv kernels
+    (RcuEpi, in rcu_pair_f32.cu's library code), rows 7 and 15's conv1
+    (BiasStore) and row 7's mix (gemm_kernel with Store, a fresh sum every
+    16 of K: two groups of six products a stage) hold TF32 HGMMA only,
+    UTMALDG loads and no FFMA; the library holds no kernel of the retired
+    SIMT FFMA core (sgemm_kernel)."""
     from vr_video_generator_tpu_torch.attention_bench import sass_counts
 
     counts = sass_counts(("tf32x3_gemm", "sgemm"))
@@ -2099,7 +2130,7 @@ def test_rcu_ext_f32_products_hold_tf32_hgmma(cuda):
         assert c["HGMMA_TF32"] >= 12 and c["HGMMA_TF32"] == c["HGMMA"], (
             name, c)
         assert c["UTMALDG"] > 0 and c["FFMA"] == 0, (name, c)
-    assert not [n for n in counts if "sgemm" in n and "Rcu" in n], counts
+    assert not [n for n in counts if "sgemm" in n], counts
 
 
 def test_vits_auto_f32_split_before_step_many_capture(cuda):

@@ -428,12 +428,13 @@ CALLS = {
 # The weights each f32 chain on the 3xTF32 core splits first (fresh weights
 # here: nothing is kept from an earlier call), one vrvg_tf32x3_split each:
 # rows 5 and 6's product, rows 8, 9 and 10's two products, rows 11 and 12's
-# two convs, row 7's mix and two convs, row 16's conv.
+# two convs, row 7's mix and two convs, row 15's two convs, row 16's conv.
 SPLITS = {"ln_qkv": 1, "proj_ls_residual": 1, "mlp_residual": 2, "mlp_residual_tanh": 2,
           "mlp_residual_hblocked": 2, "mlp_residual_hblocked_tanh": 2,
           "fc1_gelu": 1, "swiglu_residual": 2, "swiglu_gate": 1,
           "head_tail_big_front": 2, "conv3x3": 1, "head_tail_ext": 3,
-          "head_tail_ext C=256": 3, "rcu_pair": 1, "rcu_pair C=128": 1}
+          "head_tail_ext C=256": 3, "head_tail": 2, "head_tail C=128": 2,
+          "rcu_pair": 1, "rcu_pair C=128": 1}
 
 
 @pytest.mark.parametrize("name", list(CALLS))
@@ -441,7 +442,8 @@ def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
     """An f32 tensor on the card goes to its wrapper's f32 entry point, once,
     and counts on the f32 counter, never on the bf16 one (the case's name,
     where the kernel has one); it never reaches the plain version. Rows
-    5-12 and 16 split each weight on the card first (vrvg_tf32x3_split)."""
+    5-12, 15 and 16 split each weight on the card first
+    (vrvg_tf32x3_split)."""
     call, entry, counter = CALLS[name]
     before = launch_counts()
     call()
@@ -464,9 +466,11 @@ def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
 def test_other_dtypes_on_the_card_raise(fake_card, name):
     """float16 on the card raises in the wrapper (rows 1, 5, 2, 8, 10, 15
     and 16); so does an f32 kernel at a width it has no kernel for (the
-    tails at C = 32, row 8 at D = 768, row 9 at D = 384, row 15 at C = 32),
-    the f32 gate stage given a w12 of another width than h, or an RCU conv
-    whose residual's dtype is not its input's. No entry point is called."""
+    tails at C = 32, row 8 at D = 768, row 9 at D = 384), the f32 gate
+    stage given a w12 of another width than h, or an RCU conv whose
+    residual's dtype is not its input's; row 15 at f32 at C = 32, which no
+    kernel takes yet, raises not_ported naming the roadmap item. No entry
+    point is called."""
     h = torch.float16
     calls = {
         "layernorm": lambda: ln_ops.layernorm(_f32(5, 384).to(h), _f32(384),
@@ -497,8 +501,12 @@ def test_other_dtypes_on_the_card_raise(fake_card, name):
             _f32(1, 4, 6, 64), _f32(64, 64, 3, 3), _f32(64), False,
             (_f32(1, 4, 6, 64).to(torch.bfloat16),)),
     }
-    with pytest.raises(ValueError):
-        calls[name]()
+    if name == "head_tail C=32":
+        with pytest.raises(NotImplementedError, match=r"f32 on the card"):
+            calls[name]()
+    else:
+        with pytest.raises(ValueError):
+            calls[name]()
     assert fake_card.calls == []
 
 

@@ -1,12 +1,12 @@
 // The per-element arithmetic of the f32 GEMM epilogues, one function per
-// epilogue, called by both f32 GEMM cores: the SIMT core (csrc/sgemm.cuh,
-// row 15 at f32) and the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh, rows 5,
-// 6, 7, 8, 9, 10, 11, 12 and 16 at f32). Each takes a product's f32 sum
+// epilogue, called by the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh, rows 5,
+// 6, 7, 8, 9, 10, 11, 12, 15 and 16 at f32). Each takes a product's f32 sum
 // and rounds every operation on its own (no FMA, no fast math), at the JAX
-// package's f32 rounding points, so the two cores and the CPU emulation
-// (tests/cuda_emu/cuda_runtime.h, which g++ compiles this header under:
+// package's f32 rounding points, so the core and the CPU tests (which g++
+// compiles this header for under tests/cuda_emu/cuda_runtime.h:
 // tests/test_torch_gemm_3xtf32.py, tests/test_torch_conv_3xtf32.py,
-// tests/test_torch_conv_3xtf32_rcu_ext.py) share one copy of them.
+// tests/test_torch_conv_3xtf32_rcu_ext.py,
+// tests/test_torch_base_tail_3xtf32.py) share one copy of them.
 
 #pragma once
 

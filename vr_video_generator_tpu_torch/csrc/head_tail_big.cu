@@ -136,12 +136,11 @@
 // ms); at vitb-518 (C = 128) rows 11 and 12's conv1 and conv2 are 184 + 141
 // GFLOP (1.97 ms) against ~4 GB of f32 U, mid and R written and read (1.2
 // ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32, C = 64 and
-// 128) is row 7's f32 chain from conv1 on, still on the SIMT FFMA core
-// (csrc/sgemm.cuh, csrc/sconv.cuh; see its entry point).
+// 128) is row 7's f32 chain from conv1 on, on the same core (see its entry
+// point).
 
 #include <type_traits>
 
-#include "sconv.cuh"
 #include "taps.cuh"
 #include "tf32x3_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -935,22 +934,25 @@ extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
                      tf32x3_gemm::Store{n, (float*)out}, stream);
 }
 
-// Row 15 at f32 (the single-kernel tail, csrc/head_tail_big.cu's
-// vrvg_head_tail at the f32 rounding points of `_tail_kernel`): path1 (B,
-// H2, W2, C) f32, contiguous, or with `nchw` an NCHW tensor seen as NHWC,
-// first transposed into the scratch xt; conv1 as (C2, 9 C) f32, k = (3 dh +
-// dw) C + c, + (C2,) f32 bias on its f32 sums (sgemm::BiasStore, the tile
-// csrc/sconv.cuh picks: Rows32 at C2 = 32, Tall64 at 64); the f32 W-resize
-// tap tables (2, W1); conv2 as (32, 9 C2) f32, b2 (32,), the 1x1 (32,) and
-// b3 (1,); scratch c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B,
-// H1, W1) f32. Row 7's f32 back from c1 on: the resize pass and conv2 with
-// the 1x1. C in {64, 128}. What bounds it: at vits' 1080p grid (B = 8, path1
-// 296 x 528 x 64, depth 518 x 924) conv1 and conv2 are 46 + 71 GFLOP (1.75
-// ms at 67 TFLOP/s), at vitb's C = 128 184 + 141 (4.9 ms), against 0.8-1.4
-// GB of f32 path1, c1 and R: bound by operations.
+// Row 15 at f32 (the single-kernel tail, vrvg_head_tail at the f32 rounding
+// points of `_tail_kernel`): path1 (B, H2, W2, C) f32, contiguous, or with
+// `nchw` an NCHW tensor seen as NHWC, first transposed into the scratch xt;
+// conv1 as (C2, 9 C) f32, k = (3 dh + dw) C + c, given as its TF32 split
+// (vrvg_tf32x3_split: (2, 128, 9 C)), + (C2,) f32 bias on its f32 sums; the
+// f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the same k order,
+// split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3 (1,) f32; scratch
+// c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in
+// {64, 128}, C2 = C / 2. Row 7's f32 chain from conv1 on: conv1 + b1
+// (BiasStore) on conv_kernel<C2>, the resize pass, conv2 with the 1x1
+// (DepthOut) on conv_kernel<32>. What bounds it: at vits' 1080p grid (B =
+// 8, path1 296 x 528 x 64, depth 518 x 924) conv1 and conv2 are 46 + 71
+// GFLOP (0.71 ms at 3xTF32's 165 TFLOP/s), at vitb's C = 128 184 + 141
+// (1.97 ms), against 0.8-1.4 GB of f32 path1, c1 and R: bound by
+// operations. Returns a CUDA error code (a tensor map that does not encode:
+// cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
-                                  const void* w1m, const void* b1,
-                                  const void* w2m, const void* b2,
+                                  const void* w1s, const void* b1,
+                                  const void* w2s, const void* b2,
                                   const void* w3, const void* b3,
                                   const void* taps, const void* tapw,
                                   void* c1, void* r, void* out, int batch,
@@ -966,10 +968,10 @@ extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
     if (err != 0) return err;
     x = xt;
   }
-  int err = sgemm::conv3x3((const float*)x, (const float*)w1m, batch, h2, w2,
-                           c, c2,
-                           sgemm::BiasStore{(float*)c1, (const float*)b1, c2},
-                           stream);
+  int err = conv3x3_f32((const float*)x, (const uint32_t*)w1s, batch, h2, w2,
+                        c, tf32x3_gemm::BiasStore{c2, (float*)c1,
+                                                  (const float*)b1},
+                        stream);
   if (err != 0) return err;
   resize_kernel<float, false><<<dim3(h1, batch), PASS_THREADS, 0,
                                 (cudaStream_t)stream>>>(
@@ -977,8 +979,9 @@ extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
       (float*)r, c2, h2, w2, h1, w1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return sgemm::conv2_depth((const float*)r, (const float*)w2m,
-                            (const float*)b2, (const float*)w3,
-                            (const float*)b3, (float*)out, batch, h1, w1, c2,
-                            stream);
+  return tf32x3_gemm::conv3x3<C3>(
+      (const float*)r, (const uint32_t*)w2s, batch, h1, w1, c2, C3,
+      tf32x3_gemm::DepthOut{C3, (float*)out, (const float*)b2,
+                            (const float*)w3, (const float*)b3},
+      stream);
 }

@@ -6,16 +6,16 @@
 // (csrc/qkv_f32.cu) and rows 8, 9 and 10 at f32 (csrc/mlp_f32.cu,
 // csrc/swiglu_f32.cu) run their products on it; rows 11 and 12 at f32 their
 // two convs and row 7 at f32 its out_conv mix and two convs
-// (csrc/head_tail_big.cu, vrvg_head_tail_big_f32, vrvg_head_tail_ext_f32);
-// row 16 at f32 its four convs (csrc/rcu_pair_f32.cu). Row 15 at f32 stays
-// on the SIMT core of csrc/sgemm.cuh for now.
+// (csrc/head_tail_big.cu, vrvg_head_tail_big_f32, vrvg_head_tail_ext_f32),
+// row 15 at f32 its two convs (vrvg_head_tail_f32); row 16 at f32 its four
+// convs (csrc/rcu_pair_f32.cu).
 //
 // Why 3xTF32: wgmma takes no f32 operands, and TF32 keeps 10 mantissa bits.
 // Each operand x is the sum of two TF32 values hi + lo (csrc/tf32x3.cuh,
 // |x - hi - lo| <= 2^-22 |x|), and a b = (a_lo b_hi + a_hi b_lo) + a_hi b_hi
 // to about 2^-21 |a||b| a term: three TF32 products at the card's 495
 // TFLOP/s make 165 TFLOP/s of f32-accurate product, against 67 TFLOP/s on
-// the CUDA cores (the SIMT core reached 38-44). At vitg-518's row 10 (M =
+// the CUDA cores (an FFMA core reached 38-44). At vitg-518's row 10 (M =
 // 19544, D = 1536, H = 4096) the two products are 737.7 GFLOP: 4.47 ms at
 // 165 TFLOP/s, against 0.25 ms for its f32 bytes: bound by operations.
 //
@@ -28,7 +28,7 @@
 //     = N rounded up to 128 with zero rows; for row 10's gate, w12's rows
 //     in tf32x3::gated_row's order (x1 and x2 of 64 hidden columns a
 //     128-row tile). The caller keeps the result with the weight
-//     (ops/mlp.tf32x3_weight, ops/head_tail._big_f32_weights).
+//     (ops/mlp.tf32x3_weight, ops/head_tail._conv_split).
 //   - Thread 0 keeps a ring of STAGES stages full by TMA (128-byte swizzle,
 //     f32 boxes of 32 columns): a dense stage is A's 128 x 32 tile and
 //     B_hi's and B_lo's 128 x 32 tiles, 48 KB, behind full/empty
@@ -822,8 +822,8 @@ struct Store {
   }
 };
 
-// C (M, N) = the sums + an f32 bias (vrvg::bias_f32): row 7's conv1 at
-// f32 (c1).
+// C (M, N) = the sums + an f32 bias (vrvg::bias_f32): rows 7 and 15's
+// conv1 at f32 (c1).
 struct BiasStore {
   static constexpr bool GATED = false, ROW = false;
   int n;
@@ -867,8 +867,8 @@ struct RcuEpi {
 };
 
 // out (pixels,) = depth from a pixel's 32 sums of output_conv2: + b2, ReLU,
-// the 1x1 in channel order, + b3, ReLU (vrvg::depth_out_f32), row 12's
-// conv2 at f32.
+// the 1x1 in channel order, + b3, ReLU (vrvg::depth_out_f32): rows 12, 7
+// and 15's conv2 at f32.
 struct DepthOut {
   static constexpr bool GATED = false, ROW = true;
   int n;  // 32

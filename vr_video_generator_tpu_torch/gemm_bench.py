@@ -10,6 +10,7 @@ LayerScale + residual (row 6), the ext DPT tail (row 7), the MLP half
         [--rows f32:tail-vitb-518,f32:tail-vitg-126]
         [--rows f32:ext-vits,f32:ext-vitb-252,f32:rcu-64,f32:rcu-128]
         [--rows f32:ln,f32:qkv-vits,f32:qkv-vitb-518]
+        [--rows f32:base-64,f32:base-128]
 
 Row 1 at 1080p, batch 8: (19544, 384) (vits), (38280, 1024) (vitl-728),
 (19544, 1536) (vitg-518). For the kernel and for one ``F.layer_norm`` call
@@ -129,11 +130,14 @@ stage (the transpose, the mix, the passes, the convs; the products on the
 3xTF32 core), against cuDNN's f32 convs (TF32 off). Row 16 at C = 64 and
 128 on refinenet1's grid (``f32:rcu-<C>``), each launch of the chain in
 order (the ReLU pass, the four convs on the 3xTF32 core), against cuDNN's
-f32 conv of one of them. On the f32 SIMT core of ``csrc/sgemm.cuh``: row
-15 at vits' and vitb's path1 (C = 64, 128) by stage (the transpose, the
-passes, the convs), against cuDNN's f32 convs (TF32 off). The stages and
-launches are found by kernel name on the SIMT core's kernels too, so an
-older tree's rows 5, 6, 7 and 16 are measured the same way. Each row: the device
+f32 conv of one of them. Row 15 at vits' and vitb's path1 (C = 64, 128;
+``f32:base-<C>``) by stage (the transpose, conv1 + b1, the resize pass,
+conv2 with the 1x1; the convs on the 3xTF32 core), against cuDNN's two f32
+convs (TF32 off). The stages and launches are also found by the kernel
+names of an older tree's f32 SIMT FFMA core (``sgemm_kernel``,
+``Conv3x3Rows`` and the epilogues' names), so this file, run on such a
+tree, measures its rows 5, 6, 7, 15 and 16 the same way, in turns with
+this tree's on one card. Each row: the device
 time by stage and its TFLOP/s or GB/s, the span, ``event_ms``, the error
 against the plain version and the bound at the card's f32-accurate rate
 (165 TFLOP/s: a third of its dense TF32 rate, as 3xTF32 takes three TF32
@@ -905,8 +909,9 @@ F32_LN_SHAPES = (("vits", 19544, 384, True),
 # tail) and vitb-252's C = 128.
 F32_EXT_TAIL_SHAPES = {"vits": (7, "vits", 64, (148, 264), (518, 924)),
                        "vitb-252": F32_TAIL_SHAPES[1]}
-# Row 16 at f32 by width (f32:rcu-<C>).
+# Rows 16 and 15 at f32 by width (f32:rcu-<C>, f32:base-<C>).
 F32_RCU_SHAPES = {str(c): (label, c) for label, c in RCU_SHAPES}
+F32_BASE_BY_C = {str(s[1]): s for s in F32_BASE_TAIL_SHAPES}
 
 
 def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
@@ -1155,6 +1160,7 @@ def f32_base_tail_row(label: str, c: int, grid, out_hw) -> dict:
     row["cudnn_convs"]["tflops"] = ((conv1 + conv2)
                                     / row["cudnn_convs"]["kernel_us"] * 1e-6)
     row["over_cudnn_kernel"] = k["kernel_us"] / row["cudnn_convs"]["kernel_us"]
+    row["bound_share"] = row["bound_ms"] * 1e3 / k["kernel_us"]
     return row
 
 
@@ -1273,7 +1279,8 @@ def jobs(wanted) -> list:
             ("f32_swiglu_row", [s for s in SWIGLU_SHAPES
                                 if every or s[0] in labels]),
             ("f32_tail_row", F32_TAIL_SHAPES if every else tails),
-            ("f32_base_tail_row", F32_BASE_TAIL_SHAPES if every else ()),
+            ("f32_base_tail_row", F32_BASE_TAIL_SHAPES if every
+             else picked("base", F32_BASE_BY_C)),
             ("f32_rcu_row", RCU_SHAPES if every
              else picked("rcu", F32_RCU_SHAPES))):
         out += [(name, shape) for shape in shapes]
@@ -1295,8 +1302,8 @@ def main(argv=None) -> int:
                     "f32:<label> one f32 row of rows 8-10, "
                     "f32:tail-<label> rows 11 + 12 at f32, label vitb-518, "
                     "vitg-126 or vitg-518; f32:ext-<label> row 7 at f32, "
-                    "label vits or vitb-252; f32:rcu-<C> row 16 at f32, C "
-                    "64 or 128)")
+                    "label vits or vitb-252; f32:rcu-<C> row 16 at f32, "
+                    "f32:base-<C> row 15 at f32, C 64 or 128)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)

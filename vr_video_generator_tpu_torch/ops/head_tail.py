@@ -46,7 +46,9 @@ transpose). At C = 32 it runs csrc/head_tail.cu's wmma chain, chosen by
 width there (``BASE_CONV1``). At f32 (C = 64 and 128) the same three stages
 run as the entry point ``vrvg_head_tail_f32`` (counted as
 ``head_tail_f32``): conv1 with its f32 bias and conv2 with the 1x1 on the
-f32 SIMT core, the resize pass on f32, the W-resize weights f32.
+3xTF32 wgmma core (row 7's f32 convs), their weights split once into TF32
+hi/lo planes (:func:`_base_f32_weights`), the resize pass on f32, the
+W-resize weights f32.
 
 The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
@@ -362,8 +364,9 @@ def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
                    "DPT tail kernels at other widths")
     if path1.dtype == torch.float32:
         if c not in BASE_F32_CHANNELS:
-            raise ValueError(f"head_tail f32 kernel takes C in "
-                             f"{BASE_F32_CHANNELS}, got C={c}")
+            not_ported(f"the single-kernel DPT tail at f32 at C={c} on the "
+                       f"card (vrvg_head_tail_f32 takes C in "
+                       f"{BASE_F32_CHANNELS})", "f32 on the card")
     elif path1.dtype != torch.bfloat16:
         raise ValueError(f"head_tail kernel takes bf16 or f32 input, got "
                          f"{path1.dtype}")
@@ -391,11 +394,11 @@ def _base_weights(k1, b1, k2, b2, k3, b3):
 
 
 def _base_f32_weights(k1, b1, k2, b2, k3, b3):
-    """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 (C2, 9 C)
-    and conv2 (32, 9 C2) f32, and the f32 vectors b1, b2, the 1x1, b3."""
-    return (conv3x3_gemm_weights(k1, torch.float32),
-            conv3x3_gemm_weights(k2, torch.float32),
-            *_f32_vectors(b1, b2, k3, b3))
+    """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 and conv2
+    split for the 3xTF32 core's conv (:func:`_conv_split`), and the f32
+    vectors b1, b2, the 1x1, b3. Kept by :func:`_prepared`, so the first
+    call on a set of weights splits them and later calls do not."""
+    return (_conv_split(k1), _conv_split(k2), *_f32_vectors(b1, b2, k3, b3))
 
 
 def _launch_base(path1: torch.Tensor, wts, out_hw):
@@ -856,7 +859,7 @@ def conv3x3_gemm_weights(k: torch.Tensor,
                          dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A 3x3 conv (O, I, 3, 3) as the GEMM core's B for Conv3x3Layout: (O,
     9 I) bf16, k = (3 dh + dw) I + i (row 7's conv1); with ``dt`` f32, the
-    f32 core's B for its implicit GEMM (csrc/sconv.cuh, row 7 at f32)."""
+    f32 weights that :func:`_conv_split` splits for the 3xTF32 core."""
     k = k.to(dt)
     return k.permute(0, 2, 3, 1).reshape(k.shape[0], -1).contiguous()
 

@@ -152,7 +152,13 @@ Phases, each fatal on failure:
      ``--depth_stride 2``, with ``--encoder vitb`` and with ``--encoder
      vitg --input_size 126`` on a 1080p mp4; (e)
      ``bench --config 2`` and ``--config 3`` at ``--compute_dtype float32``
-     once each, their lines printed.
+     once each, their lines printed;
+  9. the records' tools: (a) the ``scan`` warp at 1080p, B = 8, on a vits
+     ``auto`` step's depth, bit for bit against the pallas kernels' SBS and
+     the xla plain warp's on the card; (b) ``soak.device_soak`` for 400
+     frames at vits 1080p on a ``soak_gen`` source, passing its memory
+     rule, its memory series printed; (c) ``parity_report``'s gate at 480 x
+     854, 2 frames, f32 on the card, ``--spread_depth``, passing.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -4371,6 +4377,89 @@ def f32_path(device, rng) -> dict:
     return out
 
 
+def scan_warp_check(device, rng) -> dict:
+    """Phase 9 (a): the scan warp on the card at config 2's geometry (B = 8)
+    on a vits ``auto`` step's blended depth (the calibrated scaler): its u8
+    SBS equal, bit for bit, to the pallas kernels' (rows 3 and 4) and to
+    the xla plain warp's on the card."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
+    from vr_video_generator_tpu_torch.ops.warp import WarpSpec
+    from vr_video_generator_tpu_torch.stage_bench import calibrate_random_scaler
+
+    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    pipe = make_pipe(device, run_config("vits", "auto", "auto"))
+    calibrate_random_scaler(pipe, frames)
+    batch = pipe.frames_to_device(frames)
+    with torch.inference_mode():
+        blended, ranges, _ = temporal_scan(pipe.depth_only(batch),
+                                           pipe.initial_state(), pipe.spec)
+        sbs = {impl: WarpSpec.create(H, W, pipe.run_cfg.stereo(), impl=impl,
+                                     device=device).warp_batch(batch, blended,
+                                                               ranges)
+               for impl in ("scan", "pallas", "xla")}
+    torch.cuda.synchronize()
+    for impl in ("pallas", "xla"):
+        n_bad = int((sbs["scan"] != sbs[impl]).sum())
+        require(n_bad == 0, f"phase 9 scan warp differs from {impl} in "
+                f"{n_bad} values")
+    moved = float((sbs["scan"][:, :, :W] != batch).any(dim=-1).float().mean())
+    require(moved > 0.1, f"phase 9 scan warp: only {moved:.4f} of the left "
+            f"eye's pixels moved")
+    log(f"phase 9 (a) scan warp == pallas == xla on the card, bit for bit "
+        f"({H}x{W}, B = {B}; {moved:.4f} of left-eye pixels moved)")
+    return dict(moved=moved)
+
+
+def tooling_path(device, rng) -> dict:
+    """Phase 9: the records' tools on the card. (a) :func:`scan_warp_check`;
+    (b) ``soak.device_soak`` for 400 frames at vits 1080p (the soak's
+    defaults: B = 8, depth_stride 2, bf16, input 518) on a ``soak_gen``
+    source, passing its own memory rule, its memory series printed; (c)
+    ``parity_report``'s gate at config 1's geometry (480 x 854), 2 frames,
+    f32 on the card, --spread_depth, passing."""
+    import tempfile
+
+    from vr_video_generator_tpu_torch import parity_report, soak, soak_gen
+
+    out, t0 = {}, time.perf_counter()
+    out["scan_warp"] = scan_warp_check(device, rng)
+    log(f"phase 9 (a): {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        t0 = time.perf_counter()
+        video = os.path.join(tmp, "soak_1080p.mp4")
+        soak_gen.generate(video, 8 * B, H, W)
+        art_path = os.path.join(tmp, "soak_device.json")
+        rc = soak.device_soak(soak.build_parser().parse_args(
+            ["--device_only", "400", "--video", video, "--out", art_path]))
+        with open(art_path) as f:
+            art = json.load(f)
+        series = [(s["frames"], s["device_mb"], s["allocated_mb"])
+                  for s in art["samples"]]
+        log(f"phase 9 (b) device soak memory (frames, MiB used on the card, "
+            f"allocated MiB): {json.dumps(series)}")
+        require(rc == 0 and art["frames"] >= 400
+                and art["device_mb"]["available"],
+                f"phase 9 device soak failed: rc {rc}, "
+                f"{art['frames']} frames, device_mb {art['device_mb']}")
+        out["soak"] = {k: v for k, v in art.items() if k != "samples"}
+        log(f"phase 9 (b): {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        video = os.path.join(tmp, "parity_480p.mp4")
+        soak_gen.generate(video, 2, 480, 854)
+        args = parity_report.build_parser().parse_args(
+            ["--video", video, "--frames", "2", "--device", "cuda",
+             "--compute_dtype", "float32", "--spread_depth"])
+        stats, lines = parity_report.run(args)
+        require(parity_report.gate_passes(stats, args.gate, args.frac_budget),
+                f"phase 9 parity report at 480x854 f32: {lines[-1]}")
+        out["parity"] = dict(stats=stats, result=lines[-1])
+        log(f"phase 9 (c): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -4446,6 +4535,10 @@ def main() -> int:
         f"auto, rows 15 and 16, vitl/vitg xla, cli, bench): "
         f"{time.perf_counter() - t0:.1f} s")
     paths["phase 8"] = phase8
+    t0 = time.perf_counter()
+    paths["phase 9"] = tooling_path(device, rng)
+    log(f"phase 9 (tooling: scan warp, device soak, parity report): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's

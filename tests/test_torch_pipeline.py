@@ -538,6 +538,12 @@ def test_port_imports_no_jax():
             "vr_video_generator_tpu_torch.bench, "
             "vr_video_generator_tpu_torch.checktool, "
             "vr_video_generator_tpu_torch.stride_study, "
+            "vr_video_generator_tpu_torch.perf_compare, "
+            "vr_video_generator_tpu_torch.flops, "
+            "vr_video_generator_tpu_torch.host_io_bench, "
+            "vr_video_generator_tpu_torch.soak_gen, "
+            "vr_video_generator_tpu_torch.soak, "
+            "vr_video_generator_tpu_torch.parity_report, "
             "vr_video_generator_tpu_torch.utils.profiling, "
             "vr_video_generator_tpu_torch.utils.benchlib; "
             "spec = importlib.util.spec_from_file_location('chip_smoke', "

@@ -20,8 +20,10 @@ unmatched sentinel (254, not 127).
 
 ``WarpSpec.impl`` follows the JAX package's ``warp_impl``: "pallas" takes
 the kernel routes (their plain versions for CPU tensors), "xla" the plain
-composite and blur/select on any device; "auto" is "pallas" on CUDA and
-"xla" elsewhere.
+composite and blur/select on any device, "scan" the reference-shaped
+composite (a loop over the planes, far to near, then one gather; ops/warp.py
+`select_warp_offsets`) in plain PyTorch on any device with the same
+blur/select; "auto" is "pallas" on CUDA and "xla" elsewhere.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ COMPOSITE_LAUNCHES = counter("warp_composite")
 BANDED_LAUNCHES = counter("warp_composite_banded")
 BLUR_SELECT_LAUNCHES = counter("blur_select_sbs")
 PACKED_LAUNCHES = counter("blur_select_sbs_packed")
-WARP_IMPLS = ("auto", "xla", "pallas")
+WARP_IMPLS = ("auto", "xla", "pallas", "scan")
 EMITS = ("u8", "packed")
 # The banded compositor's code byte: bits 0-6 the rank (among valid shifts)
 # of the first band a source pixel's depth falls in, bit 7 set when it also
@@ -164,6 +166,46 @@ def warp_composite_plain(img: torch.Tensor, depth: torch.Tensor,
                                 composite)
         covered = covered | m
     return composite, covered
+
+
+def select_warp_offsets(depth: torch.Tensor, tables: PlaneTables
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each output pixel's winning plane offset and its coverage, (B, H, W)
+    int32 and bool: ops/warp.py `select_warp_offsets`, the reference's loop
+    over the planes far to near (ascending cutoff). Plane k claims (y, x)
+    where the source pixel (y, x - off_k), taken circularly, has depth in
+    [thr - 0.05 step, thr + 1.05 step) and the plane is valid (the zip
+    truncation); a nearer plane overwrites. Holes keep the 3/5 fill
+    offset."""
+    b, h, w = depth.shape
+    cols = torch.arange(w, device=depth.device)
+    lo = tables.cutoffs - 0.05 * tables.steps
+    hi = tables.cutoffs + 1.05 * tables.steps
+    sel_off = tables.fill_offset.to(torch.int32)[:, None, None].expand(
+        b, h, w).clone()
+    covered = torch.zeros((b, h, w), dtype=torch.bool, device=depth.device)
+    for k in range(tables.offsets.shape[1]):
+        off = tables.offsets[:, k]
+        src = (cols[None, :] - off[:, None].long()) % w  # roll by off_k
+        d_src = torch.gather(depth, 2, src[:, None, :].expand(b, h, w))
+        m = ((d_src >= lo[:, k, None, None]) & (d_src < hi[:, k, None, None])
+             & tables.plane_valid[:, k, None, None])
+        sel_off = torch.where(m, off[:, None, None], sel_off)
+        covered = covered | m
+    return sel_off, covered
+
+
+def warp_composite_scan(img: torch.Tensor, depth: torch.Tensor,
+                        tables: PlaneTables
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``scan`` composite (ops/warp.py `warp_frame`, impl "scan"):
+    img[y, (x - sel_off) mod W] at the offsets :func:`select_warp_offsets`
+    picks, with its coverage."""
+    b, h, w, _ = img.shape
+    sel_off, covered = select_warp_offsets(depth, tables)
+    cols = torch.arange(w, device=img.device)
+    src = (cols - sel_off.long()) % w
+    return torch.gather(img, 2, src[..., None].expand(b, h, w, 3)), covered
 
 
 def banded_compositor_fits(s_neg: int, s_pos: int) -> bool:
@@ -519,10 +561,18 @@ class WarpSpec:
                    ) -> torch.Tensor:
         """(B, H, W, 3) u8 + (B, H, W) smoothed depth + (B, 2) ranges ->
         (B, H, 2W, 3) u8 SBS or, with ``emit="packed"`` (pallas only),
-        (B, H, 2W) uint32 words; "pallas" runs the two kernels on CUDA."""
+        (B, H, 2W) uint32 words; "pallas" runs the two kernels on CUDA,
+        "scan" the scan composite in plain PyTorch on any device."""
         if self.impl != "pallas":
             if emit == "packed":
                 raise ValueError("packed SBS output requires the pallas warp")
+            if self.impl == "scan":
+                t = build_plane_tables(depths, offset_ranges, self.cfg,
+                                       self.height, self.max_planes)
+                comp, covered = warp_composite_scan(imgs, depths, t)
+                return blur_select_sbs_plain(comp, covered, imgs,
+                                             t.edge_width, self.kernel_size,
+                                             self.cfg.sigma)
             return self.warp_batch_plain(imgs, depths, offset_ranges)
         _, st = self.tables(depths, offset_ranges)
         comp, covered = warp_composite(imgs, depths, st, self.s_neg,

@@ -188,7 +188,7 @@ class RunConfig:
     compute_dtype: str = "bfloat16"
     mesh_shape: Optional[Tuple[int, ...]] = None  # None -> all devices on 'data'
     encoder_device: str = "cpu"   # ffmpeg video-encoder selection ('cpu'|'nvidia')
-    warp_impl: str = "auto"       # 'auto' | 'xla' | 'pallas'
+    warp_impl: str = "auto"       # 'auto' | 'xla' | 'pallas' | 'scan'
     # SBS output encoding: 'u8' = (B, H, 2W, 3) uint8; 'packed' = (B, H, 2W)
     # uint32 r|g<<8|b<<16 (pallas warp only — edge/concat fused into the blur
     # kernel, host unpacks to rgb24 via the native tier). 'auto' = u8:

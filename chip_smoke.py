@@ -158,7 +158,22 @@ Phases, each fatal on failure:
      the xla plain warp's on the card; (b) ``soak.device_soak`` for 400
      frames at vits 1080p on a ``soak_gen`` source, passing its memory
      rule, its memory series printed; (c) ``parity_report``'s gate at 480 x
-     854, 2 frames, f32 on the card, ``--spread_depth``, passing.
+     854, 2 frames, f32 on the card, ``--spread_depth``, passing;
+ 10. the model axis on one card (``[cuda:0] * M``): (a) rows 2 and 17 at
+     the heads a model-group rank runs (row 17 at vitl-728's 8 and 4, row
+     2 at vitl-518's 8 and 4 and vitg-518's 12) against their plain
+     versions, timed as in phase 3; (b) one batch of 1080p ``soak_gen``
+     frames through ``ShardedSbsPipeline`` at vitl-728 ``auto`` (B = 2) at
+     1 x 2 and 1 x 4, vitl-518 ``--mlp_fused xla`` at 1 x 2 and 1 x 4,
+     vitg-518 ``auto`` at 1 x 2 and f32 vitl-518 ``auto`` (B = 2) at 1 x
+     2, each with its launch counts reset just before the group's step and
+     read just after (exactly M times the blocks' kernels), its depth and
+     SBS against the 1 x 1 pipeline's at equal batch (bf16: within 1.25x
+     the 1 x 1 kernel path's own error against its plain versions on the
+     same weights and frames, the SBS within parity_report's gate; f32:
+     within 1e-5 of the range), and the host ms of one group step's
+     dispatch beside the 1 x 1 step's; (c) ``cli.main --mesh 1x2 --device
+     cuda:0`` over a 24-frame 1080p mp4 whose subclips check.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -174,7 +189,8 @@ of phase 8 with the launches of its paths: row 1 at f32 three times, rows
 row 7 at f32 twice (C = 64, 128), rows 11 + 12 at f32 twice (vitb's C =
 128, vitg-126's 384), row 1 at f32 also at vitg-518's batch of 8, row 2 at
 f32 also at its 24 heads, row 10 at f32 once, rows 15 and 16 at f32 twice
-each (C = 64, 128)), and
+each (C = 64, 128); row 17 at 8 and 4 heads and row 2 at 8, 4 and 12 with
+the launches of phase 10's model-group paths), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -4460,6 +4476,316 @@ def tooling_path(device, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the model axis on one card. A model group of M ranks on
+# [cuda:0] * M: each rank holds its shards (parallel/sharding.py), the
+# unfused halves run split with one all-reduce each (on one card a sum
+# there), the fused halves on whole weights on every rank, the head on the
+# first rank.
+#
+# Each path is one batch of `soak_gen` frames against the 1 x 1
+# SbsPipeline on the same weights and frames at equal batch. The split
+# products round their partials to bf16 and sum them in bf16 (as XLA
+# all-reduces the dot's output), which moves about half of each split
+# output by an ulp; a random-weight ViT carries any such change to its
+# bf16 noise level, the level at which the 1 x 1 kernel path itself sits
+# against its plain versions (phase 4's comparison). So the yardstick is
+# that comparison, on the same weights and frames, in this run: the
+# group's depth against the 1 x 1 one at most GROUP_FLOOR times the 1 x 1
+# kernel path's against plain in mean (and at most DEPTH_REL of the range);
+# its SBS within parity_report's gate, a fraction at most GATE_FRAC of a
+# frame's values off by more than GATE (of 255), the budget raised to
+# GROUP_FLOOR times the 1 x 1 kernel path's own fraction against plain
+# where that is larger. Measured before these bounds were set (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6): the group's mean 1.02-1.06
+# times the yardstick's (vitl-728 0.449% and 0.462% of the range at 1 x 2
+# and 1 x 4 against 0.441%, vitl-518 xla 0.491% and 0.504% against
+# 0.477%, vitg-518 8.1e-6 against 7.9e-6), its SBS fraction 8.6e-4 to
+# 1.18e-3 against the yardstick's 8.9e-4, 1.07e-3 and 7.9e-5. A fixed mean
+# bound of 0.40% (the kernels' own error on phase 4's frames) would refuse
+# the 1 x 1 kernel path itself on these.
+GROUP_FLOOR = DEPTH_FLOOR
+GATE, GATE_FRAC = 1e-2, 1e-3
+# The calibrated scaler puts the batch's peak depth at GROUP_PEAK, between
+# two integers: the warp's plane table starts from ceil(max depth), so a
+# peak on an integer moves every plane for a change of an ulp.
+GROUP_PEAK = 11.5
+# f32: the partials' f32 rounding only; the max against the range.
+GROUP_F32_REL = 1e-5
+# (label, encoder, mlp_fused, --input_size, batch, compute dtype, model
+# ranks M, one step's launches at M ranks (24 blocks at vitl, 40 at vitg;
+# the final norm at the 4 taps on the first rank)). vitl-728 `auto`: the
+# attention half unfused (N = 4785 > 4096): LayerNorm, the qkv shard, row
+# 17 at 16/M heads, the proj shard, one all-reduce; the MLP half row 9 on
+# whole weights on every rank. vitl-518 `--mlp_fused xla`: both halves
+# split, row 2 at 16/M heads. vitg-518 `auto`: the attention half unfused
+# (attn_fusable is False at D = 1536), row 2 at 24/M heads; the SwiGLU half
+# row 10 whole (the rules replicate w12 and w3). f32 vitl-518 `auto`: the
+# attention half unfused (attn_fusable is False at D = 1024 in f32), row 2
+# at f32, row 9 at f32 whole, the tail unfused (no f32 plan fits).
+GROUP_PATHS = (
+    ("vitl-728 auto", "vitl", "auto", 728, B_L728, "bfloat16", (2, 4),
+     lambda m: {"layernorm": 24 * m + 4, "flash_attention": 24 * m,
+                "mlp_residual_hblocked": 24 * m, "head_tail_big_front": 1,
+                "head_tail_big_back": 1, "warp_composite": 1,
+                "blur_select_sbs": 1}),
+    ("vitl-518 xla", "vitl", "xla", 518, B, "bfloat16", (2, 4),
+     lambda m: {"layernorm": 48 * m + 4, "attention": 24 * m,
+                "head_tail_big_front": 1, "head_tail_big_back": 1,
+                "warp_composite": 1, "blur_select_sbs": 1}),
+    ("vitg-518 auto", "vitg", "auto", 518, B, "bfloat16", (2,),
+     lambda m: {"layernorm": 40 * m + 4, "attention": 40 * m,
+                "swiglu_residual": 40 * m, "head_tail_big_front": 1,
+                "head_tail_big_back": 1, "warp_composite": 1,
+                "blur_select_sbs": 1}),
+    ("vitl-518 auto f32", "vitl", "auto", 518, 2, "float32", (2,),
+     lambda m: {"layernorm_f32": 24 * m + 4, "attention_f32": 24 * m,
+                "mlp_residual_hblocked_f32": 24 * m, "warp_composite": 1,
+                "blur_select_sbs": 1}))
+# Rows 2 and 17 at the head counts a rank runs on these paths: (kernel,
+# batch, tokens, heads, the path at 1 x M that launches it).
+GROUP_ATTENTION = (
+    ("flash_attention", B_L728, N_L728, HEADS_L // 2, "vitl-728 auto 1x2"),
+    ("flash_attention", B_L728, N_L728, HEADS_L // 4, "vitl-728 auto 1x4"),
+    ("attention", B, N_TOK, HEADS_L // 2, "vitl-518 xla 1x2"),
+    ("attention", B, N_TOK, HEADS_L // 4, "vitl-518 xla 1x4"),
+    ("attention", B, N_TOK, HEADS_G // 2, "vitg-518 auto 1x2"))
+
+
+def card_state_dict(cfg, device):
+    """``models.factory.random_state_dict``'s distributions (LeCun-normal
+    weights, zero biases and tokens, unit scales, N(0, 0.02) pos-embed),
+    drawn by torch on the card from SEED: seconds for vitg's 1.3 B
+    parameters, where numpy takes ~40 s."""
+    import torch
+
+    from vr_video_generator_tpu_torch.models.depth_anything_v2 import \
+        DepthAnythingV2
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape)
+                  for k, v in DepthAnythingV2(cfg).state_dict().items()}
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith("pos_embed"):
+            sd[name] = 0.02 * torch.randn(shape, generator=gen, device=device)
+        elif name.endswith(("cls_token", "mask_token", ".bias")):
+            sd[name] = torch.zeros(shape, device=device)
+        elif name.endswith(".gamma") or len(shape) == 1:
+            sd[name] = torch.ones(shape, device=device)
+        else:
+            fan_in = (shape[0] * shape[2] * shape[3]
+                      if "resize_layers.0" in name or "resize_layers.1" in name
+                      else int(np.prod(shape[1:])))
+            sd[name] = torch.randn(shape, generator=gen,
+                                   device=device) / fan_in ** 0.5
+    return sd
+
+
+def group_path(device, frames, label, encoder, mlp_fused, size, batch,
+               dtype, ms, need) -> dict:
+    """One path of phase 10: the 1 x 1 SbsPipeline (calibrated scaler) and
+    ``ShardedSbsPipeline`` at 1 x M on ``[device] * M`` for each M of
+    ``ms``, one batch each after a warm-up step, the launch counts reset
+    just before the group's step and read just after (exactly ``need(M)``);
+    the group's depth and SBS held against the 1 x 1 ones, the right half
+    equal to the input; the host ms of one group step's dispatch (nothing
+    read back, median of 5) beside the 1 x 1 eager step's."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.models.factory import build_model
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.parity_report import (frame_stats,
+                                                            gate_passes)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.stage_bench import (
+        TARGET_DEPTH_MAX, calibrate_random_scaler)
+
+    cfg = run_config(encoder, mlp_fused, "auto", batch=batch,
+                     input_size=size, dtype=dtype)
+    t0 = time.perf_counter()
+    sd = card_state_dict(cfg.model(), device)
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    single = SbsPipeline(build_model(cfg.model(), sd, tdtype, device), H, W,
+                         run_cfg=cfg)
+    del sd
+    build_s = time.perf_counter() - t0
+    frames = frames[:batch]
+    scaler = calibrate_random_scaler(single, frames) * GROUP_PEAK \
+        / TARGET_DEPTH_MAX
+    single.model.cfg = dataclasses.replace(single.model.cfg,
+                                           depth_scaler=scaler)
+    batch_dev = single.frames_to_device(frames)
+
+    def dispatch_ms(step):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    with torch.inference_mode():
+        want_depth = single.depth_only(batch_dev)
+        want_sbs, _ = single.step(batch_dev, single.initial_state())
+    want_sbs = want_sbs.cpu().numpy()
+    span = float(want_depth.max() - want_depth.min())
+    out = {"build_s": build_s, "depth_range": span,
+           "host_dispatch_ms_1x1": dispatch_ms(
+               lambda: single.step(batch_dev, single.initial_state()))}
+    if dtype == "bfloat16":
+        # The yardstick: the 1 x 1 kernel path against its plain versions
+        # on the same weights and frames (phase 4's comparison).
+        with PlainKernels(), torch.inference_mode():
+            plain_depth = single.depth_only(batch_dev)
+            plain_sbs, _ = single.step(batch_dev, single.initial_state())
+        err = (plain_depth - want_depth).abs()
+        gate = [frame_stats(g, w, GATE)
+                for g, w in zip(plain_sbs.cpu().numpy(), want_sbs)]
+        out["kernel_vs_plain"] = dict(
+            depth_mean_rel=float(err.mean()) / span,
+            depth_max_rel=float(err.max()) / span,
+            sbs_worst_frac=max(f for _, _, f in gate))
+        log(f"{label} 1x1 kernels against plain: "
+            f"{json.dumps(out['kernel_vs_plain'])}")
+        del plain_depth, plain_sbs
+    for m in ms:
+        tag = f"{label} 1x{m}"
+        t0 = time.perf_counter()
+        sp = ShardedSbsPipeline(single.model, H, W,
+                                make_mesh((1, m), devices=[device] * m),
+                                run_cfg=cfg)
+        sp.step([batch_dev], sp.initial_state())  # warm-up: whole weights
+        torch.cuda.synchronize()
+        states = sp.initial_state()
+        reset_launch_counts()
+        sbs, _ = sp.step([batch_dev], states)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        step_s = time.perf_counter() - t0
+        require(counts == need(m), f"{tag}: launched {json.dumps(counts)}, "
+                f"expected {json.dumps(need(m))}")
+        with torch.inference_mode():
+            depth = sp.replicas[0].depth_only(batch_dev)
+        err = (depth - want_depth).abs()
+        got = sbs[0].cpu().numpy()
+        require(np.array_equal(got[:, :, W:], frames),
+                f"{tag}: the SBS's right half differs from the input")
+        gate = [frame_stats(g, w, GATE) for g, w in zip(got, want_sbs)]
+        stats = dict(depth_mean_rel=float(err.mean()) / span,
+                     depth_max_rel=float(err.max()) / span,
+                     sbs_worst_frac=max(f for _, _, f in gate),
+                     sbs_worst_mean=max(mn for mn, _, _ in gate),
+                     host_dispatch_ms=dispatch_ms(
+                         lambda: sp.step([batch_dev], states)),
+                     seconds=step_s, launches=counts)
+        log(f"{tag}: {json.dumps(stats)}")
+        if dtype == "float32":
+            require(stats["depth_max_rel"] <= GROUP_F32_REL,
+                    f"{tag}: depth off the 1x1 by {stats['depth_max_rel']} "
+                    f"of its range at most (limit {GROUP_F32_REL})")
+            budget = GATE_FRAC
+        else:
+            yard = out["kernel_vs_plain"]
+            limit = min(GROUP_FLOOR * yard["depth_mean_rel"], DEPTH_REL)
+            require(stats["depth_mean_rel"] <= limit,
+                    f"{tag}: depth off the 1x1 by {stats['depth_mean_rel']} "
+                    f"of its range on average (limit {limit}: "
+                    f"{GROUP_FLOOR} x the 1x1 kernels' against plain)")
+            budget = max(GATE_FRAC, GROUP_FLOOR * yard["sbs_worst_frac"])
+        require(gate_passes(gate, GATE, budget),
+                f"{tag}: SBS against the 1x1: {json.dumps(gate)} over the "
+                f"gate {GATE}, budget {budget}")
+        out[f"1x{m}"] = stats
+        del sp, states, sbs, depth
+        torch.cuda.empty_cache()
+    del single
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_cli(device) -> dict:
+    """Phase 10 (c): ``cli.main --mesh 1x2 --device cuda:0`` (vits
+    ``auto``, both ranks on the card) over a 24-frame 1080p ``soak_gen``
+    mp4 (cv2):
+    subclips 0_5 .. 18_23 that ``check_subclips`` passes, and the sharded
+    log."""
+    import tempfile
+
+    from vr_video_generator_tpu_torch import cli, soak_gen
+    from vr_video_generator_tpu_torch.video.check import check_subclips
+    from vr_video_generator_tpu_torch.video.combine import sorted_subclips
+
+    with tempfile.TemporaryDirectory() as d:
+        video = os.path.join(d, "in.mp4")
+        soak_gen.generate(video, 3 * B, H, W)
+        sub = os.path.join(d, "S") + os.sep
+        argv = ["--device", str(device), "--mesh", "1x2", "--VideoDir", video,
+                "--OutputDir", os.path.join(d, "out.mkv"),
+                "--DebugDir", os.path.join(d, "D") + os.sep,
+                "--SubClipDir", sub, "--Max_Frame_Count", "6",
+                "--batch_size", str(B), "--repair_mode", "1",
+                "--reader_backend", "cv2", "--writer_backend", "cv2",
+                "--allow_random_weights"]
+        t0 = time.perf_counter()
+        require(cli.main(argv) == 0, "cli --mesh 1x2: non-zero exit")
+        secs = time.perf_counter() - t0
+        names = sorted_subclips(sub)
+        issues = check_subclips(sub)
+        logs = sorted(os.listdir(os.path.join(d, "D")))
+    want = [f"{i}_{i + 5}.mp4" for i in range(0, 3 * B, 6)]
+    require(names == want and issues == [] and "sharded_p0.txt" in logs,
+            f"cli --mesh 1x2: subclips {names}, issues {issues}, logs {logs}")
+    out = dict(clips=names, seconds=secs)
+    log(f"phase 10 (c) cli --mesh 1x2 --device {device}: 24 frames of a "
+        f"1080p mp4, subclips that check: {json.dumps(out)}")
+    return out
+
+
+def model_axis_path(device) -> dict:
+    """Phase 10: the model axis on one card (see the constants above): (a)
+    rows 2 and 17 at the head counts a rank runs; (b) vitl-728 ``auto`` at
+    1 x 2 and 1 x 4, vitl-518 ``--mlp_fused xla`` at 1 x 2 and 1 x 4,
+    vitg-518 ``auto`` at 1 x 2 and f32 vitl-518 ``auto`` at 1 x 2, each
+    against 1 x 1; (c) ``cli.main --mesh 1x2``."""
+    import tempfile
+
+    from vr_video_generator_tpu_torch import soak_gen
+    from vr_video_generator_tpu_torch.video.reader import VideoReader
+
+    out, t0 = {"kernels": {}, "paths": {}}, time.perf_counter()
+    for i, (name, b, n, heads, _) in enumerate(GROUP_ATTENTION):
+        out["kernels"][f"{name} H={heads}"] = check_attention(
+            name, b, n, heads, SEED + 100 + i)
+    log(f"phase 10 (a) rows 2 and 17 at a rank's heads: "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+        video = os.path.join(tmp, "group_1080p.mp4")
+        soak_gen.generate(video, B, H, W)
+        with VideoReader(video, begin=0, backend="cv2") as r:
+            frames = np.stack(list(r.frames(0, B)))
+    for label, encoder, mlp_fused, size, batch, dtype, ms, need \
+            in GROUP_PATHS:
+        t0 = time.perf_counter()
+        res = group_path(device, frames, label, encoder, mlp_fused, size,
+                         batch, dtype, ms, need)
+        for m in ms:
+            out["paths"][f"{label} 1x{m}"] = res.pop(f"1x{m}")
+        out["paths"][label] = res
+        log(f"phase 10 (b) {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["cli"] = group_cli(device)
+    log(f"phase 10 (c): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -4539,6 +4865,12 @@ def main() -> int:
     paths["phase 9"] = tooling_path(device, rng)
     log(f"phase 9 (tooling: scan warp, device soak, parity report): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase10 = model_axis_path(device)
+    paths["phase 10"] = phase10
+    log(f"phase 10 (the model axis: rows 2 and 17 at a rank's heads, "
+        f"vitl-728, vitl-518 xla, vitg-518 and f32 vitl-518 model groups, "
+        f"cli --mesh 1x2): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
@@ -4652,6 +4984,11 @@ def main() -> int:
                  off32[f"C={c}"]["launches"][name])
                 for c in (FEATURES, FEATURES_B)
                 for name in ("head_tail_f32", "rcu_pair_f32")]
+    # Rows 2 and 17 at the heads a model-group rank runs (phase 10), with
+    # the launches of the 1 x M path that runs them.
+    entries += [(name, phase10["kernels"][f"{name} H={heads}"],
+                 phase10["paths"][label]["launches"][name])
+                for name, _, _, heads, label in GROUP_ATTENTION]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,

@@ -2167,3 +2167,203 @@ def test_vits_auto_f32_split_before_step_many_capture(cuda):
     torch.cuda.synchronize()
     assert launch_counts().get("tf32x3_split", 0) == 0
     assert launch_counts()["head_tail_ext_f32"] == 2
+
+
+# ------------------------------------------------------------ the model axis
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_nccl_all_reduce_and_broadcast(cuda):
+    """With two cards or more: ``all_reduce_`` over one bf16 tensor a card
+    (torch.cuda.nccl) leaves a + b on both, equal to the sum on one card;
+    over two ranks a card it sums on each card first; ``broadcast_`` copies
+    the first rank's tensor to every other."""
+    from vr_video_generator_tpu_torch.parallel.collectives import (
+        all_reduce_, broadcast_)
+
+    c0, c1 = _cards(2)
+    gen = torch.Generator(device=c0).manual_seed(5)
+    a, b = (_randn(gen, (1000, 384)) for _ in range(2))
+    want = a + b
+    ts = [a.clone(), b.to(c1)]
+    all_reduce_(ts)
+    torch.cuda.synchronize(c0)
+    torch.cuda.synchronize(c1)
+    assert torch.equal(ts[0], want) and torch.equal(ts[1].to(c0), want)
+    parts = [_randn(gen, (64, 128)) for _ in range(4)]
+    ts = [parts[0].clone(), parts[1].clone(), parts[2].to(c1),
+          parts[3].to(c1)]
+    all_reduce_(ts)
+    for t in ts:
+        assert torch.equal(t.to(c0), (parts[0] + parts[1])
+                           + (parts[2] + parts[3]))
+    ts = [want.clone(), torch.empty_like(want), torch.empty_like(want, device=c1)]
+    broadcast_(ts)
+    for t in ts:
+        assert torch.equal(t.to(c0), want)
+
+
+def _group_pipes(cfg, h, w, meshes):
+    """(the 1 x 1 SbsPipeline on cuda:0, a ShardedSbsPipeline a mesh of
+    ``meshes``), one random model (numpy seed 0)."""
+    from vr_video_generator_tpu_torch.parallel.sharded import \
+        ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    single = SbsPipeline.create(cfg, h, w, allow_random=True,
+                                device=torch.device("cuda", 0))
+    return single, [ShardedSbsPipeline(single.model, h, w, mesh,
+                                       run_cfg=cfg) for mesh in meshes]
+
+
+def _depth_mean_rel(got, want):
+    return float((got.to(want.device) - want).abs().mean()
+                 / (want.max() - want.min()))
+
+
+def test_model_group_on_two_cards_matches_one_card(cuda):
+    """vitl-518 ``--mlp_fused xla`` (both halves split, row 2 at 8 heads a
+    rank) on a 1 x 2 group of two cards: its SBS and depth equal, bit for
+    bit, to the same group on cuda:0 named twice (NCCL's two-rank bf16 sum
+    is the card's add), and its depth within chip_smoke.py's mean bound of
+    the kernel path against plain (DEPTH_REL of the range) of the 1 x 1
+    pipeline's at equal batch."""
+    from chip_smoke import DEPTH_REL
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+
+    c0, c1 = _cards(2)
+    cfg = RunConfig(encoder="vitl", batch_size=2, compute_dtype="bfloat16",
+                    mlp_fused="xla", input_size=518)
+    single, (two, one) = _group_pipes(
+        cfg, 270, 480, [make_mesh((1, 2), devices=[c0, c1]),
+                        make_mesh((1, 2), devices=[c0, c0])])
+    assert [p.device for p in two.replicas[0].model.parameters()][-1] == c1
+    frames = np.random.default_rng(9).integers(0, 256, (2, 270, 480, 3),
+                                               dtype=np.uint8)
+    got, _ = two.step(frames, two.initial_state())
+    want, _ = one.step(frames, one.initial_state())
+    assert torch.equal(got[0], want[0])
+    d_two = two.replicas[0].depth_only(frames)
+    assert torch.equal(d_two, one.replicas[0].depth_only(frames))
+    assert _depth_mean_rel(d_two, single.depth_only(frames)) <= DEPTH_REL
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_sharded_model_groups_on_four_cards(cuda, shape):
+    """With four cards: ``ShardedSbsPipeline`` on a mesh of every card
+    (vitb, 12 heads) over two steps against the same mesh shape on cuda:0
+    named four times, at ``auto`` (the attention half fused on whole
+    weights, the MLP half on row 8 whole) and at ``--mlp_fused xla`` (both
+    halves split). At 2 x 2 each slot's SBS and state are equal bit for
+    bit: NCCL's two-rank bf16 sum is the card's add. At 1 x 4 NCCL's ring
+    sums the four partials in its own order, which moves a bf16 sum by an
+    ulp, so the group runs f32 there: the depth carry within 1e-5 of its
+    range, >= 99.9% of the SBS values equal, the right half the input and
+    the flags exact."""
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+
+    every = _cards(4)
+    d = shape[0]
+    dtype = "bfloat16" if d == 2 else "float32"
+    for mlp_fused in ("auto", "xla"):
+        cfg = RunConfig(encoder="vitb", batch_size=2, compute_dtype=dtype,
+                        mlp_fused=mlp_fused, input_size=252)
+        mesh = make_mesh(shape, devices=every)
+        _, (cards, one) = _group_pipes(
+            cfg, 150, 256, [mesh, make_mesh(shape, devices=[cuda] * 4)])
+        assert [r.model.devices for r in cards.replicas] == mesh.devices
+        rng = np.random.default_rng(d)
+        s_cards, s_one = cards.initial_state(), one.initial_state()
+        for _ in range(2):
+            frames = rng.integers(0, 256, (2 * d, 150, 256, 3),
+                                  dtype=np.uint8)
+            got, s_cards = cards.step(frames, s_cards)
+            want, s_one = one.step(frames, s_one)
+            for i in range(d):
+                g, st = got[i].to(cuda), s_cards[i].map(lambda t: t.to(cuda))
+                assert got[i].device == cards.devices[i]
+                if d == 2:
+                    assert torch.equal(g, want[i])
+                    assert _states_equal(st, s_one[i])
+                    continue
+                frame = torch.from_numpy(frames[2 * i:2 * i + 2]).to(cuda)
+                assert torch.equal(g[:, :, 256:], frame)
+                assert (g == want[i]).float().mean() >= 0.999
+                span = s_one[i].d_prev1.max() - s_one[i].d_prev1.min()
+                assert (st.d_prev1 - s_one[i].d_prev1).abs().max() \
+                    <= 1e-5 * span
+                assert torch.equal(st.has_state, s_one[i].has_state)
+                assert torch.equal(st.overflow, s_one[i].overflow)
+
+
+def test_two_processes_two_cards_each(cuda, tmp_path):
+    """With four cards: two processes of the CLI, each with two cards of its
+    own (CUDA_VISIBLE_DEVICES), joined through --coordinator_address
+    127.0.0.1:<port>, run --mesh 2x2 (vits: a slot a process, a model group
+    of its two cards): subclips that cover every frame once and check,
+    and each process's log."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import cv2
+
+    from vr_video_generator_tpu_torch.video.check import check_subclips
+
+    _cards(4)
+    frames = np.random.default_rng(4).integers(0, 256, (16, 150, 96, 3),
+                                               dtype=np.uint8)
+    video = str(tmp_path / "in.mp4")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                         (96, 150))
+    for f in frames:
+        vw.write(f[:, :, ::-1])
+    vw.release()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sub = str(tmp_path / "S") + "/"
+    procs = []
+    for pid, cards in enumerate(("0,1", "2,3")):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards,
+                   PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "vr_video_generator_tpu_torch.cli",
+             "--device", "cuda", "--mesh", "2x2", "--VideoDir", video,
+             "--OutputDir", str(tmp_path / "o.mkv"),
+             "--DebugDir", str(tmp_path / "D") + "/", "--SubClipDir", sub,
+             "--batch_size", "2", "--input_size", "56",
+             "--Max_Frame_Count", "3", "--repair_mode", "1",
+             "--writer_backend", "cv2", "--reader_backend", "cv2",
+             "--allow_random_weights",
+             "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(pid)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert check_subclips(sub) == []
+    covered = []
+    for name in os.listdir(sub):
+        lo, hi = os.path.splitext(name)[0].split("_")
+        covered += range(int(lo), int(hi) + 1)
+    assert sorted(covered) == list(range(16))
+    assert {"sharded_p0.txt", "sharded_p1.txt"} <= set(
+        os.listdir(tmp_path / "D"))

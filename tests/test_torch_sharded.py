@@ -126,8 +126,12 @@ def test_make_mesh_shapes():
 
 
 def test_make_mesh_refuses_the_model_axis_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="model axis"):
-        make_mesh((1, 2), devices=["cpu", "cpu"])
+    """The model axis builds (a row is one data slot's model group); a
+    missing card still raises."""
+    mesh = make_mesh((1, 2), devices=["cpu", "cpu"])
+    assert mesh.shape == {"data": 1, "model": 2}
+    assert mesh.devices == [[torch.device("cpu")] * 2]
+    assert mesh.processes == [[0, 0]]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             make_mesh((1, 1))
@@ -275,7 +279,8 @@ def test_primed_states_match_primed_state(model, video, begins, warmup,
     begin 0 is the cold state."""
     path, frames = video
     sp = sharded(model, 2, depth_stride=stride)
-    states = runner._primed_states(sp, begins, path, 2, warmup, "cv2")
+    states = runner._primed_states(sp, begins, path, 2, warmup, "cv2",
+                                   any(lo > 0 for lo in begins), begins)
     single = SbsPipeline(model, H, W, run_cfg=sp.run_cfg)
     for i, lo in enumerate(begins):
         wu = max(0, lo - warmup)
@@ -306,7 +311,8 @@ def test_primed_states_match_jax(model, jax_model, video, begins, warmup,
                                         multi_host=False, any_preceding=True,
                                         global_begins=begins)
     states = runner._primed_states(sharded(model, 2, depth_stride=stride),
-                                   begins, path, 2, warmup, "cv2")
+                                   begins, path, 2, warmup, "cv2",
+                                   any_preceding=True, global_begins=begins)
     for i in range(2):
         _assert_state_close(states[i], _jax_slot(jstates, i))
 
@@ -571,24 +577,44 @@ def test_cli_mesh_writes_subclips_that_check(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "1x2"], "model axis"),
-    (["--num_processes", "2"], "multi-host"),
-    (["--coordinator_address", "localhost:1234"], "multi-host"),
+    (["--mesh", "1x2"], "sharded_p0.txt"),
+    (["--num_processes", "1"], "segment_0.txt"),
+    (["--process_id", "0"], "segment_0.txt"),
 ])
 def test_cli_unported_multi_device_options_raise(tmp_path, argv, match):
+    """The options the port once refused now run: ``--mesh 1x2`` converts
+    through one model group of two CPU ranks, and ``--num_processes 1`` or
+    ``--process_id 0`` alone run single-host, as the JAX CLI ignores them
+    there. Each writes subclips that check clean and its own log."""
     from vr_video_generator_tpu_torch import cli
+    from vr_video_generator_tpu_torch.video.check import check_subclips
+    from vr_video_generator_tpu_torch.video.combine import sorted_subclips
 
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--device", "cpu", "--DebugDir", str(tmp_path / "D") + "/",
-                  "--SubClipDir", str(tmp_path / "S") + "/", *argv])
+    path, _ = _cli_video(tmp_path, 6)
+    sub = str(tmp_path / "S") + "/"
+    assert cli.main(["--device", "cpu", "--VideoDir", path,
+                     "--OutputDir", str(tmp_path / "o.mkv"),
+                     "--DebugDir", str(tmp_path / "D") + "/",
+                     "--SubClipDir", sub, "--batch_size", "2",
+                     "--input_size", "56", "--compute_dtype", "float32",
+                     "--Max_Frame_Count", "3", "--mlp_fused", "xla",
+                     "--tail", "xla", "--allow_random_weights",
+                     "--writer_backend", "cv2", "--repair_mode", "1",
+                     *argv]) == 0
+    assert sorted_subclips(sub) == ["0_2.mp4", "3_5.mp4"]
+    assert check_subclips(sub) == []
+    assert match in os.listdir(tmp_path / "D")
 
 
 def test_bench_sharded_on_the_cpu():
-    """bench --sharded 2x1 --device cpu: one line with the sharded metric
-    and a device-resident rate, no host rate."""
+    """bench --sharded 2x1 --device cpu: one line with the sharded metric,
+    a device-resident rate and a host-inclusive one (the runner's loop over
+    in-memory frames)."""
     from vr_video_generator_tpu_torch import bench
 
-    line = bench.run_sharded_config(2, (2, 1), device="cpu", steps=1, reps=1)
+    line = bench.run_sharded_config(2, (2, 1), device="cpu", steps=1, reps=1,
+                                    segment_batches=1)
     assert line["metric"] == "torch_sbs_fps_270p_vits_sharded_mesh2x1"
-    assert line["value"] > 0 and line["host_fps"] is None
+    assert line["value"] > 0 and line["host_fps"] > 0
+    assert line["host_frames"] == 4 and len(line["host_fps_runs"]) == 1
     assert line["devices"] == ["cpu", "cpu"] and line["card"] is None

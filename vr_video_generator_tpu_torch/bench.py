@@ -42,20 +42,27 @@ line on the card and null with ``--device cpu``. The baseline is the
 reference's ~12 frames/s at 1080p (the root bench's ``BASELINE_FPS``).
 
 ``--sharded DxM`` (the root bench's ``_run_sharded``) measures the sharded
-runtime's step instead (``parallel.sharded.ShardedSbsPipeline`` on a D x M
-mesh of every card, or of D ``cpu`` slots with ``--device cpu``; M > 1
-raises ``not_ported``): D batches a step, one a slot, the device-resident
-rate only, chained and timed as above with a checksum and a pair of CUDA
-events on each slot's device (the slowest slot's time), in the metric
-``torch_sbs_fps_<h>p_<encoder>_sharded_mesh<D>x<M>[_stride<S>]``;
-``host_fps`` is null. At 1x1 it runs the single-device step through the
-sharded layer, as the root bench does on one chip.
+runtime instead (``parallel.sharded.ShardedSbsPipeline`` on a D x M mesh of
+every card, D data slots each a model group of M cards, or of D x M ``cpu``
+devices with ``--device cpu``): the device-resident rate, D batches a
+step, one a slot, chained and timed as above with a checksum and a pair of
+CUDA events on each slot's first device (the slowest slot's time), and the
+host-inclusive rate, ``runtime.sharded_runner.run_frames`` over
+``--segment_batches`` batches a slot (the runner's decode thread, uploads,
+dispatch round, readbacks and writers' hand-off, no codec; stride 1
+only), in the metric
+``torch_sbs_fps_<h>p_<encoder>_sharded_mesh<D>x<M>[_stride<S>]`` plus
+``_in<size>`` and ``_<mlp_fused>`` where ``--input_size`` or
+``--mlp_fused`` change the config's (``--encoder`` replaces its encoder). At 1x1 it runs
+the single-device step through the sharded layer, as the root bench does
+on one chip.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -198,11 +205,53 @@ def sharded_device_time(pipe, parts, k: int, reps: int) -> float:
     return best / k
 
 
+def sharded_host_fps(pipe, frames: np.ndarray, b: int, reps: int
+                     ) -> list:
+    """Host-inclusive frames/s of the sharded runtime, ``reps`` runs:
+    ``runtime.sharded_runner.run_frames`` over ``frames`` (each slot its
+    contiguous share: the decode thread, each slot's pinned upload, the
+    dispatch round, the readbacks, the writers' hand-off, no codec), after a
+    warm-up run."""
+    import time
+
+    from vr_video_generator_tpu_torch.runtime.sharded_runner import run_frames
+    from vr_video_generator_tpu_torch.stage_bench import CollectingWriter
+    from vr_video_generator_tpu_torch.utils.logging import WorkerLog
+
+    def once() -> float:
+        for dev in pipe.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        log = WorkerLog(os.devnull)
+        t0 = time.perf_counter()
+        try:
+            n = run_frames(pipe, frames, b,
+                           [CollectingWriter(keep=False, unpack=True)
+                            for _ in pipe.devices], log=log)
+        finally:
+            log.close()
+        for dev in pipe.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if n != len(frames):
+            raise RuntimeError(f"run_frames wrote {n} of {len(frames)} "
+                               "frames")
+        return len(frames) / (time.perf_counter() - t0)
+
+    once()  # warm-up: kernels built, graphs captured
+    return [once() for _ in range(reps)]
+
+
 def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
                        steps: int = 0, reps: int = 6,
-                       depth_stride: int = 1, compute_dtype=None) -> dict:
+                       depth_stride: int = 1, compute_dtype=None,
+                       segment_batches: int = 12, encoder=None,
+                       input_size=None, mlp_fused: str = "auto") -> dict:
     """The JSON line of one configuration through the sharded step on a
-    ``mesh_shape`` mesh; ``steps`` as in :func:`run_config`."""
+    ``mesh_shape`` mesh; ``steps`` as in :func:`run_config`. ``encoder``,
+    ``input_size`` and ``mlp_fused`` override the config's (the metric
+    names each one); the host-inclusive rate runs
+    ``segment_batches`` batches a slot (stride 1 only)."""
     from vr_video_generator_tpu_torch import RunConfig
     from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
     from vr_video_generator_tpu_torch.parallel.sharded import \
@@ -215,17 +264,20 @@ def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
     d, m = mesh_shape
     mesh = make_mesh(mesh_shape, device=device,
                      devices=None if on_card else ["cpu"] * (d * m))
-    encoder, h, w, b, step = CONFIGS[config]
+    enc, h, w, b, step = CONFIGS[config]
+    size = 518 if on_card else 126
     if not on_card:
-        encoder, h, w, b = "vits", 270, 480, max(2, depth_stride)
+        enc, h, w, b = "vits", 270, 480, max(2, depth_stride)
+    enc, size = encoder or enc, input_size or size
     dtype, dtag = _dtype_tag(compute_dtype, on_card)
-    cfg = RunConfig(encoder=encoder, batch_size=b, offset_step_size=step,
-                    input_size=518 if on_card else 126, compute_dtype=dtype,
-                    depth_stride=depth_stride, mesh_shape=tuple(mesh_shape))
+    cfg = RunConfig(encoder=enc, batch_size=b, offset_step_size=step,
+                    input_size=size, compute_dtype=dtype,
+                    depth_stride=depth_stride, mlp_fused=mlp_fused,
+                    mesh_shape=tuple(mesh_shape))
     single = SbsPipeline.create(cfg, h, w, allow_random=True,
                                 device=mesh.data_devices[0], seed=SEED)
     frames = np.random.default_rng(SEED).integers(
-        0, 256, (d * b, h, w, 3), dtype=np.uint8)
+        0, 256, (d * b * max(segment_batches, 1), h, w, 3), dtype=np.uint8)
     calibrate_random_scaler(single, frames[:b])
     pipe = ShardedSbsPipeline(single.model, h, w, mesh, run_cfg=cfg)
     del single
@@ -234,16 +286,23 @@ def run_sharded_config(config: int, mesh_shape, device: str = "cuda",
     calls = steps or (8 if on_card else 2)
     per_step = sharded_device_time(pipe, parts, calls, reps)
     fps = d * b / per_step
-    tag = dtag + (f"_stride{depth_stride}" if depth_stride > 1 else "")
-    return {"metric": f"torch_sbs_fps_{h}p_{encoder}_sharded_mesh{d}x{m}"
-                      f"{tag}",
+    host = (sharded_host_fps(pipe, frames, b, reps)
+            if depth_stride == 1 and segment_batches > 0 else None)
+    tag = dtag + (f"_stride{depth_stride}" if depth_stride > 1 else "") \
+        + (f"_in{input_size}" if input_size else "") \
+        + (f"_{mlp_fused}" if mlp_fused != "auto" else "")
+    return {"metric": f"torch_sbs_fps_{h}p_{enc}_sharded_mesh{d}x{m}{tag}",
             "value": fps, "unit": "frames/s",
-            "vs_baseline": fps / BASELINE_FPS, "host_fps": None,
+            "vs_baseline": fps / BASELINE_FPS,
+            "host_fps": max(host) if host else None,
             "mesh": [d, m], "depth_stride": depth_stride,
+            "encoder": enc, "input_size": size, "mlp_fused": mlp_fused,
             "card": card_line() if on_card else None, "config": config,
             "devices": [str(dev) for dev in pipe.devices],
             "steps": calls, "reps": reps,
-            "device_resident_s_per_frame": per_step / (d * b)}
+            "device_resident_s_per_frame": per_step / (d * b),
+            "host_frames": len(frames) if host else 0,
+            "host_fps_runs": host}
 
 
 def main(argv=None) -> int:
@@ -264,8 +323,17 @@ def main(argv=None) -> int:
     ap.add_argument("--segment_batches", type=int, default=12,
                     help="batches of frames the host-inclusive run takes")
     ap.add_argument("--sharded", type=str, default="",
-                    help="DxM: time the sharded step on a D x M mesh "
-                         "(device-resident rate only)")
+                    help="DxM: time the sharded runtime on a D x M mesh of "
+                         "every card (D data slots of M-card model groups)")
+    ap.add_argument("--encoder", default=None,
+                    choices=["vits", "vitb", "vitl", "vitg"],
+                    help="with --sharded: the config's encoder replaced")
+    ap.add_argument("--input_size", type=int, default=None,
+                    help="with --sharded: the depth net's input size "
+                         "(default 518)")
+    ap.add_argument("--mlp_fused", default="auto",
+                    choices=["auto", "fused", "xla"],
+                    help="with --sharded: the ViT half-block fusion policy")
     ap.add_argument("--compute_dtype", default=None,
                     choices=["bfloat16", "float32"],
                     help="depth-net dtype (default: bfloat16 on the card, "
@@ -289,7 +357,9 @@ def main(argv=None) -> int:
             ap.error(f"--sharded takes DxM, got {opts.sharded!r}")
         line = run_sharded_config(opts.config, mesh_shape, opts.device,
                                   opts.steps, opts.reps, opts.depth_stride,
-                                  opts.compute_dtype)
+                                  opts.compute_dtype, opts.segment_batches,
+                                  opts.encoder, opts.input_size,
+                                  opts.mlp_fused)
     else:
         line = run_config(opts.config, opts.chunk_batches, opts.device,
                           opts.steps, opts.reps, opts.segment_batches,

@@ -4,8 +4,10 @@ The same flags as vr_video_generator_tpu.cli: the 15 reference flags
 (reference PredictAndGenerate.py:327-363) with their names and defaults,
 unknown flags discarded via parse_known_args (:365), the same sign fixup of
 the offsets (:387-393) and the same build knobs; plus ``--device`` (default
-``cuda``). ``--mesh Dx1`` runs the sharded runtime on D devices; a model
-axis above 1 and the multi-host flags raise ``not_ported``.
+``cuda``). ``--mesh DxM`` runs the sharded runtime on D data slots of M
+devices each (M splits the ViT's heads and MLP hidden); with
+``--coordinator_address``, ``--num_processes`` and ``--process_id`` each
+process runs its own slots of the global mesh (parallel/multihost.py).
 ``build_parser`` and ``parse_run_config`` are the port's own copy of the
 JAX package's (the port imports nothing of it).
 
@@ -19,14 +21,15 @@ import argparse
 import sys
 from typing import List, Optional
 
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.utils.config import RunConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vr_video_generator_tpu_torch")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on: cuda or cpu")
+                   help="torch device to run on: cuda or cpu; with --mesh, "
+                        "cuda takes every card, and cpu or one card "
+                        "(cuda:0) takes every slot and rank")
     # --- reference flags (names verbatim) ---
     p.add_argument("--DebugDir", type=str, default="./Debug/")
     p.add_argument("--SubClipDir", type=str, default="./Subclip/")
@@ -124,11 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler Chrome trace of the "
                         "conversion here")
     p.add_argument("--mesh", type=str, default="",
-                   help="(data,model) device-mesh shape, e.g. 4x1: runs the "
-                        "sharded runtime, one contiguous segment per data "
-                        "slot, one slot per device (--device cpu: that many "
-                        "CPU slots); model must be 1 for now")
-    # multi-host bootstrap (jax.distributed); all three or none
+                   help="(data,model) device-mesh shape, e.g. 4x1 or 2x2: "
+                        "runs the sharded runtime, one contiguous segment "
+                        "per data slot, each slot on a group of 'model' "
+                        "devices that split the ViT's heads and MLP hidden "
+                        "(--device cpu: that many CPU devices)")
+    # multi-host bootstrap (torch.distributed, gloo); all three or none
     p.add_argument("--coordinator_address", type=str, default="",
                    help="host:port of process 0 for multi-host pod slices")
     p.add_argument("--num_processes", type=int, default=0)
@@ -182,20 +186,22 @@ def parse_run_config(argv: Optional[List[str]] = None
 
 def main(argv: Optional[List[str]] = None) -> int:
     cfg, args = parse_run_config(argv)
-    if args.coordinator_address or args.num_processes > 1 \
-            or args.process_id >= 0:
-        not_ported("multi-host runs (--coordinator_address, --num_processes, "
-                   "--process_id)", "sharded runtime, model axis and "
-                   "multi-host")
-    if cfg.mesh_shape is not None:
-        if len(cfg.mesh_shape) != 2:
-            raise ValueError(f"--mesh takes DxM, got {args.mesh!r}")
-        if cfg.mesh_shape[1] > 1:
-            not_ported(f"--mesh {args.mesh} (model axis {cfg.mesh_shape[1]})",
-                       "sharded runtime, model axis and multi-host")
+    if cfg.mesh_shape is not None and len(cfg.mesh_shape) != 2:
+        raise ValueError(f"--mesh takes DxM, got {args.mesh!r}")
+    # The JAX CLI's condition: --process_id alone, or --num_processes 1
+    # without a coordinator, runs single-host.
+    from vr_video_generator_tpu_torch.parallel import multihost
     from vr_video_generator_tpu_torch.runtime.orchestrator import run
 
-    run(cfg, allow_random=args.allow_random_weights, device=args.device)
+    if args.coordinator_address or args.num_processes > 1:
+        multihost.initialize(args.coordinator_address or None,
+                             args.num_processes or None,
+                             args.process_id if args.process_id >= 0
+                             else None)
+    try:
+        run(cfg, allow_random=args.allow_random_weights, device=args.device)
+    finally:
+        multihost.shutdown()
     return 0
 
 

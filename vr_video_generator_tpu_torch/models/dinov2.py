@@ -27,7 +27,7 @@ layers round as flax's (models/layers.py).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +47,9 @@ from vr_video_generator_tpu_torch.ops.mlp import (mlp_residual,
                                                   swiglu_residual)
 from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, proj_ls_residual
 from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
+from vr_video_generator_tpu_torch.parallel.collectives import (all_reduce_,
+                                                               device_scope)
+from vr_video_generator_tpu_torch.parallel.sharding import unshard
 
 
 def kernel_device(x: torch.Tensor) -> str:
@@ -104,33 +107,46 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
-        super().__init__()
-        self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+    """qkv -> attention -> proj. On a model group of ``group`` ranks this
+    rank holds its shards (parallel/sharding.py): qkv's rows of its
+    ``num_heads`` = H / group heads and proj's columns of them."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        head_dim = c // self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
+    def __init__(self, dim: int, num_heads: int, group: int = 1):
+        super().__init__()
+        self.num_heads = num_heads // group
+        self.qkv = Linear(dim, 3 * dim // group)
+        self.proj = Linear(dim // group, dim)
+
+    def heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, D) -> this rank's heads' outputs, (B, N, D / group)."""
+        b, n, _ = x.shape
+        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, -1)
+        head_dim = qkv.shape[-1]
         out = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                   scale=head_dim ** -0.5)
-        return self.proj(out.reshape(b, n, c))
+        return out.reshape(b, n, -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.heads(x))
 
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2: the A&S GELU, or with ``gelu_approx`` the tanh
-    GELU (``ModelConfig.gelu_approx``, ``--gelu tanh``)."""
+    GELU (``ModelConfig.gelu_approx``, ``--gelu tanh``). On a model group
+    this rank holds fc1's rows and fc2's columns of its hidden slice."""
 
-    def __init__(self, dim: int, hidden: int, gelu_approx: bool = False):
+    def __init__(self, dim: int, hidden: int, gelu_approx: bool = False,
+                 group: int = 1):
         super().__init__()
         self.gelu_approx = gelu_approx
-        self.fc1 = Linear(dim, hidden)
-        self.fc2 = Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden // group)
+        self.fc2 = Linear(hidden // group, dim)
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_ops.gelu(self.fc1(x), self.gelu_approx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(mlp_ops.gelu(self.fc1(x), self.gelu_approx))
+        return self.fc2(self.hidden(x))
 
 
 class SwiGLUFFN(nn.Module):
@@ -159,56 +175,145 @@ class LayerScale(nn.Module):
 class Block(nn.Module):
     """x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x)), each half unfused or
     through its fused kernels (:func:`resolve_block_fusion`), with the same
-    parameters either way."""
+    parameters either way. A Block of a model group (``group`` > 1) holds
+    one rank's shards and runs through :func:`group_block`."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  mlp_fused: str = "auto", ffn_layer: str = "mlp",
-                 gelu_approx: bool = False):
+                 gelu_approx: bool = False, group: int = 1):
         super().__init__()
         self.dim, self.num_heads, self.mlp_fused = dim, num_heads, mlp_fused
-        self.ffn_layer = ffn_layer
+        self.ffn_layer, self.group = ffn_layer, group
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, group)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
         if ffn_layer == "swiglufused":
             self.mlp = SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio))
         elif ffn_layer == "mlp":
-            self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx, group)
         else:
             raise ValueError(f"ffn_layer must be mlp or swiglufused, got "
                              f"{ffn_layer!r}")
         self.ls2 = LayerScale(dim)
+        # A group rank's whole split weights, gathered from the group at the
+        # first fused half that takes them (group_block).
+        self.whole: Dict[str, torch.Tensor] = {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fuse_attn, fuse_mlp = resolve_block_fusion(
+    def fusion(self, x: torch.Tensor) -> Tuple[bool, bool]:
+        return resolve_block_fusion(
             self.mlp_fused, self.dim, self.num_heads, x.shape[1],
             kernel_device(x), x.dtype, self.ffn_layer)
-        if fuse_attn:
-            qkv = ln_qkv(x, self.norm1.weight, self.norm1.bias,
-                         self.attn.qkv.weight, self.attn.qkv.bias,
-                         self.num_heads, (self.dim // self.num_heads) ** -0.5,
-                         eps=self.norm1.eps)
-            o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-            x = proj_ls_residual(o, x, self.attn.proj.weight,
-                                 self.attn.proj.bias, self.ls1.gamma)
-        else:
-            x = x + self.ls1(self.attn(self.norm1(x)))
-        if fuse_mlp and self.ffn_layer == "swiglufused":
+
+    def fused_attn(self, x: torch.Tensor, qkv_w: torch.Tensor,
+                   qkv_b: torch.Tensor, proj_w: torch.Tensor) -> torch.Tensor:
+        qkv = ln_qkv(x, self.norm1.weight, self.norm1.bias, qkv_w, qkv_b,
+                     self.num_heads, (self.dim // self.num_heads) ** -0.5,
+                     eps=self.norm1.eps)
+        o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return proj_ls_residual(o, x, proj_w, self.attn.proj.bias,
+                                self.ls1.gamma)
+
+    def fused_mlp(self, x: torch.Tensor, fc1_w=None, fc1_b=None,
+                  fc2_w=None) -> torch.Tensor:
+        """The fused MLP half; ``fc1_w``, ``fc1_b``, ``fc2_w``: the whole
+        fc1 and fc2 weights (unused by vitg's SwiGLU half)."""
+        if self.ffn_layer == "swiglufused":
             return swiglu_residual(x, self.norm2.weight, self.norm2.bias,
                                    self.mlp.w12.weight, self.mlp.w12.bias,
                                    self.mlp.w3.weight, self.mlp.w3.bias,
                                    self.ls2.gamma, eps=self.norm2.eps)
-        if fuse_mlp:
-            half = mlp_residual if mlp_ops.resident(
-                self.dim, self.mlp.fc1.weight.shape[0], x.dtype) \
-                else mlp_residual_hblocked
-            return half(x, self.norm2.weight, self.norm2.bias,
-                        self.mlp.fc1.weight, self.mlp.fc1.bias,
-                        self.mlp.fc2.weight, self.mlp.fc2.bias,
-                        self.ls2.gamma, eps=self.norm2.eps,
-                        approx=self.mlp.gelu_approx)
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        half = mlp_residual if mlp_ops.resident(
+            self.dim, fc1_w.shape[0], x.dtype) else mlp_residual_hblocked
+        return half(x, self.norm2.weight, self.norm2.bias, fc1_w, fc1_b,
+                    fc2_w, self.mlp.fc2.bias, self.ls2.gamma,
+                    eps=self.norm2.eps, approx=self.mlp.gelu_approx)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group > 1:
+            raise RuntimeError("a Block of a model group runs through "
+                               "group_block")
+        fuse_attn, fuse_mlp = self.fusion(x)
+        if fuse_attn:
+            x = self.fused_attn(x, self.attn.qkv.weight, self.attn.qkv.bias,
+                                self.attn.proj.weight)
+        else:
+            x = x + self.ls1(self.attn(self.norm1(x)))
+        if not fuse_mlp:
+            return x + self.ls2(self.mlp(self.norm2(x)))
+        if self.ffn_layer == "swiglufused":
+            return self.fused_mlp(x)
+        return self.fused_mlp(x, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                              self.mlp.fc2.weight)
+
+
+# The split parameters each fused half takes whole (parallel/sharding.py).
+_ATTN_SPLIT = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight")
+_MLP_SPLIT = ("mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight")
+
+
+def _whole(blocks: Sequence[Block], rank: int, names: Sequence[str]
+           ) -> List[torch.Tensor]:
+    """Rank ``rank``'s whole copies of the split ``names``, gathered from
+    every rank's shard onto its device once and kept: the all-gather XLA
+    puts before a Pallas call, which it does not partition."""
+    blk = blocks[rank]
+    if names[0] not in blk.whole:
+        dev = blk.norm1.weight.device
+        params = [dict(b.named_parameters()) for b in blocks]
+        # Normal tensors, as parameters are: the kernels' wrappers keep
+        # per-weight caches (ops/mlp.tf32x3_weight) only on tensors with a
+        # version counter, which inference tensors lack.
+        with torch.inference_mode(False):
+            for name in names:
+                blk.whole[name] = unshard(name, [p[name].to(dev)
+                                                 for p in params])
+    return [blk.whole[name] for name in names]
+
+
+def _on_ranks(blocks: Sequence[Block], xs: Sequence[torch.Tensor],
+              fn) -> List[torch.Tensor]:
+    """[fn(r, blocks[r], xs[r])] with each rank's device current."""
+    out = []
+    for r, (b, x) in enumerate(zip(blocks, xs)):
+        with device_scope(x.device):
+            out.append(fn(r, b, x))
+    return out
+
+
+def group_block(blocks: Sequence[Block], xs: List[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """One Block across a model group: ``blocks[r]`` is rank r's Block on its
+    device and ``xs[r]`` the tokens there (equal on every rank). A fused
+    half runs its kernels on whole weights on every rank, as at 1 x 1. An
+    unfused half runs each rank's shards: LayerNorm -> its qkv rows -> mha
+    at its H/m heads -> its proj columns, or fc1 rows + their bias -> GELU
+    -> fc2 columns, each without the replicated bias; then one all-reduce,
+    and the bias once after the sum, LayerScale and the residual. The
+    partials are rounded to the compute dtype and summed in it, as XLA
+    all-reduces the dot's output. vitg's SwiGLU half is replicated by the
+    rules, so every rank runs it whole."""
+    fuse_attn, fuse_mlp = blocks[0].fusion(xs[0])
+    if fuse_attn:
+        xs = _on_ranks(blocks, xs, lambda r, b, x: b.fused_attn(
+            x, *_whole(blocks, r, _ATTN_SPLIT)))
+    else:
+        parts = _on_ranks(blocks, xs, lambda r, b, x: F.linear(
+            b.attn.heads(b.norm1(x)), b.attn.proj.weight))
+        all_reduce_(parts)
+        xs = _on_ranks(blocks, xs, lambda r, b, x: x + b.ls1(
+            parts[r] + b.attn.proj.bias.to(x.dtype)))
+    if blocks[0].ffn_layer == "swiglufused":
+        return _on_ranks(blocks, xs, lambda r, b, x: b.fused_mlp(x)
+                         if fuse_mlp else x + b.ls2(b.mlp(b.norm2(x))))
+    if fuse_mlp:
+        return _on_ranks(blocks, xs, lambda r, b, x: b.fused_mlp(
+            x, *_whole(blocks, r, _MLP_SPLIT)))
+    parts = _on_ranks(blocks, xs, lambda r, b, x: F.linear(
+        b.mlp.hidden(b.norm2(x)), b.mlp.fc2.weight))
+    all_reduce_(parts)
+    return _on_ranks(blocks, xs, lambda r, b, x: x + b.ls2(
+        parts[r] + b.mlp.fc2.bias.to(x.dtype)))
 
 
 class PatchEmbed(nn.Module):
@@ -232,7 +337,7 @@ class PatchEmbed(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, group: int = 1):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
@@ -245,7 +350,7 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused,
-                  cfg.ffn_layer, cfg.gelu_approx)
+                  cfg.ffn_layer, cfg.gelu_approx, group)
             for _ in range(cfg.depth))
         self.norm = LayerNorm(d)
 
@@ -263,24 +368,34 @@ class DinoVisionTransformer(nn.Module):
                               h_axis=1, w_axis=2)
         return torch.cat([pos[:, :1], grid.reshape(1, ph * pw, -1)], dim=1)
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, 3) normalized, H and W multiples of 14 -> the tokens
+        (B, 1 + ph*pw, D): the patch embedding, the cls token and the
+        resampled pos-embed."""
+        b, h, w, _ = x.shape
+        p = self.cfg.patch_size
+        tokens = self.patch_embed(x)
+        cls = self.cls_token.to(tokens.dtype).expand(b, -1, -1)
+        tokens = torch.cat([cls, tokens], dim=1)
+        pos = self.interpolate_pos_encoding(h // p, w // p)
+        return tokens + pos.to(tokens.dtype)
+
+    def tap(self, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(patch tokens, cls token) after the final norm."""
+        out = self.norm(tokens)
+        return out[:, 1:], out[:, 0]
+
     def forward(self, x: torch.Tensor, take_layers: Sequence[int]
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
         """x (B, H, W, 3) normalized, H and W multiples of 14 -> per tapped
         layer (patch tokens (B, ph*pw, D), cls token (B, D)) after the final
         norm."""
-        b, h, w, _ = x.shape
-        p = self.cfg.patch_size
-        ph, pw = h // p, w // p
-        tokens = self.patch_embed(x)
-        cls = self.cls_token.to(tokens.dtype).expand(b, -1, -1)
-        tokens = torch.cat([cls, tokens], dim=1)
-        tokens = tokens + self.interpolate_pos_encoding(ph, pw).to(tokens.dtype)
-
+        tokens = self.embed(x)
         take = set(take_layers)
         tapped = {}
         for i, blk in enumerate(self.blocks):
             tokens = blk(tokens)
             if i in take:
-                out = self.norm(tokens)
-                tapped[i] = (out[:, 1:], out[:, 0])
+                tapped[i] = self.tap(tokens)
         return tuple(tapped[i] for i in take_layers)

@@ -4,14 +4,17 @@ seeded random weights (numpy)."""
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from vr_video_generator_tpu_torch.utils.config import ModelConfig
 from vr_video_generator_tpu_torch.models import checkpoint
-from vr_video_generator_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
+from vr_video_generator_tpu_torch.models.depth_anything_v2 import (
+    DepthAnythingV2, ModelGroup)
+from vr_video_generator_tpu_torch.parallel.sharding import (check_model_axis,
+                                                            shard_state_dict)
 
 # Parameters that stay f32 whatever the compute dtype: LayerNorm affine
 # (f32 statistics and affine, as in the JAX package) and the pos-embed
@@ -70,6 +73,28 @@ def build_model(cfg: ModelConfig, state_dict: Mapping, dtype: torch.dtype,
         if not name.endswith(_F32_SUFFIXES):
             param.data = param.data.to(dtype)
     return model.eval().requires_grad_(False)
+
+
+def build_group(model: DepthAnythingV2, devices: Sequence) -> ModelGroup:
+    """``model`` across a model group of ``len(devices)`` ranks: rank r's
+    DepthAnythingV2 holds ``shard_state_dict(model.state_dict(), r, m)``
+    (its shards of the split parameters, every other parameter whole) on
+    ``devices[r]``, in the dtypes ``model`` holds them in. Raises ValueError
+    where m does not divide the heads or the MLP hidden."""
+    m = len(devices)
+    check_model_axis(model.cfg, m)
+    state_dict = model.state_dict()
+    ranks = []
+    for r, dev in enumerate(devices):
+        with torch.device("meta"):
+            rank = DepthAnythingV2(model.cfg, dtype=model.dtype,
+                                   tail=model.depth_head.tail, group=m)
+        rank.load_state_dict(
+            {k: v.to(dev, copy=True)
+             for k, v in shard_state_dict(state_dict, r, m).items()},
+            assign=True)
+        ranks.append(rank.eval().requires_grad_(False))
+    return ModelGroup(ranks)
 
 
 def load_model(encoder: str, encoder_path: Optional[str] = None,

@@ -1,1 +1,2 @@
-"""Multi-device runs on the data axis (the JAX package's parallel/)."""
+"""Multi-device runs: the data and model axes, and multi-host (the JAX
+package's parallel/)."""

@@ -118,15 +118,23 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
                            log: Optional[WorkerLog] = None,
                            device: str = "cuda") -> int:
     """Frames [begin, end) through ``run_sharded`` on a mesh of
-    ``cfg.mesh_shape`` over every device of type ``device`` (on the CPU:
-    that many ``cpu`` slots). The model is built once on the CPU and each
-    slot's replica copied to its device."""
+    ``cfg.mesh_shape`` over every card (``device`` "cuda"), or over one
+    device named D x M times (the CPU, or a card such as "cuda:0"). In a
+    multi-host run (parallel/multihost.initialize) the mesh is the global
+    one of every process's devices (a named device standing for this
+    process's share), and this process runs the slots it owns. The model
+    is built once on the CPU; each slot's replica, or each rank of its
+    model group, is copied to its device. The log is
+    ``sharded_p<process>.txt``."""
     import torch
 
     from vr_video_generator_tpu_torch.models.factory import load_model
+    from vr_video_generator_tpu_torch.parallel import multihost
     from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
     from vr_video_generator_tpu_torch.parallel.sharded import \
         ShardedSbsPipeline
+    from vr_video_generator_tpu_torch.parallel.sharding import \
+        check_model_axis
     from vr_video_generator_tpu_torch.pipeline import (check_f32_plan,
                                                        check_supported,
                                                        resolve_device)
@@ -134,11 +142,17 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
         run_sharded
 
     check_supported(cfg)
+    check_model_axis(cfg.model(), cfg.mesh_shape[1])
     dev = resolve_device(device)
     n_data, n_model = cfg.mesh_shape
-    mesh = make_mesh(cfg.mesh_shape, device=dev.type,
-                     devices=([dev] * (n_data * n_model)
-                              if dev.type == "cpu" else None))
+    n_proc = multihost.process_count()
+    # One named device (the CPU, or a card such as cuda:0) takes every
+    # slot and rank of this process's share; "cuda" takes every card.
+    named = [dev] * (n_data * n_model // n_proc) \
+        if dev.type == "cpu" or dev.index is not None else None
+    mesh = (multihost.make_global_mesh(cfg.mesh_shape, local=named,
+                                       device=dev.type) if n_proc > 1
+            else make_mesh(cfg.mesh_shape, device=dev.type, devices=named))
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     if dev.type == "cuda" and dtype == torch.float32:
@@ -148,7 +162,8 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
                        cfg=cfg.model(), tail=cfg.tail)
     pipe = ShardedSbsPipeline(model, height, width, mesh, run_cfg=cfg)
     del model
-    log = log or WorkerLog(os.path.join(cfg.debug_dir, "sharded_p0.txt"))
+    log = log or WorkerLog(os.path.join(
+        cfg.debug_dir, f"sharded_p{multihost.process_index()}.txt"))
     try:
         return run_sharded(pipe, cfg.video_dir, cfg.subclip_dir, begin, end,
                            max_frame_count=cfg.max_frame_count,
@@ -165,23 +180,33 @@ def _convert_range_sharded(cfg: RunConfig, begin: int, end: int,
 
 def run(cfg: RunConfig, allow_random: bool = False,
         device: str = "cuda") -> None:
-    """Full run with repair_mode dispatch (modes 0-3)."""
+    """Full run with repair_mode dispatch (modes 0-3). In a multi-host run
+    (parallel/multihost.py) every process converts its own slots, and
+    process 0 alone clears the directories (before the others start) and
+    combines (after the sharded runner's barrier: every subclip is on
+    disk)."""
+    from vr_video_generator_tpu_torch.parallel import multihost
     from vr_video_generator_tpu_torch.video.combine import (combine_clips,
                                                       verify_frame_count)
 
-    create_folder_if_not_exist(cfg.debug_dir)
-    create_folder_if_not_exist(cfg.subclip_dir)
-    if cfg.repair_mode != 1:
-        remove_all_files(cfg.debug_dir)
-    if cfg.repair_mode == 0:
-        remove_all_files(cfg.subclip_dir)
+    first = multihost.process_index() == 0
+    if first:
+        create_folder_if_not_exist(cfg.debug_dir)
+        create_folder_if_not_exist(cfg.subclip_dir)
+        if cfg.repair_mode != 1:
+            remove_all_files(cfg.debug_dir)
+        if cfg.repair_mode == 0:
+            remove_all_files(cfg.subclip_dir)
+    multihost.barrier()
     if cfg.repair_mode in (0, 1):
         with trace(cfg.profile_dir or None):
             convert_range(cfg, cfg.start_frame, cfg.end_frame,
                           allow_random=allow_random, device=device)
         total, _ = summarize_overflow(overflow_path(cfg.debug_dir))
-        if total:
+        if total and first:
             print_flush(overflow_message(total, cfg.encoder))
+    if not first:
+        return
     if cfg.repair_mode in (0, 2, 3):
         combine_clips(cfg.subclip_dir, cfg.video_dir, cfg.output_dir,
                       just_combine=int(cfg.repair_mode == 3))

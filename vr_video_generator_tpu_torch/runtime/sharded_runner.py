@@ -1,15 +1,20 @@
 """Multi-device conversion runtime: n_data temporal segments, one step.
 
-Mirrors vr_video_generator_tpu/runtime/sharded_runner.py on one process:
-where the reference spawns Num_Workers segment processes that each own a
-video slice, the host keeps n_data segment cursors (a decoder each) and
-feeds one :class:`parallel.sharded.ShardedSbsPipeline` step, whose data
-slot i owns one contiguous slice on its own device. Segment boundaries
-(the reference's step policy), subclip naming, black-frame substitution,
-the per-slot halo warm-up, the absolute stride anchor grid and the
-overflow diagnostic match the JAX runner. Each slot has its own pinned
-staging (``runtime.segment.HostStaging``: two slots on one device never
-share a readback buffer) and its own subclip writer.
+Mirrors vr_video_generator_tpu/runtime/sharded_runner.py: where the
+reference spawns Num_Workers segment processes that each own a video slice,
+the host keeps a segment cursor (a decoder each) for every data slot this
+process owns and feeds one :class:`parallel.sharded.ShardedSbsPipeline`
+step, whose data slot i owns one contiguous slice on its own device (or
+model group). Segment boundaries (the reference's step policy), subclip
+naming, black-frame substitution, the per-slot halo warm-up, the absolute
+stride anchor grid and the overflow diagnostic match the JAX runner. Each
+slot has its own pinned staging (``runtime.segment.HostStaging``: two slots
+on one device never share a readback buffer) and its own subclip writer.
+
+Multi-host (parallel/multihost.py): every process runs the same step count
+over the global partition but decodes, steps (``step_local``) and encodes
+only its own slots, and waits at a barrier before it returns, so that
+process 0's combine sees every subclip.
 
 Video I/O comes from the port's ``video`` modules, imported lazily (the
 reader needs cv2 or ffmpeg; the pipeline does not).
@@ -26,6 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vr_video_generator_tpu_torch.parallel.multihost import barrier
 from vr_video_generator_tpu_torch.parallel.sharded import ShardedSbsPipeline
 from vr_video_generator_tpu_torch.runtime.segment import EmitWindow, HostStaging
 from vr_video_generator_tpu_torch.utils.logging import (ProgressMeter,
@@ -71,7 +77,8 @@ def partition_segments(start: int, end: int, n: int,
 
 def _primed_states(pipeline: ShardedSbsPipeline, slot_begins: List[int],
                    video_path: str, b: int, warmup: int,
-                   reader_backend: str):
+                   reader_backend: str, any_preceding: bool,
+                   global_begins: List[int]):
     """Per-slot halo warm-up: prime each data slot's temporal state on the
     frames preceding its segment (the reference resets per worker, a
     smoothing discontinuity this removes).
@@ -84,13 +91,17 @@ def _primed_states(pipeline: ShardedSbsPipeline, slot_begins: List[int],
     Slots with no preceding frames (begin 0) are reset to a true cold start
     afterwards: their all-pad window is a fixed point of the stride-1
     state, but at depth_stride > 1 it would prime ``anchor_prev`` on frame
-    0, where the single-device path skips the warm-up. One process owns
-    every slot, so the JAX runner's multi-host arguments (the global begins
-    and the feeding through ``step_local``) fall away."""
+    0, where the single-device path skips the warm-up.
+
+    ``slot_begins`` are this process's slots' begins; ``any_preceding`` and
+    ``global_begins`` come from every slot of the mesh, as the JAX runner
+    requires (there the warm-up steps launch one program across every
+    process). Here a process's steps touch only its own slots, so the
+    global decision gives each slot the state a per-process one would."""
     from vr_video_generator_tpu_torch.video.reader import VideoReader
 
     states = pipeline.initial_state()
-    if warmup <= 0 or not any(lo > 0 for lo in slot_begins):
+    if warmup <= 0 or not any_preceding:
         return states
     k = -(-warmup // b)
     h, w = pipeline.height, pipeline.width
@@ -117,11 +128,12 @@ def _primed_states(pipeline: ShardedSbsPipeline, slot_begins: List[int],
         for slot_i, gen in enumerate(gens):
             for j in range(b):
                 local[slot_i, j] = next(gen)
-        _, states = pipeline.step(local.reshape(len(slot_begins) * b, h, w, 3),
-                                  states)
+        _, states = pipeline.step_local(
+            local.reshape(len(slot_begins) * b, h, w, 3), states)
     cold = pipeline.initial_state()
-    states = [cold[i] if lo == 0 else st
-              for i, (lo, st) in enumerate(zip(slot_begins, states))]
+    states = [cold[pos] if global_begins[i] == 0 else st
+              for pos, (i, st) in enumerate(zip(pipeline.local_slots,
+                                                states))]
     return [st._replace(overflow=torch.zeros_like(st.overflow))
             for st in states]
 
@@ -135,7 +147,12 @@ def run_sharded(pipeline: ShardedSbsPipeline, video_path: str,
                 warmup: int = 0,
                 overflow_path: Optional[str] = None) -> int:
     """Convert frames [start, end) with n_data concurrent segments; returns
-    the number of frames written.
+    the number of frames this process wrote.
+
+    Multi-host aware: every process runs the same step count, but decodes
+    and encodes only the data slots it owns (``pipeline.local_slots``) and
+    feeds them through ``step_local``; one process owning every slot is
+    the single-host run.
 
     The depth-stride anchor grid is absolute (video frame indices): at
     depth_stride s > 1 each slot processes from the aligned floor(begin /
@@ -149,10 +166,8 @@ def run_sharded(pipeline: ShardedSbsPipeline, video_path: str,
                                                            get_ffmpeg_config)
 
     log = log or WorkerLog(None)
-    n_data = pipeline.n_data
-    b = batch_size
     s = pipeline.depth_stride
-    bounds = partition_segments(start, end, n_data, stride=s)
+    bounds = partition_segments(start, end, pipeline.n_data, stride=s)
     # the warm-up window on the anchor grid too (a multiple of s), so its
     # front pads (k*b - n_real, with b % s == 0) never shift the phase
     warmup = -(-warmup // s) * s
@@ -167,47 +182,88 @@ def run_sharded(pipeline: ShardedSbsPipeline, video_path: str,
     cfg = pipeline.run_cfg
     _, ffmpeg_config = get_ffmpeg_config(video_path, cfg.encoder_device) \
         if cfg.encoder_device else (None, None)
-    # The JAX runner's encoder concurrency, max(Num_Workers, slots), split
-    # over the slots' writers.
-    per_writer = max(1, -(-max(cfg.num_workers, n_data) // n_data))
-    segs: List[Optional[_Segment]] = [None] * n_data
+    owned = pipeline.local_slots
+    # The JAX runner's encoder concurrency, max(Num_Workers, owned slots),
+    # split over the slots' writers.
+    per_writer = max(1, -(-max(cfg.num_workers, len(owned)) // len(owned)))
+    segs: List[_Segment] = []
     try:
-        for i, (lo, hi) in enumerate(bounds):
+        for i, dev in zip(owned, pipeline.devices):
+            lo, hi = bounds[i]
             reader = VideoReader(video_path, begin=proc[i],
                                  backend=reader_backend)
-            segs[i] = _Segment(
+            segs.append(_Segment(
                 begin=lo, end=hi, decode_end=dec_end[i], cursor=proc[i],
-                reader=reader, writer=None,
-                staging=HostStaging(pipeline.devices[i]), pending=[],
-                clip_begin=lo, window=EmitWindow(lo - proc[i], hi - lo))
-            segs[i].writer = SubclipWriter(
+                reader=reader, writer=None, staging=HostStaging(dev),
+                pending=[], clip_begin=lo,
+                window=EmitWindow(lo - proc[i], hi - lo)))
+            segs[-1].writer = SubclipWriter(
                 subclip_dir, reader.fps, 2 * pipeline.width, pipeline.height,
                 ffmpeg_config=ffmpeg_config, max_concurrent=per_writer,
                 backend=writer_backend)
-        return _run(pipeline, segs, video_path, proc, b, warmup,
-                    reader_backend, max_frame_count, log, start, end,
+        done = _run(pipeline, segs, video_path, proc, dec_end, batch_size,
+                    warmup, reader_backend, max_frame_count, log, start, end,
                     overflow_path)
     finally:
         # SubclipWriter.close waits on its in-flight encoders
         for seg in segs:
-            if seg is not None:
-                seg.reader.close()
-                if seg.writer is not None:
-                    seg.writer.close()
+            seg.reader.close()
+            if seg.writer is not None:
+                seg.writer.close()
+    # every process's subclips are on disk before any process returns
+    barrier()
+    return done
+
+
+class _MemoryReader:
+    """The reader of :func:`run_frames`: frames [lo, hi) of an array."""
+
+    def __init__(self, frames: np.ndarray):
+        self._frames = frames
+
+    def frames(self, lo: int, hi: int):
+        yield from self._frames[lo:hi]
+
+
+def run_frames(pipeline: ShardedSbsPipeline, frames: np.ndarray,
+               batch_size: int, writers: List, max_frame_count: int = 15,
+               log: Optional[WorkerLog] = None) -> int:
+    """:func:`run_sharded`'s step loop over in-memory frames (the video
+    [0, len(frames)), stride 1, no warm-up), this process's k-th slot's
+    subclips handed to ``writers[k]`` (``write_clip(begin, frames)``): the
+    host-inclusive sharded run without a decoder or an encoder, as
+    ``bench --sharded`` times it. Returns the frames written."""
+    if pipeline.depth_stride != 1:
+        raise ValueError("run_frames runs at depth_stride 1")
+    n = len(frames)
+    bounds = partition_segments(0, n, pipeline.n_data)
+    segs = [_Segment(begin=lo, end=hi, decode_end=hi, cursor=lo,
+                     reader=_MemoryReader(frames), writer=writer,
+                     staging=HostStaging(dev), pending=[], clip_begin=lo,
+                     window=EmitWindow(0, hi - lo))
+            for (lo, hi), dev, writer in zip(
+                [bounds[i] for i in pipeline.local_slots], pipeline.devices,
+                writers)]
+    return _run(pipeline, segs, "", [lo for lo, _ in bounds],
+                [hi for _, hi in bounds], batch_size, 0, "auto",
+                max_frame_count, log or WorkerLog(None), 0, n, None)
 
 
 def _run(pipeline: ShardedSbsPipeline, segs: List[_Segment],
-         video_path: str, proc: List[int], b: int, warmup: int,
-         reader_backend: str, max_frame_count: int, log: WorkerLog,
-         start: int, end: int, overflow_path: Optional[str]) -> int:
-    """The step loop of :func:`run_sharded` over its open segments."""
+         video_path: str, proc: List[int], dec_end: List[int], b: int,
+         warmup: int, reader_backend: str, max_frame_count: int,
+         log: WorkerLog, start: int, end: int,
+         overflow_path: Optional[str]) -> int:
+    """The step loop of :func:`run_sharded` over this process's open
+    segments (``segs``, one a slot of ``pipeline.local_slots``); ``proc``
+    and ``dec_end``: every slot's decode window."""
     h, w = pipeline.height, pipeline.width
     total = max(sum(seg.end - seg.begin for seg in segs), 1)
     meter = ProgressMeter(total, log)
     frames_done = 0
-    # The same trip count for every slot: the longest segment decides.
-    n_steps = max(-(-(e - p) // b) for p, e in
-                  zip(proc, (seg.decode_end for seg in segs)))
+    # The same trip count for every slot of every process: the longest
+    # segment anywhere decides.
+    n_steps = max(-(-(e - p) // b) for p, e in zip(proc, dec_end))
 
     def flush(seg: _Segment, force: bool) -> None:
         while (len(seg.pending) >= max_frame_count
@@ -233,8 +289,11 @@ def _run(pipeline: ShardedSbsPipeline, segs: List[_Segment],
 
     cfg = pipeline.run_cfg
     audit_on = cfg.stride_audit_every > 0 and pipeline.depth_stride > 1
-    states = _primed_states(pipeline, proc, video_path, b, warmup,
-                            reader_backend)
+    owned = pipeline.local_slots
+    states = _primed_states(pipeline, [proc[i] for i in owned], video_path,
+                            b, warmup, reader_backend,
+                            any_preceding=any(p > 0 for p in proc),
+                            global_begins=proc)
     # Decode ahead on a background thread, and read the previous step's
     # SBS back while the current one computes (runtime/segment.py's double
     # buffering).
@@ -249,18 +308,19 @@ def _run(pipeline: ShardedSbsPipeline, segs: List[_Segment],
         if isinstance(item, BaseException):
             raise RuntimeError("sharded decode thread crashed") from item
         local, counts, starts = item
-        parts = [seg.staging.upload(local[i * b:(i + 1) * b])
-                 for i, seg in enumerate(segs)]
-        # The sampled stride audit, on the step index (the JAX runner's
-        # globally uniform trigger); a padded slot's stats are not logged.
+        parts = [seg.staging.upload(local[k * b:(k + 1) * b])
+                 for k, seg in enumerate(segs)]
+        # The sampled stride audit, on the global step index (the JAX
+        # runner's uniform trigger); a padded slot's stats are not logged.
         if audit_on and step_idx % cfg.stride_audit_every == 0:
-            stats = pipeline.stride_audit(parts, states)
-            for i, (rms, mx) in stats.items():
-                if counts[i] == b:
+            stats = pipeline.stride_audit_local(parts, states)
+            for k, i in enumerate(owned):
+                if counts[k] == b:
+                    rms, mx = stats[i]
                     log.write(stride_audit_line(
-                        starts[i], starts[i] + b, rms, mx,
+                        starts[k], starts[k] + b, rms, mx,
                         pipeline.spec.cfg.limit_step_cap, slot=i))
-        sbs, states = pipeline.step(parts, states, counts)
+        sbs, states = pipeline.step_local(parts, states, counts)
         handles = [seg.staging.start_readback(out)
                    for seg, out in zip(segs, sbs)]
         if prev is not None:
@@ -271,6 +331,7 @@ def _run(pipeline: ShardedSbsPipeline, segs: List[_Segment],
     decoder.join()
     for seg in segs:
         flush(seg, force=True)
+    # this process's slots' total (multi-host: each process records its own)
     overflow = sum(int(st.overflow) for st in states)
     if overflow:
         log.write(f"WARNING: scaled depth exceeded limit_step_cap on "

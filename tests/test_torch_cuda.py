@@ -2367,3 +2367,31 @@ def test_two_processes_two_cards_each(cuda, tmp_path):
     assert sorted(covered) == list(range(16))
     assert {"sharded_p0.txt", "sharded_p1.txt"} <= set(
         os.listdir(tmp_path / "D"))
+
+
+def test_real_weights_runbook_f32_on_the_card(cuda, tmp_path):
+    """The real-weights runbook at config 1's geometry (vits, 480 x 854)
+    with its parity step at f32 on the card, on a stand-in vits .pth
+    (seeded random weights at full width, the final head conv amplified):
+    the scaler calibrated onto the target, the card's f32 depth within the
+    golden bounds of the plain CPU path, the parity gate passed,
+    ``all_pass``."""
+    import json
+    import os
+
+    from chip_smoke import standin_checkpoints
+    from vr_video_generator_tpu_torch import real_weights_runbook
+
+    ckpt = standin_checkpoints(str(tmp_path / "ckpt"), ("vits",),
+                               amplify=True)["vits"]
+    out = tmp_path / "REPORT.json"
+    rc = real_weights_runbook.main(
+        ["--checkpoints_dir", os.path.dirname(ckpt), "--configs", "1",
+         "--frames", "2", "--compute_dtype", "float32", "--device", "cuda",
+         "--workdir", str(tmp_path / "work"), "--out", str(out)])
+    artifact = json.loads(out.read_text())
+    assert rc == 0 and artifact["all_pass"], artifact
+    g = artifact["rows"][0]["golden_depth"]
+    assert g["calibrated"] and g["under_step_cap"] and g["depth_ok"]
+    assert abs(g["raw_depth_max"] * g["scaler_used"]
+               - real_weights_runbook.CAL_TARGET_MAX) < 1e-6

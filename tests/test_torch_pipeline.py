@@ -524,8 +524,8 @@ def test_unported_entry_points_raise(pipe, frames):
 
 def test_port_imports_no_jax():
     """Importing the port's entry points and loading chip_smoke.py pulls in
-    neither JAX, flax, cv2, the root bench.py nor any module of the JAX
-    package."""
+    neither JAX, flax, cv2, tkinter, the root bench.py nor any module of
+    the JAX package."""
     code = ("import sys, importlib.util; import vr_video_generator_tpu_torch.cli, "
             "vr_video_generator_tpu_torch.pipeline, "
             "vr_video_generator_tpu_torch.runtime.segment, "
@@ -544,13 +544,17 @@ def test_port_imports_no_jax():
             "vr_video_generator_tpu_torch.soak_gen, "
             "vr_video_generator_tpu_torch.soak, "
             "vr_video_generator_tpu_torch.parity_report, "
+            "vr_video_generator_tpu_torch.real_weights_runbook, "
+            "vr_video_generator_tpu_torch.ui.app, "
+            "vr_video_generator_tpu_torch.ui.tkapp, "
+            "vr_video_generator_tpu_torch.ui.pathpick, "
             "vr_video_generator_tpu_torch.utils.profiling, "
             "vr_video_generator_tpu_torch.utils.benchlib; "
             "spec = importlib.util.spec_from_file_location('chip_smoke', "
             "'chip_smoke.py'); spec.loader.exec_module("
             "importlib.util.module_from_spec(spec)); "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
-            "'vr_video_generator_tpu', 'bench') "
+            "'tkinter', 'vr_video_generator_tpu', 'bench') "
             "or m.startswith('vr_video_generator_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

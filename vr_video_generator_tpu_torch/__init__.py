@@ -14,8 +14,9 @@ from __future__ import annotations
 from typing import NoReturn
 
 from vr_video_generator_tpu_torch.utils.config import RunConfig, StereoConfig
+from vr_video_generator_tpu_torch.version import __version__
 
-__all__ = ["RunConfig", "StereoConfig", "not_ported"]
+__all__ = ["RunConfig", "StereoConfig", "__version__", "not_ported"]
 
 
 def not_ported(what: str, roadmap_item: str) -> NoReturn:

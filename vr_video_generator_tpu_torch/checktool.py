@@ -16,14 +16,19 @@ import argparse
 from typing import List, Optional
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The checktool's own flags; the rest go to ``cli.parse_run_config``."""
     parser = argparse.ArgumentParser(prog="vr_video_generator_tpu_torch.checktool")
     parser.add_argument("--SubClipDir", type=str, required=True)
     parser.add_argument("--repair_mode", type=int, default=0)
     parser.add_argument("--DebugDir", type=str, default="",
                         help="also report the run's depth-overflow records "
                              "(OVERFLOW.jsonl) from this debug dir")
-    args, rest = parser.parse_known_args(argv)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args, rest = build_parser().parse_known_args(argv)
 
     from vr_video_generator_tpu_torch.video.check import check_subclips
 

@@ -6,13 +6,24 @@ wrapper owns a :class:`LaunchCounter`, incremented where the kernel is
 launched and nowhere else, so a run can show which kernels it went through.
 A CUDA graph launches without the wrappers: ``pipeline.StepGraph`` takes
 back what its capture counted and adds it at each replay.
+
+A process started with ``VRVG_LAUNCH_COUNTS_DIR`` set writes its counts,
+when it exits, to ``launch_counts_<pid>.json`` in that directory (its argv
+and every non-zero count), so a caller can count the launches of an entry
+point it runs as a subprocess (the UI's runs, the runbook's parity step).
 """
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
+import sys
 from typing import Dict
 
 import torch
+
+COUNTS_DIR_ENV = "VRVG_LAUNCH_COUNTS_DIR"
 
 
 class LaunchCounter:
@@ -37,6 +48,20 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in COUNTERS.values():
         c.count = 0
+
+
+def write_launch_counts(directory: str) -> None:
+    """Write this process's argv and non-zero launch counts to
+    ``launch_counts_<pid>.json`` in ``directory``."""
+    path = os.path.join(directory, f"launch_counts_{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump({"argv": sys.argv,
+                   "counts": {k: v for k, v in launch_counts().items() if v}},
+                  f)
+
+
+if os.environ.get(COUNTS_DIR_ENV):
+    atexit.register(write_launch_counts, os.environ[COUNTS_DIR_ENV])
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -108,11 +108,13 @@ Phases, each fatal on failure:
      rows 1 (at vits', vitl-728's and vitg-518's rows), 5 and 6 (D = 384
      and vitb's 768), 2 (vits' shapes and vitg-518's 24 heads), 17
      (vitl-728's), 8 (D = 128, 384), 9 (D = 768, 1024) and 10 (vitg-518's
-     (19544, 1536), hidden 4096) stage by stage, 7 (C = 64 at vits', 128 at
-     vitb-252's, 256 and 384 at the 126 grid), 11 + 12 (C = 64 at
-     vits-728's grid, 128 at vitb-518's, 256 at vitl-252's, 384 at
-     vitg-126's), 15 (C = 64, 128 on path1 at vits' grid) and 16 (C = 64,
-     128 on refinenet1's grid, each conv call alone) stage by stage,
+     (19544, 1536), hidden 4096) stage by stage, 17 also at 24 heads
+     (vitg-728's), 7 (C = 32 and 64 at vits', 128 at vitb-252's, 256 and
+     384 at the 126 grid, 384 at vitg-56's), 11 + 12 (C = 64 at vits-728's
+     grid, 128 at vitb-518's, 256 at vitl-252's, 384 at vitg-126's), 15
+     (C = 32, 64, 128 on path1 at vits' grid) and 16 (C = 64, 128 on
+     refinenet1's grid, each conv call alone) stage by stage (at C = 32
+     conv2's sums through ``conv3x3_f32`` on the chains' zero padding),
      against their plain versions with both
      TF32 flags off (the products of rows 8-12, on the 3xTF32 core, against
      the plain versions on f64 operands: rows 11 + 12's conv1 and conv2
@@ -141,8 +143,16 @@ Phases, each fatal on failure:
      40, 40, 1, 1 a step), its depth against f64 at most 1.25x the plain
      f32 path's; (c'') vitg-126 ``fused`` at f32 on the same weights, one
      batch: row 10 and rows 11 + 12 at C = 384; (c''') rows 15 and 16 at
-     f32 called as a user calls them at C = 64 and 128, exactly their
-     kernels, and row 15 again on the same weights, which splits none; (c)
+     f32 called as a user calls them at C = 64 and 128, and row 15 at C =
+     32, exactly their kernels, and row 15 again on the same weights, which
+     splits none; (c4) the f32 CLI paths not run before, one batch each,
+     exactly their kernels, none of the plain versions, the depth against
+     the plain f32 path: a 32-feature vits-518 head ``auto`` (row 7 at C =
+     32 once a step, the head's cuDNN output convs not run), vitg-728
+     ``auto`` (4 blocks, batch 2: row 17 at 24 heads), vitl-126 and
+     vitg-56 ``auto`` (4 blocks: row 7 at C = 256 and 384), vits-728
+     ``auto`` (rows 11 + 12 at C = 64) and vitl-252 ``auto`` (4 blocks:
+     rows 11 + 12 at C = 256); (c)
      vitl-518, vitg-518 and vitl-728 ``xla``/``xla`` at f32 (4 blocks,
      batch 2) through rows 1 and 2, or 1 and 17; (c') vits ``fused`` (row
      8), vitb-252 ``auto`` (row 7 at C = 128) and vitl-518 ``auto`` (4
@@ -161,19 +171,24 @@ Phases, each fatal on failure:
      854, 2 frames, f32 on the card, ``--spread_depth``, passing;
  10. the model axis on one card (``[cuda:0] * M``): (a) rows 2 and 17 at
      the heads a model-group rank runs (row 17 at vitl-728's 8 and 4, row
-     2 at vitl-518's 8 and 4 and vitg-518's 12) against their plain
-     versions, timed as in phase 3; (b) one batch of 1080p ``soak_gen``
-     frames through ``ShardedSbsPipeline`` at vitl-728 ``auto`` (B = 2) at
-     1 x 2 and 1 x 4, vitl-518 ``--mlp_fused xla`` at 1 x 2 and 1 x 4,
-     vitg-518 ``auto`` at 1 x 2 and f32 vitl-518 ``auto`` (B = 2) at 1 x
-     2, each with its launch counts reset just before the group's step and
-     read just after (exactly M times the blocks' kernels), its depth and
+     2 at vitl-518's 8 and 4, vitg-518's 12, and 1 and 2 at vits' and
+     vitb's uneven splits) against their plain versions, timed as in phase
+     3; (b) one batch of 1080p ``soak_gen`` frames through
+     ``ShardedSbsPipeline`` at vitl-728 ``auto`` (B = 2) at 1 x 2 and 1 x 4,
+     vitl-518 ``--mlp_fused xla`` at 1 x 2 and 1 x 4, vitg-518 ``auto`` at
+     1 x 2, f32 vitl-518 ``auto`` (B = 2) at 1 x 2, vits-518 ``--mlp_fused
+     xla`` at 1 x 4 and 1 x 8 (ranks of 1 and 2 heads, and of none),
+     vits-518 ``auto`` at 1 x 4 and vitb-518 ``--mlp_fused xla`` at 1 x 8
+     (4 blocks), each with its launch counts reset just before the group's
+     step and read just after (exactly the blocks' kernels on every rank,
+     a split attention once a rank that holds heads), its depth and
      SBS against the 1 x 1 pipeline's at equal batch (bf16: within 1.25x
      the 1 x 1 kernel path's own error against its plain versions on the
      same weights and frames, the SBS within parity_report's gate; f32:
      within 1e-5 of the range), and the host ms of one group step's
-     dispatch beside the 1 x 1 step's; (c) ``cli.main --mesh 1x2 --device
-     cuda:0`` over a 24-frame 1080p mp4 whose subclips check;
+     dispatch beside the 1 x 1 step's; (c) ``cli.main --mesh 1x2`` and
+     ``--mesh 1x4 --encoder vits`` with ``--device cuda:0`` over a 24-frame
+     1080p mp4 whose subclips check;
  11. the front ends, on stand-in checkpoints saved from the port's seeded
      state_dict at full width: (a) ``real_weights_runbook`` at configs 2
      and 3 (vits, vitb; 1080p, input 518, 2 frames), the final head conv
@@ -199,11 +214,13 @@ shapes; the tanh variants of rows 8 and 9 at vitb-518's D = 768 and
 vitl-518's D = 1024, with the launches of phase 7's paths; the f32 kernels
 of phase 8 with the launches of its paths: row 1 at f32 three times, rows
 5 and 6 at f32 twice (D = 384, 768), row 9 at f32 twice (D = 768, 1024),
-row 7 at f32 twice (C = 64, 128), rows 11 + 12 at f32 twice (vitb's C =
-128, vitg-126's 384), row 1 at f32 also at vitg-518's batch of 8, row 2 at
-f32 also at its 24 heads, row 10 at f32 once, rows 15 and 16 at f32 twice
-each (C = 64, 128); row 17 at 8 and 4 heads and row 2 at 8, 4 and 12 with
-the launches of phase 10's model-group paths), and
+row 7 at f32 five times (C = 32, 64, 128, 256, and 384 at vitg-56's
+grid), rows 11 + 12 at f32 four times (vits-728's C = 64, vitb's 128,
+vitl-252's 256, vitg-126's 384), row 1 at f32 also at vitg-518's batch of
+8, row 2 at f32 also at its 24 heads, row 17 at f32 also at vitg-728's 24
+heads, row 10 at f32 once, row 15 at f32 three times (C = 32, 64, 128) and
+row 16 twice (C = 64, 128); row 17 at 8 and 4 heads and row 2 at 8, 4, 12,
+1 and 2 with the launches of phase 10's model-group paths), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -2783,15 +2800,52 @@ F32_FUSED_PATHS = (
      {"layernorm_f32": 4 + 4, "attention_f32": 4,
       "mlp_residual_hblocked_f32": 4, "warp_composite": 1,
       "blur_select_sbs": 1}))
+# The f32 CLI paths first run in phase 8 (c4), one batch each, held as
+# F32_FUSED_PATHS are (label, encoder, --input_size, mlp_fused = tail,
+# blocks (None: all), batch, one step's launches, head features (None: the
+# encoder's)). A custom 32-feature head at vits-518 auto: row 7 at f32 at C
+# = 32, once a step, and no cuDNN conv in its tail. vitg-728 auto (4 of 40
+# blocks, batch 2): the attention half unfused past 4096 tokens, row 17 at
+# f32 at 24 heads, row 10, the tail unfused (no f32 plan fits); vitl-126
+# auto (4 of 24 blocks): row 2, row 9, row 7 at C = 256; vitg-56 auto (4
+# of 40 blocks): row 2, row 10, row 7 at C = 384; vits-728 auto (all 12
+# blocks): row 17 at 6 heads, the MLP half unfused, rows 11 + 12 at C = 64;
+# vitl-252 auto (4 of 24 blocks): row 2, row 9, rows 11 + 12 at C = 256.
+F32_NEW_PATHS = (
+    ("vits-518 auto/auto f32 C=32", "vits", 518, "auto", None, B,
+     dict(AUTO_VITS_F32_STEP), 32),
+    ("vitg-728 auto/auto f32", "vitg", 728, "auto", 4, 2,
+     {"layernorm_f32": 4 + 4, "flash_attention_f32": 4,
+      "swiglu_residual_f32": 4, "warp_composite": 1, "blur_select_sbs": 1},
+     None),
+    ("vitl-126 auto/auto f32", "vitl", 126, "auto", 4, B,
+     {"layernorm_f32": 4 + 4, "attention_f32": 4,
+      "mlp_residual_hblocked_f32": 4, "head_tail_ext_f32": 1,
+      "warp_composite": 1, "blur_select_sbs": 1}, None),
+    ("vitg-56 auto/auto f32", "vitg", 56, "auto", 4, B,
+     {"layernorm_f32": 4 + 4, "attention_f32": 4, "swiglu_residual_f32": 4,
+      "head_tail_ext_f32": 1, "warp_composite": 1, "blur_select_sbs": 1},
+     None),
+    ("vits-728 auto/auto f32", "vits", 728, "auto", None, B,
+     {"layernorm_f32": 24 + 4, "flash_attention_f32": 12,
+      "head_tail_big_f32": 1, "warp_composite": 1, "blur_select_sbs": 1},
+     None),
+    ("vitl-252 auto/auto f32", "vitl", 252, "auto", 4, B,
+     {"layernorm_f32": 4 + 4, "attention_f32": 4,
+      "mlp_residual_hblocked_f32": 4, "head_tail_big_f32": 1,
+      "warp_composite": 1, "blur_select_sbs": 1}, None))
 # The f32 tails held in phase 8 (a): (C, grid, depth size) of the path that
 # runs each. Rows 11 and 12: vits-728 (C = 64), vitb-518 (128), vitl-252
-# (256), vitg-126 (384). Row 7: vits-518 (64), vitb-252 (128), vitl-126
-# (256), and C = 384 at the 126 grid (vitg's f32 plans take the big-C tail
-# there and at 252, row 7 only at small inputs such as 56).
+# (256), vitg-126 (384). Row 7: a 32-feature vits-518 head (C = 32, C2
+# zero-padded to 32), vits-518 (64), vitb-252 (128), vitl-126 (256), C =
+# 384 at the 126 grid (vitg's f32 plans take the big-C tail there and at
+# 252) and at vitg-56's (row 7 at small inputs).
+GRID_56, OUT_HW_56 = (16, 28), (56, 98)
 BIG_F32_SHAPES = ((64, GRID_L728, OUT_HW_L728), (128, (H0, W0), OUT_HW),
                   (256, *EXT_WIDE[256]), (384, *EXT_WIDE[384]))
-EXT_F32_SHAPES = ((64, (H0, W0), OUT_HW), (128, *EXT_WIDE[256]),
-                  (256, *EXT_WIDE[384]), (384, *EXT_WIDE[384]))
+EXT_F32_SHAPES = ((32, (H0, W0), OUT_HW), (64, (H0, W0), OUT_HW),
+                  (128, *EXT_WIDE[256]), (256, *EXT_WIDE[384]),
+                  (384, *EXT_WIDE[384]), (384, GRID_56, OUT_HW_56))
 # --mlp_fused xla --tail xla at f32: LayerNorm twice a block and at the four
 # taps, the one-shot attention (N <= 4096) or the flash kernel (N > 4096).
 XLA_F32 = ("layernorm_f32", "attention_f32", "warp_composite",
@@ -3183,11 +3237,16 @@ def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
     label = f"head_tail_ext_f32 C={c}"
     got = ht.head_tail_ext_stages(x, *wts, out_hw)
     # The mix's TF32 result from TF32-rounded operands (cuBLAS may keep
-    # a small f32 product at f32 with TF32 allowed).
+    # a small f32 product at f32 with TF32 allowed). At C = 32 (K = 32) the
+    # core's two truncating 16-wide sums sit further from f64 on average
+    # than cuBLAS's f32 product (0.840 against 0.747 mean ulps on an NVIDIA
+    # H100 80GB HBM3, 700.00 W; the core's model on the CPU, 0.87 against
+    # the CPU's 0.74, and 0.82 with a fresh sum every 8 of K), so there the
+    # mean is logged and the max held to the bound.
     tf_mix = ht.ext_mix_plain(tf32_round(x), tf32_round(k_oc))
     stages = dict(mix=f32_exact_check(
         f"{label} mix", got[0], ht.ext_mix_plain(*f64(x, k_oc)),
-        ht.ext_mix_plain(x, k_oc), tf_mix, 1))
+        ht.ext_mix_plain(x, k_oc), tf_mix, 1, hold_mean=c > 32))
     del tf_mix
     stages["upsample"] = dict(max_ulps=f32_ulps(
         got[1], ht.big_upsample_plain(got[0], b_oc), 1, b_oc).max().item())
@@ -3205,7 +3264,7 @@ def f32_ext_tail_check(gen, c: int, grid, out_hw) -> dict:
     with tf32(True):
         tf_c2 = ht.conv3x3_f32_plain(got[3], k2)
     stages["conv2"] = f32_exact_check(
-        f"{label} conv2", ht.conv3x3_f32(got[3], k2), conv3x3_f64(got[3], k2),
+        f"{label} conv2", core_conv_sums(got[3], k2), conv3x3_f64(got[3], k2),
         ht.conv3x3_f32_plain(got[3], k2), tf_c2, 1)
     del tf_c2
     depth = ht.big_conv2_plain(got[3], k2, b2, k3, b3)
@@ -3251,6 +3310,20 @@ def conv3x3_f64(x, k):
         cols = F.unfold(x[i:i + 1].permute(0, 3, 1, 2).double(), 3, padding=1)
         out[i] = (km @ cols[0]).reshape(-1, h, w).permute(1, 2, 0)
     return out
+
+
+def core_conv_sums(x, k):
+    """conv3x3_f32 (the 3x3 conv's sums on the 3xTF32 core) of x by k, their
+    channels zero-padded to 32 where fewer: conv2's 16 input channels at C =
+    32, as the f32 chains pad them (ops/head_tail._f32_padded)."""
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    pad = (-x.shape[-1]) % 32
+    if pad:
+        x, k = F.pad(x, (0, pad)), F.pad(k, (0, 0, 0, 0, 0, pad))
+    return ht.conv3x3_f32(x, k)
 
 
 def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
@@ -3517,7 +3590,7 @@ def f32_base_tail_check(gen, c: int) -> dict:
     with tf32(True):
         tf_c2 = ht.conv3x3_f32_plain(got[1], k2)
     stages["conv2"] = f32_exact_check(
-        f"{label} conv2", ht.conv3x3_f32(got[1], k2), conv3x3_f64(got[1], k2),
+        f"{label} conv2", core_conv_sums(got[1], k2), conv3x3_f64(got[1], k2),
         ht.conv3x3_f32_plain(got[1], k2), tf_c2, 1)
     del tf_c2
     depth = ht.big_conv2_plain(got[1], k2, b2, k3, b3)
@@ -3743,7 +3816,9 @@ def f32_kernel_parity(device) -> dict:
     for name, bsz, n, heads in (("attention_f32", B, N_TOK, HEADS),
                                 ("attention_f32", B, N_TOK, HEADS_G),
                                 ("flash_attention_f32", B_L728, N_L728,
-                                 HEADS_L)):
+                                 HEADS_L),
+                                ("flash_attention_f32", B_L728, N_L728,
+                                 HEADS_G)):
         qkv = randn(gen, (bsz, n, 3, heads, 64))
         qkv[:, :, 1] *= 1.5
         qkv[:, :, 0, :, 0] = 4.0
@@ -3757,7 +3832,7 @@ def f32_kernel_parity(device) -> dict:
             q = qkv[:, :, 0]
             fn, plain = flash_attention, flash_attention_plain
             args, s = (q, k, v, scale), scale
-            key = name
+            key = name + ("" if heads == HEADS_L else f" H={heads}")
         got, want = fn(*args), plain(*args)
         with tf32(True):
             tfw = plain(*args)
@@ -3791,19 +3866,23 @@ def f32_kernel_parity(device) -> dict:
     # Row 7 at every width, stage by stage, at the grid of the path that
     # runs it; rows 11 and 12 the same way.
     for c, grid, out_hw in EXT_F32_SHAPES:
-        out["head_tail_ext_f32" + ("" if c == FEATURES else f" C={c}")] = \
-            f32_ext_tail_check(gen, c, grid, out_hw)
+        key = "head_tail_ext_f32" + ("" if c == FEATURES else f" C={c}") \
+            + (" 56" if grid == GRID_56 else "")
+        out[key] = f32_ext_tail_check(gen, c, grid, out_hw)
         torch.cuda.empty_cache()
     for c, grid, out_hw in BIG_F32_SHAPES:
         out[f"head_tail_big_f32 C={c}"] = f32_big_tail_check(gen, c, grid,
                                                              out_hw)
         torch.cuda.empty_cache()
-    # Rows 15 and 16 at vits' and vitb's widths.
+    # Rows 15 and 16 at vits' and vitb's widths; row 15 also at a
+    # 32-feature head's (C2 zero-padded to 32).
     for c in (FEATURES, FEATURES_B):
         out[f"head_tail_f32 C={c}"] = f32_base_tail_check(gen, c)
         torch.cuda.empty_cache()
         out[f"rcu_pair_f32 C={c}"] = f32_rcu_check(gen, c)
         torch.cuda.empty_cache()
+    out["head_tail_f32 C=32"] = f32_base_tail_check(gen, 32)
+    torch.cuda.empty_cache()
     for name, res in out.items():
         log(f"kernel {name}: {json.dumps(res)}")
     return out
@@ -4073,12 +4152,14 @@ def f32_vitb_auto(device, frames) -> dict:
     return stats
 
 
-def f32_fused_paths(device, frames) -> dict:
+def f32_fused_paths(device, frames, paths=None) -> dict:
     """Phase 8 (c'): the other fused f32 paths (F32_FUSED_PATHS: vits fused,
-    vitb-252 auto, vitl-518 auto cut to 4 blocks at batch 2), one batch each
-    through process_segment with exactly their f32 kernels, their per-step
-    launches, the right half the input, and the depth within 1e-3 of its
-    range of the plain f32 path's on average."""
+    vitb-252 auto, vitl-518 auto cut to 4 blocks at batch 2; or ``paths``,
+    F32_NEW_PATHS' rows), one batch each through process_segment with
+    exactly their f32 kernels, their per-step launches, none of the f32
+    kernels' plain versions, the right half the input, and the depth within
+    1e-3 of its range of the plain f32 path's on average. Where a fused
+    tail runs, the head's output convs (cuDNN's) run in no step."""
     import torch
 
     from vr_video_generator_tpu_torch.models.factory import (build_model,
@@ -4086,7 +4167,8 @@ def f32_fused_paths(device, frames) -> dict:
     from vr_video_generator_tpu_torch.pipeline import SbsPipeline
 
     out = {}
-    for label, encoder, size, fused, blocks, batch, want in F32_FUSED_PATHS:
+    for row in paths or [(*p, None) for p in F32_FUSED_PATHS]:
+        label, encoder, size, fused, blocks, batch, want, features = row
         cfg = run_config(encoder, fused, fused, batch=batch, input_size=size,
                          dtype="float32")
         mcfg = cfg.model()
@@ -4094,14 +4176,24 @@ def f32_fused_paths(device, frames) -> dict:
             mcfg = dataclasses.replace(mcfg, depth=blocks,
                                        intermediate_layers=tuple(
                                            range(blocks)))
+        if features is not None:
+            mcfg = dataclasses.replace(mcfg, features=features)
         model = build_model(mcfg, random_state_dict(mcfg, SEED),
                             torch.float32, device, tail=fused)
         pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+        scratch = model.depth_head.scratch
+        convs = []
+        hooks = [m.register_forward_hook(lambda *a: convs.append(1))
+                 for m in (scratch.output_conv1, scratch.output_conv2)]
         with NoPlainF32():
             stats = one_batch(label, pipe, frames, tuple(want))
+        for h in hooks:
+            h.remove()
         per_step = {k: v for k, v in stats["launches"].items() if v}
         require(per_step == want,
                 f"{label}: one step launched {per_step}, expected {want}")
+        require(not (convs and any(k.startswith("head_tail") for k in want)),
+                f"{label}: the head's output convs ran beside the fused tail")
         x = pipe.frames_to_device(frames[:batch])
         d_kernel = pipe.depth_only(x)
         with PlainKernels():
@@ -4112,9 +4204,10 @@ def f32_fused_paths(device, frames) -> dict:
                 and mean <= 1e-3 * span,
                 f"{label}: depth off the plain f32 path by {mean} on average "
                 f"(range {span})")
-        stats.update(depth_vs_plain_mean=mean, depth_range=span)
+        stats.update(depth_vs_plain_mean=mean, depth_range=span, batch=batch,
+                     blocks=f"{mcfg.depth} of {cfg.model().depth}")
         log(f"{label}: depth against the plain f32 path: mean {mean}, range "
-            f"{span}")
+            f"{span}; {stats['blocks']} blocks, batch {batch}")
         out[label] = stats
         del model, pipe, x, d_kernel, d_plain
         torch.cuda.empty_cache()
@@ -4213,7 +4306,8 @@ def f32_off_cli(device) -> dict:
     must launch, the tail and the ext tail once, the RCU conv four times,
     the split OFF_CLI_F32_SPLITS times (their fresh weights); the depths
     finite. Then the tail once more on the same weights: one launch of it
-    and no split."""
+    and no split. At a 32-feature head's C = 32 (no RCU pair kernel there)
+    the single-kernel tail alone: one launch, its two convs split."""
     import torch
 
     from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
@@ -4224,24 +4318,30 @@ def f32_off_cli(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1516)
     out = {}
-    for c in (FEATURES, FEATURES_B):
+    for c in (FEATURES, FEATURES_B, 32):
         label = f"off-CLI f32 entry points C={c}"
+        rcu = c != 32
         path1 = randn(gen, (B, c, 2 * H0, 2 * W0)).permute(0, 2, 3, 1)
         tail = f32_tail_weights(gen, c)
-        rn0, path2, ws = f32_rcu_inputs(gen, c)
+        if rcu:
+            rn0, path2, ws = f32_rcu_inputs(gen, c)
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
         depth = head_tail(path1, *tail[2:], OUT_HW)
-        depth2 = head_tail_ext(refinenet_pre(rn0, path2, *ws), *tail, OUT_HW)
+        depth2 = head_tail_ext(refinenet_pre(rn0, path2, *ws), *tail,
+                               OUT_HW) if rcu else depth
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = launch_counts()
         log(f"{label}: {secs:.4f} s; launch counts {json.dumps(counts)}")
-        launched_exactly(label, counts, OFF_CLI_F32)
-        require(counts["head_tail_f32"] == 1 and counts["rcu_pair_f32"] == 4
-                and counts["head_tail_ext_f32"] == 1
-                and counts["tf32x3_split"] == OFF_CLI_F32_SPLITS,
+        launched_exactly(label, counts, OFF_CLI_F32 if rcu
+                         else ("head_tail_f32", "tf32x3_split"))
+        require(counts["head_tail_f32"] == 1
+                and counts["rcu_pair_f32"] == (4 if rcu else 0)
+                and counts["head_tail_ext_f32"] == (1 if rcu else 0)
+                and counts["tf32x3_split"] == (OFF_CLI_F32_SPLITS if rcu
+                                               else 2),
                 f"{label}: launches {counts}")
         require(bool(torch.isfinite(depth).all() & torch.isfinite(depth2).all())
                 and depth.shape == depth2.shape == (B, *OUT_HW),
@@ -4256,7 +4356,9 @@ def f32_off_cli(device) -> dict:
                 f"{label}, the tail again: launches {later}, depth equal "
                 f"{torch.equal(again, depth)}")
         out[f"C={c}"] = dict(seconds=secs, launches=counts)
-        del path1, rn0, path2, ws, depth, depth2, again
+        del path1, depth, depth2, again
+        if rcu:
+            del rn0, path2, ws
         torch.cuda.empty_cache()
     return out
 
@@ -4379,6 +4481,11 @@ def f32_path(device, rng) -> dict:
         out["fused"] = f32_fused_paths(device, frames)
         log(f"phase 8 (c') vits fused, vitb-252 auto, vitl-518 auto f32: "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["new"] = f32_fused_paths(device, frames, F32_NEW_PATHS)
+        log(f"phase 8 (c4) a 32-feature vits-518 head, vitg-728 (4 blocks, "
+            f"batch 2), vitl-126 (4 blocks), vitg-56 (4 blocks), vits-728, "
+            f"vitl-252 (4 blocks) auto f32: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         out["cli"] = f32_cli(device)
         log(f"phase 8 (d) cli f32: {time.perf_counter() - t0:.1f} s")
@@ -4519,15 +4626,32 @@ def tooling_path(device, rng) -> dict:
 # the 1 x 1 kernel path itself on these.
 GROUP_FLOOR = DEPTH_FLOOR
 GATE, GATE_FRAC = 1e-2, 1e-3
-# The calibrated scaler puts the batch's peak depth at GROUP_PEAK, between
-# two integers: the warp's plane table starts from ceil(max depth), so a
-# peak on an integer moves every plane for a change of an ulp.
-GROUP_PEAK = 11.5
+# The calibrated scaler puts the batch's peak depth near GROUP_PEAK and
+# every frame's peak, raw and temporally blended, between two integers, as
+# far from the nearer one as a scaler within GROUP_PEAK_SPAN of
+# GROUP_PEAK's allows (off_integer_scaler): the warp's plane table starts
+# from ceil(a frame's max depth) and its offset range from ceil(the blended
+# max) of every frame so far, so a peak on an integer moves every plane of
+# a frame for a change of an ulp. (On frames of uniform noise a vits-518
+# xla 1 x 4 group, its mean depth 1.11 x the yardstick's, moved 46% of one
+# frame's SBS values when only the batch's peak was placed so; 1 x 8,
+# another frame's, when only the raw peaks were: NVIDIA H100 80GB HBM3,
+# 700.00 W.)
+GROUP_PEAK, GROUP_PEAK_SPAN = 11.5, 0.1
 # f32: the partials' f32 rounding only; the max against the range.
 GROUP_F32_REL = 1e-5
+# A rank holds the balanced, contiguous head range [floor(r H / M),
+# floor((r + 1) H / M)) (parallel/sharding.head_range): a split attention
+# half launches its LayerNorm and the attention once a rank that holds
+# heads (a rank with none adds a zero partial).
+def head_holders(heads: int, m: int) -> int:
+    return sum((r + 1) * heads // m > r * heads // m for r in range(m))
+
+
 # (label, encoder, mlp_fused, --input_size, batch, compute dtype, model
 # ranks M, one step's launches at M ranks (24 blocks at vitl, 40 at vitg;
-# the final norm at the 4 taps on the first rank)). vitl-728 `auto`: the
+# the final norm at the 4 taps on the first rank), blocks (None: all)).
+# vitl-728 `auto`: the
 # attention half unfused (N = 4785 > 4096): LayerNorm, the qkv shard, row
 # 17 at 16/M heads, the proj shard, one all-reduce; the MLP half row 9 on
 # whole weights on every rank. vitl-518 `--mlp_fused xla`: both halves
@@ -4535,26 +4659,46 @@ GROUP_F32_REL = 1e-5
 # (attn_fusable is False at D = 1536), row 2 at 24/M heads; the SwiGLU half
 # row 10 whole (the rules replicate w12 and w3). f32 vitl-518 `auto`: the
 # attention half unfused (attn_fusable is False at D = 1024 in f32), row 2
-# at f32, row 9 at f32 whole, the tail unfused (no f32 plan fits).
+# at f32, row 9 at f32 whole, the tail unfused (no f32 plan fits). vits'
+# 6 heads and vitb's 12 split unevenly: vits-518 `--mlp_fused xla` at 1 x
+# 4 (1, 2, 1, 2 heads) and 1 x 8 (two ranks with none: 6 attention
+# launches a block), both halves split, the ext tail at C = 64; vits-518
+# `auto` at 1 x 4, the attention half fused on whole weights, the MLP half
+# split; vitb-518 `--mlp_fused xla` at 1 x 8 (1 or 2 heads a rank), cut to
+# 4 of its 12 blocks, the ext tail at C = 128.
 GROUP_PATHS = (
     ("vitl-728 auto", "vitl", "auto", 728, B_L728, "bfloat16", (2, 4),
      lambda m: {"layernorm": 24 * m + 4, "flash_attention": 24 * m,
                 "mlp_residual_hblocked": 24 * m, "head_tail_big_front": 1,
                 "head_tail_big_back": 1, "warp_composite": 1,
-                "blur_select_sbs": 1}),
+                "blur_select_sbs": 1}, None),
     ("vitl-518 xla", "vitl", "xla", 518, B, "bfloat16", (2, 4),
      lambda m: {"layernorm": 48 * m + 4, "attention": 24 * m,
                 "head_tail_big_front": 1, "head_tail_big_back": 1,
-                "warp_composite": 1, "blur_select_sbs": 1}),
+                "warp_composite": 1, "blur_select_sbs": 1}, None),
     ("vitg-518 auto", "vitg", "auto", 518, B, "bfloat16", (2,),
      lambda m: {"layernorm": 40 * m + 4, "attention": 40 * m,
                 "swiglu_residual": 40 * m, "head_tail_big_front": 1,
                 "head_tail_big_back": 1, "warp_composite": 1,
-                "blur_select_sbs": 1}),
+                "blur_select_sbs": 1}, None),
     ("vitl-518 auto f32", "vitl", "auto", 518, 2, "float32", (2,),
      lambda m: {"layernorm_f32": 24 * m + 4, "attention_f32": 24 * m,
                 "mlp_residual_hblocked_f32": 24 * m, "warp_composite": 1,
-                "blur_select_sbs": 1}))
+                "blur_select_sbs": 1}, None),
+    ("vits-518 xla", "vits", "xla", 518, B, "bfloat16", (4, 8),
+     lambda m: {"layernorm": 12 * (m + head_holders(HEADS, m)) + 4,
+                "attention": 12 * head_holders(HEADS, m),
+                "head_tail_ext": 1, "warp_composite": 1,
+                "blur_select_sbs": 1}, None),
+    ("vits-518 auto", "vits", "auto", 518, B, "bfloat16", (4,),
+     lambda m: {"layernorm": 12 * m + 4, "ln_qkv": 12 * m,
+                "attention": 12 * m, "proj_ls_residual": 12 * m,
+                "head_tail_ext": 1, "warp_composite": 1,
+                "blur_select_sbs": 1}, None),
+    ("vitb-518 xla", "vitb", "xla", 518, B, "bfloat16", (8,),
+     lambda m: {"layernorm": 4 * (m + head_holders(12, m)) + 4,
+                "attention": 4 * head_holders(12, m), "head_tail_ext": 1,
+                "warp_composite": 1, "blur_select_sbs": 1}, 4))
 # Rows 2 and 17 at the head counts a rank runs on these paths: (kernel,
 # batch, tokens, heads, the path at 1 x M that launches it).
 GROUP_ATTENTION = (
@@ -4562,7 +4706,9 @@ GROUP_ATTENTION = (
     ("flash_attention", B_L728, N_L728, HEADS_L // 4, "vitl-728 auto 1x4"),
     ("attention", B, N_TOK, HEADS_L // 2, "vitl-518 xla 1x2"),
     ("attention", B, N_TOK, HEADS_L // 4, "vitl-518 xla 1x4"),
-    ("attention", B, N_TOK, HEADS_G // 2, "vitg-518 auto 1x2"))
+    ("attention", B, N_TOK, HEADS_G // 2, "vitg-518 auto 1x2"),
+    ("attention", B, N_TOK, 1, "vits-518 xla 1x4"),
+    ("attention", B, N_TOK, 2, "vits-518 xla 1x4"))
 
 
 def card_state_dict(cfg, device):
@@ -4596,20 +4742,34 @@ def card_state_dict(cfg, device):
     return sd
 
 
+def off_integer_scaler(peaks, scaler: float):
+    """(the scaler within GROUP_PEAK_SPAN of ``scaler`` that puts each of
+    the frames' raw depth ``peaks`` farthest from an integer, that least
+    distance)."""
+    cands = scaler * np.linspace(1 - GROUP_PEAK_SPAN, 1 + GROUP_PEAK_SPAN,
+                                 4001)
+    depth = cands[:, None] * np.asarray(peaks, np.float64)[None]
+    gap = np.abs(depth - np.round(depth)).min(axis=1)
+    best = int(np.argmax(gap))
+    return float(cands[best]), float(gap[best])
+
+
 def group_path(device, frames, label, encoder, mlp_fused, size, batch,
-               dtype, ms, need) -> dict:
+               dtype, ms, need, blocks=None) -> dict:
     """One path of phase 10: the 1 x 1 SbsPipeline (calibrated scaler) and
     ``ShardedSbsPipeline`` at 1 x M on ``[device] * M`` for each M of
     ``ms``, one batch each after a warm-up step, the launch counts reset
     just before the group's step and read just after (exactly ``need(M)``);
     the group's depth and SBS held against the 1 x 1 ones, the right half
     equal to the input; the host ms of one group step's dispatch (nothing
-    read back, median of 5) beside the 1 x 1 eager step's."""
+    read back, median of 5) beside the 1 x 1 eager step's. ``blocks`` cuts
+    the encoder's depth (taps at blocks 0 .. blocks - 1)."""
     import torch
 
     from vr_video_generator_tpu_torch.kernels import (launch_counts,
                                                        reset_launch_counts)
     from vr_video_generator_tpu_torch.models.factory import build_model
+    from vr_video_generator_tpu_torch.ops.temporal import temporal_scan
     from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
     from vr_video_generator_tpu_torch.parallel.sharded import \
         ShardedSbsPipeline
@@ -4621,19 +4781,32 @@ def group_path(device, frames, label, encoder, mlp_fused, size, batch,
 
     cfg = run_config(encoder, mlp_fused, "auto", batch=batch,
                      input_size=size, dtype=dtype)
+    mcfg = cfg.model()
+    if blocks is not None:
+        mcfg = dataclasses.replace(mcfg, depth=blocks,
+                                   intermediate_layers=tuple(range(blocks)))
     t0 = time.perf_counter()
-    sd = card_state_dict(cfg.model(), device)
+    sd = card_state_dict(mcfg, device)
     tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    single = SbsPipeline(build_model(cfg.model(), sd, tdtype, device), H, W,
+    single = SbsPipeline(build_model(mcfg, sd, tdtype, device), H, W,
                          run_cfg=cfg)
     del sd
     build_s = time.perf_counter() - t0
     frames = frames[:batch]
+    batch_dev = single.frames_to_device(frames)
     scaler = calibrate_random_scaler(single, frames) * GROUP_PEAK \
         / TARGET_DEPTH_MAX
+    with torch.inference_mode():
+        depth = single.depth_only(batch_dev)
+        blended = temporal_scan(depth, single.initial_state(), single.spec)[0]
+        peaks = torch.cat([depth.amax(dim=(1, 2)), blended.amax(dim=(1, 2))])
+    scaler, gap = off_integer_scaler(
+        peaks.cpu().numpy() / single.model.cfg.depth_scaler, scaler)
+    del depth, blended
     single.model.cfg = dataclasses.replace(single.model.cfg,
                                            depth_scaler=scaler)
-    batch_dev = single.frames_to_device(frames)
+    log(f"{label}: depth scaler {scaler}, every frame's peak at least {gap} "
+        f"from an integer")
 
     def dispatch_ms(step):
         times = []
@@ -4651,6 +4824,7 @@ def group_path(device, frames, label, encoder, mlp_fused, size, batch,
     want_sbs = want_sbs.cpu().numpy()
     span = float(want_depth.max() - want_depth.min())
     out = {"build_s": build_s, "depth_range": span,
+           "blocks": f"{mcfg.depth} of {cfg.model().depth}",
            "host_dispatch_ms_1x1": dispatch_ms(
                lambda: single.step(batch_dev, single.initial_state()))}
     if dtype == "bfloat16":
@@ -4724,12 +4898,12 @@ def group_path(device, frames, label, encoder, mlp_fused, size, batch,
     return out
 
 
-def group_cli(device) -> dict:
-    """Phase 10 (c): ``cli.main --mesh 1x2 --device cuda:0`` (vits
-    ``auto``, both ranks on the card) over a 24-frame 1080p ``soak_gen``
-    mp4 (cv2):
-    subclips 0_5 .. 18_23 that ``check_subclips`` passes, and the sharded
-    log."""
+def group_cli(device, mesh: str = "1x2") -> dict:
+    """Phase 10 (c): ``cli.main --mesh <mesh> --encoder vits --device
+    cuda:0`` (vits ``auto``, every rank on the card; at 1x4 the ranks hold
+    1, 2, 1 and 2 of the 6 heads) over a 24-frame 1080p ``soak_gen`` mp4
+    (cv2): subclips 0_5 .. 18_23 that ``check_subclips`` passes, and the
+    sharded log."""
     import tempfile
 
     from vr_video_generator_tpu_torch import cli, soak_gen
@@ -4740,7 +4914,8 @@ def group_cli(device) -> dict:
         video = os.path.join(d, "in.mp4")
         soak_gen.generate(video, 3 * B, H, W)
         sub = os.path.join(d, "S") + os.sep
-        argv = ["--device", str(device), "--mesh", "1x2", "--VideoDir", video,
+        argv = ["--device", str(device), "--mesh", mesh, "--encoder", "vits",
+                "--VideoDir", video,
                 "--OutputDir", os.path.join(d, "out.mkv"),
                 "--DebugDir", os.path.join(d, "D") + os.sep,
                 "--SubClipDir", sub, "--Max_Frame_Count", "6",
@@ -4748,17 +4923,18 @@ def group_cli(device) -> dict:
                 "--reader_backend", "cv2", "--writer_backend", "cv2",
                 "--allow_random_weights"]
         t0 = time.perf_counter()
-        require(cli.main(argv) == 0, "cli --mesh 1x2: non-zero exit")
+        require(cli.main(argv) == 0, f"cli --mesh {mesh}: non-zero exit")
         secs = time.perf_counter() - t0
         names = sorted_subclips(sub)
         issues = check_subclips(sub)
         logs = sorted(os.listdir(os.path.join(d, "D")))
     want = [f"{i}_{i + 5}.mp4" for i in range(0, 3 * B, 6)]
     require(names == want and issues == [] and "sharded_p0.txt" in logs,
-            f"cli --mesh 1x2: subclips {names}, issues {issues}, logs {logs}")
+            f"cli --mesh {mesh}: subclips {names}, issues {issues}, logs "
+            f"{logs}")
     out = dict(clips=names, seconds=secs)
-    log(f"phase 10 (c) cli --mesh 1x2 --device {device}: 24 frames of a "
-        f"1080p mp4, subclips that check: {json.dumps(out)}")
+    log(f"phase 10 (c) cli --mesh {mesh} --encoder vits --device {device}: "
+        f"24 frames of a 1080p mp4, subclips that check: {json.dumps(out)}")
     return out
 
 
@@ -4766,8 +4942,11 @@ def model_axis_path(device) -> dict:
     """Phase 10: the model axis on one card (see the constants above): (a)
     rows 2 and 17 at the head counts a rank runs; (b) vitl-728 ``auto`` at
     1 x 2 and 1 x 4, vitl-518 ``--mlp_fused xla`` at 1 x 2 and 1 x 4,
-    vitg-518 ``auto`` at 1 x 2 and f32 vitl-518 ``auto`` at 1 x 2, each
-    against 1 x 1; (c) ``cli.main --mesh 1x2``."""
+    vitg-518 ``auto`` at 1 x 2, f32 vitl-518 ``auto`` at 1 x 2, and the
+    uneven head splits: vits-518 ``--mlp_fused xla`` at 1 x 4 and 1 x 8,
+    vits-518 ``auto`` at 1 x 4, vitb-518 ``--mlp_fused xla`` at 1 x 8 (4
+    blocks), each against 1 x 1; (c) ``cli.main --mesh 1x2`` and ``--mesh
+    1x4``."""
     import tempfile
 
     from vr_video_generator_tpu_torch import soak_gen
@@ -4784,17 +4963,18 @@ def model_axis_path(device) -> dict:
         soak_gen.generate(video, B, H, W)
         with VideoReader(video, begin=0, backend="cv2") as r:
             frames = np.stack(list(r.frames(0, B)))
-    for label, encoder, mlp_fused, size, batch, dtype, ms, need \
+    for label, encoder, mlp_fused, size, batch, dtype, ms, need, blocks \
             in GROUP_PATHS:
         t0 = time.perf_counter()
         res = group_path(device, frames, label, encoder, mlp_fused, size,
-                         batch, dtype, ms, need)
+                         batch, dtype, ms, need, blocks)
         for m in ms:
             out["paths"][f"{label} 1x{m}"] = res.pop(f"1x{m}")
         out["paths"][label] = res
         log(f"phase 10 (b) {label}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out["cli"] = group_cli(device)
+    out["cli 1x4"] = group_cli(device, "1x4")
     log(f"phase 10 (c): {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -5196,7 +5376,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase8 = f32_path(device, rng)
     log(f"phase 8 (f32 on the card: kernel parity, vits, vitb and vitg "
-        f"auto, rows 15 and 16, vitl/vitg xla, cli, bench): "
+        f"auto, rows 15 and 16, vitl/vitg xla, the fused and the newly run "
+        f"paths, cli, bench): "
         f"{time.perf_counter() - t0:.1f} s")
     paths["phase 8"] = phase8
     t0 = time.perf_counter()
@@ -5207,8 +5388,9 @@ def main() -> int:
     phase10 = model_axis_path(device)
     paths["phase 10"] = phase10
     log(f"phase 10 (the model axis: rows 2 and 17 at a rank's heads, "
-        f"vitl-728, vitl-518 xla, vitg-518 and f32 vitl-518 model groups, "
-        f"cli --mesh 1x2): {time.perf_counter() - t0:.1f} s")
+        f"vitl-728, vitl-518 xla, vitg-518, f32 vitl-518, vits-518 xla and "
+        f"auto, vitb-518 xla model groups, cli --mesh 1x2 and 1x4): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["phase 11"] = front_ends_path()
     log(f"phase 11 (the front ends: the real-weights runbook at f32 and "
@@ -5327,6 +5509,30 @@ def main() -> int:
                  off32[f"C={c}"]["launches"][name])
                 for c in (FEATURES, FEATURES_B)
                 for name in ("head_tail_f32", "rcu_pair_f32")]
+    # The f32 paths first run in phase 8 (c4), each with its kernels at
+    # its shapes: row 7 at a 32-feature head's C = 32 (vits-518), at C =
+    # 256 (vitl-126) and 384 (vitg-56's grid), rows 11 + 12 at C = 64
+    # (vits-728) and 256 (vitl-252), row 17 at 24 heads (vitg-728); row 15
+    # at C = 32 off the CLI.
+    new32 = {label: res["launches"] for label, res in phase8["new"].items()}
+    entries += [(name, f32k[key], new32[label][name])
+                for name, key, label in (
+                    ("head_tail_ext_f32", "head_tail_ext_f32 C=32",
+                     "vits-518 auto/auto f32 C=32"),
+                    ("head_tail_ext_f32", f"head_tail_ext_f32 C={FEATURES_L}",
+                     "vitl-126 auto/auto f32"),
+                    ("head_tail_ext_f32",
+                     f"head_tail_ext_f32 C={FEATURES_G} 56",
+                     "vitg-56 auto/auto f32"),
+                    ("head_tail_big_f32", f"head_tail_big_f32 C={FEATURES}",
+                     "vits-728 auto/auto f32"),
+                    ("head_tail_big_f32", f"head_tail_big_f32 C={FEATURES_L}",
+                     "vitl-252 auto/auto f32"),
+                    ("flash_attention_f32",
+                     f"flash_attention_f32 H={HEADS_G}",
+                     "vitg-728 auto/auto f32"))]
+    entries.append(("head_tail_f32", f32k["head_tail_f32 C=32"],
+                    off32["C=32"]["launches"]["head_tail_f32"]))
     # Rows 2 and 17 at the heads a model-group rank runs (phase 10), with
     # the launches of the 1 x M path that runs them.
     entries += [(name, phase10["kernels"][f"{name} H={heads}"],

@@ -260,13 +260,12 @@ def test_no_file_names_the_simt_headers(header):
 
 # --- (f) widths without an f32 kernel --------------------------------------------
 
-@pytest.mark.parametrize("c,item", [(32, "f32 on the card"),
+@pytest.mark.parametrize("c,item", [(16, "DPT tail kernels at other widths"),
                                     (256, "DPT tail kernels at other widths")])
 def test_f32_width_without_kernel_raises_not_ported(monkeypatch, c, item):
     """(f) head_tail and head_tail_stages on f32 path1 on the card at C =
-    32 (a custom head, no f32 row 15 kernel) or 256 (no row 15 kernel at
-    any dtype) raise not_ported naming the roadmap item, before any weight
-    is split or kernel launched."""
+    16 or 256 (no row 15 kernel at any dtype) raise not_ported naming the
+    roadmap item, before any weight is split or kernel launched."""
     monkeypatch.setattr(ht, "on_cuda", lambda *t: True)
     monkeypatch.setattr(ht, "_prepared", lambda *a: pytest.fail("prepared"))
     x, *wts = base_case(c, 5, 7, seed=c)

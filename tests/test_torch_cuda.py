@@ -2395,3 +2395,107 @@ def test_real_weights_runbook_f32_on_the_card(cuda, tmp_path):
     assert g["calibrated"] and g["under_step_cap"] and g["depth_ok"]
     assert abs(g["raw_depth_max"] * g["scaler_used"]
                - real_weights_runbook.CAL_TARGET_MAX) < 1e-6
+
+
+@pytest.mark.parametrize("row,b,h,w", [(7, 2, 37, 66), (7, 1, 7, 11),
+                                       (15, 2, 9, 14), (15, 1, 24, 40)])
+def test_f32_tails_at_c32_match_plain(cuda, row, b, h, w):
+    """Rows 7 and 15 at f32 at a 32-feature head's C = 32 (conv1's 16
+    outputs and conv2's 16 inputs zero-padded to 32 in the chains) on an
+    NCHW activation seen as NHWC: c1 and R come back as 16-channel views;
+    conv1 + b1 and conv2's sums (on the core over the same zero padding,
+    chip_smoke.core_conv_sums) within chip_smoke.py's f32 bound of the conv
+    on f64 operands (f32_exact_check, TF32 refused; the mean logged, as at
+    C = 64 on few pixels); the depth against the plain version relative to
+    its range, a bound the plain version on TF32-rounded operands fails;
+    one launch on the f32 counter, splitting 3 (row 7) or 2 (row 15)
+    weights at the first call and none at the second."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, conv3x3_f64,
+                            core_conv_sums, f32_exact_check, f32_rel_check,
+                            tf32_round)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(row + h * w)
+    c = 32
+    x = _randn(gen, (b, c, h, w), dtype=F32).permute(0, 2, 3, 1)
+    wts = _f32_tail_wts(gen, c)
+    if row == 15:
+        wts = wts[2:]
+        out_hw = (h * 7 // 4, w * 7 // 4)
+        stages, whole, plain = ht.head_tail_stages, ht.head_tail, \
+            ht.head_tail_plain
+        counter, splits = "head_tail_f32", 2
+    else:
+        out_hw = (h * 7 // 2, w * 7 // 2)
+        stages, whole, plain = ht.head_tail_ext_stages, ht.head_tail_ext, \
+            ht.head_tail_ext_plain
+        counter, splits = "head_tail_ext_f32", 3
+    k1, b1, k2 = wts[-6:-3]
+    counts = []
+    for _ in range(2):
+        before = dict(launch_counts())
+        got = stages(x, *wts, out_hw)
+        counts.append({k: launch_counts().get(k, 0) - before.get(k, 0)
+                       for k in (counter, "tf32x3_split")})
+    assert counts == [{counter: 1, "tf32x3_split": splits},
+                      {counter: 1, "tf32x3_split": 0}]
+    z, c1, r = (x, got[0], got[1]) if row == 15 else got[1:4]
+    assert c1.shape[-1] == r.shape[-1] == 16
+    conv1 = ht.base_conv1_plain if row == 15 else ht.ext_conv1_plain
+    print(f32_exact_check(f"row {row} f32 C=32 conv1", c1,
+                          conv3x3_f64(z, k1) + b1.double(),
+                          conv1(z, k1, b1),
+                          conv1(tf32_round(z), tf32_round(k1), b1), 1, b1,
+                          hold_mean=False))
+    print(f32_exact_check(f"row {row} f32 C=32 conv2", core_conv_sums(r, k2),
+                          conv3x3_f64(r, k2), ht.conv3x3_f32_plain(r, k2),
+                          ht.conv3x3_f32_plain(tf32_round(r),
+                                               tf32_round(k2)), 1,
+                          hold_mean=False))
+    want = plain(x, *wts, out_hw)
+    rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
+    tfw = plain(tf32_round(x), *rounded, out_hw)
+    span = (want.max() - want.min()).item()
+    f32_rel_check(f"row {row} f32 C=32", got[-1], want, tfw,
+                  TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL, span)
+    assert torch.equal(whole(x, *wts, out_hw), got[-1])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_vits_xla_group_1x4_on_one_card_matches_1x1(cuda, dtype):
+    """vits ``--mlp_fused xla`` on a 1 x 4 model group on one card (ranks of
+    1, 2, 1 and 2 of the 6 heads, both halves split): a step launches the
+    attention 12 x 4 times and LayerNorm 24 x 4 + 4; its SBS's right half is
+    the input; its depth against the 1 x 1 pipeline's within chip_smoke.py's
+    mean bound of the kernel path against plain (DEPTH_REL of the range) in
+    bf16, within GROUP_F32_REL of the range at its largest in f32."""
+    from chip_smoke import DEPTH_REL, GROUP_F32_REL
+    from vr_video_generator_tpu_torch import RunConfig
+    from vr_video_generator_tpu_torch.kernels import reset_launch_counts
+    from vr_video_generator_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = RunConfig(encoder="vits", batch_size=2, compute_dtype=dtype,
+                    mlp_fused="xla", input_size=518)
+    single, (group,) = _group_pipes(
+        cfg, 270, 480, [make_mesh((1, 4), devices=[cuda] * 4)])
+    assert [b.pretrained.blocks[0].attn.num_heads
+            for b in group.replicas[0].model.ranks] == [1, 2, 1, 2]
+    frames = np.random.default_rng(29).integers(0, 256, (2, 270, 480, 3),
+                                                dtype=np.uint8)
+    group.step(frames, group.initial_state())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sbs, _ = group.step(frames, group.initial_state())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    f32 = "_f32" if dtype == "float32" else ""
+    assert counts[f"attention{f32}"] == 12 * 4
+    assert counts[f"layernorm{f32}"] == 24 * 4 + 4
+    assert torch.equal(sbs[0][:, :, 480:].cpu(), torch.from_numpy(frames))
+    got, want = group.replicas[0].depth_only(frames), \
+        single.depth_only(frames)
+    span = float(want.max() - want.min())
+    if dtype == "bfloat16":
+        assert _depth_mean_rel(got, want) <= DEPTH_REL
+    else:
+        assert float((got - want).abs().max()) <= GROUP_F32_REL * span

@@ -86,10 +86,17 @@ def test_ext_tail_f32_plain_matches_pallas_interpret(c, h0, w0):
 
 def test_f32_widths():
     """Both f32 tails take every width of an encoder's head (64-384), the
-    widths their kernels are built for; a 32-feature head has none."""
-    assert ht.EXT_F32_CHANNELS == ht.BIG_CHANNELS == (64, 128, 256, 384)
-    assert all(ht.takes_f32(c) for c in (64, 128, 256, 384))
-    assert not ht.takes_f32(32)
+    widths their kernels are built for; the ext tail also a 32-feature head
+    (C2 zero-padded to 32), the big-C tail not; a 16-feature head has
+    neither."""
+    assert ht.EXT_F32_CHANNELS == ht.CHANNELS == (32, 64, 128, 256, 384)
+    assert ht.BIG_F32_CHANNELS == ht.BIG_CHANNELS == (64, 128, 256, 384)
+    assert all(ht.takes_f32(c) and ht.takes_f32(c, "big")
+               for c in (64, 128, 256, 384))
+    assert ht.takes_f32(32) and not ht.takes_f32(32, "big")
+    assert not ht.takes_f32(16) and not ht.takes_f32(16, "big")
+    assert [ht.f32_c2(c) for c in (32, 64, 128, 256, 384)] == \
+        [32, 32, 64, 128, 192]
 
 
 @pytest.mark.parametrize("c", [128, 384])

@@ -145,7 +145,7 @@ def test_shards_gather_back_bit_for_bit(m):
     bit for bit, as numpy arrays and as tensors; replicated parameters are
     whole on every rank, split ones 1/m of it."""
     sd = random_state_dict(TINY4, seed=3)
-    shards = [shard_state_dict(sd, r, m) for r in range(m)]
+    shards = [shard_state_dict(sd, r, m, TINY4.num_heads) for r in range(m)]
     for name, whole in gather_state_dict(shards).items():
         np.testing.assert_array_equal(whole, sd[name])
     tshards = [{k: torch.from_numpy(v) for k, v in s.items()} for s in shards]
@@ -164,7 +164,7 @@ def test_qkv_shard_is_its_heads():
     name = "pretrained.blocks.1.attn.qkv.weight"
     whole = sd[name].reshape(3, 4, 16, 64)  # (q/k/v, heads, head_dim, D)
     for r in range(2):
-        got = shard_state_dict(sd, r, 2)[name].reshape(3, 2, 16, 64)
+        got = shard_state_dict(sd, r, 2, 4)[name].reshape(3, 2, 16, 64)
         np.testing.assert_array_equal(got, whole[:, 2 * r:2 * r + 2])
 
 
@@ -177,7 +177,7 @@ def test_build_group_holds_the_shards(m):
     group = build_group(whole, ["cpu"] * m)
     assert group.devices == [torch.device("cpu")] * m
     for r, rank in enumerate(group.ranks):
-        want = shard_state_dict(whole.state_dict(), r, m)
+        want = shard_state_dict(whole.state_dict(), r, m, TINY4.num_heads)
         got = rank.state_dict()
         assert sorted(got) == sorted(want)
         for name in want:
@@ -400,14 +400,22 @@ def test_cli_mesh_2x2_writes_subclips_that_check(tmp_path):
 # ------------------------------------------------------------ the refusals
 
 def test_refuses_a_model_axis_that_does_not_divide_the_heads(model):
-    """vits has 6 heads: M = 4 is refused, naming the encoder and M, before
-    any shard is built; TINY's 2 heads refuse M = 4 in the pipeline."""
-    with pytest.raises(ValueError, match="model axis of 4 .*vits's 6 heads"):
-        check_model_axis(ModelConfig.for_encoder("vits"), 4)
+    """A model axis is refused where the JAX package's ``device_put``
+    refuses it, naming the dimension, before any shard is built: vits' D =
+    384 at M = 5, vitl's D = 1024 at M = 3, TINY's D = 32 at M = 3 in the
+    pipeline. A head count that M does not divide is no refusal (vits' 6
+    heads at M = 4, vitg's 24 at M = 16)."""
+    with pytest.raises(ValueError,
+                       match="model axis of 5 .*vits's embedding width 384"):
+        check_model_axis(ModelConfig.for_encoder("vits"), 5)
+    with pytest.raises(ValueError,
+                       match="model axis of 3 .*vitl's embedding width 1024"):
+        check_model_axis(ModelConfig.for_encoder("vitl"), 3)
+    check_model_axis(ModelConfig.for_encoder("vits"), 4)
     check_model_axis(ModelConfig.for_encoder("vitl"), 4)
-    check_model_axis(ModelConfig.for_encoder("vitg"), 8)
-    with pytest.raises(ValueError, match="model axis of 4"):
-        sharded(model, (1, 4))
+    check_model_axis(ModelConfig.for_encoder("vitg"), 16)
+    with pytest.raises(ValueError, match="model axis of 3"):
+        sharded(model, (1, 3))
 
 
 def test_refuses_a_group_spanning_processes(model):

@@ -305,10 +305,11 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
 
 
 def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
-    """compute_dtype float32 on a CUDA device raises not_ported("f32 on the
-    card") in SbsPipeline.create, before load_model builds a weight, where
-    the f32 plan needs a kernel with no f32 variant: a custom head of 32
-    features, whose DPT tail has none. bf16 on the card passes the check,
+    """compute_dtype float32 on a CUDA device raises not_ported("DPT tail
+    kernels at other widths") in SbsPipeline.create, before load_model
+    builds a weight, where the f32 plan needs a kernel with no f32 variant:
+    a custom head of 16 features, whose DPT tail has none. bf16 on the card
+    passes the check,
     and so does f32 on a plan whose kernels all have their f32 variants
     (CFG: xla/xla; vits fused, rows 8 and 7 at f32; vitg fused, row 10 and
     the big-C tail at f32)."""
@@ -331,13 +332,15 @@ def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
             SbsPipeline.create(ok, H, W, allow_random=True, device="cuda")
     model = RunConfig.model
     monkeypatch.setattr(RunConfig, "model", lambda self: dataclasses.replace(
-        model(self), features=32))  # CFG's class: a custom head
+        model(self), features=16))  # CFG's class: a custom head
     # At 1080p and --input_size 126 the JAX planners pick a fused tail.
     narrow = dataclasses.replace(vitg, input_size=126)
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
+    with pytest.raises(NotImplementedError,
+                       match="DPT tail kernels at other widths"):
         SbsPipeline.create(narrow, 1080, 1920, allow_random=True,
                            device="cuda")
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
+    with pytest.raises(NotImplementedError,
+                       match="DPT tail kernels at other widths"):
         SbsPipeline.create(dataclasses.replace(narrow,
                                                compute_dtype="bfloat16"),
                            1080, 1920, allow_random=True, dtype=torch.float32)

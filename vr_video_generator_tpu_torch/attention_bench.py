@@ -6,7 +6,8 @@ shapes the main paths give them.
 For each shape (1080p, --input_size 518: N = 2443 tokens at vits' 6 heads,
 vitl's 16 and vitg's 24, batch 8; --input_size 728: N = 4785 at vitl's 16
 heads, batch 2 as ``chip_smoke.py`` runs it and batch 8 as ``stage_bench``
-does) it runs the kernel and its plain version on the same seeded q/k/v,
+does; and at 1 and 2 heads, batch 8, at both token counts: a model-group
+rank's share of vits' or vitb's heads) it runs the kernel and its plain version on the same seeded q/k/v,
 with k and v strided views into one qkv as the fused path passes them, and
 prints one JSON line: the error against the plain version (max and mean,
 absolute and against max / mean |o|), the CUDA-event median times of the
@@ -57,6 +58,12 @@ SHAPES = (  # (label, kernel, B, N, H)
     ("row 2 vitg-518", "attention", 8, 2443, 24),
     ("row 17 vitl-728 B=2", "flash_attention", 2, 4785, 16),
     ("row 17 vitl-728 B=8", "flash_attention", 8, 4785, 16),
+    # A model-group rank's heads where M does not divide them (vits' 6 at
+    # M = 4, vitb's 12 at M = 8: 1 or 2 a rank).
+    ("row 2 rank H=1", "attention", 8, 2443, 1),
+    ("row 2 rank H=2", "attention", 8, 2443, 2),
+    ("row 17 rank H=1", "flash_attention", 8, 4785, 1),
+    ("row 17 rank H=2", "flash_attention", 8, 4785, 2),
 )
 F32_SHAPES = (  # chip_smoke.py phase 8's
     ("row 2 vits f32", "attention", 8, 2443, 6),

@@ -108,18 +108,19 @@
 // At vits' 1080p (B = 8, path1 296 x 528 x 64, depth 518 x 924) the convs
 // are 46 + 71 GFLOP (0.12 ms at the bf16 peak), against ~0.6 GB of
 // intermediates (c1 80 MB, R 245 MB, each written and read): about as much
-// time on traffic as on products. At C = 32 (a custom head) the tail runs
-// csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a core
-// tile nor a halo mode for C2 = 16.
+// time on traffic as on products. At C = 32 (a custom head) the bf16 tail
+// runs csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a
+// core tile nor a halo mode for C2 = 16.
 //
 // The tails at f32 (--compute_dtype float32): row 7
-// (vrvg_head_tail_ext_f32) and rows 11 and 12 (vrvg_head_tail_big_f32), at
-// C = 64 to 384, are the same chains at the f32 rounding points of
-// `_tail_ext_kernel` and of `_big_front_kernel` / `_big_back_kernel`
-// (every intermediate f32, the resize weights f32, conv1's folded weights
-// the f32 fold itself): the NCHW transpose, the upsample pass (with
-// out_conv's bias for row 7) and the resize pass (with `cw` for row 12) are
-// the kernels above instantiated on f32 (16 bytes a thread, 4 channels).
+// (vrvg_head_tail_ext_f32, C = 32 to 384) and rows 11 and 12
+// (vrvg_head_tail_big_f32, C = 64 to 384) are the same chains at the f32
+// rounding points of `_tail_ext_kernel` and of `_big_front_kernel` /
+// `_big_back_kernel` (every intermediate f32, the resize weights f32,
+// conv1's folded weights the f32 fold itself): the NCHW transpose, the
+// upsample pass (with out_conv's bias for row 7) and the resize pass (with
+// `cw` for row 12) are the kernels above instantiated on f32 (16 bytes a
+// thread, 4 channels).
 // wgmma takes no f32 operands and TF32 is not f32, so the products run on
 // the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), their weights split once by
 // the wrapper: rows 11 and 12's folded conv1 and row 7's conv1 (+ b1) as
@@ -135,9 +136,13 @@
 // ms at 3xTF32's 165 TFLOP/s, against ~1.4 GB of f32 intermediates (0.42
 // ms); at vitb-518 (C = 128) rows 11 and 12's conv1 and conv2 are 184 + 141
 // GFLOP (1.97 ms) against ~4 GB of f32 U, mid and R written and read (1.2
-// ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32, C = 64 and
-// 128) is row 7's f32 chain from conv1 on, on the same core (see its entry
-// point).
+// ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32, C = 32, 64
+// and 128) is row 7's f32 chain from conv1 on, on the same core (see its
+// entry point). At C = 32 (a custom head) both run C2 = 16 zero-padded to
+// 32 channels (f32_c2); at that width row 7's mix, conv1 and conv2 at vits'
+// 1080p grid (B = 8) are 0.6 + 11.5 + 35 GFLOP (0.29 ms at 165 TFLOP/s)
+// against ~1.7 GB of f32 x, xoc, Z and the padded c1 and R written and
+// read (0.52 ms at 3.35 TB/s): bound by the intermediates' bytes.
 
 #include <type_traits>
 
@@ -156,7 +161,9 @@ constexpr int PASS_THREADS = 256;
 // Row 11, 0: the model hands x over as an NCHW activation seen as NHWC. x
 // (B, C, H0 W0) -> (B, H0 W0, C) in 64 x 64 tiles through shared memory, so
 // a warp reads 64 pixels of a channel and writes 64 channels of a pixel, 128
-// bytes each way (256 for f32). T is bf16, or f32 for the f32 tails.
+// bytes each way (256 for f32). T is bf16, or f32 for the f32 tails. C is
+// even; a tile past C (C = 32, a custom head at f32) holds C's channels
+// only.
 constexpr int TT = 64;  // transpose tile
 
 template <class T>
@@ -178,7 +185,7 @@ to_channels_last_kernel(const T* __restrict__ x, T* __restrict__ y, int c,
   const int p0 = blockIdx.x * TT, c0 = blockIdx.y * TT, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* src = x + ((long long)b * c + c0) * hw + p0;
-  for (int ch = warp; ch < TT; ch += PASS_THREADS / 32) {
+  for (int ch = warp; ch < TT && c0 + ch < c; ch += PASS_THREADS / 32) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int p = 2 * lane + e;
@@ -187,6 +194,7 @@ to_channels_last_kernel(const T* __restrict__ x, T* __restrict__ y, int c,
   }
   __syncthreads();
   T* dst = y + ((long long)b * hw + p0) * c + c0;
+  if (c0 + 2 * lane >= c) return;
   for (int p = warp; p < TT && p0 + p < hw; p += PASS_THREADS / 32) {
     typename Pair<T>::type v;
     v.x = t[2 * lane][p];
@@ -576,7 +584,8 @@ int launch(const void* in, const void* w, const float* bias, const float* w3,
 template <class T = bf16>
 int to_channels_last(const void* x, void* xt, int batch, int c, int hw,
                      void* stream) {
-  to_channels_last_kernel<T><<<dim3((hw + TT - 1) / TT, c / TT, batch),
+  to_channels_last_kernel<T><<<dim3((hw + TT - 1) / TT, (c + TT - 1) / TT,
+                                    batch),
                                PASS_THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)x, (T*)xt, c, hw);
   return (int)cudaGetLastError();
@@ -783,6 +792,23 @@ extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
 
 namespace {
 
+// The channels of the f32 chains' c1 and R at head width c: C / 2, or 32
+// at C = 32. conv_kernel reads its input in 32-channel slices (one TMA
+// halo box of 128-byte rows each, split in place into hi and lo planes),
+// so conv2 cannot take C2 = 16 as it is. A slice of 16 (64-byte rows, a
+// 64-byte swizzle, two k-steps a stage) would be a second layout of the
+// halo, its split and its A fragments. Zero padding keeps the one layout:
+// conv1 runs 32 output columns whose weight rows (the split's, already
+// zero past the conv's 16 rows) and bias are zeros, so it writes 0 + 0 = 0
+// there; the resize pass carries the zeros; conv2's weights for input
+// channels 16-31 are zeros (ops/head_tail._f32_padded). A 3xTF32 product
+// of a zero is an exact zero and the tensor core's sum of exact zeros adds
+// nothing, so each stage's sums are those of the 16 real channels. The
+// cost: conv1's and the resize pass's stores and conv2's reads of c1 and R
+// double (~0.65 GB more written and read at vits' 1080p grid, B = 8), and
+// half of conv2's products are zeros.
+inline int f32_c2(int c) { return c == 32 ? 32 : c / 2; }
+
 // epi on the (B H W, n) f32 sums of a 3x3 conv with zero padding of x (B,
 // H, W, C) f32 on the 3xTF32 core, the weights (n, 9 C) split; n = epi.n in
 // {32, 64, 128, 192} on tiles as wide as n up to 64 (two of 64 at 128, two
@@ -816,11 +842,12 @@ int conv3x3_f32(const float* x, const uint32_t* ws, int batch, int h, int w,
 // f32 bias; the f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the
 // same k order, split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3
 // (1,) f32; scratch xoc (B, H0, W0, C), z (B, 2 H0, 2 W0, C), c1 (B, 2 H0,
-// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {64,
-// 128, 256, 384}, C2 = C / 2. The mix on the dense 3xTF32 product (128 x
-// 128 tiles: at C = 64 half of each idle; a fresh tensor-core sum every 16
-// of K, which keeps it as close to the f64 mix on average as cuBLAS's
-// SGEMM at K = 64), conv1 + b1 (BiasStore) and conv2 with the 1x1
+// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {32,
+// 64, 128, 256, 384}, C2 = C / 2, or 32 at C = 32 (f32_c2: conv1's 16
+// outputs zero-padded, see below). The mix on the dense 3xTF32 product
+// (128 x 128 tiles: at C = 64 half of each idle; a fresh tensor-core sum
+// every 16 of K, which keeps it as close to the f64 mix on average as
+// cuBLAS's SGEMM at K = 64), conv1 + b1 (BiasStore) and conv2 with the 1x1
 // (DepthOut) on its conv, as rows 11 and 12 at f32 run theirs.
 // Returns a CUDA error code (a tensor map that does not encode:
 // cudaErrorInvalidValue).
@@ -831,13 +858,13 @@ extern "C" int vrvg_head_tail_ext_f32(
     const void* tapw_b, void* r, const void* w2s, const void* b2,
     const void* w3, const void* b3, void* out, int batch, int h0, int w0,
     int c, int h1, int w1, void* stream) {
-  if (c != 64 && c != 128 && c != 256 && c != 384) {
+  if (c != 32 && c != 64 && c != 128 && c != 256 && c != 384) {
     return (int)cudaErrorInvalidValue;
   }
   if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const int hm = 2 * h0, w2 = 2 * w0, c2 = f32_c2(c);
   const cudaStream_t st = (cudaStream_t)stream;
   if (nchw) {
     const int err = to_channels_last<float>(x, xt, batch, c, h0 * w0, stream);
@@ -942,14 +969,16 @@ extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
 // f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the same k order,
 // split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3 (1,) f32; scratch
 // c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in
-// {64, 128}, C2 = C / 2. Row 7's f32 chain from conv1 on: conv1 + b1
-// (BiasStore) on conv_kernel<C2>, the resize pass, conv2 with the 1x1
-// (DepthOut) on conv_kernel<32>. What bounds it: at vits' 1080p grid (B =
-// 8, path1 296 x 528 x 64, depth 518 x 924) conv1 and conv2 are 46 + 71
-// GFLOP (0.71 ms at 3xTF32's 165 TFLOP/s), at vitb's C = 128 184 + 141
-// (1.97 ms), against 0.8-1.4 GB of f32 path1, c1 and R: bound by
-// operations. Returns a CUDA error code (a tensor map that does not encode:
-// cudaErrorInvalidValue).
+// {32, 64, 128}, C2 = C / 2, or 32 at C = 32 (f32_c2, as row 7's). Row 7's
+// f32 chain from conv1 on: conv1 + b1 (BiasStore) on conv_kernel<C2>, the
+// resize pass, conv2 with the 1x1 (DepthOut) on conv_kernel<32>. What
+// bounds it: at vits' 1080p grid (B = 8, path1 296 x 528 x 64, depth 518 x
+// 924) conv1 and conv2 are 46 + 71 GFLOP (0.71 ms at 3xTF32's 165
+// TFLOP/s), at vitb's C = 128 184 + 141 (1.97 ms), against 0.8-1.4 GB of
+// f32 path1, c1 and R: bound by operations; at C = 32 11.5 + 35 GFLOP
+// (0.28 ms) against ~1.5 GB of the f32 path1 and the padded c1 and R
+// written and read (0.44 ms at 3.35 TB/s): bound by bytes. Returns a CUDA
+// error code (a tensor map that does not encode: cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
                                   const void* w1s, const void* b1,
                                   const void* w2s, const void* b2,
@@ -958,11 +987,11 @@ extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
                                   void* c1, void* r, void* out, int batch,
                                   int h2, int w2, int c, int h1, int w1,
                                   void* stream) {
-  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  if (c != 32 && c != 64 && c != 128) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h2 <= 0 || w2 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  const int c2 = c / 2;
+  const int c2 = f32_c2(c);
   if (nchw) {
     const int err = to_channels_last<float>(x, xt, batch, c, h2 * w2, stream);
     if (err != 0) return err;

@@ -125,13 +125,14 @@ vitb-518 (C = 128) by stage (the transpose, the upsample pass, conv1, the
 resize pass, conv2 with the 1x1; the convs on the 3xTF32 core), against
 cuDNN's f32 convs (TF32 off); ``f32:tail-<label>`` takes them alone at
 vitb-518, at vitg-126 (C = 384) or at C = 384 on vitg-518's grid. Row 7 at
-vitb-252 (C = 128; ``f32:ext-<label>``: at vitb-252 or vits, C = 64) by
+vitb-252 (C = 128; ``f32:ext-<label>``: at vitb-252, at vits, C = 64, or
+at c32, a 32-feature head's C = 32 on vits' grid, C2 zero-padded) by
 stage (the transpose, the mix, the passes, the convs; the products on the
 3xTF32 core), against cuDNN's f32 convs (TF32 off). Row 16 at C = 64 and
 128 on refinenet1's grid (``f32:rcu-<C>``), each launch of the chain in
 order (the ReLU pass, the four convs on the 3xTF32 core), against cuDNN's
 f32 conv of one of them. Row 15 at vits' and vitb's path1 (C = 64, 128;
-``f32:base-<C>``) by stage (the transpose, conv1 + b1, the resize pass,
+``f32:base-<C>``, also C = 32 on vits' path1 grid) by stage (the transpose, conv1 + b1, the resize pass,
 conv2 with the 1x1; the convs on the 3xTF32 core), against cuDNN's two f32
 convs (TF32 off). The stages and launches are also found by the kernel
 names of an older tree's f32 SIMT FFMA core (``sgemm_kernel``,
@@ -908,10 +909,12 @@ F32_LN_SHAPES = (("vits", 19544, 384, True),
 # Row 7 at f32 by label (f32:ext-<label>): vits' C = 64 (vits auto f32's
 # tail) and vitb-252's C = 128.
 F32_EXT_TAIL_SHAPES = {"vits": (7, "vits", 64, (148, 264), (518, 924)),
-                       "vitb-252": F32_TAIL_SHAPES[1]}
+                       "vitb-252": F32_TAIL_SHAPES[1],
+                       "c32": (7, "c32", 32, (148, 264), (518, 924))}
 # Rows 16 and 15 at f32 by width (f32:rcu-<C>, f32:base-<C>).
 F32_RCU_SHAPES = {str(c): (label, c) for label, c in RCU_SHAPES}
-F32_BASE_BY_C = {str(s[1]): s for s in F32_BASE_TAIL_SHAPES}
+F32_BASE_BY_C = {str(s[1]): s for s in F32_BASE_TAIL_SHAPES
+                 + (("c32", 32) + tuple(F32_BASE_TAIL_SHAPES[0][2:]),)}
 
 
 def f32_mlp_row(row: int, label: str, m: int, d: int) -> dict:
@@ -1302,8 +1305,8 @@ def main(argv=None) -> int:
                     "f32:<label> one f32 row of rows 8-10, "
                     "f32:tail-<label> rows 11 + 12 at f32, label vitb-518, "
                     "vitg-126 or vitg-518; f32:ext-<label> row 7 at f32, "
-                    "label vits or vitb-252; f32:rcu-<C> row 16 at f32, "
-                    "f32:base-<C> row 15 at f32, C 64 or 128)")
+                    "label vits, vitb-252 or c32; f32:rcu-<C> row 16 at "
+                    "f32, f32:base-<C> row 15 at f32, C 32, 64 or 128)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)

@@ -45,16 +45,16 @@ class DepthAnythingV2(nn.Module):
     paths (models/dinov2.resolve_block_fusion, models/dpt.resolve_tail), as
     in the JAX package (its ``DepthAnythingV2(tail=...)``). An f32
     model's forward runs with TF32 off (:func:`no_tf32`), also inside a
-    CUDA graph's capture. With ``group`` > 1 it is one rank of a model
+    CUDA graph's capture. With ``group`` > 1 it is rank ``rank`` of a model
     group (:class:`ModelGroup`) and holds that rank's shards.
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 tail: str = "auto", group: int = 1):
+                 tail: str = "auto", group: int = 1, rank: int = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.pretrained = DinoVisionTransformer(cfg, group)
+        self.pretrained = DinoVisionTransformer(cfg, group, rank)
         self.depth_head = DPTHead(cfg, tail=tail)
 
     def scope(self):

@@ -49,7 +49,8 @@ from vr_video_generator_tpu_torch.ops.qkv import ln_qkv, proj_ls_residual
 from vr_video_generator_tpu_torch.ops.resize import resize_bicubic
 from vr_video_generator_tpu_torch.parallel.collectives import (all_reduce_,
                                                                device_scope)
-from vr_video_generator_tpu_torch.parallel.sharding import unshard
+from vr_video_generator_tpu_torch.parallel.sharding import (head_range,
+                                                            unshard)
 
 
 def kernel_device(x: torch.Tensor) -> str:
@@ -107,18 +108,23 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Attention(nn.Module):
-    """qkv -> attention -> proj. On a model group of ``group`` ranks this
-    rank holds its shards (parallel/sharding.py): qkv's rows of its
-    ``num_heads`` = H / group heads and proj's columns of them."""
+    """qkv -> attention -> proj. On a model group of ``group`` ranks rank
+    ``rank`` holds its shards (parallel/sharding.py): qkv's rows of its
+    ``num_heads`` heads (sharding.head_range: maybe unequal across ranks,
+    or none) and proj's columns of them."""
 
-    def __init__(self, dim: int, num_heads: int, group: int = 1):
+    def __init__(self, dim: int, num_heads: int, group: int = 1,
+                 rank: int = 0):
         super().__init__()
-        self.num_heads = num_heads // group
-        self.qkv = Linear(dim, 3 * dim // group)
-        self.proj = Linear(dim // group, dim)
+        lo, hi = head_range(rank, group, num_heads)
+        self.num_heads = hi - lo
+        width = self.num_heads * (dim // num_heads)
+        self.qkv = Linear(dim, 3 * width)
+        self.proj = Linear(width, dim)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, N, D) -> this rank's heads' outputs, (B, N, D / group)."""
+        """(B, N, D) -> this rank's heads' outputs, (B, N, heads x
+        head_dim)."""
         b, n, _ = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, -1)
         head_dim = qkv.shape[-1]
@@ -176,16 +182,16 @@ class Block(nn.Module):
     """x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x)), each half unfused or
     through its fused kernels (:func:`resolve_block_fusion`), with the same
     parameters either way. A Block of a model group (``group`` > 1) holds
-    one rank's shards and runs through :func:`group_block`."""
+    rank ``rank``'s shards and runs through :func:`group_block`."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  mlp_fused: str = "auto", ffn_layer: str = "mlp",
-                 gelu_approx: bool = False, group: int = 1):
+                 gelu_approx: bool = False, group: int = 1, rank: int = 0):
         super().__init__()
         self.dim, self.num_heads, self.mlp_fused = dim, num_heads, mlp_fused
         self.ffn_layer, self.group = ffn_layer, group
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, group)
+        self.attn = Attention(dim, num_heads, group, rank)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
         if ffn_layer == "swiglufused":
@@ -287,9 +293,11 @@ def group_block(blocks: Sequence[Block], xs: List[torch.Tensor]
     device and ``xs[r]`` the tokens there (equal on every rank). A fused
     half runs its kernels on whole weights on every rank, as at 1 x 1. An
     unfused half runs each rank's shards: LayerNorm -> its qkv rows -> mha
-    at its H/m heads -> its proj columns, or fc1 rows + their bias -> GELU
-    -> fc2 columns, each without the replicated bias; then one all-reduce,
-    and the bias once after the sum, LayerScale and the residual. The
+    at its heads (sharding.head_range) -> its proj columns, or fc1 rows +
+    their bias -> GELU -> fc2 columns, each without the replicated bias;
+    then one all-reduce, and the bias once after the sum, LayerScale and the
+    residual. A rank with no heads runs no qkv, attention or proj: its
+    attention partial is zeros, and it joins the all-reduce. The
     partials are rounded to the compute dtype and summed in it, as XLA
     all-reduces the dot's output. vitg's SwiGLU half is replicated by the
     rules, so every rank runs it whole."""
@@ -299,7 +307,8 @@ def group_block(blocks: Sequence[Block], xs: List[torch.Tensor]
             x, *_whole(blocks, r, _ATTN_SPLIT)))
     else:
         parts = _on_ranks(blocks, xs, lambda r, b, x: F.linear(
-            b.attn.heads(b.norm1(x)), b.attn.proj.weight))
+            b.attn.heads(b.norm1(x)), b.attn.proj.weight)
+            if b.attn.num_heads else torch.zeros_like(x))
         all_reduce_(parts)
         xs = _on_ranks(blocks, xs, lambda r, b, x: x + b.ls1(
             parts[r] + b.attn.proj.bias.to(x.dtype)))
@@ -337,7 +346,7 @@ class PatchEmbed(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, group: int = 1):
+    def __init__(self, cfg: ModelConfig, group: int = 1, rank: int = 0):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
@@ -350,7 +359,7 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.mlp_fused,
-                  cfg.ffn_layer, cfg.gelu_approx, group)
+                  cfg.ffn_layer, cfg.gelu_approx, group, rank)
             for _ in range(cfg.depth))
         self.norm = LayerNorm(d)
 

@@ -49,19 +49,20 @@ def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
     models.dinov2.kernel_device's), take the tail the JAX package's planners
     pick (ops/head_tail.plan_tail); ``xla``, and ``auto`` off the card, fuse
     nothing. Off the card the fused tails run their plain versions. On the
-    card a planned tail whose kernels do not take its shape raises here, not
-    in a kernel wrapper: the ext kernels take any grid at every encoder's
-    width (ops/head_tail.EXT_CHANNELS) and, at C = 32, a row that fits one
-    block's shared memory; the big-C kernels C in BIG_CHANNELS. At f32 the
-    planners see f32's itemsize; which f32 plans have their kernels is
-    pipeline.check_f32_plan's question, asked before any weight is built."""
+    card a planned bf16 tail whose kernels do not take its shape raises
+    here, not in a kernel wrapper: the ext kernels take any grid at every
+    encoder's width (ops/head_tail.EXT_CHANNELS) and, at C = 32, a row that
+    fits one block's shared memory; the big-C kernels C in BIG_CHANNELS. At
+    f32 the planners see f32's itemsize; which f32 plans have their kernels
+    (ops/head_tail.takes_f32) is pipeline.check_f32_plan's question, asked
+    before any weight is built."""
     if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
     if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):
         return None
     choice = head_tail_ops.plan_tail(pre_shape, dtype, out_hw)
     c, w0 = pre_shape[-1], pre_shape[2]
-    if device_type == "cuda" and (
+    if device_type == "cuda" and dtype != torch.float32 and (
             (choice == "ext" and not head_tail_ops.takes(c, w0))
             or (choice == "big" and not head_tail_ops.big_takes(c))):
         not_ported(f"the {choice} DPT tail at C={c} on the card (tail="

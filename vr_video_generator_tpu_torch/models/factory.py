@@ -77,10 +77,11 @@ def build_model(cfg: ModelConfig, state_dict: Mapping, dtype: torch.dtype,
 
 def build_group(model: DepthAnythingV2, devices: Sequence) -> ModelGroup:
     """``model`` across a model group of ``len(devices)`` ranks: rank r's
-    DepthAnythingV2 holds ``shard_state_dict(model.state_dict(), r, m)``
-    (its shards of the split parameters, every other parameter whole) on
-    ``devices[r]``, in the dtypes ``model`` holds them in. Raises ValueError
-    where m does not divide the heads or the MLP hidden."""
+    DepthAnythingV2 holds ``shard_state_dict(model.state_dict(), r, m,
+    heads)`` (its shards of the split parameters, every other parameter
+    whole) on ``devices[r]``, in the dtypes ``model`` holds them in. Raises
+    ValueError where m does not divide the embedding width or the MLP
+    hidden (parallel/sharding.check_model_axis)."""
     m = len(devices)
     check_model_axis(model.cfg, m)
     state_dict = model.state_dict()
@@ -88,10 +89,11 @@ def build_group(model: DepthAnythingV2, devices: Sequence) -> ModelGroup:
     for r, dev in enumerate(devices):
         with torch.device("meta"):
             rank = DepthAnythingV2(model.cfg, dtype=model.dtype,
-                                   tail=model.depth_head.tail, group=m)
+                                   tail=model.depth_head.tail, group=m,
+                                   rank=r)
         rank.load_state_dict(
-            {k: v.to(dev, copy=True)
-             for k, v in shard_state_dict(state_dict, r, m).items()},
+            {k: v.to(dev, copy=True) for k, v in shard_state_dict(
+                state_dict, r, m, model.cfg.num_heads).items()},
             assign=True)
         ranks.append(rank.eval().requires_grad_(False))
     return ModelGroup(ranks)

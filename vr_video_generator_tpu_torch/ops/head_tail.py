@@ -24,13 +24,16 @@ point ``vrvg_head_tail_ext_front`` and the last two the big-C tail's back
 without ``cw``, all in ``csrc/head_tail_big.cu`` (see its header). A head
 of 32 features (a custom config) runs the older chain of
 ``csrc/head_tail.cu`` instead, chosen by width, which holds a whole input
-row in shared memory. At f32 (``--compute_dtype float32``, C = 64 to 384)
+row in shared memory. At f32 (``--compute_dtype float32``, C = 32 to 384)
 the same five stages run as one entry point, ``vrvg_head_tail_ext_f32``
 (counted as ``head_tail_ext_f32``): the passes instantiated on f32, the mix
 (the dense product) and both convs (implicit GEMMs, conv2 with the 1x1) on
 the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), their three weights split
 once into TF32 hi/lo planes (:func:`_ext_f32_weights`), the W-resize
-weights f32 as the plain version's are at f32.
+weights f32 as the plain version's are at f32. At C = 32 conv1's 16 output
+channels and conv2's 16 input channels are zero-padded to 32 (c1 and R
+carry 16 zero channels; :func:`_f32_padded`), which leaves the sums those
+of 16 channels.
 
 The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
 15), which no CLI path of the JAX package runs (its DPT head takes the ext or
@@ -43,12 +46,13 @@ before the cast (c1; the halo kernel at C = 64, the GEMM core at C = 128),
 the resize pass (R) and conv2 with the 1x1, all one entry point
 (``vrvg_head_tail`` in csrc/head_tail_big.cu, after an NCHW path1's
 transpose). At C = 32 it runs csrc/head_tail.cu's wmma chain, chosen by
-width there (``BASE_CONV1``). At f32 (C = 64 and 128) the same three stages
-run as the entry point ``vrvg_head_tail_f32`` (counted as
+width there (``BASE_CONV1``). At f32 (C = 32, 64 and 128) the same three
+stages run as the entry point ``vrvg_head_tail_f32`` (counted as
 ``head_tail_f32``): conv1 with its f32 bias and conv2 with the 1x1 on the
-3xTF32 wgmma core (row 7's f32 convs), their weights split once into TF32
-hi/lo planes (:func:`_base_f32_weights`), the resize pass on f32, the
-W-resize weights f32.
+3xTF32 wgmma core (row 7's f32 convs; at C = 32 with C2 zero-padded to 32
+as row 7's), their weights split once into TF32 hi/lo planes
+(:func:`_base_f32_weights`), the resize pass on f32, the W-resize weights
+f32.
 
 The big-C tail (vitl, vitg) replaces `head_tail_big_pallas`, front (body
 `_big_front_kernel`, row 11) and back (`_big_back_kernel`, row 12), at its
@@ -101,10 +105,9 @@ BASE_F32_LAUNCHES = counter("head_tail_f32")
 CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
 EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
 BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
-# ... at f32, by both vrvg_head_tail_ext_f32 and vrvg_head_tail_big_f32
-EXT_F32_CHANNELS = BIG_CHANNELS
+BIG_F32_CHANNELS = BIG_CHANNELS     # ... at f32 (vrvg_head_tail_big_f32)
+EXT_F32_CHANNELS = CHANNELS         # row 7's at f32 (vrvg_head_tail_ext_f32)
 BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
-BASE_F32_CHANNELS = (64, 128)       # ... at f32 (vrvg_head_tail_f32)
 CONV3X3_F32_OUT = (32, 64, 128, 192)  # the output widths vrvg_conv3x3_f32 takes
 # The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
 # layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
@@ -134,10 +137,18 @@ def takes(features: int, w0: int) -> bool:
         features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK)
 
 
-def takes_f32(features: int) -> bool:
-    """Whether the f32 tail kernels, ext and big-C, are built for a head of
-    ``features`` channels (any grid)."""
-    return features in EXT_F32_CHANNELS
+def takes_f32(features: int, tail: str = "ext") -> bool:
+    """Whether the f32 kernels of ``tail`` ("ext", row 7; "big", rows 11 and
+    12) are built for a head of ``features`` channels (any grid)."""
+    return features in (EXT_F32_CHANNELS if tail == "ext"
+                        else BIG_F32_CHANNELS)
+
+
+def f32_c2(c: int) -> int:
+    """The channels an f32 chain's c1 and R have at head width ``c``: C / 2,
+    or 32 at C = 32, conv1's 16 outputs zero-padded (csrc/head_tail_big.cu
+    ``f32_c2``)."""
+    return max(c // 2, 32)
 
 
 def base_takes(features: int) -> bool:
@@ -362,12 +373,7 @@ def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
     if not base_takes(c):
         not_ported(f"the single-kernel DPT tail at C={c} on the card",
                    "DPT tail kernels at other widths")
-    if path1.dtype == torch.float32:
-        if c not in BASE_F32_CHANNELS:
-            not_ported(f"the single-kernel DPT tail at f32 at C={c} on the "
-                       f"card (vrvg_head_tail_f32 takes C in "
-                       f"{BASE_F32_CHANNELS})", "f32 on the card")
-    elif path1.dtype != torch.bfloat16:
+    if path1.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"head_tail kernel takes bf16 or f32 input, got "
                          f"{path1.dtype}")
     for name, t, shape in (("output_conv1", k1, (c2, c, 3, 3)),
@@ -393,35 +399,48 @@ def _base_weights(k1, b1, k2, b2, k3, b3):
     return (w1, w2, *_f32_vectors(b1, b2, k3, b3))
 
 
+def _f32_padded(b1: torch.Tensor, k2: torch.Tensor):
+    """conv1's bias and conv2's weight with C2 zero-padded to
+    :func:`f32_c2`'s width (a copy of each; as they are where C2 >= 32):
+    the f32 chains' conv1 writes the padded channels as 0 + 0 and conv2
+    reads them with zero weights, so their sums are those of C2 channels."""
+    pad = f32_c2(2 * k2.shape[1]) - k2.shape[1]
+    return F.pad(b1, (0, pad)), F.pad(k2, (0, 0, 0, 0, 0, pad))
+
+
 def _base_f32_weights(k1, b1, k2, b2, k3, b3):
     """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 and conv2
-    split for the 3xTF32 core's conv (:func:`_conv_split`), and the f32
-    vectors b1, b2, the 1x1, b3. Kept by :func:`_prepared`, so the first
-    call on a set of weights splits them and later calls do not."""
+    (C2 zero-padded to 32 at C = 32, :func:`_f32_padded`) split for the
+    3xTF32 core's conv (:func:`_conv_split`), and the f32 vectors b1, b2,
+    the 1x1, b3. Kept by :func:`_prepared`, so the first call on a set of
+    weights splits them and later calls do not."""
+    b1, k2 = _f32_padded(b1, k2)
     return (_conv_split(k1), _conv_split(k2), *_f32_vectors(b1, b2, k3, b3))
 
 
 def _launch_base(path1: torch.Tensor, wts, out_hw):
     """One launch of vrvg_head_tail on path1 (B, H2, W2, C) bf16, or of
     vrvg_head_tail_f32 on f32 path1, with the torch weights ``wts`` (k1, b1,
-    k2, b2, k3, b3): (c1, R, depth), R None at C = 32 (the wmma chain has no
-    resize pass)."""
+    k2, b2, k3, b3): (c1, R, depth), R None at bf16's C = 32 (the wmma chain
+    has no resize pass); at f32's C = 32 c1 and R are views of the first 16
+    of their 32 zero-padded channels."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     b, h2, w2, c = path1.shape
     h1, w1 = out_hw
-    c2 = c // 2
     f32 = path1.dtype == torch.float32
+    c2 = f32_c2(c) if f32 else c // 2
     w1m, w2m, b1f, b2f, w3f, b3f = _prepared(
         _base_f32_weights if f32 else _base_weights, wts)
-    if BASE_CONV1[c] == "wmma":
+    wmma = not f32 and BASE_CONV1[c] == "wmma"
+    if wmma:
         x, nchw, xt = path1.contiguous(), False, path1
     else:
         x, nchw, xt = _channels_last(path1)
     taps, tapw = _device_taps(w2, w1, x.device, path1.dtype)
     new = functools.partial(torch.empty, dtype=path1.dtype, device=x.device)
     c1 = new((b, h2, w2, c2))
-    r = new((b, h1, w1, c2)) if BASE_CONV1[c] != "wmma" else None
+    r = None if wmma else new((b, h1, w1, c2))
     out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
     kernel = "vrvg_head_tail_f32" if f32 else "vrvg_head_tail"
     check(getattr(library(), kernel)(
@@ -431,6 +450,8 @@ def _launch_base(path1: torch.Tensor, wts, out_hw):
         None if r is None else r.data_ptr(), out.data_ptr(), b, h2, w2, c,
         h1, w1, stream_handle(x.device)), kernel)
     (BASE_F32_LAUNCHES if f32 else BASE_LAUNCHES).count += 1
+    if c2 != c // 2:
+        c1, r = c1[..., :c // 2], r[..., :c // 2]
     return c1, r, out
 
 
@@ -438,9 +459,9 @@ def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
               k2: torch.Tensor, b2: torch.Tensor, k3: torch.Tensor,
               b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the row-15 kernels for CUDA tensors (bf16, C in
-    ``BASE_CHANNELS``, another width raising naming the roadmap item; f32,
-    C in ``BASE_F32_CHANNELS``)."""
+    version for CPU tensors, the row-15 kernels for CUDA tensors (bf16 or
+    f32, C in ``BASE_CHANNELS``; another width raises naming the roadmap
+    item)."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
         return head_tail_plain(path1, *args, out_hw)
@@ -454,15 +475,15 @@ def head_tail_stages(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
     """Row 15 stage by stage: (c1, R, depth), c1 (B, H2, W2, C2) and R (B,
     H1, W1, C2) channels-last, depth (B, H1, W1) f32. For CPU tensors, the
     plain versions of the stages (composed, :func:`head_tail_plain`); for
-    CUDA tensors (bf16 or f32, C in 64 or 128), one launch of the chain,
-    whose scratch holds the intermediates."""
+    CUDA tensors (bf16, C in 64 or 128; f32, C in ``BASE_CHANNELS``), one
+    launch of the chain, whose scratch holds the intermediates."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
         c1 = base_conv1_plain(path1, k1, b1)
         r = ext_resize_plain(c1, out_hw)
         return c1, r, big_conv2_plain(r, k2, b2, k3, b3)
     _check_base(path1, k1, k2, k3)
-    if BASE_CONV1[path1.shape[3]] == "wmma":
+    if path1.dtype != torch.float32 and BASE_CONV1[path1.shape[3]] == "wmma":
         raise ValueError(f"head_tail_stages: C={path1.shape[3]} runs the wmma "
                          f"chain, which has no stages")
     return _launch_base(path1, args, out_hw)
@@ -552,10 +573,11 @@ def _ext_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
 def _ext_f32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
     """Row 7's weights as vrvg_head_tail_ext_f32 reads them: the mix (C, C)
     split for the 3xTF32 core's dense product (ops/mlp.tf32x3_split_kernel),
-    conv1 and conv2 split for its conv (:func:`_conv_split`), and the f32
-    vectors b_oc, b1, b2, the 1x1, b3. Kept by :func:`_prepared`, so a path
-    splits them at its first (eager) step and never inside a CUDA graph
-    capture."""
+    conv1 and conv2 (C2 zero-padded to 32 at C = 32, :func:`_f32_padded`)
+    split for its conv (:func:`_conv_split`), and the f32 vectors b_oc, b1,
+    b2, the 1x1, b3. Kept by :func:`_prepared`, so a path splits them at
+    its first (eager) step and never inside a CUDA graph capture."""
+    b1, k2 = _f32_padded(b1, k2)
     mix = k_oc[:, :, 0, 0].to(torch.float32).contiguous()
     return (tf32x3_split_kernel(mix), _conv_split(k1), _conv_split(k2),
             *_f32_vectors(b_oc, b1, b2, k3, b3))
@@ -699,12 +721,13 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
 
 def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     """Row 7 at f32 on the card: (xoc, Z, c1, R, depth) from one launch of
-    vrvg_head_tail_ext_f32 (x checked by :func:`_check_ext`)."""
+    vrvg_head_tail_ext_f32 (x checked by :func:`_check_ext`); at C = 32 c1
+    and R are views of the first 16 of their 32 zero-padded channels."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
-    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
+    hm, w2, c2 = 2 * h0, 2 * w0, f32_c2(c)
     kocs, w1s, w2s, boc, b1f, b2f, w3f, b3f = _prepared(_ext_f32_weights,
                                                         args)
     x, nchw, xt = _channels_last(x)
@@ -724,7 +747,7 @@ def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
         h0, w0, c, h1, w1, stream_handle(x.device)),
         "vrvg_head_tail_ext_f32")
     F32_LAUNCHES.count += 1
-    return xoc, z, c1, r, out
+    return xoc, z, c1[..., :c // 2], r[..., :c // 2], out
 
 
 # --- the big-C tail (rows 11, 12) ---------------------------------------------
@@ -984,7 +1007,7 @@ def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
     """x (B, H0, W0, C) -> depth (B, H1, W1) f32 through the front and the
     back (each its kernel on the card, its plain version on the CPU); an
     f32 x on the card through the f32 chain (``vrvg_head_tail_big_f32``, C
-    in ``EXT_F32_CHANNELS``)."""
+    in ``BIG_F32_CHANNELS``)."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if x.dtype == torch.float32 and on_cuda(x, *args):
         return _big_f32_stages(x, args, out_hw)[-1]
@@ -1001,7 +1024,7 @@ def head_tail_big_stages(x: torch.Tensor, k_oc: torch.Tensor,
     channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
     versions of the stages; for CUDA tensors, the front's and the back's
     launches (bf16), or one launch of the f32 chain (f32, C in
-    ``EXT_F32_CHANNELS``), whose scratch holds the intermediates."""
+    ``BIG_F32_CHANNELS``), whose scratch holds the intermediates."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if x.dtype == torch.float32 and on_cuda(x, *args):
         return _big_f32_stages(x, args, out_hw)
@@ -1035,9 +1058,9 @@ def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
     hm, w2, c2 = 2 * h0, 2 * w0, c // 2
-    if not takes_f32(c):
+    if not takes_f32(c, "big"):
         raise ValueError(f"head_tail_big f32 kernel takes C in "
-                         f"{EXT_F32_CHANNELS}, got C={c}")
+                         f"{BIG_F32_CHANNELS}, got C={c}")
     for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
                            ("output_conv1", k1, (c2, c, 3, 3)),
                            ("output_conv2.0", k2, (C3, c2, 3, 3)),

@@ -95,12 +95,13 @@ def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     """``compute_dtype`` float32 on the card: raise ``not_ported`` where the
     plan the JAX package's planners make at f32 for this geometry needs a
     DPT tail at a width no f32 tail kernel takes (ops/head_tail.takes_f32:
-    a custom head of 32 features), naming the rows. Every depth-net kernel
-    has an f32 variant, vitg's fused SwiGLU half (row 10) included, and the
-    f32 tails take C = 64 to 384, which covers every plan of vits, vitb,
-    vitl and vitg. The MLP half's fusion is resolved too, so a width its
-    kernel does not take raises here. It reads only the config, so it runs
-    before any weight is built."""
+    the ext tail C = 32 to 384, the big-C tail 64 to 384; a custom head of
+    16 features has neither), naming the rows. Every depth-net kernel has an
+    f32 variant, vitg's fused SwiGLU half (row 10) included, which covers
+    every plan of vits, vitb, vitl and vitg and of a 32-feature head. The
+    MLP half's fusion is resolved too, so a width its kernel does not take
+    raises here. It reads only the config, so it runs before any weight is
+    built."""
     cfg = run_cfg.model()
     p, d = cfg.patch_size, cfg.embed_dim
     hn, wn = network_input_size(height, width, target=run_cfg.input_size,
@@ -112,12 +113,12 @@ def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     batch = max(run_cfg.batch_size // run_cfg.depth_stride, 1)
     pre = (batch, 4 * ph, 4 * pw, cfg.features)
     choice = resolve_tail(run_cfg.tail, pre, f32, (hn, wn), "cuda")
-    if choice and not takes_f32(cfg.features):
+    if choice and not takes_f32(cfg.features, choice):
         rows = "row 7" if choice == "ext" else "rows 11 and 12"
         not_ported(f"compute_dtype='float32' on the card: the {choice} DPT "
                    f"tail at C={cfg.features} (tail={run_cfg.tail!r}, "
                    f"refinenet1 grid {pre[1]}x{pre[2]}) needs {rows} at f32",
-                   "f32 on the card")
+                   "DPT tail kernels at other widths")
 
 
 class SbsPipeline:

@@ -201,7 +201,24 @@ Phases, each fatal on failure:
      subclips 0_5 .. 18_23 and the combined output, Verify is clean, names a
      truncated subclip with its repair range, and is clean after Repair;
      the launches of the runbook's and the form's processes counted
-     (``kernels.COUNTS_DIR_ENV``), each exactly its path's kernels.
+     (``kernels.COUNTS_DIR_ENV``), each exactly its path's kernels;
+ 12. the encoder at every width the JAX package takes (custom ModelConfigs,
+     built as a library user builds them: models/factory, then
+     SbsPipeline): (a) kernel 1 (``csrc/attention_any.cu``, rows 2 and 17
+     at head dims other than 64) at head dims 16, 32, 48, 128 and 256,
+     one-shot at N = 2443 and flash at N = 4785, bf16 against the plain
+     versions within rows 2 and 17's bounds, f32 against f64 operands
+     within 3.7e-6 of max |o|, each f32 bound refusing the TF32 result,
+     head dims 32 and 128 timed beside the plain version and SDPA; (b) rows
+     5 and 6 at D = 512, 640 and 768 with 6 heads of 128, row 8 at D = 512,
+     row 9 at D = 640 with hidden 2080 (zero-padded to 2112), row 10 at D
+     = 1024 with hidden 2736, bf16 and f32, with phase 3's and phase 8's
+     bounds; (c) one batch of each of the five configurations (WIDTH_PATHS:
+     w512, hd128, hd32, r325, glu1024) at 1080p, B = 8, input 518, bf16
+     ``auto``, hd32 also at 728 (B = 2), w512 and hd128 also at f32, with
+     exactly their kernels a step, the weight splits at f32's first step,
+     ``resolve_block_fusion`` and ``check_f32_plan`` raising nothing, and
+     the depth against the plain path.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -220,7 +237,11 @@ vitl-252's 256, vitg-126's 384), row 1 at f32 also at vitg-518's batch of
 8, row 2 at f32 also at its 24 heads, row 17 at f32 also at vitg-728's 24
 heads, row 10 at f32 once, row 15 at f32 three times (C = 32, 64, 128) and
 row 16 twice (C = 64, 128); row 17 at 8 and 4 heads and row 2 at 8, 4, 12,
-1 and 2 with the launches of phase 10's model-group paths), and
+1 and 2 with the launches of phase 10's model-group paths; kernel 1 at
+head dims 32 and 128 (row 2, bf16), 32 (row 17, bf16 and f32) and 128 (row
+2, f32), and rows 5 and 6 at D = 512 and 640, row 8 at D = 512, row 9 at D
+= 640 and row 10 at D = 1024, bf16, and rows 5, 6 and 8 at D = 512 at f32,
+with the launches of phase 12's paths), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -722,13 +743,14 @@ def tail_weights(gen, c):
             randn(gen, (1,), 0.1, 0.5, dtype=bf))
 
 
-def mlp_args(gen, m: int, d: int, x=None, gamma=None):
-    """Seeded operands of the GELU MLP half at width ``d`` on ``m`` rows (x
-    and gamma drawn here unless given)."""
+def mlp_args(gen, m: int, d: int, x=None, gamma=None, hid=None):
+    """Seeded operands of the GELU MLP half at width ``d`` on ``m`` rows,
+    hidden ``hid`` (4D unless given; x and gamma drawn here unless
+    given)."""
     import torch
 
     bf = torch.bfloat16
-    hid = 4 * d
+    hid = hid or 4 * d
     x = randn(gen, (m, d), dtype=bf) if x is None else x
     lnw, lnb = randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1)
     w1 = randn(gen, (hid, d), d ** -0.5, dtype=bf)
@@ -1025,11 +1047,12 @@ def check_silu_mul(device) -> None:
             f"bf16 x1 ({int(nan.sum())} NaN)")
 
 
-def check_vitg_kernels(device, results, widths) -> None:
-    """Row 10 at vitg-518's shapes into ``results``, whole and stage by
-    stage, and its silu on every bf16 input; rows 11 and 12 at vitg's C=384
-    and row 7 at C=384 (vitg-126's grid) and C=256 (vitl-252's) into
-    ``widths``."""
+def check_swiglu(gen, d: int, hid: int, m: int) -> dict:
+    """Row 10 on (m, d) seeded rows, hidden ``hid``, whole and stage by
+    stage, each stage on the chain's own input: the LN stage bit-exact
+    against row 1's kernel and within the LN bound of the plain LayerNorm;
+    the gate and the down product to row 9's stage bounds; the whole to
+    row 10's. Times of the chain and its plain version, and the bound."""
     import torch
 
     from vr_video_generator_tpu_torch.ops.layernorm import (layernorm,
@@ -1039,10 +1062,7 @@ def check_vitg_kernels(device, results, widths) -> None:
         swiglu_residual_plain, swiglu_residual_stages)
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    check_silu_mul(device)
-    gen = torch.Generator(device=device).manual_seed(SEED + 10)
     bf = torch.bfloat16
-    d, hid, m = DIM_G, HID_G, B * N_TOK
     args = (randn(gen, (m, d), dtype=bf), randn(gen, (d,), 0.1, 1.0),
             randn(gen, (d,), 0.1),
             randn(gen, (2 * hid, d), d ** -0.5, dtype=bf),
@@ -1053,33 +1073,44 @@ def check_vitg_kernels(device, results, widths) -> None:
     h, g, got = swiglu_residual_stages(*args)
     want = swiglu_residual_plain(*args)
     torch.cuda.synchronize()
-    whole = gemm_check("swiglu_residual", got, want, args)
+    label = "" if (d, hid) == (DIM_G, HID_G) else f" D={d} H={hid}"
+    whole = gemm_check("swiglu_residual" + label, got, want, args)
     del want
-    # Stage by stage, each on the chain's own input: the LN stage bit-exact
-    # against row 1's kernel and within the LN bound of the plain LayerNorm;
-    # the two GEMM stages to row 9's stage bounds.
     require(torch.equal(h, layernorm(x, lnw, lnb)),
-            "swiglu_residual: the LN stage differs from row 1")
+            f"swiglu_residual{label}: the LN stage differs from row 1")
     h_p = layernorm_plain(x, lnw, lnb)
     err = (h.float() - h_p.float()).abs()
     require(bool((err <= LN_ATOL + LN_RTOL * h_p.float().abs()).all()),
-            f"swiglu_residual LN stage: max abs err {err.max().item()} over "
-            f"atol {LN_ATOL} + rtol {LN_RTOL}")
+            f"swiglu_residual{label} LN stage: max abs err "
+            f"{err.max().item()} over atol {LN_ATOL} + rtol {LN_RTOL}")
     del h_p, err
-    gate = gemm_check("swiglu_gate", g, swiglu_gate_plain(h, w12, b12), ())
-    down = gemm_check("swiglu_down", got,
+    gate = gemm_check("swiglu_gate" + label, g,
+                      swiglu_gate_plain(h, w12, b12), ())
+    down = gemm_check("swiglu_down" + label, got,
                       fc2_residual_plain(g, w3, b3, gamma, x), (x, gamma, b3))
-    log(f"row 10 stages at M={m}: LN bit-exact against row 1; gate + silu "
-        f"{json.dumps(gate)}; down + residual {json.dumps(down)}")
+    log(f"row 10 stages at D={d}, H={hid}, M={m}: LN bit-exact against row "
+        f"1; gate + silu {json.dumps(gate)}; down + residual "
+        f"{json.dumps(down)}")
     del h, g, got
     torch.cuda.empty_cache()
-    results["swiglu_residual"] = dict(
-        **whole, gate=gate, down=down,
-        ms=event_ms(lambda: swiglu_residual(*args)),
-        plain_ms=event_ms(lambda: swiglu_residual_plain(*args)),
-        library_ms=None,
-        **bound(nbytes(*args, x), 2 * m * d * 2 * hid + 2 * m * hid * d))
-    del args, x
+    return dict(**whole, gate=gate, down=down,
+                ms=event_ms(lambda: swiglu_residual(*args)),
+                plain_ms=event_ms(lambda: swiglu_residual_plain(*args)),
+                library_ms=None,
+                **bound(nbytes(*args, x), 2 * m * d * 2 * hid
+                        + 2 * m * hid * d))
+
+
+def check_vitg_kernels(device, results, widths) -> None:
+    """Row 10 at vitg-518's shapes into ``results``, whole and stage by
+    stage, and its silu on every bf16 input; rows 11 and 12 at vitg's C=384
+    and row 7 at C=384 (vitg-126's grid) and C=256 (vitl-252's) into
+    ``widths``."""
+    import torch
+
+    check_silu_mul(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    results["swiglu_residual"] = check_swiglu(gen, DIM_G, HID_G, B * N_TOK)
     for name, r in check_big_tail(gen, FEATURES_G).items():
         widths[f"{name} C={FEATURES_G}"] = r
     for c, (grid, out_hw) in EXT_WIDE.items():
@@ -3004,8 +3035,10 @@ def f32_rel_check(name, got, want, tf32_want, max_rel, mean_rel, span=None):
     return stats
 
 
-def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
-    """Row 8 or 9 at f32 on (m, d) seeded rows, hidden 4D: each stage on
+def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK,
+                  hid: int = 0) -> dict:
+    """Row 8 or 9 at f32 on (m, d) seeded rows, hidden ``hid`` (4D unless
+    given): each stage on
     the chain's own input (the LN rows within the f32 bound of the plain
     LayerNorm; fc1 + b1 + GELU, its scale taking in the GELU's input, and
     fc2 + b2 + LayerScale + residual with the dense f32 bound), the whole
@@ -3020,7 +3053,7 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
     from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    hid = 4 * d
+    hid = hid or 4 * d
     x = randn(gen, (B, m // B, d))
     args = (x, randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1),
             randn(gen, (hid, d), d ** -0.5), randn(gen, (hid,), 0.5),
@@ -3034,7 +3067,7 @@ def f32_mlp_check(gen, row: int, d: int, m: int = B * N_TOK) -> dict:
     a, h, got = stages(*args)
     torch.cuda.synchronize()
     name = f"{'mlp_residual' if row == 8 else 'mlp_residual_hblocked'}_f32"
-    label = f"{name} D={d}"
+    label = f"{name} D={d}" + ("" if hid == 4 * d else f" H={hid}")
     st = {}
     u = f32_ulps(a, layernorm_plain(x, lnw, lnb).reshape(m, d), 1, lnb)
     st["ln"] = dict(max_ulps=u.max().item())
@@ -3394,8 +3427,10 @@ def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
     return res
 
 
-def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
-    """Row 10 at f32 at vitg-518's (m, 1536) rows, hidden 4096, stage by
+def f32_swiglu_check(gen, m: int = B * N_TOK, d: int = DIM_G,
+                     hid: int = HID_G) -> dict:
+    """Row 10 at f32 on (m, d) rows, hidden ``hid`` (vitg-518's (m, 1536)
+    rows and 4096 unless given), stage by
     stage, each stage on the chain's own input: the LN rows within the f32
     bound of the plain LayerNorm; the gate (+ b12, silu(x1) * x2), its scale
     taking in |x1 x2|, and the down product (+ b3, LayerScale, residual) by
@@ -3410,7 +3445,6 @@ def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
     from vr_video_generator_tpu_torch.ops.layernorm import layernorm_plain
     from vr_video_generator_tpu_torch.stage_bench import event_ms
 
-    d, hid = DIM_G, HID_G
     x = randn(gen, (B, m // B, d))
     args = (x, randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1),
             randn(gen, (2 * hid, d), d ** -0.5), randn(gen, (2 * hid,), 0.5),
@@ -3420,7 +3454,8 @@ def f32_swiglu_check(gen, m: int = B * N_TOK) -> dict:
     tf_args = (*args[:3], tf32_round(w12), b12, tf32_round(w3), *args[6:])
     h, g, got = mlp.swiglu_residual_stages(*args)
     torch.cuda.synchronize()
-    label = f"swiglu_residual_f32 D={d}"
+    label = f"swiglu_residual_f32 D={d}" + (
+        "" if hid == HID_G else f" H={hid}")
     st = {}
     u = f32_ulps(h, layernorm_plain(x, lnw, lnb).reshape(m, d), 1, lnb)
     st["ln"] = dict(max_ulps=u.max().item())
@@ -5304,6 +5339,413 @@ def front_ends_path() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the encoder at every width the JAX package takes. No CLI flag
+# reaches a custom ModelConfig (in the JAX package or in the port), so the
+# paths are built as a library user builds them: models/factory.build_model
+# on a seeded state_dict of the custom configuration, then SbsPipeline.step.
+#
+# Kernel 1 (csrc/attention_any.cu): rows 2 and 17 at head dims other than
+# 64, (label, head dim, heads, one-shot batch, flash batch): D = 384's heads
+# at 16, 32 and 48, D = 768's at 128 and 256. One-shot at N = 2443 (1080p,
+# input 518), flash at N = 4785 (input 728). Head dims 32 and 128 at their
+# paths' batches are timed (hd32 runs row 2 at B = 8 and row 17 at B = 2);
+# the others are held without timing.
+ATTN_ANY = ((16, 24, 2, 1), (32, 12, 8, 2), (48, 8, 2, 1), (128, 6, 8, 2),
+            (256, 3, 2, 1))
+ATTN_ANY_TIMED = (32, 128)
+# At f32 against the same function on f64 operands: the 3xTF32 rows' bound
+# (PERF.md: rows 2 and 17 at most 3.7e-6 of max |o|), which the TF32 result
+# of the plain version exceeds. Measured (NVIDIA H100 80GB HBM3, 700.00 W):
+# row 2 at most 2.2e-6 max and 1.25e-6 mean of |o| (Dh = 128, 256), row 17
+# 1.45e-6 and 1.03e-6, each within 10% of the f32 plain version's own error
+# (cuBLAS, TF32 off); TF32 5.3e-4-1.0e-3 max, 5.1e-4-6.2e-4 mean. The mean
+# bound is twice the largest mean error measured in f32.
+ATTN_ANY_F32_MAX_REL, ATTN_ANY_F32_MEAN_REL = 3.7e-6, 2.5e-6
+# The five custom configurations, at full width (ModelConfig fields over
+# its defaults). w512: D = 512 with 8 heads of 64 (rows 5 and 6, row 8
+# resident at D = 512, row 2); hd128: vitb's width and head with 6 heads of
+# 128 (rows 5 and 6 at head dim 128, kernel 1 in the fused block); hd32:
+# vits' width and head with 12 heads of 32 (kernel 1 in the unfused half;
+# at input 728 its flash variant); r325: D = 640, 10 heads, mlp_ratio 3.25
+# (hidden 2080, no multiple of 512: row 9, zero-padded to 2112); glu1024:
+# SwiGLU at D = 1024 with 16 heads (hidden 2736, padded to 2816 at bf16).
+# r325 and glu1024 are cut to 4 blocks.
+WIDTH_PATHS = {
+    "w512": dict(encoder="vitb", embed_dim=512, depth=12, num_heads=8,
+                 mlp_ratio=4.0, features=64, out_channels=(64, 128, 256, 512),
+                 intermediate_layers=(2, 5, 8, 11)),
+    "hd128": dict(encoder="vitb", embed_dim=768, depth=12, num_heads=6,
+                  mlp_ratio=4.0, features=128,
+                  out_channels=(96, 192, 384, 768),
+                  intermediate_layers=(2, 5, 8, 11)),
+    "hd32": dict(encoder="vits", embed_dim=384, depth=12, num_heads=12,
+                 mlp_ratio=4.0, features=64, out_channels=(48, 96, 192, 384),
+                 intermediate_layers=(2, 5, 8, 11)),
+    "r325": dict(encoder="vitb", embed_dim=640, depth=4, num_heads=10,
+                 mlp_ratio=3.25, features=64,
+                 out_channels=(80, 160, 320, 640),
+                 intermediate_layers=(0, 1, 2, 3)),
+    "glu1024": dict(encoder="vitl", embed_dim=1024, depth=4, num_heads=16,
+                    mlp_ratio=4.0, features=256,
+                    out_channels=(256, 512, 1024, 1024),
+                    intermediate_layers=(0, 1, 2, 3),
+                    ffn_layer="swiglufused"),
+}
+_TAIL = {"warp_composite": 1, "blur_select_sbs": 1}
+# The paths, 1080p, `auto`, each step's launches exactly: (label, config,
+# --input_size, batch, dtype, launches a step, weight splits at the first
+# step (f32)).
+WIDTH_RUNS = (
+    ("w512-518", "w512", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 12, "attention": 12, "proj_ls_residual": 12,
+      "mlp_residual": 12, "head_tail_ext": 1, **_TAIL}, 0),
+    ("hd128-518", "hd128", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 12, "attention_any": 12,
+      "proj_ls_residual": 12, "mlp_residual": 12, "head_tail_ext": 1,
+      **_TAIL}, 0),
+    ("hd32-518", "hd32", 518, B, "bfloat16",
+     {"layernorm": 28, "attention_any": 12, "head_tail_ext": 1, **_TAIL}, 0),
+    ("hd32-728", "hd32", 728, B_L728, "bfloat16",
+     {"layernorm": 28, "flash_attention_any": 12, "head_tail_ext": 1,
+      **_TAIL}, 0),
+    ("r325-518", "r325", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 4, "attention": 4, "proj_ls_residual": 4,
+      "mlp_residual_hblocked": 4, "head_tail_ext": 1, **_TAIL}, 0),
+    ("glu1024-518", "glu1024", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 4, "attention": 4, "proj_ls_residual": 4,
+      "swiglu_residual": 4, "head_tail_big_front": 1,
+      "head_tail_big_back": 1, **_TAIL}, 0),
+    ("w512-518 f32", "w512", 518, B, "float32",
+     {"layernorm_f32": 4, "ln_qkv_f32": 12, "attention_f32": 12,
+      "proj_ls_residual_f32": 12, "mlp_residual_f32": 12,
+      "head_tail_ext_f32": 1, **_TAIL}, 24 + 24 + 3),
+    ("hd128-518 f32", "hd128", 518, B, "float32",
+     {"layernorm_f32": 4, "ln_qkv_f32": 12, "attention_any_f32": 12,
+      "proj_ls_residual_f32": 12, "mlp_residual_hblocked_f32": 12,
+      "head_tail_big_f32": 1, **_TAIL}, 24 + 24 + 2),
+    ("hd32-728 f32", "hd32", 728, B_L728, "float32",
+     {"layernorm_f32": 28, "flash_attention_any_f32": 12,
+      "head_tail_big_f32": 1, **_TAIL}, 2),
+)
+# Kernel 1's entries in the kernels line: (counter, head dim, the path whose
+# launches it carries).
+ATTN_ANY_ENTRIES = (("attention_any", 32, "hd32-518"),
+                    ("attention_any", 128, "hd128-518"),
+                    ("flash_attention_any", 32, "hd32-728"),
+                    ("attention_any_f32", 128, "hd128-518 f32"),
+                    ("flash_attention_any_f32", 32, "hd32-728 f32"))
+# Rows 5, 6, 8, 9 and 10 at the new widths (phase 12 (b)), with the path
+# whose launches each carries in the kernels line: (counter, key, path).
+WIDTH_ENTRIES = (
+    ("ln_qkv", "ln_qkv D=512", "w512-518"),
+    ("proj_ls_residual", "proj_ls_residual D=512", "w512-518"),
+    ("mlp_residual", "mlp_residual D=512", "w512-518"),
+    ("ln_qkv", "ln_qkv D=640", "r325-518"),
+    ("proj_ls_residual", "proj_ls_residual D=640", "r325-518"),
+    ("mlp_residual_hblocked", "mlp_residual_hblocked D=640 H=2080",
+     "r325-518"),
+    ("swiglu_residual", "swiglu_residual D=1024 H=2736", "glu1024-518"),
+    ("ln_qkv_f32", "ln_qkv_f32 D=512", "w512-518 f32"),
+    ("proj_ls_residual_f32", "proj_ls_residual_f32 D=512", "w512-518 f32"),
+    ("mlp_residual_f32", "mlp_residual_f32 D=512", "w512-518 f32"))
+KERNELS_ANY = {
+    "attention_any": ("cuda", f"{PKG}/csrc/attention_any.cu",
+                      f"{JAX_PKG}/ops/attention_pallas.py:43"),
+    "flash_attention_any": ("cuda", f"{PKG}/csrc/attention_any.cu",
+                            f"{JAX_PKG}/ops/attention.py:53"),
+    "attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any.cu",
+                          f"{JAX_PKG}/ops/attention_pallas.py:43"),
+    "flash_attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any.cu",
+                                f"{JAX_PKG}/ops/attention.py:53"),
+}
+
+
+def width_config(label: str):
+    """The ModelConfig of WIDTH_PATHS' ``label``, ``auto``."""
+    from vr_video_generator_tpu_torch.utils.config import ModelConfig
+
+    return dataclasses.replace(ModelConfig(), mlp_fused="auto",
+                               **WIDTH_PATHS[label])
+
+
+def with_model(run_cfg, model_cfg):
+    """``run_cfg`` whose model() returns ``model_cfg``, for the plan
+    checks that read the model from a RunConfig."""
+    import types
+
+    fields = {f.name: getattr(run_cfg, f.name)
+              for f in dataclasses.fields(run_cfg)}
+    return types.SimpleNamespace(**fields, model=lambda: model_cfg)
+
+
+def attention_f64(q, k, v, scale):
+    """Softmax attention of (B, N, H, D) operands in f64, the logits times
+    ``scale``: the f32 rows' exact reference."""
+    import torch
+
+    qt, kt, vt = (t.double().transpose(1, 2) for t in (q, k, v))
+    p = torch.softmax((qt @ kt.transpose(-1, -2)) * scale, dim=-1)
+    return (p @ vt).transpose(1, 2)
+
+
+def check_attention_any(gen, flash: bool, d: int, heads: int, b: int, n: int,
+                        dtype, timed: bool) -> dict:
+    """Kernel 1, row 2 (q pre-scaled) or row 17 (``flash``), at head dim
+    ``d`` on peaked q/k/v (attention_bench.peaked_qkv), k and v strided
+    views into one qkv: one launch of its counter; bf16 against the plain
+    version within rows 2 and 17's bounds (attention_stats); f32 against
+    the same function on f64 operands within ATTN_ANY_F32_* of |o|, the
+    TF32 result of the plain version refused (f32_rel_check), the plain f32
+    version's own error logged. With ``timed``: the kernel, the plain
+    version and one SDPA call timed, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.attention_bench import peaked_qkv
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops import attention as A
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    f32 = dtype == torch.float32
+    qkv = peaked_qkv(gen, b, n, heads, dtype, head_dim=d)
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    scale = d ** -0.5
+    if flash:
+        q = qkv[:, :, 0]
+        args, fn, plain, s = (q, k, v, scale), A.flash_attention, \
+            A.flash_attention_plain, scale
+    else:
+        q = (qkv[:, :, 0].float() * scale).to(dtype)
+        args, fn, plain, s = (q, k, v), A.attention, A.attention_plain, 1.0
+    name = ("flash_attention_any" if flash else "attention_any") \
+        + ("_f32" if f32 else "")
+    label = f"{name} Dh={d} B={b} N={n} H={heads}"
+    before = launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    require(after[name] == before.get(name, 0) + 1
+            and all(after[c] == before.get(c, 0) for c in after if c != name),
+            f"{label}: launches {before} -> {after}")
+    if f32:
+        want = attention_f64(q, k, v, s)
+        with tf32(True):
+            tfw = plain(*args)
+        stats = f32_rel_check(label, got, want, tfw, ATTN_ANY_F32_MAX_REL,
+                              ATTN_ANY_F32_MEAN_REL)
+        err = (plain(*args).double() - want).abs()
+        stats.update(plain_max_rel_err=(err.max() / want.abs().max()).item(),
+                     plain_mean_rel_err=(err.mean()
+                                         / want.abs().mean()).item())
+        del tfw, err
+    else:
+        want = plain(*args)
+        stats = attention_stats(label, got, want)
+    del want
+    torch.cuda.synchronize()
+    log(f"kernel {label}: {json.dumps(stats)}")
+    if not timed:
+        return stats
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flops = 4 * b * heads * n * n * d
+    res = dict(**stats, ms=event_ms(lambda: fn(*args)),
+               plain_ms=event_ms(lambda: plain(*args)),
+               library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, scale=s)),
+               **(bound_f32 if f32 else bound)(nbytes(q, k, v, got), flops))
+    res["tflops"] = flops / res["ms"] * 1e-9
+    res["bound_ms_f32_simt"] = flops / F32_SIMT_FLOP_PER_S * 1e3
+    log(f"kernel {label} times: {json.dumps(res)}")
+    return res
+
+
+def check_qkv_width(gen, d: int, heads: int, dtype) -> tuple:
+    """Rows 5 and 6 at width ``d``, ``heads`` heads (B = 8 at 1080p, 518):
+    bf16 by the dense rows' bounds (gemm_check), f32 by f32_qkv_check and
+    f32_proj_check; each timed beside its plain version and cuBLAS's
+    product, with the bound. Returns (row 5's, row 6's) results."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops.qkv import (
+        ln_qkv, ln_qkv_plain, proj_ls_residual, proj_ls_residual_plain)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    f32 = dtype == torch.float32
+    dh, m = d // heads, B * N_TOK
+    x = randn(gen, (B, N_TOK, d), dtype=dtype)
+    qargs = (x, randn(gen, (d,), 0.1, 1.0), randn(gen, (d,), 0.1),
+             randn(gen, (3 * d, d), d ** -0.5, dtype=dtype),
+             randn(gen, (3 * d,), 0.5, dtype=dtype), heads, dh ** -0.5)
+    got = ln_qkv(*qargs)
+    torch.cuda.synchronize()
+    require(tuple(got.shape) == (B, N_TOK, 3, heads, dh),
+            f"ln_qkv D={d} H={heads}: shape {tuple(got.shape)}")
+    suffix = "_f32" if f32 else ""
+    label = f"ln_qkv{suffix} D={d} H={heads}"
+    q_stats = (f32_qkv_check(label, qargs, got) if f32 else
+               gemm_check(f"ln_qkv D={d} H={heads}", got,
+                          ln_qkv_plain(*qargs), qargs))
+    w, b = qargs[3], qargs[4]
+    xf = x.reshape(m, d)
+    q_res = dict(**q_stats, ms=event_ms(lambda: ln_qkv(*qargs)),
+                 plain_ms=event_ms(lambda: ln_qkv_plain(*qargs)),
+                 library_ms=None,
+                 cublas_ms=event_ms(lambda: torch.addmm(b, xf, w.t())),
+                 **(bound_f32 if f32 else bound)(
+                     nbytes(*qargs[:5], got), 2 * m * d * 3 * d))
+    log(f"kernel {label}: {json.dumps(q_res)}")
+    o = randn(gen, (B, N_TOK, heads, dh), dtype=dtype)
+    pargs = (o, randn(gen, (B, N_TOK, d), dtype=dtype),
+             randn(gen, (d, d), d ** -0.5, dtype=dtype),
+             randn(gen, (d,), 0.5, dtype=dtype),
+             randn(gen, (d,), 0.1, 1.0, dtype=dtype))
+    got = proj_ls_residual(*pargs)
+    torch.cuda.synchronize()
+    label = f"proj_ls_residual{suffix} D={d} H={heads}"
+    p_stats = (f32_proj_check(label, pargs, got) if f32 else
+               gemm_check(f"proj_ls_residual D={d} H={heads}", got,
+                          proj_ls_residual_plain(*pargs), pargs))
+    of, wp, bp = o.reshape(m, d), pargs[2], pargs[3]
+    p_res = dict(**p_stats, ms=event_ms(lambda: proj_ls_residual(*pargs)),
+                 plain_ms=event_ms(lambda: proj_ls_residual_plain(*pargs)),
+                 library_ms=None,
+                 cublas_ms=event_ms(lambda: torch.addmm(bp, of, wp.t())),
+                 **(bound_f32 if f32 else bound)(nbytes(*pargs, got),
+                                                 2 * m * d * d))
+    log(f"kernel {label}: {json.dumps(p_res)}")
+    return q_res, p_res
+
+
+def width_kernels(device) -> dict:
+    """Phase 12 (a), (b): kernel 1 at head dims 16, 32, 48, 128 and 256,
+    one-shot and flash, bf16 and f32; rows 5 and 6 at D = 512 (8 heads),
+    640 (10) and 768 with 6 heads of 128, row 8 at D = 512 (hidden 2048),
+    row 9 at D = 640 (hidden 2080, padded to 2112), row 10 at D = 1024
+    (hidden 2736), bf16 and f32, at 1080p/518 rows (B = 8), against their
+    plain versions with phase 3's and phase 8's bounds."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import mlp
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 120)
+    for dtype in (torch.bfloat16, torch.float32):
+        suffix = "_f32" if dtype == torch.float32 else ""
+        for d, heads, b1, b2 in ATTN_ANY:
+            for flash, b, n in ((False, b1, N_TOK), (True, b2, N_L728)):
+                name = ("flash_attention_any" if flash
+                        else "attention_any") + suffix
+                out[f"{name} Dh={d}"] = check_attention_any(
+                    gen, flash, d, heads, b, n, dtype,
+                    d in ATTN_ANY_TIMED)
+                torch.cuda.empty_cache()
+        for d, heads in ((512, 8), (640, 10), (768, 6)):
+            q, p = check_qkv_width(gen, d, heads, dtype)
+            tag = f" D={d}" if d != 768 else f" D={d} H={heads}"
+            out[f"ln_qkv{suffix}{tag}"] = q
+            out[f"proj_ls_residual{suffix}{tag}"] = p
+            torch.cuda.empty_cache()
+    m = B * N_TOK
+    out["mlp_residual D=512"] = check_mlp_chain(
+        8, "mlp_residual", mlp_args(gen, m, 512), True)
+    out["mlp_residual_hblocked D=640 H=2080"] = check_mlp_chain(
+        9, "mlp_residual_hblocked", mlp_args(gen, m, 640, hid=2080), True)
+    hid = mlp.swiglu_hidden(1024)
+    out[f"swiglu_residual D=1024 H={hid}"] = check_swiglu(gen, 1024, hid, m)
+    out["mlp_residual_f32 D=512"] = f32_mlp_check(gen, 8, 512)
+    out["mlp_residual_hblocked_f32 D=640 H=2080"] = f32_mlp_check(
+        gen, 9, 640, hid=2080)
+    out[f"swiglu_residual_f32 D=1024 H={hid}"] = f32_swiglu_check(
+        gen, m, 1024, hid)
+    torch.cuda.empty_cache()
+    return out
+
+
+def width_run(device, frames, row) -> dict:
+    """One WIDTH_RUNS path: the custom configuration built with seeded
+    random weights (models/factory), its pipeline's plan checks
+    (resolve_block_fusion at each dtype, check_f32_plan), one batch through
+    process_segment after a warm-up step with exactly its kernels a step
+    (one_batch; at f32 none of the plain versions, and the weights split at
+    the first step only), and its depth against the plain path (PlainKernels)
+    on the same weights and frames: on average within DEPTH_REL of the
+    range at bf16 (phase 4's bound), 1e-3 at f32 (phase 8 (c')'s)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.models.dinov2 import \
+        resolve_block_fusion
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import (SbsPipeline,
+                                                       check_f32_plan)
+
+    label, key, size, batch, dtype_name, step, splits = row
+    t0 = time.perf_counter()
+    mcfg = width_config(key)
+    cfg = run_config(mcfg.encoder, "auto", "auto", batch=batch,
+                     input_size=size, dtype=dtype_name)
+    for dt in (torch.bfloat16, torch.float32):
+        resolve_block_fusion("auto", mcfg.embed_dim, mcfg.num_heads, N_TOK,
+                             "cuda", dt, mcfg.ffn_layer)
+    check_f32_plan(with_model(dataclasses.replace(cfg,
+                                                  compute_dtype="float32"),
+                              mcfg), H, W)
+    dtype = getattr(torch, dtype_name)
+    model = build_model(mcfg, random_state_dict(mcfg, SEED), dtype, device,
+                        tail=cfg.tail)
+    pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+    f32 = dtype == torch.float32
+    reset_launch_counts()
+    pipe.step(frames[:batch], pipe.initial_state())
+    first = launch_counts().get("tf32x3_split", 0)
+    require(first == splits, f"{label}: the first step split {first} "
+            f"weights, expected {splits}")
+    with NoPlainF32() if f32 else contextlib.nullcontext():
+        stats = one_batch(label, pipe, frames, tuple(step))
+    per_step = {k: v for k, v in stats["launches"].items() if v}
+    require(per_step == step,
+            f"{label}: one step launched {per_step}, expected {step}")
+    x = pipe.frames_to_device(frames[:batch])
+    d_kernel = pipe.depth_only(x)
+    with PlainKernels():
+        d_plain = pipe.depth_only(x)
+    span = float(d_plain.max() - d_plain.min())
+    mean = float((d_kernel - d_plain).abs().mean())
+    limit = (1e-3 if f32 else DEPTH_REL) * span
+    require(bool(torch.isfinite(d_kernel).all()) and span > 0
+            and mean <= limit,
+            f"{label}: depth off the plain path by {mean} on average (range "
+            f"{span}, limit {limit})")
+    stats.update(depth_vs_plain_mean=mean, depth_range=span,
+                 depth_vs_plain_max=float((d_kernel - d_plain).abs().max()),
+                 first_step_splits=first,
+                 seconds_total=time.perf_counter() - t0)
+    log(f"{label}: depth against the plain path: mean {mean} "
+        f"({mean / span:.3e} of the range {span}); "
+        f"{stats['seconds_total']:.1f} s")
+    del model, pipe, x, d_kernel, d_plain
+    torch.cuda.empty_cache()
+    return stats
+
+
+def widths_path(device, rng) -> dict:
+    """Phase 12: the encoder at every width the JAX package takes: (a) and
+    (b) the kernels at the new head dims and widths (width_kernels), (c)
+    the five custom configurations' paths (WIDTH_RUNS)."""
+    t0 = time.perf_counter()
+    out = dict(kernels=width_kernels(device))
+    log(f"phase 12 (a, b) kernels: {time.perf_counter() - t0:.1f} s")
+    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    out["paths"] = {row[0]: width_run(device, frames, row)
+                    for row in WIDTH_RUNS}
+    log(f"phase 12 (c) paths: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -5396,6 +5838,12 @@ def main() -> int:
     log(f"phase 11 (the front ends: the real-weights runbook at f32 and "
         f"bf16, the form's Run, Verify and Repair): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase12 = widths_path(device, rng)
+    paths["phase 12"] = phase12
+    log(f"phase 12 (the encoder at every width: kernel 1 at head dims 16-256, "
+        f"rows 5, 6, 8, 9, 10 at new widths, the five custom "
+        f"configurations): {time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
@@ -5538,10 +5986,18 @@ def main() -> int:
     entries += [(name, phase10["kernels"][f"{name} H={heads}"],
                  phase10["paths"][label]["launches"][name])
                 for name, _, _, heads, label in GROUP_ATTENTION]
+    # Phase 12: kernel 1 at head dims 32 and 128, and rows 5, 6, 8, 9 and 10
+    # at the new widths, each with the launches of the custom configuration
+    # that runs it.
+    k12, p12 = phase12["kernels"], phase12["paths"]
+    entries += [(name, k12[f"{name} Dh={d}"], p12[label]["launches"][name])
+                for name, d, label in ATTN_ANY_ENTRIES]
+    entries += [(name, k12[key], p12[label]["launches"][name])
+                for name, key, label in WIDTH_ENTRIES]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,
-                                   **KERNELS_F32}[name]
+                                   **KERNELS_F32, **KERNELS_ANY}[name]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,5 +1,6 @@
 // A host emulation of the CUDA runtime and device built-ins that the
-// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) use, and
+// port's per-pixel kernels (csrc/warp.cu, csrc/blur_select.cu) and its
+// attention at any head dim (csrc/attention_any.cu) use, and
 // that g++ needs to compile the f32 cores' host-and-device headers
 // (csrc/tf32x3.cuh, csrc/epilogue_f32.cuh), so g++ can compile those
 // sources unchanged and run them on the CPU: every CUDA
@@ -77,6 +78,11 @@ inline float __uint_as_float(uint32_t v) {
   float f;
   memcpy(&f, &v, 4);
   return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t v;
+  memcpy(&v, &f, 4);
+  return v;
 }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 template <typename T>

@@ -2499,3 +2499,93 @@ def test_vits_xla_group_1x4_on_one_card_matches_1x1(cuda, dtype):
         assert _depth_mean_rel(got, want) <= DEPTH_REL
     else:
         assert float((got - want).abs().max()) <= GROUP_F32_REL * span
+
+
+# --- the encoder at every width (csrc/attention_any.cu; rows 5, 6, 8, 9,
+# 10 at a custom ModelConfig's widths) ------------------------------------
+
+# Kernel 1 at head dims other than 64 (an odd one among them: rows only
+# 2-byte aligned), row 2 at N = 333 and row 17 at N = 4200 (the library's
+# 512-key blocks), bf16 within rows 2 and 17's bounds of the plain version,
+# f32 within chip_smoke.py's ATTN_ANY_F32_* of the f64 function, the TF32
+# result refused (chip_smoke.check_attention_any).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 20, 32, 48, 128, 256])
+@pytest.mark.parametrize("flash", [False, True], ids=["row2", "row17"])
+def test_attention_any_matches_plain(cuda, flash, d, dtype):
+    from chip_smoke import check_attention_any
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n = 4200 if flash else 333
+    check_attention_any(gen, flash, d, 2, 2, n, dtype, timed=False)
+
+
+def test_attention_head_dim_64_keeps_its_kernels(cuda):
+    """Head dim 64 still runs csrc/attention.cu and csrc/attention_f32.cu,
+    never csrc/attention_any.cu."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    for dtype, name in ((torch.bfloat16, "attention"),
+                        (torch.float32, "attention_f32")):
+        q, k, v = (_randn(gen, (2, 70, 3, 64), dtype=dtype) for _ in range(3))
+        before = launch_counts()
+        attention(q, k, v)
+        after = launch_counts()
+        assert after[name] == before.get(name, 0) + 1
+        assert after.get("attention_any", 0) == before.get("attention_any", 0)
+        assert after.get("attention_any_f32", 0) == \
+            before.get("attention_any_f32", 0)
+
+
+# Rows 5 and 6 at D = 512 (8 heads of 64), 640 (10) and 768 with 6 heads of
+# 128, at 1080p/518's rows: chip_smoke.py phase 12 (b)'s checks (bf16 by
+# the dense rows' bounds, f32 against f64 operands, TF32 refused).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d,heads", [(512, 8), (640, 10), (768, 6)])
+def test_ln_qkv_and_proj_at_new_widths(cuda, d, heads, dtype):
+    from chip_smoke import check_qkv_width
+
+    gen = torch.Generator(device=cuda).manual_seed(d + heads)
+    check_qkv_width(gen, d, heads, dtype)
+
+
+# Row 8 at D = 512 (hidden 2048, resident), row 9 at D = 640 with hidden
+# 2080 (mlp_ratio 3.25, zero-padded to 2112), row 10 at D = 1024 (hidden
+# 2736, padded to 2816 at bf16 and 2752 at f32), whole and stage by stage.
+@pytest.mark.parametrize("row", [8, 9, 10])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mlp_halves_at_new_widths(cuda, row, dtype):
+    import chip_smoke as cs
+
+    from vr_video_generator_tpu_torch.ops.mlp import swiglu_hidden
+
+    gen = torch.Generator(device=cuda).manual_seed(row)
+    m = cs.B * cs.N_TOK
+    if row == 10:
+        hid = swiglu_hidden(1024)
+        if dtype == torch.float32:
+            cs.f32_swiglu_check(gen, m, 1024, hid)
+        else:
+            cs.check_swiglu(gen, 1024, hid, m)
+        return
+    d, hid = (512, 2048) if row == 8 else (640, 2080)
+    if dtype == torch.float32:
+        cs.f32_mlp_check(gen, row, d, m, hid)
+    else:
+        key = "mlp_residual" if row == 8 else "mlp_residual_hblocked"
+        cs.check_mlp_chain(row, key, cs.mlp_args(gen, m, d, hid=hid), True)
+
+
+# Two of chip_smoke.py phase 12's custom configurations through
+# SbsPipeline.step at 1080p: exactly their kernels a step, the depth
+# against the plain path.
+@pytest.mark.parametrize("label", ["r325-518", "hd32-728 f32"])
+def test_custom_width_paths(cuda, label):
+    import chip_smoke as cs
+
+    row = next(r for r in cs.WIDTH_RUNS if r[0] == label)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (cs.B, cs.H, cs.W, 3), dtype=np.uint8)
+    cs.width_run(cuda, frames, row)

@@ -155,19 +155,19 @@ def test_gelu_tanh_f32_matches_jax():
 
 @pytest.mark.parametrize("d", [128, 384, 768, 1024])
 def test_f32_widths_and_bodies_follow_jax(d):
-    """At f32 the fused GELU half takes every encoder width (takes_width with
-    the dtype), on row 8's f32 entry point where the JAX rule keeps the f32
-    weights resident (D = 128, 384) and row 9's above (768, 1024); each
-    width is in exactly one of the two f32 width lists, and a width in
-    neither is refused at f32 as at bf16."""
+    """At f32 the fused GELU half takes every encoder width, on row 8's f32
+    entry point where the JAX rule keeps the f32 weights resident (D = 128,
+    384) and row 9's elsewhere (768, 1024); each wrapper takes the widths
+    the rule gives its row (tests/test_torch_f32_routing.py shows the
+    other row refusing them), and D = 512, no encoder's width, fuses at
+    f32 as at bf16."""
     f32 = torch.float32
-    assert mlp.takes_width(d, "mlp", f32) and mlp.takes_width(d)
     resident = 2 * d * 4 * d * 4 <= 10 * 2 ** 20
-    assert mlp.resident(d, 4 * d, f32) == resident
-    assert (d in mlp.F32_WIDTHS) == resident
-    assert (d in mlp.HBLOCKED_F32_WIDTHS) == (not resident)
-    assert not mlp.takes_width(512, "mlp", f32)
-    assert resolve_block_fusion("fused", d, d // 64, 100, "cuda", f32)[1]
+    assert mlp.resident(d, 4 * d, f32) == resident == (d in (128, 384))
+    for dtype in (f32, torch.bfloat16):
+        assert resolve_block_fusion("fused", d, d // 64, 100, "cuda",
+                                    dtype)[1]
+        assert resolve_block_fusion("fused", 512, 8, 100, "cuda", dtype)[1]
 
 
 # Two vitl-width blocks (D = 1024, 16 heads of 64) with a narrow head.

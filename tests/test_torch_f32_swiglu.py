@@ -194,8 +194,10 @@ def test_state_dict_from_jax_gives_the_f32_chain_the_pallas_operands():
     np.testing.assert_array_equal(np.asarray(sd["pretrained.blocks.1.mlp.w3"
                                                 ".bias"]),
                                   np.asarray(jmlp["w3"]["bias"]))
-    assert mlp.takes_width(1536, "swiglufused", torch.float32)
-    assert not mlp.takes_width(1024, "swiglufused", torch.float32)
+    # Row 10 takes every D % 128 == 0 at f32 (vitg's 1536, and 1024).
+    for d in (1024, 1536):
+        assert resolve_block_fusion("fused", d, d // 64, 41, "cuda",
+                                    torch.float32, "swiglufused")[1]
 
 
 def test_f32_vitg_blocks_match_jax_block():

@@ -1,8 +1,11 @@
 """PyTorch port: the compositors (rows 3 and 14) and blur/select (rows 4 and
 13) CUDA sources run on the CPU under a host emulation of CUDA
-(tests/cuda_emu/cuda_runtime.h), against their plain versions, bit for bit.
+(tests/cuda_emu/cuda_runtime.h), against their plain versions, bit for bit;
+and rows 2 and 17 at any head dim but 64 (csrc/attention_any.cu) against
+theirs, within bounds.
 
-g++ compiles csrc/warp.cu and csrc/blur_select.cu as they are, with their
+g++ compiles csrc/warp.cu, csrc/blur_select.cu and csrc/attention_any.cu as
+they are, with their
 launches rewritten to the emulator's and the three cp.async instructions of
 csrc/rowcopy.cuh replaced by copies that poison their destination until a
 wait retires them (and its L2 prefetch by nothing). Each CUDA thread is a std::thread and each
@@ -29,7 +32,12 @@ from tests.test_torch_banded_scatter import case_inputs
 from tests.test_torch_warp_scatter import jax_inputs
 from tests.warp_tables import (above_all, all_invalid, descending,
                                overlapping, random_bands, unbounded)
+from vr_video_generator_tpu_torch.attention_bench import (error_stats,
+                                                          peaked_qkv)
 from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR, SIGNATURES
+from vr_video_generator_tpu_torch.ops import attention as attn_ops
+from vr_video_generator_tpu_torch.ops.attention import (attention_plain,
+                                                        flash_attention_plain)
 from vr_video_generator_tpu_torch.ops.warp import (
     WarpSpec, _taps, blur_select_sbs_packed_plain, blur_select_sbs_plain,
     warp_composite_banded_plain, warp_composite_plain)
@@ -56,7 +64,7 @@ static unsigned char* shared_memory() { return smem; }
 }
 #include "%s"
 """
-SOURCES = ("warp.cu", "blur_select.cu")
+SOURCES = ("warp.cu", "blur_select.cu", "attention_any.cu")
 
 
 def emulated(text: str) -> str:
@@ -65,11 +73,27 @@ def emulated(text: str) -> str:
                   r"emu::Launch(\2)(\1, ", text, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build(tmp, units, names):
+    """g++ the emulation units into one library under tmp, with the entry
+    points ``names`` bound by their signatures."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ is needed to build the CUDA emulation")
+    so = tmp / "libemu.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+         "-ffp-contract=off", "-w", f"-I{tmp}", f"-I{EMU_DIR}", *units,
+         "-o", str(so)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    emu = ctypes.CDLL(str(so))
+    for name in names:
+        getattr(emu, name).argtypes = SIGNATURES[name]
+        getattr(emu, name).restype = ctypes.c_int
+    return emu
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cuda_emu")
     rowcopy = (CSRC_DIR / "rowcopy.cuh").read_text()
     start = rowcopy.index("__device__ __forceinline__ void cp_async16(")
@@ -81,18 +105,30 @@ def lib(tmp_path_factory):
         unit = tmp / (name + ".cpp")
         unit.write_text(UNIT % name)
         units.append(str(unit))
-    so = tmp / "libemu.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-ffp-contract=off", "-w", f"-I{tmp}", f"-I{EMU_DIR}", *units,
-         "-o", str(so)], capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    emu = ctypes.CDLL(str(so))
-    for name in ("vrvg_warp_composite", "vrvg_warp_composite_banded",
-                 "vrvg_blur_select_sbs"):
-        getattr(emu, name).argtypes = SIGNATURES[name]
-        getattr(emu, name).restype = ctypes.c_int
-    return emu
+    return build(tmp, units, ("vrvg_warp_composite",
+                              "vrvg_warp_composite_banded",
+                              "vrvg_blur_select_sbs", "vrvg_attention_any"))
+
+
+# Row 17's softmax blocks cut from 512 keys past 4096 to 128 keys past 256,
+# in the source and in the plain version alike, so that a few hundred keys
+# walk several blocks on the emulator (4200 keys take minutes there).
+SMALL_BLOCKS = {"FLASH_ONE_BLOCK": 256, "FLASH_BLOCK": 128}
+
+
+@pytest.fixture(scope="module")
+def small_blocks(tmp_path_factory):
+    """csrc/attention_any.cu with SMALL_BLOCKS' constants, built alone."""
+    tmp = tmp_path_factory.mktemp("cuda_emu_blocks")
+    src = emulated((CSRC_DIR / "attention_any.cu").read_text())
+    for name, value in SMALL_BLOCKS.items():
+        src, n = re.subn(rf"constexpr int {name} = \d+;",
+                         f"constexpr int {name} = {value};", src)
+        assert n == 1, name
+    (tmp / "attention_any.cu").write_text(src)
+    unit = tmp / "attention_any.cu.cpp"
+    unit.write_text(UNIT % "attention_any.cu")
+    return build(tmp, [str(unit)], ("vrvg_attention_any",))
 
 
 def composite(lib, imgs, depth, st, s_neg, s_pos, banded=False):
@@ -268,3 +304,84 @@ def test_blur_select_source_wide_windows(lib, ksize, w):
     got = blur_select(lib, comp, cov, imgs, edge, ksize, 3.0, False)
     want = blur_select_sbs_plain(comp, cov, imgs, edge, ksize, 3.0)
     assert torch.equal(got, want)
+
+
+# --- rows 2 and 17 at any head dim (csrc/attention_any.cu) ----------------
+
+def attention_any(lib, q, k, v, scale, flash):
+    b, n, h, d = q.shape
+    o = torch.empty((b, n, h, d), dtype=q.dtype)
+    err = lib.vrvg_attention_any(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), o.stride(0), o.stride(1), scale, int(flash),
+        int(q.dtype == torch.float32), None)
+    assert err == 0
+    return o
+
+
+# Against the plain versions on the same operands: at f32 only the sums'
+# order differs (measured: at most 3.7e-7 of max |o|; with the real blocks
+# at 4200 keys, nine 512-key blocks each rescaling the output, max 4.3e-7
+# and mean 3.6e-7 of mean |o|); at bf16 a probability or an output may
+# round to the neighbouring bf16 value, one ulp, 2^-8 of the value
+# (measured: equal bit for bit but at Dh = 256, 2.2e-4 of max |o|, and in
+# SMALL_BLOCKS' blocks 2.0e-5).
+ANY_BOUNDS = {torch.float32: (2e-6, 1e-6), torch.bfloat16: (4e-3, 4e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def attention_any_case(lib, d, flash, n, dtype, b=2, heads=2):
+    """q, k and v as views into one (B, N, 3, H, Dh) qkv (an odd head dim's
+    rows 2-byte aligned only), peaked so that a key past N that the kernel
+    failed to mask would weigh as much as e^4 real ones (attention_bench's
+    q/k/v): max and mean error against max / mean |o| of the plain version
+    within ANY_BOUNDS."""
+    gen = torch.Generator().manual_seed(d)
+    qkv = peaked_qkv(gen, b, n, heads, dtype, head_dim=d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = d ** -0.5
+    if flash:
+        got = attention_any(lib, q, k, v, scale, True)
+        want = flash_attention_plain(q, k, v, scale)
+    else:
+        qs = (q.float() * scale).to(dtype)
+        got = attention_any(lib, qs, k, v, 1.0, False)
+        want = attention_plain(qs, k, v)
+    stats = error_stats(got, want)
+    max_rel, mean_rel = ANY_BOUNDS[dtype]
+    assert stats["max_rel_err"] <= max_rel and \
+        stats["mean_rel_err"] <= mean_rel, stats
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d,flash", [(16, False), (20, False), (48, False),
+                                     (128, False), (256, False), (17, True),
+                                     (128, True)])
+def test_attention_any_source_matches_plain(lib, d, flash, dtype):
+    """Rows 2 and 17 at N = 70: two 64-row q tiles and two key tiles, both
+    ragged (attention_any_case)."""
+    attention_any_case(lib, d, flash, 70, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_attention_any_source_walks_flash_blocks(small_blocks, dtype,
+                                                 monkeypatch):
+    """Row 17 past its one-block length in SMALL_BLOCKS' blocks (300 keys:
+    128, 128 and a ragged 44), each block's probabilities against the
+    running maximum and the output rescaled a block, against the plain
+    version with the same blocks (attention_any_case)."""
+    for name, value in SMALL_BLOCKS.items():
+        monkeypatch.setattr(attn_ops, name, value)
+    attention_any_case(small_blocks, 24, True, 300, dtype, b=1)
+
+
+def test_attention_any_source_refuses_head_dim_257(lib):
+    q = torch.zeros((1, 3, 1, 257))
+    err = lib.vrvg_attention_any(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 3, 1, 257,
+        771, 257, 771, 257, 771, 257, 771, 257, 1.0, 0, 1, None)
+    assert err != 0

@@ -109,12 +109,16 @@ def test_resident_mlp_stages_compose_to_plain(d, dtype):
 
 def test_resident_widths():
     """Row 8 takes the widths the JAX rule keeps resident (both weight
-    matrices within 10 MiB in bf16: vits, vitb and D = 128), row 9 vitl's."""
+    matrices within 10 MiB in bf16 and the hidden width a multiple of 512:
+    vits, vitb, D = 128 and 512), row 9 the others (vitl's, and a hidden
+    width of 2080 at D = 640); every D % 128 == 0 fuses the MLP half."""
     bf16 = torch.bfloat16
-    assert [d for d in (128, 384, 768, 1024)
-            if mlp.resident(d, 4 * d, bf16)] == list(mlp.WIDTHS)
-    assert all(mlp.takes_width(d) for d in (128, 384, 768, 1024))
-    assert not mlp.takes_width(512)
+    assert [d for d in (128, 384, 512, 768, 1024)
+            if mlp.resident(d, 4 * d, bf16)] == [128, 384, 512, 768]
+    assert not mlp.resident(640, 2080, bf16)
+    for d in (128, 384, 512, 640, 768, 1024):
+        assert resolve_block_fusion("fused", d, d // 64, 41, "cuda",
+                                    bf16)[1]
 
 
 def test_vitb_width_fused_blocks_match_jax():

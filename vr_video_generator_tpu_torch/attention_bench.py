@@ -75,16 +75,17 @@ PROFILED = 5  # kernel calls a shape in the f32 profile
 F32_KERNELS = ("split_kv_kernel", "attention_f32_kernel")
 
 
-def peaked_qkv(gen, b, n, heads, dtype=torch.bfloat16):
-    """(B, N, 3, H, 64) q/k/v with a peaked softmax: the other logits have
-    std ~1.5, and head dim 0 adds the same -4 (after the 1/8 scale) to
+def peaked_qkv(gen, b, n, heads, dtype=torch.bfloat16, head_dim=64):
+    """(B, N, 3, H, Dh) q/k/v with a peaked softmax: the other logits have
+    std ~1.5, and head dim 0 adds the same -4 (after the Dh^-0.5 scale) to
     every logit, so the softmax over the real keys is unchanged but a key at
     or past N that a kernel failed to mask (logit 0) would weigh as much as
     e^4 real keys."""
-    qkv = torch.randn(b, n, 3, heads, 64, generator=gen, device=gen.device)
+    qkv = torch.randn(b, n, 3, heads, head_dim, generator=gen,
+                      device=gen.device)
     qkv[:, :, 1] *= 1.5
     qkv[:, :, 0, :, 0] = 4.0
-    qkv[:, :, 1, :, 0] = -8.0
+    qkv[:, :, 1, :, 0] = -head_dim ** 0.5
     return qkv.to(dtype)
 
 

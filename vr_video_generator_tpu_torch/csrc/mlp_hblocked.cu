@@ -1,19 +1,21 @@
 // The MLP half-block of the DINOv2 blocks with a GELU MLP (vits, vitb: row
 // 8; vitl: row 9), for Hopper (sm_90a): out = x + gamma *
-// (fc2(GELU(fc1(LN2(x))))), hidden 4D, as a chain of three kernels on the
-// caller's stream.
+// (fc2(GELU(fc1(LN2(x))))), hidden H (4D at the published encoders; any
+// int(D * mlp_ratio) of a custom ModelConfig, zero-padded to a multiple of
+// 64 by the wrapper), as a chain of three kernels on the caller's stream.
 //
 // Replaces: vr_video_generator_tpu/ops/mlp_pallas.py `_kernel_resident`
 // (row 8: the weights resident in VMEM, which mlp_residual_pallas takes
-// where both fit in 10 MiB: D = 128, 384, 768) and `_kernel` (row 9: the
-// hidden-blocked grid above, vitl's D = 1024). Both compute
-// `mlp_residual_ref`, at its rounding points: LN with f32 statistics and the
-// f32 affine, cast to bf16; fc1 accumulates in f32, is cast to bf16, then +
-// b1 in bf16; the A&S GELU in f32, every operation rounded (gemm.cuh's
-// gelu_as), cast to bf16; fc2 accumulates in f32 over the whole hidden
-// width, is cast to bf16 once; + b2, gamma * . and x + . each round to
-// bf16. They differ only in how the TPU held the weights, so on the GPU
-// they are one chain with a tile shape per width.
+// where both fit in 10 MiB and H is a multiple of 512: D = 128, 384, 512,
+// 768) and `_kernel` (row 9: the hidden-blocked grid otherwise: vitl's D =
+// 1024, or H = 2080 at D = 640 and mlp_ratio 3.25), at any D % 128 == 0.
+// Both compute `mlp_residual_ref`, at its rounding points: LN with f32
+// statistics and the f32 affine, cast to bf16; fc1 accumulates in f32, is
+// cast to bf16, then + b1 in bf16; the A&S GELU in f32, every operation
+// rounded (gemm.cuh's gelu_as), cast to bf16; fc2 accumulates in f32 over
+// the whole hidden width, is cast to bf16 once; + b2, gamma * . and x + .
+// each round to bf16. They differ only in how the TPU held the weights, so
+// on the GPU they are one chain with a tile shape per width.
 //
 // What bounds it on the H100: the two GEMMs are 2 * 2 * M * D * 4D FLOPs:
 // 46 GFLOP at vits (M = 8 * 2443 at 1080p/518, D = 384), 184 at vitb (D =
@@ -31,7 +33,7 @@
 //   1. row 1's LayerNorm kernel (csrc/layernorm.cu): x -> a, (M, D) bf16;
 //   2. the persistent TMA + wgmma GEMM core (csrc/wgmma_gemm.cuh) for
 //      a W1^T on 128 x 256 tiles, its epilogue adding b1 and taking the
-//      GELU on the bf16 sums: h, (M, 4D) bf16;
+//      GELU on the bf16 sums: h, (M, H) bf16;
 //   3. the same core for h W2^T, its epilogue (the core's
 //      LayerScaleResidual, which rows 6 and 10 share) + b2, gamma * ., x +
 //      .: out, (M, D) bf16, on tiles as wide as D allows without a ragged
@@ -126,13 +128,12 @@ __global__ void gelu_tanh_kernel(const bf16* __restrict__ x,
 }
 
 // LN -> fc1 + GELU (CB consumer boxes; the tanh GELU with TANH) -> fc2 +
-// residual, fc2 on Fc2Shape's tiles.
+// residual, fc2 on Fc2Shape's tiles; hid the hidden width.
 template <int CB, class Fc2Shape, bool TANH>
 int chain_at(const void* x, const void* lnw, const void* lnb, const void* w1,
              const void* b1, const void* w2, const void* b2,
              const void* gamma, void* a, void* h, void* out, int m, int d,
-             float eps, void* stream) {
-  const int hid = 4 * d;
+             int hid, float eps, void* stream) {
   int err = vrvg_layernorm(x, lnw, lnb, a, m, d, eps, stream);
   if (err != 0) return err;
   err = tma_gemm::gemm(a, w1, h, m, hid, d,
@@ -148,52 +149,85 @@ int chain_at(const void* x, const void* lnw, const void* lnb, const void* w1,
 template <int CB, class Fc2Shape>
 int chain(const void* x, const void* lnw, const void* lnb, const void* w1,
           const void* b1, const void* w2, const void* b2, const void* gamma,
-          void* a, void* h, void* out, int m, int d, float eps, int approx,
-          void* stream) {
+          void* a, void* h, void* out, int m, int d, int hid, float eps,
+          int approx, void* stream) {
   return approx ? chain_at<CB, Fc2Shape, true>(x, lnw, lnb, w1, b1, w2, b2,
-                                               gamma, a, h, out, m, d, eps,
-                                               stream)
+                                               gamma, a, h, out, m, d, hid,
+                                               eps, stream)
                 : chain_at<CB, Fc2Shape, false>(x, lnw, lnb, w1, b1, w2, b2,
-                                                gamma, a, h, out, m, d, eps,
-                                                stream);
+                                                gamma, a, h, out, m, d, hid,
+                                                eps, stream);
+}
+
+// The chain at any D that is a multiple of 128, the JAX kernels' widths
+// (mlp_pallas.py asserts D % 128 == 0), and any hidden width a multiple of
+// 64 (the core's K slice: the wrapper zero-pads fc1's rows, b1 and fc2's
+// columns to one, which leaves every sum as it was). fc2 runs on the widest
+// tile that divides D, so no column tile is ragged: 128 x 256 where 256
+// divides D (vitb, vitl, D = 512), 128 x 192 where 192 does (vits, D =
+// 1152), 128 x 128 otherwise (D = 128, 640). fc1's consumers finish one of
+// its four GELU boxes at D = 128, three below D = 1024 and two from there on
+// (the shares that measured fastest at D = 128, 384 and 768, and 1024).
+template <int CB>
+int at_width(const void* x, const void* lnw, const void* lnb, const void* w1,
+             const void* b1, const void* w2, const void* b2,
+             const void* gamma, void* a, void* h, void* out, int m, int d,
+             int hid, float eps, int approx, void* stream) {
+  if (d % Wide::BN == 0) {
+    return chain<CB, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m,
+                           d, hid, eps, approx, stream);
+  }
+  if (d % 192 == 0) {
+    return chain<CB, Tile<128, 192>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
+                                     h, out, m, d, hid, eps, approx, stream);
+  }
+  return chain<CB, Tile<128, 128>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h,
+                                   out, m, d, hid, eps, approx, stream);
+}
+
+int any_width(const void* x, const void* lnw, const void* lnb, const void* w1,
+              const void* b1, const void* w2, const void* b2,
+              const void* gamma, void* a, void* h, void* out, int m, int d,
+              int hid, float eps, int approx, void* stream) {
+  if (d <= 0 || d % 128 != 0 || hid <= 0 || hid % tma_gemm::BK != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (d == 128) {
+    return at_width<1>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
+                       hid, eps, approx, stream);
+  }
+  if (d < 1024) {
+    return at_width<3>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
+                       hid, eps, approx, stream);
+  }
+  return at_width<2>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
+                     hid, eps, approx, stream);
 }
 
 }  // namespace
 
-// Row 8: x (M, D) bf16, LN affine (D,) f32, w1 (4D, D), b1 (4D,), w2 (D,
-// 4D), b2 (D,), gamma (D,) bf16; scratch a (M, D) and h (M, 4D) bf16 -> out
-// (M, D) bf16. D in {128, 384, 768}. approx != 0: the tanh GELU.
+// Row 8: x (M, D) bf16, LN affine (D,) f32, w1 (H, D), b1 (H,), w2 (D, H),
+// b2 (D,), gamma (D,) bf16; scratch a (M, D) and h (M, H) bf16 -> out (M,
+// D) bf16. D a multiple of 128, H of 64. approx != 0: the tanh GELU.
 extern "C" int vrvg_mlp_residual(const void* x, const void* lnw,
                                  const void* lnb, const void* w1,
                                  const void* b1, const void* w2,
                                  const void* b2, const void* gamma, void* a,
-                                 void* h, void* out, int m, int d, float eps,
-                                 int approx, void* stream) {
-  switch (d) {
-    case 128:
-      return chain<1, Tile<128, 128>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
-                                      h, out, m, d, eps, approx, stream);
-    case 384:
-      return chain<3, Tile<128, 192>>(x, lnw, lnb, w1, b1, w2, b2, gamma, a,
-                                      h, out, m, d, eps, approx, stream);
-    case 768:
-      return chain<3, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m,
-                            d, eps, approx, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                 void* h, void* out, int m, int d, int hid,
+                                 float eps, int approx, void* stream) {
+  return any_width(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d, hid,
+                   eps, approx, stream);
 }
 
-// Row 9: the same operands. D a multiple of 256 (the port takes it at D =
-// 1024).
+// Row 9: the same operands and widths; the wrapper takes each width for the
+// row the JAX rule gives it (ops/mlp.resident).
 extern "C" int vrvg_mlp_residual_hblocked(
     const void* x, const void* lnw, const void* lnb, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* gamma,
-    void* a, void* h, void* out, int m, int d, float eps, int approx,
+    void* a, void* h, void* out, int m, int d, int hid, float eps, int approx,
     void* stream) {
-  if (d % Wide::BN != 0) return (int)cudaErrorInvalidValue;
-  return chain<2, Wide>(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d,
-                        eps, approx, stream);
+  return any_width(x, lnw, lnb, w1, b1, w2, b2, gamma, a, h, out, m, d, hid,
+                   eps, approx, stream);
 }
 
 // The tanh GELU of the fc1 epilogue, elementwise: x (n,) bf16 -> out (n,)

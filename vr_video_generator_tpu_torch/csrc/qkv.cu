@@ -15,9 +15,9 @@
 // Layout. The TPU kernel writes per-head (B, H, N_pad, 64) tiles with zeroed
 // pad rows, the contract of its attention kernel. The port's attention
 // kernel (csrc/attention.cu) masks keys >= N itself and reads q, k and v as
-// strided (B, N, H, 64) views, so ln_qkv writes the plain (B*N, 3D) product,
-// i.e. (B, N, 3, H, 64): no pad, no transpose, no copy. proj reads the
-// attention output (B, N, H, 64) as (B*N, D).
+// strided (B, N, H, Dh) views, so ln_qkv writes the plain (B*N, 3D) product,
+// i.e. (B, N, 3, H, Dh): no pad, no transpose, no copy. proj reads the
+// attention output (B, N, H, Dh) as (B*N, D).
 //
 // What bounds them on the H100: at 1080p/vitl-518 (M = 8 * 2443 rows, D =
 // 1024) ln_qkv is 123 GFLOP (0.124 ms at the 989 TFLOP/s bf16 peak) against

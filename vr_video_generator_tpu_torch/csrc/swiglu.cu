@@ -108,7 +108,9 @@ __global__ void silu_mul_kernel(const bf16* __restrict__ x1,
 
 // x (M, D) bf16, LN affine (D,) f32, w12 (2H, D) and b12 (2H,), w3 (D, H),
 // b3 (D,), gamma (D,) bf16; scratch h (M, D) and g (M, H) bf16 -> out (M, D)
-// bf16. D a multiple of 64, H of 128 (the port takes D = 1536, H = 4096).
+// bf16. D a multiple of 64, H of 128: the gated tile's 128 columns of x1
+// and the same 128 of x2 (the wrapper zero-pads each half of w12, b12 and
+// w3's columns to a multiple of 128, which silu(0) * 0 = 0 leaves exact).
 extern "C" int vrvg_swiglu_residual(const void* x, const void* lnw,
                                     const void* lnb, const void* w12,
                                     const void* b12, const void* w3,

@@ -66,8 +66,10 @@ extern "C" int vrvg_swiglu_gate_f32(const void* h, const void* w12s,
 
 // Row 10 at f32: x (M, D) f32, LN affine (D,) f32, w12s (2H, D) split gated,
 // b12 (2H,), w3s (D, H) split, b3 (D,), gamma (D,) f32; scratch h (M, D) and
-// g (M, H) f32 -> out (M, D) f32. D and H multiples of 4 (the port takes D =
-// 1536, H = 4096).
+// g (M, H) f32 -> out (M, D) f32. D and H multiples of 4 (the wrapper
+// takes any D % 128 == 0 and zero-pads each half of H to a multiple of 64,
+// the gated tile's 64 columns of x1 and of x2; silu(0) * 0 = 0 leaves that
+// exact).
 extern "C" int vrvg_swiglu_residual_f32(const void* x, const void* lnw,
                                         const void* lnb, const void* w12s,
                                         const void* b12, const void* w3s,

@@ -48,10 +48,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _P],
     "vrvg_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "vrvg_proj_ls_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "vrvg_mlp_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _F, _I, _P],
-    "vrvg_mlp_residual_hblocked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _F, _I, _P],
+    "vrvg_mlp_residual": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    "vrvg_mlp_residual_hblocked": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
     "vrvg_gelu_tanh": [_P, _P, _I, _P],
     "vrvg_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_swiglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -84,13 +82,17 @@ SIGNATURES = {
     "vrvg_head_tail_big_f32": [_P, _I] + [_P] * 15 + [_I] * 6 + [_P],
     "vrvg_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vrvg_tf32x3_split": [_P, _P, _I, _I, _I, _P],
-    "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "vrvg_mlp_residual_f32": [_P] * 11 + [_I, _I, _F, _I, _P],
-    "vrvg_mlp_residual_hblocked_f32": [_P] * 11 + [_I, _I, _F, _I, _P],
+    "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vrvg_mlp_residual_f32": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    "vrvg_mlp_residual_hblocked_f32": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
     "vrvg_swiglu_gate_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vrvg_swiglu_residual_f32": [_P] * 11 + [_I, _I, _I, _F, _P],
     "vrvg_head_tail_f32": [_P, _I] + [_P] * 12 + [_I] * 6 + [_P],
     "vrvg_rcu_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
+    # Rows 2 and 17 at any head dim but 64, bf16 or f32
+    # (csrc/attention_any.cu).
+    "vrvg_attention_any": [_P, _P, _P, _P, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
 }
 
 

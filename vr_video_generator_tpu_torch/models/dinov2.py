@@ -34,7 +34,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from vr_video_generator_tpu_torch.utils.config import ModelConfig
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.layers import Conv2d, Linear
 from vr_video_generator_tpu_torch.ops import mlp as mlp_ops
 from vr_video_generator_tpu_torch.ops import qkv as qkv_ops
@@ -67,32 +66,29 @@ def resolve_block_fusion(mlp_fused: str, dim: int, num_heads: int,
     """(fuse the attention half, fuse the MLP half) of a block over
     ``n_tokens`` tokens in ``dtype``, as the JAX package resolves
     ``mlp_fused`` (its models/dinov2.py Block) with CUDA in the TPU's place.
-    The attention half fuses where the JAX Block fuses it: head dim 64, at
+    The attention half fuses where the JAX Block fuses it: D a multiple of
+    128, the head dim a multiple of 64 (:func:`ops.qkv.takes_width`), at
     most 4096 tokens (attention_pallas.supported; above, LayerNorm -> qkv ->
     flash attention -> proj) and where qkv_pallas.attn_fusable plans its
     resident weights (:func:`ops.qkv.attn_fusable`: not at D=1024 in f32,
-    nor at vitg's D=1536), and only at a width the qkv kernels take.
-    ``auto`` fuses the attention half there and the MLP half at D >= 512, on
-    CUDA only (``device_type`` is :func:`kernel_device`'s: bf16 or f32 on
-    the card; at f32 ``attn_fusable`` leaves vitl's D = 1024 unfused); off
-    the card it fuses nothing, as the JAX package's ``auto`` does off the
-    TPU. ``fused`` fuses both wherever the JAX package would (off the
-    card through the plain versions); where either would fuse the MLP half
-    (``ffn_layer`` "mlp" or vitg's "swiglufused") at a width no kernel takes
-    in ``dtype``, it raises; ``xla`` fuses nothing."""
+    nor at vitg's D=1536). The MLP half (``ffn_layer`` "mlp" or vitg's
+    "swiglufused") fuses at D a multiple of 128: ``auto`` fuses the
+    attention half there and the MLP half at D >= 512, on CUDA only
+    (``device_type`` is :func:`kernel_device`'s: bf16 or f32 on the card);
+    off the card it fuses nothing, as the JAX package's ``auto`` does off
+    the TPU. ``fused`` fuses both wherever the JAX package would (off the
+    card through the plain versions); ``xla`` fuses nothing. Every width
+    either half fuses at has its kernels, in both dtypes."""
     if mlp_fused not in ("auto", "fused", "xla"):
         raise ValueError(f"mlp_fused must be auto, fused or xla, got "
                          f"{mlp_fused!r}")
     on_card = device_type == "cuda"
     want = mlp_fused == "fused" or (mlp_fused == "auto" and on_card)
-    attn = want and dim in qkv_ops.WIDTHS \
-        and dim == num_heads * qkv_ops.HEAD_DIM and oneshot_supported(n_tokens) \
+    attn = want and qkv_ops.takes_width(dim, num_heads) \
+        and oneshot_supported(n_tokens) \
         and qkv_ops.attn_fusable(dim, n_tokens, dtype)
     mlp = dim % 128 == 0 and (mlp_fused == "fused" or (
         mlp_fused == "auto" and on_card and dim >= 512))
-    if mlp and not mlp_ops.takes_width(dim, ffn_layer, dtype):
-        not_ported(f"mlp_fused={mlp_fused!r} at D={dim} ({ffn_layer})",
-                   "fused MLP kernels at other widths")
     return attn, mlp
 
 

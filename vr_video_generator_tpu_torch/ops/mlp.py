@@ -18,10 +18,10 @@ plain versions of its two GEMM stages, :func:`mlp_residual_stages` and
 :func:`mlp_residual_hblocked_stages` return every stage. See the source's
 header for the design. At f32 (``--compute_dtype float32``) both rows run
 the f32 chain of ``csrc/mlp_f32.cu`` (entry points ``vrvg_mlp_residual_f32``
-at D = 128 and 384, where the JAX package keeps the f32 weights resident,
-and ``vrvg_mlp_residual_hblocked_f32`` at D = 768 and 1024; counted as
-``mlp_residual_f32`` and ``mlp_residual_hblocked_f32``): row 1's f32
-LayerNorm, then fc1 and fc2 on the 3xTF32 wgmma core of
+where the JAX package keeps the f32 weights resident, as at D = 128 and
+384, and ``vrvg_mlp_residual_hblocked_f32`` elsewhere, as at D = 768 and
+1024; counted as ``mlp_residual_f32`` and ``mlp_residual_hblocked_f32``):
+row 1's f32 LayerNorm, then fc1 and fc2 on the 3xTF32 wgmma core of
 ``csrc/tf32x3_gemm.cuh`` with b1 and the GELU (``approx``: the tanh GELU in
 f32), and b2, LayerScale and the residual, in their epilogues;
 :func:`fc1_gelu_kernel` launches its fc1 stage alone. That core takes each
@@ -37,13 +37,25 @@ w12(LN2(x)), at the same rounding points, and with silu rounded as XLA rounds
 with b3, LayerScale and the residual, with the LN rows and the (M, H) gate
 output in scratch; :func:`swiglu_gate_plain` and :func:`fc2_residual_plain`
 are the plain versions of its two GEMM stages. At f32 it runs the f32 chain
-of ``csrc/swiglu_f32.cu`` (entry point ``vrvg_swiglu_residual_f32``, D in
-``SWIGLU_F32_WIDTHS``, counted as ``swiglu_residual_f32``): row 1's f32
-LayerNorm, the gate on the 3xTF32 core with w12 split in the gated order
+of ``csrc/swiglu_f32.cu`` (entry point ``vrvg_swiglu_residual_f32``,
+counted as ``swiglu_residual_f32``): row 1's f32 LayerNorm, the gate on
+the 3xTF32 core with w12 split in the gated order
 (x1 and x2 of a g column in one thread) and b12 and silu(x1) * x2 in its
 epilogue, then the down product with b3, LayerScale and the residual;
 :func:`swiglu_gate_kernel` launches its gate stage alone. The plain version
 (:func:`swiglu_residual_plain`) is one for both dtypes.
+
+Every chain takes any D that is a multiple of 128 (the JAX kernels assert
+it) and any hidden width: a custom ``ModelConfig``'s int(D * mlp_ratio),
+or :func:`swiglu_hidden` at any ratio. The GEMM cores sum K in 64-wide
+slices and row 10's gated tiles hold 128 (bf16) or 64 (f32) columns of x1
+beside the same columns of x2, so the wrappers zero-pad the hidden width
+to such a multiple (:func:`pad_hidden`: fc1's rows and b1, fc2's columns;
+each half of w12 and b12, w3's columns), once per weight. The padding is
+exact: a padded column's fc1 sum is 0, + 0, and GELU(0) = 0 (A&S and
+tanh), silu(0) * 0 = 0, so every product it meets in fc2 or w3 is an
+exact zero, which leaves each f32 sum (and each 3xTF32 stage sum) as it
+was.
 """
 
 from __future__ import annotations
@@ -71,12 +83,10 @@ SWIGLU_F32_LAUNCHES = counter("swiglu_residual_f32")
 SWIGLU_GATE_F32_LAUNCHES = counter("swiglu_gate_f32")
 TF32X3_SPLIT_LAUNCHES = counter("tf32x3_split")
 TF32X3_TILE = 128  # csrc/tf32x3_gemm.cuh's BN: the split planes' row step
-WIDTHS = (128, 384, 768)  # row 8's widths (hidden 4D)
-HBLOCKED_WIDTHS = (1024,)  # row 9's
-F32_WIDTHS = (128, 384)            # row 8's at f32 (resident(d, 4d, f32))
-HBLOCKED_F32_WIDTHS = (768, 1024)  # row 9's at f32
-SWIGLU_WIDTHS = (1536,)    # row 10's in csrc/swiglu.cu (hidden 4096)
-SWIGLU_F32_WIDTHS = (1536,)  # row 10's at f32 (csrc/swiglu_f32.cu)
+HIDDEN_STEP = 64   # the GEMM cores' K slice: a padded hidden's multiple
+# Row 10's gated tile: 128 columns of x1 and of x2 at bf16 (csrc/swiglu.cu
+# on csrc/wgmma_gemm.cuh's 128 x 256 tile), 64 at f32 (csrc/swiglu_f32.cu).
+GATED_STEP = {torch.bfloat16: 128, torch.float32: 64}
 
 
 def swiglu_hidden(d: int, mlp_ratio: float = 4.0) -> int:
@@ -297,23 +307,47 @@ def tf32x3_weight(w: torch.Tensor, hidden: int = 0) -> torch.Tensor:
     return out
 
 
-def takes_width(d: int, ffn_layer: str = "mlp",
-                dtype: torch.dtype = torch.bfloat16) -> bool:
-    """Whether a kernel of the ``ffn_layer`` half-block is built for model
-    width ``d`` with activations in ``dtype`` (bf16, or f32 for the f32
-    variants of rows 8, 9 and 10)."""
-    if ffn_layer == "swiglufused":
-        return d in (SWIGLU_F32_WIDTHS if dtype == torch.float32
-                     else SWIGLU_WIDTHS)
-    if dtype == torch.float32:
-        return d in F32_WIDTHS + HBLOCKED_F32_WIDTHS
-    return d in WIDTHS + HBLOCKED_WIDTHS
+def padded_hidden(hidden: int, step: int = HIDDEN_STEP) -> int:
+    """``hidden`` rounded up to a multiple of ``step``."""
+    return -(-hidden // step) * step
+
+
+def pad_hidden(t: torch.Tensor, hidden: int, hp: int, dim: int,
+               halves: int = 1) -> torch.Tensor:
+    """t with each of its ``halves`` blocks of ``hidden`` along ``dim``
+    zero-padded to ``hp``: fc1's rows and b1 or fc2's and w3's columns (one
+    block), w12's rows and b12 (two: x1's and x2's). t itself where hp ==
+    hidden. Made once and kept on t, keyed on its storage, version counter
+    and the padding, as :func:`tf32x3_weight` keeps its split (and made
+    outside inference mode, so that the split of the padded weight is kept
+    in turn); not kept where made inside a CUDA graph capture or for an
+    inference tensor."""
+    if hp == hidden:
+        return t
+    versioned = not t.is_inference()
+    key = (t.data_ptr(), t._version if versioned else None, hidden, hp, dim,
+           halves)
+    kept = getattr(t, "_vrvg_padded", None)
+    if versioned and kept is not None and kept[0] == key:
+        return kept[1]
+    with torch.inference_mode(False):
+        blocks = []
+        for blk in t.split(hidden, dim=dim):
+            shape = list(blk.shape)
+            shape[dim] = hp - hidden
+            blocks += [blk, blk.new_zeros(shape)]
+        out = torch.cat(blocks, dim=dim)
+    if versioned and not (torch.cuda.is_available()
+                          and torch.cuda.is_current_stream_capturing()):
+        t._vrvg_padded = (key, out)
+    return out
 
 
 def resident(d: int, hidden: int, dtype: torch.dtype) -> bool:
     """Whether the JAX package runs the weights-resident kernel (row 8)
     rather than the hidden-blocked one (row 9): both weight matrices within
-    10 MiB and the hidden width a multiple of 512 (mlp_pallas.py:273-274)."""
+    10 MiB and the hidden width a multiple of 512 (mlp_pallas.py:273-274).
+    Each row's wrapper takes the widths this gives it."""
     return 2 * d * hidden * dtype.itemsize <= 10 * 2 ** 20 and hidden % 512 == 0
 
 
@@ -325,17 +359,17 @@ def fc1_gelu_kernel(a: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     epilogue's GELU, for a check through a selection fc1)."""
     if not on_cuda(a, w1, b1):
         return fc1_gelu_plain(a, w1, b1, approx)
-    d = a.shape[-1]
+    d, hid = a.shape[-1], w1.shape[0]
     f32 = torch.float32
-    _check_operands("fc1_gelu_f32", a, (("fc1 weight", w1, (4 * d, d), f32),
-                                        ("fc1 bias", b1, (4 * d,), f32)), f32)
+    _check_operands("fc1_gelu_f32", a, (("fc1 weight", w1, (hid, d), f32),
+                                        ("fc1 bias", b1, (hid,), f32)), f32)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     w1s = tf32x3_weight(w1)
-    h = torch.empty((*a.shape[:-1], 4 * d), dtype=f32, device=a.device)
+    h = torch.empty((*a.shape[:-1], hid), dtype=f32, device=a.device)
     check(library().vrvg_fc1_gelu_f32(
         a.data_ptr(), w1s.data_ptr(), b1.data_ptr(), h.data_ptr(),
-        a.numel() // d, d, int(approx), stream_handle(a.device)),
+        a.numel() // d, d, hid, int(approx), stream_handle(a.device)),
         "vrvg_fc1_gelu_f32")
     FC1_GELU_F32_LAUNCHES.count += 1
     return h
@@ -346,8 +380,8 @@ def mlp_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  b2: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-6, approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 8's
-    kernel chain for CUDA tensors (bf16, D in ``WIDTHS``, or f32, D in
-    ``F32_WIDTHS``; hidden 4D); ``approx`` the tanh GELU."""
+    kernel chain for CUDA tensors (bf16 or f32, D a multiple of 128, where
+    :func:`resident` holds); ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
                                   approx)
@@ -363,11 +397,11 @@ def mlp_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
     """Row 8 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
     if x.dtype == torch.float32:
-        chain = ("mlp_residual_f32", F32_WIDTHS, F32_LAUNCHES)
+        chain = ("mlp_residual_f32", F32_LAUNCHES)
     else:
-        chain = ("mlp_residual", WIDTHS, TANH_LAUNCHES if approx else LAUNCHES)
-    return _gelu_mlp_stages(*chain, x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
-                            approx)
+        chain = ("mlp_residual", TANH_LAUNCHES if approx else LAUNCHES)
+    return _gelu_mlp_stages(*chain, True, x, ln_w, ln_b, w1, b1, w2, b2,
+                            gamma, eps, approx)
 
 
 def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
@@ -377,8 +411,8 @@ def mlp_residual_hblocked(x: torch.Tensor, ln_w: torch.Tensor,
                           eps: float = 1e-6,
                           approx: bool = False) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 9's
-    kernel chain for CUDA tensors (bf16, D in ``HBLOCKED_WIDTHS``, or f32,
-    D in ``HBLOCKED_F32_WIDTHS``; hidden 4D); ``approx`` the tanh GELU."""
+    kernel chain for CUDA tensors (bf16 or f32, D a multiple of 128, where
+    :func:`resident` does not hold); ``approx`` the tanh GELU."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         return mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
                                   approx)
@@ -394,48 +428,58 @@ def mlp_residual_hblocked_stages(x: torch.Tensor, ln_w: torch.Tensor,
     """Row 9 stage by stage: (LN(x), GELU(fc1(.) + b1), the output); see
     :func:`_gelu_mlp_stages`."""
     if x.dtype == torch.float32:
-        chain = ("mlp_residual_hblocked_f32", HBLOCKED_F32_WIDTHS,
-                 HBLOCKED_F32_LAUNCHES)
+        chain = ("mlp_residual_hblocked_f32", HBLOCKED_F32_LAUNCHES)
     else:
-        chain = ("mlp_residual_hblocked", HBLOCKED_WIDTHS,
+        chain = ("mlp_residual_hblocked",
                  HBLOCKED_TANH_LAUNCHES if approx else HBLOCKED_LAUNCHES)
-    return _gelu_mlp_stages(*chain, x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
-                            approx)
+    return _gelu_mlp_stages(*chain, False, x, ln_w, ln_b, w1, b1, w2, b2,
+                            gamma, eps, approx)
 
 
-def _gelu_mlp_stages(kernel: str, widths, launches, x: torch.Tensor,
+def _gelu_mlp_stages(kernel: str, launches, row8: bool, x: torch.Tensor,
                      ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                      gamma: torch.Tensor, eps: float, approx: bool = False):
     """The GELU MLP half stage by stage: (LN(x), GELU(fc1(.) + b1), the
     output), ``approx`` the tanh GELU. For CPU tensors, the plain versions
     of the stages, each shaped as x; for CUDA tensors, one launch of the
-    entry point ``vrvg_<kernel>`` (D in ``widths``; its fc1 epilogue's tanh
-    variant with ``approx``; an f32 chain where ``kernel`` ends in _f32),
-    counted on ``launches``, whose scratch holds the first two as (M, .)
-    with M the rows of x."""
+    entry point ``vrvg_<kernel>`` (row 8's where ``row8``, taking the widths
+    :func:`resident` keeps resident, else row 9's, taking the others; its
+    fc1 epilogue's tanh variant with ``approx``; an f32 chain where
+    ``kernel`` ends in _f32), counted on ``launches``, whose scratch holds
+    the first two as (M, .) with M the rows of x (the hidden activations
+    without their zero padding)."""
     if not on_cuda(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
         a = layernorm_plain(x, ln_w, ln_b, eps)
         h = fc1_gelu_plain(a, w1, b1, approx)
         return a, h, fc2_residual_plain(h, w2, b2, gamma, x)
-    d = x.shape[-1]
-    _check_mlp_operands(kernel, widths, x, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    d, hid = x.shape[-1], w1.shape[0]
+    _check_mlp_operands(kernel, x, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    if resident(d, hid, x.dtype) != row8:
+        raise ValueError(f"{kernel} kernel takes the widths the JAX rule "
+                         f"gives row {8 if row8 else 9} (resident "
+                         f"{'true' if row8 else 'false'}), got D={d}, "
+                         f"hidden {hid}, {x.dtype}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     m = x.numel() // d
+    hp = padded_hidden(hid)
+    w1 = pad_hidden(w1, hid, hp, 0)
+    b1 = pad_hidden(b1, hid, hp, 0)
+    w2 = pad_hidden(w2, hid, hp, 1)
     if x.dtype == torch.float32:  # the 3xTF32 core takes the weights split
         w1, w2 = tf32x3_weight(w1), tf32x3_weight(w2)
     # Scratch of the chain: the LayerNorm'd rows and the hidden activations.
     a = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    h = torch.empty((m, 4 * d), dtype=x.dtype, device=x.device)
+    h = torch.empty((m, hp), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     check(getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, eps, int(approx),
-        stream_handle(x.device)), f"vrvg_{kernel}")
+        a.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, hp, eps,
+        int(approx), stream_handle(x.device)), f"vrvg_{kernel}")
     launches.count += 1
-    return a, h, out
+    return a, h[:, :hid], out
 
 
 def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -443,8 +487,8 @@ def swiglu_residual(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                     b3: torch.Tensor, gamma: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
     """(..., D) -> (..., D): the plain version for CPU tensors, row 10's
-    kernel chain for CUDA tensors (bf16, D in ``SWIGLU_WIDTHS``, or f32, D
-    in ``SWIGLU_F32_WIDTHS``; hidden :func:`swiglu_hidden`)."""
+    kernel chain for CUDA tensors (bf16 or f32, D a multiple of 128, any
+    hidden width H, read from w3's shape)."""
     if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
         return swiglu_residual_plain(x, ln_w, ln_b, w12, b12, w3, b3, gamma,
                                      eps)
@@ -460,8 +504,9 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
     """Row 10 stage by stage: (LN(x), silu(x1) * x2, the output), each
     (M, .) with M the rows of x. For CPU tensors, the plain versions of the
     stages; for CUDA tensors, one launch of the kernel chain (bf16, or the
-    f32 chain for f32 x), whose scratch holds the first two."""
-    d = x.shape[-1]
+    f32 chain for f32 x), whose scratch holds the first two (the gate
+    output without its zero padding)."""
+    d, hid = x.shape[-1], w3.shape[-1]
     m = x.numel() // d
     if not on_cuda(x, ln_w, ln_b, w12, b12, w3, b3, gamma):
         h = layernorm_plain(x, ln_w, ln_b, eps).reshape(m, d)
@@ -469,12 +514,11 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
         return h, g, fc2_residual_plain(g, w3, b3, gamma,
                                         x.reshape(m, d)).reshape(x.shape)
     f32 = x.dtype == torch.float32
-    kernel, widths, launches = (
-        ("swiglu_residual_f32", SWIGLU_F32_WIDTHS, SWIGLU_F32_LAUNCHES) if f32
-        else ("swiglu_residual", SWIGLU_WIDTHS, SWIGLU_LAUNCHES))
-    if d not in widths:
-        raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
-    hid = swiglu_hidden(d)
+    kernel, launches = (("swiglu_residual_f32", SWIGLU_F32_LAUNCHES) if f32
+                        else ("swiglu_residual", SWIGLU_LAUNCHES))
+    if d % 128:
+        raise ValueError(f"{kernel} kernel takes D a multiple of 128, got "
+                         f"{d}")
     dt = torch.float32 if f32 else torch.bfloat16
     _check_operands(kernel, x, (
         ("LN weight", ln_w, (d,), torch.float32),
@@ -486,19 +530,23 @@ def swiglu_residual_stages(x: torch.Tensor, ln_w: torch.Tensor,
         ("gamma", gamma, (d,), dt)), dt)
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    hp = padded_hidden(hid, GATED_STEP[dt])
+    w12 = pad_hidden(w12, hid, hp, 0, halves=2)
+    b12 = pad_hidden(b12, hid, hp, 0, halves=2)
+    w3 = pad_hidden(w3, hid, hp, 1)
     if f32:  # the 3xTF32 core takes the weights split, w12 gated
-        w12, w3 = tf32x3_weight(w12, hid), tf32x3_weight(w3)
+        w12, w3 = tf32x3_weight(w12, hp), tf32x3_weight(w3)
     # Scratch of the chain: the LayerNorm'd rows and silu(x1) * x2.
     h = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
+    g = torch.empty((m, hp), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     check(getattr(library(), f"vrvg_{kernel}")(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
         b12.data_ptr(), w3.data_ptr(), b3.data_ptr(), gamma.data_ptr(),
-        h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hid, eps,
+        h.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, hp, eps,
         stream_handle(x.device)), f"vrvg_{kernel}")
     launches.count += 1
-    return h, g, out
+    return h, g[:, :hid], out
 
 
 def swiglu_gate_kernel(h: torch.Tensor, w12: torch.Tensor,
@@ -540,20 +588,22 @@ def _check_operands(kernel: str, x: torch.Tensor, operands,
                              f"contiguous={t.is_contiguous()}")
 
 
-def _check_mlp_operands(kernel: str, widths, x: torch.Tensor,
-                        ln_w: torch.Tensor, ln_b: torch.Tensor,
-                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                        b2: torch.Tensor, gamma: torch.Tensor) -> None:
+def _check_mlp_operands(kernel: str, x: torch.Tensor, ln_w: torch.Tensor,
+                        ln_b: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        gamma: torch.Tensor) -> None:
     """Raise unless the operands are what the GELU half-block kernels take:
-    D in ``widths``, hidden 4D, activations and weights bf16 (f32 for an
-    f32 chain, ``kernel`` ending in _f32), f32 LN affine, all contiguous."""
-    d = x.shape[-1]
-    if d not in widths:
-        raise ValueError(f"{kernel} kernel takes D in {widths}, got {d}")
+    D a multiple of 128, any hidden width H (w1's rows), activations and
+    weights bf16 (f32 for an f32 chain, ``kernel`` ending in _f32), f32 LN
+    affine, all contiguous."""
+    d, hid = x.shape[-1], w1.shape[0]
+    if d % 128:
+        raise ValueError(f"{kernel} kernel takes D a multiple of 128, got "
+                         f"{d}")
     f32 = torch.float32
     dt = f32 if kernel.endswith("_f32") else torch.bfloat16
     _check_operands(kernel, x, (
         ("LN weight", ln_w, (d,), f32), ("LN bias", ln_b, (d,), f32),
-        ("fc1 weight", w1, (4 * d, d), dt), ("fc1 bias", b1, (4 * d,), dt),
-        ("fc2 weight", w2, (d, 4 * d), dt), ("fc2 bias", b2, (d,), dt),
+        ("fc1 weight", w1, (hid, d), dt), ("fc1 bias", b1, (hid,), dt),
+        ("fc2 weight", w2, (d, hid), dt), ("fc2 bias", b2, (d,), dt),
         ("gamma", gamma, (d,), dt)), dt)

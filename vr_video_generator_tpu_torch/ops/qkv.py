@@ -11,7 +11,7 @@ Replaces vr_video_generator_tpu/ops/qkv_pallas.py:
   rounded in the compute dtype.
 
 The port's layout differs from the TPU's on purpose: ``ln_qkv`` returns
-(B, N, 3, H, 64), whose q, k and v slices are the strided views the
+(B, N, 3, H, Dh), whose q, k and v slices are the strided views the
 attention kernel reads, with no pad rows (the port's attention masks keys
 >= N itself). The kernels are ``csrc/qkv.cu``; see its header for the design.
 ``ln_qkv``'s is a chain: row 1's LayerNorm into an (M, D) scratch, then the
@@ -42,8 +42,6 @@ LN_QKV_LAUNCHES = counter("ln_qkv")
 PROJ_LAUNCHES = counter("proj_ls_residual")
 LN_QKV_F32_LAUNCHES = counter("ln_qkv_f32")
 PROJ_F32_LAUNCHES = counter("proj_ls_residual_f32")
-HEAD_DIM = 64
-WIDTHS = (128, 384, 768, 1024)  # the widths csrc/qkv.cu is built for
 
 
 def qkv_block_n(d: int, dtype: torch.dtype) -> int | None:
@@ -105,10 +103,19 @@ def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
                          f"contiguous={t.is_contiguous()}")
 
 
+def takes_width(d: int, heads: int) -> bool:
+    """Whether the fused attention half's kernels take width ``d`` at
+    ``heads`` heads: the JAX Block's rule (its models/dinov2.py), D a
+    multiple of 128 and the head dim a multiple of 64."""
+    return heads > 0 and d % 128 == 0 and d % heads == 0 \
+        and (d // heads) % 64 == 0
+
+
 def _check_width(kernel: str, d: int, heads: int) -> None:
-    if d not in WIDTHS or d != heads * HEAD_DIM:
-        raise ValueError(f"{kernel} kernel takes D in {WIDTHS} with head dim "
-                         f"{HEAD_DIM}, got D={d}, heads={heads}")
+    if not takes_width(d, heads):
+        raise ValueError(f"{kernel} kernel takes D a multiple of 128 with a "
+                         f"head dim a multiple of 64, got D={d}, "
+                         f"heads={heads}")
 
 
 def _kernel_dtype(kernel: str, x: torch.Tensor) -> torch.dtype:
@@ -123,9 +130,9 @@ def _kernel_dtype(kernel: str, x: torch.Tensor) -> torch.dtype:
 def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor, heads: int, scale: float,
            eps: float = 1e-6) -> torch.Tensor:
-    """(B, N, D) -> (B, N, 3, heads, 64): the plain version for CPU tensors,
-    the kernel chain for CUDA tensors (bf16; f32 through the f32 variant,
-    weights and biases f32, the weight split once by
+    """(B, N, D) -> (B, N, 3, heads, D / heads): the plain version for CPU
+    tensors, the kernel chain for CUDA tensors (bf16; f32 through the f32
+    variant, weights and biases f32, the weight split once by
     :func:`~vr_video_generator_tpu_torch.ops.mlp.tf32x3_weight`)."""
     if not on_cuda(x, ln_w, ln_b, w, b):
         return ln_qkv_plain(x, ln_w, ln_b, w, b, heads, scale, eps)
@@ -144,7 +151,7 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         w = tf32x3_weight(w)
     # Scratch of the chain: the LayerNorm'd rows.
     a = torch.empty_like(x)
-    out = torch.empty((bsz, n, 3, heads, HEAD_DIM), dtype=x.dtype,
+    out = torch.empty((bsz, n, 3, heads, d // heads), dtype=x.dtype,
                       device=x.device)
     entry = "vrvg_ln_qkv_f32" if f32 else "vrvg_ln_qkv"
     err = getattr(library(), entry)(
@@ -158,16 +165,17 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 def proj_ls_residual(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-    """o (B, N, H, 64), x (B, N, D) -> x + gamma * (proj(o) + b): the plain
-    version for CPU tensors, the kernel for CUDA tensors (bf16; f32 through
-    the f32 variant, every operand f32, the weight split once by
+    """o (B, N, H, D / H), x (B, N, D) -> x + gamma * (proj(o) + b): the
+    plain version for CPU tensors, the kernel for CUDA tensors (bf16; f32
+    through the f32 variant, every operand f32, the weight split once by
     :func:`~vr_video_generator_tpu_torch.ops.mlp.tf32x3_weight`)."""
     if not on_cuda(o, x, w, b, gamma):
         return proj_ls_residual_plain(o, x, w, b, gamma)
     bsz, n, d = x.shape
     dt = _kernel_dtype("proj_ls_residual", x)
-    _check_width("proj_ls_residual", d, o.shape[2])
-    _check("proj_ls_residual o", o, (bsz, n, d // HEAD_DIM, HEAD_DIM), dt)
+    heads = o.shape[2]
+    _check_width("proj_ls_residual", d, heads)
+    _check("proj_ls_residual o", o, (bsz, n, heads, d // heads), dt)
     _check("proj_ls_residual x", x, (bsz, n, d), dt)
     _check("proj_ls_residual weight", w, (d, d), dt)
     _check("proj_ls_residual bias", b, (d,), dt)

@@ -80,10 +80,9 @@ def check_supported(run_cfg: RunConfig) -> None:
     if run_cfg.sbs_output not in SBS_OUTPUTS:
         raise ValueError(f"sbs_output must be one of {SBS_OUTPUTS}, "
                          f"got {run_cfg.sbs_output!r}")
-    # An explicit 'fused' at a width whose kernel is not ported raises here,
-    # before any weight is built (the device and the token count do not
-    # change that answer). The tail's choice depends on the geometry; the
-    # head resolves it.
+    # An unknown mlp_fused raises here, before any weight is built (every
+    # width either half fuses at has its kernels). The tail's choice depends
+    # on the geometry; the head resolves it.
     cfg = run_cfg.model()
     resolve_block_fusion(cfg.mlp_fused, cfg.embed_dim, cfg.num_heads, 1, "cpu",
                          torch.float32, cfg.ffn_layer)

@@ -218,7 +218,26 @@ Phases, each fatal on failure:
      ``auto``, hd32 also at 728 (B = 2), w512 and hd128 also at f32, with
      exactly their kernels a step, the weight splits at f32's first step,
      ``resolve_block_fusion`` and ``check_f32_plan`` raising nothing, and
-     the depth against the plain path.
+     the depth against the plain path;
+ 13. the DPT tails at every width the JAX planners take (a custom head's
+     features; the chains zero-padded to their kernels' widths): (a) row 7
+     at bf16 C = 16, 48, 96, 144 on vits' 1080p/518 grid, 320 at 252's and
+     528 at 126's, at f32 C = 16, 48 at 518 and 160 at 252; rows 11 + 12 at
+     f32 C = 80, 96, 112 at 518 and 512 at 126, at bf16 C = 512, 640 at
+     252 and 896 at 126; row 15 at C = 16, 96 and 256 at both dtypes on
+     path1 at vits' grid (TAIL_CASES), each stage by stage against its
+     plain version with phase 3's bf16 and phase 8's f32 bounds (the f32
+     ones refusing the TF32 result), timed beside the plain version and
+     cuDNN's two convs, the bound counted on the head's own C; bf16 row 7
+     at C = 16 timed on the five-stage chain (C = 64) and on the wmma chain
+     (C = 32); each width's wrapper, called as a user calls it, launching
+     exactly its kernels; (b) four vits paths at full depth (12 blocks,
+     1080p, B = 8, ``auto``) with a custom head, built through
+     models/factory (TAIL_RUNS): 96 features at 518 bf16 (row 7 at C = 96)
+     and f32 (rows 11 + 12 at C = 96), 48 at 518 f32 (row 7 at C = 48),
+     512 at 252 bf16 (rows 11 + 12 at C = 512), each with exactly its
+     kernels a step, the depth against the plain path (f32: and against a
+     plain f64 forward).
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -241,7 +260,9 @@ row 16 twice (C = 64, 128); row 17 at 8 and 4 heads and row 2 at 8, 4, 12,
 head dims 32 and 128 (row 2, bf16), 32 (row 17, bf16 and f32) and 128 (row
 2, f32), and rows 5 and 6 at D = 512 and 640, row 8 at D = 512, row 9 at D
 = 640 and row 10 at D = 1024, bf16, and rows 5, 6 and 8 at D = 512 at f32,
-with the launches of phase 12's paths), and
+with the launches of phase 12's paths; rows 7, 11 + 12 and 15 at each of
+phase 13's widths, the four paths' tails with those paths' launches, the
+other widths with their wrapper calls'), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -3347,8 +3368,9 @@ def conv3x3_f64(x, k):
 
 def core_conv_sums(x, k):
     """conv3x3_f32 (the 3x3 conv's sums on the 3xTF32 core) of x by k, their
-    channels zero-padded to 32 where fewer: conv2's 16 input channels at C =
-    32, as the f32 chains pad them (ops/head_tail._f32_padded)."""
+    channels zero-padded to a multiple of 32: conv2's input channels at a
+    custom head's C2 (16 at C = 32), as the f32 chains pad them
+    (ops/head_tail.chain_widths)."""
     import torch.nn.functional as F
 
     from vr_video_generator_tpu_torch.ops import head_tail as ht
@@ -3386,7 +3408,7 @@ def f32_big_tail_check(gen, c: int, grid, out_hw) -> dict:
     for name, src, k, out in (("conv1", got[0], k1f, got[1]),
                               ("conv2", got[2], k2, None)):
         if out is None:
-            out = ht.conv3x3_f32(src, k)
+            out = core_conv_sums(src, k)
         plain = ht.conv3x3_f32_plain(src, k)
         with tf32(True):
             tf_plain = ht.conv3x3_f32_plain(src, k)
@@ -5462,11 +5484,12 @@ KERNELS_ANY = {
 
 
 def width_config(label: str):
-    """The ModelConfig of WIDTH_PATHS' ``label``, ``auto``."""
+    """The ModelConfig of WIDTH_PATHS' (or TAIL_PATHS') ``label``,
+    ``auto``."""
     from vr_video_generator_tpu_torch.utils.config import ModelConfig
 
     return dataclasses.replace(ModelConfig(), mlp_fused="auto",
-                               **WIDTH_PATHS[label])
+                               **{**WIDTH_PATHS, **TAIL_PATHS}[label])
 
 
 def with_model(run_cfg, model_cfg):
@@ -5662,7 +5685,7 @@ def width_kernels(device) -> dict:
     return out
 
 
-def width_run(device, frames, row) -> dict:
+def width_run(device, frames, row, f64_factor=None) -> dict:
     """One WIDTH_RUNS path: the custom configuration built with seeded
     random weights (models/factory), its pipeline's plan checks
     (resolve_block_fusion at each dtype, check_f32_plan), one batch through
@@ -5670,7 +5693,9 @@ def width_run(device, frames, row) -> dict:
     (one_batch; at f32 none of the plain versions, and the weights split at
     the first step only), and its depth against the plain path (PlainKernels)
     on the same weights and frames: on average within DEPTH_REL of the
-    range at bf16 (phase 4's bound), 1e-3 at f32 (phase 8 (c')'s)."""
+    range at bf16 (phase 4's bound), 1e-3 at f32 (phase 8 (c')'s); with
+    ``f64_factor``, at f32 also against a plain f64 forward (f64_depth:
+    at most that factor times the plain f32 path's error)."""
     import torch
 
     from vr_video_generator_tpu_torch.kernels import (launch_counts,
@@ -5694,8 +5719,8 @@ def width_run(device, frames, row) -> dict:
                                                   compute_dtype="float32"),
                               mcfg), H, W)
     dtype = getattr(torch, dtype_name)
-    model = build_model(mcfg, random_state_dict(mcfg, SEED), dtype, device,
-                        tail=cfg.tail)
+    sd = random_state_dict(mcfg, SEED)
+    model = build_model(mcfg, sd, dtype, device, tail=cfg.tail)
     pipe = SbsPipeline(model, H, W, run_cfg=cfg)
     f32 = dtype == torch.float32
     reset_launch_counts()
@@ -5721,12 +5746,15 @@ def width_run(device, frames, row) -> dict:
             f"{span}, limit {limit})")
     stats.update(depth_vs_plain_mean=mean, depth_range=span,
                  depth_vs_plain_max=float((d_kernel - d_plain).abs().max()),
-                 first_step_splits=first,
-                 seconds_total=time.perf_counter() - t0)
+                 first_step_splits=first)
+    del x, d_kernel, d_plain
+    if f32 and f64_factor:
+        stats["f64"] = f64_depth(label, pipe, sd, cfg, frames, f64_factor)
+    stats["seconds_total"] = time.perf_counter() - t0
     log(f"{label}: depth against the plain path: mean {mean} "
         f"({mean / span:.3e} of the range {span}); "
         f"{stats['seconds_total']:.1f} s")
-    del model, pipe, x, d_kernel, d_plain
+    del model, pipe, sd
     torch.cuda.empty_cache()
     return stats
 
@@ -5743,6 +5771,266 @@ def widths_path(device, rng) -> dict:
     out["paths"] = {row[0]: width_run(device, frames, row)
                     for row in WIDTH_RUNS}
     log(f"phase 12 (c) paths: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# Phase 13: the DPT tails at every width the JAX planners take. A custom
+# head (ModelConfig.features) reaches rows 7, 11 + 12 and 15 at widths no
+# encoder has; the chains run them zero-padded (ops/head_tail.chain_widths).
+# refinenet1's grid and the net's size at 1080p for each --input_size.
+TAIL_GRIDS = {518: ((H0, W0), OUT_HW), 252: EXT_WIDE[FEATURES_L],
+              126: EXT_WIDE[FEATURES_G]}
+# (a): (row, dtype, C, input size), each padded chain against its plain
+# version stage by stage: the ext tail (row 7) at the widths the JAX
+# planners send it at 518 and that only 252 and 126 reach, the big-C tail
+# (rows 11 + 12) at f32's C <= 128 and the C = 512-896 of both dtypes, the
+# single-kernel tail (row 15) on path1 at vits' grid.
+TAIL_CASES = (
+    tuple(("ext", "bfloat16", c, 518) for c in (16, 48, 96, 144))
+    + (("ext", "bfloat16", 320, 252), ("ext", "bfloat16", 528, 126))
+    + (("ext", "float32", 16, 518), ("ext", "float32", 48, 518),
+       ("ext", "float32", 160, 252))
+    + tuple(("big", "float32", c, 518) for c in (80, 96, 112))
+    + (("big", "float32", 512, 126), ("big", "bfloat16", 512, 252),
+       ("big", "bfloat16", 640, 252), ("big", "bfloat16", 896, 126))
+    + tuple(("base", dt, c, 518) for dt in ("bfloat16", "float32")
+            for c in (16, 96, 256)))
+# (b): the slice's paths, vits at full depth and width with a custom head,
+# 1080p, B = 8, `auto`, as WIDTH_RUNS' rows (the vits encoder's attention
+# half fused, its MLP half not).
+_VITS_STEP = {"layernorm": 16, "ln_qkv": 12, "attention": 12,
+              "proj_ls_residual": 12, **_TAIL}
+_VITS_F32_STEP = {f"{k}_f32" if k in _VITS_STEP and k not in _TAIL else k: v
+                  for k, v in _VITS_STEP.items()}
+TAIL_PATHS = {
+    f"f{c}": dict(encoder="vits", embed_dim=384, depth=12, num_heads=6,
+                  mlp_ratio=4.0, features=c, out_channels=(48, 96, 192, 384),
+                  intermediate_layers=(2, 5, 8, 11))
+    for c in (48, 96, 512)}
+TAIL_RUNS = (
+    ("f96-518", "f96", 518, B, "bfloat16",
+     {**_VITS_STEP, "head_tail_ext": 1}, 0),
+    ("f96-518 f32", "f96", 518, B, "float32",
+     {**_VITS_F32_STEP, "head_tail_big_f32": 1}, 24 + 2),
+    ("f48-518 f32", "f48", 518, B, "float32",
+     {**_VITS_F32_STEP, "head_tail_ext_f32": 1}, 24 + 3),
+    ("f512-252", "f512", 252, B, "bfloat16",
+     {**_VITS_STEP, "head_tail_big_front": 1, "head_tail_big_back": 1}, 0),
+)
+# Each path's tail in the kernels line, at its width, with the path's
+# launches: (counter, TAIL_CASES key, path).
+TAIL_ENTRIES = (
+    ("head_tail_ext", "head_tail_ext C=96", "f96-518"),
+    ("head_tail_big_f32", "head_tail_big_f32 C=96", "f96-518 f32"),
+    ("head_tail_ext_f32", "head_tail_ext_f32 C=48", "f48-518 f32"),
+    ("head_tail_big_front", "head_tail_big_front C=512", "f512-252"),
+    ("head_tail_big_back", "head_tail_big_back C=512", "f512-252"))
+# The counter each (row, dtype) launches, the kernels line's names.
+TAIL_COUNTERS = {("ext", "bfloat16"): ("head_tail_ext",),
+                 ("ext", "float32"): ("head_tail_ext_f32",),
+                 ("big", "bfloat16"): BIG_TAIL,
+                 ("big", "float32"): ("head_tail_big_f32",),
+                 ("base", "bfloat16"): ("head_tail",),
+                 ("base", "float32"): ("head_tail_f32",)}
+
+
+def cudnn_convs_ms(*convs) -> float:
+    """The library time of a tail's kernel: cuDNN's channels-last 3x3
+    convolutions ``convs`` ((input (B, H, W, C), weight, bias or None)
+    each: conv1 on its input, conv2 on R) on the same operands, in their
+    dtype. The port never calls them; no one PyTorch call computes a
+    tail."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    cl = torch.channels_last
+    ops = [(x.permute(0, 3, 1, 2).contiguous(memory_format=cl),
+            k.contiguous(memory_format=cl), b) for x, k, b in convs]
+    return event_ms(lambda: [F.conv2d(x, k, b, padding=1)
+                             for x, k, b in ops])
+
+
+def padded_share(row, dtype, c, size) -> dict:
+    """The zero padding's share of a chain's work at a head of C features
+    on TAIL_CASES' grid: of its convolutions' and row 7's mix's products,
+    and of the elements of x as the chain reads it and of its
+    intermediates (xoc, Z or U, c1 or mid, R), at the chain's widths
+    (ops/head_tail.chain_widths) against the head's own C and C / 2 (a
+    ragged conv1 tile's idle columns not counted)."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    cp, c2p = ht.chain_widths(c, getattr(torch, dtype))
+    (h, w), (h1, w1) = ((2 * H0, 2 * W0), OUT_HW) if row == "base" \
+        else TAIL_GRIDS[size]
+    po = h1 * w1
+    if row == "base":
+        def prods(a, b):
+            return h * w * 9 * a * b + po * 9 * b * 32
+
+        def moved(a, b):
+            return h * w * (a + b) + po * b
+    else:
+        mix, n0, n1 = row == "ext", h * w, 4 * h * w
+
+        def prods(a, b):
+            return mix * n0 * a * a + n1 * 9 * a * b + po * 9 * b * 32
+
+        def moved(a, b):
+            return n0 * a * (1 + mix) + n1 * (a + b) + po * b
+    return dict(products=1 - prods(c, c // 2) / prods(cp, c2p),
+                elements=1 - moved(c, c // 2) / moved(cp, c2p),
+                widths=(cp, c2p))
+
+
+def tail_width_case(gen, row, dtype, c, size) -> dict:
+    """One TAIL_CASES row: the padded chain stage by stage against its
+    plain version with phase 3's bf16 and phase 8's f32 bounds (the f32
+    ones refusing the TF32 result), the whole tail against its plain
+    version, timed beside the plain version and cuDNN's two convs, the
+    bound counted on the head's own C. Returns {kernel: statistics}."""
+    import torch
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    (grid, out_hw) = TAIL_GRIDS[size]
+    f32 = dtype == "float32"
+    if row == "base":
+        res = (f32_base_tail_check if f32 else check_base_tail)(gen, c)
+        return {TAIL_COUNTERS[(row, dtype)][0]: res}
+    if f32:
+        check = f32_ext_tail_check if row == "ext" else f32_big_tail_check
+        return {TAIL_COUNTERS[(row, dtype)][0]: check(gen, c, grid, out_hw)}
+    if row == "ext":
+        res = check_ext_tail(gen, c, grid, out_hw)
+        xt = randn(gen, (B, c, *grid), dtype=torch.bfloat16).permute(
+            0, 2, 3, 1)
+        wts = tail_weights(gen, c)
+        _, z, _, r, _ = ht.head_tail_ext_stages(xt, *wts, out_hw)
+        res["library_ms"] = cudnn_convs_ms((z, wts[2], wts[3]),
+                                           (r, wts[4], None))
+        return {"head_tail_ext": res}
+    res = check_big_tail(gen, c, grid, out_hw)
+    xt = randn(gen, (B, c, *grid), dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    u, _, r, _ = ht.head_tail_big_stages(xt, *wts, out_hw)
+    k1f = ht.fold_conv1(wts[0], wts[2], torch.bfloat16)
+    res["head_tail_big_front"]["library_ms"] = cudnn_convs_ms((u, k1f, None))
+    res["head_tail_big_back"]["library_ms"] = cudnn_convs_ms(
+        (r, wts[4], None))
+    return res
+
+
+def c16_chain_choice(gen) -> dict:
+    """bf16 row 7 at C = 16 on vits' 1080p/518 grid (B = 8, x an NCHW
+    activation seen as NHWC): the five-stage chain zero-padded to C = 64
+    (the port's route) against csrc/head_tail.cu's wmma chain zero-padded
+    to C = 32 (x copied to 32 channels first, the copy timed with it; its
+    row fits one block's shared memory at W0 = 264), each against the plain
+    version by the tail bounds, both timed by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    c, out_hw = 16, OUT_HW
+    xt = randn(gen, (B, c, H0, W0), dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    k_oc, b_oc, k1, b1, k2, b2, k3, b3 = wts
+    w32 = (ht.pad_to(k_oc, 32, 32), ht.pad_to(b_oc, 32), ht.pad_to(k1, 16, 32),
+           ht.pad_to(b1, 16), ht.pad_to(k2, 32, 16), b2, k3, b3)
+    require(ht.wmma_takes(32, W0), "the wmma chain takes W0 = 264")
+    want = ht.head_tail_ext_plain(xt, *wts, out_hw)
+    five = tail_stats("head_tail_ext C=16 five-stage (C = 64)",
+                      ht.head_tail_ext(xt, *wts, out_hw), want)
+    wmma = tail_stats("head_tail_ext C=16 wmma (C = 32)", ht.head_tail_ext(
+        F.pad(xt, (0, 16)), *w32, out_hw), want)
+    out = dict(five_stage=dict(**five, ms=event_ms(
+        lambda: ht.head_tail_ext(xt, *wts, out_hw))),
+        wmma=dict(**wmma, ms=event_ms(lambda: ht.head_tail_ext(
+            F.pad(xt, (0, 16)), *w32, out_hw))),
+        pad_copy_ms=event_ms(lambda: F.pad(xt, (0, 16))))
+    log(f"bf16 row 7 at C = 16: the five-stage chain at C = 64 "
+        f"{out['five_stage']['ms']} ms, the wmma chain at C = 32 "
+        f"{out['wmma']['ms']} ms (its x copy {out['pad_copy_ms']} ms)")
+    return out
+
+
+def tail_entry_calls(device) -> dict:
+    """Each TAIL_CASES width's wrapper called once as a user calls it, on
+    fresh inputs, with the launch counts reset just before and read just
+    after: exactly its kernels, once each. Returns {case key: counts}."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 131)
+    out = {}
+    for row, dtype, c, size in TAIL_CASES:
+        f32 = dtype == "float32"
+        (h0, w0), out_hw = ((2 * H0, 2 * W0), OUT_HW) if row == "base" \
+            else TAIL_GRIDS[size]
+        x = randn(gen, (B, c, h0, w0),
+                  dtype=None if f32 else torch.bfloat16).permute(0, 2, 3, 1)
+        wts = (f32_tail_weights if f32 else tail_weights)(gen, c)
+        fn = {"ext": ht.head_tail_ext, "big": ht.head_tail_big,
+              "base": ht.head_tail}[row]
+        args = wts[2:] if row == "base" else wts
+        fn(x, *args, out_hw)  # weights laid out (split at f32) once
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        depth = fn(x, *args, out_hw)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        need = {k: 1 for k in TAIL_COUNTERS[(row, dtype)]}
+        require(got == need and bool(torch.isfinite(depth).all()),
+                f"{row} {dtype} C={c}: launched {got}, expected {need}")
+        out[(row, dtype, c)] = got
+        del x, wts, depth
+    torch.cuda.empty_cache()
+    return out
+
+
+def tails_path(device, rng) -> dict:
+    """Phase 13: the DPT tails at every width the JAX planners take: (a) the
+    padded chains against their plain versions (TAIL_CASES), bf16 row 7's
+    C = 16 route timed both ways, each width's wrapper launching exactly
+    its kernels; (b) the four paths (TAIL_RUNS) through models/factory and
+    SbsPipeline, exactly their kernels a step, the depth against the plain
+    path (f32: and against a plain f64 forward, F32_DEPTH_FACTOR)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 130)
+    kernels = {}
+    for row, dtype, c, size in TAIL_CASES:
+        t1 = time.perf_counter()
+        share = padded_share(row, dtype, c, size)
+        for name, res in tail_width_case(gen, row, dtype, c, size).items():
+            kernels[f"{name} C={c}"] = dict(**res, padded_share=share)
+            log(f"phase 13 (a) {name} {dtype} C={c} at {size}: ms "
+                f"{res['ms']}, plain {res['plain_ms']}, library "
+                f"{res['library_ms']}, bound {res['bound_ms']} "
+                f"({res['bound_by']}); padded share {json.dumps(share)}")
+        log(f"phase 13 (a) {row} {dtype} C={c} at {size}: "
+            f"{time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+    out = dict(kernels=kernels, c16=c16_chain_choice(gen),
+               calls={f"{r} {d} C={c}": v for (r, d, c), v in
+                      tail_entry_calls(device).items()})
+    log(f"phase 13 (a) kernels: {time.perf_counter() - t0:.1f} s")
+    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    out["paths"] = {row[0]: width_run(device, frames, row,
+                                      f64_factor=F32_DEPTH_FACTOR)
+                    for row in TAIL_RUNS}
+    log(f"phase 13 (b) paths: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5844,6 +6132,12 @@ def main() -> int:
     log(f"phase 12 (the encoder at every width: kernel 1 at head dims 16-256, "
         f"rows 5, 6, 8, 9, 10 at new widths, the five custom "
         f"configurations): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase13 = tails_path(device, rng)
+    paths["phase 13"] = phase13
+    log(f"phase 13 (the DPT tails at every width: rows 7, 11 + 12 and 15 "
+        f"zero-padded, bf16 and f32, and four custom-head paths): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
     # Rows 1, 2, 5-9, 11 and 12 appear more than once: at the first path's
@@ -5994,6 +6288,18 @@ def main() -> int:
                 for name, d, label in ATTN_ANY_ENTRIES]
     entries += [(name, k12[key], p12[label]["launches"][name])
                 for name, key, label in WIDTH_ENTRIES]
+    # Phase 13: rows 7, 11 + 12 and 15 at the widths a custom head gives
+    # them: the four paths' tails with the paths' launches, every other
+    # width with the launches of its wrapper's call as a user calls it.
+    k13, p13 = phase13["kernels"], phase13["paths"]
+    on_path = [(name, key) for name, key, _ in TAIL_ENTRIES]
+    entries += [(name, k13[key], p13[label]["launches"][name])
+                for name, key, label in TAIL_ENTRIES]
+    entries += [(name, k13[f"{name} C={c}"],
+                 phase13["calls"][f"{row} {dtype} C={c}"][name])
+                for row, dtype, c, _ in TAIL_CASES
+                for name in TAIL_COUNTERS[(row, dtype)]
+                if (name, f"{name} C={c}") not in on_path]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,

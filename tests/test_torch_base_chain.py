@@ -204,19 +204,35 @@ def test_base_core_permuted_weights_fail():
 
 
 def test_base_dispatch_matches_the_source():
-    """vrvg_head_tail runs conv1 on the kernel BASE_CONV1 names at each
-    width, which sets the layouts the wrapper builds: head_tail_wmma (csrc/
-    head_tail.cu) at C = 32, the halo kernel's Conv1Out at 64, the core on
-    the tiles this file emulates (BASE_TILE) at 128; and no other width."""
+    """vrvg_head_tail runs conv1 on the kernel whose weight layout the
+    wrapper builds at each width: head_tail_wmma (csrc/head_tail.cu) at C =
+    32, the halo kernel's Conv1Out where the chain's C2 is 32 (C = 16 to
+    64, C zero-padded to 64), the core on the tiles this file emulates
+    (BASE_TILE, conv1_core's narrow tile) at C2 up to 64, wider tiles
+    beyond; every other width through bf16_widths."""
     text = SRC.read_text()
     body = text[text.index('extern "C" int vrvg_head_tail('):]
-    assert re.search(r"if \(c == 32\) \{\s*return head_tail_wmma\(", body)
-    cases = dict(re.findall(r"case (\d+):(.*?)break;", body, flags=re.S))
-    assert set(cases) == {"64", "128"}
-    assert "conv2::launch<conv2::Conv1Out>" in cases["64"]
-    tile = re.search(r"conv3x3<tma_gemm::Tile<(\d+), (\d+)>>", cases["128"])
-    assert "BiasBeforeCast" in cases["128"] and tile
-    assert (int(tile[1]), int(tile[2])) == BASE_TILE
-    assert ht.BASE_CONV1 == {32: "wmma", 64: "halo", 128: "core"}
-    assert set(ht.BASE_CONV1) == set(ht.BASE_CHANNELS)
-    assert re.search(r"c != 32 && c != 64 && c != 128", body)
+    body = body[:body.index("\n}\n")]
+    assert re.search(r"const bool wmma = cin == 32 && c == 32 && c2 == 16 "
+                     r"&& layout == 0;", body)
+    assert re.search(r"if \(!wmma && !bf16_widths\(cin, c, c2\)\)", body)
+    assert re.search(r"if \(wmma\) \{\s*return head_tail_wmma\(", body)
+    halo = re.search(r"if \(c2 == 32\) \{\s*err = conv2::launch<conv2::"
+                     r"Conv1Out>", body)
+    core = re.search(r"conv1_core\(x, k1, c1, .*?BiasBeforeCast.*?"
+                     r"c2 <= 64, stream\)", body, flags=re.S)
+    assert halo and core
+    narrow = text[text.index("int conv1_core("):]
+    tile = re.search(r"if \(narrow\) \{\s*return tma_gemm::conv3x3<tma_gemm::"
+                     r"Tile<(\d+), (\d+)>>", narrow)
+    assert tile and (int(tile[1]), int(tile[2])) == BASE_TILE
+    kinds = {}
+    for c in (16, 32, 48, 64, 96, 128, 256):
+        k1, k2 = torch.zeros((c // 2, c, 3, 3)), torch.zeros((32, c // 2, 3, 3))
+        w1 = _chain_weights(c, k1, torch.zeros(c // 2), k2)[0]
+        cp, c2p = ht.chain_widths(c, torch.bfloat16)
+        kinds[c] = ("wmma" if w1.shape == (3, 3, 32, 16) else
+                    "halo" if w1.shape == (9 * 32, cp) and c2p == 32 else
+                    "core" if w1.shape == (c2p, 9 * cp) else w1.shape)
+    assert kinds == {16: "halo", 32: "wmma", 48: "halo", 64: "halo",
+                     96: "core", 128: "core", 256: "core"}

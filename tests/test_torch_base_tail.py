@@ -110,10 +110,11 @@ def test_head_tail_matches_pallas_interpret(h2, w2, c, dtype):
 
 
 def test_head_tail_widths():
-    """The kernel takes path1 at C in {32, 64, 128} (C2 = C / 2, C3 = 32):
-    vits' and vitb's features; vitl's and vitg's are not built."""
-    assert [c for c in (16, 32, 64, 128, 256, 384) if ht.base_takes(c)] == [
-        32, 64, 128]
+    """The kernel takes path1 at every C the JAX kernel takes (C2 = C / 2 a
+    multiple of 8, C3 = 32; zero-padded on the card), vitl's and vitg's
+    widths too; not at C2 % 8 != 0."""
+    assert [c for c in (8, 16, 32, 40, 64, 128, 256, 264, 384)
+            if ht.takes(c, "base")] == [16, 32, 64, 128, 256, 384]
 
 
 # --- row 16: refinenet1's RCU pair -------------------------------------------

@@ -260,15 +260,16 @@ def test_no_file_names_the_simt_headers(header):
 
 # --- (f) widths without an f32 kernel --------------------------------------------
 
-@pytest.mark.parametrize("c,item", [(16, "DPT tail kernels at other widths"),
-                                    (256, "DPT tail kernels at other widths")])
+@pytest.mark.parametrize("c,item", [(40, "head_tail_pallas.py:174"),
+                                    (264, "head_tail_pallas.py:174")])
 def test_f32_width_without_kernel_raises_not_ported(monkeypatch, c, item):
     """(f) head_tail and head_tail_stages on f32 path1 on the card at C =
-    16 or 256 (no row 15 kernel at any dtype) raise not_ported naming the
-    roadmap item, before any weight is split or kernel launched."""
+    40 or 264 (C2 no multiple of 8: the JAX kernel asserts, so no row 15
+    kernel takes them at any dtype) raise ValueError naming the JAX assert,
+    before any weight is split or kernel launched."""
     monkeypatch.setattr(ht, "on_cuda", lambda *t: True)
     monkeypatch.setattr(ht, "_prepared", lambda *a: pytest.fail("prepared"))
     x, *wts = base_case(c, 5, 7, seed=c)
     for fn in (ht.head_tail, ht.head_tail_stages):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             fn(x, *wts, (8, 12))

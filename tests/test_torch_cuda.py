@@ -2461,6 +2461,74 @@ def test_f32_tails_at_c32_match_plain(cuda, row, b, h, w):
     assert torch.equal(whole(x, *wts, out_hw), got[-1])
 
 
+# A custom head's DPT tail at widths the chains run zero-padded
+# (ops/head_tail.chain_widths; chip_smoke.py phase 13 at full size): bf16
+# stage by stage on small grids, and the same bits from a contiguous NHWC x
+# (the transpose kernel copies it with its zero padding, layout 2) and a
+# channel slice of a wider tensor as from the NCHW activation.
+@pytest.mark.parametrize("row,c", [("ext", 16), ("ext", 48), ("ext", 144),
+                                   ("big", 80), ("big", 512), ("base", 16),
+                                   ("base", 96)])
+def test_tails_at_padded_widths_match_plain(cuda, row, c):
+    from chip_smoke import (base_tail_stages, big_tail_stages,
+                            ext_tail_stages, tail_weights)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + 31)
+    h, w = (26, 42) if row == "base" else (13, 21)
+    x = _randn(gen, (2, c, h, w)).permute(0, 2, 3, 1)
+    wts = tail_weights(gen, c)
+    args = wts[2:] if row == "base" else wts
+    out_hw = (45, 73)
+    {"ext": ext_tail_stages, "big": lambda *a: big_tail_stages(*a)[0],
+     "base": base_tail_stages}[row](f"C={c}", x, args, out_hw)
+    fn = {"ext": ht.head_tail_ext, "big": ht.head_tail_big,
+          "base": ht.head_tail}[row]
+    want = fn(x, *args, out_hw)
+    wide = torch.zeros((2, h, w, c + 32), dtype=x.dtype, device=cuda)
+    wide[..., 32:] = x
+    for view in (x.contiguous(), wide[..., 32:]):
+        assert torch.equal(fn(view, *args, out_hw), want)
+
+
+@pytest.mark.parametrize("row,c", [("ext", 48), ("big", 80), ("base", 16)])
+def test_f32_tails_at_padded_widths_match_plain(cuda, row, c):
+    """Rows 7, 11 + 12 and 15 at f32 at a custom head's C = 48 (run as 64,
+    C2 = 32), 80 (96, 64) and 16 (32, 32): the stages come back as views of
+    the head's channels; the depth against the plain version within
+    chip_smoke.py's f32 tail bounds, refusing the plain version on
+    TF32-rounded operands; a contiguous NHWC x gives the same bits."""
+    from chip_smoke import (TAIL_F32_MAX_REL, TAIL_F32_MEAN_REL,
+                            f32_rel_check, tf32_round)
+    from vr_video_generator_tpu_torch.ops import head_tail as ht
+
+    gen = torch.Generator(device=cuda).manual_seed(c + 37)
+    h, w = (24, 40) if row == "base" else (12, 22)
+    x = _randn(gen, (2, c, h, w), dtype=F32).permute(0, 2, 3, 1)
+    wts = _f32_tail_wts(gen, c)
+    if row == "base":
+        wts = wts[2:]
+    out_hw = (h * 7 // 4, w * 7 // 4) if row == "base" else \
+        (h * 7 // 2, w * 7 // 2)
+    stages, whole, plain = {
+        "ext": (ht.head_tail_ext_stages, ht.head_tail_ext,
+                ht.head_tail_ext_plain),
+        "big": (ht.head_tail_big_stages, ht.head_tail_big,
+                ht.head_tail_big_plain),
+        "base": (ht.head_tail_stages, ht.head_tail, ht.head_tail_plain)}[row]
+    got = stages(x, *wts, out_hw)
+    widths = {"ext": (c, c, c // 2, c // 2), "big": (c, c // 2, c // 2),
+              "base": (c // 2, c // 2)}[row]
+    assert tuple(t.shape[-1] for t in got[:-1]) == widths
+    want = plain(x, *wts, out_hw)
+    rounded = [tf32_round(t) if t.ndim == 4 else t for t in wts]
+    tfw = plain(tf32_round(x), *rounded, out_hw)
+    span = (want.max() - want.min()).item()
+    f32_rel_check(f"{row} f32 C={c}", got[-1], want, tfw, TAIL_F32_MAX_REL,
+                  TAIL_F32_MEAN_REL, span)
+    assert torch.equal(whole(x.contiguous(), *wts, out_hw), got[-1])
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_vits_xla_group_1x4_on_one_card_matches_1x1(cuda, dtype):
     """vits ``--mlp_fused xla`` on a 1 x 4 model group on one card (ranks of

@@ -202,9 +202,12 @@ def test_prepared_weights_built_once_per_weight():
 
 
 def test_takes_any_row_but_at_32():
-    """The five-stage chain takes any grid at every encoder's width; only
-    the C = 32 chain holds a row in shared memory."""
-    for c in ht.EXT_CHANNELS:
-        assert ht.takes(c, 10 ** 5)
-    assert ht.takes(32, 264) and not ht.takes(32, 10 ** 5)
-    assert not ht.takes(48, 10)
+    """The five-stage chain takes any grid at every width the JAX kernel
+    takes (C a multiple of 16, zero-padded to its widths); only the C = 32
+    chain holds a row in shared memory, and a grid too wide for it runs the
+    five-stage chain (wmma_takes)."""
+    for c in (16, 32, 48, 64, 96, 128, 144, 256, 384, 528):
+        assert ht.takes(c)
+    assert not ht.takes(40) and not ht.takes(8)
+    assert ht.wmma_takes(32, 264) and not ht.wmma_takes(32, 10 ** 5)
+    assert not ht.wmma_takes(48, 10) and not ht.wmma_takes(64, 264)

@@ -85,18 +85,19 @@ def test_ext_tail_f32_plain_matches_pallas_interpret(c, h0, w0):
 
 
 def test_f32_widths():
-    """Both f32 tails take every width of an encoder's head (64-384), the
-    widths their kernels are built for; the ext tail also a 32-feature head
-    (C2 zero-padded to 32), the big-C tail not; a 16-feature head has
-    neither."""
-    assert ht.EXT_F32_CHANNELS == ht.CHANNELS == (32, 64, 128, 256, 384)
-    assert ht.BIG_F32_CHANNELS == ht.BIG_CHANNELS == (64, 128, 256, 384)
-    assert all(ht.takes_f32(c) and ht.takes_f32(c, "big")
-               for c in (64, 128, 256, 384))
-    assert ht.takes_f32(32) and not ht.takes_f32(32, "big")
-    assert not ht.takes_f32(16) and not ht.takes_f32(16, "big")
-    assert [ht.f32_c2(c) for c in (32, 64, 128, 256, 384)] == \
-        [32, 32, 64, 128, 192]
+    """Both f32 tails take every width of an encoder's head (64-384) and
+    every other width the JAX kernels take (C a multiple of 16; the big-C
+    tail C <= 128 or a multiple of 128), zero-padded to the chains' widths
+    (multiples of 32: an encoder's head unpadded, C2 = 16 padded to 32)."""
+    assert all(ht.takes(c) and ht.takes(c, "big")
+               for c in (16, 32, 64, 128, 256, 384))
+    assert ht.takes(160) and not ht.takes(160, "big")
+    assert not ht.takes(40) and not ht.takes(40, "big")
+    f32 = torch.float32
+    assert [ht.chain_widths(c, f32) for c in (32, 64, 128, 256, 384)] == \
+        [(32, 32), (64, 32), (128, 64), (256, 128), (384, 192)]
+    assert [ht.chain_widths(c, f32) for c in (16, 48, 80, 144, 512)] == \
+        [(32, 32), (64, 32), (96, 64), (160, 96), (512, 256)]
 
 
 @pytest.mark.parametrize("c", [128, 384])

@@ -110,11 +110,11 @@ def test_block_fusion_at_f32_follows_jax(encoder):
 def test_tail_at_f32_follows_jax_or_raises(encoder):
     """resolve_tail at f32 is the JAX planners' choice with f32's itemsize,
     off and on the card; check_f32_plan lets it through, every encoder's
-    head width having both f32 tails (ext and big-C, C = 64-384), and
-    raises where the head's width has none (a 16-feature head), naming the
-    rows, under the ROADMAP item "DPT tail kernels at other widths"."""
+    head width having both f32 tails (ext and big-C), and raises ValueError
+    where the planned tail's JAX kernel refuses the head's width (a
+    40-feature head: C2 = 20, no multiple of 8), naming its assert."""
     feats = ModelConfig.for_encoder(encoder).features
-    assert ht.takes_f32(feats)
+    assert ht.takes(feats) and ht.takes(feats, "big")
     for size in SIZES:
         _, _, want, _, shape, out_hw = jax_f32_plan(encoder, "auto", "auto",
                                                     size)
@@ -128,10 +128,10 @@ def test_tail_at_f32_follows_jax_or_raises(encoder):
         check_f32_plan(cfg, 1080, 1920)
     cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                     mlp_fused="xla", tail="fused", input_size=56)
-    narrow = dataclasses.replace(cfg.model(), features=16)
-    with pytest.raises(NotImplementedError,
-                       match=r"DPT tail at C=16.*(row 7|rows 11 and 12) at "
-                             r"f32.*DPT tail kernels at other widths"):
+    narrow = dataclasses.replace(cfg.model(), features=40)
+    with pytest.raises(ValueError,
+                       match=r"(ext|big) DPT tail takes no head of C=40.*"
+                             r"head_tail_pallas.py:(395|684)"):
         check_f32_plan(_with_model(cfg, narrow), 1080, 1920)
     if encoder == "vits":
         shape = jax_f32_plan("vits", "auto", "auto", 518)[4]
@@ -206,30 +206,30 @@ def test_f32_plans_with_kernels_reach_load_model(monkeypatch, encoder,
 
 
 def _narrow_head(monkeypatch):
-    """RunConfig.model() with a custom head of 16 features, whose DPT tail
-    has no f32 kernel."""
+    """RunConfig.model() with a custom head of 40 features, whose DPT tail
+    the JAX kernels refuse (C2 = 20, no multiple of 8)."""
     model = RunConfig.model
     monkeypatch.setattr(RunConfig, "model", lambda self: dataclasses.replace(
-        model(self), features=16))
+        model(self), features=40))
 
 
 @pytest.mark.parametrize("encoder,mlp_fused,tail,size,match", [
-    ("vitg", "auto", "auto", 126, r"tail at C=16.*at f32"),
-    ("vitg", "fused", "fused", 126, r"tail at C=16.*at f32"),
-    ("vits", "auto", "auto", 518, r"tail at C=16.*at f32")])
+    ("vitg", "auto", "auto", 126, r"tail takes no head of C=40"),
+    ("vitg", "fused", "fused", 126, r"tail takes no head of C=40"),
+    ("vits", "auto", "auto", 518, r"tail takes no head of C=40")])
 def test_f32_plans_without_kernels_raise_before_load_model(
         monkeypatch, encoder, mlp_fused, tail, size, match):
-    """An f32 plan whose DPT tail has no f32 kernel (a custom head of 16
-    features) raises not_ported naming the rows, before load_model runs,
-    and names the ROADMAP item; vitg's fused SwiGLU half (row 10) no
-    longer raises, so its plans here fail only at the tail."""
+    """An f32 plan whose DPT tail the JAX kernels refuse (a custom head of
+    40 features) raises ValueError naming the JAX assert, before load_model
+    runs; vitg's fused SwiGLU half (row 10) no longer raises, so its plans
+    here fail only at the tail."""
     _narrow_head(monkeypatch)
     cfg = RunConfig(encoder=encoder, compute_dtype="float32",
                     mlp_fused=mlp_fused, tail=tail, input_size=size)
-    assert cfg.model().features == 16
-    with pytest.raises(NotImplementedError, match=match) as info:
+    assert cfg.model().features == 40
+    with pytest.raises(ValueError, match=match) as info:
         _create_on_fake_card(monkeypatch, cfg)
-    assert "DPT tail kernels at other widths" in str(info.value)
+    assert "head_tail_pallas.py" in str(info.value)
 
 
 @pytest.mark.parametrize("encoder", ENCODERS)
@@ -252,9 +252,9 @@ def test_every_f32_plan_of_the_jax_package(encoder):
 
 
 def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
-    """The orchestrator's --mesh path: a plan without f32 kernels (a custom
-    head of 32 features, its tail) raises before load_model; vits auto and
-    vitg fused reach it."""
+    """The orchestrator's --mesh path: a plan the JAX kernels refuse (a
+    custom head of 40 features, its tail) raises before load_model; vits
+    auto and vitg fused reach it."""
     from vr_video_generator_tpu_torch.parallel import mesh as mesh_mod
     from vr_video_generator_tpu_torch.runtime import orchestrator
 
@@ -271,7 +271,7 @@ def test_sharded_path_checks_the_f32_plan_before_any_weight(monkeypatch):
             orchestrator._convert_range_sharded(cfg, 0, 8, 1920, 1080,
                                                 device="cuda")
     _narrow_head(monkeypatch)
-    with pytest.raises(NotImplementedError, match=r"tail at C=16"):
+    with pytest.raises(ValueError, match=r"tail takes no head of C=40"):
         orchestrator._convert_range_sharded(vitg, 0, 8, 1920, 1080,
                                             device="cuda")
 
@@ -466,16 +466,15 @@ def test_f32_cuda_tensor_launches_the_f32_kernel(fake_card, name):
                                   "mlp_residual", "mlp_residual_hblocked",
                                   "mlp_residual f16", "swiglu_residual f16",
                                   "head_tail f16", "rcu_pair f16",
-                                  "head_tail C=16", "swiglu_gate width",
+                                  "head_tail C=40", "swiglu_gate width",
                                   "rcu_pair mixed"])
 def test_other_dtypes_on_the_card_raise(fake_card, name):
     """float16 on the card raises in the wrapper (rows 1, 5, 2, 8, 10, 15
-    and 16); so does an f32 kernel at a width it has no kernel for (row 7
-    at C = 16, rows 11 and 12 at C = 32, row 8 at D = 768, row 9 at D =
-    384), the f32 gate stage given a w12 of another width than h, or an RCU
-    conv whose residual's dtype is not its input's; row 15 at C = 16, which
-    no kernel takes at either dtype, raises not_ported naming the roadmap
-    item. No entry point is called."""
+    and 16); so does an f32 kernel at a width it has no kernel for (row 8
+    at D = 768, row 9 at D = 384), a DPT tail at a width the JAX kernels
+    refuse (rows 7 and 15 at C = 40, rows 11 and 12 at C = 160), the f32
+    gate stage given a w12 of another width than h, or an RCU conv whose
+    residual's dtype is not its input's. No entry point is called."""
     h = torch.float16
     calls = {
         "layernorm": lambda: ln_ops.layernorm(_f32(5, 384).to(h), _f32(384),
@@ -485,8 +484,8 @@ def test_other_dtypes_on_the_card_raise(fake_card, name):
                                          _f32(1152).to(h), 6, 0.125),
         "attention": lambda: attn_ops.attention(
             *(t.to(h) for t in _f32(3, 1, 5, 2, 64))),
-        "head_tail_ext": lambda: ht.head_tail_ext(*_x_wts(16), (21, 35)),
-        "head_tail_big": lambda: ht.head_tail_big(*_x_wts(32), (21, 35)),
+        "head_tail_ext": lambda: ht.head_tail_ext(*_x_wts(40), (21, 35)),
+        "head_tail_big": lambda: ht.head_tail_big(*_x_wts(160), (21, 35)),
         "mlp_residual": lambda: mlp_ops.mlp_residual(*_mlp_args(768)),
         "mlp_residual_hblocked": lambda: mlp_ops.mlp_residual_hblocked(
             *_mlp_args(384)),
@@ -499,20 +498,15 @@ def test_other_dtypes_on_the_card_raise(fake_card, name):
         "rcu_pair f16": lambda: rp.rcu_conv(
             *(t.to(h) if torch.is_tensor(t) else t
               for t in _rcu_conv_args(64))),
-        "head_tail C=16": lambda: ht.head_tail(*_base_args(16), (21, 35)),
+        "head_tail C=40": lambda: ht.head_tail(*_base_args(40), (21, 35)),
         "swiglu_gate width": lambda: mlp_ops.swiglu_gate_kernel(
             _f32(1, 5, 126), _f32(688, 128), _f32(688)),
         "rcu_pair mixed": lambda: rp.rcu_conv(
             _f32(1, 4, 6, 64), _f32(64, 64, 3, 3), _f32(64), False,
             (_f32(1, 4, 6, 64).to(torch.bfloat16),)),
     }
-    if name == "head_tail C=16":
-        with pytest.raises(NotImplementedError,
-                           match=r"DPT tail kernels at other widths"):
-            calls[name]()
-    else:
-        with pytest.raises(ValueError):
-            calls[name]()
+    with pytest.raises(ValueError):
+        calls[name]()
     assert fake_card.calls == []
 
 

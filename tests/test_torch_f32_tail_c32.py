@@ -1,8 +1,8 @@
 """PyTorch port, rows 7 and 15 at f32 at C = 32 (a 32-feature head) on the
 CPU. The f32 chains (csrc/head_tail_big.cu vrvg_head_tail_ext_f32,
 vrvg_head_tail_f32) take C = 32 by zero padding: conv1's 16 output channels
-and conv2's 16 input channels run as 32 (ops/head_tail._f32_padded,
-f32_c2), since the 3xTF32 conv reads its input in 32-channel slices.
+and conv2's 16 input channels run as 32 (ops/head_tail.pad_to to
+chain_widths), since the 3xTF32 conv reads its input in 32-channel slices.
 
 Held here:
 (a) the plain f32 versions of rows 7 and 15 at C = 32 against the JAX
@@ -164,7 +164,7 @@ def test_padded_conv2_sums_equal_16_channel_sums(grid):
     rng = np.random.default_rng(sum(grid))
     r = seeded(rng, (2, *grid, C2))
     k2 = seeded(rng, (32, C2, 3, 3), (9 * C2) ** -0.5)
-    _, k2p = ht._f32_padded(torch.zeros(C2), k2)
+    k2p = ht.pad_to(k2, 32, C)
     assert k2p.shape == (32, C, 3, 3) and not k2p[:, C2:].any()
     got = model_conv_sums(pad_channels(r), k2p)
     want = model_conv16_sums(r, k2)
@@ -182,7 +182,7 @@ def test_padded_conv1_columns(lib, grid):
     zeros in columns 16-31, and columns 0-15 are the unpadded conv's, bit
     for bit."""
     x, k1, b1 = base_case(C, *grid, seed=grid[1])[:3]
-    b1p, _ = ht._f32_padded(b1, torch.zeros(32, C2, 3, 3))
+    b1p = ht.pad_to(b1, C)
     k1p = torch.nn.functional.pad(k1, (0, 0, 0, 0, 0, 0, 0, C - C2))
     got = bias_epilogue(lib, model_conv_sums(x, k1p), b1p)
     assert got.shape[-1] == C and not got[..., C2:].any()
@@ -223,7 +223,7 @@ def model_base_chain(lib, x, k1, b1, k2, b2, k3, b3, out_hw,
                      products="3xtf32"):
     """vrvg_head_tail_f32 at C = 32 with its convs modelled on the padded
     weights: (c1, R) at 32 channels, and the depth."""
-    b1p, k2p = ht._f32_padded(b1, k2)
+    b1p, k2p = ht.pad_to(b1, C), ht.pad_to(k2, 32, C)
     k1p = torch.nn.functional.pad(k1, (0, 0, 0, 0, 0, 0, 0, C - C2))
     c1 = bias_epilogue(lib, model_conv_sums(x, k1p, products), b1p)
     r = ht.ext_resize_plain(c1, out_hw).contiguous()

@@ -305,14 +305,15 @@ def test_range_with_warm_up_continues_the_full_run(pipe, tmp_path):
 
 
 def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
-    """compute_dtype float32 on a CUDA device raises not_ported("DPT tail
-    kernels at other widths") in SbsPipeline.create, before load_model
-    builds a weight, where the f32 plan needs a kernel with no f32 variant:
-    a custom head of 16 features, whose DPT tail has none. bf16 on the card
-    passes the check,
-    and so does f32 on a plan whose kernels all have their f32 variants
-    (CFG: xla/xla; vits fused, rows 8 and 7 at f32; vitg fused, row 10 and
-    the big-C tail at f32)."""
+    """compute_dtype float32 on a CUDA device raises in SbsPipeline.create,
+    before load_model builds a weight, where the f32 plan needs a kernel
+    the JAX package's kernels refuse too: a custom head of 40 features,
+    whose DPT tail's JAX kernel asserts C2 % 8 == 0 (ValueError naming
+    head_tail_pallas.py). A head of 16 features passes (its tails run
+    zero-padded), bf16 on the card passes the check, and so does f32 on a
+    plan whose kernels all have their f32 variants (CFG: xla/xla; vits
+    fused, rows 8 and 7 at f32; vitg fused, row 10 and the big-C tail at
+    f32)."""
     import dataclasses
 
     import vr_video_generator_tpu_torch.pipeline as pipeline
@@ -335,12 +336,15 @@ def test_f32_on_the_card_raises_before_any_weight(monkeypatch):
         model(self), features=16))  # CFG's class: a custom head
     # At 1080p and --input_size 126 the JAX planners pick a fused tail.
     narrow = dataclasses.replace(vitg, input_size=126)
-    with pytest.raises(NotImplementedError,
-                       match="DPT tail kernels at other widths"):
+    with pytest.raises(AssertionError, match="load_model ran"):
         SbsPipeline.create(narrow, 1080, 1920, allow_random=True,
                            device="cuda")
-    with pytest.raises(NotImplementedError,
-                       match="DPT tail kernels at other widths"):
+    monkeypatch.setattr(RunConfig, "model", lambda self: dataclasses.replace(
+        model(self), features=40))
+    with pytest.raises(ValueError, match="head_tail_pallas.py"):
+        SbsPipeline.create(narrow, 1080, 1920, allow_random=True,
+                           device="cuda")
+    with pytest.raises(ValueError, match="head_tail_pallas.py"):
         SbsPipeline.create(dataclasses.replace(narrow,
                                                compute_dtype="bfloat16"),
                            1080, 1920, allow_random=True, dtype=torch.float32)
@@ -437,7 +441,7 @@ def test_unported_fused_combinations_raise(overrides, kernel):
         # refinenet1's grid at 1080p with --input_size 56: the ext tail
         assert resolve_tail(cfg.tail, (1, 16, 28, m.features), torch.bfloat16,
                             (56, 98), "cuda") == "ext"
-        assert ht.takes(m.features, 28)
+        assert ht.takes(m.features)
     else:
         assert resolve_block_fusion(cfg.mlp_fused, m.embed_dim, m.num_heads,
                                     2443, "cuda", torch.bfloat16,

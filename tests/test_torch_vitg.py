@@ -291,8 +291,8 @@ def test_every_planned_tail_has_a_kernel(encoder):
     """At 720p, 1080p and 2160p and every --input_size from 14 to 1190 in
     steps of 14, bf16: resolve_tail on the card returns the JAX planners'
     choice for 'fused' and 'auto', and the chosen tail's kernels take the
-    shape (the ext chain its width and its row, the big-C kernels their
-    width), so no kernel wrapper's ValueError is reachable from a plan."""
+    shape (the JAX kernel's width rule, ops/head_tail.takes, at every
+    grid), so no kernel wrapper's ValueError is reachable from a plan."""
     feats = config.ModelConfig.for_encoder(encoder).features
     seen = set()
     for h, w in ((720, 1280), (1080, 1920), (2160, 3840)):
@@ -306,24 +306,27 @@ def test_every_planned_tail_has_a_kernel(encoder):
             for tail in ("fused", "auto"):
                 assert resolve_tail(tail, shape, torch.bfloat16, (nh, nw),
                                     "cuda") == want
-            if want == "ext":
-                assert ht.takes(feats, shape[2]), (size, shape)
-            elif want == "big":
-                assert ht.big_takes(feats)
+            if want is not None:
+                assert ht.takes(feats, want), (size, shape)
     assert "ext" in seen
     if encoder != "vits":
         assert "big" in seen
 
 
 def test_unplanned_width_raises_on_the_card():
-    """A tail at a width no kernel takes (a head of 48 features) raises
-    NotImplementedError naming the tail on the card, and runs its plain
-    version off the card."""
+    """A head of 48 features plans the ext tail on the card and off it (its
+    kernels run it zero-padded); a tail at a width the JAX kernel refuses
+    (a head of 40 features, C2 = 20) raises ValueError naming the JAX
+    assert on the card and off it, where the JAX package raises
+    AssertionError."""
     shape, out_hw = (1, 16, 28, 48), (56, 98)
-    choice = resolve_tail("fused", shape, torch.bfloat16, out_hw, "cpu")
-    assert choice == "ext"
-    with pytest.raises(NotImplementedError, match="ext DPT tail at C=48"):
-        resolve_tail("fused", shape, torch.bfloat16, out_hw, "cuda")
+    for device in ("cpu", "cuda"):
+        assert resolve_tail("fused", shape, torch.bfloat16, out_hw,
+                            device) == "ext"
+        with pytest.raises(ValueError, match=r"ext DPT tail takes no head "
+                                             r"of C=40.*pallas.py:395"):
+            resolve_tail("fused", (1, 16, 28, 40), torch.bfloat16, out_hw,
+                         device)
 
 
 # --- a vitg-shaped model against the JAX model -------------------------------

@@ -112,7 +112,7 @@ def rcu_conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
     n, h0, w0, c = x.shape
     if not takes(c):
         not_ported(f"the fused refinenet1 RCU pair at C={c} on the card",
-                   "DPT tail kernels at other widths")
+                   "the RCU pair at other widths")
     if (bool(relu), len(residuals)) not in ((True, 0), (False, 1), (False, 2)):
         raise ValueError(f"rcu_conv takes ReLU without residuals or 1-2 "
                          f"residuals without ReLU, got relu={relu}, "

@@ -68,8 +68,8 @@
 // 0.34 ms, where a pass reading the NCHW planes directly in 16-channel
 // chunks took 1.23 ms (its 32-byte writes of U scattered).
 //
-// The ext tail (row 7, head_tail_pallas.py `_tail_ext_kernel`, at C = 64 to
-// 384) is built from the same kernels, at its own rounding points
+// The ext tail (row 7, head_tail_pallas.py `_tail_ext_kernel`) is built
+// from the same kernels, at its own rounding points
 // (:287-354), which keep the out_conv mix before the resizes and add its
 // bias inside the H-upsample:
 //   front (vrvg_head_tail_ext_front):
@@ -109,12 +109,11 @@
 // are 46 + 71 GFLOP (0.12 ms at the bf16 peak), against ~0.6 GB of
 // intermediates (c1 80 MB, R 245 MB, each written and read): about as much
 // time on traffic as on products. At C = 32 (a custom head) the bf16 tail
-// runs csrc/head_tail.cu's wmma chain (head_tail_wmma), which has neither a
-// core tile nor a halo mode for C2 = 16.
+// runs csrc/head_tail.cu's wmma chain (head_tail_wmma).
 //
 // The tails at f32 (--compute_dtype float32): row 7
-// (vrvg_head_tail_ext_f32, C = 32 to 384) and rows 11 and 12
-// (vrvg_head_tail_big_f32, C = 64 to 384) are the same chains at the f32
+// (vrvg_head_tail_ext_f32) and rows 11 and 12 (vrvg_head_tail_big_f32) are
+// the same chains at the f32
 // rounding points of `_tail_ext_kernel` and of `_big_front_kernel` /
 // `_big_back_kernel` (every intermediate f32, the resize weights f32,
 // conv1's folded weights the f32 fold itself): the NCHW transpose, the
@@ -136,13 +135,32 @@
 // ms at 3xTF32's 165 TFLOP/s, against ~1.4 GB of f32 intermediates (0.42
 // ms); at vitb-518 (C = 128) rows 11 and 12's conv1 and conv2 are 184 + 141
 // GFLOP (1.97 ms) against ~4 GB of f32 U, mid and R written and read (1.2
-// ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32, C = 32, 64
-// and 128) is row 7's f32 chain from conv1 on, on the same core (see its
-// entry point). At C = 32 (a custom head) both run C2 = 16 zero-padded to
-// 32 channels (f32_c2); at that width row 7's mix, conv1 and conv2 at vits'
-// 1080p grid (B = 8) are 0.6 + 11.5 + 35 GFLOP (0.29 ms at 165 TFLOP/s)
-// against ~1.7 GB of f32 x, xoc, Z and the padded c1 and R written and
-// read (0.52 ms at 3.35 TB/s): bound by the intermediates' bytes.
+// ms): bound by operations. Row 15 at f32 (vrvg_head_tail_f32) is row 7's
+// f32 chain from conv1 on, on the same core (see its entry point).
+//
+// Widths. The JAX kernels take a head of any C with C2 = C / 2 a multiple
+// of 8, the big-C tail C <= 128 or a multiple of 128 besides
+// (head_tail_pallas.py:174, 395, 683-684). The kernels here read channels
+// in fixed slices: at bf16 64 a K step of the core (the mix, conv1) and 16
+// a k step of conv2's halo kernel, whose conv1 mode writes 32; at f32 32 a
+// slice of the 3xTF32 conv. So each chain runs at widths (C, C2) those
+// slices take (bf16_widths, f32_widths), and a head between them runs
+// zero-padded to the next ones up (ops/head_tail.chain_widths): weight rows
+// and columns and biases past the head's own widths are zeros, set once
+// per weight by the wrapper (`cw` computed on the head's weights, its
+// padded columns zeros), and the NCHW transpose writes x's padded channels
+// as zeros. A product of a zero is an exact zero, and a sum of exact zeros
+// adds nothing, so every intermediate's padded channels are exact zeros and
+// every stage sum is that of the head's own channels: at f32 bit for bit
+// the unpadded sums on the 3xTF32 core's fresh stage sums. The cost is the
+// padded share of each pass's bytes and each conv's products (at C = 32,
+// f32, half of conv2's products; at C = 16, bf16, the chain runs C = 64 and
+// C2 = 32, so a quarter of x's, xoc's and Z's channels and of c1's and R's
+// are the head's). The chains' conv1 tiles span N
+// = C2 in 64 to 192 columns (conv1_core, conv3x3_f32), the last tile
+// ragged where they do not divide it; the core's persistent walk takes any
+// count of column tiles, so the big-C tail at C = 512-896 (C2 = 256-448)
+// runs the same instantiations.
 
 #include <type_traits>
 
@@ -158,12 +176,16 @@ constexpr int C3 = 32;           // output_conv2's width (reference head)
 constexpr int PASS_THREADS = 256;
 
 // ---------------------------------------------------------------------------
-// Row 11, 0: the model hands x over as an NCHW activation seen as NHWC. x
-// (B, C, H0 W0) -> (B, H0 W0, C) in 64 x 64 tiles through shared memory, so
-// a warp reads 64 pixels of a channel and writes 64 channels of a pixel, 128
-// bytes each way (256 for f32). T is bf16, or f32 for the f32 tails. C is
-// even; a tile past C (C = 32, a custom head at f32) holds C's channels
-// only.
+// Row 11, 0: the chains read x as (B, H0 W0, C), C the chain's width, to
+// which a custom head's CIN channels are zero-padded (ops/head_tail
+// .chain_widths). The model hands x over as an NCHW activation seen as NHWC:
+// x (B, CIN, H0 W0) -> (B, H0 W0, C) in 64 x 64 tiles through shared
+// memory, so a warp reads 64 pixels of a channel and writes 64 channels of
+// a pixel, 128 bytes each way (256 for f32). A contiguous NHWC x narrower
+// than its chain (off the model's path) is copied by the same kernel at its
+// own strides (a channel 1 apart, a pixel CIN). Channels CIN to C are
+// written as zeros, so the padding costs no pass of its own. T is bf16, or
+// f32 for the f32 tails. C is even.
 constexpr int TT = 64;  // transpose tile
 
 template <class T>
@@ -179,17 +201,20 @@ struct Pair<float> {
 
 template <class T>
 __global__ void __launch_bounds__(PASS_THREADS)
-to_channels_last_kernel(const T* __restrict__ x, T* __restrict__ y, int c,
-                        int hw) {
+to_channels_last_kernel(const T* __restrict__ x, T* __restrict__ y, int cin,
+                        int c, int hw, int cstride, int pstride) {
   __shared__ T t[TT][TT + 2];  // [channel][pixel]
   const int p0 = blockIdx.x * TT, c0 = blockIdx.y * TT, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* src = x + ((long long)b * c + c0) * hw + p0;
+  const T* src = x + (long long)b * cin * hw;
   for (int ch = warp; ch < TT && c0 + ch < c; ch += PASS_THREADS / 32) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int p = 2 * lane + e;
-      t[ch][p] = p0 + p < hw ? src[(long long)ch * hw + p] : from_f32<T>(0.f);
+      t[ch][p] = c0 + ch < cin && p0 + p < hw
+                     ? src[(long long)(c0 + ch) * cstride +
+                           (long long)(p0 + p) * pstride]
+                     : from_f32<T>(0.f);
     }
   }
   __syncthreads();
@@ -579,16 +604,62 @@ int launch(const void* in, const void* w, const float* bias, const float* w3,
 
 }  // namespace conv2
 
-// Row 11, 0 on `stream`: x (B, C, H0 W0) -> xt (B, H0 W0, C), elements T
-// (bf16 unless named). C a multiple of TT. Returns a CUDA error code.
+// Row 11, 0 on `stream`: x as the chain reads it, (B, H W, C) of elements T
+// (bf16 unless named): x itself (layout 0, C = CIN), or x copied into the
+// scratch xt with channels CIN to C zero, from an NCHW x seen as NHWC
+// (layout 1) or a contiguous NHWC x (layout 2) of CIN channels. Returns a
+// CUDA error code.
 template <class T = bf16>
-int to_channels_last(const void* x, void* xt, int batch, int c, int hw,
-                     void* stream) {
+int channels_last(const void*& x, int layout, void* xt, int batch, int cin,
+                  int c, int hw, void* stream) {
+  if (layout == 0) return cin == c ? 0 : (int)cudaErrorInvalidValue;
+  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
   to_channels_last_kernel<T><<<dim3((hw + TT - 1) / TT, (c + TT - 1) / TT,
                                     batch),
                                PASS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (T*)xt, c, hw);
+      (const T*)x, (T*)xt, cin, c, hw, layout == 1 ? hw : 1,
+      layout == 1 ? 1 : cin);
+  x = xt;
   return (int)cudaGetLastError();
+}
+
+// The widths a bf16 chain runs at: C, x's channels once channels_last has
+// zero-padded a head's CIN to it, a multiple of 64 (the core's K slice: the
+// mix and conv1 read 64-channel boxes); C2, conv1's outputs and conv2's
+// inputs, a multiple of 16 (conv2's k step) and at least 32 (conv1's halo
+// kernel writes 32 channels). ops/head_tail.chain_widths pads a head's C
+// and C / 2 up to them.
+inline bool bf16_widths(int cin, int c, int c2) {
+  return cin > 0 && cin <= c && c % 64 == 0 && c2 >= 32 && c2 % 16 == 0;
+}
+
+// The widths an f32 chain runs at: C and C2 multiples of 32, the 3xTF32
+// conv's channel slice (conv1 reads C, conv2 C2 in 32-channel slices).
+inline bool f32_widths(int cin, int c, int c2) {
+  return cin > 0 && cin <= c && c % 32 == 0 && c2 > 0 && c2 % 32 == 0;
+}
+
+// conv1 on the core (C -> n outputs, epi its epilogue): 256 x 64 tiles where
+// `narrow` (row 15 at n <= 64, rows 7 and 11 at n < 64), 128 x 192 where
+// they cover n exactly, else 256 x 128, the last ragged (TMA leaves its
+// columns past n unstored).
+template <class Epi>
+int conv1_core(const void* u, const void* w, void* out, int batch, int h,
+               int width, int c, int n, const Epi& epi, bool narrow,
+               void* stream) {
+  if (narrow) {
+    return tma_gemm::conv3x3<tma_gemm::Tile<256, 64>>(u, w, out, batch, h,
+                                                      width, c, n, epi,
+                                                      stream);
+  }
+  if (n % 192 == 0) {
+    return tma_gemm::conv3x3<tma_gemm::Tile<128, 192>>(u, w, out, batch, h,
+                                                       width, c, n, epi,
+                                                       stream);
+  }
+  return tma_gemm::conv3x3<tma_gemm::Tile<256, 128>>(u, w, out, batch, h,
+                                                     width, c, n, epi,
+                                                     stream);
 }
 
 // Row 12 (and the back of rows 7 and 15 with a null `cw`): the resize pass
@@ -626,48 +697,43 @@ int head_tail_wmma(const void* x, int batch, int h2, int w2, const void* wt1,
                    void* stream);
 }  // namespace vrvg
 
-// Row 11. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW tensor
-// (B, C, H0, W0) seen as NHWC, then first transposed into the scratch xt (B,
-// H0, W0, C); conv1 with out_conv's mix folded in, as the GEMM's B (C/2, 9
-// C) bf16, k = (3 dh + dw) C + c; W-upsample tap tables (2, 2 W0) int32 /
-// f32; scratch u (B, 2 H0, 2 W0, C) bf16 -> mid (B, 2 H0, 2 W0, C/2) bf16. C
-// in {64, 128, 256, 384}.
-extern "C" int vrvg_head_tail_big_front(const void* x, int nchw, void* xt,
+// The x arguments of every entry point below: x (B, H, W, CIN) as
+// channels_last takes it (`layout`; for layouts 1 and 2 the scratch xt (B,
+// H, W, C)), C the chain's width (CIN zero-padded) and C2 its conv1 output
+// width, which the weights are laid out for: rows and columns past a head's
+// own widths (CIN, CIN / 2) zeros, so the padded channels of every
+// intermediate are exact zeros and each sum is that of the head's own
+// channels (ops/head_tail.chain_widths, .pad_to).
+
+// Row 11. x; conv1 with out_conv's mix folded in, as the GEMM's B (C2, 9 C)
+// bf16, k = (3 dh + dw) C + c; W-upsample tap tables (2, 2 W0) int32 / f32;
+// scratch u (B, 2 H0, 2 W0, C) bf16 -> mid (B, 2 H0, 2 W0, C2) bf16. C, C2
+// as bf16_widths takes them (vitl's 256, 128; vitg's 384, 192).
+extern "C" int vrvg_head_tail_big_front(const void* x, int layout, void* xt,
                                         const void* w1m, const void* taps,
                                         const void* tapw, void* u, void* mid,
-                                        int batch, int h0, int w0, int c,
-                                        void* stream) {
-  if (c != 64 && c != 128 && c != 256 && c != 384) {
-    return (int)cudaErrorInvalidValue;
-  }
+                                        int batch, int h0, int w0, int cin,
+                                        int c, int c2, void* stream) {
+  if (!bf16_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
-  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
-  if (nchw) {
-    const int err = to_channels_last(x, xt, batch, c, h0 * w0, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
+  const int hm = 2 * h0, w2 = 2 * w0;
+  int err = channels_last(x, layout, xt, batch, cin, c, h0 * w0, stream);
+  if (err != 0) return err;
   upsample_kernel<bf16, false><<<dim3(hm, batch), PASS_THREADS, 0,
                                  (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)taps, (const float*)tapw, nullptr,
       (bf16*)u, c, h0, w0, hm, w2);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const tma_gemm::Identity epi{nullptr};
-  // 256 x 128 tiles up to C2 = 128 (ragged N below); 128 x 192 at C2 = 192.
-  if (c2 == 192) {
-    return tma_gemm::conv3x3<tma_gemm::Tile<128, 192>>(u, w1m, mid, batch, hm,
-                                                       w2, c, c2, epi, stream);
-  }
-  return tma_gemm::conv3x3<tma_gemm::Tile<256, 128>>(u, w1m, mid, batch, hm,
-                                                     w2, c, c2, epi, stream);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return conv1_core(u, w1m, mid, batch, hm, w2, c, c2,
+                    tma_gemm::Identity{nullptr}, c2 < 64, stream);
 }
 
 // Row 12. mid (B, HM, W2, C2) bf16; W-resize tap tables (2, W1); cw (3, W1,
 // C2) f32 (cw0, cw1 - cw0, cw2 - cw0), or null for row 7's back (no `cw`);
 // conv2 as (9 * 32, C2) bf16, row (3 dh + dw) 32 + n; b2 (32,), the 1x1
 // (32,) and its bias (1,) f32; scratch r (B, H1, W1, C2) bf16 -> out (B, H1,
-// W1) f32. C2 in {32, 64, 128, 192}.
+// W1) f32. C2 as bf16_widths takes it.
 extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
                                        const void* tapw, const void* cw,
                                        const void* w2m, const void* b2,
@@ -675,46 +741,37 @@ extern "C" int vrvg_head_tail_big_back(const void* mid, const void* taps,
                                        void* r, void* out, int batch, int hm,
                                        int w2, int c2, int h1, int w1,
                                        void* stream) {
-  if (c2 != 32 && c2 != 64 && c2 != 128 && c2 != 192) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!bf16_widths(64, 64, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h1 <= 0 || w1 <= 0) return (int)cudaSuccess;
   return back(mid, taps, tapw, cw, w2m, b2, w3, b3, r, out, batch, hm, w2, c2,
               h1, w1, stream);
 }
 
-// Row 7's front. x (B, H0, W0, C) bf16, contiguous, or with `nchw` an NCHW
-// tensor (B, C, H0, W0) seen as NHWC, then first transposed into the scratch
-// xt (B, H0, W0, C); out_conv (C out, C in) bf16 + (C,) f32 bias; W-upsample
-// tap tables (2, 2 W0); conv1 + (C/2,) f32 bias, as (C/2, 9 C) bf16 with k =
-// (3 dh + dw) C + c (the GEMM's B) where C/2 > 32, as (9 * 32, C) with row
-// (3 dh + dw) 32 + n (the halo kernel's) at C/2 = 32; scratch xoc (B, H0,
-// W0, C) and z (B, 2 H0, 2 W0, C) bf16 -> c1 (B, 2 H0, 2 W0, C/2) bf16. C in
-// {64, 128, 256, 384}.
+// Row 7's front. x; out_conv (C out, C in) bf16 + (C,) f32 bias; W-upsample
+// tap tables (2, 2 W0); conv1 + (C2,) f32 bias, as (C2, 9 C) bf16 with k =
+// (3 dh + dw) C + c (the GEMM's B) where C2 > 32, as (9 * 32, C) with row
+// (3 dh + dw) 32 + n (the halo kernel's) at C2 = 32; scratch xoc (B, H0,
+// W0, C) and z (B, 2 H0, 2 W0, C) bf16 -> c1 (B, 2 H0, 2 W0, C2) bf16. C, C2
+// as bf16_widths takes them.
 extern "C" int vrvg_head_tail_ext_front(
-    const void* x, int nchw, void* xt, const void* koc, const void* boc,
+    const void* x, int layout, void* xt, const void* koc, const void* boc,
     const void* taps, const void* tapw, void* xoc, void* z, const void* w1,
-    const void* b1, void* c1, int batch, int h0, int w0, int c,
-    void* stream) {
-  if (c != 64 && c != 128 && c != 256 && c != 384) {
-    return (int)cudaErrorInvalidValue;
-  }
+    const void* b1, void* c1, int batch, int h0, int w0, int cin, int c,
+    int c2, void* stream) {
+  if (!bf16_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h0 <= 0 || w0 <= 0) return (int)cudaSuccess;
-  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
-  if (nchw) {
-    const int err = to_channels_last(x, xt, batch, c, h0 * w0, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
+  const int hm = 2 * h0, w2 = 2 * w0;
+  int err = channels_last(x, layout, xt, batch, cin, c, h0 * w0, stream);
+  if (err != 0) return err;
   // The out_conv mix per input pixel: a (B H0 W0, C) x (C, C)^T product.
-  typedef tma_gemm::Tile<256, 128> Tall;
-  typedef tma_gemm::Tile<128, 192> Wide192;
   const tma_gemm::Identity mix{nullptr};
-  int err = c == 384
-                ? tma_gemm::gemm<Wide192>(x, koc, xoc, batch * h0 * w0, c, c,
-                                          mix, stream)
-                : tma_gemm::gemm<Tall>(x, koc, xoc, batch * h0 * w0, c, c,
-                                       mix, stream);
+  err = c % 192 == 0
+            ? tma_gemm::gemm<tma_gemm::Tile<128, 192>>(x, koc, xoc,
+                                                       batch * h0 * w0, c, c,
+                                                       mix, stream)
+            : tma_gemm::gemm<tma_gemm::Tile<256, 128>>(x, koc, xoc,
+                                                       batch * h0 * w0, c, c,
+                                                       mix, stream);
   if (err != 0) return err;
   upsample_kernel<bf16, true><<<dim3(hm, batch), PASS_THREADS, 0,
                                 (cudaStream_t)stream>>>(
@@ -727,63 +784,47 @@ extern "C" int vrvg_head_tail_ext_front(
                                           nullptr, c1, batch, hm, w2, c,
                                           stream);
   }
-  const tma_gemm::BiasBeforeCast epi{nullptr, (const float*)b1};
-  if (c2 == 192) {
-    return tma_gemm::conv3x3<Wide192>(z, w1, c1, batch, hm, w2, c, c2, epi,
-                                      stream);
-  }
-  return tma_gemm::conv3x3<Tall>(z, w1, c1, batch, hm, w2, c, c2, epi,
-                                 stream);
+  return conv1_core(z, w1, c1, batch, hm, w2, c, c2,
+                    tma_gemm::BiasBeforeCast{nullptr, (const float*)b1},
+                    c2 < 64, stream);
 }
 
-// Row 15, the single-kernel tail. path1 (B, H2, W2, C) bf16, contiguous, or
-// with `nchw` an NCHW tensor (B, C, H2, W2) seen as NHWC, then first
-// transposed into the scratch xt (B, H2, W2, C) (not at C = 32, whose path1
-// is contiguous); conv1 (C/2, C, 3, 3) + (C/2,) f32 bias as k1 in the
-// layout of its kernel: at C = 32 (3, 3, C, C/2) (the wmma chain), at 64 (9
-// * 32, C) with row (3 dh + dw) 32 + n (the halo kernel), at 128 (C/2, 9 C)
-// with k = (3 dh + dw) C + c (the GEMM's B); conv2 as k2, (3, 3, C/2, 32) at
-// C = 32 and (9 * 32, C/2) otherwise; b2 (32,), the 1x1 (32,) and b3 (1,)
-// f32; the W-resize tap tables (2, W1); scratch c1 (B, H2, W2, C/2) and r
-// (B, H1, W1, C/2) bf16 (r not read at C = 32) -> out (B, H1, W1) f32. C in
-// {32, 64, 128}.
-extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
+// Row 15, the single-kernel tail. x = path1 (B, H2, W2, CIN); conv1 (C2, C,
+// 3, 3) + (C2,) f32 bias as k1 in the layout of its kernel: at C = 32 (a
+// head of 32 features, CIN = 32, C2 = 16) (3, 3, C, C2) for the wmma chain
+// (path1 contiguous, layout 0); at C2 = 32 (9 * 32, C) with row (3 dh + dw)
+// 32 + n (the halo kernel); otherwise (C2, 9 C) with k = (3 dh + dw) C + c
+// (the GEMM's B); conv2 as k2, (3, 3, C2, 32) at C = 32 and (9 * 32, C2)
+// otherwise; b2 (32,), the 1x1 (32,) and b3 (1,) f32; the W-resize tap
+// tables (2, W1); scratch c1 (B, H2, W2, C2) and r (B, H1, W1, C2) bf16 (r
+// not read at C = 32) -> out (B, H1, W1) f32. C, C2 as bf16_widths takes
+// them, or 32, 16.
+extern "C" int vrvg_head_tail(const void* x, int layout, void* xt,
                               const void* k1, const void* b1, const void* k2,
                               const void* b2, const void* w3, const void* b3,
                               const void* taps, const void* tapw, void* c1,
                               void* r, void* out, int batch, int h2, int w2,
-                              int c, int h1, int w1, void* stream) {
-  if ((c != 32 && c != 64 && c != 128) || (c == 32 && nchw)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                              int cin, int c, int c2, int h1, int w1,
+                              void* stream) {
+  const bool wmma = cin == 32 && c == 32 && c2 == 16 && layout == 0;
+  if (!wmma && !bf16_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h2 <= 0 || w2 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  if (c == 32) {
+  if (wmma) {
     return head_tail_wmma(x, batch, h2, w2, k1, b1, k2, b2, w3, b3, taps,
                           tapw, c1, out, h1, w1, stream);
   }
-  if (nchw) {
-    const int err = to_channels_last(x, xt, batch, c, h2 * w2, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
-  const int c2 = c / 2;
-  int err;
-  switch (c) {
-    case 64:
-      err = conv2::launch<conv2::Conv1Out>(x, k1, (const float*)b1, nullptr,
-                                           nullptr, c1, batch, h2, w2, c,
-                                           stream);
-      break;
-    case 128: {
-      const tma_gemm::BiasBeforeCast epi{nullptr, (const float*)b1};
-      err = tma_gemm::conv3x3<tma_gemm::Tile<256, 64>>(x, k1, c1, batch, h2,
-                                                       w2, c, c2, epi, stream);
-      break;
-    }
-    default:
-      return (int)cudaErrorInvalidValue;
+  int err = channels_last(x, layout, xt, batch, cin, c, h2 * w2, stream);
+  if (err != 0) return err;
+  if (c2 == 32) {
+    err = conv2::launch<conv2::Conv1Out>(x, k1, (const float*)b1, nullptr,
+                                         nullptr, c1, batch, h2, w2, c,
+                                         stream);
+  } else {
+    err = conv1_core(x, k1, c1, batch, h2, w2, c, c2,
+                     tma_gemm::BiasBeforeCast{nullptr, (const float*)b1},
+                     c2 <= 64, stream);
   }
   if (err != 0) return err;
   return back(c1, taps, tapw, nullptr, k2, b2, w3, b3, r, out, batch, h2, w2,
@@ -792,59 +833,37 @@ extern "C" int vrvg_head_tail(const void* x, int nchw, void* xt,
 
 namespace {
 
-// The channels of the f32 chains' c1 and R at head width c: C / 2, or 32
-// at C = 32. conv_kernel reads its input in 32-channel slices (one TMA
-// halo box of 128-byte rows each, split in place into hi and lo planes),
-// so conv2 cannot take C2 = 16 as it is. A slice of 16 (64-byte rows, a
-// 64-byte swizzle, two k-steps a stage) would be a second layout of the
-// halo, its split and its A fragments. Zero padding keeps the one layout:
-// conv1 runs 32 output columns whose weight rows (the split's, already
-// zero past the conv's 16 rows) and bias are zeros, so it writes 0 + 0 = 0
-// there; the resize pass carries the zeros; conv2's weights for input
-// channels 16-31 are zeros (ops/head_tail._f32_padded). A 3xTF32 product
-// of a zero is an exact zero and the tensor core's sum of exact zeros adds
-// nothing, so each stage's sums are those of the 16 real channels. The
-// cost: conv1's and the resize pass's stores and conv2's reads of c1 and R
-// double (~0.65 GB more written and read at vits' 1080p grid, B = 8), and
-// half of conv2's products are zeros.
-inline int f32_c2(int c) { return c == 32 ? 32 : c / 2; }
-
 // epi on the (B H W, n) f32 sums of a 3x3 conv with zero padding of x (B,
-// H, W, C) f32 on the 3xTF32 core, the weights (n, 9 C) split; n = epi.n in
-// {32, 64, 128, 192} on tiles as wide as n up to 64 (two of 64 at 128, two
-// of 96 at 192).
+// H, W, C) f32 on the 3xTF32 core, the weights (n, 9 C) split; n = epi.n a
+// multiple of 32, on tiles of 96 where they cover n (two at 192), of 32 at
+// n = 32, else of 64, the last ragged where 64 does not divide n (its
+// columns past n are not stored).
 template <class Epi>
 int conv3x3_f32(const float* x, const uint32_t* ws, int batch, int h, int w,
                 int c, const Epi& epi, void* stream) {
-  switch (epi.n) {
-    case 32:
-      return tf32x3_gemm::conv3x3<32>(x, ws, batch, h, w, c, 32, epi, stream);
-    case 64:
-    case 128:
-      return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, epi.n, epi,
-                                      stream);
-    case 192:
-      return tf32x3_gemm::conv3x3<96>(x, ws, batch, h, w, c, 192, epi,
-                                      stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const int n = epi.n;
+  if (n <= 0 || n % 32) return (int)cudaErrorInvalidValue;
+  if (n % 96 == 0) {
+    return tf32x3_gemm::conv3x3<96>(x, ws, batch, h, w, c, n, epi, stream);
   }
+  if (n == 32) {
+    return tf32x3_gemm::conv3x3<32>(x, ws, batch, h, w, c, 32, epi, stream);
+  }
+  return tf32x3_gemm::conv3x3<64>(x, ws, batch, h, w, c, n, epi, stream);
 }
 
 }  // namespace
 
-// Row 7 at f32 (the whole chain, front and back). x (B, H0, W0, C) f32,
-// contiguous, or with `nchw` an NCHW tensor (B, C, H0, W0) seen as NHWC,
-// first transposed into the scratch xt; out_conv (C out, C in) f32 given as
+// Row 7 at f32 (the whole chain, front and back). x f32 (as the bf16
+// entry points take it); out_conv (C out, C in) f32 given as
 // its TF32 split (vrvg_tf32x3_split: (2, 128 ceil(C / 128), C)), + (C,) f32
 // bias; the f32 W-upsample tap tables (2, 2 W0); conv1 as (C2, 9 C) f32
 // with k = (3 dh + dw) C + c, split ((2, 128 ceil(C2 / 128), 9 C)), + (C2,)
 // f32 bias; the f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the
 // same k order, split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3
 // (1,) f32; scratch xoc (B, H0, W0, C), z (B, 2 H0, 2 W0, C), c1 (B, 2 H0,
-// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {32,
-// 64, 128, 256, 384}, C2 = C / 2, or 32 at C = 32 (f32_c2: conv1's 16
-// outputs zero-padded, see below). The mix on the dense 3xTF32 product
+// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C, C2 as
+// f32_widths takes them. The mix on the dense 3xTF32 product
 // (128 x 128 tiles: at C = 64 half of each idle; a fresh tensor-core sum
 // every 16 of K, which keeps it as close to the f64 mix on average as
 // cuBLAS's SGEMM at K = 64), conv1 + b1 (BiasStore) and conv2 with the 1x1
@@ -852,27 +871,23 @@ int conv3x3_f32(const float* x, const uint32_t* ws, int batch, int h, int w,
 // Returns a CUDA error code (a tensor map that does not encode:
 // cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_ext_f32(
-    const void* x, int nchw, void* xt, const void* kocs, const void* boc,
+    const void* x, int layout, void* xt, const void* kocs, const void* boc,
     const void* taps_a, const void* tapw_a, void* xoc, void* z,
     const void* w1s, const void* b1, void* c1, const void* taps_b,
     const void* tapw_b, void* r, const void* w2s, const void* b2,
     const void* w3, const void* b3, void* out, int batch, int h0, int w0,
-    int c, int h1, int w1, void* stream) {
-  if (c != 32 && c != 64 && c != 128 && c != 256 && c != 384) {
-    return (int)cudaErrorInvalidValue;
-  }
+    int cin, int c, int c2, int h1, int w1, void* stream) {
+  if (!f32_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  const int hm = 2 * h0, w2 = 2 * w0, c2 = f32_c2(c);
+  const int hm = 2 * h0, w2 = 2 * w0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (nchw) {
-    const int err = to_channels_last<float>(x, xt, batch, c, h0 * w0, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
+  int err = channels_last<float>(x, layout, xt, batch, cin, c, h0 * w0,
+                                 stream);
+  if (err != 0) return err;
   // The mix's K (C) is short: a fresh tensor-core sum every 16 of it.
-  int err = tf32x3_gemm::gemm<tf32x3_gemm::Store, 16>(
+  err = tf32x3_gemm::gemm<tf32x3_gemm::Store, 16>(
       (const float*)x, (const uint32_t*)kocs, batch * h0 * w0, c, c, 0,
       tf32x3_gemm::Store{c, (float*)xoc}, stream);
   if (err != 0) return err;
@@ -898,40 +913,35 @@ extern "C" int vrvg_head_tail_ext_f32(
 }
 
 // Rows 11 and 12 at f32 (the big-C tail, front and back in one chain). x
-// (B, H0, W0, C) f32, contiguous, or with `nchw` an NCHW tensor seen as
-// NHWC, first transposed into the scratch xt; conv1 with out_conv's mix
+// f32 (as the bf16 entry points take it); conv1 with out_conv's mix
 // folded in (f32, ops/head_tail.fold_conv1) as (C2, 9 C), k = (3 dh + dw) C
 // + c, given as its TF32 split (vrvg_tf32x3_split: (2, 128 ceil(C2 / 128),
 // 9 C)); the f32 W-upsample tap tables (2, 2 W0); the f32 W-resize tap
 // tables (2, W1) and cw (3, W1, C2) f32 (cw0, cw1 - cw0, cw2 - cw0); conv2
 // as (32, 9 C2) in the same k order, split ((2, 128, 9 C2)), b2 (32,), the
 // 1x1 (32,) and b3 (1,) f32; scratch u (B, 2 H0, 2 W0, C), mid (B, 2 H0,
-// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in {64,
-// 128, 256, 384}, C2 = C / 2. Returns a CUDA error code (a tensor map that
-// does not encode: cudaErrorInvalidValue).
+// 2 W0, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C, C2 as
+// f32_widths takes them. Returns a CUDA error code (a tensor map that does
+// not encode: cudaErrorInvalidValue).
 extern "C" int vrvg_head_tail_big_f32(
-    const void* x, int nchw, void* xt, const void* w1s, const void* taps_a,
+    const void* x, int layout, void* xt, const void* w1s, const void* taps_a,
     const void* tapw_a, void* u, void* mid, const void* taps_b,
     const void* tapw_b, const void* cw, void* r, const void* w2s,
     const void* b2, const void* w3, const void* b3, void* out, int batch,
-    int h0, int w0, int c, int h1, int w1, void* stream) {
-  if (c != 64 && c != 128 && c != 256 && c != 384) {
-    return (int)cudaErrorInvalidValue;
-  }
+    int h0, int w0, int cin, int c, int c2, int h1, int w1, void* stream) {
+  if (!f32_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h0 <= 0 || w0 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  const int hm = 2 * h0, w2 = 2 * w0, c2 = c / 2;
+  const int hm = 2 * h0, w2 = 2 * w0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (nchw) {
-    const int err = to_channels_last<float>(x, xt, batch, c, h0 * w0, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
+  int err = channels_last<float>(x, layout, xt, batch, cin, c, h0 * w0,
+                                 stream);
+  if (err != 0) return err;
   upsample_kernel<float, false><<<dim3(hm, batch), PASS_THREADS, 0, st>>>(
       (const float*)x, (const int*)taps_a, (const float*)tapw_a, nullptr,
       (float*)u, c, h0, w0, hm, w2);
-  int err = (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
   err = conv3x3_f32((const float*)u, (const uint32_t*)w1s, batch, hm, w2, c,
                     tf32x3_gemm::Store{c2, (float*)mid}, stream);
@@ -952,8 +962,7 @@ extern "C" int vrvg_head_tail_big_f32(
 // run their convs (no CLI path calls this: it exposes conv2's sums before
 // the 1x1, for a check of the product): x (B, H, W, C) f32, contiguous, the
 // weights (n, 9 C), k = (3 dh + dw) C + c, given as their TF32 split -> out
-// (B, H, W, n) f32. C a multiple of 32, n in {32, 64, 128, 192}. Returns a
-// CUDA error code.
+// (B, H, W, n) f32. C and n multiples of 32. Returns a CUDA error code.
 extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
                                 int batch, int h, int w, int c, int n,
                                 void* stream) {
@@ -962,14 +971,13 @@ extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
 }
 
 // Row 15 at f32 (the single-kernel tail, vrvg_head_tail at the f32 rounding
-// points of `_tail_kernel`): path1 (B, H2, W2, C) f32, contiguous, or with
-// `nchw` an NCHW tensor seen as NHWC, first transposed into the scratch xt;
-// conv1 as (C2, 9 C) f32, k = (3 dh + dw) C + c, given as its TF32 split
+// points of `_tail_kernel`): x = path1 f32 (as the bf16 entry points take
+// it); conv1 as (C2, 9 C) f32, k = (3 dh + dw) C + c, given as its TF32 split
 // (vrvg_tf32x3_split: (2, 128, 9 C)), + (C2,) f32 bias on its f32 sums; the
 // f32 W-resize tap tables (2, W1); conv2 as (32, 9 C2) in the same k order,
 // split ((2, 128, 9 C2)), b2 (32,), the 1x1 (32,) and b3 (1,) f32; scratch
-// c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C in
-// {32, 64, 128}, C2 = C / 2, or 32 at C = 32 (f32_c2, as row 7's). Row 7's
+// c1 (B, H2, W2, C2) and r (B, H1, W1, C2) f32 -> out (B, H1, W1) f32. C,
+// C2 as f32_widths takes them. Row 7's
 // f32 chain from conv1 on: conv1 + b1 (BiasStore) on conv_kernel<C2>, the
 // resize pass, conv2 with the 1x1 (DepthOut) on conv_kernel<32>. What
 // bounds it: at vits' 1080p grid (B = 8, path1 296 x 528 x 64, depth 518 x
@@ -979,25 +987,22 @@ extern "C" int vrvg_conv3x3_f32(const void* x, const void* ws, void* out,
 // (0.28 ms) against ~1.5 GB of the f32 path1 and the padded c1 and R
 // written and read (0.44 ms at 3.35 TB/s): bound by bytes. Returns a CUDA
 // error code (a tensor map that does not encode: cudaErrorInvalidValue).
-extern "C" int vrvg_head_tail_f32(const void* x, int nchw, void* xt,
+extern "C" int vrvg_head_tail_f32(const void* x, int layout, void* xt,
                                   const void* w1s, const void* b1,
                                   const void* w2s, const void* b2,
                                   const void* w3, const void* b3,
                                   const void* taps, const void* tapw,
                                   void* c1, void* r, void* out, int batch,
-                                  int h2, int w2, int c, int h1, int w1,
-                                  void* stream) {
-  if (c != 32 && c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+                                  int h2, int w2, int cin, int c, int c2,
+                                  int h1, int w1, void* stream) {
+  if (!f32_widths(cin, c, c2)) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h2 <= 0 || w2 <= 0 || h1 <= 0 || w1 <= 0) {
     return (int)cudaSuccess;
   }
-  const int c2 = f32_c2(c);
-  if (nchw) {
-    const int err = to_channels_last<float>(x, xt, batch, c, h2 * w2, stream);
-    if (err != 0) return err;
-    x = xt;
-  }
-  int err = conv3x3_f32((const float*)x, (const uint32_t*)w1s, batch, h2, w2,
+  int err = channels_last<float>(x, layout, xt, batch, cin, c, h2 * w2,
+                                 stream);
+  if (err != 0) return err;
+  err = conv3x3_f32((const float*)x, (const uint32_t*)w1s, batch, h2, w2,
                         c, tf32x3_gemm::BiasStore{c2, (float*)c1,
                                                   (const float*)b1},
                         stream);

@@ -58,16 +58,13 @@ SIGNATURES = {
     "vrvg_head_tail_ext": [_P, _L, _L, _L, _L, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "vrvg_head_tail": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _I, _I, _I, _I, _I, _P],
+    "vrvg_head_tail": [_P, _I] + [_P] * 12 + [_I] * 8 + [_P],
     "vrvg_rcu_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P],
-    "vrvg_head_tail_big_front": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _P],
+    "vrvg_head_tail_big_front": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "vrvg_head_tail_big_back": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P],
-    "vrvg_head_tail_ext_front": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _I, _I, _I, _P],
+    "vrvg_head_tail_ext_front": [_P, _I] + [_P] * 10 + [_I] * 6 + [_P],
     # The f32 variants (--compute_dtype float32).
     "vrvg_layernorm_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vrvg_qkv_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
@@ -78,8 +75,8 @@ SIGNATURES = {
                            _L, _L, _L, _L, _L, _L, _L, _L, _F, _P, _P],
     "vrvg_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _L, _L, _F, _P, _P],
-    "vrvg_head_tail_ext_f32": [_P, _I] + [_P] * 18 + [_I] * 6 + [_P],
-    "vrvg_head_tail_big_f32": [_P, _I] + [_P] * 15 + [_I] * 6 + [_P],
+    "vrvg_head_tail_ext_f32": [_P, _I] + [_P] * 18 + [_I] * 8 + [_P],
+    "vrvg_head_tail_big_f32": [_P, _I] + [_P] * 15 + [_I] * 8 + [_P],
     "vrvg_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vrvg_tf32x3_split": [_P, _P, _I, _I, _I, _P],
     "vrvg_fc1_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -87,7 +84,7 @@ SIGNATURES = {
     "vrvg_mlp_residual_hblocked_f32": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
     "vrvg_swiglu_gate_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vrvg_swiglu_residual_f32": [_P] * 11 + [_I, _I, _I, _F, _P],
-    "vrvg_head_tail_f32": [_P, _I] + [_P] * 12 + [_I] * 6 + [_P],
+    "vrvg_head_tail_f32": [_P, _I] + [_P] * 12 + [_I] * 8 + [_P],
     "vrvg_rcu_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
     # Rows 2 and 17 at any head dim but 64, bf16 or f32
     # (csrc/attention_any.cu).

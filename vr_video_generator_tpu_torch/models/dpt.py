@@ -27,7 +27,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from vr_video_generator_tpu_torch.utils.config import ModelConfig
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.dinov2 import kernel_device
 from vr_video_generator_tpu_torch.models.layers import Conv2d, ConvTranspose2d
 from vr_video_generator_tpu_torch.ops import head_tail as head_tail_ops
@@ -48,26 +47,19 @@ def resolve_tail(tail: str, pre_shape: Tuple[int, int, int, int],
     TPU's place. ``fused``, and ``auto`` on the card (``device_type`` is
     models.dinov2.kernel_device's), take the tail the JAX package's planners
     pick (ops/head_tail.plan_tail); ``xla``, and ``auto`` off the card, fuse
-    nothing. Off the card the fused tails run their plain versions. On the
-    card a planned bf16 tail whose kernels do not take its shape raises
-    here, not in a kernel wrapper: the ext kernels take any grid at every
-    encoder's width (ops/head_tail.EXT_CHANNELS) and, at C = 32, a row that
-    fits one block's shared memory; the big-C kernels C in BIG_CHANNELS. At
-    f32 the planners see f32's itemsize; which f32 plans have their kernels
-    (ops/head_tail.takes_f32) is pipeline.check_f32_plan's question, asked
-    before any weight is built."""
+    nothing. Off the card the fused tails run their plain versions. The
+    port's tails take every width the JAX kernels take, at bf16 and f32
+    (ops/head_tail.takes; zero-padded on the card); where the planned
+    tail's JAX kernel asserts on the width, this raises ValueError naming
+    the assert, off and on the card alike, where the JAX package raises
+    AssertionError."""
     if tail not in TAILS:
         raise ValueError(f"tail must be auto, fused or xla, got {tail!r}")
     if not (tail == "fused" or (tail == "auto" and device_type == "cuda")):
         return None
     choice = head_tail_ops.plan_tail(pre_shape, dtype, out_hw)
-    c, w0 = pre_shape[-1], pre_shape[2]
-    if device_type == "cuda" and dtype != torch.float32 and (
-            (choice == "ext" and not head_tail_ops.takes(c, w0))
-            or (choice == "big" and not head_tail_ops.big_takes(c))):
-        not_ported(f"the {choice} DPT tail at C={c} on the card (tail="
-                   f"{tail!r}, refinenet1 grid {pre_shape[1]}x{w0})",
-                   "DPT tail kernels at other widths")
+    if choice:
+        head_tail_ops.check_takes(pre_shape[-1], choice)
     return choice
 
 

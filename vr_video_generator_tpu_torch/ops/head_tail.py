@@ -23,17 +23,14 @@ the resize pass (R) and conv2 with the 1x1; the first three are the entry
 point ``vrvg_head_tail_ext_front`` and the last two the big-C tail's back
 without ``cw``, all in ``csrc/head_tail_big.cu`` (see its header). A head
 of 32 features (a custom config) runs the older chain of
-``csrc/head_tail.cu`` instead, chosen by width, which holds a whole input
-row in shared memory. At f32 (``--compute_dtype float32``, C = 32 to 384)
-the same five stages run as one entry point, ``vrvg_head_tail_ext_f32``
+``csrc/head_tail.cu`` instead where a whole input row fits its shared memory
+(:func:`wmma_takes`). At f32 (``--compute_dtype float32``) the same five
+stages run as one entry point, ``vrvg_head_tail_ext_f32``
 (counted as ``head_tail_ext_f32``): the passes instantiated on f32, the mix
 (the dense product) and both convs (implicit GEMMs, conv2 with the 1x1) on
 the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh), their three weights split
 once into TF32 hi/lo planes (:func:`_ext_f32_weights`), the W-resize
-weights f32 as the plain version's are at f32. At C = 32 conv1's 16 output
-channels and conv2's 16 input channels are zero-padded to 32 (c1 and R
-carry 16 zero channels; :func:`_f32_padded`), which leaves the sums those
-of 16 channels.
+weights f32 as the plain version's are at f32.
 
 The single-kernel tail replaces `head_tail_pallas` (body `_tail_kernel`, row
 15), which no CLI path of the JAX package runs (its DPT head takes the ext or
@@ -45,12 +42,11 @@ as three stages with their own plain versions: conv1 with its f32 bias
 before the cast (c1; the halo kernel at C = 64, the GEMM core at C = 128),
 the resize pass (R) and conv2 with the 1x1, all one entry point
 (``vrvg_head_tail`` in csrc/head_tail_big.cu, after an NCHW path1's
-transpose). At C = 32 it runs csrc/head_tail.cu's wmma chain, chosen by
-width there (``BASE_CONV1``). At f32 (C = 32, 64 and 128) the same three
-stages run as the entry point ``vrvg_head_tail_f32`` (counted as
-``head_tail_f32``): conv1 with its f32 bias and conv2 with the 1x1 on the
-3xTF32 wgmma core (row 7's f32 convs; at C = 32 with C2 zero-padded to 32
-as row 7's), their weights split once into TF32 hi/lo planes
+transpose). At bf16's C = 32 it runs csrc/head_tail.cu's wmma chain,
+chosen by width there. At f32 the same three stages run as the entry
+point ``vrvg_head_tail_f32`` (counted as ``head_tail_f32``): conv1 with its
+f32 bias and conv2 with the 1x1 on the 3xTF32 wgmma core (row 7's f32
+convs), their weights split once into TF32 hi/lo planes
 (:func:`_base_f32_weights`), the resize pass on f32, the W-resize weights
 f32.
 
@@ -69,14 +65,29 @@ conv1 input) and conv1 as an implicit GEMM on the TMA + wgmma core; their
 intermediate is the bf16 post-conv1 product (B, 2 H0, 2 W0, C/2); the back
 runs the resize pass (R: the W-resize and ``cw``, then the H-resize) and
 conv2 with the 1x1 in registers. Each of those four stages has its own
-plain version, and the whole plain versions compose them. At f32 (C = 64 to
-384) front and back run as one entry point, ``vrvg_head_tail_big_f32``
-(counted as ``head_tail_big_f32``): the passes instantiated on f32, conv1
+plain version, and the whole plain versions compose them. At f32 front and
+back run as one entry point, ``vrvg_head_tail_big_f32`` (counted as
+``head_tail_big_f32``): the passes instantiated on f32, conv1
 (out_conv's mix folded in f32, as the JAX front folds it) and conv2 with
 the 1x1 as implicit GEMMs on the 3xTF32 wgmma core (csrc/tf32x3_gemm.cuh),
 their weights split once into TF32 hi/lo planes (:func:`_big_f32_weights`),
 ``cw`` and the resize weights f32. ``conv3x3_f32`` exposes that core's conv
 sums alone (no CLI path calls it), for a check of conv2 before its 1x1.
+
+Widths. Each chain takes every head the JAX kernels take (:func:`takes`:
+C2 = C / 2 a multiple of 8; the big-C tail C <= 128 or a multiple of 128),
+at bf16 and f32, by zero padding (:func:`chain_widths`, :func:`pad_to`):
+the kernels read channels in fixed slices (64 a K step of the bf16 core,
+16 a k step of conv2's halo kernel, 32 a slice of the 3xTF32 conv), so a
+head between those widths runs at the next ones up, its weights' padded
+rows and columns and biases zeros (set once per weight, outside the state
+dict, kept by :func:`_prepared`; a fold or ``cw`` computed on the head's
+own weights first), x's padded channels written as zeros by the chain's
+NCHW transpose. A product of a zero is an exact zero, so each stage sum is
+that of the head's channels and each intermediate's padded channels are
+zeros; the wrappers return views of the head's channels. A head the JAX
+kernels refuse raises ValueError (:func:`check_takes`) on the CPU and the
+card alike.
 """
 
 from __future__ import annotations
@@ -89,7 +100,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 from vr_video_generator_tpu_torch.ops.mlp import tf32x3_split_kernel
 from vr_video_generator_tpu_torch.ops.resize import linear_weights
@@ -102,19 +112,64 @@ BIG_BACK_LAUNCHES = counter("head_tail_big_back")
 BIG_F32_LAUNCHES = counter("head_tail_big_f32")
 CONV3X3_F32_LAUNCHES = counter("conv3x3_f32")
 BASE_F32_LAUNCHES = counter("head_tail_f32")
-CHANNELS = (32, 64, 128, 256, 384)  # the feature widths head_tail_ext takes
-EXT_CHANNELS = CHANNELS[1:]         # ... through vrvg_head_tail_ext_front
-BIG_CHANNELS = (64, 128, 256, 384)  # the feature widths csrc/head_tail_big.cu takes
-BIG_F32_CHANNELS = BIG_CHANNELS     # ... at f32 (vrvg_head_tail_big_f32)
-EXT_F32_CHANNELS = CHANNELS         # row 7's at f32 (vrvg_head_tail_ext_f32)
-BASE_CHANNELS = (32, 64, 128)       # path1 widths the single-kernel tail takes
-CONV3X3_F32_OUT = (32, 64, 128, 192)  # the output widths vrvg_conv3x3_f32 takes
-# The kernel vrvg_head_tail runs conv1 on at each path1 width, and so the
-# layout of its weights: csrc/head_tail.cu's wmma chain, row 12's halo-tile
-# kernel (Conv1Out), or the GEMM core (256 x 64 tiles).
-BASE_CONV1 = {32: "wmma", 64: "halo", 128: "core"}
 C3 = 32                             # output_conv2's width in the reference head
 SMEM_PER_BLOCK = 232448             # shared memory one block may have (H100)
+# The assert of the JAX kernel of each tail that refuses a head's width.
+JAX_ASSERTS = {"ext": "head_tail_pallas.py:395 (c2 % 8 == 0)",
+               "base": "head_tail_pallas.py:174 (c2 % 8 == 0)",
+               "big": "head_tail_pallas.py:684 (c2 % 8 == 0 and c % cpr "
+                      "== 0, cpr = min(C, 128))"}
+
+
+def takes(features: int, tail: str = "ext") -> bool:
+    """Whether the JAX package's kernel of ``tail`` takes a head of
+    ``features`` channels, and so the port's chains, at bf16 and f32 alike
+    (zero-padded to :func:`chain_widths`): "ext" (row 7) and "base" (row
+    15) any C whose C2 = C / 2 is a multiple of 8; "big" (rows 11 and 12)
+    besides C <= 128 or a multiple of 128, its 128-channel chunks
+    (``JAX_ASSERTS``)."""
+    if tail not in JAX_ASSERTS:
+        raise ValueError(f"tail must be one of {tuple(JAX_ASSERTS)}, got "
+                         f"{tail!r}")
+    ok = features > 0 and features % 16 == 0
+    return ok and (tail != "big" or features <= 128 or features % 128 == 0)
+
+
+def check_takes(features: int, tail: str) -> None:
+    """Raise ValueError, naming the JAX kernel's assert, where :func:`takes`
+    refuses the width (the JAX package raises AssertionError there)."""
+    if not takes(features, tail):
+        raise ValueError(f"the {tail} DPT tail takes no head of C={features} "
+                         f"channels: the JAX package's kernel asserts "
+                         f"{JAX_ASSERTS[tail]}")
+
+
+def chain_widths(c: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(Cp, C2p): the widths a chain runs a head of C features at on the
+    card, C and C2 = C / 2 zero-padded up to what its kernels' channel
+    slices take (csrc/head_tail_big.cu ``bf16_widths``, ``f32_widths``):
+    at f32 both multiples of 32 (the 3xTF32 conv's slice); otherwise Cp a
+    multiple of 64 (the bf16 core's K slice: the mix and conv1) and C2p a
+    multiple of 16 (conv2's k step), at least 32 (conv1's halo kernel writes
+    32 channels). Every encoder's head runs unpadded; a 32-feature head at
+    f32 runs C2 = 32 (bf16: csrc/head_tail.cu's chain, see
+    :func:`wmma_takes`)."""
+    if dtype == torch.float32:
+        return -(-c // 32) * 32, -(-(c // 2) // 32) * 32
+    return -(-c // 64) * 64, max(32, -(-(c // 2) // 16) * 16)
+
+
+def pad_to(t: torch.Tensor, *widths: int) -> torch.Tensor:
+    """t zero-padded at the end of its leading dims up to ``widths`` (a
+    conv's (O, I, kh, kw) to (O', I'), a bias's (O,) to (O',)): a copy where
+    it pads, t itself where it does not."""
+    extra = [w - n for w, n in zip(widths, t.shape)]
+    if not any(extra):
+        return t
+    pads = [0, 0] * (t.ndim - len(widths))
+    for e in reversed(extra):
+        pads += [0, e]
+    return F.pad(t, pads)
 
 
 def _align128(n: int) -> int:
@@ -129,37 +184,12 @@ def ext_mix_smem(w0: int, c: int) -> int:
             + _align128(w0p * nc * 2) + 4 * 256 * 4)
 
 
-def takes(features: int, w0: int) -> bool:
-    """Whether the ext kernels are built for a head of ``features`` channels
-    on a grid W0 pixels wide: any grid at ``EXT_CHANNELS``; at C = 32 one
-    whose row fits the older chain's first kernel."""
-    return features in EXT_CHANNELS or (
-        features in CHANNELS and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK)
-
-
-def takes_f32(features: int, tail: str = "ext") -> bool:
-    """Whether the f32 kernels of ``tail`` ("ext", row 7; "big", rows 11 and
-    12) are built for a head of ``features`` channels (any grid)."""
-    return features in (EXT_F32_CHANNELS if tail == "ext"
-                        else BIG_F32_CHANNELS)
-
-
-def f32_c2(c: int) -> int:
-    """The channels an f32 chain's c1 and R have at head width ``c``: C / 2,
-    or 32 at C = 32, conv1's 16 outputs zero-padded (csrc/head_tail_big.cu
-    ``f32_c2``)."""
-    return max(c // 2, 32)
-
-
-def base_takes(features: int) -> bool:
-    """Whether the single-kernel tail is built for path1 of ``features``
-    channels (vits and vitb: C2 = C / 2, C3 = 32)."""
-    return features in BASE_CHANNELS
-
-
-def big_takes(features: int) -> bool:
-    """Whether the big-C kernels are built for ``features`` channels."""
-    return features in BIG_CHANNELS
+def wmma_takes(features: int, w0: int) -> bool:
+    """Whether bf16 row 7 runs the older chain of csrc/head_tail.cu (a head
+    of 32 features on a grid whose input row fits one block's shared
+    memory) rather than the five-stage chain (any other width or grid,
+    zero-padded)."""
+    return features == 32 and ext_mix_smem(w0, features) <= SMEM_PER_BLOCK
 
 
 # --- the JAX package's tail planners (head_tail_pallas.py:45, 223-251,
@@ -367,90 +397,89 @@ def head_tail_plain(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
     return big_conv2_plain(r, k2, b2, k3, b3)
 
 
-def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
-    b, h2, w2, c = path1.shape
+def _check_shapes(name: str, c: int, weights) -> None:
+    """Raise ValueError unless each (label, tensor) of ``weights`` has the
+    shape a tail of C = ``c`` features reads (out_conv, output_conv1,
+    output_conv2's two convs)."""
     c2 = c // 2
-    if not base_takes(c):
-        not_ported(f"the single-kernel DPT tail at C={c} on the card",
-                   "DPT tail kernels at other widths")
+    shapes = {"out_conv": (c, c, 1, 1), "output_conv1": (c2, c, 3, 3),
+              "output_conv2.0": (C3, c2, 3, 3),
+              "output_conv2.2": (1, C3, 1, 1)}
+    for label, t in weights:
+        if tuple(t.shape) != shapes[label]:
+            raise ValueError(f"{name} {label} weight must be "
+                             f"{shapes[label]}, got {tuple(t.shape)}")
+
+
+def _check_base(path1: torch.Tensor, k1, k2, k3) -> None:
+    check_takes(path1.shape[3], "base")
     if path1.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"head_tail kernel takes bf16 or f32 input, got "
                          f"{path1.dtype}")
-    for name, t, shape in (("output_conv1", k1, (c2, c, 3, 3)),
-                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
-                           ("output_conv2.2", k3, (1, C3, 1, 1))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head_tail {name} weight must be {shape}, "
-                             f"got {tuple(t.shape)}")
+    _check_shapes("head_tail", path1.shape[3], (
+        ("output_conv1", k1), ("output_conv2.0", k2), ("output_conv2.2", k3)))
 
 
 def _base_weights(k1, b1, k2, b2, k3, b3):
-    """Row 15's weights as vrvg_head_tail reads them at path1's width
-    (``BASE_CONV1``): conv1 and conv2 as (3, 3, in, out) for the wmma chain;
-    otherwise conv1 as the halo kernel's rows or the GEMM's B and conv2 as
-    the halo kernel's rows; then the f32 vectors b1, b2, the 1x1, b3."""
-    kind = BASE_CONV1[k1.shape[1]]
-    if kind == "wmma":
+    """Row 15's weights as vrvg_head_tail reads them at path1's width: at C
+    = 32 conv1 and conv2 as (3, 3, in, out) for the wmma chain; otherwise,
+    zero-padded to :func:`chain_widths`, conv1 as the halo kernel's rows (C2
+    = 32) or the GEMM's B and conv2 as the halo kernel's rows; then the f32
+    vectors b1 (padded), b2, the 1x1, b3."""
+    c = k1.shape[1]
+    if c == 32:
         w1, w2 = (k.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
                   for k in (k1, k2))
     else:
-        w1 = conv2_weights(k1) if kind == "halo" else conv3x3_gemm_weights(k1)
+        cp, c2p = chain_widths(c, torch.bfloat16)
+        k1, b1, k2 = pad_to(k1, c2p, cp), pad_to(b1, c2p), pad_to(k2, C3, c2p)
+        w1 = conv2_weights(k1) if c2p == C3 else conv3x3_gemm_weights(k1)
         w2 = conv2_weights(k2)
     return (w1, w2, *_f32_vectors(b1, b2, k3, b3))
 
 
-def _f32_padded(b1: torch.Tensor, k2: torch.Tensor):
-    """conv1's bias and conv2's weight with C2 zero-padded to
-    :func:`f32_c2`'s width (a copy of each; as they are where C2 >= 32):
-    the f32 chains' conv1 writes the padded channels as 0 + 0 and conv2
-    reads them with zero weights, so their sums are those of C2 channels."""
-    pad = f32_c2(2 * k2.shape[1]) - k2.shape[1]
-    return F.pad(b1, (0, pad)), F.pad(k2, (0, 0, 0, 0, 0, pad))
-
-
 def _base_f32_weights(k1, b1, k2, b2, k3, b3):
-    """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 and conv2
-    (C2 zero-padded to 32 at C = 32, :func:`_f32_padded`) split for the
-    3xTF32 core's conv (:func:`_conv_split`), and the f32 vectors b1, b2,
-    the 1x1, b3. Kept by :func:`_prepared`, so the first call on a set of
-    weights splits them and later calls do not."""
-    b1, k2 = _f32_padded(b1, k2)
-    return (_conv_split(k1), _conv_split(k2), *_f32_vectors(b1, b2, k3, b3))
+    """Row 15's weights as vrvg_head_tail_f32 reads them: conv1 and conv2,
+    zero-padded to :func:`chain_widths`, split for the 3xTF32 core's conv
+    (:func:`_conv_split`), and the f32 vectors b1 (padded), b2, the 1x1,
+    b3. Kept by :func:`_prepared`, so the first call on a set of weights
+    splits them and later calls do not."""
+    cp, c2p = chain_widths(k1.shape[1], torch.float32)
+    return (_conv_split(pad_to(k1, c2p, cp)), _conv_split(pad_to(k2, C3, c2p)),
+            *_f32_vectors(pad_to(b1, c2p), b2, k3, b3))
 
 
 def _launch_base(path1: torch.Tensor, wts, out_hw):
     """One launch of vrvg_head_tail on path1 (B, H2, W2, C) bf16, or of
     vrvg_head_tail_f32 on f32 path1, with the torch weights ``wts`` (k1, b1,
     k2, b2, k3, b3): (c1, R, depth), R None at bf16's C = 32 (the wmma chain
-    has no resize pass); at f32's C = 32 c1 and R are views of the first 16
-    of their 32 zero-padded channels."""
+    has no resize pass); where the chain runs C2 zero-padded, c1 and R are
+    views of their first C / 2 channels."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     b, h2, w2, c = path1.shape
     h1, w1 = out_hw
     f32 = path1.dtype == torch.float32
-    c2 = f32_c2(c) if f32 else c // 2
+    wmma = not f32 and c == 32
+    cp, c2p = (c, c // 2) if wmma else chain_widths(c, path1.dtype)
     w1m, w2m, b1f, b2f, w3f, b3f = _prepared(
         _base_f32_weights if f32 else _base_weights, wts)
-    wmma = not f32 and BASE_CONV1[c] == "wmma"
-    if wmma:
-        x, nchw, xt = path1.contiguous(), False, path1
-    else:
-        x, nchw, xt = _channels_last(path1)
+    x, layout, xt = (path1.contiguous(), 0, path1) if wmma else \
+        _channels_last(path1, cp)
     taps, tapw = _device_taps(w2, w1, x.device, path1.dtype)
     new = functools.partial(torch.empty, dtype=path1.dtype, device=x.device)
-    c1 = new((b, h2, w2, c2))
-    r = None if wmma else new((b, h1, w1, c2))
+    c1 = new((b, h2, w2, c2p))
+    r = None if wmma else new((b, h1, w1, c2p))
     out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
     kernel = "vrvg_head_tail_f32" if f32 else "vrvg_head_tail"
     check(getattr(library(), kernel)(
-        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
-        b1f.data_ptr(), w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
-        b3f.data_ptr(), taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
+        x.data_ptr(), layout, xt.data_ptr(), w1m.data_ptr(), b1f.data_ptr(),
+        w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
+        taps.data_ptr(), tapw.data_ptr(), c1.data_ptr(),
         None if r is None else r.data_ptr(), out.data_ptr(), b, h2, w2, c,
-        h1, w1, stream_handle(x.device)), kernel)
+        cp, c2p, h1, w1, stream_handle(x.device)), kernel)
     (BASE_F32_LAUNCHES if f32 else BASE_LAUNCHES).count += 1
-    if c2 != c // 2:
+    if c2p != c // 2:
         c1, r = c1[..., :c // 2], r[..., :c // 2]
     return c1, r, out
 
@@ -460,10 +489,10 @@ def head_tail(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
               b3: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """path1 (B, H2, W2, C), any strides -> depth (B, H1, W1) f32: the plain
     version for CPU tensors, the row-15 kernels for CUDA tensors (bf16 or
-    f32, C in ``BASE_CHANNELS``; another width raises naming the roadmap
-    item)."""
+    f32); C as :func:`takes` "base" takes it, else ValueError."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
+        check_takes(path1.shape[3], "base")
         return head_tail_plain(path1, *args, out_hw)
     _check_base(path1, k1, k2, k3)
     return _launch_base(path1, args, out_hw)[-1]
@@ -475,17 +504,18 @@ def head_tail_stages(path1: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
     """Row 15 stage by stage: (c1, R, depth), c1 (B, H2, W2, C2) and R (B,
     H1, W1, C2) channels-last, depth (B, H1, W1) f32. For CPU tensors, the
     plain versions of the stages (composed, :func:`head_tail_plain`); for
-    CUDA tensors (bf16, C in 64 or 128; f32, C in ``BASE_CHANNELS``), one
-    launch of the chain, whose scratch holds the intermediates."""
+    CUDA tensors (bf16 but at C = 32, or f32), one launch of the chain,
+    whose scratch holds the intermediates."""
     args = (k1, b1, k2, b2, k3, b3)
     if not on_cuda(path1, *args):
+        check_takes(path1.shape[3], "base")
         c1 = base_conv1_plain(path1, k1, b1)
         r = ext_resize_plain(c1, out_hw)
         return c1, r, big_conv2_plain(r, k2, b2, k3, b3)
     _check_base(path1, k1, k2, k3)
-    if path1.dtype != torch.float32 and BASE_CONV1[path1.shape[3]] == "wmma":
-        raise ValueError(f"head_tail_stages: C={path1.shape[3]} runs the wmma "
-                         f"chain, which has no stages")
+    if path1.dtype != torch.float32 and path1.shape[3] == 32:
+        raise ValueError("head_tail_stages: C=32 runs the wmma chain, which "
+                         "has no stages")
     return _launch_base(path1, args, out_hw)
 
 
@@ -560,24 +590,35 @@ def _f32_vectors(*ts):
     return [t.to(torch.float32, copy=True).reshape(-1) for t in ts]
 
 
+def _padded_ext(dtype, k_oc, b_oc, k1, b1, k2):
+    """out_conv, its bias, conv1, its bias and conv2 zero-padded to the
+    chain's :func:`chain_widths` at ``dtype`` (a copy each where padded)."""
+    cp, c2p = chain_widths(k1.shape[1], dtype)
+    return (pad_to(k_oc, cp, cp), pad_to(b_oc, cp), pad_to(k1, c2p, cp),
+            pad_to(b1, c2p), pad_to(k2, C3, c2p))
+
+
 def _ext_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
     """Row 7's weights as vrvg_head_tail_ext_front and the row-12 back read
-    them: the mix (C, C) bf16; conv1 as the GEMM's B (C2 > 32) or the halo
-    kernel's rows (C2 = 32); conv2's rows; the f32 vectors b_oc, b1, b2, the
-    1x1, b3."""
+    them, zero-padded to :func:`chain_widths`: the mix (Cp, Cp) bf16; conv1
+    as the GEMM's B (C2p > 32) or the halo kernel's rows (C2p = 32); conv2's
+    rows; the f32 vectors b_oc, b1, b2, the 1x1, b3."""
+    k_oc, b_oc, k1, b1, k2 = _padded_ext(torch.bfloat16, k_oc, b_oc, k1, b1,
+                                         k2)
     w1 = conv2_weights(k1) if k1.shape[0] == C3 else conv3x3_gemm_weights(k1)
     return (k_oc[:, :, 0, 0].to(torch.bfloat16, copy=True), w1,
             conv2_weights(k2), *_f32_vectors(b_oc, b1, b2, k3, b3))
 
 
 def _ext_f32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
-    """Row 7's weights as vrvg_head_tail_ext_f32 reads them: the mix (C, C)
-    split for the 3xTF32 core's dense product (ops/mlp.tf32x3_split_kernel),
-    conv1 and conv2 (C2 zero-padded to 32 at C = 32, :func:`_f32_padded`)
-    split for its conv (:func:`_conv_split`), and the f32 vectors b_oc, b1,
-    b2, the 1x1, b3. Kept by :func:`_prepared`, so a path splits them at
-    its first (eager) step and never inside a CUDA graph capture."""
-    b1, k2 = _f32_padded(b1, k2)
+    """Row 7's weights as vrvg_head_tail_ext_f32 reads them, zero-padded to
+    :func:`chain_widths`: the mix (Cp, Cp) split for the 3xTF32 core's dense
+    product (ops/mlp.tf32x3_split_kernel), conv1 and conv2 split for its
+    conv (:func:`_conv_split`), and the f32 vectors b_oc, b1, b2, the 1x1,
+    b3. Kept by :func:`_prepared`, so a path splits them at its first
+    (eager) step and never inside a CUDA graph capture."""
+    k_oc, b_oc, k1, b1, k2 = _padded_ext(torch.float32, k_oc, b_oc, k1, b1,
+                                         k2)
     mix = k_oc[:, :, 0, 0].to(torch.float32).contiguous()
     return (tf32x3_split_kernel(mix), _conv_split(k1), _conv_split(k2),
             *_f32_vectors(b_oc, b1, b2, k3, b3))
@@ -594,38 +635,27 @@ def _ext32_weights(k_oc, b_oc, k1, b1, k2, b2, k3, b3):
 
 
 def _check_ext(x: torch.Tensor, k_oc, k1, k2, k3) -> None:
-    c = x.shape[3]
-    c2 = c // 2
-    if x.dtype == torch.float32:
-        if not takes_f32(c):
-            raise ValueError(f"head_tail_ext f32 kernel takes C in "
-                             f"{EXT_F32_CHANNELS}, got C={c}")
-    elif x.dtype != torch.bfloat16 or not takes(c, x.shape[2]):
-        raise ValueError(f"head_tail_ext kernel takes bf16 input with C in "
-                         f"{CHANNELS} (at C=32 rows within {SMEM_PER_BLOCK} "
-                         f"bytes of shared memory), or f32 input with C in "
-                         f"{EXT_F32_CHANNELS}, got {x.dtype} C={c} "
-                         f"W0={x.shape[2]}")
-    for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
-                           ("output_conv1", k1, (c2, c, 3, 3)),
-                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
-                           ("output_conv2.2", k3, (1, C3, 1, 1))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head_tail_ext {name} weight must be {shape}, "
-                             f"got {tuple(t.shape)}")
+    check_takes(x.shape[3], "ext")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"head_tail_ext kernel takes bf16 or f32 input, got "
+                         f"{x.dtype}")
+    _check_shapes("head_tail_ext", x.shape[3], (
+        ("out_conv", k_oc), ("output_conv1", k1), ("output_conv2.0", k2),
+        ("output_conv2.2", k3)))
 
 
-def _channels_last(x: torch.Tensor):
-    """x (B, H0, W0, C) as the chains read it: (x, nchw, xt) with nchw when x
-    is an NCHW tensor seen as NHWC (the model's), which the kernels
-    transpose first into the scratch xt; any other strides copied to a
-    contiguous x."""
+def _channels_last(x: torch.Tensor, cp: int):
+    """x (B, H, W, C) as the chains read it at their width ``cp`` >= C:
+    (x, layout, xt). Layout 0: x contiguous with C = cp, read as it is; 1:
+    an NCHW tensor seen as NHWC (the model's), 2: a contiguous NHWC x of C <
+    cp channels (any other strides are first made contiguous): the kernels
+    copy these into the scratch xt (B, H, W, cp), channels past C zeros."""
     nchw = not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous()
     if not nchw:
         x = x.contiguous()
-    xt = torch.empty_like(x, memory_format=torch.contiguous_format) \
-        if nchw else x
-    return x, nchw, xt
+    layout = 1 if nchw else 2 if x.shape[3] != cp else 0
+    xt = x.new_empty((*x.shape[:3], cp)) if layout else x
+    return x, layout, xt
 
 
 def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
@@ -633,14 +663,15 @@ def head_tail_ext(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
                   b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """x (B, H0, W0, C), any strides -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the kernels for CUDA tensors (bf16, C in
-    ``CHANNELS``): the five-stage chain at ``EXT_CHANNELS``, the older
-    chain of csrc/head_tail.cu at C = 32; f32 (C in ``EXT_F32_CHANNELS``):
-    the f32 chain."""
+    version for CPU tensors, the kernels for CUDA tensors (C as
+    :func:`takes` "ext" takes it, else ValueError): at bf16 the five-stage
+    chain, or where :func:`wmma_takes` the older chain of
+    csrc/head_tail.cu; at f32 the f32 chain."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if not on_cuda(x, *args):
+        check_takes(x.shape[3], "ext")
         return head_tail_ext_plain(x, *args, out_hw)
-    if x.shape[3] in EXT_CHANNELS or x.dtype == torch.float32:
+    if x.dtype == torch.float32 or not wmma_takes(x.shape[3], x.shape[2]):
         return head_tail_ext_stages(x, *args, out_hw)[-1]
     _check_ext(x, k_oc, k1, k2, k3)
     from vr_video_generator_tpu_torch.kernels.build import check, library
@@ -673,12 +704,14 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
                          out_hw: Tuple[int, int]):
     """Row 7 stage by stage: (xoc, Z, c1, R, depth), each (B, H, W, C)
     channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
-    versions of the stages; for CUDA tensors (bf16, C in ``EXT_CHANNELS``,
-    or f32, C in ``EXT_F32_CHANNELS``), one launch of the chain (the front
-    and the back entry points; at f32 the one f32 entry point), whose
-    scratch holds the intermediates."""
+    versions of the stages; for CUDA tensors (bf16 but where
+    :func:`wmma_takes`, or f32), one launch of the chain (the front and the
+    back entry points; at f32 the one f32 entry point), whose scratch holds
+    the intermediates, zero-padded to :func:`chain_widths` (the stages are
+    views of their first C or C / 2 channels)."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
     if not on_cuda(x, *args):
+        check_takes(x.shape[3], "ext")
         xoc = ext_mix_plain(x, k_oc)
         z = big_upsample_plain(xoc, b_oc)
         c1 = ext_conv1_plain(z, k1, b1)
@@ -688,66 +721,69 @@ def head_tail_ext_stages(x: torch.Tensor, k_oc: torch.Tensor,
     if x.dtype == torch.float32:
         return _ext_f32_stages(x, args, out_hw)
     b, h0, w0, c = x.shape
-    if c not in EXT_CHANNELS:
-        raise ValueError(f"head_tail_ext_stages takes C in {EXT_CHANNELS}, "
-                         f"got C={c}")
+    if wmma_takes(c, w0):
+        raise ValueError(f"head_tail_ext_stages: C={c} on a grid {w0} wide "
+                         f"runs the wmma chain, which has no stages")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     h1, w1 = out_hw
-    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
+    hm, w2 = 2 * h0, 2 * w0
+    cp, c2p = chain_widths(c, torch.bfloat16)
     koc, w1m, w2m, boc, b1f, b2f, w3f, b3f = _prepared(_ext_weights, args)
-    x, nchw, xt = _channels_last(x)
+    x, layout, xt = _channels_last(x, cp)
     taps_a, tapw_a = _device_taps(w0, w2, x.device)
     taps_b, tapw_b = _device_taps(w2, w1, x.device)
     new = functools.partial(torch.empty, dtype=torch.bfloat16,
                             device=x.device)
-    xoc, z, c1, r = (new((b, h0, w0, c)), new((b, hm, w2, c)),
-                     new((b, hm, w2, c2)), new((b, h1, w1, c2)))
+    xoc, z, c1, r = (new((b, h0, w0, cp)), new((b, hm, w2, cp)),
+                     new((b, hm, w2, c2p)), new((b, h1, w1, c2p)))
     out = torch.empty((b, h1, w1), dtype=torch.float32, device=x.device)
     lib, stream = library(), stream_handle(x.device)
     check(lib.vrvg_head_tail_ext_front(
-        x.data_ptr(), int(nchw), xt.data_ptr(), koc.data_ptr(),
-        boc.data_ptr(), taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(),
-        z.data_ptr(), w1m.data_ptr(), b1f.data_ptr(), c1.data_ptr(), b, h0,
-        w0, c, stream), "vrvg_head_tail_ext_front")
+        x.data_ptr(), layout, xt.data_ptr(), koc.data_ptr(), boc.data_ptr(),
+        taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(), z.data_ptr(),
+        w1m.data_ptr(), b1f.data_ptr(), c1.data_ptr(), b, h0, w0, c, cp, c2p,
+        stream), "vrvg_head_tail_ext_front")
     check(lib.vrvg_head_tail_big_back(
         c1.data_ptr(), taps_b.data_ptr(), tapw_b.data_ptr(), None,
         w2m.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
-        r.data_ptr(), out.data_ptr(), b, hm, w2, c2, h1, w1, stream),
+        r.data_ptr(), out.data_ptr(), b, hm, w2, c2p, h1, w1, stream),
         "vrvg_head_tail_big_back")
     LAUNCHES.count += 1
-    return xoc, z, c1, r, out
+    return (xoc[..., :c], z[..., :c], c1[..., :c // 2], r[..., :c // 2],
+            out)
 
 
 def _ext_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     """Row 7 at f32 on the card: (xoc, Z, c1, R, depth) from one launch of
-    vrvg_head_tail_ext_f32 (x checked by :func:`_check_ext`); at C = 32 c1
-    and R are views of the first 16 of their 32 zero-padded channels."""
+    vrvg_head_tail_ext_f32 (x checked by :func:`_check_ext`), views of the
+    first C or C / 2 channels of the chain's zero-padded intermediates."""
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
-    hm, w2, c2 = 2 * h0, 2 * w0, f32_c2(c)
+    hm, w2 = 2 * h0, 2 * w0
+    cp, c2p = chain_widths(c, torch.float32)
     kocs, w1s, w2s, boc, b1f, b2f, w3f, b3f = _prepared(_ext_f32_weights,
                                                         args)
-    x, nchw, xt = _channels_last(x)
+    x, layout, xt = _channels_last(x, cp)
     f32 = torch.float32
     taps_a, tapw_a = _device_taps(w0, w2, x.device, f32)
     taps_b, tapw_b = _device_taps(w2, w1, x.device, f32)
     new = functools.partial(torch.empty, dtype=f32, device=x.device)
-    xoc, z, c1, r = (new((b, h0, w0, c)), new((b, hm, w2, c)),
-                     new((b, hm, w2, c2)), new((b, h1, w1, c2)))
+    xoc, z, c1, r = (new((b, h0, w0, cp)), new((b, hm, w2, cp)),
+                     new((b, hm, w2, c2p)), new((b, h1, w1, c2p)))
     out = new((b, h1, w1))
     check(library().vrvg_head_tail_ext_f32(
-        x.data_ptr(), int(nchw), xt.data_ptr(), kocs.data_ptr(),
-        boc.data_ptr(), taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(),
-        z.data_ptr(), w1s.data_ptr(), b1f.data_ptr(), c1.data_ptr(),
-        taps_b.data_ptr(), tapw_b.data_ptr(), r.data_ptr(), w2s.data_ptr(),
-        b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(), out.data_ptr(), b,
-        h0, w0, c, h1, w1, stream_handle(x.device)),
-        "vrvg_head_tail_ext_f32")
+        x.data_ptr(), layout, xt.data_ptr(), kocs.data_ptr(), boc.data_ptr(),
+        taps_a.data_ptr(), tapw_a.data_ptr(), xoc.data_ptr(), z.data_ptr(),
+        w1s.data_ptr(), b1f.data_ptr(), c1.data_ptr(), taps_b.data_ptr(),
+        tapw_b.data_ptr(), r.data_ptr(), w2s.data_ptr(), b2f.data_ptr(),
+        w3f.data_ptr(), b3f.data_ptr(), out.data_ptr(), b, h0, w0, c, cp,
+        c2p, h1, w1, stream_handle(x.device)), "vrvg_head_tail_ext_f32")
     F32_LAUNCHES.count += 1
-    return xoc, z, c1[..., :c // 2], r[..., :c // 2], out
+    return (xoc[..., :c], z[..., :c], c1[..., :c // 2], r[..., :c // 2],
+            out)
 
 
 # --- the big-C tail (rows 11, 12) ---------------------------------------------
@@ -888,9 +924,12 @@ def conv3x3_gemm_weights(k: torch.Tensor,
 
 
 def conv1_weights(k_oc: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
-    """conv1 with out_conv's mix folded in, as the GEMM's B: (C2, 9 C) bf16,
-    k = (3 dh + dw) C + c."""
-    return conv3x3_gemm_weights(fold_conv1(k_oc, k1, torch.bfloat16))
+    """conv1 with out_conv's mix folded in over the head's own channels, then
+    zero-padded to :func:`chain_widths`, as the GEMM's B: (C2p, 9 Cp) bf16,
+    k = (3 dh + dw) Cp + c."""
+    cp, c2p = chain_widths(k1.shape[1], torch.bfloat16)
+    return conv3x3_gemm_weights(pad_to(fold_conv1(k_oc, k1, torch.bfloat16),
+                                       c2p, cp))
 
 
 def conv2_weights(k2: torch.Tensor) -> torch.Tensor:
@@ -901,11 +940,80 @@ def conv2_weights(k2: torch.Tensor) -> torch.Tensor:
         9 * k2.shape[0], k2.shape[1]).contiguous()
 
 
+def _padded_conv2(k2: torch.Tensor, c2p: int) -> torch.Tensor:
+    """conv2 zero-padded to C2p input channels, as the halo kernel reads it
+    (:func:`conv2_weights`)."""
+    return conv2_weights(pad_to(k2, C3, c2p))
+
+
+def _padded_bias(k1: torch.Tensor, b_oc: torch.Tensor, b1: torch.Tensor,
+                 w2: int, w1: int, c2p: int) -> torch.Tensor:
+    """``cw`` (:func:`big_tail_bias`, (3, W1, C2), on the head's own
+    weights, as the plain version computes it) with zero columns up to
+    C2p."""
+    cw = big_tail_bias(k1, b_oc, b1, w2, w1)
+    return F.pad(cw, (0, c2p - cw.shape[2]))
+
+
+def _check_big(name: str, x: torch.Tensor, c: int, weights) -> None:
+    check_takes(c, "big")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes bf16 input (f32 through "
+                         f"head_tail_big), got {x.dtype}")
+    _check_shapes(name, c, weights)
+
+
+def _big_front(x: torch.Tensor, k_oc: torch.Tensor, k1: torch.Tensor):
+    """Row 11 on the card: one launch of vrvg_head_tail_big_front on bf16 x
+    (B, H0, W0, C), (U, mid) at the chain's widths (:func:`chain_widths`:
+    (B, 2 H0, 2 W0, Cp) and (B, 2 H0, 2 W0, C2p))."""
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    b, h0, w0, c = x.shape
+    cp, c2p = chain_widths(c, torch.bfloat16)
+    x, layout, xt = _channels_last(x, cp)
+    w1m = _prepared(conv1_weights, (k_oc, k1))
+    taps, tapw = _device_taps(w0, 2 * w0, x.device)
+    new = functools.partial(torch.empty, dtype=torch.bfloat16,
+                            device=x.device)
+    u, mid = new((b, 2 * h0, 2 * w0, cp)), new((b, 2 * h0, 2 * w0, c2p))
+    check(library().vrvg_head_tail_big_front(
+        x.data_ptr(), layout, xt.data_ptr(), w1m.data_ptr(), taps.data_ptr(),
+        tapw.data_ptr(), u.data_ptr(), mid.data_ptr(), b, h0, w0, c, cp, c2p,
+        stream_handle(x.device)), "vrvg_head_tail_big_front")
+    BIG_FRONT_LAUNCHES.count += 1
+    return u, mid
+
+
+def _big_back(mid: torch.Tensor, k1: torch.Tensor, b_oc: torch.Tensor,
+              b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+              k3: torch.Tensor, b3: torch.Tensor, out_hw: Tuple[int, int]):
+    """Row 12 on the card: one launch of vrvg_head_tail_big_back on mid (B,
+    HM, W2, C2p) bf16, contiguous, at the chain's width: (R (B, H1, W1,
+    C2p), depth)."""
+    from vr_video_generator_tpu_torch.kernels.build import check, library
+
+    b, hm, w2, c2p = mid.shape
+    h1, w1 = out_hw
+    cw = _prepared(_padded_bias, (k1, b_oc, b1), w2, w1, c2p)
+    w2m = _prepared(_padded_conv2, (k2,), c2p)
+    vecs = _prepared(_f32_vectors, (b2, k3, b3))
+    taps, tapw = _device_taps(w2, w1, mid.device)
+    r = torch.empty((b, h1, w1, c2p), dtype=torch.bfloat16, device=mid.device)
+    out = torch.empty((b, h1, w1), dtype=torch.float32, device=mid.device)
+    check(library().vrvg_head_tail_big_back(
+        mid.data_ptr(), taps.data_ptr(), tapw.data_ptr(), cw.data_ptr(),
+        w2m.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        vecs[2].data_ptr(), r.data_ptr(), out.data_ptr(), b, hm, w2, c2p, h1,
+        w1, stream_handle(mid.device)), "vrvg_head_tail_big_back")
+    BIG_BACK_LAUNCHES.count += 1
+    return r, out
+
+
 def head_tail_big_front(x: torch.Tensor, k_oc: torch.Tensor,
                         k1: torch.Tensor) -> torch.Tensor:
     """x (B, H0, W0, C), any strides -> (B, 2 H0, 2 W0, C2): the plain
-    version for CPU tensors, the row-11 kernels for CUDA tensors (bf16, C in
-    ``BIG_CHANNELS``)."""
+    version for CPU tensors, the row-11 kernels for CUDA tensors (bf16)."""
     return head_tail_big_front_stages(x, k_oc, k1)[1]
 
 
@@ -913,45 +1021,26 @@ def head_tail_big_front_stages(x: torch.Tensor, k_oc: torch.Tensor,
                                k1: torch.Tensor):
     """Row 11 stage by stage: (U, mid). For CPU tensors, the plain versions
     of the stages; for CUDA tensors, one launch of the chain (an NCHW x
-    transposed first, the upsample pass, conv1), whose scratch holds U."""
+    transposed first, the upsample pass, conv1), whose scratch holds U; C
+    as :func:`takes` "big" takes it, else ValueError. Where the chain runs
+    zero-padded, U and mid are views of its first C and C / 2 channels."""
+    c = x.shape[3]
     if not on_cuda(x, k_oc, k1):
+        check_takes(c, "big")
         u = big_upsample_plain(x)
         return u, big_conv1_plain(u, k_oc, k1)
-    b, h0, w0, c = x.shape
-    c2 = c // 2
-    if x.dtype != torch.bfloat16 or not big_takes(c):
-        raise ValueError(f"head_tail_big_front kernel takes bf16 input with "
-                         f"C in {BIG_CHANNELS}, got {x.dtype} C={c}")
-    for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
-                           ("output_conv1", k1, (c2, c, 3, 3))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head_tail_big_front {name} weight must be "
-                             f"{shape}, got {tuple(t.shape)}")
-    from vr_video_generator_tpu_torch.kernels.build import check, library
-
-    x, nchw, xt = _channels_last(x)
-    w1m = _prepared(conv1_weights, (k_oc, k1))
-    taps, tapw = _device_taps(w0, 2 * w0, x.device)
-    u = torch.empty((b, 2 * h0, 2 * w0, c), dtype=torch.bfloat16,
-                    device=x.device)
-    mid = torch.empty((b, 2 * h0, 2 * w0, c2), dtype=torch.bfloat16,
-                      device=x.device)
-    err = library().vrvg_head_tail_big_front(
-        x.data_ptr(), int(nchw), xt.data_ptr(), w1m.data_ptr(),
-        taps.data_ptr(), tapw.data_ptr(), u.data_ptr(), mid.data_ptr(), b, h0,
-        w0, c, stream_handle(x.device))
-    check(err, "vrvg_head_tail_big_front")
-    BIG_FRONT_LAUNCHES.count += 1
-    return u, mid
+    _check_big("head_tail_big_front", x, c,
+               (("out_conv", k_oc), ("output_conv1", k1)))
+    u, mid = _big_front(x, k_oc, k1)
+    return u[..., :c], mid[..., :c // 2]
 
 
 def head_tail_big_back(mid: torch.Tensor, k1: torch.Tensor,
                        b_oc: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
                        b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
                        out_hw: Tuple[int, int]) -> torch.Tensor:
-    """mid (B, HM, W2, C2) contiguous -> depth (B, H1, W1) f32: the plain
-    version for CPU tensors, the row-12 kernels for CUDA tensors (bf16, C2
-    in ``BIG_CHANNELS`` / 2)."""
+    """mid (B, HM, W2, C2) -> depth (B, H1, W1) f32: the plain version for
+    CPU tensors, the row-12 kernels for CUDA tensors (bf16)."""
     return head_tail_big_back_stages(mid, k1, b_oc, b1, k2, b2, k3, b3,
                                      out_hw)[1]
 
@@ -962,42 +1051,27 @@ def head_tail_big_back_stages(mid: torch.Tensor, k1: torch.Tensor,
                               k3: torch.Tensor, b3: torch.Tensor,
                               out_hw: Tuple[int, int]):
     """Row 12 stage by stage: (R, depth). For CPU tensors, the plain
-    versions of the stages; for CUDA tensors, one launch of the resize pass
-    and conv2, whose scratch holds R."""
+    versions of the stages; for CUDA tensors (bf16, contiguous), one launch
+    of the resize pass and conv2, whose scratch holds R. Where the chain
+    runs C2 zero-padded (:func:`chain_widths`) mid is first copied to that
+    width (head_tail_big hands the front's padded mid over instead) and R
+    is a view of its first C2 channels."""
     args = (k1, b_oc, b1, k2, b2, k3, b3)
+    c, c2 = k1.shape[1], mid.shape[3]
     if not on_cuda(mid, *args):
+        check_takes(c, "big")
         r = big_resize_plain(mid, k1, b_oc, b1, out_hw)
         return r, big_conv2_plain(r, k2, b2, k3, b3)
-    b, hm, w2, c2 = mid.shape
-    h1, w1 = out_hw
-    if (mid.dtype != torch.bfloat16 or not big_takes(2 * c2)
-            or not mid.is_contiguous()):
-        raise ValueError(f"head_tail_big_back kernel takes contiguous bf16 "
-                         f"input with C2 in {[c // 2 for c in BIG_CHANNELS]}, "
-                         f"got {mid.dtype} C2={c2} "
-                         f"contiguous={mid.is_contiguous()}")
-    for name, t, shape in (("output_conv1", k1, (c2, 2 * c2, 3, 3)),
-                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
-                           ("output_conv2.2", k3, (1, C3, 1, 1))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head_tail_big_back {name} weight must be "
-                             f"{shape}, got {tuple(t.shape)}")
-    from vr_video_generator_tpu_torch.kernels.build import check, library
-
-    cw = _prepared(big_tail_bias, (k1, b_oc, b1), w2, w1)
-    w2m = _prepared(conv2_weights, (k2,))
-    vecs = _prepared(_f32_vectors, (b2, k3, b3))
-    taps, tapw = _device_taps(w2, w1, mid.device)
-    r = torch.empty((b, h1, w1, c2), dtype=torch.bfloat16, device=mid.device)
-    out = torch.empty((b, h1, w1), dtype=torch.float32, device=mid.device)
-    err = library().vrvg_head_tail_big_back(
-        mid.data_ptr(), taps.data_ptr(), tapw.data_ptr(), cw.data_ptr(),
-        w2m.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-        vecs[2].data_ptr(), r.data_ptr(), out.data_ptr(), b, hm, w2, c2, h1,
-        w1, stream_handle(mid.device))
-    check(err, "vrvg_head_tail_big_back")
-    BIG_BACK_LAUNCHES.count += 1
-    return r, out
+    _check_big("head_tail_big_back", mid, 2 * c2, (
+        ("output_conv1", k1), ("output_conv2.0", k2), ("output_conv2.2", k3)))
+    c2p = chain_widths(c, torch.bfloat16)[1]
+    if c2p != c2:
+        mid = F.pad(mid, (0, c2p - c2))
+    if not mid.is_contiguous():
+        raise ValueError(f"head_tail_big_back kernel takes contiguous input, "
+                         f"got strides {mid.stride()}")
+    r, out = _big_back(mid, *args, out_hw)
+    return r[..., :c2], out
 
 
 def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
@@ -1005,14 +1079,11 @@ def head_tail_big(x: torch.Tensor, k_oc: torch.Tensor, b_oc: torch.Tensor,
                   b2: torch.Tensor, k3: torch.Tensor, b3: torch.Tensor,
                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """x (B, H0, W0, C) -> depth (B, H1, W1) f32 through the front and the
-    back (each its kernel on the card, its plain version on the CPU); an
-    f32 x on the card through the f32 chain (``vrvg_head_tail_big_f32``, C
-    in ``BIG_F32_CHANNELS``)."""
-    args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
-    if x.dtype == torch.float32 and on_cuda(x, *args):
-        return _big_f32_stages(x, args, out_hw)[-1]
-    mid = head_tail_big_front(x, k_oc, k1)
-    return head_tail_big_back(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+    back (their kernels on the card, their plain versions on the CPU); an
+    f32 x on the card through the f32 chain (``vrvg_head_tail_big_f32``); C
+    as :func:`takes` "big" takes it, else ValueError."""
+    return head_tail_big_stages(x, k_oc, b_oc, k1, b1, k2, b2, k3, b3,
+                                out_hw)[-1]
 
 
 def head_tail_big_stages(x: torch.Tensor, k_oc: torch.Tensor,
@@ -1023,14 +1094,24 @@ def head_tail_big_stages(x: torch.Tensor, k_oc: torch.Tensor,
     """Rows 11 and 12 stage by stage: (U, mid, R, depth), each (B, H, W, C)
     channels-last but the f32 depth (B, H1, W1). For CPU tensors, the plain
     versions of the stages; for CUDA tensors, the front's and the back's
-    launches (bf16), or one launch of the f32 chain (f32, C in
-    ``BIG_F32_CHANNELS``), whose scratch holds the intermediates."""
+    launches (bf16), or one launch of the f32 chain, whose scratch holds
+    the intermediates, zero-padded to :func:`chain_widths` (the stages are
+    views of their first C or C / 2 channels)."""
     args = (k_oc, b_oc, k1, b1, k2, b2, k3, b3)
-    if x.dtype == torch.float32 and on_cuda(x, *args):
+    c = x.shape[3]
+    if not on_cuda(x, *args):
+        check_takes(c, "big")
+        u, mid = head_tail_big_front_stages(x, k_oc, k1)
+        return (u, mid, *head_tail_big_back_stages(mid, k1, b_oc, b1, k2, b2,
+                                                   k3, b3, out_hw))
+    if x.dtype == torch.float32:
         return _big_f32_stages(x, args, out_hw)
-    u, mid = head_tail_big_front_stages(x, k_oc, k1)
-    return (u, mid, *head_tail_big_back_stages(mid, k1, b_oc, b1, k2, b2, k3,
-                                               b3, out_hw))
+    _check_big("head_tail_big", x, c, (
+        ("out_conv", k_oc), ("output_conv1", k1), ("output_conv2.0", k2),
+        ("output_conv2.2", k3)))
+    u, mid = _big_front(x, k_oc, k1)
+    r, out = _big_back(mid, k1, b_oc, b1, k2, b2, k3, b3, out_hw)
+    return u[..., :c], mid[..., :c // 2], r[..., :c // 2], out
 
 
 def _conv_split(k: torch.Tensor) -> torch.Tensor:
@@ -1043,52 +1124,50 @@ def _conv_split(k: torch.Tensor) -> torch.Tensor:
 
 def _big_f32_weights(k_oc, k1, k2, b2, k3, b3):
     """Rows 11 and 12's weights as vrvg_head_tail_big_f32 reads them: conv1
-    with out_conv's mix folded in f32 and conv2, each split for the 3xTF32
+    with out_conv's mix folded in f32 (over the head's own channels) and
+    conv2, zero-padded to :func:`chain_widths`, each split for the 3xTF32
     core (:func:`_conv_split`); the f32 vectors b2, the 1x1, b3. Kept by
     :func:`_prepared`, so a path splits them at its first (eager) step and
     never inside a CUDA graph capture."""
-    return (_conv_split(fold_conv1(k_oc, k1, torch.float32)),
-            _conv_split(k2), *_f32_vectors(b2, k3, b3))
+    cp, c2p = chain_widths(k1.shape[1], torch.float32)
+    return (_conv_split(pad_to(fold_conv1(k_oc, k1, torch.float32), c2p, cp)),
+            _conv_split(pad_to(k2, C3, c2p)), *_f32_vectors(b2, k3, b3))
 
 
 def _big_f32_stages(x: torch.Tensor, args, out_hw: Tuple[int, int]):
     """Rows 11 and 12 at f32 on the card: (U, mid, R, depth) from one launch
-    of vrvg_head_tail_big_f32."""
+    of vrvg_head_tail_big_f32, views of the first C or C / 2 channels of the
+    chain's zero-padded intermediates."""
     k_oc, b_oc, k1, b1, k2, b2, k3, b3 = args
     b, h0, w0, c = x.shape
     h1, w1 = out_hw
-    hm, w2, c2 = 2 * h0, 2 * w0, c // 2
-    if not takes_f32(c, "big"):
-        raise ValueError(f"head_tail_big f32 kernel takes C in "
-                         f"{BIG_F32_CHANNELS}, got C={c}")
-    for name, t, shape in (("out_conv", k_oc, (c, c, 1, 1)),
-                           ("output_conv1", k1, (c2, c, 3, 3)),
-                           ("output_conv2.0", k2, (C3, c2, 3, 3)),
-                           ("output_conv2.2", k3, (1, C3, 1, 1))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head_tail_big {name} weight must be {shape}, "
-                             f"got {tuple(t.shape)}")
+    hm, w2 = 2 * h0, 2 * w0
+    check_takes(c, "big")
+    _check_shapes("head_tail_big", c, (
+        ("out_conv", k_oc), ("output_conv1", k1), ("output_conv2.0", k2),
+        ("output_conv2.2", k3)))
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
+    cp, c2p = chain_widths(c, torch.float32)
     w1s, w2s, b2f, w3f, b3f = _prepared(_big_f32_weights,
                                         (k_oc, k1, k2, b2, k3, b3))
-    cw = _prepared(big_tail_bias, (k1, b_oc, b1), w2, w1)
-    x, nchw, xt = _channels_last(x)
+    cw = _prepared(_padded_bias, (k1, b_oc, b1), w2, w1, c2p)
+    x, layout, xt = _channels_last(x, cp)
     f32 = torch.float32
     taps_a, tapw_a = _device_taps(w0, w2, x.device, f32)
     taps_b, tapw_b = _device_taps(w2, w1, x.device, f32)
     new = functools.partial(torch.empty, dtype=f32, device=x.device)
-    u, mid, r = new((b, hm, w2, c)), new((b, hm, w2, c2)), new((b, h1, w1, c2))
-    out = new((b, h1, w1))
+    u, mid = new((b, hm, w2, cp)), new((b, hm, w2, c2p))
+    r, out = new((b, h1, w1, c2p)), new((b, h1, w1))
     check(library().vrvg_head_tail_big_f32(
-        x.data_ptr(), int(nchw), xt.data_ptr(), w1s.data_ptr(),
+        x.data_ptr(), layout, xt.data_ptr(), w1s.data_ptr(),
         taps_a.data_ptr(), tapw_a.data_ptr(), u.data_ptr(), mid.data_ptr(),
         taps_b.data_ptr(), tapw_b.data_ptr(), cw.data_ptr(), r.data_ptr(),
         w2s.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
-        out.data_ptr(), b, h0, w0, c, h1, w1, stream_handle(x.device)),
-        "vrvg_head_tail_big_f32")
+        out.data_ptr(), b, h0, w0, c, cp, c2p, h1, w1,
+        stream_handle(x.device)), "vrvg_head_tail_big_f32")
     BIG_F32_LAUNCHES.count += 1
-    return u, mid, r, out
+    return u[..., :c], mid[..., :c // 2], r[..., :c // 2], out
 
 
 def conv3x3_f32_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -1101,17 +1180,17 @@ def conv3x3_f32_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def conv3x3_f32(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """:func:`conv3x3_f32_plain` of f32 x: the plain version for CPU tensors,
     for CUDA tensors ``vrvg_conv3x3_f32``, a conv of rows 11 and 12 at f32
-    alone on the 3xTF32 core (C a multiple of 32, O in
-    ``CONV3X3_F32_OUT``), k split once (:func:`_prepared`)."""
+    alone on the 3xTF32 core (C and O multiples of 32), k split once
+    (:func:`_prepared`)."""
     if not on_cuda(x, k):
         return conv3x3_f32_plain(x, k)
     b, h, w, c = x.shape
     n = k.shape[0]
     if (x.dtype != torch.float32 or k.dtype != torch.float32 or c % 32
-            or n not in CONV3X3_F32_OUT or tuple(k.shape) != (n, c, 3, 3)):
-        raise ValueError(f"conv3x3_f32 takes f32 x (B, H, W, C), C a multiple "
-                         f"of 32, and an f32 (O, C, 3, 3) weight with O in "
-                         f"{CONV3X3_F32_OUT}, got {x.dtype} {tuple(x.shape)} "
+            or n % 32 or tuple(k.shape) != (n, c, 3, 3)):
+        raise ValueError(f"conv3x3_f32 takes f32 x (B, H, W, C) and an f32 "
+                         f"(O, C, 3, 3) weight, C and O multiples of 32, "
+                         f"got {x.dtype} {tuple(x.shape)} "
                          f"and {k.dtype} {tuple(k.shape)}")
     from vr_video_generator_tpu_torch.kernels.build import check, library
 

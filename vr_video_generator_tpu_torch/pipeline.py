@@ -34,13 +34,11 @@ import numpy as np
 import torch
 
 from vr_video_generator_tpu_torch.utils.config import RunConfig
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2, infer_depth)
 from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
 from vr_video_generator_tpu_torch.models.dpt import TAILS, resolve_tail
 from vr_video_generator_tpu_torch.models.factory import load_model
-from vr_video_generator_tpu_torch.ops.head_tail import takes_f32
 from vr_video_generator_tpu_torch.ops.preprocess import network_input_size
 from vr_video_generator_tpu_torch.ops.temporal import (TemporalState,
                                                         stride_audit_stats,
@@ -91,16 +89,15 @@ def check_supported(run_cfg: RunConfig) -> None:
 
 
 def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
-    """``compute_dtype`` float32 on the card: raise ``not_ported`` where the
-    plan the JAX package's planners make at f32 for this geometry needs a
-    DPT tail at a width no f32 tail kernel takes (ops/head_tail.takes_f32:
-    the ext tail C = 32 to 384, the big-C tail 64 to 384; a custom head of
-    16 features has neither), naming the rows. Every depth-net kernel has an
-    f32 variant, vitg's fused SwiGLU half (row 10) included, which covers
-    every plan of vits, vitb, vitl and vitg and of a 32-feature head. The
-    MLP half's fusion is resolved too, so a width its kernel does not take
-    raises here. It reads only the config, so it runs before any weight is
-    built."""
+    """``compute_dtype`` float32 on the card: resolve the plan the JAX
+    package's planners make at f32 for this geometry, so that a width no
+    kernel takes raises before any weight is built. Every depth-net kernel
+    has an f32 variant at every width the JAX kernels take (vitg's fused
+    SwiGLU half, row 10; the DPT tails, rows 7, 11 and 12, zero-padded at a
+    custom head's width), so what raises is what the JAX package refuses:
+    an MLP half fused at a width its kernel does not take, or a fused tail
+    whose JAX kernel asserts on the head's width (ValueError from
+    models/dpt.resolve_tail). It reads only the config."""
     cfg = run_cfg.model()
     p, d = cfg.patch_size, cfg.embed_dim
     hn, wn = network_input_size(height, width, target=run_cfg.input_size,
@@ -110,14 +107,8 @@ def check_f32_plan(run_cfg: RunConfig, height: int, width: int) -> None:
     resolve_block_fusion(cfg.mlp_fused, d, cfg.num_heads, ph * pw + 1, "cuda",
                          f32, cfg.ffn_layer)
     batch = max(run_cfg.batch_size // run_cfg.depth_stride, 1)
-    pre = (batch, 4 * ph, 4 * pw, cfg.features)
-    choice = resolve_tail(run_cfg.tail, pre, f32, (hn, wn), "cuda")
-    if choice and not takes_f32(cfg.features, choice):
-        rows = "row 7" if choice == "ext" else "rows 11 and 12"
-        not_ported(f"compute_dtype='float32' on the card: the {choice} DPT "
-                   f"tail at C={cfg.features} (tail={run_cfg.tail!r}, "
-                   f"refinenet1 grid {pre[1]}x{pre[2]}) needs {rows} at f32",
-                   "DPT tail kernels at other widths")
+    resolve_tail(run_cfg.tail, (batch, 4 * ph, 4 * pw, cfg.features), f32,
+                 (hn, wn), "cuda")
 
 
 class SbsPipeline:

@@ -237,7 +237,27 @@ Phases, each fatal on failure:
      and f32 (rows 11 + 12 at C = 96), 48 at 518 f32 (row 7 at C = 48),
      512 at 252 bf16 (rows 11 + 12 at C = 512), each with exactly its
      kernels a step, the depth against the plain path (f32: and against a
-     plain f64 forward).
+     plain f64 forward);
+ 14. the last widths: (a) row 16 at C = 16, 96 (zero-padded to
+     ``rcu_width``), 256 and 384 (unpadded), bf16 and f32, on refinenet1's
+     1080p/518 grid (RCU_WIDTHS): each conv call alone and the chain
+     against the plain version with phase 3's bf16 bounds and phase 8's f32
+     bound against f64 operands (TF32 refused), timed beside the plain
+     chain and cuDNN's four convs, the bound counted on the real C, the
+     padding's share and the wrapper's padding copies timed; each width's
+     wrapper, called as a user calls it, launching exactly its four convs;
+     (b) kernel 1 above head dim 256 (WIDE_ATTN: row 2 at 320, 384 and 512,
+     N = 2443, B = 8; row 17 at 384 and 512, N = 4785, B = 2; 2 heads),
+     bf16 and f32, with phase 12's bounds, timed beside the plain version
+     and SDPA, and row 17 at 320 past 4096 tokens refused before any launch
+     (the library flash kernel's NotImplementedError); (c) the custom
+     configurations hd384 (D = 768, 2 heads) and hd320 (D = 640, 2 heads),
+     4 blocks, 1080p, ``auto`` (WIDE_RUNS): hd384 at 518 bf16 and f32 (row 2
+     at head dim 384 in the fused attention half) and at 728 bf16 (B = 2,
+     row 17 at 384), hd320 at 518 bf16, each with exactly its kernels a
+     step and the depth against the plain path (f32: and against a plain
+     f64 forward); hd320 at 728 raising the library's NotImplementedError
+     before any launch of row 17.
 
 It prints the per-kernel JSON line before the last line (row 1 three times:
 at vits', vitl-728's and vitg-518's rows; row 2 twice: at vits' shapes and
@@ -262,7 +282,10 @@ head dims 32 and 128 (row 2, bf16), 32 (row 17, bf16 and f32) and 128 (row
 = 640 and row 10 at D = 1024, bf16, and rows 5, 6 and 8 at D = 512 at f32,
 with the launches of phase 12's paths; rows 7, 11 + 12 and 15 at each of
 phase 13's widths, the four paths' tails with those paths' launches, the
-other widths with their wrapper calls'), and
+other widths with their wrapper calls'; row 16 at phase 14's widths, bf16
+and f32, with their wrapper calls' launches, and kernel 1 at head dims
+320, 384 and 512, those phase 14's paths run with the paths' launches,
+the others with their one counted call), and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -1286,7 +1309,9 @@ def rcu_pair_stats(label, rn0, path2, ws):
 
 def check_rcu_pair(gen, c) -> dict:
     """Row 16 at ``c`` channels on refinenet1's 1080p/518 grid
-    (:func:`rcu_pair_stats`), times and bound; at vits' C=64 also the chain
+    (:func:`rcu_pair_stats`), times (beside the plain chain and cuDNN's four
+    channels-last convs on the same operands) and bound; at vits' C=64 also
+    the chain
     RCU pair -> ext tail against the plain chain (TAIL_MAX_REL,
     TAIL_MEAN_REL)."""
     from vr_video_generator_tpu_torch.attic.refinenet_pre import (
@@ -1299,7 +1324,8 @@ def check_rcu_pair(gen, c) -> dict:
     stats, got, want = rcu_pair_stats(f"rcu_pair C={c}", rn0, path2, ws)
     out = dict(**stats, ms=event_ms(lambda: refinenet_pre(rn0, path2, *ws)),
                plain_ms=event_ms(lambda: refinenet_pre_plain(rn0, path2, *ws)),
-               library_ms=None,
+               library_ms=cudnn_convs_ms(*((rn0, ws[2 * i], ws[2 * i + 1])
+                                           for i in range(4))),
                **bound(nbytes(rn0, path2, *ws, got),
                        4 * 2 * B * H0 * W0 * 9 * c * c))
     if c == FEATURES:
@@ -5384,6 +5410,16 @@ ATTN_ANY_TIMED = (32, 128)
 # (cuBLAS, TF32 off); TF32 5.3e-4-1.0e-3 max, 5.1e-4-6.2e-4 mean. The mean
 # bound is twice the largest mean error measured in f32.
 ATTN_ANY_F32_MAX_REL, ATTN_ANY_F32_MEAN_REL = 3.7e-6, 2.5e-6
+
+
+def attn_any_f32_max_rel(d: int) -> float:
+    """Kernel 1's f32 max bound at head dim ``d``: ATTN_ANY_F32_MAX_REL up
+    to 256; above, scaled by d / 256, as the rounding bound of an f32 dot
+    product grows with its length. At 512 (B = 8, N = 2443, 2 heads) the
+    plain f32 version itself (cuBLAS, TF32 off) was 3.73e-6 of max |o| off
+    f64 and kernel 1 3.84e-6 (NVIDIA H100 80GB HBM3, 700.00 W); TF32
+    6.1e-4, 80x the scaled bound."""
+    return ATTN_ANY_F32_MAX_REL * max(1.0, d / 256)
 # The five custom configurations, at full width (ModelConfig fields over
 # its defaults). w512: D = 512 with 8 heads of 64 (rows 5 and 6, row 8
 # resident at D = 512, row 2); hd128: vitb's width and head with 6 heads of
@@ -5392,7 +5428,11 @@ ATTN_ANY_F32_MAX_REL, ATTN_ANY_F32_MEAN_REL = 3.7e-6, 2.5e-6
 # at input 728 its flash variant); r325: D = 640, 10 heads, mlp_ratio 3.25
 # (hidden 2080, no multiple of 512: row 9, zero-padded to 2112); glu1024:
 # SwiGLU at D = 1024 with 16 heads (hidden 2736, padded to 2816 at bf16).
-# r325 and glu1024 are cut to 4 blocks.
+# r325 and glu1024 are cut to 4 blocks. Phase 14 adds two head dims above
+# 256, cut to 4 blocks: hd384, vitb's width with 2 heads of 384 (kernel 1
+# in the fused attention half at 518, its flash variant at 728), and
+# hd320, D = 640 with 2 heads of 320 (the fused half at 518; at 728 the
+# library flash kernel's rule refuses the head dim).
 WIDTH_PATHS = {
     "w512": dict(encoder="vitb", embed_dim=512, depth=12, num_heads=8,
                  mlp_ratio=4.0, features=64, out_channels=(64, 128, 256, 512),
@@ -5413,6 +5453,14 @@ WIDTH_PATHS = {
                     out_channels=(256, 512, 1024, 1024),
                     intermediate_layers=(0, 1, 2, 3),
                     ffn_layer="swiglufused"),
+    "hd384": dict(encoder="vitb", embed_dim=768, depth=4, num_heads=2,
+                  mlp_ratio=4.0, features=128,
+                  out_channels=(96, 192, 384, 768),
+                  intermediate_layers=(0, 1, 2, 3)),
+    "hd320": dict(encoder="vitb", embed_dim=640, depth=4, num_heads=2,
+                  mlp_ratio=4.0, features=64,
+                  out_channels=(80, 160, 320, 640),
+                  intermediate_layers=(0, 1, 2, 3)),
 }
 _TAIL = {"warp_composite": 1, "blur_select_sbs": 1}
 # The paths, 1080p, `auto`, each step's launches exactly: (label, config,
@@ -5518,10 +5566,11 @@ def check_attention_any(gen, flash: bool, d: int, heads: int, b: int, n: int,
     ``d`` on peaked q/k/v (attention_bench.peaked_qkv), k and v strided
     views into one qkv: one launch of its counter; bf16 against the plain
     version within rows 2 and 17's bounds (attention_stats); f32 against
-    the same function on f64 operands within ATTN_ANY_F32_* of |o|, the
-    TF32 result of the plain version refused (f32_rel_check), the plain f32
-    version's own error logged. With ``timed``: the kernel, the plain
-    version and one SDPA call timed, and the bound."""
+    the same function on f64 operands within attn_any_f32_max_rel(d) and
+    ATTN_ANY_F32_MEAN_REL of |o|, the TF32 result of the plain version
+    refused (f32_rel_check), the plain f32 version's own error logged. With
+    ``timed``: the kernel, the plain version and one SDPA call timed, and
+    the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -5553,14 +5602,16 @@ def check_attention_any(gen, flash: bool, d: int, heads: int, b: int, n: int,
             f"{label}: launches {before} -> {after}")
     if f32:
         want = attention_f64(q, k, v, s)
+        err = (plain(*args).double() - want).abs()
+        plain_err = dict(
+            plain_max_rel_err=(err.max() / want.abs().max()).item(),
+            plain_mean_rel_err=(err.mean() / want.abs().mean()).item())
+        log(f"{label}: the plain f32 version's error {json.dumps(plain_err)}")
         with tf32(True):
             tfw = plain(*args)
-        stats = f32_rel_check(label, got, want, tfw, ATTN_ANY_F32_MAX_REL,
+        stats = f32_rel_check(label, got, want, tfw, attn_any_f32_max_rel(d),
                               ATTN_ANY_F32_MEAN_REL)
-        err = (plain(*args).double() - want).abs()
-        stats.update(plain_max_rel_err=(err.max() / want.abs().max()).item(),
-                     plain_mean_rel_err=(err.mean()
-                                         / want.abs().mean()).item())
+        stats.update(plain_err)
         del tfw, err
     else:
         want = plain(*args)
@@ -6034,6 +6085,232 @@ def tails_path(device, rng) -> dict:
     return out
 
 
+# Phase 14: the last widths. Row 16 at C the encoders' heads give it only
+# off the CLI (16 and 96 zero-padded to rcu_width, vitl's 256 and vitg's 384
+# unpadded) on refinenet1's 1080p/518 grid; kernel 1 above head dim 256
+# (row 2 at N = 2443, B = 8; row 17 at N = 4785, B = 2, at the head dims
+# the library flash kernel takes there), 2 heads; and the custom
+# configurations hd384 and hd320 (WIDTH_PATHS, 4 blocks) through
+# SbsPipeline, as WIDTH_RUNS' rows.
+RCU_WIDTHS = (16, 96, 256, 384)
+WIDE_ATTN = ((320, False), (384, False), (512, False), (384, True),
+             (512, True))  # (head dim, row 17)
+WIDE_HEADS = 2
+WIDE_RUNS = (
+    ("hd384-518", "hd384", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 4, "attention_any": 4,
+      "proj_ls_residual": 4, "mlp_residual": 4, "head_tail_ext": 1,
+      **_TAIL}, 0),
+    ("hd384-518 f32", "hd384", 518, B, "float32",
+     {"layernorm_f32": 4, "ln_qkv_f32": 4, "attention_any_f32": 4,
+      "proj_ls_residual_f32": 4, "mlp_residual_hblocked_f32": 4,
+      "head_tail_big_f32": 1, **_TAIL}, 8 + 8 + 2),
+    ("hd384-728", "hd384", 728, B_L728, "bfloat16",
+     {"layernorm": 8, "flash_attention_any": 4, "mlp_residual": 4,
+      "head_tail_big_front": 1, "head_tail_big_back": 1, **_TAIL}, 0),
+    ("hd320-518", "hd320", 518, B, "bfloat16",
+     {"layernorm": 4, "ln_qkv": 4, "attention_any": 4,
+      "proj_ls_residual": 4, "mlp_residual": 4, "head_tail_ext": 1,
+      **_TAIL}, 0),
+)
+# hd320 at 728: row 17 past 4096 tokens at a head dim the library flash
+# kernel refuses; the step raises its NotImplementedError.
+WIDE_REFUSED = ("hd320-728", "hd320", 728, B_L728, "bfloat16")
+# Kernel 1's wide entries in the kernels line that a path carries: (counter,
+# key, path); the others carry their wrapper call's one launch.
+WIDE_ON_PATH = (("attention_any", "attention_any Dh=384", "hd384-518"),
+                ("attention_any", "attention_any Dh=320", "hd320-518"),
+                ("attention_any_f32", "attention_any_f32 Dh=384",
+                 "hd384-518 f32"),
+                ("flash_attention_any", "flash_attention_any Dh=384",
+                 "hd384-728"))
+
+
+def rcu_width_case(gen, dtype: str, c: int) -> dict:
+    """Row 16 at C = c, bf16 by check_rcu_pair (each conv alone by the dense
+    bounds, the chain against the f32 chain), f32 by f32_rcu_check (each
+    conv and the chain against f64 operands, TF32 refused), each timed
+    beside the plain chain and cuDNN's four convs, the bound counted on the
+    real C; with the zero padding's share of the products and elements at
+    Cp = rcu_width, and the time of the wrapper's two padding copies."""
+    import torch
+    import torch.nn.functional as F
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import rcu_width
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
+
+    f32 = dtype == "float32"
+    res = f32_rcu_check(gen, c) if f32 else check_rcu_pair(gen, c)
+    cp = rcu_width(c, getattr(torch, dtype))
+    x = randn(gen, (B, c, H0, W0), dtype=None if f32 else torch.bfloat16
+              ).permute(0, 2, 3, 1)
+    res.update(padded_width=cp, padded_share=dict(
+        products=1 - (c / cp) ** 2, elements=1 - c / cp),
+        pad_copies_ms=event_ms(lambda: (F.pad(x, (0, cp - c)),
+                                        F.pad(x, (0, cp - c))))
+        if cp != c else 0.0)
+    return res
+
+
+def rcu_entry_calls(device) -> dict:
+    """refinenet_pre at each RCU_WIDTHS width and dtype called as a user
+    calls it, on fresh inputs: the first call splits the f32 weights (4
+    tf32x3_split) and launches its four convs; then, with the launch counts
+    reset just before and read just after, exactly four launches of its
+    dtype's counter and nothing else. Returns {"<dtype> C=<c>": counts}."""
+    import torch
+
+    from vr_video_generator_tpu_torch.attic.refinenet_pre import \
+        refinenet_pre
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 141)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        f32 = dtype == "float32"
+        name = "rcu_pair_f32" if f32 else "rcu_pair"
+        for c in RCU_WIDTHS:
+            rn0, path2, ws = (f32_rcu_inputs if f32 else rcu_inputs)(gen, c)
+            reset_launch_counts()
+            refinenet_pre(rn0, path2, *ws)
+            torch.cuda.synchronize()
+            first = {k: v for k, v in launch_counts().items() if v}
+            need = {name: 4, **({"tf32x3_split": 4} if f32 else {})}
+            require(first == need, f"{name} C={c}: the first call launched "
+                    f"{first}, expected {need}")
+            reset_launch_counts()
+            got = refinenet_pre(rn0, path2, *ws)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            require(counts == {name: 4} and got.shape == rn0.shape
+                    and bool(torch.isfinite(got).all()),
+                    f"{name} C={c}: launched {counts}, expected {{{name!r}: "
+                    f"4}}, shape {tuple(got.shape)}")
+            out[f"{dtype} C={c}"] = counts
+            del rn0, path2, ws, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_attention(device) -> dict:
+    """Kernel 1 above head dim 256 (WIDE_ATTN), bf16 and f32, each by
+    check_attention_any (one launch of its counter; bf16 within rows 2 and
+    17's bounds of the plain version, f32 within attn_any_f32_max_rel(d)
+    and ATTN_ANY_F32_MEAN_REL of the f64 function, TF32 refused), timed beside the plain version and SDPA; and
+    row 17 at head dim 320 past 4096 tokens refused with the library
+    kernel's NotImplementedError before any launch."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import launch_counts
+    from vr_video_generator_tpu_torch.ops import attention as A
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 142)
+    for dtype in (torch.bfloat16, torch.float32):
+        suffix = "_f32" if dtype == torch.float32 else ""
+        for d, flash in WIDE_ATTN:
+            name = ("flash_attention_any" if flash else "attention_any") \
+                + suffix
+            b, n = (B_L728, N_L728) if flash else (B, N_TOK)
+            out[f"{name} Dh={d}"] = check_attention_any(
+                gen, flash, d, WIDE_HEADS, b, n, dtype, True)
+            torch.cuda.empty_cache()
+    q = randn(gen, (B_L728, N_L728, WIDE_HEADS, 320), dtype=torch.bfloat16)
+    before = launch_counts()
+    try:
+        A.flash_attention(q, q, q, 320 ** -0.5)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        refused = None
+    torch.cuda.synchronize()
+    require(refused is not None and "multiple of 128" in refused
+            and launch_counts() == before,
+            f"row 17 at head dim 320 past 4096 tokens: {refused!r}, launch "
+            f"counts {before} -> {launch_counts()}")
+    out["flash_attention_any Dh=320 refused"] = refused
+    return out
+
+
+def refused_run(device, frames, row) -> dict:
+    """WIDE_REFUSED: the configuration built as a user builds it, its step
+    raising the library flash kernel's NotImplementedError (row 17 past
+    4096 tokens at head dim 320) before any launch of row 17."""
+    import torch
+
+    from vr_video_generator_tpu_torch.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+
+    label, key, size, batch, dtype_name = row
+    mcfg = width_config(key)
+    cfg = run_config(mcfg.encoder, "auto", "auto", batch=batch,
+                     input_size=size, dtype=dtype_name)
+    model = build_model(mcfg, random_state_dict(mcfg, SEED),
+                        getattr(torch, dtype_name), device, tail=cfg.tail)
+    pipe = SbsPipeline(model, H, W, run_cfg=cfg)
+    reset_launch_counts()
+    try:
+        pipe.step(frames[:batch], pipe.initial_state())
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        refused = None
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    require(refused is not None and "multiple of 128" in refused
+            and not counts.get("flash_attention_any"),
+            f"{label}: the step gave {refused!r}, launches {counts}")
+    log(f"{label}: the step raised {refused!r} after launches {counts}")
+    del model, pipe
+    torch.cuda.empty_cache()
+    return dict(refused=refused, launches_before=counts)
+
+
+def last_widths_path(device, rng) -> dict:
+    """Phase 14: (a) row 16 at RCU_WIDTHS, bf16 and f32 (rcu_width_case),
+    each width's wrapper launching exactly its kernels (rcu_entry_calls);
+    (b) kernel 1 above head dim 256 (wide_attention); (c) the hd384 and
+    hd320 paths (WIDE_RUNS, width_run: exactly their kernels a step, the
+    depth against the plain path, at f32 against a plain f64 forward) and
+    hd320 at 728 refused (refused_run)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 140)
+    kernels = {}
+    for dtype in ("bfloat16", "float32"):
+        name = "rcu_pair_f32" if dtype == "float32" else "rcu_pair"
+        for c in RCU_WIDTHS:
+            t1 = time.perf_counter()
+            res = rcu_width_case(gen, dtype, c)
+            kernels[f"{name} C={c}"] = res
+            log(f"phase 14 (a) {name} C={c}: ms {res['ms']}, plain "
+                f"{res['plain_ms']}, library {res['library_ms']}, bound "
+                f"{res['bound_ms']} ({res['bound_by']}), padded to "
+                f"{res['padded_width']} ({json.dumps(res['padded_share'])}, "
+                f"copies {res['pad_copies_ms']} ms); "
+                f"{time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    out = dict(calls=rcu_entry_calls(device))
+    log(f"phase 14 (a) row 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels.update(wide_attention(device))
+    out["kernels"] = kernels
+    log(f"phase 14 (b) kernel 1 above 256: {time.perf_counter() - t0:.1f} s")
+    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    out["paths"] = {row[0]: width_run(device, frames, row,
+                                      f64_factor=F32_DEPTH_FACTOR)
+                    for row in WIDE_RUNS}
+    out["refused"] = refused_run(device, frames, WIDE_REFUSED)
+    log(f"phase 14 (c) paths: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def setup(verbose_build: bool = False):
     """The card, the numeric settings of every reference, and the built
     kernels; returns (device, the nvidia-smi card line)."""
@@ -6137,6 +6414,12 @@ def main() -> int:
     paths["phase 13"] = phase13
     log(f"phase 13 (the DPT tails at every width: rows 7, 11 + 12 and 15 "
         f"zero-padded, bf16 and f32, and four custom-head paths): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase14 = last_widths_path(device, rng)
+    paths["phase 14"] = phase14
+    log(f"phase 14 (the last widths: row 16 at C = 16-384, kernel 1 above "
+        f"head dim 256, the hd384 and hd320 paths): "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"slice: {json.dumps(dict(paths=paths, widths=widths, card=card))}")
 
@@ -6300,6 +6583,23 @@ def main() -> int:
                 for row, dtype, c, _ in TAIL_CASES
                 for name in TAIL_COUNTERS[(row, dtype)]
                 if (name, f"{name} C={c}") not in on_path]
+    # Phase 14: row 16 at each width with its wrapper call's launches;
+    # kernel 1 above head dim 256 with the launches of the path that runs
+    # it (WIDE_ON_PATH), the other head dims with their one counted call.
+    k14, p14 = phase14["kernels"], phase14["paths"]
+    entries += [(name, k14[f"{name} C={c}"],
+                 phase14["calls"][f"{dtype} C={c}"][name])
+                for dtype, name in (("bfloat16", "rcu_pair"),
+                                    ("float32", "rcu_pair_f32"))
+                for c in RCU_WIDTHS]
+    wide_on_path = {key for _, key, _ in WIDE_ON_PATH}
+    entries += [(name, k14[key], p14[label]["launches"][name])
+                for name, key, label in WIDE_ON_PATH]
+    entries += [(name, k14[f"{name} Dh={d}"], 1)
+                for suffix in ("", "_f32") for d, flash in WIDE_ATTN
+                for name in [("flash_attention_any" if flash
+                              else "attention_any") + suffix]
+                if f"{name} Dh={d}" not in wide_on_path]
     kernels = []
     for name, r, launches in entries:
         route, source, replaces = {**KERNELS, **TANH_KERNELS,

@@ -148,15 +148,23 @@ def test_cuda_tensor_launches_by_head_dim(fake_card, row, dtype, d):
 
 
 def test_head_dim_above_256_raises_not_ported(fake_card):
-    """Above 256 no kernel takes the head dim: not_ported names the ROADMAP
-    item, and nothing is launched."""
-    q, k, v = _views(272, torch.bfloat16, n=5, h=1)
-    for call in (lambda: attn_ops.attention(q, k, v),
-                 lambda: attn_ops.flash_attention(q, k, v, 0.1)):
+    """Above 256 row 2 launches csrc/attention_any.cu like any other head
+    dim. Row 17 takes what the library flash kernel takes: at 272 (> 128,
+    no multiple of 128) past 4096 tokens, where the library walks K in
+    blocks, it raises the library's NotImplementedError and launches
+    nothing (on CPU tensors too: tests/test_torch_attention_wide.py); with
+    one block (5 tokens, the library's single-step kernel) it launches."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _views(272, dtype, n=4097, h=1)
         with pytest.raises(NotImplementedError,
-                           match="attention kernels at head dims above 256"):
-            call()
+                           match="should be a multiple of 128 if larger"):
+            attn_ops.flash_attention(q, k, v, 0.1)
     assert fake_card.calls == []
+    q, k, v = _views(272, torch.bfloat16, n=5, h=1)
+    attn_ops.attention(q, k, v)
+    attn_ops.flash_attention(q, k, v, 0.1)
+    assert [(c[0], c[1][7], c[1][-2]) for c in fake_card.calls] == [
+        ("vrvg_attention_any", 272, 0), ("vrvg_attention_any", 272, 0)]
 
 
 def test_any_head_dim_needs_its_head_pair_contiguous(fake_card):

@@ -163,10 +163,20 @@ def test_refinenet_pre_matches_pallas_interpret(h0, w0, c, r, dtype):
 
 
 def test_refinenet_pre_widths():
-    """The kernel chain takes C in {64, 128} (vits, vitb); the TPU kernel's
-    row plan gives up at vitl's C = 256 on refinenet1's 1080p grid."""
-    assert [c for c in (32, 64, 128, 256) if rp.takes(c)] == [64, 128]
+    """The kernel chain takes every C, run at rcu_width's padded width (a
+    multiple of 64 at bf16, of 32 at f32), the published widths of vits,
+    vitb, vitl and vitg unpadded; the TPU kernel's row plan
+    (rcu_pick_block_rows, which only keeps the JAX package on XLA's convs)
+    gives up at vitl's C = 256 and vitg's 384 on refinenet1's 1080p grid,
+    though the kernel itself takes them (tests/test_torch_rcu_widths.py)."""
+    assert [rp.rcu_width(c, torch.bfloat16) for c in (8, 32, 64, 96, 128)] \
+        == [64, 64, 64, 128, 128]
+    assert [rp.rcu_width(c, torch.float32) for c in (8, 32, 64, 96, 128)] \
+        == [32, 32, 64, 96, 128]
+    for c in (64, 128, 256, 384):
+        assert rp.rcu_width(c, torch.bfloat16) == c
     assert rcu_pick_block_rows(256, 264, jnp.bfloat16) is None
+    assert rcu_pick_block_rows(384, 264, jnp.bfloat16) is None
     assert rcu_pick_block_rows(64, 264, jnp.bfloat16) is not None
 
 

@@ -27,8 +27,8 @@ as the product:
     head_tail_pallas at f32 in interpret mode and within chip_smoke.py's
     tail bounds of head_tail_plain (its TF32 depth refused);
 (e) no source or test names the retired SIMT core's headers;
-(f) head_tail at f32 at a width no f32 kernel takes raises not_ported
-    naming the roadmap item, before any launch.
+(f) head_tail at f32 at a width the JAX kernel asserts on raises
+    ValueError naming the JAX assert, before any launch.
 Needs g++ (C++20).
 """
 

@@ -750,12 +750,17 @@ def test_head_tail_base_reads_any_strides(cuda, c):
                                        (2, 20, 36, 128), (1, 148, 264, 128),
                                        (2, 7, 33, 64), (1, 61, 97, 64),
                                        (2, 7, 33, 128), (1, 61, 97, 128),
-                                       (8, 148, 264, 64)])
+                                       (8, 148, 264, 64), (2, 9, 37, 16),
+                                       (1, 20, 36, 96), (1, 12, 40, 192),
+                                       (1, 12, 40, 256), (1, 9, 37, 384)])
 def test_rcu_pair_kernel_matches_plain(cuda, b, h0, w0, c):
     """Each of the four conv calls alone against rcu_conv_plain (conv2a's
     ReLU copy bit for bit), and the chain by its error against f32
     (chip_smoke.py's check and bounds); odd grids against the core's 8-row
-    x 32-pixel tiles, and vits' 1080p grid at batch 8."""
+    x 32-pixel tiles, vits' 1080p grid at batch 8, and the widths other
+    than 64 and 128: zero-padded (16, 96, 192 to 64, 128, 256; the last
+    column tile half idle at 192) and unpadded at 256 and 384 (two and
+    three 128-wide column tiles)."""
     from chip_smoke import rcu_pair_stats
     from vr_video_generator_tpu_torch.attic.refinenet_pre import refinenet_pre
 
@@ -1781,11 +1786,12 @@ def test_head_tail_f32_kernel_matches_plain(cuda, c, b, h2, w2):
     assert torch.equal(ht.head_tail(x, *wts, out_hw), got[2])
 
 
-@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("c", [64, 128, 16, 96, 256, 384])
 def test_rcu_pair_f32_kernel_matches_plain(cuda, c):
     """Row 16 at f32 (vrvg_rcu_conv_f32, four calls on the 3xTF32 core) at
-    vits' and vitb's widths on a small grid with a ragged last tile (W =
-    37): within chip_smoke.py's f32 bound of the chain on f64 operands
+    vits', vitb's, vitl's and vitg's widths, C = 16 zero-padded to 32 and
+    96 on two 64-wide column tiles, on a small grid with a ragged last tile
+    (W = 37): within chip_smoke.py's f32 bound of the chain on f64 operands
     (f32_exact_check, the chain on TF32-rounded inputs and weights refused)
     and of the plain chain; four launches on the f32 counter, and the
     weights split at the first call only."""
@@ -1819,7 +1825,7 @@ def test_rcu_pair_f32_kernel_matches_plain(cuda, c):
 
 
 def test_rcu_f32_entry_point_refuses_other_kinds(cuda):
-    """vrvg_rcu_conv_f32's argument checks: C outside {64, 128}, an input
+    """vrvg_rcu_conv_f32's argument checks: C no multiple of 32, an input
     ReLU pass on a conv without ReLU, a ReLU with residuals or with a copy,
     no residual without ReLU: 1 (cudaErrorInvalidValue), nothing written,
     nothing launched."""
@@ -1829,7 +1835,7 @@ def test_rcu_f32_entry_point_refuses_other_kinds(cuda):
     out = torch.full_like(x, 5.0)
     p = x.data_ptr()
     for c, in_relu, relu, nres, out_relu in (
-            (96, None, 1, 0, None), (64, p, 0, 1, None), (64, None, 1, 1, None),
+            (80, None, 1, 0, None), (64, p, 0, 1, None), (64, None, 1, 1, None),
             (64, None, 1, 0, p), (128, None, 0, 0, None), (128, None, 0, 3,
                                                            None)):
         err = library().vrvg_rcu_conv_f32(p, in_relu, p, p, p, p,
@@ -2587,6 +2593,50 @@ def test_attention_any_matches_plain(cuda, flash, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d)
     n = 4200 if flash else 333
     check_attention_any(gen, flash, d, 2, 2, n, dtype, timed=False)
+
+
+# Above 256 (two and three 256-wide head-dim slices): row 2 at N = 333, row
+# 17 at N = 4200 at the head dims the library flash kernel takes there.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("flash,d", [(False, 257), (False, 320),
+                                     (False, 512), (True, 384), (True, 512)],
+                         ids=["row2-257", "row2-320", "row2-512",
+                              "row17-384", "row17-512"])
+def test_attention_any_wide_matches_plain(cuda, flash, d, dtype):
+    from chip_smoke import check_attention_any
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n = 4200 if flash else 333
+    check_attention_any(gen, flash, d, 2, 2, n, dtype, timed=False)
+
+
+def test_flash_any_refuses_the_library_head_dims(cuda):
+    """Row 17 at head dim 320: past 4096 tokens NotImplementedError before
+    any launch, from the wrapper, and cudaErrorInvalidValue from the entry
+    point; with one K block (N = 333) it runs."""
+    from chip_smoke import attention_stats
+    from vr_video_generator_tpu_torch.kernels.build import library
+    from vr_video_generator_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(320)
+    q = _randn(gen, (1, 4200, 1, 320))
+    before = launch_counts()
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        flash_attention(q, q, q, 0.05)
+    assert launch_counts() == before
+    o = torch.full_like(q, 3.0)
+    err = library().vrvg_attention_any(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 4200, 1,
+        320, q.stride(0), q.stride(1), q.stride(0), q.stride(1),
+        q.stride(0), q.stride(1), o.stride(0), o.stride(1), 0.05, 1, 0, None)
+    torch.cuda.synchronize()
+    assert err == 1 and bool((o == 3.0).all())
+    q = q[:, :333]
+    attention_stats("flash_attention_any Dh=320 N=333",
+                    flash_attention(q, q, q, 0.05),
+                    flash_attention_plain(q, q, q, 0.05))
 
 
 def test_attention_head_dim_64_keeps_its_kernels(cuda):

@@ -380,8 +380,22 @@ def test_attention_any_source_walks_flash_blocks(small_blocks, dtype,
 
 
 def test_attention_any_source_refuses_head_dim_257(lib):
-    q = torch.zeros((1, 3, 1, 257))
-    err = lib.vrvg_attention_any(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 3, 1, 257,
-        771, 257, 771, 257, 771, 257, 771, 257, 1.0, 0, 1, None)
-    assert err != 0
+    """The entry point refuses what no kernel computes: head dim 0 on both
+    rows, and row 17 past 4096 tokens at head dims the library flash kernel
+    refuses there (257, 320: above 128 and no multiple of 128), writing
+    nothing; row 2 takes 257 (two 256-wide slices), and row 17 with one K
+    block takes 320, as the library's single-step kernel does."""
+    q = torch.zeros((1, 3, 1, 320))
+    o = torch.full_like(q, 7.0)
+
+    def call(d, flash, n=3):
+        return lib.vrvg_attention_any(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, n, 1,
+            d, 3 * d, d, 3 * d, d, 3 * d, d, 3 * d, d, 1.0, int(flash), 1,
+            None)
+
+    for d, flash, n in ((0, False, 3), (0, True, 3), (257, True, 4097),
+                        (320, True, 4097)):
+        assert call(d, flash, n) != 0
+    assert bool((o == 7.0).all())
+    assert call(257, False) == 0 and call(320, True) == 0

@@ -11,16 +11,7 @@ under ``csrc/`` (CUDA C++).
 
 from __future__ import annotations
 
-from typing import NoReturn
-
 from vr_video_generator_tpu_torch.utils.config import RunConfig, StereoConfig
 from vr_video_generator_tpu_torch.version import __version__
 
-__all__ = ["RunConfig", "StereoConfig", "__version__", "not_ported"]
-
-
-def not_ported(what: str, roadmap_item: str) -> NoReturn:
-    """Raise for an option or entry point the port does not have yet."""
-    raise NotImplementedError(
-        f"{what} is not ported to vr_video_generator_tpu_torch yet "
-        f"(ROADMAP.md, modules still to port: {roadmap_item})")
+__all__ = ["RunConfig", "StereoConfig", "__version__"]

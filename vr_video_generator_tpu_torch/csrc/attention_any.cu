@@ -1,6 +1,6 @@
-// Softmax attention of the ViT blocks at any head dim from 1 to 256 but 64,
-// bf16 or f32, for Hopper (sm_90a): rows 2 and 17 at the head dims of a
-// custom ModelConfig (csrc/attention.cu and csrc/attention_f32.cu take 64).
+// Softmax attention of the ViT blocks at any head dim but 64, bf16 or f32,
+// for Hopper (sm_90a): rows 2 and 17 at the head dims of a custom
+// ModelConfig (csrc/attention.cu and csrc/attention_f32.cu take 64).
 //
 // attention_any_kernel<T, DP, false> replaces vr_video_generator_tpu/ops/
 // attention_pallas.py `oneshot_mha_heads` (kernel body `_kernel`, up to 4096
@@ -12,12 +12,15 @@
 //
 // attention_any_kernel<T, DP, true> replaces the JAX library flash kernel
 // that vr_video_generator_tpu/ops/attention.py `_flash_mha` calls past 4096
-// tokens (jax.experimental.pallas.ops.tpu.flash_attention), at any head
-// dim: q unscaled, the f32 logits multiplied by sm_scale in f32, and the
-// library's blocks and rounding points (ops/attention.flash_attention_plain):
-// K in 512-key blocks past 4096 keys (one block below), each block's
-// probabilities taken against the running maximum after it and cast to the
-// input dtype, and the output kept normalised, O = O (l_corr / l) + PV / l.
+// tokens (jax.experimental.pallas.ops.tpu.flash_attention), at the head
+// dims it takes (any with one K block; with several, up to 128 and
+// multiples of 128 above, its MIN_BLOCK_SIZE: another raises
+// NotImplementedError there and is refused here): q unscaled, the f32
+// logits multiplied by sm_scale in f32, and the library's blocks and
+// rounding points (ops/attention.flash_attention_plain): K in 512-key
+// blocks past 4096 keys (one block below), each block's probabilities taken
+// against the running maximum after it and cast to the input dtype, and the
+// output kept normalised, O = O (l_corr / l) + PV / l.
 // The two differ only in the order of f32 sums.
 //
 // At f32 every product is an f32 FFMA: no TF32 and no tensor core, so the
@@ -32,13 +35,26 @@
 // peak, 1.1 ms at the 67 TFLOP/s of f32 FFMA). This kernel runs on FFMA and
 // computes S = Q K^T twice, so it does 1.5x those FLOPs on units with a
 // fifteenth of the tensor cores' rate: a simple kernel that is right, to be
-// moved onto the tensor cores later (ROADMAP.md).
+// moved onto the tensor cores later (ROADMAP.md). Above 256, with s =
+// ceil(Dh / 256) slices, each of the s column-slice blocks computes S twice
+// over the padded 256 s head dims and its own slice of P V: 4 N^2 256 s^2
+// + 2 N^2 256 s FLOPs a (batch, head) against 4 N^2 Dh, 3.3x at Dh = 384,
+// 2.5x at 512, 4x at 320.
 //
 // Design. One block of 256 threads per (64-row q tile, head, batch). The
 // head dim is zero-padded to DP (16, 32, 64, 128 or 256) in shared memory:
 // the zeros add nothing to any dot product. Q (transposed, DP x 64) stays in
-// shared memory. Two passes over the 64-key tiles of K of each softmax
-// block (all keys, or row 17's 512-key blocks):
+// shared memory. Above 256 the head dim runs in DP = 256 slices (the
+// shared memory of a wider tile, ~280 KiB at 512, does not fit the SM's
+// 227 KiB): S = sum_s Q_s K_s^T, each slice of Q and of the K tile staged
+// through the same two buffers in turn, the sums one chain over the head
+// dim in the unsliced order (at bf16 its mean difference to the plain
+// version was a 33rd of that of summing each slice apart and adding the
+// slices, and at f32 neither order came nearer f64); and a grid axis over
+// O's 256-wide column slices, each block recomputing S, m and l with the
+// same sums in the same order, so the slices' statistics agree bit for bit.
+// Two passes over the 64-key tiles of K of each softmax block (all keys, or
+// row 17's 512-key blocks):
 //   1. S = Q K^T, the row maximum m;
 //   2. S again (the same sums in the same order), p = exp(s - m), l += p,
 //      p rounded to T into shared memory, then the tile of V over the same
@@ -122,16 +138,11 @@ __device__ __forceinline__ void load_t(float* dst, const T* src, long long sn,
   }
 }
 
-// S[i][j] = sum_c Q[4 ty + i][c] K[4 tx + j][c] (times scale if SCALED), the
-// same sums in the same order at every call.
-template <int DP, bool SCALED>
-__device__ __forceinline__ void logits(float (&s)[4][4], const float* qs,
-                                       const float* ks, int ty, int tx,
-                                       float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+// S[i][j] += sum_c Q[4 ty + i][c] K[4 tx + j][c] over one DP-wide slice,
+// in the order of c.
+template <int DP>
+__device__ __forceinline__ void accumulate(float (&s)[4][4], const float* qs,
+                                           const float* ks, int ty, int tx) {
 #pragma unroll 8
   for (int c = 0; c < DP; ++c) {
     const float4 a = *reinterpret_cast<const float4*>(qs + c * LD + 4 * ty);
@@ -142,6 +153,34 @@ __device__ __forceinline__ void logits(float (&s)[4][4], const float* qs,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// S of key tile t: S[i][j] = sum_c Q[4 ty + i][c] K[t BN + 4 tx + j][c]
+// (times scale if SCALED), one chain of sums over the head dim in the
+// order of c, the same at every call. With one slice Q is resident in qs;
+// with several, each slice of Q and of the tile of K (keys < k1) is staged
+// into qs and ks in turn. Starts with a barrier: the previous reads of both
+// buffers are done.
+template <typename T, int DP, bool SCALED>
+__device__ __forceinline__ void tile_logits(float (&s)[4][4], float* qs,
+                                            float* ks, const T* qb,
+                                            const T* kb, long long q_sn,
+                                            long long k_sn, int m0, int n,
+                                            int t, int k1, int d, int slices,
+                                            int ty, int tx, int tid,
+                                            float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  for (int sl = 0; sl < slices; ++sl) {
+    __syncthreads();
+    if (slices > 1) load_t<T, DP>(qs, qb + sl * DP, q_sn, m0, n, d - sl * DP,
+                                  tid);
+    load_t<T, DP>(ks, kb + sl * DP, k_sn, t * BN, k1, d - sl * DP, tid);
+    __syncthreads();
+    accumulate<DP>(s, qs, ks, ty, tx);
   }
   if (SCALED) {
 #pragma unroll
@@ -176,7 +215,7 @@ __device__ __forceinline__ void reduce_rows(float (&v)[4], float* red,
 template <typename T, int DP, bool SCALED>
 __global__ void __launch_bounds__(THREADS)
     attention_any_kernel(const T* q, const T* k, const T* v, T* o, int n,
-                         int d, long long q_sb, long long q_sn,
+                         int d, int slices, long long q_sb, long long q_sn,
                          long long k_sb, long long k_sn, long long v_sb,
                          long long v_sn, long long o_sb, long long o_sn,
                          float scale) {
@@ -190,14 +229,16 @@ __global__ void __launch_bounds__(THREADS)
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.x * BM;
+  // The q tile, and the slice of O's columns [os DP, os DP + dv) it writes.
+  const int m0 = blockIdx.x / slices * BM, os = blockIdx.x % slices;
+  const int dv = min(DP, d - os * DP);
   const long long hoff = (long long)blockIdx.y * d;
   const int b = blockIdx.z;
   const T* qb = q + b * q_sb + hoff;
   const T* kb = k + b * k_sb + hoff;
-  const T* vb = v + b * v_sb + hoff;
+  const T* vb = v + b * v_sb + hoff + os * DP;
 
-  load_t<T, DP>(qs, qb, q_sn, m0, n, d, tid);
+  if (slices == 1) load_t<T, DP>(qs, qb, q_sn, m0, n, d, tid);
 
   // Keys in softmax blocks: all of them for row 2 and for row 17 up to 4096
   // keys; past that, row 17 walks 512-key blocks as the library kernel does
@@ -218,10 +259,8 @@ __global__ void __launch_bounds__(THREADS)
     // Pass 1: the block's row maximum, then the running one.
     float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
     for (int t = k0 / BN; t * BN < k1; ++t) {
-      __syncthreads();  // the previous tile's reads are done
-      load_t<T, DP>(kv, kb, k_sn, t * BN, k1, d, tid);
-      __syncthreads();
-      logits<DP, SCALED>(s, qs, kv, ty, tx, scale);
+      tile_logits<T, DP, SCALED>(s, qs, kv, qb, kb, q_sn, k_sn, m0, n, t, k1,
+                                 d, slices, ty, tx, tid, scale);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (t * BN + 4 * tx + j >= k1) continue;
@@ -243,10 +282,9 @@ __global__ void __launch_bounds__(THREADS)
     }
     float l[4] = {0.f, 0.f, 0.f, 0.f};
     for (int t = k0 / BN; t * BN < k1; ++t) {
-      __syncthreads();  // the previous tile's V and P reads are done
-      load_t<T, DP>(kv, kb, k_sn, t * BN, k1, d, tid);
-      __syncthreads();
-      logits<DP, SCALED>(s, qs, kv, ty, tx, scale);
+      // (its first barrier: the previous tile's V and P reads are done)
+      tile_logits<T, DP, SCALED>(s, qs, kv, qb, kb, q_sn, k_sn, m0, n, t, k1,
+                                 d, slices, ty, tx, tid, scale);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool valid = t * BN + 4 * tx + j < k1;
@@ -264,7 +302,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = tid; e < BN * DP; e += THREADS) {
         const int r = e / DP, c = e % DP;
         float x = 0.f;
-        if (t * BN + r < k1 && c < d) {
+        if (t * BN + r < k1 && c < dv) {
           x = load(vb + (long long)(t * BN + r) * v_sn + c);
         }
         kv[e] = x;
@@ -314,11 +352,11 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + 4 * ty + i;
     if (row >= n) continue;
-    T* out = o + b * o_sb + (long long)row * o_sn + hoff;
+    T* out = o + b * o_sb + (long long)row * o_sn + hoff + os * DP;
 #pragma unroll
     for (int jj = 0; jj < CPT; ++jj) {
       const int c = tx + 16 * jj;
-      if (c < d) {
+      if (c < dv) {
         store(out + c, SCALED ? acc[i][jj] : __fdiv_rn(acc[i][jj], l_run[i]));
       }
     }
@@ -327,7 +365,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int DP, bool SCALED>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n, int heads, int d, long long q_sb, long long q_sn,
+           int n, int heads, int d, int slices, long long q_sb,
+           long long q_sn,
            long long k_sb, long long k_sn, long long v_sb, long long v_sn,
            long long o_sb, long long o_sn, float scale, void* stream) {
   const size_t bytes = sizeof(float) * smem_floats(DP);
@@ -335,11 +374,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       attention_any_kernel<T, DP, SCALED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + BM - 1) / BM, heads, batch);
+  dim3 grid((n + BM - 1) / BM * slices, heads, batch);
   attention_any_kernel<T, DP, SCALED>
       <<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, n, d, q_sb, q_sn,
-          k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale);
+          (const T*)q, (const T*)k, (const T*)v, (T*)o, n, d, slices, q_sb,
+          q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale);
   return (int)cudaGetLastError();
 }
 
@@ -348,24 +387,26 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
              int n, int heads, int d, long long q_sb, long long q_sn,
              long long k_sb, long long k_sn, long long v_sb, long long v_sn,
              long long o_sb, long long o_sn, float scale, void* stream) {
-#define VRVG_ANY(DP)                                                       \
-  return launch<T, DP, SCALED>(q, k, v, o, batch, n, heads, d, q_sb, q_sn, \
-                               k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale,  \
-                               stream)
-  if (d <= 16) VRVG_ANY(16);
-  if (d <= 32) VRVG_ANY(32);
-  if (d <= 64) VRVG_ANY(64);
-  if (d <= 128) VRVG_ANY(128);
-  VRVG_ANY(256);
+#define VRVG_ANY(DP, SLICES)                                                 \
+  return launch<T, DP, SCALED>(q, k, v, o, batch, n, heads, d, SLICES, q_sb, \
+                               q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn,     \
+                               scale, stream)
+  if (d <= 16) VRVG_ANY(16, 1);
+  if (d <= 32) VRVG_ANY(32, 1);
+  if (d <= 64) VRVG_ANY(64, 1);
+  if (d <= 128) VRVG_ANY(128, 1);
+  VRVG_ANY(256, (d + 255) / 256);
 #undef VRVG_ANY
 }
 
 }  // namespace
 
 // q/k/v/o: (B, N, H, Dh) with the (H, Dh) pair contiguous, bf16 (f32 == 0)
-// or f32; the batch and token strides in elements; 1 <= Dh <= 256. scaled
-// == 0: row 2, q pre-scaled, `scale` ignored; scaled != 0: row 17, the f32
-// logits times `scale`. Returns cudaGetLastError().
+// or f32; the batch and token strides in elements; Dh >= 1. scaled == 0:
+// row 2, q pre-scaled, `scale` ignored; scaled != 0: row 17, the f32 logits
+// times `scale`, past FLASH_ONE_BLOCK tokens Dh <= 128 or a multiple of 128
+// (the library kernel's rule). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim it refuses.
 extern "C" int vrvg_attention_any(const void* q, const void* k, const void* v,
                                   void* o, int batch, int n, int heads, int d,
                                   long long q_sb, long long q_sn,
@@ -374,7 +415,10 @@ extern "C" int vrvg_attention_any(const void* q, const void* k, const void* v,
                                   long long o_sb, long long o_sn, float scale,
                                   int scaled, int f32, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
-  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
+  if (d < 1 ||
+      (scaled && n > FLASH_ONE_BLOCK && d > 128 && d % 128 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
 #define VRVG_ARGS                                                         \
   q, k, v, o, batch, n, heads, d, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, \
       o_sn, scale, stream

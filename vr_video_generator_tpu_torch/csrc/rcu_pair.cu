@@ -30,10 +30,15 @@
 // (csrc/wgmma_gemm.cuh, conv3x3 with Conv3x3Layout): K = 9 C in slices of
 // 64 channels of one tap, A one 4-D TMA box of the image a stage (TMA's zero
 // fill is the padding), B the weights as (C, 9 C); tiles of image rows x 32
-// pixels by all C output channels: 256 x 64 (8 rows, m64n64k16 products) at
-// C = 64, 128 x 128 (4 rows) at C = 128. The consumers take the f32 sums
+// pixels by output channels: 256 x 64 (8 rows, m64n64k16 products) at
+// C = 64, 128 x 128 (4 rows) above, C / 128 column tiles (rounded up: at
+// C = 192 or 320 the last is half idle, its columns past C neither stored
+// nor finished). C is any multiple of 64: the wrapper zero-pads another
+// width (attic/refinenet_pre.rcu_width), whose padded channels stay exact
+// zeros. The consumers take the f32 sums
 // through the core's f32 step (RcuSums): + the f32 bias, the ReLU, the bf16
-// residuals read at the tile's pixels, then the one cast. A TMA load cannot
+// residuals read at the tile's pixels and columns, then the one cast. A TMA
+// load cannot
 // take a ReLU on the way, and ReLU of a bf16 value is exact, so the input
 // ReLUs are made beforehand: relu(rn0) by a pass over rn0 (relu_kernel)
 // before conv1a, and relu(t) by conv2a's epilogue warps, which write it
@@ -42,6 +47,8 @@
 // grid conv2a (two residuals) took 0.136 ms against conv1a's 0.074, and at
 // C = 128 the 256 x 128 tile's 128 accumulators left the step's loads too
 // few registers (the chain took 1.49 ms so, 1.09 on 128 x 128 tiles).
+// Above C = 128 each column tile reads its own C / 128-th of the residuals,
+// and every column tile re-reads the tile's image boxes (from L2).
 
 #include "wgmma_gemm.cuh"
 
@@ -186,14 +193,14 @@ int run(const void* in, const void* wt, const void* bias, const void* res0,
 // f32; `nres` residuals (B, H0, W0, C) bf16 -> out (B, H0, W0, C) bf16, and
 // relu(out) into `out_relu` unless it is null. The chain's three kinds:
 // relu = 1 with no residual (conv1a, conv1b), relu = 0 with two (conv2a:
-// rn0, path2, and relu(t)) or one (conv2b: t). C in {64, 128}. Returns a
-// CUDA error code.
+// rn0, path2, and relu(t)) or one (conv2b: t). C a positive multiple of 64.
+// Returns a CUDA error code.
 extern "C" int vrvg_rcu_conv(const void* in, void* in_relu, const void* wt,
                              const void* bias, const void* res0,
                              const void* res1, void* out, void* out_relu,
                              int batch, int h, int w, int c, int relu,
                              int nres, void* stream) {
-  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || c % 64 != 0) return (int)cudaErrorInvalidValue;
   if (in_relu != nullptr && !relu) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
   if (in_relu != nullptr) {

@@ -20,7 +20,8 @@
 // (csrc/tf32x3_gemm.cuh conv_kernel: tiles of 4 image rows x 32 pixels, one
 // TMA halo box of the NHWC image a 32-channel slice, split once into TF32
 // hi/lo planes in shared memory and read at each tap's shifted rows; K = 9
-// C; 64-wide column tiles, one at C = 64 and two at C = 128), its weights
+// C; 64-wide column tiles, C / 64 of them rounded up: one at C = 64, two
+// at C = 96 (the second half idle) and 128, six at vitg's 384), its weights
 // given as their TF32 split (ops/head_tail._conv_split, made once a weight
 // by the wrapper), its epilogue RcuEpi adding the bias, the ReLU and the
 // residuals to each pair of f32 sums (vrvg::rcu_out_f32,
@@ -78,20 +79,22 @@ int conv(const void* in, const void* ws, const void* bias, const void* res0,
 // non-null `in_relu` (B, H0, W0, C) scratch, relu(in) is written there
 // first and the conv reads it, with relu and a null one `in` is relu'd
 // already; its weights (C, 9 C) f32 (k = (3 dh + dw) C + c) given as their
-// TF32 split `ws` (vrvg_tf32x3_split: (2, 128, 9 C) 32-bit words) and its
-// bias (C,) f32; `nres` residuals (B, H0, W0, C) f32 -> out (B, H0, W0, C)
-// f32, and relu(out) into `out_relu` unless it is null. The chain's three
-// kinds: relu = 1 with no residual and no out_relu (conv1a, conv1b), relu =
-// 0 with two (conv2a: rn0, path2) or one (conv2b: t). C in {64, 128}; every
-// pointer 16-byte aligned. Returns a CUDA error code (a tensor map that
-// does not encode: cudaErrorInvalidValue).
+// TF32 split `ws` (vrvg_tf32x3_split: (2, 128 ceil(C / 128), 9 C) 32-bit
+// words) and its bias (C,) f32; `nres` residuals (B, H0, W0, C) f32 -> out
+// (B, H0, W0, C) f32, and relu(out) into `out_relu` unless it is null. The
+// chain's three kinds: relu = 1 with no residual and no out_relu (conv1a,
+// conv1b), relu = 0 with two (conv2a: rn0, path2) or one (conv2b: t). C a
+// positive multiple of 32 (the wrapper zero-pads another width,
+// attic/refinenet_pre.rcu_width); every pointer 16-byte aligned. Returns a
+// CUDA error code (a tensor map that does not encode:
+// cudaErrorInvalidValue).
 extern "C" int vrvg_rcu_conv_f32(const void* in, void* in_relu,
                                  const void* ws, const void* bias,
                                  const void* res0, const void* res1,
                                  void* out, void* out_relu, int batch, int h,
                                  int w, int c, int relu, int nres,
                                  void* stream) {
-  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || c % 32 != 0) return (int)cudaErrorInvalidValue;
   if (in_relu != nullptr && !relu) return (int)cudaErrorInvalidValue;
   const bool ok = relu ? nres == 0 && out_relu == nullptr
                        : nres == 1 || nres == 2;

@@ -62,8 +62,9 @@
 //     blocks in flight share that panel and A's row bands. (w12's hi and
 //     lo take 100 MB, twice the 50 MB L2, so a band-by-band order would
 //     read all of B from device memory once per band.) A conv's panel (at
-//     most 192 x 3456 x 8 bytes) fits whole, so its tiles run along W,
-//     then H, then the frames, and the blocks in flight share image rows.
+//     most 384 x 3456 x 8 bytes, 10.6 MB) fits whole, so its tiles run
+//     along W, then H, then the frames, and the blocks in flight share
+//     image rows.
 // Registers: a thread holds BN / 2 accumulators, BN / 2 running sums and
 // the A fragment's 16 hi and 16 lo values: 193-228 registers at BN = 128
 // (gemm_kernel, of the 255 that 256 threads leave; 228 with half-stage
@@ -495,7 +496,7 @@ __global__ void __launch_bounds__(CONV_THREADS, 1)
       (uint32_t)((tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                  (int)gridDim.x) * k_tiles;
   const uint32_t halos = stages / 9;
-  // The B panel (at most 192 x 3456 x 8 bytes) fits in L2 whole: tiles
+  // The B panel (at most 384 x 3456 x 8 bytes) fits in L2 whole: tiles
   // run a row tile's column tiles, then the next row tile's.
   auto origin = [&](uint32_t q, int& tm, int& n0) {
     tile_origin<BN>(blockIdx.x + (int)(q / k_tiles) * gridDim.x, tiles_m,

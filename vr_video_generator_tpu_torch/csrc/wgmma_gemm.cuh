@@ -11,7 +11,7 @@
 // the convolutions of rows 7 and 11 (C2 = 64 or 128, and 192 output
 // channels) and row 7's out_conv mix; 128 x 192 and 128 x 128 for row 8's
 // fc2 at D = 384 and 128; 256 x 64 and 128 x 128 for row 16's convs (C =
-// 64 and 128).
+// 64, and C / 128 column tiles at any wider multiple of 64).
 //   - Warp 0, the producer: one thread issues TMA loads (128-byte swizzle,
 //     64-element K slices: a BM x 64 A tile and a BN x 64 B tile a stage)
 //     into a ring of STAGES buffers behind full/empty mbarrier pairs,

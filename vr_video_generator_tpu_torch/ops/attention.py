@@ -26,11 +26,16 @@ accumulator), an f32 softmax, nothing cast: 96-109 TFLOP/s on an H100
 (PERF.md), a third of one f32 ``scaled_dot_product_attention`` call's time.
 
 Those kernels take head dim 64, that of every published encoder. At any
-other head dim from 1 to 256 (a custom ``ModelConfig``: 12 heads at D = 384,
-6 at D = 768), both rows, bf16 and f32, launch ``csrc/attention_any.cu``
-(counted as ``attention_any``, ``flash_attention_any`` and their ``_f32``
-twins): the same arithmetic contracts on f32 FFMA, the head dim zero-padded
-in shared memory; above 256 the wrappers raise ``not_ported``.
+other head dim (a custom ``ModelConfig``: 12 heads at D = 384, 6 at D =
+768, 2 at D = 768), both rows, bf16 and f32, launch
+``csrc/attention_any.cu`` (counted as ``attention_any``,
+``flash_attention_any`` and their ``_f32`` twins): the same arithmetic
+contracts on f32 FFMA, the head dim zero-padded in shared memory, and
+above 256 walked in 256-wide slices. Row 17 takes the head dims the library
+flash kernel takes (:func:`flash_takes`): past 4096 tokens, where it walks
+K in blocks, up to 128 and multiples of 128 above; at another it raises
+NotImplementedError, as the library kernel does, on the CPU as on the card.
+Row 2 takes every head dim, as ``oneshot_mha`` does.
 """
 
 from __future__ import annotations
@@ -38,19 +43,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vr_video_generator_tpu_torch import not_ported
 from vr_video_generator_tpu_torch.kernels import counter, on_cuda, stream_handle
 
 # The launch counter of row 2 ("attention") or 17 ("flash_attention") by
 # (row, f32, head dim other than 64): csrc/attention.cu, its f32 variant
-# (_f32), and csrc/attention_any.cu at every other head dim up to 256
-# (_any, _any_f32).
+# (_f32), and csrc/attention_any.cu at every other head dim (_any,
+# _any_f32).
 LAUNCHES = {(row, f32, any_dim): counter(row + ("_any" if any_dim else "")
                                          + ("_f32" if f32 else ""))
             for row in ("attention", "flash_attention")
             for f32 in (False, True) for any_dim in (False, True)}
 HEAD_DIM = 64          # csrc/attention.cu and csrc/attention_f32.cu
-MAX_HEAD_DIM = 256     # csrc/attention_any.cu
+FLASH_MIN_BLOCK = 128  # flash_attention.MIN_BLOCK_SIZE: the head dim rule
 MAX_ONESHOT_TOKENS = 4096  # attention_pallas._MAX_SEQ
 FLASH_BLOCK = 512          # ops/attention._FLASH_BLOCK
 FLASH_ONE_BLOCK = 4096     # _flash_mha: one K block up to this padded length
@@ -63,6 +67,28 @@ def oneshot_supported(n_tokens: int) -> bool:
     """Whether the one-shot function serves ``n_tokens`` tokens
     (attention_pallas.supported)."""
     return n_tokens <= MAX_ONESHOT_TOKENS
+
+
+def flash_takes(head_dim: int, n_tokens: int) -> bool:
+    """Whether the library flash kernel (row 17) takes ``head_dim`` at
+    ``n_tokens``: with one K block (``_flash_mha`` up to FLASH_ONE_BLOCK
+    tokens, the library's single-step kernel) any head dim; with several,
+    up to FLASH_MIN_BLOCK (128) or a multiple of it (the blocked kernel
+    raises NotImplementedError otherwise)."""
+    return (n_tokens <= FLASH_ONE_BLOCK or head_dim <= FLASH_MIN_BLOCK
+            or head_dim % FLASH_MIN_BLOCK == 0)
+
+
+def check_flash_head_dim(head_dim: int, n_tokens: int) -> None:
+    """Raise NotImplementedError, with the library kernel's rule, where it
+    refuses the head dim (:func:`flash_takes`)."""
+    if not flash_takes(head_dim, n_tokens):
+        raise NotImplementedError(
+            f"head_dim={head_dim} should be a multiple of {FLASH_MIN_BLOCK} "
+            f"if larger: the library flash kernel (row 17) walks "
+            f"{n_tokens} tokens in {FLASH_BLOCK}-key blocks, which take head "
+            f"dims up to {FLASH_MIN_BLOCK} and multiples of "
+            f"{FLASH_MIN_BLOCK} above")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -139,8 +165,8 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float) -> torch.Tensor:
     """Check the layout and launch ``csrc/attention.cu``'s kernel (bf16) or
     ``csrc/attention_f32.cu``'s (f32, with its scratch) at head dim 64, and
-    ``csrc/attention_any.cu``'s at any other head dim up to 256; the flash
-    row multiplies the f32 logits by ``scale``."""
+    ``csrc/attention_any.cu``'s at any other head dim; the flash row
+    multiplies the f32 logits by ``scale``."""
     b, n, h, d = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{kernel} kernel takes bf16 or f32, got {q.dtype}")
@@ -168,13 +194,10 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_any(kernel: str, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch ``csrc/attention_any.cu`` at q's head dim (1 to 256): q, k
-    and v need only their (H, Dh) pair contiguous, any token and batch
-    stride (strided views into a qkv output at an odd head dim included)."""
+    """Launch ``csrc/attention_any.cu`` at q's head dim: q, k and v need
+    only their (H, Dh) pair contiguous, any token and batch stride (strided
+    views into a qkv output at an odd head dim included)."""
     b, n, h, d = q.shape
-    if d > MAX_HEAD_DIM:
-        not_ported(f"{kernel} at head dim {d} (> {MAX_HEAD_DIM}) on the card",
-                   "attention kernels at head dims above 256")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != q.dtype or tuple(x.shape) != (b, n, h, d) \
                 or x.stride(3) != 1 or x.stride(2) != d:
@@ -204,8 +227,8 @@ def _count(kernel: str, o: torch.Tensor) -> None:
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, N, H, D) pre-scaled q, k, v -> (B, N, H, D): the plain version for
-    CPU tensors, the kernel for CUDA tensors (bf16 or f32, D up to 256; k
-    and v may be strided views into a fused qkv output)."""
+    CPU tensors, the kernel for CUDA tensors (bf16 or f32, any D; k and v
+    may be strided views into a fused qkv output)."""
     if not on_cuda(q, k, v):
         return attention_plain(q, k, v)
     o = _launch("attention", q, k, v, 1.0)
@@ -217,8 +240,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """(B, N, H, D) unscaled q, k, v -> (B, N, H, D) with the logits scaled
     in f32: the plain version for CPU tensors, the kernel for CUDA tensors
-    (bf16 or f32, D up to 256; q, k and v may be strided views into a qkv
-    output)."""
+    (bf16 or f32; q, k and v may be strided views into a qkv output). A
+    head dim the library kernel refuses at this length raises
+    NotImplementedError on both (:func:`check_flash_head_dim`), before
+    anything runs."""
+    check_flash_head_dim(q.shape[3], q.shape[1])
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)
     o = _launch("flash_attention", q, k, v, scale)

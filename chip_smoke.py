@@ -204,12 +204,15 @@ Phases, each fatal on failure:
      (``kernels.COUNTS_DIR_ENV``), each exactly its path's kernels;
  12. the encoder at every width the JAX package takes (custom ModelConfigs,
      built as a library user builds them: models/factory, then
-     SbsPipeline): (a) kernel 1 (``csrc/attention_any.cu``, rows 2 and 17
-     at head dims other than 64) at head dims 16, 32, 48, 128 and 256,
-     one-shot at N = 2443 and flash at N = 4785, bf16 against the plain
-     versions within rows 2 and 17's bounds, f32 against f64 operands
-     within 3.7e-6 of max |o|, each f32 bound refusing the TF32 result,
-     head dims 32 and 128 timed beside the plain version and SDPA; (b) rows
+     SbsPipeline): (a) kernel 1 (rows 2 and 17 at head dims other than 64:
+     ``csrc/attention_any.cu`` at bf16 on wgmma, ``csrc/attention_any_f32
+     .cu`` at f32 on the 3xTF32 wgmma core) at head dims 16, 20 (through
+     the pad pass), 32, 48, 128 and 256, one-shot at N = 2443 and flash at
+     N = 4785, bf16 against the plain versions within rows 2 and 17's
+     bounds, f32 against f64 operands within 3.7e-6 of max |o|, each f32
+     bound refusing the TF32 result, each timed beside the plain version
+     and SDPA; the built library's SASS holding HGMMA in every bf16 kernel
+     1 and TF32 HGMMA in every f32 one; (b) rows
      5 and 6 at D = 512, 640 and 768 with 6 heads of 128, row 8 at D = 512,
      row 9 at D = 640 with hidden 2080 (zero-padded to 2112), row 10 at D
      = 1024 with hidden 2736, bf16 and f32, with phase 3's and phase 8's
@@ -5393,22 +5396,29 @@ def front_ends_path() -> dict:
 # paths are built as a library user builds them: models/factory.build_model
 # on a seeded state_dict of the custom configuration, then SbsPipeline.step.
 #
-# Kernel 1 (csrc/attention_any.cu): rows 2 and 17 at head dims other than
-# 64, (label, head dim, heads, one-shot batch, flash batch): D = 384's heads
-# at 16, 32 and 48, D = 768's at 128 and 256. One-shot at N = 2443 (1080p,
-# input 518), flash at N = 4785 (input 728). Head dims 32 and 128 at their
-# paths' batches are timed (hd32 runs row 2 at B = 8 and row 17 at B = 2);
-# the others are held without timing.
-ATTN_ANY = ((16, 24, 2, 1), (32, 12, 8, 2), (48, 8, 2, 1), (128, 6, 8, 2),
-            (256, 3, 2, 1))
-ATTN_ANY_TIMED = (32, 128)
+# Kernel 1 (csrc/attention_any.cu at bf16, csrc/attention_any_f32.cu at
+# f32): rows 2 and 17 at head dims other than 64, (head dim, heads,
+# one-shot batch, flash batch): D = 384's heads at 16, 32 and 48, D = 768's
+# at 128 and 256, and 12 heads of 20 (no multiple of 8: the bf16 kernel
+# reads q, k and v through the pad pass). One-shot at N = 2443 (1080p,
+# input 518), flash at N = 4785 (input 728); head dims 32 and 128 at their
+# paths' batches (hd32 runs row 2 at B = 8 and row 17 at B = 2). Each is
+# timed.
+ATTN_ANY = ((16, 24, 2, 1), (20, 12, 2, 1), (32, 12, 8, 2), (48, 8, 2, 1),
+            (128, 6, 8, 2), (256, 3, 2, 1))
+# The kernels whose SASS phase 12 reads (attention_bench.sass_counts): the
+# bf16 ones must hold HGMMA, the f32 ones HGMMA with TF32 operands.
+ATTN_ANY_SASS = {"attention_any_kernel": "HGMMA",
+                 "attention_any_f32_kernel": "HGMMA_TF32"}
 # At f32 against the same function on f64 operands: the 3xTF32 rows' bound
 # (PERF.md: rows 2 and 17 at most 3.7e-6 of max |o|), which the TF32 result
-# of the plain version exceeds. Measured (NVIDIA H100 80GB HBM3, 700.00 W):
-# row 2 at most 2.2e-6 max and 1.25e-6 mean of |o| (Dh = 128, 256), row 17
-# 1.45e-6 and 1.03e-6, each within 10% of the f32 plain version's own error
-# (cuBLAS, TF32 off); TF32 5.3e-4-1.0e-3 max, 5.1e-4-6.2e-4 mean. The mean
-# bound is twice the largest mean error measured in f32.
+# of the plain version exceeds. Measured (NVIDIA H100 80GB HBM3, 700.00 W)
+# on csrc/attention_any_f32.cu: at most 1.5e-6 max and 7e-7 mean of |o| at
+# every head dim 16-1024, both rows (its exponentials with ex2.approx: up to
+# 4.5e-6 at 4785 keys; with expf, as it runs); the f32 plain version (cuBLAS,
+# TF32 off) 5e-7-3.7e-6 max; TF32 5.3e-4-1.0e-3 max, 5.1e-4-6.2e-4 mean. The
+# mean bound is twice the largest mean error the FFMA kernel before it
+# measured (1.25e-6).
 ATTN_ANY_F32_MAX_REL, ATTN_ANY_F32_MEAN_REL = 3.7e-6, 2.5e-6
 
 
@@ -5524,9 +5534,9 @@ KERNELS_ANY = {
                       f"{JAX_PKG}/ops/attention_pallas.py:43"),
     "flash_attention_any": ("cuda", f"{PKG}/csrc/attention_any.cu",
                             f"{JAX_PKG}/ops/attention.py:53"),
-    "attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any.cu",
+    "attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any_f32.cu",
                           f"{JAX_PKG}/ops/attention_pallas.py:43"),
-    "flash_attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any.cu",
+    "flash_attention_any_f32": ("cuda", f"{PKG}/csrc/attention_any_f32.cu",
                                 f"{JAX_PKG}/ops/attention.py:53"),
 }
 
@@ -5691,9 +5701,27 @@ def check_qkv_width(gen, d: int, heads: int, dtype) -> tuple:
     return q_res, p_res
 
 
+def attention_any_sass() -> dict:
+    """Kernel 1's SASS in the built library (attention_bench.sass_counts):
+    every bf16 kernel holds HGMMA, every f32 one HGMMA with TF32 operands
+    (ATTN_ANY_SASS). Returns each kernel's counts."""
+    from vr_video_generator_tpu_torch.attention_bench import sass_counts
+
+    counts = sass_counts(tuple(ATTN_ANY_SASS))
+    for kind, op in ATTN_ANY_SASS.items():
+        found = {name: c for name, c in counts.items()
+                 if kind + "I" in name}
+        require(found and all(c[op] > 0 for c in found.values()),
+                f"kernel 1's SASS: {kind} needs {op} in each instantiation, "
+                f"found {json.dumps(found)}")
+    log(f"kernel 1's SASS: {json.dumps(counts)}")
+    return counts
+
+
 def width_kernels(device) -> dict:
-    """Phase 12 (a), (b): kernel 1 at head dims 16, 32, 48, 128 and 256,
-    one-shot and flash, bf16 and f32; rows 5 and 6 at D = 512 (8 heads),
+    """Phase 12 (a), (b): kernel 1 at head dims 16, 20, 32, 48, 128 and
+    256, one-shot and flash, bf16 and f32, and its SASS
+    (attention_any_sass); rows 5 and 6 at D = 512 (8 heads),
     640 (10) and 768 with 6 heads of 128, row 8 at D = 512 (hidden 2048),
     row 9 at D = 640 (hidden 2080, padded to 2112), row 10 at D = 1024
     (hidden 2736), bf16 and f32, at 1080p/518 rows (B = 8), against their
@@ -5702,7 +5730,7 @@ def width_kernels(device) -> dict:
 
     from vr_video_generator_tpu_torch.ops import mlp
 
-    out = {}
+    out = dict(attention_any_sass=attention_any_sass())
     gen = torch.Generator(device=device).manual_seed(SEED + 120)
     for dtype in (torch.bfloat16, torch.float32):
         suffix = "_f32" if dtype == torch.float32 else ""
@@ -5711,8 +5739,7 @@ def width_kernels(device) -> dict:
                 name = ("flash_attention_any" if flash
                         else "attention_any") + suffix
                 out[f"{name} Dh={d}"] = check_attention_any(
-                    gen, flash, d, heads, b, n, dtype,
-                    d in ATTN_ANY_TIMED)
+                    gen, flash, d, heads, b, n, dtype, True)
                 torch.cuda.empty_cache()
         for d, heads in ((512, 8), (640, 10), (768, 6)):
             q, p = check_qkv_width(gen, d, heads, dtype)
@@ -5742,7 +5769,8 @@ def width_run(device, frames, row, f64_factor=None) -> dict:
     (resolve_block_fusion at each dtype, check_f32_plan), one batch through
     process_segment after a warm-up step with exactly its kernels a step
     (one_batch; at f32 none of the plain versions, and the weights split at
-    the first step only), and its depth against the plain path (PlainKernels)
+    the first step only), one step's time (event_ms), and its depth against
+    the plain path (PlainKernels)
     on the same weights and frames: on average within DEPTH_REL of the
     range at bf16 (phase 4's bound), 1e-3 at f32 (phase 8 (c')'s); with
     ``f64_factor``, at f32 also against a plain f64 forward (f64_depth:
@@ -5757,6 +5785,7 @@ def width_run(device, frames, row, f64_factor=None) -> dict:
                                                              random_state_dict)
     from vr_video_generator_tpu_torch.pipeline import (SbsPipeline,
                                                        check_f32_plan)
+    from vr_video_generator_tpu_torch.stage_bench import event_ms
 
     label, key, size, batch, dtype_name, step, splits = row
     t0 = time.perf_counter()
@@ -5784,6 +5813,10 @@ def width_run(device, frames, row, f64_factor=None) -> dict:
     per_step = {k: v for k, v in stats["launches"].items() if v}
     require(per_step == step,
             f"{label}: one step launched {per_step}, expected {step}")
+    state = pipe.initial_state()
+    stats["step_ms"] = event_ms(lambda: pipe.step(frames[:batch], state))
+    log(f"{label}: one step {stats['step_ms']:.3f} ms (event_ms, the "
+        f"frames uploaded from the host)")
     x = pipe.frames_to_device(frames[:batch])
     d_kernel = pipe.depth_only(x)
     with PlainKernels():

@@ -1,11 +1,13 @@
-"""PyTorch port, rows 2 and 17 at any head dim but 64 on the CPU
-(csrc/attention_any.cu on the card): the plain versions at head dims 16 to
+"""PyTorch port, rows 2 and 17 at any head dim but 64 on the CPU (kernel 1
+on the card: csrc/attention_any.cu, csrc/attention_any_f32.cu): the plain versions at head dims 16 to
 256 against the JAX package's one-shot Pallas kernel in interpret mode and
 its library flash kernel in TPU interpret mode, and the wrappers' dispatch
 of a CUDA tensor by head dim and dtype to the kernel and its launch
-counter (the CUDA library faked: no GPU here). The kernel's source itself
-runs on the CPU under tests/cuda_emu (tests/test_torch_kernel_emulation.py)
-and on the card (tests/test_torch_cuda.py, chip_smoke.py phase 12)."""
+counter (the CUDA library faked: no GPU here). The kernels' order of sums
+is held on the CPU by tests/test_torch_attention_any_model.py, their
+passes under tests/cuda_emu by tests/test_torch_attention_any_pass.py, the
+kernels themselves on the card (tests/test_torch_cuda.py, chip_smoke.py
+phases 12 and 14)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,7 +145,7 @@ def test_cuda_tensor_launches_by_head_dim(fake_card, row, dtype, d):
         assert args[4:8] == (2, 37, 3, d)
         assert args[8:14] == (q.stride(0), q.stride(1), k.stride(0),
                               k.stride(1), v.stride(0), v.stride(1))
-        assert args[-3:-1] == (int(row == "flash_attention"),
+        assert args[-4:-2] == (int(row == "flash_attention"),
                                int(dt == torch.float32))
 
 
@@ -163,7 +165,7 @@ def test_head_dim_above_256_raises_not_ported(fake_card):
     q, k, v = _views(272, torch.bfloat16, n=5, h=1)
     attn_ops.attention(q, k, v)
     attn_ops.flash_attention(q, k, v, 0.1)
-    assert [(c[0], c[1][7], c[1][-2]) for c in fake_card.calls] == [
+    assert [(c[0], c[1][7], c[1][-3]) for c in fake_card.calls] == [
         ("vrvg_attention_any", 272, 0), ("vrvg_attention_any", 272, 0)]
 
 
@@ -181,9 +183,13 @@ def test_any_head_dim_needs_its_head_pair_contiguous(fake_card):
 
 
 def test_f32_scratch_only_for_head_dim_64():
-    """The split K/V scratch is csrc/attention_f32.cu's, at head dim 64
-    alone; csrc/attention_any.cu takes none."""
+    """At head dim 64 the scratch is csrc/attention_f32.cu's split K and
+    V^T (four planes, N rounded up to 64); at any other it is kernel 1's
+    split pass's Q, K and V^T (six planes, N rounded up to 128, the head
+    dim to 32)."""
     assert attn_ops.f32_scratch_numel(2, 70, 3) == 4 * 2 * 3 * 128 * 64
     assert attn_ops.f32_scratch_numel(2, 70, 3, 64) == 4 * 2 * 3 * 128 * 64
-    for d in (16, 32, 128, 256):
-        assert attn_ops.f32_scratch_numel(2, 70, 3, d) == 0
+    for d, dp in ((16, 32), (17, 32), (32, 32), (128, 128), (256, 256),
+                  (320, 320)):
+        assert attn_ops.f32_scratch_numel(2, 70, 3, d) == \
+            6 * 2 * 3 * 128 * dp

@@ -1,5 +1,7 @@
 """PyTorch port, rows 2 and 17 at head dims above 256 on the CPU
-(csrc/attention_any.cu's 256-wide head-dim slices on the card).
+(kernel 1 on the card: csrc/attention_any.cu, csrc/attention_any_f32.cu;
+their order of sums is held on the CPU by
+tests/test_torch_attention_any_model.py).
 
 The JAX one-shot kernel takes any head dim; the library flash kernel that
 ``_flash_mha`` calls past 4096 tokens takes, once it walks K in blocks,
@@ -13,18 +15,14 @@ raises NotImplementedError at another. Held here:
     packages raise NotImplementedError, the port on CPU tensors and on a
     faked card alike, launching nothing; ``flash_takes`` is the library's
     rule;
-(c) the wrappers' dispatch of wide head dims to csrc/attention_any.cu on a
-    faked card;
-(d) csrc/attention_any.cu under tests/cuda_emu (g++) at head dims 257, 320
-    and 512 (row 2) and 384 (row 17, also walking row 17's blocks in
-    tests/test_torch_kernel_emulation.py's SMALL_BLOCKS), bf16 and f32;
+(c) the wrappers' dispatch of wide head dims to kernel 1
+    (csrc/attention_any.cu) on a faked card;
 (e) narrow analogues of chip_smoke.py's hd384 and hd320 configurations
     (one head of 384 or 320, 2 blocks), whole, against the JAX model at
     ``fused``, the JAX parameters carried by the port's converter.
 """
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +32,6 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.test_torch_attention_any import DISPATCH, FakeLibrary, _qkv, _views
-from tests.test_torch_kernel_emulation import (SMALL_BLOCKS, UNIT,
-                                               attention_any_case, build,
-                                               emulated)
 from tests.test_torch_widths import TINY, jax_fusion
 from vr_video_generator_tpu.models.convert import convert_state_dict
 from vr_video_generator_tpu.models.depth_anything_v2 import (
@@ -46,7 +41,6 @@ from vr_video_generator_tpu.ops.attention_pallas import oneshot_mha
 from vr_video_generator_tpu.utils import config as jconfig
 from vr_video_generator_tpu_torch.kernels import build as kbuild
 from vr_video_generator_tpu_torch.kernels import launch_counts
-from vr_video_generator_tpu_torch.kernels.build import CSRC_DIR
 from vr_video_generator_tpu_torch.models.convert import state_dict_from_jax
 from vr_video_generator_tpu_torch.models.depth_anything_v2 import infer_depth
 from vr_video_generator_tpu_torch.models.dinov2 import resolve_block_fusion
@@ -163,9 +157,9 @@ WIDE_DISPATCH = {
 
 @pytest.mark.parametrize("row,dtype,d", list(WIDE_DISPATCH))
 def test_wide_head_dim_launches_attention_any(fake_card, row, dtype, d):
-    """A CUDA tensor at a head dim above 256 goes to csrc/attention_any.cu's
-    entry once with its head dim, the views' strides, the row and the dtype
-    flag, and counts on that kernel's counter only (as
+    """A CUDA tensor at a head dim above 256 goes to kernel 1's entry
+    (csrc/attention_any.cu) once with its head dim, the views' strides, the
+    row and the dtype flag, and counts on that kernel's counter only (as
     tests/test_torch_attention_any.py's DISPATCH does up to 256)."""
     assert (row, dtype, d) not in DISPATCH
     counter = WIDE_DISPATCH[(row, dtype, d)]
@@ -180,65 +174,10 @@ def test_wide_head_dim_launches_attention_any(fake_card, row, dtype, d):
     assert args[4:8] == (2, 9, 2, d)
     assert args[8:14] == (q.stride(0), q.stride(1), k.stride(0),
                           k.stride(1), v.stride(0), v.stride(1))
-    assert args[-3:-1] == (int(row == "flash_attention"),
+    assert args[-4:-2] == (int(row == "flash_attention"),
                            int(dt == torch.float32))
     assert o.shape == q.shape and o.dtype == dt
     assert {c for c in after if after[c] != before.get(c, 0)} == {counter}
-
-
-# --- (d) the source under the CPU emulation of CUDA ------------------------------------
-
-@pytest.fixture(scope="module")
-def any_lib(tmp_path_factory):
-    """csrc/attention_any.cu as it is, built alone against tests/cuda_emu."""
-    tmp = tmp_path_factory.mktemp("cuda_emu_wide")
-    (tmp / "attention_any.cu").write_text(
-        emulated((CSRC_DIR / "attention_any.cu").read_text()))
-    unit = tmp / "attention_any.cu.cpp"
-    unit.write_text(UNIT % "attention_any.cu")
-    return build(tmp, [str(unit)], ("vrvg_attention_any",))
-
-
-@pytest.fixture(scope="module")
-def wide_blocks(tmp_path_factory):
-    """The same source with SMALL_BLOCKS' softmax blocks (128 keys past
-    256), so that row 17 walks several blocks at a few hundred keys."""
-    tmp = tmp_path_factory.mktemp("cuda_emu_wide_blocks")
-    src = emulated((CSRC_DIR / "attention_any.cu").read_text())
-    for name, value in SMALL_BLOCKS.items():
-        src, n = re.subn(rf"constexpr int {name} = \d+;",
-                         f"constexpr int {name} = {value};", src)
-        assert n == 1, name
-    (tmp / "attention_any.cu").write_text(src)
-    unit = tmp / "attention_any.cu.cpp"
-    unit.write_text(UNIT % "attention_any.cu")
-    return build(tmp, [str(unit)], ("vrvg_attention_any",))
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("d,flash", [(257, False), (320, False),
-                                     (512, False), (384, True)])
-def test_attention_any_source_at_wide_head_dims(any_lib, d, flash, dtype):
-    """Rows 2 and 17 at N = 70 (two ragged q tiles and key tiles) on two
-    and three 256-wide head-dim slices, each q tile's output in two column
-    slices, against the plain versions within
-    tests/test_torch_kernel_emulation.py's ANY_BOUNDS
-    (attention_any_case)."""
-    attention_any_case(any_lib, d, flash, 70, dtype)
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-def test_attention_any_source_walks_flash_blocks_at_384(wide_blocks, dtype,
-                                                        monkeypatch):
-    """Row 17 at head dim 384 past its one-block length in SMALL_BLOCKS'
-    blocks (300 keys: 128, 128, 44), the head dim in two slices and each
-    block's rescale applied to both column slices, against the plain
-    version with the same blocks."""
-    for name, value in SMALL_BLOCKS.items():
-        monkeypatch.setattr(attn_ops, name, value)
-    attention_any_case(wide_blocks, 384, True, 300, dtype, b=1, heads=1)
 
 
 # --- (e) narrow analogues of the hd384 and hd320 configurations --------------------------

@@ -2595,14 +2595,18 @@ def test_attention_any_matches_plain(cuda, flash, d, dtype):
     check_attention_any(gen, flash, d, 2, 2, n, dtype, timed=False)
 
 
-# Above 256 (two and three 256-wide head-dim slices): row 2 at N = 333, row
-# 17 at N = 4200 at the head dims the library flash kernel takes there.
+# Above 256 (two consumers a q group, each with its own S; past 512 a grid
+# axis of column blocks and, at bf16 past 576, Q streamed with K in slabs):
+# row 2 at N = 333, row 17 at N = 4200 at the head dims the library flash
+# kernel takes there.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("flash,d", [(False, 257), (False, 320),
-                                     (False, 512), (True, 384), (True, 512)],
+                                     (False, 512), (True, 384), (True, 512),
+                                     (False, 600), (True, 1024)],
                          ids=["row2-257", "row2-320", "row2-512",
-                              "row17-384", "row17-512"])
+                              "row17-384", "row17-512", "row2-600",
+                              "row17-1024"])
 def test_attention_any_wide_matches_plain(cuda, flash, d, dtype):
     from chip_smoke import check_attention_any
 
@@ -2630,7 +2634,8 @@ def test_flash_any_refuses_the_library_head_dims(cuda):
     err = library().vrvg_attention_any(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 4200, 1,
         320, q.stride(0), q.stride(1), q.stride(0), q.stride(1),
-        q.stride(0), q.stride(1), o.stride(0), o.stride(1), 0.05, 1, 0, None)
+        q.stride(0), q.stride(1), o.stride(0), o.stride(1), 0.05, 1, 0, None,
+        None)
     torch.cuda.synchronize()
     assert err == 1 and bool((o == 3.0).all())
     q = q[:, :333]

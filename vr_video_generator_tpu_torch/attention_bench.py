@@ -31,6 +31,22 @@ events; SDPA's kernel names are read from the same trace.
 with TF32 operands) and TMA (UTMALDG, UTMASTG) instructions of each
 attention kernel. The last line is one JSON object with every row and the
 card's name and power limit.
+
+    python3 -m vr_video_generator_tpu_torch.attention_bench --any
+
+instead gives kernel 1's kernel-only ms a call (its pass, where it runs,
+and its kernel) at chip_smoke.py phase 12's and 14's timed shapes
+(``ANY_SHAPES``, bf16 and f32), from the process's first profile.
+
+    python3 -m vr_video_generator_tpu_torch.attention_bench --steps
+
+instead times one ``SbsPipeline.step`` (CUDA events, median of 20, the
+frames uploaded from the host) of the custom configurations that run
+kernel 1 (rows 2 and 17 at head dims other than 64) at every launch of
+their attention: 12 heads of 32 at vits' width and 6 of 128 at vitb's
+(``STEP_PATHS``, as chip_smoke.py's hd32-518 and hd128-518), bf16,
+``auto``, 1080p, B = 8, seeded random weights. It uses only the package's
+public builders, so a copy of this file runs unchanged in an older tree.
 """
 
 from __future__ import annotations
@@ -228,7 +244,8 @@ def profile_f32(shapes=F32_SHAPES) -> dict:
 
 
 def sass_counts(kernels=("attention_kernel", "attention_f32_kernel",
-                         "split_kv_kernel")) -> dict:
+                         "split_kv_kernel", "attention_any_kernel",
+                         "attention_any_f32_kernel")) -> dict:
     """wgmma (HGMMA, and HGMMA_TF32: those with TF32 operands) and TMA
     instructions of each kernel of the built library whose name holds one
     of ``kernels`` (cuobjdump -sass)."""
@@ -249,16 +266,132 @@ def sass_counts(kernels=("attention_kernel", "attention_f32_kernel",
     return counts
 
 
+# The custom configurations whose attention is kernel 1 at every launch:
+# label -> ModelConfig fields over vits' or vitb's (chip_smoke.WIDTH_PATHS'
+# hd32 and hd128), run at --input_size 518.
+STEP_PATHS = {
+    "hd32-518": dict(encoder="vits", embed_dim=384, depth=12, num_heads=12,
+                     mlp_ratio=4.0, features=64,
+                     out_channels=(48, 96, 192, 384),
+                     intermediate_layers=(2, 5, 8, 11)),
+    "hd128-518": dict(encoder="vitb", embed_dim=768, depth=12, num_heads=6,
+                      mlp_ratio=4.0, features=128,
+                      out_channels=(96, 192, 384, 768),
+                      intermediate_layers=(2, 5, 8, 11)),
+}
+
+
+def step_times(batch: int = 8, h: int = 1080, w: int = 1920,
+               seed: int = 0) -> dict:
+    """One step's CUDA-event median ms of each STEP_PATHS configuration."""
+    import dataclasses
+
+    import numpy as np
+
+    from vr_video_generator_tpu_torch.models.factory import (build_model,
+                                                             random_state_dict)
+    from vr_video_generator_tpu_torch.pipeline import SbsPipeline
+    from vr_video_generator_tpu_torch.utils.config import (ModelConfig,
+                                                           RunConfig)
+
+    frames = np.random.default_rng(seed).integers(0, 256, (batch, h, w, 3),
+                                                  dtype=np.uint8)
+    out = {}
+    for label, fields in STEP_PATHS.items():
+        mcfg = dataclasses.replace(ModelConfig(), mlp_fused="auto", **fields)
+        run = RunConfig(encoder=mcfg.encoder, batch_size=batch,
+                        input_size=518, mlp_fused="auto", tail="auto",
+                        compute_dtype="bfloat16")
+        model = build_model(mcfg, random_state_dict(mcfg, seed),
+                            torch.bfloat16, "cuda", tail=run.tail)
+        pipe = SbsPipeline(model, h, w, run_cfg=run)
+        state = pipe.initial_state()
+        pipe.step(frames, state)
+        out[label] = event_ms(lambda: pipe.step(frames, state))
+        del model, pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+# Kernel 1 at chip_smoke.py's timed shapes: (label, row, head dim, B, N, H).
+ANY_SHAPES = tuple(
+    (f"{row} Dh={d}", row, d, b, n, h)
+    for d, h in ((32, 12), (128, 6), (320, 2), (384, 2), (512, 2))
+    for row, b, n in (("attention", 8, 2443), ("flash_attention", 2, 4785))
+    if not (row == "flash_attention" and d == 320))
+ANY_KERNELS = ("attention_any_kernel", "attention_any_f32_kernel",
+               "pad_kernel", "split_kernel")
+
+
+def profile_any(shapes=ANY_SHAPES) -> dict:
+    """Kernel 1's kernel-only ms a call at each shape, bf16 and f32, from
+    one ``torch.profiler`` session (``PROFILED`` calls a shape, the f32
+    ones a split pass and a kernel each, q, k and v views into one qkv).
+    Raises unless the trace holds each shape's events."""
+    from vr_video_generator_tpu_torch.utils.profiling import trace
+
+    cases = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, row, d, b, n, h in shapes:
+            qkv = peaked_qkv(gen, b, n, h, dtype, head_dim=d)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            if row == "attention":
+                args = ((q.float() * d ** -0.5).to(dtype), k, v)
+                fn = A.attention
+            else:
+                args, fn = (q, k, v, d ** -0.5), A.flash_attention
+            fn(*args)
+            per_call = 2 if dtype == torch.float32 else 1
+            cases.append((f"{label} {str(dtype)[6:]}", fn, args, per_call))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, "trace.json"):
+            for _, fn, args, _ in cases:
+                for _ in range(PROFILED):
+                    fn(*args)
+        with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+    durs = [dur for _, name, dur in sorted(
+        (e["ts"], e["name"], e["dur"]) for e in events
+        if e.get("cat") == "kernel" and "dur" in e
+        and any(k in e["name"] for k in ANY_KERNELS))]
+    need = sum(PROFILED * c[3] for c in cases)
+    if len(durs) != need:
+        raise RuntimeError(f"kernel 1's profile holds {len(durs)} of its "
+                           f"{need} kernel events: a profile that lost "
+                           f"device events")
+    out, at = {}, 0
+    for label, _, _, per_call in cases:
+        take = PROFILED * per_call
+        out[label] = dict(kernel_only_ms=sum(durs[at:at + take]) / 1e3
+                          / PROFILED)
+        at += take
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="count wgmma/TMA instructions in the built kernels")
+    ap.add_argument("--steps", action="store_true",
+                    help="time one step of each STEP_PATHS configuration "
+                         "instead")
+    ap.add_argument("--any", action="store_true",
+                    help="profile kernel 1 at ANY_SHAPES instead")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attention_bench: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
     print(card, flush=True)
+    if opts.steps:
+        print(json.dumps(dict(card=card, step_ms=step_times())), flush=True)
+        return 0
+    if opts.any:
+        print(json.dumps(dict(card=card, kernel_only=profile_any())),
+              flush=True)
+        return 0
     out = dict(card=card)
     if opts.sass:
         out["sass"] = sass_counts()

@@ -1,432 +1,537 @@
-// Softmax attention of the ViT blocks at any head dim but 64, bf16 or f32,
-// for Hopper (sm_90a): rows 2 and 17 at the head dims of a custom
-// ModelConfig (csrc/attention.cu and csrc/attention_f32.cu take 64).
+// Kernel 1 at bf16: softmax attention of the ViT blocks at any head dim but
+// 64, for Hopper (sm_90a): rows 2 and 17 at the head dims of a custom
+// ModelConfig (csrc/attention.cu takes 64). The f32 half is
+// csrc/attention_any_f32.cu; this file's entry point dispatches to it.
 //
-// attention_any_kernel<T, DP, false> replaces vr_video_generator_tpu/ops/
+// attention_any_kernel<..., false> replaces vr_video_generator_tpu/ops/
 // attention_pallas.py `oneshot_mha_heads` (kernel body `_kernel`, up to 4096
 // tokens), which takes any head dim: q arrives pre-scaled, the logits and
-// the softmax statistics are f32, p = exp(s - m) is taken against the row's
-// maximum over all keys and cast to the input dtype before PV, PV
-// accumulates in f32, and the output is o / l in the input dtype, l the sum
-// of the f32 p.
-//
-// attention_any_kernel<T, DP, true> replaces the JAX library flash kernel
-// that vr_video_generator_tpu/ops/attention.py `_flash_mha` calls past 4096
+// the softmax statistics are f32, the probabilities are cast to bf16 before
+// P V, P V accumulates in f32, and the output is o / l cast to bf16.
+// attention_any_kernel<..., true> replaces the JAX library flash kernel that
+// vr_video_generator_tpu/ops/attention.py `_flash_mha` calls past 4096
 // tokens (jax.experimental.pallas.ops.tpu.flash_attention), at the head
 // dims it takes (any with one K block; with several, up to 128 and
 // multiples of 128 above, its MIN_BLOCK_SIZE: another raises
 // NotImplementedError there and is refused here): q unscaled, the f32
-// logits multiplied by sm_scale in f32, and the library's blocks and
-// rounding points (ops/attention.flash_attention_plain): K in 512-key
-// blocks past 4096 keys (one block below), each block's probabilities taken
-// against the running maximum after it and cast to the input dtype, and the
-// output kept normalised, O = O (l_corr / l) + PV / l.
-// The two differ only in the order of f32 sums.
+// logits multiplied by sm_scale in f32. Keys >= N are masked; rows >= N and
+// columns >= Dh are never stored. Both rows walk the keys in tiles with an
+// online softmax (a running max, the output rescaled by exp(m_old - m_new)
+// a tile, divided by l once at the end), as csrc/attention.cu does at 64:
+// the library's 512-key blocks and the one-shot softmax differ from it only
+// in f32 rounding and in which running max the bf16 probabilities are taken
+// against, which chip_smoke.py bounds against the plain versions
+// (ops/attention.py).
 //
-// At f32 every product is an f32 FFMA: no TF32 and no tensor core, so the
-// result is f32-accurate (chip_smoke.py holds it against f64 operands and
-// shows its bound refusing a TF32 result). At bf16 the operands are widened
-// to f32 in shared memory (a bf16 product is exact in f32) and the products
-// are FFMAs as well.
+// What bounds it on the H100: the two products, 4 B H N^2 Dh FLOPs (73 GFLOP
+// at 12 heads of 32, B = 8, N = 2443; 147 at 6 heads of 128) against 40-60
+// MB of q/k/v/o: 0.074 and 0.148 ms at the 989 TFLOP/s bf16 peak, if the
+// logits never reach device memory. At small head dims the exponentials
+// bound it instead: one a logit, 16 a clock an SM, 573M logits at 12 heads
+// of 32 take ~0.15 ms, twice the products; so, as at 64, one warpgroup's
+// softmax has to run under another's products.
 //
-// What bounds it on the H100: 4 * B*H*N^2*Dh FLOPs (two GEMMs) against the
-// q/k/v/o bytes: at 1080p/518 with 12 heads of 32 (B = 8, N = 2443) 73 GFLOP
-// against 60 MB, compute-bound (0.074 ms at the 989 TFLOP/s bf16 tensor-core
-// peak, 1.1 ms at the 67 TFLOP/s of f32 FFMA). This kernel runs on FFMA and
-// computes S = Q K^T twice, so it does 1.5x those FLOPs on units with a
-// fifteenth of the tensor cores' rate: a simple kernel that is right, to be
-// moved onto the tensor cores later (ROADMAP.md). Above 256, with s =
-// ceil(Dh / 256) slices, each of the s column-slice blocks computes S twice
-// over the padded 256 s head dims and its own slice of P V: 4 N^2 256 s^2
-// + 2 N^2 256 s FLOPs a (batch, head) against 4 N^2 Dh, 3.3x at Dh = 384,
-// 2.5x at 512, 4x at 320.
+// Design: csrc/attention.cu's, with the head dim cut into 64-wide chunks
+// (128-byte rows of the 128-byte swizzle) and the shape of the block taken
+// from csrc/attention_any_plan.cuh by head dim. The head dim is zero-padded
+// to DP = 64 c: TMA reads a 64-wide box of each chunk over a map whose
+// innermost dim is Dh, so columns >= Dh arrive as zeros (at Dh = 32 half of
+// the products are on zeros; the exponentials bound it there anyway). Where
+// TMA cannot read the views (Dh * 2 bytes or a token or batch stride not a
+// multiple of 16 bytes), csrc/attention_any_pass.cu's pad pass first writes
+// q, k and v with rows of round_up(Dh, 8) into the wrapper's scratch. One
+// block per (q tile of qg 64-row groups, column block, head, batch) holds g
+// consumer warpgroups per q group; one thread keeps TMA loads in flight
+// behind full/empty mbarriers: a producer warp's where the consumers fit
+// 168 registers a thread, else consumer thread 0, under its warpgroup's
+// products (ptxas caps a thread's registers by the block's warps: 255 at
+// 8, 168 at 9 to 12; setmaxnreg does not raise them). Each consumer holds
+// O for its 64 rows and its oc chunks of columns in registers, computes S =
+// Q K^T over the whole head dim (wgmma.m64nBNk16, both operands K-major in
+// shared memory; Q resident, or streamed with K in slabs of 4 chunks where
+// it does not fit), runs the online softmax on the accumulator registers
+// (row max and sum over the quad, by shuffles; ex2.approx of the logits
+// times log2 e), packs P to bf16 as wgmma's register A operand, and adds P V
+// (wgmma.m64n(64 oc)k16, V read through the transpose bit) for its columns.
+// Above 256 the g = 2 consumers of a q group each take 192 or 256 columns
+// and each computes S itself (1.5x the useful products at 384 and 512; past
+// 512 a grid axis of column blocks, each recomputing S). The ring carries K
+// tiles (with Q slabs) and V tiles as separate stages. O / l leaves by
+// plain stores, rows >= N and columns >= Dh skipped, so any output head dim
+// is stored.
 //
-// Design. One block of 256 threads per (64-row q tile, head, batch). The
-// head dim is zero-padded to DP (16, 32, 64, 128 or 256) in shared memory:
-// the zeros add nothing to any dot product. Q (transposed, DP x 64) stays in
-// shared memory. Above 256 the head dim runs in DP = 256 slices (the
-// shared memory of a wider tile, ~280 KiB at 512, does not fit the SM's
-// 227 KiB): S = sum_s Q_s K_s^T, each slice of Q and of the K tile staged
-// through the same two buffers in turn, the sums one chain over the head
-// dim in the unsliced order (at bf16 its mean difference to the plain
-// version was a 33rd of that of summing each slice apart and adding the
-// slices, and at f32 neither order came nearer f64); and a grid axis over
-// O's 256-wide column slices, each block recomputing S, m and l with the
-// same sums in the same order, so the slices' statistics agree bit for bit.
-// Two passes over the 64-key tiles of K of each softmax block (all keys, or
-// row 17's 512-key blocks):
-//   1. S = Q K^T, the row maximum m;
-//   2. S again (the same sums in the same order), p = exp(s - m), l += p,
-//      p rounded to T into shared memory, then the tile of V over the same
-//      buffer as K, and O += P V.
-// Against the row's maximum over all keys, row 2 needs no rescaling; row 17
-// rescales once a block, as the library does.
-// Thread (ty, tx) of the 16 x 16 grid owns S[4 ty + i][4 tx + j] (two
-// 16-byte shared loads and 16 FFMAs a step of the head dim) and O[4 ty +
-// i][tx + 16 jj]. The row maximum and l are reduced through shared memory
-// once a pass, not with warp shuffles. Keys >= N are masked (p = 0; their V
-// rows are zeros), rows >= N are computed on zeros and not stored. q, k
-// and v are read element by element with their own token and batch strides,
-// so they may be strided views into the fused qkv output at any head dim
-// (rows need no 16-byte alignment). bf16 travels as its bits (uint16_t),
-// converted by integer arithmetic, so the source also compiles with g++
-// against the CPU emulation of tests/cuda_emu (tests/test_torch_kernel_
-// emulation.py).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phases 12
+// and 14; PERF.md, kernel table): row 2 / row 17 at 12 heads of 32 0.62 /
+// 0.65 ms (1.5x / 1.7x one scaled_dot_product_attention call), at 6 of 128
+// 0.57 / 0.51 (1.8x / 1.6x), at 2 heads of 320-512 0.60-1.24 (0.49-0.64x);
+// the FFMA kernel it replaces took 4.3-35 ms. The producer warp was the
+// faster where O is at most 3 chunks (up to 1.4x at 384); at 4 it spilled
+// 1.2-2.6 KB a thread and ran 3.6x slower than consumer thread 0's loads.
 
-#include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_any.cuh"
+#include "attention_any_plan.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // query rows a block
-constexpr int BN = 64;        // keys a tile
-constexpr int THREADS = 256;  // a 16 x 16 grid
-constexpr int LD = BM + 4;    // row stride of the transposed tiles (floats)
-constexpr int RED = 17;       // row stride of the reduction scratch
-// Row 17's softmax blocks: one over all keys up to 4096 keys, 512-key blocks
-// past that (vr_video_generator_tpu/ops/attention.py _FLASH_BLOCK and its
-// block_k rule; ops/attention.FLASH_ONE_BLOCK and FLASH_BLOCK). Both are
-// multiples of BN.
+using namespace vrvg;
+using attn_any::Plan;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int RB = attn_any::ROW_BYTES;
+// Row 17 past this many tokens is the library's blocked kernel, which takes
+// head dims up to 128 and multiples of 128 (ops/attention.flash_takes).
 constexpr int FLASH_ONE_BLOCK = 4096;
-constexpr int FLASH_BLOCK = 512;
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const uint16_t* p) {
-  return __uint_as_float((uint32_t)*p << 16);
-}
+struct RowStats {
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+};
 
-// f32 -> bf16 bits, to nearest even (a NaN stays a NaN).
-__device__ __forceinline__ uint16_t to_bf16(float f) {
-  const uint32_t u = __float_as_uint(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)((u >> 16) | 0x40u);
-  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
-}
-__device__ __forceinline__ float round_to(float f, const float*) { return f; }
-__device__ __forceinline__ float round_to(float f, const uint16_t*) {
-  return __uint_as_float((uint32_t)to_bf16(f) << 16);
-}
-__device__ __forceinline__ void store(float* p, float f) { *p = f; }
-__device__ __forceinline__ void store(uint16_t* p, float f) {
-  *p = to_bf16(f);
-}
-
-// Shared memory of a DP-wide block, in floats: Q^T (DP x LD), the K^T (DP x
-// LD) or V (BN x DP) tile, P^T (BN x LD), the row reduction (BM x RED), the
-// rows' statistic (BM).
-constexpr int smem_floats(int dp) {
-  return 2 * dp * LD + BN * LD + BM * RED + BM;
-}
-
-// Rows [m0, m0 + 64) x head dims [0, DP) of one (batch, head), zero past n
-// and past d, into dst[c * LD + r] (transposed). A thread reads four rows at
-// one head dim and stores them as one 16-byte word; a warp reads 32
-// neighbouring elements of a row and stores to 32 distinct banks.
-template <typename T, int DP>
-__device__ __forceinline__ void load_t(float* dst, const T* src, long long sn,
-                                       int m0, int n, int d, int tid) {
-  for (int e = tid; e < 16 * DP; e += THREADS) {
-    const int c = e % DP, r0 = 4 * (e / DP);
-    float x[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int r = m0 + r0 + u;
-      x[u] = r < n && c < d ? load(src + (long long)r * sn + c) : 0.f;
-    }
-    *reinterpret_cast<float4*>(dst + c * LD + r0) =
-        make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// S[i][j] += sum_c Q[4 ty + i][c] K[4 tx + j][c] over one DP-wide slice,
-// in the order of c.
-template <int DP>
-__device__ __forceinline__ void accumulate(float (&s)[4][4], const float* qs,
-                                           const float* ks, int ty, int tx) {
-#pragma unroll 8
-  for (int c = 0; c < DP; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(qs + c * LD + 4 * ty);
-    const float4 b = *reinterpret_cast<const float4*>(ks + c * LD + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// S of key tile t: S[i][j] = sum_c Q[4 ty + i][c] K[t BN + 4 tx + j][c]
-// (times scale if SCALED), one chain of sums over the head dim in the
-// order of c, the same at every call. With one slice Q is resident in qs;
-// with several, each slice of Q and of the tile of K (keys < k1) is staged
-// into qs and ks in turn. Starts with a barrier: the previous reads of both
-// buffers are done.
-template <typename T, int DP, bool SCALED>
-__device__ __forceinline__ void tile_logits(float (&s)[4][4], float* qs,
-                                            float* ks, const T* qb,
-                                            const T* kb, long long q_sn,
-                                            long long k_sn, int m0, int n,
-                                            int t, int k1, int d, int slices,
-                                            int ty, int tx, int tid,
-                                            float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int sl = 0; sl < slices; ++sl) {
-    __syncthreads();
-    if (slices > 1) load_t<T, DP>(qs, qb + sl * DP, q_sn, m0, n, d - sl * DP,
-                                  tid);
-    load_t<T, DP>(ks, kb + sl * DP, k_sn, t * BN, k1, d - sl * DP, tid);
-    __syncthreads();
-    accumulate<DP>(s, qs, ks, ty, tx);
-  }
+// The online softmax of one S tile (64 x BN) on its accumulator registers:
+// logits times `scale` (SCALED), keys >= n (`valid` = n - the tile's first
+// key) to -inf, the new running max, alpha = exp(m_old - m_new) for O, l
+// rescaled and summed, and P as bf16 pairs in wgmma's A-fragment order
+// (csrc/attention.cu's softmax_tile at any BN). Accumulator layout: thread
+// (warp w, lane l) holds rows r0 = 16 w + l / 4 and r0 + 8; value 4 j + 2 i
+// + c sits at row r0 + 8 i, column 8 j + 2 (l % 4) + c.
+template <bool SCALED, int BN>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2],
+                                             uint32_t (&p)[BN / 4],
+                                             RowStats& st, float (&alpha)[2],
+                                             int valid, int quad,
+                                             float scale) {
   if (SCALED) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = __fmul_rn(s[i][j], scale);
+    for (int i = 0; i < BN / 2; ++i) s[i] = __fmul_rn(s[i], scale);
   }
-}
-
-// Each row's 16 partials (one a tx) combined (max, or sum) into stat[row],
-// read back into v[i] for this thread's rows.
-template <bool MAX>
-__device__ __forceinline__ void reduce_rows(float (&v)[4], float* red,
-                                            float* stat, int ty, int tx,
-                                            int tid) {
+  if (valid < BN) {
+    const int lim = valid - 2 * quad;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) red[(4 * ty + i) * RED + tx] = v[i];
-  __syncthreads();
-  if (tid < BM) {
-    float acc = red[tid * RED];
-    for (int t = 1; t < 16; ++t) {
-      const float x = red[tid * RED + t];
-      acc = MAX ? fmaxf(acc, x) : __fadd_rn(acc, x);
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (8 * j + c >= lim) {
+          s[4 * j + c] = -INFINITY;
+          s[4 * j + 2 + c] = -INFINITY;
+        }
+      }
     }
-    stat[tid] = acc;
   }
-  __syncthreads();
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = stat[4 * ty + i];
+  for (int j = 0; j < BN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mln[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // Every tile holds a real key, so the new max is finite; alpha is 0 at
+    // the first tile (m = -inf).
+    const float m_new = fmaxf(st.m[i], quad_max(mx[i]));
+    mln[i] = m_new * LOG2E;
+    alpha[i] = ex2(fmaf(st.m[i], LOG2E, -mln[i]));
+    st.m[i] = m_new;
+    st.l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float p00 = ex2(fmaf(s[4 * j], LOG2E, -mln[0]));
+    const float p01 = ex2(fmaf(s[4 * j + 1], LOG2E, -mln[0]));
+    const float p10 = ex2(fmaf(s[4 * j + 2], LOG2E, -mln[1]));
+    const float p11 = ex2(fmaf(s[4 * j + 3], LOG2E, -mln[1]));
+    st.l[0] += p00 + p01;
+    st.l[1] += p10 + p11;
+    p[2 * j] = pack_bf16(p00, p01);  // bf16 P, as on the TPU
+    p[2 * j + 1] = pack_bf16(p10, p11);
+  }
 }
 
-template <typename T, int DP, bool SCALED>
-__global__ void __launch_bounds__(THREADS)
-    attention_any_kernel(const T* q, const T* k, const T* v, T* o, int n,
-                         int d, int slices, long long q_sb, long long q_sn,
-                         long long k_sb, long long k_sn, long long v_sb,
-                         long long v_sn, long long o_sb, long long o_sn,
+// The shared-memory layout a launch runs with (Plan's, by value).
+struct Layout {
+  int c;            // head-dim chunks
+  int sc;           // chunks a stage of S (c: Q resident)
+  int stages;
+  int q_bytes;      // resident Q
+  int stage_bytes;
+};
+
+// The TMA loads of ring item `item` into its slot: key tile t = item / (ns
+// + 1), and in it slab item % (ns + 1) of S (K's chunks, Q's too where Q
+// streams) or, after the last slab, V's chunks of column block cbi.
+template <int QG, int G, int OC, int BN, bool RES>
+__device__ __forceinline__ void load_item(const CUtensorMap* tq,
+                                          const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          const Layout& lay, uint32_t ring,
+                                          uint32_t bar_full, int item, int ns,
+                                          int q0, int h, int b, int cbi) {
+  constexpr int QROWS = 64 * QG;
+  const int slot = item % lay.stages;
+  const uint32_t st = ring + slot * lay.stage_bytes;
+  const uint32_t full = bar_full + 8 * slot;
+  const int t = item / (ns + 1), si = item % (ns + 1);
+  if (si < ns) {
+    const int ch0 = si * lay.sc;
+    const int nch = min(lay.sc, lay.c - ch0);
+    const uint32_t k_off = RES ? 0u : (uint32_t)(lay.sc * QROWS * RB);
+    mbar_expect_tx(full, nch * (BN + (RES ? 0 : QROWS)) * RB);
+    for (int j = 0; j < nch; ++j) {
+      if (!RES) {
+        tma_load_4d(st + j * QROWS * RB, tq, 64 * (ch0 + j), h, q0, b, full);
+      }
+      tma_load_4d(st + k_off + j * BN * RB, tk, 64 * (ch0 + j), h, t * BN, b,
+                  full);
+    }
+  } else {
+    const int v0 = cbi * G * OC;
+    const int nv = min(G * OC, lay.c - v0);
+    mbar_expect_tx(full, nv * BN * RB);
+    for (int j = 0; j < nv; ++j) {
+      tma_load_4d(st + j * BN * RB, tv, 64 * (v0 + j), h, t * BN, b, full);
+    }
+  }
+}
+
+// One block of QG G consumer warpgroups per (q tile x column block, head,
+// batch): warpgroup w holds q group w / G and column group w % G. The ring
+// is kept full by a producer warp after them (PW), or else by thread 0,
+// which fills the first stages and, under each item's products, loads the
+// items the ring has room for (so that with two consumers each thread may
+// hold 255 registers). KC: the most chunks a stage of S holds (the chunk
+// loop unrolled, so that no move of the accumulators splits a wgmma
+// pipeline stage). q/k/v: 4-D maps over (Dh, H, N, B), 64 x 1 x rows x 1
+// boxes; o: (B, N, H, d) bf16 with the given batch and token strides,
+// stored by plain stores.
+template <int QG, int G, int OC, int BN, bool RES, int KC, bool PW,
+          bool SCALED>
+__global__ void __launch_bounds__(128 * QG * G + (PW ? 32 : 0), 1)
+    attention_any_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         __nv_bfloat16* __restrict__ o, int n, int d, int cb,
+                         const Layout lay, long long o_sb, long long o_sn,
                          float scale) {
-  constexpr int CPT = DP / 16;  // output columns a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* kv = qs + DP * LD;
-  float* ps = kv + DP * LD;
-  float* red = ps + BN * LD;
-  float* stat = red + BM * RED;
+  constexpr int CONSUMERS = QG * G;
+  constexpr int QROWS = 64 * QG;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t ring = base + lay.q_bytes;
+  const uint32_t bar_full = ring + lay.stages * lay.stage_bytes;  // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * lay.stages;
+  const uint32_t bar_q = bar_empty + 8 * lay.stages;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  // The q tile, and the slice of O's columns [os DP, os DP + dv) it writes.
-  const int m0 = blockIdx.x / slices * BM, os = blockIdx.x % slices;
-  const int dv = min(DP, d - os * DP);
-  const long long hoff = (long long)blockIdx.y * d;
+  const int qt = blockIdx.x / cb, cbi = blockIdx.x % cb;
+  const int q0 = qt * QROWS;
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = q + b * q_sb + hoff;
-  const T* kb = k + b * k_sb + hoff;
-  const T* vb = v + b * v_sb + hoff + os * DP;
+  const int n_tiles = (n + BN - 1) / BN;
+  const int ns = (lay.c + lay.sc - 1) / lay.sc;
+  const int items = n_tiles * (ns + 1);
+  // In a stage of S: Q's slab (streamed), then K's.
+  const uint32_t k_off = RES ? 0u : (uint32_t)(lay.sc * QROWS * RB);
+  // The thread that issues the TMA loads: the producer warp's first (PW),
+  // else consumer thread 0.
+  const bool producer = threadIdx.x == (PW ? 128 * CONSUMERS : 0);
 
-  if (slices == 1) load_t<T, DP>(qs, qb, q_sn, m0, n, d, tid);
-
-  // Keys in softmax blocks: all of them for row 2 and for row 17 up to 4096
-  // keys; past that, row 17 walks 512-key blocks as the library kernel does
-  // (ops/attention.flash_attention_plain).
-  const int span = SCALED && n > FLASH_ONE_BLOCK ? FLASH_BLOCK : n;
-  float acc[4][CPT];  // O: row 2's sums, row 17's normalised output
-  float ob[4][CPT];   // row 17: a block's sums
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = 0.f;
-  float (&osum)[4][CPT] = SCALED ? ob : acc;
-  float m_run[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float l_run[4] = {0.f, 0.f, 0.f, 0.f};
-  float s[4][4];
-  for (int k0 = 0; k0 < n; k0 += span) {
-    const int k1 = min(n, k0 + span);
-    // Pass 1: the block's row maximum, then the running one.
-    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    for (int t = k0 / BN; t * BN < k1; ++t) {
-      tile_logits<T, DP, SCALED>(s, qs, kv, qb, kb, q_sn, k_sn, m0, n, t, k1,
-                                 d, slices, ty, tx, tid, scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (t * BN + 4 * tx + j >= k1) continue;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], s[i][j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < lay.stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * CONSUMERS);  // one per consumer warp
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    if (RES) {
+      mbar_expect_tx(bar_q, lay.q_bytes);
+      for (int ch = 0; ch < lay.c; ++ch) {
+        tma_load_4d(base + ch * QROWS * RB, &tq, 64 * ch, h, q0, b, bar_q);
       }
     }
-    reduce_rows<true>(m, red, stat, ty, tx, tid);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], m_run[i]);
-
-    // Pass 2: p = exp(s - m) against that maximum, its sum l, and
-    // O += dtype(p) V.
-    if (SCALED) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) osum[i][jj] = 0.f;
+    // PW: every item, each once its stage is released; else the first
+    // stages, and refill() the rest.
+    for (int i = 0; i < (PW ? items : min(lay.stages, items)); ++i) {
+      if (PW) {
+        mbar_wait(bar_empty + 8 * (i % lay.stages),
+                  ((i / lay.stages) & 1) ^ 1);
+      }
+      load_item<QG, G, OC, BN, RES>(&tq, &tk, &tv, lay, ring, bar_full, i, ns,
+                                    q0, h, b, cbi);
     }
-    float l[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int t = k0 / BN; t * BN < k1; ++t) {
-      // (its first barrier: the previous tile's V and P reads are done)
-      tile_logits<T, DP, SCALED>(s, qs, kv, qb, kb, q_sn, k_sn, m0, n, t, k1,
-                                 d, slices, ty, tx, tid, scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = t * BN + 4 * tx + j < k1;
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = valid ? expf(__fsub_rn(s[i][j], m[i])) : 0.f;
-          l[i] = __fadd_rn(l[i], p[i]);
-        }
-        *reinterpret_cast<float4*>(ps + (4 * tx + j) * LD + 4 * ty) =
-            make_float4(round_to(p[0], q), round_to(p[1], q),
-                        round_to(p[2], q), round_to(p[3], q));
+  }
+  if (PW && threadIdx.x >= 128 * CONSUMERS) return;
+
+  const int wg = threadIdx.x / 128;
+  const int qg = wg / G, g = wg % G;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int quad = lane & 3;
+  // Without a producer warp, thread 0's next item to load: under item i's
+  // products it loads every item up to i + stages - lag, waiting for each
+  // stage to be released by all consumers. The lag (half the ring, at
+  // least 1) lets one consumer run up to lag items ahead of another without
+  // waiting, so that one's softmax can run under the other's products.
+  int next = min(lay.stages, items);
+  const int ahead = lay.stages - max(1, lay.stages / 2);
+  auto refill = [&](int i) {
+    if (!PW && producer) {
+      for (; next < items && next <= i + ahead; ++next) {
+        mbar_wait(bar_empty + 8 * (next % lay.stages),
+                  ((next - lay.stages) / lay.stages) & 1);
+        load_item<QG, G, OC, BN, RES>(&tq, &tk, &tv, lay, ring, bar_full,
+                                      next, ns, q0, h, b, cbi);
       }
-      __syncthreads();  // K^T is read; P is written
-      for (int e = tid; e < BN * DP; e += THREADS) {
-        const int r = e / DP, c = e % DP;
-        float x = 0.f;
-        if (t * BN + r < k1 && c < dv) {
-          x = load(vb + (long long)(t * BN + r) * v_sn + c);
-        }
-        kv[e] = x;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int key = 0; key < BN; ++key) {
-        const float4 p = *reinterpret_cast<const float4*>(ps + key * LD +
-                                                          4 * ty);
-        const float pv[4] = {p.x, p.y, p.z, p.w};
+    }
+    __syncwarp();
+  };
+
+  float acc[OC * 32];
 #pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          const float x = kv[key * DP + tx + 16 * jj];
+  for (int i = 0; i < OC * 32; ++i) acc[i] = 0.f;
+  float s[BN / 2];
+  uint32_t p[BN / 4];
+  RowStats st;
+  float alpha[2];
+
+  if (RES) mbar_wait(bar_q, 0);
+  int item = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    // S = Q K^T over the head dim's chunks, four k-steps of 16 a chunk (32
+    // bytes along a 128-byte swizzled row), one sum.
+    for (int si = 0; si < ns; ++si, ++item) {
+      const int slot = item % lay.stages;
+      const uint32_t stg = ring + slot * lay.stage_bytes;
+      mbar_wait(bar_full + 8 * slot, (item / lay.stages) & 1);
+      const int nch = min(lay.sc, lay.c - si * lay.sc);
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            osum[i][jj] = fmaf(pv[i], x, osum[i][jj]);
+      for (int j = 0; j < KC; ++j) {
+        if (j < nch) {
+          const uint32_t qa =
+              (RES ? base + j * QROWS * RB : stg + j * QROWS * RB) +
+              qg * 64 * RB;
+          const uint32_t ka = stg + k_off + j * BN * RB;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_m64k16<BN>(s, sw128_desc(qa + 32 * kk, 16),
+                             sw128_desc(ka + 32 * kk, 16), (si | j | kk) != 0);
           }
         }
       }
+      wgmma_commit();
+      refill(item);
+      wgmma_wait();
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * slot);
     }
-    reduce_rows<false>(l, red, stat, ty, tx, tid);
-    if (SCALED) {
-      // The library's update: l_corr = exp(m_run - m) l_run, l' = l +
-      // l_corr, O = O (l_corr / l') + sums / l', each f32 step rounded.
+    softmax_tile<SCALED, BN>(s, p, st, alpha, n - t * BN, quad, scale);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float l_corr = __fmul_rn(expf(__fsub_rn(m_run[i], m[i])),
-                                       l_run[i]);
-        const float l_next = __fadd_rn(l[i], l_corr);
-        const float inv = l_next == 0.f ? 1.f : __fdiv_rn(1.f, l_next);
-        const float keep = __fmul_rn(l_corr, inv);
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          acc[i][jj] = __fadd_rn(__fmul_rn(acc[i][jj], keep),
-                                 __fmul_rn(ob[i][jj], inv));
-        }
-        m_run[i] = m[i];
-        l_run[i] = l_next;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) l_run[i] = l[i];
+    for (int j = 0; j < OC * 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
     }
+    // O += P V: BN / 16 k-steps of 16 keys (2048 bytes of each chunk); this
+    // consumer's chunks are BN * 128 bytes apart (the leading byte offset
+    // of the MN-major operand).
+    const int slot = item % lay.stages;
+    const uint32_t va = ring + slot * lay.stage_bytes + g * OC * BN * RB;
+    mbar_wait(bar_full + 8 * slot, (item / lay.stages) & 1);
+    fence_regs(acc);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k) {
+      wgmma_pv<64 * OC>(acc, p[4 * k], p[4 * k + 1], p[4 * k + 2],
+                        p[4 * k + 3], sw128_desc(va + 2048 * k, BN * RB));
+    }
+    wgmma_commit();
+    refill(item);
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(p);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * slot);
+    ++item;
   }
 
+  // o / l to bf16, rows < n and columns < d.
+  const float l[2] = {quad_sum(st.l[0]), quad_sum(st.l[1])};
+  const int r0 = q0 + qg * 64 + warp * 16 + (lane >> 2);
+  const int col0 = (cbi * G + g) * OC * 64 + 2 * quad;
+  // Pairs as one 4-byte store where every offset is even.
+  const bool pairs = ((d | o_sn | o_sb) & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
     if (row >= n) continue;
-    T* out = o + b * o_sb + (long long)row * o_sn + hoff + os * DP;
+    __nv_bfloat16* orow = o + b * o_sb + row * o_sn + (long long)h * d;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < dv) {
-        store(out + c, SCALED ? acc[i][jj] : __fdiv_rn(acc[i][jj], l_run[i]));
+    for (int j = 0; j < OC * 8; ++j) {
+      const int col = col0 + 8 * j;
+      const float x0 = acc[4 * j + 2 * i] / l[i];
+      const float x1 = acc[4 * j + 2 * i + 1] / l[i];
+      if (pairs && col + 1 < d) {
+        *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(x0, x1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(x1);
       }
     }
   }
 }
 
-template <typename T, int DP, bool SCALED>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n, int heads, int d, int slices, long long q_sb,
-           long long q_sn,
-           long long k_sb, long long k_sn, long long v_sb, long long v_sn,
-           long long o_sb, long long o_sn, float scale, void* stream) {
-  const size_t bytes = sizeof(float) * smem_floats(DP);
+// (B, N, H, dm) bf16 with the (H, dm) pair contiguous as a 4-D map over
+// (dm, H, N, B), boxes of (64, 1, rows, 1), 128-byte swizzle, zero fill:
+// chunk ch's box at column 64 ch reads columns >= dm as zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+              int batch, int n, int heads, int dm, long long sb, long long sn,
+              int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dm, (cuuint64_t)heads,
+                              (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)dm * 2, (cuuint64_t)sn * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Views {
+  const void *q, *k, *v;
+  int dm;  // the maps' innermost dim: Dh, or the pad pass's round_up(Dh, 8)
+  long long q_sb, q_sn, k_sb, k_sn, v_sb, v_sn;
+};
+
+template <int QG, int G, int OC, int BN, bool RES, int KC, bool PW,
+          bool SCALED>
+int launch(const Plan& pl, const Views& in, void* o, int batch, int n,
+           int heads, int d, long long o_sb, long long o_sn, float scale,
+           cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, in.q, batch, n, heads, in.dm, in.q_sb, in.q_sn,
+                64 * QG) ||
+      !make_map(encode, &tk, in.k, batch, n, heads, in.dm, in.k_sb, in.k_sn,
+                BN) ||
+      !make_map(encode, &tv, in.v, batch, n, heads, in.dm, in.v_sb, in.v_sn,
+                BN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout lay{pl.c, pl.sc, pl.stages, pl.q_bytes(), pl.stage_bytes()};
+  const int smem = pl.smem_bytes();
+  auto kernel = attention_any_kernel<QG, G, OC, BN, RES, KC, PW, SCALED>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_any_kernel<T, DP, SCALED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + BM - 1) / BM * slices, heads, batch);
-  attention_any_kernel<T, DP, SCALED>
-      <<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, n, d, slices, q_sb,
-          q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale);
+  const dim3 grid((n + 64 * QG - 1) / (64 * QG) * pl.cb, heads, batch);
+  kernel<<<grid, pl.threads(), smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), n, d, pl.cb, lay, o_sb,
+      o_sn, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SCALED>
-int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
-             int n, int heads, int d, long long q_sb, long long q_sn,
-             long long k_sb, long long k_sn, long long v_sb, long long v_sn,
-             long long o_sb, long long o_sn, float scale, void* stream) {
-#define VRVG_ANY(DP, SLICES)                                                 \
-  return launch<T, DP, SCALED>(q, k, v, o, batch, n, heads, d, SLICES, q_sb, \
-                               q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn,     \
-                               scale, stream)
-  if (d <= 16) VRVG_ANY(16, 1);
-  if (d <= 32) VRVG_ANY(32, 1);
-  if (d <= 64) VRVG_ANY(64, 1);
-  if (d <= 128) VRVG_ANY(128, 1);
-  VRVG_ANY(256, (d + 255) / 256);
+// The instantiation of plan `pl` (attn_any::plan at bf16).
+template <bool SCALED>
+int dispatch(const Plan& pl, const Views& in, void* o, int batch, int n,
+             int heads, int d, long long o_sb, long long o_sn, float scale,
+             cudaStream_t stream) {
+#define VRVG_ANY(QG, G, OC, BN, RES, KC, PW)                               \
+  if (pl.qg == QG && pl.g == G && pl.oc == OC && pl.bn == BN &&             \
+      pl.resident() == RES && pl.sc <= KC && pl.pw == PW) {                 \
+    return launch<QG, G, OC, BN, RES, KC, PW, SCALED>(                      \
+        pl, in, o, batch, n, heads, d, o_sb, o_sn, scale, stream);          \
+  }
+  VRVG_ANY(3, 1, 1, 128, true, 1, false)
+  VRVG_ANY(2, 1, 2, 128, true, 2, true)
+  VRVG_ANY(2, 1, 3, 64, true, 3, true)
+  VRVG_ANY(2, 1, 4, 64, true, 4, false)
+  VRVG_ANY(1, 2, 3, 64, true, 6, true)
+  VRVG_ANY(1, 2, 4, 64, true, 9, false)
+  VRVG_ANY(1, 2, 4, 64, false, 4, false)
 #undef VRVG_ANY
+  return (int)cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, long long sb, long long sn) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 &&
+         sn % 8 == 0;
 }
 
 }  // namespace
+
+// f32 (csrc/attention_any_f32.cu): the same arguments, `scratch` the split
+// pass's 6 * B * H * Npad * DP floats (ops/attention.py f32_scratch_numel).
+extern "C" int vrvg_attention_any_f32(const void* q, const void* k,
+                                      const void* v, void* o, int batch,
+                                      int n, int heads, int d, long long q_sb,
+                                      long long q_sn, long long k_sb,
+                                      long long k_sn, long long v_sb,
+                                      long long v_sn, long long o_sb,
+                                      long long o_sn, float scale,
+                                      int scaled, void* scratch,
+                                      void* stream);
 
 // q/k/v/o: (B, N, H, Dh) with the (H, Dh) pair contiguous, bf16 (f32 == 0)
 // or f32; the batch and token strides in elements; Dh >= 1. scaled == 0:
 // row 2, q pre-scaled, `scale` ignored; scaled != 0: row 17, the f32 logits
 // times `scale`, past FLASH_ONE_BLOCK tokens Dh <= 128 or a multiple of 128
-// (the library kernel's rule). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a head dim it refuses.
+// (the library kernel's rule). `scratch`: at bf16, where TMA cannot read
+// q, k and v as they are (Dh % 8, a stride % 8 or an address % 16 not 0),
+// 3 * B * N * H * round_up(Dh, 8) bf16 for the pad pass, else unused; at
+// f32 the split pass's. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what no kernel computes (writing nothing).
 extern "C" int vrvg_attention_any(const void* q, const void* k, const void* v,
                                   void* o, int batch, int n, int heads, int d,
                                   long long q_sb, long long q_sn,
                                   long long k_sb, long long k_sn,
                                   long long v_sb, long long v_sn,
                                   long long o_sb, long long o_sn, float scale,
-                                  int scaled, int f32, void* stream) {
+                                  int scaled, int f32, void* scratch,
+                                  void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
   if (d < 1 ||
       (scaled && n > FLASH_ONE_BLOCK && d > 128 && d % 128 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-#define VRVG_ARGS                                                         \
-  q, k, v, o, batch, n, heads, d, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, \
-      o_sn, scale, stream
   if (f32) {
-    return scaled ? dispatch<float, true>(VRVG_ARGS)
-                  : dispatch<float, false>(VRVG_ARGS);
+    return vrvg_attention_any_f32(q, k, v, o, batch, n, heads, d, q_sb, q_sn,
+                                  k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, scale,
+                                  scaled, scratch, stream);
   }
-  return scaled ? dispatch<uint16_t, true>(VRVG_ARGS)
-                : dispatch<uint16_t, false>(VRVG_ARGS);
-#undef VRVG_ARGS
+  Views in{q, k, v, d, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn};
+  if (d % 8 != 0 || !aligned16(q, q_sb, q_sn) || !aligned16(k, k_sb, k_sn) ||
+      !aligned16(v, v_sb, v_sn)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int dm = (d + 7) / 8 * 8;
+    const long long part = (long long)batch * n * heads * dm;
+    const long long sn = (long long)heads * dm, sb = n * sn;
+    int err = vrvg_attention_any_pad(q, k, v, scratch, batch, n, heads, d, dm,
+                                     q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+                                     stream);
+    if (err != 0) return err;
+    const __nv_bfloat16* ws = static_cast<const __nv_bfloat16*>(scratch);
+    in = Views{ws, ws + part, ws + 2 * part, dm, sb, sn, sb, sn, sb, sn};
+  }
+  const Plan pl = attn_any::plan(d, 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return scaled ? dispatch<true>(pl, in, o, batch, n, heads, d, o_sb, o_sn,
+                                 scale, st)
+                : dispatch<false>(pl, in, o, batch, n, heads, d, o_sb, o_sn,
+                                  scale, st);
 }

@@ -86,10 +86,16 @@ SIGNATURES = {
     "vrvg_swiglu_residual_f32": [_P] * 11 + [_I, _I, _I, _F, _P],
     "vrvg_head_tail_f32": [_P, _I] + [_P] * 12 + [_I] * 8 + [_P],
     "vrvg_rcu_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
-    # Rows 2 and 17 at any head dim but 64, bf16 or f32
-    # (csrc/attention_any.cu).
+    # Rows 2 and 17 at any head dim but 64, bf16 or f32 (kernel 1:
+    # csrc/attention_any.cu, csrc/attention_any_f32.cu), with its pass's
+    # scratch before the stream; the passes alone (csrc/attention_any_pass.cu).
     "vrvg_attention_any": [_P, _P, _P, _P, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
+                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P,
+                           _P],
+    "vrvg_attention_any_pad": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _P],
+    "vrvg_attention_any_split": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _L, _L, _L, _L, _L, _L, _P],
 }
 
 

@@ -27,15 +27,23 @@ accumulator), an f32 softmax, nothing cast: 96-109 TFLOP/s on an H100
 
 Those kernels take head dim 64, that of every published encoder. At any
 other head dim (a custom ``ModelConfig``: 12 heads at D = 384, 6 at D =
-768, 2 at D = 768), both rows, bf16 and f32, launch
-``csrc/attention_any.cu`` (counted as ``attention_any``,
-``flash_attention_any`` and their ``_f32`` twins): the same arithmetic
-contracts on f32 FFMA, the head dim zero-padded in shared memory, and
-above 256 walked in 256-wide slices. Row 17 takes the head dims the library
-flash kernel takes (:func:`flash_takes`): past 4096 tokens, where it walks
-K in blocks, up to 128 and multiples of 128 above; at another it raises
-NotImplementedError, as the library kernel does, on the CPU as on the card.
-Row 2 takes every head dim, as ``oneshot_mha`` does.
+768, 2 at D = 768), both rows launch kernel 1 (counted as
+``attention_any``, ``flash_attention_any`` and their ``_f32`` twins):
+``csrc/attention_any.cu`` at bf16, ``csrc/attention.cu``'s design (a TMA
+ring, wgmma consumers, the online softmax on the accumulators) with the head
+dim zero-padded to a multiple of 64 in 64-wide chunks, and
+``csrc/attention_any_f32.cu`` at f32, ``csrc/attention_f32.cu``'s 3xTF32
+design at any head dim; each block's shape by head dim from
+``csrc/attention_any_plan.cuh``. At bf16, where TMA cannot read q, k and v
+as they are (a head dim that is no multiple of 8, or strides that are no
+multiple of 16 bytes: :func:`tma_reads`), a pad pass first writes them to
+scratch with 16-byte rows; at f32 a split pass writes their TF32 hi/lo
+planes to scratch (:func:`any_scratch_numel`). Both passes are part of the
+launch. Row 17 takes the head dims the library flash kernel takes
+(:func:`flash_takes`): past 4096 tokens, where it walks K in blocks, up to
+128 and multiples of 128 above; at another it raises NotImplementedError,
+as the library kernel does, on the CPU as on the card. Row 2 takes every
+head dim, as ``oneshot_mha`` does.
 """
 
 from __future__ import annotations
@@ -59,6 +67,9 @@ MAX_ONESHOT_TOKENS = 4096  # attention_pallas._MAX_SEQ
 FLASH_BLOCK = 512          # ops/attention._FLASH_BLOCK
 FLASH_ONE_BLOCK = 4096     # _flash_mha: one K block up to this padded length
 F32_KEY_TILE = 64          # csrc/attention_f32.cu BN: the split K/V's padding
+# Kernel 1's f32 split pass (csrc/attention_any_f32.cu): rows padded to a
+# multiple of ANY_F32_ROWS, head dims to one of ANY_F32_CHUNK.
+ANY_F32_ROWS, ANY_F32_CHUNK = 128, 32
 # The library kernel's logit for a masked key (flash_attention.DEFAULT_MASK_VALUE).
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -154,11 +165,38 @@ def _check_layout(kernel: str, name: str, x: torch.Tensor, shape,
 def f32_scratch_numel(b: int, n: int, h: int, d: int = HEAD_DIM) -> int:
     """Floats of scratch an f32 attention launch takes at head dim ``d``:
     at 64, ``csrc/attention_f32.cu``'s K_hi, K_lo, V^T_hi and V^T_lo, each
-    (B, H, N rounded up to 64, 64); at any other head dim none
-    (``csrc/attention_any.cu`` splits nothing)."""
-    if d != HEAD_DIM:
+    (B, H, N rounded up to 64, 64); at any other, kernel 1's split pass
+    (``csrc/attention_any_pass.cu``): Q, K and V^T each as TF32 hi and lo
+    planes of (B, H, N rounded up to ANY_F32_ROWS, Dh rounded up to
+    ANY_F32_CHUNK)."""
+    if d == HEAD_DIM:
+        return 4 * b * h * -(-n // F32_KEY_TILE) * F32_KEY_TILE * HEAD_DIM
+    npad = -(-n // ANY_F32_ROWS) * ANY_F32_ROWS
+    return 6 * b * h * npad * -(-d // ANY_F32_CHUNK) * ANY_F32_CHUNK
+
+
+def tma_reads(*views: torch.Tensor) -> bool:
+    """Whether kernel 1's bf16 kernel reads ``views`` through TMA as they
+    are: the head dim's rows and every token and batch stride multiples of
+    16 bytes, 16-byte aligned (a qkv output's views at a head dim that is a
+    multiple of 8)."""
+    return all(x.shape[3] % 8 == 0 and x.stride(0) % 8 == 0
+               and x.stride(1) % 8 == 0 and x.data_ptr() % 16 == 0
+               for x in views)
+
+
+def any_scratch_numel(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> int:
+    """Elements (of q's dtype) of scratch kernel 1 takes for these views: at
+    f32 the split pass's (:func:`f32_scratch_numel`); at bf16 none where TMA
+    reads the views (:func:`tma_reads`), else the pad pass's q, k and v with
+    rows of Dh rounded up to 8."""
+    b, n, h, d = q.shape
+    if q.dtype == torch.float32:
+        return f32_scratch_numel(b, n, h, d)
+    if tma_reads(q, k, v):
         return 0
-    return 4 * b * h * -(-n // F32_KEY_TILE) * F32_KEY_TILE * HEAD_DIM
+    return 3 * b * n * h * -(-d // 8) * 8
 
 
 def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,10 +232,14 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_any(kernel: str, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch ``csrc/attention_any.cu`` at q's head dim: q, k and v need
-    only their (H, Dh) pair contiguous, any token and batch stride (strided
-    views into a qkv output at an odd head dim included)."""
+    """Launch kernel 1 (``csrc/attention_any.cu``, at f32
+    ``csrc/attention_any_f32.cu``) at q's head dim, with its pass's scratch
+    (:func:`any_scratch_numel`): q, k and v need only their (H, Dh) pair
+    contiguous, any token and batch stride (strided views into a qkv output
+    at an odd head dim included)."""
     b, n, h, d = q.shape
+    if d < 1:
+        raise ValueError(f"{kernel} kernel: head dim must be >= 1, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != q.dtype or tuple(x.shape) != (b, n, h, d) \
                 or x.stride(3) != 1 or x.stride(2) != d:
@@ -208,12 +250,14 @@ def _launch_any(kernel: str, q: torch.Tensor, k: torch.Tensor,
     from vr_video_generator_tpu_torch.kernels.build import check, library
 
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(any_scratch_numel(q, k, v), dtype=q.dtype,
+                     device=q.device)
     err = library().vrvg_attention_any(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1), scale,
         int(kernel == "flash_attention"), int(q.dtype == torch.float32),
-        stream_handle(q.device))
+        ws.data_ptr() if ws.numel() else None, stream_handle(q.device))
     check(err, "vrvg_attention_any")
     return o
 
